@@ -1,0 +1,608 @@
+// Class-granular first-fit-decreasing packing on an NVIDIA H100 (sm_90a).
+//
+// Replaces the jit'd XLA programs of the JAX package's ops/classpack.py:
+//   class_pack_kernel[_packed]                 -> K1 classpack_precompute + K2 classpack_scan
+//   class_pack_assign_kernel[_fresh]           -> K1 + K2 (emitting takes) + K3 classpack_assign_decode
+//   class_pack_aggregate_kernel[_packed|_fresh] -> K1 + K2 + K4 classpack_aggregate
+//
+// Plain C interface (each entry returns cudaError_t), loaded with ctypes.
+// Every launch goes on the caller's stream; nothing here synchronises or
+// allocates: the Python wrappers allocate outputs and scratch.
+//
+// Arithmetic follows the reference exactly: int32 state with two's
+// complement wrap (sums are taken in uint32), floor division (C++ `/`
+// truncates, and slot free space goes negative when existing usage exceeds
+// the lowered allocatable), and the float32 score price * float(nodes)
+// rounded to nearest with no contraction, clamped at SCORE_CAP.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBig = 1 << 30;
+constexpr float kScoreCap = 3.38e38f;  // ops/ffd.py SCORE_CAP as float32
+constexpr int kMaxR = 32;
+
+__device__ __forceinline__ int floordiv(int a, int b) {
+  // b > 0 always (requests <= 0 are masked out before dividing)
+  int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int compat_bit(const uint8_t* row, int o) {
+  // np.packbits order: option o is byte o >> 3, bit 7 - (o & 7)
+  return (row[o >> 3] >> (7 - (o & 7))) & 1;
+}
+
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+
+__device__ __forceinline__ int wrap_sub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+
+// Block-wide exclusive prefix sum (uint32, wrapping) of one value per
+// thread; also returns the block total.  `warp_buf` holds >= 32 entries.
+__device__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_buf,
+                                         unsigned* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  unsigned x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    unsigned y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  __syncthreads();  // warp_buf may still be read from a previous call
+  if (lane == 31) warp_buf[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned w = lane < nwarps ? warp_buf[lane] : 0u;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      unsigned y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += y;
+    }
+    if (lane < nwarps) warp_buf[lane] = w;  // inclusive warp prefix
+  }
+  __syncthreads();
+  unsigned before = warp ? warp_buf[warp - 1] : 0u;
+  *total = warp_buf[nwarps - 1];
+  return before + x - v;
+}
+
+__device__ unsigned block_sum(unsigned v, unsigned* warp_buf) {
+  unsigned total;
+  block_exclusive_scan(v, warp_buf, &total);
+  return total;
+}
+
+// ---------------------------------------------------------------------------
+// K1 classpack_precompute  (replaces ops/classpack.py class_pack_kernel
+// :75-85, the per-(class x option) precompute hoisted out of the scan)
+//
+// One block per class, threads stride over options.  m[c,o] = pods of class
+// c a fresh option-o node holds; ok[c,o] = launchable and compatible, then
+// restricted to the class's best pool-weight rank.  Bound on this card:
+// bytes (it writes 5 bytes per (class, option) and does ~R integer divides
+// for each); the design reads each packed compat byte and each option row
+// straight from L2 and writes m/ok coalesced along options.
+// ---------------------------------------------------------------------------
+__global__ void precompute_kernel(const int* __restrict__ req,
+                                  const int* __restrict__ node_cap,
+                                  const uint8_t* __restrict__ compat_packed,
+                                  const int* __restrict__ alloc,
+                                  const float* __restrict__ price,
+                                  const int* __restrict__ rank, int O, int R,
+                                  int OB, int* __restrict__ m_out,
+                                  uint8_t* __restrict__ ok_out) {
+  __shared__ int s_req[kMaxR];
+  __shared__ int s_best;
+  const int c = blockIdx.x;
+  if (threadIdx.x < R) s_req[threadIdx.x] = req[(size_t)c * R + threadIdx.x];
+  if (threadIdx.x == 0) s_best = kBig;
+  __syncthreads();
+  const int cap = node_cap[c];
+  const uint8_t* crow = compat_packed + (size_t)c * OB;
+  int best = kBig;
+  for (int o = threadIdx.x; o < O; o += blockDim.x) {
+    int m = kBig;
+    for (int r = 0; r < R; ++r) {
+      const int q = s_req[r];
+      if (q > 0) m = min(m, floordiv(alloc[(size_t)o * R + r], q));
+    }
+    m = min(m, cap);
+    const bool ok = compat_bit(crow, o) && m > 0 && isfinite(price[o]);
+    m_out[(size_t)c * O + o] = m;
+    ok_out[(size_t)c * O + o] = ok ? 1 : 0;
+    if (ok) best = min(best, rank[o]);
+  }
+  atomicMin(&s_best, best);
+  __syncthreads();
+  best = s_best;
+  for (int o = threadIdx.x; o < O; o += blockDim.x) {
+    // each thread re-reads only what it wrote itself
+    if (ok_out[(size_t)c * O + o] && rank[o] != best)
+      ok_out[(size_t)c * O + o] = 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 classpack_scan  (replaces ops/classpack.py class_pack_kernel :87-152,
+// the lax.scan over classes; the _fresh variants build the all-closed init
+// state in-kernel)
+//
+// The scan is a sequential carry over classes, so it runs as ONE persistent
+// block of 1024 threads; thread t owns the S contiguous slots
+// [t*S, t*S+S) (S = ceil(K/1024), a template parameter so the per-slot fit
+// and take stay in registers).  Slot state (option, free[R]) lives in a
+// global scratch buffer that stays resident in L2 (K*R*4 = 229 KB at the
+// headline shape, just over one block's shared memory).  Per class step:
+// per-slot fit, a block-wide exclusive scan for the greedy first-fit fill,
+// a block-wide argmin over the options' new-node score (ties to the lowest
+// index), then the opening of n_new slots.  Bound on this card: the
+// sequential dependency over classes (latency of ~6 block barriers and the
+// L2 round trips per class), not bytes or operations: one SM does the
+// whole scan.
+// ---------------------------------------------------------------------------
+constexpr int kScanThreads = 1024;
+
+template <int S>
+__global__ void __launch_bounds__(kScanThreads, 1)
+scan_kernel(const int* __restrict__ req, const int* __restrict__ counts,
+            const uint8_t* __restrict__ compat_packed,
+            const int* __restrict__ node_cap, const int* __restrict__ alloc,
+            const float* __restrict__ price, const int* __restrict__ m_all,
+            const uint8_t* __restrict__ ok_all,
+            const int* __restrict__ init_option,
+            const int* __restrict__ init_used, int C, int O, int R, int OB,
+            int K, int emit, int* __restrict__ slot_option,
+            int* __restrict__ slot_free, int* __restrict__ slot_used,
+            int* __restrict__ scalars, int* __restrict__ takes) {
+  __shared__ unsigned s_warp[32];
+  __shared__ float s_sc[32];
+  __shared__ int s_ix[32];
+  __shared__ int s_req[kMaxR];
+  __shared__ int s_j;
+  __shared__ float s_score;
+  const int t = threadIdx.x;
+  const int k0 = t * S;
+
+  // ---- init state: closed slots, or the pre-opened existing columns ----
+  unsigned opened = 0;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int k = k0 + i;
+    if (k >= K) break;
+    const int opt = init_option ? init_option[k] : -1;
+    slot_option[k] = opt;
+    for (int r = 0; r < R; ++r) {
+      const size_t kr = (size_t)k * R + r;
+      slot_free[kr] = opt >= 0 ? wrap_sub(alloc[(size_t)opt * R + r],
+                                          init_used[kr])
+                               : 0;
+    }
+    opened += opt >= 0;
+  }
+  int n_open = (int)block_sum(opened, s_warp);
+  int n_unsched = 0;
+
+  for (int c = 0; c < C; ++c) {
+    __syncthreads();  // s_req / s_j of the previous class are consumed
+    if (t < R) s_req[t] = req[(size_t)c * R + t];
+    __syncthreads();
+    const int cnt = counts[c];
+    const int cap = node_cap[c];
+    const uint8_t* crow = compat_packed + (size_t)c * OB;
+
+    // 1. per-slot fit
+    int fit[S];
+    unsigned fsum = 0;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int k = k0 + i;
+      int f = 0;
+      if (k < K) {
+        const int opt = slot_option[k];
+        if (opt >= 0 && compat_bit(crow, opt)) {
+          int v = kBig;
+          for (int r = 0; r < R; ++r) {
+            const int q = s_req[r];
+            if (q > 0) v = min(v, floordiv(slot_free[(size_t)k * R + r], q));
+          }
+          v = min(v, cap);
+          f = max(v, 0);
+        }
+      }
+      fit[i] = f;
+      fsum += (unsigned)f;
+    }
+    // 2. exclusive prefix over slots, 3. greedy first-fit fill
+    unsigned total_fit;
+    unsigned run = block_exclusive_scan(fsum, s_warp, &total_fit);
+    int take[S];
+    unsigned tsum = 0;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int d = wrap_sub(cnt, (int)run);
+      take[i] = min(max(d, 0), fit[i]);
+      tsum += (unsigned)take[i];
+      run += (unsigned)fit[i];
+    }
+    const int taken = (int)block_sum(tsum, s_warp);
+    const int remaining = wrap_sub(cnt, taken);
+
+    // 4. new-node option: argmin of min(price * ceil(rem/m), SCORE_CAP)
+    float best_sc = INFINITY;
+    int best_ix = 0x7fffffff;
+    const int rem1 = max(remaining, 1);
+    for (int o = t; o < O; o += kScanThreads) {
+      const size_t co = (size_t)c * O + o;
+      if (!ok_all[co]) continue;  // score +inf never beats the running min
+      const int ms = max(m_all[co], 1);
+      const int nn = floordiv(wrap_add(rem1, ms - 1), ms);
+      const float sc = fminf(__fmul_rn(price[o], __int2float_rn(nn)),
+                             kScoreCap);
+      if (sc < best_sc) {  // strict: the lowest index wins ties
+        best_sc = sc;
+        best_ix = o;
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const float os = __shfl_down_sync(0xffffffffu, best_sc, d);
+      const int oi = __shfl_down_sync(0xffffffffu, best_ix, d);
+      if (os < best_sc || (os == best_sc && oi < best_ix)) {
+        best_sc = os;
+        best_ix = oi;
+      }
+    }
+    if ((t & 31) == 0) {
+      s_sc[t >> 5] = best_sc;
+      s_ix[t >> 5] = best_ix;
+    }
+    __syncthreads();
+    if (t < 32) {
+      best_sc = s_sc[t];
+      best_ix = s_ix[t];
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        const float os = __shfl_down_sync(0xffffffffu, best_sc, d);
+        const int oi = __shfl_down_sync(0xffffffffu, best_ix, d);
+        if (os < best_sc || (os == best_sc && oi < best_ix)) {
+          best_sc = os;
+          best_ix = oi;
+        }
+      }
+      if (t == 0) {
+        // all scores +inf: jnp.argmin answers index 0 and `can` is false
+        s_j = isfinite(best_sc) ? best_ix : 0;
+        s_score = best_sc;
+      }
+    }
+    __syncthreads();
+    const int j = s_j;
+    const bool can = isfinite(s_score);
+
+    // 5. open n_new slots of option j, the last one partial
+    const int m_sel = max(m_all[(size_t)c * O + j], 1);
+    const int needed = (can && remaining > 0)
+                           ? floordiv(wrap_add(remaining, m_sel - 1), m_sel)
+                           : 0;
+    const int n_new = min(needed, K - n_open);
+    const int sched_new = min(remaining, n_new * m_sel);
+    const int rem_last = sched_new - (n_new - 1) * m_sel;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int k = k0 + i;
+      if (k >= K) break;
+      int placed = take[i];
+      if (k >= n_open && k < n_open + n_new) {
+        const int pods_on = (k == n_open + n_new - 1) ? rem_last : m_sel;
+        slot_option[k] = j;
+        for (int r = 0; r < R; ++r)
+          slot_free[(size_t)k * R + r] =
+              alloc[(size_t)j * R + r] - pods_on * s_req[r];
+        placed += pods_on;  // new slots were closed, so take[i] == 0
+      } else if (take[i]) {
+        for (int r = 0; r < R; ++r)
+          slot_free[(size_t)k * R + r] -= take[i] * s_req[r];
+      }
+      if (emit) takes[(size_t)c * K + k] = placed;
+    }
+    if (!emit && t == 0) takes[c] = taken;  // per-class sum(take)
+    n_open += n_new;
+    n_unsched = wrap_add(n_unsched, remaining - sched_new);
+  }
+
+  // ---- outputs: slot_used = alloc[opt] - free on open slots ----
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int k = k0 + i;
+    if (k >= K) break;
+    const int opt = slot_option[k];
+    for (int r = 0; r < R; ++r) {
+      const size_t kr = (size_t)k * R + r;
+      slot_used[kr] =
+          opt >= 0 ? wrap_sub(alloc[(size_t)opt * R + r], slot_free[kr]) : 0;
+    }
+  }
+  if (t == 0) {
+    scalars[0] = n_open;
+    scalars[1] = n_unsched;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 classpack_assign_decode  (replaces ops/classpack.py
+// class_pack_assign_kernel :228-245: the global cumsum of the C x K takes,
+// the pod -> class repeat and the searchsorted to a per-pod slot)
+//
+// A multi-block inclusive int32 scan of the takes (tile scan, a one-block
+// scan of the tile sums that also scans the class counts, add-back), then
+// one thread per padded pod row.  Bound on this card: bytes (the takes are
+// read twice and the flat scan written once); the binary searches touch
+// one K-wide row each and stay in L2.
+// ---------------------------------------------------------------------------
+constexpr int kTileThreads = 1024;
+constexpr int kTileItems = 4;
+constexpr int kTile = kTileThreads * kTileItems;
+
+__global__ void __launch_bounds__(kTileThreads)
+tile_scan_kernel(const int* __restrict__ x, long long n,
+                 int* __restrict__ flat, int* __restrict__ tile_sums) {
+  __shared__ unsigned s_warp[32];
+  const long long base = (long long)blockIdx.x * kTile +
+                         (long long)threadIdx.x * kTileItems;
+  unsigned v[kTileItems];
+  unsigned s = 0;
+#pragma unroll
+  for (int i = 0; i < kTileItems; ++i) {
+    v[i] = base + i < n ? (unsigned)x[base + i] : 0u;
+    s += v[i];
+    v[i] = s;  // thread-local inclusive
+  }
+  unsigned total;
+  const unsigned before = block_exclusive_scan(s, s_warp, &total);
+#pragma unroll
+  for (int i = 0; i < kTileItems; ++i)
+    if (base + i < n) flat[base + i] = (int)(before + v[i]);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = (int)total;
+}
+
+__global__ void __launch_bounds__(kTileThreads)
+tile_sums_kernel(int* __restrict__ tile_sums, int n_tiles,
+                 const int* __restrict__ counts, int C,
+                 int* __restrict__ cnt_incl) {
+  __shared__ unsigned s_warp[32];
+  // exclusive scan of the tile sums, in place, in chunks with a carry
+  unsigned carry = 0;
+  for (int s0 = 0; s0 < n_tiles; s0 += blockDim.x) {
+    const int i = s0 + threadIdx.x;
+    const unsigned v = i < n_tiles ? (unsigned)tile_sums[i] : 0u;
+    unsigned total;
+    const unsigned ex = block_exclusive_scan(v, s_warp, &total);
+    if (i < n_tiles) tile_sums[i] = (int)(carry + ex);
+    carry += total;
+  }
+  // inclusive scan of the class counts (the repeat's boundaries)
+  carry = 0;
+  for (int s0 = 0; s0 < C; s0 += blockDim.x) {
+    const int i = s0 + threadIdx.x;
+    const unsigned v = i < C ? (unsigned)counts[i] : 0u;
+    unsigned total;
+    const unsigned ex = block_exclusive_scan(v, s_warp, &total);
+    if (i < C) cnt_incl[i] = (int)(carry + ex + v);
+    carry += total;
+  }
+}
+
+__global__ void add_back_kernel(int* __restrict__ flat, long long n,
+                                const int* __restrict__ tile_off) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) flat[i] = wrap_add(flat[i], tile_off[i / kTile]);
+}
+
+template <typename OutT>
+__global__ void decode_kernel(const int* __restrict__ flat,
+                              const int* __restrict__ cnt_incl, int C, int K,
+                              int n_pods, OutT* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_pods) return;
+  // class of row i: the first class whose inclusive count exceeds i; rows
+  // past the last pod take class C-1 (jnp.repeat's total_repeat_length pad)
+  int lo = 0, hi = C;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (cnt_incl[mid] > i) hi = mid; else lo = mid + 1;
+  }
+  const int c = lo < C ? lo : C - 1;
+  const int excl = c ? cnt_incl[c - 1] : 0;
+  const int rk = i - excl;
+  const size_t row = (size_t)c * K;
+  const int base = c ? flat[row - 1] : 0;
+  const int total = wrap_sub(flat[row + K - 1], base);
+  const int q = wrap_add(base, rk);
+  // searchsorted(flat, q, side="right") - c*K.  The takes are >= 0, so the
+  // flat scan is non-decreasing; a scheduled pod (rk < total) has
+  // flat[row-1] = base <= q < flat[row+K-1], so the global search lands
+  // inside class c's K-wide row and searching only that row is equivalent.
+  int a = 0, b = K;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (flat[row + mid] <= q) a = mid + 1; else b = mid;
+  }
+  out[i] = (OutT)(rk < total ? a : -1);
+}
+
+// ---------------------------------------------------------------------------
+// K4 classpack_aggregate  (replaces ops/classpack.py
+// class_pack_aggregate_kernel :169-178)
+//
+// One block: an exact integer histogram of launched slots per option in
+// shared memory, and the float32 sum of their prices (thread partials, then
+// a fixed-order tree, so the result is deterministic).  Output layout
+// [total_cost, n_open, n_unsched, nodes_per_option...] as float32.  Bound on
+// this card: bytes, and at 64 KB of input it is launch latency in practice.
+// ---------------------------------------------------------------------------
+constexpr int kAggThreads = 1024;
+
+__global__ void __launch_bounds__(kAggThreads)
+aggregate_kernel(const int* __restrict__ slot_option,
+                 const float* __restrict__ price,
+                 const int* __restrict__ n_open,
+                 const int* __restrict__ n_unsched, int K, int O,
+                 float* __restrict__ out) {
+  extern __shared__ int s_hist[];
+  __shared__ float s_part[kAggThreads];
+  for (int o = threadIdx.x; o < O; o += blockDim.x) s_hist[o] = 0;
+  __syncthreads();
+  float acc = 0.0f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const int opt = slot_option[k];
+    if (opt >= 0) {
+      const float p = price[opt];
+      if (isfinite(p)) {
+        atomicAdd(&s_hist[opt], 1);
+        acc += p;
+      }
+    }
+  }
+  s_part[threadIdx.x] = acc;
+  __syncthreads();
+  for (int w = blockDim.x >> 1; w > 0; w >>= 1) {
+    if (threadIdx.x < w) s_part[threadIdx.x] += s_part[threadIdx.x + w];
+    __syncthreads();
+  }
+  for (int o = threadIdx.x; o < O; o += blockDim.x)
+    out[3 + o] = (float)s_hist[o];
+  if (threadIdx.x == 0) {
+    out[0] = s_part[0];
+    out[1] = (float)*n_open;
+    out[2] = (float)*n_unsched;
+  }
+}
+
+template <int S>
+cudaError_t launch_scan(const int* req, const int* counts,
+                        const uint8_t* compat_packed, const int* node_cap,
+                        const int* alloc, const float* price,
+                        const int* m_all, const uint8_t* ok_all,
+                        const int* init_option, const int* init_used, int C,
+                        int O, int R, int OB, int K, int emit,
+                        int* slot_option, int* slot_free, int* slot_used,
+                        int* scalars, int* takes, cudaStream_t stream) {
+  scan_kernel<S><<<1, kScanThreads, 0, stream>>>(
+      req, counts, compat_packed, node_cap, alloc, price, m_all, ok_all,
+      init_option, init_used, C, O, R, OB, K, emit, slot_option, slot_free,
+      slot_used, scalars, takes);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* kp_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int kp_max_r() { return kMaxR; }
+int kp_max_slots() { return kScanThreads * 32; }
+
+cudaError_t kp_precompute(const int* req, const int* node_cap,
+                          const uint8_t* compat_packed, const int* alloc,
+                          const float* price, const int* rank, int C, int O,
+                          int R, int* m_out, uint8_t* ok_out,
+                          cudaStream_t stream) {
+  if (R > kMaxR || C <= 0) return cudaErrorInvalidValue;
+  const int OB = (O + 7) / 8;
+  precompute_kernel<<<C, 256, 0, stream>>>(req, node_cap, compat_packed,
+                                           alloc, price, rank, O, R, OB,
+                                           m_out, ok_out);
+  return cudaGetLastError();
+}
+
+// init_option / init_used may be null: the all-closed (_fresh) init state
+// is then built in-kernel.  takes is C x K when emit, else C (per-class
+// sum of fills).  scalars receives [n_open, n_unsched].
+cudaError_t kp_scan(const int* req, const int* counts,
+                    const uint8_t* compat_packed, const int* node_cap,
+                    const int* alloc, const float* price, const int* m_all,
+                    const uint8_t* ok_all, const int* init_option,
+                    const int* init_used, int C, int O, int R, int K,
+                    int emit, int* slot_option, int* slot_free,
+                    int* slot_used, int* scalars, int* takes,
+                    cudaStream_t stream) {
+  if (R > kMaxR || K <= 0 || C <= 0) return cudaErrorInvalidValue;
+  const int OB = (O + 7) / 8;
+  const int S = (K + kScanThreads - 1) / kScanThreads;
+#define KP_SCAN(SS)                                                          \
+  return launch_scan<SS>(req, counts, compat_packed, node_cap, alloc, price, \
+                         m_all, ok_all, init_option, init_used, C, O, R, OB, \
+                         K, emit, slot_option, slot_free, slot_used, scalars,\
+                         takes, stream)
+  if (S <= 1) KP_SCAN(1);
+  if (S <= 2) KP_SCAN(2);
+  if (S <= 4) KP_SCAN(4);
+  if (S <= 8) KP_SCAN(8);
+  if (S <= 16) KP_SCAN(16);
+  if (S <= 32) KP_SCAN(32);
+#undef KP_SCAN
+  return cudaErrorInvalidValue;
+}
+
+int kp_decode_tiles(long long n) { return (int)((n + kTile - 1) / kTile); }
+
+// takes: C x K int32.  flat: C*K scratch, tile_sums: kp_decode_tiles(C*K)
+// scratch, cnt_incl: C scratch.  out: n_pods of int16 (out_int16) or int32.
+cudaError_t kp_assign_decode(const int* takes, const int* counts, int C,
+                             int K, int n_pods, int out_int16, int* flat,
+                             int* tile_sums, int* cnt_incl, void* out,
+                             cudaStream_t stream) {
+  if (C <= 0 || K <= 0) return cudaErrorInvalidValue;
+  const long long n = (long long)C * K;
+  const int n_tiles = kp_decode_tiles(n);
+  tile_scan_kernel<<<n_tiles, kTileThreads, 0, stream>>>(takes, n, flat,
+                                                         tile_sums);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  tile_sums_kernel<<<1, kTileThreads, 0, stream>>>(tile_sums, n_tiles, counts,
+                                                   C, cnt_incl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  add_back_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      flat, n, tile_sums);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (n_pods <= 0) return cudaSuccess;
+  const int blocks = (n_pods + 255) / 256;
+  if (out_int16)
+    decode_kernel<int16_t><<<blocks, 256, 0, stream>>>(
+        flat, cnt_incl, C, K, n_pods, static_cast<int16_t*>(out));
+  else
+    decode_kernel<int><<<blocks, 256, 0, stream>>>(
+        flat, cnt_incl, C, K, n_pods, static_cast<int*>(out));
+  return cudaGetLastError();
+}
+
+// n_open / n_unsched: the scan's device scalars.  out: 3 + O floats.
+cudaError_t kp_aggregate(const int* slot_option, const float* price,
+                         const int* n_open, const int* n_unsched, int K,
+                         int O, float* out, cudaStream_t stream) {
+  const size_t smem = (size_t)O * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  aggregate_kernel<<<1, kAggThreads, smem, stream>>>(
+      slot_option, price, n_open, n_unsched, K, O, out);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

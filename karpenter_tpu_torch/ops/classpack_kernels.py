@@ -1,0 +1,422 @@
+"""Wrappers of the class-granular packing kernels (csrc/classpack.cu).
+
+Four kernels carry the class-granular solve; each wrapper here has
+
+  * a plain PyTorch version of the same function (`*_plain`), which it
+    runs ONLY when its tensors lie on the CPU — the CPU tests use it, and
+    `chip_smoke.py` holds each kernel against it on the card;
+  * a launch counter (`LAUNCHES[name]`), raised by one exactly where the
+    wrapper launches its kernel;
+  * on CUDA tensors, the kernel itself: the wrapper checks device, dtype,
+    shape and contiguity, allocates outputs and scratch with torch, launches
+    on the current stream through the ctypes library and raises on any
+    `cudaError_t`.  There is no fallback to the plain version on the card.
+
+| kernel                  | replaces (JAX package)                                 |
+|-------------------------|--------------------------------------------------------|
+| classpack_precompute    | ops/classpack.py class_pack_kernel :75-85              |
+| classpack_scan          | ops/classpack.py class_pack_kernel :87-152             |
+| classpack_assign_decode | ops/classpack.py class_pack_assign_kernel :228-245     |
+| classpack_aggregate     | ops/classpack.py class_pack_aggregate_kernel :169-178  |
+
+All integer math is int32 with the reference's semantics (floor division,
+two's complement wrap); the new-node score is float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .ffd import SCORE_CAP
+
+BIG = 2**30
+
+KERNELS = ("classpack_precompute", "classpack_scan",
+           "classpack_assign_decode", "classpack_aggregate")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# the library
+# ---------------------------------------------------------------------------
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from .._build import load
+        lib = load("classpack")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.kp_error_string.argtypes = [i]
+        lib.kp_error_string.restype = ctypes.c_char_p
+        lib.kp_max_r.restype = i
+        lib.kp_max_slots.restype = i
+        lib.kp_decode_tiles.argtypes = [ll]
+        lib.kp_decode_tiles.restype = i
+        lib.kp_precompute.argtypes = [p] * 6 + [i] * 3 + [p, p, p]
+        lib.kp_precompute.restype = i
+        lib.kp_scan.argtypes = [p] * 10 + [i] * 5 + [p] * 5 + [p]
+        lib.kp_scan.restype = i
+        lib.kp_assign_decode.argtypes = [p, p, i, i, i, i, p, p, p, p, p]
+        lib.kp_assign_decode.restype = i
+        lib.kp_aggregate.argtypes = [p] * 4 + [i, i, p, p]
+        lib.kp_aggregate.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        msg = _lib().kp_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def _on_cuda(*tensors) -> bool:
+    """True for all-CUDA inputs, False for all-CPU; mixed devices raise."""
+    devs = {t.device for t in tensors if t is not None}
+    kinds = {d.type for d in devs}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len(devs) == 1:
+        return True
+    raise ValueError(f"inputs on mixed or unsupported devices: {sorted(map(str, devs))}")
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# bit packing (np.packbits / np.unpackbits along axis 1, big-endian bits)
+# ---------------------------------------------------------------------------
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    C, O = mask.shape
+    m = torch.nn.functional.pad(mask.to(torch.uint8), (0, (-O) % 8))
+    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                     device=mask.device)
+    return (m.reshape(C, -1, 8).to(torch.int32) * w).sum(-1).to(torch.uint8)
+
+
+def unpack_bits(packed: torch.Tensor, count: int) -> torch.Tensor:
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed.unsqueeze(-1) >> shifts) & 1
+    return bits.reshape(packed.shape[0], -1)[:, :count].bool()
+
+
+# ---------------------------------------------------------------------------
+# K1 classpack_precompute
+# ---------------------------------------------------------------------------
+
+def classpack_precompute_plain(requests, node_cap, compat_packed, alloc,
+                               price, rank):
+    C, R = requests.shape
+    O = alloc.shape[0]
+    compat = unpack_bits(compat_packed, O)
+    reqpos = requests > 0
+    safe = torch.where(reqpos, requests, torch.ones_like(requests))
+    m = torch.full((C, O), BIG, dtype=torch.int32, device=requests.device)
+    for r in range(R):
+        q = torch.div(alloc[None, :, r], safe[:, r, None], rounding_mode="floor")
+        m = torch.where(reqpos[:, r, None], torch.minimum(m, q), m)
+    m = torch.minimum(m, node_cap[:, None])
+    ok = compat & (m > 0) & torch.isfinite(price)[None, :]
+    best = torch.where(ok, rank[None, :], BIG).amin(dim=1)
+    ok = ok & (rank[None, :] == best[:, None])
+    return m, ok.to(torch.uint8)
+
+
+def classpack_precompute(requests: torch.Tensor, node_cap: torch.Tensor,
+                         compat_packed: torch.Tensor, alloc: torch.Tensor,
+                         price: torch.Tensor, rank: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(class × option) pods-per-node `m` (int32 C×O) and the
+    launchable, best-rank mask `ok` (uint8 C×O)."""
+    if not _on_cuda(requests, node_cap, compat_packed, alloc, price, rank):
+        return classpack_precompute_plain(requests, node_cap, compat_packed,
+                                          alloc, price, rank)
+    C, R = requests.shape
+    O = alloc.shape[0]
+    lib = _lib()
+    if R > lib.kp_max_r():
+        raise ValueError(f"R={R} resource axes exceed the kernel's {lib.kp_max_r()}")
+    _check(requests, "requests", torch.int32, (C, R))
+    _check(node_cap, "node_cap", torch.int32, (C,))
+    _check(compat_packed, "compat_packed", torch.uint8, (C, (O + 7) // 8))
+    _check(alloc, "alloc", torch.int32, (O, R))
+    _check(price, "price", torch.float32, (O,))
+    _check(rank, "rank", torch.int32, (O,))
+    dev = requests.device
+    m = torch.empty((C, O), dtype=torch.int32, device=dev)
+    ok = torch.empty((C, O), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_precompute(
+            _ptr(requests), _ptr(node_cap), _ptr(compat_packed), _ptr(alloc),
+            _ptr(price), _ptr(rank), C, O, R, _ptr(m), _ptr(ok), _stream(dev))
+    _raise_on(err, "classpack_precompute")
+    LAUNCHES["classpack_precompute"] += 1
+    return m, ok
+
+
+# ---------------------------------------------------------------------------
+# K2 classpack_scan
+# ---------------------------------------------------------------------------
+
+def classpack_scan_plain(requests, counts, compat_packed, node_cap, alloc,
+                         price, m_all, ok_all, init_option, init_used,
+                         max_nodes: int, emit_takes: bool):
+    C, R = requests.shape
+    O = alloc.shape[0]
+    K = max_nodes
+    dev = requests.device
+    i32 = torch.int32
+    compat = unpack_bits(compat_packed, O)
+    ok_all = ok_all.bool()
+    idx = torch.arange(K, dtype=i32, device=dev)
+    if init_option is None:
+        slot_option = torch.full((K,), -1, dtype=i32, device=dev)
+        init_used = torch.zeros((K, R), dtype=i32, device=dev)
+    else:
+        slot_option = init_option.clone()
+    slot_free = torch.where((slot_option >= 0)[:, None],
+                            alloc[slot_option.clamp(min=0).long()] - init_used,
+                            0)
+    n_open = (slot_option >= 0).sum().to(i32)
+    n_unsched = torch.zeros((), dtype=i32, device=dev)
+    cap_score = torch.tensor(SCORE_CAP, dtype=torch.float32, device=dev)
+    outs = []
+    for c in range(C):
+        req, cnt, cap = requests[c], counts[c], node_cap[c]
+        opt = slot_option.clamp(min=0).long()
+        reqpos = req > 0
+        safe = torch.where(reqpos, req, torch.ones_like(req))
+        fit = torch.where(reqpos[None, :],
+                          torch.div(slot_free, safe[None, :],
+                                    rounding_mode="floor"),
+                          BIG).amin(dim=-1)
+        fit = torch.minimum(fit, cap)
+        fit = torch.where((slot_option >= 0) & compat[c][opt],
+                          fit.clamp(min=0), 0)
+        prefix = torch.cumsum(fit, 0, dtype=i32) - fit
+        take = torch.minimum((cnt - prefix).clamp(min=0), fit)
+        remaining = cnt - take.sum(dtype=i32)
+        m = m_all[c]
+        m_safe = m.clamp(min=1)
+        nodes_needed = torch.div(remaining.clamp(min=1) + m_safe - 1, m_safe,
+                                 rounding_mode="floor")
+        score = torch.where(
+            ok_all[c],
+            torch.minimum(price * nodes_needed.to(torch.float32), cap_score),
+            float("inf"))
+        j = torch.argmin(score)
+        can = torch.isfinite(score[j])
+        m_sel = m[j].clamp(min=1)
+        needed = torch.where(can & (remaining > 0),
+                             torch.div(remaining + m_sel - 1, m_sel,
+                                       rounding_mode="floor"), 0)
+        n_new = torch.minimum(needed, K - n_open)
+        sched_new = torch.minimum(remaining, n_new * m_sel)
+        is_new = (idx >= n_open) & (idx < n_open + n_new)
+        pods_on = torch.where(is_new, m_sel, 0)
+        rem_last = sched_new - (n_new - 1) * m_sel
+        pods_on = torch.where(is_new & (idx == n_open + n_new - 1), rem_last,
+                              pods_on)
+        slot_option = torch.where(is_new, j.to(i32), slot_option)
+        slot_free = slot_free - take[:, None] * req[None, :]
+        slot_free = torch.where(is_new[:, None],
+                                alloc[j][None, :] - pods_on[:, None] * req[None, :],
+                                slot_free)
+        n_open = n_open + n_new
+        n_unsched = n_unsched + (remaining - sched_new)
+        outs.append(take + pods_on if emit_takes else take.sum(dtype=i32))
+    slot_used = torch.where((slot_option >= 0)[:, None],
+                            alloc[slot_option.clamp(min=0).long()] - slot_free, 0)
+    takes = (torch.stack(outs) if outs else
+             torch.zeros((0, K) if emit_takes else (0,), dtype=i32, device=dev))
+    return slot_option, slot_used, n_open, n_unsched, takes
+
+
+def classpack_scan(requests: torch.Tensor, counts: torch.Tensor,
+                   compat_packed: torch.Tensor, node_cap: torch.Tensor,
+                   alloc: torch.Tensor, price: torch.Tensor,
+                   m_all: torch.Tensor, ok_all: torch.Tensor,
+                   init_option: Optional[torch.Tensor],
+                   init_used: Optional[torch.Tensor],
+                   max_nodes: int, emit_takes: bool = False):
+    """The sequential class scan.  Returns (slot_option K, slot_used K×R,
+    n_open, n_unsched, takes): takes is the C×K placement matrix when
+    `emit_takes`, else the per-class sum of fills into open slots (C).
+    `init_option`/`init_used` None == all slots closed (the `_fresh`
+    variants: the state is built in-kernel)."""
+    if (init_option is None) != (init_used is None):
+        raise ValueError("init_option and init_used come together")
+    if not _on_cuda(requests, counts, compat_packed, node_cap, alloc, price,
+                    m_all, ok_all, init_option, init_used):
+        return classpack_scan_plain(requests, counts, compat_packed, node_cap,
+                                    alloc, price, m_all, ok_all, init_option,
+                                    init_used, max_nodes, emit_takes)
+    C, R = requests.shape
+    O = alloc.shape[0]
+    K = int(max_nodes)
+    lib = _lib()
+    if R > lib.kp_max_r() or not 0 < K <= lib.kp_max_slots():
+        raise ValueError(f"R={R} / K={K} outside the scan kernel's limits "
+                         f"({lib.kp_max_r()} axes, {lib.kp_max_slots()} slots)")
+    _check(requests, "requests", torch.int32, (C, R))
+    _check(counts, "counts", torch.int32, (C,))
+    _check(compat_packed, "compat_packed", torch.uint8, (C, (O + 7) // 8))
+    _check(node_cap, "node_cap", torch.int32, (C,))
+    _check(alloc, "alloc", torch.int32, (O, R))
+    _check(price, "price", torch.float32, (O,))
+    _check(m_all, "m_all", torch.int32, (C, O))
+    _check(ok_all, "ok_all", torch.uint8, (C, O))
+    if init_option is not None:
+        _check(init_option, "init_option", torch.int32, (K,))
+        _check(init_used, "init_used", torch.int32, (K, R))
+    dev = requests.device
+    slot_option = torch.empty(K, dtype=torch.int32, device=dev)
+    slot_free = torch.empty((K, R), dtype=torch.int32, device=dev)
+    slot_used = torch.empty((K, R), dtype=torch.int32, device=dev)
+    scalars = torch.empty(2, dtype=torch.int32, device=dev)
+    takes = torch.empty((C, K) if emit_takes else (C,), dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_scan(
+            _ptr(requests), _ptr(counts), _ptr(compat_packed), _ptr(node_cap),
+            _ptr(alloc), _ptr(price), _ptr(m_all), _ptr(ok_all),
+            _ptr(init_option), _ptr(init_used), C, O, R, K, int(emit_takes),
+            _ptr(slot_option), _ptr(slot_free), _ptr(slot_used),
+            _ptr(scalars), _ptr(takes), _stream(dev))
+    _raise_on(err, "classpack_scan")
+    LAUNCHES["classpack_scan"] += 1
+    return slot_option, slot_used, scalars[0], scalars[1], takes
+
+
+# ---------------------------------------------------------------------------
+# K3 classpack_assign_decode
+# ---------------------------------------------------------------------------
+
+def repeat_classes(counts: torch.Tensor, n_pods: int) -> torch.Tensor:
+    """jnp.repeat(arange(C), counts, total_repeat_length=n_pods): rows past
+    the last pod take the last class id."""
+    C = counts.shape[0]
+    ids = torch.repeat_interleave(
+        torch.arange(C, dtype=torch.int64, device=counts.device),
+        counts.long())
+    if ids.shape[0] >= n_pods:
+        return ids[:n_pods]
+    pad = torch.full((n_pods - ids.shape[0],), C - 1, dtype=torch.int64,
+                     device=counts.device)
+    return torch.cat([ids, pad])
+
+
+def classpack_assign_decode_plain(takes, counts, n_pods: int):
+    C, K = takes.shape
+    i32 = torch.int32
+    dev = takes.device
+    flat = torch.cumsum(takes.reshape(-1), 0, dtype=i32)
+    ends = flat[K - 1::K]
+    base = torch.cat([torch.zeros(1, dtype=i32, device=dev), ends[:C - 1]])
+    totals = ends - base
+    class_ids = repeat_classes(counts, n_pods)
+    cnt_csum = torch.cat([torch.zeros(1, dtype=i32, device=dev),
+                          torch.cumsum(counts, 0, dtype=i32)])[:-1]
+    rank_in_class = (torch.arange(n_pods, dtype=i32, device=dev)
+                     - cnt_csum[class_ids])
+    q = base[class_ids] + rank_in_class
+    f = torch.searchsorted(flat, q, right=True).to(i32)
+    slot = f - class_ids.to(i32) * K
+    sched = rank_in_class < totals[class_ids]
+    assignment = torch.where(sched, slot, -1)
+    return assignment.to(torch.int16) if K < 2**15 else assignment
+
+
+def classpack_assign_decode(takes: torch.Tensor, counts: torch.Tensor,
+                            n_pods: int) -> torch.Tensor:
+    """Per-pod slot (−1 unscheduled) for `n_pods` padded pod rows, from the
+    C×K takes: int16 when K < 2^15, else int32."""
+    if not _on_cuda(takes, counts):
+        return classpack_assign_decode_plain(takes, counts, n_pods)
+    C, K = takes.shape
+    _check(takes, "takes", torch.int32, (C, K))
+    _check(counts, "counts", torch.int32, (C,))
+    lib = _lib()
+    dev = takes.device
+    out16 = K < 2**15
+    out = torch.empty(n_pods, dtype=torch.int16 if out16 else torch.int32,
+                      device=dev)
+    flat = torch.empty(C * K, dtype=torch.int32, device=dev)
+    tiles = torch.empty(lib.kp_decode_tiles(C * K), dtype=torch.int32,
+                        device=dev)
+    cnt_incl = torch.empty(C, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_assign_decode(
+            _ptr(takes), _ptr(counts), C, K, int(n_pods), int(out16),
+            _ptr(flat), _ptr(tiles), _ptr(cnt_incl), _ptr(out), _stream(dev))
+    _raise_on(err, "classpack_assign_decode")
+    LAUNCHES["classpack_assign_decode"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4 classpack_aggregate
+# ---------------------------------------------------------------------------
+
+def classpack_aggregate_plain(slot_option, price, n_open, n_unsched):
+    O = price.shape[0]
+    opt = slot_option.clamp(min=0).long()
+    launched = (slot_option >= 0) & torch.isfinite(price[opt])
+    nodes_per_option = torch.zeros(O, dtype=torch.float32,
+                                   device=price.device).index_add_(
+        0, opt, launched.to(torch.float32))
+    total_cost = torch.where(launched, price[opt], 0.0).sum()
+    head = torch.stack([total_cost, n_open.to(torch.float32),
+                        n_unsched.to(torch.float32)])
+    return torch.cat([head, nodes_per_option])
+
+
+def classpack_aggregate(slot_option: torch.Tensor, price: torch.Tensor,
+                        n_open: torch.Tensor, n_unsched: torch.Tensor
+                        ) -> torch.Tensor:
+    """float32 [total_cost, n_open, n_unsched, nodes_per_option…] over the
+    launchable (finite-price) open slots."""
+    if not _on_cuda(slot_option, price, n_open, n_unsched):
+        return classpack_aggregate_plain(slot_option, price, n_open, n_unsched)
+    K = slot_option.shape[0]
+    O = price.shape[0]
+    _check(slot_option, "slot_option", torch.int32, (K,))
+    _check(price, "price", torch.float32, (O,))
+    _check(n_open, "n_open", torch.int32, ())
+    _check(n_unsched, "n_unsched", torch.int32, ())
+    lib = _lib()
+    dev = price.device
+    out = torch.empty(3 + O, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_aggregate(_ptr(slot_option), _ptr(price), _ptr(n_open),
+                               _ptr(n_unsched), K, O, _ptr(out), _stream(dev))
+    _raise_on(err, "classpack_aggregate")
+    LAUNCHES["classpack_aggregate"] += 1
+    return out
