@@ -23,9 +23,27 @@ pass):
                golden digest the JAX package computes on the CPU, and every
                kernel's launch counter must have moved; then warm p50
                timings and per-kernel CUDA-event times.
+  5. sweep   — K5 (classpack_sweep) against its plain version on the card,
+               on the consolidation cell's real arena arrays (the delete
+               face at B = 32 and 512, the replace face at B = 128), on
+               `workloads.launch_probes` (replace-face rows that launch new
+               nodes, whose sweep must also reproduce GOLDEN_LAUNCH_SWEEP)
+               and on seeded perturbations (caps masking half the options,
+               an all-masked row, zero-count rows, rows that must launch,
+               slot exhaustion at a small K).
+  6. consolidation main path — DisruptionController(...).consolidation_action
+               over the 500-node under-utilized fleet at 100 and 500
+               candidates, each run with the launch counts set to 0 just
+               before and read just after: K1, K2, K3 and K5 must have
+               launched in it.  Then the arena's full prefix and singles
+               sweeps (not part of a tick); every result must reproduce
+               GOLDEN_CONSOLIDATION (the JAX package's, on the CPU).  Then
+               the arena build, the warm tick p50, each sweep call's
+               CUDA-event time and the tick's device idle share.
 
-Prints the kernel table as one JSON line, the card's name and power limit,
-and last `{"ok": true, "device": {...}}`.
+Prints the kernel table as one JSON line (each row's `launches` from its
+own path, `launches_by_path` from every main path), the card's name and
+power limit, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -43,6 +61,10 @@ MEM_BW = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 F32_PEAK = 67e12        # H100 SXM float32 outside the tensor cores, op/s
 REL_TOL = 1e-5          # aggregate total_cost: float32 sums in another order
 SEED = 7
+# the main path whose run gives a kernel row's `launches`: slice 1's
+# headline solves for K1-K4, the 500-candidate consolidation tick for K5
+HEADLINE_PATH = "headline"
+SWEEP_PATH = "consolidation-500"
 
 
 def log(*a):
@@ -238,7 +260,8 @@ def main_path(torch, pods, catalog, pools, problem, ex):
     launches = dict(ck.LAUNCHES)
     log(f"[main] four headline solves in {wall:.3f} s (first use, incl. "
         f"uploads); launches {launches}")
-    for name in ck.KERNELS:
+    for name in ("classpack_precompute", "classpack_scan",
+                 "classpack_assign_decode", "classpack_aggregate"):
         check(launches[name] > 0, f"kernel {name} never launched on the main path")
     for key, res in results.items():
         digest, total = workloads.plan_digest(prob, res, decode=key[1])
@@ -349,7 +372,312 @@ def device_busy(torch, fn, iters=3):
                 by_kernel=short)
 
 
-def kernel_table(torch, card, shapes, launches, err):
+# ---------------------------------------------------------------------------
+# phase 5: K5 against its plain version on the consolidation cell
+# ---------------------------------------------------------------------------
+
+def consolidation_controller(n_cands):
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.controllers.disruption import \
+        DisruptionController
+    f = workloads.consolidation_fleet()
+    return DisruptionController(f.provider, f.cluster, f.pools,
+                                clock=f.clock, max_candidates=n_cands)
+
+
+def sweep_lowerings(arena, n_cands):
+    """(name, SweepLowered) of the three probe families at the cell's full
+    width: the first binary-search frontier and every prefix on the delete
+    face, every single-candidate screen on the replace face."""
+    from karpenter_tpu_torch.controllers.disruption import _search_frontier
+    from karpenter_tpu_torch.ops.classpack import lower_sweep
+    out = []
+    for name, probes in (
+            ("delete face, first frontier",
+             arena.prefix_probes(_search_frontier(1, n_cands))),
+            ("delete face, every prefix",
+             arena.prefix_probes(range(1, n_cands + 1))),
+            ("replace face, every single", arena.singles_probes())):
+        side, counts, mask, caps, max_nodes = probes
+        out.append((name, lower_sweep(side.problem, counts,
+                                      **arena.sweep_inputs(side, mask, caps,
+                                                           max_nodes))))
+    return out
+
+
+def perturbed_sweep(low, rng, small_k=None):
+    """Seeded rows over a replace-face lowering: caps at the median option
+    price (half the options masked) on every other row, an all-masked row,
+    zero-count rows, rows holding ten candidates' pods with most existing
+    columns masked (they must launch), and rows holding every candidate's
+    pods with almost every existing column masked (they run out of
+    slots).  `small_k` cuts the slots to two past the existing columns."""
+    import dataclasses
+    B = min(low.chunk, low.cnt_p.shape[0])
+    cnt = low.cnt_p[:B].copy()
+    mask = low.mask_p[:B].copy()
+    caps = low.caps_b[:B].copy()
+    fin = low.price_p[np.isfinite(low.price_p)]
+    caps[::2] = np.median(fin)
+    mask[1] = False
+    cnt[2:6] = 0
+    busy = np.nonzero(low.cnt_p.sum(1) > 0)[0]
+    cols = low.init_option[low.init_option >= 0]
+    for rows, share, keep in ((range(6, 14), 10, 0.2),
+                              (range(14, 22), len(busy), 0.05)):
+        for r in rows:
+            pick = rng.choice(busy, size=min(share, len(busy)), replace=False)
+            cnt[r] = low.cnt_p[pick].sum(0)
+            mask[r, cols] = rng.random(len(cols)) < keep
+    kw = dict(cnt_p=cnt, mask_p=mask, caps_b=caps)
+    if small_k is not None:
+        kw.update(K=small_k, init_option=low.init_option[:small_k].copy(),
+                  init_used=low.init_used[:small_k].copy())
+    return dataclasses.replace(low, **kw)
+
+
+def compare_sweep(torch, low, name, err):
+    """K5 against classpack_sweep_plain on every device call of `low`;
+    returns the device tensors of the first call."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    from karpenter_tpu_torch.ops.classpack import sweep_device_args
+    dev = torch.device("cuda")
+    req, packed, cap, alloc, price, rank, iopt, iused = \
+        sweep_device_args(low, dev)
+    m_all, _ = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
+    first = None
+    calls = 0
+    for s, e, cb, mb, pb in low.chunks():
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        args = (req, t(cb), packed, cap, alloc, price, rank, t(mb), t(pb),
+                iopt, iused, m_all, low.K)
+        got = ck.classpack_sweep(*args)
+        want = ck.classpack_sweep_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got[:, 1:], want[:, 1:]),
+              f"K5 sweep n_new/n_unsched differ from plain ({name}, rows "
+              f"{s}-{e})")
+        g, w = got[:, 0].double(), want[:, 0].double()
+        d = float((g - w).abs().max())
+        check(bool(torch.isfinite(g).all())
+              and bool(((g - w).abs() <= REL_TOL * w.abs()).all()),
+              f"K5 sweep cost differs from plain by {d} ({name})")
+        err["classpack_sweep"] = max(err["classpack_sweep"], d)
+        calls += 1
+        if first is None:
+            first = dict(args=args, cb=cb, mb=mb, pb=pb, low=low,
+                         launched=int(got[:, 1].sum()),
+                         unsched=int(got[:, 2].sum()))
+    log(f"[sweep] {name}: {calls} call(s) of B={first['cb'].shape[0]}, "
+        f"Cpad={low.req_p.shape[0]} Opad={low.price_p.shape[0]} K={low.K} "
+        f"E={int((low.init_option >= 0).sum())} -> K5 equal to plain "
+        f"(first call: {first['launched']} launches, {first['unsched']} "
+        f"unschedulable)")
+    return first
+
+
+def compare_sweeps(torch, err):
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops.classpack import (lower_sweep,
+                                                   solve_classpack_sweep)
+    n = max(workloads.CONSOLIDATION_SHAPES)
+    ctrl = consolidation_controller(n)
+    cands = ctrl.candidates()
+    arena = ctrl._arena_for(cands)
+    rng = np.random.default_rng(SEED)
+    firsts = {}
+    lows = sweep_lowerings(arena, n)
+    for name, low in lows:
+        firsts[name] = compare_sweep(torch, low, name, err)
+    # rows that launch new nodes: K5's option pass, pool rank, price cap
+    # and cost sum, against the JAX package's golden and the plain version
+    problem, counts, kw = workloads.launch_probes(arena)
+    res = solve_classpack_sweep(problem, counts, device="cuda", **kw)
+    digest, total = workloads.sweep_digest(res)
+    gold, gold_total = workloads.GOLDEN_LAUNCH_SWEEP
+    check(digest == gold, f"launch-probe sweep rows {digest} != golden {gold}")
+    check(abs(total - gold_total) <= REL_TOL * gold_total,
+          f"launch-probe sweep cost {total} vs golden {gold_total}")
+    log(f"[sweep] launch probes: {len(res.new_nodes)} rows, "
+        f"{int(res.new_nodes.sum())} launches, cost {total!r} — golden "
+        f"digest matches")
+    name = "replace face, launch probes"
+    firsts[name] = compare_sweep(torch, lower_sweep(problem, counts, **kw),
+                                 name, err)
+    replace = lows[-1][1]
+    compare_sweep(torch, perturbed_sweep(replace, rng),
+                  "replace face, seeded perturbation", err)
+    small = int((replace.init_option >= 0).sum()) + 2
+    compare_sweep(torch, perturbed_sweep(replace, rng, small_k=small),
+                  f"replace face, slot exhaustion K={small}", err)
+    return firsts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the consolidation main path, goldens, timings
+# ---------------------------------------------------------------------------
+
+def consolidation_path(torch, card):
+    """{path name: launch counts of that path's run} for each shape."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    from karpenter_tpu_torch.ops.tensorize import SimulationArena
+    sync = torch.cuda.synchronize
+    by_path = {}
+    for n in workloads.CONSOLIDATION_SHAPES:
+        ctrl = consolidation_controller(n)
+        # the main path alone: one tick, counts zeroed just before it
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        cands = ctrl.candidates()
+        action = ctrl.consolidation_action(cands)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        by_path[f"consolidation-{n}"] = launches
+        for k in ("classpack_precompute", "classpack_scan",
+                  "classpack_assign_decode", "classpack_sweep"):
+            check(launches[k] > 0,
+                  f"kernel {k} never launched on the consolidation path ({n})")
+        # the arena's full sweeps, which a tick does not run, for the goldens
+        arena = ctrl._arena_for(cands)
+        prefixes, singles = arena.sweep_prefixes(), arena.sweep_singles()
+        got = workloads.consolidation_digests(action, prefixes, singles)
+        gold = workloads.GOLDEN_CONSOLIDATION[n]
+        check(got["action"] == gold["action"],
+              f"consolidation action ({n} candidates) differs from golden")
+        for face in ("prefixes", "singles"):
+            check(got[face][0] == gold[face][0],
+                  f"{face} sweep rows ({n} candidates) differ from golden")
+            check(abs(got[face][1] - gold[face][1])
+                  <= REL_TOL * max(abs(gold[face][1]), 1e-30),
+                  f"{face} sweep cost ({n} candidates) {got[face][1]} vs "
+                  f"golden {gold[face][1]}")
+        side = arena.delete_side
+        log(f"[consolidation] {n} candidates: {action.name} of "
+            f"{len(action.candidates)} nodes, arena C={side.problem.num_classes} "
+            f"E={len(side.node_list)}; prefix rows {len(prefixes.new_nodes)} "
+            f"({prefixes.device_calls} call), singles rows "
+            f"{len(singles.new_nodes)} ({singles.device_calls} calls), "
+            f"{int(prefixes.unschedulable.sum())} / "
+            f"{int(singles.unschedulable.sum())} pods unschedulable, "
+            f"{int(singles.new_nodes.sum())} replacements — golden digests "
+            f"match; first tick {wall:.3f} s; the tick's launches {launches}")
+
+        # timings: a fresh arena (the cold part of a tick), the warm tick
+        # on the cached arena, and its pieces
+        best = len(action.candidates)
+        out = {}
+        out["arena build, delete face"] = p50_ms(
+            lambda: SimulationArena(cands, ctrl.cluster,
+                                    ctrl.provider.get_instance_types(),
+                                    list(ctrl.nodepools.values()),
+                                    device=ctrl.device).delete_side,
+            iters=3)
+        out["arena build, replace face"] = p50_ms(
+            lambda: SimulationArena(cands, ctrl.cluster,
+                                    ctrl.provider.get_instance_types(),
+                                    list(ctrl.nodepools.values()),
+                                    device=ctrl.device).replace_side,
+            iters=3)
+        from karpenter_tpu_torch.controllers.disruption import \
+            _search_frontier
+        out["prefix sweep, first frontier (K1+K5, D2H)"] = p50_ms(
+            lambda: arena.sweep_prefix_subset(_search_frontier(1, n)),
+            sync=sync)
+        out["decoded accept (simulate, K1+K2+K3, decode)"] = p50_ms(
+            lambda: ctrl._decoded_delete_action(cands[:best]), iters=5,
+            sync=sync)
+        out["singles sweep, replace face (K1+K5 x calls, D2H)"] = p50_ms(
+            lambda: arena.sweep_singles(), iters=5, sync=sync)
+        out["warm tick consolidation_action"] = p50_ms(
+            lambda: ctrl.consolidation_action(cands), sync=sync)
+        for k, (p50, xs) in out.items():
+            log(f"[time] consolidation {n}: {k}: p50 {p50:.3f} ms over "
+                f"{len(xs)} runs (min {min(xs):.3f}, max {max(xs):.3f}) on "
+                f"{card}")
+        busy = device_busy(torch, lambda: ctrl.consolidation_action(cands))
+        log(f"[trace] consolidation {n}: warm tick device busy "
+            f"{busy['device_ms']:.3f} of {busy['wall_ms']:.3f} ms wall, idle "
+            f"share {busy['idle_share']:.4f}; by kernel {busy['by_kernel']} "
+            f"on {card}")
+    return by_path
+
+
+def sweep_bound(first):
+    """(bound ms, "bytes" or "operations") of one sweep call — row 10's
+    function, K1 + K5, and the least that K5 alone must do of it: the
+    bytes of row 10's own inputs and outputs (each read or written once)
+    over the memory rate, or its operations over the float32 rate, the
+    larger.  K1's `m_all` is an intermediate of the K1 -> K5 split, not an
+    input of row 10, and is not counted.  The operations are the fit pass
+    over the open slots for every (row, class) pair with pods; the option
+    pass (only for pairs left with a tail, and then over this row's
+    launchable options) and K1's per-(class, option) fits are not counted,
+    so the bound stays a floor."""
+    low, cb, mb, pb = first["low"], first["cb"], first["mb"], first["pb"]
+    R = low.req_p.shape[1]
+    nbytes = (low.req_p.nbytes + cb.nbytes + low.packed.nbytes
+              + low.cap_p.nbytes + low.alloc_p.nbytes + low.price_p.nbytes
+              + low.rank_p.nbytes + mb.nbytes + pb.nbytes
+              + low.init_option.nbytes + low.init_used.nbytes
+              + cb.shape[0] * 3 * 4)
+    n_open = int((low.init_option >= 0).sum())
+    nops = int((cb > 0).sum()) * n_open * (2 * R + 6)
+    t_b, t_o = nbytes / MEM_BW, nops / F32_PEAK
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def sweep_call_times(torch, card, firsts):
+    """CUDA-event time of each sweep probe family's first device call:
+    K1 + K5 as the sweep runs them, and K5 alone, beside row 10's bound
+    and K1's plain version at the call's shapes.  Returns {family: K5 ms}."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    from karpenter_tpu_torch.ops.classpack import \
+        class_pack_sweep_kernel_packed
+    k5_ms = {}
+    for name, f in firsts.items():
+        (req, cb, packed, cap, alloc, price, rank, mb, pb, iopt, iused,
+         m_all, K) = f["args"]
+        both = event_ms(torch, lambda: class_pack_sweep_kernel_packed(
+            req, cb, packed, cap, alloc, price, rank, mb, pb, iopt, iused,
+            K), 10)
+        k5_ms[name] = event_ms(torch, lambda: ck.classpack_sweep(*f["args"]),
+                               10)
+        k1_plain = event_ms(torch, lambda: ck.classpack_precompute_plain(
+            req, cap, packed, alloc, price, rank), 1)
+        bound, by = sweep_bound(f)
+        log(f"[time] sweep call, {name} (B={cb.shape[0]}): K1+K5 "
+            f"{both:.4f} ms, K5 {k5_ms[name]:.4f} ms (CUDA events); bound "
+            f"of row 10 {bound * 1e3:.3f} us ({by}); K1 plain "
+            f"{k1_plain:.3f} ms on {card}")
+    return k5_ms
+
+
+def sweep_row(torch, card, first, ms, launches_by_path, err):
+    """The kernel-table row of K5 at the tick's own call: the first
+    binary-search frontier on the delete face at 500 candidates, timed
+    (`ms`) by `sweep_call_times`."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    args, low, cb = first["args"], first["low"], first["cb"]
+    plain_ms = event_ms(torch, lambda: ck.classpack_sweep_plain(*args), 1)
+    bound_ms, bound_by = sweep_bound(first)
+    log(f"[kernel] classpack_sweep: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+        f"library None, bound {bound_ms * 1e3:.3f} us by {bound_by}) at "
+        f"B={cb.shape[0]} Cpad={low.req_p.shape[0]} "
+        f"Opad={low.price_p.shape[0]} K={low.K} on {card}")
+    return dict(name="classpack_sweep", route="cuda",
+                source="karpenter_tpu_torch/csrc/classpack.cu",
+                replaces="karpenter_tpu/ops/classpack.py:332",
+                launches=launches_by_path[SWEEP_PATH]["classpack_sweep"],
+                path=SWEEP_PATH,
+                launches_by_path={p: c["classpack_sweep"]
+                                  for p, c in launches_by_path.items()},
+                max_abs_err=err["classpack_sweep"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def kernel_table(torch, card, shapes, launches_by_path, err):
     from karpenter_tpu_torch.ops import classpack_kernels as ck
     s = shapes
     C, R = s["req"].shape
@@ -366,7 +694,11 @@ def kernel_table(torch, card, shapes, launches, err):
         t_b, t_o = nbytes / MEM_BW * 1e3, nops / F32_PEAK * 1e3
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=err[name], ms=ms,
+            launches=launches_by_path[HEADLINE_PATH][name],
+            path=HEADLINE_PATH,
+            launches_by_path={p: c[name]
+                              for p, c in launches_by_path.items()},
+            max_abs_err=err[name], ms=ms,
             plain_ms=plain_ms, bound_ms=max(t_b, t_o),
             bound_by="bytes" if t_b >= t_o else "operations",
             library_ms=lib_ms))
@@ -428,11 +760,18 @@ def main() -> int:
     pods, catalog, pools, problem = headline_problem()
     ex = existing(problem)
     err, shapes = compare_kernels(torch, problem, ex)
+    firsts = compare_sweeps(torch, err)
     log(f"[kernels] all kernels equal to their plain versions "
         f"({time.perf_counter() - t_start:.1f} s so far)")
     launches, prob = main_path(torch, pods, catalog, pools, problem, ex)
     timings(torch, card, pods, catalog, pools, prob, ex)
-    rows = kernel_table(torch, card, shapes, launches, err)
+    by_path = {HEADLINE_PATH: launches, **consolidation_path(torch, card)}
+    log(f"[main] launches of each main path's run: {by_path}")
+    k5_ms = sweep_call_times(torch, card, firsts)
+    rows = kernel_table(torch, card, shapes, by_path, err)
+    frontier = "delete face, first frontier"
+    rows.append(sweep_row(torch, card, firsts[frontier], k5_ms[frontier],
+                          by_path, err))
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]
     check(not bad, f"the port loaded {bad}")

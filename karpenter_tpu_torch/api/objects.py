@@ -1,6 +1,6 @@
-"""Core API objects, trimmed to what the class-granular solve path needs:
-Pod, Node, NodePool (with its template, kubelet and disruption blocks) and
-the pod-side topology terms.
+"""Core API objects, trimmed to what the solve and consolidation paths need:
+Pod, PodDisruptionBudget, Node, NodeClaim, NodePool (with its template,
+kubelet and disruption blocks), `pool_view` and the pod-side topology terms.
 
 A copy of the JAX package's `api/objects.py` without the serializer,
 legacy and admission surfaces.  Plain dataclasses; all device-side math
@@ -11,6 +11,7 @@ never on the objects themselves.
 from __future__ import annotations
 
 import itertools
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -116,6 +117,44 @@ class Pod:
 
 
 @dataclass
+class PodDisruptionBudget:
+    """Voluntary-disruption budget over a pod label selector — the blocker the
+    reference's consolidation and termination flows honor
+    (karpenter:designs/consolidation.md:44-52, eviction API drain at
+    karpenter:website/content/en/docs/concepts/disruption.md:27-35).
+    `min_available` / `max_unavailable` accept an absolute int or "N%"."""
+    name: str = ""
+    namespace: str = "default"
+    selector: Dict[str, str] = field(default_factory=dict)
+    min_available: Optional[object] = None
+    max_unavailable: Optional[object] = None
+
+    def __post_init__(self):
+        if not self.name:
+            self.name = _uid("pdb")
+
+    def matches(self, pod: "Pod") -> bool:
+        return (pod.namespace == self.namespace
+                and all(pod.labels.get(k) == v for k, v in self.selector.items()))
+
+    @staticmethod
+    def _resolve(value, total: int) -> int:
+        if isinstance(value, str) and value.endswith("%"):
+            return math.ceil(total * float(value[:-1]) / 100.0)
+        return int(value)
+
+    def allowed_disruptions(self, matching_healthy: int, matching_total: int) -> int:
+        """How many more matching pods may be voluntarily evicted right now."""
+        if self.min_available is not None:
+            floor = self._resolve(self.min_available, matching_total)
+            return max(0, matching_healthy - floor)
+        if self.max_unavailable is not None:
+            cap = self._resolve(self.max_unavailable, matching_total)
+            return max(0, cap - (matching_total - matching_healthy))
+        return max(0, matching_healthy)  # no constraint
+
+
+@dataclass
 class KubeletConfiguration:
     """Pod-density knobs (karpenter-core v1beta1 KubeletConfiguration; feeds
     the max-pods math at karpenter:pkg/providers/instancetype/types.go:401-416)."""
@@ -185,6 +224,48 @@ class NodePool:
     def within_limits(self, in_use: ResourceList) -> bool:
         """NodePool-level resource caps (designs/limits.md)."""
         return all(in_use.get(k, 0) < v for k, v in self.limits.items()) if self.limits else True
+
+
+def pool_view(nodepools) -> Dict[str, "NodePool"]:
+    """Normalize a controller's nodepools argument.  A dict is adopted BY
+    REFERENCE — the single live registry shared across controllers, so
+    applied pools take effect without rebuilds.  A sequence is snapshotted
+    (test convenience).  This is the one place that contract lives."""
+    if isinstance(nodepools, dict):
+        return nodepools
+    return {p.name: p for p in nodepools}
+
+
+@dataclass
+class NodeClaim:
+    """The unit of provisioning: scheduler emits it, cloud provider fulfils it
+    (consumed by Create at karpenter:pkg/cloudprovider/cloudprovider.go:92-118)."""
+    nodepool: str
+    requirements: Requirements = field(default_factory=Requirements)
+    requests: ResourceList = field(default_factory=ResourceList)
+    taints: List[Taint] = field(default_factory=list)
+    node_class_ref: str = "default"
+    node_class_hash: str = ""  # nodeclass static hash at launch (drift input)
+    image_id: str = ""         # image the node booted from (image-drift input)
+    labels: Dict[str, str] = field(default_factory=dict)
+    name: str = field(default_factory=lambda: _uid("nodeclaim"))
+    # lifecycle (launch → registered → initialized)
+    provider_id: str = ""
+    instance_type: str = ""
+    zone: str = ""
+    capacity_type: str = ""
+    price: float = 0.0
+    launched_at: float = 0.0
+    created_at: float = 0.0  # stamped by the provider's injected clock
+    registered: bool = False
+    registered_at: float = 0.0
+    initialized: bool = False
+    initialized_at: float = 0.0
+    terminating: bool = False
+
+    @property
+    def launched(self) -> bool:
+        return bool(self.provider_id)
 
 
 @dataclass

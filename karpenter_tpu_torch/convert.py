@@ -1,23 +1,32 @@
 """Carry a solve's inputs across from the JAX package: build the port's
-`Problem` and existing-node state from plain numpy arrays.
+`Problem`, existing-node state and `Cluster` from plain values.
 
-The reference's `Problem` (or any object or dict with the same field names)
-is read as numpy arrays and plain values only — never as a JAX-package type —
-so the port and the reference can be held against each other on exactly the
-same inputs:
+The reference's objects (or any objects or dicts with the same field names)
+are read as numpy arrays, plain values and attributes only — never as
+JAX-package types — so the port and the reference can be held against each
+other on exactly the same inputs:
 
     prob_t = problem_from_arrays(ref_problem)
     ea, eu, ec = slot_state_from_arrays(dict(alloc=..., used=..., compat=...))
+    cluster_t = cluster_from_objects(ref_cluster)
+    catalog_t = catalog_from_objects(ref_provider.get_instance_types())
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
-from .api.resources import DEFAULT_SCALES
+from .api.objects import (Node, NodeClaim, Pod, PodAffinityTerm,
+                          PodDisruptionBudget, TopologySpreadConstraint)
+from .api.requirements import Requirement, Requirements
+from .api.resources import DEFAULT_SCALES, ResourceList
+from .api.taints import Taint, Toleration
+from .catalog.instancetype import InstanceType, InstanceTypeInfo, Offering
 from .ops.tensorize import GangInfo, LaunchOption, Problem
+from .state.cluster import Cluster
 
 
 def _get(src: Any, name: str, default=None):
@@ -83,3 +92,98 @@ def slot_state_from_arrays(src: Any) -> Tuple[np.ndarray, np.ndarray,
     if used is None:
         used = np.zeros_like(alloc)
     return alloc, used, _arr(src, "compat", bool)
+
+
+# ---------------------------------------------------------------------------
+# cluster state
+# ---------------------------------------------------------------------------
+
+def _requirements(src) -> Requirements:
+    """Requirements from a key → requirement mapping whose values carry
+    key / complement / values / greater_than / less_than / min_values."""
+    return Requirements({k: Requirement.raw(
+        r.key, r.complement, set(r.values), r.greater_than, r.less_than,
+        r.min_values) for k, r in src.items()})
+
+
+def _plain(cls, src, **conv):
+    """A `cls` dataclass from `src`'s same-named attributes; `conv` maps a
+    field name to a converter for nested values.  Underscored fields and
+    fields `src` lacks keep their defaults."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name.startswith("_") or not hasattr(src, f.name):
+            continue
+        v = getattr(src, f.name)
+        fn = conv.get(f.name)
+        kw[f.name] = fn(v) if fn else v
+    return cls(**kw)
+
+
+def _pod(src) -> Pod:
+    return _plain(
+        Pod, src,
+        requests=ResourceList, limits=ResourceList, node_selector=dict,
+        required_affinity_terms=lambda ts: [_requirements(t) for t in ts],
+        preferred_affinity_terms=lambda ts: [(w, _requirements(t))
+                                             for w, t in ts],
+        tolerations=lambda ts: [_plain(Toleration, t) for t in ts],
+        topology_spread=lambda cs: [_plain(TopologySpreadConstraint, c,
+                                           label_selector=dict) for c in cs],
+        pod_affinities=lambda ts: [_plain(PodAffinityTerm, a,
+                                          label_selector=dict) for a in ts],
+        volume_zones=list, labels=dict, annotations=dict)
+
+
+def cluster_from_objects(src) -> Cluster:
+    """The port's `Cluster` holding the same state as `src` (a JAX-package
+    Cluster, read by attribute only): every pod (bound or pending), every
+    node with its bound pods in order, the node claims, the PDBs and the
+    mutation epoch.  Names, uids, labels, taints, prices and timestamps
+    carry over unchanged, and a pod bound to a node is ONE object in both
+    the pod dict and the node's list, as in the source.  The new cluster's
+    clock is `src.clock`."""
+    out = Cluster(clock=getattr(src, "clock", None) or (lambda: 0.0))
+    pods: Dict[str, Pod] = {}
+
+    def pod(p):
+        hit = pods.get(p.uid)
+        if hit is None:
+            hit = pods[p.uid] = _pod(p)
+        return hit
+
+    for uid, p in src.pods.items():
+        out.pods[uid] = pod(p)
+    for name, n in src.nodes.items():
+        out.nodes[name] = _plain(
+            Node, n, labels=dict, taints=lambda ts: [_plain(Taint, t)
+                                                     for t in ts],
+            allocatable=ResourceList, capacity=ResourceList,
+            pods=lambda ps: [pod(p) for p in ps])
+    for name, c in src.nodeclaims.items():
+        out.nodeclaims[name] = _plain(
+            NodeClaim, c, requirements=_requirements,
+            requests=ResourceList,
+            taints=lambda ts: [_plain(Taint, t) for t in ts], labels=dict)
+    for name, b in src.pdbs.items():
+        out.pdbs[name] = _plain(PodDisruptionBudget, b, selector=dict)
+    out.mutation_epoch = int(getattr(src, "mutation_epoch", 0))
+    return out
+
+
+def catalog_from_objects(src) -> list:
+    """The port's instance types from `src`'s (a JAX-package catalog, read
+    by attribute only): name, requirements, offerings, capacity, the three
+    overhead lists and the catalog row."""
+    out = []
+    for it in src:
+        out.append(InstanceType(
+            name=it.name, requirements=_requirements(it.requirements),
+            offerings=[_plain(Offering, o) for o in it.offerings],
+            capacity=ResourceList(it.capacity),
+            kube_reserved=ResourceList(it.kube_reserved),
+            system_reserved=ResourceList(it.system_reserved),
+            eviction_threshold=ResourceList(it.eviction_threshold),
+            info=None if it.info is None else _plain(
+                InstanceTypeInfo, it.info, os=tuple)))
+    return out

@@ -4,6 +4,7 @@
 //   class_pack_kernel[_packed]                 -> K1 classpack_precompute + K2 classpack_scan
 //   class_pack_assign_kernel[_fresh]           -> K1 + K2 (emitting takes) + K3 classpack_assign_decode
 //   class_pack_aggregate_kernel[_packed|_fresh] -> K1 + K2 + K4 classpack_aggregate
+//   class_pack_sweep_kernel                    -> K1 + K5 classpack_sweep
 //
 // Plain C interface (each entry returns cudaError_t), loaded with ctypes.
 // Every launch goes on the caller's stream; nothing here synchronises or
@@ -486,6 +487,301 @@ aggregate_kernel(const int* __restrict__ slot_option,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5 classpack_sweep  (replaces ops/classpack.py class_pack_sweep_kernel
+// :332-363, the consolidation sweep: B masked aggregate solves under vmap)
+//
+// Row b is class_pack_aggregate_kernel with compat & colmask_b and the price
+// pr_b = where(colmask_b & (price < cap_b), price, inf); it answers
+// [sum of pr_b over launched slots, launched slots, n_unsched].  m_all
+// (pods per fresh node, C x O) depends only on the shared arrays and comes
+// from ONE unbatched K1 launch; K1's `ok` is not valid per row, so each row
+// recomputes launchability on the fly: compat bit & its own mask bit &
+// m > 0 & finite pr_b, then its OWN best pool rank (masking a column can
+// remove the best pool), then the score argmin, ties to the lowest index.
+//
+// One block of 256 threads per row; thread t owns the S contiguous slots
+// [t*S, t*S+S) (S = ceil(K/256), a template parameter), as in K2.  A row's
+// slot state (option K, free K x R) is private to its block and lives in
+// dynamic shared memory when it fits in 40 KB (K <= 1280 at R = 7; with
+// the ~2.6 KB of static shared memory that stays under the 48 KB a block
+// gets without opting in), else in a global scratch slice.  Class counts are staged 256 at a time in
+// shared memory; a class with count 0 in row b is skipped, which is exact
+// (nothing is taken and no node opens), and the option pass runs only when
+// the class has pods left after the fill (`remaining` > 0), where the
+// reference's argmin is read at all.  Bound on this card: the sequential
+// dependency over classes inside each row (a few block barriers per class
+// step), not bytes or operations; rows run in parallel, one block per row,
+// so B >= 132 rows fill the SMs and the prefix frontier (B = 32) does not.
+// ---------------------------------------------------------------------------
+constexpr int kSweepThreads = 256;
+constexpr size_t kSweepSmemMax = 40 * 1024;
+
+__device__ __forceinline__ float masked_price(const float* __restrict__ price,
+                                              const uint8_t* mrow, float cap,
+                                              int o) {
+  // strict float32 compare: a NaN price or one at/above the cap is +inf
+  const float p = price[o];
+  return (compat_bit(mrow, o) && p < cap) ? p : INFINITY;
+}
+
+__device__ __forceinline__ void warp_argmin(float& sc, int& ix) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const float os = __shfl_down_sync(0xffffffffu, sc, d);
+    const int oi = __shfl_down_sync(0xffffffffu, ix, d);
+    if (os < sc || (os == sc && oi < ix)) {
+      sc = os;
+      ix = oi;
+    }
+  }
+}
+
+// Block-wide argmin of (score, index): the lowest score, ties to the lowest
+// index.  Every thread returns with the block's answer.
+__device__ void block_argmin(float& sc, int& ix, float* s_sc, int* s_ix) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  warp_argmin(sc, ix);
+  __syncthreads();  // s_sc / s_ix may still be read from a previous call
+  if (lane == 0) {
+    s_sc[warp] = sc;
+    s_ix[warp] = ix;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    sc = lane < nwarps ? s_sc[lane] : INFINITY;
+    ix = lane < nwarps ? s_ix[lane] : 0x7fffffff;
+    warp_argmin(sc, ix);
+    if (lane == 0) {
+      s_sc[0] = sc;
+      s_ix[0] = ix;
+    }
+  }
+  __syncthreads();
+  sc = s_sc[0];
+  ix = s_ix[0];
+}
+
+template <int S>
+__global__ void __launch_bounds__(kSweepThreads)
+sweep_kernel(const int* __restrict__ req, const int* __restrict__ counts_b,
+             const uint8_t* __restrict__ compat_packed,
+             const int* __restrict__ node_cap, const int* __restrict__ alloc,
+             const float* __restrict__ price, const int* __restrict__ rank,
+             const uint8_t* __restrict__ mask_packed,
+             const float* __restrict__ cap_b,
+             const int* __restrict__ init_option,
+             const int* __restrict__ init_used,
+             const int* __restrict__ m_all, int C, int O, int R, int OB,
+             int K, int use_smem, int* __restrict__ g_option,
+             int* __restrict__ g_free, float* __restrict__ out) {
+  extern __shared__ int s_dyn[];
+  __shared__ unsigned s_warp[32];
+  __shared__ float s_sc[32];
+  __shared__ int s_ix[32];
+  __shared__ int s_req[kMaxR];
+  __shared__ int s_cnt[kSweepThreads];
+  __shared__ float s_part[kSweepThreads];
+  __shared__ int s_best;
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int k0 = t * S;
+  int* sopt = use_smem ? s_dyn : g_option + (size_t)b * K;
+  int* sfree = use_smem ? s_dyn + K : g_free + (size_t)b * K * R;
+  const uint8_t* mrow = mask_packed + (size_t)b * OB;
+  const float cap = cap_b[b];
+  const int* row_cnt = counts_b + (size_t)b * C;
+
+  // ---- init state: the pre-opened columns (existing nodes) ----
+  unsigned opened = 0;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int k = k0 + i;
+    if (k >= K) break;
+    const int opt = init_option[k];
+    sopt[k] = opt;
+    for (int r = 0; r < R; ++r) {
+      const size_t kr = (size_t)k * R + r;
+      sfree[kr] = opt >= 0 ? wrap_sub(alloc[(size_t)opt * R + r],
+                                      init_used[kr])
+                           : 0;
+    }
+    opened += opt >= 0;
+  }
+  int n_open = (int)block_sum(opened, s_warp);
+  int n_unsched = 0;
+
+  for (int c0 = 0; c0 < C; c0 += kSweepThreads) {
+    __syncthreads();  // the previous tile of counts is consumed
+    s_cnt[t] = c0 + t < C ? row_cnt[c0 + t] : 0;
+    __syncthreads();
+    const int n_tile = min(kSweepThreads, C - c0);
+    for (int ci = 0; ci < n_tile; ++ci) {
+      const int cnt = s_cnt[ci];
+      if (cnt == 0) continue;  // exact no-op: nothing taken, nothing opened
+      const int c = c0 + ci;
+      __syncthreads();  // s_req of the previous class is consumed
+      if (t < R) s_req[t] = req[(size_t)c * R + t];
+      __syncthreads();
+      const int ncap = node_cap[c];
+      const uint8_t* crow = compat_packed + (size_t)c * OB;
+
+      // 1. per-slot fit: open, compatible, and the column kept in this row
+      int fit[S];
+      unsigned fsum = 0;
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const int k = k0 + i;
+        int f = 0;
+        if (k < K) {
+          const int opt = sopt[k];
+          if (opt >= 0 && compat_bit(crow, opt) && compat_bit(mrow, opt)) {
+            int v = kBig;
+            for (int r = 0; r < R; ++r) {
+              const int q = s_req[r];
+              if (q > 0) v = min(v, floordiv(sfree[(size_t)k * R + r], q));
+            }
+            v = min(v, ncap);
+            f = max(v, 0);
+          }
+        }
+        fit[i] = f;
+        fsum += (unsigned)f;
+      }
+      // 2. exclusive prefix over slots, 3. greedy first-fit fill
+      unsigned total_fit;
+      unsigned run = block_exclusive_scan(fsum, s_warp, &total_fit);
+      int take[S];
+      unsigned tsum = 0;
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const int d = wrap_sub(cnt, (int)run);
+        take[i] = min(max(d, 0), fit[i]);
+        tsum += (unsigned)take[i];
+        run += (unsigned)fit[i];
+      }
+      const int taken = (int)block_sum(tsum, s_warp);
+      const int remaining = wrap_sub(cnt, taken);
+
+      // 4. new-node option for the tail, this row's launchable set only
+      int j = 0;
+      bool can = false;
+      if (remaining > 0) {
+        const size_t co = (size_t)c * O;
+        int best = kBig;
+        for (int o = t; o < O; o += kSweepThreads) {
+          if (compat_bit(crow, o) && m_all[co + o] > 0 &&
+              isfinite(masked_price(price, mrow, cap, o)))
+            best = min(best, rank[o]);
+        }
+        __syncthreads();  // s_best of the previous class is consumed
+        if (t == 0) s_best = kBig;
+        __syncthreads();
+        atomicMin(&s_best, best);
+        __syncthreads();
+        best = s_best;
+        if (best < kBig) {
+          float best_sc = INFINITY;
+          int best_ix = 0x7fffffff;
+          for (int o = t; o < O; o += kSweepThreads) {
+            if (rank[o] != best || !compat_bit(crow, o)) continue;
+            const int m = m_all[co + o];
+            if (m <= 0) continue;
+            const float p = masked_price(price, mrow, cap, o);
+            if (!isfinite(p)) continue;
+            const int ms = max(m, 1);
+            const int nn = floordiv(wrap_add(remaining, ms - 1), ms);
+            const float sc = fminf(__fmul_rn(p, __int2float_rn(nn)),
+                                   kScoreCap);
+            if (sc < best_sc) {  // strict: the lowest index wins ties
+              best_sc = sc;
+              best_ix = o;
+            }
+          }
+          block_argmin(best_sc, best_ix, s_sc, s_ix);
+          can = isfinite(best_sc);
+          j = can ? best_ix : 0;
+        }
+      }
+
+      // 5. open n_new slots of option j, the last one partial
+      const int m_sel = max(m_all[(size_t)c * O + j], 1);
+      const int needed = (can && remaining > 0)
+                             ? floordiv(wrap_add(remaining, m_sel - 1), m_sel)
+                             : 0;
+      const int n_new = min(needed, K - n_open);
+      const int sched_new = min(remaining, n_new * m_sel);
+      const int rem_last = sched_new - (n_new - 1) * m_sel;
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const int k = k0 + i;
+        if (k >= K) break;
+        if (k >= n_open && k < n_open + n_new) {
+          const int pods_on = (k == n_open + n_new - 1) ? rem_last : m_sel;
+          sopt[k] = j;
+          for (int r = 0; r < R; ++r)
+            sfree[(size_t)k * R + r] =
+                alloc[(size_t)j * R + r] - pods_on * s_req[r];
+        } else if (take[i]) {
+          for (int r = 0; r < R; ++r)
+            sfree[(size_t)k * R + r] -= take[i] * s_req[r];
+        }
+      }
+      n_open += n_new;
+      n_unsched = wrap_add(n_unsched, wrap_sub(remaining, sched_new));
+    }
+  }
+
+  // ---- the row's aggregate: launched slots are open with a finite pr_b
+  // (pre-opened existing columns carry +inf and never count) ----
+  unsigned launched = 0;
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int k = k0 + i;
+    if (k >= K) break;
+    const int opt = sopt[k];
+    if (opt >= 0) {
+      const float p = masked_price(price, mrow, cap, opt);
+      if (isfinite(p)) {
+        ++launched;
+        acc += p;
+      }
+    }
+  }
+  const unsigned n_launched = block_sum(launched, s_warp);
+  s_part[t] = acc;
+  __syncthreads();
+  for (int w = kSweepThreads >> 1; w > 0; w >>= 1) {
+    if (t < w) s_part[t] += s_part[t + w];
+    __syncthreads();
+  }
+  if (t == 0) {
+    out[(size_t)b * 3 + 0] = s_part[0];
+    out[(size_t)b * 3 + 1] = (float)n_launched;
+    out[(size_t)b * 3 + 2] = (float)n_unsched;
+  }
+}
+
+template <int S>
+cudaError_t launch_sweep(const int* req, const int* counts_b,
+                         const uint8_t* compat_packed, const int* node_cap,
+                         const int* alloc, const float* price,
+                         const int* rank, const uint8_t* mask_packed,
+                         const float* cap_b, const int* init_option,
+                         const int* init_used, const int* m_all, int B, int C,
+                         int O, int R, int OB, int K, int* g_option,
+                         int* g_free, float* out, cudaStream_t stream) {
+  const size_t smem = (size_t)K * (R + 1) * sizeof(int);
+  const int use_smem = smem <= kSweepSmemMax;
+  sweep_kernel<S><<<B, kSweepThreads, use_smem ? smem : 0, stream>>>(
+      req, counts_b, compat_packed, node_cap, alloc, price, rank, mask_packed,
+      cap_b, init_option, init_used, m_all, C, O, R, OB, K, use_smem,
+      g_option, g_free, out);
+  return cudaGetLastError();
+}
+
 template <int S>
 cudaError_t launch_scan(const int* req, const int* counts,
                         const uint8_t* compat_packed, const int* node_cap,
@@ -603,6 +899,45 @@ cudaError_t kp_aggregate(const int* slot_option, const float* price,
   aggregate_kernel<<<1, kAggThreads, smem, stream>>>(
       slot_option, price, n_open, n_unsched, K, O, out);
   return cudaGetLastError();
+}
+
+int kp_sweep_max_slots() { return kSweepThreads * 32; }
+int kp_sweep_smem_max() { return (int)kSweepSmemMax; }
+
+// One row per block.  counts_b: B x C, mask_packed: B x ceil(O/8) (the
+// column masks, np.packbits order), cap_b: B, m_all: C x O from K1,
+// init_option / init_used: K / K x R (shared by every row).  g_option
+// (B x K) and g_free (B x K x R) are scratch, needed (and else may be
+// null) only when a row's slot state, K x (R + 1) ints, exceeds
+// kp_sweep_smem_max() bytes.  out: B x 3 floats [cost, n_new, n_unsched].
+cudaError_t kp_sweep(const int* req, const int* counts_b,
+                     const uint8_t* compat_packed, const int* node_cap,
+                     const int* alloc, const float* price, const int* rank,
+                     const uint8_t* mask_packed, const float* cap_b,
+                     const int* init_option, const int* init_used,
+                     const int* m_all, int B, int C, int O, int R, int K,
+                     int* g_option, int* g_free, float* out,
+                     cudaStream_t stream) {
+  if (R > kMaxR || K <= 0 || C <= 0 || B <= 0 || O <= 0)
+    return cudaErrorInvalidValue;
+  if ((size_t)K * (R + 1) * sizeof(int) > kSweepSmemMax &&
+      (g_option == nullptr || g_free == nullptr))
+    return cudaErrorInvalidValue;
+  const int OB = (O + 7) / 8;
+  const int S = (K + kSweepThreads - 1) / kSweepThreads;
+#define KP_SWEEP(SS)                                                         \
+  return launch_sweep<SS>(req, counts_b, compat_packed, node_cap, alloc,     \
+                          price, rank, mask_packed, cap_b, init_option,      \
+                          init_used, m_all, B, C, O, R, OB, K, g_option,     \
+                          g_free, out, stream)
+  if (S <= 1) KP_SWEEP(1);
+  if (S <= 2) KP_SWEEP(2);
+  if (S <= 4) KP_SWEEP(4);
+  if (S <= 8) KP_SWEEP(8);
+  if (S <= 16) KP_SWEEP(16);
+  if (S <= 32) KP_SWEEP(32);
+#undef KP_SWEEP
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

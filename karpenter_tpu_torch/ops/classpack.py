@@ -11,10 +11,11 @@ classes and each scan step places an entire class —
   * overflow opens `ceil(rem/m)` new nodes of the option minimizing
     price × nodes needed.
 
-The device programs are four hand-written CUDA kernels
+The device programs are five hand-written CUDA kernels
 (ops/classpack_kernels.py, csrc/classpack.cu); the functions named like the
 JAX package's jit'd programs below compose them the same way, so each can be
-held against its counterpart.  Host lowering (sort, pad, bucket) and host
+held against its counterpart.  `solve_classpack_sweep` is the consolidation
+sweep's host wrapper: B masked aggregate solves in one K1 + K5 call.  Host lowering (sort, pad, bucket) and host
 decode (rows → NodeDecisions with flexible alternatives) are copies of the
 reference's.  All arithmetic is int32 in scaled units (millicores / MiB /
 counts), so feasibility math is exact.
@@ -37,8 +38,8 @@ import torch
 from ..api.resources import ResourceList
 from .classpack_kernels import (classpack_aggregate, classpack_assign_decode,
                                 classpack_precompute, classpack_scan,
-                                pack_bits)
-from .ffd import NodeDecision, PackingResult
+                                classpack_sweep, pack_bits)
+from .ffd import NodeDecision, PackingResult, SweepResult
 from .tensorize import Problem, pad_to
 
 # one lock for all module caches: check-then-insert must be atomic or
@@ -119,6 +120,43 @@ def class_pack_assign_kernel_fresh(requests, counts, compat_packed, node_cap,
     return class_pack_assign_kernel(requests, counts, compat_packed,
                                     node_cap, alloc, price, rank, None, None,
                                     max_nodes, n_pods)
+
+
+def class_pack_sweep_kernel_packed(requests, counts_b, compat_packed,
+                                   node_cap, alloc, price, rank,
+                                   col_mask_packed, price_cap_b, init_option,
+                                   init_used, max_nodes: int):
+    """class_pack_sweep_kernel on bit-packed column masks (uint8 B×Opad/8):
+    ONE unbatched K1 for the shared m_all, then K5 over the B rows."""
+    m_all, _ = classpack_precompute(requests, node_cap, compat_packed, alloc,
+                                    price, rank)
+    return classpack_sweep(requests, counts_b, compat_packed, node_cap, alloc,
+                           price, rank, col_mask_packed, price_cap_b,
+                           init_option, init_used, m_all, max_nodes)
+
+
+def class_pack_sweep_kernel(requests, counts_b, compat_packed, node_cap,
+                            alloc, price, rank, col_mask_b, price_cap_b,
+                            init_option, init_used, max_nodes: int):
+    """B masked aggregate solves in one device call — the consolidation
+    sweep's program.  Shared: the padded class arrays, the column catalog
+    (options + existing-node columns) and the pre-opened slot state.  Per
+    row: `counts_b` (which classes the probe reschedules), `col_mask_b`
+    (bool, False == the column is gone) and `price_cap_b` (options priced
+    >= cap are unlaunchable).  Returns float32 B×3 [total_cost, n_new,
+    n_unsched], n_new counting launched slots, never pre-opened ones."""
+    return class_pack_sweep_kernel_packed(
+        requests, counts_b, compat_packed, node_cap, alloc, price, rank,
+        pack_bits(col_mask_b), price_cap_b, init_option, init_used,
+        max_nodes)
+
+
+# batch-axis padding buckets for the sweep, and the reference's memory
+# guard on its vmapped B×Cpad×Opad ok mask (~256M elements per call).  The
+# kernels never build that mask, but the chunking is kept exactly: the
+# number of device calls is observable (SweepResult.device_calls)
+_SWEEP_B_BUCKETS = (8, 32, 128, 512)
+_SWEEP_MASK_BUDGET = 1 << 28
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +432,179 @@ def solve_classpack(problem: Problem,
         *pod_args, *cat_args, *init, K, low.Ppad)
     return decode_plan(problem, low, assignment.cpu().numpy(),
                        slot_option.cpu().numpy(), max_alternatives)
+
+
+@dataclass
+class SweepLowered:
+    """A sweep's sub-problems sorted, padded and bucketed for K1 + K5
+    (numpy, host): the reference's exact sweep lowering."""
+    req_p: np.ndarray        # Cpad×R int32
+    packed: np.ndarray       # Cpad×Opad/8 uint8
+    cap_p: np.ndarray        # Cpad int32
+    alloc_p: np.ndarray      # Opad×R int32 (truncated)
+    price_p: np.ndarray      # Opad f32, +inf == not launchable
+    rank_p: np.ndarray       # Opad int32
+    init_option: np.ndarray  # K int32 (the E existing columns pre-opened)
+    init_used: np.ndarray    # K×R int32
+    cnt_p: np.ndarray        # B×Cpad int32
+    mask_p: np.ndarray       # B×Opad bool
+    caps_b: np.ndarray       # B f32
+    K: int
+    chunk: int               # rows per device call
+
+    def chunks(self):
+        """(start, end, counts, packed column masks, caps) of each device
+        call, every one padded to a row bucket."""
+        B = self.cnt_p.shape[0]
+        for s in range(0, B, self.chunk):
+            e = min(s + self.chunk, B)
+            Bp = next(b for b in _SWEEP_B_BUCKETS if b >= e - s) \
+                if e - s <= _SWEEP_B_BUCKETS[-1] else e - s
+            cb = np.zeros((Bp, self.cnt_p.shape[1]), np.int32)
+            cb[:e - s] = self.cnt_p[s:e]
+            mb = np.zeros((Bp, self.mask_p.shape[1]), bool)
+            mb[:e - s] = self.mask_p[s:e]
+            pb = np.full(Bp, np.inf, np.float32)
+            pb[:e - s] = self.caps_b[s:e]
+            yield s, e, cb, np.packbits(mb, axis=1), pb
+
+
+def lower_sweep(problem: Problem,
+                counts_b: np.ndarray,
+                existing_alloc: Optional[np.ndarray] = None,
+                existing_used: Optional[np.ndarray] = None,
+                existing_compat: Optional[np.ndarray] = None,
+                exist_mask_b: Optional[np.ndarray] = None,
+                price_cap_b: Optional[np.ndarray] = None,
+                max_nodes: int = 8192) -> Optional[SweepLowered]:
+    """One padding/lowering pass shared by all B sub-problems (arguments as
+    `solve_classpack_sweep`); None when there is no column at all."""
+    E = 0 if existing_alloc is None else len(existing_alloc)
+    ec = None
+    if E:
+        ec = existing_compat if existing_compat is not None else \
+            np.ones((problem.num_classes, E), bool)
+    requests, _, compat, caps, order = _sorted_classes(problem, ec)
+    counts_b = np.asarray(counts_b, np.int32)[:, order]
+    B, C = counts_b.shape
+    R = requests.shape[1]
+
+    alloc = problem.option_alloc
+    price = problem.option_price.astype(np.float32)
+    O = alloc.shape[0]
+    if E:
+        alloc = np.concatenate([alloc, existing_alloc.astype(np.float32)],
+                               axis=0)
+        price = np.concatenate([price, np.full(E, np.inf, np.float32)])
+    if alloc.shape[0] == 0:
+        return None
+    rank = np.zeros(alloc.shape[0], np.int32)
+    rank[:O] = problem.option_rank
+
+    Cpad = pad_to(C, (64, 256, 1024, 4096))
+    Opad = pad_to(alloc.shape[0], (512, 2048, 4096, 8192, 32768))
+    req_p = np.zeros((Cpad, R), np.int32)
+    req_p[:C] = requests.astype(np.int32)
+    cap_p = np.full(Cpad, 2**30, np.int32)
+    cap_p[:C] = caps
+    comp_p = np.zeros((Cpad, Opad), bool)
+    comp_p[:C, :alloc.shape[0]] = compat
+    # int32 lowering TRUNCATES fractional allocatable exactly like
+    # solve_classpack's astype — ceil here would let the sweep fit a pod
+    # the sequential probe rejects
+    alloc_p = np.zeros((Opad, R), np.int32)
+    alloc_p[:alloc.shape[0]] = alloc.astype(np.int32)
+    price_p = np.full(Opad, np.inf, np.float32)
+    price_p[:alloc.shape[0]] = price
+    rank_p = np.full(Opad, 2**30 - 1, np.int32)
+    rank_p[:alloc.shape[0]] = rank
+
+    # K = P + E always suffices: each scan step opens at most one node per
+    # remaining pod, so new slots never exceed the row's pod count
+    P = int(counts_b.sum(axis=1).max()) if B else 0
+    K = max(min(max_nodes,
+                pad_to(P + E, (256, 512, 1024, 2048, 4096, 8192))),
+            E + 1)
+    init_option = np.full(K, -1, np.int32)
+    init_used = np.zeros((K, R), np.int32)
+    if E:
+        init_option[:E] = np.arange(O, O + E, dtype=np.int32)
+        if existing_used is not None:
+            init_used[:E] = np.ceil(existing_used).astype(np.int32)
+
+    cnt_p = np.zeros((B, Cpad), np.int32)
+    cnt_p[:, :C] = counts_b
+    mask_p = np.zeros((B, Opad), bool)
+    mask_p[:, :alloc.shape[0]] = True
+    if E and exist_mask_b is not None:
+        mask_p[:, O:O + E] = np.asarray(exist_mask_b, bool)
+    caps_b = (np.full(B, np.inf, np.float32) if price_cap_b is None
+              else np.asarray(price_cap_b, np.float32))
+
+    chunk = max(_SWEEP_B_BUCKETS[0], _SWEEP_MASK_BUDGET // (Cpad * Opad))
+    chunk = next((b for b in _SWEEP_B_BUCKETS if b >= min(chunk, B)),
+                 _SWEEP_B_BUCKETS[-1])
+    return SweepLowered(req_p, np.packbits(comp_p, axis=1), cap_p, alloc_p,
+                        price_p, rank_p, init_option, init_used, cnt_p,
+                        mask_p, caps_b, K, chunk)
+
+
+def sweep_device_args(low: SweepLowered, dev: torch.device):
+    """The shared arrays of a lowered sweep on `dev`, in the sweep
+    program's order: (requests, compat_packed, node_cap, alloc, price,
+    rank, init_option, init_used)."""
+    return tuple(_upload(a, dev) for a in (
+        low.req_p, low.packed, low.cap_p, low.alloc_p, low.price_p,
+        low.rank_p, low.init_option, low.init_used))
+
+
+def solve_classpack_sweep(problem: Problem,
+                          counts_b: np.ndarray,
+                          existing_alloc: Optional[np.ndarray] = None,
+                          existing_used: Optional[np.ndarray] = None,
+                          existing_compat: Optional[np.ndarray] = None,
+                          exist_mask_b: Optional[np.ndarray] = None,
+                          price_cap_b: Optional[np.ndarray] = None,
+                          max_nodes: int = 8192,
+                          device="cuda") -> SweepResult:
+    """Host wrapper for the batched sweep: one padding/lowering pass shared
+    by all B sub-problems, then bucket-padded K1 + K5 calls.
+
+    `counts_b` (B×C, problem class order) gives each sub-problem's pod
+    multiset; classes with count 0 are exact no-ops in the scan.
+    `exist_mask_b` (B×E bool, False == excluded) masks existing-node
+    columns per sub-problem; `price_cap_b` (B float) strictly bounds
+    launchable option prices (None/inf == no cap).  Returns a SweepResult
+    whose rows match what decode=False solve_classpack calls over the
+    same masked sub-problems would report.  The signature is the
+    reference's plus `device` ("cuda" by default, "cpu" runs the plain
+    versions)."""
+    dev = resolve_device(device)
+    low = lower_sweep(problem, counts_b, existing_alloc, existing_used,
+                      existing_compat, exist_mask_b, price_cap_b, max_nodes)
+    B = len(counts_b)
+    if low is None:
+        per = np.asarray(counts_b, np.int32).sum(axis=1).astype(np.int32)
+        return SweepResult(total_price=np.zeros(B, np.float32),
+                           new_nodes=np.zeros(B, np.int32),
+                           unschedulable=per, device_calls=0)
+    req, packed, cap, alloc, price, rank, iopt, iused = \
+        sweep_device_args(low, dev)
+    cost = np.zeros(B, np.float32)
+    n_new = np.zeros(B, np.int32)
+    unsched = np.zeros(B, np.int32)
+    calls = 0
+    for s, e, cb, mb, pb in low.chunks():
+        out = class_pack_sweep_kernel_packed(
+            req, _upload(cb, dev), packed, cap, alloc, price, rank,
+            _upload(mb, dev), _upload(pb, dev), iopt, iused,
+            low.K).cpu().numpy()
+        calls += 1
+        cost[s:e] = out[:e - s, 0]
+        n_new[s:e] = np.rint(out[:e - s, 1]).astype(np.int32)
+        unsched[s:e] = np.rint(out[:e - s, 2]).astype(np.int32)
+    return SweepResult(total_price=cost, new_nodes=n_new,
+                       unschedulable=unsched, device_calls=calls)
 
 
 def decode_plan(problem: Problem, low: Lowered, assignment: np.ndarray,

@@ -1,6 +1,7 @@
 """Wrappers of the class-granular packing kernels (csrc/classpack.cu).
 
-Four kernels carry the class-granular solve; each wrapper here has
+Four kernels carry the class-granular solve and a fifth the batched
+consolidation sweep; each wrapper here has
 
   * a plain PyTorch version of the same function (`*_plain`), which it
     runs ONLY when its tensors lie on the CPU — the CPU tests use it, and
@@ -18,6 +19,7 @@ Four kernels carry the class-granular solve; each wrapper here has
 | classpack_scan          | ops/classpack.py class_pack_kernel :87-152             |
 | classpack_assign_decode | ops/classpack.py class_pack_assign_kernel :228-245     |
 | classpack_aggregate     | ops/classpack.py class_pack_aggregate_kernel :169-178  |
+| classpack_sweep         | ops/classpack.py class_pack_sweep_kernel :332-363      |
 
 All integer math is int32 with the reference's semantics (floor division,
 two's complement wrap); the new-node score is float32.
@@ -35,7 +37,8 @@ from .ffd import SCORE_CAP
 BIG = 2**30
 
 KERNELS = ("classpack_precompute", "classpack_scan",
-           "classpack_assign_decode", "classpack_aggregate")
+           "classpack_assign_decode", "classpack_aggregate",
+           "classpack_sweep")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -71,6 +74,10 @@ def _lib() -> ctypes.CDLL:
         lib.kp_assign_decode.restype = i
         lib.kp_aggregate.argtypes = [p] * 4 + [i, i, p, p]
         lib.kp_aggregate.restype = i
+        lib.kp_sweep_max_slots.restype = i
+        lib.kp_sweep_smem_max.restype = i
+        lib.kp_sweep.argtypes = [p] * 12 + [i] * 5 + [p] * 4
+        lib.kp_sweep.restype = i
         _LIB = lib
     return _LIB
 
@@ -419,4 +426,151 @@ def classpack_aggregate(slot_option: torch.Tensor, price: torch.Tensor,
                                _ptr(n_unsched), K, O, _ptr(out), _stream(dev))
     _raise_on(err, "classpack_aggregate")
     LAUNCHES["classpack_aggregate"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5 classpack_sweep
+# ---------------------------------------------------------------------------
+
+def classpack_sweep_plain(requests, counts_b, compat_packed, node_cap, alloc,
+                          price, rank, col_mask_packed, price_cap_b,
+                          init_option, init_used, m_all, max_nodes: int):
+    """B masked aggregate solves, all rows stepped together: the scan of
+    `classpack_scan_plain` with a batch axis, where each class step touches
+    only the rows whose count for it is non-zero (a zero-count class is an
+    exact no-op, as in the kernel)."""
+    B, C = counts_b.shape
+    O, R = alloc.shape
+    K = max_nodes
+    dev = requests.device
+    i32, f32 = torch.int32, torch.float32
+    compat = unpack_bits(compat_packed, O)
+    mask = unpack_bits(col_mask_packed, O)
+    pr = torch.where(mask & (price[None, :] < price_cap_b[:, None]),
+                     price[None, :], float("inf"))
+    pr_ok = torch.isfinite(pr)
+    idx = torch.arange(K, dtype=i32, device=dev)
+    opt0 = init_option.clamp(min=0).long()
+    slot_option = init_option[None, :].repeat(B, 1)
+    slot_free = torch.where((init_option >= 0)[:, None], alloc[opt0] - init_used,
+                            0)[None].repeat(B, 1, 1)
+    n_open = (slot_option >= 0).sum(1, dtype=i32)
+    n_unsched = torch.zeros(B, dtype=i32, device=dev)
+    cap_score = torch.tensor(SCORE_CAP, dtype=f32, device=dev)
+    active = counts_b > 0
+    for c in torch.nonzero(active.any(0)).flatten().tolist():
+        rows = torch.nonzero(active[:, c]).flatten()
+        cnt = counts_b[rows, c]
+        req, cap = requests[c], node_cap[c]
+        so, sf, no = slot_option[rows], slot_free[rows], n_open[rows]
+        mrows = mask[rows]
+        opt = so.clamp(min=0).long()
+        reqpos = req > 0
+        safe = torch.where(reqpos, req, torch.ones_like(req))
+        fit = torch.where(reqpos, torch.div(sf, safe, rounding_mode="floor"),
+                          BIG).amin(dim=-1)
+        fit = torch.minimum(fit, cap)
+        fit = torch.where((so >= 0) & compat[c][opt] & mrows.gather(1, opt),
+                          fit.clamp(min=0), 0)
+        prefix = torch.cumsum(fit, 1, dtype=i32) - fit
+        take = torch.minimum((cnt[:, None] - prefix).clamp(min=0), fit)
+        remaining = cnt - take.sum(1, dtype=i32)
+        # this row's launchable options at its own best pool rank
+        m = m_all[c]
+        ok = compat[c][None, :] & mrows & (m > 0)[None, :] & pr_ok[rows]
+        best = torch.where(ok, rank[None, :], BIG).amin(dim=1)
+        ok = ok & (rank[None, :] == best[:, None])
+        m_safe = m.clamp(min=1)
+        nodes_needed = torch.div(remaining.clamp(min=1)[:, None] + m_safe - 1,
+                                 m_safe, rounding_mode="floor")
+        score = torch.where(
+            ok, torch.minimum(pr[rows] * nodes_needed.to(f32), cap_score),
+            float("inf"))
+        j = torch.argmin(score, dim=1)
+        can = torch.isfinite(score.gather(1, j[:, None])[:, 0])
+        m_sel = m[j].clamp(min=1)
+        needed = torch.where(can & (remaining > 0),
+                             torch.div(remaining + m_sel - 1, m_sel,
+                                       rounding_mode="floor"), 0)
+        n_new = torch.minimum(needed, K - no)
+        sched_new = torch.minimum(remaining, n_new * m_sel)
+        is_new = (idx[None, :] >= no[:, None]) & \
+            (idx[None, :] < (no + n_new)[:, None])
+        pods_on = torch.where(is_new, m_sel[:, None], 0)
+        rem_last = sched_new - (n_new - 1) * m_sel
+        pods_on = torch.where(is_new & (idx[None, :] == (no + n_new - 1)[:, None]),
+                              rem_last[:, None], pods_on)
+        slot_option[rows] = torch.where(is_new, j.to(i32)[:, None], so)
+        sf = sf - take[:, :, None] * req
+        slot_free[rows] = torch.where(
+            is_new[:, :, None],
+            alloc[j][:, None, :] - pods_on[:, :, None] * req, sf)
+        n_open[rows] = no + n_new
+        n_unsched[rows] = n_unsched[rows] + (remaining - sched_new)
+    p = pr.gather(1, slot_option.clamp(min=0).long())
+    launched = (slot_option >= 0) & torch.isfinite(p)
+    cost = torch.where(launched, p, 0.0).sum(1)
+    return torch.stack([cost, launched.sum(1).to(f32), n_unsched.to(f32)], 1)
+
+
+def classpack_sweep(requests: torch.Tensor, counts_b: torch.Tensor,
+                    compat_packed: torch.Tensor, node_cap: torch.Tensor,
+                    alloc: torch.Tensor, price: torch.Tensor,
+                    rank: torch.Tensor, col_mask_packed: torch.Tensor,
+                    price_cap_b: torch.Tensor, init_option: torch.Tensor,
+                    init_used: torch.Tensor, m_all: torch.Tensor,
+                    max_nodes: int) -> torch.Tensor:
+    """float32 B×3 [cost, n_new, n_unsched]: row b solves the shared class
+    arrays with its own counts (`counts_b` B×C), column mask (`col_mask_packed`
+    B×ceil(O/8), np.packbits order) and strict price cap (`price_cap_b` B),
+    from the shared pre-opened slots (`init_option` K, `init_used` K×R).
+    `m_all` (C×O pods per fresh node) is K1's."""
+    if not _on_cuda(requests, counts_b, compat_packed, node_cap, alloc, price,
+                    rank, col_mask_packed, price_cap_b, init_option,
+                    init_used, m_all):
+        return classpack_sweep_plain(requests, counts_b, compat_packed,
+                                     node_cap, alloc, price, rank,
+                                     col_mask_packed, price_cap_b,
+                                     init_option, init_used, m_all, max_nodes)
+    B, C = counts_b.shape
+    R = requests.shape[1]
+    O = alloc.shape[0]
+    K = int(max_nodes)
+    lib = _lib()
+    if R > lib.kp_max_r() or not 0 < K <= lib.kp_sweep_max_slots():
+        raise ValueError(f"R={R} / K={K} outside the sweep kernel's limits "
+                         f"({lib.kp_max_r()} axes, {lib.kp_sweep_max_slots()} "
+                         f"slots)")
+    if B == 0 or C == 0 or O == 0:
+        raise ValueError(f"empty sweep: B={B}, C={C}, O={O}")
+    _check(requests, "requests", torch.int32, (C, R))
+    _check(counts_b, "counts_b", torch.int32, (B, C))
+    _check(compat_packed, "compat_packed", torch.uint8, (C, (O + 7) // 8))
+    _check(node_cap, "node_cap", torch.int32, (C,))
+    _check(alloc, "alloc", torch.int32, (O, R))
+    _check(price, "price", torch.float32, (O,))
+    _check(rank, "rank", torch.int32, (O,))
+    _check(col_mask_packed, "col_mask_packed", torch.uint8, (B, (O + 7) // 8))
+    _check(price_cap_b, "price_cap_b", torch.float32, (B,))
+    _check(init_option, "init_option", torch.int32, (K,))
+    _check(init_used, "init_used", torch.int32, (K, R))
+    _check(m_all, "m_all", torch.int32, (C, O))
+    dev = requests.device
+    # per-row slot state spills to global scratch only past the kernel's
+    # shared-memory budget
+    g_option = g_free = None
+    if K * (R + 1) * 4 > lib.kp_sweep_smem_max():
+        g_option = torch.empty((B, K), dtype=torch.int32, device=dev)
+        g_free = torch.empty((B, K, R), dtype=torch.int32, device=dev)
+    out = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_sweep(
+            _ptr(requests), _ptr(counts_b), _ptr(compat_packed),
+            _ptr(node_cap), _ptr(alloc), _ptr(price), _ptr(rank),
+            _ptr(col_mask_packed), _ptr(price_cap_b), _ptr(init_option),
+            _ptr(init_used), _ptr(m_all), B, C, O, R, K, _ptr(g_option),
+            _ptr(g_free), _ptr(out), _stream(dev))
+    _raise_on(err, "classpack_sweep")
+    LAUNCHES["classpack_sweep"] += 1
     return out

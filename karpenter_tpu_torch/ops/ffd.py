@@ -1,7 +1,8 @@
 """Packing result types shared by the solvers.
 
 A copy of the result half of the JAX package's `ops/ffd.py`: the constants
-and dataclasses the class-granular solve returns.  The pod-granular
+and dataclasses the class-granular solve and the batched consolidation
+sweep return.  The pod-granular
 `ffd_pack_kernel` is not ported yet (ROADMAP queue B).
 """
 
@@ -9,6 +10,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, List
+
+import numpy as np
 
 from ..api.resources import ResourceList
 from .tensorize import LaunchOption
@@ -78,3 +81,21 @@ class PackingResult:
         self.unschedulable = sorted(
             {int(i) for i in self.unschedulable} | drop)
         self.total_price = float(sum(d.option.price for d in self.nodes))
+
+
+@dataclass
+class SweepResult:
+    """Aggregate verdicts for B masked sub-problems solved in one (or a few
+    bucket-padded) device calls — the batched consolidation sweep's output.
+    Row b answers the b-th probe exactly as a decode=False PackingResult
+    would: could the probe's pods land on the unmasked columns, how many
+    NEW nodes would launch, and at what launch cost."""
+    total_price: np.ndarray     # B float32 — price of newly-launched nodes
+    new_nodes: np.ndarray       # B int32  — nodes launched (existing excluded)
+    unschedulable: np.ndarray   # B int32  — pods left unplaced
+    device_calls: int = 1       # padded kernel invocations this sweep took
+
+    def feasible_delete(self, b: int) -> bool:
+        """The delete-probe contract: every pod lands on survivors alone."""
+        return (int(self.unschedulable[b]) == 0
+                and int(self.new_nodes[b]) == 0)

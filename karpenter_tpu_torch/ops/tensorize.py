@@ -1,9 +1,9 @@
 """Tensorization: pods + catalog + nodepools → dense arrays.
 
-A copy of the JAX package's `ops/tensorize.py` (without the consolidation
-arena, which belongs to a later slice).  The lowering is host-side numpy and
-must stay bit-identical to the reference's, because every kernel parity
-check starts from these arrays:
+A copy of the JAX package's `ops/tensorize.py`, with its consolidation
+`SimulationArena` (the delta-streamed ClusterArena is not ported yet).  The
+lowering is host-side numpy and must stay bit-identical to the reference's,
+because every kernel parity check starts from these arrays:
 
   * pods are deduplicated into **equivalence classes** (identical requests +
     constraints), so the host does set algebra once per (class × launch
@@ -624,6 +624,249 @@ def tensorize(pods: Sequence[Pod], catalog: Sequence[InstanceType],
         class_gang=class_gang,
         gangs=gangs,
     )
+
+
+def arena_fingerprint(candidates: Sequence, nodes: Sequence[Node],
+                      catalog_key: tuple) -> tuple:
+    """Cluster-state fingerprint for `SimulationArena` reuse: everything the
+    arena's tensors consume — candidate identity/order/price/pod multisets,
+    every live node's column inputs (allocatable, labels, taints, zone,
+    bound pods), and the catalog side's content key.  Pod identity is
+    (id, name): pod specs are immutable once admitted (see `_class_key`'s
+    cache), so object identity covers spec content, and the cluster holds
+    strong refs for the pods' cluster lifetime so ids can't be recycled
+    while they still matter.  PDBs are deliberately NOT part of the key:
+    evictability is recomputed on the host every tick, never baked into
+    the arena's arrays."""
+    node_sig = tuple(
+        (n.name, n.zone, float(n.price), n.marked_for_deletion,
+         tuple(sorted(n.allocatable.items())),
+         tuple(sorted(n.labels.items())),
+         tuple(repr(t) for t in n.taints),
+         tuple((id(p), p.name) for p in n.pods))
+        for n in nodes)
+    cand_sig = tuple((c.name, float(c.price),
+                      tuple((id(p), p.name) for p in c.reschedulable))
+                     for c in candidates)
+    return (cand_sig, node_sig, catalog_key)
+
+
+@dataclass
+class _ArenaSide:
+    """One tensorized face of the arena: the lowered+tensorized problem over
+    the union of all candidate pods, every live node as a pre-opened column,
+    and the per-candidate bookkeeping the sweeps mask with."""
+    problem: Problem
+    node_list: List[Node]
+    alloc: np.ndarray           # E×R float32
+    used: np.ndarray            # E×R float32
+    compat: np.ndarray          # C×E bool
+    cand_counts: np.ndarray     # N×C int32 — candidate i's pod class counts
+    cand_cols: np.ndarray       # N int64 — candidate i's column index (-1: none)
+
+
+class SimulationArena:
+    """One tensorization of the cluster serving a WHOLE consolidation sweep.
+
+    The sequential path re-runs `lower_pods` + `tensorize` +
+    `tensorize_nodes` per probe (log₂N prefix probes + up to 2N single-node
+    screens per tick).  The arena does that lowering ONCE over the union of
+    all candidate pods and ALL live nodes, then expresses each probe as
+    pure masking: a per-probe class-count vector (which candidates' pods to
+    reschedule), a per-probe existing-column mask (which candidate nodes
+    are gone), and a per-probe price cap (the strictly-cheaper replacement
+    rule) — exactly the batch axes `solve_classpack_sweep` consumes, so a
+    whole prefix family or single-node screen is 1-2 device calls of the
+    K5 sweep kernel.
+
+    Two faces, matching the sequential simulate's two catalog shapes:
+    `delete` (empty catalog — pods must fit on survivors alone) and
+    `replace` (full catalog, price-masked per candidate).  Both are built
+    lazily: a tick that finds a multi-node delete never pays for the
+    replace face.
+
+    Exactness: delete-face verdicts match the sequential per-probe oracle
+    bit-for-bit on topology-free pods — same class arrays (zero-count
+    classes are exact scan no-ops), same survivor columns (sequential
+    probes keep non-probed candidates as survivors, so columns cover ALL
+    live nodes and probes mask their own), same FFD order (catalog-free
+    norm).  Two documented approximations remain: (1) constraint lowering
+    runs once with every candidate excluded, where the sequential path
+    excludes only the probed subset — spread/affinity rewrites can differ;
+    (2) the replace face FFD-orders classes under the FULL catalog's norm
+    while the sequential screen tensorizes a price-filtered catalog.  Both
+    are safe by construction: the sweep only *screens*, and every chosen
+    action is re-validated by the sequential fully-decoded `simulate`
+    (decode-audit included) before execution.
+
+    `device` is where the sweeps solve ("cuda" by default; "cpu" runs the
+    kernels' plain versions).  The cluster is read through its node and
+    pod dicts and `tensorize_nodes`; without a ClusterArena that is the
+    reference's own bit-identical fallback path."""
+
+    def __init__(self, candidates: Sequence, cluster, catalog,
+                 nodepools: Sequence[NodePool], node_classes=None,
+                 device="cuda"):
+        from .classpack import resolve_device
+        self.device = resolve_device(device)
+        self.candidates = list(candidates)
+        self._cluster = cluster
+        self._catalog = list(catalog)
+        self._nodepools = list(nodepools)
+        self._node_classes = node_classes
+        self._names = [c.name for c in self.candidates]
+        self.prices = np.asarray([c.price for c in self.candidates],
+                                 np.float32)
+        pods = []
+        self._slices: List[Tuple[int, int]] = []
+        for c in self.candidates:
+            s = len(pods)
+            pods.extend(c.reschedulable)
+            self._slices.append((s, len(pods)))
+        self._pods = pods
+        self._delete: Optional[_ArenaSide] = None
+        self._replace: Optional[_ArenaSide] = None
+        # staleness guard (the lazy-face hazard): faces tensorized from an
+        # earlier cluster state must never serve a sweep after ANY cluster
+        # mutation — a bind between sweeps changes used rows, a taint edit
+        # changes compat.  The cluster's mutation_epoch is bumped by every
+        # mutator, so comparing it is an O(1) validity check.
+        self._built_epoch = getattr(cluster, "mutation_epoch", None)
+
+    def _check_stale(self):
+        epoch = getattr(self._cluster, "mutation_epoch", None)
+        if epoch != self._built_epoch:
+            self._delete = None
+            self._replace = None
+            self._built_epoch = epoch
+
+    # ---- face construction ------------------------------------------------
+    def _build_side(self, catalog) -> _ArenaSide:
+        from .constraints import (LEVEL_REQUIRED_ONLY, lower_pods,
+                                  make_zone_feasibility)
+        nodes = list(self._cluster.nodes.values())
+        excl = self._names
+        excl_set = set(excl)
+        zones = sorted({o.zone for it in catalog for o in it.offerings
+                        if o.available}
+                       | {n.zone for n in nodes
+                          if n.name not in excl_set and n.zone})
+        lowered = lower_pods(self._pods, nodes=nodes, option_zones=zones,
+                             exclude_nodes=excl, level=LEVEL_REQUIRED_ONLY,
+                             zone_feasible=make_zone_feasibility(
+                                 catalog, nodes, exclude_nodes=excl))
+        problem = tensorize(lowered, catalog, self._nodepools,
+                            node_classes=self._node_classes)
+        # ALL live nodes as columns — each probe masks its own subset, the
+        # rest act as survivors exactly as in the sequential per-probe
+        # tensorize_nodes(exclude=subset)
+        node_list, alloc, used, compat = self._cluster.tensorize_nodes(
+            problem.class_reps, problem.axes, exclude=(),
+            scales=problem.scales)
+        col_of = {n.name: i for i, n in enumerate(node_list)}
+        C = problem.num_classes
+        cid = np.zeros(len(lowered), np.int64)
+        for ci, m in enumerate(problem.class_members):
+            cid[np.asarray(m, np.int64)] = ci
+        counts = np.zeros((len(self.candidates), C), np.int32)
+        for i, (s, e) in enumerate(self._slices):
+            if e > s:
+                counts[i] = np.bincount(cid[s:e], minlength=C)
+        cols = np.asarray([col_of.get(name, -1) for name in self._names],
+                          np.int64)
+        return _ArenaSide(problem, node_list, alloc, used, compat,
+                          counts, cols)
+
+    @property
+    def delete_side(self) -> _ArenaSide:
+        self._check_stale()
+        if self._delete is None:
+            self._delete = self._build_side([])
+        return self._delete
+
+    @property
+    def replace_side(self) -> _ArenaSide:
+        self._check_stale()
+        if self._replace is None:
+            self._replace = self._build_side(self._catalog)
+        return self._replace
+
+    # ---- the two sweeps ---------------------------------------------------
+    def _sweep(self, side: _ArenaSide, counts_b: np.ndarray,
+               mask: Optional[np.ndarray], caps: Optional[np.ndarray],
+               max_nodes: int = 8192):
+        from .classpack import solve_classpack_sweep
+        return solve_classpack_sweep(
+            side.problem, counts_b, device=self.device,
+            **self.sweep_inputs(side, mask, caps, max_nodes))
+
+    @staticmethod
+    def sweep_inputs(side: _ArenaSide, mask: Optional[np.ndarray],
+                     caps: Optional[np.ndarray], max_nodes: int = 8192):
+        """The keyword arguments `solve_classpack_sweep` (and
+        `lower_sweep`) take for a probe family on `side`, besides the
+        problem and the counts."""
+        E = len(side.node_list)
+        return dict(existing_alloc=side.alloc if E else None,
+                    existing_used=side.used if E else None,
+                    existing_compat=side.compat if E else None,
+                    exist_mask_b=mask if E else None,
+                    price_cap_b=caps, max_nodes=max_nodes)
+
+    def sweep_prefixes(self):
+        """All N candidate prefixes as one batched delete probe: row k-1
+        answers `simulate(cands[:k], allow_new=False, decode=False)` —
+        feasible ⇔ unschedulable == 0 and new_nodes == 0."""
+        return self.sweep_prefix_subset(range(1, len(self.candidates) + 1))
+
+    def sweep_prefix_subset(self, ks):
+        """Delete probes for the given prefix lengths only (1-based): row r
+        answers `simulate(cands[:ks[r]], allow_new=False, decode=False)`.
+        The consolidation search asks this for the mids its binary search
+        can actually reach (~log₂N prefixes per round) instead of all N."""
+        return self._sweep(*self.prefix_probes(ks))
+
+    def prefix_probes(self, ks):
+        """(face, counts_b, exist_mask_b, price_cap_b, max_nodes) of the
+        delete probes for prefix lengths `ks`."""
+        side = self.delete_side
+        ks = [int(k) for k in ks]
+        C = side.problem.num_classes
+        if ks:
+            cum = np.cumsum(side.cand_counts, axis=0, dtype=np.int32)
+            counts_b = np.stack([cum[k - 1] for k in ks])
+        else:
+            counts_b = np.zeros((0, C), np.int32)
+        E = len(side.node_list)
+        mask = np.ones((len(ks), E), bool)
+        for r, k in enumerate(ks):
+            for j in side.cand_cols[:k]:
+                if j >= 0:
+                    mask[r, j] = False      # prefix k loses its candidates
+        # the delete face has NO launch options — no slot beyond the E
+        # pre-opened columns can ever open, so the slot array stops at the
+        # E bucket instead of the pods+nodes bucket
+        return (side, counts_b, mask, None,
+                pad_to(E + 1, (256, 512, 1024, 2048, 4096, 8192)))
+
+    def sweep_singles(self):
+        """All N single-candidate replacement screens in one batched call:
+        row i answers `simulate([c_i], allow_new=True,
+        max_total_price=c_i.price, decode=False)` with the price cap
+        applied as an option mask instead of a catalog rebuild."""
+        return self._sweep(*self.singles_probes())
+
+    def singles_probes(self):
+        """(face, counts_b, exist_mask_b, price_cap_b, max_nodes) of the
+        single-candidate replacement screens."""
+        side = self.replace_side
+        N = len(self.candidates)
+        E = len(side.node_list)
+        mask = np.ones((N, E), bool)
+        for i, j in enumerate(side.cand_cols):
+            if j >= 0:
+                mask[i, j] = False
+        return side, side.cand_counts, mask, self.prices, 8192
 
 
 def pad_to(n: int, buckets: Sequence[int] = (256, 1024, 4096, 16384, 32768,

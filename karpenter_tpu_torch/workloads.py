@@ -8,18 +8,28 @@ pre-opened existing-node columns for a tensorized problem with numpy only.
 hashes it; `GOLDEN` holds the digests of the headline solves (50k pods ×
 600 instance types), which the JAX package reproduces on the CPU
 (tests/test_torch_slice.py) and `chip_smoke.py` checks on the card.
+
+`consolidation_fleet` builds the consolidation cell — BASELINE.json config
+4, 500 under-utilized nodes — from a numpy seed; `consolidation_digests`
+fingerprints a consolidation decision and its sweep rows, and
+`GOLDEN_CONSOLIDATION` holds the JAX package's digests of that fleet
+(tests/test_torch_consolidation.py), which `chip_smoke.py` checks on the
+card.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Tuple
+import json
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 
 from .api import labels as wk
-from .api.objects import Pod
-from .api.resources import CPU, GPU, MEMORY, ResourceList
+from .api.objects import NodeClaim, NodePool, Pod
+from .api.requirements import IN, Requirement, Requirements
+from .api.resources import CPU, GPU, MEMORY, PODS, ResourceList
 from .api.taints import Toleration
 
 # the headline: BASELINE.json's 50k-pod mixed burst over a 600-type catalog
@@ -132,4 +142,220 @@ GOLDEN = {
     (HEADLINE_EXISTING, False): (
         "5ff7ea316c245e090ed9ced1d4e21d7617900a44f8f237eb1742a49766a68225",
         4810.14404296875),
+}
+
+
+# ---------------------------------------------------------------------------
+# the consolidation cell: BASELINE.json config 4, 500 under-utilized nodes
+# ---------------------------------------------------------------------------
+
+CONSOLIDATION_NODES = 500
+CONSOLIDATION_SEED = 3
+CONSOLIDATION_TYPES = 200          # bench.run_consolidation_replay's n_types
+CONSOLIDATION_VCPUS = (4, 8, 16)   # the fleet's node sizes
+CONSOLIDATION_SCALE_DOWN = 0.72    # share of pods deleted after the fill
+CONSOLIDATION_NOW = 10_000.0       # the controller's clock; nodes are born at 0
+CONSOLIDATION_SHAPES = (100, 500)  # max_candidates: the reference's limit, all
+LAUNCH_PROBE_ROWS = 64             # launch_probes: rows, one call at B = 64
+LAUNCH_PROBE_SEED = 11
+
+
+class CatalogProvider:
+    """A cloud provider as the consolidation decision reads one: a fixed
+    catalog from `get_instance_types()` and `node_classes` (None: every
+    pool's nodes boot the catalog's own 20 GiB root volume)."""
+
+    def __init__(self, catalog, node_classes=None):
+        self.catalog = list(catalog)
+        self.node_classes = node_classes
+
+    def get_instance_types(self):
+        return self.catalog
+
+
+@dataclass
+class Fleet:
+    provider: CatalogProvider
+    cluster: object            # state.cluster.Cluster
+    pools: List[NodePool]
+    clock: Callable[[], float]
+
+
+def consolidation_fleet(n_nodes: int = CONSOLIDATION_NODES,
+                        seed: int = CONSOLIDATION_SEED,
+                        n_types: int = CONSOLIDATION_TYPES) -> Fleet:
+    """A dense fleet scaled down to ~28% utilization, as
+    `bench.run_consolidation_replay` and the reference's deprovisioning
+    scale suite (karpenter:test/suites/scale/deprovisioning_test.go:325-428)
+    build it, but directly from the seed instead of through a provisioner.
+
+    Node i (`node-0000`…) draws an instance type among the catalog's 4-,
+    8- and 16-vCPU types and one of its available offerings, and registers
+    through `Cluster.register_nodeclaim` with the labels, provider id and
+    allocatable a launch of that offering gets.  Pods (`pod-00000`…, owner
+    ReplicaSet) draw bench's requests — cpu 1500-2599m, memory 2-4 GiB —
+    and fill each node first-fit; the first pod that does not fit starts
+    the next node, and the pod that does not fit the last node is not
+    created.  Then each pod is deleted with probability 0.72 (bench's
+    scale-down).  Nodes are created at t=0; `clock` reads 10 000 s, well
+    past the 300 s stabilization window."""
+    from .catalog.generate import generate_catalog
+    from .catalog.instancetype import effective_instance_type
+    from .state.cluster import Cluster
+    rng = np.random.default_rng(seed)
+    catalog = generate_catalog(n_types)
+    pool = NodePool()
+    cluster = Cluster(clock=lambda: 0.0)
+    sizes = [it for it in catalog
+             if it.info is not None
+             and it.info.cpu_m in tuple(v * 1000 for v in CONSOLIDATION_VCPUS)
+             and it.available_offerings()]
+
+    def start(i: int):
+        it = sizes[int(rng.integers(len(sizes)))]
+        offs = it.available_offerings()
+        o = offs[int(rng.integers(len(offs)))]
+        labels = dict(pool.template.labels)
+        labels.update({wk.INSTANCE_TYPE: it.name, wk.ZONE: o.zone,
+                       wk.CAPACITY_TYPE: o.capacity_type,
+                       wk.NODEPOOL: pool.name})
+        labels.update({k: v for k, v in it.requirements.labels().items()
+                       if k not in (wk.ZONE, wk.CAPACITY_TYPE)})
+        name = f"node-{i:04d}"
+        claim = NodeClaim(
+            nodepool=pool.name, name=f"{name}-claim",
+            requirements=pool.requirements().union(Requirements.of(
+                Requirement(wk.INSTANCE_TYPE, IN, [it.name]),
+                Requirement(wk.ZONE, IN, [o.zone]),
+                Requirement(wk.CAPACITY_TYPE, IN, [o.capacity_type]))),
+            taints=list(pool.template.taints), labels=labels,
+            provider_id=f"fleet:///{o.zone}/i-{i:017x}",
+            instance_type=it.name, zone=o.zone,
+            capacity_type=o.capacity_type, price=o.price)
+        eff = effective_instance_type(it, pool)
+        node = cluster.register_nodeclaim(claim, eff.allocatable,
+                                          eff.capacity)
+        # the registry names nodes from a process-wide counter; the cell
+        # needs names that depend on the seed alone
+        del cluster.nodes[node.name]
+        node.name = node.labels[wk.HOSTNAME] = name
+        cluster.nodes[name] = node
+        return node
+
+    pods: List[Pod] = []
+    node, i_node, used = start(0), 0, ResourceList()
+    while True:
+        req = ResourceList({CPU: int(rng.integers(1500, 2600)),
+                            MEMORY: int(rng.integers(2, 5)) * 2**30})
+        with_pod = used + req
+        with_pod[PODS] = with_pod.get(PODS, 0) + 1
+        if not with_pod.fits(node.allocatable):
+            if i_node + 1 == n_nodes:
+                break
+            i_node += 1
+            node, used = start(i_node), ResourceList()
+            with_pod = ResourceList(req)
+            with_pod[PODS] = 1
+            assert with_pod.fits(node.allocatable), node.instance_type
+        name = f"pod-{len(pods):05d}"
+        pod = cluster.add_pod(Pod(name=name, uid=name, requests=req,
+                                  owner_kind="ReplicaSet"))
+        cluster.bind_pod(pod, node.name)
+        pods.append(pod)
+        used = with_pod
+    for p in pods:
+        if rng.random() < CONSOLIDATION_SCALE_DOWN:
+            cluster.delete_pod(p)
+    return Fleet(CatalogProvider(catalog), cluster, [pool],
+                 lambda: CONSOLIDATION_NOW)
+
+
+def action_signature(action):
+    """What 'the same action' means: kind + candidate nodes + what gets
+    launched (instance types, sorted) — tests/test_consolidation_sweep.py's
+    identity of a consolidation decision."""
+    if action is None:
+        return None
+    launched = []
+    if action.simulation is not None:
+        launched = sorted(d.option.instance_type
+                          for d in action.simulation.nodes)
+    return (action.kind, [c.name for c in action.candidates], launched)
+
+
+def sweep_digest(sweep) -> Tuple[str, float]:
+    """(sha256 of a SweepResult's integer rows — new nodes and
+    unschedulable pods — and the float32 sum of its per-row launch
+    costs, compared within a stated tolerance)."""
+    h = hashlib.sha256()
+    for a in (sweep.new_nodes, sweep.unschedulable):
+        h.update(np.ascontiguousarray(a, np.int64).tobytes())
+        h.update(b"|")
+    return h.hexdigest(), float(np.asarray(sweep.total_price,
+                                           np.float64).sum())
+
+
+def consolidation_digests(action, prefixes, singles) -> Dict[str, object]:
+    """The fingerprint of one consolidation run: the action signature's
+    sha256, and `sweep_digest` of `arena.sweep_prefixes()` and
+    `arena.sweep_singles()`."""
+    sig = json.dumps(action_signature(action)).encode()
+    return dict(action=hashlib.sha256(sig).hexdigest(),
+                prefixes=sweep_digest(prefixes),
+                singles=sweep_digest(singles))
+
+
+def launch_probes(arena, n_rows: int = LAUNCH_PROBE_ROWS,
+                  seed: int = LAUNCH_PROBE_SEED):
+    """Seeded replace-face probes that must launch new nodes, over an
+    arena of either package (read by attribute only): row r reschedules
+    the pods of 1 + r % 10 candidates that hold pods, keeps no live node
+    (even r) or about 1% of them (odd r) as survivors, and caps launches strictly below the sum of
+    those candidates' prices (r % 3 == 1), half of it (r % 3 == 2), or not
+    at all (r % 3 == 0).  Returns (problem, counts_b, keyword arguments of
+    `solve_classpack_sweep`)."""
+    side = arena.replace_side
+    rng = np.random.default_rng(seed)
+    N, C = side.cand_counts.shape
+    E = len(side.node_list)
+    busy = np.nonzero(side.cand_counts.sum(1) > 0)[0]
+    counts = np.zeros((n_rows, C), np.int32)
+    mask = np.ones((n_rows, E), bool)
+    caps = np.full(n_rows, np.inf, np.float32)
+    for r in range(n_rows):
+        pick = rng.choice(busy, size=min(1 + r % 10, len(busy)),
+                          replace=False)
+        counts[r] = side.cand_counts[pick].sum(0)
+        mask[r] = rng.random(E) < (0.01 if r % 2 else 0.0)
+        price = np.float32(np.asarray(arena.prices, np.float64)[pick].sum())
+        if r % 3:
+            caps[r] = price if r % 3 == 1 else price / np.float32(2)
+    return side.problem, counts, dict(
+        existing_alloc=side.alloc, existing_used=side.used,
+        existing_compat=side.compat, exist_mask_b=mask, price_cap_b=caps,
+        max_nodes=8192)
+
+
+# sweep_digest of `launch_probes` over the 500-candidate arena of
+# `consolidation_fleet()`, through the JAX package's solve_classpack_sweep on
+# the CPU: 64 rows, every one of them schedulable, 294 launches in all
+GOLDEN_LAUNCH_SWEEP: Tuple[str, float] = (
+    "5b5435f05bce702b2ccc7e697f9d3b87f144cdc6a63f7f287678a73335689d5f",
+    12.727600233629346)
+
+# max_candidates -> consolidation_digests of `consolidation_fleet()` as the
+# JAX package's DisruptionController computes them on the CPU
+GOLDEN_CONSOLIDATION: Dict[int, Dict[str, object]] = {
+    100: dict(
+        action="74a6007d525547274adb174612a3f6939e4271407653399c3724c7f5484b2a26",
+        prefixes=("67d96f527361a32781f1592b76adcf54bd9dd9170ec49c4191f31e85750b002c",
+                  0.0),
+        singles=("67d96f527361a32781f1592b76adcf54bd9dd9170ec49c4191f31e85750b002c",
+                 0.0)),
+    500: dict(
+        action="d56049a8cbe62c5b959cb519dbb932e9cac8c10fdf2253c7ffb14dc917f664c8",
+        prefixes=("8e513b1565c6230f14046f4b6b2729af9208c9c22d3e982e1b431b2839648c12",
+                  0.0),
+        singles=("361d05da05356c37141fbb922418ec453b148ac414ea9d47b46162bf65ecb784",
+                 0.0)),
 }

@@ -19,7 +19,8 @@ from karpenter_tpu_torch.catalog.generate import generate_catalog
 from karpenter_tpu_torch.ops import classpack as cp
 from karpenter_tpu_torch.ops import classpack_kernels as ck
 from karpenter_tpu_torch.ops.tensorize import tensorize
-from torch_cases import CASES, make_case
+from torch_cases import (CASES, SWEEP_CASES, make_case, make_sweep_case,
+                         sweep_args)
 
 REL_TOL = 1e-5
 
@@ -74,7 +75,7 @@ def test_cuda_kernels_match_plain(cuda_device, name):
     torch.cuda.synchronize()
     assert ck.LAUNCHES == {"classpack_precompute": 1, "classpack_scan": 2,
                            "classpack_assign_decode": 1,
-                           "classpack_aggregate": 1}
+                           "classpack_aggregate": 1, "classpack_sweep": 0}
 
 
 @pytest.mark.cuda
@@ -124,3 +125,133 @@ def test_cuda_solve_matches_cpu_and_the_goldens(cuda_device):
                                     device="cpu")
         assert workloads.plan_digest(small, on_card, decode)[0] == \
             workloads.plan_digest(small, on_cpu, decode)[0]
+
+
+def _sweep_on(s, dev):
+    t = [torch.tensor(a, device=dev) for a in sweep_args(s)]
+    t[7] = torch.tensor(np.packbits(s["mask"], axis=1), device=dev)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SWEEP_CASES))
+def test_cuda_sweep_matches_plain(cuda_device, name):
+    """K5 against its plain version on the seeded sweep rows (caps of inf,
+    below every price and between prices, an all-masked row, zero-count
+    rows, a mask that removes the best pool rank, slot exhaustion); B = 8
+    and the same rows tiled to B = 40 (more blocks than rows of one wave
+    would need)."""
+    s = make_sweep_case(3, **SWEEP_CASES[name])
+    req, counts, packed, cap, alloc, price, rank, mpacked, caps, iopt, iused \
+        = _sweep_on(s, cuda_device)
+    m_all, _ = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
+    for reps in (1, 5):
+        cb = counts.repeat(reps, 1).contiguous()
+        mb = mpacked.repeat(reps, 1).contiguous()
+        pb = caps.repeat(reps).contiguous()
+        ck.reset_launches()
+        got = ck.classpack_sweep(req, cb, packed, cap, alloc, price, rank, mb,
+                                 pb, iopt, iused, m_all, s["K"])
+        want = ck.classpack_sweep_plain(req, cb, packed, cap, alloc, price,
+                                        rank, mb, pb, iopt, iused, m_all,
+                                        s["K"])
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["classpack_sweep"] == 1
+        assert torch.equal(got[:, 1:], want[:, 1:])
+        for a, b in zip(got[:, 0].tolist(), want[:, 0].tolist()):
+            assert _close(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_large_slot_state_spills_to_global(cuda_device):
+    """K = 2048 at R = 5 exceeds the kernel's 40 KB shared-memory budget for
+    a row's slot state, so the rows run from the global scratch."""
+    s = make_sweep_case(6, E=12, K=2048)
+    t = _sweep_on(s, cuda_device)
+    req, counts, packed, cap, alloc, price, rank, mpacked, caps, iopt, iused \
+        = t
+    m_all, _ = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
+    args = (req, counts, packed, cap, alloc, price, rank, mpacked, caps,
+            iopt, iused, m_all, s["K"])
+    got = ck.classpack_sweep(*args)
+    want = ck.classpack_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 1:], want[:, 1:])
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_refuses_instead_of_falling_back(cuda_device):
+    s = make_sweep_case(3, E=12)
+    req, counts, packed, cap, alloc, price, rank, mpacked, caps, iopt, iused \
+        = _sweep_on(s, cuda_device)
+    m_all, _ = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
+    ok = [req, counts, packed, cap, alloc, price, rank, mpacked, caps, iopt,
+          iused, m_all]
+    ck.reset_launches()
+    bad = list(ok)
+    bad[1] = counts.to(torch.int64)                     # counts dtype
+    with pytest.raises(TypeError):
+        ck.classpack_sweep(*bad, s["K"])
+    bad = list(ok)
+    bad[7] = mpacked[:, :-1].contiguous()               # mask width
+    with pytest.raises(ValueError):
+        ck.classpack_sweep(*bad, s["K"])
+    bad = list(ok)
+    bad[8] = caps.cpu()                                 # mixed devices
+    with pytest.raises(ValueError):
+        ck.classpack_sweep(*bad, s["K"])
+    with pytest.raises(ValueError):                     # K past the kernel
+        ck.classpack_sweep(*ok[:9], torch.full((2**14,), -1, dtype=torch.int32,
+                                               device=cuda_device),
+                           torch.zeros((2**14, req.shape[1]),
+                                       dtype=torch.int32, device=cuda_device),
+                           m_all, 2**14)
+    assert ck.LAUNCHES["classpack_sweep"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_consolidation_matches_the_goldens(cuda_device):
+    """The consolidation decision on the card over the 500-node fleet
+    reproduces the goldens the JAX package computes on the CPU
+    (tests/test_torch_consolidation.py), through K5 and K1-K3."""
+    from karpenter_tpu_torch.controllers.disruption import \
+        DisruptionController
+    for n_cands in workloads.CONSOLIDATION_SHAPES:
+        f = workloads.consolidation_fleet()
+        ck.reset_launches()
+        ctrl = DisruptionController(f.provider, f.cluster, f.pools,
+                                    clock=f.clock, max_candidates=n_cands)
+        cands = ctrl.candidates()
+        action = ctrl.consolidation_action(cands)
+        # the tick alone launched them; the full sweeps below are not a tick
+        for name in ("classpack_precompute", "classpack_scan",
+                     "classpack_assign_decode", "classpack_sweep"):
+            assert ck.LAUNCHES[name] > 0, name
+        arena = ctrl._arena_for(cands)
+        got = workloads.consolidation_digests(
+            action, arena.sweep_prefixes(), arena.sweep_singles())
+        gold = workloads.GOLDEN_CONSOLIDATION[n_cands]
+        assert got["action"] == gold["action"]
+        for face in ("prefixes", "singles"):
+            assert got[face][0] == gold[face][0]
+            assert _close(got[face][1], gold[face][1])
+
+
+@pytest.mark.cuda
+def test_cuda_launch_sweep_matches_the_golden(cuda_device):
+    """Replace-face rows that launch new nodes (`workloads.launch_probes`)
+    reproduce the JAX package's GOLDEN_LAUNCH_SWEEP through K1 + K5."""
+    from karpenter_tpu_torch.controllers.disruption import \
+        DisruptionController
+    from karpenter_tpu_torch.ops.classpack import solve_classpack_sweep
+    f = workloads.consolidation_fleet()
+    ctrl = DisruptionController(f.provider, f.cluster, f.pools,
+                                clock=f.clock, max_candidates=500)
+    problem, counts, kw = workloads.launch_probes(
+        ctrl._arena_for(ctrl.candidates()))
+    ck.reset_launches()
+    res = solve_classpack_sweep(problem, counts, **kw)
+    assert ck.LAUNCHES["classpack_sweep"] == res.device_calls == 1
+    digest, total = workloads.sweep_digest(res)
+    assert digest == workloads.GOLDEN_LAUNCH_SWEEP[0]
+    assert _close(total, workloads.GOLDEN_LAUNCH_SWEEP[1])

@@ -221,6 +221,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "          'karpenter_tpu_torch.ops.tensorize',\n"
         "          'karpenter_tpu_torch.ops.classpack',\n"
         "          'karpenter_tpu_torch.ops.classpack_kernels',\n"
+        "          'karpenter_tpu_torch.ops.constraints',\n"
+        "          'karpenter_tpu_torch.ops.ffd',\n"
+        "          'karpenter_tpu_torch.state', 'karpenter_tpu_torch.state.cluster',\n"
+        "          'karpenter_tpu_torch.controllers',\n"
+        "          'karpenter_tpu_torch.controllers.disruption',\n"
+        "          'karpenter_tpu_torch.forecast.headroom',\n"
+        "          'karpenter_tpu_torch.utils.events',\n"
         "          'karpenter_tpu_torch.convert',\n"
         "          'karpenter_tpu_torch.workloads',\n"
         "          'karpenter_tpu_torch._build'):\n"

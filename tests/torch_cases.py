@@ -87,3 +87,118 @@ CASES = {
     # that has pods
     "full_classes": dict(C=64, Cpad=64),
 }
+
+
+def _fields(cls, src, **conv):
+    """A `cls` dataclass from `src`'s same-named attributes (underscored
+    and missing fields keep their defaults); `conv` converts nested
+    values by field name."""
+    import dataclasses
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name.startswith("_") or not hasattr(src, f.name):
+            continue
+        v = getattr(src, f.name)
+        kw[f.name] = conv[f.name](v) if f.name in conv else v
+    return cls(**kw)
+
+
+def fleet_to_reference(fleet):
+    """The port's `workloads.consolidation_fleet()` as JAX-package objects:
+    (provider, cluster, pools, clock) for the JAX package's
+    DisruptionController.  The provider serves the JAX package's own
+    `generate_catalog` of the same size (the same catalog, built by the
+    same generator) with no nodeclasses, as the port's CatalogProvider
+    does.  Imports the JAX package inside: the card's tests never call it."""
+    from types import SimpleNamespace
+
+    from karpenter_tpu.api import objects as jo
+    from karpenter_tpu.api.requirements import Requirement, Requirements
+    from karpenter_tpu.api.resources import ResourceList
+    from karpenter_tpu.api.taints import Taint
+    from karpenter_tpu.catalog.generate import generate_catalog
+    from karpenter_tpu.state import Cluster
+
+    def reqs(src):
+        return Requirements({k: Requirement.raw(
+            r.key, r.complement, set(r.values), r.greater_than, r.less_than,
+            r.min_values) for k, r in src.items()})
+
+    src = fleet.cluster
+    cluster = Cluster(clock=src.clock)
+    pods = {uid: _fields(jo.Pod, p, requests=ResourceList,
+                         limits=ResourceList, labels=dict, annotations=dict)
+            for uid, p in src.pods.items()}
+    cluster.pods.update(pods)
+    for name, n in src.nodes.items():
+        cluster.nodes[name] = _fields(
+            jo.Node, n, labels=dict, allocatable=ResourceList,
+            capacity=ResourceList,
+            taints=lambda ts: [_fields(Taint, t) for t in ts],
+            pods=lambda ps: [pods[p.uid] for p in ps])
+    for name, c in src.nodeclaims.items():
+        cluster.nodeclaims[name] = _fields(
+            jo.NodeClaim, c, requirements=reqs, requests=ResourceList,
+            labels=dict, taints=lambda ts: [_fields(Taint, t) for t in ts])
+    cluster.mutation_epoch = src.mutation_epoch
+    catalog = generate_catalog(len(fleet.provider.get_instance_types()))
+    provider = SimpleNamespace(get_instance_types=lambda: catalog,
+                               node_classes=None)
+    return provider, cluster, [jo.NodePool()], fleet.clock
+
+
+def make_sweep_case(seed, B=8, **case):
+    """Seeded sweep inputs over `make_case(seed, **case)`: B rows of class
+    counts, column masks and price caps, with the init state always given
+    (all slots closed when the case has no existing nodes).  Rows 0-5 are
+    fixed probes: everything with no cap, zero counts, every column masked,
+    a cap below every price, a cap between prices, and a mask that removes
+    the best pool rank (rank 0 options; the existing columns stay); the
+    rest draw random counts, masks and caps."""
+    c = make_case(seed, **case)
+    rng = np.random.default_rng(seed + 1000)
+    Cpad, Opad = c["comp"].shape
+    K, R = c["K"], c["req"].shape[1]
+    price, rank = c["price"], c["rank"]
+    fin = price[np.isfinite(price)].astype(np.float64)
+    counts = np.where(rng.random((B, Cpad)) < 0.6, c["cnt"][None], 0)
+    counts = counts.astype(np.int32)
+    mask = rng.random((B, Opad)) < 0.7
+    caps = np.where(rng.random(B) < 0.3, np.inf,
+                    rng.choice(fin, B) * rng.uniform(0.5, 1.5, B))
+    counts[0], mask[0], caps[0] = c["cnt"], True, np.inf
+    counts[1] = 0
+    mask[2] = False
+    caps[3] = fin.min() * 0.5
+    caps[4] = np.median(fin)
+    mask[5], caps[5] = rank != 0, np.inf
+    if c["iopt"] is not None:
+        ecols = c["iopt"][c["iopt"] >= 0]
+        mask[5, ecols] = True
+    iopt = c["iopt"] if c["iopt"] is not None else np.full(K, -1, np.int32)
+    iused = c["iused"] if c["iused"] is not None else \
+        np.zeros((K, R), np.int32)
+    return dict(req=c["req"], counts=counts,
+                packed=np.packbits(c["comp"], axis=1), cap=c["cap"],
+                alloc=c["alloc"], price=price, rank=rank, mask=mask,
+                caps=np.minimum(caps, np.finfo(np.float32).max).astype(
+                    np.float32), iopt=iopt, iused=iused, K=K)
+
+
+# the sweep program's parity cases (each (K, R, B) shape costs the JAX side
+# one compile)
+SWEEP_CASES = {
+    "plain": dict(),
+    "existing_overcommitted": dict(E=12),
+    "exhaustion_existing": dict(K=16, E=12),
+    "pool_ranks_existing": dict(trap="caps_ranks", E=12),
+    "nonfinite_many_axes": dict(trap="nonfinite", E=6, R=9, O=100),
+    "overflow": dict(trap="overflow"),
+}
+
+
+def sweep_args(s):
+    """The sweep program's positional arguments, in its order."""
+    return (s["req"], s["counts"], s["packed"], s["cap"], s["alloc"],
+            s["price"], s["rank"], s["mask"], s["caps"], s["iopt"],
+            s["iused"])
