@@ -40,6 +40,30 @@ pass):
                GOLDEN_CONSOLIDATION (the JAX package's, on the CPU).  Then
                the arena build, the warm tick p50, each sweep call's
                CUDA-event time and the tick's device idle share.
+  7. pdhg    — the PDHG LP kernel against its plain version (float32, no
+               TF32) on the card: the headline's restricted master (captured
+               from exact_lp_mix(device=True); both must cap at 20 000
+               iterations), the two masters of each `workloads.lp_problems()`
+               instance (they converge), random LPs of tests/test_lpsolve.py
+               at (20, 5, 8), (80, 20, 30) and one padded to 2048 columns, a
+               u with finite and infinite entries, a B = 4 batch against its
+               four singles, and a warm-started re-solve.  Criteria: the same
+               status, objectives within relative 1e-3, x within 2e-2 (of
+               the pod-count scale on the masters), iterations within a
+               factor 1.5; the batch's members equal their solo launches.
+  8. guided main path — the product's default solve_classpack(prob) on the
+               headline, cold (mix caches cleared) and warm, with HiGHS
+               masters, with device_lp=True (the master caps and demotes
+               the ladder one strike) and with an off-tick refinery (the
+               cold tick answers the greedy GOLDEN plan, the next tick the
+               refined one); every guided plan must reproduce
+               GOLDEN_GUIDED (the JAX package's, on the CPU).  Then the LP
+               instances as guided solves with device_lp=True (masters
+               converge, the ladder stays healthy) against GOLDEN_LP.  Each
+               run with the launch counts zeroed just before it.  Then
+               timings: cold and warm guided headline, exact_lp_mix with
+               HiGHS against the device, the PDHG kernel on each master, and
+               the warm guided headline's device idle share.
 
 Prints the kernel table as one JSON line (each row's `launches` from its
 own path, `launches_by_path` from every main path), the card's name and
@@ -65,6 +89,15 @@ SEED = 7
 # headline solves for K1-K4, the 500-candidate consolidation tick for K5
 HEADLINE_PATH = "headline"
 SWEEP_PATH = "consolidation-500"
+# the guided main paths; the PDHG row's `launches` is the device-LP
+# headline's run
+GUIDED_PATH = "guided-headline"
+DEVICE_LP_PATH = "guided-headline-device-lp"
+REFINERY_PATH = "guided-headline-refinery"
+LP_RTOL = 1e-3          # PDHG objectives (tests/test_lpsolve.py's RTOL)
+LP_XTOL = 2e-2          # PDHG primal, absolute (relative to the pod scale
+#                         on the restricted masters)
+LP_ITER_FACTOR = 1.5
 
 
 def log(*a):
@@ -100,6 +133,8 @@ def probe(torch):
         f"torch CUDA {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(f"[probe] nvcc: {nvcc_line}")
+    import scipy
+    log(f"[probe] scipy {scipy.__version__}, numpy {np.__version__}")
     return card
 
 
@@ -747,6 +782,495 @@ def kernel_table(torch, card, shapes, launches_by_path, err):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the PDHG kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def clear_lp_caches():
+    from karpenter_tpu_torch.ops import lpguide, lpsolve
+    with lpguide._MIX_LOCK:
+        lpguide._MIX_CACHE.clear()
+        lpguide._STALE_CACHE.clear()
+        lpguide._SUPPORT_CACHE.clear()
+    lpsolve.reset_caches()
+
+
+def capture_masters(fn):
+    """Run `fn()` with every `lpsolve._pdhg_kernel` call recorded: returns
+    (fn's result, [{ops, eps, iters_cap, check_every, done, iters}])."""
+    from karpenter_tpu_torch.ops import lpsolve
+    real = lpsolve._pdhg_kernel
+    seen = []
+
+    def record(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(dict(ops=[t.clone() for t in a[:9]], eps=float(a[9]),
+                         iters_cap=kw["iters_cap"],
+                         check_every=kw["check_every"],
+                         done=out[3].cpu().numpy().copy(),
+                         iters=out[4].cpu().numpy().copy()))
+        return out
+    lpsolve._pdhg_kernel = record
+    try:
+        res = fn()
+    finally:
+        lpsolve._pdhg_kernel = real
+    return res, seen
+
+
+def random_lp(rng, n, me, mi):
+    """tests/test_lpsolve.py's generator (feasible by construction)."""
+    x_star = rng.uniform(0.0, 2.0, n)
+    A = rng.uniform(-1.0, 1.0, (me, n))
+    G = rng.uniform(-1.0, 1.0, (mi, n))
+    return (rng.uniform(0.1, 1.0, n), A, A @ x_star, G,
+            G @ x_star + rng.uniform(0.1, 1.0, mi), np.full(n, 4.0))
+
+
+def lp_case(torch, insts, buckets=None):
+    from karpenter_tpu_torch.ops import lpsolve
+    bt = lpsolve.pad_batch(insts, buckets or lpsolve.LP_BUCKETS)
+    ops = [torch.from_numpy(a).cuda() for a in bt.operands()]
+    return dict(ops=ops, eps=lpsolve.DEFAULT_EPS,
+                iters_cap=lpsolve.DEFAULT_ITERS_CAP,
+                check_every=lpsolve.DEFAULT_CHECK_EVERY)
+
+
+def compare_pdhg_case(torch, name, case, err, pod_scale=False, expect=None):
+    """The kernel against `pdhg_plain` on one captured or built batch;
+    returns a list of failure strings (empty when it agrees)."""
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    args = (*case["ops"], case["eps"], case["iters_cap"],
+            case["check_every"])
+    got = [g.cpu().numpy() for g in lk.pdhg(*args)]
+    want = [w.cpu().numpy() for w in lk.pdhg_plain(*args)]
+    torch.cuda.synchronize()
+    c = case["ops"][4].cpu().numpy().astype(np.float64)
+    bad = []
+    B, n = c.shape
+    for i in range(B):
+        og, ow = float(c[i] @ got[0][i]), float(c[i] @ want[0][i])
+        scale = max(1.0, float(np.abs(want[0][i]).max())) if pod_scale \
+            else 1.0
+        dx = float(np.abs(got[0][i] - want[0][i]).max())
+        err["pdhg"] = max(err["pdhg"], dx)
+        it_g, it_w = int(got[4][i]), int(want[4][i])
+        line = (f"[pdhg] {name}[{i}]: n={n} me={case['ops'][1].shape[1]} "
+                f"mi={case['ops'][3].shape[1]} kernel "
+                f"{'converged' if got[3][i] else 'cap'} {it_g} it "
+                f"{int(got[5][i])} restarts obj {og!r} (pres {got[6][i]:.3g}"
+                f" dres {got[7][i]:.3g} gap {got[8][i]:.3g}); plain "
+                f"{'converged' if want[3][i] else 'cap'} {it_w} it obj {ow!r};"
+                f" |dx| {dx:.3g}")
+        log(line)
+        if bool(got[3][i]) != bool(want[3][i]):
+            bad.append(f"{name}[{i}] status differs")
+        if expect is not None and bool(got[3][i]) != expect:
+            bad.append(f"{name}[{i}] status {bool(got[3][i])} != {expect}")
+        if abs(og - ow) > LP_RTOL * max(1.0, abs(ow)):
+            bad.append(f"{name}[{i}] objective {og} vs {ow}")
+        if dx > LP_XTOL * scale:
+            bad.append(f"{name}[{i}] x differs by {dx}")
+        if it_g > LP_ITER_FACTOR * it_w or it_w > LP_ITER_FACTOR * it_g:
+            bad.append(f"{name}[{i}] iterations {it_g} vs {it_w}")
+    return bad
+
+
+def compare_pdhg(torch, problem, err):
+    """Phase 7.  Returns {master name: captured case} of the restricted
+    masters (the headline's and the LP instances')."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import lpguide, lpsolve
+    from karpenter_tpu_torch.ops.health import lp_ladder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err["pdhg"] = 0.0
+    bad = []
+    masters = {}
+    clear_lp_caches()
+    ops = workloads.lp_operands(problem)
+    h = lp_ladder(clock=lambda: 0.0)
+    (_, z, info), seen = capture_masters(
+        lambda: lpguide.exact_lp_mix(*ops, device=True, lp_health=h))
+    check(len(seen) == 1 and not seen[0]["done"][0]
+          and int(seen[0]["iters"][0]) == lpsolve.DEFAULT_ITERS_CAP,
+          f"headline master: expected one capped PDHG solve, got "
+          f"{[(bool(s['done'][0]), int(s['iters'][0])) for s in seen]}")
+    check(info["method"] == "colgen-lp" and h.failures("device_lp") == 1,
+          f"headline master: method {info['method']}, failures "
+          f"{h.failures('device_lp')}")
+    masters["headline"] = seen[0]
+    log(f"[pdhg] headline master caps at {int(seen[0]['iters'][0])} "
+        f"iterations and demotes one strike; HiGHS answers z {z!r}")
+    for C, prob in workloads.lp_problems().items():
+        clear_lp_caches()
+        hh = lp_ladder(clock=lambda: 0.0)
+        (_, zc, infoc), seen = capture_masters(lambda: lpguide.exact_lp_mix(
+            *workloads.lp_operands(prob), device=True, lp_health=hh))
+        check(infoc["method"] == "colgen-lp-device"
+              and all(s["done"][0] for s in seen),
+              f"lp-{C}: device masters did not converge "
+              f"({infoc['method']}, {[bool(s['done'][0]) for s in seen]})")
+        for k, s in enumerate(seen):
+            masters[f"lp-{C} master {k + 1}"] = s
+    for name, case in masters.items():
+        bad += compare_pdhg_case(torch, name, case, err, pod_scale=True,
+                                 expect=name != "headline")
+    rng = np.random.default_rng(SEED)
+    inst = lambda c, A, b, G, h_, u: lpsolve.LPInstance(  # noqa: E731
+        c=np.asarray(c, np.float32), A_eq=A, b_eq=b, A_ub=G, b_ub=h_,
+        upper=u)
+    for n, me, mi in ((20, 5, 8), (80, 20, 30), (1500, 40, 60)):
+        bad += compare_pdhg_case(torch, f"random ({n}, {me}, {mi})",
+                                 lp_case(torch, [inst(*random_lp(
+                                     rng, n, me, mi))]), err, expect=True)
+    c, A, b, G, h_, u = random_lp(rng, 80, 20, 30)
+    u[::3] = np.inf
+    bad += compare_pdhg_case(torch, "u finite and +inf",
+                             lp_case(torch, [inst(c, A, b, G, h_, u)]), err,
+                             expect=True)
+    batch = [inst(*random_lp(rng, n, me, mi))
+             for n, me, mi in ((20, 5, 8), (28, 7, 12), (16, 4, 6),
+                               (30, 8, 10))]
+    bad += compare_pdhg_case(torch, "batch B=4",
+                             lp_case(torch, batch, buckets=(32,)), err,
+                             expect=True)
+    together = lpsolve.solve_lp_batch(batch, buckets=(32,))
+    for i, one in enumerate(batch):
+        solo = lpsolve.solve_lp_batch([one], buckets=(32,))[0]
+        dx = float(np.abs(solo.x - together[i].x).max())
+        if solo.iterations != together[i].iterations or dx > 1e-4:
+            bad.append(f"batch member {i}: {together[i].iterations} it vs "
+                       f"solo {solo.iterations}, |dx| {dx}")
+    log(f"[pdhg] B=4 batch: every member equals its solo launch "
+        f"(iterations {[s.iterations for s in together]})")
+    # a warm-started re-solve of the 100-class instance's last master
+    key = "chip_smoke:warm"
+    wc = masters[f"lp-{workloads.LP_SIZES[0]} master 2"]
+    A0, b0, G0, h0, c0, u0 = (t[0].cpu().numpy() for t in wc["ops"][:6])
+    lpsolve.reset_caches()
+    cold = lpsolve.solve_lp(c0, A_eq=A0, b_eq=b0, A_ub=G0, b_ub=h0, upper=u0,
+                            warm_key=key)
+    warm, seen = capture_masters(lambda: lpsolve.solve_lp(
+        c0, A_eq=A0, b_eq=b0, A_ub=G0, b_ub=h0, upper=u0, warm_key=key))
+    check(cold.converged and warm.converged
+          and warm.iterations < cold.iterations,
+          f"warm start: cold {cold.iterations} it, warm {warm.iterations}")
+    log(f"[pdhg] warm start: cold {cold.iterations} it, warm "
+        f"{warm.iterations} it")
+    bad += compare_pdhg_case(torch, "warm re-solve", seen[0], err,
+                             pod_scale=True, expect=True)
+    check(not bad, "PDHG kernel differs from its plain version: "
+          + "; ".join(bad))
+    log(f"[pdhg] the kernel agrees with its plain version on every input "
+        f"(max |dx| {err['pdhg']:.3g})")
+    return masters
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the guided main path
+# ---------------------------------------------------------------------------
+
+def all_launches():
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    return {**ck.LAUNCHES, **lk.LAUNCHES}
+
+
+def reset_all_launches():
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    ck.reset_launches()
+    lk.reset_launches()
+
+
+def check_guided(prob, res, what):
+    import scipy
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import lpguide
+    gold = workloads.GOLDEN_GUIDED
+    digest, total = workloads.plan_digest(prob, res)
+    z = [h[3] for h in lpguide._MIX_CACHE.values()]
+    if digest != gold["digest"] or len(res.nodes) != gold["nodes"]:
+        log(f"[guided] {what}: scipy {scipy.__version__} here, "
+            f"{gold['scipy']} for the golden; z_lp {z} vs golden "
+            f"{gold['z_lp']!r}; plan cost {total!r} ({len(res.nodes)} "
+            f"nodes) vs golden {gold['total']!r} ({gold['nodes']} nodes)")
+    check(digest == gold["digest"],
+          f"guided headline {what}: digest {digest} != golden {gold['digest']}")
+    check(abs(total - gold["total"]) <= REL_TOL * gold["total"]
+          and len(res.nodes) == gold["nodes"] and not res.unschedulable,
+          f"guided headline {what}: {total} / {len(res.nodes)} nodes")
+    log(f"[guided] {what}: {len(res.nodes)} nodes, total {total!r}, z_lp "
+        f"{z} — GOLDEN_GUIDED matches")
+
+
+def check_lp_plan(prob, res, C):
+    from karpenter_tpu_torch import workloads
+    gold = workloads.GOLDEN_LP[C]
+    n_pods = int(prob.class_counts.sum())
+    placed = sorted(p for nd in res.nodes for p in nd.pod_indices)
+    check(placed == list(range(n_pods)) and not res.unschedulable,
+          f"lp-{C}: the plan does not bind every pod exactly once")
+    cls = np.empty(n_pods, np.int64)
+    for c, m in enumerate(prob.class_members):
+        cls[np.asarray(m, np.int64)] = c
+    oi = {id(o): j for j, o in enumerate(prob.options)}
+    for nd in res.nodes:
+        used = prob.class_requests[cls[np.asarray(nd.pod_indices)]].sum(0)
+        check(bool((used <= prob.option_alloc[oi[id(nd.option)]]).all()),
+              f"lp-{C}: a node exceeds its option's allocatable")
+    rel = abs(res.total_price - gold["device_total"]) / gold["device_total"]
+    check(rel <= 5e-3, f"lp-{C}: plan total {res.total_price} vs golden "
+          f"{gold['device_total']} (rel {rel:.3g})")
+    log(f"[guided] lp-{C} device_lp: {len(res.nodes)} nodes (golden "
+        f"{gold['device_nodes']}), total {res.total_price!r} (golden "
+        f"{gold['device_total']!r}, rel {rel:.3g}); every pod bound within "
+        f"alloc")
+
+
+def guided_path(torch, problem):
+    """Phase 8's main-path runs; returns {path: launch counts}."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import lpguide
+    from karpenter_tpu_torch.ops.classpack import solve_classpack
+    from karpenter_tpu_torch.ops.health import lp_ladder
+    from karpenter_tpu_torch.ops.refinery import GuideRefinery
+    sync = torch.cuda.synchronize
+    by_path = {}
+    clear_lp_caches()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    res = solve_classpack(problem)
+    sync()
+    wall = time.perf_counter() - t0
+    by_path[GUIDED_PATH] = launches = all_launches()
+    log(f"[guided] cold default solve {wall:.3f} s; launches {launches}")
+    for k in ("classpack_precompute", "classpack_scan",
+              "classpack_assign_decode"):
+        check(launches[k] > 0, f"{k} never launched on the guided path")
+    check_guided(problem, res, "cold")
+    check_guided(problem, solve_classpack(problem), "warm")
+
+    clear_lp_caches()
+    h = lp_ladder(clock=lambda: 0.0)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    res = solve_classpack(problem, device_lp=True, lp_health=h)
+    sync()
+    wall = time.perf_counter() - t0
+    by_path[DEVICE_LP_PATH] = launches = all_launches()
+    log(f"[guided] cold device_lp solve {wall:.3f} s; launches {launches}; "
+        f"ladder {h.active_rung('device_lp')}, failures "
+        f"{h.failures('device_lp')}")
+    check(launches["pdhg"] > 0, "pdhg never launched on the device_lp path")
+    check(h.failures("device_lp") == 1
+          and h.active_rung("device_lp") == "device_lp",
+          "the capped headline master must demote exactly one strike")
+    check_guided(problem, res, "device_lp cold")
+    check_guided(problem, solve_classpack(problem, device_lp=True,
+                                          lp_health=h), "device_lp warm")
+
+    # the off-tick refinery: a cold tick answers greedy (GOLDEN's plan) and
+    # queues the column generation; the refined mix upgrades the next tick
+    clear_lp_caches()
+    ref = GuideRefinery(start=False)
+    reset_all_launches()
+    res = solve_classpack(problem, refinery=ref)
+    digest, _ = workloads.plan_digest(problem, res)
+    check(digest == workloads.GOLDEN[(0, True)][0] and ref.pending() == 1,
+          "refinery: the cold tick must answer the greedy golden plan and "
+          "queue one refine job")
+    ref.start()
+    check(ref.drain(timeout=300.0), "refinery: the refine job did not finish")
+    res = solve_classpack(problem, refinery=ref)
+    sync()
+    by_path[REFINERY_PATH] = launches = all_launches()
+    check(ref.take_upgrade(), "refinery: no upgrade hint after the refine")
+    ref.stop()
+    log(f"[guided] refinery: cold tick = the greedy golden plan, refine "
+        f"job drained, upgrade hint raised; launches {launches}")
+    check_guided(problem, res, "refinery, the next tick")
+
+    for C, prob in workloads.lp_problems().items():
+        clear_lp_caches()
+        hh = lp_ladder(clock=lambda: 0.0)
+        _, z, info = lpguide.exact_lp_mix(*workloads.lp_operands(prob),
+                                          device=True, lp_health=hh)
+        gz = workloads.GOLDEN_LP[C]["z"]
+        check(info["method"] == "colgen-lp-device"
+              and abs(z - gz) <= LP_RTOL * gz,
+              f"lp-{C}: {info['method']} z {z} vs HiGHS golden {gz}")
+        log(f"[guided] lp-{C}: device colgen z {z!r} vs HiGHS golden {gz!r} "
+            f"(rel {abs(z - gz) / gz:.3g}), {info['rounds']} rounds")
+        clear_lp_caches()
+        hh = lp_ladder(clock=lambda: 0.0)
+        reset_all_launches()
+        res = solve_classpack(prob, device_lp=True, lp_health=hh)
+        sync()
+        by_path[f"lp-{C}"] = launches = all_launches()
+        check(launches["pdhg"] > 0 and hh.failures("device_lp") == 0
+              and hh.active_rung("device_lp") == "device_lp",
+              f"lp-{C}: masters did not converge on the card "
+              f"({launches['pdhg']} launches, {hh.failures('device_lp')} "
+              f"failures)")
+        check_lp_plan(prob, res, C)
+    return by_path
+
+
+def guided_breakdown(torch, card, problem, iters=5):
+    """Host-clock split of the guided headline's layers: the column
+    generation (exact_lp_mix, HiGHS masters, in a cold solve), and in warm
+    solves the remainder solve (K1-K3 + decode), the flexible alternatives,
+    and the rest (mix lookup, stripe, tuck, merge).  Each layer is timed by
+    wrapping the function the guide calls; p50 over `iters` solves."""
+    from karpenter_tpu_torch.ops import classpack as cp
+    from karpenter_tpu_torch.ops import lpguide
+    sync = torch.cuda.synchronize
+    spent = {}
+
+    def timed(mod, name, key):
+        real = getattr(mod, name)
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                sync()
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+        setattr(mod, name, wrapper)
+        return real
+    rows = {"colgen (exact_lp_mix, HiGHS)": [], "total, cold": [],
+            "remainder solve (K1-K3 + decode)": [],
+            "alternatives": [], "lookup + stripe + tuck + merge": [],
+            "total, warm": []}
+    reals = [(lpguide, "exact_lp_mix", timed(lpguide, "exact_lp_mix",
+                                             "colgen")),
+             (cp, "solve_classpack", timed(cp, "solve_classpack", "rem")),
+             (cp, "resolve_alternatives", timed(cp, "resolve_alternatives",
+                                                "alt"))]
+    try:
+        for cold in (True,) * 3 + (False,) * iters:
+            if cold:
+                clear_lp_caches()
+            spent.clear()
+            t0 = time.perf_counter()
+            lpguide.solve_guided(problem)
+            sync()
+            total = (time.perf_counter() - t0) * 1e3
+            if cold:
+                rows["colgen (exact_lp_mix, HiGHS)"].append(
+                    spent["colgen"] * 1e3)
+                rows["total, cold"].append(total)
+                continue
+            rem, alt = spent.get("rem", 0.0) * 1e3, spent["alt"] * 1e3
+            rows["remainder solve (K1-K3 + decode)"].append(rem)
+            rows["alternatives"].append(alt)
+            rows["lookup + stripe + tuck + merge"].append(total - rem - alt)
+            rows["total, warm"].append(total)
+    finally:
+        for mod, name, real in reals:
+            setattr(mod, name, real)
+    for k, xs in rows.items():
+        log(f"[time] guided layers: {k}: p50 {statistics.median(xs):.3f} ms "
+            f"over {len(xs)} solves (min {min(xs):.3f}, max {max(xs):.3f}) "
+            f"on {card}")
+
+
+def pdhg_bound(case, iters):
+    """(bound ms, "bytes") of one PDHG solve: every step streams the scaled
+    operator twice (x and y/λ passes), every check streams A, G twice (a
+    row and a column pass, both candidates fused), over the memory rate."""
+    A, G = case["ops"][0], case["ops"][2]
+    mat = (A.numel() + G.numel()) * 4
+    checks = -(-iters // case["check_every"])
+    return (2 * iters + 2 * checks) * mat / MEM_BW * 1e3, "bytes"
+
+
+def guided_timings(torch, card, problem, masters):
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import lpguide
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    from karpenter_tpu_torch.ops.classpack import solve_classpack
+    from karpenter_tpu_torch.ops.health import lp_ladder
+    sync = torch.cuda.synchronize
+    out = {}
+
+    def cold():
+        clear_lp_caches()
+        solve_classpack(problem)
+    out["guided headline, cold (mix caches cleared)"] = p50_ms(cold, 3, sync)
+    out["guided headline, warm"] = p50_ms(lambda: solve_classpack(problem),
+                                          7, sync)
+
+    def cold_dev():
+        clear_lp_caches()
+        solve_classpack(problem, device_lp=True,
+                        lp_health=lp_ladder(clock=lambda: 0.0))
+    out["guided headline device_lp, cold (caps, then HiGHS)"] = p50_ms(
+        cold_dev, 1, sync)
+    for C, prob in workloads.lp_problems().items():
+        ops = workloads.lp_operands(prob)
+        out[f"exact_lp_mix lp-{C}, HiGHS"] = p50_ms(
+            lambda: lpguide.exact_lp_mix(*ops), 7)
+        out[f"exact_lp_mix lp-{C}, device (PDHG, cold)"] = p50_ms(
+            lambda: lpguide.exact_lp_mix(*ops, device=True,
+                                         lp_health=lp_ladder()), 7, sync)
+    for k, (p50, xs) in out.items():
+        log(f"[time] {k}: p50 {p50:.3f} ms over {len(xs)} runs (min "
+            f"{min(xs):.3f}, max {max(xs):.3f}) on {card}")
+    guided_breakdown(torch, card, problem)
+    busy = device_busy(torch, lambda: solve_classpack(problem))
+    log(f"[trace] warm guided headline: device busy {busy['device_ms']:.3f} "
+        f"of {busy['wall_ms']:.3f} ms wall, idle share "
+        f"{busy['idle_share']:.4f}; by kernel {busy['by_kernel']} on {card}")
+    ms = {}
+    for name, case in masters.items():
+        args = (*case["ops"], case["eps"], case["iters_cap"],
+                case["check_every"])
+        reps = 3 if name == "headline" else 7
+        ms[name] = event_ms(torch, lambda: lk.pdhg(*args), reps)
+        it = int(case["iters"][0])
+        bound, _ = pdhg_bound(case, it)
+        log(f"[time] pdhg kernel, {name}: {ms[name]:.3f} ms for {it} "
+            f"iterations ({ms[name] / max(it, 1) * 1e3:.3f} us/it); bound "
+            f"{bound:.3f} ms (bytes) at n={case['ops'][0].shape[2]} "
+            f"me={case['ops'][0].shape[1]} mi={case['ops'][2].shape[1]} on "
+            f"{card}")
+    return ms
+
+
+def pdhg_row(torch, card, masters, ms, launches_by_path, err):
+    """The kernel-table row of the PDHG kernel (row 12) at the device-LP
+    headline's master (20 000 iterations, the cap)."""
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    case = masters["headline"]
+    it = int(case["iters"][0])
+    args = (*case["ops"], case["eps"], case["iters_cap"],
+            case["check_every"])
+    plain_ms = event_ms(torch, lambda: lk.pdhg_plain(*args), 1)
+    K = torch.cat([case["ops"][0], case["ops"][2]], dim=1)
+    z = torch.ones(K.shape[0], K.shape[1], 1, device=K.device)
+    x = torch.ones(K.shape[0], K.shape[2], 1, device=K.device)
+    pair = event_ms(torch, lambda: (torch.bmm(K.transpose(1, 2), z),
+                                    torch.bmm(K, x)), 50)
+    library_ms = pair * it
+    bound_ms, bound_by = pdhg_bound(case, it)
+    log(f"[kernel] pdhg: {ms['headline']:.3f} ms (plain {plain_ms:.3f} ms, "
+        f"library {library_ms:.3f} ms = {pair:.4f} ms bmm pair x {it}, "
+        f"bound {bound_ms:.3f} ms by {bound_by}) on {card}")
+    return dict(name="pdhg", route="cuda",
+                source="karpenter_tpu_torch/csrc/lpsolve.cu",
+                replaces="karpenter_tpu/ops/lpsolve.py:145",
+                launches=launches_by_path[DEVICE_LP_PATH]["pdhg"],
+                path=DEVICE_LP_PATH,
+                launches_by_path={p: c.get("pdhg", 0)
+                                  for p, c in launches_by_path.items()},
+                max_abs_err=err["pdhg"], ms=ms["headline"],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -766,12 +1290,17 @@ def main() -> int:
     launches, prob = main_path(torch, pods, catalog, pools, problem, ex)
     timings(torch, card, pods, catalog, pools, prob, ex)
     by_path = {HEADLINE_PATH: launches, **consolidation_path(torch, card)}
+    masters = compare_pdhg(torch, problem, err)
+    log(f"[pdhg] phase 7 done ({time.perf_counter() - t_start:.1f} s so far)")
+    by_path.update(guided_path(torch, problem))
+    pdhg_ms = guided_timings(torch, card, problem, masters)
     log(f"[main] launches of each main path's run: {by_path}")
     k5_ms = sweep_call_times(torch, card, firsts)
     rows = kernel_table(torch, card, shapes, by_path, err)
     frontier = "delete face, first frontier"
     rows.append(sweep_row(torch, card, firsts[frontier], k5_ms[frontier],
                           by_path, err))
+    rows.append(pdhg_row(torch, card, masters, pdhg_ms, by_path, err))
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]
     check(not bad, f"the port loaded {bad}")

@@ -10,6 +10,8 @@ other on exactly the same inputs:
     ea, eu, ec = slot_state_from_arrays(dict(alloc=..., used=..., compat=...))
     cluster_t = cluster_from_objects(ref_cluster)
     catalog_t = catalog_from_objects(ref_provider.get_instance_types())
+    lp_caches_from_arrays(ref_lpguide.snapshot_caches(),
+                          ref_lpsolve.snapshot_caches())
 """
 
 from __future__ import annotations
@@ -187,3 +189,38 @@ def catalog_from_objects(src) -> list:
             info=None if it.info is None else _plain(
                 InstanceTypeInfo, it.info, os=tuple)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# LP-guide state
+# ---------------------------------------------------------------------------
+
+def _copy_plain(v):
+    """A deep copy of plain snapshot data: arrays, scalars, bytes, and
+    lists, tuples and dicts of them."""
+    if isinstance(v, np.ndarray):
+        return v.copy()
+    if isinstance(v, Mapping):
+        return {k: _copy_plain(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_copy_plain(x) for x in v]
+    if isinstance(v, tuple):
+        return tuple(_copy_plain(x) for x in v)
+    if isinstance(v, np.generic):
+        return v.item()
+    return v
+
+
+def lp_caches_from_arrays(mix_snapshot: Optional[Mapping] = None,
+                          warm_snapshot: Optional[Mapping] = None) -> None:
+    """Carry the guided solve's state across: `mix_snapshot` is a
+    `lpguide.snapshot_caches()` dict (the mix, stale-mix and colgen-support
+    caches, keyed by content digests) and `warm_snapshot` a
+    `lpsolve.snapshot_caches()` dict (the PDHG warm starts), both of plain
+    numpy values, as either package exports them.  They replace the port's
+    caches (a None leaves that cache as it is)."""
+    from .ops import lpguide, lpsolve
+    if mix_snapshot is not None:
+        lpguide.restore_caches(_copy_plain(dict(mix_snapshot)))
+    if warm_snapshot is not None:
+        lpsolve.restore_caches(_copy_plain(dict(warm_snapshot)))

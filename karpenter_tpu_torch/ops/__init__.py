@@ -1,2 +1,2 @@
-"""Solver ops of the port: tensorize, the class-granular pack and its
-CUDA kernel wrappers."""
+"""Solver ops of the port: tensorize, the class-granular pack, the LP
+guide with its PDHG solver, and the CUDA kernel wrappers."""

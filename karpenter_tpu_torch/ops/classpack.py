@@ -20,9 +20,11 @@ decode (rows → NodeDecisions with flexible alternatives) are copies of the
 reference's.  All arithmetic is int32 in scaled units (millicores / MiB /
 counts), so feasibility math is exact.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md queue A):
-the LP-guided solve (`guide="lp"`), its off-tick `refinery`, the slab decode
-(`device_decode`) and the device LP (`device_lp`).
+`solve_classpack`'s default `guide="lp"` routes a fresh decoded solve to the
+LP-guided path (ops/lpguide.py, with its off-tick `refinery` and the
+`device_lp` PDHG master of ops/lpsolve.py), as the reference does.  Not
+ported yet: the slab decode (`device_decode`, which raises
+NotImplementedError, see ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -393,20 +395,26 @@ def solve_classpack(problem: Problem,
     option + total price, no per-pod binding).  Existing nodes enter as E
     pre-opened columns with +inf price (never launched).
 
-    guide="lp" on a fresh decoded solve routes to the LP-guided path in the
-    reference; that path is not ported yet, so it raises here, as do
-    `refinery`, `device_decode` and `device_lp`.  With E > 0 or
-    decode=False the reference skips the guide, and so does the port."""
+    guide="lp" (the default) on a fresh decoded solve runs the LP-guided
+    path (ops/lpguide.solve_guided, with `refinery`, `device_lp` and
+    `lp_health` passed on); when the guide does not apply it returns None
+    and the greedy kernels below solve.  With E > 0 or decode=False the
+    guide is skipped, as in the reference.  `device_decode` (the slab
+    decode) is not ported yet and raises."""
     dev = resolve_device(device)
+    if device_decode:
+        raise NotImplementedError(
+            "device_decode (the slab decode) is not ported yet — "
+            "ROADMAP.md queue A, 'slab decode'")
     E = 0 if existing_alloc is None else len(existing_alloc)
     if guide == "lp" and E == 0 and decode:
-        raise NotImplementedError(
-            "guide='lp' (the LP-guided solve) is not ported yet — "
-            "ROADMAP.md queue A, 'guided LP path'; pass guide=None")
-    if refinery is not None or device_decode or device_lp:
-        raise NotImplementedError(
-            "refinery / device_decode / device_lp are not ported yet — "
-            "ROADMAP.md queue A ('guided LP path', 'slab decode', 'PDHG')")
+        from .lpguide import solve_guided
+        res = solve_guided(problem, max_alternatives=max_alternatives,
+                           max_nodes=max_nodes, refinery=refinery,
+                           device_lp=device_lp, lp_health=lp_health,
+                           device=dev)
+        if res is not None:
+            return res
     low = lower_problem(problem, max_nodes, existing_alloc, existing_used,
                         existing_compat)
     if low is None:  # no options and no existing nodes

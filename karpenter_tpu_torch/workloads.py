@@ -15,6 +15,13 @@ fingerprints a consolidation decision and its sweep rows, and
 `GOLDEN_CONSOLIDATION` holds the JAX package's digests of that fleet
 (tests/test_torch_consolidation.py), which `chip_smoke.py` checks on the
 card.
+
+`GOLDEN_GUIDED` is the digest of the headline's default, LP-guided solve
+(HiGHS restricted masters), and `lp_instance` / `GOLDEN_LP` are the
+refinery-shaped LP instances of the reference bench's LP A/B
+(`bench._lp_instance`) with their HiGHS objectives and device-master plan
+totals, all as the JAX package computes them on the CPU
+(tests/test_torch_lpguide.py).
 """
 
 from __future__ import annotations
@@ -358,4 +365,72 @@ GOLDEN_CONSOLIDATION: Dict[int, Dict[str, object]] = {
                   0.0),
         singles=("361d05da05356c37141fbb922418ec453b148ac414ea9d47b46162bf65ecb784",
                  0.0)),
+}
+
+
+# ---------------------------------------------------------------------------
+# the guided solve: the headline's default plan and the LP A/B instances
+# ---------------------------------------------------------------------------
+
+# plan_digest of the headline's default solve_classpack(prob) (guide="lp",
+# HiGHS masters) as the JAX package computes it on the CPU.  The plan rests
+# on HiGHS's vertex, so the scipy version that made it is part of it.
+GOLDEN_GUIDED: Dict[str, object] = dict(
+    digest="c381f73ec3e77e1a32d9292379733341bf4867445881cdd3c8ab596e1c00d24e",
+    total=4653.490084409714,
+    nodes=1463,
+    z_lp=4474.6324297541905,
+    scipy="1.17.0",
+)
+
+LP_SEED = 42            # bench.run_lp_ab's generator seed
+LP_TYPES = 40           # bench.run_lp_ab's n_types
+LP_SIZES = (100, 250)   # class counts whose device masters converge
+
+
+def lp_problem(n_classes: int, n_types: int, rng: np.random.Generator):
+    """The tensorized problem behind `lp_instance`: blended pods (20 per
+    class, 20% zone selectors) against `generate_catalog(n_types)`."""
+    from .catalog.generate import generate_catalog
+    from .ops.tensorize import tensorize
+    pods = build_pods(n_classes, n_classes * 20, rng, zone_frac=0.2)
+    return tensorize(pods, generate_catalog(n_types), [NodePool()])
+
+
+def lp_operands(prob):
+    """(req, cnt, compat, alloc, price) of `prob` deduped to
+    LP-distinguishable options: the operands `solve_guided` hands to the
+    column generation."""
+    from .ops import lpguide
+    ok = lpguide._feasible_mask(prob)
+    alloc, price, compat, _ = lpguide._dedup_with_inverse(
+        prob.option_alloc.astype(np.float64),
+        prob.option_price.astype(np.float64), ok)
+    req = prob.class_requests.astype(np.float64)
+    cnt = prob.class_counts.astype(np.float64)
+    return req, cnt, compat, alloc, price
+
+
+def lp_instance(n_classes: int, n_types: int, rng: np.random.Generator):
+    """A copy of `bench._lp_instance` on the port's types: (req, cnt,
+    compat, alloc, price) of one refinery-shaped LP workload."""
+    return lp_operands(lp_problem(n_classes, n_types, rng))
+
+
+def lp_problems() -> Dict[int, object]:
+    """{class count: problem} of LP_SIZES, each drawn from a fresh
+    `default_rng(LP_SEED)`."""
+    return {C: lp_problem(C, LP_TYPES, np.random.default_rng(LP_SEED))
+            for C in LP_SIZES}
+
+
+# class count -> the JAX package's numbers on the CPU for `lp_problems()`:
+# z of the HiGHS column generation (exact_lp_mix on lp_operands, 2 pricing
+# rounds at both sizes), and the total and node count of the guided plan
+# with device_lp=True (both masters of each size converge)
+GOLDEN_LP: Dict[int, Dict[str, float]] = {
+    100: dict(z=237.65520285588352, device_total=245.7881063297391,
+              device_nodes=473),
+    250: dict(z=589.5349812292611, device_total=610.202819917351,
+              device_nodes=1082),
 }

@@ -155,8 +155,9 @@ def test_replace_actions_match_reference(big_type):
     single-node pass replaces it with a cheaper node: the replace face of
     the sweep launches, and a spot candidate meets the flexibility floor.
     With no survivor the decoded accept is a fresh solve, which the LP
-    guide would take (not ported), so both controllers run with the
-    reference's LPGuide escape hatch, lp_guide=False."""
+    guide would take, so both controllers run with the reference's LPGuide
+    escape hatch, lp_guide=False (the guided replacement is
+    tests/test_torch_lpguide.py's)."""
     catalog = [make_type("a.small", 2, 4, 0.10), big_type,
                make_type("s.small", 2, 4, 0.12, spot_discount=0.4)]
     clock, cloud, provider, cluster, prov, ctrl = env(catalog=catalog)

@@ -20,7 +20,7 @@ from karpenter_tpu_torch.ops import classpack as cp
 from karpenter_tpu_torch.ops import classpack_kernels as ck
 from karpenter_tpu_torch.ops.tensorize import tensorize
 from torch_cases import (CASES, SWEEP_CASES, make_case, make_sweep_case,
-                         sweep_args)
+                         random_lp, sweep_args)
 
 REL_TOL = 1e-5
 
@@ -255,3 +255,122 @@ def test_cuda_launch_sweep_matches_the_golden(cuda_device):
     digest, total = workloads.sweep_digest(res)
     assert digest == workloads.GOLDEN_LAUNCH_SWEEP[0]
     assert _close(total, workloads.GOLDEN_LAUNCH_SWEEP[1])
+
+
+# ---- the PDHG LP kernel (csrc/lpsolve.cu) ----
+
+def _pdhg_both(insts, dev, iters_cap=20000):
+    from karpenter_tpu_torch.ops import lpsolve as lp
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bt = lp.pad_batch(insts)
+    ops = [torch.from_numpy(a).to(dev) for a in bt.operands()]
+    got = lk.pdhg(*ops, lp.DEFAULT_EPS, iters_cap, lp.DEFAULT_CHECK_EVERY)
+    want = lk.pdhg_plain(*ops, lp.DEFAULT_EPS, iters_cap,
+                         lp.DEFAULT_CHECK_EVERY)
+    torch.cuda.synchronize()
+    return [g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want], bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,me,mi,inf_u", [(20, 5, 8, False),
+                                           (80, 20, 30, True),
+                                           (1500, 40, 60, False)])
+def test_cuda_pdhg_matches_plain(cuda_device, n, me, mi, inf_u):
+    """The kernel against its plain version: same status, objective within
+    relative 1e-3, x within 2e-2, iterations within a factor 1.5 (float32
+    sums run in another order)."""
+    from karpenter_tpu_torch.ops import lpsolve as lp
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    c, A, b, G, h, u = random_lp(np.random.default_rng(n), n, me, mi)
+    if inf_u:
+        u[::3] = np.inf
+    lk.reset_launches()
+    got, want, bt = _pdhg_both([lp.LPInstance(
+        c=np.asarray(c, np.float32), A_eq=A, b_eq=b, A_ub=G, b_ub=h,
+        upper=u)], cuda_device)
+    assert lk.LAUNCHES["pdhg"] == 1
+    assert bool(got[3][0]) and bool(want[3][0])
+    og = float(bt.c[0].astype(np.float64) @ got[0][0])
+    ow = float(bt.c[0].astype(np.float64) @ want[0][0])
+    assert og == pytest.approx(ow, rel=1e-3, abs=1e-3)
+    np.testing.assert_allclose(got[0][0], want[0][0], atol=2e-2)
+    assert got[4][0] <= 1.5 * want[4][0] and want[4][0] <= 1.5 * got[4][0]
+
+
+@pytest.mark.cuda
+def test_cuda_pdhg_batch_matches_singles_and_caps(cuda_device):
+    """A B = 3 batch reproduces each member's solo launch (the done
+    freeze), and a 64-iteration cap exits with status cap."""
+    from karpenter_tpu_torch.ops import lpsolve as lp
+    rng = np.random.default_rng(3)
+    insts = []
+    for n, me, mi in [(20, 5, 8), (28, 7, 12), (16, 4, 6)]:
+        c, A, b, G, h, u = random_lp(rng, n, me, mi)
+        insts.append(lp.LPInstance(c=np.asarray(c, np.float32), A_eq=A,
+                                   b_eq=b, A_ub=G, b_ub=h, upper=u))
+    batch = lp.solve_lp_batch(insts, buckets=(32,))
+    for inst, b_sol in zip(insts, batch):
+        solo = lp.solve_lp_batch([inst], buckets=(32,))[0]
+        assert b_sol.status == solo.status == lp.STATUS_CONVERGED
+        assert b_sol.iterations == solo.iterations
+        np.testing.assert_allclose(b_sol.x, solo.x, atol=1e-4)
+    got, want, _ = _pdhg_both(insts[:1], cuda_device, iters_cap=64)
+    assert not bool(got[3][0]) and not bool(want[3][0])
+    assert int(got[4][0]) == int(want[4][0]) == 64
+
+
+def _pairing_trap():
+    """tests/test_lpguide.py's pairing trap on the port's types: the
+    specialist types are per-pod cheapest for each class alone, the
+    balanced type hosts a 2+2 blend cheaper; only the LP sees the blend."""
+    from karpenter_tpu_torch.api.objects import Pod
+    from karpenter_tpu_torch.api.resources import CPU, MEMORY, ResourceList
+    from karpenter_tpu_torch.catalog.instancetype import (
+        GiB, InstanceTypeInfo, Offering, new_instance_type)
+
+    def make_type(name, cpu, mem_gib, price):
+        return new_instance_type(
+            InstanceTypeInfo(name=name, cpu_m=cpu * 1000,
+                             memory_bytes=mem_gib * GiB, arch="amd64"),
+            [Offering("zone-a", "on-demand", price)])
+    catalog = [make_type("pair", 10, 10, 1.00),
+               make_type("cpu-special", 10, 2, 0.75),
+               make_type("mem-special", 2, 10, 0.75)]
+    pods = ([Pod(requests=ResourceList({CPU: 4200, MEMORY: 300 * 2**20}))
+             for _ in range(100)]
+            + [Pod(requests=ResourceList({CPU: 300, MEMORY: 3584 * 2**20}))
+               for _ in range(100)])
+    return tensorize(pods, catalog, [NodePool()])
+
+
+@pytest.mark.cuda
+def test_cuda_guided_device_lp_on_the_pairing_trap(cuda_device):
+    """solve_classpack's default guide with device_lp=True on the card: the
+    PDHG kernel solves the masters, the ladder stays healthy, and the plan
+    binds every pod on nodes within their allocatable, below 0.8x greedy."""
+    from karpenter_tpu_torch.ops import lpguide
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    from karpenter_tpu_torch.ops.health import lp_ladder
+    prob = _pairing_trap()
+    with lpguide._MIX_LOCK:
+        lpguide._MIX_CACHE.clear()
+        lpguide._STALE_CACHE.clear()
+        lpguide._SUPPORT_CACHE.clear()
+    h = lp_ladder(clock=lambda: 0.0)
+    lk.reset_launches()
+    res = cp.solve_classpack(prob, device_lp=True, lp_health=h)
+    assert lk.LAUNCHES["pdhg"] >= 1
+    assert h.active_rung("device_lp") == "device_lp"
+    assert h._state["device_lp"].failures == 0
+    assert sorted(p for nd in res.nodes for p in nd.pod_indices) == \
+        list(range(200)) and not res.unschedulable
+    cls = np.empty(200, np.int64)
+    for c, m in enumerate(prob.class_members):
+        cls[np.asarray(m, np.int64)] = c
+    oi = {id(o): j for j, o in enumerate(prob.options)}
+    for nd in res.nodes:
+        used = prob.class_requests[cls[np.asarray(nd.pod_indices)]].sum(0)
+        assert (used <= prob.option_alloc[oi[id(nd.option)]]).all()
+    greedy = cp.solve_classpack(prob, guide=None)
+    assert res.total_price < 0.8 * greedy.total_price

@@ -20,6 +20,20 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def random_lp(rng, n, me, mi):
+    """tests/test_lpsolve.py's LP generator: feasible by construction
+    (b = A x*, h = G x* + slack), c > 0 and finite upper bounds, so HiGHS
+    returns an exact optimum.  Returns (c, A, b, G, h, u)."""
+    x_star = rng.uniform(0.0, 2.0, n)
+    A = rng.uniform(-1.0, 1.0, (me, n))
+    b = A @ x_star
+    G = rng.uniform(-1.0, 1.0, (mi, n))
+    h = G @ x_star + rng.uniform(0.1, 1.0, mi)
+    c = rng.uniform(0.1, 1.0, n)
+    u = np.full(n, 4.0)
+    return c, A, b, G, h, u
+
+
 def make_case(seed, C=20, Cpad=64, O=40, Opad=512, R=5, E=0, K=256,
               trap=None):
     """Padded kernel inputs as the solve lowers them (numpy)."""
