@@ -64,6 +64,36 @@ pass):
                timings: cold and warm guided headline, exact_lp_mix with
                HiGHS against the device, the PDHG kernel on each master, and
                the warm guided headline's device idle share.
+  9. slab + ffd — K6 (classpack_slab) against its plain version on random
+               slot vectors at K = 256, 2048 and 8192, all rows placed, none
+               placed, and one input above the reference's (K+1)·n < 2^31
+               guard (K = 8192, n = 300 000); K7 (ffd_scan) against its
+               plain version on tests/test_native.py's edge cases (an
+               inf-priced only fit, a score overflow, a NaN price, a node
+               cap, existing nodes; solve_ffd on the card must also equal
+               the host greedy rung there) and on seeded P = 4096 scans
+               (existing slots, caps, slot exhaustion).  Outputs equal,
+               the float32 slot usage bit for bit.
+ 10. provisioning — Provisioner.provision through the four cells of
+               `workloads.PROVISION_CELLS` at full width (600 types):
+               provision-live-50k-20k (the default Provisioner with
+               DeviceDecode: a guided 50k burst, then 20k more against the
+               1463-node live cluster, the slab programs with E > 0),
+               provision-noguide-50k (lp_guide=False: the fresh slab
+               program), provision-small-3x64 (three 64-pod bursts:
+               solve_ffd) and provision-ffd-50k (solver="ffd": K7 at
+               P = 50 000, K = 2048).  Every round must reproduce
+               GOLDEN_PROVISION (the JAX package's, on the CPU), each with
+               the launch counts zeroed just before it; the SolverHealth
+               ladder and the DecodeHealth breaker must book no failure;
+               K6 must launch in the first two cells, K7 in the last two.
+               Then warm p50s on the live cell's frozen round-2 state
+               (Provisioner.solve, and whole provision() rounds on fresh
+               copies with their tensorize / pack / launch split), K7
+               against its plain version on every provision-small batch,
+               and the CUDA-event times of K6, the slab programs (rows
+               7-8) and K7 (row 11) at the cells' own inputs, beside their
+               bounds, plain versions and (K6) argsort + bincount.
 
 Prints the kernel table as one JSON line (each row's `launches` from its
 own path, `launches_by_path` from every main path), the card's name and
@@ -972,15 +1002,18 @@ def compare_pdhg(torch, problem, err):
 
 def all_launches():
     from karpenter_tpu_torch.ops import classpack_kernels as ck
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
     from karpenter_tpu_torch.ops import lpsolve_kernels as lk
-    return {**ck.LAUNCHES, **lk.LAUNCHES}
+    return {**ck.LAUNCHES, **lk.LAUNCHES, **fk.LAUNCHES}
 
 
 def reset_all_launches():
     from karpenter_tpu_torch.ops import classpack_kernels as ck
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
     from karpenter_tpu_torch.ops import lpsolve_kernels as lk
     ck.reset_launches()
     lk.reset_launches()
+    fk.reset_launches()
 
 
 def check_guided(prob, res, what):
@@ -1271,6 +1304,493 @@ def pdhg_row(torch, card, masters, ms, launches_by_path, err):
                 library_ms=library_ms)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: K6 and K7 against their plain versions
+# ---------------------------------------------------------------------------
+
+SLAB_GUARD = 2**31      # the reference's int32 guard on (K + 1) · n
+
+
+def slab_cases(rng):
+    """(name, assignment, K): K3-shaped slot vectors (−1 == unplaced)."""
+    out = []
+    for K in (256, 2048, 8192):
+        n = 4 * K + 37
+        out.append((f"random K={K} n={n}",
+                    rng.integers(-1, K, size=n).astype(np.int16), K))
+    out.append(("all placed K=2048 n=53248 (int32)",
+                rng.integers(0, 2048, size=53248).astype(np.int32), 2048))
+    out.append(("none placed K=2048 n=32768",
+                np.full(32768, -1, np.int16), 2048))
+    out.append(("above the guard K=8192 n=300000",
+                rng.integers(-1, 8192, size=300_000).astype(np.int16), 8192))
+    return out
+
+
+def compare_slab(torch, err):
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    rng = np.random.default_rng(SEED + 9)
+    sides = set()
+    for name, a, K in slab_cases(rng):
+        t = torch.tensor(a, device="cuda")
+        order, counts = ck.classpack_slab(t, K)
+        order0, counts0 = ck.classpack_slab_plain(t, K)
+        torch.cuda.synchronize()
+        check(torch.equal(order, order0) and torch.equal(counts, counts0),
+              f"K6 slab differs from plain ({name})")
+        side = "above" if (K + 1) * len(a) >= SLAB_GUARD else "below"
+        sides.add(side)
+        log(f"[slab] {name}: {side} the (K+1)·n guard, "
+            f"{int(counts.sum())} placed -> order and slot_counts equal")
+    check(sides == {"above", "below"}, "K6 not held on both sides of the guard")
+    err["classpack_slab"] = 0.0
+
+
+def _port_type(name, cpu, mem_gib, price, zones=("zone-a", "zone-b")):
+    from karpenter_tpu_torch.catalog.instancetype import (
+        GiB, InstanceTypeInfo, Offering, new_instance_type)
+    info = InstanceTypeInfo(name=name, cpu_m=cpu * 1000,
+                            memory_bytes=mem_gib * GiB, arch="amd64")
+    return new_instance_type(info, [Offering(z, "on-demand", price)
+                                    for z in zones])
+
+
+def ffd_edge_cases():
+    """tests/test_native.py's edge cases on the port's objects: (name,
+    problem, existing kwargs)."""
+    from karpenter_tpu_torch.api.objects import NodePool, Pod, PodAffinityTerm
+    from karpenter_tpu_torch.api.resources import CPU, MEMORY, ResourceList
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    from karpenter_tpu_torch.ops.tensorize import tensorize
+
+    def pod(cpu_m, mem_mib=512, **kw):
+        return Pod(requests=ResourceList({CPU: cpu_m, MEMORY: mem_mib * 2**20}),
+                   **kw)
+
+    small = [_port_type("a.small", 2, 4, 0.10), _port_type("a.medium", 4, 8, 0.20),
+             _port_type("a.large", 8, 16, 0.40)]
+    anti = [PodAffinityTerm(topology_key="kubernetes.io/hostname",
+                            label_selector={"app": "db"}, anti=True,
+                            required=True)]
+    rng = np.random.default_rng(13)
+    rand = [pod(int(rng.integers(100, 4000)), int(rng.integers(128, 8192)))
+            for _ in range(20)]
+    cases = [
+        ("inf-priced only fit", [_port_type("a.small", 2, 4, 0.10),
+                                 _port_type("huge", 64, 256, float("inf"))],
+         [pod(32000), pod(500)]),
+        ("score overflow", [_port_type("tiny", 1, 1, 0.05),
+                            _port_type("big", 64, 256, 3e38)],
+         [pod(33000), pod(33000)]),
+        ("NaN price", [_port_type("a.small", 2, 4, 0.10),
+                       _port_type("huge", 64, 256, float("nan"))],
+         [pod(32000), pod(500)]),
+        ("node cap", small, [pod(500, labels={"app": "db"},
+                                 pod_affinities=list(anti))
+                             for _ in range(4)]),
+        ("existing nodes", generate_catalog(12), rand),
+    ]
+    out = []
+    for name, catalog, pods in cases:
+        prob = tensorize(pods, catalog, [NodePool()])
+        kw = {}
+        if name == "existing nodes":
+            R = prob.option_alloc.shape[1]
+            kw = dict(existing_alloc=np.tile(prob.option_alloc[-1], (2, 1)),
+                      existing_used=np.zeros((2, R), np.float32))
+        out.append((name, prob, kw))
+    return out
+
+
+def compare_ffd_args(torch, name, args, K):
+    """K7 against its plain version on one input (tensors on the card):
+    every output equal, bit for bit."""
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    got = fk.ffd_scan(*args, K)
+    want = fk.ffd_scan_plain(*args, K)
+    torch.cuda.synchronize()
+    for a, b, what in zip(got, want, ("assignment", "slot_option",
+                                      "slot_used", "n_open")):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"K7 ffd_scan {what} differs from plain ({name})")
+    return got
+
+
+def compare_ffd(torch, err):
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops.ffd import (ffd_device_args, lower_ffd,
+                                             solve_ffd)
+    dev = torch.device("cuda")
+    for name, prob, kw in ffd_edge_cases():
+        low = lower_ffd(prob, **kw)
+        got = compare_ffd_args(torch, name, ffd_device_args(low, dev), low.K)
+        plan = solve_ffd(prob, device="cuda", **kw)
+        host = solve_ffd(prob, backend="numpy", **kw)
+        check([(n.option.instance_type, n.pod_indices) for n in plan.nodes]
+              == [(n.option.instance_type, n.pod_indices) for n in host.nodes]
+              and plan.unschedulable == host.unschedulable
+              and plan.existing_assignments == host.existing_assignments,
+              f"solve_ffd on the card differs from the host rung ({name})")
+        log(f"[ffd] {name}: P={low.P} K={low.K} n_open={int(got[3])} "
+            f"nodes {[n.option.instance_type for n in plan.nodes][:4]} "
+            f"unschedulable {plan.unschedulable} -> equal to plain")
+    rng = np.random.default_rng(SEED + 11)
+    for name, kw in (("random P=4096", {}),
+                     ("random P=4096, 64 existing", dict(E=64)),
+                     ("random P=4096, K=256 exhausts", dict(K=256))):
+        arrays, K = workloads.ffd_scan_inputs(rng, **kw)
+        args = tuple(torch.tensor(a, device=dev) for a in arrays)
+        got = compare_ffd_args(torch, name, args, K)
+        placed = int((got[0] >= 0).sum())
+        log(f"[ffd] {name}: K={K} n_open={int(got[3])} placed {placed} "
+            f"-> equal to plain")
+    err["ffd_scan"] = 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the provisioning cells through Provisioner.provision
+# ---------------------------------------------------------------------------
+
+LIVE_PATH = "provision-live-50k-20k"
+NOGUIDE_PATH = "provision-noguide-50k"
+SMALL_PATH = "provision-small-3x64"
+FFD_PATH = "provision-ffd-50k"
+
+
+class captured:
+    """Record the positional arguments of every call of `module.name`
+    (the call itself runs unchanged) while the context is open."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **k):
+            self.calls.append(a)
+            return self.orig(*a, **k)
+        setattr(self.module, self.name, wrapped)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def fresh_env(env, cell, catalog, device):
+    """An independent copy of a cell's live state: the cluster copied
+    object by object, a new fake cloud, provider and Provisioner."""
+    from karpenter_tpu_torch import convert, workloads
+    from karpenter_tpu_torch.api.objects import NodePool
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    cloud = FakeCloud()
+    provider = CloudProvider(cloud, catalog)
+    cluster = convert.cluster_from_objects(env.cluster)
+    prov = Provisioner(provider, cluster, [NodePool()], device=device,
+                       **workloads.PROVISION_CELLS[cell][0])
+    return workloads.ProvisionEnv(cloud, provider, cluster, prov)
+
+
+def provision_layers(torch, env):
+    """One provision() with its split: tensorize (constraint lowering,
+    tensorize, the live-node gather), pack (the solve on the card with its
+    decode) and launch (claims, fake cloud, registration, binds), ms."""
+    prov = env.provisioner
+    acc = {"solve": 0.0, "pack": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                acc[key] += (time.perf_counter() - t0) * 1e3
+        return run
+    prov.solve = timed("solve", prov.solve)
+    prov._pack_supervised = timed("pack", prov._pack_supervised)
+    t0 = time.perf_counter()
+    prov.provision()
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    return dict(total=total, tensorize=acc["solve"] - acc["pack"],
+                pack=acc["pack"], launch=total - acc["solve"])
+
+
+def provision_cells(torch, card, device="cuda"):
+    """The four cells against GOLDEN_PROVISION, each round with the launch
+    counts zeroed just before it; the ladder and the decode breaker must
+    book no failure.  Returns (launches by path, the recorded K6 and K7
+    inputs, the slab programs' inputs)."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.api.objects import NodePool
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.ops import classpack as cp
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    from karpenter_tpu_torch.ops.decode import DecodeHealth
+    from karpenter_tpu_torch.ops.health import SolverHealth
+    from karpenter_tpu_torch.state import Cluster
+    catalog = generate_catalog(workloads.PROVISION_TYPES)
+    # the goldens were made in a fresh process: a guide cache warmed by
+    # phase 8 (the column generation's support, stale mixes) may lead the
+    # live cell's guided round 1 to another plan of the same LP
+    clear_lp_caches()
+    by_path, slabs, programs, scans = {}, {}, {}, {}
+    for cell, (_, rounds) in workloads.PROVISION_CELLS.items():
+        health, dh = SolverHealth(), DecodeHealth()
+        env = workloads.provision_env(cell, FakeCloud, CloudProvider, Cluster,
+                                      Provisioner, NodePool, catalog,
+                                      health=health, decode_health=dh,
+                                      device=device)
+        gold = workloads.GOLDEN_PROVISION[cell]
+        total = {}
+        t_cell = time.perf_counter()
+        for r, (kw, seed) in enumerate(rounds):
+            env.cluster.add_pods(workloads.build_pods(
+                rng=np.random.default_rng(seed), **kw))
+            if cell == LIVE_PATH and r == 1:
+                provision_timings(torch, card, env, cell, catalog, device)
+            reset_all_launches()
+            with captured(cp, "classpack_slab") as k6, \
+                    captured(cp, "class_pack_assign_slab_kernel") as prog, \
+                    captured(fk, "ffd_scan") as k7:
+                t0 = time.perf_counter()
+                sig, res = workloads.provision_pending(env)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            for k, v in all_launches().items():
+                total[k] = total.get(k, 0) + v
+            check(sig == gold[r], f"{cell} round {r + 1}: {sig} != golden "
+                                  f"{gold[r]}")
+            log(f"[provision] {cell} round {r + 1}: {sig['launched']} "
+                f"launched, {sig['bound_new']} bound new / "
+                f"{sig['bound_existing']} existing, {sig['unschedulable']} "
+                f"unschedulable, total {sig['total_price']!r} in {wall:.3f} s "
+                f"(first run) — golden matches; launches {all_launches()}")
+            if k6:
+                slabs[f"{cell} round {r + 1}"] = k6[-1]
+                programs[f"{cell} round {r + 1}"] = prog[-1]
+            for i, a in enumerate(k7):
+                scans[f"{cell} round {r + 1} solve {i + 1}"] = a
+        snap = health.snapshot()
+        check(not health.transitions and all(
+            v["total_failures"] == 0 for v in snap["rungs"].values()),
+            f"{cell}: the solver ladder booked a failure {snap}")
+        check(dh.total_failures == 0 and not dh.transitions,
+              f"{cell}: the decode breaker booked a failure "
+              f"{dh.snapshot_state()}")
+        by_path[cell] = total
+        log(f"[provision] {cell}: {time.perf_counter() - t_cell:.1f} s, "
+            f"launches {total}; ladder and decode breaker clean")
+    for cell in (LIVE_PATH, NOGUIDE_PATH):
+        check(by_path[cell]["classpack_slab"] >= 1,
+              f"K6 classpack_slab never launched in {cell}")
+    for cell in (SMALL_PATH, FFD_PATH):
+        check(by_path[cell]["ffd_scan"] >= 1,
+              f"K7 ffd_scan never launched in {cell}")
+    return by_path, slabs, programs, scans
+
+
+def provision_timings(torch, card, env, cell, catalog, device, iters=5):
+    """Warm p50s on the frozen round-2 state of the live cell:
+    Provisioner.solve (which changes nothing), then whole provision()
+    rounds, each on a fresh copy, with their layer split."""
+    batch = env.cluster.pending_pods()
+    prov = env.provisioner
+    prov.solve(batch)
+    torch.cuda.synchronize()
+    p50, xs = p50_ms(lambda: prov.solve(batch), iters, torch.cuda.synchronize)
+    log(f"[time] {cell} round 2: Provisioner.solve warm p50 {p50:.3f} ms "
+        f"over {iters} ({', '.join(f'{x:.1f}' for x in xs)}) on {card}")
+    splits = []
+    for _ in range(3):
+        splits.append(provision_layers(torch, fresh_env(env, cell, catalog,
+                                                        device)))
+    med = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    log(f"[time] {cell} round 2: provision() p50 {med['total']:.3f} ms "
+        f"over 3 fresh copies (tensorize {med['tensorize']:.3f}, pack "
+        f"{med['pack']:.3f}, launch {med['launch']:.3f}) on {card}")
+
+
+def slab_program_plain(args):
+    """class_pack_assign_slab_kernel composed of the plain versions."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    (req, cnt, packed, cap, alloc, price, rank, iopt, iused, K, n) = args
+    m, ok = ck.classpack_precompute_plain(req, cap, packed, alloc, price,
+                                          rank)
+    slot_option, _, _, n_unsched, takes = ck.classpack_scan_plain(
+        req, cnt, packed, cap, alloc, price, m, ok, iopt, iused, K, True)
+    a = ck.classpack_assign_decode_plain(takes, cnt, n)
+    order, counts = ck.classpack_slab_plain(a, K)
+    return order, counts, slot_option, n_unsched
+
+
+def once_ms(torch, fn):
+    """CUDA-event time of one call with no warm-up (for the plain versions
+    that run for tens of seconds)."""
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), out
+
+
+def ffd_bound(args, out):
+    """(bound ms, by) of one K7 scan: the bytes of its inputs and outputs,
+    each once, or the operations this run's data needs — the fit test
+    (2R per open slot) of every valid row, and the option pass (3R + 4 per
+    column) of every row that had to look for a new node — the larger."""
+    (req, packed, crow, cid, valid, cap, rem, alloc, price, rank, iopt,
+     iused) = args
+    K = iopt.shape[0]
+    P, R = req.shape
+    O = alloc.shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    nbytes += P * 4 + K * 4 + K * R * 4 + 4
+    a = out[0].cpu().numpy().astype(np.int64)
+    E = int((iopt >= 0).sum())
+    v = valid.cpu().numpy()
+    opened = np.zeros(len(a), bool)
+    first = {}
+    for i, k in enumerate(a.tolist()):
+        if k >= E and k not in first:
+            first[k] = i
+            opened[i] = True
+    n_open = E + np.concatenate([[0], np.cumsum(opened)[:-1]])
+    looked = opened | (v & (a < 0) & (n_open < K))
+    nops = int((n_open * v).sum()) * 2 * R + int(looked.sum()) * O * (3 * R + 4)
+    t_b, t_o = nbytes / MEM_BW, nops / F32_PEAK
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
+    """Phase 10's kernel checks and times: K7 against its plain version on
+    every provision-small batch and on the provision-ffd-50k scan; then
+    the JSON rows of K6, K7, rows 7-8 (the slab programs) and row 11."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    from karpenter_tpu_torch.ops.classpack import \
+        class_pack_assign_slab_kernel
+    for name, a in scans.items():
+        if name.startswith(SMALL_PATH):
+            got = compare_ffd_args(torch, name, a[:-1], a[-1])
+            log(f"[ffd] {name}: P={a[0].shape[0]} K={a[-1]} "
+                f"n_open={int(got[3])} -> equal to plain")
+
+    def paths(name):
+        return {p: c.get(name, 0) for p, c in by_path.items()}
+
+    rows = []
+    # K6 and rows 7-8 at the live cell's round 2 (E = 1463), then row 8
+    for key, path, row_name, replaces in (
+            (f"{LIVE_PATH} round 2", LIVE_PATH,
+             "class_pack_assign_slab_kernel",
+             "karpenter_tpu/ops/classpack.py:263"),
+            (f"{NOGUIDE_PATH} round 1", NOGUIDE_PATH,
+             "class_pack_assign_slab_kernel_fresh",
+             "karpenter_tpu/ops/classpack.py:301")):
+        assignment, K = slabs[key]
+        n = assignment.shape[0]
+        ms = event_ms(torch, lambda: ck.classpack_slab(assignment, K), 20)
+        plain_ms = event_ms(torch, lambda: ck.classpack_slab_plain(
+            assignment, K), 3)
+
+        def lib():
+            key_ = torch.where(assignment >= 0, assignment.to(torch.int32), K)
+            torch.argsort(key_, stable=True)
+            torch.bincount(key_, minlength=K + 1)
+        lib_ms = event_ms(torch, lib, 20)
+        nbytes = n * assignment.element_size() + n * 4 + K * 4
+        bound = nbytes / MEM_BW * 1e3
+        if path == LIVE_PATH:
+            rows.append(dict(
+                name="classpack_slab", route="cuda",
+                source="karpenter_tpu_torch/csrc/classpack.cu",
+                replaces="karpenter_tpu/ops/classpack.py:280",
+                launches=by_path[LIVE_PATH]["classpack_slab"], path=LIVE_PATH,
+                launches_by_path=paths("classpack_slab"),
+                max_abs_err=err["classpack_slab"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=lib_ms))
+        log(f"[kernel] classpack_slab ({key}, n={n}, K={K}): {ms:.4f} ms "
+            f"(plain {plain_ms:.4f} ms, library argsort+bincount "
+            f"{lib_ms:.4f} ms, bound {bound * 1e3:.3f} us by bytes) on {card}")
+        # the whole slab program at the same inputs
+        args = programs[key]
+        got = class_pack_assign_slab_kernel(*args)
+        p_ms, want = once_ms(torch, lambda: slab_program_plain(args))
+        for g, w, what in zip(got, want, ("order", "slot_counts",
+                                          "slot_option", "n_unsched")):
+            check(torch.equal(g, w), f"{row_name} {what} differs from the "
+                                     f"plain programs ({key})")
+        prog_ms = event_ms(torch, lambda: class_pack_assign_slab_kernel(*args),
+                           5)
+        (req, cnt, packed, cap, alloc, price, rank, iopt, iused, Kp,
+         Ppad) = args
+        # the program's kernels one by one at the same inputs
+        m, ok = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
+        takes = ck.classpack_scan(req, cnt, packed, cap, alloc, price, m, ok,
+                                  iopt, iused, Kp, True)[4]
+        split = dict(
+            K1=event_ms(torch, lambda: ck.classpack_precompute(
+                req, cap, packed, alloc, price, rank), 10),
+            K2=event_ms(torch, lambda: ck.classpack_scan(
+                req, cnt, packed, cap, alloc, price, m, ok, iopt, iused, Kp,
+                True), 5),
+            K3=event_ms(torch, lambda: ck.classpack_assign_decode(
+                takes, cnt, Ppad), 10))
+        log(f"[kernel] {row_name} ({key}) by kernel: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in split.items()) + f", K6 {ms:.4f} ms "
+            f"(CUDA events) on {card}")
+        pbytes = sum(t.numel() * t.element_size()
+                     for t in args[:9] if t is not None)
+        pbytes += Ppad * 4 + Kp * 8 + 4
+        pbound = pbytes / MEM_BW * 1e3
+        rows.append(dict(
+            name=row_name, route="cuda",
+            source="karpenter_tpu_torch/ops/classpack.py",
+            replaces=replaces, launches=by_path[path]["classpack_slab"],
+            path=path, launches_by_path=paths("classpack_slab"),
+            max_abs_err=0.0, ms=prog_ms, plain_ms=p_ms, bound_ms=pbound,
+            bound_by="bytes", library_ms=None))
+        log(f"[kernel] {row_name} ({key}: K1+K2+K3+K6, Cpad="
+            f"{req.shape[0]}, Opad={price.shape[0]}, K={Kp}, Ppad={Ppad}, "
+            f"E={0 if iopt is None else int((iopt >= 0).sum())}): "
+            f"{prog_ms:.4f} ms (plain {p_ms:.3f} ms, bound "
+            f"{pbound * 1e3:.3f} us by bytes) — equal to the plain programs "
+            f"on {card}")
+    # K7 and row 11 at provision-ffd-50k
+    name = f"{FFD_PATH} round 1 solve 1"
+    a = scans[name]
+    args, K = a[:-1], a[-1]
+    ms = event_ms(torch, lambda: fk.ffd_scan(*args, K), 3)
+    got = fk.ffd_scan(*args, K)
+    plain_ms, want = once_ms(torch, lambda: fk.ffd_scan_plain(*args, K))
+    for g, w, what in zip(got, want, ("assignment", "slot_option",
+                                      "slot_used", "n_open")):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"K7 ffd_scan {what} differs from plain ({name})")
+    bound, by = ffd_bound(args, got)
+    log(f"[kernel] ffd_scan ({name}: Ppad={args[0].shape[0]}, "
+        f"Opad={args[7].shape[0]}, K={K}, n_open={int(got[3])}): "
+        f"{ms:.3f} ms (plain {plain_ms:.1f} ms, library None, bound "
+        f"{bound * 1e3:.3f} us by {by}) — equal to plain on {card}")
+    # row 11: solve_ffd's scan is K7, one row for both
+    rows.append(dict(
+        name="ffd_scan", route="cuda", source="karpenter_tpu_torch/csrc/ffd.cu",
+        replaces="karpenter_tpu/ops/ffd.py:43",
+        launches=by_path[FFD_PATH]["ffd_scan"], path=FFD_PATH,
+        launches_by_path=paths("ffd_scan"), max_abs_err=err["ffd_scan"],
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1294,6 +1814,13 @@ def main() -> int:
     log(f"[pdhg] phase 7 done ({time.perf_counter() - t_start:.1f} s so far)")
     by_path.update(guided_path(torch, problem))
     pdhg_ms = guided_timings(torch, card, problem, masters)
+    compare_slab(torch, err)
+    compare_ffd(torch, err)
+    log(f"[kernels] phase 9 done ({time.perf_counter() - t_start:.1f} s so far)")
+    prov_paths, slabs, programs, scans = provision_cells(torch, card)
+    by_path.update(prov_paths)
+    log(f"[provision] phase 10 cells done "
+        f"({time.perf_counter() - t_start:.1f} s so far)")
     log(f"[main] launches of each main path's run: {by_path}")
     k5_ms = sweep_call_times(torch, card, firsts)
     rows = kernel_table(torch, card, shapes, by_path, err)
@@ -1301,6 +1828,8 @@ def main() -> int:
     rows.append(sweep_row(torch, card, firsts[frontier], k5_ms[frontier],
                           by_path, err))
     rows.append(pdhg_row(torch, card, masters, pdhg_ms, by_path, err))
+    rows.extend(provision_kernel_rows(torch, card, by_path, slabs,
+                                      programs, scans, err))
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]
     check(not bad, f"the port loaded {bad}")

@@ -7,7 +7,11 @@ counterpart there:
 
   api/        Pod / Node / NodePool data model (host copies)
   catalog/    instance types, offerings, the synthetic catalog generator
-  ops/        tensorize → class-granular pack (CUDA kernels) → host decode
+  ops/        tensorize → class-granular and pod-granular pack, the LP guide
+              (CUDA kernels) → host or slab decode; the solver ladders
+  state/      the cluster snapshot (nodes, pods, bindings, PDBs)
+  cloud/      the fake cloud, the ICE cache, the CloudProvider seam
+  controllers/  provisioning, the consolidation decision
   csrc/       the CUDA sources, built with nvcc at first use (_build.py)
   convert.py  builds port objects from the reference's numpy arrays
   workloads.py  seeded pod batches, plan fingerprints and goldens

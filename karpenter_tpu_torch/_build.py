@@ -10,7 +10,8 @@ seconds.
 
     python -m karpenter_tpu_torch._build      # build all, print ptxas lines
 
-Raises if `nvcc` is missing: there is no other way to the kernels.
+Raises `KernelError` if `nvcc` is missing or fails, or a library does not
+load: there is no other way to the kernels.
 """
 
 from __future__ import annotations
@@ -30,9 +31,20 @@ BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel of the port did not build, load or launch, or there is no
+    card to run it on.  Callers with a fallback (the provisioning ladder)
+    let it through: a kernel fault is never answered by work on the host."""
+
+
+class KernelLimitError(KernelError, ValueError):
+    """The input is past what a kernel was built for (resource axes,
+    slots): a fault of the port, not of the input, so it too is no cause
+    to move the work to the host."""
 
 
 def find_nvcc() -> str:
@@ -43,7 +55,7 @@ def find_nvcc() -> str:
         if cand.exists():
             nvcc = str(cand)
     if nvcc is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
             "CUDA kernels of karpenter_tpu_torch are built from source with "
             "nvcc at first use")
@@ -84,7 +96,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
         out[s.stem].with_suffix(".so.log").write_text(log)
         os.replace(tmp, out[s.stem])   # atomic: concurrent builders agree
     if failed:
-        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        raise KernelError("nvcc failed\n" + "\n".join(failed))
     return out
 
 
@@ -103,7 +115,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             path = build_all([name])[name]
-            lib = _LIBS[name] = ctypes.CDLL(str(path))
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
+            _LIBS[name] = lib
     return lib
 
 

@@ -1,6 +1,7 @@
-"""Core API objects, trimmed to what the solve and consolidation paths need:
-Pod, PodDisruptionBudget, Node, NodeClaim, NodePool (with its template,
-kubelet and disruption blocks), `pool_view` and the pod-side topology terms.
+"""Core API objects, trimmed to what the solve, consolidation and
+provisioning paths need: Pod, PodDisruptionBudget, Node, NodeClaim,
+NodePool (with its template, kubelet and disruption blocks), NodeClass,
+`pool_view` and the pod-side topology terms.
 
 A copy of the JAX package's `api/objects.py` without the serializer,
 legacy and admission surfaces.  Plain dataclasses; all device-side math
@@ -195,6 +196,40 @@ class Disruption:
     consolidation_policy: str = "WhenUnderutilized"  # or WhenEmpty
     consolidate_after_s: Optional[float] = None       # required for WhenEmpty
     expire_after_s: Optional[float] = None            # None == Never
+
+
+@dataclass
+class NodeClass:
+    """Provider config — the analog of EC2NodeClass
+    (karpenter:pkg/apis/v1beta1/ec2nodeclass.go:30-113).  The provisioning
+    path reads its boot volume (which sets the nodes' ephemeral storage) and
+    hashes its launch-affecting fields; the resolved status is written by a
+    nodeclass controller, which the port does not have yet."""
+    name: str = "default"
+    image_family: str = "standard"       # amiFamily analog
+    zone_selector: List[str] = field(default_factory=list)  # [] == all zones
+    subnet_selector: Dict[str, str] = field(default_factory=dict)
+    security_group_selector: Dict[str, str] = field(default_factory=dict)
+    # explicit image pin; empty == resolve latest published for the family
+    image_selector: Dict[str, str] = field(default_factory=dict)
+    role: str = ""
+    user_data: str = ""
+    tags: Dict[str, str] = field(default_factory=dict)
+    block_device_gib: int = 20
+    # full block-device surface: list of {deviceName, ebs:{volumeSize, ...}};
+    # empty == the single root volume implied by block_device_gib
+    block_device_mappings: List[Dict] = field(default_factory=list)
+    metadata_options: Dict[str, object] = field(default_factory=dict)
+    detailed_monitoring: bool = False
+    instance_store_policy: str = ""      # "" | "RAID0"
+    associate_public_ip: Optional[bool] = None
+    # resolved status
+    status_zones: List[str] = field(default_factory=list)
+    status_subnets: List[str] = field(default_factory=list)
+    status_security_groups: List[str] = field(default_factory=list)
+    status_images: List[str] = field(default_factory=list)
+    status_instance_profile: str = ""
+    hash_annotation: str = ""
 
 
 @dataclass

@@ -1,1 +1,1 @@
-"""Controllers of the port: the consolidation decision."""
+"""Controllers of the port: provisioning and the consolidation decision."""

@@ -9,6 +9,7 @@ other on exactly the same inputs:
     prob_t = problem_from_arrays(ref_problem)
     ea, eu, ec = slot_state_from_arrays(dict(alloc=..., used=..., compat=...))
     cluster_t = cluster_from_objects(ref_cluster)
+    cluster_t = cluster_from_arrays(nodes, pods, bound, claims)
     catalog_t = catalog_from_objects(ref_provider.get_instance_types())
     lp_caches_from_arrays(ref_lpguide.snapshot_caches(),
                           ref_lpsolve.snapshot_caches())
@@ -17,7 +18,7 @@ other on exactly the same inputs:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -104,25 +105,52 @@ def _requirements(src) -> Requirements:
     """Requirements from a key → requirement mapping whose values carry
     key / complement / values / greater_than / less_than / min_values."""
     return Requirements({k: Requirement.raw(
-        r.key, r.complement, set(r.values), r.greater_than, r.less_than,
-        r.min_values) for k, r in src.items()})
+        _get(r, "key"), _get(r, "complement"), set(_get(r, "values")),
+        _get(r, "greater_than"), _get(r, "less_than"),
+        _get(r, "min_values")) for k, r in src.items()})
+
+
+def _node(src, pods) -> Node:
+    node = _plain(
+        Node, src, labels=dict, taints=lambda ts: [_plain(Taint, t)
+                                                   for t in ts],
+        allocatable=ResourceList, capacity=ResourceList,
+        pods=lambda ps: [])
+    node.pods = list(pods)
+    return node
+
+
+def _claim(src) -> NodeClaim:
+    return _plain(
+        NodeClaim, src, requirements=_requirements, requests=ResourceList,
+        taints=lambda ts: [_plain(Taint, t) for t in ts], labels=dict)
 
 
 def _plain(cls, src, **conv):
-    """A `cls` dataclass from `src`'s same-named attributes; `conv` maps a
-    field name to a converter for nested values.  Underscored fields and
-    fields `src` lacks keep their defaults."""
+    """A `cls` dataclass from `src`'s same-named attributes (or keys, for a
+    mapping); `conv` maps a field name to a converter for nested values.
+    Underscored fields and fields `src` lacks keep their defaults."""
     kw = {}
     for f in dataclasses.fields(cls):
-        if f.name.startswith("_") or not hasattr(src, f.name):
+        if f.name.startswith("_"):
             continue
-        v = getattr(src, f.name)
+        if isinstance(src, Mapping):
+            if f.name not in src:
+                continue
+            v = src[f.name]
+        elif hasattr(src, f.name):
+            v = getattr(src, f.name)
+        else:
+            continue
         fn = conv.get(f.name)
         kw[f.name] = fn(v) if fn else v
     return cls(**kw)
 
 
 def _pod(src) -> Pod:
+    """A Pod from an object or a mapping with Pod's field names; nested
+    requirements, tolerations and topology terms may be objects or
+    mappings too."""
     return _plain(
         Pod, src,
         requests=ResourceList, limits=ResourceList, node_selector=dict,
@@ -157,19 +185,65 @@ def cluster_from_objects(src) -> Cluster:
     for uid, p in src.pods.items():
         out.pods[uid] = pod(p)
     for name, n in src.nodes.items():
-        out.nodes[name] = _plain(
-            Node, n, labels=dict, taints=lambda ts: [_plain(Taint, t)
-                                                     for t in ts],
-            allocatable=ResourceList, capacity=ResourceList,
-            pods=lambda ps: [pod(p) for p in ps])
+        out.nodes[name] = _node(n, [pod(p) for p in n.pods])
     for name, c in src.nodeclaims.items():
-        out.nodeclaims[name] = _plain(
-            NodeClaim, c, requirements=_requirements,
-            requests=ResourceList,
-            taints=lambda ts: [_plain(Taint, t) for t in ts], labels=dict)
+        out.nodeclaims[name] = _claim(c)
     for name, b in src.pdbs.items():
         out.pdbs[name] = _plain(PodDisruptionBudget, b, selector=dict)
     out.mutation_epoch = int(getattr(src, "mutation_epoch", 0))
+    return out
+
+
+def cluster_from_arrays(nodes: Sequence, pods: Sequence,
+                        bound: Sequence[Sequence[int]],
+                        claims: Sequence = (),
+                        clock: Optional[Callable[[], float]] = None,
+                        mutation_epoch: int = 0) -> Cluster:
+    """The port's `Cluster` from a plain description of a live cluster, as
+    the JAX side can emit it:
+
+      pods    every pod (pending or bound) in batch order, as objects or
+              mappings with Pod's field names;
+      nodes   the nodes in launch order, with Node's field names (name,
+              allocatable, capacity, labels, taints, zone, instance type,
+              nodepool, price, …; a `pods` field is ignored);
+      bound   for each node, the batch positions of its pods in bind order;
+      claims  the node claims, with NodeClaim's field names.
+
+    Identities are batch positions, never names: every pod, node and claim
+    gets a fresh uid or name from the port's own counters (names minted by
+    another process would collide with the ones the port gives new
+    objects), and a node's hostname label follows its new name.  A pod
+    bound to node j is ONE object in the pod dict and in node j's list,
+    with node j's name as its `node_name`; a pod bound nowhere is pending,
+    in batch order."""
+    from .api.labels import HOSTNAME
+    from .api.objects import _uid
+    from .state.cluster import _names
+    out = Cluster(clock=clock or (lambda: 0.0))
+    port_pods = []
+    for src in pods:
+        p = _pod(src)
+        uid = _uid("pod")
+        if p.name == p.uid:
+            p.name = uid
+        p.uid, p.node_name = uid, ""
+        port_pods.append(p)
+    for n, rows in zip(nodes, bound):
+        node = _node(n, [port_pods[i] for i in rows])
+        old, node.name = node.name, f"node-{next(_names):06d}"
+        if node.labels.get(HOSTNAME) == old:
+            node.labels[HOSTNAME] = node.name
+        for p in node.pods:
+            p.node_name = node.name
+        out.nodes[node.name] = node
+    for p in port_pods:
+        out.pods[p.uid] = p
+    for c in claims:
+        claim = _claim(c)
+        claim.name = _uid("nodeclaim")
+        out.nodeclaims[claim.name] = claim
+    out.mutation_epoch = int(mutation_epoch)
     return out
 
 

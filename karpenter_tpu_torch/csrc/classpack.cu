@@ -5,6 +5,7 @@
 //   class_pack_assign_kernel[_fresh]           -> K1 + K2 (emitting takes) + K3 classpack_assign_decode
 //   class_pack_aggregate_kernel[_packed|_fresh] -> K1 + K2 + K4 classpack_aggregate
 //   class_pack_sweep_kernel                    -> K1 + K5 classpack_sweep
+//   class_pack_assign_slab_kernel[_fresh]      -> K1 + K2 + K3 + K6 classpack_slab
 //
 // Plain C interface (each entry returns cudaError_t), loaded with ctypes.
 // Every launch goes on the caller's stream; nothing here synchronises or
@@ -764,6 +765,138 @@ sweep_kernel(const int* __restrict__ req, const int* __restrict__ counts_b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6 classpack_slab  (replaces the sort half of ops/classpack.py
+// class_pack_assign_slab_kernel :280-297: the stable sort of the padded pod
+// rows by slot, key = slot or K for unplaced and padded rows, and the K+1
+// bin histogram)
+//
+// A stable counting sort, which fits the output exactly: the histogram IS
+// slot_counts, its exclusive scan gives each key's first position, and a
+// row goes to first[key] + (rows of its key before it).  Three launches:
+//   1. one block per 1024-row chunk: each row's rank among the chunk's
+//      earlier rows of its key (warps in order; inside a warp the peers of
+//      a key come from __match_any_sync), and the chunk's key histogram;
+//   2. one block: for every key, the exclusive scan of its chunk counts
+//      over chunks (in place) and its total, then the exclusive scan of the
+//      totals over keys;
+//   3. one thread per row: the scatter.
+// The reference sorts either the composite key * n + row or, past the int32
+// guard (K + 1) * n >= 2^31, argsort(key); both give this one order.  Bound
+// on this card: bytes (read the assignment once, write the order and the
+// counts once); at the main path's shapes the three launches' latency
+// dominates.
+// ---------------------------------------------------------------------------
+
+constexpr int kSlabChunk = 1024;
+
+template <typename T>
+__global__ void __launch_bounds__(kSlabChunk)
+slab_rank_kernel(const T* __restrict__ assignment, int n, int K,
+                 int* __restrict__ row_rank, int* __restrict__ chunk_counts) {
+  extern __shared__ int s_hist[];  // K + 1
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int k = t; k <= K; k += blockDim.x) s_hist[k] = 0;
+  const int row = blockIdx.x * kSlabChunk + t;
+  const bool live = row < n;
+  int key = K + 1;  // rows past n: a group of their own, never counted
+  if (live) {
+    const int a = (int)assignment[row];
+    key = a >= 0 ? a : K;
+  }
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const unsigned live_lanes = __ballot_sync(0xffffffffu, live);
+  const int before = __popc(peers & ((1u << lane) - 1u));
+  const bool leader = before == 0;
+  __syncthreads();
+  int rank = 0;
+  for (int w = 0; w < kSlabChunk / 32; ++w) {
+    if (warp == w && live) {
+      const int base = s_hist[key];
+      rank = base + before;
+      __syncwarp(live_lanes);  // every peer has read the base
+      if (leader) s_hist[key] = base + __popc(peers);
+    }
+    __syncthreads();
+  }
+  if (live) row_rank[row] = rank;
+  int* out = chunk_counts + (size_t)blockIdx.x * (K + 1);
+  for (int k = t; k <= K; k += blockDim.x) out[k] = s_hist[k];
+}
+
+__global__ void __launch_bounds__(1024)
+slab_scan_kernel(int* __restrict__ chunk_counts, int n_chunks, int K,
+                 int* __restrict__ key_first, int* __restrict__ slot_counts) {
+  __shared__ unsigned warp_buf[32];
+  const int t = threadIdx.x;
+  const int n_keys = K + 1;
+  // per key: exclusive scan over chunks in place; the total to key_first
+  for (int k = t; k < n_keys; k += blockDim.x) {
+    int run = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      int* p = chunk_counts + (size_t)c * n_keys + k;
+      const int v = *p;
+      *p = run;
+      run += v;
+    }
+    key_first[k] = run;
+  }
+  __syncthreads();
+  // exclusive scan of the totals: thread t owns a contiguous run of keys
+  const int per = (n_keys + blockDim.x - 1) / blockDim.x;
+  const int k0 = min(t * per, n_keys), k1 = min(k0 + per, n_keys);
+  unsigned mine = 0;
+  for (int k = k0; k < k1; ++k) mine += (unsigned)key_first[k];
+  unsigned total;
+  unsigned run = block_exclusive_scan(mine, warp_buf, &total);
+  for (int k = k0; k < k1; ++k) {
+    const int v = key_first[k];
+    if (k < K) slot_counts[k] = v;
+    key_first[k] = (int)run;
+    run += (unsigned)v;
+  }
+}
+
+template <typename T>
+__global__ void slab_scatter_kernel(const T* __restrict__ assignment, int n,
+                                    int K, const int* __restrict__ row_rank,
+                                    const int* __restrict__ chunk_counts,
+                                    const int* __restrict__ key_first,
+                                    int* __restrict__ order) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const int a = (int)assignment[row];
+  const int key = a >= 0 ? a : K;
+  const int chunk = row / kSlabChunk;
+  order[key_first[key] + chunk_counts[(size_t)chunk * (K + 1) + key] +
+        row_rank[row]] = row;
+}
+
+template <typename T>
+cudaError_t launch_slab(const T* assignment, int n, int K, int* row_rank,
+                        int* chunk_counts, int* key_first, int* order,
+                        int* slot_counts, cudaStream_t stream) {
+  const int n_chunks = (n + kSlabChunk - 1) / kSlabChunk;
+  const size_t smem = (size_t)(K + 1) * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        slab_rank_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  slab_rank_kernel<T><<<n_chunks, kSlabChunk, smem, stream>>>(
+      assignment, n, K, row_rank, chunk_counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slab_scan_kernel<<<1, 1024, 0, stream>>>(chunk_counts, n_chunks, K,
+                                           key_first, slot_counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slab_scatter_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
+      assignment, n, K, row_rank, chunk_counts, key_first, order);
+  return cudaGetLastError();
+}
+
 template <int S>
 cudaError_t launch_sweep(const int* req, const int* counts_b,
                          const uint8_t* compat_packed, const int* node_cap,
@@ -938,6 +1071,25 @@ cudaError_t kp_sweep(const int* req, const int* counts_b,
   if (S <= 32) KP_SWEEP(32);
 #undef KP_SWEEP
   return cudaErrorInvalidValue;
+}
+
+int kp_slab_chunk() { return kSlabChunk; }
+
+// assignment: n int16 (is16) or int32 slots, -1 unplaced, each < K.
+// Scratch: row_rank n, chunk_counts ceil(n / kp_slab_chunk()) x (K + 1),
+// key_first K + 1.  Outputs: order n (rows stable-sorted by key = slot, or
+// K for unplaced rows), slot_counts K.
+cudaError_t kp_slab(const void* assignment, int is16, int n, int K,
+                    int* row_rank, int* chunk_counts, int* key_first,
+                    int* order, int* slot_counts, cudaStream_t stream) {
+  if (n <= 0 || K <= 0 || (size_t)(K + 1) * sizeof(int) > 227 * 1024)
+    return cudaErrorInvalidValue;
+  if (is16)
+    return launch_slab(static_cast<const int16_t*>(assignment), n, K,
+                       row_rank, chunk_counts, key_first, order, slot_counts,
+                       stream);
+  return launch_slab(static_cast<const int*>(assignment), n, K, row_rank,
+                     chunk_counts, key_first, order, slot_counts, stream);
 }
 
 }  // extern "C"

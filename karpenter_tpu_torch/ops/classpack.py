@@ -22,14 +22,18 @@ counts), so feasibility math is exact.
 
 `solve_classpack`'s default `guide="lp"` routes a fresh decoded solve to the
 LP-guided path (ops/lpguide.py, with its off-tick `refinery` and the
-`device_lp` PDHG master of ops/lpsolve.py), as the reference does.  Not
-ported yet: the slab decode (`device_decode`, which raises
-NotImplementedError, see ROADMAP.md queue A).
+`device_lp` PDHG master of ops/lpsolve.py), as the reference does.  With
+`device_decode` (the DeviceDecode gate) a batch of at least
+ops/decode.DEVICE_DECODE_FLOOR pods takes the slab programs
+(`class_pack_assign_slab_kernel[_fresh]`: K1-K3, then K6 sorts the pod rows
+by slot on the card) and the host assembles the plan with column
+operations (ops/decode.py).
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -37,12 +41,15 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .._build import KernelError
 from ..api.resources import ResourceList
 from .classpack_kernels import (classpack_aggregate, classpack_assign_decode,
                                 classpack_precompute, classpack_scan,
-                                classpack_sweep, pack_bits)
+                                classpack_slab, classpack_sweep, pack_bits)
 from .ffd import NodeDecision, PackingResult, SweepResult
 from .tensorize import Problem, pad_to
+
+log = logging.getLogger("karpenter_tpu_torch.classpack")
 
 # one lock for all module caches: check-then-insert must be atomic or
 # concurrent misses overshoot the size caps
@@ -124,6 +131,30 @@ def class_pack_assign_kernel_fresh(requests, counts, compat_packed, node_cap,
                                     max_nodes, n_pods)
 
 
+def class_pack_assign_slab_kernel(requests, counts, compat_packed, node_cap,
+                                  alloc, price, rank, init_option, init_used,
+                                  max_nodes: int, n_pods: int):
+    """The assign program plus the on-card SLAB the columnar decode
+    consumes (K1, K2, K3, then K6): row ids stable-sorted by slot
+    (`order`, unplaced and padded rows last under key K, the real
+    unplaced rows ahead of the padding), rows per slot (`slot_counts`) and
+    the slot→option column.  Returns (order n_pods int32, slot_counts K
+    int32, slot_option K, n_unsched)."""
+    assignment, slot_option, n_unsched = class_pack_assign_kernel(
+        requests, counts, compat_packed, node_cap, alloc, price, rank,
+        init_option, init_used, max_nodes, n_pods)
+    order, slot_counts = classpack_slab(assignment, max_nodes)
+    return order, slot_counts, slot_option, n_unsched
+
+
+def class_pack_assign_slab_kernel_fresh(requests, counts, compat_packed,
+                                        node_cap, alloc, price, rank,
+                                        max_nodes: int, n_pods: int):
+    return class_pack_assign_slab_kernel(requests, counts, compat_packed,
+                                         node_cap, alloc, price, rank, None,
+                                         None, max_nodes, n_pods)
+
+
 def class_pack_sweep_kernel_packed(requests, counts_b, compat_packed,
                                    node_cap, alloc, price, rank,
                                    col_mask_packed, price_cap_b, init_option,
@@ -170,7 +201,7 @@ def resolve_device(device) -> torch.device:
     error — the solve never moves itself to the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise KernelError(
             "karpenter_tpu_torch solves on CUDA by default and no CUDA device "
             "is available; pass device='cpu' to run the plain versions")
     if dev.type not in ("cuda", "cpu"):
@@ -399,13 +430,17 @@ def solve_classpack(problem: Problem,
     path (ops/lpguide.solve_guided, with `refinery`, `device_lp` and
     `lp_health` passed on); when the guide does not apply it returns None
     and the greedy kernels below solve.  With E > 0 or decode=False the
-    guide is skipped, as in the reference.  `device_decode` (the slab
-    decode) is not ported yet and raises."""
+    guide is skipped, as in the reference.
+
+    device_decode=True (the `DeviceDecode` gate) routes decoded batches of
+    at least ops/decode.DEVICE_DECODE_FLOOR pods through the slab programs:
+    the pod→slot sort runs on the card (K6) and the host assembles the
+    plan with column operations (ops/decode.assemble_slab_single) —
+    identical output.  A slab-assembly failure rebuilds the legacy
+    assignment vector from the slab (no second kernel launch), decodes it
+    the legacy way and reports to `decode_health` (ops/decode.DecodeHealth),
+    whose demotion keeps the next solves on the legacy decode."""
     dev = resolve_device(device)
-    if device_decode:
-        raise NotImplementedError(
-            "device_decode (the slab decode) is not ported yet — "
-            "ROADMAP.md queue A, 'slab decode'")
     E = 0 if existing_alloc is None else len(existing_alloc)
     if guide == "lp" and E == 0 and decode:
         from .lpguide import solve_guided
@@ -436,10 +471,38 @@ def solve_classpack(problem: Problem,
         return PackingResult(nodes=nodes, unschedulable=[None] * n_unsched,
                              existing_assignments={}, total_price=total)
 
-    assignment, slot_option, _ = class_pack_assign_kernel(
+    from . import decode as decode_mod
+    use_slab = bool(device_decode) and low.P >= decode_mod.DEVICE_DECODE_FLOOR
+    if use_slab and decode_health is not None and not decode_health.allow():
+        use_slab = False
+    if not use_slab:
+        assignment, slot_option, _ = class_pack_assign_kernel(
+            *pod_args, *cat_args, *init, K, low.Ppad)
+        return decode_plan(problem, low, assignment.cpu().numpy(),
+                           slot_option.cpu().numpy(), max_alternatives)
+    order_idx, slot_counts, slot_option, _ = class_pack_assign_slab_kernel(
         *pod_args, *cat_args, *init, K, low.Ppad)
-    return decode_plan(problem, low, assignment.cpu().numpy(),
-                       slot_option.cpu().numpy(), max_alternatives)
+    order_idx = order_idx.cpu().numpy()
+    slot_counts = slot_counts.cpu().numpy()
+    slot_option = slot_option.cpu().numpy()
+    pod_idx, class_of_row = _rows(problem, low)
+    try:
+        res = decode_mod.assemble_slab_single(
+            problem, order_idx, slot_counts, slot_option, pod_idx,
+            class_of_row, E, K, max_alternatives, low.P)
+    except Exception:
+        log.exception("slab decode failed; host assembly fallback")
+        if decode_health is not None:
+            decode_health.report_failure("error")
+        # the kernel output is still good: rebuild the legacy assignment
+        # vector from the slab, no second launch
+        assignment = decode_mod.slab_to_assignment(order_idx, slot_counts,
+                                                   low.Ppad, K)
+        return decode_plan(problem, low, assignment, slot_option,
+                           max_alternatives)
+    if decode_health is not None:
+        decode_health.report_success()
+    return res
 
 
 @dataclass
@@ -615,20 +678,26 @@ def solve_classpack_sweep(problem: Problem,
                        unschedulable=unsched, device_calls=calls)
 
 
-def decode_plan(problem: Problem, low: Lowered, assignment: np.ndarray,
-                slot_option: np.ndarray,
-                max_alternatives: int = 60) -> PackingResult:
-    """Host-side decode of the per-pod slots: rows → NodeDecisions with
-    per-node `used` and flexible alternatives (the reference's decode)."""
-    C, O, E, P, order = low.C, low.O, low.E, low.P, low.order
-    # rows follow the sorted-class order, members consumed in sequence —
-    # the same walk the takes-based decode did, now fully vectorized
+def _rows(problem: Problem, low: Lowered):
+    """(pod index, class) of every kernel row: rows follow the sorted-class
+    order, members consumed in sequence."""
+    C, order = low.C, low.order
     members_arr = problem.members_arrays()
     pod_idx = (np.concatenate([members_arr[ci] for ci in order]) if C else
                np.zeros(0, np.int64))
     class_of_row = np.repeat(np.asarray(order, np.int64),
                              problem.class_counts[order]) if C else \
         np.zeros(0, np.int64)
+    return pod_idx, class_of_row
+
+
+def decode_plan(problem: Problem, low: Lowered, assignment: np.ndarray,
+                slot_option: np.ndarray,
+                max_alternatives: int = 60) -> PackingResult:
+    """Host-side decode of the per-pod slots: rows → NodeDecisions with
+    per-node `used` and flexible alternatives (the reference's decode)."""
+    O, E, P = low.O, low.E, low.P
+    pod_idx, class_of_row = _rows(problem, low)
 
     assignment = np.asarray(assignment, dtype=np.int32)[:P]
     sched = assignment >= 0

@@ -1,7 +1,8 @@
 """Wrappers of the class-granular packing kernels (csrc/classpack.cu).
 
-Four kernels carry the class-granular solve and a fifth the batched
-consolidation sweep; each wrapper here has
+Four kernels carry the class-granular solve, a fifth the batched
+consolidation sweep and a sixth the slab sort of the device decode; each
+wrapper here has
 
   * a plain PyTorch version of the same function (`*_plain`), which it
     runs ONLY when its tensors lie on the CPU — the CPU tests use it, and
@@ -20,6 +21,7 @@ consolidation sweep; each wrapper here has
 | classpack_assign_decode | ops/classpack.py class_pack_assign_kernel :228-245     |
 | classpack_aggregate     | ops/classpack.py class_pack_aggregate_kernel :169-178  |
 | classpack_sweep         | ops/classpack.py class_pack_sweep_kernel :332-363      |
+| classpack_slab          | ops/classpack.py class_pack_assign_slab_kernel :280-297 |
 
 All integer math is int32 with the reference's semantics (floor division,
 two's complement wrap); the new-node score is float32.
@@ -32,13 +34,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .._build import KernelError, KernelLimitError
 from .ffd import SCORE_CAP
 
 BIG = 2**30
 
 KERNELS = ("classpack_precompute", "classpack_scan",
            "classpack_assign_decode", "classpack_aggregate",
-           "classpack_sweep")
+           "classpack_sweep", "classpack_slab")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -78,6 +81,9 @@ def _lib() -> ctypes.CDLL:
         lib.kp_sweep_smem_max.restype = i
         lib.kp_sweep.argtypes = [p] * 12 + [i] * 5 + [p] * 4
         lib.kp_sweep.restype = i
+        lib.kp_slab_chunk.restype = i
+        lib.kp_slab.argtypes = [p, i, i, i] + [p] * 5 + [p]
+        lib.kp_slab.restype = i
         _LIB = lib
     return _LIB
 
@@ -85,7 +91,7 @@ def _lib() -> ctypes.CDLL:
 def _raise_on(err: int, name: str) -> None:
     if err:
         msg = _lib().kp_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+        raise KernelError(f"{name}: CUDA error {err} ({msg})")
 
 
 def _on_cuda(*tensors) -> bool:
@@ -169,7 +175,8 @@ def classpack_precompute(requests: torch.Tensor, node_cap: torch.Tensor,
     O = alloc.shape[0]
     lib = _lib()
     if R > lib.kp_max_r():
-        raise ValueError(f"R={R} resource axes exceed the kernel's {lib.kp_max_r()}")
+        raise KernelLimitError(
+            f"R={R} resource axes exceed the kernel's {lib.kp_max_r()}")
     _check(requests, "requests", torch.int32, (C, R))
     _check(node_cap, "node_cap", torch.int32, (C,))
     _check(compat_packed, "compat_packed", torch.uint8, (C, (O + 7) // 8))
@@ -290,8 +297,9 @@ def classpack_scan(requests: torch.Tensor, counts: torch.Tensor,
     K = int(max_nodes)
     lib = _lib()
     if R > lib.kp_max_r() or not 0 < K <= lib.kp_max_slots():
-        raise ValueError(f"R={R} / K={K} outside the scan kernel's limits "
-                         f"({lib.kp_max_r()} axes, {lib.kp_max_slots()} slots)")
+        raise KernelLimitError(
+            f"R={R} / K={K} outside the scan kernel's limits "
+            f"({lib.kp_max_r()} axes, {lib.kp_max_slots()} slots)")
     _check(requests, "requests", torch.int32, (C, R))
     _check(counts, "counts", torch.int32, (C,))
     _check(compat_packed, "compat_packed", torch.uint8, (C, (O + 7) // 8))
@@ -539,9 +547,9 @@ def classpack_sweep(requests: torch.Tensor, counts_b: torch.Tensor,
     K = int(max_nodes)
     lib = _lib()
     if R > lib.kp_max_r() or not 0 < K <= lib.kp_sweep_max_slots():
-        raise ValueError(f"R={R} / K={K} outside the sweep kernel's limits "
-                         f"({lib.kp_max_r()} axes, {lib.kp_sweep_max_slots()} "
-                         f"slots)")
+        raise KernelLimitError(
+            f"R={R} / K={K} outside the sweep kernel's limits "
+            f"({lib.kp_max_r()} axes, {lib.kp_sweep_max_slots()} slots)")
     if B == 0 or C == 0 or O == 0:
         raise ValueError(f"empty sweep: B={B}, C={C}, O={O}")
     _check(requests, "requests", torch.int32, (C, R))
@@ -574,3 +582,63 @@ def classpack_sweep(requests: torch.Tensor, counts_b: torch.Tensor,
     _raise_on(err, "classpack_sweep")
     LAUNCHES["classpack_sweep"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K6 classpack_slab
+# ---------------------------------------------------------------------------
+
+def classpack_slab_plain(assignment, max_nodes: int):
+    """The reference's slab sort: key = slot, or K for an unplaced row; the
+    composite key·n + row sorted when (K+1)·n < 2^31, else a stable argsort
+    of the key (both give the same order); slot_counts from a K+1-bin
+    scatter-add with the overflow bin sliced off."""
+    K = int(max_nodes)
+    n = assignment.shape[0]
+    dev = assignment.device
+    a = assignment.to(torch.int32)
+    key = torch.where(a >= 0, a, K)
+    if (K + 1) * n < 2**31:
+        comp = key * n + torch.arange(n, dtype=torch.int32, device=dev)
+        order = (torch.sort(comp).values % n).to(torch.int32)
+    else:
+        order = torch.argsort(key, stable=True).to(torch.int32)
+    counts = torch.zeros(K + 1, dtype=torch.int32, device=dev).index_add_(
+        0, key.long(), torch.ones(n, dtype=torch.int32, device=dev))
+    return order, counts[:K]
+
+
+def classpack_slab(assignment: torch.Tensor, max_nodes: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order n int32, slot_counts K int32) of K3's per-row slots
+    (`assignment`, n int16 or int32, −1 unplaced, each < K): the rows
+    stable-sorted by key = slot, or K for unplaced and padded rows, and the
+    rows per slot."""
+    if not _on_cuda(assignment):
+        return classpack_slab_plain(assignment, max_nodes)
+    K = int(max_nodes)
+    n = assignment.shape[0]
+    if assignment.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"assignment: dtype {assignment.dtype}, expected "
+                        f"int16 or int32")
+    if assignment.dim() != 1 or not assignment.is_contiguous():
+        raise ValueError("assignment: not a contiguous vector")
+    if n == 0 or K <= 0:
+        raise ValueError(f"empty slab: n={n}, K={K}")
+    lib = _lib()
+    dev = assignment.device
+    chunks = -(-n // lib.kp_slab_chunk())
+    row_rank = torch.empty(n, dtype=torch.int32, device=dev)
+    chunk_counts = torch.empty((chunks, K + 1), dtype=torch.int32, device=dev)
+    key_first = torch.empty(K + 1, dtype=torch.int32, device=dev)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    slot_counts = torch.empty(K, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_slab(_ptr(assignment),
+                          int(assignment.dtype == torch.int16), n, K,
+                          _ptr(row_rank), _ptr(chunk_counts),
+                          _ptr(key_first), _ptr(order), _ptr(slot_counts),
+                          _stream(dev))
+    _raise_on(err, "classpack_slab")
+    LAUNCHES["classpack_slab"] += 1
+    return order, slot_counts

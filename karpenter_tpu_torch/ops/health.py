@@ -6,11 +6,15 @@ doubles per consecutive demotion; when the window expires the next solve is
 a half-open probe — success promotes back instantly, failure re-demotes for
 a longer window.  The bottom rung never demotes.
 
-The port wires only the LP ladder (`lp_ladder`: device_lp ──▶ highs) in
-this slice; the packing ladder's rungs are named for reference.  The
-reference's metric, span and `solver_demotion` incident calls, and its
-warm-restart and /debug/health exports, are left out; every transition is
-still logged and tallied in `transitions`.
+Two ladders use it: the packing ladder (`RUNGS`), which
+`Provisioner._pack_supervised` walks (sharded ──▶ jax ──▶ native ──▶
+greedy; the port's "sharded" and "native" rungs raise until they are
+ported, so a failing "jax" solve lands on the greedy host rung), and the LP
+ladder (`lp_ladder`: device_lp ──▶ highs).  The ladder state round-trips
+through `snapshot_state` / `restore_state`; `snapshot()` is the reference's
+deterministic /debug/health view.  The reference's metric, span and
+`solver_demotion` incident calls are left out; every transition is still
+logged and tallied in `transitions`.
 """
 
 from __future__ import annotations
@@ -124,6 +128,58 @@ class SolverHealth:
             log.warning("solver ladder: %s demoted to %s (%s), window %.0fs",
                         frm, to, reason,
                         self._state[frm].demoted_until - self.clock())
+
+    # ---- warm restart ----------------------------------------------------
+    def snapshot_state(self) -> Dict:
+        """Round-trippable export of the whole ladder.  `demoted_until`
+        values are absolute clock readings, so they only transfer between
+        processes sharing a clock domain (a virtual clock, or a wall-clock
+        restart where stale windows simply read as expired)."""
+        return {
+            "rungs": {
+                rung: {
+                    "failures": st.failures,
+                    "demotions": st.demotions,
+                    "demoted_until": st.demoted_until,
+                    "probing": st.probing,
+                    "total_failures": st.total_failures,
+                    "total_demotions": st.total_demotions,
+                } for rung, st in self._state.items()
+            },
+            "transitions": dict(self.transitions),
+        }
+
+    def restore_state(self, data: Dict) -> None:
+        for rung, st in data["rungs"].items():
+            if rung not in self._state:
+                continue
+            cur = self._state[rung]
+            cur.failures = int(st["failures"])
+            cur.demotions = int(st["demotions"])
+            cur.demoted_until = float(st["demoted_until"])
+            cur.probing = bool(st["probing"])
+            cur.total_failures = int(st["total_failures"])
+            cur.total_demotions = int(st["total_demotions"])
+        self.transitions = dict(data["transitions"])
+
+    def snapshot(self) -> Dict:
+        """Deterministic ladder state (the reference's /debug/health
+        view)."""
+        now = self.clock()
+        return {
+            "rungs": {
+                rung: {
+                    "demoted": st.demoted_until > now,
+                    "demoted_for_s": round(max(0.0, st.demoted_until - now), 3),
+                    "consecutive_failures": st.failures,
+                    "consecutive_demotions": st.demotions,
+                    "probing": st.probing,
+                    "total_failures": st.total_failures,
+                    "total_demotions": st.total_demotions,
+                } for rung in self.rungs for st in (self._state[rung],)
+            },
+            "transitions": dict(sorted(self.transitions.items())),
+        }
 
     def failures(self, rung: str) -> int:
         """Consecutive failures of `rung` since its last success or

@@ -34,6 +34,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .._build import KernelError
+
 KERNELS = ("pdhg",)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -78,7 +80,7 @@ def _lib() -> ctypes.CDLL:
 def _raise_on(err: int, name: str) -> None:
     if err:
         msg = _lib().lp_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+        raise KernelError(f"{name}: CUDA error {err} ({msg})")
 
 
 def _on_cuda(*tensors) -> bool:

@@ -1,1 +1,2 @@
-"""Host utilities of the port: the event recorder."""
+"""Host utilities of the port: the event recorder, scheduling provenance
+and the solve watchdog."""

@@ -16,6 +16,13 @@ fingerprints a consolidation decision and its sweep rows, and
 (tests/test_torch_consolidation.py), which `chip_smoke.py` checks on the
 card.
 
+`PROVISION_CELLS` are the provisioning cells — `Provisioner.provision` on
+a live cluster at full width — and `provision_env` / `provision_round` drive
+either package through them; `provision_signature` identifies a round by
+batch positions, and `GOLDEN_PROVISION` holds the JAX package's signatures
+(tests/test_torch_provisioning.py), which `chip_smoke.py` checks on the
+card.
+
 `GOLDEN_GUIDED` is the digest of the headline's default, LP-guided solve
 (HiGHS restricted masters), and `lp_instance` / `GOLDEN_LP` are the
 refinery-shaped LP instances of the reference bench's LP A/B
@@ -433,4 +440,197 @@ GOLDEN_LP: Dict[int, Dict[str, float]] = {
               device_nodes=473),
     250: dict(z=589.5349812292611, device_total=610.202819917351,
               device_nodes=1082),
+}
+
+
+def ffd_scan_inputs(rng: np.random.Generator, P: int = 4096, C: int = 48,
+                    O: int = 600, R: int = 4, E: int = 0, K: int = 1024):
+    """A seeded input of the pod-granular scan (`ffd_kernels.ffd_scan`'s
+    arguments as numpy arrays, and K): class-contiguous rows, zero request
+    axes, fractional usage, +inf / NaN / near-max prices, two pool ranks,
+    hostname caps on a tenth of the classes, E pre-opened existing slots
+    and 64 padded rows."""
+    from .ops.ffd import rem_in_class
+    f32 = np.float32
+    sizes = rng.multinomial(P - 64, np.ones(C) / C)
+    class_ids = np.repeat(np.arange(C, dtype=np.int32), sizes)
+    n = len(class_ids)
+    creq = rng.integers(100, 4000, (C, R)).astype(f32)
+    creq[:, 2:][rng.random((C, R - 2)) < 0.3] = 0.0
+    ccap = np.full(C, 2**30, np.int32)
+    capped = rng.random(C) < 0.1
+    ccap[capped] = rng.integers(1, 4, capped.sum())
+    cols = O + E
+    alloc = rng.integers(2000, 64000, (cols, R)).astype(f32)
+    price = rng.uniform(0.05, 5.0, cols).astype(f32)
+    u = rng.random(O)
+    price[:O][u < 0.05] = np.inf
+    price[:O][(u >= 0.05) & (u < 0.07)] = np.nan
+    price[:O][(u >= 0.07) & (u < 0.09)] = f32(3e38)
+    price[O:] = np.inf
+    rank = rng.integers(0, 2, cols).astype(np.int32)
+    ccomp = rng.random((C, cols)) < 0.7
+    init_option = np.full(K, -1, np.int32)
+    init_used = np.zeros((K, R), f32)
+    init_option[:E] = np.arange(O, O + E, dtype=np.int32)
+    init_used[:E] = (alloc[O:] * rng.uniform(0.0, 0.9, (E, R))).astype(f32)
+    Ppad = P
+    req = np.zeros((Ppad, R), f32)
+    req[:n] = creq[class_ids]
+    crow = np.zeros(Ppad, np.int32)
+    crow[:n] = class_ids
+    cid = np.full(Ppad, -2, np.int32)
+    cid[:n] = class_ids
+    valid = np.zeros(Ppad, bool)
+    valid[:n] = True
+    cap = np.full(Ppad, 2**30, np.int32)
+    cap[:n] = ccap[class_ids]
+    rem = np.zeros(Ppad, np.int32)
+    rem[:n] = rem_in_class(class_ids)
+    return (req, np.packbits(ccomp, axis=1), crow, cid, valid, cap, rem,
+            alloc, price, rank, init_option, init_used), K
+
+
+# ---------------------------------------------------------------------------
+# the provisioning cells: Provisioner.provision on a live cluster
+# ---------------------------------------------------------------------------
+
+PROVISION_TYPES = 600                     # full width: 600 types, 3600 options
+# the second burst of provision-live: the headline's fractions, 20k pods
+PROVISION_ROUND2 = dict(spec_count=200, total=20_000, gpu_frac=0.05,
+                        zone_frac=0.2, taint_frac=0.1)
+PROVISION_ROUND2_SEED = 5
+PROVISION_SMALL = dict(spec_count=16, total=64)   # three bursts, rng(7 + r)
+PROVISION_SMALL_SEED = 7
+
+# cell -> (Provisioner options, rounds as (build_pods kwargs, seed))
+PROVISION_CELLS: Dict[str, Tuple[Dict, List[Tuple[Dict, int]]]] = {
+    # the default Provisioner + DeviceDecode: a guided round 1 on an empty
+    # cluster, then a burst against the 1463-node live cluster (E > 0
+    # skips the guide, so it takes the slab programs, row 7)
+    "provision-live-50k-20k": (
+        dict(device_decode=True),
+        [(HEADLINE, HEADLINE_SEED),
+         (PROVISION_ROUND2, PROVISION_ROUND2_SEED)]),
+    # the LPGuide escape hatch + DeviceDecode: row 8 at P = 50 000
+    "provision-noguide-50k": (
+        dict(lp_guide=False, device_decode=True),
+        [(HEADLINE, HEADLINE_SEED)]),
+    # three 64-pod bursts into one cluster: every solve is a small batch,
+    # which `_pick_solver` sends to solve_ffd (row 11)
+    "provision-small-3x64": (
+        {},
+        [(PROVISION_SMALL, PROVISION_SMALL_SEED + r) for r in range(3)]),
+    # solver="ffd": row 11 at P = 50 000, K = 2048
+    "provision-ffd-50k": (
+        dict(solver="ffd"),
+        [(HEADLINE, HEADLINE_SEED)]),
+}
+
+
+@dataclass
+class ProvisionEnv:
+    """The objects of one provisioning cell.  Built by `provision_env` from
+    the classes it is given, so the same code runs either package."""
+    cloud: object
+    provider: object
+    cluster: object
+    provisioner: object
+
+
+def provision_env(cell: str, FakeCloud, CloudProvider, Cluster, Provisioner,
+                  NodePool, catalog, **extra) -> ProvisionEnv:
+    """FakeCloud → CloudProvider(catalog) → Cluster → Provisioner with the
+    cell's options (plus `extra`, e.g. the port's `device` or a
+    SolverHealth), one default NodePool."""
+    opts, _ = PROVISION_CELLS[cell]
+    cloud = FakeCloud()
+    provider = CloudProvider(cloud, catalog)
+    cluster = Cluster()
+    prov = Provisioner(provider, cluster, [NodePool()], **opts, **extra)
+    return ProvisionEnv(cloud, provider, cluster, prov)
+
+
+def provision_round(env: ProvisionEnv, pods) -> Tuple[Dict, object]:
+    """Add `pods` to the cluster and run one `provision()`; returns (the
+    round's signature, the ProvisioningResult)."""
+    env.cluster.add_pods(pods)
+    return provision_pending(env)
+
+
+def provision_pending(env: ProvisionEnv) -> Tuple[Dict, object]:
+    """One `provision()` of the cluster's pending pods; returns (the round's
+    signature, the ProvisioningResult).  Batch positions index the pending
+    pods as `provision()` reads them."""
+    batch = env.cluster.pending_pods()
+    before = list(env.cluster.nodes)
+    res = env.provisioner.provision()
+    return provision_signature(batch, before, env.cluster, res), res
+
+
+def provision_signature(batch, nodes_before, cluster, res) -> Dict:
+    """A provisioning round's identity by batch position, never by name
+    (pod and claim names come from a process-wide counter): the launched
+    claims in launch order (instance type, zone, capacity type, nodepool,
+    request totals, the batch positions of their pods); the pods bound to
+    nodes that existed before the round, as (batch position, node launch
+    index); the unschedulable batch positions; the total launch price."""
+    pos = {id(p): i for i, p in enumerate(batch)}
+    launch_index = {name: i for i, name in enumerate(cluster.nodes)}
+    old = set(nodes_before)
+    claims = [[c.instance_type, c.zone, c.capacity_type, c.nodepool,
+               [[k, int(v)] for k, v in c.requests.items()],
+               [pos[id(p)] for p in c._decision_pods]]
+              for c in res.launched]
+    existing = [[i, launch_index[p.node_name]] for i, p in enumerate(batch)
+                if p.node_name in old]
+    unsched = [pos[id(p)] for p in res.unschedulable]
+    total = 0.0
+    for c in res.launched:
+        total += c.price
+    digest = hashlib.sha256(json.dumps([claims, existing, unsched]).encode())
+    return dict(digest=digest.hexdigest(), launched=len(claims),
+                bound_new=res.bound_new, bound_existing=len(existing),
+                unschedulable=len(unsched), total_price=total)
+
+# cell -> per round, the JAX package's `provision_signature` on the CPU
+# (tests/test_torch_provisioning.py proves it for provision-live and
+# provision-small; `python tests/test_torch_provisioning.py` prints all four)
+GOLDEN_PROVISION: Dict[str, List[Dict]] = {
+    'provision-live-50k-20k': [
+        dict(digest='4b393cd16d0177a0627c09879252a9fc'
+             '1416388a9ad1f47938991f0ab2819369',
+             launched=1463, bound_new=50000, bound_existing=0,
+             unschedulable=0, total_price=4651.988099999959),
+        dict(digest='6c4f1c8ac5426614754afd04b6c50e71'
+             'd3fa6c4cc0a73d42dcadf8096ec70046',
+             launched=585, bound_new=11519, bound_existing=718,
+             unschedulable=7763, total_price=2029.3209999999995),
+    ],
+    'provision-noguide-50k': [
+        dict(digest='fc726a6116a81a0c4875534a6a5fb425'
+             '5e00d408422657f30742d0f6c9ea5850',
+             launched=2048, bound_new=23079, bound_existing=0,
+             unschedulable=26921, total_price=3556.043599999961),
+    ],
+    'provision-small-3x64': [
+        dict(digest='d1fd5ded5f872973059d9f0372074e2f'
+             'c42f25c43b4eeda0c49d9dfe745a0fe5',
+             launched=39, bound_new=64, bound_existing=0,
+             unschedulable=0, total_price=4.9997),
+        dict(digest='ce6db94f3febb69ba2e1cb453bad56dd'
+             '94724f15097482bb39de681b37dc860d',
+             launched=26, bound_new=51, bound_existing=13,
+             unschedulable=0, total_price=3.4571),
+        dict(digest='714805e67ecc6e4aedc03b970ef691e6'
+             'dff24eb06bff6db4e81d6e688ffd92c1',
+             launched=29, bound_new=54, bound_existing=10,
+             unschedulable=0, total_price=4.3059),
+    ],
+    'provision-ffd-50k': [
+        dict(digest='a046f5502f5d0c78aee6f011c9b527a3'
+             'deb8229cad90444cfc8234ee35e44a07',
+             launched=2048, bound_new=23261, bound_existing=0,
+             unschedulable=26739, total_price=3571.827199999971),
+    ],
 }

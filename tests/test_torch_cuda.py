@@ -75,7 +75,8 @@ def test_cuda_kernels_match_plain(cuda_device, name):
     torch.cuda.synchronize()
     assert ck.LAUNCHES == {"classpack_precompute": 1, "classpack_scan": 2,
                            "classpack_assign_decode": 1,
-                           "classpack_aggregate": 1, "classpack_sweep": 0}
+                           "classpack_aggregate": 1, "classpack_sweep": 0,
+                           "classpack_slab": 0}
 
 
 @pytest.mark.cuda
@@ -374,3 +375,78 @@ def test_cuda_guided_device_lp_on_the_pairing_trap(cuda_device):
         assert (used <= prob.option_alloc[oi[id(nd.option)]]).all()
     greedy = cp.solve_classpack(prob, guide=None)
     assert res.total_price < 0.8 * greedy.total_price
+
+
+# ---- K6 classpack_slab and K7 ffd_scan (slice 4) ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n,dtype", [
+    (256, 1061, np.int16), (2048, 32768, np.int16), (2048, 53248, np.int32),
+    (8192, 300_000, np.int16)])   # the last above the (K+1)·n < 2^31 guard
+def test_cuda_slab_matches_plain(cuda_device, K, n, dtype):
+    a = torch.tensor(np.random.default_rng(K + n).integers(
+        -1, K, size=n).astype(dtype), device=cuda_device)
+    ck.reset_launches()
+    order, counts = ck.classpack_slab(a, K)
+    order0, counts0 = ck.classpack_slab_plain(a, K)
+    torch.cuda.synchronize()
+    assert torch.equal(order, order0) and torch.equal(counts, counts0)
+    assert ck.LAUNCHES["classpack_slab"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,kw", [
+    (0, dict(P=2048, C=24, O=300)),
+    (1, dict(P=2048, C=24, O=300, E=32)),
+    (2, dict(P=1024, C=16, O=200, K=64)),            # slot exhaustion
+    (3, dict(P=1024, C=16, O=200, R=12, K=4096))])   # state in global memory
+def test_cuda_ffd_scan_matches_plain(cuda_device, seed, kw):
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    arrays, K = workloads.ffd_scan_inputs(np.random.default_rng(seed), **kw)
+    args = [torch.tensor(a, device=cuda_device) for a in arrays]
+    fk.reset_launches()
+    got = fk.ffd_scan(*args, K)
+    want = fk.ffd_scan_plain(*args, K)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert fk.LAUNCHES["ffd_scan"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_ffd_scan_refuses_without_fallback(cuda_device):
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    arrays, K = workloads.ffd_scan_inputs(np.random.default_rng(4), P=128,
+                                          C=4, O=32)
+    args = [torch.tensor(a, device=cuda_device) for a in arrays]
+    fk.reset_launches()
+    bad = list(args)
+    bad[0] = bad[0].double()
+    with pytest.raises(TypeError):
+        fk.ffd_scan(*bad, K)
+    bad = list(args)
+    bad[0] = bad[0].cpu()
+    with pytest.raises(ValueError, match="devices"):
+        fk.ffd_scan(*bad, K)
+    assert fk.LAUNCHES["ffd_scan"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_provision_small_cell_matches_the_golden(cuda_device):
+    """Three 64-pod bursts through Provisioner.provision on the card: every
+    solve takes solve_ffd (K7), and each round reproduces the JAX
+    package's signature."""
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    from karpenter_tpu_torch.state import Cluster
+    cell = "provision-small-3x64"
+    env = workloads.provision_env(
+        cell, FakeCloud, CloudProvider, Cluster, Provisioner, NodePool,
+        generate_catalog(workloads.PROVISION_TYPES))
+    for r, (kw, seed) in enumerate(workloads.PROVISION_CELLS[cell][1]):
+        fk.reset_launches()
+        sig, _ = workloads.provision_round(env, workloads.build_pods(
+            rng=np.random.default_rng(seed), **kw))
+        assert sig == workloads.GOLDEN_PROVISION[cell][r]
+        assert fk.LAUNCHES["ffd_scan"] >= 1

@@ -223,6 +223,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "          'karpenter_tpu_torch.ops.classpack_kernels',\n"
         "          'karpenter_tpu_torch.ops.constraints',\n"
         "          'karpenter_tpu_torch.ops.ffd',\n"
+        "          'karpenter_tpu_torch.ops.ffd_kernels',\n"
+        "          'karpenter_tpu_torch.ops.decode',\n"
         "          'karpenter_tpu_torch.ops.health',\n"
         "          'karpenter_tpu_torch.ops.lpguide',\n"
         "          'karpenter_tpu_torch.ops.lpsolve',\n"
@@ -231,6 +233,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "          'karpenter_tpu_torch.state', 'karpenter_tpu_torch.state.cluster',\n"
         "          'karpenter_tpu_torch.controllers',\n"
         "          'karpenter_tpu_torch.controllers.disruption',\n"
+        "          'karpenter_tpu_torch.controllers.provisioning',\n"
+        "          'karpenter_tpu_torch.cloud',\n"
+        "          'karpenter_tpu_torch.utils.provenance',\n"
+        "          'karpenter_tpu_torch.utils.watchdog',\n"
         "          'karpenter_tpu_torch.forecast.headroom',\n"
         "          'karpenter_tpu_torch.utils.events',\n"
         "          'karpenter_tpu_torch.convert',\n"
@@ -261,18 +267,30 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         port_cp.solve_classpack(prob, guide=None)
 
 
-@pytest.mark.parametrize("kw", [dict(device_decode=True),
-                                dict(refinery=object(), device_decode=True),
-                                dict(guide=None, device_decode=True),
-                                dict(guide=None, device_lp=True,
-                                     device_decode=True)])
-def test_unported_options_raise(kw):
-    """The slab decode (`device_decode`) is not ported yet; the guided
-    path, its refinery and the device LP are (tests/test_torch_lpguide.py)."""
+@pytest.mark.parametrize("entry,kw", [
+    ("solve_ffd", dict(backend="native")),
+    ("provisioner", dict(sharded_solve=True)),
+    ("provisioner", dict(gang_scheduling=True)),
+    ("provisioner", dict(sharded_solve=True, device_decode=True))])
+def test_unported_options_raise(entry, kw):
+    """What is not ported yet raises and names ROADMAP.md: the native C++
+    packer, the sharded driver and gang scheduling.  The slab decode
+    (`device_decode`) is ported (tests/test_torch_decode.py), as are the
+    guided path, its refinery and the device LP
+    (tests/test_torch_lpguide.py)."""
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.ops.ffd import solve_ffd
+    from karpenter_tpu_torch.state import Cluster
     prob = convert.problem_from_arrays(
         tensorize([cpu_pod()], small_catalog(), [NodePool()]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cp.solve_classpack(prob, device="cpu", **kw)
+        if entry == "solve_ffd":
+            solve_ffd(prob, device="cpu", **kw)
+        else:
+            provider = CloudProvider(FakeCloud(), convert.catalog_from_objects(
+                small_catalog()))
+            Provisioner(provider, Cluster(), [], device="cpu", **kw)
 
 
 def test_guide_lp_is_skipped_where_the_reference_skips_it():
