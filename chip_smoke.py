@@ -93,11 +93,46 @@ pass):
                against its plain version on every provision-small batch,
                and the CUDA-event times of K6, the slab programs (rows
                7-8) and K7 (row 11) at the cells' own inputs, beside their
-               bounds, plain versions and (K6) argsort + bincount.
+               bounds, plain versions and (K6) argsort + scatter_add_.
+ 11. sharded kernels — the shard-batched K1-K4 and K6 and K8 shard_psum
+               (one launch over the n = 8 shards of a mesh laid on the card)
+               against their plain versions, and shard for shard against n
+               serial launches of the single-device kernels, on the real
+               inputs of rows 13-17 and of the provision-sharded-50k-20k
+               cell's row 17 in both rounds (recorded in phase 12's counted
+               runs, which run first) and on seeded perturbations: two
+               empty shards, slot
+               exhaustion in one shard only (its pods x4 at K = 2048), all
+               512 existing columns owned by one shard (overcommitted ones
+               among them), K8 on the 2 x 4 host mesh against the flat 8,
+               and n = 1.  Integers equal, K8 bit for bit, K4's cost within
+               relative 1e-5.
+ 12. sharded paths — the megafleet (solve_partitioned on
+               `workloads.megafleet_problem(8)`, 1 000 000 pods: decode=False,
+               decode=True, device_decode=True), the headline through
+               solve_sharded on an 8-shard and a 2 x 4 mesh (decode off, and
+               on with 512 existing nodes), and the provision-sharded-50k-20k
+               cell through Provisioner(sharded_solve=True).provision, each
+               run with the launch counts zeroed just before it: every one
+               must reproduce GOLDEN_SHARDED (the JAX package's, on the CPU;
+               a psum'd cost within relative 1e-6), the shard-batched kernels
+               must have launched, the single-device scan only in the
+               megafleet's residual reconcile (once).  Then (after phase
+               11) warm p50s of each mode, the cell's round-2 split, the
+               device time of each shard-batched kernel beside n serial
+               single-device launches of the same shards, the five
+               programs (rows 13-17) held against their plain compositions
+               and timed, and the device idle share.
 
 Prints the kernel table as one JSON line (each row's `launches` from its
 own path, `launches_by_path` from every main path), the card's name and
-power limit, and last `{"ok": true, "device": {...}}`.
+power limit, and last `{"ok": true, "device": {...}}`.  A kernel's `ms` is
+its device time per call (`card_ms`: calls queued behind a spinning
+kernel, then CUDA events around them, so no host time falls between
+them), `host_ms` the CUDA-event time of back-to-back calls from the host
+(for a short kernel, the host's launch rate); a whole program's `ms` (rows
+7-8, 13-17) is CUDA-event time over the call, host work between its
+launches included.
 """
 
 from __future__ import annotations
@@ -362,6 +397,37 @@ def event_ms(torch, fn, iters):
         fn()
     b.record()
     torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def card_ms(torch, fn, iters, cycles=2e8):
+    """Device time of one call of `fn`: `iters` calls queued behind a
+    spinning kernel (`torch.cuda._sleep`, about 0.1 s), so the host
+    enqueues them while the card is busy and the card then runs them back
+    to back, timed by CUDA events around the queued calls.  `event_ms`
+    without the queue measures, for a short kernel, the host's launch
+    rate.  If the host took longer to enqueue than the card slept (a call
+    that synchronises), the spin doubles, up to three tries; past them the
+    time is logged as host-bound."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        s0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s0.record()
+        torch.cuda._sleep(int(cycles))
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        b.record()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host < 0.8 * s0.elapsed_time(a):
+            return a.elapsed_time(b) / iters
+        cycles *= 2
+    log(f"[time] card_ms: the host took {host:.3f} ms to enqueue {iters} "
+        f"calls, longer than the card slept: {a.elapsed_time(b) / iters:.4f}"
+        f" ms per call is host-bound")
     return a.elapsed_time(b) / iters
 
 
@@ -696,7 +762,8 @@ def sweep_bound(first):
 def sweep_call_times(torch, card, firsts):
     """CUDA-event time of each sweep probe family's first device call:
     K1 + K5 as the sweep runs them, and K5 alone, beside row 10's bound
-    and K1's plain version at the call's shapes.  Returns {family: K5 ms}."""
+    and K1's plain version at the call's shapes.  Returns {family: (K5's
+    device time, K5's back-to-back CUDA-event time), ms}."""
     from karpenter_tpu_torch.ops import classpack_kernels as ck
     from karpenter_tpu_torch.ops.classpack import \
         class_pack_sweep_kernel_packed
@@ -707,13 +774,16 @@ def sweep_call_times(torch, card, firsts):
         both = event_ms(torch, lambda: class_pack_sweep_kernel_packed(
             req, cb, packed, cap, alloc, price, rank, mb, pb, iopt, iused,
             K), 10)
-        k5_ms[name] = event_ms(torch, lambda: ck.classpack_sweep(*f["args"]),
-                               10)
+        k5_ms[name] = (card_ms(torch, lambda: ck.classpack_sweep(*f["args"]),
+                               10),
+                       event_ms(torch, lambda: ck.classpack_sweep(*f["args"]),
+                                10))
         k1_plain = event_ms(torch, lambda: ck.classpack_precompute_plain(
             req, cap, packed, alloc, price, rank), 1)
         bound, by = sweep_bound(f)
         log(f"[time] sweep call, {name} (B={cb.shape[0]}): K1+K5 "
-            f"{both:.4f} ms, K5 {k5_ms[name]:.4f} ms (CUDA events); bound "
+            f"{both:.4f} ms, K5 {k5_ms[name][1]:.4f} ms (CUDA events), K5 "
+            f"{k5_ms[name][0]:.4f} ms on the card (queued); bound "
             f"of row 10 {bound * 1e3:.3f} us ({by}); K1 plain "
             f"{k1_plain:.3f} ms on {card}")
     return k5_ms
@@ -722,12 +792,14 @@ def sweep_call_times(torch, card, firsts):
 def sweep_row(torch, card, first, ms, launches_by_path, err):
     """The kernel-table row of K5 at the tick's own call: the first
     binary-search frontier on the delete face at 500 candidates, timed
-    (`ms`) by `sweep_call_times`."""
+    (`ms`: device time, back-to-back host rate) by `sweep_call_times`."""
     from karpenter_tpu_torch.ops import classpack_kernels as ck
     args, low, cb = first["args"], first["low"], first["cb"]
+    ms, host_ms = ms
     plain_ms = event_ms(torch, lambda: ck.classpack_sweep_plain(*args), 1)
     bound_ms, bound_by = sweep_bound(first)
-    log(f"[kernel] classpack_sweep: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+    log(f"[kernel] classpack_sweep: {ms:.4f} ms on the card (back-to-back "
+        f"host rate {host_ms:.4f} ms; plain {plain_ms:.3f} ms, "
         f"library None, bound {bound_ms * 1e3:.3f} us by {bound_by}) at "
         f"B={cb.shape[0]} Cpad={low.req_p.shape[0]} "
         f"Opad={low.price_p.shape[0]} K={low.K} on {card}")
@@ -738,7 +810,8 @@ def sweep_row(torch, card, first, ms, launches_by_path, err):
                 path=SWEEP_PATH,
                 launches_by_path={p: c["classpack_sweep"]
                                   for p, c in launches_by_path.items()},
-                max_abs_err=err["classpack_sweep"], ms=ms, plain_ms=plain_ms,
+                max_abs_err=err["classpack_sweep"], ms=ms, host_ms=host_ms,
+                plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
@@ -753,9 +826,10 @@ def kernel_table(torch, card, shapes, launches_by_path, err):
     rows = []
 
     def row(name, replaces, fn, plain, library, nbytes, nops, iters):
-        ms = event_ms(torch, fn, iters)
+        ms = card_ms(torch, fn, iters)
+        host_ms = event_ms(torch, fn, iters)
         plain_ms = event_ms(torch, plain, 1)
-        lib_ms = event_ms(torch, library, iters) if library else None
+        lib_ms = card_ms(torch, library, iters) if library else None
         t_b, t_o = nbytes / MEM_BW * 1e3, nops / F32_PEAK * 1e3
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
@@ -763,11 +837,12 @@ def kernel_table(torch, card, shapes, launches_by_path, err):
             path=HEADLINE_PATH,
             launches_by_path={p: c[name]
                               for p, c in launches_by_path.items()},
-            max_abs_err=err[name], ms=ms,
+            max_abs_err=err[name], ms=ms, host_ms=host_ms,
             plain_ms=plain_ms, bound_ms=max(t_b, t_o),
             bound_by="bytes" if t_b >= t_o else "operations",
             library_ms=lib_ms))
-        log(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+        log(f"[kernel] {name}: {ms:.4f} ms on the card (back-to-back host "
+            f"rate {host_ms:.4f} ms; plain {plain_ms:.3f} ms, "
             f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
             f"bound {max(t_b, t_o) * 1e3:.3f} us by "
             f"{'bytes' if t_b >= t_o else 'operations'}) on {card}")
@@ -807,7 +882,9 @@ def kernel_table(torch, card, shapes, launches_by_path, err):
                                        s["n_open"], s["n_unsched"]),
         lambda: ck.classpack_aggregate_plain(s["slot_option"], s["price"],
                                              s["n_open"], s["n_unsched"]),
-        lambda: torch.bincount(opt, weights=w, minlength=O),
+        # bincount's weighted form, without its host sync (it reads the
+        # input's max back)
+        lambda: torch.zeros(O, device=w.device).scatter_add_(0, opt, w),
         K * 4 + O * 4 + 8 + (3 + O) * 4, K * 3, 50)
     return rows
 
@@ -1282,14 +1359,16 @@ def pdhg_row(torch, card, masters, ms, launches_by_path, err):
     args = (*case["ops"], case["eps"], case["iters_cap"],
             case["check_every"])
     plain_ms = event_ms(torch, lambda: lk.pdhg_plain(*args), 1)
+    dev_ms = card_ms(torch, lambda: lk.pdhg(*args), 1)
     K = torch.cat([case["ops"][0], case["ops"][2]], dim=1)
     z = torch.ones(K.shape[0], K.shape[1], 1, device=K.device)
     x = torch.ones(K.shape[0], K.shape[2], 1, device=K.device)
-    pair = event_ms(torch, lambda: (torch.bmm(K.transpose(1, 2), z),
-                                    torch.bmm(K, x)), 50)
+    pair = card_ms(torch, lambda: (torch.bmm(K.transpose(1, 2), z),
+                                   torch.bmm(K, x)), 50)
     library_ms = pair * it
     bound_ms, bound_by = pdhg_bound(case, it)
-    log(f"[kernel] pdhg: {ms['headline']:.3f} ms (plain {plain_ms:.3f} ms, "
+    log(f"[kernel] pdhg: {dev_ms:.3f} ms on the card (CUDA events "
+        f"{ms['headline']:.3f} ms; plain {plain_ms:.3f} ms, "
         f"library {library_ms:.3f} ms = {pair:.4f} ms bmm pair x {it}, "
         f"bound {bound_ms:.3f} ms by {bound_by}) on {card}")
     return dict(name="pdhg", route="cuda",
@@ -1299,7 +1378,7 @@ def pdhg_row(torch, card, masters, ms, launches_by_path, err):
                 path=DEVICE_LP_PATH,
                 launches_by_path={p: c.get("pdhg", 0)
                                   for p, c in launches_by_path.items()},
-                max_abs_err=err["pdhg"], ms=ms["headline"],
+                max_abs_err=err["pdhg"], ms=dev_ms, host_ms=ms["headline"],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
 
@@ -1477,9 +1556,10 @@ class captured:
         setattr(self.module, self.name, self.orig)
 
 
-def fresh_env(env, cell, catalog, device):
+def fresh_env(env, cell, catalog, device, **extra):
     """An independent copy of a cell's live state: the cluster copied
-    object by object, a new fake cloud, provider and Provisioner."""
+    object by object, a new fake cloud, provider and Provisioner (with
+    `extra` options, e.g. the sharded cell's mesh)."""
     from karpenter_tpu_torch import convert, workloads
     from karpenter_tpu_torch.api.objects import NodePool
     from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
@@ -1488,7 +1568,7 @@ def fresh_env(env, cell, catalog, device):
     provider = CloudProvider(cloud, catalog)
     cluster = convert.cluster_from_objects(env.cluster)
     prov = Provisioner(provider, cluster, [NodePool()], device=device,
-                       **workloads.PROVISION_CELLS[cell][0])
+                       **workloads.PROVISION_CELLS[cell][0], **extra)
     return workloads.ProvisionEnv(cloud, provider, cluster, prov)
 
 
@@ -1539,7 +1619,8 @@ def provision_cells(torch, card, device="cuda"):
     # live cell's guided round 1 to another plan of the same LP
     clear_lp_caches()
     by_path, slabs, programs, scans = {}, {}, {}, {}
-    for cell, (_, rounds) in workloads.PROVISION_CELLS.items():
+    for cell in workloads.GOLDEN_PROVISION:     # the sharded cell: phase 12
+        rounds = workloads.PROVISION_CELLS[cell][1]
         health, dh = SolverHealth(), DecodeHealth()
         env = workloads.provision_env(cell, FakeCloud, CloudProvider, Cluster,
                                       Provisioner, NodePool, catalog,
@@ -1680,8 +1761,10 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
     for name, a in scans.items():
         if name.startswith(SMALL_PATH):
             got = compare_ffd_args(torch, name, a[:-1], a[-1])
+            ms = event_ms(torch, lambda: fk.ffd_scan(*a[:-1], a[-1]), 10)
             log(f"[ffd] {name}: P={a[0].shape[0]} K={a[-1]} "
-                f"n_open={int(got[3])} -> equal to plain")
+                f"n_open={int(got[3])} -> equal to plain; K7 {ms:.4f} ms "
+                f"(CUDA events) on {card}")
 
     def paths(name):
         return {p: c.get(name, 0) for p, c in by_path.items()}
@@ -1697,15 +1780,20 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
              "karpenter_tpu/ops/classpack.py:301")):
         assignment, K = slabs[key]
         n = assignment.shape[0]
-        ms = event_ms(torch, lambda: ck.classpack_slab(assignment, K), 20)
+        ms = card_ms(torch, lambda: ck.classpack_slab(assignment, K), 20)
+        host_ms = event_ms(torch, lambda: ck.classpack_slab(assignment, K),
+                           20)
         plain_ms = event_ms(torch, lambda: ck.classpack_slab_plain(
             assignment, K), 3)
 
         def lib():
             key_ = torch.where(assignment >= 0, assignment.to(torch.int32), K)
             torch.argsort(key_, stable=True)
-            torch.bincount(key_, minlength=K + 1)
-        lib_ms = event_ms(torch, lib, 20)
+            k64 = key_.long()
+            torch.zeros(K + 1, dtype=torch.int64,
+                        device=k64.device).scatter_add_(
+                0, k64, torch.ones_like(k64))
+        lib_ms = card_ms(torch, lib, 20)
         nbytes = n * assignment.element_size() + n * 4 + K * 4
         bound = nbytes / MEM_BW * 1e3
         if path == LIVE_PATH:
@@ -1715,10 +1803,12 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
                 replaces="karpenter_tpu/ops/classpack.py:280",
                 launches=by_path[LIVE_PATH]["classpack_slab"], path=LIVE_PATH,
                 launches_by_path=paths("classpack_slab"),
-                max_abs_err=err["classpack_slab"], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by="bytes", library_ms=lib_ms))
+                max_abs_err=err["classpack_slab"], ms=ms, host_ms=host_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=lib_ms))
         log(f"[kernel] classpack_slab ({key}, n={n}, K={K}): {ms:.4f} ms "
-            f"(plain {plain_ms:.4f} ms, library argsort+bincount "
+            f"on the card (back-to-back host rate {host_ms:.4f} ms; plain "
+            f"{plain_ms:.4f} ms, library argsort+scatter_add_ "
             f"{lib_ms:.4f} ms, bound {bound * 1e3:.3f} us by bytes) on {card}")
         # the whole slab program at the same inputs
         args = programs[key]
@@ -1745,8 +1835,8 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
             K3=event_ms(torch, lambda: ck.classpack_assign_decode(
                 takes, cnt, Ppad), 10))
         log(f"[kernel] {row_name} ({key}) by kernel: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in split.items()) + f", K6 {ms:.4f} ms "
-            f"(CUDA events) on {card}")
+            f"{k} {v:.4f} ms" for k, v in split.items()) + f" (CUDA events), "
+            f"K6 {ms:.4f} ms on the card on {card}")
         pbytes = sum(t.numel() * t.element_size()
                      for t in args[:9] if t is not None)
         pbytes += Ppad * 4 + Kp * 8 + 4
@@ -1768,7 +1858,8 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
     name = f"{FFD_PATH} round 1 solve 1"
     a = scans[name]
     args, K = a[:-1], a[-1]
-    ms = event_ms(torch, lambda: fk.ffd_scan(*args, K), 3)
+    ms = card_ms(torch, lambda: fk.ffd_scan(*args, K), 3)
+    host_ms = event_ms(torch, lambda: fk.ffd_scan(*args, K), 3)
     got = fk.ffd_scan(*args, K)
     plain_ms, want = once_ms(torch, lambda: fk.ffd_scan_plain(*args, K))
     for g, w, what in zip(got, want, ("assignment", "slot_option",
@@ -1778,7 +1869,8 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
     bound, by = ffd_bound(args, got)
     log(f"[kernel] ffd_scan ({name}: Ppad={args[0].shape[0]}, "
         f"Opad={args[7].shape[0]}, K={K}, n_open={int(got[3])}): "
-        f"{ms:.3f} ms (plain {plain_ms:.1f} ms, library None, bound "
+        f"{ms:.3f} ms on the card (CUDA events {host_ms:.3f} ms; plain "
+        f"{plain_ms:.1f} ms, library None, bound "
         f"{bound * 1e3:.3f} us by {by}) — equal to plain on {card}")
     # row 11: solve_ffd's scan is K7, one row for both
     rows.append(dict(
@@ -1786,8 +1878,659 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
         replaces="karpenter_tpu/ops/ffd.py:43",
         launches=by_path[FFD_PATH]["ffd_scan"], path=FFD_PATH,
         launches_by_path=paths("ffd_scan"), max_abs_err=err["ffd_scan"],
-        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
         library_ms=None))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the shard-batched kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+SHARDS = 8
+MEGA_PATH = "megafleet-8x125k"
+HEAD_SHARDED_PATH = "headline-sharded"
+CELL_PATH = "provision-sharded-50k-20k"
+# the kernels of the sharded main paths: every one must launch there
+SHARDED_STEPS = ("classpack_precompute_sharded", "classpack_scan_sharded")
+
+
+def shard_mesh(hosts=None):
+    from karpenter_tpu_torch.parallel import make_host_mesh, make_pod_mesh
+    if hosts:
+        return make_host_mesh(hosts, SHARDS // hosts,
+                              shards_per_device=SHARDS)
+    return make_pod_mesh(SHARDS, shards_per_device=SHARDS)
+
+
+def stacked(args, kind):
+    """A row 13-17 program's captured arguments in the shard-batched
+    kernels' form: dict(req, cnt, packed, cap — n × …, shared operands as
+    stride-0 views —, alloc, price, rank, iopt, iused, K, Ppad, hosts)."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    n = args[1].shape[0]
+    if kind in ("sharded_pack", "partitioned_pack"):
+        req, cnt, compat, cap, alloc, price, rank, K, mesh = args
+        if compat.dim() == 2:
+            packed = ck.pack_bits(compat)
+        else:
+            packed = ck.pack_bits(compat.reshape(-1, compat.shape[-1])
+                                  ).reshape(*compat.shape[:2], -1)
+        iopt = iused = Ppad = None
+    else:
+        (req, cnt, packed, cap, alloc, price, rank, iopt, iused, K, Ppad,
+         mesh) = args
+    if req.dim() == 2:
+        req = req.unsqueeze(0).expand(n, *req.shape)
+    if cap.dim() == 1:
+        cap = cap.unsqueeze(0).expand(n, *cap.shape)
+    if packed.dim() == 2:
+        packed = packed.unsqueeze(0).expand(n, *packed.shape)
+    return dict(req=req, cnt=cnt, packed=packed, cap=cap, alloc=alloc,
+                price=price, rank=rank, iopt=iopt, iused=iused, K=K,
+                Ppad=Ppad, hosts=mesh.hosts)
+
+
+def sharded_run(s, plain=False, emit=True):
+    """K1, K2, K3 (with emit), K4, K6 (with emit) and K8 on stacked shards,
+    through the wrappers or their plain versions.  Returns a dict."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    sfx = "_plain" if plain else ""
+
+    def f(name):
+        return getattr(ck, name + sfx)
+    out = {}
+    out["m"], out["ok"] = f("classpack_precompute_sharded")(
+        s["req"], s["cap"], s["packed"], s["alloc"], s["price"], s["rank"])
+    scan = f("classpack_scan_sharded")(
+        s["req"], s["cnt"], s["packed"], s["cap"], s["alloc"], s["price"],
+        out["m"], out["ok"], s["iopt"], s["iused"], s["K"], emit)
+    for k, v in zip(("slot_option", "slot_used", "n_open", "n_unsched",
+                     "takes"), scan):
+        out[k] = v
+    if emit:
+        out["assignment"] = f("classpack_assign_decode_sharded")(
+            out["takes"], s["cnt"], s["Ppad"])
+        out["order"], out["slot_counts"] = f("classpack_slab_sharded")(
+            out["assignment"], s["K"])
+    out["flat"] = f("classpack_aggregate_sharded")(
+        out["slot_option"], s["price"], out["n_open"], out["n_unsched"])
+    out["psum"] = f("shard_psum")(out["flat"], s["hosts"])
+    return out
+
+
+def serial_run(s, emit=True):
+    """The same shards as n serial launches of the single-device kernels
+    (the yardstick of the grid axis, never a path)."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    outs = []
+    for i in range(s["cnt"].shape[0]):
+        o = {}
+        cnt = s["cnt"][i].contiguous()
+        o["m"], o["ok"] = ck.classpack_precompute(
+            s["req"][i], s["cap"][i], s["packed"][i], s["alloc"], s["price"],
+            s["rank"])
+        scan = ck.classpack_scan(
+            s["req"][i], cnt, s["packed"][i], s["cap"][i], s["alloc"],
+            s["price"], o["m"], o["ok"],
+            None if s["iopt"] is None else s["iopt"][i],
+            None if s["iused"] is None else s["iused"][i], s["K"], emit)
+        for k, v in zip(("slot_option", "slot_used", "n_open", "n_unsched",
+                         "takes"), scan):
+            o[k] = v
+        if emit:
+            o["assignment"] = ck.classpack_assign_decode(o["takes"], cnt,
+                                                         s["Ppad"])
+            o["order"], o["slot_counts"] = ck.classpack_slab(
+                o["assignment"], s["K"])
+        o["flat"] = ck.classpack_aggregate(o["slot_option"], s["price"],
+                                           o["n_open"], o["n_unsched"])
+        outs.append(o)
+    return outs
+
+
+def compare_sharded(torch, name, s, err, emit=True):
+    """Every shard-batched kernel against its plain version (integers
+    equal, K4's float32 cost within REL_TOL, K8 bit for bit) and, shard for
+    shard, against n serial single-device launches (all bit for bit: the
+    same kernels at n = 1); K8 on the flat mesh and on 2 x 4 hosts."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    got = sharded_run(s, emit=emit)
+    want = sharded_run(s, plain=True, emit=emit)
+    ser = serial_run(s, emit=emit)
+    torch.cuda.synchronize()
+    for k in got:
+        g, w = got[k], want[k]
+        if k == "flat":
+            check(torch.equal(g[:, 1:], w[:, 1:]),
+                  f"K4 sharded counts differ from plain ({name})")
+            d = (g[:, 0].double() - w[:, 0].double()).abs()
+            ok = bool((d <= REL_TOL * w[:, 0].double().abs().clamp(
+                min=1e-30)).all())
+            check(ok, f"K4 sharded cost differs from plain ({name})")
+            err["classpack_aggregate_sharded"] = max(
+                err["classpack_aggregate_sharded"], float(d.max()))
+            continue
+        if k == "psum":
+            # K8 on the kernels' flat against its plain version, bit for bit
+            check(torch.equal(g, ck.shard_psum_plain(got["flat"],
+                                                     s["hosts"])),
+                  f"K8 differs from plain ({name})")
+            continue
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"sharded {k} differs from plain ({name})")
+    for i, o in enumerate(ser):
+        for k, v in o.items():
+            check(torch.equal(got[k][i], v),
+                  f"sharded {k} of shard {i} differs from the single-device "
+                  f"kernel ({name})")
+    flat = got["flat"]
+    n = s["cnt"].shape[0]
+    hosts = 2 if n % 2 == 0 else 1
+    flat8, flat24 = ck.shard_psum(flat, 1), ck.shard_psum(flat, hosts)
+    check(torch.equal(flat8, ck.shard_psum_plain(flat, 1))
+          and torch.equal(flat24, ck.shard_psum_plain(flat, hosts)),
+          f"K8 flat / {hosts} hosts differs from plain ({name})")
+    check(torch.equal(flat8[1:], flat24[1:]),
+          f"K8 integer fields differ between the flat and {hosts}-host "
+          f"meshes ({name})")
+    un = got["n_unsched"].tolist()
+    empty = int((s["cnt"].sum(1) == 0).sum())
+    log(f"[sharded] {name}: n={n} Cpad={s['req'].shape[1]} "
+        f"Opad={s['price'].shape[0]} K={s['K']} Ppad={s['Ppad']} empty "
+        f"shards {empty}, n_open {got['n_open'].tolist()}, n_unsched {un} "
+        f"-> K1-K4, K6, K8 equal to plain and to {n} single-device launches; "
+        f"K8 cost flat {float(flat8[0])!r} vs {hosts} hosts "
+        f"{float(flat24[0])!r} "
+        f"(bit-equal: {bool(flat8[0] == flat24[0])})")
+    return got
+
+
+def owned_by_one(head, ex, K):
+    """Row 14's inputs with every existing column owned by shard 0 (the
+    other shards see none), overcommitted ones among them."""
+    from karpenter_tpu_torch.ops.classpack import _upload
+    from karpenter_tpu_torch.ops.tensorize import pad_to
+    from karpenter_tpu_torch.parallel import sharded
+    mesh = shard_mesh()
+    n = SHARDS
+    (order, C, Cpad, R, O, E, Opad, requests, compat, alloc, price, rank,
+     node_cap, counts) = sharded._lower(head, mesh, ex["existing_alloc"],
+                                        ex["existing_compat"])
+    compat_sh = np.repeat(compat[None], n, axis=0)
+    compat_sh[1:, :, O:O + E] = False
+    init_opt = np.full((n, K), -1, np.int32)
+    init_used = np.zeros((n, K, R), np.int32)
+    init_opt[0, :E] = np.arange(O, O + E, dtype=np.int32)
+    init_used[0, :E] = np.ceil(ex["existing_used"]).astype(np.int32)
+    free0 = alloc[O:O + E] - init_used[0, :E]
+    dev = mesh.device
+    s = dict(req=_upload(requests, dev).unsqueeze(0).expand(n, Cpad, R),
+             cnt=_upload(counts, dev),
+             packed=_upload(np.packbits(compat_sh, axis=2), dev),
+             cap=_upload(node_cap, dev).unsqueeze(0).expand(n, Cpad),
+             alloc=_upload(alloc, dev), price=_upload(price, dev),
+             rank=_upload(rank, dev), iopt=_upload(init_opt, dev),
+             iused=_upload(init_used, dev), K=K,
+             Ppad=pad_to(int(counts.sum(1).max())), hosts=1)
+    return s, int((free0 < 0).any(axis=1).sum())
+
+
+def phase11(torch, caps, head, ex, err):
+    """Phase 11 on each path's real inputs (`caps`, recorded in phase 12's
+    counted runs: rows 13-17 and the cell's row 17 in both rounds) and on
+    seeded perturbations."""
+    from karpenter_tpu_torch.ops.tensorize import pad_to
+    cases = {}
+    for row, (kind, args) in caps.items():
+        cases[row] = stacked(args, kind)
+        compare_sharded(torch, f"{row} ({kind}, real)", cases[row], err,
+                        emit=not kind.endswith("pack"))
+    base = cases["row 17"]
+    # empty shards: two of the megafleet's shards given no pods
+    s = dict(base, cnt=base["cnt"].clone())
+    s["cnt"][[2, 5]] = 0
+    compare_sharded(torch, "row 17, shards 2 and 5 empty", s, err)
+    # slot exhaustion in one shard: shard 0's pods x4 at K = 2048
+    s = dict(base, cnt=base["cnt"].clone(), K=2048,
+             iopt=base["iopt"][:, :2048].contiguous(),
+             iused=base["iused"][:, :2048].contiguous())
+    s["cnt"][0] *= 4
+    s["Ppad"] = pad_to(int(s["cnt"].sum(1).max()))
+    got = compare_sharded(torch, "row 17, shard 0 x4 pods at K=2048", s,
+                          err)
+    un = got["n_unsched"].tolist()
+    check(un[0] > 0 and not any(un[1:]),
+          f"exhaustion case: expected shard 0 alone to run out, {un}")
+    # every existing column owned by shard 0, overcommitted ones included
+    s, neg = owned_by_one(head, ex, base["K"])
+    got = compare_sharded(torch, f"row 14, 512 existing owned by shard 0 "
+                                 f"({neg} with negative free space)", s, err)
+    check(neg > 0, "no existing node with negative free space")
+    # n = 1: the shard-batched kernels against the single-device ones
+    one = {k: (v[:1].contiguous() if k in ("req", "cnt", "packed", "cap",
+                                           "iopt", "iused") else v)
+           for k, v in base.items()}
+    compare_sharded(torch, "row 17, n = 1", one, err)
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the sharded paths, goldens, timings
+# ---------------------------------------------------------------------------
+
+def sharded_paths(torch, card, mega, head, ex, catalog):
+    """The three paths against GOLDEN_SHARDED, each solve with the launch
+    counts zeroed just before it and read just after, the arguments of the
+    programs recorded as they run.  Returns (launches by path, {case:
+    (program kind, arguments)}: rows 13-17 from the headline's 8-shard
+    mesh and the megafleet, and the cell's row 17 in each round)."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.api.objects import NodePool
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.ops.decode import DecodeHealth
+    from karpenter_tpu_torch.ops.health import SolverHealth
+    from karpenter_tpu_torch.parallel import driver, sharded
+    from karpenter_tpu_torch.parallel import solve_partitioned, solve_sharded
+    from karpenter_tpu_torch.state import Cluster
+    gold = workloads.GOLDEN_SHARDED
+    by_path, caps = {}, {}
+
+    def counted(path, fn, single_scans):
+        reset_all_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = all_launches()
+        by_path[path] = got
+        for k in SHARDED_STEPS:
+            check(got[k] >= 1, f"{k} never launched in {path}")
+        check(got["classpack_scan"] == single_scans,
+              f"{path}: the single-device scan launched "
+              f"{got['classpack_scan']} times, expected {single_scans}")
+        return res, wall, got
+
+    def same(path, got, want, psum):
+        check(got[0] == want[0], f"{path}: digest {got[0]} != golden "
+                                 f"{want[0]}")
+        if psum:
+            check(abs(got[1] - want[1]) <= workloads.PSUM_RTOL * want[1],
+                  f"{path}: cost {got[1]!r} vs golden {want[1]!r}")
+        else:
+            check(got[1] == want[1], f"{path}: total {got[1]!r} vs golden "
+                                     f"{want[1]!r}")
+        return "bit-equal" if got[1] == want[1] else \
+            f"rel {abs(got[1] - want[1]) / want[1]:.3g}"
+
+    mesh = shard_mesh()
+    with captured(driver, "_partitioned_pack") as p15, \
+            captured(driver, "_partitioned_assign_donate") as p16, \
+            captured(driver, "_partitioned_assign_slab_donate") as p17:
+        for mode, kw in workloads.MEGAFLEET_MODES.items():
+            path = f"{MEGA_PATH}-{mode}"
+            res, wall, got = counted(path, lambda: solve_partitioned(
+                mega, mesh=mesh, max_nodes_per_shard=workloads.MEGAFLEET_K,
+                **kw), 1)
+            ans = workloads.sharded_answer(mega, res)
+            how = same(path, ans, gold[MEGA_PATH][mode], mode == "aggregate")
+            log(f"[sharded] {path}: total {ans[1]!r} ({how} to the golden) "
+                f"in {wall:.3f} s (first run); launches "
+                f"{ {k: v for k, v in got.items() if v} }")
+    K = workloads.HEADLINE_SHARDED_K
+    with captured(sharded, "_sharded_pack") as p13, \
+            captured(sharded, "_sharded_assign") as p14:
+        for name, m in (("pods", mesh), ("hosts", shard_mesh(hosts=2))):
+            for decode in (False, True):
+                path = (f"{HEAD_SHARDED_PATH}-{name}-"
+                        f"{'decode' if decode else 'aggregate'}")
+                res, wall, got = counted(path, lambda: solve_sharded(
+                    head, m, max_nodes_per_shard=K, decode=decode,
+                    **(ex if decode else {})), 0)
+                ans = workloads.sharded_answer(head, res)
+                how = same(path, ans,
+                           gold[HEAD_SHARDED_PATH][(name, decode)],
+                           not decode)
+                log(f"[sharded] {path}: total {ans[1]!r} ({how} to the "
+                    f"golden) in {wall:.3f} s (first run); launches "
+                    f"{ {k: v for k, v in got.items() if v} }")
+    # the 8-shard mesh's calls come first
+    caps["row 13"] = ("sharded_pack", p13[0])
+    caps["row 14"] = ("sharded_assign", p14[0])
+    caps["row 15"] = ("partitioned_pack", p15[0])
+    caps["row 16"] = ("partitioned_assign", p16[0])
+    caps["row 17"] = ("partitioned_assign_slab", p17[0])
+    # the provisioning cell through the sharded rung
+    health, dh = SolverHealth(), DecodeHealth()
+    env = workloads.provision_env(CELL_PATH, FakeCloud, CloudProvider,
+                                  Cluster, Provisioner, NodePool, catalog,
+                                  health=health, decode_health=dh,
+                                  mesh=mesh)
+    for r, (kw, seed) in enumerate(workloads.PROVISION_CELLS[CELL_PATH][1]):
+        env.cluster.add_pods(workloads.build_pods(
+            rng=np.random.default_rng(seed), **kw))
+        if r == 1:
+            cell_timings(torch, card, env, catalog, mesh)
+        path = f"{CELL_PATH} round {r + 1}"
+        with captured(driver, "_partitioned_assign_slab_donate") as p17:
+            (sig, _), wall, got = counted(
+                path, lambda: workloads.provision_pending(env), 0)
+        check(sig == gold[CELL_PATH][r], f"{path}: {sig} != golden "
+                                         f"{gold[CELL_PATH][r]}")
+        check(got["classpack_slab_sharded"] == 1,
+              f"{path}: row 17 did not answer the round")
+        caps[path] = ("partitioned_assign_slab", p17[-1])
+        log(f"[sharded] {path}: {sig['launched']} launched, "
+            f"{sig['bound_new']} bound new / {sig['bound_existing']} "
+            f"existing, {sig['unschedulable']} unschedulable, total "
+            f"{sig['total_price']!r} in {wall:.3f} s (first run) — golden "
+            f"matches; launches { {k: v for k, v in got.items() if v} }")
+    check(not health.transitions and dh.total_failures == 0,
+          f"{CELL_PATH}: the ladder or the decode breaker booked a failure")
+    return by_path, caps
+
+
+def cell_timings(torch, card, env, catalog, mesh, iters=3):
+    """The cell's round 2, warm: Provisioner.solve p50 on the frozen state,
+    then whole provision() rounds on fresh copies with their split."""
+    batch = env.cluster.pending_pods()
+    prov = env.provisioner
+    prov.solve(batch)
+    torch.cuda.synchronize()
+    p50, xs = p50_ms(lambda: prov.solve(batch), iters,
+                     torch.cuda.synchronize)
+    log(f"[time] {CELL_PATH} round 2: Provisioner.solve warm p50 "
+        f"{p50:.3f} ms over {iters} ({', '.join(f'{x:.1f}' for x in xs)}) "
+        f"on {card}")
+    splits = [provision_layers(torch, fresh_env(env, CELL_PATH, catalog,
+                                                "cuda", mesh=mesh))
+              for _ in range(3)]
+    med = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    log(f"[time] {CELL_PATH} round 2: provision() p50 {med['total']:.3f} ms "
+        f"over 3 fresh copies (tensorize {med['tensorize']:.3f}, pack "
+        f"{med['pack']:.3f}, launch {med['launch']:.3f}) on {card}")
+
+
+def sharded_solve_timings(torch, card, mega, head, ex):
+    """Warm p50 of each solve_partitioned mode on the megafleet and of
+    solve_sharded on the headline, and the device idle share of the
+    megafleet slab solve."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.parallel import solve_partitioned, solve_sharded
+    sync = torch.cuda.synchronize
+    mesh = shard_mesh()
+    out = {}
+    for mode, kw in workloads.MEGAFLEET_MODES.items():
+        out[f"{MEGA_PATH} {mode}"] = p50_ms(lambda: solve_partitioned(
+            mega, mesh=mesh, max_nodes_per_shard=workloads.MEGAFLEET_K,
+            **kw), 3, sync)
+    K = workloads.HEADLINE_SHARDED_K
+    for name, m in (("pods", mesh), ("hosts", shard_mesh(hosts=2))):
+        for decode in (False, True):
+            out[f"{HEAD_SHARDED_PATH} {name} decode={decode}"] = p50_ms(
+                lambda: solve_sharded(head, m, max_nodes_per_shard=K,
+                                      decode=decode,
+                                      **(ex if decode else {})), 3, sync)
+    for k, (p50, xs) in out.items():
+        log(f"[time] {k}: warm p50 {p50:.3f} ms over {len(xs)} "
+            f"({', '.join(f'{x:.1f}' for x in xs)}) on {card}")
+    busy = device_busy(torch, lambda: solve_partitioned(
+        mega, mesh=mesh, max_nodes_per_shard=workloads.MEGAFLEET_K,
+        device_decode=True), iters=2)
+    log(f"[trace] {MEGA_PATH} slab solve: device busy "
+        f"{busy['device_ms']:.3f} of {busy['wall_ms']:.3f} ms wall per "
+        f"solve, idle share {busy['idle_share']:.4f}; by kernel "
+        f"{busy['by_kernel']} on {card}")
+    return out
+
+
+def sharded_bounds(s, got):
+    """(bytes, operations) of each shard-batched kernel at stacked inputs
+    `s` with its outputs `got`: inputs read once (a shared operand once),
+    outputs written once; K2's operations are the fit over each shard's
+    slots open at the end and the score over every option, per class."""
+    n, C, R = s["req"].shape
+    O, K = s["price"].shape[0], s["K"]
+    OB = s["packed"].shape[2]
+    Ppad = s["Ppad"] or 0
+
+    def nb(t, per_shard=True):
+        if t is None:
+            return 0
+        shared = t.dim() > 0 and t.stride(0) == 0
+        one = t[0] if (per_shard and t.dim() > 1) else t
+        return one.numel() * one.element_size() * (
+            1 if shared or not per_shard else n)
+    cat = O * R * 4 + O * 8
+    n_open = got["n_open"].cpu().numpy()
+    b = {}
+    b["classpack_precompute_sharded"] = (
+        nb(s["req"]) + nb(s["cap"]) + nb(s["packed"]) + cat + n * C * O * 5,
+        n * C * O * (2 * R + 4))
+    b["classpack_scan_sharded"] = (
+        nb(s["req"]) + nb(s["cnt"]) + nb(s["packed"]) + nb(s["cap"])
+        + n * C * O * 5 + O * (R * 4 + 4) + nb(s["iopt"]) + nb(s["iused"])
+        + n * (K * 4 + K * R * 4 + C * K * 4 + 8),
+        int(sum(C * (int(no) * (2 * R + 6) + O * 5) for no in n_open)))
+    b["classpack_assign_decode_sharded"] = (
+        n * (C * K * 4 + C * 4 + Ppad * (2 if K < 2**15 else 4)),
+        n * (C * K + Ppad * (int(math.log2(C)) + int(math.log2(K)) + 6)))
+    b["classpack_aggregate_sharded"] = (
+        n * (K * 4 + 8 + (3 + O) * 4) + O * 4, n * K * 3)
+    b["classpack_slab_sharded"] = (n * (Ppad * 2 + Ppad * 4 + K * 4),
+                                   n * Ppad * 4)
+    L = 3 + O
+    b["shard_psum"] = (n * L * 4 + L * 4, n * L)
+    return b
+
+
+def program_plain(torch, kind, s):
+    """A row 13-17 program composed of the plain versions of its kernels
+    on stacked inputs `s`, its outputs in the program's order."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    pack = kind.endswith("pack")
+    m, ok = ck.classpack_precompute_sharded_plain(
+        s["req"], s["cap"], s["packed"], s["alloc"], s["price"], s["rank"])
+    slot_option, _, n_open, n_unsched, takes = ck.classpack_scan_sharded_plain(
+        s["req"], s["cnt"], s["packed"], s["cap"], s["alloc"], s["price"], m,
+        ok, s["iopt"], s["iused"], s["K"], not pack)
+    if pack:
+        flat = ck.shard_psum_plain(ck.classpack_aggregate_sharded_plain(
+            slot_option, s["price"], n_open, n_unsched), s["hosts"])
+        return flat[0], flat[3:].to(torch.int32), flat[2].to(torch.int32)
+    a = ck.classpack_assign_decode_sharded_plain(takes, s["cnt"], s["Ppad"])
+    if kind == "partitioned_assign_slab":
+        return (*ck.classpack_slab_sharded_plain(a, s["K"]), slot_option,
+                n_unsched)
+    return a, slot_option, n_unsched
+
+
+def sharded_kernel_rows(torch, card, caps, cases, by_path, err):
+    """Device times of the shard-batched kernels at the megafleet's row-17
+    inputs (K4 and K8 at row 15's), beside their back-to-back CUDA-event
+    rates, bounds, plain versions, library calls and the same shards as n
+    serial single-device launches; then the five programs at their paths'
+    inputs, each held against its plain composition."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    from karpenter_tpu_torch.parallel import driver, sharded
+    s, s15 = cases["row 17"], cases["row 15"]
+    got = sharded_run(s)
+    got15 = sharded_run(s15, emit=False)
+    bounds = sharded_bounds(s, got)
+    b15 = sharded_bounds(s15, got15)
+    n = s["cnt"].shape[0]
+    src = "karpenter_tpu_torch/csrc/classpack.cu"
+    rows = []
+
+    def paths(name):
+        return {p: c.get(name, 0) for p, c in by_path.items()}
+
+    def serial(fn):
+        return lambda: [fn(i) for i in range(n)]
+
+    cnt_i = [s["cnt"][i].contiguous() for i in range(n)]
+    m, ok = got["m"], got["ok"]
+    takes, a = got["takes"], got["assignment"]
+    keyed = torch.where(a >= 0, a.to(torch.int32), s["K"])
+    flat_c = torch.cumsum(takes.reshape(n, -1), 1, dtype=torch.int32)
+    q = torch.arange(s["Ppad"], dtype=torch.int32,
+                     device=a.device).expand(n, -1).contiguous()
+    opt15 = got15["slot_option"].clamp(min=0).long()
+    w15 = (got15["slot_option"] >= 0).float()
+    O15 = s15["price"].shape[0]
+    spec = [
+        ("classpack_precompute_sharded", "karpenter_tpu/ops/classpack.py:75",
+         s, bounds,
+         lambda: ck.classpack_precompute_sharded(
+             s["req"], s["cap"], s["packed"], s["alloc"], s["price"],
+             s["rank"]),
+         lambda: ck.classpack_precompute_sharded_plain(
+             s["req"], s["cap"], s["packed"], s["alloc"], s["price"],
+             s["rank"]),
+         serial(lambda i: ck.classpack_precompute(
+             s["req"][i], s["cap"][i], s["packed"][i], s["alloc"],
+             s["price"], s["rank"])), None, 20, f"{MEGA_PATH}-slab"),
+        ("classpack_scan_sharded", "karpenter_tpu/ops/classpack.py:87", s,
+         bounds,
+         lambda: ck.classpack_scan_sharded(
+             s["req"], s["cnt"], s["packed"], s["cap"], s["alloc"],
+             s["price"], m, ok, None, None, s["K"], True),
+         lambda: ck.classpack_scan_sharded_plain(
+             s["req"], s["cnt"], s["packed"], s["cap"], s["alloc"],
+             s["price"], m, ok, None, None, s["K"], True),
+         serial(lambda i: ck.classpack_scan(
+             s["req"][i], cnt_i[i], s["packed"][i], s["cap"][i], s["alloc"],
+             s["price"], m[i], ok[i], None, None, s["K"], True)), None, 5,
+         f"{MEGA_PATH}-slab"),
+        ("classpack_assign_decode_sharded",
+         "karpenter_tpu/ops/classpack.py:228", s, bounds,
+         lambda: ck.classpack_assign_decode_sharded(takes, s["cnt"],
+                                                    s["Ppad"]),
+         lambda: ck.classpack_assign_decode_sharded_plain(takes, s["cnt"],
+                                                          s["Ppad"]),
+         serial(lambda i: ck.classpack_assign_decode(takes[i], cnt_i[i],
+                                                     s["Ppad"])),
+         lambda: torch.searchsorted(flat_c, q, right=True), 20,
+         f"{MEGA_PATH}-slab"),
+        ("classpack_aggregate_sharded", "karpenter_tpu/ops/classpack.py:169",
+         s15, b15,
+         lambda: ck.classpack_aggregate_sharded(
+             got15["slot_option"], s15["price"], got15["n_open"],
+             got15["n_unsched"]),
+         lambda: ck.classpack_aggregate_sharded_plain(
+             got15["slot_option"], s15["price"], got15["n_open"],
+             got15["n_unsched"]),
+         serial(lambda i: ck.classpack_aggregate(
+             got15["slot_option"][i], s15["price"], got15["n_open"][i],
+             got15["n_unsched"][i])),
+         lambda: torch.zeros((n, O15), device=w15.device).scatter_add_(
+             1, opt15, w15), 50, f"{MEGA_PATH}-aggregate"),
+        ("classpack_slab_sharded", "karpenter_tpu/ops/classpack.py:280", s,
+         bounds,
+         lambda: ck.classpack_slab_sharded(a, s["K"]),
+         lambda: ck.classpack_slab_sharded_plain(a, s["K"]),
+         serial(lambda i: ck.classpack_slab(a[i], s["K"])),
+         lambda: (torch.sort(keyed, dim=1, stable=True),
+                  torch.zeros((n, s["K"] + 1), dtype=torch.int64,
+                              device=a.device).scatter_add_(
+                      1, keyed.long(), torch.ones_like(keyed.long()))),
+         20, f"{MEGA_PATH}-slab"),
+        ("shard_psum", "karpenter_tpu/parallel/sharded.py:145", s15, b15,
+         lambda: ck.shard_psum(got15["flat"], 1),
+         lambda: ck.shard_psum_plain(got15["flat"], 1), None,
+         lambda: torch.sum(got15["flat"], dim=0), 50,
+         f"{MEGA_PATH}-aggregate"),
+    ]
+    for (name, replaces, sc, bnd, fn, plain, ser, lib, iters,
+         path) in spec:
+        ms = card_ms(torch, fn, iters)
+        host_ms = event_ms(torch, fn, iters)
+        plain_ms = event_ms(torch, plain, 1)
+        ser_ms = card_ms(torch, ser, iters) if ser else None
+        lib_ms = card_ms(torch, lib, iters) if lib else None
+        nbytes, nops = bnd[name]
+        t_b, t_o = nbytes / MEM_BW * 1e3, nops / F32_PEAK * 1e3
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=by_path[path][name], path=path,
+            launches_by_path=paths(name), max_abs_err=err[name], ms=ms,
+            host_ms=host_ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o),
+            bound_by="bytes" if t_b >= t_o else "operations",
+            library_ms=lib_ms, serial_ms=ser_ms))
+        log(f"[kernel] {name}: {ms:.4f} ms on the card for n={n} shards "
+            f"(back-to-back host rate {host_ms:.4f} ms; "
+            f"{'' if ser_ms is None else f'{n} serial single-device launches {ser_ms:.4f} ms, '}"
+            f"plain {plain_ms:.3f} ms, library "
+            f"{'None' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+            f"{max(t_b, t_o) * 1e3:.3f} us by "
+            f"{'bytes' if t_b >= t_o else 'operations'}) at Cpad="
+            f"{sc['req'].shape[1]} Opad={sc['price'].shape[0]} K={sc['K']} "
+            f"Ppad={sc['Ppad']} on {card}")
+    # the five programs (rows 13-17), whole, at their paths' inputs
+    progs = [
+        ("_sharded_pack", "karpenter_tpu/parallel/sharded.py:117",
+         sharded._sharded_pack, cases["row 13"], f"{HEAD_SHARDED_PATH}"
+         "-pods-aggregate", "classpack_aggregate_sharded"),
+        ("_sharded_assign", "karpenter_tpu/parallel/sharded.py:158",
+         sharded._sharded_assign, cases["row 14"],
+         f"{HEAD_SHARDED_PATH}-pods-decode",
+         "classpack_assign_decode_sharded"),
+        ("_partitioned_pack", "karpenter_tpu/parallel/driver.py:68",
+         driver._partitioned_pack, cases["row 15"],
+         f"{MEGA_PATH}-aggregate", "classpack_aggregate_sharded"),
+        ("_partitioned_assign", "karpenter_tpu/parallel/driver.py:100",
+         driver._partitioned_assign, cases["row 16"],
+         f"{MEGA_PATH}-decode", "classpack_assign_decode_sharded"),
+        ("_partitioned_assign_slab", "karpenter_tpu/parallel/driver.py:137",
+         driver._partitioned_assign_slab, cases["row 17"],
+         f"{MEGA_PATH}-slab", "classpack_slab_sharded"),
+    ]
+    rows_of = dict(_sharded_pack="row 13", _sharded_assign="row 14",
+                   _partitioned_pack="row 15", _partitioned_assign="row 16",
+                   _partitioned_assign_slab="row 17")
+    for name, replaces, fn, sc, path, marker in progs:
+        kind, args = caps[rows_of[name]]
+        ms = event_ms(torch, lambda: fn(*args), 5)
+        out = fn(*args)
+        plain_ms, want = once_ms(torch, lambda: program_plain(torch, kind,
+                                                              sc))
+        # integers equal; the float32 cost (K4's tree sum, then K8) within
+        # REL_TOL of the plain composition's
+        diff = 0.0
+        for g, w in zip(out, want):
+            d = float((g.double() - w.double()).abs().max())
+            if g.dtype.is_floating_point:
+                check(d <= REL_TOL * max(abs(float(w)), 1e-30),
+                      f"{name}: cost {float(g)!r} vs plain {float(w)!r}")
+            else:
+                check(g.dtype == w.dtype and torch.equal(g, w),
+                      f"{name}: an output differs from the plain programs")
+            diff = max(diff, d)
+        nbytes = sum(t.numel() * t.element_size() for t in args
+                     if isinstance(t, torch.Tensor)
+                     and not (t.dim() and t.stride(0) == 0))
+        nbytes += sum(t.numel() * t.element_size() for t in out)
+        bound = nbytes / MEM_BW * 1e3
+        rows.append(dict(
+            name=name, route="cuda",
+            source=("karpenter_tpu_torch/parallel/sharded.py"
+                    if "sharded" in replaces else
+                    "karpenter_tpu_torch/parallel/driver.py"),
+            replaces=replaces, launches=by_path[path][marker], path=path,
+            launches_by_path=paths(marker), max_abs_err=diff, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+            library_ms=None))
+        log(f"[kernel] {name} ({rows_of[name]}, {path}): {ms:.4f} ms (CUDA "
+            f"events; plain {plain_ms:.3f} ms, bound {bound * 1e3:.3f} us by "
+            f"bytes), max abs err {diff!r} against the plain programs on "
+            f"{card}")
+    cell_args = caps[f"{CELL_PATH} round 2"][1]
+    ms = event_ms(torch, lambda: driver._partitioned_assign_slab(*cell_args),
+                  5)
+    log(f"[kernel] _partitioned_assign_slab at {CELL_PATH} round 2 "
+        f"(Cpad={cell_args[0].shape[1]}, Opad={cell_args[4].shape[0]}, "
+        f"K={cell_args[9]}, Ppad={cell_args[10]}): {ms:.4f} ms on {card}")
     return rows
 
 
@@ -1830,6 +2573,22 @@ def main() -> int:
     rows.append(pdhg_row(torch, card, masters, pdhg_ms, by_path, err))
     rows.extend(provision_kernel_rows(torch, card, by_path, slabs,
                                       programs, scans, err))
+    # phases 11-12: the sharded paths (phase 12's counted runs first: they
+    # record the programs' arguments that phase 11 holds the kernels on)
+    from karpenter_tpu_torch import workloads
+    mega = workloads.megafleet_problem(workloads.MEGAFLEET_UNITS)
+    shard_paths, caps = sharded_paths(torch, card, mega, prob, ex, catalog)
+    by_path.update(shard_paths)
+    log(f"[sharded] phase 12 paths done "
+        f"({time.perf_counter() - t_start:.1f} s so far)")
+    cases = phase11(torch, caps, prob, ex, err)
+    log(f"[sharded] phase 11 done ({time.perf_counter() - t_start:.1f} s "
+        f"so far)")
+    sharded_solve_timings(torch, card, mega, prob, ex)
+    rows.extend(sharded_kernel_rows(torch, card, caps, cases, shard_paths,
+                                    err))
+    log(f"[sharded] phase 12 done ({time.perf_counter() - t_start:.1f} s "
+        f"so far); launches {shard_paths}")
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]
     check(not bad, f"the port loaded {bad}")

@@ -16,15 +16,18 @@ karpenter:designs/deprovisioning.md):
 The simulation is the class-granular packing solve: a probe family is 1-2
 calls of the K1 + K5 sweep kernels on a cached `SimulationArena`, and the
 one accepted action is re-validated by a decoded K1 + K2 + K3 solve with
-the survivors as pre-opened columns.  Every solve runs on `device` ("cuda"
-by default; "cpu" runs the kernels' plain versions and only when asked).
+the survivors as pre-opened columns — through the partitioned mesh driver
+(parallel/driver.py, shard-batched kernels) first when the ShardedSolve
+gate (`sharded_solve`) is on and the batch is shardable.  Every solve runs
+on `device` ("cuda" by default; "cpu" runs the kernels' plain versions and
+only when asked).
 
 The provider is read only through `get_instance_types()` and
 `node_classes`, as the reference reads it on this path.  Not ported yet
 (ROADMAP.md): `reconcile` / `execute` / rollback, drift, expiration,
 emptiness and gang preemption (they need the cloud provider and the
-terminator), the solver-health ladder and its watchdog, and the sharded,
-native and greedy simulation rungs; the options that select them raise
+terminator), the solver-health ladder and its watchdog, and the native
+and greedy simulation rungs; the options that select them raise
 NotImplementedError.  The reference's metric and span calls are left out.
 """
 
@@ -45,6 +48,7 @@ from ..ops.constraints import (LEVEL_REQUIRED_ONLY,
                                make_zone_feasibility)
 from ..ops.ffd import PackingResult
 from ..ops.tensorize import Problem, tensorize
+from ..parallel.driver import maybe_solve_partitioned
 from ..state.cluster import Cluster
 from ..utils.events import Event
 
@@ -152,7 +156,8 @@ def _cands_match(old: List["Candidate"], new: List["Candidate"]) -> bool:
 class DisruptionController:
     """The consolidation decision over cluster state.
 
-    The signature is the reference's plus `device`.  `sharded_solve`,
+    The signature is the reference's plus `device` and `mesh` (the
+    ShardedSolve gate's mesh; default `parallel.make_pod_mesh` on `device`).
     `health`, `watchdog_timeout_s > 0`, `gang_source` and `terminator`
     select parts that are not ported yet and raise NotImplementedError."""
 
@@ -177,16 +182,17 @@ class DisruptionController:
                  health=None,
                  watchdog_timeout_s: float = 0.0,
                  gang_source: Optional[Callable] = None,
-                 device="cuda"):
+                 device="cuda",
+                 mesh=None):
         unported = [name for name, on in (
-            ("sharded_solve", sharded_solve), ("health", health is not None),
+            ("health", health is not None),
             ("watchdog_timeout_s", watchdog_timeout_s > 0),
             ("gang_source", gang_source is not None),
             ("terminator", terminator is not None)) if on]
         if unported:
             raise NotImplementedError(
                 f"DisruptionController({', '.join(unported)}) is not ported "
-                f"yet — ROADMAP.md queue A ('disruption execution')")
+                f"yet — ROADMAP.md queue B ('disruption execution')")
         from ..utils.events import Recorder
         self.device = resolve_device(device)
         self.provider = provider
@@ -200,6 +206,8 @@ class DisruptionController:
         self.spot_min_flexibility = spot_min_flexibility
         self.lp_guide = lp_guide
         self.batched_sweep = batched_sweep
+        self.sharded_solve = sharded_solve
+        self.mesh = mesh
         self._arena_cache = None  # (fingerprint, SimulationArena)
         # (mutation_epoch, catalog_key, candidates, fingerprint) — skips the
         # O(nodes+pods) arena_fingerprint walk while the cluster is unchanged
@@ -366,23 +374,33 @@ class DisruptionController:
 
     def _simulate_pack(self, problem: Problem, node_list, alloc, used,
                        compat, decode: bool) -> PackingResult:
-        """Simulation solve.  The reference runs it under a degradation
-        ladder when `health` is set; the port has the ladder's healthy
-        top rung only (the class-granular solve)."""
-        return self._simulate_rung("jax", problem, node_list, alloc, used,
-                                   compat, decode)
+        """Simulation solve: the sharded gate → classpack, the reference's
+        healthy path.  The reference runs it under a degradation ladder
+        when `health` is set; the port has no ladder here (`health`
+        raises)."""
+        requested = "sharded" if (decode and self.sharded_solve) else "jax"
+        return self._simulate_rung(requested, problem, node_list, alloc,
+                                   used, compat, decode)
 
     def _simulate_rung(self, rung: str, problem: Problem, node_list,
                        alloc, used, compat, decode: bool) -> PackingResult:
         """One simulation attempt on one rung.  "jax" is the reference's
-        name for the class-granular classpack rung; the sharded, native and
-        greedy rungs are not ported."""
-        if rung != "jax":
+        name for the class-granular classpack rung; a sharded refusal falls
+        through to it inline (routing, not failure).  The native and greedy
+        rungs are not ported."""
+        if rung not in ("sharded", "jax"):
             raise NotImplementedError(
                 f"simulation rung {rung!r} is not ported yet — ROADMAP.md")
         ekw = dict(existing_alloc=alloc if len(node_list) else None,
                    existing_used=used if len(node_list) else None,
                    existing_compat=compat if len(node_list) else None)
+        if rung == "sharded":
+            result = maybe_solve_partitioned(
+                problem, path="disruption", max_nodes=2048,
+                node_list=node_list, mesh=self.mesh, device=self.device,
+                **ekw)
+            if result is not None:
+                return result
         return solve_classpack(
             problem, decode=decode,
             # the LPGuide gate covers THIS path too: a fresh replacement

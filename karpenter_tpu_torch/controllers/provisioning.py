@@ -8,7 +8,10 @@ provisioning loop the operator runs every batch window:
              pre-opened slots, and pack — relaxing soft constraints level by
              level while pods come back unschedulable;
   pack       down the degradation ladder (ops/health.py) when a SolverHealth
-             is wired: rung "jax" is the card (`_pick_solver`: the
+             is wired: rung "sharded" (the ShardedSolve gate) is the
+             partitioned mesh driver (parallel/driver.py, shard-batched
+             kernels), which refuses small or unshardable batches — they
+             fall to "jax" inline; rung "jax" is the card (`_pick_solver`: the
              class-granular `solve_classpack` with the LP guide and the
              DeviceDecode slab when gated on, or the pod-granular
              `solve_ffd` for batches of at most NATIVE_CUTOVER_ROWS rows
@@ -23,10 +26,12 @@ provisioning loop the operator runs every batch window:
              the ICE-masked catalog.
 
 The signature is the reference's plus `device` ("cuda" by default; "cpu"
-runs the kernels' plain versions and only when asked for).  Not ported yet
-(ROADMAP.md): `sharded_solve` and `gang_scheduling` raise
-NotImplementedError; the "native" rung raises as the reference's does on a
-host without its C++ library, so a failing "jax" solve lands on "greedy".
+runs the kernels' plain versions and only when asked for) and `mesh` (the
+ShardedSolve gate's mesh; default `parallel.make_pod_mesh` on `device`, one
+shard per visible card, where the reference reads `jax.devices()`).  Not
+ported yet (ROADMAP.md): `gang_scheduling` raises NotImplementedError; the
+"native" rung raises as the reference's does on a host without its C++
+library, so a failing "jax" solve lands on "greedy".
 The cluster's persistent arena is absent, so the live nodes are always
 gathered by `Cluster.tensorize_nodes` (the reference's bit-identical path).
 The reference's metrics, spans and chaos seam are left out.
@@ -41,9 +46,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
-from .._build import KernelError
 from ..api import labels as wk
 from ..api.objects import NodeClaim, NodePool, Pod, pool_view
 from ..api.requirements import IN, Requirement, Requirements
@@ -51,12 +54,15 @@ from ..api.resources import PODS, ResourceList
 from ..catalog.instancetype import effective_instance_type
 from ..cloud.provider import (CloudProvider, InsufficientCapacityError,
                               NodeClassNotFoundError)
-from ..ops.classpack import resolve_device, solve_classpack
+# DEVICE_FAULTS: faults of the card or of a kernel, raised past the ladder,
+# since its greedy rung would answer them with work on the host
+from ..ops.classpack import DEVICE_FAULTS, resolve_device, solve_classpack
 from ..ops.constraints import (MAX_LEVEL, find_batch_topology_violations,
                                has_soft_constraints, lower_pods,
                                make_zone_feasibility)
 from ..ops.ffd import NATIVE_CUTOVER_ROWS, NodeDecision, solve_ffd
 from ..ops.tensorize import Problem, tensorize
+from ..parallel.driver import maybe_solve_partitioned
 from ..state.cluster import Cluster
 from ..utils.events import Event
 from ..utils.provenance import (CAPACITY, ProvenanceRecord,
@@ -64,13 +70,6 @@ from ..utils.provenance import (CAPACITY, ProvenanceRecord,
 from ..utils.watchdog import WatchdogTimeout, run_with_deadline
 
 log = logging.getLogger("karpenter_tpu_torch.provisioning")
-
-# faults of the card or of a kernel: raised past the ladder, since its
-# greedy rung would answer them with work on the host
-DEVICE_FAULTS = tuple(t for t in (KernelError,
-                                  getattr(torch, "AcceleratorError", None),
-                                  torch.cuda.OutOfMemoryError)
-                      if t is not None)
 
 
 @dataclass
@@ -178,14 +177,11 @@ class Provisioner:
                  device_lp: bool = False,
                  lp_health=None,
                  gang_scheduling: bool = False,
-                 device="cuda"):
-        if sharded_solve:
-            raise NotImplementedError(
-                "sharded_solve (the partitioned driver) is not ported yet — "
-                "ROADMAP.md queue A, 'sharded driver'")
+                 device="cuda",
+                 mesh=None):
         if gang_scheduling:
             raise NotImplementedError(
-                "gang_scheduling is not ported yet — ROADMAP.md queue A, "
+                "gang_scheduling is not ported yet — ROADMAP.md queue B, "
                 "'gang scheduling'")
         self.device = resolve_device(device)
         self.provider = provider
@@ -198,6 +194,12 @@ class Provisioner:
         self.provenance = provenance
         self.max_nodes_per_round = max_nodes_per_round
         self.solver = solver
+        # ShardedSolve feature gate: partition fleet-scale batches over the
+        # mesh's shards (parallel/driver.py); maybe_solve_partitioned
+        # returns None for small/unshardable batches and the round falls
+        # through to the single-device path
+        self.sharded_solve = bool(sharded_solve)
+        self.mesh = mesh
         # degradation ladder (ops/health.py): None keeps the direct path;
         # watchdog_timeout_s > 0 arms a hard deadline per pack call
         self.health = health
@@ -252,7 +254,7 @@ class Provisioner:
         exceptions propagate — there is nothing below it.  A device fault
         (DEVICE_FAULTS) propagates from any rung and is not booked: the
         ladder must not move the card's work to the host."""
-        requested = "jax"
+        requested = "sharded" if self.sharded_solve else "jax"
         if self.health is None:
             return self._run_rung(requested, problem, existing)
         rung = self.health.active_rung(requested)
@@ -277,7 +279,9 @@ class Provisioner:
                 self.health.next_rung(rung) or "greedy")
 
     def _run_rung(self, rung: str, problem: Problem, existing):
-        """One pack attempt on one ladder rung."""
+        """One pack attempt on one ladder rung.  A sharded refusal
+        (maybe_solve_partitioned → None: batch too small/unshardable) is
+        routing, not failure — it falls through to the jax rung inline."""
         kw: Dict[str, object] = {}
         n_existing = 0
         if existing is not None:
@@ -285,11 +289,23 @@ class Provisioner:
             n_existing = len(node_list)
             kw = dict(existing_alloc=alloc, existing_used=used,
                       existing_compat=compat)
+        if rung == "sharded":
+            result = maybe_solve_partitioned(
+                problem, path="provisioning",
+                max_nodes=self.max_nodes_per_round,
+                device_decode=self.device_decode,
+                decode_health=self.decode_health, mesh=self.mesh,
+                device=self.device,
+                **(dict(kw, node_list=existing[0])
+                   if existing is not None else {}))
+            if result is not None:
+                return result
+            rung = "jax"
         if rung == "jax":
             solve = self._pick_solver(problem, n_existing=n_existing)
             return solve(problem, max_nodes=self.max_nodes_per_round, **kw)
-        if rung in ("sharded", "native"):
-            raise RuntimeError(f"the {rung} rung is not ported (ROADMAP.md)")
+        if rung == "native":
+            raise RuntimeError("the native rung is not ported (ROADMAP.md)")
         return solve_ffd(problem, max_nodes=self.max_nodes_per_round,
                          backend="numpy", **kw)
 

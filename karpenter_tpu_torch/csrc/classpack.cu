@@ -6,6 +6,22 @@
 //   class_pack_aggregate_kernel[_packed|_fresh] -> K1 + K2 + K4 classpack_aggregate
 //   class_pack_sweep_kernel                    -> K1 + K5 classpack_sweep
 //   class_pack_assign_slab_kernel[_fresh]      -> K1 + K2 + K3 + K6 classpack_slab
+// and the per-shard programs of the mesh drivers, parallel/sharded.py and
+// parallel/driver.py (rows 13-17 of PERF.md's table):
+//   _sharded_pack, _partitioned_pack            -> K1 + K2 + K4, then K8 shard_psum
+//   _sharded_assign, _partitioned_assign[_donate] -> K1 + K2 + K3
+//   _partitioned_assign_slab[_donate]           -> K1 + K2 + K3 + K6
+//
+// The shard axis.  shard_map runs n copies of the single-device program on
+// their own slices with the catalog replicated; here K1-K4 and K6 take a
+// shard count n and run it as one launch, the shard as a grid axis
+// (blockIdx.y, or one block per shard for the one-block kernels K2, K4 and
+// the scans of K3 and K6).  Shard s reads its inputs at base + s * stride
+// (ShardStrides; a stride of 0 shares one copy, as the replicated operands
+// of rows 13-14 are shared) and writes its own outputs and scratch at
+// base + s * (the output's size).  The single-device programs are the same
+// launches with n = 1.  Shards never exchange data: the flat aggregates are
+// summed afterwards by K8 in the mesh's reduction order.
 //
 // Plain C interface (each entry returns cudaError_t), loaded with ctypes.
 // Every launch goes on the caller's stream; nothing here synchronises or
@@ -26,6 +42,22 @@ namespace {
 constexpr int kBig = 1 << 30;
 constexpr float kScoreCap = 3.38e38f;  // ops/ffd.py SCORE_CAP as float32
 constexpr int kMaxR = 32;
+
+// Per-shard element strides of a shard-batched launch (see the header).
+// The host entries take them as an array of 8 long longs in this order, or
+// null for n = 1.
+struct ShardStrides {
+  long long req, cnt, compat, cap, m, ok, iopt, iused;
+};
+
+ShardStrides strides_from(const long long* ss) {
+  ShardStrides out = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (ss) {
+    out.req = ss[0]; out.cnt = ss[1]; out.compat = ss[2]; out.cap = ss[3];
+    out.m = ss[4]; out.ok = ss[5]; out.iopt = ss[6]; out.iused = ss[7];
+  }
+  return out;
+}
 
 __device__ __forceinline__ int floordiv(int a, int b) {
   // b > 0 always (requests <= 0 are masked out before dividing)
@@ -86,8 +118,8 @@ __device__ unsigned block_sum(unsigned v, unsigned* warp_buf) {
 // K1 classpack_precompute  (replaces ops/classpack.py class_pack_kernel
 // :75-85, the per-(class x option) precompute hoisted out of the scan)
 //
-// One block per class, threads stride over options.  m[c,o] = pods of class
-// c a fresh option-o node holds; ok[c,o] = launchable and compatible, then
+// One block per (class, shard), threads stride over options.  m[c,o] = pods
+// of class c a fresh option-o node holds; ok[c,o] = launchable and compatible, then
 // restricted to the class's best pool-weight rank.  Bound on this card:
 // bytes (it writes 5 bytes per (class, option) and does ~R integer divides
 // for each); the design reads each packed compat byte and each option row
@@ -98,12 +130,19 @@ __global__ void precompute_kernel(const int* __restrict__ req,
                                   const uint8_t* __restrict__ compat_packed,
                                   const int* __restrict__ alloc,
                                   const float* __restrict__ price,
-                                  const int* __restrict__ rank, int O, int R,
-                                  int OB, int* __restrict__ m_out,
+                                  const int* __restrict__ rank, int C, int O,
+                                  int R, int OB, ShardStrides ss,
+                                  int* __restrict__ m_out,
                                   uint8_t* __restrict__ ok_out) {
   __shared__ int s_req[kMaxR];
   __shared__ int s_best;
   const int c = blockIdx.x;
+  const long long sh = blockIdx.y;
+  req += sh * ss.req;
+  node_cap += sh * ss.cap;
+  compat_packed += sh * ss.compat;
+  m_out += sh * C * O;
+  ok_out += sh * C * O;
   if (threadIdx.x < R) s_req[threadIdx.x] = req[(size_t)c * R + threadIdx.x];
   if (threadIdx.x == 0) s_best = kBig;
   __syncthreads();
@@ -138,7 +177,8 @@ __global__ void precompute_kernel(const int* __restrict__ req,
 // state in-kernel)
 //
 // The scan is a sequential carry over classes, so it runs as ONE persistent
-// block of 1024 threads; thread t owns the S contiguous slots
+// block of 1024 threads per shard (n shards: n blocks on n SMs, the mesh's
+// copies side by side); thread t owns the S contiguous slots
 // [t*S, t*S+S) (S = ceil(K/1024), a template parameter so the per-slot fit
 // and take stay in registers).  Slot state (option, free[R]) lives in a
 // global scratch buffer that stays resident in L2 (K*R*4 = 229 KB at the
@@ -161,7 +201,7 @@ scan_kernel(const int* __restrict__ req, const int* __restrict__ counts,
             const uint8_t* __restrict__ ok_all,
             const int* __restrict__ init_option,
             const int* __restrict__ init_used, int C, int O, int R, int OB,
-            int K, int emit, int* __restrict__ slot_option,
+            int K, int emit, ShardStrides ss, int* __restrict__ slot_option,
             int* __restrict__ slot_free, int* __restrict__ slot_used,
             int* __restrict__ scalars, int* __restrict__ takes) {
   __shared__ unsigned s_warp[32];
@@ -172,6 +212,22 @@ scan_kernel(const int* __restrict__ req, const int* __restrict__ counts,
   __shared__ float s_score;
   const int t = threadIdx.x;
   const int k0 = t * S;
+  // this block's shard: its own inputs (or the shared copy, stride 0), its
+  // own slot state, scalars and takes
+  const long long sh = blockIdx.x;
+  req += sh * ss.req;
+  counts += sh * ss.cnt;
+  compat_packed += sh * ss.compat;
+  node_cap += sh * ss.cap;
+  m_all += sh * ss.m;
+  ok_all += sh * ss.ok;
+  if (init_option) init_option += sh * ss.iopt;
+  if (init_used) init_used += sh * ss.iused;
+  slot_option += sh * K;
+  slot_free += sh * K * R;
+  slot_used += sh * K * R;
+  scalars += 2 * sh;
+  takes += sh * (emit ? (long long)C * K : (long long)C);
 
   // ---- init state: closed slots, or the pre-opened existing columns ----
   unsigned opened = 0;
@@ -345,7 +401,8 @@ scan_kernel(const int* __restrict__ req, const int* __restrict__ counts,
 //
 // A multi-block inclusive int32 scan of the takes (tile scan, a one-block
 // scan of the tile sums that also scans the class counts, add-back), then
-// one thread per padded pod row.  Bound on this card: bytes (the takes are
+// one thread per padded pod row; each step with the shard as a grid axis
+// (blockIdx.y, one tile-sum block per shard).  Bound on this card: bytes (the takes are
 // read twice and the flat scan written once); the binary searches touch
 // one K-wide row each and stay in L2.
 // ---------------------------------------------------------------------------
@@ -354,9 +411,13 @@ constexpr int kTileItems = 4;
 constexpr int kTile = kTileThreads * kTileItems;
 
 __global__ void __launch_bounds__(kTileThreads)
-tile_scan_kernel(const int* __restrict__ x, long long n,
+tile_scan_kernel(const int* __restrict__ x, long long n, int n_tiles,
                  int* __restrict__ flat, int* __restrict__ tile_sums) {
   __shared__ unsigned s_warp[32];
+  const long long sh = blockIdx.y;
+  x += sh * n;
+  flat += sh * n;
+  tile_sums += sh * n_tiles;
   const long long base = (long long)blockIdx.x * kTile +
                          (long long)threadIdx.x * kTileItems;
   unsigned v[kTileItems];
@@ -377,9 +438,13 @@ tile_scan_kernel(const int* __restrict__ x, long long n,
 
 __global__ void __launch_bounds__(kTileThreads)
 tile_sums_kernel(int* __restrict__ tile_sums, int n_tiles,
-                 const int* __restrict__ counts, int C,
+                 const int* __restrict__ counts, long long cnt_ss, int C,
                  int* __restrict__ cnt_incl) {
   __shared__ unsigned s_warp[32];
+  const long long sh = blockIdx.x;
+  tile_sums += sh * n_tiles;
+  counts += sh * cnt_ss;
+  cnt_incl += sh * C;
   // exclusive scan of the tile sums, in place, in chunks with a carry
   unsigned carry = 0;
   for (int s0 = 0; s0 < n_tiles; s0 += blockDim.x) {
@@ -403,9 +468,13 @@ tile_sums_kernel(int* __restrict__ tile_sums, int n_tiles,
 }
 
 __global__ void add_back_kernel(int* __restrict__ flat, long long n,
+                                int n_tiles,
                                 const int* __restrict__ tile_off) {
+  const long long sh = blockIdx.y;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) flat[i] = wrap_add(flat[i], tile_off[i / kTile]);
+  if (i < n)
+    flat[sh * n + i] = wrap_add(flat[sh * n + i],
+                                tile_off[sh * n_tiles + i / kTile]);
 }
 
 template <typename OutT>
@@ -414,6 +483,10 @@ __global__ void decode_kernel(const int* __restrict__ flat,
                               int n_pods, OutT* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_pods) return;
+  const long long sh = blockIdx.y;
+  flat += sh * C * K;
+  cnt_incl += sh * C;
+  out += sh * n_pods;
   // class of row i: the first class whose inclusive count exceeds i; rows
   // past the last pod take class C-1 (jnp.repeat's total_repeat_length pad)
   int lo = 0, hi = C;
@@ -444,8 +517,8 @@ __global__ void decode_kernel(const int* __restrict__ flat,
 // K4 classpack_aggregate  (replaces ops/classpack.py
 // class_pack_aggregate_kernel :169-178)
 //
-// One block: an exact integer histogram of launched slots per option in
-// shared memory, and the float32 sum of their prices (thread partials, then
+// One block per shard: an exact integer histogram of launched slots per
+// option in shared memory, and the float32 sum of their prices (thread partials, then
 // a fixed-order tree, so the result is deterministic).  Output layout
 // [total_cost, n_open, n_unsched, nodes_per_option...] as float32.  Bound on
 // this card: bytes, and at 64 KB of input it is launch latency in practice.
@@ -456,10 +529,15 @@ __global__ void __launch_bounds__(kAggThreads)
 aggregate_kernel(const int* __restrict__ slot_option,
                  const float* __restrict__ price,
                  const int* __restrict__ n_open,
-                 const int* __restrict__ n_unsched, int K, int O,
-                 float* __restrict__ out) {
+                 const int* __restrict__ n_unsched, long long sc_ss, int K,
+                 int O, float* __restrict__ out) {
   extern __shared__ int s_hist[];
   __shared__ float s_part[kAggThreads];
+  const long long sh = blockIdx.x;
+  slot_option += sh * K;
+  n_open += sh * sc_ss;
+  n_unsched += sh * sc_ss;
+  out += sh * (3 + O);
   for (int o = threadIdx.x; o < O; o += blockDim.x) s_hist[o] = 0;
   __syncthreads();
   float acc = 0.0f;
@@ -782,8 +860,9 @@ sweep_kernel(const int* __restrict__ req, const int* __restrict__ counts_b,
 //      totals over keys;
 //   3. one thread per row: the scatter.
 // The reference sorts either the composite key * n + row or, past the int32
-// guard (K + 1) * n >= 2^31, argsort(key); both give this one order.  Bound
-// on this card: bytes (read the assignment once, write the order and the
+// guard (K + 1) * n >= 2^31, argsort(key); both give this one order.  Each
+// of the three launches takes the shard as a grid axis (blockIdx.y; one
+// scan block per shard).  Bound on this card: bytes (read the assignment once, write the order and the
 // counts once); at the main path's shapes the three launches' latency
 // dominates.
 // ---------------------------------------------------------------------------
@@ -795,6 +874,10 @@ __global__ void __launch_bounds__(kSlabChunk)
 slab_rank_kernel(const T* __restrict__ assignment, int n, int K,
                  int* __restrict__ row_rank, int* __restrict__ chunk_counts) {
   extern __shared__ int s_hist[];  // K + 1
+  const long long sh = blockIdx.y;
+  assignment += sh * n;
+  row_rank += sh * n;
+  chunk_counts += sh * gridDim.x * (long long)(K + 1);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   for (int k = t; k <= K; k += blockDim.x) s_hist[k] = 0;
   const int row = blockIdx.x * kSlabChunk + t;
@@ -828,6 +911,10 @@ __global__ void __launch_bounds__(1024)
 slab_scan_kernel(int* __restrict__ chunk_counts, int n_chunks, int K,
                  int* __restrict__ key_first, int* __restrict__ slot_counts) {
   __shared__ unsigned warp_buf[32];
+  const long long sh = blockIdx.x;
+  chunk_counts += sh * n_chunks * (long long)(K + 1);
+  key_first += sh * (K + 1);
+  slot_counts += sh * K;
   const int t = threadIdx.x;
   const int n_keys = K + 1;
   // per key: exclusive scan over chunks in place; the total to key_first
@@ -862,9 +949,15 @@ __global__ void slab_scatter_kernel(const T* __restrict__ assignment, int n,
                                     int K, const int* __restrict__ row_rank,
                                     const int* __restrict__ chunk_counts,
                                     const int* __restrict__ key_first,
-                                    int* __restrict__ order) {
+                                    int n_chunks, int* __restrict__ order) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
+  const long long sh = blockIdx.y;
+  assignment += sh * n;
+  row_rank += sh * n;
+  chunk_counts += sh * n_chunks * (long long)(K + 1);
+  key_first += sh * (K + 1);
+  order += sh * n;
   const int a = (int)assignment[row];
   const int key = a >= 0 ? a : K;
   const int chunk = row / kSlabChunk;
@@ -872,10 +965,40 @@ __global__ void slab_scatter_kernel(const T* __restrict__ assignment, int n,
         row_rank[row]] = row;
 }
 
+// ---------------------------------------------------------------------------
+// K8 shard_psum  (replaces the hierarchical jax.lax.psum of
+// parallel/sharded.py _sharded_pack :142-146 and parallel/driver.py
+// _partitioned_pack :90-91: `for ax in reversed(axes): psum(flat, ax)`)
+//
+// On one card the mesh's collective is this reduction of the n per-shard
+// flat vectors [cost, n_open, n_unsched, nodes per column...] (float32,
+// n = hosts x chips, host-major).  One thread per element j, in a fixed
+// order: the innermost mesh axis first — for each host h, the left fold
+// v[h,0] + v[h,1] + ... + v[h,chips-1] — then the left fold of the host
+// partials over h (a 1-D mesh is hosts = 1).  Every add is __fadd_rn, so
+// the result is deterministic and bit-equal to the plain version's adds in
+// the same order; the integer fields (all below 2^24) come out exact, the
+// float32 cost is a sum in this order.  Bound on this card: bytes (read
+// n x L floats once, write L), far below a launch's latency at n <= 8.
+// ---------------------------------------------------------------------------
+__global__ void shard_psum_kernel(const float* __restrict__ v, int hosts,
+                                  int chips, int L, float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= L) return;
+  float total = 0.0f;
+  for (int h = 0; h < hosts; ++h) {
+    const float* row = v + (size_t)h * chips * L + j;
+    float part = row[0];
+    for (int c = 1; c < chips; ++c) part = __fadd_rn(part, row[(size_t)c * L]);
+    total = h ? __fadd_rn(total, part) : part;
+  }
+  out[j] = total;
+}
+
 template <typename T>
-cudaError_t launch_slab(const T* assignment, int n, int K, int* row_rank,
-                        int* chunk_counts, int* key_first, int* order,
-                        int* slot_counts, cudaStream_t stream) {
+cudaError_t launch_slab(const T* assignment, int n_shards, int n, int K,
+                        int* row_rank, int* chunk_counts, int* key_first,
+                        int* order, int* slot_counts, cudaStream_t stream) {
   const int n_chunks = (n + kSlabChunk - 1) / kSlabChunk;
   const size_t smem = (size_t)(K + 1) * sizeof(int);
   if (smem > 48 * 1024) {
@@ -884,16 +1007,16 @@ cudaError_t launch_slab(const T* assignment, int n, int K, int* row_rank,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  slab_rank_kernel<T><<<n_chunks, kSlabChunk, smem, stream>>>(
+  slab_rank_kernel<T><<<dim3(n_chunks, n_shards), kSlabChunk, smem, stream>>>(
       assignment, n, K, row_rank, chunk_counts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  slab_scan_kernel<<<1, 1024, 0, stream>>>(chunk_counts, n_chunks, K,
-                                           key_first, slot_counts);
+  slab_scan_kernel<<<n_shards, 1024, 0, stream>>>(chunk_counts, n_chunks, K,
+                                                  key_first, slot_counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  slab_scatter_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
-      assignment, n, K, row_rank, chunk_counts, key_first, order);
+  slab_scatter_kernel<T><<<dim3((n + 255) / 256, n_shards), 256, 0, stream>>>(
+      assignment, n, K, row_rank, chunk_counts, key_first, n_chunks, order);
   return cudaGetLastError();
 }
 
@@ -920,14 +1043,15 @@ cudaError_t launch_scan(const int* req, const int* counts,
                         const uint8_t* compat_packed, const int* node_cap,
                         const int* alloc, const float* price,
                         const int* m_all, const uint8_t* ok_all,
-                        const int* init_option, const int* init_used, int C,
-                        int O, int R, int OB, int K, int emit,
-                        int* slot_option, int* slot_free, int* slot_used,
-                        int* scalars, int* takes, cudaStream_t stream) {
-  scan_kernel<S><<<1, kScanThreads, 0, stream>>>(
+                        const int* init_option, const int* init_used, int n,
+                        int C, int O, int R, int OB, int K, int emit,
+                        ShardStrides ss, int* slot_option, int* slot_free,
+                        int* slot_used, int* scalars, int* takes,
+                        cudaStream_t stream) {
+  scan_kernel<S><<<n, kScanThreads, 0, stream>>>(
       req, counts, compat_packed, node_cap, alloc, price, m_all, ok_all,
-      init_option, init_used, C, O, R, OB, K, emit, slot_option, slot_free,
-      slot_used, scalars, takes);
+      init_option, init_used, C, O, R, OB, K, emit, ss, slot_option,
+      slot_free, slot_used, scalars, takes);
   return cudaGetLastError();
 }
 
@@ -942,38 +1066,44 @@ const char* kp_error_string(int err) {
 int kp_max_r() { return kMaxR; }
 int kp_max_slots() { return kScanThreads * 32; }
 
+// n shards (n = 1: the single-device program); ss: 8 per-shard strides in
+// ShardStrides order (req, compat and cap read here), or null for n = 1.
+// m_out / ok_out: n x C x O.
 cudaError_t kp_precompute(const int* req, const int* node_cap,
                           const uint8_t* compat_packed, const int* alloc,
-                          const float* price, const int* rank, int C, int O,
-                          int R, int* m_out, uint8_t* ok_out,
-                          cudaStream_t stream) {
-  if (R > kMaxR || C <= 0) return cudaErrorInvalidValue;
+                          const float* price, const int* rank, int n, int C,
+                          int O, int R, const long long* ss, int* m_out,
+                          uint8_t* ok_out, cudaStream_t stream) {
+  if (R > kMaxR || C <= 0 || n <= 0 || n > 65535) return cudaErrorInvalidValue;
   const int OB = (O + 7) / 8;
-  precompute_kernel<<<C, 256, 0, stream>>>(req, node_cap, compat_packed,
-                                           alloc, price, rank, O, R, OB,
-                                           m_out, ok_out);
+  precompute_kernel<<<dim3(C, n), 256, 0, stream>>>(
+      req, node_cap, compat_packed, alloc, price, rank, C, O, R, OB,
+      strides_from(ss), m_out, ok_out);
   return cudaGetLastError();
 }
 
 // init_option / init_used may be null: the all-closed (_fresh) init state
-// is then built in-kernel.  takes is C x K when emit, else C (per-class
-// sum of fills).  scalars receives [n_open, n_unsched].
+// is then built in-kernel.  n shards, one block each; ss as kp_precompute's
+// (all eight read here).  Outputs per shard: slot_option K, slot_free
+// (scratch) and slot_used K x R, scalars [n_open, n_unsched], takes C x K
+// when emit, else C (per-class sum of fills), each n times, shard-major.
 cudaError_t kp_scan(const int* req, const int* counts,
                     const uint8_t* compat_packed, const int* node_cap,
                     const int* alloc, const float* price, const int* m_all,
                     const uint8_t* ok_all, const int* init_option,
-                    const int* init_used, int C, int O, int R, int K,
-                    int emit, int* slot_option, int* slot_free,
-                    int* slot_used, int* scalars, int* takes,
+                    const int* init_used, int n, int C, int O, int R, int K,
+                    int emit, const long long* ss, int* slot_option,
+                    int* slot_free, int* slot_used, int* scalars, int* takes,
                     cudaStream_t stream) {
-  if (R > kMaxR || K <= 0 || C <= 0) return cudaErrorInvalidValue;
+  if (R > kMaxR || K <= 0 || C <= 0 || n <= 0) return cudaErrorInvalidValue;
   const int OB = (O + 7) / 8;
   const int S = (K + kScanThreads - 1) / kScanThreads;
+  const ShardStrides st = strides_from(ss);
 #define KP_SCAN(SS)                                                          \
   return launch_scan<SS>(req, counts, compat_packed, node_cap, alloc, price, \
-                         m_all, ok_all, init_option, init_used, C, O, R, OB, \
-                         K, emit, slot_option, slot_free, slot_used, scalars,\
-                         takes, stream)
+                         m_all, ok_all, init_option, init_used, n, C, O, R,  \
+                         OB, K, emit, st, slot_option, slot_free, slot_used, \
+                         scalars, takes, stream)
   if (S <= 1) KP_SCAN(1);
   if (S <= 2) KP_SCAN(2);
   if (S <= 4) KP_SCAN(4);
@@ -986,29 +1116,32 @@ cudaError_t kp_scan(const int* req, const int* counts,
 
 int kp_decode_tiles(long long n) { return (int)((n + kTile - 1) / kTile); }
 
-// takes: C x K int32.  flat: C*K scratch, tile_sums: kp_decode_tiles(C*K)
-// scratch, cnt_incl: C scratch.  out: n_pods of int16 (out_int16) or int32.
-cudaError_t kp_assign_decode(const int* takes, const int* counts, int C,
-                             int K, int n_pods, int out_int16, int* flat,
+// n shards.  takes: n x C x K int32; counts: shard s's at s * cnt_ss.
+// Scratch: flat n x C*K, tile_sums n x kp_decode_tiles(C*K), cnt_incl
+// n x C.  out: n x n_pods of int16 (out_int16) or int32.
+cudaError_t kp_assign_decode(const int* takes, const int* counts,
+                             long long cnt_ss, int n_sh, int C, int K,
+                             int n_pods, int out_int16, int* flat,
                              int* tile_sums, int* cnt_incl, void* out,
                              cudaStream_t stream) {
-  if (C <= 0 || K <= 0) return cudaErrorInvalidValue;
+  if (C <= 0 || K <= 0 || n_sh <= 0 || n_sh > 65535)
+    return cudaErrorInvalidValue;
   const long long n = (long long)C * K;
   const int n_tiles = kp_decode_tiles(n);
-  tile_scan_kernel<<<n_tiles, kTileThreads, 0, stream>>>(takes, n, flat,
-                                                         tile_sums);
+  tile_scan_kernel<<<dim3(n_tiles, n_sh), kTileThreads, 0, stream>>>(
+      takes, n, n_tiles, flat, tile_sums);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  tile_sums_kernel<<<1, kTileThreads, 0, stream>>>(tile_sums, n_tiles, counts,
-                                                   C, cnt_incl);
+  tile_sums_kernel<<<n_sh, kTileThreads, 0, stream>>>(
+      tile_sums, n_tiles, counts, cnt_ss, C, cnt_incl);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  add_back_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      flat, n, tile_sums);
+  add_back_kernel<<<dim3((unsigned)((n + 255) / 256), n_sh), 256, 0,
+                    stream>>>(flat, n, n_tiles, tile_sums);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (n_pods <= 0) return cudaSuccess;
-  const int blocks = (n_pods + 255) / 256;
+  const dim3 blocks((n_pods + 255) / 256, n_sh);
   if (out_int16)
     decode_kernel<int16_t><<<blocks, 256, 0, stream>>>(
         flat, cnt_incl, C, K, n_pods, static_cast<int16_t*>(out));
@@ -1018,10 +1151,12 @@ cudaError_t kp_assign_decode(const int* takes, const int* counts, int C,
   return cudaGetLastError();
 }
 
-// n_open / n_unsched: the scan's device scalars.  out: 3 + O floats.
+// n shards, one block each.  slot_option: n x K; n_open / n_unsched: the
+// scan's device scalars, shard s's at s * sc_ss.  out: n x (3 + O) floats.
 cudaError_t kp_aggregate(const int* slot_option, const float* price,
-                         const int* n_open, const int* n_unsched, int K,
-                         int O, float* out, cudaStream_t stream) {
+                         const int* n_open, const int* n_unsched,
+                         long long sc_ss, int n, int K, int O, float* out,
+                         cudaStream_t stream) {
   const size_t smem = (size_t)O * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1029,8 +1164,18 @@ cudaError_t kp_aggregate(const int* slot_option, const float* price,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  aggregate_kernel<<<1, kAggThreads, smem, stream>>>(
-      slot_option, price, n_open, n_unsched, K, O, out);
+  if (n <= 0) return cudaErrorInvalidValue;
+  aggregate_kernel<<<n, kAggThreads, smem, stream>>>(
+      slot_option, price, n_open, n_unsched, sc_ss, K, O, out);
+  return cudaGetLastError();
+}
+
+// v: hosts x chips x L floats (shard-major, host-major).  out: L floats.
+cudaError_t kp_shard_psum(const float* v, int hosts, int chips, int L,
+                          float* out, cudaStream_t stream) {
+  if (hosts <= 0 || chips <= 0 || L <= 0) return cudaErrorInvalidValue;
+  shard_psum_kernel<<<(L + 255) / 256, 256, 0, stream>>>(v, hosts, chips, L,
+                                                          out);
   return cudaGetLastError();
 }
 
@@ -1075,21 +1220,24 @@ cudaError_t kp_sweep(const int* req, const int* counts_b,
 
 int kp_slab_chunk() { return kSlabChunk; }
 
-// assignment: n int16 (is16) or int32 slots, -1 unplaced, each < K.
-// Scratch: row_rank n, chunk_counts ceil(n / kp_slab_chunk()) x (K + 1),
-// key_first K + 1.  Outputs: order n (rows stable-sorted by key = slot, or
-// K for unplaced rows), slot_counts K.
-cudaError_t kp_slab(const void* assignment, int is16, int n, int K,
+// n_sh shards of n rows each.  assignment: n_sh x n int16 (is16) or int32
+// slots, -1 unplaced, each < K.  Scratch per shard: row_rank n,
+// chunk_counts ceil(n / kp_slab_chunk()) x (K + 1), key_first K + 1.
+// Outputs per shard: order n (rows stable-sorted by key = slot, or K for
+// unplaced rows), slot_counts K.
+cudaError_t kp_slab(const void* assignment, int is16, int n_sh, int n, int K,
                     int* row_rank, int* chunk_counts, int* key_first,
                     int* order, int* slot_counts, cudaStream_t stream) {
-  if (n <= 0 || K <= 0 || (size_t)(K + 1) * sizeof(int) > 227 * 1024)
+  if (n <= 0 || K <= 0 || n_sh <= 0 || n_sh > 65535 ||
+      (size_t)(K + 1) * sizeof(int) > 227 * 1024)
     return cudaErrorInvalidValue;
   if (is16)
-    return launch_slab(static_cast<const int16_t*>(assignment), n, K,
+    return launch_slab(static_cast<const int16_t*>(assignment), n_sh, n, K,
                        row_rank, chunk_counts, key_first, order, slot_counts,
                        stream);
-  return launch_slab(static_cast<const int*>(assignment), n, K, row_rank,
-                     chunk_counts, key_first, order, slot_counts, stream);
+  return launch_slab(static_cast<const int*>(assignment), n_sh, n, K,
+                     row_rank, chunk_counts, key_first, order, slot_counts,
+                     stream);
 }
 
 }  // extern "C"

@@ -55,6 +55,14 @@ log = logging.getLogger("karpenter_tpu_torch.classpack")
 # concurrent misses overshoot the size caps
 _CACHE_LOCK = threading.Lock()
 
+# faults of the card or of a kernel: raised past every fallback (the
+# provisioning ladder, the partitioned driver's single-device escape),
+# since each would answer them with work elsewhere
+DEVICE_FAULTS = tuple(t for t in (KernelError,
+                                  getattr(torch, "AcceleratorError", None),
+                                  torch.cuda.OutOfMemoryError)
+                      if t is not None)
+
 
 # ---------------------------------------------------------------------------
 # The JAX package's device programs, composed from the kernels

@@ -1,8 +1,11 @@
 """Wrappers of the class-granular packing kernels (csrc/classpack.cu).
 
 Four kernels carry the class-granular solve, a fifth the batched
-consolidation sweep and a sixth the slab sort of the device decode; each
-wrapper here has
+consolidation sweep and a sixth the slab sort of the device decode; K1-K4
+and K6 also run shard-batched (one launch over the n shards of a mesh, the
+shard a grid axis: the `*_sharded` wrappers), and a seventh, K8
+`shard_psum`, sums the shards' flat aggregates in the mesh's reduction
+order.  Each wrapper here has
 
   * a plain PyTorch version of the same function (`*_plain`), which it
     runs ONLY when its tensors lie on the CPU — the CPU tests use it, and
@@ -22,6 +25,19 @@ wrapper here has
 | classpack_aggregate     | ops/classpack.py class_pack_aggregate_kernel :169-178  |
 | classpack_sweep         | ops/classpack.py class_pack_sweep_kernel :332-363      |
 | classpack_slab          | ops/classpack.py class_pack_assign_slab_kernel :280-297 |
+| classpack_*_sharded     | the same, under parallel/sharded.py and parallel/driver.py's shard_map (:117-191, :68-172) |
+| shard_psum              | the hierarchical psum of parallel/sharded.py :142-146 and parallel/driver.py :90-91 |
+
+A shard-batched wrapper takes its per-shard operands with a leading shard
+axis n: each a stack of contiguous shards, or one copy shared by every
+shard (an `expand`ed view, shard stride 0 — the replicated operands of
+rows 13-14); the catalog (alloc, price, rank) is always shared.  Its plain
+version is a loop over the shards of the single-device plain version.  The
+single-device wrappers launch the same kernels with n = 1, and each kind
+of launch has its own counter.  Only the port's own programs call the
+shard-batched wrappers, so operands that break their contract raise
+`ShardLayoutError`, a KernelError: the partitioned driver raises it
+instead of answering the batch on the single-device path.
 
 All integer math is int32 with the reference's semantics (floor division,
 two's complement wrap); the new-node score is float32.
@@ -30,6 +46,7 @@ two's complement wrap); the new-node score is float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -41,7 +58,10 @@ BIG = 2**30
 
 KERNELS = ("classpack_precompute", "classpack_scan",
            "classpack_assign_decode", "classpack_aggregate",
-           "classpack_sweep", "classpack_slab")
+           "classpack_sweep", "classpack_slab",
+           "classpack_precompute_sharded", "classpack_scan_sharded",
+           "classpack_assign_decode_sharded", "classpack_aggregate_sharded",
+           "classpack_slab_sharded", "shard_psum")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -63,26 +83,29 @@ def _lib() -> ctypes.CDLL:
         from .._build import load
         lib = load("classpack")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        llp = ctypes.POINTER(ll)
         lib.kp_error_string.argtypes = [i]
         lib.kp_error_string.restype = ctypes.c_char_p
         lib.kp_max_r.restype = i
         lib.kp_max_slots.restype = i
         lib.kp_decode_tiles.argtypes = [ll]
         lib.kp_decode_tiles.restype = i
-        lib.kp_precompute.argtypes = [p] * 6 + [i] * 3 + [p, p, p]
+        lib.kp_precompute.argtypes = [p] * 6 + [i] * 4 + [llp, p, p, p]
         lib.kp_precompute.restype = i
-        lib.kp_scan.argtypes = [p] * 10 + [i] * 5 + [p] * 5 + [p]
+        lib.kp_scan.argtypes = [p] * 10 + [i] * 6 + [llp] + [p] * 5 + [p]
         lib.kp_scan.restype = i
-        lib.kp_assign_decode.argtypes = [p, p, i, i, i, i, p, p, p, p, p]
+        lib.kp_assign_decode.argtypes = [p, p, ll] + [i] * 5 + [p] * 5
         lib.kp_assign_decode.restype = i
-        lib.kp_aggregate.argtypes = [p] * 4 + [i, i, p, p]
+        lib.kp_aggregate.argtypes = [p] * 4 + [ll, i, i, i, p, p]
         lib.kp_aggregate.restype = i
+        lib.kp_shard_psum.argtypes = [p, i, i, i, p, p]
+        lib.kp_shard_psum.restype = i
         lib.kp_sweep_max_slots.restype = i
         lib.kp_sweep_smem_max.restype = i
         lib.kp_sweep.argtypes = [p] * 12 + [i] * 5 + [p] * 4
         lib.kp_sweep.restype = i
         lib.kp_slab_chunk.restype = i
-        lib.kp_slab.argtypes = [p, i, i, i] + [p] * 5 + [p]
+        lib.kp_slab.argtypes = [p, i, i, i, i] + [p] * 5 + [p]
         lib.kp_slab.restype = i
         _LIB = lib
     return _LIB
@@ -189,7 +212,8 @@ def classpack_precompute(requests: torch.Tensor, node_cap: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.kp_precompute(
             _ptr(requests), _ptr(node_cap), _ptr(compat_packed), _ptr(alloc),
-            _ptr(price), _ptr(rank), C, O, R, _ptr(m), _ptr(ok), _stream(dev))
+            _ptr(price), _ptr(rank), 1, C, O, R, None, _ptr(m), _ptr(ok),
+            _stream(dev))
     _raise_on(err, "classpack_precompute")
     LAUNCHES["classpack_precompute"] += 1
     return m, ok
@@ -322,9 +346,9 @@ def classpack_scan(requests: torch.Tensor, counts: torch.Tensor,
         err = lib.kp_scan(
             _ptr(requests), _ptr(counts), _ptr(compat_packed), _ptr(node_cap),
             _ptr(alloc), _ptr(price), _ptr(m_all), _ptr(ok_all),
-            _ptr(init_option), _ptr(init_used), C, O, R, K, int(emit_takes),
-            _ptr(slot_option), _ptr(slot_free), _ptr(slot_used),
-            _ptr(scalars), _ptr(takes), _stream(dev))
+            _ptr(init_option), _ptr(init_used), 1, C, O, R, K,
+            int(emit_takes), None, _ptr(slot_option), _ptr(slot_free),
+            _ptr(slot_used), _ptr(scalars), _ptr(takes), _stream(dev))
     _raise_on(err, "classpack_scan")
     LAUNCHES["classpack_scan"] += 1
     return slot_option, slot_used, scalars[0], scalars[1], takes
@@ -389,7 +413,7 @@ def classpack_assign_decode(takes: torch.Tensor, counts: torch.Tensor,
     cnt_incl = torch.empty(C, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.kp_assign_decode(
-            _ptr(takes), _ptr(counts), C, K, int(n_pods), int(out16),
+            _ptr(takes), _ptr(counts), 0, 1, C, K, int(n_pods), int(out16),
             _ptr(flat), _ptr(tiles), _ptr(cnt_incl), _ptr(out), _stream(dev))
     _raise_on(err, "classpack_assign_decode")
     LAUNCHES["classpack_assign_decode"] += 1
@@ -431,7 +455,8 @@ def classpack_aggregate(slot_option: torch.Tensor, price: torch.Tensor,
     out = torch.empty(3 + O, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.kp_aggregate(_ptr(slot_option), _ptr(price), _ptr(n_open),
-                               _ptr(n_unsched), K, O, _ptr(out), _stream(dev))
+                               _ptr(n_unsched), 0, 1, K, O, _ptr(out),
+                               _stream(dev))
     _raise_on(err, "classpack_aggregate")
     LAUNCHES["classpack_aggregate"] += 1
     return out
@@ -635,10 +660,351 @@ def classpack_slab(assignment: torch.Tensor, max_nodes: int
     slot_counts = torch.empty(K, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.kp_slab(_ptr(assignment),
-                          int(assignment.dtype == torch.int16), n, K,
+                          int(assignment.dtype == torch.int16), 1, n, K,
                           _ptr(row_rank), _ptr(chunk_counts),
                           _ptr(key_first), _ptr(order), _ptr(slot_counts),
                           _stream(dev))
     _raise_on(err, "classpack_slab")
     LAUNCHES["classpack_slab"] += 1
     return order, slot_counts
+
+
+# ---------------------------------------------------------------------------
+# the shard-batched launches (rows 13-17) and K8 shard_psum
+# ---------------------------------------------------------------------------
+
+def _shard_stride(t: torch.Tensor, name: str, dtype: torch.dtype,
+                  shape) -> int:
+    """Element stride between the shards of `t` (n × …): a stack of
+    contiguous shards (stride = one shard's size) or one copy shared by
+    every shard (stride 0, an `expand`ed view)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    size = 1
+    for d in shape[1:]:
+        size *= int(d)
+    if not t[0].is_contiguous() or (shape[0] > 1
+                                    and t.stride(0) not in (0, size)):
+        raise ValueError(f"{name}: shards neither contiguous nor shared "
+                         f"(strides {t.stride()})")
+    return t.stride(0) if shape[0] > 1 else 0
+
+
+class ShardLayoutError(KernelLimitError, TypeError):
+    """A shard-batched wrapper was given operands that break its contract
+    (dtype, shape, shard layout, device).  Only the port's own programs
+    call these wrappers, so this is a fault of the port's lowering: a
+    KernelError, which the partitioned driver raises instead of answering
+    the batch on the single-device path.  It is also a TypeError and a
+    ValueError, the kinds the single-device wrappers raise."""
+
+
+def _shard_contract(fn):
+    """Raise every TypeError or ValueError of a shard-batched wrapper as a
+    ShardLayoutError (see there); kernel faults pass unchanged."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        except KernelError:
+            raise
+        except (TypeError, ValueError) as e:
+            raise ShardLayoutError(f"{fn.__name__}: {e}") from e
+    return run
+
+
+def _strides(*vals) -> ctypes.Array:
+    return (ctypes.c_longlong * 8)(*vals)
+
+
+def _check_shards(n: int) -> None:
+    if not 0 < n <= 65535:
+        raise KernelLimitError(f"{n} shards: a launch takes 1-65535")
+
+
+def classpack_precompute_sharded_plain(requests, node_cap, compat_packed,
+                                       alloc, price, rank):
+    outs = [classpack_precompute_plain(requests[s], node_cap[s],
+                                       compat_packed[s], alloc, price, rank)
+            for s in range(requests.shape[0])]
+    return (torch.stack([m for m, _ in outs]),
+            torch.stack([ok for _, ok in outs]))
+
+
+@_shard_contract
+def classpack_precompute_sharded(requests: torch.Tensor,
+                                 node_cap: torch.Tensor,
+                                 compat_packed: torch.Tensor,
+                                 alloc: torch.Tensor, price: torch.Tensor,
+                                 rank: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 over n shards in one launch: requests n×C×R, node_cap n×C,
+    compat_packed n×C×ceil(O/8) → (m n×C×O, ok n×C×O).  When every
+    per-shard operand is shared, so are the outputs: one shard is computed
+    and returned expanded over n (stride 0)."""
+    if not _on_cuda(requests, node_cap, compat_packed, alloc, price, rank):
+        return classpack_precompute_sharded_plain(
+            requests, node_cap, compat_packed, alloc, price, rank)
+    n, C, R = requests.shape
+    O = alloc.shape[0]
+    lib = _lib()
+    _check_shards(n)
+    if R > lib.kp_max_r():
+        raise KernelLimitError(
+            f"R={R} resource axes exceed the kernel's {lib.kp_max_r()}")
+    ss_req = _shard_stride(requests, "requests", torch.int32, (n, C, R))
+    ss_cap = _shard_stride(node_cap, "node_cap", torch.int32, (n, C))
+    ss_cmp = _shard_stride(compat_packed, "compat_packed", torch.uint8,
+                           (n, C, (O + 7) // 8))
+    _check(alloc, "alloc", torch.int32, (O, R))
+    _check(price, "price", torch.float32, (O,))
+    _check(rank, "rank", torch.int32, (O,))
+    shared = ss_req == ss_cap == ss_cmp == 0
+    n_run = 1 if shared else n
+    dev = requests.device
+    m = torch.empty((n_run, C, O), dtype=torch.int32, device=dev)
+    ok = torch.empty((n_run, C, O), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_precompute(
+            _ptr(requests), _ptr(node_cap), _ptr(compat_packed), _ptr(alloc),
+            _ptr(price), _ptr(rank), n_run, C, O, R,
+            _strides(ss_req, 0, ss_cmp, ss_cap, 0, 0, 0, 0), _ptr(m),
+            _ptr(ok), _stream(dev))
+    _raise_on(err, "classpack_precompute_sharded")
+    LAUNCHES["classpack_precompute_sharded"] += 1
+    return m.expand(n, C, O), ok.expand(n, C, O)
+
+
+def classpack_scan_sharded_plain(requests, counts, compat_packed, node_cap,
+                                 alloc, price, m_all, ok_all, init_option,
+                                 init_used, max_nodes: int, emit_takes: bool):
+    outs = [classpack_scan_plain(
+        requests[s], counts[s], compat_packed[s], node_cap[s], alloc, price,
+        m_all[s], ok_all[s], None if init_option is None else init_option[s],
+        None if init_used is None else init_used[s], max_nodes, emit_takes)
+        for s in range(counts.shape[0])]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(5))
+
+
+@_shard_contract
+def classpack_scan_sharded(requests: torch.Tensor, counts: torch.Tensor,
+                           compat_packed: torch.Tensor,
+                           node_cap: torch.Tensor, alloc: torch.Tensor,
+                           price: torch.Tensor, m_all: torch.Tensor,
+                           ok_all: torch.Tensor,
+                           init_option: Optional[torch.Tensor],
+                           init_used: Optional[torch.Tensor],
+                           max_nodes: int, emit_takes: bool = False):
+    """K2 over n shards in one launch, one block per shard: requests n×C×R,
+    counts n×C, compat_packed n×C×ceil(O/8), node_cap n×C, m_all / ok_all
+    n×C×O (K1's), init_option n×K / init_used n×K×R or None (all slots
+    closed).  Returns (slot_option n×K, slot_used n×K×R, n_open n,
+    n_unsched n, takes n×C×K when `emit_takes`, else n×C)."""
+    if (init_option is None) != (init_used is None):
+        raise ValueError("init_option and init_used come together")
+    if not _on_cuda(requests, counts, compat_packed, node_cap, alloc, price,
+                    m_all, ok_all, init_option, init_used):
+        return classpack_scan_sharded_plain(
+            requests, counts, compat_packed, node_cap, alloc, price, m_all,
+            ok_all, init_option, init_used, max_nodes, emit_takes)
+    n, C, R = requests.shape
+    O = alloc.shape[0]
+    K = int(max_nodes)
+    lib = _lib()
+    _check_shards(n)
+    if R > lib.kp_max_r() or not 0 < K <= lib.kp_max_slots():
+        raise KernelLimitError(
+            f"R={R} / K={K} outside the scan kernel's limits "
+            f"({lib.kp_max_r()} axes, {lib.kp_max_slots()} slots)")
+    st = [_shard_stride(requests, "requests", torch.int32, (n, C, R)),
+          _shard_stride(counts, "counts", torch.int32, (n, C)),
+          _shard_stride(compat_packed, "compat_packed", torch.uint8,
+                        (n, C, (O + 7) // 8)),
+          _shard_stride(node_cap, "node_cap", torch.int32, (n, C)),
+          _shard_stride(m_all, "m_all", torch.int32, (n, C, O)),
+          _shard_stride(ok_all, "ok_all", torch.uint8, (n, C, O)), 0, 0]
+    _check(alloc, "alloc", torch.int32, (O, R))
+    _check(price, "price", torch.float32, (O,))
+    if init_option is not None:
+        st[6] = _shard_stride(init_option, "init_option", torch.int32, (n, K))
+        st[7] = _shard_stride(init_used, "init_used", torch.int32, (n, K, R))
+    dev = requests.device
+    slot_option = torch.empty((n, K), dtype=torch.int32, device=dev)
+    slot_free = torch.empty((n, K, R), dtype=torch.int32, device=dev)
+    slot_used = torch.empty((n, K, R), dtype=torch.int32, device=dev)
+    scalars = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    takes = torch.empty((n, C, K) if emit_takes else (n, C),
+                        dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_scan(
+            _ptr(requests), _ptr(counts), _ptr(compat_packed), _ptr(node_cap),
+            _ptr(alloc), _ptr(price), _ptr(m_all), _ptr(ok_all),
+            _ptr(init_option), _ptr(init_used), n, C, O, R, K,
+            int(emit_takes), _strides(*st), _ptr(slot_option),
+            _ptr(slot_free), _ptr(slot_used), _ptr(scalars), _ptr(takes),
+            _stream(dev))
+    _raise_on(err, "classpack_scan_sharded")
+    LAUNCHES["classpack_scan_sharded"] += 1
+    return slot_option, slot_used, scalars[:, 0], scalars[:, 1], takes
+
+
+def classpack_assign_decode_sharded_plain(takes, counts, n_pods: int):
+    return torch.stack([classpack_assign_decode_plain(takes[s], counts[s],
+                                                      n_pods)
+                        for s in range(takes.shape[0])])
+
+
+@_shard_contract
+def classpack_assign_decode_sharded(takes: torch.Tensor, counts: torch.Tensor,
+                                    n_pods: int) -> torch.Tensor:
+    """K3 over n shards in one launch: per-pod slots n×n_pods (int16 when
+    K < 2^15, else int32) from the takes n×C×K and counts n×C."""
+    if not _on_cuda(takes, counts):
+        return classpack_assign_decode_sharded_plain(takes, counts, n_pods)
+    n, C, K = takes.shape
+    _check_shards(n)
+    _check(takes, "takes", torch.int32, (n, C, K))
+    cnt_ss = _shard_stride(counts, "counts", torch.int32, (n, C))
+    lib = _lib()
+    dev = takes.device
+    out16 = K < 2**15
+    out = torch.empty((n, n_pods),
+                      dtype=torch.int16 if out16 else torch.int32, device=dev)
+    flat = torch.empty((n, C * K), dtype=torch.int32, device=dev)
+    tiles = torch.empty((n, lib.kp_decode_tiles(C * K)), dtype=torch.int32,
+                        device=dev)
+    cnt_incl = torch.empty((n, C), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_assign_decode(
+            _ptr(takes), _ptr(counts), cnt_ss, n, C, K, int(n_pods),
+            int(out16), _ptr(flat), _ptr(tiles), _ptr(cnt_incl), _ptr(out),
+            _stream(dev))
+    _raise_on(err, "classpack_assign_decode_sharded")
+    LAUNCHES["classpack_assign_decode_sharded"] += 1
+    return out
+
+
+def classpack_aggregate_sharded_plain(slot_option, price, n_open, n_unsched):
+    return torch.stack([classpack_aggregate_plain(slot_option[s], price,
+                                                  n_open[s], n_unsched[s])
+                        for s in range(slot_option.shape[0])])
+
+
+@_shard_contract
+def classpack_aggregate_sharded(slot_option: torch.Tensor,
+                                price: torch.Tensor, n_open: torch.Tensor,
+                                n_unsched: torch.Tensor) -> torch.Tensor:
+    """K4 over n shards in one launch, one block per shard: float32
+    n×(3+O), each row [total_cost, n_open, n_unsched, nodes_per_option…]
+    of its shard (slot_option n×K; n_open, n_unsched: K2's n-vectors)."""
+    if not _on_cuda(slot_option, price, n_open, n_unsched):
+        return classpack_aggregate_sharded_plain(slot_option, price, n_open,
+                                                 n_unsched)
+    n, K = slot_option.shape
+    O = price.shape[0]
+    _check_shards(n)
+    _check(slot_option, "slot_option", torch.int32, (n, K))
+    _check(price, "price", torch.float32, (O,))
+    for t, name in ((n_open, "n_open"), (n_unsched, "n_unsched")):
+        if t.dtype != torch.int32 or tuple(t.shape) != (n,):
+            raise ValueError(f"{name}: expected int32 ({n},), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if n > 1 and n_open.stride(0) != n_unsched.stride(0):
+        raise ValueError("n_open and n_unsched: strides differ")
+    sc_ss = n_open.stride(0) if n > 1 else 0
+    lib = _lib()
+    dev = price.device
+    out = torch.empty((n, 3 + O), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_aggregate(_ptr(slot_option), _ptr(price), _ptr(n_open),
+                               _ptr(n_unsched), sc_ss, n, K, O, _ptr(out),
+                               _stream(dev))
+    _raise_on(err, "classpack_aggregate_sharded")
+    LAUNCHES["classpack_aggregate_sharded"] += 1
+    return out
+
+
+def classpack_slab_sharded_plain(assignment, max_nodes: int):
+    outs = [classpack_slab_plain(assignment[s], max_nodes)
+            for s in range(assignment.shape[0])]
+    return (torch.stack([o for o, _ in outs]),
+            torch.stack([c for _, c in outs]))
+
+
+@_shard_contract
+def classpack_slab_sharded(assignment: torch.Tensor, max_nodes: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 over n shards in one launch: (order n×rows int32, slot_counts n×K
+    int32) of K3's per-shard slots (`assignment` n×rows, int16 or int32)."""
+    if not _on_cuda(assignment):
+        return classpack_slab_sharded_plain(assignment, max_nodes)
+    K = int(max_nodes)
+    if assignment.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"assignment: dtype {assignment.dtype}, expected "
+                        f"int16 or int32")
+    if assignment.dim() != 2 or not assignment.is_contiguous():
+        raise ValueError("assignment: not a contiguous n × rows matrix")
+    n_sh, n = assignment.shape
+    _check_shards(n_sh)
+    if n == 0 or K <= 0:
+        raise ValueError(f"empty slab: n={n}, K={K}")
+    lib = _lib()
+    dev = assignment.device
+    chunks = -(-n // lib.kp_slab_chunk())
+    row_rank = torch.empty((n_sh, n), dtype=torch.int32, device=dev)
+    chunk_counts = torch.empty((n_sh, chunks, K + 1), dtype=torch.int32,
+                               device=dev)
+    key_first = torch.empty((n_sh, K + 1), dtype=torch.int32, device=dev)
+    order = torch.empty((n_sh, n), dtype=torch.int32, device=dev)
+    slot_counts = torch.empty((n_sh, K), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_slab(_ptr(assignment),
+                          int(assignment.dtype == torch.int16), n_sh, n, K,
+                          _ptr(row_rank), _ptr(chunk_counts),
+                          _ptr(key_first), _ptr(order), _ptr(slot_counts),
+                          _stream(dev))
+    _raise_on(err, "classpack_slab_sharded")
+    LAUNCHES["classpack_slab_sharded"] += 1
+    return order, slot_counts
+
+
+def shard_psum_plain(flat, hosts: int):
+    """The kernel's order: per host the left fold over its chips, then the
+    left fold of the host partials."""
+    n = flat.shape[0]
+    chips = n // hosts
+    total = None
+    for h in range(hosts):
+        part = flat[h * chips]
+        for c in range(1, chips):
+            part = part + flat[h * chips + c]
+        total = part if total is None else total + part
+    return total
+
+
+@_shard_contract
+def shard_psum(flat: torch.Tensor, hosts: int = 1) -> torch.Tensor:
+    """K8: the sum over the n shards of their flat float32 vectors
+    (`flat` n×L, shard-major, host-major over a (hosts × n/hosts) mesh),
+    reduced over the mesh's innermost axis (chips) first, then over hosts
+    — `for ax in reversed(axes): psum` on one card.  Returns L floats."""
+    n, L = flat.shape
+    if hosts <= 0 or n % hosts:
+        raise ValueError(f"{n} shards do not lay out over {hosts} hosts")
+    if not _on_cuda(flat):
+        return shard_psum_plain(flat, hosts)
+    _check(flat, "flat", torch.float32, (n, L))
+    if L == 0:
+        raise ValueError("empty flat vectors")
+    lib = _lib()
+    dev = flat.device
+    out = torch.empty(L, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.kp_shard_psum(_ptr(flat), hosts, n // hosts, L, _ptr(out),
+                                _stream(dev))
+    _raise_on(err, "shard_psum")
+    LAUNCHES["shard_psum"] += 1
+    return out

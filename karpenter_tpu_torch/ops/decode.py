@@ -1,9 +1,10 @@
 """Device decode (the DeviceDecode gate): columnar plan assembly from the
 slot slab.
 
-A copy of the single-device half of the JAX package's `ops/decode.py`.
-The slab is what `class_pack_assign_slab_kernel[_fresh]` emits (K1-K3, then
-K6 `classpack_slab` on the card):
+A copy of the JAX package's `ops/decode.py`.  The slab is what
+`class_pack_assign_slab_kernel[_fresh]` emits (K1-K3, then K6
+`classpack_slab` on the card), or per shard what the partitioned driver's
+`_partitioned_assign_slab` emits (the same kernels shard-batched):
 
     order        row ids stable-sorted by slot (unscheduled rows, then
                  padding, sort to the back under key=K)
@@ -19,16 +20,17 @@ same float total.
 slab-assembly failure falls back to host assembly over
 `slab_to_assignment` (no second kernel launch) and demotes the device path
 for a doubling backoff window.  The reference's metric and incident calls
-are left out; every transition is still logged and tallied.  The sharded
-assembler (`assemble_slab_sharded`, `merge_residual_used`) comes with the
-sharded driver (ROADMAP.md).
+are left out; every transition is still logged and tallied.
+`assemble_slab_sharded` is the mesh drivers' assembler over the shard-major
+stitched slabs, and `merge_residual_used` charges the mesh pass's
+existing-node fills before the residual reconcile.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -244,3 +246,108 @@ def assemble_slab_single(problem, order_idx, slot_counts, slot_option,
     return PackingResult(nodes=nodes, unschedulable=unschedulable,
                          existing_assignments=existing_assignments,
                          total_price=total)
+
+
+def assemble_slab_sharded(problem, pods_sorted, cls_sorted, node_slots,
+                          run, unsched_pods, slot_option, O: int, K: int):
+    """Sharded slab → (PackingResult, existing_used_add), bit-identical
+    to `parallel/sharded._assemble_plan` over the concatenated shard
+    rows.  The inputs are already globally slot-sorted: per-shard stable
+    sorts concatenated shard-major equal one global stable sort because
+    shard s's slot ids live in [s*K, (s+1)*K).
+
+    Parity notes:
+    - existing dict: node-major insertion in global slot order — one
+      `np.repeat` of the node mask over run lengths reproduces it.
+    - per-existing-node usage adds keep the legacy float32 `.sum(axis=0)`
+      expression verbatim (a per-EXISTING-node loop, bounded by the
+      cluster's node count, never pods).
+    - total price: legacy accumulates `total += float(price[oi])`
+      sequentially in float64; `np.cumsum` over float64 is the same left
+      fold, so the last element is bit-equal.
+    """
+    from .classpack import resolve_alternatives
+    from .ffd import NodeDecision, PackingResult
+
+    unschedulable = unsched_pods.tolist()
+    run = np.asarray(run, np.int64)
+    node_slots = np.asarray(node_slots, np.int64)
+    ends = np.cumsum(run)
+    starts = ends - run
+    node_shard = node_slots // K
+    node_local = node_slots % K
+    node_col = slot_option[node_shard, node_local].astype(np.int64)
+
+    existing_assignments: Dict[int, int] = {}
+    existing_used_add: Dict[int, np.ndarray] = {}
+    reqs_f = problem.class_requests
+    ex_mask = node_col >= O
+    if ex_mask.any():
+        row_ex = np.repeat(ex_mask, run)
+        eid_rows = np.repeat(node_col - O, run)
+        existing_assignments = dict(zip(pods_sorted[row_ex].tolist(),
+                                        eid_rows[row_ex].tolist()))
+        ex_idx = np.nonzero(ex_mask)[0]
+        s_l, e_l = starts[ex_idx].tolist(), ends[ex_idx].tolist()
+        eid_l = (node_col[ex_idx] - O).tolist()
+        for j in range(len(eid_l)):
+            add = reqs_f[cls_sorted[s_l[j]:e_l[j]]].sum(axis=0)
+            existing_used_add[eid_l[j]] = \
+                existing_used_add.get(eid_l[j], 0.0) + add
+
+    new_idx = np.nonzero(~ex_mask)[0]
+    oi_arr = node_col[new_idx]
+    reqs = problem.class_requests.astype(np.int64)
+    if len(starts):
+        used_all = np.add.reduceat(reqs[cls_sorted], starts, axis=0)
+        used_mat = used_all[new_idx]
+    else:
+        used_mat = np.zeros((0, reqs.shape[1]), np.int64)
+
+    # per-node class sets from one global unique over (node, class) pairs
+    # — feeds resolve_alternatives' content-digest memo (cls_keys), so the
+    # joint-compat AND only runs for memo misses
+    Cn = problem.num_classes
+    node_of_row = np.repeat(np.arange(len(node_slots), dtype=np.int64), run)
+    upq = (np.unique(node_of_row * (Cn + 1) + cls_sorted)
+           if len(cls_sorted) else np.zeros(0, np.int64))
+    unode, ucls = upq // (Cn + 1), upq % (Cn + 1)
+    cs = np.searchsorted(unode, new_idx, side="left").tolist()
+    ce = np.searchsorted(unode, new_idx, side="right").tolist()
+    ucls_l = ucls.tolist()
+    M = len(new_idx)
+    cls_keys = [tuple(ucls_l[cs[j]:ce[j]]) for j in range(M)]
+
+    oi_l = oi_arr.tolist()
+    resolved = resolve_alternatives(problem, oi_l, None, used_mat,
+                                    cls_keys=cls_keys)
+
+    price_new = problem.option_price[oi_arr]
+    total = (float(np.cumsum(price_new.astype(np.float64))[-1])
+             if len(oi_arr) else 0.0)
+    pods_l = pods_sorted.tolist()
+    s_l, e_l = starts[new_idx].tolist(), ends[new_idx].tolist()
+    nodes = []
+    for j in range(M):
+        alts, used_rl = resolved[j]
+        nodes.append(NodeDecision(
+            option=problem.options[oi_l[j]],
+            pod_indices=pods_l[s_l[j]:e_l[j]],
+            used=used_rl, alternatives=alts))
+    return PackingResult(nodes=nodes, unschedulable=unschedulable,
+                         existing_assignments=existing_assignments,
+                         total_price=total), existing_used_add
+
+
+def merge_residual_used(existing_used: Optional[np.ndarray],
+                        used_add: Dict[int, np.ndarray],
+                        E: int, R: int) -> np.ndarray:
+    """True leftovers for the residual reconcile: charge the mesh pass's
+    existing-node fills against each node's free space.  The per-eid loop
+    is bounded by the cluster's node count, never by pods."""
+    used2 = (existing_used.astype(np.float64).copy()
+             if existing_used is not None
+             else np.zeros((E, R), np.float64))
+    for eid in sorted(used_add):
+        used2[eid] += used_add[eid]
+    return used2

@@ -343,7 +343,7 @@ def solve_ffd(problem: Problem,
     or "auto"; "native" is not ported."""
     if backend == "native":
         raise NotImplementedError(
-            "the native C++ packer is not ported (ROADMAP.md queue A, "
+            "the native C++ packer is not ported (ROADMAP.md queue B, "
             "'native packer'); use backend='jax' or 'numpy'")
     if backend not in ("auto", "jax", "numpy"):
         raise ValueError(f"unknown backend {backend!r}")

@@ -8,9 +8,11 @@ a longer window.  The bottom rung never demotes.
 
 Two ladders use it: the packing ladder (`RUNGS`), which
 `Provisioner._pack_supervised` walks (sharded ──▶ jax ──▶ native ──▶
-greedy; the port's "sharded" and "native" rungs raise until they are
-ported, so a failing "jax" solve lands on the greedy host rung), and the LP
-ladder (`lp_ladder`: device_lp ──▶ highs).  The ladder state round-trips
+greedy; "sharded" is the partitioned mesh driver under the ShardedSolve
+gate, which hands small or unshardable batches to "jax" inline; the port's
+"native" rung raises, as the reference's does on a host without its C++
+library, so a failing "jax" solve lands on the greedy host rung; a device
+fault is raised past the ladder), and the LP ladder (`lp_ladder`: device_lp ──▶ highs).  The ladder state round-trips
 through `snapshot_state` / `restore_state`; `snapshot()` is the reference's
 deterministic /debug/health view.  The reference's metric, span and
 `solver_demotion` incident calls are left out; every transition is still

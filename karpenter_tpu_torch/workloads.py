@@ -23,6 +23,13 @@ batch positions, and `GOLDEN_PROVISION` holds the JAX package's signatures
 (tests/test_torch_provisioning.py), which `chip_smoke.py` checks on the
 card.
 
+The sharded paths (the ShardedSolve gate, parallel/): the zone-pinned
+provisioning cell `provision-sharded-50k-20k` (in `PROVISION_CELLS`),
+`megafleet_problem` (the reference bench's 1M-pod fleet) and the headline
+over an 8-shard mesh; `GOLDEN_SHARDED` holds the JAX package's results on
+them (tests/test_torch_partitioned.py), which `chip_smoke.py` checks on
+the card.
+
 `GOLDEN_GUIDED` is the digest of the headline's default, LP-guided solve
 (HiGHS restricted masters), and `lp_instance` / `GOLDEN_LP` are the
 refinery-shaped LP instances of the reference bench's LP A/B
@@ -502,6 +509,11 @@ PROVISION_ROUND2 = dict(spec_count=200, total=20_000, gpu_frac=0.05,
 PROVISION_ROUND2_SEED = 5
 PROVISION_SMALL = dict(spec_count=16, total=64)   # three bursts, rng(7 + r)
 PROVISION_SMALL_SEED = 7
+# the sharded cell's bursts: the live cell's, every spec pinned to a zone
+ZONE_PINNED = dict(HEADLINE, zone_frac=1.0)
+ZONE_PINNED_ROUND2 = dict(PROVISION_ROUND2, zone_frac=1.0)
+SHARDED_CELL = "provision-sharded-50k-20k"
+MESH_SHARDS = 8                           # every sharded path: 8 shards
 
 # cell -> (Provisioner options, rounds as (build_pods kwargs, seed))
 PROVISION_CELLS: Dict[str, Tuple[Dict, List[Tuple[Dict, int]]]] = {
@@ -525,6 +537,20 @@ PROVISION_CELLS: Dict[str, Tuple[Dict, List[Tuple[Dict, int]]]] = {
     "provision-ffd-50k": (
         dict(solver="ffd"),
         [(HEADLINE, HEADLINE_SEED)]),
+    # the ShardedSolve gate + DeviceDecode over an 8-shard mesh: a
+    # zone-pinned 50k burst on an empty cluster (row 17, three loaded
+    # shards), then 20k more against the live cluster (row 17 with each
+    # shard owning its zone's nodes).  4096 slots per shard: at the
+    # default 2048 round 1 fills zone-b's shard to exactly 2048 nodes, and
+    # round 2 then fails the driver's K > owned-nodes check and falls back
+    # to the single device.  The port's Provisioner takes the mesh as
+    # `mesh=` (the reference reads its 8 devices); the cell's golden is in
+    # GOLDEN_SHARDED
+    SHARDED_CELL: (
+        dict(sharded_solve=True, device_decode=True,
+             max_nodes_per_round=4096),
+        [(ZONE_PINNED, HEADLINE_SEED),
+         (ZONE_PINNED_ROUND2, PROVISION_ROUND2_SEED)]),
 }
 
 
@@ -634,3 +660,147 @@ GOLDEN_PROVISION: Dict[str, List[Dict]] = {
              unschedulable=26739, total_price=3571.827199999971),
     ],
 }
+
+
+# ---------------------------------------------------------------------------
+# the sharded paths: the megafleet and the headline over a mesh
+# ---------------------------------------------------------------------------
+
+MEGAFLEET_UNITS = 8                 # bench.py's `make bench-megafleet` n
+MEGAFLEET_UNIT_PODS = 125_000       # pods per unit: 8 units = 1 000 000
+MEGAFLEET_K = 4096                  # max_nodes_per_shard
+HEADLINE_SHARDED_K = 4096
+
+
+def megafleet_problem(n_units: int, pods_per_unit: int = MEGAFLEET_UNIT_PODS,
+                      free_frac: float = 0.005):
+    """A copy of the reference bench's `_megafleet_problem`, building the
+    port's Problem from the same arrays: n_units compat-disjoint zone
+    groups (2 zones × 2 types = 4 launch options and 64 pod classes each),
+    `pods_per_unit` pods per unit.  63 classes per unit are unit-pinned;
+    one class per unit (`free_frac` of its pods) is zone-free — compatible
+    with every option fleet-wide — the straddling residual the partitioned
+    driver reconciles.  Built directly as dense arrays (no pod objects)."""
+    from .ops.tensorize import LaunchOption, Problem
+    free = int(round(pods_per_unit * free_frac))
+    pinned = pods_per_unit - free
+    zones, options, alloc_rows, price_rows, zone_rows = [], [], [], [], []
+    req_rows, count_rows, class_unit = [], [], []
+    for u in range(n_units):
+        za, zb = f"z{u}a", f"z{u}b"
+        zones += [za, zb]
+        for zi, z in ((2 * u, za), (2 * u + 1, zb)):
+            for ti, (cpu, mem, price) in enumerate(
+                    ((128, 512, 1.0), (256, 1024, 1.9))):
+                options.append(LaunchOption(
+                    pool=f"pool-{u}", instance_type=f"mf-{ti}", zone=z,
+                    capacity_type="on-demand", price=price,
+                    type_index=ti, pool_index=u))
+                alloc_rows.append((cpu, mem))
+                price_rows.append(price)
+                zone_rows.append(zi)
+        for c in range(63):
+            cpu = (1, 2, 4)[c % 3]
+            req_rows.append((cpu, 4 * cpu))
+            count_rows.append(pinned // 63 + (1 if c < pinned % 63 else 0))
+            class_unit.append(u)
+        if free:
+            req_rows.append((2, 8))
+            count_rows.append(free)
+            class_unit.append(-1)  # fleet-wide compat → residual
+    O = len(options)
+    counts = np.asarray(count_rows, np.int32)
+    C = len(counts)
+    compat = np.zeros((C, O), bool)
+    for ci, u in enumerate(class_unit):
+        if u < 0:
+            compat[ci, :] = True
+        else:
+            compat[ci, 4 * u:4 * u + 4] = True
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    members = [np.arange(s, s + k, dtype=np.int64)
+               for s, k in zip(starts, counts)]
+    return Problem(
+        axes=("cpu", "memory"),
+        class_requests=np.asarray(req_rows, np.float32),
+        class_counts=counts, class_compat=compat, class_members=members,
+        options=options,
+        option_alloc=np.asarray(alloc_rows, np.float32),
+        option_price=np.asarray(price_rows, np.float32),
+        option_rank=np.zeros(O, np.int32),
+        class_node_cap=np.full(C, 2**30, np.int32),
+        option_zone=np.asarray(zone_rows, np.int32),
+        option_captype=np.zeros(O, np.int32),
+        zones=zones, pods=[], scales={"cpu": 1.0, "memory": 1.0})
+
+
+def aggregate_digest(nodes_per_option, unsched) -> str:
+    """sha256 of an aggregate (decode=False) mesh answer's integer part:
+    the nodes per option and the unschedulable count."""
+    h = hashlib.sha256(np.ascontiguousarray(nodes_per_option,
+                                            np.int64).tobytes())
+    h.update(b"|")
+    h.update(np.int64(unsched).tobytes())
+    return h.hexdigest()
+
+
+# The JAX package's answers on the sharded paths, on the CPU with 8 virtual
+# devices (tests/test_torch_partitioned.py and tests/test_torch_sharded.py
+# prove them; `python tests/test_torch_partitioned.py` prints them):
+#   SHARDED_CELL: per round, `provision_signature`;
+#   "megafleet-8x125k": solve_partitioned(megafleet_problem(8), 8 shards,
+#     max_nodes_per_shard=MEGAFLEET_K) per mode — "aggregate" (decode=False:
+#     aggregate_digest and the float32 psum'd cost), "decode" and "slab"
+#     (device_decode=True): plan_digest and total_price;
+#   "headline-sharded": solve_sharded(the headline problem, K =
+#     HEADLINE_SHARDED_K) on make_pod_mesh(8) ("pods") and make_host_mesh(2,
+#     4) ("hosts"), decode=False (aggregate_digest, cost) and decode=True
+#     with the HEADLINE_EXISTING existing nodes (plan_digest, total_price).
+# Integers are compared exactly; a float32 psum'd cost within relative 1e-6
+# (the mesh sums in another order), every other total by ==.
+GOLDEN_SHARDED: Dict[str, object] = {
+    SHARDED_CELL: [
+        dict(digest='4ece150e8a410748ea30b3bc8045081e'
+             'ad60c0d24256f235e25ed8553525c54b',
+             launched=4460, bound_new=50000, bound_existing=0,
+             unschedulable=0, total_price=5538.2941999998175),
+        dict(digest='2561a34104f2509280cefe1a74b69bec'
+             'ab58793477e73a94de9d79062f099e0b',
+             launched=2162, bound_new=18860, bound_existing=1140,
+             unschedulable=0, total_price=2177.512199999971),
+    ],
+    "megafleet-8x125k": {
+        "aggregate": ("b9e1e2a36fa9fe61f24273dcf37b575d"
+                      "4394ccc1c168d6ae026d07cf38e089aa", 17384.310546875),
+        "decode": ("7ab6eaacd642da454cec79f863fe0ef7"
+                   "865486df8ea3979330af5bbd39461ddf", 17384.299800872803),
+        "slab": ("7ab6eaacd642da454cec79f863fe0ef7"
+                 "865486df8ea3979330af5bbd39461ddf", 17384.299800872803),
+    },
+    "headline-sharded": {
+        ("pods", False): ("470ed7d3b4c924be19334623de11c08c"
+                          "3957383fc8b394ef00a543a498018f9e",
+                          4964.74462890625),
+        ("pods", True): ("c5ab003a4503f8fc670010ca3400c1fb"
+                         "ebb1aaa10971f8acdf7a9c7f572398b4",
+                         4838.299500770867),
+        ("hosts", False): ("470ed7d3b4c924be19334623de11c08c"
+                           "3957383fc8b394ef00a543a498018f9e",
+                           4964.74462890625),
+        ("hosts", True): ("c5ab003a4503f8fc670010ca3400c1fb"
+                          "ebb1aaa10971f8acdf7a9c7f572398b4",
+                          4838.299500770867),
+    },
+}
+MEGAFLEET_MODES = {"aggregate": dict(decode=False), "decode": {},
+                   "slab": dict(device_decode=True)}
+PSUM_RTOL = 1e-6
+
+
+def sharded_answer(problem, res) -> Tuple[str, float]:
+    """(digest, total) of a mesh solve's answer: `aggregate_digest` and the
+    cost of an aggregate (cost, nodes_per_option, unsched) tuple, or
+    `plan_digest` of a decoded PackingResult."""
+    if isinstance(res, tuple):
+        return aggregate_digest(res[1], res[2]), float(res[0])
+    return plan_digest(problem, res)

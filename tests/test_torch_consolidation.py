@@ -385,7 +385,8 @@ def test_controller_defaults_to_cuda_and_raises_without_it(monkeypatch):
                         f.provider.get_instance_types(), f.pools)
 
 
-@pytest.mark.parametrize("kw", [dict(sharded_solve=True),
+@pytest.mark.parametrize("kw", [dict(sharded_solve=True,
+                                     watchdog_timeout_s=1.0),
                                 dict(health=object()),
                                 dict(watchdog_timeout_s=5.0),
                                 dict(gang_source=lambda: None),

@@ -20,7 +20,7 @@ from karpenter_tpu_torch.ops import classpack as cp
 from karpenter_tpu_torch.ops import classpack_kernels as ck
 from karpenter_tpu_torch.ops.tensorize import tensorize
 from torch_cases import (CASES, SWEEP_CASES, make_case, make_sweep_case,
-                         random_lp, sweep_args)
+                         random_lp, stack_shards, sweep_args)
 
 REL_TOL = 1e-5
 
@@ -73,10 +73,10 @@ def test_cuda_kernels_match_plain(cuda_device, name):
     assert torch.equal(g[1:], w[1:])
     assert _close(g[0], w[0])
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"classpack_precompute": 1, "classpack_scan": 2,
+    assert ck.LAUNCHES == {**{k: 0 for k in ck.KERNELS},
+                           "classpack_precompute": 1, "classpack_scan": 2,
                            "classpack_assign_decode": 1,
-                           "classpack_aggregate": 1, "classpack_sweep": 0,
-                           "classpack_slab": 0}
+                           "classpack_aggregate": 1}
 
 
 @pytest.mark.cuda
@@ -450,3 +450,173 @@ def test_cuda_provision_small_cell_matches_the_golden(cuda_device):
             rng=np.random.default_rng(seed), **kw))
         assert sig == workloads.GOLDEN_PROVISION[cell][r]
         assert fk.LAUNCHES["ffd_scan"] >= 1
+
+
+# ---- the shard-batched kernels and the sharded paths (rows 13-17) ----
+
+def _sharded_all(s, K, Ppad, plain):
+    """K1-K4 and K6 shard-batched on the stacked shards `s`, through the
+    wrappers or (`plain`) their plain versions."""
+    sfx = "_plain" if plain else ""
+    f = {k: getattr(ck, k + sfx) for k in (
+        "classpack_precompute_sharded", "classpack_scan_sharded",
+        "classpack_assign_decode_sharded", "classpack_aggregate_sharded",
+        "classpack_slab_sharded")}
+    m, ok = f["classpack_precompute_sharded"](
+        s["req"], s["cap"], s["packed"], s["alloc"], s["price"], s["rank"])
+    scan = f["classpack_scan_sharded"](
+        s["req"], s["cnt"], s["packed"], s["cap"], s["alloc"], s["price"], m,
+        ok, s["iopt"], s["iused"], K, True)
+    a = f["classpack_assign_decode_sharded"](scan[4], s["cnt"], Ppad)
+    agg = f["classpack_aggregate_sharded"](scan[0], s["price"], scan[2],
+                                           scan[3])
+    slab = f["classpack_slab_sharded"](a, K)
+    return (m, ok, *scan, a, agg, *slab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["plain", "existing", "exhaustion_existing",
+                                  "caps_ranks", "full_classes"])
+def test_cuda_sharded_kernels_match_plain(cuda_device, name):
+    """K1-K4 and K6 over 4 shards (one empty, the class arrays shared)
+    equal their plain versions and, shard for shard, the single-device
+    kernels (K4 bit for bit); K8 equals its plain version bit for bit on a
+    flat and a 2 x 2 mesh."""
+    c = make_case(6, **CASES[name])
+    K, Ppad, n = c["K"], c["Ppad"], 4
+    s = stack_shards(c, n, np.random.default_rng(2), cuda_device)
+    ck.reset_launches()
+    got = _sharded_all(s, K, Ppad, plain=False)
+    torch.cuda.synchronize()
+    assert all(ck.LAUNCHES[k] == 1 for k in ck.KERNELS
+               if k.endswith("_sharded"))
+    want = _sharded_all(s, K, Ppad, plain=True)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 8:                      # K4: the float32 cost within 1e-5
+            assert torch.equal(g[:, 1:], w[:, 1:])
+            assert all(_close(a, b) for a, b in zip(g[:, 0], w[:, 0]))
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), i
+    for sh in range(n):
+        m1, ok1 = ck.classpack_precompute(s["req"][sh], s["cap"][sh],
+                                          s["packed"][sh], s["alloc"],
+                                          s["price"], s["rank"])
+        one = ck.classpack_scan(
+            s["req"][sh], s["cnt"][sh].contiguous(), s["packed"][sh],
+            s["cap"][sh], s["alloc"], s["price"], m1, ok1,
+            None if s["iopt"] is None else s["iopt"][sh],
+            None if s["iused"] is None else s["iused"][sh], K, True)
+        a1 = ck.classpack_assign_decode(one[4], s["cnt"][sh].contiguous(),
+                                        Ppad)
+        g1 = ck.classpack_aggregate(one[0], s["price"], one[2], one[3])
+        for g, w in zip((got[0][sh], got[1][sh], got[2][sh], got[3][sh],
+                         got[6][sh], got[7][sh], got[8][sh]),
+                        (m1, ok1, one[0], one[1], one[4], a1, g1)):
+            assert torch.equal(g, w)
+    flat = got[8]
+    for hosts in (1, 2):
+        k8 = ck.shard_psum(flat, hosts)
+        assert torch.equal(k8, ck.shard_psum_plain(flat, hosts))
+    assert ck.LAUNCHES["shard_psum"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_wrappers_refuse_bad_inputs(cuda_device):
+    c = make_case(3)
+    s = stack_shards(c, 2, np.random.default_rng(0), cuda_device)
+    ck.reset_launches()
+    # contract faults of the port's lowering: ShardLayoutError, a
+    # KernelError that is also the TypeError / ValueError it replaces
+    with pytest.raises(ck.ShardLayoutError) as got:
+        ck.classpack_precompute_sharded(s["req"].float(), s["cap"],
+                                        s["packed"], s["alloc"], s["price"],
+                                        s["rank"])
+    assert isinstance(got.value, TypeError)
+    with pytest.raises(ck.ShardLayoutError) as got:
+        ck.classpack_precompute_sharded(s["req"], s["cap"].cpu(),
+                                        s["packed"], s["alloc"], s["price"],
+                                        s["rank"])
+    assert isinstance(got.value, ValueError)
+    with pytest.raises(ck.ShardLayoutError):
+        ck.shard_psum(torch.zeros((3, 5), device=cuda_device), 2)
+    assert all(v == 0 for v in ck.LAUNCHES.values())
+
+
+def _sharded_launches_moved():
+    return all(ck.LAUNCHES[k] >= 1 for k in (
+        "classpack_precompute_sharded", "classpack_scan_sharded"))
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_paths_match_the_goldens(cuda_device):
+    """The megafleet (three modes) and the headline over a flat and a
+    2 x 4 mesh, 8 shards on the card, reproduce GOLDEN_SHARDED (the JAX
+    package's, on the CPU); the shard-batched kernels launched, and the
+    single-device scan only for the megafleet's residual reconcile."""
+    from karpenter_tpu_torch.parallel import (make_host_mesh, make_pod_mesh,
+                                              solve_partitioned,
+                                              solve_sharded)
+    n = workloads.MESH_SHARDS
+    gold = workloads.GOLDEN_SHARDED
+    prob = workloads.megafleet_problem(workloads.MEGAFLEET_UNITS)
+    mesh = make_pod_mesh(n, shards_per_device=n)
+    for mode, kw in workloads.MEGAFLEET_MODES.items():
+        ck.reset_launches()
+        res = solve_partitioned(prob, mesh=mesh,
+                                max_nodes_per_shard=workloads.MEGAFLEET_K,
+                                **kw)
+        digest, total = workloads.sharded_answer(prob, res)
+        assert digest == gold["megafleet-8x125k"][mode][0]
+        assert total == pytest.approx(gold["megafleet-8x125k"][mode][1],
+                                      rel=workloads.PSUM_RTOL, abs=0)
+        assert _sharded_launches_moved()
+        assert ck.LAUNCHES["classpack_scan"] == 1
+    pods = workloads.build_pods(
+        rng=np.random.default_rng(workloads.HEADLINE_SEED),
+        **workloads.HEADLINE)
+    hp = tensorize(pods, generate_catalog(workloads.HEADLINE_TYPES),
+                   [NodePool()])
+    a, u, cm = workloads.existing_nodes(
+        hp, workloads.HEADLINE_EXISTING,
+        np.random.default_rng(workloads.EXISTING_SEED))
+    for name, m in (("pods", make_pod_mesh(n, shards_per_device=n)),
+                    ("hosts", make_host_mesh(2, 4, shards_per_device=n))):
+        for decode in (False, True):
+            kw = dict(existing_alloc=a, existing_used=u,
+                      existing_compat=cm) if decode else {}
+            ck.reset_launches()
+            res = solve_sharded(hp, m,
+                                max_nodes_per_shard=workloads.HEADLINE_SHARDED_K,
+                                decode=decode, **kw)
+            digest, total = workloads.sharded_answer(hp, res)
+            assert digest == gold["headline-sharded"][(name, decode)][0]
+            assert total == pytest.approx(
+                gold["headline-sharded"][(name, decode)][1],
+                rel=workloads.PSUM_RTOL, abs=0)
+            assert _sharded_launches_moved()
+            assert ck.LAUNCHES["classpack_scan"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_cell_matches_the_golden(cuda_device):
+    """provision-sharded-50k-20k through Provisioner.provision with an
+    8-shard mesh on the card: both rounds answered by the sharded rung
+    (row 17: the slab program shard-batched), each reproducing the JAX
+    package's signature."""
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.parallel import make_pod_mesh
+    from karpenter_tpu_torch.state import Cluster
+    cell = workloads.SHARDED_CELL
+    n = workloads.MESH_SHARDS
+    env = workloads.provision_env(
+        cell, FakeCloud, CloudProvider, Cluster, Provisioner, NodePool,
+        generate_catalog(workloads.PROVISION_TYPES),
+        mesh=make_pod_mesh(n, shards_per_device=n))
+    for r, (kw, seed) in enumerate(workloads.PROVISION_CELLS[cell][1]):
+        ck.reset_launches()
+        sig, _ = workloads.provision_round(env, workloads.build_pods(
+            rng=np.random.default_rng(seed), **kw))
+        assert sig == workloads.GOLDEN_SHARDED[cell][r]
+        assert ck.LAUNCHES["classpack_slab_sharded"] == 1
+        assert ck.LAUNCHES["classpack_scan"] == 0

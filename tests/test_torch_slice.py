@@ -269,14 +269,15 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("entry,kw", [
     ("solve_ffd", dict(backend="native")),
-    ("provisioner", dict(sharded_solve=True)),
+    ("provisioner", dict(gang_scheduling=True, sharded_solve=True)),
     ("provisioner", dict(gang_scheduling=True)),
-    ("provisioner", dict(sharded_solve=True, device_decode=True))])
+    ("provisioner", dict(gang_scheduling=True, device_decode=True))])
 def test_unported_options_raise(entry, kw):
     """What is not ported yet raises and names ROADMAP.md: the native C++
-    packer, the sharded driver and gang scheduling.  The slab decode
-    (`device_decode`) is ported (tests/test_torch_decode.py), as are the
-    guided path, its refinery and the device LP
+    packer and gang scheduling, also beside ported options.  The slab
+    decode (`device_decode`) is ported (tests/test_torch_decode.py), as are
+    the sharded driver (`sharded_solve`, tests/test_torch_partitioned.py),
+    the guided path, its refinery and the device LP
     (tests/test_torch_lpguide.py)."""
     from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
     from karpenter_tpu_torch.controllers.provisioning import Provisioner

@@ -216,3 +216,26 @@ def sweep_args(s):
     return (s["req"], s["counts"], s["packed"], s["cap"], s["alloc"],
             s["price"], s["rank"], s["mask"], s["caps"], s["iopt"],
             s["iused"])
+
+
+def stack_shards(c, n, rng, dev):
+    """n shards of one kernel case (`make_case`) on `dev`, as the
+    shard-batched kernels take them: per-shard counts drawn from the case's
+    (shard 1 empty), the class arrays and the pre-opened slots one copy
+    shared by every shard (an `expand`ed view, stride 0) — except the init
+    slabs, stacked — and the catalog shared."""
+    def t(a):
+        return torch.tensor(a, device=dev)
+    cnt = np.stack([np.where(rng.random(c["cnt"].shape) < 0.7, c["cnt"], 0)
+                    for _ in range(n)]).astype(np.int32)
+    cnt[1] = 0
+    packed = np.packbits(c["comp"], axis=1)
+    return dict(req=t(c["req"]).expand(n, *c["req"].shape),
+                cnt=t(cnt),
+                packed=t(packed).expand(n, *packed.shape),
+                cap=t(c["cap"]).expand(n, *c["cap"].shape),
+                alloc=t(c["alloc"]), price=t(c["price"]), rank=t(c["rank"]),
+                iopt=None if c["iopt"] is None else
+                t(c["iopt"]).expand(n, *c["iopt"].shape).contiguous(),
+                iused=None if c["iused"] is None else
+                t(c["iused"]).expand(n, *c["iused"].shape).contiguous())
