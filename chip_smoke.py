@@ -16,13 +16,22 @@ pass):
                seeded perturbations of it (score overflow, pool ranks,
                hostname caps, slot exhaustion, overcommitted existing
                nodes).  Integers must be equal; the aggregate's float32
-               total_cost may differ by relative 1e-5 (summation order);
+               total_cost may differ by relative 1e-5 (summation order).
+               Then K3 and K3s (one launch per call) on the edge inputs of
+               `workloads.assign_decode_edges` (every pod in one class,
+               empty classes, all takes zero, padding rows, a truncated
+               repeat, a seeded case) at C = 200, K = 8192 and at
+               K = 32 768 (int32 slots), K3s on their shard stack and on
+               two shards sharing one counts row; K3 also on the inputs
+               recorded from the consolidation tick and the provisioning
+               cells' rounds (after phase 10);
   4. main path — tensorize + solve_classpack(guide=None) on the card, 50k
                pods × 600 instance types, decode on and off, with and
                without 512 existing nodes; every plan must reproduce the
                golden digest the JAX package computes on the CPU, and every
                kernel's launch counter must have moved; then warm p50
-               timings and per-kernel CUDA-event times.
+               timings and per-kernel CUDA-event times; the decoded
+               solve's profiler trace must show one K3 kernel.
   5. sweep   — K5 (classpack_sweep) against its plain version on the card,
                on the consolidation cell's real arena arrays (the delete
                face at B = 32 and 512, the replace face at B = 128), on
@@ -47,10 +56,16 @@ pass):
                instance (they converge), random LPs of tests/test_lpsolve.py
                at (20, 5, 8), (80, 20, 30) and one padded to 2048 columns, a
                u with finite and infinite entries, a B = 4 batch against its
-               four singles, and a warm-started re-solve.  Criteria: the same
-               status, objectives within relative 1e-3, x within 2e-2 (of
-               the pod-count scale on the masters), iterations within a
-               factor 1.5; the batch's members equal their solo launches.
+               four singles, and a warm-started re-solve: every one of
+               them fits the SMs' shared memory and must take the resident
+               kernel.  Then a B = 2 batch of the headline master (over the
+               shared-memory budget: the streaming kernel), capped at 2000
+               iterations.  Criteria: the kernel the launch counter names,
+               two launches equal bit for bit, and against the plain
+               version the same status, objectives within relative 1e-3, x
+               within 2e-2 (of the pod-count scale on the masters),
+               iterations within a factor 1.5; the batch's members equal
+               their solo launches.
   8. guided main path — the product's default solve_classpack(prob) on the
                headline, cold (mix caches cleared) and warm, with HiGHS
                masters, with device_lp=True (the master caps and demotes
@@ -62,8 +77,10 @@ pass):
                converge, the ladder stays healthy) against GOLDEN_LP.  Each
                run with the launch counts zeroed just before it.  Then
                timings: cold and warm guided headline, exact_lp_mix with
-               HiGHS against the device, the PDHG kernel on each master, and
-               the warm guided headline's device idle share.
+               HiGHS against the device, the PDHG kernel on each master
+               beside its bound (the largest of its HBM, on-chip and
+               operations terms, the binding one named), and the warm
+               guided headline's device idle share.
   9. slab + ffd — K6 (classpack_slab) against its plain version on random
                slot vectors at K = 256, 2048 and 8192, all rows placed, none
                placed, and one input above the reference's (K+1)·n < 2^31
@@ -148,6 +165,8 @@ import numpy as np
 
 MEM_BW = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 F32_PEAK = 67e12        # H100 SXM float32 outside the tensor cores, op/s
+SMEM_BYTES_PER_CLOCK = 128   # shared memory per SM per clock (Hopper)
+SM_CLOCK_HZ = None      # the card's maximum SM clock (nvidia-smi), set by probe
 REL_TOL = 1e-5          # aggregate total_cost: float32 sums in another order
 SEED = 7
 # the main path whose run gives a kernel row's `launches`: slice 1's
@@ -163,6 +182,7 @@ LP_RTOL = 1e-3          # PDHG objectives (tests/test_lpsolve.py's RTOL)
 LP_XTOL = 2e-2          # PDHG primal, absolute (relative to the pod scale
 #                         on the restricted masters)
 LP_ITER_FACTOR = 1.5
+STREAM_ITERS = 2000     # the streaming PDHG check's iteration cap
 
 
 def log(*a):
@@ -189,11 +209,18 @@ def probe(torch):
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0].strip()
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = float(clk.stdout.strip().splitlines()[0]) * 1e6
     from karpenter_tpu_torch._build import find_nvcc
     nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60)
     nvcc_line = [l for l in nvcc.stdout.splitlines() if l.strip()][-1]
-    log(f"[probe] card: {card}")
+    log(f"[probe] card: {card}, max SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz")
     log(f"[probe] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"torch CUDA {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -338,6 +365,76 @@ def compare_kernels(torch, problem, ex):
     return err, shapes
 
 
+# K3 inputs recorded from the main paths' runs: name -> (takes, counts,
+# n_pods) of the path's last K3 call
+K3_RECORDED = {}
+K3_EDGE_SETS = ((200, 8192, 50176), (64, 2**15, 50176))   # (C, K, n_pods)
+
+
+def same_k3(torch, got, want, what):
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and torch.equal(got, want),
+          f"{what}: kernel differs from its plain version")
+
+
+def compare_assign_decode(torch):
+    """K3 and K3s (one launch each) against their plain versions on the
+    edge inputs of `workloads.assign_decode_edges`, at the headline's
+    width (C = 200, K = 8192) and at K = 32 768 (int32 slots); K3s on the
+    stack of each width's cases and on two shards sharing one counts
+    row."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    for C, K, n_pods in K3_EDGE_SETS:
+        cases = workloads.assign_decode_edges(C, K, n_pods, rng)
+        ts, cs = [], []
+        for name, (takes, counts, _) in cases.items():
+            t = torch.tensor(takes, device=dev)
+            c = torch.tensor(counts, device=dev)
+            before = ck.LAUNCHES["classpack_assign_decode"]
+            got = ck.classpack_assign_decode(t, c, n_pods)
+            check(ck.LAUNCHES["classpack_assign_decode"] == before + 1,
+                  "K3 is one launch per call")
+            want = ck.classpack_assign_decode_plain(t, c, n_pods)
+            same_k3(torch, got, want, f"K3 on '{name}' (K={K})")
+            check(got.dtype == (torch.int16 if K < 2**15 else torch.int32),
+                  f"K3 slot type {got.dtype} at K={K}")
+            ts.append(t)
+            cs.append(c)
+        ts, cs = torch.stack(ts), torch.stack(cs)
+        before = ck.LAUNCHES["classpack_assign_decode_sharded"]
+        got = ck.classpack_assign_decode_sharded(ts, cs, n_pods)
+        check(ck.LAUNCHES["classpack_assign_decode_sharded"] == before + 1,
+              "K3s is one launch per call")
+        same_k3(torch, got, ck.classpack_assign_decode_sharded_plain(
+            ts, cs, n_pods), f"K3s on the {len(cases)} edge shards (K={K})")
+        shared = cs[1].expand(2, C)
+        pair = torch.stack([ts[1], torch.zeros_like(ts[1])])
+        same_k3(torch, ck.classpack_assign_decode_sharded(pair, shared,
+                                                          n_pods),
+                ck.classpack_assign_decode_sharded_plain(pair, shared,
+                                                         n_pods),
+                f"K3s on two shards sharing counts (K={K})")
+        log(f"[kernels] K3 / K3s edges at C={C} K={K} n_pods={n_pods} "
+            f"({', '.join(cases)}): equal to plain, one launch per call, "
+            f"{got.dtype} slots")
+
+
+def compare_recorded_k3(torch):
+    """K3 against its plain version on the inputs recorded from the main
+    paths' runs (the consolidation tick, the provisioning cells)."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    check(K3_RECORDED, "no K3 input was recorded on the main paths")
+    for name, (takes, counts, n_pods) in K3_RECORDED.items():
+        same_k3(torch, ck.classpack_assign_decode(takes, counts, n_pods),
+                ck.classpack_assign_decode_plain(takes, counts, n_pods),
+                f"K3 on {name}'s input")
+        log(f"[kernels] K3 on {name}'s input (C={takes.shape[0]} "
+            f"K={takes.shape[1]} n_pods={n_pods}): equal to plain")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: main path, fingerprints, timings
 # ---------------------------------------------------------------------------
@@ -474,6 +571,15 @@ def timings(torch, card, pods, catalog, pools, prob, ex):
     log(f"[trace] decoded solve: device busy {busy['device_ms']:.3f} of "
         f"{busy['wall_ms']:.3f} ms wall per solve, idle share "
         f"{busy['idle_share']:.4f}; by kernel {busy['by_kernel']} on {card}")
+    # K3 is one kernel now: the four of its earlier design are gone
+    k3 = [k for k in busy["names"] if "assign_decode_kernel" in k]
+    earlier = [k for k in busy["names"] if any(
+        s in k for s in ("tile_scan_kernel", "tile_sums_kernel",
+                         "add_back_kernel", "::decode_kernel"))]
+    check(len(k3) == 1 and not earlier,
+          f"the decoded solve's trace shows K3 as {k3 + earlier}")
+    log(f"[trace] decoded solve: K3 is one kernel in the trace: {k3[0]!r} "
+        f"({len(busy['names'])} kernel names in all)")
     return out
 
 
@@ -500,7 +606,7 @@ def device_busy(torch, fn, iters=3):
     short = {k[:40]: round(v, 4) for k, v in
              sorted(by.items(), key=lambda kv: -kv[1])[:6]}
     return dict(device_ms=dev, wall_ms=wall, idle_share=1 - dev / wall,
-                by_kernel=short)
+                by_kernel=short, names=sorted(by))
 
 
 # ---------------------------------------------------------------------------
@@ -651,6 +757,7 @@ def compare_sweeps(torch, err):
 def consolidation_path(torch, card):
     """{path name: launch counts of that path's run} for each shape."""
     from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import classpack as cp
     from karpenter_tpu_torch.ops import classpack_kernels as ck
     from karpenter_tpu_torch.ops.tensorize import SimulationArena
     sync = torch.cuda.synchronize
@@ -660,12 +767,15 @@ def consolidation_path(torch, card):
         # the main path alone: one tick, counts zeroed just before it
         ck.reset_launches()
         t0 = time.perf_counter()
-        cands = ctrl.candidates()
-        action = ctrl.consolidation_action(cands)
+        with captured(cp, "classpack_assign_decode") as k3:
+            cands = ctrl.candidates()
+            action = ctrl.consolidation_action(cands)
         sync()
         wall = time.perf_counter() - t0
         launches = dict(ck.LAUNCHES)
         by_path[f"consolidation-{n}"] = launches
+        if k3:
+            K3_RECORDED[f"consolidation-{n} tick"] = k3[-1]
         for k in ("classpack_precompute", "classpack_scan",
                   "classpack_assign_decode", "classpack_sweep"):
             check(launches[k] > 0,
@@ -943,17 +1053,46 @@ def lp_case(torch, insts, buckets=None):
                 check_every=lpsolve.DEFAULT_CHECK_EVERY)
 
 
-def compare_pdhg_case(torch, name, case, err, pod_scale=False, expect=None):
-    """The kernel against `pdhg_plain` on one captured or built batch;
-    returns a list of failure strings (empty when it agrees)."""
+def pdhg_path(torch, case):
+    """("resident", plan) or ("streaming", None): the kernel a launch on
+    this case's envelope takes on this card."""
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    A, G = case["ops"][0], case["ops"][2]
+    plan = lk.device_plan(A.shape[0], A.shape[1] + G.shape[1], A.shape[2],
+                          A.device)
+    return ("streaming", None) if plan is None else ("resident", plan)
+
+
+def compare_pdhg_case(torch, name, case, err, pod_scale=False, expect=None,
+                      path="resident"):
+    """The kernel against `pdhg_plain` on one captured or built batch, on
+    the kernel `path` names (checked by its launch counter), and a second
+    launch against the first, bit for bit; returns a list of failure
+    strings (empty when it agrees)."""
     from karpenter_tpu_torch.ops import lpsolve_kernels as lk
     args = (*case["ops"], case["eps"], case["iters_cap"],
             case["check_every"])
-    got = [g.cpu().numpy() for g in lk.pdhg(*args)]
+    before = dict(lk.LAUNCHES)
+    first = lk.pdhg(*args)
+    second = lk.pdhg(*args)
+    torch.cuda.synchronize()
+    took = ("resident" if lk.LAUNCHES["pdhg_resident"]
+            == before["pdhg_resident"] + 2 else "streaming")
+    _, plan = pdhg_path(torch, case)
+    log(f"[pdhg] {name}: path {took}"
+        + ("" if plan is None else
+           f" ({plan.row_bands} x {plan.col_bands} bands of {plan.band_rows}"
+           f" x {plan.band_cols} per member, {plan.blocks} blocks, "
+           f"{plan.smem_bytes} B of shared memory each)"))
+    bad = []
+    if took != path or lk.LAUNCHES["pdhg"] != before["pdhg"] + 2:
+        bad.append(f"{name} took the {took} kernel, expected {path}")
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        bad.append(f"{name}: two launches differ")
+    got = [g.cpu().numpy() for g in first]
     want = [w.cpu().numpy() for w in lk.pdhg_plain(*args)]
     torch.cuda.synchronize()
     c = case["ops"][4].cpu().numpy().astype(np.float64)
-    bad = []
     B, n = c.shape
     for i in range(B):
         og, ow = float(c[i] @ got[0][i]), float(c[i] @ want[0][i])
@@ -1066,6 +1205,15 @@ def compare_pdhg(torch, problem, err):
         f"{warm.iterations} it")
     bad += compare_pdhg_case(torch, "warm re-solve", seen[0], err,
                              pod_scale=True, expect=True)
+    # over the shared-memory budget: a B = 2 batch of the headline master
+    # (2 x 25.2 MB), capped at STREAM_ITERS iterations to bound the plain
+    # version's time
+    head = masters["headline"]
+    two = dict(head, ops=[torch.cat([t, t]) for t in head["ops"]],
+               iters_cap=STREAM_ITERS)
+    bad += compare_pdhg_case(torch, f"headline x2 (B=2, cap {STREAM_ITERS})",
+                             two, err, pod_scale=True, expect=False,
+                             path="streaming")
     check(not bad, "PDHG kernel differs from its plain version: "
           + "; ".join(bad))
     log(f"[pdhg] the kernel agrees with its plain version on every input "
@@ -1172,7 +1320,8 @@ def guided_path(torch, problem):
     log(f"[guided] cold device_lp solve {wall:.3f} s; launches {launches}; "
         f"ladder {h.active_rung('device_lp')}, failures "
         f"{h.failures('device_lp')}")
-    check(launches["pdhg"] > 0, "pdhg never launched on the device_lp path")
+    check(launches["pdhg"] > 0 and launches["pdhg_resident"] > 0,
+          "the resident pdhg kernel never launched on the device_lp path")
     check(h.failures("device_lp") == 1
           and h.active_rung("device_lp") == "device_lp",
           "the capped headline master must demote exactly one strike")
@@ -1218,7 +1367,8 @@ def guided_path(torch, problem):
         res = solve_classpack(prob, device_lp=True, lp_health=hh)
         sync()
         by_path[f"lp-{C}"] = launches = all_launches()
-        check(launches["pdhg"] > 0 and hh.failures("device_lp") == 0
+        check(launches["pdhg_resident"] > 0
+              and hh.failures("device_lp") == 0
               and hh.active_rung("device_lp") == "device_lp",
               f"lp-{C}: masters did not converge on the card "
               f"({launches['pdhg']} launches, {hh.failures('device_lp')} "
@@ -1288,13 +1438,34 @@ def guided_breakdown(torch, card, problem, iters=5):
 
 
 def pdhg_bound(case, iters):
-    """(bound ms, "bytes") of one PDHG solve: every step streams the scaled
-    operator twice (x and y/λ passes), every check streams A, G twice (a
-    row and a column pass, both candidates fused), over the memory rate."""
+    """(bound ms, "bytes" or "operations", binding term, {term: ms}) of one
+    PDHG solve of `iters` steps, a function of the shapes and the card
+    only, the largest of three terms:
+      hbm bytes     A and G read once at setup and twice at each check (a
+                    row and a column pass over the unscaled operator) over
+                    the memory rate;
+      on-chip bytes two passes over the scaled operator per step, at the
+                    shared-memory rate (128 B per clock per SM x SMs x the
+                    maximum SM clock) where the operator fits the SMs'
+                    combined shared memory (SMs x the opt-in shared memory
+                    per block), else at the memory rate;
+      operations    4 x B x (me+mi) x n float32 operations per step over
+                    the card's float32 peak."""
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
     A, G = case["ops"][0], case["ops"][2]
-    mat = (A.numel() + G.numel()) * 4
+    B, mt, n = A.shape[0], A.shape[1] + G.shape[1], A.shape[2]
+    mat = B * mt * n * 4
     checks = -(-iters // case["check_every"])
-    return (2 * iters + 2 * checks) * mat / MEM_BW * 1e3, "bytes"
+    sms, optin, _ = lk.device_smem(A.device)
+    fits = mat <= sms * optin
+    rate = SMEM_BYTES_PER_CLOCK * sms * SM_CLOCK_HZ if fits else MEM_BW
+    terms = {"hbm bytes": (1 + 2 * checks) * mat / MEM_BW * 1e3,
+             "on-chip bytes" + (" (shared memory)" if fits else " (HBM)"):
+             2 * iters * mat / rate * 1e3,
+             "operations": 4 * B * mt * n * iters / F32_PEAK * 1e3}
+    term = max(terms, key=terms.get)
+    return (terms[term], "operations" if term == "operations" else "bytes",
+            term, terms)
 
 
 def guided_timings(torch, card, problem, masters):
@@ -1341,10 +1512,11 @@ def guided_timings(torch, card, problem, masters):
         reps = 3 if name == "headline" else 7
         ms[name] = event_ms(torch, lambda: lk.pdhg(*args), reps)
         it = int(case["iters"][0])
-        bound, _ = pdhg_bound(case, it)
-        log(f"[time] pdhg kernel, {name}: {ms[name]:.3f} ms for {it} "
-            f"iterations ({ms[name] / max(it, 1) * 1e3:.3f} us/it); bound "
-            f"{bound:.3f} ms (bytes) at n={case['ops'][0].shape[2]} "
+        bound, _, term, _ = pdhg_bound(case, it)
+        log(f"[time] pdhg kernel ({pdhg_path(torch, case)[0]}), {name}: "
+            f"{ms[name]:.3f} ms for {it} iterations "
+            f"({ms[name] / max(it, 1) * 1e3:.3f} us/it); bound "
+            f"{bound:.3f} ms ({term}) at n={case['ops'][0].shape[2]} "
             f"me={case['ops'][0].shape[1]} mi={case['ops'][2].shape[1]} on "
             f"{card}")
     return ms
@@ -1366,11 +1538,13 @@ def pdhg_row(torch, card, masters, ms, launches_by_path, err):
     pair = card_ms(torch, lambda: (torch.bmm(K.transpose(1, 2), z),
                                    torch.bmm(K, x)), 50)
     library_ms = pair * it
-    bound_ms, bound_by = pdhg_bound(case, it)
-    log(f"[kernel] pdhg: {dev_ms:.3f} ms on the card (CUDA events "
+    bound_ms, bound_by, term, terms = pdhg_bound(case, it)
+    path = pdhg_path(torch, case)[0]
+    log(f"[kernel] pdhg ({path}): {dev_ms:.3f} ms on the card (CUDA events "
         f"{ms['headline']:.3f} ms; plain {plain_ms:.3f} ms, "
         f"library {library_ms:.3f} ms = {pair:.4f} ms bmm pair x {it}, "
-        f"bound {bound_ms:.3f} ms by {bound_by}) on {card}")
+        f"bound {bound_ms:.3f} ms by {term}; terms "
+        f"{ {k: round(v, 3) for k, v in terms.items()} }) on {card}")
     return dict(name="pdhg", route="cuda",
                 source="karpenter_tpu_torch/csrc/lpsolve.cu",
                 replaces="karpenter_tpu/ops/lpsolve.py:145",
@@ -1380,7 +1554,9 @@ def pdhg_row(torch, card, masters, ms, launches_by_path, err):
                                   for p, c in launches_by_path.items()},
                 max_abs_err=err["pdhg"], ms=dev_ms, host_ms=ms["headline"],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+                bound_term=term, library_ms=library_ms, kernel_path=path,
+                resident_launches=launches_by_path[DEVICE_LP_PATH][
+                    "pdhg_resident"])
 
 
 # ---------------------------------------------------------------------------
@@ -1637,7 +1813,8 @@ def provision_cells(torch, card, device="cuda"):
             reset_all_launches()
             with captured(cp, "classpack_slab") as k6, \
                     captured(cp, "class_pack_assign_slab_kernel") as prog, \
-                    captured(fk, "ffd_scan") as k7:
+                    captured(fk, "ffd_scan") as k7, \
+                    captured(cp, "classpack_assign_decode") as k3:
                 t0 = time.perf_counter()
                 sig, res = workloads.provision_pending(env)
                 torch.cuda.synchronize()
@@ -1656,6 +1833,8 @@ def provision_cells(torch, card, device="cuda"):
                 programs[f"{cell} round {r + 1}"] = prog[-1]
             for i, a in enumerate(k7):
                 scans[f"{cell} round {r + 1} solve {i + 1}"] = a
+            if k3:
+                K3_RECORDED[f"{cell} round {r + 1}"] = k3[-1]
         snap = health.snapshot()
         check(not health.transitions and all(
             v["total_failures"] == 0 for v in snap["rungs"].values()),
@@ -2547,6 +2726,7 @@ def main() -> int:
     pods, catalog, pools, problem = headline_problem()
     ex = existing(problem)
     err, shapes = compare_kernels(torch, problem, ex)
+    compare_assign_decode(torch)
     firsts = compare_sweeps(torch, err)
     log(f"[kernels] all kernels equal to their plain versions "
         f"({time.perf_counter() - t_start:.1f} s so far)")
@@ -2562,6 +2742,7 @@ def main() -> int:
     log(f"[kernels] phase 9 done ({time.perf_counter() - t_start:.1f} s so far)")
     prov_paths, slabs, programs, scans = provision_cells(torch, card)
     by_path.update(prov_paths)
+    compare_recorded_k3(torch)
     log(f"[provision] phase 10 cells done "
         f"({time.perf_counter() - t_start:.1f} s so far)")
     log(f"[main] launches of each main path's run: {by_path}")

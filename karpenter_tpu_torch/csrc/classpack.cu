@@ -16,7 +16,7 @@
 // their own slices with the catalog replicated; here K1-K4 and K6 take a
 // shard count n and run it as one launch, the shard as a grid axis
 // (blockIdx.y, or one block per shard for the one-block kernels K2, K4 and
-// the scans of K3 and K6).  Shard s reads its inputs at base + s * stride
+// the scan of K6).  Shard s reads its inputs at base + s * stride
 // (ShardStrides; a stride of 0 shares one copy, as the replicated operands
 // of rows 13-14 are shared) and writes its own outputs and scratch at
 // base + s * (the output's size).  The single-device programs are the same
@@ -399,118 +399,99 @@ scan_kernel(const int* __restrict__ req, const int* __restrict__ counts,
 // class_pack_assign_kernel :228-245: the global cumsum of the C x K takes,
 // the pod -> class repeat and the searchsorted to a per-pod slot)
 //
-// A multi-block inclusive int32 scan of the takes (tile scan, a one-block
-// scan of the tile sums that also scans the class counts, add-back), then
-// one thread per padded pod row; each step with the shard as a grid axis
-// (blockIdx.y, one tile-sum block per shard).  Bound on this card: bytes (the takes are
-// read twice and the flat scan written once); the binary searches touch
-// one K-wide row each and stay in L2.
+// One launch, one block per (class, shard) (blockIdx.x, blockIdx.y).  The
+// block copies class c's K takes into shared memory, scans them there
+// (each warp a contiguous segment in 32-wide shuffle scans with a carry,
+// then the warp totals), sums counts[<c] for the class's first pod row, and
+// decodes each pod row of the class by a binary search of its rank in the
+// row's inclusive scan.  The block of class C-1 also decodes the padded
+// rows past the last pod (jnp.repeat's total_repeat_length pad gives them
+// class C-1), so every one of the n_pods rows is written once.
+//
+// Equivalence with the reference's global int32 cumsum + searchsorted
+// rests on what K2 guarantees of its takes: every take is >= 0 and a
+// class's row total is <= counts[c] <= n_pods < 2^31, so the global scan
+// never wraps and is non-decreasing.  A scheduled pod (rank < row total)
+// then has flat[row-1] = base <= base + rank < flat[row+K-1], the global
+// search lands inside class c's row, and the base cancels: the slot is the
+// first k whose within-row inclusive scan exceeds the rank.
+//
+// Bound on this card: bytes (each take read once, each pod row written
+// once); the scan and the searches stay in shared memory.
 // ---------------------------------------------------------------------------
-constexpr int kTileThreads = 1024;
-constexpr int kTileItems = 4;
-constexpr int kTile = kTileThreads * kTileItems;
-
-__global__ void __launch_bounds__(kTileThreads)
-tile_scan_kernel(const int* __restrict__ x, long long n, int n_tiles,
-                 int* __restrict__ flat, int* __restrict__ tile_sums) {
-  __shared__ unsigned s_warp[32];
-  const long long sh = blockIdx.y;
-  x += sh * n;
-  flat += sh * n;
-  tile_sums += sh * n_tiles;
-  const long long base = (long long)blockIdx.x * kTile +
-                         (long long)threadIdx.x * kTileItems;
-  unsigned v[kTileItems];
-  unsigned s = 0;
-#pragma unroll
-  for (int i = 0; i < kTileItems; ++i) {
-    v[i] = base + i < n ? (unsigned)x[base + i] : 0u;
-    s += v[i];
-    v[i] = s;  // thread-local inclusive
-  }
-  unsigned total;
-  const unsigned before = block_exclusive_scan(s, s_warp, &total);
-#pragma unroll
-  for (int i = 0; i < kTileItems; ++i)
-    if (base + i < n) flat[base + i] = (int)(before + v[i]);
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = (int)total;
-}
-
-__global__ void __launch_bounds__(kTileThreads)
-tile_sums_kernel(int* __restrict__ tile_sums, int n_tiles,
-                 const int* __restrict__ counts, long long cnt_ss, int C,
-                 int* __restrict__ cnt_incl) {
-  __shared__ unsigned s_warp[32];
-  const long long sh = blockIdx.x;
-  tile_sums += sh * n_tiles;
-  counts += sh * cnt_ss;
-  cnt_incl += sh * C;
-  // exclusive scan of the tile sums, in place, in chunks with a carry
-  unsigned carry = 0;
-  for (int s0 = 0; s0 < n_tiles; s0 += blockDim.x) {
-    const int i = s0 + threadIdx.x;
-    const unsigned v = i < n_tiles ? (unsigned)tile_sums[i] : 0u;
-    unsigned total;
-    const unsigned ex = block_exclusive_scan(v, s_warp, &total);
-    if (i < n_tiles) tile_sums[i] = (int)(carry + ex);
-    carry += total;
-  }
-  // inclusive scan of the class counts (the repeat's boundaries)
-  carry = 0;
-  for (int s0 = 0; s0 < C; s0 += blockDim.x) {
-    const int i = s0 + threadIdx.x;
-    const unsigned v = i < C ? (unsigned)counts[i] : 0u;
-    unsigned total;
-    const unsigned ex = block_exclusive_scan(v, s_warp, &total);
-    if (i < C) cnt_incl[i] = (int)(carry + ex + v);
-    carry += total;
-  }
-}
-
-__global__ void add_back_kernel(int* __restrict__ flat, long long n,
-                                int n_tiles,
-                                const int* __restrict__ tile_off) {
-  const long long sh = blockIdx.y;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n)
-    flat[sh * n + i] = wrap_add(flat[sh * n + i],
-                                tile_off[sh * n_tiles + i / kTile]);
-}
+constexpr int kDecThreads = 512;
+constexpr int kDecWarps = kDecThreads / 32;
 
 template <typename OutT>
-__global__ void decode_kernel(const int* __restrict__ flat,
-                              const int* __restrict__ cnt_incl, int C, int K,
-                              int n_pods, OutT* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pods) return;
+__global__ void __launch_bounds__(kDecThreads)
+assign_decode_kernel(const int* __restrict__ takes,
+                     const int* __restrict__ counts, long long cnt_ss, int C,
+                     int K, int n_pods, OutT* __restrict__ out) {
+  extern __shared__ int s_incl[];  // K: class c's within-row inclusive scan
+  __shared__ unsigned s_warp[kDecWarps];
+  __shared__ unsigned s_cnt[kDecWarps];
+  const int c = blockIdx.x;
   const long long sh = blockIdx.y;
-  flat += sh * C * K;
-  cnt_incl += sh * C;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* row = takes + (sh * C + c) * (long long)K;
+  counts += sh * cnt_ss;
   out += sh * n_pods;
-  // class of row i: the first class whose inclusive count exceeds i; rows
-  // past the last pod take class C-1 (jnp.repeat's total_repeat_length pad)
-  int lo = 0, hi = C;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (cnt_incl[mid] > i) hi = mid; else lo = mid + 1;
+  for (int k = threadIdx.x; k < K; k += kDecThreads) s_incl[k] = __ldg(row + k);
+  // counts[<c] (the class's first pod row), in a fixed order
+  unsigned cs = 0;
+  for (int j = threadIdx.x; j < c; j += kDecThreads) cs += (unsigned)__ldg(counts + j);
+#pragma unroll
+  for (int d = 16; d; d >>= 1) cs += __shfl_xor_sync(0xffffffffu, cs, d);
+  if (lane == 0) s_cnt[warp] = cs;
+  __syncthreads();
+  // each warp scans its segment [k0, k1) in place, carrying the prefix
+  const int seg = ((K + kDecWarps - 1) / kDecWarps + 31) & ~31;
+  const int k0 = min(warp * seg, K), k1 = min(k0 + seg, K);
+  unsigned carry = 0;
+  for (int b = k0; b < k1; b += 32) {
+    const int k = b + lane;
+    unsigned x = k < k1 ? (unsigned)s_incl[k] : 0u;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += y;
+    }
+    x += carry;
+    if (k < k1) s_incl[k] = (int)x;
+    carry = __shfl_sync(0xffffffffu, x, 31);
   }
-  const int c = lo < C ? lo : C - 1;
-  const int excl = c ? cnt_incl[c - 1] : 0;
-  const int rk = i - excl;
-  const size_t row = (size_t)c * K;
-  const int base = c ? flat[row - 1] : 0;
-  const int total = wrap_sub(flat[row + K - 1], base);
-  const int q = wrap_add(base, rk);
-  // searchsorted(flat, q, side="right") - c*K.  The takes are >= 0, so the
-  // flat scan is non-decreasing; a scheduled pod (rk < total) has
-  // flat[row-1] = base <= q < flat[row+K-1], so the global search lands
-  // inside class c's K-wide row and searching only that row is equivalent.
-  int a = 0, b = K;
-  while (a < b) {
-    const int mid = (a + b) >> 1;
-    if (flat[row + mid] <= q) a = mid + 1; else b = mid;
+  if (lane == 0) s_warp[warp] = carry;
+  __syncthreads();
+  unsigned before = 0, excl = 0;
+  for (int w = 0; w < kDecWarps; ++w) {
+    if (w < warp) before += s_warp[w];
+    excl += s_cnt[w];
   }
-  out[i] = (OutT)(rk < total ? a : -1);
+  if (before)
+    for (int k = k0 + lane; k < k1; k += 32)
+      s_incl[k] = (int)((unsigned)s_incl[k] + before);
+  __syncthreads();
+  // pod rows [excl, excl + counts[c]) of class c; class C-1 also takes the
+  // padded rows up to n_pods
+  const int total = s_incl[K - 1];
+  const long long lo = (long long)(int)excl;
+  long long hi = c == C - 1 ? (long long)n_pods
+                            : lo + (long long)__ldg(counts + c);
+  if (hi > n_pods) hi = n_pods;
+  for (long long i = (lo < 0 ? 0 : lo) + threadIdx.x; i < hi;
+       i += kDecThreads) {
+    const int rk = (int)(i - lo);
+    int a = -1;
+    if (rk < total) {
+      int l = 0, r = K;
+      while (l < r) {
+        const int mid = (l + r) >> 1;
+        if (s_incl[mid] <= rk) l = mid + 1; else r = mid;
+      }
+      a = l;
+    }
+    out[i] = (OutT)a;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1114,40 +1095,36 @@ cudaError_t kp_scan(const int* req, const int* counts,
   return cudaErrorInvalidValue;
 }
 
-int kp_decode_tiles(long long n) { return (int)((n + kTile - 1) / kTile); }
-
-// n shards.  takes: n x C x K int32; counts: shard s's at s * cnt_ss.
-// Scratch: flat n x C*K, tile_sums n x kp_decode_tiles(C*K), cnt_incl
-// n x C.  out: n x n_pods of int16 (out_int16) or int32.
+// n shards, one block per (class, shard).  takes: n x C x K int32;
+// counts: shard s's at s * cnt_ss.  out: n x n_pods of int16 (out_int16)
+// or int32.  No scratch.
 cudaError_t kp_assign_decode(const int* takes, const int* counts,
                              long long cnt_ss, int n_sh, int C, int K,
-                             int n_pods, int out_int16, int* flat,
-                             int* tile_sums, int* cnt_incl, void* out,
+                             int n_pods, int out_int16, void* out,
                              cudaStream_t stream) {
-  if (C <= 0 || K <= 0 || n_sh <= 0 || n_sh > 65535)
+  if (C <= 0 || K <= 0 || K > kp_max_slots() || n_sh <= 0 || n_sh > 65535)
     return cudaErrorInvalidValue;
-  const long long n = (long long)C * K;
-  const int n_tiles = kp_decode_tiles(n);
-  tile_scan_kernel<<<dim3(n_tiles, n_sh), kTileThreads, 0, stream>>>(
-      takes, n, n_tiles, flat, tile_sums);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  tile_sums_kernel<<<n_sh, kTileThreads, 0, stream>>>(
-      tile_sums, n_tiles, counts, cnt_ss, C, cnt_incl);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  add_back_kernel<<<dim3((unsigned)((n + 255) / 256), n_sh), 256, 0,
-                    stream>>>(flat, n, n_tiles, tile_sums);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   if (n_pods <= 0) return cudaSuccess;
-  const dim3 blocks((n_pods + 255) / 256, n_sh);
-  if (out_int16)
-    decode_kernel<int16_t><<<blocks, 256, 0, stream>>>(
-        flat, cnt_incl, C, K, n_pods, static_cast<int16_t*>(out));
-  else
-    decode_kernel<int><<<blocks, 256, 0, stream>>>(
-        flat, cnt_incl, C, K, n_pods, static_cast<int*>(out));
+  const size_t smem = (size_t)K * sizeof(int);
+  const dim3 grid(C, n_sh);
+  cudaError_t err;
+  if (out_int16) {
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(assign_decode_kernel<int16_t>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return err;
+    assign_decode_kernel<int16_t><<<grid, kDecThreads, smem, stream>>>(
+        takes, counts, cnt_ss, C, K, n_pods, static_cast<int16_t*>(out));
+  } else {
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(assign_decode_kernel<int>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return err;
+    assign_decode_kernel<int><<<grid, kDecThreads, smem, stream>>>(
+        takes, counts, cnt_ss, C, K, n_pods, static_cast<int*>(out));
+  }
   return cudaGetLastError();
 }
 

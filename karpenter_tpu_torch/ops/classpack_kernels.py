@@ -88,13 +88,11 @@ def _lib() -> ctypes.CDLL:
         lib.kp_error_string.restype = ctypes.c_char_p
         lib.kp_max_r.restype = i
         lib.kp_max_slots.restype = i
-        lib.kp_decode_tiles.argtypes = [ll]
-        lib.kp_decode_tiles.restype = i
         lib.kp_precompute.argtypes = [p] * 6 + [i] * 4 + [llp, p, p, p]
         lib.kp_precompute.restype = i
         lib.kp_scan.argtypes = [p] * 10 + [i] * 6 + [llp] + [p] * 5 + [p]
         lib.kp_scan.restype = i
-        lib.kp_assign_decode.argtypes = [p, p, ll] + [i] * 5 + [p] * 5
+        lib.kp_assign_decode.argtypes = [p, p, ll] + [i] * 5 + [p, p]
         lib.kp_assign_decode.restype = i
         lib.kp_aggregate.argtypes = [p] * 4 + [ll, i, i, i, p, p]
         lib.kp_aggregate.restype = i
@@ -393,6 +391,13 @@ def classpack_assign_decode_plain(takes, counts, n_pods: int):
     return assignment.to(torch.int16) if K < 2**15 else assignment
 
 
+def _check_decode_slots(lib, K: int) -> None:
+    # one block holds a class's K-wide row in shared memory
+    if K > lib.kp_max_slots():
+        raise KernelLimitError(f"K={K} slots: the decode takes at most "
+                               f"{lib.kp_max_slots()}")
+
+
 def classpack_assign_decode(takes: torch.Tensor, counts: torch.Tensor,
                             n_pods: int) -> torch.Tensor:
     """Per-pod slot (−1 unscheduled) for `n_pods` padded pod rows, from the
@@ -403,18 +408,15 @@ def classpack_assign_decode(takes: torch.Tensor, counts: torch.Tensor,
     _check(takes, "takes", torch.int32, (C, K))
     _check(counts, "counts", torch.int32, (C,))
     lib = _lib()
+    _check_decode_slots(lib, K)
     dev = takes.device
     out16 = K < 2**15
     out = torch.empty(n_pods, dtype=torch.int16 if out16 else torch.int32,
                       device=dev)
-    flat = torch.empty(C * K, dtype=torch.int32, device=dev)
-    tiles = torch.empty(lib.kp_decode_tiles(C * K), dtype=torch.int32,
-                        device=dev)
-    cnt_incl = torch.empty(C, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.kp_assign_decode(
             _ptr(takes), _ptr(counts), 0, 1, C, K, int(n_pods), int(out16),
-            _ptr(flat), _ptr(tiles), _ptr(cnt_incl), _ptr(out), _stream(dev))
+            _ptr(out), _stream(dev))
     _raise_on(err, "classpack_assign_decode")
     LAUNCHES["classpack_assign_decode"] += 1
     return out
@@ -869,19 +871,15 @@ def classpack_assign_decode_sharded(takes: torch.Tensor, counts: torch.Tensor,
     _check(takes, "takes", torch.int32, (n, C, K))
     cnt_ss = _shard_stride(counts, "counts", torch.int32, (n, C))
     lib = _lib()
+    _check_decode_slots(lib, K)
     dev = takes.device
     out16 = K < 2**15
     out = torch.empty((n, n_pods),
                       dtype=torch.int16 if out16 else torch.int32, device=dev)
-    flat = torch.empty((n, C * K), dtype=torch.int32, device=dev)
-    tiles = torch.empty((n, lib.kp_decode_tiles(C * K)), dtype=torch.int32,
-                        device=dev)
-    cnt_incl = torch.empty((n, C), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.kp_assign_decode(
             _ptr(takes), _ptr(counts), cnt_ss, n, C, K, int(n_pods),
-            int(out16), _ptr(flat), _ptr(tiles), _ptr(cnt_incl), _ptr(out),
-            _stream(dev))
+            int(out16), _ptr(out), _stream(dev))
     _raise_on(err, "classpack_assign_decode_sharded")
     LAUNCHES["classpack_assign_decode_sharded"] += 1
     return out

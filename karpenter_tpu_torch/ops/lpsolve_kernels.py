@@ -4,6 +4,14 @@
 |--------|-------------------------------------------------|
 | pdhg   | ops/lpsolve.py `_pdhg_kernel` :145-329 (row 12) |
 
+The kernel comes in two forms, chosen before the launch from shapes and
+device attributes only (`resident_plan`): where the scaled operator fits
+the SMs' combined shared memory, the RESIDENT kernel keeps one tile of it
+in each block's shared memory for the whole solve; where it does not, the
+STREAMING kernel reads it from L2 / HBM at every step.  Both are
+hand-written kernels of the same launch; a fault of either raises
+`KernelError`, and neither retries on the other.
+
 In the idiom of `classpack_kernels.py`:
 
   * `pdhg_plain` is the plain PyTorch version of the same function (the
@@ -12,7 +20,8 @@ In the idiom of `classpack_kernels.py`:
     the oracle `chip_smoke.py` holds the kernel against.  On CUDA tensors it
     refuses to run with TF32 matmuls enabled: the oracle must be float32.
   * `LAUNCHES["pdhg"]` is raised by one exactly where the wrapper launches
-    the kernel.
+    the kernel, in either form; `LAUNCHES["pdhg_resident"]` also counts
+    the launches of the resident form.
   * On CUDA tensors the wrapper checks device, dtype, shape and contiguity,
     allocates outputs and scratch with torch, launches on the current
     stream through the ctypes library and raises on any `cudaError_t`.
@@ -30,13 +39,14 @@ statistics, as the JAX program returns them.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
 from .._build import KernelError
 
-KERNELS = ("pdhg",)
+KERNELS = ("pdhg", "pdhg_resident")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _RESTART_DECAY = 0.36     # sufficient-decay restart threshold (PDLP β)
@@ -70,8 +80,13 @@ def _lib() -> ctypes.CDLL:
         lib.lp_error_string.argtypes = [i]
         lib.lp_error_string.restype = ctypes.c_char_p
         lib.lp_scalar_slots.restype = i
+        lib.lp_resident_budget.argtypes = [ctypes.POINTER(i)] * 3
+        lib.lp_resident_budget.restype = i
+        lib.lp_resident_smem.argtypes = [i, i]
+        lib.lp_resident_smem.restype = ctypes.c_longlong
         lib.lp_pdhg.argtypes = ([p] * 9 + [i] * 4 + [f] + [i] * 3
-                                + [p] * 7 + [p] * 7 + [p])
+                                + [p] * 7 + [p] * 7 + [i] * 4 + [p] * 2
+                                + [p])
         lib.lp_pdhg.restype = i
         _LIB = lib
     return _LIB
@@ -101,6 +116,122 @@ def _check(t: torch.Tensor, name: str, shape) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+# ---------------------------------------------------------------------------
+# the resident plan
+# ---------------------------------------------------------------------------
+
+RED_FLOATS = 1024     # csrc/lpsolve.cu kRedFloats
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def resident_smem_bytes(h: int, w: int) -> int:
+    """Dynamic shared memory of one resident block (csrc/lpsolve.cu
+    `resident_smem_bytes`): the tile hp × w, seven column-band and five
+    row-band vectors, and the column pass's partials; hp = h rounded up
+    to 4."""
+    hp = 4 * _ceil(h, 4)
+    return 4 * (hp * w + 7 * w + 5 * hp + RED_FLOATS)
+
+
+@dataclass(frozen=True)
+class ResidentPlan:
+    """B members, each cut into `row_bands` bands of `band_rows` rows and
+    `col_bands` bands of `band_cols` columns (a multiple of 4): one block
+    per tile, `blocks` = B × row_bands × col_bands, each holding
+    `smem_bytes` of dynamic shared memory."""
+    B: int
+    mt: int
+    n: int
+    row_bands: int
+    col_bands: int
+    band_rows: int
+    band_cols: int
+
+    @property
+    def blocks(self) -> int:
+        return self.B * self.row_bands * self.col_bands
+
+    @property
+    def smem_bytes(self) -> int:
+        return resident_smem_bytes(self.band_rows, self.band_cols)
+
+    def tiles(self) -> Iterator[Tuple[int, int, int, int, int]]:
+        """(member, first row, end row, first column, end column) of each
+        block's tile, in block order."""
+        for b in range(self.B):
+            for rb in range(self.row_bands):
+                r0 = rb * self.band_rows
+                for cb in range(self.col_bands):
+                    c0 = cb * self.band_cols
+                    yield (b, r0, min(r0 + self.band_rows, self.mt), c0,
+                           min(c0 + self.band_cols, self.n))
+
+
+def _step_cost(h: int, w: int, R: int, Q: int) -> float:
+    """A model of one PDHG step of a resident block, in SM clocks: the two
+    passes over the tile at 128 B per clock of shared memory, the partials
+    of the other bands read from L2 (about 32 B per clock), and the two
+    band arrivals when the member has more than one block."""
+    smem = 2 * 4 * h * w / 128
+    reduce = 4 * ((h * Q if Q > 1 else 0) + (w * R if R > 1 else 0)) / 32
+    sync = 2000 + 20 * (R + Q) if R * Q > 1 else 0
+    return smem + reduce + sync
+
+
+def resident_plan(B: int, mt: int, n: int, sms: int,
+                  smem_per_block: int) -> Optional[ResidentPlan]:
+    """The tile plan of the resident PDHG kernel, or None when the scaled
+    operator (B × mt × n float32) does not fit: at most `sms` blocks, one
+    per SM, each tile and its band vectors within `smem_per_block` bytes.
+    Every member gets the same bands; among the plans that fit, the one of
+    least modelled step time (`_step_cost`), then of fewest blocks."""
+    if min(B, mt, n, sms) <= 0 or B * mt * n * 4 > sms * smem_per_block:
+        return None
+    best, best_key = None, None
+    for R in range(1, min(mt, sms // B) + 1):
+        h = _ceil(mt, R)
+        if _ceil(mt, h) != R:           # the same bands as a smaller R
+            continue
+        for Q in range(1, sms // (B * R) + 1):
+            w = 4 * _ceil(_ceil(n, Q), 4)
+            if _ceil(n, w) != Q:
+                continue
+            if resident_smem_bytes(h, w) > smem_per_block:
+                continue
+            key = (_step_cost(h, w, R, Q), R * Q)
+            if best_key is None or key < best_key:
+                best, best_key = (R, Q, h, w), key
+    if best is None:
+        return None
+    R, Q, h, w = best
+    return ResidentPlan(B=B, mt=mt, n=n, row_bands=R, col_bands=Q,
+                        band_rows=h, band_cols=w)
+
+
+def device_smem(dev: torch.device) -> Tuple[int, int, int]:
+    """(SMs, opt-in shared memory per block, dynamic shared memory one
+    resident block can hold) of `dev`, read from the device and the built
+    kernel."""
+    lib = _lib()
+    sms, optin, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _raise_on(lib.lp_resident_budget(ctypes.byref(sms),
+                                         ctypes.byref(optin),
+                                         ctypes.byref(smem)), "pdhg")
+    return sms.value, optin.value, smem.value
+
+
+def device_plan(B: int, mt: int, n: int,
+                dev: torch.device) -> Optional[ResidentPlan]:
+    """The resident plan of a B × mt × n envelope on `dev`, or None: the
+    launch takes the streaming kernel."""
+    sms, _, smem = device_smem(dev)
+    return resident_plan(B, mt, n, sms, smem)
 
 
 # ---------------------------------------------------------------------------
@@ -330,17 +461,27 @@ def pdhg(A: torch.Tensor, b: torch.Tensor, G: torch.Tensor, h: torch.Tensor,
     dev = A.device
     f32, i32 = torch.float32, torch.int32
     mt = me + mi
+    plan = device_plan(B, mt, n, dev)
     emp = lambda *s: torch.empty(s, dtype=f32, device=dev)  # noqa: E731
     # scratch: the scaled stacked operator, row/column scalings, the scaled
     # data, the iterates with their epoch sums and anchors, per-row and
-    # per-column check values, per-member scalars and the grid barrier
+    # per-column check values, per-member scalars, the grid barrier and
+    # (resident) the band partials and arrival counters
     ks = emp(B, mt, n)
     vec_n = emp(8, B, n)
     vec_m = emp(8, B, mt)
     rowv = emp(B, mt, 4)
     colv = emp(B, n, 6)
     scal = emp(B, lib.lp_scalar_slots())
-    bar = torch.zeros(2, dtype=i32, device=dev)
+    if plan is None:
+        bands = (0, 0, 0, 0)
+        pc = pr = None
+    else:
+        bands = (plan.row_bands, plan.col_bands, plan.band_rows,
+                 plan.band_cols)
+        pc = emp(2, B, plan.row_bands, n)
+        pr = emp(2, B, plan.col_bands, mt)
+    bar = torch.zeros(2 + B * (bands[0] + bands[1]), dtype=i32, device=dev)
     x_out, y_out, l_out = emp(B, n), emp(B, me), emp(B, mi)
     done = torch.empty(B, dtype=i32, device=dev)
     iters = torch.empty(B, dtype=i32, device=dev)
@@ -357,8 +498,12 @@ def pdhg(A: torch.Tensor, b: torch.Tensor, G: torch.Tensor, h: torch.Tensor,
             scal.data_ptr(), bar.data_ptr(), x_out.data_ptr(),
             y_out.data_ptr(), l_out.data_ptr(), done.data_ptr(),
             iters.data_ptr(), restarts.data_ptr(), stats.data_ptr(),
+            *bands, None if pc is None else pc.data_ptr(),
+            None if pr is None else pr.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "pdhg")
+    _raise_on(err, "pdhg" if plan is None else "pdhg (resident)")
     LAUNCHES["pdhg"] += 1
+    if plan is not None:
+        LAUNCHES["pdhg_resident"] += 1
     return (x_out, y_out, l_out, done.bool(), iters, restarts, stats[0],
             stats[1], stats[2])

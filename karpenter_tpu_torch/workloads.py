@@ -498,6 +498,56 @@ def ffd_scan_inputs(rng: np.random.Generator, P: int = 4096, C: int = 48,
             alloc, price, rank, init_option, init_used), K
 
 
+def _takes_within(counts: np.ndarray, K: int, rng: np.random.Generator,
+                  share: float = 0.8) -> np.ndarray:
+    """C × K int32 takes that K2 could emit: each class schedules at most
+    its count (about `share` of it), spread over a random set of slots."""
+    C = counts.shape[0]
+    takes = np.zeros((C, K), np.int32)
+    for c in range(C):
+        m = int(counts[c])
+        t = int(rng.binomial(m, share)) if m else 0
+        if t == 0:
+            continue
+        used = rng.choice(K, size=min(K, 1 + t // 8), replace=False)
+        takes[c, used] = rng.multinomial(t, np.ones(len(used)) / len(used))
+    return takes
+
+
+def assign_decode_edges(C: int, K: int, n_pods: int,
+                        rng: np.random.Generator
+                        ) -> Dict[str, Tuple[np.ndarray, np.ndarray, int]]:
+    """Edge inputs of K3 `classpack_assign_decode`, name → (takes C × K,
+    counts C, n_pods), every one within what K2 guarantees (takes ≥ 0, a
+    class's row total ≤ its count): every pod in one class (fully
+    scheduled), two thirds of the classes empty (the first and the last
+    among them), all takes zero, half the rows padding past the last pod,
+    counts summing past n_pods (the repeat truncates), and a seeded
+    general case."""
+    out = {}
+    counts = np.zeros(C, np.int32)
+    counts[C // 3] = n_pods
+    takes = _takes_within(counts, K, rng, share=1.0)
+    out["every pod in one class"] = (takes, counts, n_pods)
+    counts = rng.multinomial(n_pods, np.ones(C) / C).astype(np.int32)
+    counts[rng.random(C) < 2 / 3] = 0
+    counts[0] = counts[-1] = 0
+    out["empty classes"] = (_takes_within(counts, K, rng), counts, n_pods)
+    counts = rng.multinomial(n_pods, np.ones(C) / C).astype(np.int32)
+    out["all takes zero"] = (np.zeros((C, K), np.int32), counts, n_pods)
+    counts = rng.multinomial(n_pods // 2, np.ones(C) / C).astype(np.int32)
+    counts[-1] = max(int(counts[-1]), 1)
+    out["padding rows"] = (_takes_within(counts, K, rng, share=1.0), counts,
+                           n_pods)
+    counts = rng.multinomial(n_pods + n_pods // 4 + 1,
+                             np.ones(C) / C).astype(np.int32)
+    out["truncated repeat"] = (_takes_within(counts, K, rng), counts, n_pods)
+    counts = rng.multinomial(n_pods - n_pods // 8,
+                             np.ones(C) / C).astype(np.int32)
+    out["seeded"] = (_takes_within(counts, K, rng), counts, n_pods)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the provisioning cells: Provisioner.provision on a live cluster
 # ---------------------------------------------------------------------------

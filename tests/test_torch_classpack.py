@@ -168,6 +168,45 @@ def test_repeat_classes_matches_jnp_repeat():
         np.testing.assert_array_equal(want, got.numpy())
 
 
+EDGES = ("every pod in one class", "empty classes", "all takes zero",
+         "padding rows", "truncated repeat", "seeded")
+
+
+def _row_local_decode(takes, counts, n_pods):
+    """K3's design (csrc/classpack.cu assign_decode_kernel) in numpy: each
+    class's pod rows from counts[<c], each pod's slot the first whose
+    within-row inclusive scan exceeds its rank; the last class also takes
+    the padded rows."""
+    C, K = takes.shape
+    out = np.full(n_pods, -7, np.int64)
+    for c in range(C):
+        incl = np.cumsum(takes[c].astype(np.int64))
+        lo = int(counts[:c].astype(np.int64).sum())
+        hi = n_pods if c == C - 1 else min(lo + int(counts[c]), n_pods)
+        rk = np.arange(max(lo, 0), max(hi, lo)) - lo
+        out[lo:hi] = np.where(rk < incl[-1],
+                              np.searchsorted(incl, rk, side="right"), -1)
+    assert (out != -7).all(), "a pod row was not written"
+    return out
+
+
+@pytest.mark.parametrize("K", [1, 7, 64])
+@pytest.mark.parametrize("name", EDGES)
+def test_row_local_decode_equals_the_global_scan(name, K):
+    """The one-launch K3 decodes each class from its own row: on inputs K2
+    could emit (takes >= 0, row totals <= counts) that equals the
+    reference's global cumsum + searchsorted, which the plain version
+    computes."""
+    from karpenter_tpu_torch import workloads
+    takes, counts, n_pods = workloads.assign_decode_edges(
+        12, K, 240, np.random.default_rng(K))[name]
+    want = ck.classpack_assign_decode_plain(torch.tensor(takes),
+                                            torch.tensor(counts), n_pods)
+    assert want.dtype == torch.int16
+    np.testing.assert_array_equal(_row_local_decode(takes, counts, n_pods),
+                                  want.numpy())
+
+
 def test_pack_bits_round_trip_matches_numpy():
     rng = np.random.default_rng(3)
     for O in (8, 13, 512, 1000):

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from karpenter_tpu_torch import workloads
+from karpenter_tpu_torch._build import KernelError
 from karpenter_tpu_torch.api.objects import NodePool
 from karpenter_tpu_torch.catalog.generate import generate_catalog
 from karpenter_tpu_torch.ops import classpack as cp
@@ -620,3 +621,175 @@ def test_cuda_sharded_cell_matches_the_golden(cuda_device):
         assert sig == workloads.GOLDEN_SHARDED[cell][r]
         assert ck.LAUNCHES["classpack_slab_sharded"] == 1
         assert ck.LAUNCHES["classpack_scan"] == 0
+
+
+# ---- K3, one launch per call: a class's row scanned in shared memory ----
+
+K3_EDGES = ("every pod in one class", "empty classes", "all takes zero",
+            "padding rows", "truncated repeat", "seeded")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K,n_pods", [(40, 512, 3000), (16, 2**15, 4000)])
+@pytest.mark.parametrize("name", K3_EDGES)
+def test_cuda_assign_decode_edges_match_plain(cuda_device, name, C, K,
+                                              n_pods):
+    """K3 and K3s on edge inputs K2 could emit: one launch each, equal to
+    their plain versions (int16 below K = 2^15, int32 at it).  The shard
+    stack holds the case, the case with its classes reversed, and the case
+    with no takes; then two shards sharing one counts row (stride 0)."""
+    takes, counts, _ = workloads.assign_decode_edges(
+        C, K, n_pods, np.random.default_rng(K))[name]
+    t = torch.tensor(takes, device=cuda_device)
+    c = torch.tensor(counts, device=cuda_device)
+    ck.reset_launches()
+    got = ck.classpack_assign_decode(t, c, n_pods)
+    want = ck.classpack_assign_decode_plain(t, c, n_pods)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["classpack_assign_decode"] == 1
+    assert got.dtype == want.dtype == (torch.int16 if K < 2**15
+                                       else torch.int32)
+    assert torch.equal(got, want)
+    ts = torch.stack([t, t.flip(0), torch.zeros_like(t)])
+    cs = torch.stack([c, c.flip(0), c])
+    got = ck.classpack_assign_decode_sharded(ts, cs, n_pods)
+    want = ck.classpack_assign_decode_sharded_plain(ts, cs, n_pods)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    shared = c.expand(2, C)
+    got = ck.classpack_assign_decode_sharded(ts[::2].contiguous(), shared,
+                                             n_pods)
+    want = ck.classpack_assign_decode_sharded_plain(ts[::2], shared, n_pods)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ck.LAUNCHES["classpack_assign_decode_sharded"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_assign_decode_refuses_past_its_slots(cuda_device):
+    t = torch.zeros((2, 2**15 + 4), dtype=torch.int32, device=cuda_device)
+    c = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    ck.reset_launches()
+    with pytest.raises(KernelError):
+        ck.classpack_assign_decode(t, c, 4)
+    assert ck.LAUNCHES["classpack_assign_decode"] == 0
+
+
+# ---- pdhg: the resident kernel (operator in shared memory) and the
+# streaming one, chosen by shape ----
+
+def _lp_ops(insts, dev):
+    from karpenter_tpu_torch.ops import lpsolve as lp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bt = lp.pad_batch(insts)
+    return [torch.from_numpy(a).to(dev) for a in bt.operands()], bt
+
+
+def _lp_insts(seed, shapes, inf_u=False):
+    from karpenter_tpu_torch.ops import lpsolve as lp
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, me, mi in shapes:
+        c, A, b, G, h, u = random_lp(rng, n, me, mi)
+        if inf_u:
+            u[::3] = np.inf
+        out.append(lp.LPInstance(c=np.asarray(c, np.float32), A_eq=A,
+                                 b_eq=b, A_ub=G, b_ub=h, upper=u))
+    return out
+
+
+def _agree(got, want, c, what):
+    """Same status, objective within relative 1e-3, x within 2e-2,
+    iterations within a factor 1.5 (float32 sums in another order)."""
+    for i in range(c.shape[0]):
+        assert bool(got[3][i]) == bool(want[3][i]), what
+        og = float(c[i].astype(np.float64) @ got[0][i])
+        ow = float(c[i].astype(np.float64) @ want[0][i])
+        assert og == pytest.approx(ow, rel=1e-3, abs=1e-3), what
+        np.testing.assert_allclose(got[0][i], want[0][i], atol=2e-2,
+                                   err_msg=what)
+        assert got[4][i] <= 1.5 * want[4][i] and \
+            want[4][i] <= 1.5 * got[4][i], what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes,inf_u", [
+    ([(20, 5, 8)], False), ([(80, 20, 30)], True), ([(1500, 40, 60)], False),
+    ([(1800, 100, 200)], False), ([(20, 5, 8), (28, 7, 12), (16, 4, 6)],
+                                  False)])
+def test_cuda_pdhg_resident_matches_plain_and_streaming(
+        cuda_device, monkeypatch, shapes, inf_u):
+    """These masters fit the SMs' shared memory, so the launch takes the
+    resident kernel; it agrees with the plain version and with the
+    streaming kernel (forced by a plan of None) on the same operands."""
+    from karpenter_tpu_torch.ops import lpsolve as lp
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    ops, bt = _lp_ops(_lp_insts(len(shapes) + shapes[0][0], shapes, inf_u),
+                      cuda_device)
+    args = (*ops, lp.DEFAULT_EPS, 20000, lp.DEFAULT_CHECK_EVERY)
+    lk.reset_launches()
+    res = [g.cpu().numpy() for g in lk.pdhg(*args)]
+    assert lk.LAUNCHES == {"pdhg": 1, "pdhg_resident": 1}
+    monkeypatch.setattr(lk, "resident_plan", lambda *a: None)
+    stream = [g.cpu().numpy() for g in lk.pdhg(*args)]
+    assert lk.LAUNCHES == {"pdhg": 2, "pdhg_resident": 1}
+    want = [w.cpu().numpy() for w in lk.pdhg_plain(*args)]
+    assert all(bool(d) for d in res[3])
+    _agree(res, want, bt.c, "resident vs plain")
+    _agree(res, stream, bt.c, "resident vs streaming")
+
+
+@pytest.mark.cuda
+def test_cuda_pdhg_resident_is_deterministic(cuda_device):
+    """Two resident launches of the same operands give the same bits (the
+    band partials are summed in a fixed order), on a master cut into many
+    tiles and on a batch."""
+    from karpenter_tpu_torch.ops import lpsolve as lp
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    for shapes in ([(2000, 128, 256)], [(20, 5, 8), (28, 7, 12)]):
+        ops, _ = _lp_ops(_lp_insts(5, shapes), cuda_device)
+        args = (*ops, lp.DEFAULT_EPS, 4000, lp.DEFAULT_CHECK_EVERY)
+        plan = lk.device_plan(ops[0].shape[0], ops[0].shape[1]
+                              + ops[2].shape[1], ops[0].shape[2],
+                              cuda_device)
+        assert plan is not None
+        lk.reset_launches()
+        one, two = lk.pdhg(*args), lk.pdhg(*args)
+        torch.cuda.synchronize()
+        assert lk.LAUNCHES["pdhg_resident"] == 2
+        for a, b in zip(one, two):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_pdhg_plan_fits_the_card(cuda_device):
+    """The plan's shared memory is the kernel's own count, and the
+    headline master (B=1, 768 × 8192) is resident on this card while a
+    B=2 batch of it is not."""
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    sms, optin, smem = lk.device_smem(cuda_device)
+    assert 0 < smem < optin
+    for h, w in ((1, 4), (13, 64), (128, 376)):
+        assert lk._lib().lp_resident_smem(h, w) == lk.resident_smem_bytes(h, w)
+    if sms >= 132 and optin >= 232_448:
+        assert lk.device_plan(1, 768, 8192, cuda_device) is not None
+        assert lk.device_plan(2, 768, 8192, cuda_device) is None
+
+
+@pytest.mark.cuda
+def test_cuda_pdhg_resident_launch_error_raises(cuda_device, monkeypatch):
+    """A resident launch the card refuses (a tile past the shared memory a
+    block can hold) raises KernelError and is not retried on the streaming
+    kernel."""
+    from karpenter_tpu_torch.ops import lpsolve as lp
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    ops, _ = _lp_ops(_lp_insts(9, [(80, 20, 30)]), cuda_device)
+    B, mt, n = ops[0].shape[0], ops[0].shape[1] + ops[2].shape[1], \
+        ops[0].shape[2]
+    monkeypatch.setattr(lk, "resident_plan", lambda *a: lk.ResidentPlan(
+        B=B, mt=mt, n=n, row_bands=1, col_bands=1, band_rows=mt,
+        band_cols=1 << 16))
+    lk.reset_launches()
+    with pytest.raises(KernelError):
+        lk.pdhg(*ops, lp.DEFAULT_EPS, 64, lp.DEFAULT_CHECK_EVERY)
+    assert lk.LAUNCHES == {"pdhg": 0, "pdhg_resident": 0}

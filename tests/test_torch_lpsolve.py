@@ -248,7 +248,7 @@ def test_cpu_solve_launches_no_kernel_and_default_needs_cuda(monkeypatch):
     lk.reset_launches()
     port_lp.solve_lp(c, A_eq=A, b_eq=b, A_ub=G, b_ub=h, upper=u,
                      device="cpu")
-    assert lk.LAUNCHES == {"pdhg": 0}
+    assert lk.LAUNCHES == {k: 0 for k in lk.KERNELS}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_lp.solve_lp(c, A_eq=A, b_eq=b, A_ub=G, b_ub=h, upper=u)
