@@ -88,9 +88,13 @@ pass):
                plain version on tests/test_native.py's edge cases (an
                inf-priced only fit, a score overflow, a NaN price, a node
                cap, existing nodes; solve_ffd on the card must also equal
-               the host greedy rung there) and on seeded P = 4096 scans
-               (existing slots, caps, slot exhaustion).  Outputs equal,
-               the float32 slot usage bit for bit.
+               the host greedy rung there), on seeded P = 4096 scans
+               (existing slots, caps, slot exhaustion) and on
+               `workloads.FFD_CURSOR_CASES` (rows of one class that differ
+               in request, compat row or node cap, invalid rows inside a
+               class, a class out of slots: the first-fit cursor resets).
+               Outputs equal, the float32 slot usage bit for bit, and two
+               launches of K7 equal bit for bit.
  10. provisioning — Provisioner.provision through the four cells of
                `workloads.PROVISION_CELLS` at full width (600 types):
                provision-live-50k-20k (the default Provisioner with
@@ -107,10 +111,19 @@ pass):
                Then warm p50s on the live cell's frozen round-2 state
                (Provisioner.solve, and whole provision() rounds on fresh
                copies with their tensorize / pack / launch split), K7
-               against its plain version on every provision-small batch,
-               and the CUDA-event times of K6, the slab programs (rows
-               7-8) and K7 (row 11) at the cells' own inputs, beside their
-               bounds, plain versions and (K6) argsort + scatter_add_.
+               against its plain version on every provision-small batch
+               (twice, bit-equal) with its card time there, and the times
+               of K6, the slab programs (rows 7-8) and K7 (row 11) at the
+               cells' own inputs, beside their bounds, plain versions and
+               (K6) argsort + scatter_add_.  K7's bound is the largest of
+               its bytes, its operations and its row-to-row dependency,
+               from the rows' counts (`ffd_counts`: runs, steps, slots a
+               first fit tests from its cursor, new nodes) and the card's
+               cycles of a least row step and a dependent float32 add,
+               measured by `ffd_kernels.step_cycles`.  The slab program's
+               trace, with the launch counts read around the same calls,
+               gives K6's split by launch and must name no kernel of K6's
+               earlier design.
  11. sharded kernels — the shard-batched K1-K4 and K6 and K8 shard_psum
                (one launch over the n = 8 shards of a mesh laid on the card)
                against their plain versions, and shard for shard against n
@@ -122,8 +135,9 @@ pass):
                exhaustion in one shard only (its pods x4 at K = 2048), all
                512 existing columns owned by one shard (overcommitted ones
                among them), K8 on the 2 x 4 host mesh against the flat 8,
-               and n = 1.  Integers equal, K8 bit for bit, K4's cost within
-               relative 1e-5.
+               and n = 1.  K6s also on each row-17 input's slots as int16
+               and int32, twice each.  Integers equal, K8 bit for bit, K4's
+               cost within relative 1e-5.
  12. sharded paths — the megafleet (solve_partitioned on
                `workloads.megafleet_problem(8)`, 1 000 000 pods: decode=False,
                decode=True, device_decode=True), the headline through
@@ -139,7 +153,9 @@ pass):
                device time of each shard-batched kernel beside n serial
                single-device launches of the same shards, the five
                programs (rows 13-17) held against their plain compositions
-               and timed, and the device idle share.
+               and timed, and the device idle share (the slab solve's
+               trace read as phase 10's, with K6s's split by launch at
+               row 17's input).
 
 Prints the kernel table as one JSON line (each row's `launches` from its
 own path, `launches_by_path` from every main path), the card's name and
@@ -242,7 +258,9 @@ def build():
     for stem in libs:
         for line in _build.build_log(stem).splitlines():
             if "ptxas" in line and ("Used" in line or "spill" in line
-                                    or "Compiling" in line):
+                                    or "Compiling" in line) or (
+                    "spill" in line and "0 bytes spill stores, 0 bytes "
+                    "spill loads" not in line):
                 log("[build]   " + line.strip())
 
 
@@ -586,7 +604,8 @@ def timings(torch, card, pods, catalog, pools, prob, ex):
 def device_busy(torch, fn, iters=3):
     """Device busy time per call from a torch.profiler trace (CUPTI): the
     sum of CUDA kernel and copy self times over the wall time of `iters`
-    synchronised calls."""
+    synchronised calls; `per_kernel` is each name's device ms per call,
+    `events` the launches of each name the trace recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -598,15 +617,17 @@ def device_busy(torch, fn, iters=3):
             fn()
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    by = {}
+    by, events = {}, {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
             by[ev.key] = ev.self_device_time_total / 1e3 / iters
+            events[ev.key] = ev.count
     dev = sum(by.values())
     short = {k[:40]: round(v, 4) for k, v in
              sorted(by.items(), key=lambda kv: -kv[1])[:6]}
     return dict(device_ms=dev, wall_ms=wall, idle_share=1 - dev / wall,
-                by_kernel=short, names=sorted(by))
+                by_kernel=short, names=sorted(by), per_kernel=by,
+                events=events)
 
 
 # ---------------------------------------------------------------------------
@@ -1659,15 +1680,22 @@ def ffd_edge_cases():
 
 def compare_ffd_args(torch, name, args, K):
     """K7 against its plain version on one input (tensors on the card):
-    every output equal, bit for bit."""
+    every output equal, bit for bit, and a second launch equal to the
+    first."""
     from karpenter_tpu_torch.ops import ffd_kernels as fk
     got = fk.ffd_scan(*args, K)
+    again = fk.ffd_scan(*args, K)
     want = fk.ffd_scan_plain(*args, K)
     torch.cuda.synchronize()
-    for a, b, what in zip(got, want, ("assignment", "slot_option",
-                                      "slot_used", "n_open")):
+    for a, a2, b, what in zip(got, again, want, ("assignment", "slot_option",
+                                                 "slot_used", "n_open")):
         check(a.dtype == b.dtype and torch.equal(a, b),
               f"K7 ffd_scan {what} differs from plain ({name})")
+        check(torch.equal(a.view(torch.int32) if a.is_floating_point()
+                          else a,
+                          a2.view(torch.int32) if a2.is_floating_point()
+                          else a2),
+              f"K7 ffd_scan {what}: two launches differ ({name})")
     return got
 
 
@@ -1699,6 +1727,14 @@ def compare_ffd(torch, err):
         placed = int((got[0] >= 0).sum())
         log(f"[ffd] {name}: K={K} n_open={int(got[3])} placed {placed} "
             f"-> equal to plain")
+    # rows of one class that are not all identical: the cursor resets
+    for name in workloads.FFD_CURSOR_CASES:
+        arrays, K = workloads.ffd_cursor_case(name, rng, P=4096)
+        args = tuple(torch.tensor(a, device=dev) for a in arrays)
+        got = compare_ffd_args(torch, name, args, K)
+        log(f"[ffd] cursor case {name!r}: P=4096 K={K} n_open="
+            f"{int(got[3])} placed {int((got[0] >= 0).sum())} -> equal to "
+            f"plain, two launches bit-equal")
     err["ffd_scan"] = 0.0
 
 
@@ -1901,32 +1937,140 @@ def once_ms(torch, fn):
     return a.elapsed_time(b), out
 
 
-def ffd_bound(args, out):
-    """(bound ms, by) of one K7 scan: the bytes of its inputs and outputs,
-    each once, or the operations this run's data needs — the fit test
-    (2R per open slot) of every valid row, and the option pass (3R + 4 per
-    column) of every row that had to look for a new node — the larger."""
-    (req, packed, crow, cid, valid, cap, rem, alloc, price, rank, iopt,
-     iused) = args
-    K = iopt.shape[0]
+def ffd_counts(args, out):
+    """Row counts of one K7 scan from its inputs and outputs (open slots a
+    prefix, as every main path lays them), the work the function needs.  A
+    run is a sequence of valid rows of one class, each identical to the
+    valid row before it (compat row, node cap, request bit for bit); a step
+    is a run's rows in a row that went to one slot, or to none.  Counted:
+    the open slots a first fit tests from the previous identical row's slot
+    (the cursor) and, for comparison, from slot 0; the float32 adds that
+    fill a slot inside a step; the runs that list new-node candidates (the
+    options of the best pool rank that may open a node) and the candidates
+    each new-node choice scores."""
+    (req, packed, crow, cid, valid, cap, _, alloc, price, rank, iopt, _) = (
+        None if t is None else t.cpu().numpy() for t in args)
+    a = out[0].cpu().numpy()
+    K = out[1].shape[0]
+    O = alloc.shape[0]
+    comp = np.unpackbits(packed, axis=1, count=O).astype(bool)
+    finite = np.isfinite(price)
+    n_open = 0 if iopt is None else int((iopt >= 0).sum())
+    c = dict(K=K, rows=len(a), valid_rows=int(valid.sum()), runs=0, steps=0,
+             fill_adds=0, looked=0, opened=0, candidate_runs=0, scored=0,
+             tests_from_0=0, tests_from_cursor=0)
+    prev_cid, key, cursor, last, ncand = None, None, 0, None, None
+    for i in range(len(a)):
+        if cid[i] != prev_cid:
+            key = None
+        prev_cid = cid[i]
+        if not valid[i]:
+            continue
+        k = int(a[i])
+        row_key = (int(crow[i]), int(cap[i]), req[i].tobytes())
+        if row_key != key:
+            c["runs"] += 1
+            key, cursor, last, ncand = row_key, 0, None, None
+        if k != last:
+            c["steps"] += 1
+        elif k >= 0:
+            c["fill_adds"] += 1
+        last = k
+        if 0 <= k < n_open:
+            c["tests_from_0"] += k + 1
+            c["tests_from_cursor"] += k - cursor + 1
+            cursor = k
+            continue
+        c["tests_from_0"] += n_open
+        c["tests_from_cursor"] += n_open - cursor
+        if n_open < K:
+            c["looked"] += 1
+            if ncand is None:
+                c["candidate_runs"] += 1
+                ok = (comp[crow[i]] & finite
+                      & (req[i][None, :] <= alloc).all(1))
+                ncand = int((rank[ok] == rank[ok].min()).sum()) if ok.any() \
+                    else 0
+            c["scored"] += ncand
+        if k == n_open:
+            c["opened"] += 1
+            n_open += 1
+        cursor = k if k >= 0 else n_open
+    return c
+
+
+def ffd_bound(args, counts, cycles):
+    """(bound ms, "bytes" or "operations", binding term, {term: ms}) of one
+    K7 scan, from its row counts (`ffd_counts`) and `cycles`, the card's
+    (least row step, dependent float32 add) in SM cycles
+    (`ffd_kernels.step_cycles`), the largest of three terms:
+      bytes       its inputs and outputs, each once, over the memory rate;
+      operations  the fit tests from the cursor (2R each), the candidate
+                  list of each run that needs one (4R + 3 per option) and
+                  the scores of each new-node choice (5 per candidate),
+                  over the card's float32 peak;
+      dependency  the chain from row to row: each row reads the state the
+                  row before it wrote, so each step takes at least one
+                  least row step, and each further row of a step one
+                  dependent add (the reference's float32 adds, in order),
+                  at the card's maximum SM clock.  Operations in sequence:
+                  its bound_by is "operations"."""
+    req, alloc = args[0], args[7]
+    K = counts["K"]
     P, R = req.shape
     O = alloc.shape[0]
-    nbytes = sum(t.numel() * t.element_size() for t in args)
+    nbytes = sum(t.numel() * t.element_size() for t in args
+                 if t is not None)
     nbytes += P * 4 + K * 4 + K * R * 4 + 4
-    a = out[0].cpu().numpy().astype(np.int64)
-    E = int((iopt >= 0).sum())
-    v = valid.cpu().numpy()
-    opened = np.zeros(len(a), bool)
-    first = {}
-    for i, k in enumerate(a.tolist()):
-        if k >= E and k not in first:
-            first[k] = i
-            opened[i] = True
-    n_open = E + np.concatenate([[0], np.cumsum(opened)[:-1]])
-    looked = opened | (v & (a < 0) & (n_open < K))
-    nops = int((n_open * v).sum()) * 2 * R + int(looked.sum()) * O * (3 * R + 4)
-    t_b, t_o = nbytes / MEM_BW, nops / F32_PEAK
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    nops = (counts["tests_from_cursor"] * 2 * R
+            + counts["candidate_runs"] * O * (4 * R + 3)
+            + counts["scored"] * 5)
+    step, add = cycles
+    terms = {"bytes": nbytes / MEM_BW * 1e3,
+             "operations": nops / F32_PEAK * 1e3,
+             "dependency": (counts["steps"] * step + counts["fill_adds"] * add)
+             / SM_CLOCK_HZ * 1e3}
+    term = max(terms, key=terms.get)
+    return (terms[term], "bytes" if term == "bytes" else "operations", term,
+            terms)
+
+
+SLAB_KERNELS = ("slab_count_kernel", "slab_scan_kernel", "slab_scatter_kernel")
+
+
+def slab_trace(torch, card, what, fn, iters=3):
+    """`device_busy` of `fn`, a call that launches K6 or K6s once, with
+    K6's launch counters read around the same calls: one K6 launch a call,
+    and a trace that names no kernel of K6's earlier design (the per-chunk
+    rank kernel) and names K6's kernels of this design; each one's device
+    time per launch (its device time over the launches the trace recorded)
+    is logged with that count: K6's split by launch.  A profiler trace of
+    these ctypes launches has missed some kernels in some runs, so the
+    names it misses are logged, not failed: the counters say that the
+    wrapper launched (each launch's error is checked there)."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    keys = ("classpack_slab", "classpack_slab_sharded")
+    before = sum(ck.LAUNCHES[k] for k in keys)
+    busy = device_busy(torch, fn, iters)
+    calls = sum(ck.LAUNCHES[k] for k in keys) - before
+    slab = {k: v for k, v in busy["per_kernel"].items() if "slab_" in k}
+    split = {}
+    for n in SLAB_KERNELS:
+        ks = [k for k in slab if n in k]
+        if ks:
+            count = sum(busy["events"][k] for k in ks)
+            split[n] = (sum(slab[k] for k in ks) * iters / count, count)
+    check(calls == iters + 1 and split
+          and not any("slab_rank_kernel" in k for k in slab),
+          f"{what}: {calls} K6 launches in {iters + 1} calls; the trace "
+          f"names {sorted(slab)}")
+    missed = [n for n in SLAB_KERNELS if n not in split]
+    log(f"[trace] {what}: K6 launched once a call ({calls} calls, {iters} "
+        f"traced); its kernels' device ms per launch (launches in the "
+        f"trace) { {n: (round(v, 5), c) for n, (v, c) in split.items()} }"
+        + (f", missed by the trace: {missed}" if missed else "")
+        + f" on {card}")
+    return busy
 
 
 def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
@@ -1937,13 +2081,26 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
     from karpenter_tpu_torch.ops import ffd_kernels as fk
     from karpenter_tpu_torch.ops.classpack import \
         class_pack_assign_slab_kernel
+    cycles = min(fk.step_cycles() for _ in range(3))
+    log(f"[probe] K7's dependent steps on this card (clock64, one warp): "
+        f"{cycles[0]:.2f} SM cycles a least row step (shared-memory load, "
+        f"float32 add and compare, warp vote), {cycles[1]:.2f} a dependent "
+        f"float32 add; at the maximum SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz")
+    small, small_bound = {}, {}
     for name, a in scans.items():
         if name.startswith(SMALL_PATH):
             got = compare_ffd_args(torch, name, a[:-1], a[-1])
+            small[name] = card_ms(torch, lambda: fk.ffd_scan(*a[:-1], a[-1]),
+                                  20)
             ms = event_ms(torch, lambda: fk.ffd_scan(*a[:-1], a[-1]), 10)
+            counts = ffd_counts(a[:-1], got)
+            b, _, term, _ = ffd_bound(a[:-1], counts, cycles)
+            small_bound[name] = b
             log(f"[ffd] {name}: P={a[0].shape[0]} K={a[-1]} "
-                f"n_open={int(got[3])} -> equal to plain; K7 {ms:.4f} ms "
-                f"(CUDA events) on {card}")
+                f"n_open={int(got[3])} -> equal to plain; K7 "
+                f"{small[name]:.4f} ms on the card ({ms:.4f} ms CUDA events "
+                f"back to back), bound {b * 1e3:.3f} us by {term}; rows "
+                f"{counts} on {card}")
 
     def paths(name):
         return {p: c.get(name, 0) for p, c in by_path.items()}
@@ -1997,6 +2154,8 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
                                           "slot_option", "n_unsched")):
             check(torch.equal(g, w), f"{row_name} {what} differs from the "
                                      f"plain programs ({key})")
+        slab_trace(torch, card, f"{row_name} ({key})",
+                   lambda: class_pack_assign_slab_kernel(*args))
         prog_ms = event_ms(torch, lambda: class_pack_assign_slab_kernel(*args),
                            5)
         (req, cnt, packed, cap, alloc, price, rank, iopt, iused, Kp,
@@ -2045,12 +2204,16 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
                                       "slot_used", "n_open")):
         check(g.dtype == w.dtype and torch.equal(g, w),
               f"K7 ffd_scan {what} differs from plain ({name})")
-    bound, by = ffd_bound(args, got)
+    counts = ffd_counts(args, got)
+    bound, by, term, terms = ffd_bound(args, counts, cycles)
     log(f"[kernel] ffd_scan ({name}: Ppad={args[0].shape[0]}, "
         f"Opad={args[7].shape[0]}, K={K}, n_open={int(got[3])}): "
         f"{ms:.3f} ms on the card (CUDA events {host_ms:.3f} ms; plain "
-        f"{plain_ms:.1f} ms, library None, bound "
-        f"{bound * 1e3:.3f} us by {by}) — equal to plain on {card}")
+        f"{plain_ms:.1f} ms, library None, bound {bound:.4f} ms by {term}, "
+        f"terms {terms}; {ms / bound:.2f}x the bound) — equal to plain; "
+        f"rows {counts}; provision-small-3x64 batches "
+        f"{[round(v, 4) for v in small.values()]} ms (bounds "
+        f"{[round(v, 5) for v in small_bound.values()]} ms) on {card}")
     # row 11: solve_ffd's scan is K7, one row for both
     rows.append(dict(
         name="ffd_scan", route="cuda", source="karpenter_tpu_torch/csrc/ffd.cu",
@@ -2058,7 +2221,9 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
         launches=by_path[FFD_PATH]["ffd_scan"], path=FFD_PATH,
         launches_by_path=paths("ffd_scan"), max_abs_err=err["ffd_scan"],
         ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None))
+        bound_term=term, bound_terms=terms, step_cycles=list(cycles),
+        rows=counts, small_ms=list(small.values()),
+        small_bound_ms=list(small_bound.values()), library_ms=None))
     return rows
 
 
@@ -2225,6 +2390,24 @@ def compare_sharded(torch, name, s, err, emit=True):
     return got
 
 
+def compare_slab_layouts(torch, name, a, K):
+    """K6s on one row-17 input's slots in both layouts, int16 (K3's at
+    fewer than 2^15 slots) and int32: equal to plain, each launched twice
+    with the same bits."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    for x in (a.to(torch.int16), a.to(torch.int32)):
+        got = ck.classpack_slab_sharded(x, K)
+        again = ck.classpack_slab_sharded(x, K)
+        want = ck.classpack_slab_sharded_plain(x, K)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) and torch.equal(g, h)
+                  for g, h, w in zip(got, again, want)),
+              f"K6s differs from plain or between launches ({name}, "
+              f"{x.dtype})")
+    log(f"[sharded] {name}: K6s on {tuple(a.shape)} slots, K={K}, int16 and "
+        f"int32 -> equal to plain, two launches bit-equal")
+
+
 def owned_by_one(head, ex, K):
     """Row 14's inputs with every existing column owned by shard 0 (the
     other shards see none), overcommitted ones among them."""
@@ -2263,8 +2446,11 @@ def phase11(torch, caps, head, ex, err):
     cases = {}
     for row, (kind, args) in caps.items():
         cases[row] = stacked(args, kind)
-        compare_sharded(torch, f"{row} ({kind}, real)", cases[row], err,
-                        emit=not kind.endswith("pack"))
+        got = compare_sharded(torch, f"{row} ({kind}, real)", cases[row], err,
+                              emit=not kind.endswith("pack"))
+        if kind == "partitioned_assign_slab":
+            compare_slab_layouts(torch, row, got["assignment"],
+                                 cases[row]["K"])
     base = cases["row 17"]
     # empty shards: two of the megafleet's shards given no pods
     s = dict(base, cnt=base["cnt"].clone())
@@ -2454,9 +2640,11 @@ def sharded_solve_timings(torch, card, mega, head, ex):
     for k, (p50, xs) in out.items():
         log(f"[time] {k}: warm p50 {p50:.3f} ms over {len(xs)} "
             f"({', '.join(f'{x:.1f}' for x in xs)}) on {card}")
-    busy = device_busy(torch, lambda: solve_partitioned(
-        mega, mesh=mesh, max_nodes_per_shard=workloads.MEGAFLEET_K,
-        device_decode=True), iters=2)
+    busy = slab_trace(torch, card, f"{MEGA_PATH} slab solve",
+                      lambda: solve_partitioned(
+                          mega, mesh=mesh,
+                          max_nodes_per_shard=workloads.MEGAFLEET_K,
+                          device_decode=True), iters=2)
     log(f"[trace] {MEGA_PATH} slab solve: device busy "
         f"{busy['device_ms']:.3f} of {busy['wall_ms']:.3f} ms wall per "
         f"solve, idle share {busy['idle_share']:.4f}; by kernel "

@@ -15,8 +15,8 @@
 // The shard axis.  shard_map runs n copies of the single-device program on
 // their own slices with the catalog replicated; here K1-K4 and K6 take a
 // shard count n and run it as one launch, the shard as a grid axis
-// (blockIdx.y, or one block per shard for the one-block kernels K2, K4 and
-// the scan of K6).  Shard s reads its inputs at base + s * stride
+// (blockIdx.y, or one block per shard for the one-block kernels K2 and
+// K4).  Shard s reads its inputs at base + s * stride
 // (ShardStrides; a stride of 0 shares one copy, as the replicated operands
 // of rows 13-14 are shared) and writes its own outputs and scratch at
 // base + s * (the output's size).  The single-device programs are the same
@@ -832,118 +832,226 @@ sweep_kernel(const int* __restrict__ req, const int* __restrict__ counts_b,
 //
 // A stable counting sort, which fits the output exactly: the histogram IS
 // slot_counts, its exclusive scan gives each key's first position, and a
-// row goes to first[key] + (rows of its key before it).  Three launches:
-//   1. one block per 1024-row chunk: each row's rank among the chunk's
-//      earlier rows of its key (warps in order; inside a warp the peers of
-//      a key come from __match_any_sync), and the chunk's key histogram;
-//   2. one block: for every key, the exclusive scan of its chunk counts
-//      over chunks (in place) and its total, then the exclusive scan of the
-//      totals over keys;
-//   3. one thread per row: the scatter.
-// The reference sorts either the composite key * n + row or, past the int32
-// guard (K + 1) * n >= 2^31, argsort(key); both give this one order.  Each
-// of the three launches takes the shard as a grid axis (blockIdx.y; one
-// scan block per shard).  Bound on this card: bytes (read the assignment once, write the order and the
-// counts once); at the main path's shapes the three launches' latency
-// dominates.
+// row goes to first[key] + (rows of its key before it).  The reference
+// sorts either the composite key * n + row or, past the int32 guard
+// (K + 1) * n >= 2^31, argsort(key); both give this one order.
+//
+// Bound on this card: bytes (read the slots, write the order and the
+// counts once), far below three launches' latency at the main paths'
+// shapes; what costs is the work per key (K + 1 of them) done once per
+// block.  So each shard's rows are cut into a few large blocks (the host's
+// slab_plan: about one block per SM over all shards, each at least K + 1
+// rows), each block keeps its histogram in shared memory, and the table of
+// per-block counts stays a few dozen rows per shard.  Three launches, each
+// with the shard as a grid axis (blockIdx.y):
+//   1. count: one block per (row block, shard), a shared-memory histogram
+//      (each warp's lanes of one key add once, through __match_any_sync),
+//      written as the block's row of the table;
+//   2. scan: one block per (256 keys, shard), one thread per key: the
+//      key's exclusive scan over the row blocks, in place; the key totals
+//      (slot_counts), their exclusive scan inside the tile (key_first) and
+//      the tile's total;
+//   3. scatter: one block per (row block, shard), W warps, each warp owning
+//      a contiguous W-th of the block's rows.  Each warp counts its rows
+//      per key in a table of its own; the block turns the W tables into
+//      each warp's first position per key (the key's first position in the
+//      shard, plus the earlier tiles' totals, plus the earlier row blocks'
+//      count, plus the earlier warps' counts); then each warp walks its
+//      rows in order, 32 a step: the lanes of one key are peers under
+//      __match_any_sync, the lowest takes the base and adds their number,
+//      and each row's place is the base plus its rank among its peers.  No
+//      block barrier inside the walk, and no warp waits for another.
+// The count and both walks load eight steps of rows before using them, so
+// eight loads per thread are in flight instead of one.
 // ---------------------------------------------------------------------------
 
-constexpr int kSlabChunk = 1024;
+constexpr int kSlabThreads = 256;   // count and scan blocks
+constexpr int kSlabTile = 256;      // keys per scan block
+constexpr int kSlabMaxWarps = 8;    // warps of a scatter block
+constexpr int kSlabBatch = 8;       // row loads in flight per thread
 
-template <typename T>
-__global__ void __launch_bounds__(kSlabChunk)
-slab_rank_kernel(const T* __restrict__ assignment, int n, int K,
-                 int* __restrict__ row_rank, int* __restrict__ chunk_counts) {
-  extern __shared__ int s_hist[];  // K + 1
-  const long long sh = blockIdx.y;
-  assignment += sh * n;
-  row_rank += sh * n;
-  chunk_counts += sh * gridDim.x * (long long)(K + 1);
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  for (int k = t; k <= K; k += blockDim.x) s_hist[k] = 0;
-  const int row = blockIdx.x * kSlabChunk + t;
-  const bool live = row < n;
-  int key = K + 1;  // rows past n: a group of their own, never counted
-  if (live) {
-    const int a = (int)assignment[row];
-    key = a >= 0 ? a : K;
-  }
-  const unsigned peers = __match_any_sync(0xffffffffu, key);
-  const unsigned live_lanes = __ballot_sync(0xffffffffu, live);
-  const int before = __popc(peers & ((1u << lane) - 1u));
-  const bool leader = before == 0;
-  __syncthreads();
-  int rank = 0;
-  for (int w = 0; w < kSlabChunk / 32; ++w) {
-    if (warp == w && live) {
-      const int base = s_hist[key];
-      rank = base + before;
-      __syncwarp(live_lanes);  // every peer has read the base
-      if (leader) s_hist[key] = base + __popc(peers);
-    }
-    __syncthreads();
-  }
-  if (live) row_rank[row] = rank;
-  int* out = chunk_counts + (size_t)blockIdx.x * (K + 1);
-  for (int k = t; k <= K; k += blockDim.x) out[k] = s_hist[k];
+__device__ __forceinline__ unsigned lanes_below() {
+  return (1u << (threadIdx.x & 31)) - 1u;
 }
 
-__global__ void __launch_bounds__(1024)
-slab_scan_kernel(int* __restrict__ chunk_counts, int n_chunks, int K,
-                 int* __restrict__ key_first, int* __restrict__ slot_counts) {
+template <typename T>
+__device__ __forceinline__ int slab_key(const T* a, int i, int K) {
+  const int v = (int)a[i];
+  return v >= 0 ? v : K;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSlabThreads)
+slab_count_kernel(const T* __restrict__ assignment, int n, int K, int seg,
+                  int* __restrict__ chunk_counts) {
+  extern __shared__ int s_hist[];  // K + 1
+  const int keys = K + 1, t = threadIdx.x;
+  const long long sh = blockIdx.y;
+  assignment += sh * n;
+  int* out = chunk_counts + (sh * gridDim.x + blockIdx.x) * (long long)keys;
+  for (int k = t; k < keys; k += blockDim.x) s_hist[k] = 0;
+  __syncthreads();
+  const int r0 = blockIdx.x * seg, r1 = min(n, r0 + seg);
+  for (int i0 = r0; i0 < r1; i0 += kSlabBatch * blockDim.x) {
+    int key[kSlabBatch];
+#pragma unroll
+    for (int u = 0; u < kSlabBatch; ++u) {
+      const int i = i0 + u * blockDim.x + t;
+      key[u] = i < r1 ? slab_key(assignment, i, K) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kSlabBatch; ++u) {
+      const unsigned peers = __match_any_sync(0xffffffffu, key[u]);
+      if (key[u] >= 0 && (peers & lanes_below()) == 0)
+        atomicAdd(&s_hist[key[u]], __popc(peers));
+    }
+  }
+  __syncthreads();
+  for (int k = t; k < keys; k += blockDim.x) out[k] = s_hist[k];
+}
+
+__global__ void __launch_bounds__(kSlabTile)
+slab_scan_kernel(int* __restrict__ chunk_counts, int blocks, int K,
+                 int* __restrict__ key_first, int* __restrict__ tile_sum,
+                 int* __restrict__ slot_counts) {
   __shared__ unsigned warp_buf[32];
-  const long long sh = blockIdx.x;
-  chunk_counts += sh * n_chunks * (long long)(K + 1);
-  key_first += sh * (K + 1);
+  const int keys = K + 1, t = threadIdx.x;
+  const long long sh = blockIdx.y;
+  chunk_counts += sh * blocks * (long long)keys;
+  key_first += sh * keys;
+  tile_sum += sh * gridDim.x;
   slot_counts += sh * K;
-  const int t = threadIdx.x;
-  const int n_keys = K + 1;
-  // per key: exclusive scan over chunks in place; the total to key_first
-  for (int k = t; k < n_keys; k += blockDim.x) {
-    int run = 0;
-    for (int c = 0; c < n_chunks; ++c) {
-      int* p = chunk_counts + (size_t)c * n_keys + k;
-      const int v = *p;
-      *p = run;
+  const int k = blockIdx.x * kSlabTile + t;
+  int run = 0;
+  if (k < keys) {
+    int* col = chunk_counts + k;
+    int b = 0;
+    for (; b + 8 <= blocks; b += 8) {  // eight loads in flight
+      int v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = col[(size_t)(b + u) * keys];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        col[(size_t)(b + u) * keys] = run;
+        run += v[u];
+      }
+    }
+    for (; b < blocks; ++b) {
+      const int v = col[(size_t)b * keys];
+      col[(size_t)b * keys] = run;
       run += v;
     }
-    key_first[k] = run;
+    if (k < K) slot_counts[k] = run;
   }
-  __syncthreads();
-  // exclusive scan of the totals: thread t owns a contiguous run of keys
-  const int per = (n_keys + blockDim.x - 1) / blockDim.x;
-  const int k0 = min(t * per, n_keys), k1 = min(k0 + per, n_keys);
-  unsigned mine = 0;
-  for (int k = k0; k < k1; ++k) mine += (unsigned)key_first[k];
   unsigned total;
-  unsigned run = block_exclusive_scan(mine, warp_buf, &total);
-  for (int k = k0; k < k1; ++k) {
-    const int v = key_first[k];
-    if (k < K) slot_counts[k] = v;
-    key_first[k] = (int)run;
-    run += (unsigned)v;
-  }
+  const unsigned before = block_exclusive_scan((unsigned)run, warp_buf, &total);
+  if (k < keys) key_first[k] = (int)before;
+  if (t == 0) tile_sum[blockIdx.x] = (int)total;
 }
 
 template <typename T>
-__global__ void slab_scatter_kernel(const T* __restrict__ assignment, int n,
-                                    int K, const int* __restrict__ row_rank,
-                                    const int* __restrict__ chunk_counts,
-                                    const int* __restrict__ key_first,
-                                    int n_chunks, int* __restrict__ order) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
+__global__ void __launch_bounds__(kSlabMaxWarps * 32)
+slab_scatter_kernel(const T* __restrict__ assignment, int n, int K, int seg,
+                    int tiles, const int* __restrict__ chunk_counts,
+                    const int* __restrict__ key_first,
+                    const int* __restrict__ tile_sum, int* __restrict__ order) {
+  extern __shared__ int s_cnt[];  // W x (K + 1), then the tile prefixes
+  const int keys = K + 1, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int W = blockDim.x >> 5;
   const long long sh = blockIdx.y;
   assignment += sh * n;
-  row_rank += sh * n;
-  chunk_counts += sh * n_chunks * (long long)(K + 1);
-  key_first += sh * (K + 1);
   order += sh * n;
-  const int a = (int)assignment[row];
-  const int key = a >= 0 ? a : K;
-  const int chunk = row / kSlabChunk;
-  order[key_first[key] + chunk_counts[(size_t)chunk * (K + 1) + key] +
-        row_rank[row]] = row;
+  chunk_counts += (sh * gridDim.x + blockIdx.x) * (long long)keys;
+  key_first += sh * keys;
+  tile_sum += sh * tiles;
+  int* s_tpre = s_cnt + (size_t)W * keys;
+  for (int i = t; i < W * keys; i += blockDim.x) s_cnt[i] = 0;
+  if (warp == 0) {  // the exclusive prefix of the tiles' totals
+    int run = 0;
+    for (int q0 = 0; q0 < tiles; q0 += 32) {
+      const int q = q0 + lane;
+      const int v = q < tiles ? tile_sum[q] : 0;
+      int x = v;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, d);
+        if (lane >= d) x += y;
+      }
+      if (q < tiles) s_tpre[q] = run + x - v;
+      run += __shfl_sync(0xffffffffu, x, 31);
+    }
+  }
+  __syncthreads();
+  // this warp's rows, and its own count of them per key
+  const int r0 = blockIdx.x * seg, r1 = min(n, r0 + seg);
+  const int sub = (seg + W - 1) / W;
+  const int w0 = min(r1, r0 + warp * sub), w1 = min(r1, w0 + sub);
+  int* mine = s_cnt + (size_t)warp * keys;
+  for (int i0 = w0; i0 < w1; i0 += 32 * kSlabBatch) {
+    int key[kSlabBatch];
+#pragma unroll
+    for (int u = 0; u < kSlabBatch; ++u) {
+      const int i = i0 + 32 * u + lane;
+      key[u] = i < w1 ? slab_key(assignment, i, K) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kSlabBatch; ++u) {
+      const unsigned peers = __match_any_sync(0xffffffffu, key[u]);
+      if (key[u] >= 0 && (peers & lanes_below()) == 0)
+        mine[key[u]] += __popc(peers);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  // each warp's first position per key
+  for (int k0 = t; k0 < keys; k0 += 4 * blockDim.x) {
+    int base[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + u * blockDim.x;
+      base[u] = k < keys ? key_first[k] + s_tpre[k / kSlabTile] +
+                               chunk_counts[k]
+                         : 0;
+    }
+    for (int w = 0; w < W; ++w) {  // four keys' loads, then their stores
+      int v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = k0 + u * blockDim.x;
+        v[u] = k < keys ? s_cnt[(size_t)w * keys + k] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = k0 + u * blockDim.x;
+        if (k < keys) s_cnt[(size_t)w * keys + k] = base[u];
+        base[u] += v[u];
+      }
+    }
+  }
+  __syncthreads();
+  // the walk: rows in order, 32 a step, the peers of a key ranked by lane
+  for (int i0 = w0; i0 < w1; i0 += 32 * kSlabBatch) {
+    int key[kSlabBatch];
+#pragma unroll
+    for (int u = 0; u < kSlabBatch; ++u) {
+      const int i = i0 + 32 * u + lane;
+      key[u] = i < w1 ? slab_key(assignment, i, K) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kSlabBatch; ++u) {
+      const unsigned peers = __match_any_sync(0xffffffffu, key[u]);
+      const int leader = __ffs(peers) - 1;
+      int base = 0;
+      if (key[u] >= 0 && lane == leader) {
+        base = mine[key[u]];
+        mine[key[u]] = base + __popc(peers);
+      }
+      base = __shfl_sync(0xffffffffu, base, leader);
+      if (key[u] >= 0)
+        order[base + __popc(peers & lanes_below())] = i0 + 32 * u + lane;
+      __syncwarp();
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -978,26 +1086,30 @@ __global__ void shard_psum_kernel(const float* __restrict__ v, int hosts,
 
 template <typename T>
 cudaError_t launch_slab(const T* assignment, int n_shards, int n, int K,
-                        int* row_rank, int* chunk_counts, int* key_first,
-                        int* order, int* slot_counts, cudaStream_t stream) {
-  const int n_chunks = (n + kSlabChunk - 1) / kSlabChunk;
-  const size_t smem = (size_t)(K + 1) * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        slab_rank_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  slab_rank_kernel<T><<<dim3(n_chunks, n_shards), kSlabChunk, smem, stream>>>(
-      assignment, n, K, row_rank, chunk_counts);
-  cudaError_t err = cudaGetLastError();
+                        int blocks, int seg, int warps, int* chunk_counts,
+                        int* key_first, int* tile_sum, int* order,
+                        int* slot_counts, cudaStream_t stream) {
+  const int keys = K + 1, tiles = (keys + kSlabTile - 1) / kSlabTile;
+  const size_t hist = (size_t)keys * sizeof(int);
+  const size_t cnt = ((size_t)warps * keys + tiles) * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      slab_count_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)hist);
   if (err != cudaSuccess) return err;
-  slab_scan_kernel<<<n_shards, 1024, 0, stream>>>(chunk_counts, n_chunks, K,
-                                                  key_first, slot_counts);
+  err = cudaFuncSetAttribute(slab_scatter_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)cnt);
+  if (err != cudaSuccess) return err;
+  slab_count_kernel<T><<<dim3(blocks, n_shards), kSlabThreads, hist, stream>>>(
+      assignment, n, K, seg, chunk_counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  slab_scatter_kernel<T><<<dim3((n + 255) / 256, n_shards), 256, 0, stream>>>(
-      assignment, n, K, row_rank, chunk_counts, key_first, n_chunks, order);
+  slab_scan_kernel<<<dim3(tiles, n_shards), kSlabTile, 0, stream>>>(
+      chunk_counts, blocks, K, key_first, tile_sum, slot_counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slab_scatter_kernel<T><<<dim3(blocks, n_shards), warps * 32, cnt, stream>>>(
+      assignment, n, K, seg, tiles, chunk_counts, key_first, tile_sum, order);
   return cudaGetLastError();
 }
 
@@ -1195,26 +1307,44 @@ cudaError_t kp_sweep(const int* req, const int* counts_b,
   return cudaErrorInvalidValue;
 }
 
-int kp_slab_chunk() { return kSlabChunk; }
+// The device's SM count and the shared memory one block may opt into: the
+// inputs of the host's slab_plan.
+cudaError_t kp_slab_budget(int* sms, int* smem) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                dev);
+}
 
 // n_sh shards of n rows each.  assignment: n_sh x n int16 (is16) or int32
-// slots, -1 unplaced, each < K.  Scratch per shard: row_rank n,
-// chunk_counts ceil(n / kp_slab_chunk()) x (K + 1), key_first K + 1.
-// Outputs per shard: order n (rows stable-sorted by key = slot, or K for
-// unplaced rows), slot_counts K.
+// slots, -1 unplaced, each < K.  The plan (slab_plan): `blocks` row blocks
+// of `seg` rows per shard (the last may hold fewer, none is empty), scatter
+// blocks of `warps` warps.  Scratch per shard: chunk_counts blocks x
+// (K + 1), key_first K + 1, tile_sum ceil((K + 1) / 256).  Outputs per
+// shard: order n (rows stable-sorted by key = slot, or K for unplaced
+// rows), slot_counts K.
 cudaError_t kp_slab(const void* assignment, int is16, int n_sh, int n, int K,
-                    int* row_rank, int* chunk_counts, int* key_first,
-                    int* order, int* slot_counts, cudaStream_t stream) {
-  if (n <= 0 || K <= 0 || n_sh <= 0 || n_sh > 65535 ||
-      (size_t)(K + 1) * sizeof(int) > 227 * 1024)
+                    int blocks, int seg, int warps, int* chunk_counts,
+                    int* key_first, int* tile_sum, int* order,
+                    int* slot_counts, cudaStream_t stream) {
+  const long long keys = (long long)K + 1;
+  const long long tiles = (keys + kSlabTile - 1) / kSlabTile;
+  if (n <= 0 || K <= 0 || n_sh <= 0 || n_sh > 65535 || blocks <= 0 ||
+      blocks > 65535 || seg <= 0 || (long long)blocks * seg < n ||
+      (long long)(blocks - 1) * seg >= n || warps < 1 ||
+      warps > kSlabMaxWarps ||
+      ((long long)warps * keys + tiles) * 4 > 227 * 1024)
     return cudaErrorInvalidValue;
   if (is16)
     return launch_slab(static_cast<const int16_t*>(assignment), n_sh, n, K,
-                       row_rank, chunk_counts, key_first, order, slot_counts,
-                       stream);
-  return launch_slab(static_cast<const int*>(assignment), n_sh, n, K,
-                     row_rank, chunk_counts, key_first, order, slot_counts,
-                     stream);
+                       blocks, seg, warps, chunk_counts, key_first, tile_sum,
+                       order, slot_counts, stream);
+  return launch_slab(static_cast<const int*>(assignment), n_sh, n, K, blocks,
+                     seg, warps, chunk_counts, key_first, tile_sum, order,
+                     slot_counts, stream);
 }
 
 }  // extern "C"

@@ -46,6 +46,7 @@ two's complement wrap); the new-node score is float32.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -102,8 +103,9 @@ def _lib() -> ctypes.CDLL:
         lib.kp_sweep_smem_max.restype = i
         lib.kp_sweep.argtypes = [p] * 12 + [i] * 5 + [p] * 4
         lib.kp_sweep.restype = i
-        lib.kp_slab_chunk.restype = i
-        lib.kp_slab.argtypes = [p, i, i, i, i] + [p] * 5 + [p]
+        lib.kp_slab_budget.argtypes = [ctypes.POINTER(i)] * 2
+        lib.kp_slab_budget.restype = i
+        lib.kp_slab.argtypes = [p, i, i, i, i, i, i, i] + [p] * 5 + [p]
         lib.kp_slab.restype = i
         _LIB = lib
     return _LIB
@@ -635,6 +637,80 @@ def classpack_slab_plain(assignment, max_nodes: int):
     return order, counts[:K]
 
 
+SLAB_WARPS = 8          # warps of a scatter block, at most
+SLAB_TILE = 256         # keys per scan block
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabPlan:
+    """How K6 cuts each shard's rows: `blocks` row blocks of `seg` rows
+    (the last may hold fewer, none is empty), scatter blocks of `warps`
+    warps."""
+    blocks: int
+    seg: int
+    warps: int
+
+
+def slab_plan(n: int, K: int, n_shards: int, sms: int,
+              smem: int) -> Optional[SlabPlan]:
+    """The row blocks of a K6 launch over `n_shards` shards of `n` rows and
+    K + 1 keys, on a card of `sms` SMs whose blocks may opt into `smem`
+    bytes of shared memory; None past the kernel's limits.  About one
+    block per SM over all shards, each of about K + 1 rows or more, so the
+    work per key (a histogram row per block, W warp tables) stays small
+    beside the rows; the scatter block takes as many warps (at most
+    SLAB_WARPS) as W tables of K + 1 counts fit its shared memory."""
+    keys = K + 1
+    tiles = -(-keys // SLAB_TILE)
+    if min(n, K, n_shards, sms) <= 0 or keys * 4 > smem:
+        return None
+    warps = min(SLAB_WARPS, (smem // 4 - tiles) // keys)
+    if warps < 1:
+        return None
+    per_shard = max(1, sms // n_shards)
+    seg = max(-(-n // per_shard), keys, 32 * warps)
+    blocks = -(-n // seg)
+    seg = -(-n // blocks)
+    return SlabPlan(blocks=-(-n // seg), seg=seg, warps=warps)
+
+
+@functools.lru_cache(maxsize=None)
+def _slab_budget(index: int) -> Tuple[int, int]:
+    """(SMs, opt-in shared memory per block) of card `index`."""
+    sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _raise_on(_lib().kp_slab_budget(ctypes.byref(sms),
+                                        ctypes.byref(smem)), "classpack_slab")
+    return sms.value, smem.value
+
+
+def _launch_slab(assignment: torch.Tensor, n_sh: int, n: int, K: int,
+                 name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    dev = assignment.device
+    plan = slab_plan(n, K, n_sh, *_slab_budget(dev.index))
+    if plan is None:
+        raise KernelLimitError(f"{name}: K={K} outside the slab kernel's "
+                               f"shared memory")
+    keys = K + 1
+    chunk_counts = torch.empty((n_sh, plan.blocks, keys), dtype=torch.int32,
+                               device=dev)
+    key_first = torch.empty((n_sh, keys), dtype=torch.int32, device=dev)
+    tile_sum = torch.empty((n_sh, -(-keys // SLAB_TILE)), dtype=torch.int32,
+                           device=dev)
+    order = torch.empty((n_sh, n), dtype=torch.int32, device=dev)
+    slot_counts = torch.empty((n_sh, K), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().kp_slab(_ptr(assignment),
+                             int(assignment.dtype == torch.int16), n_sh, n, K,
+                             plan.blocks, plan.seg, plan.warps,
+                             _ptr(chunk_counts), _ptr(key_first),
+                             _ptr(tile_sum), _ptr(order), _ptr(slot_counts),
+                             _stream(dev))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return order, slot_counts
+
+
 def classpack_slab(assignment: torch.Tensor, max_nodes: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(order n int32, slot_counts K int32) of K3's per-row slots
@@ -652,23 +728,8 @@ def classpack_slab(assignment: torch.Tensor, max_nodes: int
         raise ValueError("assignment: not a contiguous vector")
     if n == 0 or K <= 0:
         raise ValueError(f"empty slab: n={n}, K={K}")
-    lib = _lib()
-    dev = assignment.device
-    chunks = -(-n // lib.kp_slab_chunk())
-    row_rank = torch.empty(n, dtype=torch.int32, device=dev)
-    chunk_counts = torch.empty((chunks, K + 1), dtype=torch.int32, device=dev)
-    key_first = torch.empty(K + 1, dtype=torch.int32, device=dev)
-    order = torch.empty(n, dtype=torch.int32, device=dev)
-    slot_counts = torch.empty(K, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.kp_slab(_ptr(assignment),
-                          int(assignment.dtype == torch.int16), 1, n, K,
-                          _ptr(row_rank), _ptr(chunk_counts),
-                          _ptr(key_first), _ptr(order), _ptr(slot_counts),
-                          _stream(dev))
-    _raise_on(err, "classpack_slab")
-    LAUNCHES["classpack_slab"] += 1
-    return order, slot_counts
+    order, slot_counts = _launch_slab(assignment, 1, n, K, "classpack_slab")
+    return order[0], slot_counts[0]
 
 
 # ---------------------------------------------------------------------------
@@ -949,24 +1010,7 @@ def classpack_slab_sharded(assignment: torch.Tensor, max_nodes: int
     _check_shards(n_sh)
     if n == 0 or K <= 0:
         raise ValueError(f"empty slab: n={n}, K={K}")
-    lib = _lib()
-    dev = assignment.device
-    chunks = -(-n // lib.kp_slab_chunk())
-    row_rank = torch.empty((n_sh, n), dtype=torch.int32, device=dev)
-    chunk_counts = torch.empty((n_sh, chunks, K + 1), dtype=torch.int32,
-                               device=dev)
-    key_first = torch.empty((n_sh, K + 1), dtype=torch.int32, device=dev)
-    order = torch.empty((n_sh, n), dtype=torch.int32, device=dev)
-    slot_counts = torch.empty((n_sh, K), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.kp_slab(_ptr(assignment),
-                          int(assignment.dtype == torch.int16), n_sh, n, K,
-                          _ptr(row_rank), _ptr(chunk_counts),
-                          _ptr(key_first), _ptr(order), _ptr(slot_counts),
-                          _stream(dev))
-    _raise_on(err, "classpack_slab_sharded")
-    LAUNCHES["classpack_slab_sharded"] += 1
-    return order, slot_counts
+    return _launch_slab(assignment, n_sh, n, K, "classpack_slab_sharded")
 
 
 def shard_psum_plain(flat, hosts: int):

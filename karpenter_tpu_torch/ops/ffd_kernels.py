@@ -59,9 +59,12 @@ def _lib() -> ctypes.CDLL:
         lib.ffd_error_string.argtypes = [i]
         lib.ffd_error_string.restype = ctypes.c_char_p
         lib.ffd_max_r.restype = i
-        lib.ffd_smem_max.restype = i
+        lib.ffd_scratch_bytes.argtypes = [i] * 4
+        lib.ffd_scratch_bytes.restype = ctypes.c_longlong
         lib.ffd_scan.argtypes = [p] * 12 + [i] * 5 + [p] * 5 + [p]
         lib.ffd_scan.restype = i
+        lib.ffd_step_cycles.argtypes = [i, p, p]
+        lib.ffd_step_cycles.restype = i
         _LIB = lib
     return _LIB
 
@@ -159,7 +162,8 @@ def ffd_scan(requests: torch.Tensor, compat_packed: torch.Tensor,
     T = compat_packed.shape[0]
     K = int(max_nodes)
     lib = _lib()
-    if R > lib.ffd_max_r() or K <= 0 or O <= 0 or T <= 0:
+    scratch_bytes = lib.ffd_scratch_bytes(O, R, K, T)
+    if scratch_bytes < 0:
         raise KernelLimitError(
             f"R={R} / K={K} / O={O} / T={T} outside the scan kernel's "
             f"limits ({lib.ffd_max_r()} axes)")
@@ -181,21 +185,42 @@ def ffd_scan(requests: torch.Tensor, compat_packed: torch.Tensor,
     slot_option = torch.empty(K, dtype=torch.int32, device=dev)
     slot_used = torch.empty((K, R), dtype=torch.float32, device=dev)
     n_open = torch.empty((), dtype=torch.int32, device=dev)
-    # the slot classes' counters go to global scratch only past the
-    # kernel's shared-memory budget (slot_option / slot_used are the
-    # outputs, so they double as the state there)
-    g_cls = None
-    if K * (R + 2) * 4 > lib.ffd_smem_max():
-        g_cls = torch.empty(K, dtype=torch.int32, device=dev)
+    # the slot state and the new-node candidates go to global scratch only
+    # past the kernel's shared-memory budget (slot_option / slot_used are
+    # the outputs, so they double as the state there)
+    scratch = None
+    if scratch_bytes:
+        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = lib.ffd_scan(
             _ptr(requests), _ptr(compat_packed), _ptr(compat_row),
             _ptr(class_id), _ptr(valid), _ptr(node_cap), _ptr(rem),
             _ptr(alloc), _ptr(price), _ptr(rank), _ptr(init_option),
-            _ptr(init_used), P, O, R, K, T, _ptr(g_cls), _ptr(assignment),
+            _ptr(init_used), P, O, R, K, T, _ptr(scratch), _ptr(assignment),
             _ptr(slot_option), _ptr(slot_used), _ptr(n_open), _stream(dev))
     if err:
         msg = lib.ffd_error_string(err).decode()
         raise KernelError(f"ffd_scan: CUDA error {err} ({msg})")
     LAUNCHES["ffd_scan"] += 1
     return assignment, slot_option, slot_used, n_open
+
+
+STEP_CHAIN = 4096       # steps in each chain `step_cycles` times
+
+
+def step_cycles():
+    """(SM cycles of one least row step of the scan, SM cycles of one
+    dependent float32 add) on the current card: one warp's chain of
+    STEP_CHAIN steps, each a shared-memory load at the index the step
+    before chose, a float32 add and compare and a warp vote, then a chain
+    of STEP_CHAIN dependent adds, each timed by clock64 (csrc/ffd.cu
+    `ffd_step_cycles`).  A measurement for K7's bound, not a kernel of the
+    port: it counts no launch."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cycles = torch.zeros(3, dtype=torch.int64, device=dev)
+    err = _lib().ffd_step_cycles(STEP_CHAIN, _ptr(cycles), _stream(dev))
+    if err:
+        msg = _lib().ffd_error_string(err).decode()
+        raise KernelError(f"ffd_step_cycles: CUDA error {err} ({msg})")
+    c = cycles.cpu().tolist()
+    return c[0] / STEP_CHAIN, c[1] / STEP_CHAIN

@@ -498,6 +498,57 @@ def ffd_scan_inputs(rng: np.random.Generator, P: int = 4096, C: int = 48,
             alloc, price, rank, init_option, init_used), K
 
 
+# seeded K7 inputs whose rows of one class are not all identical, so that
+# the scan kernel's first-fit cursor must reset inside a class
+FFD_CURSOR_CASES = ("request", "compat row", "node cap", "invalid rows",
+                    "exhaustion", "all, existing slots")
+
+
+def ffd_cursor_case(name: str, rng: np.random.Generator, P: int = 1024):
+    """One of FFD_CURSOR_CASES as `ffd_scan_inputs` does it (arrays, K):
+    rows of a class alternate, in blocks of 1-8, between their class's
+    request and another (some of them a zero axis's -0.0), their class's
+    compat row and the next class's, or their class's node cap and 1-3;
+    rows inside a class are invalid, some of them with another class's id
+    (a class boundary no valid row shows); a few large classes exhaust 16
+    slots; or all of these at once with 32 existing slots."""
+    f32 = np.float32
+    if name == "exhaustion":
+        return ffd_scan_inputs(rng, P=P, C=6, O=64, R=3, K=16)
+    every = name == "all, existing slots"
+    arrays, K = ffd_scan_inputs(rng, P=P, C=16, O=128, R=4,
+                                E=32 if every else 0, K=256)
+    req, packed, crow, cid, valid, cap, rem = (a.copy() for a in arrays[:7])
+    n = int(valid.sum())
+
+    def blocks():
+        """A mask of the valid rows in alternating blocks of 1-8 rows."""
+        mask = np.zeros(len(valid), bool)
+        at, on = 0, False
+        while at < n:
+            step = int(rng.integers(1, 9))
+            mask[at:min(at + step, n)] = on
+            at, on = at + step, not on
+        return mask
+    if name in ("request", "all, existing slots"):
+        flip = blocks()
+        req[flip] = np.floor(req[flip] * f32(0.75))
+        zero = (req == 0.0) & blocks()[:, None]
+        req[zero] = -0.0
+    if name in ("compat row", "all, existing slots"):
+        flip = blocks()
+        crow[flip] = (crow[flip] + 1) % packed.shape[0]
+    if name in ("node cap", "all, existing slots"):
+        flip = blocks()
+        cap[flip] = rng.integers(1, 4, int(flip.sum()))
+    if name in ("invalid rows", "all, existing slots"):
+        drop = blocks() & (rng.random(len(valid)) < 0.3)
+        valid[drop] = False
+        away = drop & (rng.random(len(valid)) < 0.3)
+        cid[away] = cid[away] + 1000
+    return (req, packed, crow, cid, valid, cap, rem) + arrays[7:], K
+
+
 def _takes_within(counts: np.ndarray, K: int, rng: np.random.Generator,
                   share: float = 0.8) -> np.ndarray:
     """C × K int32 takes that K2 could emit: each class schedules at most

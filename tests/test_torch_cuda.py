@@ -793,3 +793,142 @@ def test_cuda_pdhg_resident_launch_error_raises(cuda_device, monkeypatch):
     with pytest.raises(KernelError):
         lk.pdhg(*ops, lp.DEFAULT_EPS, 64, lp.DEFAULT_CHECK_EVERY)
     assert lk.LAUNCHES == {"pdhg": 0, "pdhg_resident": 0}
+
+
+# ---- K6 / K6s and K7 redesigned for Hopper (slice 7) ----
+
+def _k3_slots(rng, n, K, classes=64, unplaced=0.05):
+    """n K3-shaped slots: each class's pods in rising slots, then its
+    unplaced rows (-1); the padding at the end unplaced."""
+    live = n - n // 32
+    rows = []
+    for size in rng.multinomial(live, np.ones(classes) / classes):
+        slots = np.sort(rng.integers(0, K, size=int(size)))
+        cut = int(size * (1 - unplaced))
+        rows.append(np.concatenate([slots[:cut],
+                                    np.full(int(size) - cut, -1)]))
+    rows.append(np.full(n - live, -1))
+    return np.concatenate(rows)
+
+
+def _slab_twice(a, K, sharded):
+    """The kernel twice on the same slots (the second launch must give the
+    same bits) and its plain version."""
+    f = ck.classpack_slab_sharded if sharded else ck.classpack_slab
+    plain = (ck.classpack_slab_sharded_plain if sharded
+             else ck.classpack_slab_plain)
+    ck.reset_launches()
+    got, again, want = f(a, K), f(a, K), plain(a, K)
+    torch.cuda.synchronize()
+    for g, h, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(g, h)
+    assert ck.LAUNCHES["classpack_slab_sharded" if sharded
+                       else "classpack_slab"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_cuda_slab_sharded_megafleet_shape_matches_plain(cuda_device, dtype):
+    """8 shards x 131 072 rows, K = 4096 (the megafleet's row 17): K3-shaped
+    slots, shard 5 all unplaced, shard 6 random."""
+    rng = np.random.default_rng(71)
+    K, n = 4096, 131_072
+    a = np.stack([_k3_slots(rng, n, K) for _ in range(8)])
+    a[5] = -1
+    a[6] = rng.integers(-1, K, size=n)
+    _slab_twice(torch.tensor(a.astype(dtype), device=cuda_device), K, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sh,K,n", [
+    (1, 4096, 131_072),      # n = 1: the single-device launch's shape
+    (1, 8192, 300_000),      # above the (K+1)·n < 2^31 guard
+    (2, 8192, 300_000),
+    (3, 32_768, 5000),       # one warp table per scatter block
+    (8, 4096, 100)])         # fewer rows than keys
+def test_cuda_slab_sharded_edges_match_plain(cuda_device, n_sh, K, n):
+    rng = np.random.default_rng(K + n + n_sh)
+    a = np.stack([_k3_slots(rng, n, K) for _ in range(n_sh)])
+    t = torch.tensor(a.astype(np.int16 if K < 2**15 else np.int32),
+                     device=cuda_device)
+    _slab_twice(t, K, True)
+    _slab_twice(t[0].contiguous(), K, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", workloads.FFD_CURSOR_CASES)
+def test_cuda_ffd_scan_cursor_cases_match_plain(cuda_device, name):
+    """K7 on the inputs that break its first-fit cursor's runs: every
+    output equal to the plain version's, slot usage bit for bit, and a
+    second launch equal to the first."""
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    arrays, K = workloads.ffd_cursor_case(name, np.random.default_rng(7),
+                                          P=2048)
+    args = [torch.tensor(a, device=cuda_device) for a in arrays]
+    fk.reset_launches()
+    got, again = fk.ffd_scan(*args, K), fk.ffd_scan(*args, K)
+    want = fk.ffd_scan_plain(*args, K)
+    torch.cuda.synchronize()
+    for g, h, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, h)
+    assert fk.LAUNCHES["ffd_scan"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_ffd_scan_at_the_ffd_cell_shape(cuda_device):
+    """A seeded P = 8192 scan at the provision-ffd-50k cell's widths
+    (R = 7, 3600 options, K = 2048), with existing slots."""
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    arrays, K = workloads.ffd_scan_inputs(np.random.default_rng(50), P=8192,
+                                          C=160, O=3600, R=7, E=64, K=2048)
+    args = [torch.tensor(a, device=cuda_device) for a in arrays]
+    got, again = fk.ffd_scan(*args, K), fk.ffd_scan(*args, K)
+    want = fk.ffd_scan_plain(*args, K)
+    torch.cuda.synchronize()
+    for g, h, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,scratch", [
+    # 8192 options at the ffd cell's K and R: the slot state in shared
+    # memory, the candidate list (12 bytes an option) in global scratch
+    (dict(P=4096, C=64, O=8192, R=7, K=2048), 8192 * 12),
+    # both in global scratch: the state's allocatable and class counts
+    # (the outputs hold the rest), then the candidates
+    (dict(P=2048, C=48, O=20000, R=12, K=4096),
+     4096 * 12 * 4 + 4096 * 4 + 20000 * 12)])
+def test_cuda_ffd_scan_candidates_in_global_scratch(cuda_device, kw,
+                                                    scratch):
+    """K7 where the new-node candidate list does not fit shared memory:
+    equal to the plain version, slot usage bit for bit, and a second
+    launch equal to the first."""
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    arrays, K = workloads.ffd_scan_inputs(np.random.default_rng(kw["O"]),
+                                          E=32, **kw)
+    args = [torch.tensor(a, device=cuda_device) for a in arrays]
+    T = args[1].shape[0]
+    assert fk._lib().ffd_scratch_bytes(kw["O"] + 32, kw["R"], K, T) == \
+        scratch + 32 * 12
+    got, again = fk.ffd_scan(*args, K), fk.ffd_scan(*args, K)
+    want = fk.ffd_scan_plain(*args, K)
+    torch.cuda.synchronize()
+    assert int(got[3]) > 32
+    for g, h, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1000, 97])
+def test_cuda_ffd_scan_ragged_last_chunk(cuda_device, P):
+    """A row count that is no multiple of the walking warp's 32: the last
+    chunk's missing rows join no run of identical rows and no padding run."""
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    arrays, K = workloads.ffd_cursor_case("all, existing slots",
+                                          np.random.default_rng(P), P=P)
+    args = [torch.tensor(a, device=cuda_device) for a in arrays]
+    got = fk.ffd_scan(*args, K)
+    want = fk.ffd_scan_plain(*args, K)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)

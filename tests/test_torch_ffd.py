@@ -283,3 +283,23 @@ def test_scan_wrapper_refuses_mixed_devices():
     args[0] = args[0].to("meta")
     with pytest.raises(ValueError, match="devices"):
         fk.ffd_scan(*args, K)
+
+
+@pytest.mark.parametrize("name", workloads.FFD_CURSOR_CASES)
+def test_plain_scan_matches_the_jax_program_on_cursor_breaking_inputs(name):
+    """Rows of one class that are not all identical (request, compat row or
+    node cap changing inside the class, invalid rows inside it, some with
+    another class's id), a class that runs out of slots, and all at once
+    with existing slots: the inputs on which K7's first-fit cursor must
+    reset.  Every output equal, the float32 slot usage bit for bit."""
+    arrays, K = workloads.ffd_cursor_case(name, np.random.default_rng(11),
+                                          P=512)
+    (req, packed, crow, cid, valid, cap, rem, alloc, price, rank, iopt,
+     iused) = arrays
+    O = alloc.shape[0]
+    compat = np.unpackbits(packed, axis=1, count=O).astype(bool)[crow]
+    want = [np.asarray(x) for x in ref_kernel(
+        req, compat, valid, cid, cap, rem, alloc, price, rank, iopt, iused,
+        K)]
+    got = fk.ffd_scan_plain(*(torch.tensor(a) for a in arrays), K)
+    _assert_outputs_equal(got, want)
