@@ -17,7 +17,15 @@ pass):
                hostname caps, slot exhaustion, overcommitted existing
                nodes).  Integers must be equal; the aggregate's float32
                total_cost may differ by relative 1e-5 (summation order).
-               Then K3 and K3s (one launch per call) on the edge inputs of
+               Then K2 (one cluster of CTAs per shard) on the
+               headline batch with every fifth non-empty class emptied and
+               one count negative (empty classes between non-empty ones),
+               at slot counts whose plans take each cluster size (K = 64,
+               256, 512, 1024, 2048, 8192), and at K = 1, 37 and 32 768
+               (also over 32 axes: the state in a global slice),
+               emitting takes and not, each launched twice, bit-equal to
+               its plain version.  Then K3 and K3s (one
+               launch per call) on the edge inputs of
                `workloads.assign_decode_edges` (every pod in one class,
                empty classes, all takes zero, padding rows, a truncated
                repeat, a seeded case) at C = 200, K = 8192 and at
@@ -39,7 +47,10 @@ pass):
                nodes, whose sweep must also reproduce GOLDEN_LAUNCH_SWEEP)
                and on seeded perturbations (caps masking half the options,
                an all-masked row, zero-count rows, rows that must launch,
-               slot exhaustion at a small K).
+               slot exhaustion at a small K), every call launched twice
+               and bit-equal; then one row (B = 1) and the replace face
+               over K = 8192 slots (a row's state past the shared memory a
+               block may opt into: the global layout).
   6. consolidation main path — DisruptionController(...).consolidation_action
                over the 500-node under-utilized fleet at 100 and 500
                candidates, each run with the launch counts set to 0 just
@@ -129,7 +140,8 @@ pass):
                against their plain versions, and shard for shard against n
                serial launches of the single-device kernels, on the real
                inputs of rows 13-17 and of the provision-sharded-50k-20k
-               cell's row 17 in both rounds (recorded in phase 12's counted
+               cell's row 17 in both rounds (each launched twice,
+               bit-equal; recorded in phase 12's counted
                runs, which run first) and on seeded perturbations: two
                empty shards, slot
                exhaustion in one shard only (its pods x4 at K = 2048), all
@@ -156,6 +168,16 @@ pass):
                and timed, and the device idle share (the slab solve's
                trace read as phase 10's, with K6s's split by launch at
                row 17's input).
+
+The timings also give K2's time per class step at the headline, the live
+round 2 and the megafleet's row 17, and K5's per row step at each sweep
+family's first call; `[probe]` lines give the class step in clusters of
+every size and thread count (`classpack_kernels.step_cycles`, clock64),
+whose least is the dependency term of the bounds of K2, K2s, K5 and the
+programs that run them (rows 7, 8, 10, 13-17); and one trace each (the decoded
+headline solve, the first frontier sweep, the megafleet slab solve), read
+with the launch counters around the same calls, must name the new kernel
+(`cluster_scan_kernel`, `row_sweep_kernel`) and none of the old.
 
 Prints the kernel table as one JSON line (each row's `launches` from its
 own path, `launches_by_path` from every main path), the card's name and
@@ -383,6 +405,81 @@ def compare_kernels(torch, problem, ex):
     return err, shapes
 
 
+def scan_twice(torch, args, K, emit, what, want=None):
+    """K2 launched twice on `args`, each bit-equal to the plain version
+    (`want`, computed here when not given); returns the plain outputs."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    got = ck.classpack_scan(*args, K, emit)
+    again = ck.classpack_scan(*args, K, emit)
+    if want is None:
+        want = ck.classpack_scan_plain(*args, K, emit)
+    torch.cuda.synchronize()
+    for g, h, w, name in zip(got, again, want, ("slot_option", "slot_used",
+                                                "n_open", "n_unsched",
+                                                "takes")):
+        check(torch.equal(g, h), f"K2 {what}: two launches differ ({name})")
+        check(torch.equal(g, w), f"K2 {what}: {name} differs from plain "
+                                 f"(emit={emit})")
+    return want
+
+
+def compare_scan_edges(torch, problem):
+    """K2 on the headline's lowered batch with every fifth non-empty class
+    emptied and one count made negative (empty classes between non-empty
+    ones: exact no-ops the kernel skips) at slot counts that make
+    `scan_plan` pick each cluster size (K = 64, 256, 512, 1024, 2048 and
+    the headline's 8192), at K = 1 and K = 37 (slot exhaustion; no cluster
+    size divides 37) and at K3's widest K = 32 768, there also over 32
+    axes (the slot state in a global slice).  Emitting takes and not, each
+    launched twice, bit-equal to plain."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    from karpenter_tpu_torch.ops.classpack import lower_problem
+    dev = torch.device("cuda")
+    low = lower_problem(problem)
+    cnt = low.cnt_p.copy()
+    real = np.nonzero(cnt > 0)[0]
+    cnt[real[::5]] = 0
+    cnt[real[1]] = -3
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    req, cnt_t, packed, cap = map(t, (low.req_p, cnt, low.packed, low.cap_p))
+    alloc, price, rank = map(t, (low.alloc_i, low.price_p, low.rank_p))
+    m, ok = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
+    args = (req, cnt_t, packed, cap, alloc, price, m, ok, None, None)
+    R, O = low.req_p.shape[1], low.price_p.shape[0]
+    picked = set()
+    for K in (1, 37, 64, 256, 512, 1024, 2048, low.K, 32_768):
+        plan = ck.scan_plan_for(dev, K, R, O, 1)
+        check(plan.state_smem and plan.stage,
+              f"K2 headline at K={K}: plan {plan}")
+        picked.add(plan.cluster)
+        for emit in (True, False):
+            want = scan_twice(torch, args, K, emit,
+                              f"headline, empty classes between, K={K}")
+        log(f"[kernels] K2 headline at K={K} with {len(real[::5])} empty "
+            f"classes between non-empty ones and one negative count "
+            f"({plan}): equal to plain, emit on and off, two launches "
+            f"bit-equal; n_open {int(want[2])}, n_unsched {int(want[3])}")
+    check(set(ck.SCAN_CLUSTERS) <= picked,
+          f"K2: the plans took clusters of only {sorted(picked)}")
+    # the spill layout: the same classes over 32 axes (zero requests and
+    # allocations on the 25 added), K = 32 768, whose slot state no
+    # cluster's shared memory holds
+    pad = lambda a: torch.nn.functional.pad(a, (0, ck.MAX_R - R))  # noqa: E731
+    req32, alloc32 = pad(req).contiguous(), pad(alloc).contiguous()
+    m32, ok32 = ck.classpack_precompute(req32, cap, packed, alloc32, price,
+                                        rank)
+    args32 = (req32, cnt_t, packed, cap, alloc32, price, m32, ok32, None,
+              None)
+    plan = ck.scan_plan_for(dev, 32_768, ck.MAX_R, O, 1)
+    check(not plan.state_smem, f"K2 at K=32768, R=32: plan {plan}")
+    for emit in (True, False):
+        want = scan_twice(torch, args32, 32_768, emit,
+                          "headline over 32 axes, K=32768")
+    log(f"[kernels] K2 headline over {ck.MAX_R} axes at K=32768 ({plan}): "
+        f"equal to plain, emit on and off, two launches bit-equal; n_open "
+        f"{int(want[2])}, n_unsched {int(want[3])}")
+
+
 # K3 inputs recorded from the main paths' runs: name -> (takes, counts,
 # n_pods) of the path's last K3 call
 K3_RECORDED = {}
@@ -585,7 +682,10 @@ def timings(torch, card, pods, catalog, pools, prob, ex):
     host = out["solve decode=True"][0] - out["kernels (K1+K2+K3, fresh)"][0]
     log(f"[time] host share of the decoded solve (lower + D2H + decode): "
         f"{host:.3f} ms on {card}")
-    busy = device_busy(torch, lambda: cp.solve_classpack(prob, guide=None))
+    busy = trace_kernel(torch, card, "decoded solve",
+                        lambda: cp.solve_classpack(prob, guide=None),
+                        "classpack_scan", "cluster_scan_kernel",
+                        ("::scan_kernel<",))
     log(f"[trace] decoded solve: device busy {busy['device_ms']:.3f} of "
         f"{busy['wall_ms']:.3f} ms wall per solve, idle share "
         f"{busy['idle_share']:.4f}; by kernel {busy['by_kernel']} on {card}")
@@ -599,6 +699,28 @@ def timings(torch, card, pods, catalog, pools, prob, ex):
     log(f"[trace] decoded solve: K3 is one kernel in the trace: {k3[0]!r} "
         f"({len(busy['names'])} kernel names in all)")
     return out
+
+
+def trace_kernel(torch, card, what, fn, counter, new, old, iters=3):
+    """`device_busy` of `fn` with the launch counter `counter` read around
+    the same calls: it must have launched at least once a call, and the
+    trace must name the kernel of this design (`new`) and none of the
+    earlier design's (`old`)."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    before = ck.LAUNCHES[counter]
+    busy = device_busy(torch, fn, iters)
+    calls = ck.LAUNCHES[counter] - before
+    hit = [k for k in busy["names"] if new in k]
+    stale = [k for k in busy["names"] if any(o in k for o in old)]
+    check(calls >= iters + 1 and hit and not stale,
+          f"{what}: {counter} launched {calls} times in {iters + 1} calls; "
+          f"the trace names {hit} of this design and {stale} of the earlier")
+    log(f"[trace] {what}: {counter} launched {calls} times in {iters + 1} "
+        f"calls; the trace names {[k[:60] for k in hit]} "
+        f"({sum(busy['events'][k] for k in hit)} launches recorded, "
+        f"{sum(busy['per_kernel'][k] for k in hit):.4f} ms a call) and no "
+        f"kernel of the earlier design on {card}")
+    return busy
 
 
 def device_busy(torch, fn, iters=3):
@@ -710,8 +832,11 @@ def compare_sweep(torch, low, name, err):
         args = (req, t(cb), packed, cap, alloc, price, rank, t(mb), t(pb),
                 iopt, iused, m_all, low.K)
         got = ck.classpack_sweep(*args)
+        again = ck.classpack_sweep(*args)
         want = ck.classpack_sweep_plain(*args)
         torch.cuda.synchronize()
+        check(torch.equal(got, again),
+              f"K5 sweep: two launches differ ({name}, rows {s}-{e})")
         check(torch.equal(got[:, 1:], want[:, 1:]),
               f"K5 sweep n_new/n_unsched differ from plain ({name}, rows "
               f"{s}-{e})")
@@ -728,7 +853,8 @@ def compare_sweep(torch, low, name, err):
                          unsched=int(got[:, 2].sum()))
     log(f"[sweep] {name}: {calls} call(s) of B={first['cb'].shape[0]}, "
         f"Cpad={low.req_p.shape[0]} Opad={low.price_p.shape[0]} K={low.K} "
-        f"E={int((low.init_option >= 0).sum())} -> K5 equal to plain "
+        f"E={int((low.init_option >= 0).sum())} -> K5 equal to plain, two "
+        f"launches bit-equal "
         f"(first call: {first['launched']} launches, {first['unsched']} "
         f"unschedulable)")
     return first
@@ -768,7 +894,45 @@ def compare_sweeps(torch, err):
     small = int((replace.init_option >= 0).sum()) + 2
     compare_sweep(torch, perturbed_sweep(replace, rng, small_k=small),
                   f"replace face, slot exhaustion K={small}", err)
+    compare_sweep_edges(torch, firsts, lows, err)
     return firsts
+
+
+def compare_sweep_edges(torch, firsts, lows, err):
+    """K5 at one row (the first frontier's first row, B = 1 exactly), and
+    past the shared memory a block may opt into: the replace face's rows
+    over K = 8192 slots (its existing columns, then closed slots), whose
+    state (256 KB a row) the plan keeps in a global slice.  Each launched
+    twice, bit-equal, and against the plain version."""
+    import dataclasses
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    args = list(firsts["delete face, first frontier"]["args"])
+    for i in (1, 7, 8):
+        args[i] = args[i][:1].contiguous()
+    got, again = ck.classpack_sweep(*args), ck.classpack_sweep(*args)
+    want = ck.classpack_sweep_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again) and torch.equal(got[:, 1:], want[:, 1:])
+          and float((got[:, 0] - want[:, 0]).abs().max())
+          <= REL_TOL * max(float(want[:, 0].abs().max()), 1e-30),
+          "K5 at B = 1 differs from plain or between launches")
+    log(f"[sweep] delete face, one row (B=1): K5 equal to plain, two "
+        f"launches bit-equal ({got.tolist()})")
+    replace = lows[-1][1]
+    K = ck.SWEEP_MAX_SLOTS
+    R = replace.init_used.shape[1]
+    iopt = np.full(K, -1, np.int32)
+    iused = np.zeros((K, R), np.int32)
+    iopt[:replace.K], iused[:replace.K] = replace.init_option, \
+        replace.init_used
+    wide = dataclasses.replace(replace, K=K, init_option=iopt,
+                               init_used=iused)
+    plan = ck.sweep_plan_for(torch.device("cuda"), K, R,
+                             replace.price_p.shape[0], replace.chunk)
+    check(not plan.state_smem, f"K5 at K={K}: the plan {plan} keeps the "
+                               f"state in shared memory")
+    compare_sweep(torch, wide, f"replace face at K={K} (state in a global "
+                               f"slice)", err)
 
 
 # ---------------------------------------------------------------------------
@@ -858,6 +1022,11 @@ def consolidation_path(torch, card):
             log(f"[time] consolidation {n}: {k}: p50 {p50:.3f} ms over "
                 f"{len(xs)} runs (min {min(xs):.3f}, max {max(xs):.3f}) on "
                 f"{card}")
+        if n == max(workloads.CONSOLIDATION_SHAPES):
+            trace_kernel(torch, card, f"consolidation {n} first frontier "
+                         f"sweep", lambda: arena.sweep_prefix_subset(
+                             _search_frontier(1, n)), "classpack_sweep",
+                         "row_sweep_kernel", ("::sweep_kernel<",))
         busy = device_busy(torch, lambda: ctrl.consolidation_action(cands))
         log(f"[trace] consolidation {n}: warm tick device busy "
             f"{busy['device_ms']:.3f} of {busy['wall_ms']:.3f} ms wall, idle "
@@ -867,18 +1036,25 @@ def consolidation_path(torch, card):
 
 
 def sweep_bound(first):
-    """(bound ms, "bytes" or "operations") of one sweep call — row 10's
-    function, K1 + K5, and the least that K5 alone must do of it: the
-    bytes of row 10's own inputs and outputs (each read or written once)
-    over the memory rate, or its operations over the float32 rate, the
-    larger.  K1's `m_all` is an intermediate of the K1 -> K5 split, not an
-    input of row 10, and is not counted.  The operations are the fit pass
-    over the open slots for every (row, class) pair with pods; the option
-    pass (only for pairs left with a tail, and then over this row's
-    launchable options) and K1's per-(class, option) fits are not counted,
-    so the bound stays a floor."""
+    """(bound ms, "bytes" or "operations", binding term, {term: ms}) of one
+    sweep call — row 10's function, K1 + K5, and the least that K5 alone
+    must do of it — the largest of three terms:
+      bytes       row 10's own inputs and outputs, each read or written
+                  once, over the memory rate (K1's `m_all` is an
+                  intermediate of the K1 -> K5 split, not counted);
+      operations  the fit pass over the open slots for every (row, class)
+                  pair with pods (the option pass and K1's fits are not
+                  counted, so the term stays a floor), over the float32
+                  peak;
+      dependency  a row's class steps run one after another, each at least
+                  the fill's block-wide scan: the card's least bare
+                  exchange on one CTA of any thread count (`least_step`);
+                  rows run side by side, so the longest row's steps, at
+                  the maximum SM clock.  Operations in sequence: its
+                  bound_by is "operations"."""
     low, cb, mb, pb = first["low"], first["cb"], first["mb"], first["pb"]
     R = low.req_p.shape[1]
+    O = low.price_p.shape[0]
     nbytes = (low.req_p.nbytes + cb.nbytes + low.packed.nbytes
               + low.cap_p.nbytes + low.alloc_p.nbytes + low.price_p.nbytes
               + low.rank_p.nbytes + mb.nbytes + pb.nbytes
@@ -886,8 +1062,14 @@ def sweep_bound(first):
               + cb.shape[0] * 3 * 4)
     n_open = int((low.init_option >= 0).sum())
     nops = int((cb > 0).sum()) * n_open * (2 * R + 6)
-    t_b, t_o = nbytes / MEM_BW, nops / F32_PEAK
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    bare, _ = least_step((1,))
+    steps = int((cb > 0).sum(1).max())
+    terms = {"bytes": nbytes / MEM_BW * 1e3,
+             "operations": nops / F32_PEAK * 1e3,
+             "dependency": steps * bare / SM_CLOCK_HZ * 1e3}
+    term = max(terms, key=terms.get)
+    return (terms[term], "bytes" if term == "bytes" else "operations", term,
+            terms)
 
 
 def sweep_call_times(torch, card, firsts):
@@ -900,6 +1082,7 @@ def sweep_call_times(torch, card, firsts):
         class_pack_sweep_kernel_packed
     k5_ms = {}
     for name, f in firsts.items():
+        steps = int((f["cb"] > 0).sum(1).max())
         (req, cb, packed, cap, alloc, price, rank, mb, pb, iopt, iused,
          m_all, K) = f["args"]
         both = event_ms(torch, lambda: class_pack_sweep_kernel_packed(
@@ -911,12 +1094,14 @@ def sweep_call_times(torch, card, firsts):
                                 10))
         k1_plain = event_ms(torch, lambda: ck.classpack_precompute_plain(
             req, cap, packed, alloc, price, rank), 1)
-        bound, by = sweep_bound(f)
+        bound, by, term, _ = sweep_bound(f)
         log(f"[time] sweep call, {name} (B={cb.shape[0]}): K1+K5 "
             f"{both:.4f} ms, K5 {k5_ms[name][1]:.4f} ms (CUDA events), K5 "
-            f"{k5_ms[name][0]:.4f} ms on the card (queued); bound "
-            f"of row 10 {bound * 1e3:.3f} us ({by}); K1 plain "
-            f"{k1_plain:.3f} ms on {card}")
+            f"{k5_ms[name][0]:.4f} ms on the card (queued), "
+            f"{k5_ms[name][0] / max(steps, 1) * 1e3:.3f} us a row step "
+            f"({steps} steps in its longest row); bound of row 10 "
+            f"{bound * 1e3:.3f} us ({term}); K1 plain {k1_plain:.3f} ms on "
+            f"{card}")
     return k5_ms
 
 
@@ -928,10 +1113,11 @@ def sweep_row(torch, card, first, ms, launches_by_path, err):
     args, low, cb = first["args"], first["low"], first["cb"]
     ms, host_ms = ms
     plain_ms = event_ms(torch, lambda: ck.classpack_sweep_plain(*args), 1)
-    bound_ms, bound_by = sweep_bound(first)
+    bound_ms, bound_by, term, terms = sweep_bound(first)
     log(f"[kernel] classpack_sweep: {ms:.4f} ms on the card (back-to-back "
         f"host rate {host_ms:.4f} ms; plain {plain_ms:.3f} ms, "
-        f"library None, bound {bound_ms * 1e3:.3f} us by {bound_by}) at "
+        f"library None, bound {bound_ms * 1e3:.3f} us by {term}, terms "
+        f"{terms}; {ms / bound_ms:.2f}x the bound) at "
         f"B={cb.shape[0]} Cpad={low.req_p.shape[0]} "
         f"Opad={low.price_p.shape[0]} K={low.K} on {card}")
     return dict(name="classpack_sweep", route="cuda",
@@ -943,7 +1129,128 @@ def sweep_row(torch, card, first, ms, launches_by_path, err):
                                   for p, c in launches_by_path.items()},
                 max_abs_err=err["classpack_sweep"], ms=ms, host_ms=host_ms,
                 plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, bound_term=term,
+                bound_terms=terms, library_ms=None)
+
+
+STEP_PROBES = {}
+STEP_LEAST = {}
+STEP_THREADS = (128, 256, 512, 1024)
+
+
+def least_step(clusters=None):
+    """(cycles of a bare exchange, of an exchange and a block reduction):
+    the least class step this card takes in any layout, the least of each
+    over clusters of every size in `clusters` (default: every size K2
+    takes) and every thread count of STEP_THREADS, each measured by
+    `classpack_kernels.step_cycles` (clock64, the least of three chains)
+    and logged on a [probe] line once; a size the card refuses is logged
+    and left out."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    clusters = tuple(clusters or ck.SCAN_CLUSTERS)
+    if clusters in STEP_LEAST:
+        return STEP_LEAST[clusters]
+    for cs in clusters:
+        for T in STEP_THREADS:
+            if (cs, T) in STEP_PROBES:
+                continue
+            try:
+                bare = min(ck.step_cycles(cs, T, False) for _ in range(3))
+                full = min(ck.step_cycles(cs, T, True) for _ in range(3))
+            except ck.KernelError as e:
+                STEP_PROBES[(cs, T)] = None
+                log(f"[probe] least class step, clusters of {cs} x {T} "
+                    f"threads: refused ({e})")
+                continue
+            STEP_PROBES[(cs, T)] = (bare, full)
+            log(f"[probe] least class step, clusters of {cs} x {T} threads "
+                f"(clock64, {ck.STEP_CHAIN} dependent steps): {bare:.1f} SM "
+                f"cycles an exchange, {full:.1f} with a block reduction; at "
+                f"the maximum SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz")
+    got = {k: v for k, v in STEP_PROBES.items() if v and k[0] in clusters}
+    check(got, "no least class step was measured")
+    bare = min(got, key=lambda k: got[k][0])
+    full = min(got, key=lambda k: got[k][1])
+    log(f"[probe] least class step over clusters of "
+        f"{sorted({k[0] for k in got})} x {list(STEP_THREADS)} threads: "
+        f"{got[bare][0]:.1f} cycles an exchange ({bare[0]} x {bare[1]}), "
+        f"{got[full][1]:.1f} with a block reduction ({full[0]} x {full[1]})")
+    STEP_LEAST[clusters] = got[bare][0], got[full][1]
+    return STEP_LEAST[clusters]
+
+
+def scan_counts(cnt, takes, init_open, K):
+    """The class steps one K2 scan runs, from its counts and emitted takes
+    (C x K; open slots a prefix, as every main path lays them): `steps`
+    the non-empty classes, `option_steps` those left with pods while a
+    slot is free (the option argmin runs), `fit_tests` the open slots the
+    fit tests over all steps."""
+    cnt = np.asarray(cnt)
+    takes = np.asarray(takes)
+    n_open, c = int(init_open), dict(steps=0, option_steps=0, fit_tests=0)
+    for k in np.nonzero(cnt > 0)[0]:
+        row = takes[k]
+        c["steps"] += 1
+        c["fit_tests"] += n_open
+        if int(cnt[k]) - int(row[:n_open].sum()) > 0 and n_open < K:
+            c["option_steps"] += 1
+        n_open += int((row[n_open:] > 0).sum())
+    return c
+
+
+def scan_bound(nbytes, shard_counts, R, O, cycles):
+    """(bound ms, "bytes" or "operations", binding term, {term: ms}) of one
+    K2 launch over the shards whose `scan_counts` are `shard_counts`, the
+    largest of three terms:
+      bytes       its inputs and outputs, each once, over the memory rate;
+      operations  the fit tests over the open slots (2R + 6 each) and the
+                  option scores of each option step (5 an option), over
+                  the card's float32 peak;
+      dependency  each class step reads the state the step before wrote:
+                  at least a bare exchange a step, and an exchange with a
+                  block reduction an option step (`cycles`, the card's
+                  measured least steps), over the longest shard (shards run
+                  side by side), at the maximum SM clock.  Operations in
+                  sequence: its bound_by is "operations"."""
+    bare, full = cycles
+    nops = sum(c["fit_tests"] * (2 * R + 6) + c["option_steps"] * O * 5
+               for c in shard_counts)
+    dep = max((c["steps"] - c["option_steps"]) * bare
+              + c["option_steps"] * full for c in shard_counts)
+    terms = {"bytes": nbytes / MEM_BW * 1e3,
+             "operations": nops / F32_PEAK * 1e3,
+             "dependency": dep / SM_CLOCK_HZ * 1e3}
+    term = max(terms, key=terms.get)
+    return (terms[term], "bytes" if term == "bytes" else "operations", term,
+            terms)
+
+
+def scan_step_line(card, what, R, O, K, n, ms, counts):
+    """Log K2's time per class step at one input, in the layout its plan
+    picks."""
+    import torch
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    plan = ck.scan_plan_for(torch.device("cuda"), K, R, O, n)
+    steps = max(c["steps"] for c in counts)
+    log(f"[time] K2 {what}: {ms:.4f} ms on the card, {steps} class steps "
+        f"(of its longest shard; {sum(c['option_steps'] for c in counts)} "
+        f"option steps in all): {ms / steps * 1e3:.3f} us a step, plan "
+        f"{plan} on {card}")
+
+
+def shard_scan_counts(s):
+    """`scan_counts` of each shard of a stacked row 13-17 input (`stacked`),
+    from the takes of one K2s launch over it."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    m, ok = ck.classpack_precompute_sharded(
+        s["req"], s["cap"], s["packed"], s["alloc"], s["price"], s["rank"])
+    takes = ck.classpack_scan_sharded(
+        s["req"], s["cnt"], s["packed"], s["cap"], s["alloc"], s["price"], m,
+        ok, s["iopt"], s["iused"], s["K"], True)[4].cpu().numpy()
+    cnt = s["cnt"].cpu().numpy()
+    return [scan_counts(cnt[i], takes[i], 0 if s["iopt"] is None else
+                        int((s["iopt"][i] >= 0).sum()), s["K"])
+            for i in range(cnt.shape[0])]
 
 
 def kernel_table(torch, card, shapes, launches_by_path, err):
@@ -995,6 +1302,19 @@ def kernel_table(torch, card, shapes, launches_by_path, err):
         # work this run's data needs: fit over the slots open so far
         # (bounded by the final count) and the score over every option
         C * (n_open * (2 * R + 6) + O * 5), 3)
+    k2 = rows[-1]
+    counts = scan_counts(s["cnt"].cpu().numpy(), s["takes"].cpu().numpy(), 0,
+                         K)
+    cycles = least_step()
+    nbytes = (C * (R * 4 + 13 + OB) + O * (R * 4 + 4) + C * O * 5
+              + K * (4 + R * 4) + C * K * 4 + 8)
+    b, by, term, terms = scan_bound(nbytes, [counts], R, O, cycles)
+    k2.update(bound_ms=b, bound_by=by, bound_term=term, bound_terms=terms,
+              step_cycles=list(cycles), steps=counts)
+    scan_step_line(card, "headline", R, O, K, 1, k2["ms"], [counts])
+    log(f"[kernel] classpack_scan bound restated: {b:.5f} ms by {term} "
+        f"(terms {terms}; {k2['ms'] / b:.2f}x the bound) from {counts} on "
+        f"{card}")
     flat_i32 = s["takes"].reshape(-1)
     q = torch.arange(Ppad, dtype=torch.int32, device=flat_i32.device)
 
@@ -2175,23 +2495,43 @@ def provision_kernel_rows(torch, card, by_path, slabs, programs, scans, err):
         log(f"[kernel] {row_name} ({key}) by kernel: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in split.items()) + f" (CUDA events), "
             f"K6 {ms:.4f} ms on the card on {card}")
+        R2, O2 = req.shape[1], price.shape[0]
+        k2_args = (req, cnt, packed, cap, alloc, price, m, ok, iopt, iused,
+                   Kp, True)
+        k2_ms = card_ms(torch, lambda: ck.classpack_scan(*k2_args), 5)
+        counts = scan_counts(cnt.cpu().numpy(), takes.cpu().numpy(),
+                             0 if iopt is None else int((iopt >= 0).sum()),
+                             Kp)
+        k2_bytes = sum(t.numel() * t.element_size()
+                       for t in k2_args[:10] if t is not None)
+        k2_bytes += Kp * 4 + Kp * R2 * 4 + takes.numel() * 4 + 8
+        b, _, term, terms = scan_bound(k2_bytes, [counts], R2, O2,
+                                       least_step())
+        scan_step_line(card, key, R2, O2, Kp, 1, k2_ms, [counts])
+        log(f"[kernel] classpack_scan at {key}: {k2_ms:.4f} ms on the card, "
+            f"bound {b:.5f} ms by {term} (terms {terms}; {k2_ms / b:.2f}x) "
+            f"from {counts} on {card}")
         pbytes = sum(t.numel() * t.element_size()
                      for t in args[:9] if t is not None)
         pbytes += Ppad * 4 + Kp * 8 + 4
-        pbound = pbytes / MEM_BW * 1e3
+        # the program's own bytes, or its K2's operations or class-to-class
+        # dependency, whichever is larger
+        pbound, pby, pterm, pterms = scan_bound(pbytes, [counts], R2, O2,
+                                                least_step())
         rows.append(dict(
             name=row_name, route="cuda",
             source="karpenter_tpu_torch/ops/classpack.py",
             replaces=replaces, launches=by_path[path]["classpack_slab"],
             path=path, launches_by_path=paths("classpack_slab"),
             max_abs_err=0.0, ms=prog_ms, plain_ms=p_ms, bound_ms=pbound,
-            bound_by="bytes", library_ms=None))
+            bound_by=pby, bound_term=pterm, bound_terms=pterms,
+            library_ms=None))
         log(f"[kernel] {row_name} ({key}: K1+K2+K3+K6, Cpad="
             f"{req.shape[0]}, Opad={price.shape[0]}, K={Kp}, Ppad={Ppad}, "
             f"E={0 if iopt is None else int((iopt >= 0).sum())}): "
             f"{prog_ms:.4f} ms (plain {p_ms:.3f} ms, bound "
-            f"{pbound * 1e3:.3f} us by bytes) — equal to the plain programs "
-            f"on {card}")
+            f"{pbound * 1e3:.3f} us by {pterm}, terms {pterms}) — equal to "
+            f"the plain programs on {card}")
     # K7 and row 11 at provision-ffd-50k
     name = f"{FFD_PATH} round 1 solve 1"
     a = scans[name]
@@ -2340,9 +2680,13 @@ def compare_sharded(torch, name, s, err, emit=True):
     same kernels at n = 1); K8 on the flat mesh and on 2 x 4 hosts."""
     from karpenter_tpu_torch.ops import classpack_kernels as ck
     got = sharded_run(s, emit=emit)
+    again = sharded_run(s, emit=emit)
     want = sharded_run(s, plain=True, emit=emit)
     ser = serial_run(s, emit=emit)
     torch.cuda.synchronize()
+    for k in got:
+        check(torch.equal(got[k], again[k]),
+              f"sharded {k}: two launches differ ({name})")
     for k in got:
         g, w = got[k], want[k]
         if k == "flat":
@@ -2383,7 +2727,8 @@ def compare_sharded(torch, name, s, err, emit=True):
     log(f"[sharded] {name}: n={n} Cpad={s['req'].shape[1]} "
         f"Opad={s['price'].shape[0]} K={s['K']} Ppad={s['Ppad']} empty "
         f"shards {empty}, n_open {got['n_open'].tolist()}, n_unsched {un} "
-        f"-> K1-K4, K6, K8 equal to plain and to {n} single-device launches; "
+        f"-> K1-K4, K6, K8 equal to plain and to {n} single-device launches, "
+        f"two launches bit-equal; "
         f"K8 cost flat {float(flat8[0])!r} vs {hosts} hosts "
         f"{float(flat24[0])!r} "
         f"(bit-equal: {bool(flat8[0] == flat24[0])})")
@@ -2640,11 +2985,23 @@ def sharded_solve_timings(torch, card, mega, head, ex):
     for k, (p50, xs) in out.items():
         log(f"[time] {k}: warm p50 {p50:.3f} ms over {len(xs)} "
             f"({', '.join(f'{x:.1f}' for x in xs)}) on {card}")
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    before = ck.LAUNCHES["classpack_scan_sharded"]
     busy = slab_trace(torch, card, f"{MEGA_PATH} slab solve",
                       lambda: solve_partitioned(
                           mega, mesh=mesh,
                           max_nodes_per_shard=workloads.MEGAFLEET_K,
                           device_decode=True), iters=2)
+    k2s = ck.LAUNCHES["classpack_scan_sharded"] - before
+    hit = [k for k in busy["names"] if "cluster_scan_kernel" in k]
+    stale = [k for k in busy["names"] if "::scan_kernel<" in k]
+    check(k2s == 3 and hit and not stale,
+          f"{MEGA_PATH} slab solve: K2s launched {k2s} times in 3 calls; "
+          f"the trace names {hit} of this design and {stale} of the earlier")
+    log(f"[trace] {MEGA_PATH} slab solve: classpack_scan_sharded launched "
+        f"{k2s} times in 3 calls; the trace names {[k[:60] for k in hit]} "
+        f"({sum(busy['events'][k] for k in hit)} launches recorded) and no "
+        f"kernel of the earlier design on {card}")
     log(f"[trace] {MEGA_PATH} slab solve: device busy "
         f"{busy['device_ms']:.3f} of {busy['wall_ms']:.3f} ms wall per "
         f"solve, idle share {busy['idle_share']:.4f}; by kernel "
@@ -2825,6 +3182,21 @@ def sharded_kernel_rows(torch, card, caps, cases, by_path, err):
             host_ms=host_ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o),
             bound_by="bytes" if t_b >= t_o else "operations",
             library_ms=lib_ms, serial_ms=ser_ms))
+        if name == "classpack_scan_sharded":
+            # the restated bound: the shards' class steps, each at least
+            # the card's least step (`scan_bound`)
+            R, O = sc["req"].shape[2], sc["price"].shape[0]
+            ta = takes.cpu().numpy()
+            ca = sc["cnt"].cpu().numpy()
+            counts = [scan_counts(ca[i], ta[i], 0, sc["K"]) for i in range(n)]
+            b, by, term, terms = scan_bound(nbytes, counts, R, O,
+                                            least_step())
+            rows[-1].update(bound_ms=b, bound_by=by, bound_term=term,
+                            bound_terms=terms, steps=counts)
+            scan_step_line(card, "megafleet row 17 (K2s)", R, O, sc["K"], n,
+                           ms, counts)
+            log(f"[kernel] classpack_scan_sharded bound restated: {b:.5f} ms "
+                f"by {term} (terms {terms}; {ms / b:.2f}x) on {card}")
         log(f"[kernel] {name}: {ms:.4f} ms on the card for n={n} shards "
             f"(back-to-back host rate {host_ms:.4f} ms; "
             f"{'' if ser_ms is None else f'{n} serial single-device launches {ser_ms:.4f} ms, '}"
@@ -2878,7 +3250,12 @@ def sharded_kernel_rows(torch, card, caps, cases, by_path, err):
                      if isinstance(t, torch.Tensor)
                      and not (t.dim() and t.stride(0) == 0))
         nbytes += sum(t.numel() * t.element_size() for t in out)
-        bound = nbytes / MEM_BW * 1e3
+        # the program's own bytes, or its K2s's operations or class-to-class
+        # dependency at this input, whichever is larger
+        counts = shard_scan_counts(sc)
+        bound, by, term, terms = scan_bound(
+            nbytes, counts, sc["req"].shape[2], sc["price"].shape[0],
+            least_step())
         rows.append(dict(
             name=name, route="cuda",
             source=("karpenter_tpu_torch/parallel/sharded.py"
@@ -2886,12 +3263,12 @@ def sharded_kernel_rows(torch, card, caps, cases, by_path, err):
                     "karpenter_tpu_torch/parallel/driver.py"),
             replaces=replaces, launches=by_path[path][marker], path=path,
             launches_by_path=paths(marker), max_abs_err=diff, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
-            library_ms=None))
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by, bound_term=term,
+            bound_terms=terms, steps=counts, library_ms=None))
         log(f"[kernel] {name} ({rows_of[name]}, {path}): {ms:.4f} ms (CUDA "
             f"events; plain {plain_ms:.3f} ms, bound {bound * 1e3:.3f} us by "
-            f"bytes), max abs err {diff!r} against the plain programs on "
-            f"{card}")
+            f"{term}, terms {terms}; {ms / bound:.2f}x), max abs err "
+            f"{diff!r} against the plain programs on {card}")
     cell_args = caps[f"{CELL_PATH} round 2"][1]
     ms = event_ms(torch, lambda: driver._partitioned_assign_slab(*cell_args),
                   5)
@@ -2914,6 +3291,7 @@ def main() -> int:
     pods, catalog, pools, problem = headline_problem()
     ex = existing(problem)
     err, shapes = compare_kernels(torch, problem, ex)
+    compare_scan_edges(torch, problem)
     compare_assign_decode(torch)
     firsts = compare_sweeps(torch, err)
     log(f"[kernels] all kernels equal to their plain versions "

@@ -15,8 +15,8 @@
 // The shard axis.  shard_map runs n copies of the single-device program on
 // their own slices with the catalog replicated; here K1-K4 and K6 take a
 // shard count n and run it as one launch, the shard as a grid axis
-// (blockIdx.y, or one block per shard for the one-block kernels K2 and
-// K4).  Shard s reads its inputs at base + s * stride
+// (blockIdx.y; one cluster of CTAs per shard for K2, one block per shard
+// for K4).  Shard s reads its inputs at base + s * stride
 // (ShardStrides; a stride of 0 shares one copy, as the replicated operands
 // of rows 13-14 are shared) and writes its own outputs and scratch at
 // base + s * (the output's size).  The single-device programs are the same
@@ -33,11 +33,16 @@
 // the lowered allocatable), and the float32 score price * float(nodes)
 // rounded to nearest with no contraction, clamped at SCORE_CAP.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kBig = 1 << 30;
 constexpr float kScoreCap = 3.38e38f;  // ops/ffd.py SCORE_CAP as float32
@@ -108,12 +113,6 @@ __device__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_buf,
   return before + x - v;
 }
 
-__device__ unsigned block_sum(unsigned v, unsigned* warp_buf) {
-  unsigned total;
-  block_exclusive_scan(v, warp_buf, &total);
-  return total;
-}
-
 // ---------------------------------------------------------------------------
 // K1 classpack_precompute  (replaces ops/classpack.py class_pack_kernel
 // :75-85, the per-(class x option) precompute hoisted out of the scan)
@@ -172,115 +171,690 @@ __global__ void precompute_kernel(const int* __restrict__ req,
 }
 
 // ---------------------------------------------------------------------------
+// The class step shared by K2 and K5
+//
+// Both kernels walk classes one after another; what a class step needs of
+// the card is latency, not bandwidth.  The pieces below keep a step's
+// critical path inside the SM:
+//   * slot state in shared memory (or, past the budget, in a global slice
+//     laid out the same way), thread t owning the S contiguous slots
+//     [t*S, t*S+S) of its block, stored at i*T + t so a warp's accesses to
+//     its lanes' i-th slots are consecutive words (no bank conflicts,
+//     coalesced in the global layout);
+//   * the class's rows (compat, m, ok) staged one class ahead by TMA bulk
+//     copies into a ring of three buffers, each completing on its own
+//     mbarrier, and its requests, cap and divisors (a multiplier per
+//     positive axis, so the fit divides by multiply and shift) written by
+//     warp 0 into a static ring beside them, so a step reads no global
+//     memory on its critical path; the next class after that is found in
+//     counts prefetched a step ahead;
+//   * classes with a count <= 0 skipped: the reference's step is then an
+//     exact no-op (nothing taken, needed = 0, sched_new = remaining);
+//   * one exchange for the fill (see `exchange_scan`: warp shuffles, one
+//     block barrier, and across a cluster one round of st.async stores on
+//     mbarriers).  When every thread's fits sum below 2^31 / threads no
+//     prefix wraps and the fill takes min(count, total) pods in all, so
+//     the sum of the takes needs no second exchange (past it, 64-bit
+//     exchanges give the reference's uint32 numbers);
+//   * the option argmin as one block reduction of redux.sync minima (one
+//     barrier), run only when pods remain and a slot is free: otherwise
+//     the reference reads nothing of the chosen option.
+// ---------------------------------------------------------------------------
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
+  const unsigned adr = smem_addr(bar);
+  for (long long i = 0;; ++i) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(adr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1ll << 24)) __trap();  // a lost arrival: fail, never hang
+  }
+}
+
+// One arrival on `bar` that expects `bytes` of transactions.
+__device__ __forceinline__ void mbar_expect(u64* bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// A TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to this CTA's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, u64* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+// Floor division by a class's invariant request q > 0 with a multiplier
+// computed once per class (Granlund and Montgomery, "Division by invariant
+// integers using multiplication", 1994, theorem 4.2, for 31-bit
+// numerators): l = ceil(log2 q), m = ceil(2^(31+l) / q) < 2^32, and for
+// 0 <= x < 2^31, x / q = (x * m) >> (31 + l); one correction step guards
+// the quotient.  m itself comes from float32 estimates made exact in
+// integers (no 64-bit division on the step's path).  A negative a is floored through x = -1 - a >= 0:
+// floor(a / q) = -1 - (x / q), which also covers INT_MIN.  q <= 0 gives
+// shift 0 (the axis is skipped, as the reference masks it).  The host's
+// floordiv_magic_model repeats this arithmetic.
+struct Magic {
+  unsigned m;
+  int shift;
+  int q;
+};
+
+__device__ __forceinline__ Magic magic_of(int q) {
+  Magic g = {0u, 0, q};
+  if (q > 0) {
+    const int l = q == 1 ? 0 : 32 - __clz((unsigned)(q - 1));
+    // m = ceil(2^(31+l) / q) = floor(M / q): a float32 estimate (within
+    // about 800), one float32 correction of the remainder (within 1), then
+    // one exact step in integers
+    const long long M = (1ll << (31 + l)) + q - 1;
+    const float rq = __frcp_rn((float)q);
+    long long m = (long long)__fmul_rn((float)M, rq);
+    long long r = M - m * q;
+    m += (long long)floorf(__fmul_rn((float)r, rq));
+    r = M - m * q;
+    m += (r >= q) - (r < 0);
+    g.m = (unsigned)m;
+    g.shift = 31 + l;
+  }
+  return g;
+}
+
+__device__ __forceinline__ int floordiv_magic(int a, Magic g) {
+  const int q = g.q;
+  const unsigned x = a >= 0 ? (unsigned)a : (unsigned)(-1 - a);
+  long long d = (long long)(((u64)x * g.m) >> g.shift);
+  const long long r = (long long)x - d * q;
+  d += (r >= q) - (r < 0);
+  return a >= 0 ? (int)d : -1 - (int)d;
+}
+
+// A class's requests (all R axes), its positive axes with their divisors
+// (the fit's divisions; axes with a request <= 0 are skipped, as the
+// reference masks them), its non-zero axes (the only ones a take
+// changes) and its node cap, in a static ring beside the staged rows.
+// Written by warp 0, lane r holding request r (0 past R).
+struct ClassAxes {
+  int req[kMaxR];
+  Magic mg[kMaxR];
+  unsigned char ax[kMaxR];
+  unsigned char nz[kMaxR];
+  int nax, nnz;
+  int cap;
+};
+
+__device__ __forceinline__ void set_class(ClassAxes* d, int q, int R,
+                                          int cap) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned pos = __ballot_sync(0xffffffffu, lane < R && q > 0);
+  const unsigned nonzero = __ballot_sync(0xffffffffu, lane < R && q != 0);
+  if (lane < R) d->req[lane] = q;
+  if (lane < R && q > 0) {
+    const int k = __popc(pos & below);
+    d->ax[k] = (unsigned char)lane;
+    d->mg[k] = magic_of(q);
+  }
+  if (lane < R && q != 0) d->nz[__popc(nonzero & below)] = (unsigned char)lane;
+  if (lane == 0) {
+    d->nax = __popc(pos);
+    d->nnz = __popc(nonzero);
+    d->cap = cap;
+  }
+}
+
+// The takes of a thread's S slots out of their free space, over the
+// class's non-zero axes (axes outer: one read of each axis and request,
+// then the slots), skipping the slots opened this step (n_open <= k <
+// n_open + n_new, written whole) and those past the CTA's `n_mine`.
+template <int S>
+__device__ __forceinline__ void take_slots(int* st_free, const int* take,
+                                           const ClassAxes& ca, int t, int T,
+                                           int n_open, int n_new, int k_lo,
+                                           int n_mine) {
+  const int nnz = ca.nnz;
+  for (int z = 0; z < nnz; ++z) {
+    const int r = ca.nz[z];
+    const int q = ca.req[r];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int l = t * S + i, k = k_lo + l;
+      if (take[i] && l < n_mine && !(k >= n_open && k < n_open + n_new))
+        st_free[(r * S + i) * T + t] -= take[i] * q;
+    }
+  }
+}
+
+// Store a thread's S contiguous values (the first `valid` of them) at dst:
+// 16- or 8-byte stores where aligned, so a warp's lanes write one run.
+template <int S>
+__device__ __forceinline__ void store_slots(int* dst, const int* v,
+                                            int valid) {
+  const size_t adr = (size_t)dst;
+  if (valid >= S && S >= 4 && (adr & 15) == 0) {
+#pragma unroll
+    for (int i = 0; i < S; i += 4)
+      *(int4*)(dst + i) = make_int4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else if (valid >= S && S == 2 && (adr & 7) == 0) {
+    *(int2*)dst = make_int2(v[0], v[S > 1 ? 1 : 0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < S; ++i)
+      if (i < valid) dst[i] = v[i];
+  }
+}
+
+__device__ __forceinline__ int alloc_at(const int* __restrict__ alloc, int opt,
+                                        int R, int r) {
+  return __ldg(alloc + (size_t)opt * R + r);
+}
+
+// Zero takes for the classes [c0, c1), which take nothing: the rows of
+// this CTA's slots (emit), or one count each (rank 0 of the cluster).
+__device__ __noinline__ void zero_takes(int* takes, int c0, int c1, int K,
+                                           int k_lo, int n_mine, int emit,
+                                           int rank) {
+  if (emit) {
+    for (int c = c0; c < c1; ++c)
+      for (int l = threadIdx.x; l < n_mine; l += blockDim.x)
+        takes[(size_t)c * K + k_lo + l] = 0;
+  } else if (rank == 0) {
+    for (int c = c0 + threadIdx.x; c < c1; c += blockDim.x) takes[c] = 0;
+  }
+}
+
+// The first class at or after `from` whose count is > 0 (C if none), and
+// its count; every lane of the calling warp returns the same answer.
+__device__ __noinline__ int next_class(const int* __restrict__ counts,
+                                          int from, int C, int* cnt) {
+  const int lane = threadIdx.x & 31;
+  for (int base = from; base < C; base += 32) {
+    const int c = base + lane;
+    const int v = c < C ? __ldg(counts + c) : 0;
+    const unsigned hit = __ballot_sync(0xffffffffu, v > 0);
+    if (hit) {
+      const int l = __ffs(hit) - 1;
+      *cnt = __shfl_sync(0xffffffffu, v, l);
+      return base + l;
+    }
+  }
+  *cnt = 0;
+  return C;
+}
+
+// ---- the exchange: a scan of one value a thread over the cluster ----
+//
+// Each warp scans its lanes with shuffles and leaves its total in a small
+// table; one block barrier; each warp then reads the table (redux.sync).
+// Across a cluster, warp 0 of each CTA then sends its CTA's total to every
+// CTA's cluster table by st.async, which completes its 8 bytes on that
+// CTA's mbarrier (transaction count); each CTA's mbarrier expects cs x 8
+// bytes a use, and every thread waits on its own CTA's mbarrier.  So a
+// step pays one block barrier and one round of one-way remote stores, not
+// a cluster-wide barrier of every thread.  Tables and mbarriers alternate
+// between two buffers: a buffer is written again two exchanges later,
+// after every thread of every CTA has passed the exchange between (its
+// reads done).
+
+struct Exchange {
+  u64* wtab;   // [2][32]: this CTA's warp totals
+  u64* ctab;   // [2][kMaxCluster]: the cluster's CTA totals
+  u64* mbar;   // [2]: the CTA totals' arrivals (clusters of 2 or more)
+  int cs, rank, n;
+};
+
+constexpr int kMaxCluster = 16;
+
+__device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ unsigned mapa(const void* p, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+// This CTA's mbarrier of buffer b expects the cs stores of one exchange
+// (its one arrival); posted by thread 0 before the exchange's block
+// barrier, so before this CTA sends, though another CTA's store may land
+// first (the transaction count then waits for the arrival).
+__device__ __forceinline__ void expect_sends(const Exchange& x, int b) {
+  if (threadIdx.x == 0 && x.cs > 1) mbar_expect(x.mbar + b, 8 * x.cs);
+}
+
+__device__ __forceinline__ void publish(const Exchange& x, int b, u64 v) {
+  // lane r of warp 0 sends this CTA's value to CTA r
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32 && lane < x.cs) {
+    const unsigned dst = mapa(x.ctab + b * kMaxCluster + x.rank, lane);
+    const unsigned bar = mapa(x.mbar + b, lane);
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.u64 [%0], %1, "
+        "[%2];\n" ::"r"(dst),
+        "l"(v), "r"(bar)
+        : "memory");
+  }
+  // every thread: the cs stores of this use of buffer b
+  mbar_wait(x.mbar + b, (x.n >> 1) & 1);
+}
+
+// Before the first exchange (then a cluster barrier, so that no CTA
+// sends to another's mbarrier before it is initialised).
+__device__ __forceinline__ void exchange_init(const Exchange& x) {
+  if (threadIdx.x == 0 && x.cs > 1) {
+    mbar_init(x.mbar, 1);
+    mbar_init(x.mbar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// (The rare paths — the 64-bit scan, the search past a prefetched window,
+// the empty classes' takes — are out of line: a class step's code stays
+// small.)
+//
+// Exclusive prefix and total, over the cluster's threads in order (CTA
+// rank, then thread), of one uint32 a thread, wrapping; `*any` tells
+// whether any thread of the cluster passed `flag`.
+__device__ __forceinline__ void exchange_scan(Exchange& x, unsigned v,
+                                              bool flag, unsigned* pre,
+                                              unsigned* tot, bool* any) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int b = x.n & 1;
+  expect_sends(x, b);
+  unsigned s = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, s, d);
+    if (lane >= d) s += y;
+  }
+  const unsigned wsum = __shfl_sync(0xffffffffu, s, 31);
+  const unsigned wflag = __any_sync(0xffffffffu, flag);
+  if (lane == 0) x.wtab[b * 32 + warp] = (u64)wsum | ((u64)wflag << 32);
+  __syncthreads();
+  const u64 e = lane < nwarps ? x.wtab[b * 32 + lane] : 0ull;
+  const unsigned w = (unsigned)e;
+  const unsigned w_lt = __reduce_add_sync(0xffffffffu, lane < warp ? w : 0u);
+  unsigned all = __reduce_add_sync(0xffffffffu, w);
+  unsigned flags = __reduce_or_sync(0xffffffffu, (unsigned)(e >> 32));
+  unsigned c_lt = 0;
+  if (x.cs > 1) {
+    publish(x, b, (u64)all | ((u64)flags << 32));
+    const u64 f = lane < x.cs ? x.ctab[b * kMaxCluster + lane] : 0ull;
+    c_lt = __reduce_add_sync(0xffffffffu,
+                             lane < x.rank ? (unsigned)f : 0u);
+    all = __reduce_add_sync(0xffffffffu, (unsigned)f);
+    flags = __reduce_or_sync(0xffffffffu, (unsigned)(f >> 32));
+  }
+  ++x.n;
+  *pre = c_lt + w_lt + s - v;
+  *tot = all;
+  *any = flags != 0;
+}
+
+// The minimum over the cluster of one u64 a CTA (every thread of the CTA
+// holding it): each CTA's value to every CTA's table, then a minimum.
+__device__ __forceinline__ u64 exchange_min(Exchange& x, u64 v) {
+  const int lane = threadIdx.x & 31;
+  const int b = x.n & 1;
+  expect_sends(x, b);
+  publish(x, b, v);
+  const u64 e = lane < x.cs ? x.ctab[b * kMaxCluster + lane] : ~0ull;
+  const unsigned hi = __reduce_min_sync(0xffffffffu, (unsigned)(e >> 32));
+  const unsigned lo = __reduce_min_sync(
+      0xffffffffu, (unsigned)(e >> 32) == hi ? (unsigned)e : 0xffffffffu);
+  ++x.n;
+  return ((u64)hi << 32) | lo;
+}
+
+__device__ __forceinline__ u64 warp_sum64(u64 v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;
+}
+
+// The same scan exactly, in 64 bits (the sums past 2^31).
+__device__ __noinline__ void exchange_scan64(Exchange& x, u64 v, u64* pre,
+                                                u64* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int b = x.n & 1;
+  expect_sends(x, b);
+  u64 s = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const u64 y = __shfl_up_sync(0xffffffffu, s, d);
+    if (lane >= d) s += y;
+  }
+  if (lane == 31) x.wtab[b * 32 + warp] = s;
+  __syncthreads();
+  const u64 w = lane < nwarps ? x.wtab[b * 32 + lane] : 0ull;
+  const u64 w_lt = warp_sum64(lane < warp ? w : 0ull);
+  u64 all = warp_sum64(w), c_lt = 0;
+  if (x.cs > 1) {
+    publish(x, b, all);
+    const u64 f = lane < x.cs ? x.ctab[b * kMaxCluster + lane] : 0ull;
+    c_lt = warp_sum64(lane < x.rank ? f : 0ull);
+    all = warp_sum64(f);
+  }
+  ++x.n;
+  *pre = c_lt + w_lt + s - v;
+  *tot = all;
+}
+
+// The lexicographic minimum of (rank, score, index) over the block: the
+// lowest rank, then the lowest score, ties to the lowest index, as three
+// uint32 keys (an order-preserving rank, the score's ordered bits with
+// -0.0 read as 0.0, the index), each a redux.sync minimum.  One barrier;
+// every thread returns with the keys.  `s_key` holds 3 x 32 entries, read
+// only between this call's barrier and the caller's next barrier.
+__device__ __forceinline__ bool key_less(int r1, float s1, int i1, int r2,
+                                         float s2, int i2) {
+  return r1 < r2 || (r1 == r2 && (s1 < s2 || (s1 == s2 && i1 < i2)));
+}
+
+__device__ __forceinline__ unsigned score_key(float f) {
+  const unsigned u = __float_as_uint(__fadd_rn(f, 0.0f));  // -0.0 -> 0.0
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+constexpr unsigned kInfKey = 0xff800000u;  // score_key(+inf)
+
+__device__ __forceinline__ void warp_keymin(unsigned& r, unsigned& f,
+                                            unsigned& i) {
+  const unsigned r1 = __reduce_min_sync(0xffffffffu, r);
+  const unsigned f1 =
+      __reduce_min_sync(0xffffffffu, r == r1 ? f : 0xffffffffu);
+  i = __reduce_min_sync(0xffffffffu,
+                        (r == r1 && f == f1) ? i : 0xffffffffu);
+  r = r1;
+  f = f1;
+}
+
+__device__ __forceinline__ void block_keymin(int rk, float sc, int ix,
+                                             unsigned* s_key,
+                                             unsigned* f_out,
+                                             unsigned* i_out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  unsigned r = (unsigned)rk ^ 0x80000000u, f = score_key(sc),
+           i = (unsigned)ix;
+  warp_keymin(r, f, i);
+  if (lane == 0) {
+    s_key[warp] = r;
+    s_key[32 + warp] = f;
+    s_key[64 + warp] = i;
+  }
+  __syncthreads();
+  r = lane < nwarps ? s_key[lane] : 0xffffffffu;
+  f = lane < nwarps ? s_key[32 + lane] : 0xffffffffu;
+  i = lane < nwarps ? s_key[64 + lane] : 0xffffffffu;
+  warp_keymin(r, f, i);
+  *f_out = f;
+  *i_out = i;
+}
+
+// A class's rows in shared memory (one buffer of the ring of three); its
+// requests, divisors and node cap live in small static rings beside it.
+struct ClassBuf {
+  uint8_t* compat;   // OB (a multiple of 16)
+  int* m;            // O   (K2: K1's m row; K5: m_all's)
+  uint8_t* ok;       // O   (K2 only: K1's ok row)
+};
+
+// Buffer `slot` of the ring at `base` (16-byte aligned): compat, m, ok.
+__device__ __forceinline__ ClassBuf ring_at(unsigned char* base, int slot,
+                                            int OB, int O, bool with_ok) {
+  unsigned char* p =
+      base + (size_t)slot * (OB + (size_t)O * 4 + (with_ok ? O : 0));
+  ClassBuf b;
+  b.compat = p;
+  b.m = (int*)(p + OB);
+  b.ok = with_ok ? p + OB + (size_t)O * 4 : nullptr;
+  return b;
+}
+
+// Thread 0 stages class c's rows into `b` by TMA bulk copies completing on
+// `bar` (with `extra` more bytes of a copy issued beside them, or 0).
+// Sizes are multiples of 16 bytes (O % 128 == 0 on the staged layouts).
+__device__ __forceinline__ void stage_rows(const ClassBuf& b, u64* bar,
+                                           const uint8_t* compat,
+                                           const int* m, const uint8_t* ok,
+                                           int c, int OB, int O,
+                                           unsigned extra) {
+  mbar_expect(bar, OB + O * 4 + (ok ? O : 0) + extra);
+  bulk_copy(b.compat, compat + (size_t)c * OB, OB, bar);
+  bulk_copy(b.m, m + (size_t)c * O, O * 4, bar);
+  if (ok) bulk_copy(b.ok, ok + (size_t)c * O, O, bar);
+}
+
+// ---------------------------------------------------------------------------
 // K2 classpack_scan  (replaces ops/classpack.py class_pack_kernel :87-152,
 // the lax.scan over classes; the _fresh variants build the all-closed init
 // state in-kernel)
 //
-// The scan is a sequential carry over classes, so it runs as ONE persistent
-// block of 1024 threads per shard (n shards: n blocks on n SMs, the mesh's
-// copies side by side); thread t owns the S contiguous slots
-// [t*S, t*S+S) (S = ceil(K/1024), a template parameter so the per-slot fit
-// and take stay in registers).  Slot state (option, free[R]) lives in a
-// global scratch buffer that stays resident in L2 (K*R*4 = 229 KB at the
-// headline shape, just over one block's shared memory).  Per class step:
-// per-slot fit, a block-wide exclusive scan for the greedy first-fit fill,
-// a block-wide argmin over the options' new-node score (ties to the lowest
-// index), then the opening of n_new slots.  Bound on this card: the
-// sequential dependency over classes (latency of ~6 block barriers and the
-// L2 round trips per class), not bytes or operations: one SM does the
-// whole scan.
+// One thread-block cluster per shard (n shards: the shard a grid axis,
+// blockIdx.y); the cluster's cs CTAs split the K slots into contiguous
+// ranges of `per` slots, each CTA keeping its range's option and free[R]
+// (the slot state) in its own shared memory, or past the budget in a
+// global slice of the same layout.  Each CTA also holds the class inputs
+// (the packed compat row, K1's m and ok rows, the price vector) in shared
+// memory, staged one class ahead.  A class step: each thread's fits over
+// its slots (in registers), the cluster scan of the fits (one exchange
+// through distributed shared memory), the greedy first-fit takes, then —
+// when pods remain and a slot is free — the option argmin (each CTA over
+// every cs-th option, one block reduction, then the cluster's minimum: a
+// second exchange of one value a CTA), and the opening of the new slots.
+// Bound on this card: the dependency from class to class (an exchange and
+// a block reduction a step), not bytes or operations.  The host's
+// scan_plan picks the cluster size, the threads, the slots per thread and
+// the layouts from the shapes and the card's attributes.
 // ---------------------------------------------------------------------------
-constexpr int kScanThreads = 1024;
+constexpr int kScanThreads = 1024;   // threads of a CTA at 32 slots a thread
+constexpr int kScanCtaThreads = 512; // ... and below
+
+struct ScanArgs {
+  const int* req;
+  const int* counts;
+  const uint8_t* compat;
+  const int* node_cap;
+  const int* alloc;
+  const float* price;
+  const int* m_all;
+  const uint8_t* ok_all;
+  const int* init_option;
+  const int* init_used;
+  int C, O, R, OB, K, emit;
+  int per;         // slots per CTA
+  int state_smem;  // slot state in shared memory (else in g_state)
+  int stage;       // class inputs staged in shared memory (else read in place)
+  ShardStrides ss;
+  int* slot_option;
+  int* g_state;    // n x cs x S*T*(R+1) ints, when !state_smem
+  int* slot_used;
+  int* scalars;
+  int* takes;
+};
 
 template <int S>
-__global__ void __launch_bounds__(kScanThreads, 1)
-scan_kernel(const int* __restrict__ req, const int* __restrict__ counts,
-            const uint8_t* __restrict__ compat_packed,
-            const int* __restrict__ node_cap, const int* __restrict__ alloc,
-            const float* __restrict__ price, const int* __restrict__ m_all,
-            const uint8_t* __restrict__ ok_all,
-            const int* __restrict__ init_option,
-            const int* __restrict__ init_used, int C, int O, int R, int OB,
-            int K, int emit, ShardStrides ss, int* __restrict__ slot_option,
-            int* __restrict__ slot_free, int* __restrict__ slot_used,
-            int* __restrict__ scalars, int* __restrict__ takes) {
-  __shared__ unsigned s_warp[32];
-  __shared__ float s_sc[32];
-  __shared__ int s_ix[32];
-  __shared__ int s_req[kMaxR];
-  __shared__ int s_j;
-  __shared__ float s_score;
-  const int t = threadIdx.x;
-  const int k0 = t * S;
-  // this block's shard: its own inputs (or the shared copy, stride 0), its
-  // own slot state, scalars and takes
-  const long long sh = blockIdx.x;
-  req += sh * ss.req;
-  counts += sh * ss.cnt;
-  compat_packed += sh * ss.compat;
-  node_cap += sh * ss.cap;
-  m_all += sh * ss.m;
-  ok_all += sh * ss.ok;
-  if (init_option) init_option += sh * ss.iopt;
-  if (init_used) init_used += sh * ss.iused;
-  slot_option += sh * K;
-  slot_free += sh * K * R;
-  slot_used += sh * K * R;
-  scalars += 2 * sh;
-  takes += sh * (emit ? (long long)C * K : (long long)C);
+__global__ void __launch_bounds__(S < 32 ? kScanCtaThreads : kScanThreads, 1)
+cluster_scan_kernel(const ScanArgs a) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  __shared__ u64 s_wtab[2 * 32];
+  __shared__ u64 s_ctab[2 * kMaxCluster];
+  __shared__ u64 s_mbar[2];
+  __shared__ unsigned s_key[3 * 32];
+  // each class's requests, divisors and node cap, one class ahead, and the
+  // arrivals of its staged rows
+  __shared__ ClassAxes s_cls[3];
+  __shared__ u64 s_stage[3];
+  const int t = threadIdx.x, T = blockDim.x, lane = t & 31;
+  const int cs = gridDim.x, rank = blockIdx.x;
+  const long long sh = blockIdx.y;
+  const int C = a.C, O = a.O, R = a.R, OB = a.OB, K = a.K;
+  // this shard's inputs (or the shared copy, stride 0) and outputs
+  const int* req = a.req + sh * a.ss.req;
+  const int* counts = a.counts + sh * a.ss.cnt;
+  const uint8_t* compat = a.compat + sh * a.ss.compat;
+  const int* node_cap = a.node_cap + sh * a.ss.cap;
+  const int* m_all = a.m_all + sh * a.ss.m;
+  const uint8_t* ok_all = a.ok_all + sh * a.ss.ok;
+  const int* init_option =
+      a.init_option ? a.init_option + sh * a.ss.iopt : nullptr;
+  const int* init_used = a.init_used ? a.init_used + sh * a.ss.iused : nullptr;
+  int* slot_option = a.slot_option + sh * K;
+  int* slot_used = a.slot_used + sh * (long long)K * R;
+  int* takes = a.takes + sh * (a.emit ? (long long)C * K : (long long)C);
+  Exchange x = {s_wtab, s_ctab, s_mbar, cs, rank, 0};
+  exchange_init(x);
+  if (t == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(s_stage + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
 
-  // ---- init state: closed slots, or the pre-opened existing columns ----
+  // ---- shared memory: the slot state, then the staging ----
+  size_t off = 0;
+  const size_t cells = (size_t)S * T;
+  int* st;
+  if (a.state_smem) {
+    st = (int*)s_dyn;
+    off += cells * (R + 1) * sizeof(int);
+  } else {
+    st = a.g_state + (sh * cs + rank) * (long long)(cells * (R + 1));
+  }
+  int* st_opt = st;             // [i*T + t]
+  int* st_free = st + cells;    // [(r*S + i)*T + t]
+  const float* price = a.price;
+  unsigned char* ring = nullptr;  // three staged classes' rows
+  if (a.stage) {
+    price = (const float*)(s_dyn + off);
+    off += (size_t)O * sizeof(float);
+    ring = s_dyn + off;
+  }
+
+  // ---- this CTA's slots and the init state (closed, or pre-opened) ----
+  const int k_lo = rank * a.per;
+  const int n_mine = max(0, min(a.per, K - k_lo));
   unsigned opened = 0;
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    const int k = k0 + i;
-    if (k >= K) break;
+    const int l = t * S + i;
+    if (l >= n_mine) break;
+    const int k = k_lo + l;
     const int opt = init_option ? init_option[k] : -1;
-    slot_option[k] = opt;
-    for (int r = 0; r < R; ++r) {
-      const size_t kr = (size_t)k * R + r;
-      slot_free[kr] = opt >= 0 ? wrap_sub(alloc[(size_t)opt * R + r],
-                                          init_used[kr])
-                               : 0;
-    }
+    st_opt[i * T + t] = opt;
+    for (int r = 0; r < R; ++r)
+      st_free[(r * S + i) * T + t] =
+          opt >= 0 ? wrap_sub(alloc_at(a.alloc, opt, R, r),
+                              init_used[(size_t)k * R + r])
+                   : 0;
     opened += opt >= 0;
   }
-  int n_open = (int)block_sum(opened, s_warp);
+  // the first two non-empty classes; the first one staged (with the
+  // price vector)
+  int cnt, cnt1;
+  int c = next_class(counts, 0, C, &cnt);
+  int c1 = c < C ? next_class(counts, c + 1, C, &cnt1) : C;
+  zero_takes(takes, 0, c, K, k_lo, n_mine, a.emit, rank);
+  if (c < C) {
+    if (t < 32)
+      set_class(s_cls, t < R ? __ldg(req + (size_t)c * R + t) : 0, R,
+                __ldg(node_cap + c));
+    if (a.stage && t == 0) {
+      stage_rows(ring_at(ring, 0, OB, O, true), s_stage, compat, m_all,
+                 ok_all, c, OB, O, O * 4);
+      bulk_copy((void*)price, a.price, O * 4, s_stage);
+    }
+  }
+  if (cs > 1) cg::this_cluster().sync();  // every CTA's mbarriers are live
+  unsigned pre32, tot32;
+  bool big;
+  exchange_scan(x, opened, false, &pre32, &tot32, &big);
+  int n_open = (int)tot32;
   int n_unsched = 0;
+  // a thread's fits below this keep every prefix and the total below 2^31
+  const u64 lim = (1ull << 31) / ((u64)cs * T);
 
-  for (int c = 0; c < C; ++c) {
-    __syncthreads();  // s_req / s_j of the previous class are consumed
-    if (t < R) s_req[t] = req[(size_t)c * R + t];
-    __syncthreads();
-    const int cnt = counts[c];
-    const int cap = node_cap[c];
-    const uint8_t* crow = compat_packed + (size_t)c * OB;
+  for (int step = 0; c < C; ++step) {
+    // the next class staged, its requests, cap and the class after it
+    // fetched, all while this one runs
+    const int sb = step % 3, nb = (step + 1) % 3;
+    const int q1 = c1 < C && t < R ? __ldg(req + (size_t)c1 * R + t) : 0;
+    const int capn = c1 < C && t == 0 ? __ldg(node_cap + c1) : 0;
+    const int pf = c1 + 1 + lane < C ? __ldg(counts + c1 + 1 + lane) : 0;
+    if (a.stage && t == 0 && c1 < C)
+      stage_rows(ring_at(ring, nb, OB, O, true), s_stage + nb, compat, m_all,
+                 ok_all, c1, OB, O, 0);
+    if (a.stage) mbar_wait(s_stage + sb, (step / 3) & 1);
+    const ClassAxes& ca = s_cls[sb];
+    const int* rq = ca.req;
+    const int cap = ca.cap, nax = ca.nax;
+    const ClassBuf b = ring_at(ring, sb, OB, O, true);
+    const uint8_t* crow = a.stage ? b.compat : compat + (size_t)c * OB;
+    const int* mrow = a.stage ? b.m : m_all + (size_t)c * O;
+    const uint8_t* okrow = a.stage ? b.ok : ok_all + (size_t)c * O;
 
     // 1. per-slot fit
     int fit[S];
-    unsigned fsum = 0;
+    u64 fsum = 0;
 #pragma unroll
     for (int i = 0; i < S; ++i) {
-      const int k = k0 + i;
       int f = 0;
-      if (k < K) {
-        const int opt = slot_option[k];
+      if (t * S + i < n_mine) {
+        const int opt = st_opt[i * T + t];
         if (opt >= 0 && compat_bit(crow, opt)) {
           int v = kBig;
-          for (int r = 0; r < R; ++r) {
-            const int q = s_req[r];
-            if (q > 0) v = min(v, floordiv(slot_free[(size_t)k * R + r], q));
-          }
-          v = min(v, cap);
-          f = max(v, 0);
+          for (int k = 0; k < nax; ++k)
+            v = min(v, floordiv_magic(st_free[(ca.ax[k] * S + i) * T + t],
+                                      ca.mg[k]));
+          f = max(min(v, cap), 0);
         }
       }
       fit[i] = f;
       fsum += (unsigned)f;
     }
-    // 2. exclusive prefix over slots, 3. greedy first-fit fill
-    unsigned total_fit;
-    unsigned run = block_exclusive_scan(fsum, s_warp, &total_fit);
+    // 2. exclusive prefix over the cluster's slots (exact in 32 bits unless
+    // a thread's fits reach `lim`), 3. greedy first fit
+    u64 pre, tot;
+    exchange_scan(x, (unsigned)fsum, fsum >= lim, &pre32, &tot32, &big);
+    if (big) {
+      exchange_scan64(x, fsum, &pre, &tot);
+    } else {
+      pre = pre32;
+      tot = tot32;
+    }
+    if (c1 < C && t < 32)  // the next class's requests, divisors and cap
+      set_class(s_cls + nb, q1, R, capn);
+    unsigned run = (unsigned)pre;
     int take[S];
     unsigned tsum = 0;
 #pragma unroll
@@ -290,108 +864,126 @@ scan_kernel(const int* __restrict__ req, const int* __restrict__ counts,
       tsum += (unsigned)take[i];
       run += (unsigned)fit[i];
     }
-    const int taken = (int)block_sum(tsum, s_warp);
+    int taken;
+    if (tot < 0x80000000ull) {
+      taken = min(cnt, (int)tot);  // no prefix wrapped: exact
+    } else {
+      u64 p2, t2;
+      exchange_scan64(x, tsum, &p2, &t2);
+      taken = (int)(unsigned)t2;  // the reference's int32 sum
+    }
     const int remaining = wrap_sub(cnt, taken);
+    // the class after the next one, from the prefetched counts
+    int cnt2 = 0, c2 = C;
+    if (c1 < C) {
+      const unsigned hit = __ballot_sync(0xffffffffu, pf > 0);
+      if (hit) {
+        c2 = c1 + __ffs(hit);
+        cnt2 = __shfl_sync(0xffffffffu, pf, __ffs(hit) - 1);
+      } else {
+        c2 = next_class(counts, c1 + 33, C, &cnt2);
+      }
+    }
 
-    // 4. new-node option: argmin of min(price * ceil(rem/m), SCORE_CAP)
-    float best_sc = INFINITY;
-    int best_ix = 0x7fffffff;
-    const int rem1 = max(remaining, 1);
-    for (int o = t; o < O; o += kScanThreads) {
-      const size_t co = (size_t)c * O + o;
-      if (!ok_all[co]) continue;  // score +inf never beats the running min
-      const int ms = max(m_all[co], 1);
-      const int nn = floordiv(wrap_add(rem1, ms - 1), ms);
-      const float sc = fminf(__fmul_rn(price[o], __int2float_rn(nn)),
-                             kScoreCap);
-      if (sc < best_sc) {  // strict: the lowest index wins ties
-        best_sc = sc;
-        best_ix = o;
-      }
-    }
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      const float os = __shfl_down_sync(0xffffffffu, best_sc, d);
-      const int oi = __shfl_down_sync(0xffffffffu, best_ix, d);
-      if (os < best_sc || (os == best_sc && oi < best_ix)) {
-        best_sc = os;
-        best_ix = oi;
-      }
-    }
-    if ((t & 31) == 0) {
-      s_sc[t >> 5] = best_sc;
-      s_ix[t >> 5] = best_ix;
-    }
-    __syncthreads();
-    if (t < 32) {
-      best_sc = s_sc[t];
-      best_ix = s_ix[t];
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        const float os = __shfl_down_sync(0xffffffffu, best_sc, d);
-        const int oi = __shfl_down_sync(0xffffffffu, best_ix, d);
-        if (os < best_sc || (os == best_sc && oi < best_ix)) {
-          best_sc = os;
-          best_ix = oi;
+    // 4. new-node option: argmin of min(price * ceil(rem/m), SCORE_CAP),
+    // each CTA over every cs-th option, then the cluster's minimum
+    int j = 0;
+    bool can = false;
+    if (remaining > 0 && n_open < K) {
+      float best_sc = INFINITY;
+      int best_ix = 0x7fffffff;
+      for (int o = rank + cs * t; o < O; o += cs * T) {
+        if (!okrow[o]) continue;  // score +inf never beats the running min
+        const int ms = max(mrow[o], 1);
+        const int nn = floordiv(wrap_add(remaining, ms - 1), ms);
+        const float sc = fminf(__fmul_rn(price[o], __int2float_rn(nn)),
+                               kScoreCap);
+        if (sc < best_sc) {  // strict: the lowest index wins ties
+          best_sc = sc;
+          best_ix = o;
         }
       }
-      if (t == 0) {
-        // all scores +inf: jnp.argmin answers index 0 and `can` is false
-        s_j = isfinite(best_sc) ? best_ix : 0;
-        s_score = best_sc;
+      unsigned fk, ik;
+      block_keymin(0, best_sc, best_ix, s_key, &fk, &ik);
+      if (cs > 1) {
+        const u64 w = exchange_min(x, ((u64)fk << 32) | ik);
+        fk = (unsigned)(w >> 32);
+        ik = (unsigned)w;
       }
+      // all scores +inf: jnp.argmin answers index 0 and `can` is false
+      can = fk < kInfKey;
+      j = can ? (int)ik : 0;
+      if (can && t < R) prefetch_l1(a.alloc + (size_t)j * R + t);
+    } else {
+      __syncthreads();  // the next class's requests, divisors, cap visible
     }
-    __syncthreads();
-    const int j = s_j;
-    const bool can = isfinite(s_score);
 
     // 5. open n_new slots of option j, the last one partial
-    const int m_sel = max(m_all[(size_t)c * O + j], 1);
+    const int m_sel = max(mrow[j], 1);
     const int needed = (can && remaining > 0)
                            ? floordiv(wrap_add(remaining, m_sel - 1), m_sel)
                            : 0;
     const int n_new = min(needed, K - n_open);
     const int sched_new = min(remaining, n_new * m_sel);
     const int rem_last = sched_new - (n_new - 1) * m_sel;
+    int placed[S];
+    bool any_take = false;
 #pragma unroll
     for (int i = 0; i < S; ++i) {
-      const int k = k0 + i;
-      if (k >= K) break;
-      int placed = take[i];
+      const int l = t * S + i;
+      placed[i] = 0;
+      if (l >= n_mine) continue;
+      const int k = k_lo + l;
+      placed[i] = take[i];
       if (k >= n_open && k < n_open + n_new) {
+        // a closed slot: take[i] == 0 (its fit is 0), so the take below
+        // changes nothing
         const int pods_on = (k == n_open + n_new - 1) ? rem_last : m_sel;
-        slot_option[k] = j;
+        st_opt[i * T + t] = j;
         for (int r = 0; r < R; ++r)
-          slot_free[(size_t)k * R + r] =
-              alloc[(size_t)j * R + r] - pods_on * s_req[r];
-        placed += pods_on;  // new slots were closed, so take[i] == 0
-      } else if (take[i]) {
-        for (int r = 0; r < R; ++r)
-          slot_free[(size_t)k * R + r] -= take[i] * s_req[r];
+          st_free[(r * S + i) * T + t] =
+              alloc_at(a.alloc, j, R, r) - pods_on * rq[r];
+        placed[i] += pods_on;
+      } else {
+        any_take |= take[i] != 0;
       }
-      if (emit) takes[(size_t)c * K + k] = placed;
     }
-    if (!emit && t == 0) takes[c] = taken;  // per-class sum(take)
+    if (any_take)
+      take_slots<S>(st_free, take, ca, t, T, n_open, n_new, k_lo, n_mine);
+    if (a.emit && t * S < n_mine)
+      store_slots<S>(takes + (size_t)c * K + k_lo + t * S, placed,
+                     n_mine - t * S);
+    if (!a.emit && rank == 0 && t == 0) takes[c] = taken;  // sum(take)
     n_open += n_new;
     n_unsched = wrap_add(n_unsched, remaining - sched_new);
+    // the empty classes up to the next one take nothing
+    if (c + 1 < c1) zero_takes(takes, c + 1, c1, K, k_lo, n_mine, a.emit, rank);
+    c = c1;
+    cnt = cnt1;
+    c1 = c2;
+    cnt1 = cnt2;
   }
 
   // ---- outputs: slot_used = alloc[opt] - free on open slots ----
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    const int k = k0 + i;
-    if (k >= K) break;
-    const int opt = slot_option[k];
-    for (int r = 0; r < R; ++r) {
-      const size_t kr = (size_t)k * R + r;
-      slot_used[kr] =
-          opt >= 0 ? wrap_sub(alloc[(size_t)opt * R + r], slot_free[kr]) : 0;
-    }
+    const int l = t * S + i;
+    if (l >= n_mine) break;
+    const int k = k_lo + l;
+    const int opt = st_opt[i * T + t];
+    slot_option[k] = opt;
+    for (int r = 0; r < R; ++r)
+      slot_used[(size_t)k * R + r] =
+          opt >= 0 ? wrap_sub(alloc_at(a.alloc, opt, R, r),
+                              st_free[(r * S + i) * T + t])
+                   : 0;
   }
-  if (t == 0) {
-    scalars[0] = n_open;
-    scalars[1] = n_unsched;
+  if (rank == 0 && t == 0) {
+    a.scalars[2 * sh] = n_open;
+    a.scalars[2 * sh + 1] = n_unsched;
   }
+  // no CTA leaves while another may still reach its shared memory
+  if (cs > 1) cg::this_cluster().sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -556,272 +1148,362 @@ aggregate_kernel(const int* __restrict__ slot_option,
 // [sum of pr_b over launched slots, launched slots, n_unsched].  m_all
 // (pods per fresh node, C x O) depends only on the shared arrays and comes
 // from ONE unbatched K1 launch; K1's `ok` is not valid per row, so each row
-// recomputes launchability on the fly: compat bit & its own mask bit &
-// m > 0 & finite pr_b, then its OWN best pool rank (masking a column can
-// remove the best pool), then the score argmin, ties to the lowest index.
+// decides launchability itself: compat bit & its own mask bit & m > 0 &
+// finite pr_b, then its OWN best pool rank (masking a column can remove
+// the best pool), then the score argmin, ties to the lowest index.
 //
-// One block of 256 threads per row; thread t owns the S contiguous slots
-// [t*S, t*S+S) (S = ceil(K/256), a template parameter), as in K2.  A row's
-// slot state (option K, free K x R) is private to its block and lives in
-// dynamic shared memory when it fits in 40 KB (K <= 1280 at R = 7; with
-// the ~2.6 KB of static shared memory that stays under the 48 KB a block
-// gets without opting in), else in a global scratch slice.  Class counts are staged 256 at a time in
-// shared memory; a class with count 0 in row b is skipped, which is exact
-// (nothing is taken and no node opens), and the option pass runs only when
-// the class has pods left after the fill (`remaining` > 0), where the
-// reference's argmin is read at all.  Bound on this card: the sequential
-// dependency over classes inside each row (a few block barriers per class
-// step), not bytes or operations; rows run in parallel, one block per row,
-// so B >= 132 rows fill the SMs and the prefix frontier (B = 32) does not.
+// One block per row, the class step of the header: the slot state in
+// shared memory up to the opt-in budget (else a global slice), the row's
+// invariants (pr_b and the ranks) computed once, the next non-empty
+// class's compat and m rows staged ahead, and the option choice as ONE
+// lexicographic minimum over (rank, score, index), where a launchable
+// option o is (rank[o], score, o) and a non-launchable one is (BIG, +inf,
+// last): the reference's `where(ok, rank, BIG).min()` is the minimum's
+// rank, and within that rank the lowest score, ties to the lowest index,
+// is its argmin; a minimum of score +inf (no launchable option at the
+// best rank) is "index 0, can false".  A step is one block scan and, when
+// pods remain and a slot is free, one block reduction.  Bound on this
+// card: the dependency over a row's classes (rows run side by side); the
+// host's sweep_plan picks the layouts.
 // ---------------------------------------------------------------------------
-constexpr int kSweepThreads = 256;
-constexpr size_t kSweepSmemMax = 40 * 1024;
+constexpr int kSweepMaxThreads = 512;
 
-__device__ __forceinline__ float masked_price(const float* __restrict__ price,
-                                              const uint8_t* mrow, float cap,
-                                              int o) {
-  // strict float32 compare: a NaN price or one at/above the cap is +inf
-  const float p = price[o];
-  return (compat_bit(mrow, o) && p < cap) ? p : INFINITY;
-}
-
-__device__ __forceinline__ void warp_argmin(float& sc, int& ix) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const float os = __shfl_down_sync(0xffffffffu, sc, d);
-    const int oi = __shfl_down_sync(0xffffffffu, ix, d);
-    if (os < sc || (os == sc && oi < ix)) {
-      sc = os;
-      ix = oi;
-    }
-  }
-}
-
-// Block-wide argmin of (score, index): the lowest score, ties to the lowest
-// index.  Every thread returns with the block's answer.
-__device__ void block_argmin(float& sc, int& ix, float* s_sc, int* s_ix) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  warp_argmin(sc, ix);
-  __syncthreads();  // s_sc / s_ix may still be read from a previous call
-  if (lane == 0) {
-    s_sc[warp] = sc;
-    s_ix[warp] = ix;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    sc = lane < nwarps ? s_sc[lane] : INFINITY;
-    ix = lane < nwarps ? s_ix[lane] : 0x7fffffff;
-    warp_argmin(sc, ix);
-    if (lane == 0) {
-      s_sc[0] = sc;
-      s_ix[0] = ix;
-    }
-  }
-  __syncthreads();
-  sc = s_sc[0];
-  ix = s_ix[0];
-}
+struct SweepArgs {
+  const int* req;
+  const int* counts_b;
+  const uint8_t* compat;
+  const int* node_cap;
+  const int* alloc;
+  const float* price;
+  const int* rank;
+  const uint8_t* mask;
+  const float* cap_b;
+  const int* init_option;
+  const int* init_used;
+  const int* m_all;
+  int C, O, R, OB, K;
+  int state_smem;  // slot state in shared memory (else in g_state)
+  int inv_smem;    // the row's invariants in shared memory (else in g_inv)
+  int stage;       // class inputs staged in shared memory (else in place)
+  int* g_state;    // B x S*T*(R+1) ints, when !state_smem
+  int* g_inv;      // B x 2*O, when !inv_smem
+  float* out;
+};
 
 template <int S>
-__global__ void __launch_bounds__(kSweepThreads)
-sweep_kernel(const int* __restrict__ req, const int* __restrict__ counts_b,
-             const uint8_t* __restrict__ compat_packed,
-             const int* __restrict__ node_cap, const int* __restrict__ alloc,
-             const float* __restrict__ price, const int* __restrict__ rank,
-             const uint8_t* __restrict__ mask_packed,
-             const float* __restrict__ cap_b,
-             const int* __restrict__ init_option,
-             const int* __restrict__ init_used,
-             const int* __restrict__ m_all, int C, int O, int R, int OB,
-             int K, int use_smem, int* __restrict__ g_option,
-             int* __restrict__ g_free, float* __restrict__ out) {
-  extern __shared__ int s_dyn[];
-  __shared__ unsigned s_warp[32];
-  __shared__ float s_sc[32];
-  __shared__ int s_ix[32];
-  __shared__ int s_req[kMaxR];
-  __shared__ int s_cnt[kSweepThreads];
-  __shared__ float s_part[kSweepThreads];
-  __shared__ int s_best;
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int k0 = t * S;
-  int* sopt = use_smem ? s_dyn : g_option + (size_t)b * K;
-  int* sfree = use_smem ? s_dyn + K : g_free + (size_t)b * K * R;
-  const uint8_t* mrow = mask_packed + (size_t)b * OB;
-  const float cap = cap_b[b];
-  const int* row_cnt = counts_b + (size_t)b * C;
+__global__ void __launch_bounds__(kSweepMaxThreads, 2)
+row_sweep_kernel(const SweepArgs a) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  __shared__ u64 s_wtab[2 * 32];
+  __shared__ unsigned s_key[3 * 32];
+  __shared__ float s_part[kSweepMaxThreads];
+  // each class's requests, divisors and node cap, one class ahead, and the
+  // arrivals of its staged rows
+  __shared__ ClassAxes s_cls[3];
+  __shared__ u64 s_stage[3];
+  const int t = threadIdx.x, T = blockDim.x, lane = t & 31;
+  const long long b = blockIdx.x;
+  const int C = a.C, O = a.O, R = a.R, OB = a.OB, K = a.K;
+  const int* counts = a.counts_b + b * C;
+  const float cap_row = a.cap_b[b];
+  Exchange x = {s_wtab, nullptr, nullptr, 1, 0, 0};
+  if (t == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(s_stage + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  size_t off = 0;
+  const size_t cells = (size_t)S * T;
+  int* st;
+  if (a.state_smem) {
+    st = (int*)s_dyn;
+    off += cells * (R + 1) * sizeof(int);
+  } else {
+    st = a.g_state + b * (long long)(cells * (R + 1));
+  }
+  int* st_opt = st;
+  int* st_free = st + cells;
+  float* pm;
+  int* rk;
+  if (a.inv_smem) {
+    pm = (float*)(s_dyn + off);
+    rk = (int*)(s_dyn + off + (size_t)O * 4);
+    off += (size_t)O * 8;
+  } else {
+    pm = (float*)(a.g_inv + b * 2 * (long long)O);
+    rk = a.g_inv + b * 2 * (long long)O + O;
+  }
+  const uint8_t* mrow = a.mask + b * OB;
+  unsigned char* ring = nullptr;  // three staged classes' rows
+  if (a.stage) {
+    mrow = s_dyn + off;
+    off += OB;
+    ring = s_dyn + off;
+  }
+
+  // ---- the row's invariants: pr_b and the ranks.  Thread t owns options
+  // t, t+T, ..., as in the option pass, so only the aggregate reads
+  // another's (after a barrier).
+  const uint8_t* mask_g = a.mask + b * OB;
+  for (int o = t; o < O; o += T) {
+    const float p = a.price[o];
+    // strict float32 compare: a NaN price or one at/above the cap is +inf
+    pm[o] = (compat_bit(mask_g, o) && p < cap_row) ? p : INFINITY;
+    rk[o] = a.rank[o];
+  }
 
   // ---- init state: the pre-opened columns (existing nodes) ----
   unsigned opened = 0;
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    const int k = k0 + i;
+    const int k = t * S + i;
     if (k >= K) break;
-    const int opt = init_option[k];
-    sopt[k] = opt;
-    for (int r = 0; r < R; ++r) {
-      const size_t kr = (size_t)k * R + r;
-      sfree[kr] = opt >= 0 ? wrap_sub(alloc[(size_t)opt * R + r],
-                                      init_used[kr])
-                           : 0;
-    }
+    const int opt = a.init_option[k];
+    st_opt[i * T + t] = opt;
+    for (int r = 0; r < R; ++r)
+      st_free[(r * S + i) * T + t] =
+          opt >= 0 ? wrap_sub(alloc_at(a.alloc, opt, R, r),
+                              a.init_used[(size_t)k * R + r])
+                   : 0;
     opened += opt >= 0;
   }
-  int n_open = (int)block_sum(opened, s_warp);
-  int n_unsched = 0;
-
-  for (int c0 = 0; c0 < C; c0 += kSweepThreads) {
-    __syncthreads();  // the previous tile of counts is consumed
-    s_cnt[t] = c0 + t < C ? row_cnt[c0 + t] : 0;
-    __syncthreads();
-    const int n_tile = min(kSweepThreads, C - c0);
-    for (int ci = 0; ci < n_tile; ++ci) {
-      const int cnt = s_cnt[ci];
-      if (cnt == 0) continue;  // exact no-op: nothing taken, nothing opened
-      const int c = c0 + ci;
-      __syncthreads();  // s_req of the previous class is consumed
-      if (t < R) s_req[t] = req[(size_t)c * R + t];
-      __syncthreads();
-      const int ncap = node_cap[c];
-      const uint8_t* crow = compat_packed + (size_t)c * OB;
-
-      // 1. per-slot fit: open, compatible, and the column kept in this row
-      int fit[S];
-      unsigned fsum = 0;
-#pragma unroll
-      for (int i = 0; i < S; ++i) {
-        const int k = k0 + i;
-        int f = 0;
-        if (k < K) {
-          const int opt = sopt[k];
-          if (opt >= 0 && compat_bit(crow, opt) && compat_bit(mrow, opt)) {
-            int v = kBig;
-            for (int r = 0; r < R; ++r) {
-              const int q = s_req[r];
-              if (q > 0) v = min(v, floordiv(sfree[(size_t)k * R + r], q));
-            }
-            v = min(v, ncap);
-            f = max(v, 0);
-          }
-        }
-        fit[i] = f;
-        fsum += (unsigned)f;
-      }
-      // 2. exclusive prefix over slots, 3. greedy first-fit fill
-      unsigned total_fit;
-      unsigned run = block_exclusive_scan(fsum, s_warp, &total_fit);
-      int take[S];
-      unsigned tsum = 0;
-#pragma unroll
-      for (int i = 0; i < S; ++i) {
-        const int d = wrap_sub(cnt, (int)run);
-        take[i] = min(max(d, 0), fit[i]);
-        tsum += (unsigned)take[i];
-        run += (unsigned)fit[i];
-      }
-      const int taken = (int)block_sum(tsum, s_warp);
-      const int remaining = wrap_sub(cnt, taken);
-
-      // 4. new-node option for the tail, this row's launchable set only
-      int j = 0;
-      bool can = false;
-      if (remaining > 0) {
-        const size_t co = (size_t)c * O;
-        int best = kBig;
-        for (int o = t; o < O; o += kSweepThreads) {
-          if (compat_bit(crow, o) && m_all[co + o] > 0 &&
-              isfinite(masked_price(price, mrow, cap, o)))
-            best = min(best, rank[o]);
-        }
-        __syncthreads();  // s_best of the previous class is consumed
-        if (t == 0) s_best = kBig;
-        __syncthreads();
-        atomicMin(&s_best, best);
-        __syncthreads();
-        best = s_best;
-        if (best < kBig) {
-          float best_sc = INFINITY;
-          int best_ix = 0x7fffffff;
-          for (int o = t; o < O; o += kSweepThreads) {
-            if (rank[o] != best || !compat_bit(crow, o)) continue;
-            const int m = m_all[co + o];
-            if (m <= 0) continue;
-            const float p = masked_price(price, mrow, cap, o);
-            if (!isfinite(p)) continue;
-            const int ms = max(m, 1);
-            const int nn = floordiv(wrap_add(remaining, ms - 1), ms);
-            const float sc = fminf(__fmul_rn(p, __int2float_rn(nn)),
-                                   kScoreCap);
-            if (sc < best_sc) {  // strict: the lowest index wins ties
-              best_sc = sc;
-              best_ix = o;
-            }
-          }
-          block_argmin(best_sc, best_ix, s_sc, s_ix);
-          can = isfinite(best_sc);
-          j = can ? best_ix : 0;
-        }
-      }
-
-      // 5. open n_new slots of option j, the last one partial
-      const int m_sel = max(m_all[(size_t)c * O + j], 1);
-      const int needed = (can && remaining > 0)
-                             ? floordiv(wrap_add(remaining, m_sel - 1), m_sel)
-                             : 0;
-      const int n_new = min(needed, K - n_open);
-      const int sched_new = min(remaining, n_new * m_sel);
-      const int rem_last = sched_new - (n_new - 1) * m_sel;
-#pragma unroll
-      for (int i = 0; i < S; ++i) {
-        const int k = k0 + i;
-        if (k >= K) break;
-        if (k >= n_open && k < n_open + n_new) {
-          const int pods_on = (k == n_open + n_new - 1) ? rem_last : m_sel;
-          sopt[k] = j;
-          for (int r = 0; r < R; ++r)
-            sfree[(size_t)k * R + r] =
-                alloc[(size_t)j * R + r] - pods_on * s_req[r];
-        } else if (take[i]) {
-          for (int r = 0; r < R; ++r)
-            sfree[(size_t)k * R + r] -= take[i] * s_req[r];
-        }
-      }
-      n_open += n_new;
-      n_unsched = wrap_add(n_unsched, wrap_sub(remaining, sched_new));
+  // this row's first two non-empty classes; the first one staged (with
+  // the row's mask)
+  int cnt, cnt1;
+  int c = next_class(counts, 0, C, &cnt);
+  int c1 = c < C ? next_class(counts, c + 1, C, &cnt1) : C;
+  if (c < C) {
+    if (t < 32)
+      set_class(s_cls, t < R ? __ldg(a.req + (size_t)c * R + t) : 0, R,
+                __ldg(a.node_cap + c));
+    if (a.stage && t == 0) {
+      stage_rows(ring_at(ring, 0, OB, O, false), s_stage, a.compat, a.m_all,
+                 nullptr, c, OB, O, OB);
+      bulk_copy((void*)mrow, mask_g, OB, s_stage);
     }
+  }
+  unsigned pre32, tot32;
+  bool big;
+  exchange_scan(x, opened, false, &pre32, &tot32, &big);
+  int n_open = (int)tot32;
+  int n_unsched = 0;
+  const u64 lim = (1ull << 31) / (u64)T;
+
+  for (int step = 0; c < C; ++step) {
+    const int sb = step % 3, nb = (step + 1) % 3;
+    const int q1 = c1 < C && t < R ? __ldg(a.req + (size_t)c1 * R + t) : 0;
+    const int capn = c1 < C && t == 0 ? __ldg(a.node_cap + c1) : 0;
+    const int pf = c1 + 1 + lane < C ? __ldg(counts + c1 + 1 + lane) : 0;
+    if (a.stage && t == 0 && c1 < C)
+      stage_rows(ring_at(ring, nb, OB, O, false), s_stage + nb, a.compat,
+                 a.m_all, nullptr, c1, OB, O, 0);
+    if (a.stage) mbar_wait(s_stage + sb, (step / 3) & 1);
+    const ClassAxes& ca = s_cls[sb];
+    const int* rq = ca.req;
+    const int cap = ca.cap, nax = ca.nax;
+    const ClassBuf cb = ring_at(ring, sb, OB, O, false);
+    const uint8_t* crow = a.stage ? cb.compat : a.compat + (size_t)c * OB;
+    const int* mr = a.stage ? cb.m : a.m_all + (size_t)c * O;
+
+    // 1. per-slot fit: open, compatible, and the column kept in this row
+    int fit[S];
+    u64 fsum = 0;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      int f = 0;
+      if (t * S + i < K) {
+        const int opt = st_opt[i * T + t];
+        if (opt >= 0 && compat_bit(crow, opt) && compat_bit(mrow, opt)) {
+          int v = kBig;
+          for (int k = 0; k < nax; ++k)
+            v = min(v, floordiv_magic(st_free[(ca.ax[k] * S + i) * T + t],
+                                      ca.mg[k]));
+          f = max(min(v, cap), 0);
+        }
+      }
+      fit[i] = f;
+      fsum += (unsigned)f;
+    }
+    // 2. exclusive prefix over slots, 3. greedy first-fit fill
+    u64 pre, tot;
+    exchange_scan(x, (unsigned)fsum, fsum >= lim, &pre32, &tot32, &big);
+    if (big) {
+      exchange_scan64(x, fsum, &pre, &tot);
+    } else {
+      pre = pre32;
+      tot = tot32;
+    }
+    if (c1 < C && t < 32)  // the next class's requests, divisors and cap
+      set_class(s_cls + nb, q1, R, capn);
+    unsigned run = (unsigned)pre;
+    int take[S];
+    unsigned tsum = 0;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int d = wrap_sub(cnt, (int)run);
+      take[i] = min(max(d, 0), fit[i]);
+      tsum += (unsigned)take[i];
+      run += (unsigned)fit[i];
+    }
+    int taken;
+    if (tot < 0x80000000ull) {
+      taken = min(cnt, (int)tot);
+    } else {
+      u64 p2, t2;
+      exchange_scan64(x, tsum, &p2, &t2);
+      taken = (int)(unsigned)t2;
+    }
+    const int remaining = wrap_sub(cnt, taken);
+    int cnt2 = 0, c2 = C;
+    if (c1 < C) {
+      const unsigned hit = __ballot_sync(0xffffffffu, pf > 0);
+      if (hit) {
+        c2 = c1 + __ffs(hit);
+        cnt2 = __shfl_sync(0xffffffffu, pf, __ffs(hit) - 1);
+      } else {
+        c2 = next_class(counts, c1 + 33, C, &cnt2);
+      }
+    }
+
+    // 4. new-node option for the tail: min of (rank, score, index) over
+    // this row's options, a non-launchable one being (BIG, +inf, last)
+    int j = 0;
+    bool can = false;
+    if (remaining > 0 && n_open < K) {
+      int best_rk = 0x7fffffff, best_ix = 0x7fffffff;
+      float best_sc = INFINITY;
+      for (int o = t; o < O; o += T) {
+        const float p = pm[o];
+        const int m = mr[o];
+        if (!isfinite(p) || m <= 0 || !compat_bit(crow, o)) {
+          if (kBig < best_rk) {  // not launchable: the key (BIG, +inf)
+            best_rk = kBig;
+            best_sc = INFINITY;
+            best_ix = 0x7fffffff;
+          }
+          continue;
+        }
+        const int r = rk[o];
+        const int nn = floordiv(wrap_add(remaining, m - 1), m);
+        const float sc = fminf(__fmul_rn(p, __int2float_rn(nn)), kScoreCap);
+        if (key_less(r, sc, o, best_rk, best_sc, best_ix)) {
+          best_rk = r;
+          best_sc = sc;
+          best_ix = o;
+        }
+      }
+      unsigned fk, ik;
+      block_keymin(best_rk, best_sc, best_ix, s_key, &fk, &ik);
+      // a launchable option's score is finite (a finite price times a
+      // node count, clamped at SCORE_CAP); a minimum of +inf: index 0,
+      // `can` false
+      can = fk < kInfKey;
+      j = can ? (int)ik : 0;
+      if (can && t < R) prefetch_l1(a.alloc + (size_t)j * R + t);
+    } else {
+      __syncthreads();  // the next class's requests, divisors, cap visible
+    }
+
+    // 5. open n_new slots of option j, the last one partial
+    const int m_sel = max(mr[j], 1);
+    const int needed = (can && remaining > 0)
+                           ? floordiv(wrap_add(remaining, m_sel - 1), m_sel)
+                           : 0;
+    const int n_new = min(needed, K - n_open);
+    const int sched_new = min(remaining, n_new * m_sel);
+    const int rem_last = sched_new - (n_new - 1) * m_sel;
+    bool any_take = false;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int k = t * S + i;
+      if (k >= K) break;
+      if (k >= n_open && k < n_open + n_new) {
+        const int pods_on = (k == n_open + n_new - 1) ? rem_last : m_sel;
+        st_opt[i * T + t] = j;
+        for (int r = 0; r < R; ++r)
+          st_free[(r * S + i) * T + t] =
+              alloc_at(a.alloc, j, R, r) - pods_on * rq[r];
+      } else {
+        any_take |= take[i] != 0;
+      }
+    }
+    if (any_take)
+      take_slots<S>(st_free, take, ca, t, T, n_open, n_new, 0, K);
+    n_open += n_new;
+    n_unsched = wrap_add(n_unsched, wrap_sub(remaining, sched_new));
+    c = c1;
+    cnt = cnt1;
+    c1 = c2;
+    cnt1 = cnt2;
   }
 
   // ---- the row's aggregate: launched slots are open with a finite pr_b
   // (pre-opened existing columns carry +inf and never count) ----
+  __syncthreads();  // pm of every option is written (the global layout)
   unsigned launched = 0;
   float acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    const int k = k0 + i;
+    const int k = t * S + i;
     if (k >= K) break;
-    const int opt = sopt[k];
+    const int opt = st_opt[i * T + t];
     if (opt >= 0) {
-      const float p = masked_price(price, mrow, cap, opt);
+      const float p = pm[opt];
       if (isfinite(p)) {
         ++launched;
         acc += p;
       }
     }
   }
-  const unsigned n_launched = block_sum(launched, s_warp);
+  exchange_scan(x, launched, false, &pre32, &tot32, &big);
   s_part[t] = acc;
   __syncthreads();
-  for (int w = kSweepThreads >> 1; w > 0; w >>= 1) {
+  for (int w = T >> 1; w > 0; w >>= 1) {
     if (t < w) s_part[t] += s_part[t + w];
     __syncthreads();
   }
   if (t == 0) {
-    out[(size_t)b * 3 + 0] = s_part[0];
-    out[(size_t)b * 3 + 1] = (float)n_launched;
-    out[(size_t)b * 3 + 2] = (float)n_unsched;
+    a.out[b * 3 + 0] = s_part[0];
+    a.out[b * 3 + 1] = (float)tot32;
+    a.out[b * 3 + 2] = (float)n_unsched;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The least class step, measured: a chain of `steps` dependent exchanges
+// (exchange_scan at cluster size cs), each followed by a block reduction
+// (block_keymin) when `with_min`, timed by clock64 on thread 0 of rank 0.
+// A measurement for the bounds of K2 and K5, not a kernel of the port.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kScanThreads, 1)
+step_probe_kernel(int steps, int with_min, long long* cycles) {
+  __shared__ u64 s_wtab[2 * 32];
+  __shared__ u64 s_ctab[2 * kMaxCluster];
+  __shared__ u64 s_mbar[2];
+  __shared__ unsigned s_key[3 * 32];
+  const int cs = gridDim.x, rank = blockIdx.x, t = threadIdx.x;
+  Exchange x = {s_wtab, s_ctab, s_mbar, cs, rank, 0};
+  exchange_init(x);
+  if (cs > 1) cg::this_cluster().sync();
+  unsigned v = t & 1, pre, tot;
+  bool any;
+  exchange_scan(x, v, false, &pre, &tot, &any);
+  const long long t0 = clock64();
+  for (int s = 0; s < steps; ++s) {
+    exchange_scan(x, v, false, &pre, &tot, &any);
+    v = (tot + pre + t) & 1;
+    if (with_min) {
+      unsigned f, i;
+      block_keymin((int)(v + (tot & 3)), (float)(pre & 7), t, s_key, &f, &i);
+      v = (v + i) & 1;
+    }
+  }
+  const long long t1 = clock64();
+  if (rank == 0 && t == 0) {
+    cycles[0] = t1 - t0;
+    cycles[1] = (long long)v;  // keeps the chain's result live
+  }
+  if (cs > 1) cg::this_cluster().sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -1113,39 +1795,125 @@ cudaError_t launch_slab(const T* assignment, int n_shards, int n, int K,
   return cudaGetLastError();
 }
 
+// The dynamic shared memory of one ring buffer, a K2 block and a K5 block:
+// the kernels' carves, byte for byte (the host's plans compute the same).
+size_t ring_bytes(int O, bool with_ok) {
+  return (size_t)(O + 7) / 8 + (size_t)O * 4 + (with_ok ? (size_t)O : 0);
+}
+
+size_t scan_smem(int cs, int T, int S, int R, int O, int state_smem,
+                 int stage) {
+  size_t n = 0;
+  if (state_smem) n += (size_t)S * T * (R + 1) * sizeof(int);
+  if (stage) n += (size_t)O * sizeof(float) + 3 * ring_bytes(O, true);
+  return n;
+}
+
+size_t sweep_smem(int T, int S, int R, int O, int state_smem, int inv_smem,
+                  int stage) {
+  size_t n = 0;
+  if (state_smem) n += (size_t)S * T * (R + 1) * sizeof(int);
+  if (inv_smem) n += (size_t)O * 8;
+  if (stage) n += (size_t)(O + 7) / 8 + 3 * ring_bytes(O, false);
+  return n;
+}
+
+// A launch configuration of `cs`-CTA clusters (cs = 1: a plain launch
+// unless `always` asks for the attribute, as the occupancy query does).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int cs, int n, int T, size_t smem, cudaStream_t stream,
+                bool always) {
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(cs, n, 1);
+    cfg.blockDim = dim3(T, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = (cs > 1 || always) ? 1 : 0;
+  }
+};
+
+// A refused call leaves its error as the thread's last error, which the
+// next launch's cudaGetLastError would report: clear it where it is
+// returned.
+cudaError_t refused(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+template <typename Kern>
+cudaError_t cluster_attrs(Kern kern, int cs, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || cs <= 8) return refused(err);
+  return refused(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+}
+
 template <int S>
-cudaError_t launch_sweep(const int* req, const int* counts_b,
-                         const uint8_t* compat_packed, const int* node_cap,
-                         const int* alloc, const float* price,
-                         const int* rank, const uint8_t* mask_packed,
-                         const float* cap_b, const int* init_option,
-                         const int* init_used, const int* m_all, int B, int C,
-                         int O, int R, int OB, int K, int* g_option,
-                         int* g_free, float* out, cudaStream_t stream) {
-  const size_t smem = (size_t)K * (R + 1) * sizeof(int);
-  const int use_smem = smem <= kSweepSmemMax;
-  sweep_kernel<S><<<B, kSweepThreads, use_smem ? smem : 0, stream>>>(
-      req, counts_b, compat_packed, node_cap, alloc, price, rank, mask_packed,
-      cap_b, init_option, init_used, m_all, C, O, R, OB, K, use_smem,
-      g_option, g_free, out);
+cudaError_t launch_cluster_scan(const ScanArgs& a, int n, int cs, int T,
+                                size_t smem, cudaStream_t stream) {
+  cudaError_t err = cluster_attrs(cluster_scan_kernel<S>, cs, smem);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(cs, n, T, smem, stream, false);
+  err = cudaLaunchKernelEx(&l.cfg, cluster_scan_kernel<S>, a);
+  if (err != cudaSuccess) return refused(err);
   return cudaGetLastError();
 }
 
 template <int S>
-cudaError_t launch_scan(const int* req, const int* counts,
-                        const uint8_t* compat_packed, const int* node_cap,
-                        const int* alloc, const float* price,
-                        const int* m_all, const uint8_t* ok_all,
-                        const int* init_option, const int* init_used, int n,
-                        int C, int O, int R, int OB, int K, int emit,
-                        ShardStrides ss, int* slot_option, int* slot_free,
-                        int* slot_used, int* scalars, int* takes,
-                        cudaStream_t stream) {
-  scan_kernel<S><<<n, kScanThreads, 0, stream>>>(
-      req, counts, compat_packed, node_cap, alloc, price, m_all, ok_all,
-      init_option, init_used, C, O, R, OB, K, emit, ss, slot_option,
-      slot_free, slot_used, scalars, takes);
+cudaError_t scan_clusters(int cs, int T, size_t smem, int* out) {
+  cudaError_t err = cluster_attrs(cluster_scan_kernel<S>, cs, smem);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(cs, 1, T, smem, nullptr, true);
+  return refused(
+      cudaOccupancyMaxActiveClusters(out, cluster_scan_kernel<S>, &l.cfg));
+}
+
+template <int S>
+cudaError_t launch_row_sweep(const SweepArgs& a, int B, int T, size_t smem,
+                             cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      row_sweep_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return refused(err);
+  row_sweep_kernel<S><<<B, T, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t sweep_blocks(int T, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      row_sweep_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return refused(err);
+  return refused(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, row_sweep_kernel<S>, T, smem));
+}
+
+bool valid_slots_per_thread(int S) {
+  return S == 1 || S == 2 || S == 4 || S == 8 || S == 16 || S == 32;
+}
+
+// The S instantiation of a templated call: `fn` is a generic lambda taking
+// std::integral_constant<int, S>.
+template <typename F>
+cudaError_t with_s(int S, F fn) {
+  switch (S) {
+    case 1: return fn(std::integral_constant<int, 1>());
+    case 2: return fn(std::integral_constant<int, 2>());
+    case 4: return fn(std::integral_constant<int, 4>());
+    case 8: return fn(std::integral_constant<int, 8>());
+    case 16: return fn(std::integral_constant<int, 16>());
+    case 32: return fn(std::integral_constant<int, 32>());
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1176,35 +1944,74 @@ cudaError_t kp_precompute(const int* req, const int* node_cap,
 }
 
 // init_option / init_used may be null: the all-closed (_fresh) init state
-// is then built in-kernel.  n shards, one block each; ss as kp_precompute's
-// (all eight read here).  Outputs per shard: slot_option K, slot_free
-// (scratch) and slot_used K x R, scalars [n_open, n_unsched], takes C x K
-// when emit, else C (per-class sum of fills), each n times, shard-major.
+// is then built in-kernel.  n shards, one cluster of cs CTAs each; ss as
+// kp_precompute's (all eight read here).  The plan (the host's scan_plan):
+// cs CTAs of T threads, S slots a thread, `per` slots a CTA, the slot state
+// in shared memory or in g_state (n x cs x S*T*(R+1) ints), the class
+// inputs staged or read in place, `smem` dynamic bytes (checked against the
+// kernel's carve).  Outputs per shard: slot_option K, slot_used K x R,
+// scalars [n_open, n_unsched], takes C x K when emit, else C (per-class
+// sum of fills), each n times, shard-major.
 cudaError_t kp_scan(const int* req, const int* counts,
                     const uint8_t* compat_packed, const int* node_cap,
                     const int* alloc, const float* price, const int* m_all,
                     const uint8_t* ok_all, const int* init_option,
                     const int* init_used, int n, int C, int O, int R, int K,
-                    int emit, const long long* ss, int* slot_option,
-                    int* slot_free, int* slot_used, int* scalars, int* takes,
-                    cudaStream_t stream) {
-  if (R > kMaxR || K <= 0 || C <= 0 || n <= 0) return cudaErrorInvalidValue;
-  const int OB = (O + 7) / 8;
-  const int S = (K + kScanThreads - 1) / kScanThreads;
-  const ShardStrides st = strides_from(ss);
-#define KP_SCAN(SS)                                                          \
-  return launch_scan<SS>(req, counts, compat_packed, node_cap, alloc, price, \
-                         m_all, ok_all, init_option, init_used, n, C, O, R,  \
-                         OB, K, emit, st, slot_option, slot_free, slot_used, \
-                         scalars, takes, stream)
-  if (S <= 1) KP_SCAN(1);
-  if (S <= 2) KP_SCAN(2);
-  if (S <= 4) KP_SCAN(4);
-  if (S <= 8) KP_SCAN(8);
-  if (S <= 16) KP_SCAN(16);
-  if (S <= 32) KP_SCAN(32);
-#undef KP_SCAN
-  return cudaErrorInvalidValue;
+                    int emit, const long long* ss, int cs, int T, int S,
+                    int per, int state_smem, int stage, int smem,
+                    int* slot_option, int* g_state, int* slot_used,
+                    int* scalars, int* takes, cudaStream_t stream) {
+  if (R <= 0 || R > kMaxR || K <= 0 || K > kp_max_slots() || C <= 0 ||
+      O <= 0 || n <= 0 || n > 65535 ||
+      !(cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == 16) || T < 32 ||
+      T > (S < 32 ? kScanCtaThreads : kScanThreads) || T % 32 ||
+      !valid_slots_per_thread(S) || per <= 0 ||
+      (long long)per * cs < K || per > S * T || (stage && O % 128) ||
+      (!state_smem && !g_state) ||
+      (size_t)smem != scan_smem(cs, T, S, R, O, state_smem, stage))
+    return cudaErrorInvalidValue;
+  ScanArgs a;
+  a.req = req; a.counts = counts; a.compat = compat_packed;
+  a.node_cap = node_cap; a.alloc = alloc; a.price = price; a.m_all = m_all;
+  a.ok_all = ok_all; a.init_option = init_option; a.init_used = init_used;
+  a.C = C; a.O = O; a.R = R; a.OB = (O + 7) / 8; a.K = K; a.emit = emit;
+  a.per = per; a.state_smem = state_smem; a.stage = stage;
+  a.ss = strides_from(ss);
+  a.slot_option = slot_option; a.g_state = g_state; a.slot_used = slot_used;
+  a.scalars = scalars; a.takes = takes;
+  return with_s(S, [&](auto s) {
+    return launch_cluster_scan<decltype(s)::value>(a, n, cs, T, smem, stream);
+  });
+}
+
+// The most clusters of cs CTAs (T threads, S slots a thread, smem dynamic
+// bytes) of K2 the card holds at once (0: it cannot run one): an input of
+// the host's scan_plan.
+cudaError_t kp_scan_clusters(int cs, int T, int S, int smem, int* out) {
+  *out = 0;
+  if (!(cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == 16) || T < 32 ||
+      T > (S < 32 ? kScanCtaThreads : kScanThreads) || T % 32)
+    return cudaErrorInvalidValue;
+  return with_s(S, [&](auto s) {
+    return scan_clusters<decltype(s)::value>(cs, T, (size_t)smem, out);
+  });
+}
+
+// The least class step of K2 / K5 on this card (step_probe_kernel): one
+// cluster of cs CTAs of T threads; cycles[0] the clock64 cycles of `steps`
+// dependent exchanges (each with a block reduction when with_min).
+cudaError_t kp_step_cycles(int cs, int T, int steps, int with_min,
+                           long long* cycles, cudaStream_t stream) {
+  if (!(cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == 16) || T < 32 ||
+      T > kScanThreads || T % 32 || steps <= 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cluster_attrs(step_probe_kernel, cs, 0);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(cs, 1, T, 0, stream, false);
+  err = cudaLaunchKernelEx(&l.cfg, step_probe_kernel, steps, with_min,
+                           cycles);
+  if (err != cudaSuccess) return refused(err);
+  return cudaGetLastError();
 }
 
 // n shards, one block per (class, shard).  takes: n x C x K int32;
@@ -1268,43 +2075,53 @@ cudaError_t kp_shard_psum(const float* v, int hosts, int chips, int L,
   return cudaGetLastError();
 }
 
-int kp_sweep_max_slots() { return kSweepThreads * 32; }
-int kp_sweep_smem_max() { return (int)kSweepSmemMax; }
+int kp_sweep_max_slots() { return 8192; }
 
 // One row per block.  counts_b: B x C, mask_packed: B x ceil(O/8) (the
 // column masks, np.packbits order), cap_b: B, m_all: C x O from K1,
-// init_option / init_used: K / K x R (shared by every row).  g_option
-// (B x K) and g_free (B x K x R) are scratch, needed (and else may be
-// null) only when a row's slot state, K x (R + 1) ints, exceeds
-// kp_sweep_smem_max() bytes.  out: B x 3 floats [cost, n_new, n_unsched].
+// init_option / init_used: K / K x R (shared by every row).  The plan (the
+// host's sweep_plan): T threads (a power of two, at most 512), S slots a
+// thread, the slot state in shared memory or in g_state (B x S*T*(R+1)
+// ints), the row's invariants in shared memory or in g_inv (B x 2*O), the
+// class inputs staged or read in place, `smem` dynamic bytes (checked
+// against the kernel's carve).  out: B x 3 floats [cost, n_new, n_unsched].
 cudaError_t kp_sweep(const int* req, const int* counts_b,
                      const uint8_t* compat_packed, const int* node_cap,
                      const int* alloc, const float* price, const int* rank,
                      const uint8_t* mask_packed, const float* cap_b,
                      const int* init_option, const int* init_used,
                      const int* m_all, int B, int C, int O, int R, int K,
-                     int* g_option, int* g_free, float* out,
+                     int T, int S, int state_smem, int inv_smem, int stage,
+                     int smem, int* g_state, int* g_inv, float* out,
                      cudaStream_t stream) {
-  if (R > kMaxR || K <= 0 || C <= 0 || B <= 0 || O <= 0)
+  if (R <= 0 || R > kMaxR || K <= 0 || K > kp_sweep_max_slots() || C <= 0 ||
+      B <= 0 || O <= 0 || T < 64 || T > kSweepMaxThreads || (T & (T - 1)) ||
+      !valid_slots_per_thread(S) || S * T < K || (stage && O % 128) ||
+      (!state_smem && !g_state) || (!inv_smem && !g_inv) ||
+      (size_t)smem != sweep_smem(T, S, R, O, state_smem, inv_smem, stage))
     return cudaErrorInvalidValue;
-  if ((size_t)K * (R + 1) * sizeof(int) > kSweepSmemMax &&
-      (g_option == nullptr || g_free == nullptr))
+  SweepArgs a;
+  a.req = req; a.counts_b = counts_b; a.compat = compat_packed;
+  a.node_cap = node_cap; a.alloc = alloc; a.price = price; a.rank = rank;
+  a.mask = mask_packed; a.cap_b = cap_b; a.init_option = init_option;
+  a.init_used = init_used; a.m_all = m_all;
+  a.C = C; a.O = O; a.R = R; a.OB = (O + 7) / 8; a.K = K;
+  a.state_smem = state_smem; a.inv_smem = inv_smem; a.stage = stage;
+  a.g_state = g_state; a.g_inv = g_inv; a.out = out;
+  return with_s(S, [&](auto s) {
+    return launch_row_sweep<decltype(s)::value>(a, B, T, smem, stream);
+  });
+}
+
+// The most K5 blocks (T threads, S slots a thread, smem dynamic bytes) one
+// SM holds at once (0: none): an input of the host's sweep_plan.
+cudaError_t kp_sweep_blocks(int T, int S, int smem, int* out) {
+  *out = 0;
+  if (T < 64 || T > kSweepMaxThreads || (T & (T - 1)))
     return cudaErrorInvalidValue;
-  const int OB = (O + 7) / 8;
-  const int S = (K + kSweepThreads - 1) / kSweepThreads;
-#define KP_SWEEP(SS)                                                         \
-  return launch_sweep<SS>(req, counts_b, compat_packed, node_cap, alloc,     \
-                          price, rank, mask_packed, cap_b, init_option,      \
-                          init_used, m_all, B, C, O, R, OB, K, g_option,     \
-                          g_free, out, stream)
-  if (S <= 1) KP_SWEEP(1);
-  if (S <= 2) KP_SWEEP(2);
-  if (S <= 4) KP_SWEEP(4);
-  if (S <= 8) KP_SWEEP(8);
-  if (S <= 16) KP_SWEEP(16);
-  if (S <= 32) KP_SWEEP(32);
-#undef KP_SWEEP
-  return cudaErrorInvalidValue;
+  return with_s(S, [&](auto s) {
+    return sweep_blocks<decltype(s)::value>(T, (size_t)smem, out);
+  });
 }
 
 // The device's SM count and the shared memory one block may opt into: the

@@ -48,8 +48,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .._build import KernelError, KernelLimitError
@@ -91,8 +92,13 @@ def _lib() -> ctypes.CDLL:
         lib.kp_max_slots.restype = i
         lib.kp_precompute.argtypes = [p] * 6 + [i] * 4 + [llp, p, p, p]
         lib.kp_precompute.restype = i
-        lib.kp_scan.argtypes = [p] * 10 + [i] * 6 + [llp] + [p] * 5 + [p]
+        lib.kp_scan.argtypes = ([p] * 10 + [i] * 6 + [llp] + [i] * 7
+                                + [p] * 5 + [p])
         lib.kp_scan.restype = i
+        lib.kp_scan_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+        lib.kp_scan_clusters.restype = i
+        lib.kp_step_cycles.argtypes = [i] * 4 + [p, p]
+        lib.kp_step_cycles.restype = i
         lib.kp_assign_decode.argtypes = [p, p, ll] + [i] * 5 + [p, p]
         lib.kp_assign_decode.restype = i
         lib.kp_aggregate.argtypes = [p] * 4 + [ll, i, i, i, p, p]
@@ -100,9 +106,10 @@ def _lib() -> ctypes.CDLL:
         lib.kp_shard_psum.argtypes = [p, i, i, i, p, p]
         lib.kp_shard_psum.restype = i
         lib.kp_sweep_max_slots.restype = i
-        lib.kp_sweep_smem_max.restype = i
-        lib.kp_sweep.argtypes = [p] * 12 + [i] * 5 + [p] * 4
+        lib.kp_sweep.argtypes = [p] * 12 + [i] * 11 + [p] * 3 + [p]
         lib.kp_sweep.restype = i
+        lib.kp_sweep_blocks.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+        lib.kp_sweep_blocks.restype = i
         lib.kp_slab_budget.argtypes = [ctypes.POINTER(i)] * 2
         lib.kp_slab_budget.restype = i
         lib.kp_slab.argtypes = [p, i, i, i, i, i, i, i] + [p] * 5 + [p]
@@ -297,6 +304,210 @@ def classpack_scan_plain(requests, counts, compat_packed, node_cap, alloc,
     return slot_option, slot_used, n_open, n_unsched, takes
 
 
+# --- the plan of a K2 launch (a host function, tested on the CPU) ---
+
+SCAN_THREADS = 1024       # threads of a K2 block at 32 slots a thread
+SCAN_CTA_THREADS = 512    # ... the most below that
+SCAN_MIN_THREADS = 128    # ... and the least (the option pass shares them)
+SCAN_CLUSTERS = (1, 2, 4, 8, 16)
+SCAN_MIN_CTA_SLOTS = 128  # the fewest slots a CTA of a preferred cluster holds
+SCAN_STATIC_SMEM = 4096   # the kernel's own shared memory, rounded up
+SCAN_MAX_SLOTS = 32768    # kp_max_slots()
+MAX_R = 32                # kp_max_r()
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """How K2 lays out one shard's scan: a cluster of `cluster` CTAs of
+    `threads` threads, each CTA holding `per_cta` contiguous slots,
+    `slots_per_thread` a thread; the slot state in shared memory
+    (`state_smem`) or in a global slice; the class inputs staged in shared
+    memory one class ahead (`stage`) or read in place; `smem` dynamic bytes
+    a CTA (the kernel checks it against its own carve)."""
+    cluster: int
+    threads: int
+    slots_per_thread: int
+    per_cta: int
+    state_smem: bool
+    stage: bool
+    smem: int
+
+    def state_ints(self, R: int) -> int:
+        """Ints of one CTA's slot state (its global slice when spilled)."""
+        return self.slots_per_thread * self.threads * (R + 1)
+
+
+def scan_geometry(K: int, cluster: int) -> Tuple[int, int, int]:
+    """(slots a CTA, slots a thread, threads) of K slots over `cluster`
+    CTAs: the fewest slots a thread (a power of two, at most 32) that hold
+    a CTA's slots in SCAN_CTA_THREADS threads (1024 at 32 slots a thread),
+    as few threads as hold them, in whole warps, but at least
+    SCAN_MIN_THREADS."""
+    per = -(-K // cluster)
+    S = 1
+    while S < 32 and S * SCAN_CTA_THREADS < per:
+        S *= 2
+    T = max(SCAN_MIN_THREADS, 32 * -(-per // (32 * S)))
+    return per, S, T
+
+
+def _ring_bytes(O: int, with_ok: bool) -> int:
+    return (O + 7) // 8 + O * 4 + (O if with_ok else 0)
+
+
+def scan_smem_bytes(cluster: int, threads: int, S: int, R: int, O: int,
+                    state_smem: bool, stage: bool) -> int:
+    """A K2 CTA's dynamic shared memory, as the kernel carves it: the slot
+    state, the price vector and three staged classes' rows (compat, m,
+    ok)."""
+    n = 0
+    if state_smem:
+        n += S * threads * (R + 1) * 4
+    if stage:
+        n += O * 4 + 3 * _ring_bytes(O, True)
+    return n
+
+
+def scan_plan(K: int, R: int, O: int, n_shards: int, sms: int,
+              smem_optin: int, max_clusters: Callable[[int, int, int, int], int],
+              aligned: bool = True) -> Optional[ScanPlan]:
+    """The layout of a K2 launch of `n_shards` shards of K slots, R axes
+    and O options on a card of `sms` SMs whose blocks may opt into
+    `smem_optin` bytes of shared memory; `max_clusters(cs, threads, S,
+    smem)` is the card's count of such clusters it can hold at once
+    (cudaOccupancyMaxActiveClusters).  In order of preference: the slot
+    state and the staged class inputs both in shared memory, then the
+    state alone, then the state in a global slice (with, then without,
+    the staging).  Staging needs O % 128 == 0 and 16-byte aligned rows
+    (`aligned`).  Among cluster sizes the largest whose CTAs each hold at
+    least SCAN_MIN_CTA_SLOTS slots comes first (more SMs share a step's
+    fits and options), then the smaller ones, then the rest, smallest
+    first.  A size the card can hold `n_shards` clusters of (every
+    shard's cluster resident at once) comes before one it cannot.  None
+    past the kernel's limits (K, R) or when nothing fits, which no
+    (K <= 32768, R <= 32) does on a card that runs one cluster of any
+    size."""
+    if not (0 < K <= SCAN_MAX_SLOTS and 0 < R <= MAX_R and O > 0
+            and n_shards > 0 and sms > 0):
+        return None
+    stage_ok = aligned and O % 128 == 0
+
+    def rank(cs):
+        full = -(-K // cs) >= SCAN_MIN_CTA_SLOTS
+        return (not full, -cs if full else cs)
+    order = sorted(SCAN_CLUSTERS, key=rank)
+    for state_smem, stage in ((True, True), (True, False), (False, True),
+                              (False, False)):
+        if stage and not stage_ok:
+            continue
+        for need in sorted({n_shards, 1}, reverse=True):
+            for cs in order:
+                per, S, T = scan_geometry(K, cs)
+                smem = scan_smem_bytes(cs, T, S, R, O, state_smem, stage)
+                if smem + SCAN_STATIC_SMEM > smem_optin:
+                    continue
+                if max_clusters(cs, T, S, smem) < need:
+                    continue
+                return ScanPlan(cluster=cs, threads=T, slots_per_thread=S,
+                                per_cta=per, state_smem=state_smem,
+                                stage=stage, smem=smem)
+    return None
+
+
+# --- numpy models of the kernels' arithmetic (the CPU tests hold them
+# against the reference's) ---
+
+def magic_model(q: int) -> Tuple[int, int]:
+    """(m, shift) of K2 / K5's division by a class's request q > 0
+    (csrc/classpack.cu `magic_of`), step for step: l = ceil(log2 q),
+    M = 2^(31+l) + q - 1, a float32 estimate of M / q, one float32
+    correction of the remainder, one exact integer step; m must come out
+    as ceil(2^(31+l) / q)."""
+    f32 = np.float32
+    l = (q - 1).bit_length()
+    M = (1 << (31 + l)) + q - 1
+    rq = f32(1) / f32(q)
+    m = int(f32(M) * rq)
+    r = M - m * q
+    m += int(np.floor(f32(r) * rq))
+    r = M - m * q
+    m += (r >= q) - (r < 0)
+    return m, 31 + l
+
+
+def floordiv_magic_model(a, q) -> int:
+    """K2 / K5's floor division of an int32 `a` by a class's invariant
+    request q > 0 through its multiplier (`magic_model`; csrc
+    `floordiv_magic`), step for step in integers: x = a or -1 - a,
+    d = (x * m) >> shift, one correction step, then the sign."""
+    a, q = int(a), int(q)
+    m, shift = magic_model(q)
+    assert m == -(-(1 << shift) // q) and m < 1 << 32
+    x = a if a >= 0 else -1 - a
+    d = (x * m) >> shift
+    r = x - d * q
+    d += (r >= q) - (r < 0)
+    return d if a >= 0 else -1 - d
+
+
+def scan_fill_model(fit, cnt: int, cluster: int, threads: int, S: int):
+    """K2's greedy first-fit fill of one class over a cluster, as the
+    kernel computes it: each thread's S contiguous slots, the cluster scan
+    of the threads' sums (each warp's total to every CTA's table, each
+    warp's prefix from the table), the takes from the uint32 prefix, and
+    the class's sum of takes — min(cnt, total) when the exact total is
+    below 2^31 (no prefix wrapped), else the uint32 sum of the takes.
+    `fit`: the K slots' fits (>= 0).  Returns (take int32 K, taken int)."""
+    fit = np.asarray(fit, np.int64)
+    K = fit.shape[0]
+    per = -(-K // cluster)
+    sums = np.zeros((cluster, threads), np.int64)
+    for k in range(K):
+        r, l = divmod(k, per)
+        sums[r, l // S] += fit[k]
+    warps = threads // 32
+    warp_tot = sums.reshape(cluster, warps, 32).sum(2)
+    table = warp_tot.reshape(-1)              # (rank, warp) order
+    take = np.zeros(K, np.int64)
+    for k in range(K):
+        r, l = divmod(k, per)
+        t = l // S
+        e = r * warps + t // 32
+        pre = table[:e].sum() + sums[r, (t // 32) * 32:t].sum() \
+            + fit[r * per + t * S:k].sum()
+        run = pre & 0xFFFFFFFF                # the uint32 prefix
+        d = (cnt - run) & 0xFFFFFFFF
+        d = d - (1 << 32) if d >= 1 << 31 else d
+        take[k] = min(max(d, 0), fit[k])
+    total = int(table.sum())
+    if total < 2**31:
+        taken = min(cnt, total)
+    else:
+        taken = int(take.sum()) & 0xFFFFFFFF
+        taken = taken - (1 << 32) if taken >= 1 << 31 else taken
+    return take.astype(np.int32), taken
+
+
+def sweep_choice_model(rank, launchable, score):
+    """K5's option choice as ONE lexicographic minimum over (rank, score,
+    index) (csrc `block_keymin`): a launchable option o is the key
+    (rank[o], score[o], o); a non-launchable one is the key (2^30, +inf,
+    last) — the reference's `where(ok, rank, BIG)` gives it rank BIG and
+    its score is +inf.  Returns (index, can): the minimum's index when its
+    score is finite, else (0, False).  The reference's rule it replaces:
+    best = min(where(ok, rank, BIG)), keep rank == best, argmin of the
+    kept scores (+inf elsewhere), ties to the lowest index, can =
+    finite(score[j])."""
+    rank = np.asarray(rank, np.int64)
+    score = np.asarray(score, np.float32)
+    ok = np.asarray(launchable, bool)
+    keys = [(int(rank[o]), float(score[o]), o) for o in np.nonzero(ok)[0]]
+    if not ok.all():
+        keys.append((BIG, float("inf"), 2**31 - 1))
+    r, sc, o = min(keys)
+    return (o, True) if np.isfinite(sc) else (0, False)
+
+
 def classpack_scan(requests: torch.Tensor, counts: torch.Tensor,
                    compat_packed: torch.Tensor, node_cap: torch.Tensor,
                    alloc: torch.Tensor, price: torch.Tensor,
@@ -319,11 +530,7 @@ def classpack_scan(requests: torch.Tensor, counts: torch.Tensor,
     C, R = requests.shape
     O = alloc.shape[0]
     K = int(max_nodes)
-    lib = _lib()
-    if R > lib.kp_max_r() or not 0 < K <= lib.kp_max_slots():
-        raise KernelLimitError(
-            f"R={R} / K={K} outside the scan kernel's limits "
-            f"({lib.kp_max_r()} axes, {lib.kp_max_slots()} slots)")
+    _check_scan_limits(K, R)
     _check(requests, "requests", torch.int32, (C, R))
     _check(counts, "counts", torch.int32, (C,))
     _check(compat_packed, "compat_packed", torch.uint8, (C, (O + 7) // 8))
@@ -335,23 +542,97 @@ def classpack_scan(requests: torch.Tensor, counts: torch.Tensor,
     if init_option is not None:
         _check(init_option, "init_option", torch.int32, (K,))
         _check(init_used, "init_used", torch.int32, (K, R))
+    slot_option, slot_used, scalars, takes = _launch_scan(
+        "classpack_scan", 1, requests, counts, compat_packed, node_cap, alloc,
+        price, m_all, ok_all, init_option, init_used, K, emit_takes, None)
+    return slot_option[0], slot_used[0], scalars[0, 0], scalars[0, 1], \
+        takes[0]
+
+
+def _check_scan_limits(K: int, R: int) -> None:
+    if not (0 < R <= MAX_R and 0 < K <= SCAN_MAX_SLOTS):
+        raise KernelLimitError(
+            f"R={R} / K={K} outside the scan kernel's limits "
+            f"({MAX_R} axes, {SCAN_MAX_SLOTS} slots)")
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_clusters(index: int, cs: int, T: int, S: int, smem: int) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _raise_on(_lib().kp_scan_clusters(cs, T, S, smem, ctypes.byref(out)),
+                  "classpack_scan")
+    return out.value
+
+
+def scan_plan_for(dev: torch.device, K: int, R: int, O: int, n: int,
+                  aligned: bool = True) -> ScanPlan:
+    """`scan_plan` on card `dev` (its SMs, opt-in shared memory and
+    cluster occupancy); raises KernelLimitError when nothing fits."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    sms, smem = _slab_budget(index)
+    plan = scan_plan(K, R, O, n, sms, smem,
+                     lambda cs, T, S, b: _scan_clusters(index, cs, T, S, b),
+                     aligned=aligned)
+    if plan is None:
+        raise KernelLimitError(
+            f"classpack_scan: no layout for K={K}, R={R}, O={O}")
+    return plan
+
+
+def _launch_scan(name, n, requests, counts, compat_packed, node_cap, alloc,
+                 price, m_all, ok_all, init_option, init_used, K, emit_takes,
+                 strides):
+    """One K2 launch over n shards (operands checked by the caller; n = 1
+    with `strides` None is the single-device program).  Returns
+    (slot_option n×K, slot_used n×K×R, scalars n×2, takes)."""
+    C, R = requests.shape[-2:]
+    O = alloc.shape[0]
     dev = requests.device
-    slot_option = torch.empty(K, dtype=torch.int32, device=dev)
-    slot_free = torch.empty((K, R), dtype=torch.int32, device=dev)
-    slot_used = torch.empty((K, R), dtype=torch.int32, device=dev)
-    scalars = torch.empty(2, dtype=torch.int32, device=dev)
-    takes = torch.empty((C, K) if emit_takes else (C,), dtype=torch.int32,
-                        device=dev)
+    plan = scan_plan_for(dev, K, R, O, n,
+                         _aligned(compat_packed, m_all, ok_all, price))
+    slot_option = torch.empty((n, K), dtype=torch.int32, device=dev)
+    slot_used = torch.empty((n, K, R), dtype=torch.int32, device=dev)
+    scalars = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    takes = torch.empty((n, C, K) if emit_takes else (n, C),
+                        dtype=torch.int32, device=dev)
+    g_state = None if plan.state_smem else torch.empty(
+        (n, plan.cluster, plan.state_ints(R)), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.kp_scan(
+        err = _lib().kp_scan(
             _ptr(requests), _ptr(counts), _ptr(compat_packed), _ptr(node_cap),
             _ptr(alloc), _ptr(price), _ptr(m_all), _ptr(ok_all),
-            _ptr(init_option), _ptr(init_used), 1, C, O, R, K,
-            int(emit_takes), None, _ptr(slot_option), _ptr(slot_free),
+            _ptr(init_option), _ptr(init_used), n, C, O, R, K,
+            int(emit_takes), strides, plan.cluster, plan.threads,
+            plan.slots_per_thread, plan.per_cta, int(plan.state_smem),
+            int(plan.stage), plan.smem, _ptr(slot_option), _ptr(g_state),
             _ptr(slot_used), _ptr(scalars), _ptr(takes), _stream(dev))
-    _raise_on(err, "classpack_scan")
-    LAUNCHES["classpack_scan"] += 1
-    return slot_option, slot_used, scalars[0], scalars[1], takes
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return slot_option, slot_used, scalars, takes
+
+
+STEP_CHAIN = 4096   # steps in the chain `step_cycles` times
+
+
+def step_cycles(cluster: int, threads: int, with_min: bool) -> float:
+    """SM cycles of the least class step on the current card: a chain of
+    STEP_CHAIN dependent exchanges (the cluster scan at cluster size
+    `cluster`, `threads` a CTA), each followed by a block reduction when
+    `with_min`, timed by clock64 (csrc/classpack.cu `kp_step_cycles`).  A
+    measurement for the bounds of K2 and K5, not a kernel of the port: it
+    counts no launch."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cycles = torch.zeros(2, dtype=torch.int64, device=dev)
+    _raise_on(_lib().kp_step_cycles(cluster, threads, STEP_CHAIN,
+                                    int(with_min), _ptr(cycles),
+                                    _stream(dev)), "step_cycles")
+    return cycles[0].item() / STEP_CHAIN
 
 
 # ---------------------------------------------------------------------------
@@ -551,6 +832,88 @@ def classpack_sweep_plain(requests, counts_b, compat_packed, node_cap, alloc,
     return torch.stack([cost, launched.sum(1).to(f32), n_unsched.to(f32)], 1)
 
 
+# --- the plan of a K5 launch (a host function, tested on the CPU) ---
+
+SWEEP_MAX_SLOTS = 8192    # kp_sweep_max_slots()
+SWEEP_THREADS = 512       # a row's block (on an H100 a row's step is shorter
+#                           than at 256 threads, at 32, 128 and 512 rows)
+SWEEP_STATIC_SMEM = 6144  # the kernel's own shared memory, rounded up
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """How K5 runs each row: one block of SWEEP_THREADS threads, each
+    holding `slots_per_thread` contiguous slots; the row's slot state
+    (`state_smem`) and invariants (`inv_smem`: the masked price and the
+    rank of every option) in shared memory or in global slices; the class inputs
+    staged one class ahead (`stage`) or read in place; `smem` dynamic bytes
+    a block."""
+    threads: int
+    slots_per_thread: int
+    state_smem: bool
+    inv_smem: bool
+    stage: bool
+    smem: int
+
+    def state_ints(self, R: int) -> int:
+        return self.slots_per_thread * self.threads * (R + 1)
+
+
+def sweep_smem_bytes(threads: int, S: int, R: int, O: int, state_smem: bool,
+                     inv_smem: bool, stage: bool) -> int:
+    """A K5 block's dynamic shared memory, as the kernel carves it."""
+    n = 0
+    if state_smem:
+        n += S * threads * (R + 1) * 4
+    if inv_smem:
+        n += O * 8
+    if stage:
+        n += (O + 7) // 8 + 3 * _ring_bytes(O, False)
+    return n
+
+
+def sweep_plan(K: int, R: int, O: int, B: int, sms: int, smem_optin: int,
+               max_blocks: Callable[[int, int, int], int],
+               aligned: bool = True) -> Optional[SweepPlan]:
+    """The layout of a K5 launch of B rows of K slots, R axes and O options
+    on a card of `sms` SMs whose blocks may opt into `smem_optin` bytes;
+    `max_blocks(threads, S, smem)` is how many such blocks one SM holds.
+    In order of
+    preference: everything in shared memory, then without the staging,
+    then without the invariants, then the slot state in a global slice.
+    None past the kernel's limits (K, R) or when nothing fits."""
+    if not (0 < K <= SWEEP_MAX_SLOTS and 0 < R <= MAX_R and O > 0 and B > 0
+            and sms > 0):
+        return None
+    T = SWEEP_THREADS
+    S = 1
+    while S * T < K:
+        S *= 2
+    stage_ok = aligned and O % 128 == 0
+    for state_smem, inv_smem, stage in (
+            (True, True, True), (True, True, False), (True, False, False),
+            (False, True, True), (False, True, False), (False, False, False)):
+        if stage and not stage_ok:
+            continue
+        smem = sweep_smem_bytes(T, S, R, O, state_smem, inv_smem, stage)
+        if smem + SWEEP_STATIC_SMEM > smem_optin:
+            continue
+        if max_blocks(T, S, smem) < 1:
+            continue
+        return SweepPlan(threads=T, slots_per_thread=S, state_smem=state_smem,
+                         inv_smem=inv_smem, stage=stage, smem=smem)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_blocks(index: int, T: int, S: int, smem: int) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _raise_on(_lib().kp_sweep_blocks(T, S, smem, ctypes.byref(out)),
+                  "classpack_sweep")
+    return out.value
+
+
 def classpack_sweep(requests: torch.Tensor, counts_b: torch.Tensor,
                     compat_packed: torch.Tensor, node_cap: torch.Tensor,
                     alloc: torch.Tensor, price: torch.Tensor,
@@ -574,11 +937,10 @@ def classpack_sweep(requests: torch.Tensor, counts_b: torch.Tensor,
     R = requests.shape[1]
     O = alloc.shape[0]
     K = int(max_nodes)
-    lib = _lib()
-    if R > lib.kp_max_r() or not 0 < K <= lib.kp_sweep_max_slots():
+    if not (0 < R <= MAX_R and 0 < K <= SWEEP_MAX_SLOTS):
         raise KernelLimitError(
             f"R={R} / K={K} outside the sweep kernel's limits "
-            f"({lib.kp_max_r()} axes, {lib.kp_sweep_max_slots()} slots)")
+            f"({MAX_R} axes, {SWEEP_MAX_SLOTS} slots)")
     if B == 0 or C == 0 or O == 0:
         raise ValueError(f"empty sweep: B={B}, C={C}, O={O}")
     _check(requests, "requests", torch.int32, (C, R))
@@ -594,23 +956,43 @@ def classpack_sweep(requests: torch.Tensor, counts_b: torch.Tensor,
     _check(init_used, "init_used", torch.int32, (K, R))
     _check(m_all, "m_all", torch.int32, (C, O))
     dev = requests.device
-    # per-row slot state spills to global scratch only past the kernel's
-    # shared-memory budget
-    g_option = g_free = None
-    if K * (R + 1) * 4 > lib.kp_sweep_smem_max():
-        g_option = torch.empty((B, K), dtype=torch.int32, device=dev)
-        g_free = torch.empty((B, K, R), dtype=torch.int32, device=dev)
+    plan = sweep_plan_for(dev, K, R, O, B,
+                          _aligned(compat_packed, m_all, col_mask_packed))
+    # per-row slot state and invariants spill to global slices only past
+    # the plan's shared memory
+    g_state = None if plan.state_smem else torch.empty(
+        (B, plan.state_ints(R)), dtype=torch.int32, device=dev)
+    g_inv = None if plan.inv_smem else torch.empty(
+        (B, 2 * O), dtype=torch.int32, device=dev)
     out = torch.empty((B, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.kp_sweep(
+        err = _lib().kp_sweep(
             _ptr(requests), _ptr(counts_b), _ptr(compat_packed),
             _ptr(node_cap), _ptr(alloc), _ptr(price), _ptr(rank),
             _ptr(col_mask_packed), _ptr(price_cap_b), _ptr(init_option),
-            _ptr(init_used), _ptr(m_all), B, C, O, R, K, _ptr(g_option),
-            _ptr(g_free), _ptr(out), _stream(dev))
+            _ptr(init_used), _ptr(m_all), B, C, O, R, K, plan.threads,
+            plan.slots_per_thread, int(plan.state_smem), int(plan.inv_smem),
+            int(plan.stage), plan.smem, _ptr(g_state), _ptr(g_inv), _ptr(out),
+            _stream(dev))
     _raise_on(err, "classpack_sweep")
     LAUNCHES["classpack_sweep"] += 1
     return out
+
+
+def sweep_plan_for(dev: torch.device, K: int, R: int, O: int, B: int,
+                   aligned: bool = True) -> SweepPlan:
+    """`sweep_plan` on card `dev`; raises KernelLimitError when nothing
+    fits."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    sms, smem = _slab_budget(index)
+    plan = sweep_plan(K, R, O, B, sms, smem,
+                      lambda T, S, b: _sweep_blocks(index, T, S, b),
+                      aligned=aligned)
+    if plan is None:
+        raise KernelLimitError(f"classpack_sweep: no layout for K={K}, "
+                               f"R={R}, O={O}, B={B}")
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -861,7 +1243,7 @@ def classpack_scan_sharded(requests: torch.Tensor, counts: torch.Tensor,
                            init_option: Optional[torch.Tensor],
                            init_used: Optional[torch.Tensor],
                            max_nodes: int, emit_takes: bool = False):
-    """K2 over n shards in one launch, one block per shard: requests n×C×R,
+    """K2 over n shards in one launch, one cluster per shard: requests n×C×R,
     counts n×C, compat_packed n×C×ceil(O/8), node_cap n×C, m_all / ok_all
     n×C×O (K1's), init_option n×K / init_used n×K×R or None (all slots
     closed).  Returns (slot_option n×K, slot_used n×K×R, n_open n,
@@ -876,12 +1258,8 @@ def classpack_scan_sharded(requests: torch.Tensor, counts: torch.Tensor,
     n, C, R = requests.shape
     O = alloc.shape[0]
     K = int(max_nodes)
-    lib = _lib()
     _check_shards(n)
-    if R > lib.kp_max_r() or not 0 < K <= lib.kp_max_slots():
-        raise KernelLimitError(
-            f"R={R} / K={K} outside the scan kernel's limits "
-            f"({lib.kp_max_r()} axes, {lib.kp_max_slots()} slots)")
+    _check_scan_limits(K, R)
     st = [_shard_stride(requests, "requests", torch.int32, (n, C, R)),
           _shard_stride(counts, "counts", torch.int32, (n, C)),
           _shard_stride(compat_packed, "compat_packed", torch.uint8,
@@ -894,23 +1272,10 @@ def classpack_scan_sharded(requests: torch.Tensor, counts: torch.Tensor,
     if init_option is not None:
         st[6] = _shard_stride(init_option, "init_option", torch.int32, (n, K))
         st[7] = _shard_stride(init_used, "init_used", torch.int32, (n, K, R))
-    dev = requests.device
-    slot_option = torch.empty((n, K), dtype=torch.int32, device=dev)
-    slot_free = torch.empty((n, K, R), dtype=torch.int32, device=dev)
-    slot_used = torch.empty((n, K, R), dtype=torch.int32, device=dev)
-    scalars = torch.empty((n, 2), dtype=torch.int32, device=dev)
-    takes = torch.empty((n, C, K) if emit_takes else (n, C),
-                        dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.kp_scan(
-            _ptr(requests), _ptr(counts), _ptr(compat_packed), _ptr(node_cap),
-            _ptr(alloc), _ptr(price), _ptr(m_all), _ptr(ok_all),
-            _ptr(init_option), _ptr(init_used), n, C, O, R, K,
-            int(emit_takes), _strides(*st), _ptr(slot_option),
-            _ptr(slot_free), _ptr(slot_used), _ptr(scalars), _ptr(takes),
-            _stream(dev))
-    _raise_on(err, "classpack_scan_sharded")
-    LAUNCHES["classpack_scan_sharded"] += 1
+    slot_option, slot_used, scalars, takes = _launch_scan(
+        "classpack_scan_sharded", n, requests, counts, compat_packed,
+        node_cap, alloc, price, m_all, ok_all, init_option, init_used, K,
+        emit_takes, _strides(*st))
     return slot_option, slot_used, scalars[:, 0], scalars[:, 1], takes
 
 

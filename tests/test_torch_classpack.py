@@ -231,3 +231,26 @@ def test_mixed_devices_are_refused():
     meta = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         ck.classpack_aggregate(t, meta.float(), t[0], t[1])
+
+
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("name", ["plain", "existing", "exhaustion_existing",
+                                  "caps_ranks"])
+def test_pack_kernel_with_empty_classes_between_matches_jax(name, emit):
+    """Classes of count 0 (and one of a negative count) between non-empty
+    ones, not only in the padded tail: the reference steps through them
+    and they take nothing, open nothing and add no unscheduled pod, which
+    is what lets the kernels skip them."""
+    c = _case(name, seed=3)
+    C = int((c["cnt"] > 0).sum())
+    c["cnt"][:C:3] = 0
+    c["cnt"][1] = -5
+    want = ref.class_pack_kernel_packed(*_jax_args(c, True), *_jax_init(c),
+                                        max_nodes=c["K"], emit_takes=emit)
+    got = port.class_pack_kernel_packed(*_torch_args(c, True),
+                                        *_torch_init(c), c["K"], emit)
+    for w, g, what in zip(want, got, ("slot_option", "slot_used", "n_open",
+                                      "n_unsched", "takes")):
+        _eq(w, g, what)
+    takes = np.asarray(want[4])
+    assert not takes[c["cnt"] <= 0].any()

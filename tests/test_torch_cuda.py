@@ -9,6 +9,8 @@ runs on the card's machine as it is:
 Integer outputs must be equal; the aggregate's float32 total_cost may differ
 by relative 1e-5 (the kernel sums the launched prices in another order)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -166,12 +168,18 @@ def test_cuda_sweep_matches_plain(cuda_device, name):
 
 @pytest.mark.cuda
 def test_cuda_sweep_large_slot_state_spills_to_global(cuda_device):
-    """K = 2048 at R = 5 exceeds the kernel's 40 KB shared-memory budget for
-    a row's slot state, so the rows run from the global scratch."""
-    s = make_sweep_case(6, E=12, K=2048)
+    """K = 8192 at R = 7 (256 KB a row) exceeds the shared memory a block
+    can opt into, so the rows' slot state runs from a global slice (the
+    budget is the opt-in maximum since the redesign; 48 KB rows, which
+    spilled under the old 40 KB budget, stay in shared memory)."""
+    s = make_sweep_case(6, E=12, K=8192, R=7)
     t = _sweep_on(s, cuda_device)
     req, counts, packed, cap, alloc, price, rank, mpacked, caps, iopt, iused \
         = t
+    plan = ck.sweep_plan_for(cuda_device, s["K"], req.shape[1],
+                             price.shape[0], counts.shape[0])
+    assert not plan.state_smem
+    assert ck.sweep_plan_for(cuda_device, 2048, 5, 512, 8).state_smem
     m_all, _ = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
     args = (req, counts, packed, cap, alloc, price, rank, mpacked, caps,
             iopt, iused, m_all, s["K"])
@@ -179,6 +187,8 @@ def test_cuda_sweep_large_slot_state_spills_to_global(cuda_device):
     want = ck.classpack_sweep_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got[:, 1:], want[:, 1:])
+    assert all(_close(a, b) for a, b in zip(got[:, 0].tolist(),
+                                            want[:, 0].tolist()))
 
 
 @pytest.mark.cuda
@@ -932,3 +942,241 @@ def test_cuda_ffd_scan_ragged_last_chunk(cuda_device, P):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+# ---- K2 / K2s (one cluster per shard) and K5 (a row's short class step) ----
+
+def _headline_case(seed, K=8192, R=7, E=0):
+    """A case at the headline's shapes (Cpad 256, Opad 4096, R = 7) with
+    zero-count classes between non-empty ones and one negative count."""
+    c = make_case(seed, C=200, Cpad=256, O=3600, Opad=4096, R=R, K=K, E=E)
+    c["cnt"][:200:5] = 0
+    c["cnt"][3] = -2
+    return c
+
+
+def _scan_twice(args, K, emit):
+    got = ck.classpack_scan(*args, K, emit)
+    again = ck.classpack_scan(*args, K, emit)
+    want = ck.classpack_scan_plain(*args, K, emit)
+    torch.cuda.synchronize()
+    for g, h, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(g, h)
+    return got
+
+
+def _scan_args(c, dev):
+    (req, cnt, packed, cap, alloc, price, rank), (iopt, iused) = _on(c, dev)
+    m, ok = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
+    return (req, cnt, packed, cap, alloc, price, m, ok, iopt, iused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
+def test_cuda_scan_each_cluster_size_matches_plain(cuda_device, cs, emit):
+    """K2 at the headline's shapes at a slot count whose plan takes
+    clusters of `cs` CTAs (K = 64, 256, 512, 1024, 2048; slots run out),
+    twice, bit-equal to the plain version."""
+    K = {1: 64, 2: 256, 4: 512, 8: 1024, 16: 2048}[cs]
+    args = _scan_args(_headline_case(1, K=K, E=40), cuda_device)
+    plan = ck.scan_plan_for(cuda_device, K, 7, 4096, 1)
+    assert (plan.cluster, plan.state_smem, plan.stage) == (cs, True, True)
+    ck.reset_launches()
+    _scan_twice(args, K, emit)
+    assert ck.LAUNCHES["classpack_scan"] == 2
+
+
+def _misaligned(t):
+    """A contiguous copy of `t` 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8,
+                      device=t.device)
+    u = buf[4:4 + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    u.copy_(t)
+    return u
+
+
+# (K, R, Opad, aligned) -> (state in shared memory, staged): the layouts
+# that read the class rows in place
+UNSTAGED_SCANS = {
+    "opad32768": (1000, 7, 32_768, True, (True, False)),
+    "opad32768-state-global": (32_768, 32, 32_768, True, (False, False)),
+    "o3600": (8192, 7, 3600, True, (True, False)),
+    "o3600-state-global": (32_768, 32, 3600, True, (False, False)),
+    "misaligned-m": (8192, 7, 4096, False, (True, False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("name", sorted(UNSTAGED_SCANS))
+def test_cuda_scan_unstaged_layouts_match_plain(cuda_device, name, emit):
+    """K2 in the layouts that read the class rows in place: the widest
+    option bucket (Opad 32 768, whose staging fits no CTA), options not a
+    multiple of 128 and an m_all 4 bytes off a 16-byte boundary; with the
+    slot state in shared memory and in a global slice.  Twice, bit-equal
+    to the plain version."""
+    K, R, O, aligned, want = UNSTAGED_SCANS[name]
+    c = make_case(7, C=48, Cpad=64, O=O - 64, Opad=O, R=R, K=K, E=40)
+    c["cnt"][:48:5] = 0
+    args = list(_scan_args(c, cuda_device))
+    if not aligned:
+        args[6] = _misaligned(args[6])
+        assert args[6].data_ptr() % 16 == 4
+    plan = ck.scan_plan_for(cuda_device, K, R, O, 1, aligned=aligned)
+    assert (plan.state_smem, plan.stage) == want
+    got = _scan_twice(tuple(args), K, emit)
+    assert int(got[2]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("K,R,E", [(1, 7, 0), (37, 7, 12), (1000, 5, 12),
+                                   (32_768, 7, 40), (32_768, 32, 0)])
+def test_cuda_scan_slot_edges_match_plain(cuda_device, K, R, E, emit):
+    """K2 at one slot, at a K no cluster size divides, at slot exhaustion,
+    at K3's widest 32 768 slots (in shared memory at R = 7, in the global
+    layout at R = 32), twice each, bit-equal to the plain version."""
+    c = _headline_case(2, K=K, R=R, E=E)
+    args = _scan_args(c, cuda_device)
+    plan = ck.scan_plan_for(cuda_device, K, R, 4096, 1)
+    assert plan.state_smem == (R != 32)
+    got = _scan_twice(args, K, emit)
+    if K < 1000:
+        assert int(got[3]) > 0          # slots ran out: pods unscheduled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+def test_cuda_scan_sharded_matches_plain_and_serial(cuda_device, n):
+    """K2s at the headline's shapes over n shards (one cluster each), twice,
+    bit-equal to its plain version and to n single-device launches."""
+    c = _headline_case(3, E=40)
+    s = stack_shards(c, max(n, 2), np.random.default_rng(8), cuda_device)
+    if n == 1:
+        s = {k: (v[:1].contiguous() if k in ("req", "cnt", "packed", "cap",
+                                             "iopt", "iused")
+                 and v is not None else v) for k, v in s.items()}
+    m, ok = ck.classpack_precompute_sharded(s["req"], s["cap"], s["packed"],
+                                            s["alloc"], s["price"], s["rank"])
+    for emit in (False, True):
+        args = (s["req"], s["cnt"], s["packed"], s["cap"], s["alloc"],
+                s["price"], m, ok, s["iopt"], s["iused"], c["K"], emit)
+        got = ck.classpack_scan_sharded(*args)
+        again = ck.classpack_scan_sharded(*args)
+        want = ck.classpack_scan_sharded_plain(*args)
+        torch.cuda.synchronize()
+        for g, h, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(g, h)
+        for i in range(n):
+            one = ck.classpack_scan(
+                s["req"][i], s["cnt"][i].contiguous(), s["packed"][i],
+                s["cap"][i], s["alloc"], s["price"], m[i], ok[i],
+                None if s["iopt"] is None else s["iopt"][i],
+                None if s["iused"] is None else s["iused"][i], c["K"], emit)
+            for g, w in zip(got, one):
+                assert torch.equal(g[i], w)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_refuses_instead_of_falling_back(cuda_device, monkeypatch):
+    """A launch the kernel refuses (a plan that does not match its carve, a
+    cluster the card does not schedule) raises KernelError; nothing runs
+    the plain version on a CUDA tensor."""
+    args = _scan_args(_headline_case(4), cuda_device)
+    plan = ck.scan_plan_for(cuda_device, 8192, 7, 4096, 1)
+    ck.reset_launches()
+    bad = dataclasses.replace(plan, smem=plan.smem + 16)
+    monkeypatch.setattr(ck, "scan_plan_for", lambda *a, **k: bad)
+    with pytest.raises(KernelError):
+        ck.classpack_scan(*args, 8192, True)
+    # the carve of one CTA holding all 8192 slots and the staging: more
+    # shared memory than a block may opt into, refused by the launch
+    one = dataclasses.replace(
+        plan, cluster=1, threads=512, slots_per_thread=16, per_cta=8192,
+        state_smem=True, stage=True,
+        smem=ck.scan_smem_bytes(1, 512, 16, 7, 4096, True, True))
+    monkeypatch.setattr(ck, "scan_plan_for", lambda *a, **k: one)
+    with pytest.raises(KernelError):
+        ck.classpack_scan(*args, 8192, True)
+    monkeypatch.setattr(ck, "scan_plan_for", lambda *a, **k: (_ for _ in ()
+                        ).throw(ck.KernelLimitError("no layout")))
+    with pytest.raises(KernelError):
+        ck.classpack_scan(*args, 8192, True)
+    assert ck.LAUNCHES["classpack_scan"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 40, 512])
+def test_cuda_sweep_rows_match_plain(cuda_device, B):
+    """K5 at one row, at 40 and at 512 rows, twice, against its plain
+    version."""
+    s = make_sweep_case(5, B=max(B, 8), E=12)
+    req, counts, packed, cap, alloc, price, rank, mpacked, caps, iopt, iused \
+        = _sweep_on(s, cuda_device)
+    reps = -(-B // counts.shape[0])
+    cb = counts.repeat(reps, 1)[:B].contiguous()
+    mb = mpacked.repeat(reps, 1)[:B].contiguous()
+    pb = caps.repeat(reps)[:B].contiguous()
+    m_all, _ = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
+    args = (req, cb, packed, cap, alloc, price, rank, mb, pb, iopt, iused,
+            m_all, s["K"])
+    got = ck.classpack_sweep(*args)
+    again = ck.classpack_sweep(*args)
+    want = ck.classpack_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, 1:], want[:, 1:])
+    assert all(_close(a, b) for a, b in zip(got[:, 0].tolist(),
+                                            want[:, 0].tolist()))
+
+
+# (K, Opad, aligned) -> (state, invariants in shared memory, staged)
+UNSTAGED_SWEEPS = {
+    "opad32768": (512, 32_768, True, (True, False, False)),
+    "opad32768-state-global": (8192, 32_768, True, (False, False, False)),
+    "o3600": (512, 3600, True, (True, True, False)),
+    "o3600-state-global": (8192, 3600, True, (False, True, False)),
+    "misaligned-m": (512, 4096, False, (True, True, False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(UNSTAGED_SWEEPS))
+def test_cuda_sweep_unstaged_layouts_match_plain(cuda_device, name):
+    """K5 in the layouts that read the class rows in place: Opad 32 768
+    (the row's invariants too wide for shared memory), options not a
+    multiple of 128 and an m_all 4 bytes off a 16-byte boundary; the slot
+    state in shared memory and in a global slice.  Twice, bit-equal, and
+    equal to the plain version."""
+    K, O, aligned, want = UNSTAGED_SWEEPS[name]
+    s = make_sweep_case(9, B=8, C=48, Cpad=64, O=O - 64, Opad=O, R=7, K=K,
+                        E=12)
+    req, counts, packed, cap, alloc, price, rank, mpacked, caps, iopt, iused \
+        = _sweep_on(s, cuda_device)
+    m_all, _ = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
+    if not aligned:
+        m_all = _misaligned(m_all)
+    plan = ck.sweep_plan_for(cuda_device, K, 7, O, 8, aligned=aligned)
+    assert (plan.state_smem, plan.inv_smem, plan.stage) == want
+    args = (req, counts, packed, cap, alloc, price, rank, mpacked, caps,
+            iopt, iused, m_all, K)
+    got = ck.classpack_sweep(*args)
+    again = ck.classpack_sweep(*args)
+    want_out = ck.classpack_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, 1:], want_out[:, 1:])
+    assert all(_close(a, b) for a, b in zip(got[:, 0].tolist(),
+                                            want_out[:, 0].tolist()))
+
+
+@pytest.mark.cuda
+def test_cuda_step_probe_measures_a_positive_step(cuda_device):
+    """The least class step (a chain of dependent exchanges, with and
+    without a block reduction) for the bounds: positive cycles, the
+    reduction adding to the exchange."""
+    for cs, T in ((1, 128), (1, 1024), (8, 1024), (16, 512)):
+        bare = ck.step_cycles(cs, T, False)
+        full = ck.step_cycles(cs, T, True)
+        assert 0 < bare < full

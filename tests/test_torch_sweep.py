@@ -157,3 +157,112 @@ def test_sweep_defaults_to_cuda_and_raises_without_it(monkeypatch,
     with pytest.raises(RuntimeError, match="CUDA"):
         port_cp.solve_classpack_sweep(convert.problem_from_arrays(prob),
                                       counts)
+
+
+# ---- K5's plan and its option choice, on the CPU ----
+
+def _h100_blocks(T, S, smem):
+    return max(0, min(2048 // T, (232_448 - 1024) // (smem + 4096)))
+
+
+@pytest.mark.parametrize("R", [1, 2, 7, 32])
+def test_sweep_plan_takes_every_shape_the_old_kernel_took(R):
+    """Every (K <= kp_sweep_max_slots() = 8192, R <= 32) at any width and
+    row count gets a layout; shared memory is used up to the opt-in
+    budget, not the old 40 KB."""
+    for K in (1, 2, 255, 256, 512, 1000, 1280, 2048, 4096, 8192):
+        for O in (1, 100, 512, 2048, 8192, 32_768):
+            for B in (1, 32, 128, 512):
+                plan = ck.sweep_plan(K, R, O, B, 132, 232_448, _h100_blocks)
+                assert plan is not None, (K, R, O, B)
+                T, S = plan.threads, plan.slots_per_thread
+                assert T == ck.SWEEP_THREADS and S * T >= K and S <= 32
+                assert plan.smem == ck.sweep_smem_bytes(
+                    T, S, R, O, plan.state_smem, plan.inv_smem, plan.stage)
+                assert plan.smem + ck.SWEEP_STATIC_SMEM <= 232_448
+                assert not plan.stage or O % 128 == 0
+                state = S * T * (R + 1) * 4
+                if state + 512 + ck.SWEEP_STATIC_SMEM <= 232_448:
+                    assert plan.state_smem, (K, R, O, B)
+
+
+def test_sweep_plan_at_the_consolidation_cell():
+    # the first frontier (B = 32) and every prefix (B = 512), K = 512,
+    # Opad 512; the replace face (B = 128, Opad 2048)
+    for B, O in ((32, 512), (512, 512), (128, 2048)):
+        plan = ck.sweep_plan(512, 7, O, B, 132, 232_448, _h100_blocks)
+        assert (plan.threads, plan.state_smem, plan.inv_smem, plan.stage) \
+            == (512, True, True, True)
+    # past the old 40 KB budget (K = 2048, R = 5: 48 KB) the state stays in
+    # shared memory now; K = 8192, R = 7 (256 KB) spills
+    assert ck.sweep_plan(2048, 5, 512, 8, 132, 232_448,
+                         _h100_blocks).state_smem
+    assert not ck.sweep_plan(8192, 7, 512, 8, 132, 232_448,
+                             _h100_blocks).state_smem
+    assert ck.sweep_plan(8193, 7, 512, 8, 132, 232_448, _h100_blocks) is None
+
+
+@pytest.mark.parametrize("K,O,want", [
+    (512, 4096, (True, True, True)),
+    (512, 3600, (True, True, False)),       # options not a multiple of 128
+    (512, 32_768, (True, False, False)),    # invariants past the budget
+    (8192, 4096, (False, True, True)),      # state past the budget
+    (8192, 3600, (False, True, False)),
+    (8192, 32_768, (False, False, False)),
+])
+def test_sweep_plan_reaches_each_layout_by_shape(K, O, want):
+    """Each of K5's layouts is the plan's own pick at some shape (the card
+    tests hold each against plain); unaligned rows are read in place."""
+    plan = ck.sweep_plan(K, 7, O, 8, 132, 232_448, _h100_blocks)
+    assert (plan.state_smem, plan.inv_smem, plan.stage) == want
+    plan = ck.sweep_plan(K, 7, O, 8, 132, 232_448, _h100_blocks,
+                         aligned=False)
+    assert (plan.state_smem, plan.inv_smem, plan.stage) == want[:2] + (False,)
+
+
+def _two_pass(rank, launchable, score):
+    """The reference's rule (ops/classpack.py :343-353 through
+    class_pack_aggregate_kernel): best rank among the launchable options
+    (BIG when none), keep that rank, argmin of the kept scores."""
+    BIG = 2**30
+    rank = np.asarray(rank, np.int64)
+    ok = np.asarray(launchable, bool)
+    best = np.where(ok, rank, BIG).min()
+    ok = ok & (rank == best)
+    sc = np.where(ok, np.asarray(score, np.float32), np.float32(np.inf))
+    j = int(np.argmin(sc))
+    return j, bool(np.isfinite(sc[j]))
+
+
+def _adversarial_choices(rng):
+    O = 64
+    yield np.zeros(O), np.zeros(O, bool), np.ones(O)          # none launchable
+    yield np.zeros(O), np.ones(O, bool), np.full(O, 3.0)       # all tie
+    r = np.zeros(O)
+    r[::2] = 1
+    yield r, np.ones(O, bool), np.arange(O, 0, -1.0)           # rank beats score
+    s = np.full(O, 2.0)
+    s[5], s[9] = -0.0, 0.0                                     # -0.0 == 0.0
+    yield np.zeros(O), np.ones(O, bool), s
+    r = np.full(O, 2**30 + 5)                                  # past BIG
+    yield r, np.ones(O, bool), np.ones(O)
+    r[7] = 2**30                                               # exactly BIG
+    yield r, np.ones(O, bool), np.ones(O)
+    r = np.full(O, 2**31 - 1)
+    r[3] = 4
+    yield r, np.ones(O, bool), np.ones(O)
+    yield np.zeros(O), np.ones(O, bool), np.full(O, 3.38e38)   # SCORE_CAP ties
+    for _ in range(40):
+        r = rng.integers(0, 3, O)
+        ok = rng.random(O) < rng.random()
+        sc = rng.choice([1.0, 2.0, 3.5, np.float32(3.38e38)], O)
+        yield r, ok, sc
+
+
+def test_sweep_option_choice_is_one_lexicographic_minimum():
+    """K5's single (rank, score, index) minimum against the two-pass rule
+    of classpack_sweep_plain, on adversarial and seeded options."""
+    rng = np.random.default_rng(17)
+    for rank, ok, score in _adversarial_choices(rng):
+        assert ck.sweep_choice_model(rank, ok, score) == \
+            _two_pass(rank, ok, score)
