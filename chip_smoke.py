@@ -16,8 +16,16 @@ pass):
                seeded perturbations of it (score overflow, pool ranks,
                hostname caps, slot exhaustion, overcommitted existing
                nodes).  Integers must be equal; the aggregate's float32
-               total_cost may differ by relative 1e-5 (summation order).
-               Then K2 (one cluster of CTAs per shard) on the
+               total_cost may differ by relative 1e-5 (summation order);
+               K1 and K4 are launched twice, bit-equal, and K1 also for m
+               alone (with_ok=False, as the sweep calls it).  Then K1 (tiles
+               of classes x options, clusters along the options) at each
+               main path's shape on seeded inputs with its parity traps —
+               the headline (C 256 x O 4096), the live cell's round 2
+               (256 x 8192), the consolidation tick (1024 x 512) and, as
+               K1s, the megafleet's row 17 (8 x 64 x 512) — twice, bit-equal
+               to plain, and for m alone.  Then K2 (one cluster of CTAs per
+               shard) on the
                headline batch with every fifth non-empty class emptied and
                one count negative (empty classes between non-empty ones),
                at slot counts whose plans take each cluster size (K = 64,
@@ -175,9 +183,14 @@ family's first call; `[probe]` lines give the class step in clusters of
 every size and thread count (`classpack_kernels.step_cycles`, clock64),
 whose least is the dependency term of the bounds of K2, K2s, K5 and the
 programs that run them (rows 7, 8, 10, 13-17); and one trace each (the decoded
-headline solve, the first frontier sweep, the megafleet slab solve), read
-with the launch counters around the same calls, must name the new kernel
-(`cluster_scan_kernel`, `row_sweep_kernel`) and none of the old.
+headline solve for K2 and K1, the aggregate headline solve for K4, the first
+frontier sweep, the megafleet slab solve), read with the launch counters
+around the same calls, must name the new kernel (`cluster_scan_kernel`,
+`precompute_tile_kernel`, `aggregate_cluster_kernel`, `row_sweep_kernel`)
+and none of the old (`precompute_kernel`, `aggregate_kernel`).  `[probe]
+empty launch` gives the card time of a near-empty kernel
+(torch.cuda._sleep(0)) on the kernels' measure: the floor under every row,
+beside which K1's and K4's lines state their times.
 
 Prints the kernel table as one JSON line (each row's `launches` from its
 own path, `launches_by_path` from every main path), the card's name and
@@ -354,13 +367,21 @@ def compare_kernels(torch, problem, ex):
         K = k_override or low.K
         if k_override and iopt is not None:
             iopt, iused = iopt[:K].contiguous(), iused[:K].contiguous()
-        # K1
+        # K1, launched twice, and for m alone
         m, ok = ck.classpack_precompute(req, cap, packed, alloc, price, rank)
+        m2, ok2 = ck.classpack_precompute(req, cap, packed, alloc, price,
+                                          rank)
+        m1, none = ck.classpack_precompute(req, cap, packed, alloc, price,
+                                           rank, with_ok=False)
         m0, ok0 = ck.classpack_precompute_plain(req, cap, packed, alloc,
                                                 price, rank)
         torch.cuda.synchronize()
         check(torch.equal(m, m0) and torch.equal(ok, ok0),
               f"K1 precompute differs from plain ({name})")
+        check(torch.equal(m, m2) and torch.equal(ok, ok2),
+              f"K1 precompute: two launches differ ({name})")
+        check(none is None and torch.equal(m1, m0),
+              f"K1 precompute with_ok=False differs ({name})")
         # K2, emitting takes and not
         outs = {}
         for emit in (True, False):
@@ -381,12 +402,14 @@ def compare_kernels(torch, problem, ex):
         torch.cuda.synchronize()
         check(a.dtype == a0.dtype and torch.equal(a, a0),
               f"K3 assign decode differs ({name})")
-        # K4
+        # K4, launched twice
         g = ck.classpack_aggregate(slot_option, price, n_open, n_unsched)
+        g2 = ck.classpack_aggregate(slot_option, price, n_open, n_unsched)
         g0 = ck.classpack_aggregate_plain(slot_option, price, n_open, n_unsched)
         torch.cuda.synchronize()
         check(torch.equal(g[1:], g0[1:]),
               f"K4 aggregate counts differ ({name})")
+        check(torch.equal(g, g2), f"K4 aggregate: two launches differ ({name})")
         tc, tc0 = float(g[0]), float(g0[0])
         check(math.isfinite(tc) and abs(tc - tc0) <= REL_TOL * max(abs(tc0), 1e-30),
               f"K4 total_cost {tc} vs {tc0} ({name})")
@@ -395,7 +418,8 @@ def compare_kernels(torch, problem, ex):
         log(f"[kernels] {name}: Cpad={low.req_p.shape[0]} "
             f"Opad={low.price_p.shape[0]} K={K} R={low.req_p.shape[1]} "
             f"Ppad={low.Ppad} n_open={int(n_open)} n_unsched={int(n_unsched)} "
-            f"-> K1-K4 equal to plain (total_cost |d|={abs(tc - tc0):.3g})")
+            f"-> K1-K4 equal to plain, K1 and K4 twice bit-equal, K1 "
+            f"with_ok=False the same m (total_cost |d|={abs(tc - tc0):.3g})")
         if name == "real":
             shapes = dict(req=req, cnt=cnt, packed=packed, cap=cap,
                           alloc=alloc, price=price, rank=rank, m=m, ok=ok,
@@ -403,6 +427,76 @@ def compare_kernels(torch, problem, ex):
                           slot_option=slot_option, n_open=n_open,
                           n_unsched=n_unsched)
     return err, shapes
+
+
+# (n, C, O, R) of K1 on each main path: the headline, the live cell's round
+# 2, the consolidation-500 tick and the megafleet's row 17 (K1s, 8 shards)
+K1_PATH_SHAPES = {"headline": (1, 256, 4096, 7),
+                  "live-round-2": (1, 256, 8192, 7),
+                  "consolidation-500": (1, 1024, 512, 7),
+                  "megafleet-row-17": (8, 64, 512, 2)}
+
+
+def precompute_inputs(torch, rng, n, C, O, R):
+    """Seeded K1 inputs at (n, C, O, R) on the card, with K1's parity
+    traps: requests of 0 and below (masked), of 1 and past 2^30, node caps
+    of 0 and 1, negative and extreme allocations, +inf and NaN prices,
+    classes with no compatible option, pool ranks.  Returns [requests
+    n×C×R, node_cap n×C, compat_packed n×C×ceil(O/8), alloc, price,
+    rank]."""
+    req = rng.integers(1, 9000, (n, C, R)).astype(np.int32)
+    req[rng.random(req.shape) < 0.25] = 0
+    req[rng.random(req.shape) < 0.05] = -7
+    req[..., 0][rng.random((n, C)) < 0.15] = 1
+    req[rng.random(req.shape) < 0.05] = 2**30 + 1
+    cap = np.where(rng.random((n, C)) < 0.3, rng.integers(0, 3, (n, C)),
+                   2**30).astype(np.int32)
+    comp = rng.random((n, C, O)) < 0.6
+    comp[:, ::7] = False
+    alloc = rng.integers(0, 64_000, (O, R)).astype(np.int32)
+    alloc[rng.random((O, R)) < 0.1] *= -1
+    alloc[0, 0], alloc[-1, -1] = -2**31, 2**31 - 1
+    price = rng.uniform(0.05, 5.0, O).astype(np.float32)
+    price[rng.random(O) < 0.2] = np.inf
+    price[rng.random(O) < 0.02] = np.nan
+    rank = rng.integers(0, 3, O).astype(np.int32)
+    return [torch.tensor(a, device="cuda") for a in (
+        req, cap, np.packbits(comp, axis=2), alloc, price, rank)]
+
+
+def compare_precompute_shapes(torch):
+    """K1 at each main path's shape on seeded inputs (K1s over the
+    megafleet's 8 shards): twice, bit-equal to plain; K1 also with
+    with_ok=False (the same m, no ok).  Returns each shape's arguments."""
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for name, (n, C, O, R) in K1_PATH_SHAPES.items():
+        args = precompute_inputs(torch, rng, n, C, O, R)
+        if n == 1:
+            args = [a[0] for a in args[:3]] + args[3:]
+            fn, plain = ck.classpack_precompute, ck.classpack_precompute_plain
+        else:
+            fn = ck.classpack_precompute_sharded
+            plain = ck.classpack_precompute_sharded_plain
+        got, again, want = fn(*args), fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        for g, h, w, what in zip(got, again, want, ("m", "ok")):
+            check(torch.equal(g, w), f"K1 at {name}: {what} differs from plain")
+            check(torch.equal(g, h), f"K1 at {name}: two launches differ "
+                                     f"({what})")
+        if n == 1:
+            m1, none = fn(*args, with_ok=False)
+            torch.cuda.synchronize()
+            check(none is None and torch.equal(m1, want[0]),
+                  f"K1 at {name}: with_ok=False differs")
+        plan = ck.precompute_plan_for(torch.device("cuda"), C, O, R, n)
+        log(f"[kernels] K1 at {name} (n={n}, C={C}, O={O}, R={R}; {plan}): "
+            f"equal to plain, two launches bit-equal"
+            f"{', with_ok=False the same m' if n == 1 else ''}; "
+            f"{int(got[1].sum())} ok of {n * C * O}")
+        out[name] = args
+    return out
 
 
 def scan_twice(torch, args, K, emit, what, want=None):
@@ -698,6 +792,14 @@ def timings(torch, card, pods, catalog, pools, prob, ex):
           f"the decoded solve's trace shows K3 as {k3 + earlier}")
     log(f"[trace] decoded solve: K3 is one kernel in the trace: {k3[0]!r} "
         f"({len(busy['names'])} kernel names in all)")
+    # K1's tile kernel on the decoded solve, K4's cluster kernel on the
+    # aggregate solve: no kernel of their earlier designs
+    trace_kernel(torch, card, "decoded solve", lambda: cp.solve_classpack(
+        prob, guide=None), "classpack_precompute", "precompute_tile_kernel",
+        ("precompute_kernel",))
+    trace_kernel(torch, card, "aggregate solve", lambda: cp.solve_classpack(
+        prob, guide=None, decode=False), "classpack_aggregate",
+        "aggregate_cluster_kernel", ("aggregate_kernel",))
     return out
 
 
@@ -1253,9 +1355,34 @@ def shard_scan_counts(s):
             for i in range(cnt.shape[0])]
 
 
-def kernel_table(torch, card, shapes, launches_by_path, err):
+FLOOR_MS = None   # the empty launch's card time (`launch_floor`)
+
+
+def launch_floor(torch, card):
+    """The card's time for a near-empty kernel on `card_ms`'s measure
+    (torch.cuda._sleep(0): one launch that spins no cycle), the floor under
+    which no kernel of the table can go; logged on a [probe] line once."""
+    global FLOOR_MS
+    if FLOOR_MS is None:
+        FLOOR_MS = card_ms(torch, lambda: torch.cuda._sleep(0), 50)
+        log(f"[probe] empty launch: card_ms {FLOOR_MS:.4f} ms "
+            f"(torch.cuda._sleep(0), 50 calls queued behind a spinning "
+            f"kernel) on {card}")
+    return FLOOR_MS
+
+
+def k1_bytes_ops(n, C, O, R, with_ok=True):
+    """K1's bytes (each input once, a shared catalog once, m and ok written
+    once) and operations (2R + 4 a class and option) at (n, C, O, R)."""
+    nbytes = (n * (C * R * 4 + C * 4 + C * ((O + 7) // 8)) + O * R * 4
+              + O * 8 + n * C * O * (5 if with_ok else 4))
+    return nbytes, n * C * O * (2 * R + 4)
+
+
+def kernel_table(torch, card, shapes, launches_by_path, err, k1_inputs):
     from karpenter_tpu_torch.ops import classpack_kernels as ck
     s = shapes
+    floor = launch_floor(torch, card)
     C, R = s["req"].shape
     O = s["price"].shape[0]
     K, Ppad = s["K"], s["Ppad"]
@@ -1278,19 +1405,44 @@ def kernel_table(torch, card, shapes, launches_by_path, err):
             max_abs_err=err[name], ms=ms, host_ms=host_ms,
             plain_ms=plain_ms, bound_ms=max(t_b, t_o),
             bound_by="bytes" if t_b >= t_o else "operations",
-            library_ms=lib_ms))
+            library_ms=lib_ms, floor_ms=floor))
         log(f"[kernel] {name}: {ms:.4f} ms on the card (back-to-back host "
             f"rate {host_ms:.4f} ms; plain {plain_ms:.3f} ms, "
             f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
             f"bound {max(t_b, t_o) * 1e3:.3f} us by "
-            f"{'bytes' if t_b >= t_o else 'operations'}) on {card}")
+            f"{'bytes' if t_b >= t_o else 'operations'}: "
+            f"{ms / max(t_b, t_o):.2f}x the bound, {ms / floor:.2f}x the "
+            f"empty launch) on {card}")
 
     args1 = (s["req"], s["cap"], s["packed"], s["alloc"], s["price"], s["rank"])
     row("classpack_precompute", "karpenter_tpu/ops/classpack.py:75",
         lambda: ck.classpack_precompute(*args1),
         lambda: ck.classpack_precompute_plain(*args1), None,
-        C * R * 4 + C * 4 + C * OB + O * R * 4 + O * 8 + C * O * 5,
-        C * O * (2 * R + 4), 20)
+        *k1_bytes_ops(1, C, O, R), 20)
+    # K1 at each main path's shape (seeded inputs, phase 3), and for m alone
+    k1 = rows[-1]
+    k1["shapes"] = {}
+    dev = torch.device("cuda")
+    for name, args in k1_inputs.items():
+        n_, C_, O_, R_ = K1_PATH_SHAPES[name]
+        fn = ck.classpack_precompute if n_ == 1 else \
+            ck.classpack_precompute_sharded
+        entry = {}
+        for with_ok in ((True, False) if n_ == 1 else (True,)):
+            kw = {} if with_ok else dict(with_ok=False)
+            ms = card_ms(torch, lambda: fn(*args, **kw), 20)
+            b_, o_ = k1_bytes_ops(n_, C_, O_, R_, with_ok)
+            bound = max(b_ / MEM_BW, o_ / F32_PEAK) * 1e3
+            entry["ms" if with_ok else "m_only_ms"] = ms
+            entry["bound_ms" if with_ok else "m_only_bound_ms"] = bound
+            log(f"[kernel] classpack_precompute at {name} (n={n_}, C={C_}, "
+                f"O={O_}, R={R_}{'' if with_ok else ', m only'}): {ms:.4f} ms "
+                f"on the card, bound {bound * 1e3:.3f} us by bytes "
+                f"({ms / bound:.2f}x), {ms / floor:.2f}x the empty launch "
+                f"({floor:.4f} ms); plan "
+                f"{ck.precompute_plan_for(dev, C_, O_, R_, n_)} on {card}")
+        entry["floor_ms"] = floor
+        k1["shapes"][name] = entry
     args2 = (s["req"], s["cnt"], s["packed"], s["cap"], s["alloc"],
              s["price"], s["m"], s["ok"], None, None, K, True)
     n_open = int(s["n_open"])
@@ -1337,7 +1489,61 @@ def kernel_table(torch, card, shapes, launches_by_path, err):
         # input's max back)
         lambda: torch.zeros(O, device=w.device).scatter_add_(0, opt, w),
         K * 4 + O * 4 + 8 + (3 + O) * 4, K * 3, 50)
+    rows[-1]["plan"] = str(ck.aggregate_plan_for(torch.device("cuda"), K, O,
+                                                 1))
+    plan_alternatives(torch, card, args1, (s["slot_option"], s["price"],
+                                           s["n_open"], s["n_unsched"]))
     return rows
+
+
+def plan_alternatives(torch, card, k1_args, k4_args):
+    """K1 and K4 at the headline's inputs under their plans' own layouts
+    and under others (forced for the measurement only): the card time and
+    the back-to-back host rate of each, the numbers behind the plans'
+    rules (a smaller cluster, fewer CTAs, the staging)."""
+    import dataclasses
+    from karpenter_tpu_torch.ops import classpack_kernels as ck
+    dev = torch.device("cuda")
+    C, R = k1_args[0].shape
+    O = k1_args[3].shape[0]
+    K = k4_args[0].shape[0]
+    own = ck.precompute_plan_for(dev, C, O, R, 1)
+    alts = [own, dataclasses.replace(own, stage=False,
+                                     smem=ck.precompute_smem_bytes(
+                                         R, own.options, False, own.classes,
+                                         own.threads))]
+    for cs, T, ct in ((2, 512, 4), (4, 256, 4), (8, 128, 4), (1, 1024, 1)):
+        if cs * 4 * T >= O > (cs - 1) * 4 * T:
+            alts.append(ck.PrecomputePlan(
+                classes=ct, options=4 * T, cluster=cs, threads=T, groups=1,
+                stage=True, smem=ck.precompute_smem_bytes(R, 4 * T, True, ct,
+                                                          T)))
+    real = ck.precompute_plan_for
+    try:
+        for plan in alts:
+            ck.precompute_plan_for = lambda *a, **k: plan
+            ms = card_ms(torch, lambda: ck.classpack_precompute(*k1_args), 20)
+            host = event_ms(torch, lambda: ck.classpack_precompute(*k1_args),
+                            100)
+            log(f"[time] K1 headline under {plan}{' (its own)' if plan == own else ''}: "
+                f"{ms:.4f} ms on the card, host rate {host:.4f} ms on {card}")
+    finally:
+        ck.precompute_plan_for = real
+    own4 = ck.aggregate_plan_for(dev, K, O, 1)
+    real4 = ck.aggregate_plan_for
+    try:
+        for cs in (1, 2, 4, 8, 16):
+            plan = ck.AggregatePlan(cluster=cs, threads=own4.threads,
+                                    per_cta=-(-K // cs), smem=own4.smem)
+            ck.aggregate_plan_for = lambda *a, **k: plan
+            ms = card_ms(torch, lambda: ck.classpack_aggregate(*k4_args), 50)
+            host = event_ms(torch, lambda: ck.classpack_aggregate(*k4_args),
+                            100)
+            log(f"[time] K4 headline in clusters of {cs}"
+                f"{' (its own)' if plan == own4 else ''}: {ms:.4f} ms on the "
+                f"card, host rate {host:.4f} ms on {card}")
+    finally:
+        ck.aggregate_plan_for = real4
 
 
 # ---------------------------------------------------------------------------
@@ -3181,7 +3387,7 @@ def sharded_kernel_rows(torch, card, caps, cases, by_path, err):
             launches_by_path=paths(name), max_abs_err=err[name], ms=ms,
             host_ms=host_ms, plain_ms=plain_ms, bound_ms=max(t_b, t_o),
             bound_by="bytes" if t_b >= t_o else "operations",
-            library_ms=lib_ms, serial_ms=ser_ms))
+            library_ms=lib_ms, serial_ms=ser_ms, floor_ms=FLOOR_MS))
         if name == "classpack_scan_sharded":
             # the restated bound: the shards' class steps, each at least
             # the card's least step (`scan_bound`)
@@ -3203,7 +3409,9 @@ def sharded_kernel_rows(torch, card, caps, cases, by_path, err):
             f"plain {plain_ms:.3f} ms, library "
             f"{'None' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
             f"{max(t_b, t_o) * 1e3:.3f} us by "
-            f"{'bytes' if t_b >= t_o else 'operations'}) at Cpad="
+            f"{'bytes' if t_b >= t_o else 'operations'}: "
+            f"{ms / max(t_b, t_o):.2f}x the bound, {ms / FLOOR_MS:.2f}x the "
+            f"empty launch) at Cpad="
             f"{sc['req'].shape[1]} Opad={sc['price'].shape[0]} K={sc['K']} "
             f"Ppad={sc['Ppad']} on {card}")
     # the five programs (rows 13-17), whole, at their paths' inputs
@@ -3291,6 +3499,7 @@ def main() -> int:
     pods, catalog, pools, problem = headline_problem()
     ex = existing(problem)
     err, shapes = compare_kernels(torch, problem, ex)
+    k1_inputs = compare_precompute_shapes(torch)
     compare_scan_edges(torch, problem)
     compare_assign_decode(torch)
     firsts = compare_sweeps(torch, err)
@@ -3313,7 +3522,7 @@ def main() -> int:
         f"({time.perf_counter() - t_start:.1f} s so far)")
     log(f"[main] launches of each main path's run: {by_path}")
     k5_ms = sweep_call_times(torch, card, firsts)
-    rows = kernel_table(torch, card, shapes, by_path, err)
+    rows = kernel_table(torch, card, shapes, by_path, err, k1_inputs)
     frontier = "delete face, first frontier"
     rows.append(sweep_row(torch, card, firsts[frontier], k5_ms[frontier],
                           by_path, err))

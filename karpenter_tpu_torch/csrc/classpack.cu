@@ -15,8 +15,8 @@
 // The shard axis.  shard_map runs n copies of the single-device program on
 // their own slices with the catalog replicated; here K1-K4 and K6 take a
 // shard count n and run it as one launch, the shard as a grid axis
-// (blockIdx.y; one cluster of CTAs per shard for K2, one block per shard
-// for K4).  Shard s reads its inputs at base + s * stride
+// (blockIdx.y, or blockIdx.z for K1; one cluster of CTAs per shard for K2
+// and K4).  Shard s reads its inputs at base + s * stride
 // (ShardStrides; a stride of 0 shares one copy, as the replicated operands
 // of rows 13-14 are shared) and writes its own outputs and scratch at
 // base + s * (the output's size).  The single-device programs are the same
@@ -35,6 +35,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -111,63 +112,6 @@ __device__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_buf,
   unsigned before = warp ? warp_buf[warp - 1] : 0u;
   *total = warp_buf[nwarps - 1];
   return before + x - v;
-}
-
-// ---------------------------------------------------------------------------
-// K1 classpack_precompute  (replaces ops/classpack.py class_pack_kernel
-// :75-85, the per-(class x option) precompute hoisted out of the scan)
-//
-// One block per (class, shard), threads stride over options.  m[c,o] = pods
-// of class c a fresh option-o node holds; ok[c,o] = launchable and compatible, then
-// restricted to the class's best pool-weight rank.  Bound on this card:
-// bytes (it writes 5 bytes per (class, option) and does ~R integer divides
-// for each); the design reads each packed compat byte and each option row
-// straight from L2 and writes m/ok coalesced along options.
-// ---------------------------------------------------------------------------
-__global__ void precompute_kernel(const int* __restrict__ req,
-                                  const int* __restrict__ node_cap,
-                                  const uint8_t* __restrict__ compat_packed,
-                                  const int* __restrict__ alloc,
-                                  const float* __restrict__ price,
-                                  const int* __restrict__ rank, int C, int O,
-                                  int R, int OB, ShardStrides ss,
-                                  int* __restrict__ m_out,
-                                  uint8_t* __restrict__ ok_out) {
-  __shared__ int s_req[kMaxR];
-  __shared__ int s_best;
-  const int c = blockIdx.x;
-  const long long sh = blockIdx.y;
-  req += sh * ss.req;
-  node_cap += sh * ss.cap;
-  compat_packed += sh * ss.compat;
-  m_out += sh * C * O;
-  ok_out += sh * C * O;
-  if (threadIdx.x < R) s_req[threadIdx.x] = req[(size_t)c * R + threadIdx.x];
-  if (threadIdx.x == 0) s_best = kBig;
-  __syncthreads();
-  const int cap = node_cap[c];
-  const uint8_t* crow = compat_packed + (size_t)c * OB;
-  int best = kBig;
-  for (int o = threadIdx.x; o < O; o += blockDim.x) {
-    int m = kBig;
-    for (int r = 0; r < R; ++r) {
-      const int q = s_req[r];
-      if (q > 0) m = min(m, floordiv(alloc[(size_t)o * R + r], q));
-    }
-    m = min(m, cap);
-    const bool ok = compat_bit(crow, o) && m > 0 && isfinite(price[o]);
-    m_out[(size_t)c * O + o] = m;
-    ok_out[(size_t)c * O + o] = ok ? 1 : 0;
-    if (ok) best = min(best, rank[o]);
-  }
-  atomicMin(&s_best, best);
-  __syncthreads();
-  best = s_best;
-  for (int o = threadIdx.x; o < O; o += blockDim.x) {
-    // each thread re-reads only what it wrote itself
-    if (ok_out[(size_t)c * O + o] && rank[o] != best)
-      ok_out[(size_t)c * O + o] = 0;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -658,6 +602,302 @@ __device__ __forceinline__ void stage_rows(const ClassBuf& b, u64* bar,
 }
 
 // ---------------------------------------------------------------------------
+// For K1 and K4: cluster barriers split in two (arrive, then wait), loads
+// from another CTA's shared memory, and 4-byte asynchronous copies from
+// global to shared memory (cp.async: a loop issues every copy without
+// waiting on any; cp_async_wait_all waits for all of this thread's).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_cluster(const void* p, unsigned rank) {
+  unsigned v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(mapa(p, rank))
+               : "memory");
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// K1 classpack_precompute  (replaces ops/classpack.py class_pack_kernel
+// :75-85, the per-(class x option) precompute hoisted out of the scan)
+//
+// m[c,o] = pods of class c a fresh option-o node holds; ok[c,o] =
+// launchable and compatible, then restricted to the class's best
+// pool-weight rank.  Bound on this card: bytes (5 written per (class,
+// option)), a few microseconds at the main paths' shapes, so what a launch
+// pays is the divisions, the catalog reads and the rank reduction.  The
+// host's precompute_plan cuts the C x O work into tiles of `ct` classes x
+// `ot` options (grid x: class tiles; grid y: the cs CTAs of a cluster,
+// along the options; grid z: the shard):
+//   * one catalog read a tile: the CTA stages its options' alloc rows once
+//     (cp.async, stored axis-major [r][o] with a row pad, so a thread reads
+//     its 4 options of one axis as one 16-byte word) and reuses them over
+//     its classes; each thread keeps its options' ranks and finiteness in
+//     registers;
+//   * divisors once a class: its positive axes' multipliers (K2's
+//     set_class / magic_of), so a division is a 32-bit multiply-high and a
+//     shift (floordiv_magic32); the axes with a request <= 0 are skipped,
+//     as the reference masks them;
+//   * thread t owns G groups of 4 consecutive options (group g at
+//     4 (t + g T)): m and ok go out as 16- and 4-byte stores, a warp's
+//     lanes on one run (scalar stores on a ragged row, O % 4 != 0);
+//   * the best rank on chip: each thread's ranks stay in registers and its
+//     ok bits in one word of shared memory a class; a class's minimum of
+//     where(ok, rank, BIG) is a redux.sync a warp, a pass over the warps
+//     and, where the class's options span the cs CTAs of a cluster, an
+//     exchange of the CTAs' minima in distributed shared memory; then ok is
+//     written once.  with_ok = 0 (the sweep, which reads only m) computes
+//     and writes no ok and takes no reduction;
+//   * small code: the classes run in a loop that is not unrolled (each
+//     class's code runs once a launch; the unrolled form measured slower on
+//     an H100) and the staging is cp.async, with no register round trip.
+// ---------------------------------------------------------------------------
+constexpr int kPreMaxThreads = 1024;
+constexpr int kPreMaxClasses = 8;   // classes a tile
+
+// K1's floor division by a class's request through its multiplier (K2's
+// magic_of), in 32-bit steps: for 0 <= x < 2^31 and shift = 32 + s >= 32,
+// x / q = umulhi(x, m) >> s exactly (Granlund and Montgomery's theorem
+// for 31-bit numerators, m = ceil(2^shift / q)); a request of 1 (shift
+// 31) takes m = 0, s = 0 and adds x itself (`add`, all ones for it, else
+// zero).  A negative a is floored through x = ~a = -1 - a, and the
+// quotient's bits flipped back.  The host's floordiv_magic_np repeats
+// these steps.
+struct Magic32 {
+  unsigned m, add;
+  int s;
+};
+
+__device__ __forceinline__ Magic32 magic32_of(const Magic& g) {
+  Magic32 h;
+  h.m = g.shift == 31 ? 0u : g.m;
+  h.add = g.shift == 31 ? 0xffffffffu : 0u;
+  h.s = g.shift == 31 ? 0 : g.shift - 32;
+  return h;
+}
+
+__device__ __forceinline__ int floordiv_magic32(int a, const Magic32& h) {
+  const unsigned sign = (unsigned)(a >> 31);  // all ones for a < 0
+  const unsigned x = (unsigned)a ^ sign;
+  return (int)(((__umulhi(x, h.m) + (x & h.add)) >> h.s) ^ sign);
+}
+
+struct PrecomputeArgs {
+  const int* req;
+  const int* node_cap;
+  const uint8_t* compat;
+  const int* alloc;
+  const float* price;
+  const int* rank;
+  int C, O, R, OB;
+  int ct;       // classes a tile
+  int ot;       // options a CTA: 4 * G * threads
+  int stage;    // alloc rows staged in shared memory (else read in place)
+  int with_ok;
+  int vec;      // O % 4 == 0 and aligned outputs: vector stores
+  ShardStrides ss;
+  int* m_out;
+  uint8_t* ok_out;
+};
+
+template <int G>
+__global__ void __launch_bounds__(kPreMaxThreads)
+precompute_tile_kernel(const PrecomputeArgs a) {
+  // dynamic: ct x T words of ok bits, then (staged) the R x (ot + 4) slice
+  extern __shared__ __align__(16) int s_pre[];
+  __shared__ ClassAxes s_cls[kPreMaxClasses];
+  __shared__ int s_wmin[kPreMaxClasses * 32];
+  __shared__ int s_min[kPreMaxClasses];   // this CTA's minima
+  __shared__ int s_best[kPreMaxClasses];  // the classes' best ranks
+  const int T = blockDim.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nwarps = T >> 5, cs = gridDim.y, crank = blockIdx.y;
+  const long long sh = blockIdx.z;
+  const int c0 = blockIdx.x * a.ct, nc = min(a.ct, a.C - c0);
+  const int o_lo = crank * a.ot, nvalid = max(0, min(a.ot, a.O - o_lo));
+  const int ld = a.ot + 4;
+  unsigned* s_bits = reinterpret_cast<unsigned*>(s_pre);
+  int* s_alloc = s_pre + a.ct * T;
+  const int* req = a.req + sh * a.ss.req;
+  const int* node_cap = a.node_cap + sh * a.ss.cap;
+  const uint8_t* compat = a.compat + sh * a.ss.compat;
+  const long long base = sh * (long long)a.C * a.O + o_lo;
+  // the catalog slice by cp.async, the transpose to axis-major in the
+  // copies' addresses (option o's axis r at r * ld + o, ld = ot + 4: a
+  // warp's lanes write consecutive words); the loop issues every copy
+  // without waiting on any
+  if (a.stage) {
+    const int* src = a.alloc + (size_t)o_lo * a.R;
+    for (int o = t; o < nvalid; o += T)
+      for (int r = 0; r < a.R; ++r)
+        cp_async4(s_alloc + r * ld + o, src + (size_t)o * a.R + r);
+  }
+  // the tile's classes: warp w sets up classes w, w + nwarps, ...
+  for (int i = warp; i < nc; i += nwarps) {
+    const int c = c0 + i;
+    const int q = lane < a.R ? __ldg(req + (size_t)c * a.R + lane) : 0;
+    set_class(&s_cls[i], q, a.R, __ldg(node_cap + c));
+  }
+  int rk[G][4];
+  unsigned fin = 0;  // bit 4g + v: option (g, v) exists and its price is finite
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int oi = 4 * (t + g * T) + v;
+      const bool here = a.with_ok && oi < nvalid;
+      rk[g][v] = here ? __ldg(a.rank + o_lo + oi) : 0;
+      if (here && isfinite(__ldg(a.price + o_lo + oi)))
+        fin |= 1u << (4 * g + v);
+    }
+  if (a.stage) cp_async_wait_all();
+  __syncthreads();
+  // one class at a time (a loop, not unrolled)
+#pragma unroll 1
+  for (int i = 0; i < nc; ++i) {
+    const ClassAxes& ca = s_cls[i];
+    const int c = c0 + i;
+    // this class's compat nibbles, loaded ahead of the divisions
+    unsigned nib = 0;
+    if (a.with_ok) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int o = o_lo + 4 * (t + g * T);
+        if (o < o_lo + nvalid)
+          nib |= ((__ldg(compat + (size_t)c * a.OB + (o >> 3)) >>
+                   (4 - (o & 4))) & 0xfu) << (4 * g);
+      }
+    }
+    int m[G][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) m[g][v] = kBig;
+    const int nax = ca.nax;
+    for (int z = 0; z < nax; ++z) {
+      const int r = ca.ax[z];
+      const Magic32 mg = magic32_of(ca.mg[z]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int oi = 4 * (t + g * T);
+        if (oi >= nvalid) break;
+        int4 al;
+        if (a.stage) {
+          al = *reinterpret_cast<const int4*>(s_alloc + r * ld + oi);
+        } else {
+          const int* p = a.alloc + (size_t)(o_lo + oi) * a.R + r;
+          const int left = nvalid - oi;
+          al.x = __ldg(p);
+          al.y = left > 1 ? __ldg(p + a.R) : 0;
+          al.z = left > 2 ? __ldg(p + 2 * a.R) : 0;
+          al.w = left > 3 ? __ldg(p + 3 * a.R) : 0;
+        }
+        m[g][0] = min(m[g][0], floordiv_magic32(al.x, mg));
+        m[g][1] = min(m[g][1], floordiv_magic32(al.y, mg));
+        m[g][2] = min(m[g][2], floordiv_magic32(al.z, mg));
+        m[g][3] = min(m[g][3], floordiv_magic32(al.w, mg));
+      }
+    }
+    int tmin = INT_MAX;
+    unsigned bits = 0;  // bit 4g + v: ok before the rank filter
+    int* mrow = a.m_out + base + (size_t)c * a.O;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int oi = 4 * (t + g * T);
+      if (oi >= nvalid) break;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) m[g][v] = min(m[g][v], ca.cap);
+      if (a.vec && oi + 4 <= nvalid) {
+        *reinterpret_cast<int4*>(mrow + oi) =
+            make_int4(m[g][0], m[g][1], m[g][2], m[g][3]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (oi + v < nvalid) mrow[oi + v] = m[g][v];
+      }
+      if (a.with_ok) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if (oi + v >= nvalid) break;
+          const bool ok = ((fin >> (4 * g + v)) & 1u) &&
+                          ((nib >> (4 * g + 3 - v)) & 1u) && m[g][v] > 0;
+          bits |= (unsigned)ok << (4 * g + v);
+          tmin = min(tmin, ok ? rk[g][v] : kBig);
+        }
+      }
+    }
+    if (a.with_ok) {
+      s_bits[i * T + t] = bits;
+      tmin = __reduce_min_sync(0xffffffffu, tmin);
+      if (lane == 0) s_wmin[i * 32 + warp] = tmin;
+    }
+  }
+  if (!a.with_ok) return;
+  __syncthreads();
+  if (t < nc) {
+    int v = INT_MAX;
+    for (int w = 0; w < nwarps; ++w) v = min(v, s_wmin[t * 32 + w]);
+    s_min[t] = v;
+  }
+  if (cs > 1) {
+    cluster_arrive();  // this CTA's minima are written
+    cluster_wait();
+    if (t < nc) {
+      int v = INT_MAX;
+      for (int r = 0; r < cs; ++r) v = min(v, (int)ld_cluster(s_min + t, r));
+      s_best[t] = v;
+    }
+    cluster_arrive();  // ... and read; the wait is at the end
+  } else if (t < nc) {
+    s_best[t] = s_min[t];
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int i = 0; i < nc; ++i) {
+    const int best = s_best[i];
+    const unsigned bits = s_bits[i * T + t];
+    uint8_t* orow = a.ok_out + base + (size_t)(c0 + i) * a.O;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int oi = 4 * (t + g * T);
+      if (oi >= nvalid) break;
+      unsigned word = 0;
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        if (((bits >> (4 * g + v)) & 1u) && rk[g][v] == best)
+          word |= 1u << (8 * v);
+      if (a.vec && oi + 4 <= nvalid) {
+        *reinterpret_cast<unsigned*>(orow + oi) = word;
+      } else {
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (oi + v < nvalid) orow[oi + v] = (uint8_t)((word >> (8 * v)) & 1u);
+      }
+    }
+  }
+  // no CTA leaves while another of its cluster may still read its minima
+  if (cs > 1) cluster_wait();
+}
+
+// ---------------------------------------------------------------------------
 // K2 classpack_scan  (replaces ops/classpack.py class_pack_kernel :87-152,
 // the lax.scan over classes; the _fresh variants build the all-closed init
 // state in-kernel)
@@ -1090,52 +1330,137 @@ assign_decode_kernel(const int* __restrict__ takes,
 // K4 classpack_aggregate  (replaces ops/classpack.py
 // class_pack_aggregate_kernel :169-178)
 //
-// One block per shard: an exact integer histogram of launched slots per
-// option in shared memory, and the float32 sum of their prices (thread partials, then
-// a fixed-order tree, so the result is deterministic).  Output layout
-// [total_cost, n_open, n_unsched, nodes_per_option...] as float32.  Bound on
-// this card: bytes, and at 64 KB of input it is launch latency in practice.
+// Output layout [total_cost, n_open, n_unsched, nodes_per_option...] as
+// float32, one row per shard.  Bound on this card: bytes (64 KB at the
+// headline), far below a launch; what a launch pays past its floor is the
+// histogram's shared-memory atomics and the reductions' barriers.  One
+// cluster of cs CTAs per shard (grid (cs, n); the host's aggregate_plan
+// sizes it from K and O) splits the K slots into runs of `per`:
+//   * each CTA counts its run into a histogram of all O options in its own
+//     shared memory: a thread reads kAggBatch slots and their prices before
+//     counting any (the loads in flight together), and the lanes of a warp
+//     that hold one option add once (__match_any_sync); since the scan
+//     opens a class's new slots as one run of one option, a warp mostly
+//     makes one add.  Each slot is read from HBM once; staging the run and
+//     the prices in shared memory first (cp.async, TMA) measured no faster;
+//   * the CTAs' histograms are summed through distributed shared memory,
+//     each CTA writing its ceil(O / cs) share of the bins (exact integers);
+//   * the cost is a float32 sum in a fixed order: each thread's slots in
+//     order, a butterfly of warp shuffles, the warps' partials by a
+//     butterfly on warp 0, then the CTAs' partials in rank order on rank 0.
+//     A plan gives the same bits on every launch; the host's
+//     aggregate_sum_model repeats the order.
 // ---------------------------------------------------------------------------
-constexpr int kAggThreads = 1024;
+constexpr int kAggMaxThreads = 1024;
+constexpr int kAggBatch = 4;   // slots a thread reads before counting them
 
-__global__ void __launch_bounds__(kAggThreads)
-aggregate_kernel(const int* __restrict__ slot_option,
-                 const float* __restrict__ price,
-                 const int* __restrict__ n_open,
-                 const int* __restrict__ n_unsched, long long sc_ss, int K,
-                 int O, float* __restrict__ out) {
-  extern __shared__ int s_hist[];
-  __shared__ float s_part[kAggThreads];
-  const long long sh = blockIdx.x;
-  slot_option += sh * K;
-  n_open += sh * sc_ss;
-  n_unsched += sh * sc_ss;
-  out += sh * (3 + O);
-  for (int o = threadIdx.x; o < O; o += blockDim.x) s_hist[o] = 0;
+
+struct AggregateArgs {
+  const int* slot_option;
+  const float* price;
+  const int* n_open;
+  const int* n_unsched;
+  long long sc_ss;
+  int K, O;
+  int per;    // slots a CTA
+  float* out;
+};
+
+__global__ void __launch_bounds__(kAggMaxThreads)
+aggregate_cluster_kernel(const AggregateArgs a) {
+  extern __shared__ __align__(16) int s_hist[];  // O bins
+  __shared__ float s_wsum[32];
+  __shared__ float s_part;
+  const int T = blockDim.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nwarps = T >> 5, cs = gridDim.x, rank = blockIdx.x;
+  const long long sh = blockIdx.y;
+  // the header's scalars, loaded first (volatile: issued here, not where
+  // rank 0's thread 0 writes them at the end)
+  const bool head = rank == 0 && t == 0;
+  const int n_open =
+      head ? *(const volatile int*)(a.n_open + sh * a.sc_ss) : 0;
+  const int n_unsched =
+      head ? *(const volatile int*)(a.n_unsched + sh * a.sc_ss) : 0;
+  const int k_lo = rank * a.per;
+  const int cnt = max(0, min(a.per, a.K - k_lo));
+  const int* run = a.slot_option + sh * a.K + k_lo;
+  for (int o = t; o < a.O; o += T) s_hist[o] = 0;
   __syncthreads();
+  // kAggBatch slots a thread at a time, read before any is counted;
+  // thread t adds its slots t, t + T, ... in order
   float acc = 0.0f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const int opt = slot_option[k];
-    if (opt >= 0) {
-      const float p = price[opt];
-      if (isfinite(p)) {
-        atomicAdd(&s_hist[opt], 1);
-        acc += p;
-      }
+  for (int k0 = 0; k0 < cnt; k0 += kAggBatch * T) {
+    int key[kAggBatch];
+    float p[kAggBatch];
+#pragma unroll
+    for (int u = 0; u < kAggBatch; ++u) {
+      const int k = k0 + u * T + t;
+      key[u] = k < cnt ? __ldg(run + k) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kAggBatch; ++u)
+      p[u] = key[u] >= 0 ? __ldg(a.price + key[u]) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < kAggBatch; ++u) {
+      if (key[u] >= 0 && isfinite(p[u]))
+        acc = __fadd_rn(acc, p[u]);
+      else
+        key[u] = -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, key[u]);
+      if (key[u] >= 0 && (peers & ((1u << lane) - 1u)) == 0)
+        atomicAdd(&s_hist[key[u]], __popc(peers));
     }
   }
-  s_part[threadIdx.x] = acc;
+#pragma unroll
+  for (int d = 16; d; d >>= 1)
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, d));
+  if (lane == 0) s_wsum[warp] = acc;
   __syncthreads();
-  for (int w = blockDim.x >> 1; w > 0; w >>= 1) {
-    if (threadIdx.x < w) s_part[threadIdx.x] += s_part[threadIdx.x + w];
+  if (warp == 0) {
+    float w = lane < nwarps ? s_wsum[lane] : 0.0f;
+#pragma unroll
+    for (int d = 16; d; d >>= 1)
+      w = __fadd_rn(w, __shfl_xor_sync(0xffffffffu, w, d));
+    if (lane == 0) s_part = w;
+  }
+  if (cs > 1) {
+    cluster_arrive();  // every CTA's histogram and partial are complete
+    cluster_wait();
+  } else {
     __syncthreads();
   }
-  for (int o = threadIdx.x; o < O; o += blockDim.x)
-    out[3 + o] = (float)s_hist[o];
-  if (threadIdx.x == 0) {
-    out[0] = s_part[0];
-    out[1] = (float)*n_open;
-    out[2] = (float)*n_unsched;
+  float* out = a.out + sh * (3ll + a.O);
+  const int ob = (a.O + cs - 1) / cs;
+  const int o0 = min(a.O, rank * ob), o1 = min(a.O, o0 + ob);
+  if (cs == 1) {
+    for (int o = t; o < a.O; o += T) out[3 + o] = (float)s_hist[o];
+  } else {
+    for (int o = o0 + t; o < o1; o += T) {
+      int v = 0;  // every CTA's count, its own too (integers: any order)
+#pragma unroll 4
+      for (int r = 0; r < cs; ++r) v += (int)ld_cluster(s_hist + o, r);
+      out[3 + o] = (float)v;
+    }
+  }
+  if (head) {
+    // the other CTAs' partials, all loaded before they are added in rank
+    // order
+    unsigned part[kMaxCluster];
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r)
+      part[r] = r < cs ? ld_cluster(&s_part, r) : 0u;
+    float total = s_part;
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r)
+      if (r < cs) total = __fadd_rn(total, __uint_as_float(part[r]));
+    out[0] = total;
+    out[1] = (float)n_open;
+    out[2] = (float)n_unsched;
+  }
+  // no CTA leaves while another may still read its bins
+  if (cs > 1) {
+    cluster_arrive();
+    cluster_wait();
   }
 }
 
@@ -1916,6 +2241,83 @@ cudaError_t with_s(int S, F fn) {
   return cudaErrorInvalidValue;
 }
 
+// K1's and K4's shared-memory attribute, for a launch or a query: raised to
+// a carve past the default 48 KB, never set below it (a query for a small
+// carve must not refuse a later launch of a larger one that sets nothing).
+template <typename Kern>
+cudaError_t raise_attrs(Kern kern, int cs, size_t smem) {
+  return cluster_attrs(kern, cs, smem > 48 * 1024 ? smem : 48 * 1024);
+}
+
+// A launch of K1's tile kernel: grid (class tiles, cs, n), clusters of cs
+// CTAs along y (the options); `always` asks for the cluster attribute at
+// cs = 1 too, as the occupancy query does.
+struct TileLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  TileLaunch(int tiles, int cs, int n, int T, size_t smem,
+             cudaStream_t stream, bool always) {
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(tiles, cs, n);
+    cfg.blockDim = dim3(T, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = cs;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = (cs > 1 || always) ? 1 : 0;
+  }
+};
+
+template <int G>
+cudaError_t launch_precompute(const PrecomputeArgs& a, int tiles, int cs,
+                              int n, int T, size_t smem,
+                              cudaStream_t stream) {
+  cudaError_t err;
+  if (smem > 48 * 1024 || cs > 8) {
+    err = raise_attrs(precompute_tile_kernel<G>, cs, smem);
+    if (err != cudaSuccess) return err;
+  }
+  TileLaunch l(tiles, cs, n, T, smem, stream, false);
+  err = cudaLaunchKernelEx(&l.cfg, precompute_tile_kernel<G>, a);
+  if (err != cudaSuccess) return refused(err);
+  return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t precompute_clusters(int cs, int T, size_t smem, int* out) {
+  cudaError_t err = raise_attrs(precompute_tile_kernel<G>, cs, smem);
+  if (err != cudaSuccess) return err;
+  TileLaunch l(1, cs, 1, T, smem, nullptr, true);
+  return refused(cudaOccupancyMaxActiveClusters(
+      out, precompute_tile_kernel<G>, &l.cfg));
+}
+
+// The G instantiation of K1's tile kernel (groups of 4 options a thread).
+template <typename F>
+cudaError_t with_g(int G, F fn) {
+  switch (G) {
+    case 1: return fn(std::integral_constant<int, 1>());
+    case 2: return fn(std::integral_constant<int, 2>());
+    case 4: return fn(std::integral_constant<int, 4>());
+    case 8: return fn(std::integral_constant<int, 8>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool valid_tile(int cs, int T) {
+  return cs >= 1 && cs <= kMaxCluster && T >= 32 && T <= kPreMaxThreads &&
+         T % 32 == 0;
+}
+
+bool valid_aggregate(int cs, int T) {
+  return cs >= 1 && cs <= kMaxCluster && T >= 32 && T <= kAggMaxThreads &&
+         T % 32 == 0;
+}
+
+
 }  // namespace
 
 extern "C" {
@@ -1929,18 +2331,51 @@ int kp_max_slots() { return kScanThreads * 32; }
 
 // n shards (n = 1: the single-device program); ss: 8 per-shard strides in
 // ShardStrides order (req, compat and cap read here), or null for n = 1.
-// m_out / ok_out: n x C x O.
+// The plan (the host's precompute_plan): tiles of ct classes, clusters of
+// cs CTAs of T threads along the options, each thread G groups of 4
+// options (a CTA's options: 4 G T, and cs of them cover O), the alloc rows
+// staged in shared memory or read in place, `smem` dynamic bytes (checked
+// against the kernel's carve).  m_out: n x C x O; ok_out: n x C x O, or
+// null when !with_ok (then no ok is computed).
 cudaError_t kp_precompute(const int* req, const int* node_cap,
                           const uint8_t* compat_packed, const int* alloc,
                           const float* price, const int* rank, int n, int C,
-                          int O, int R, const long long* ss, int* m_out,
-                          uint8_t* ok_out, cudaStream_t stream) {
-  if (R > kMaxR || C <= 0 || n <= 0 || n > 65535) return cudaErrorInvalidValue;
-  const int OB = (O + 7) / 8;
-  precompute_kernel<<<dim3(C, n), 256, 0, stream>>>(
-      req, node_cap, compat_packed, alloc, price, rank, C, O, R, OB,
-      strides_from(ss), m_out, ok_out);
-  return cudaGetLastError();
+                          int O, int R, const long long* ss, int ct, int cs,
+                          int T, int G, int stage, int with_ok, int smem,
+                          int* m_out, uint8_t* ok_out, cudaStream_t stream) {
+  const long long ot = 4ll * G * T;
+  if (R < 0 || R > kMaxR || C <= 0 || O <= 0 || n <= 0 || n > 65535 ||
+      ct < 1 || ct > kPreMaxClasses || !valid_tile(cs, T) ||
+      !(G == 1 || G == 2 || G == 4 || G == 8) || cs * ot < O ||
+      (cs - 1) * ot >= O || (with_ok && !ok_out) ||
+      (size_t)smem != ((size_t)ct * T + (stage ? (size_t)R * (ot + 4) : 0)) *
+                          sizeof(int))
+    return cudaErrorInvalidValue;
+  PrecomputeArgs a;
+  a.req = req; a.node_cap = node_cap; a.compat = compat_packed;
+  a.alloc = alloc; a.price = price; a.rank = rank;
+  a.C = C; a.O = O; a.R = R; a.OB = (O + 7) / 8;
+  a.ct = ct; a.ot = (int)ot; a.stage = stage; a.with_ok = with_ok;
+  a.vec = O % 4 == 0 && (size_t)m_out % 16 == 0 &&
+          (!ok_out || (size_t)ok_out % 4 == 0);
+  a.ss = strides_from(ss);
+  a.m_out = m_out; a.ok_out = ok_out;
+  const int tiles = (C + ct - 1) / ct;
+  return with_g(G, [&](auto g) {
+    return launch_precompute<decltype(g)::value>(a, tiles, cs, n, T,
+                                                  (size_t)smem, stream);
+  });
+}
+
+// The most clusters of cs CTAs (T threads, G groups, smem dynamic bytes)
+// of K1 the card holds at once (0: it cannot run one): an input of the
+// host's precompute_plan.
+cudaError_t kp_precompute_clusters(int cs, int T, int G, int smem, int* out) {
+  *out = 0;
+  if (!valid_tile(cs, T)) return cudaErrorInvalidValue;
+  return with_g(G, [&](auto g) {
+    return precompute_clusters<decltype(g)::value>(cs, T, (size_t)smem, out);
+  });
 }
 
 // init_option / init_used may be null: the all-closed (_fresh) init state
@@ -2047,23 +2482,44 @@ cudaError_t kp_assign_decode(const int* takes, const int* counts,
   return cudaGetLastError();
 }
 
-// n shards, one block each.  slot_option: n x K; n_open / n_unsched: the
-// scan's device scalars, shard s's at s * sc_ss.  out: n x (3 + O) floats.
+// n shards, one cluster of cs CTAs (T threads) each, `per` slots a CTA
+// (the host's aggregate_plan); O bins of dynamic shared memory a CTA.
+// slot_option: n x K; n_open / n_unsched: the scan's device scalars, shard
+// s's at s * sc_ss.  out: n x (3 + O) floats.
 cudaError_t kp_aggregate(const int* slot_option, const float* price,
                          const int* n_open, const int* n_unsched,
-                         long long sc_ss, int n, int K, int O, float* out,
-                         cudaStream_t stream) {
+                         long long sc_ss, int n, int K, int O, int cs, int T,
+                         int per, float* out, cudaStream_t stream) {
+  if (n <= 0 || n > 65535 || K < 0 || O <= 0 || !valid_aggregate(cs, T) ||
+      per < 1 || (long long)per * cs < K ||
+      (K > 0 && (long long)per * (cs - 1) >= K))
+    return cudaErrorInvalidValue;
   const size_t smem = (size_t)O * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        aggregate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  AggregateArgs a;
+  a.slot_option = slot_option; a.price = price; a.n_open = n_open;
+  a.n_unsched = n_unsched; a.sc_ss = sc_ss; a.K = K; a.O = O; a.per = per;
+  a.out = out;
+  cudaError_t err;
+  if (smem > 48 * 1024 || cs > 8) {
+    err = raise_attrs(aggregate_cluster_kernel, cs, smem);
     if (err != cudaSuccess) return err;
   }
-  if (n <= 0) return cudaErrorInvalidValue;
-  aggregate_kernel<<<n, kAggThreads, smem, stream>>>(
-      slot_option, price, n_open, n_unsched, sc_ss, K, O, out);
+  ClusterLaunch l(cs, n, T, smem, stream, false);
+  err = cudaLaunchKernelEx(&l.cfg, aggregate_cluster_kernel, a);
+  if (err != cudaSuccess) return refused(err);
   return cudaGetLastError();
+}
+
+// The most clusters of cs CTAs (T threads, smem dynamic bytes) of K4 the
+// card holds at once: an input of the host's aggregate_plan.
+cudaError_t kp_aggregate_clusters(int cs, int T, int smem, int* out) {
+  *out = 0;
+  if (!valid_aggregate(cs, T)) return cudaErrorInvalidValue;
+  cudaError_t err = raise_attrs(aggregate_cluster_kernel, cs, (size_t)smem);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(cs, 1, T, (size_t)smem, nullptr, true);
+  return refused(
+      cudaOccupancyMaxActiveClusters(out, aggregate_cluster_kernel, &l.cfg));
 }
 
 // v: hosts x chips x L floats (shard-major, host-major).  out: L floats.

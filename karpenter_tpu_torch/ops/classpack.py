@@ -168,9 +168,11 @@ def class_pack_sweep_kernel_packed(requests, counts_b, compat_packed,
                                    col_mask_packed, price_cap_b, init_option,
                                    init_used, max_nodes: int):
     """class_pack_sweep_kernel on bit-packed column masks (uint8 B×Opad/8):
-    ONE unbatched K1 for the shared m_all, then K5 over the B rows."""
+    ONE unbatched K1 for the shared m_all (m only: each row's launchable
+    options are K5's own, masked by the row's columns and price cap), then
+    K5 over the B rows."""
     m_all, _ = classpack_precompute(requests, node_cap, compat_packed, alloc,
-                                    price, rank)
+                                    price, rank, with_ok=False)
     return classpack_sweep(requests, counts_b, compat_packed, node_cap, alloc,
                            price, rank, col_mask_packed, price_cap_b,
                            init_option, init_used, m_all, max_nodes)

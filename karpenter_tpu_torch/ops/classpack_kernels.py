@@ -45,6 +45,7 @@ two's complement wrap); the new-node score is float32.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -90,8 +91,11 @@ def _lib() -> ctypes.CDLL:
         lib.kp_error_string.restype = ctypes.c_char_p
         lib.kp_max_r.restype = i
         lib.kp_max_slots.restype = i
-        lib.kp_precompute.argtypes = [p] * 6 + [i] * 4 + [llp, p, p, p]
+        lib.kp_precompute.argtypes = [p] * 6 + [i] * 4 + [llp] + [i] * 7 \
+            + [p, p, p]
         lib.kp_precompute.restype = i
+        lib.kp_precompute_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+        lib.kp_precompute_clusters.restype = i
         lib.kp_scan.argtypes = ([p] * 10 + [i] * 6 + [llp] + [i] * 7
                                 + [p] * 5 + [p])
         lib.kp_scan.restype = i
@@ -101,8 +105,10 @@ def _lib() -> ctypes.CDLL:
         lib.kp_step_cycles.restype = i
         lib.kp_assign_decode.argtypes = [p, p, ll] + [i] * 5 + [p, p]
         lib.kp_assign_decode.restype = i
-        lib.kp_aggregate.argtypes = [p] * 4 + [ll, i, i, i, p, p]
+        lib.kp_aggregate.argtypes = [p] * 4 + [ll] + [i] * 6 + [p, p]
         lib.kp_aggregate.restype = i
+        lib.kp_aggregate_clusters.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+        lib.kp_aggregate_clusters.restype = i
         lib.kp_shard_psum.argtypes = [p, i, i, i, p, p]
         lib.kp_shard_psum.restype = i
         lib.kp_sweep_max_slots.restype = i
@@ -114,6 +120,10 @@ def _lib() -> ctypes.CDLL:
         lib.kp_slab_budget.restype = i
         lib.kp_slab.argtypes = [p, i, i, i, i, i, i, i] + [p] * 5 + [p]
         lib.kp_slab.restype = i
+        # the wrappers check R against MAX_R: read the kernels' limit once
+        if lib.kp_max_r() != MAX_R:
+            raise KernelError(f"the library takes {lib.kp_max_r()} resource "
+                              f"axes, the wrappers {MAX_R}")
         _LIB = lib
     return _LIB
 
@@ -149,7 +159,27 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _stream(dev: torch.device) -> int:
+    # the raw handle where the CUDA build has it: no Stream object a launch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and dev.index is not None:
+        return raw(dev.index)
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+_NO_SWITCH = contextlib.nullcontext()
+
+
+def _at(dev: torch.device):
+    """torch.cuda.device(dev) for a launch, or nothing when `dev` is
+    already the current card (the context costs the host more than a short
+    kernel runs)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return _NO_SWITCH
+    return torch.cuda.device(dev)
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 # ---------------------------------------------------------------------------
@@ -175,10 +205,9 @@ def unpack_bits(packed: torch.Tensor, count: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def classpack_precompute_plain(requests, node_cap, compat_packed, alloc,
-                               price, rank):
+                               price, rank, with_ok: bool = True):
     C, R = requests.shape
     O = alloc.shape[0]
-    compat = unpack_bits(compat_packed, O)
     reqpos = requests > 0
     safe = torch.where(reqpos, requests, torch.ones_like(requests))
     m = torch.full((C, O), BIG, dtype=torch.int32, device=requests.device)
@@ -186,6 +215,9 @@ def classpack_precompute_plain(requests, node_cap, compat_packed, alloc,
         q = torch.div(alloc[None, :, r], safe[:, r, None], rounding_mode="floor")
         m = torch.where(reqpos[:, r, None], torch.minimum(m, q), m)
     m = torch.minimum(m, node_cap[:, None])
+    if not with_ok:
+        return m, None
+    compat = unpack_bits(compat_packed, O)
     ok = compat & (m > 0) & torch.isfinite(price)[None, :]
     best = torch.where(ok, rank[None, :], BIG).amin(dim=1)
     ok = ok & (rank[None, :] == best[:, None])
@@ -194,36 +226,229 @@ def classpack_precompute_plain(requests, node_cap, compat_packed, alloc,
 
 def classpack_precompute(requests: torch.Tensor, node_cap: torch.Tensor,
                          compat_packed: torch.Tensor, alloc: torch.Tensor,
-                         price: torch.Tensor, rank: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         price: torch.Tensor, rank: torch.Tensor,
+                         with_ok: bool = True
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Per-(class × option) pods-per-node `m` (int32 C×O) and the
-    launchable, best-rank mask `ok` (uint8 C×O)."""
+    launchable, best-rank mask `ok` (uint8 C×O; None when not `with_ok`:
+    the sweep reads only m, and no ok is computed)."""
     if not _on_cuda(requests, node_cap, compat_packed, alloc, price, rank):
         return classpack_precompute_plain(requests, node_cap, compat_packed,
-                                          alloc, price, rank)
+                                          alloc, price, rank, with_ok)
     C, R = requests.shape
     O = alloc.shape[0]
-    lib = _lib()
-    if R > lib.kp_max_r():
+    if R > MAX_R:
         raise KernelLimitError(
-            f"R={R} resource axes exceed the kernel's {lib.kp_max_r()}")
+            f"R={R} resource axes exceed the kernel's {MAX_R}")
     _check(requests, "requests", torch.int32, (C, R))
     _check(node_cap, "node_cap", torch.int32, (C,))
     _check(compat_packed, "compat_packed", torch.uint8, (C, (O + 7) // 8))
     _check(alloc, "alloc", torch.int32, (O, R))
     _check(price, "price", torch.float32, (O,))
     _check(rank, "rank", torch.int32, (O,))
+    return _launch_precompute("classpack_precompute", 1, requests, node_cap,
+                              compat_packed, alloc, price, rank, None,
+                              with_ok, (C, O))
+
+
+# --- the plan of a K1 launch (a host function, tested on the CPU) ---
+
+PRE_MAX_CLASSES = 8           # classes a tile (kPreMaxClasses)
+PRE_GROUPS = (1, 2, 4, 8)     # groups of 4 options a thread
+PRE_THREADS = (128, 256, 512, 1024)
+PRE_MAX_CLUSTER = 16
+PRE_MIN_WARPS = 12            # warps an SM the classes a tile leave, at least
+PRE_STATIC_SMEM = 8192        # the kernel's own shared memory, rounded up
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecomputePlan:
+    """How K1 tiles the C × O work: tiles of `classes` classes; each
+    class's options over a cluster of `cluster` CTAs of `threads` threads,
+    each thread `groups` groups of 4 consecutive options (`options` =
+    4 · groups · threads a CTA, the cluster's CTAs covering O); the CTA's
+    alloc rows staged in shared memory (`stage`) or read in place; `smem`
+    dynamic bytes a CTA (the kernel checks it against its own carve)."""
+    classes: int
+    options: int
+    cluster: int
+    threads: int
+    groups: int
+    stage: bool
+    smem: int
+
+    def tiles(self, C: int) -> int:
+        return -(-C // self.classes)
+
+
+def precompute_smem_bytes(R: int, options: int, stage: bool, classes: int,
+                          threads: int) -> int:
+    """A K1 CTA's dynamic shared memory, as the kernel carves it: a word of
+    ok bits a class and thread, then (staged) its options' alloc rows
+    axis-major, each axis row padded by 4 ints."""
+    return (classes * threads + (R * (options + 4) if stage else 0)) * 4
+
+
+def precompute_plan(C: int, O: int, R: int, n: int, sms: int,
+                    smem_optin: int,
+                    clusters: Callable[[int, int, int, int], int]
+                    ) -> Optional[PrecomputePlan]:
+    """The tiles of a K1 launch over `n` shards of C classes, O options and
+    R axes on a card of `sms` SMs whose blocks may opt into `smem_optin`
+    bytes of shared memory; `clusters(cs, threads, groups, smem)` is the
+    card's count of such clusters it holds at once
+    (cudaOccupancyMaxActiveClusters; 0: it cannot run one).  The options:
+    the smallest cluster that covers O (a cluster's barriers and exchange
+    cost about a microsecond on an H100), then the fewest groups a thread,
+    then the fewest threads, among the layouts the card runs; the alloc
+    rows staged where they fit.  The classes: the most a tile (up to
+    PRE_MAX_CLASSES, halving) that still leave a CTA on nearly every SM
+    (7/8 of them) and PRE_MIN_WARPS warps an SM, else one.  None past the
+    kernel's limits (R > 32, n > 65535) or when no cluster covers O (past
+    16 × 1024 × 32 = 524 288 options)."""
+    if not (C > 0 and O > 0 and 0 <= R <= MAX_R and 0 < n <= 65535
+            and sms > 0):
+        return None
+    layouts = sorted((-(-O // (4 * G * T)), G, T) for G in PRE_GROUPS
+                     for T in PRE_THREADS)
+    for cs, G, T in layouts:
+        if cs > PRE_MAX_CLUSTER:
+            break
+        ot = 4 * G * T
+        ct = PRE_MAX_CLASSES
+        while ct > 1 and (8 * n * -(-C // ct) * cs < 7 * sms
+                          or n * -(-C // ct) * cs * T < 32 * PRE_MIN_WARPS
+                          * sms):
+            ct //= 2
+        for stage in ((True, False) if R else (False,)):
+            smem = precompute_smem_bytes(R, ot, stage, ct, T)
+            if smem + PRE_STATIC_SMEM > smem_optin:
+                continue
+            if clusters(cs, T, G, smem) < 1:
+                continue
+            return PrecomputePlan(classes=ct, options=ot, cluster=cs,
+                                  threads=T, groups=G, stage=stage, smem=smem)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _precompute_clusters(index: int, cs: int, T: int, G: int,
+                         smem: int) -> int:
+    """The card's count of K1 clusters of this layout at once; 0 where it
+    refuses the layout (a cluster shape it does not schedule), so the plan
+    takes another."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _lib().kp_precompute_clusters(cs, T, G, smem, ctypes.byref(out))
+    return 0 if err else out.value
+
+
+@functools.lru_cache(maxsize=1024)
+def _precompute_plan_at(index: int, C: int, O: int, R: int,
+                        n: int) -> Optional[PrecomputePlan]:
+    sms, smem = _slab_budget(index)
+    return precompute_plan(
+        C, O, R, n, sms, smem,
+        lambda cs, T, G, b: _precompute_clusters(index, cs, T, G, b))
+
+
+def precompute_plan_for(dev: torch.device, C: int, O: int, R: int,
+                        n: int) -> PrecomputePlan:
+    """`precompute_plan` on card `dev` (its SMs, opt-in shared memory and
+    cluster occupancy), kept per shape; raises KernelLimitError when
+    nothing fits."""
+    plan = _precompute_plan_at(_device_index(dev), C, O, R, n)
+    if plan is None:
+        raise KernelLimitError(
+            f"classpack_precompute: no tiles for C={C}, O={O}, R={R}, n={n}")
+    return plan
+
+
+def _launch_precompute(name, n, requests, node_cap, compat_packed, alloc,
+                       price, rank, strides, with_ok, shape):
+    """One K1 launch over n shards (operands checked by the caller).
+    Returns (m, ok or None), each of `shape` (n × C × O in memory)."""
+    C, R = requests.shape[-2:]
+    O = alloc.shape[0]
     dev = requests.device
-    m = torch.empty((C, O), dtype=torch.int32, device=dev)
-    ok = torch.empty((C, O), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.kp_precompute(
+    plan = precompute_plan_for(dev, C, O, R, n)
+    m = torch.empty(shape, dtype=torch.int32, device=dev)
+    ok = torch.empty(shape, dtype=torch.uint8, device=dev) if with_ok else None
+    with _at(dev):
+        err = _lib().kp_precompute(
             _ptr(requests), _ptr(node_cap), _ptr(compat_packed), _ptr(alloc),
-            _ptr(price), _ptr(rank), 1, C, O, R, None, _ptr(m), _ptr(ok),
-            _stream(dev))
-    _raise_on(err, "classpack_precompute")
-    LAUNCHES["classpack_precompute"] += 1
+            _ptr(price), _ptr(rank), n, C, O, R, strides, plan.classes,
+            plan.cluster, plan.threads, plan.groups, int(plan.stage),
+            int(with_ok), plan.smem, _ptr(m), _ptr(ok), _stream(dev))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return m, ok
+
+
+# --- numpy models of K1's arithmetic (the CPU tests hold them against the
+# plain version) ---
+
+def floordiv_magic_np(a, q: int) -> np.ndarray:
+    """K1's floor division of int32 numerators by one divisor q > 0
+    (csrc/classpack.cu `floordiv_magic32`), step for step: the multiplier
+    of K2's `magic_model` (m, shift = 32 + s), or m = 0, s = 0 and x added
+    for q = 1; x = a or -1 - a; d = (umulhi(x, m) + x·[q = 1]) >> s, with
+    no correction step; then the sign."""
+    mult, shift = magic_model(int(q))
+    m32, add, s = (0, True, 0) if shift == 31 else (mult, False, shift - 32)
+    a = np.asarray(a, np.int64)
+    x = np.where(a >= 0, a, -1 - a)
+    hi = (x.astype(np.uint64) * np.uint64(m32)) >> np.uint64(32)
+    d = ((hi.astype(np.int64) + (x if add else 0)) >> s).astype(np.int64)
+    return np.where(a >= 0, d, -1 - d)
+
+
+def precompute_tile_model(requests, node_cap, compat_packed, alloc, price,
+                          rank, plan: PrecomputePlan, with_ok: bool = True):
+    """K1 on one shard as its tiles compute it under `plan` (numpy): m by
+    the multipliers of each class's positive axes; then for each tile's
+    classes, each CTA of the cluster over its options [r · options, ...),
+    thread t holding groups g of options 4 (t + g · threads) + v; each
+    thread's minimum of where(ok, rank, BIG) over its options (INT_MAX
+    when it holds none), each warp's minimum of its lanes', the CTA's of
+    its warps', the class's of the cluster's CTAs'; ok kept where the
+    option's rank equals it.  Returns (m int32 C×O, ok uint8 C×O or
+    None)."""
+    req = np.asarray(requests, np.int64)
+    cap = np.asarray(node_cap, np.int64)
+    alloc = np.asarray(alloc, np.int64)
+    price = np.asarray(price, np.float32)
+    rank = np.asarray(rank, np.int64)
+    C, R = req.shape
+    O = alloc.shape[0]
+    m = np.full((C, O), BIG, np.int64)
+    for c in range(C):
+        for r in range(R):
+            q = int(req[c, r])
+            if q > 0:
+                m[c] = np.minimum(m[c], floordiv_magic_np(alloc[:, r], q))
+    m = np.minimum(m, cap[:, None]).astype(np.int32)
+    if not with_ok:
+        return m, None
+    compat = np.unpackbits(np.asarray(compat_packed, np.uint8), axis=1,
+                           count=O).astype(bool)
+    ok = compat & (m > 0) & np.isfinite(price)[None, :]
+    T, ot, cs = plan.threads, plan.options, plan.cluster
+    assert cs * ot >= O > (cs - 1) * ot and ot == 4 * plan.groups * T
+    # each option's CTA and thread
+    o = np.arange(O)
+    cta, oi = o // ot, o % ot
+    thread = (oi // 4) % T
+    slot = cta * T + thread               # (CTA, thread) of each option
+    INT_MAX = np.int64(2**31 - 1)
+    best = np.empty(C, np.int64)
+    for c in range(C):
+        tmin = np.full(cs * T, INT_MAX)
+        np.minimum.at(tmin, slot, np.where(ok[c], rank, BIG))
+        warp = tmin.reshape(cs, T // 32, 32).min(axis=2)   # redux.sync
+        best[c] = warp.min(axis=1).min()    # the CTAs', then the cluster's
+    ok &= rank[None, :] == best[:, None]
+    return m, ok.astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -735,16 +960,146 @@ def classpack_aggregate(slot_option: torch.Tensor, price: torch.Tensor,
     _check(price, "price", torch.float32, (O,))
     _check(n_open, "n_open", torch.int32, ())
     _check(n_unsched, "n_unsched", torch.int32, ())
-    lib = _lib()
+    return _launch_aggregate("classpack_aggregate", 1, slot_option, price,
+                             n_open, n_unsched, 0, (3 + O,))
+
+
+# --- the plan of a K4 launch (a host function, tested on the CPU) ---
+
+AGG_THREADS = 1024          # threads of a K4 CTA
+AGG_CTA_SPAN = 8192         # slots or bins a CTA of a larger cluster takes
+AGG_MAX_CLUSTER = 16
+AGG_STATIC_SMEM = 1024      # the kernel's own shared memory, rounded up
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregatePlan:
+    """How K4 splits each shard's K slots: a cluster of `cluster` CTAs of
+    `threads` threads, each CTA a run of `per_cta` slots; `smem` dynamic
+    bytes a CTA (its O-bin histogram)."""
+    cluster: int
+    threads: int
+    per_cta: int
+    smem: int
+
+
+def aggregate_plan(K: int, O: int, n: int, smem_optin: int,
+                   clusters: Callable[[int, int, int], int]
+                   ) -> Optional[AggregatePlan]:
+    """The cluster of a K4 launch over `n` shards of K slots and O options
+    on a card whose blocks may opt into `smem_optin` bytes; `clusters(cs,
+    threads, smem)` is the card's count of such clusters it holds at once
+    (0: it cannot run one).  A shard's cluster depends on K and O alone,
+    never on n, so a shard-batched launch sums each shard's cost in the
+    order of that shard's single-device launch: the fewest CTAs (a power
+    of two, up to AGG_MAX_CLUSTER and no more than K, so no CTA is without
+    a slot) whose slots and bins each take at most AGG_CTA_SPAN — on an
+    H100 one CTA is as fast as any cluster up to the headline's 8192 slots
+    and faster on the megafleet's 4096 a shard (a cluster's two barriers),
+    and a cluster of 4-8 beats one CTA at 32 768 — or fewer where the card
+    refuses.  None past the kernel's limits or when the histogram does not
+    fit a CTA."""
+    smem = O * 4
+    if not (K >= 0 and O > 0 and 0 < n <= 65535
+            and smem + AGG_STATIC_SMEM <= smem_optin):
+        return None
+    cs = 1
+    while (cs < AGG_MAX_CLUSTER and 2 * cs <= K
+           and cs * AGG_CTA_SPAN < max(K, O)):
+        cs *= 2
+    while cs > 1 and clusters(cs, AGG_THREADS, smem) < 1:
+        cs //= 2
+    if clusters(cs, AGG_THREADS, smem) < 1:
+        return None
+    return AggregatePlan(cluster=cs, threads=AGG_THREADS,
+                         per_cta=max(1, -(-K // cs)), smem=smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _aggregate_clusters(index: int, cs: int, T: int, smem: int) -> int:
+    """The card's count of K4 clusters of this layout at once; 0 where it
+    refuses the layout."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _lib().kp_aggregate_clusters(cs, T, smem, ctypes.byref(out))
+    return 0 if err else out.value
+
+
+@functools.lru_cache(maxsize=1024)
+def _aggregate_plan_at(index: int, K: int, O: int,
+                       n: int) -> Optional[AggregatePlan]:
+    return aggregate_plan(K, O, n, _slab_budget(index)[1],
+                          lambda cs, T, b: _aggregate_clusters(index, cs, T, b))
+
+
+def aggregate_plan_for(dev: torch.device, K: int, O: int,
+                       n: int) -> AggregatePlan:
+    """`aggregate_plan` on card `dev`, kept per shape; raises
+    KernelLimitError when nothing fits."""
+    plan = _aggregate_plan_at(_device_index(dev), K, O, n)
+    if plan is None:
+        raise KernelLimitError(
+            f"classpack_aggregate: no cluster for K={K}, O={O}, n={n}")
+    return plan
+
+
+def _launch_aggregate(name, n, slot_option, price, n_open, n_unsched,
+                      sc_ss, shape) -> torch.Tensor:
+    """One K4 launch over n shards (operands checked by the caller).
+    Returns floats of `shape` (n × (3 + O) in memory)."""
+    K = slot_option.shape[-1]
+    O = price.shape[0]
     dev = price.device
-    out = torch.empty(3 + O, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.kp_aggregate(_ptr(slot_option), _ptr(price), _ptr(n_open),
-                               _ptr(n_unsched), 0, 1, K, O, _ptr(out),
-                               _stream(dev))
-    _raise_on(err, "classpack_aggregate")
-    LAUNCHES["classpack_aggregate"] += 1
+    plan = aggregate_plan_for(dev, K, O, n)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    with _at(dev):
+        err = _lib().kp_aggregate(
+            _ptr(slot_option), _ptr(price), _ptr(n_open), _ptr(n_unsched),
+            sc_ss, n, K, O, plan.cluster, plan.threads, plan.per_cta,
+            _ptr(out), _stream(dev))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def aggregate_sum_model(slot_option, price, plan: AggregatePlan):
+    """K4's result on one shard's slots under `plan` (numpy): the float32
+    cost in the kernel's order — CTA r's run [r · per, ...), thread t
+    adding its slots t, t + threads, ... in order, a butterfly of each
+    warp's lanes (lane i adds lane i ^ d, d = 16 .. 1), the same butterfly
+    over the warps' partials on warp 0 (zeros past the last warp), then
+    the CTAs' partials in rank order — and the launched slots per option
+    (exact).  Returns (cost np.float32, counts int64 O)."""
+    f32 = np.float32
+    so = np.asarray(slot_option, np.int64)
+    price = np.asarray(price, f32)
+    K, O = so.shape[0], price.shape[0]
+    T, cs, per = plan.threads, plan.cluster, plan.per_cta
+    p = np.where(so >= 0, price[np.maximum(so, 0)], f32(np.inf))
+    launched = (so >= 0) & np.isfinite(p)
+    lanes = np.arange(32)
+
+    def butterfly(v):   # v: (..., 32) float32
+        for d in (16, 8, 4, 2, 1):
+            v = v + v[..., lanes ^ d]
+        return v[..., 0]
+    parts = []
+    for r in range(cs):
+        lo, hi = min(K, r * per), min(K, r * per + per)
+        acc = np.zeros(T, f32)
+        for j in range(lo, hi, T):
+            n = min(T, hi - j)
+            acc[:n] = np.where(launched[j:j + n], acc[:n] + p[j:j + n],
+                               acc[:n])
+        warps = butterfly(acc.reshape(T // 32, 32))
+        w = np.zeros(32, f32)
+        w[:T // 32] = warps
+        parts.append(butterfly(w))
+    cost = parts[0]
+    for x in parts[1:]:
+        cost = f32(cost + x)
+    counts = np.bincount(so[launched], minlength=O)
+    return f32(cost), counts
 
 
 # ---------------------------------------------------------------------------
@@ -1195,11 +1550,10 @@ def classpack_precompute_sharded(requests: torch.Tensor,
             requests, node_cap, compat_packed, alloc, price, rank)
     n, C, R = requests.shape
     O = alloc.shape[0]
-    lib = _lib()
     _check_shards(n)
-    if R > lib.kp_max_r():
+    if R > MAX_R:
         raise KernelLimitError(
-            f"R={R} resource axes exceed the kernel's {lib.kp_max_r()}")
+            f"R={R} resource axes exceed the kernel's {MAX_R}")
     ss_req = _shard_stride(requests, "requests", torch.int32, (n, C, R))
     ss_cap = _shard_stride(node_cap, "node_cap", torch.int32, (n, C))
     ss_cmp = _shard_stride(compat_packed, "compat_packed", torch.uint8,
@@ -1209,17 +1563,10 @@ def classpack_precompute_sharded(requests: torch.Tensor,
     _check(rank, "rank", torch.int32, (O,))
     shared = ss_req == ss_cap == ss_cmp == 0
     n_run = 1 if shared else n
-    dev = requests.device
-    m = torch.empty((n_run, C, O), dtype=torch.int32, device=dev)
-    ok = torch.empty((n_run, C, O), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.kp_precompute(
-            _ptr(requests), _ptr(node_cap), _ptr(compat_packed), _ptr(alloc),
-            _ptr(price), _ptr(rank), n_run, C, O, R,
-            _strides(ss_req, 0, ss_cmp, ss_cap, 0, 0, 0, 0), _ptr(m),
-            _ptr(ok), _stream(dev))
-    _raise_on(err, "classpack_precompute_sharded")
-    LAUNCHES["classpack_precompute_sharded"] += 1
+    m, ok = _launch_precompute(
+        "classpack_precompute_sharded", n_run, requests, node_cap,
+        compat_packed, alloc, price, rank,
+        _strides(ss_req, 0, ss_cmp, ss_cap, 0, 0, 0, 0), True, (n_run, C, O))
     return m.expand(n, C, O), ok.expand(n, C, O)
 
 
@@ -1321,7 +1668,7 @@ def classpack_aggregate_sharded_plain(slot_option, price, n_open, n_unsched):
 def classpack_aggregate_sharded(slot_option: torch.Tensor,
                                 price: torch.Tensor, n_open: torch.Tensor,
                                 n_unsched: torch.Tensor) -> torch.Tensor:
-    """K4 over n shards in one launch, one block per shard: float32
+    """K4 over n shards in one launch, one cluster per shard: float32
     n×(3+O), each row [total_cost, n_open, n_unsched, nodes_per_option…]
     of its shard (slot_option n×K; n_open, n_unsched: K2's n-vectors)."""
     if not _on_cuda(slot_option, price, n_open, n_unsched):
@@ -1339,16 +1686,8 @@ def classpack_aggregate_sharded(slot_option: torch.Tensor,
     if n > 1 and n_open.stride(0) != n_unsched.stride(0):
         raise ValueError("n_open and n_unsched: strides differ")
     sc_ss = n_open.stride(0) if n > 1 else 0
-    lib = _lib()
-    dev = price.device
-    out = torch.empty((n, 3 + O), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.kp_aggregate(_ptr(slot_option), _ptr(price), _ptr(n_open),
-                               _ptr(n_unsched), sc_ss, n, K, O, _ptr(out),
-                               _stream(dev))
-    _raise_on(err, "classpack_aggregate_sharded")
-    LAUNCHES["classpack_aggregate_sharded"] += 1
-    return out
+    return _launch_aggregate("classpack_aggregate_sharded", n, slot_option,
+                             price, n_open, n_unsched, sc_ss, (n, 3 + O))
 
 
 def classpack_slab_sharded_plain(assignment, max_nodes: int):

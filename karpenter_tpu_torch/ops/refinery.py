@@ -102,13 +102,15 @@ class GuideRefinery:
             except Exception:
                 log.exception("refine job failed; tick stays on greedy")
             finally:
+                # the upgrade is raised before the job leaves the in-flight
+                # set, so a drain() that saw the set empty sees it too
+                if res and res.get("greedy_total", 0.0) > 0:
+                    saving = 1.0 - res["z_lp"] / res["greedy_total"]
+                    if saving > self.upgrade_threshold:
+                        self._upgrade.set()
                 with self._lock:
                     self._inflight.discard(key)
                 self._q.task_done()
-            if res and res.get("greedy_total", 0.0) > 0:
-                saving = 1.0 - res["z_lp"] / res["greedy_total"]
-                if saving > self.upgrade_threshold:
-                    self._upgrade.set()
 
     def take_upgrade(self) -> bool:
         """One-shot: True exactly once per refined-mix-beats-greedy

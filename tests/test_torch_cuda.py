@@ -22,8 +22,11 @@ from karpenter_tpu_torch.catalog.generate import generate_catalog
 from karpenter_tpu_torch.ops import classpack as cp
 from karpenter_tpu_torch.ops import classpack_kernels as ck
 from karpenter_tpu_torch.ops.tensorize import tensorize
-from torch_cases import (CASES, SWEEP_CASES, make_case, make_sweep_case,
-                         random_lp, stack_shards, sweep_args)
+from torch_cases import (CASES, PRECOMPUTE_EDGE_SHAPES,
+                         PRECOMPUTE_PATH_SHAPES, SWEEP_CASES, make_case,
+                         make_precompute_case, make_slot_case,
+                         make_sweep_case, precompute_args, random_lp,
+                         stack_shards, sweep_args)
 
 REL_TOL = 1e-5
 
@@ -1180,3 +1183,218 @@ def test_cuda_step_probe_measures_a_positive_step(cuda_device):
         bare = ck.step_cycles(cs, T, False)
         full = ck.step_cycles(cs, T, True)
         assert 0 < bare < full
+
+
+# ---- K1 / K1s (tiles of classes x options, clusters along the options) and
+# K4 / K4s (a cluster of CTAs a shard) ----
+
+K1_SHAPES = {**PRECOMPUTE_PATH_SHAPES, **PRECOMPUTE_EDGE_SHAPES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trap", [None, "all_inf"])
+@pytest.mark.parametrize("name", sorted(K1_SHAPES))
+def test_cuda_precompute_matches_plain_at_every_shape(cuda_device, name,
+                                                      trap):
+    """K1 (n = 1) and K1s (n > 1) at the main paths' shapes and the edges,
+    on inputs with K1's parity traps: bit-equal to plain and to the tile
+    model, twice over, and with_ok=False giving the same m and no ok.  K1s
+    also equals n single-device launches, and with every per-shard operand
+    shared it computes one shard."""
+    n, C, O, R = K1_SHAPES[name]
+    c = make_precompute_case(sum(map(ord, name)), n=n, C=C, O=O, R=R,
+                             trap=trap)
+    ck.reset_launches()
+    if n == 1:
+        args = precompute_args(c, cuda_device, shard=0)
+        got, again = ck.classpack_precompute(*args), \
+            ck.classpack_precompute(*args)
+        want = ck.classpack_precompute_plain(*args)
+        m_only, none = ck.classpack_precompute(*args, with_ok=False)
+        torch.cuda.synchronize()
+        assert none is None and torch.equal(m_only, want[0])
+        plan = ck.precompute_plan_for(cuda_device, C, O, R, 1)
+        if C * O <= 2**20:
+            mm, mok = ck.precompute_tile_model(
+                *[a.cpu().numpy() for a in args], plan)
+            assert np.array_equal(mm, got[0].cpu().numpy())
+            assert np.array_equal(mok, got[1].cpu().numpy())
+        assert ck.LAUNCHES["classpack_precompute"] == 3
+    else:
+        args = precompute_args(c, cuda_device)
+        got = ck.classpack_precompute_sharded(*args)
+        again = ck.classpack_precompute_sharded(*args)
+        want = ck.classpack_precompute_sharded_plain(*args)
+        torch.cuda.synchronize()
+        for i in range(n):
+            one = ck.classpack_precompute(
+                *precompute_args(c, cuda_device, shard=i))
+            assert torch.equal(got[0][i], one[0])
+            assert torch.equal(got[1][i], one[1])
+        shared = [a[:1].expand(n, *a.shape[1:]) for a in args[:3]]
+        m1, ok1 = ck.classpack_precompute_sharded(*shared, *args[3:])
+        assert m1.stride(0) == 0 and torch.equal(m1[n - 1], want[0][0])
+        assert torch.equal(ok1[n - 1], want[1][0])
+        assert ck.LAUNCHES["classpack_precompute_sharded"] == 3
+    for g, h, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, h) and torch.equal(g, w)
+
+
+K4_SHAPES = [(1, 1), (1, 8192), (37, 512), (8192, 4096), (32_768, 1),
+             (32_768, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["runs", "hot", "closed", "all_inf"])
+@pytest.mark.parametrize("K,O", K4_SHAPES)
+def test_cuda_aggregate_edges_match_plain(cuda_device, K, O, kind):
+    """K4 at one slot and at K3's widest 32 768, at one option and at 8192,
+    with every slot one option (the hot bin), every slot closed and every
+    price +inf: counts exact, the cost within REL_TOL of the plain
+    version's and equal, bit for bit, to `aggregate_sum_model` (the
+    kernel's order), and two launches bit-equal."""
+    s = make_slot_case(K + O, n=1, K=K, O=O, kind=kind)
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    so, price = t(s["slot_option"][0]), t(s["price"])
+    n_open, n_unsched = t(s["n_open"][0]), t(s["n_unsched"][0])
+    ck.reset_launches()
+    got = ck.classpack_aggregate(so, price, n_open, n_unsched)
+    again = ck.classpack_aggregate(so, price, n_open, n_unsched)
+    want = ck.classpack_aggregate_plain(so, price, n_open, n_unsched)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got[1:], want[1:])
+    assert _close(got[0], want[0])
+    plan = ck.aggregate_plan_for(cuda_device, K, O, 1)
+    cost, counts = ck.aggregate_sum_model(s["slot_option"][0], s["price"],
+                                          plan)
+    assert np.float32(got[0].item()).tobytes() == cost.tobytes()
+    assert np.array_equal(counts.astype(np.float32), got[3:].cpu().numpy())
+    assert ck.LAUNCHES["classpack_aggregate"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["runs", "hot", "closed"])
+@pytest.mark.parametrize("K,O", [(4096, 512), (32_768, 8192), (1, 1)])
+def test_cuda_aggregate_sharded_strided_matches_plain(cuda_device, K, O,
+                                                      kind):
+    """K4s over 8 shards with n_open and n_unsched read as strided columns
+    of one n x 2 tensor (as K2s leaves its scalars): equal to plain and to
+    8 single-device launches, bit-equal launch to launch."""
+    n = 8
+    s = make_slot_case(K * 3 + O, n=n, K=K, O=O, kind=kind)
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    so, price = t(s["slot_option"]), t(s["price"])
+    scalars = t(np.stack([s["n_open"], s["n_unsched"]], 1))
+    n_open, n_unsched = scalars[:, 0], scalars[:, 1]
+    got = ck.classpack_aggregate_sharded(so, price, n_open, n_unsched)
+    again = ck.classpack_aggregate_sharded(so, price, n_open, n_unsched)
+    want = ck.classpack_aggregate_sharded_plain(so, price, n_open, n_unsched)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got[:, 1:], want[:, 1:])
+    assert all(_close(a, b) for a, b in zip(got[:, 0].tolist(),
+                                            want[:, 0].tolist()))
+    for i in range(n):
+        one = ck.classpack_aggregate(so[i], price, n_open[i], n_unsched[i])
+        assert torch.equal(got[i, 1:], one[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_precompute_and_aggregate_refuse_without_fallback(cuda_device,
+                                                               monkeypatch):
+    """A shape K1's plan refuses (more options than 16 CTAs cover) raises
+    KernelLimitError, and a plan the kernels refuse (a carve that does not
+    match) raises KernelError; neither launches, and nothing runs the plain
+    version on a CUDA tensor."""
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(ck, "classpack_precompute_plain", no_plain)
+    monkeypatch.setattr(ck, "classpack_aggregate_plain", no_plain)
+    ck.reset_launches()
+    c = make_precompute_case(2, C=4, O=16 * 4 * 8 * 1024 + 1, R=2)
+    with pytest.raises(ck.KernelLimitError):
+        ck.classpack_precompute(*precompute_args(c, cuda_device, shard=0))
+    c = make_precompute_case(2, C=16, O=512, R=7)
+    args = precompute_args(c, cuda_device, shard=0)
+    plan = ck.precompute_plan_for(cuda_device, 16, 512, 7, 1)
+    bad = dataclasses.replace(plan, smem=plan.smem + 16)
+    monkeypatch.setattr(ck, "precompute_plan_for", lambda *a, **k: bad)
+    with pytest.raises(KernelError):
+        ck.classpack_precompute(*args)
+    s = make_slot_case(5, n=1, K=8192, O=4096)
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    aplan = ck.aggregate_plan_for(cuda_device, 8192, 4096, 1)
+    monkeypatch.setattr(ck, "aggregate_plan_for", lambda *a, **k:
+                        dataclasses.replace(aplan, per_cta=aplan.per_cta - 1))
+    with pytest.raises(KernelError):
+        ck.classpack_aggregate(t(s["slot_option"][0]), t(s["price"]),
+                               t(s["n_open"][0]), t(s["n_unsched"][0]))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["classpack_precompute"] == 0
+    assert ck.LAUNCHES["classpack_aggregate"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs", [2, 4, 8, 16])
+def test_cuda_precompute_cluster_exchange_matches_plain(cuda_device, cs,
+                                                        monkeypatch):
+    """K1 and K1s with a class's options over a cluster of cs CTAs, whose
+    minima meet in distributed shared memory: the plan takes a cluster past
+    32 768 options, so the headline's 4096 are cut over cs CTAs here by a
+    forced plan (and 40 000 options take the plan's own).  Twice, bit-equal
+    to plain."""
+    C, O, R = 40, 4096, 7
+    T = O // (4 * cs)
+    plan = ck.PrecomputePlan(classes=4, options=4 * T, cluster=cs, threads=T,
+                             groups=1, stage=True,
+                             smem=ck.precompute_smem_bytes(R, 4 * T, True, 4,
+                                                           T))
+    c = make_precompute_case(cs, n=3, C=C, O=O, R=R)
+    real = ck.precompute_plan_for
+    monkeypatch.setattr(ck, "precompute_plan_for", lambda *a, **k: plan)
+    one = precompute_args(c, cuda_device, shard=0)
+    stack = precompute_args(c, cuda_device)
+    for fn, plain, args in ((ck.classpack_precompute,
+                             ck.classpack_precompute_plain, one),
+                            (ck.classpack_precompute_sharded,
+                             ck.classpack_precompute_sharded_plain, stack)):
+        got, again, want = fn(*args), fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        for g, h, w in zip(got, again, want):
+            assert torch.equal(g, h) and torch.equal(g, w)
+    monkeypatch.setattr(ck, "precompute_plan_for", real)
+    c = make_precompute_case(7, n=1, C=6, O=40_000, R=7)
+    args = precompute_args(c, cuda_device, shard=0)
+    assert ck.precompute_plan_for(cuda_device, 6, 40_000, 7, 1).cluster > 1
+    got, want = ck.classpack_precompute(*args), \
+        ck.classpack_precompute_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
+def test_cuda_aggregate_each_cluster_size(cuda_device, cs, monkeypatch):
+    """K4 and K4s at each cluster size (forced; the plan's own is one CTA
+    up to 8192 slots and a cluster past them): counts exact, the cost
+    bit-equal to `aggregate_sum_model` under that plan, twice."""
+    K, O = 8192, 4096
+    plan = ck.AggregatePlan(cluster=cs, threads=ck.AGG_THREADS,
+                            per_cta=-(-K // cs), smem=4 * O)
+    monkeypatch.setattr(ck, "aggregate_plan_for", lambda *a, **k: plan)
+    s = make_slot_case(cs, n=3, K=K, O=O)
+    t = lambda a: torch.tensor(a, device=cuda_device)  # noqa: E731
+    so, price = t(s["slot_option"]), t(s["price"])
+    n_open, n_unsched = t(s["n_open"]), t(s["n_unsched"])
+    got = ck.classpack_aggregate_sharded(so, price, n_open, n_unsched)
+    again = ck.classpack_aggregate_sharded(so, price, n_open, n_unsched)
+    one = ck.classpack_aggregate(so[0], price, n_open[0], n_unsched[0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got[0], one)
+    for i in range(3):
+        cost, counts = ck.aggregate_sum_model(s["slot_option"][i],
+                                              s["price"], plan)
+        assert np.float32(got[i, 0].item()).tobytes() == cost.tobytes()
+        assert np.array_equal(counts.astype(np.float32),
+                              got[i, 3:].cpu().numpy())
+        assert got[i, 1].item() == s["n_open"][i]
+        assert got[i, 2].item() == s["n_unsched"][i]

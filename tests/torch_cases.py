@@ -239,3 +239,105 @@ def stack_shards(c, n, rng, dev):
                 t(c["iopt"]).expand(n, *c["iopt"].shape).contiguous(),
                 iused=None if c["iused"] is None else
                 t(c["iused"]).expand(n, *c["iused"].shape).contiguous())
+
+
+# ---- K1 (classpack_precompute) and K4 (classpack_aggregate) inputs ----
+
+# (n, C, O, R) of K1 on each main path: the headline, the live cell's round
+# 2, the consolidation-500 tick and the megafleet's row 17
+PRECOMPUTE_PATH_SHAPES = {
+    "headline": (1, 256, 4096, 7),
+    "live-round-2": (1, 256, 8192, 7),
+    "consolidation-500": (1, 1024, 512, 7),
+    "megafleet-row-17": (8, 64, 512, 2),
+}
+# edge shapes: one class, one / seven options (a ragged row), one past a
+# bucket, the widest bucket, 32 axes, 8 shards
+PRECOMPUTE_EDGE_SHAPES = {
+    "C1": (1, 1, 512, 7),
+    "O1": (1, 20, 1, 7),
+    "O7": (1, 20, 7, 7),
+    "O4097": (1, 20, 4097, 7),
+    "O32768": (1, 8, 32_768, 7),
+    "R32": (1, 20, 512, 32),
+    "n8": (8, 20, 600, 7),
+}
+
+
+def make_precompute_case(seed, n=1, C=20, O=512, R=7, trap=None):
+    """Seeded K1 inputs (numpy; requests n×C×R, node_cap n×C, compat
+    n×C×O bool, alloc O×R, price O, rank O) with its parity traps: axes a
+    class does not request (0) and negative requests (masked), requests of
+    1 and near 2^30, node caps of 0 and 1, negative allocations (existing
+    columns over-committed) and the int32 extremes, +inf and NaN prices,
+    classes with no compatible option, pool ranks.  `trap="all_inf"` prices
+    every option +inf (no class has a launchable option)."""
+    rng = np.random.default_rng(seed)
+    req = rng.integers(1, 9000, (n, C, R)).astype(np.int32)
+    req[rng.random((n, C, R)) < 0.25] = 0
+    neg = rng.random((n, C, R)) < 0.05
+    req[neg] = -rng.integers(1, 50, neg.sum())
+    if R:
+        req[..., :1][rng.random((n, C, 1)) < 0.15] = 1
+    near = rng.random((n, C, R)) < 0.05
+    req[near] = 2**30 - rng.integers(-1, 3, near.sum())
+    cap = np.full((n, C), BIG, np.int32)
+    capped = rng.random((n, C)) < 0.3
+    cap[capped] = rng.integers(0, 3, capped.sum())
+    comp = rng.random((n, C, O)) < 0.6
+    comp[:, ::7] = False
+    alloc = rng.integers(0, 64_000, (O, R)).astype(np.int32)
+    wide = rng.random((O, R)) < 0.05
+    alloc[wide] = rng.integers(-2**31, 2**31 - 1, wide.sum(), dtype=np.int64)
+    alloc[rng.random((O, R)) < 0.1] *= -1
+    if R:
+        alloc.flat[rng.integers(0, O * R, 2)] = [-2**31, 2**31 - 1]
+    price = rng.uniform(0.05, 5.0, O).astype(np.float32)
+    price[rng.random(O) < 0.2] = np.inf
+    price[rng.random(O) < 0.02] = np.nan
+    if trap == "all_inf":
+        price[:] = np.inf
+    rank = rng.integers(0, 3, O).astype(np.int32)
+    rank[rng.random(O) < 0.05] = BIG - 1
+    return dict(req=req, cap=cap, comp=comp, alloc=alloc, price=price,
+                rank=rank)
+
+
+def precompute_args(c, dev="cpu", shard=None):
+    """A `make_precompute_case` as torch tensors on `dev`, in K1's argument
+    order (compat packed): the n-shard stack, or shard `shard` alone."""
+    pick = (lambda a: a) if shard is None else (lambda a: a[shard])
+    packed = np.packbits(c["comp"], axis=-1)
+    return [torch.tensor(np.ascontiguousarray(a), device=dev) for a in (
+        pick(c["req"]), pick(c["cap"]), pick(packed), c["alloc"], c["price"],
+        c["rank"])]
+
+
+def make_slot_case(seed, n=1, K=8192, O=4096, kind="runs"):
+    """Seeded K4 inputs (numpy): slot_option n×K, price O, n_open and
+    n_unsched n.  `kind`: "runs" (open slots a prefix, each class's new
+    slots one run of one option, prices over six decades, some +inf),
+    "hot" (every slot one option), "closed" (no slot open) or "all_inf"
+    (every price +inf)."""
+    rng = np.random.default_rng(seed)
+    price = (10.0 ** rng.uniform(-3, 3, O)).astype(np.float32)
+    price[rng.random(O) < 0.1] = np.inf
+    so = np.full((n, K), -1, np.int32)
+    for s in range(n):
+        n_open = int(rng.integers(0, K + 1))
+        k = 0
+        while k < n_open:
+            run = int(min(n_open - k, rng.geometric(0.05)))
+            so[s, k:k + run] = rng.integers(0, O)
+            k += run
+    if kind == "hot":
+        so[:] = rng.integers(0, O)
+        price[so[0, 0]] = np.float32(1.5)
+    elif kind == "closed":
+        so[:] = -1
+    elif kind == "all_inf":
+        price[:] = np.inf
+    n_open = (so >= 0).sum(1).astype(np.int32)
+    n_unsched = rng.integers(0, 1000, n).astype(np.int32)
+    return dict(slot_option=so, price=price, n_open=n_open,
+                n_unsched=n_unsched)
