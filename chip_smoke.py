@@ -176,6 +176,26 @@ pass):
                and timed, and the device idle share (the slab solve's
                trace read as phase 10's, with K6s's split by launch at
                row 17's input).
+ 13. disruption — the cell `disruption-replay-500` (BASELINE config 4:
+               2590 pods provisioned onto 504 nodes, scaled down to 28%)
+               carried out through DisruptionController.reconcile with a
+               TerminationController: consolidation and emptiness ticks,
+               drift (the middle tick ICE'd: its replacement launch must
+               fail and roll the fleet back), expiration, 8 spot
+               interruptions drained by the InterruptionController and
+               re-provisioned, a leaked instance collected by GC.  Run
+               after phase 10 (so the kernel rows carry its launches),
+               three times on fleets built anew: counted (the launch
+               counts set to 0 just before the replay and read just
+               after, each tick's read around it; every tick must
+               reproduce GOLDEN_DISRUPTION, the JAX package's, and K1, K5,
+               K2 and K3 must have launched), timed (`[time]` p50 of a
+               consolidation tick with a decision and of a drift tick,
+               split into candidates, decision and execute = launch +
+               rebind + drain) and traced (each reconcile under the
+               profiler: the ticks' device busy time against the untraced
+               run's wall, the idle share); both must reproduce the golden
+               too.
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -3486,6 +3506,226 @@ def sharded_kernel_rows(torch, card, caps, cases, by_path, err):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the disruption cell, carried out
+# ---------------------------------------------------------------------------
+
+DISRUPTION_PATH = "disruption-replay-500"
+DISRUPTION_KERNELS = ("classpack_precompute", "classpack_sweep",
+                      "classpack_scan", "classpack_assign_decode")
+
+
+def fresh_disruption_env():
+    """The cell's fleet built anew on the card, the guide caches cleared
+    first (a warm guide cache may change the guided build's plan)."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    clear_lp_caches()
+    return workloads.disruption_env(
+        workloads.port_kit(), generate_catalog(workloads.DISRUPTION_TYPES))
+
+
+def check_disruption_golden(sigs, what):
+    from karpenter_tpu_torch import workloads
+    got = workloads.disruption_digests(sigs)
+    gold = workloads.GOLDEN_DISRUPTION
+    check(len(got) == len(gold),
+          f"{what}: {len(got)} ticks, GOLDEN_DISRUPTION has {len(gold)}")
+    for i, (g, w) in enumerate(zip(got, gold)):
+        check(g == w, f"{what}: tick {i} {g} != golden {w}; signature "
+              f"{json.dumps(sigs[i])[:2000]}")
+    drift = [x for x in sigs if x["phase"] == "drift"]
+    check(drift[1]["error"] and drift[1]["kept"] and not drift[1]["launched"],
+          f"{what}: the ICE'd drift tick did not roll back: {drift[1]}")
+
+
+def disruption_path(torch, card):
+    """Phase 13's counted run: the cell with the launch counts set to 0
+    just before `disruption_replay` and read just after, each tick's
+    launches read around it; every tick must reproduce GOLDEN_DISRUPTION
+    and K1, K5, K2 and K3 must have launched.  Returns the launches by
+    path: the whole replay, phase (a)'s decision ticks, the drift ticks."""
+    from karpenter_tpu_torch import workloads
+    t0 = time.perf_counter()
+    env = fresh_disruption_env()
+    build_s = time.perf_counter() - t0
+    log(f"[disruption] fleet: {len(env.cluster.nodes)} nodes, "
+        f"{len(env.cluster.pods)} pods after the scale-down, built in "
+        f"{build_s:.3f} s (Provisioner.provision on the card)")
+    ticks = []
+
+    def counted(env, phase):
+        before = all_launches()
+        n_dec = len(decisions)
+        sig, res = workloads.disruption_tick(env, phase)
+        after = all_launches()
+        ticks.append((phase, sig, {k: after[k] - before[k] for k in after},
+                      len(decisions) > n_dec))
+        return sig, res
+
+    decisions = []
+    ctrl = env.disruption
+    orig = ctrl.consolidation_action
+
+    def consolidation_action(cands):
+        decisions.append(1)
+        return orig(cands)
+    ctrl.consolidation_action = consolidation_action
+    reset_all_launches()
+    t0 = time.perf_counter()
+    sigs = workloads.disruption_replay(env, tick=counted)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    check_disruption_golden(sigs, "disruption (counted run)")
+    for name in DISRUPTION_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the disruption path")
+    for phase, sig, lt, dec in ticks:
+        log(f"[disruption] {phase} tick: action {sig['action']}, launched "
+            f"{len(sig['launched'])}, deleted {sig['deleted']}, running "
+            f"{sig['running']} at {sig['price']!r} $/h, error "
+            f"{sig['error']}; launches {({k: v for k, v in lt.items() if v})}")
+    inter = sigs[-2]
+    log(f"[disruption] interruption: {len(inter['interrupted'])} spot "
+        f"instances reclaimed, {inter['provision']['launched']} launched for "
+        f"{inter['provision']['bound_new']} evicted pods; gc: "
+        f"{sigs[-1]['leaked']} leaked instance terminated")
+    log(f"[disruption] {len(sigs)} ticks reproduce GOLDEN_DISRUPTION in "
+        f"{wall:.3f} s; launches of the replay {launches}")
+
+    def total(sel):
+        out = {k: 0 for k in launches}
+        for phase, _, lt, dec in ticks:
+            if sel(phase, dec):
+                for k, v in lt.items():
+                    out[k] += v
+        return out
+    return {DISRUPTION_PATH: launches,
+            f"{DISRUPTION_PATH} consolidation ticks": total(
+                lambda ph, dec: ph == "consolidation" and dec),
+            f"{DISRUPTION_PATH} drift ticks": total(
+                lambda ph, dec: ph == "drift")}
+
+
+def disruption_timings(torch, card):
+    """Phase 13's timed runs, each on a fleet built anew: one with the
+    tick split by wall clock (candidates = the reconcile less the
+    decision and the execution; the execution split into launch, rebind
+    and drain), one with each reconcile under the profiler (the device's
+    idle share).  Both must reproduce GOLDEN_DISRUPTION as well."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from karpenter_tpu_torch import workloads
+    env = fresh_disruption_env()
+    ctrl, acc, split = env.disruption, {}, []
+
+    def timed(name, fn):
+        def wrap(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[name] = acc.get(name, 0.0) + \
+                    (time.perf_counter() - t) * 1e3
+        return wrap
+    ctrl.consolidation_action = timed("decision", ctrl.consolidation_action)
+    ctrl._replace_or_delete = timed("decision", ctrl._replace_or_delete)
+    ctrl.execute = timed("execute", ctrl.execute)
+    env.provider.create = timed("launch", env.provider.create)
+    env.cluster.bind_pod = timed("rebind", env.cluster.bind_pod)
+    env.terminator.drain_sync = timed("drain", env.terminator.drain_sync)
+    reconcile = ctrl.reconcile
+
+    def tick_reconcile():
+        acc.clear()
+        t = time.perf_counter()
+        out = reconcile()
+        torch.cuda.synchronize()
+        acc["tick"] = (time.perf_counter() - t) * 1e3
+        return out
+    ctrl.reconcile = tick_reconcile
+
+    def split_tick(env, phase):
+        sig, res = workloads.disruption_tick(env, phase)
+        split.append((phase, dict(acc)))
+        return sig, res
+    sigs = workloads.disruption_replay(env, tick=split_tick)
+    check_disruption_golden(sigs, "disruption (timed run)")
+
+    env = fresh_disruption_env()
+    ctrl, traced = env.disruption, []
+    reconcile2 = ctrl.reconcile
+    decided = []
+    orig = ctrl.consolidation_action
+
+    def consolidation_action(cands):
+        decided.append(1)
+        return orig(cands)
+    ctrl.consolidation_action = consolidation_action
+
+    def traced_reconcile():
+        torch.cuda.synchronize()
+        n_dec = len(decided)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            out = reconcile2()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA) / 1e3
+        traced.append((wall, busy, len(decided) > n_dec))
+        return out
+    ctrl.reconcile = traced_reconcile
+    phases = []
+
+    def traced_tick(env, phase):
+        phases.append(phase)
+        return workloads.disruption_tick(env, phase)
+    sigs = workloads.disruption_replay(env, tick=traced_tick)
+    check_disruption_golden(sigs, "disruption (traced run)")
+
+    parts = ("tick", "candidates", "decision", "execute", "launch", "rebind",
+             "drain")
+    out = {}
+    for group, sel in (("consolidation", lambda ph, a: ph == "consolidation"
+                        and "decision" in a),
+                       ("drift", lambda ph, a: ph == "drift")):
+        rows = [a for ph, a in split if sel(ph, a)]
+        for a in rows:
+            a["candidates"] = a["tick"] - a.get("decision", 0.0) - \
+                a.get("execute", 0.0)
+        p50 = {k: statistics.median(a.get(k, 0.0) for a in rows)
+               for k in parts}
+        out[group] = p50
+        each = [round(a["tick"], 3) for a in rows]
+        log(f"[time] disruption {group} tick: p50 {p50['tick']:.3f} ms over "
+            f"{len(rows)} ticks {each}; candidates {p50['candidates']:.3f}, "
+            f"decision {p50['decision']:.3f}, execute {p50['execute']:.3f} "
+            f"(launch {p50['launch']:.3f}, rebind {p50['rebind']:.3f}, "
+            f"drain {p50['drain']:.3f}) ms on {card}")
+        tr = [(w, b) for (w, b, dec), ph in zip(traced, phases)
+              if (ph == "consolidation" and dec if group == "consolidation"
+                  else ph == "drift")]
+        check(len(tr) == len(rows), f"{len(tr)} traced {group} ticks, "
+              f"{len(rows)} timed")
+        busy = sum(b for _, b in tr)
+        wall_traced = sum(w for w, _ in tr)
+        # the profiler's own host cost inflates the traced wall: the share
+        # is taken against the untraced run's wall of the same ticks
+        wall = sum(a["tick"] for a in rows)
+        out[group]["idle_share"] = 1 - busy / wall
+        log(f"[trace] disruption {group} ticks: device busy {busy:.3f} ms "
+            f"over {len(tr)} traced ticks against {wall:.3f} ms of the same "
+            f"ticks untraced: idle share {out[group]['idle_share']:.4f} "
+            f"({1 - busy / wall_traced:.4f} against the traced wall "
+            f"{wall_traced:.3f} ms) on {card}")
+        check(busy > 0, f"the disruption {group} ticks' trace shows no "
+              f"device time")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3519,6 +3759,11 @@ def main() -> int:
     by_path.update(prov_paths)
     compare_recorded_k3(torch)
     log(f"[provision] phase 10 cells done "
+        f"({time.perf_counter() - t_start:.1f} s so far)")
+    # phase 13 (run here, so the kernel rows carry its launches)
+    by_path.update(disruption_path(torch, card))
+    disruption_timings(torch, card)
+    log(f"[disruption] phase 13 done "
         f"({time.perf_counter() - t_start:.1f} s so far)")
     log(f"[main] launches of each main path's run: {by_path}")
     k5_ms = sweep_call_times(torch, card, firsts)

@@ -1,11 +1,14 @@
-"""The cloud seam of the port: the in-memory fake cloud, the ICE cache and
-the CloudProvider that turns NodeClaims into launches (copies of the JAX
-package's `cloud/`, trimmed to what provisioning reaches)."""
+"""The cloud seam of the port: the in-memory fake cloud and its
+interruption queue, the ICE cache, the error taxonomy, and the
+CloudProvider that launches, terminates, lists and drift-checks NodeClaims
+(copies of the JAX package's `cloud/`)."""
 
 from .cache import TTLCache, UnavailableOfferings, UNAVAILABLE_OFFERINGS_TTL
 from .fake import (CloudError, CloudInstance, FakeCloud, FleetError,
-                   FleetOverride, FleetResult, ICE_CODE)
+                   FleetOverride, FleetResult, ICE_CODE, ImageInfo,
+                   LaunchTemplateInfo)
 from .provider import (CloudProvider, InstanceTypesProvider,
                        InsufficientCapacityError, MAX_INSTANCE_TYPES,
                        MIN_SPOT_FLEXIBILITY, NodeClassNotFoundError,
-                       ProviderCircuitBreaker, RetryPolicy)
+                       ProviderCircuitBreaker, RetryPolicy, static_hash)
+from .queue import FakeQueue

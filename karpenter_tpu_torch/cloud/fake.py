@@ -4,12 +4,16 @@ A copy of the JAX package's `cloud/fake.py` (the analog of Karpenter's
 test backend, pkg/fake/ec2api.go:40-120: a thread-safe instance store, a
 stateful CreateFleet that launches in-memory instances, and an
 `insufficient_capacity_pools` knob injecting ICE per (type, zone,
-capacityType)), trimmed to the launch path: the network inventory, the
-interruption queue, chaos injection and the warm-restart export are left
-out."""
+capacityType)), with the interruption queue's publishing side (a spot
+interruption's warning and its clock-scheduled reclaim), the image and
+launch-template registries drift reads, and per-API fault injection.  Left
+out: the subnet, security-group and spot-price inventories (their
+providers are not ported), the chaos injector (`api_errors` stands in for
+its per-API seam) and the warm-restart export (ROADMAP.md queue B)."""
 
 from __future__ import annotations
 
+import heapq
 import itertools
 import threading
 import time
@@ -66,11 +70,44 @@ class FleetResult:
     errors: List[FleetError]
 
 
+@dataclass
+class ImageInfo:
+    """A bootable node image — the AMI analog
+    (karpenter:pkg/providers/amifamily/ami.go:116-136)."""
+    id: str
+    name: str
+    architecture: str = "amd64"
+    creation_ts: float = 0.0
+    deprecated: bool = False
+    tags: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class LaunchTemplateInfo:
+    """A stored launch template
+    (karpenter:pkg/providers/launchtemplate/launchtemplate.go:233)."""
+    name: str
+    image_id: str
+    user_data: str = ""
+    security_group_ids: Tuple[str, ...] = ()
+    block_device_gib: int = 20
+    block_device_mappings: Tuple[str, ...] = ()   # canonical JSON strings
+    metadata_options: Tuple = ()                  # sorted (key, value) pairs
+    detailed_monitoring: bool = False
+    instance_store_policy: str = ""
+    associate_public_ip: object = None            # None == subnet default
+    instance_profile: str = ""
+    tags: Dict[str, str] = field(default_factory=dict)
+
+
 class FakeCloud:
     """The cloud API the provider talks to.  Thread-safe; failure injection
-    via `insufficient_capacity_pools`, `next_error` and `throttle_until`."""
+    via `insufficient_capacity_pools`, `next_error` (the next call of any
+    API), `api_errors` (the next call of one named API) and
+    `throttle_until`."""
 
-    def __init__(self, clock: Callable[[], float] = time.time):
+    def __init__(self, clock: Callable[[], float] = time.time,
+                 queue=None):
         self.clock = clock
         self._lock = threading.RLock()
         self._instances: Dict[str, CloudInstance] = {}
@@ -78,7 +115,17 @@ class FakeCloud:
         # (capacity_type, instance_type, zone) pools that ICE
         self.insufficient_capacity_pools: Set[Tuple[str, str, str]] = set()
         self.next_error: Optional[Exception] = None
+        # API name -> the error its next call raises (one shot)
+        self.api_errors: Dict[str, Exception] = {}
         self.calls: Dict[str, int] = {}
+        self.queue = queue  # interruption events go here when attached
+        self.images: List[ImageInfo] = []
+        self.launch_templates: Dict[str, LaunchTemplateInfo] = {}
+        # clock-scheduled deliveries: an (at, seq, action, instance_id)
+        # heap drained by deliver_due() — the virtual-time interruption
+        # pipeline (the warning at T-120, the reclaim at T)
+        self._scheduled: List[Tuple[float, int, str, str]] = []
+        self._sched_seq = itertools.count(1)
         # every API call fails with RequestLimitExceeded while
         # clock() < throttle_until (API throttle burst injection)
         self.throttle_until: float = 0.0
@@ -89,18 +136,23 @@ class FakeCloud:
             self._instances.clear()
             self.insufficient_capacity_pools.clear()
             self.next_error = None
+            self.api_errors.clear()
             self.calls.clear()
+            self._scheduled.clear()
             self.throttle_until = 0.0
 
     def _count(self, api: str):
         self.calls[api] = self.calls.get(api, 0) + 1
 
-    def _maybe_raise(self):
+    def _maybe_raise(self, api: str = ""):
         if self.next_error is not None:
             err, self.next_error = self.next_error, None
             raise err
         if self.clock() < self.throttle_until:
             raise CloudError("RequestLimitExceeded", "throttle window open")
+        err = self.api_errors.pop(api, None)
+        if err is not None:
+            raise err
 
     # ---- APIs ----
     def create_fleet(self, overrides: Sequence[FleetOverride], count: int = 1,
@@ -110,7 +162,7 @@ class FakeCloud:
         (karpenter:pkg/providers/instance/instance.go:369-375,522-536)."""
         with self._lock:
             self._count("create_fleet")
-            self._maybe_raise()
+            self._maybe_raise("create_fleet")
             errors: List[FleetError] = []
             usable: List[FleetOverride] = []
             seen_ice: Set[Tuple[str, str, str]] = set()
@@ -142,7 +194,7 @@ class FakeCloud:
                            include_terminated: bool = False) -> List[CloudInstance]:
         with self._lock:
             self._count("describe_instances")
-            self._maybe_raise()
+            self._maybe_raise("describe_instances")
             out = []
             for inst in self._instances.values():
                 if ids is not None and inst.id not in ids:
@@ -165,7 +217,7 @@ class FakeCloud:
     def terminate_instances(self, ids: Sequence[str]) -> List[str]:
         with self._lock:
             self._count("terminate_instances")
-            self._maybe_raise()
+            self._maybe_raise("terminate_instances")
             done = []
             for iid in ids:
                 inst = self._instances.get(iid)
@@ -174,14 +226,140 @@ class FakeCloud:
                     done.append(iid)
             return done
 
+    def describe_images(self, ids: Optional[Sequence[str]] = None
+                        ) -> List[ImageInfo]:
+        with self._lock:
+            self._count("describe_images")
+            self._maybe_raise("describe_images")
+            if ids is None:
+                return list(self.images)
+            want = set(ids)
+            return [i for i in self.images if i.id in want]
+
+    def create_launch_template(self, lt: LaunchTemplateInfo
+                               ) -> LaunchTemplateInfo:
+        with self._lock:
+            self._count("create_launch_template")
+            self._maybe_raise("create_launch_template")
+            if lt.name in self.launch_templates:
+                raise CloudError(
+                    "InvalidLaunchTemplateName.AlreadyExistsException",
+                    lt.name)
+            self.launch_templates[lt.name] = lt
+            return lt
+
+    def describe_launch_templates(self,
+                                  tag_filter: Optional[Dict[str, str]] = None
+                                  ) -> List[LaunchTemplateInfo]:
+        with self._lock:
+            self._count("describe_launch_templates")
+            self._maybe_raise("describe_launch_templates")
+            return [lt for lt in self.launch_templates.values()
+                    if not tag_filter or all(lt.tags.get(k) == v
+                                             for k, v in tag_filter.items())]
+
+    def delete_launch_template(self, name: str) -> None:
+        with self._lock:
+            self._count("delete_launch_template")
+            self._maybe_raise("delete_launch_template")
+            if name not in self.launch_templates:
+                raise CloudError("InvalidLaunchTemplateId.NotFound", name)
+            del self.launch_templates[name]
+
     def create_tags(self, iid: str, tags: Dict[str, str]) -> None:
         with self._lock:
             self._count("create_tags")
-            self._maybe_raise()
+            self._maybe_raise("create_tags")
             inst = self._instances.get(iid)
             if inst is None:
                 raise CloudError("InstanceNotFound", iid)
             inst.tags.update(tags)
+
+    # ---- interruptions ----
+    def _publish(self, kind: str, ids, state: str = ""):
+        if self.queue is not None:
+            from .queue import make_event_body
+            self.queue.send(make_event_body(kind, ids, state=state,
+                                            ts=self.clock()))
+
+    def interrupt(self, iid: str, at: Optional[float] = None,
+                  warning_s: float = 120.0) -> CloudInstance:
+        """Spot-interrupt an instance.
+
+        With ``at`` given the whole pipeline is clock-scheduled: the
+        two-minute warning publishes at ``at - warning_s`` (clamped to now)
+        and the capacity is pulled at ``at``, both fired by `deliver_due()`
+        once the clock reaches them.  Without ``at`` and with a queue
+        attached, the warning publishes now and the reclaim is scheduled
+        ``warning_s`` out (`deliver_due()` fires it; a caller that never
+        drains may still `reclaim()` by hand).  Without a queue nobody can
+        be warned, so the capacity is reclaimed at once."""
+        with self._lock:
+            inst = self._instances.get(iid)
+            if inst is None:
+                raise CloudError("InstanceNotFound", iid)
+            if self.queue is None:
+                inst.state = "terminated"
+                return inst
+            if at is not None:
+                now = self.clock()
+                heapq.heappush(self._scheduled,
+                               (max(now, at - warning_s),
+                                next(self._sched_seq), "warn", iid))
+                heapq.heappush(self._scheduled,
+                               (at, next(self._sched_seq), "reclaim", iid))
+                return inst
+            heapq.heappush(self._scheduled,
+                           (self.clock() + warning_s,
+                            next(self._sched_seq), "reclaim", iid))
+        from .queue import SPOT_INTERRUPTION
+        self._publish(SPOT_INTERRUPTION, [iid])
+        return inst
+
+    def next_due(self) -> Optional[float]:
+        """The earliest clock-scheduled delivery, or None."""
+        with self._lock:
+            return self._scheduled[0][0] if self._scheduled else None
+
+    def deliver_due(self) -> List[Dict]:
+        """Fire every scheduled delivery whose time has come.  One record
+        per firing: ``spot_warning`` publishes the warning for a running
+        instance; ``spot_reclaim`` pulls the capacity — ``honored=True``
+        when the controllers drained the node first (the instance was
+        already gone), ``False`` when the reclaim had to kill it."""
+        from .queue import SPOT_INTERRUPTION, STATE_CHANGE
+        fired: List[Dict] = []
+        publish: List[Tuple[str, str, str]] = []
+        with self._lock:
+            now = self.clock()
+            while self._scheduled and self._scheduled[0][0] <= now:
+                at, _, action, iid = heapq.heappop(self._scheduled)
+                inst = self._instances.get(iid)
+                running = inst is not None and inst.state == "running"
+                if action == "warn":
+                    if running:
+                        publish.append((SPOT_INTERRUPTION, iid, ""))
+                        fired.append({"at": at, "action": "spot_warning",
+                                      "instance": iid})
+                    continue
+                if running:
+                    inst.state = "terminated"
+                    publish.append((STATE_CHANGE, iid, "terminated"))
+                fired.append({"at": at, "action": "spot_reclaim",
+                              "instance": iid, "honored": not running})
+        for kind, iid, state in publish:
+            self._publish(kind, [iid], state=state)
+        return fired
+
+    def reclaim(self, iid: str) -> None:
+        """The interruption deadline passed: the capacity is pulled and a
+        state-change event fires."""
+        with self._lock:
+            inst = self._instances.get(iid)
+            if inst is not None:
+                inst.state = "terminated"
+        from .queue import STATE_CHANGE
+        self._publish(STATE_CHANGE, [iid], state="terminated")
 
     def running(self) -> List[CloudInstance]:
         return self.describe_instances()

@@ -1,17 +1,19 @@
 """The CloudProvider seam: catalog + actuation.
 
-A copy of the JAX package's `cloud/provider.py`, trimmed to what
-provisioning reaches:
+A copy of the JAX package's `cloud/provider.py`:
   * `InstanceTypesProvider` — the solver's catalog with ICE-masked offering
     availability and seq-num memoization
     (karpenter:pkg/providers/instancetype/instancetype.go:89-175);
-  * `CloudProvider.create` — the launch path's candidate filtering, price
+  * `CloudProvider` — the core seam Create / Delete / Get / List /
+    GetInstanceTypes / IsDrifted (karpenter:pkg/cloudprovider/
+    cloudprovider.go:66-229): the launch path's candidate filtering, price
     ordering, 60-type cap and capacity-type choice
     (karpenter:pkg/providers/instance/instance.go:88-105,197-253,380-424),
-    with the bounded retry policy and the provider circuit breaker.
-Left out until a slice needs them: delete / get / list / drift, the subnet,
-launch-template and pricing providers, HA fencing and the cost ledger, and
-the metric families.
+    with the bounded retry policy and the provider circuit breaker;
+    terminate, hydration of claims from instance tags, and drift.
+Left out until a slice needs them: the subnet, launch-template and pricing
+providers, HA fencing (ROADMAP.md queue B), the cost ledger and the metric
+families.
 """
 
 from __future__ import annotations
@@ -26,41 +28,18 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..api import labels as wk
 from ..api.objects import NodeClaim, NodeClass, NodePool
+from ..api.taints import Taint
 from ..catalog.instancetype import (InstanceType, Offering, apply_storage,
                                     root_volume_gib)
 from .cache import UnavailableOfferings
-from .fake import CloudError, FakeCloud, FleetOverride, ICE_CODE
+from .errors import is_retryable, is_unfulfillable_capacity
+from .fake import CloudError, FakeCloud, FleetOverride
 
 log = logging.getLogger("karpenter_tpu_torch.cloud.provider")
 
 # Launch action-space cap (karpenter:pkg/providers/instance/instance.go:56-57).
 MAX_INSTANCE_TYPES = 60
 MIN_SPOT_FLEXIBILITY = 5  # OD-flexibility warning floor
-
-# fleet error codes that mean "this offering cannot be fulfilled right now"
-# and feed the ICE cache (karpenter:pkg/errors/errors.go:83-94)
-UNFULFILLABLE_CAPACITY_CODES = frozenset({
-    ICE_CODE,
-    "MaxSpotInstanceCountExceeded",
-    "VcpuLimitExceeded",
-    "UnfulfillableCapacity",
-    "Unsupported",
-    "InsufficientFreeAddressesInSubnet",
-})
-
-# transient faults worth an in-call retry: throttles and provider-side
-# internal errors (not unfulfillable capacity — that is a state)
-RETRYABLE_CODES = frozenset({
-    "RequestLimitExceeded",
-    "Throttling",
-    "ThrottlingException",
-    "RequestThrottled",
-    "TooManyRequestsException",
-    "InternalError",
-    "InternalFailure",
-    "ServiceUnavailable",
-    "Unavailable",
-})
 
 
 class InsufficientCapacityError(Exception):
@@ -75,7 +54,7 @@ class NodeClassNotFoundError(InsufficientCapacityError):
     applies, but callers can log it distinctly."""
 
 
-def _static_hash(nodeclass: NodeClass) -> str:
+def static_hash(nodeclass: NodeClass) -> str:
     """Hash of the launch-affecting nodeclass spec fields (the reference's
     controllers/nodeclass.static_hash): a change drifts every node launched
     from the old spec."""
@@ -302,7 +281,7 @@ class CloudProvider:
                     self.breaker.record_success()
                 return out
             except CloudError as err:
-                if err.code not in RETRYABLE_CODES:
+                if not is_retryable(err):
                     raise
                 if self.breaker is not None:
                     self.breaker.record_failure()
@@ -357,7 +336,7 @@ class CloudProvider:
         tags["karpenter.sh/nodeclass"] = claim.node_class_ref
         if nodeclass is not None:
             if not nodeclass.hash_annotation:
-                nodeclass.hash_annotation = _static_hash(nodeclass)
+                nodeclass.hash_annotation = static_hash(nodeclass)
             claim.node_class_hash = nodeclass.hash_annotation
             tags["karpenter.sh/nodeclass-hash"] = nodeclass.hash_annotation
         result = self._call_cloud(
@@ -366,7 +345,7 @@ class CloudProvider:
         # feed partial failures back into the ICE cache
         # (instance.go:369-375 updateUnavailableOfferingsCache)
         for err in result.errors:
-            if err.code in UNFULFILLABLE_CAPACITY_CODES:
+            if is_unfulfillable_capacity(err):
                 self.unavailable.mark_unavailable_for_fleet_err(
                     err.code, err.override.instance_type, err.override.zone,
                     err.override.capacity_type)
@@ -409,3 +388,130 @@ class CloudProvider:
             labels.update({k: v for k, v in it.requirements.labels().items()
                            if k not in (wk.ZONE, wk.CAPACITY_TYPE)})
         return labels
+
+    def delete(self, claim: NodeClaim) -> None:
+        """Terminate the claim's instance
+        (karpenter:pkg/cloudprovider/cloudprovider.go:170-185); an instance
+        already gone raises CloudError("InstanceNotFound")."""
+        self._delete(claim)
+
+    def _delete(self, claim: NodeClaim) -> None:
+        if not claim.provider_id:
+            return
+        done = self.cloud.terminate_instances([claim.provider_id])
+        claim.terminating = True
+        if not done:
+            raise CloudError("InstanceNotFound", claim.provider_id)
+
+    def get(self, provider_id: str) -> Optional[NodeClaim]:
+        try:
+            inst = self.cloud.get_instance(provider_id)
+        except CloudError:
+            return None
+        return self._instance_to_claim(inst)
+
+    def list(self) -> List[NodeClaim]:
+        return self._list()
+
+    def _list(self) -> List[NodeClaim]:
+        """Every cluster-owned instance as a NodeClaim (garbage collection's
+        ground truth, karpenter:pkg/controllers/nodeclaim/
+        garbagecollection/controller.go:57-91)."""
+        return [self._instance_to_claim(inst) for inst in self._call_cloud(
+            "describe_instances",
+            lambda: self.cloud.describe_instances(
+                tag_filter={"karpenter.sh/cluster": self.cluster_name}))]
+
+    def _instance_to_claim(self, inst) -> NodeClaim:
+        """A claim this provider launched, or one hydrated from the
+        instance's tags (cloud tags are the durable store): identity,
+        labels, taints, and the nodeclass ref WITH its launch hash — without
+        them a recovered node reads as drifted."""
+        known = self._claims_by_provider_id.get(inst.id)
+        if known is not None:
+            return known
+        claim = NodeClaim(nodepool=inst.tags.get("karpenter.sh/nodepool", ""))
+        if inst.tags.get("karpenter.sh/nodeclaim"):
+            claim.name = inst.tags["karpenter.sh/nodeclaim"]
+        claim.provider_id = inst.id
+        claim.instance_type = inst.instance_type
+        claim.zone = inst.zone
+        claim.capacity_type = inst.capacity_type
+        claim.price = inst.price
+        claim.launched_at = inst.launched_at
+        # the boot image is on the instance record itself, so hydration
+        # restores image drift's input with no extra tag
+        claim.image_id = inst.image_id
+        labels_json = inst.tags.get("karpenter.sh/labels")
+        if labels_json:
+            claim.labels.update(json.loads(labels_json))
+        claim.labels.update(self._instance_labels(inst, claim))
+        taints_json = inst.tags.get("karpenter.sh/taints")
+        if taints_json:
+            claim.taints = [Taint(d["key"], d["effect"], d.get("value", ""))
+                            for d in json.loads(taints_json)]
+        if inst.tags.get("karpenter.sh/nodeclass"):
+            claim.node_class_ref = inst.tags["karpenter.sh/nodeclass"]
+        claim.node_class_hash = inst.tags.get("karpenter.sh/nodeclass-hash", "")
+        return claim
+
+    def is_drifted(self, claim: NodeClaim,
+                   nodepool: Optional[NodePool] = None) -> Optional[str]:
+        """The drift reason, or None (karpenter:pkg/cloudprovider/
+        drift.go:42-67), first hit wins: the instance type left the
+        catalog, the NodePool no longer admits it, the nodeclass's static
+        hash moved, then the live instance's image, its launch template's
+        security groups and its subnet against the nodeclass's resolved
+        status, and the zone."""
+        it = next((t for t in self.instance_types.base_catalog
+                   if t.name == claim.instance_type), None)
+        if it is None:
+            return "InstanceTypeRemoved"
+        if nodepool is not None:
+            if not nodepool.requirements().compatible(
+                    it.requirements, allow_undefined=[wk.NODEPOOL]):
+                return "NodePoolDrifted"
+        nc = self.node_classes.get(claim.node_class_ref)
+        if nc is None:
+            return None
+        if claim.node_class_hash:
+            current = nc.hash_annotation or static_hash(nc)
+            if claim.node_class_hash != current:
+                return "NodeClassHashDrifted"
+        # the instance attributes read here (boot image, subnet, launch
+        # template) cannot change after launch, so the lookup runs once per
+        # claim and is memoized on it.  A failed lookup is not memoized:
+        # the next reconcile retries, and only the warning is deduplicated
+        meta = getattr(claim, "_drift_instance_meta", None)
+        if meta is None and claim.provider_id:
+            try:
+                inst = self.cloud.get_instance(claim.provider_id)
+                meta = (inst.image_id, inst.subnet_id, inst.launch_template)
+                claim._drift_instance_meta = meta
+            except Exception as e:
+                if not getattr(claim, "_drift_lookup_warned", False):
+                    log.warning("drift check for %s: instance %s lookup "
+                                "failed (%s); static checks only until the "
+                                "lookup succeeds", claim.name,
+                                claim.provider_id, e)
+                    claim._drift_lookup_warned = True
+        inst_image, inst_subnet, inst_lt = meta or ("", "", "")
+        image = inst_image or claim.image_id
+        if image and nc.status_images and image not in nc.status_images:
+            return "ImageDrifted"
+        if inst_lt and nc.status_security_groups:
+            lt = self.cloud.launch_templates.get(inst_lt)
+            if lt is not None and set(lt.security_group_ids) != \
+                    set(nc.status_security_groups):
+                return "SecurityGroupDrifted"
+        if (inst_subnet and nc.status_subnets
+                and inst_subnet not in nc.status_subnets):
+            return "SubnetDrifted"
+        if nc.status_zones and claim.zone not in nc.status_zones:
+            return "ZoneDrifted"
+        return None
+
+    def liveness_probe(self) -> bool:
+        """False while the circuit breaker is open: the substrate fails
+        hard enough that the provider has stopped calling it."""
+        return self.breaker is None or self.breaker.state != "open"

@@ -1,17 +1,26 @@
-"""The consolidation decision: candidates → SimulationArena → batched sweep
-→ decoded accept.
+"""Disruption controller: consolidation, emptiness, expiration, drift —
+decided and carried out.
 
-A copy of the decision half of the JAX package's `controllers/disruption.py`
-(karpenter-core's disruption engine, karpenter:designs/consolidation.md and
+A copy of the JAX package's `controllers/disruption.py` (karpenter-core's
+disruption engine, karpenter:designs/consolidation.md and
 karpenter:designs/deprovisioning.md):
 
   * candidate discovery with blockers — do-not-disrupt pods, PDB budgets,
     ownerless pods, recently-created nodes, in-flight nominations, live
     headroom placeholders;
+  * the methods in the reference's order, expiration → drift → emptiness
+    → consolidation, ONE action carried out per `reconcile()` tick;
   * consolidation's two actions: node *deletion* (pods fit on the remaining
     nodes) and node *replacement* (pods fit on remaining nodes + one cheaper
-    node), decided by simulated scheduling;
-  * disruption-cost candidate ranking weighted by remaining node lifetime.
+    node), decided by simulated scheduling; expiration and drift replace a
+    node at any price, emptiness deletes every empty node at once;
+  * disruption-cost candidate ranking weighted by remaining node lifetime;
+  * execution: the `karpenter.sh/disruption:NoSchedule` taint, the
+    replacements launched through the provider before anything is drained,
+    the evicted pods rebound per the simulation, then termination through
+    the TerminationController (`terminator`) or inline; a failed
+    replacement launch rolls the action back
+    (karpenter:website/content/en/docs/concepts/disruption.md:9-35).
 
 The simulation is the class-granular packing solve: a probe family is 1-2
 calls of the K1 + K5 sweep kernels on a cached `SimulationArena`, and the
@@ -20,15 +29,14 @@ the survivors as pre-opened columns — through the partitioned mesh driver
 (parallel/driver.py, shard-batched kernels) first when the ShardedSolve
 gate (`sharded_solve`) is on and the batch is shardable.  Every solve runs
 on `device` ("cuda" by default; "cpu" runs the kernels' plain versions and
-only when asked).
+only when asked); a device fault raised by a solve leaves `reconcile()` as
+it came, and only the cloud calls of execution are caught.
 
-The provider is read only through `get_instance_types()` and
-`node_classes`, as the reference reads it on this path.  Not ported yet
-(ROADMAP.md): `reconcile` / `execute` / rollback, drift, expiration,
-emptiness and gang preemption (they need the cloud provider and the
-terminator), the solver-health ladder and its watchdog, and the native
-and greedy simulation rungs; the options that select them raise
-NotImplementedError.  The reference's metric and span calls are left out.
+Not ported yet (ROADMAP.md queue B): the solver-health ladder and its
+watchdog (`health`, `watchdog_timeout_s > 0`; item 5), the native and
+greedy simulation rungs (item 5) and gang preemption (`gang_source`; item
+8); the options that select them raise NotImplementedError.  The
+reference's metric, span and cost-ledger calls are left out.
 """
 
 from __future__ import annotations
@@ -40,7 +48,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..api import labels as wk
 from ..api.objects import Node, NodeClaim, NodePool, Pod, pool_view
-from ..catalog.instancetype import InstanceType
+from ..api.taints import NO_SCHEDULE, Taint
+from ..catalog.instancetype import InstanceType, effective_instance_type
+from ..cloud.errors import is_not_found
+from ..cloud.fake import CloudError
+from ..cloud.provider import InsufficientCapacityError
 from ..forecast.headroom import headroom_expiry, is_headroom
 from ..ops.classpack import resolve_device, solve_classpack
 from ..ops.constraints import (LEVEL_REQUIRED_ONLY,
@@ -53,6 +65,8 @@ from ..state.cluster import Cluster
 from ..utils.events import Event
 
 log = logging.getLogger("karpenter_tpu_torch.disruption")
+
+DISRUPTION_TAINT = Taint(wk.DISRUPTION_TAINT_KEY, NO_SCHEDULE, "disrupting")
 
 # Tunables (karpenter:designs/consolidation.md:61-67,
 # karpenter:designs/deprovisioning.md:27-33).
@@ -80,10 +94,11 @@ class Candidate:
 @dataclass
 class Action:
     """One disruption decision: delete `candidates`, optionally launching
-    `replacements` first (named {delete,replace}{Consolidation,...} like the
-    reference's action strings)."""
+    replacements first (named {delete,replace}{Consolidation,Emptiness,
+    Expiration,Drift} like the reference's action strings,
+    karpenter:designs/deprovisioning.md:11-31)."""
     kind: str                       # "delete" | "replace"
-    reason: str                     # "consolidation" | ...
+    reason: str                     # "consolidation" | "emptiness" | ...
     candidates: List[Candidate]
     simulation: Optional[PackingResult] = None
     problem: Optional[Problem] = None
@@ -154,12 +169,12 @@ def _cands_match(old: List["Candidate"], new: List["Candidate"]) -> bool:
 
 
 class DisruptionController:
-    """The consolidation decision over cluster state.
+    """Single-action disruption loop over cluster state.
 
     The signature is the reference's plus `device` and `mesh` (the
     ShardedSolve gate's mesh; default `parallel.make_pod_mesh` on `device`).
-    `health`, `watchdog_timeout_s > 0`, `gang_source` and `terminator`
-    select parts that are not ported yet and raise NotImplementedError."""
+    `health`, `watchdog_timeout_s > 0` and `gang_source` select parts that
+    are not ported yet and raise NotImplementedError."""
 
     def __init__(self, provider, cluster: Cluster,
                  nodepools,
@@ -184,21 +199,22 @@ class DisruptionController:
                  gang_source: Optional[Callable] = None,
                  device="cuda",
                  mesh=None):
-        unported = [name for name, on in (
-            ("health", health is not None),
-            ("watchdog_timeout_s", watchdog_timeout_s > 0),
-            ("gang_source", gang_source is not None),
-            ("terminator", terminator is not None)) if on]
+        unported = [f"{name} (ROADMAP.md queue B item {item})"
+                    for name, item, on in (
+                        ("health", 5, health is not None),
+                        ("watchdog_timeout_s", 5, watchdog_timeout_s > 0),
+                        ("gang_source", 8, gang_source is not None)) if on]
         if unported:
             raise NotImplementedError(
-                f"DisruptionController({', '.join(unported)}) is not ported "
-                f"yet — ROADMAP.md queue B ('disruption execution')")
+                f"DisruptionController: {', '.join(unported)} is not ported "
+                f"yet")
         from ..utils.events import Recorder
         self.device = resolve_device(device)
         self.provider = provider
         self.cluster = cluster
         self.nodepools = pool_view(nodepools)
         self.clock = clock
+        self.terminator = terminator
         self.recorder = recorder or Recorder(log=False)
         self.stabilization_s = stabilization_s
         self.drift_enabled = drift_enabled
@@ -208,6 +224,7 @@ class DisruptionController:
         self.batched_sweep = batched_sweep
         self.sharded_solve = sharded_solve
         self.mesh = mesh
+        self._empty_since: Dict[str, float] = {}  # node → first seen empty
         self._arena_cache = None  # (fingerprint, SimulationArena)
         # (mutation_epoch, catalog_key, candidates, fingerprint) — skips the
         # O(nodes+pods) arena_fingerprint walk while the cluster is unchanged
@@ -407,6 +424,102 @@ class DisruptionController:
             # solve (all candidates excluded, no survivors) would otherwise
             # run the guide despite the escape hatch
             guide="lp" if self.lp_guide else None, device=self.device, **ekw)
+
+    # ------------------------------------------------------------------
+    # methods, in the reference's order
+    # ------------------------------------------------------------------
+    def find_expired(self, cands: List[Candidate]) -> List[Candidate]:
+        now = self.clock()
+        return [c for c in cands
+                if c.pool.disruption.expire_after_s
+                and now - c.node.created_at > c.pool.disruption.expire_after_s]
+
+    def find_drifted(self, cands: List[Candidate]) -> List[Candidate]:
+        if not self.drift_enabled:
+            return []
+        return [c for c in cands if c.claim is not None
+                and self.provider.is_drifted(c.claim, c.pool)]
+
+    def find_empty(self, cands: List[Candidate]) -> List[Candidate]:
+        """Emptiness: nodes with no reschedulable pods that have STAYED empty
+        for consolidate_after_s (time since empty, not node age — a node
+        that just lost its last pod gets the full delay)."""
+        now = self.clock()
+        empty_names = set()
+        out = []
+        for c in cands:
+            if c.reschedulable:
+                continue
+            empty_names.add(c.name)
+            since = self._empty_since.setdefault(c.name, now)
+            after = c.pool.disruption.consolidate_after_s or 0.0
+            if now - since < after:
+                continue
+            out.append(c)
+        # nodes that regained pods (or vanished) reset their empty timer
+        for name in list(self._empty_since):
+            if name not in empty_names:
+                del self._empty_since[name]
+        return out
+
+    # ------------------------------------------------------------------
+    # the single-action reconcile
+    # ------------------------------------------------------------------
+    def reconcile(self) -> DisruptionResult:
+        return self._reconcile()
+
+    def _reconcile(self) -> DisruptionResult:
+        cands = self.candidates()
+        # every method's eligibility up front, as the reference computes its
+        # gauges (calling find_empty every tick keeps its timers fresh)
+        expired = self.find_expired(cands)
+        drifted = self.find_drifted(cands)
+        empty = self.find_empty(cands)
+        underutil = [c for c in cands
+                     if c.pool.disruption.consolidation_policy ==
+                     "WhenUnderutilized"]
+        if not cands:
+            return DisruptionResult()
+
+        # 1. expiration (graceful replace: pods rescheduled, new capacity
+        #    allowed)
+        if expired:
+            action = self._replace_or_delete(expired[:1], "expiration")
+            if action:
+                return self.execute(action)
+
+        # 2. drift
+        if drifted:
+            action = self._replace_or_delete(drifted[:1], "drift")
+            if action:
+                return self.execute(action)
+
+        # 3. emptiness — every empty candidate in one action (the
+        #    reference's emptiness batch delete)
+        if empty:
+            return self.execute(Action(kind="delete", reason="emptiness",
+                                       candidates=empty))
+
+        # 4. consolidation (WhenUnderutilized pools only)
+        action = self.consolidation_action(underutil)
+        if action:
+            return self.execute(action)
+        return DisruptionResult()
+
+    def _replace_or_delete(self, targets: List[Candidate],
+                           reason: str) -> Optional[Action]:
+        """Expiration / drift: the pods must land somewhere — on the
+        surviving nodes or on replacement capacity at any price."""
+        problem, result, survivors = self.simulate(targets, allow_new=True)
+        if result.unschedulable:
+            log.info("%s of %s blocked: %d pods would be unschedulable",
+                     reason, [c.name for c in targets],
+                     len(result.unschedulable))
+            return None
+        kind = "replace" if result.nodes else "delete"
+        return Action(kind=kind, reason=reason, candidates=targets,
+                      simulation=result, problem=problem,
+                      surviving_nodes=survivors)
 
     # ------------------------------------------------------------------
     # consolidation
@@ -658,3 +771,123 @@ class DisruptionController:
         if after is not None and now - c.node.created_at < after:
             return False
         return True
+
+    # ------------------------------------------------------------------
+    # execution: taint → launch the replacements → rebind → terminate
+    # ------------------------------------------------------------------
+    def execute(self, action: Action) -> DisruptionResult:
+        return self._execute(action)
+
+    def _execute(self, action: Action) -> DisruptionResult:
+        out = DisruptionResult(action=action)
+        # taint first so nothing new schedules onto doomed nodes
+        # (website/.../concepts/disruption.md:9-14)
+        for c in action.candidates:
+            c.node.marked_for_deletion = True
+            if DISRUPTION_TAINT not in c.node.taints:
+                c.node.taints.append(DISRUPTION_TAINT)
+            self.cluster.touch_node(c.node)
+
+        new_nodes: List[Node] = []
+        catalog_by_name = {it.name: it
+                           for it in self.provider.get_instance_types()}
+        if action.simulation is not None and action.simulation.nodes:
+            from .provisioning import claim_from_decision
+            for decision in action.simulation.nodes:
+                dpods = [self._orig(action.problem.pods[i])
+                         for i in decision.pod_indices]
+                claim = claim_from_decision(decision, dpods, self.nodepools)
+                try:
+                    claim = self.provider.create(claim)
+                except InsufficientCapacityError as e:
+                    # rollback: untaint, unmark, abandon the action
+                    # (website/.../concepts/disruption.md:12-14)
+                    self.recorder.publish(Event(
+                        "Node", action.candidates[0].name, "DisruptionFailed",
+                        f"replacement launch failed: {e}", type="Warning"))
+                    log.warning("disruption rollback, launch failed: %s", e)
+                    self._rollback(action, new_nodes, out)
+                    out.error = str(e)
+                    return out
+                it = catalog_by_name.get(claim.instance_type)
+                if it is not None:
+                    ncs = getattr(self.provider, "node_classes", None) or {}
+                    it = effective_instance_type(
+                        it, self.nodepools.get(claim.nodepool),
+                        ncs.get(claim.node_class_ref))
+                node = self.cluster.register_nodeclaim(
+                    claim, it.allocatable if it else claim.requests,
+                    it.capacity if it else None)
+                node._decision = decision
+                new_nodes.append(node)
+                out.launched.append(claim)
+
+        # rebind the evicted pods — the cluster's originals, never the
+        # lowered copies — per the simulation's placement
+        if action.simulation is not None:
+            sim = action.simulation
+            for pod_i, slot in sim.existing_assignments.items():
+                self.cluster.bind_pod(self._orig(action.problem.pods[pod_i]),
+                                      action.surviving_nodes[slot].name)
+            for node in new_nodes:
+                for pod_i in node._decision.pod_indices:
+                    self.cluster.bind_pod(
+                        self._orig(action.problem.pods[pod_i]), node.name)
+
+        # terminate the candidates — through the finalizer drain when a
+        # terminator is wired, else the inline state-level equivalent
+        for c in action.candidates:
+            if self.terminator is not None:
+                tres = self.terminator.drain_sync(c.node, reason=action.reason)
+                out.deleted.extend(tres.terminated)
+                if tres.errors:
+                    out.error = "; ".join(tres.errors)
+                continue
+            # daemonset pods die with their node — they must NOT be requeued
+            # as pending (a fresh node would be provisioned just for them)
+            for p in list(c.node.pods):
+                if p.is_daemon:
+                    self.cluster.delete_pod(p)
+            try:
+                if c.claim is not None:
+                    self.provider.delete(c.claim)
+                    self.cluster.nodeclaims.pop(c.claim.name, None)
+            except Exception as e:  # noqa: BLE001 — the cloud call's failure
+                already_gone = isinstance(e, CloudError) and is_not_found(e)
+                if not already_gone:
+                    # transient cloud failure: untaint so the next reconcile
+                    # retries this (now empty) node instead of stranding a
+                    # billed zombie behind marked_for_deletion
+                    c.node.marked_for_deletion = False
+                    c.node.taints = [t for t in c.node.taints
+                                     if t.key != DISRUPTION_TAINT.key]
+                    self.cluster.touch_node(c.node)
+                    out.error = str(e)
+                    continue
+                self.cluster.nodeclaims.pop(c.claim.name, None)
+            self.cluster.remove_node(c.name)
+            out.deleted.append(c.name)
+            self.recorder.publish(Event(
+                "Node", c.name, "DisruptionTerminating",
+                f"{action.kind} via {action.reason}"))
+        log.info("disruption %s: deleted %s, launched %s", action.name,
+                 out.deleted, [c.name for c in out.launched])
+        return out
+
+    def _rollback(self, action: Action, new_nodes: List[Node],
+                  out: DisruptionResult):
+        """Undo a partly carried-out action: untaint and unmark the
+        candidates, delete the replacements already launched.  The ICE
+        cache keeps what the failed launch taught it."""
+        for c in action.candidates:
+            c.node.marked_for_deletion = False
+            c.node.taints = [t for t in c.node.taints
+                             if t.key != DISRUPTION_TAINT.key]
+            self.cluster.touch_node(c.node)
+        for node in new_nodes:
+            claim = self.cluster.claim_for_provider_id(node.provider_id)
+            if claim is not None:
+                self.provider.delete(claim)
+                self.cluster.nodeclaims.pop(claim.name, None)
+            self.cluster.remove_node(node.name)
+        out.launched.clear()

@@ -30,6 +30,16 @@ over an 8-shard mesh; `GOLDEN_SHARDED` holds the JAX package's results on
 them (tests/test_torch_partitioned.py), which `chip_smoke.py` checks on
 the card.
 
+`disruption_env` / `disruption_replay` build and drive the disruption
+cell `disruption-replay-500` — BASELINE config 4 built through
+`Provisioner.provision`, then carried out tick by tick (consolidation and
+emptiness, drift with a rolled-back tick, expiration, spot interruption,
+garbage collection) — from a namespace of either package's classes;
+`disruption_tick` signs a tick by launch and batch positions, and
+`GOLDEN_DISRUPTION` holds the JAX package's ticks
+(tests/test_torch_disruption.py), which `chip_smoke.py` checks on the
+card.
+
 `GOLDEN_GUIDED` is the digest of the headline's default, LP-guided solve
 (HiGHS restricted masters), and `lp_instance` / `GOLDEN_LP` are the
 refinery-shaped LP instances of the reference bench's LP A/B
@@ -905,3 +915,368 @@ def sharded_answer(problem, res) -> Tuple[str, float]:
     if isinstance(res, tuple):
         return aggregate_digest(res[1], res[2]), float(res[0])
     return plan_digest(problem, res)
+
+
+# ---------------------------------------------------------------------------
+# the disruption cell: BASELINE config 4 carried out, tick by tick
+# ---------------------------------------------------------------------------
+
+DISRUPTION_CELL = "disruption-replay-500"
+DISRUPTION_PODS = 2590             # bench.run_consolidation_replay's n_pods
+DISRUPTION_SEED = 3                # ... its generator seed
+DISRUPTION_TYPES = 200             # ... its n_types
+DISRUPTION_LAUNCH_T = 1000.0       # the clock while the fleet is built
+DISRUPTION_START_T = DISRUPTION_LAUNCH_T + 10_000.0   # the first tick
+DISRUPTION_TICK_S = 30.0           # the clock's step after every tick
+CONSOLIDATION_TICKS = 12           # phase (a): until a tick takes no action
+DRIFT_TICKS = 3                    # phase (b): the middle one is ICE'd
+EXPIRATION_TICKS = 2               # phase (c)
+EXPIRE_AFTER_S = 3600.0            # phase (c): the pool's expire_after_s
+INTERRUPTED_SPOT = 8               # phase (d): spot instances reclaimed
+GC_STEP_S = 60.0                   # phase (e): past the 30 s grace period
+DRIFT_USER_DATA = "drift-v2"       # phase (b): the NodeClass's new spec
+
+class SteppedClock:
+    """A fake clock the cell steps by hand."""
+
+    def __init__(self, t: float):
+        self.t = float(t)
+
+    def __call__(self) -> float:
+        return self.t
+
+    def step(self, dt: float) -> None:
+        self.t += dt
+
+
+def port_kit():
+    """The port's classes for `disruption_env`."""
+    from types import SimpleNamespace
+    from .cloud import (CloudProvider, FakeCloud, FakeQueue, FleetOverride,
+                        UnavailableOfferings)
+    from .controllers import (DisruptionController,
+                              GarbageCollectionController,
+                              InterruptionController, Provisioner,
+                              TerminationController)
+    from .state.cluster import Cluster
+    return SimpleNamespace(
+        FakeQueue=FakeQueue, FakeCloud=FakeCloud, FleetOverride=FleetOverride,
+        CloudProvider=CloudProvider,
+        UnavailableOfferings=UnavailableOfferings, Cluster=Cluster,
+        Provisioner=Provisioner, TerminationController=TerminationController,
+        DisruptionController=DisruptionController,
+        InterruptionController=InterruptionController,
+        GarbageCollectionController=GarbageCollectionController,
+        NodePool=NodePool, Pod=Pod, ResourceList=ResourceList)
+
+
+@dataclass
+class DisruptionEnv:
+    """The objects of the disruption cell, built by `disruption_env`.
+    `pods` is the batch in creation order (a pod's position is its
+    identity); `launch_index` numbers every node the cell has seen in
+    launch order (`index_nodes`)."""
+    clock: SteppedClock
+    queue: object
+    cloud: object
+    provider: object
+    cluster: object
+    provisioner: object
+    terminator: object
+    disruption: object
+    interruption: object
+    gc: object
+    pool: object
+    pods: List
+    kit: object
+    launch_index: Dict[str, int]
+
+
+def index_nodes(env: DisruptionEnv) -> None:
+    """Give every node not seen yet the next launch position (the cluster's
+    dict keeps registration order)."""
+    for name in env.cluster.nodes:
+        if name not in env.launch_index:
+            env.launch_index[name] = len(env.launch_index)
+
+
+def disruption_env(kit, catalog, n_pods: int = DISRUPTION_PODS,
+                   seed: int = DISRUPTION_SEED, **extra) -> DisruptionEnv:
+    """The disruption cell's fleet from `kit`, a namespace of one
+    package's classes (FakeQueue, FakeCloud, FleetOverride, CloudProvider,
+    UnavailableOfferings, Cluster, Provisioner, TerminationController,
+    DisruptionController, InterruptionController,
+    GarbageCollectionController, NodePool, Pod, ResourceList: `port_kit()`
+    gives the port's), built as `bench.run_consolidation_replay`
+    builds BASELINE config 4 (after karpenter's deprovisioning scale suite,
+    test/suites/scale/deprovisioning_test.go:325-428): `n_pods` pods of cpu
+    1500-2599m and memory 2-4 GiB drawn from rng(`seed`), provisioned by
+    `Provisioner.provision()` on a FakeCloud (every node a running
+    instance), then each pod deleted with probability 0.72.  The clock is
+    a `SteppedClock` at `DISRUPTION_LAUNCH_T` during the build and 10 000 s
+    later after it; the ICE cache runs on it too.  A TerminationController
+    is wired into the DisruptionController and the InterruptionController
+    (whose queue the cloud publishes to), beside a
+    GarbageCollectionController.  `extra` goes to the Provisioner and the
+    DisruptionController (the port's `device`)."""
+    clock = SteppedClock(DISRUPTION_LAUNCH_T)
+    queue = kit.FakeQueue(clock)
+    cloud = kit.FakeCloud(clock, queue=queue)
+    provider = kit.CloudProvider(
+        cloud, catalog, unavailable=kit.UnavailableOfferings(clock=clock),
+        clock=clock)
+    cluster = kit.Cluster(clock)
+    pool = kit.NodePool()
+    prov = kit.Provisioner(provider, cluster, [pool], clock=clock, **extra)
+    rng = np.random.default_rng(seed)
+    pods = [kit.Pod(name=f"pod-{i:05d}", uid=f"pod-{i:05d}",
+                    requests=kit.ResourceList(
+                        {CPU: int(rng.integers(1500, 2600)),
+                         MEMORY: int(rng.integers(2, 5)) * 2**30}))
+            for i in range(n_pods)]
+    cluster.add_pods(pods)
+    prov.provision()
+    for p in pods:
+        if rng.random() < CONSOLIDATION_SCALE_DOWN:
+            cluster.delete_pod(p)
+    clock.t = DISRUPTION_START_T
+    term = kit.TerminationController(provider, cluster, clock=clock)
+    ctrl = kit.DisruptionController(provider, cluster, [pool], clock=clock,
+                                    terminator=term, **extra)
+    intr = kit.InterruptionController(queue, provider, cluster, term,
+                                      clock=clock)
+    gc = kit.GarbageCollectionController(provider, cluster, clock=clock)
+    env = DisruptionEnv(clock, queue, cloud, provider, cluster, prov, term,
+                        ctrl, intr, gc, pool, pods, kit, {})
+    index_nodes(env)
+    return env
+
+
+def _running(env: DisruptionEnv) -> Tuple[int, float]:
+    """(running instances, their $/h summed in launch order)."""
+    total = 0.0
+    insts = env.cloud.running()
+    for inst in insts:
+        total += inst.price
+    return len(insts), total
+
+
+def fleet_state(env: DisruptionEnv):
+    """What a rolled-back tick must leave as it found it: every node with
+    its deletion mark, taints and pods, and the running instances."""
+    nodes = [(n.name, n.marked_for_deletion,
+              [(t.key, t.effect, t.value) for t in n.taints],
+              [p.uid for p in n.pods]) for n in env.cluster.nodes.values()]
+    return nodes, [i.id for i in env.cloud.running()]
+
+
+def _moves(env: DisruptionEnv, before: List[str], nodes_before) -> Dict:
+    """Counts and digest of the batch pods whose node changed: rebound to
+    a node that existed before (a survivor), bound to a new node, or
+    unbound; each move as (batch position, node launch position or -1)."""
+    moves, survivors, new = [], 0, 0
+    for i, p in enumerate(env.pods):
+        if p.node_name == before[i]:
+            continue
+        if p.node_name:
+            if p.node_name in nodes_before:
+                survivors += 1
+            else:
+                new += 1
+        moves.append([i, env.launch_index.get(p.node_name, -1)])
+    digest = hashlib.sha256(json.dumps(moves).encode()).hexdigest()
+    return dict(rebound=survivors, bound_new=new, moved=digest)
+
+
+def disruption_tick(env: DisruptionEnv, phase: str,
+                    step: float = DISRUPTION_TICK_S) -> Tuple[Dict, object]:
+    """One `DisruptionController.reconcile()`, then the clock's `step`.
+    Returns (the tick's signature, the DisruptionResult).  The signature
+    names nodes by launch position and pods by batch position: the
+    action's kind and reason, its candidates, the launched claims (type,
+    zone, capacity type) in launch order, the counts deleted / rebound to
+    survivors / bound to new nodes / pending, the moves' digest, the
+    running instances and their $/h summed in launch order, and whether
+    the tick returned an error."""
+    index_nodes(env)
+    before = [p.node_name for p in env.pods]
+    nodes_before = set(env.cluster.nodes)
+    res = env.disruption.reconcile()
+    index_nodes(env)
+    action = res.action
+    running, price = _running(env)
+    sig = dict(
+        phase=phase,
+        action=None if action is None else [action.kind, action.reason],
+        candidates=[] if action is None else
+        [env.launch_index[c.name] for c in action.candidates],
+        launched=[[c.instance_type, c.zone, c.capacity_type]
+                  for c in res.launched],
+        deleted=len(res.deleted),
+        pending=len(env.cluster.pending_pods()),
+        running=running, price=price, error=bool(res.error))
+    sig.update(_moves(env, before, nodes_before))
+    env.clock.step(step)
+    return sig, res
+
+
+def _ice_everything(env: DisruptionEnv) -> None:
+    for it in env.provider.instance_types.base_catalog:
+        for o in it.offerings:
+            env.cloud.insufficient_capacity_pools.add(
+                (o.capacity_type, it.name, o.zone))
+
+
+def disruption_replay(env: DisruptionEnv,
+                      tick: Callable = disruption_tick) -> List[Dict]:
+    """The cell's five phases; returns one signature per tick (`tick`
+    runs a tick, `disruption_tick` by default, so a caller can time it):
+
+      (a) consolidation and emptiness: reconcile until a tick takes no
+          action, at most CONSOLIDATION_TICKS ticks;
+      (b) drift: the default NodeClass's spec changes (its static hash with
+          it), then DRIFT_TICKS ticks; before the middle one every
+          (type, zone, capacity type) pool of the cloud is ICE'd, so a
+          replacement launch fails and rolls back (`kept`: the fleet is as
+          before the tick), and the marks are cleared after it;
+      (c) expiration: the pool's expire_after_s, EXPIRATION_TICKS ticks;
+      (d) spot interruption: the first INTERRUPTED_SPOT spot instances in
+          launch order are interrupted, `InterruptionController.reconcile()`
+          drains them, and `provision()` re-places the evicted pods (its
+          `provision_signature` is part of the tick);
+      (e) garbage collection: one tagged instance launched straight through
+          `create_fleet`, the clock stepped past the grace period, GC."""
+    sigs: List[Dict] = []
+    for _ in range(CONSOLIDATION_TICKS):
+        sig, _ = tick(env, "consolidation")
+        sigs.append(sig)
+        if sig["action"] is None:
+            break
+
+    nc = env.provider.node_classes["default"]
+    nc.user_data = DRIFT_USER_DATA
+    nc.hash_annotation = ""
+    for t in range(DRIFT_TICKS):
+        iced = t == DRIFT_TICKS // 2
+        if iced:
+            _ice_everything(env)
+            state = fleet_state(env)
+        sig, _ = tick(env, "drift")
+        if iced:
+            sig["kept"] = fleet_state(env) == state
+            env.cloud.insufficient_capacity_pools.clear()
+        sigs.append(sig)
+
+    env.pool.disruption.expire_after_s = EXPIRE_AFTER_S
+    for _ in range(EXPIRATION_TICKS):
+        sig, _ = tick(env, "expiration")
+        sigs.append(sig)
+
+    spot = [i for i in env.cloud.running()
+            if i.capacity_type == wk.CAPACITY_TYPE_SPOT][:INTERRUPTED_SPOT]
+    by_pid = {n.provider_id: n.name for n in env.cluster.nodes.values()}
+    for inst in spot:
+        env.cloud.interrupt(inst.id)
+    ires = env.interruption.reconcile()
+    prov_sig, _ = provision_pending(env)
+    index_nodes(env)
+    running, price = _running(env)
+    sigs.append(dict(
+        phase="interruption",
+        interrupted=[env.launch_index[by_pid[i.id]] for i in spot],
+        received=ires.received, handled=dict(sorted(ires.handled.items())),
+        recycled=[env.launch_index[n] for n in ires.recycled],
+        deleted_messages=ires.deleted_messages, provision=prov_sig,
+        pending=len(env.cluster.pending_pods()), running=running,
+        price=price))
+    env.clock.step(DISRUPTION_TICK_S)
+
+    it = env.provider.instance_types.base_catalog[0]
+    o = it.offerings[0]
+    env.cloud.create_fleet(
+        [env.kit.FleetOverride(it.name, o.zone, o.capacity_type, o.price)],
+        tags={"karpenter.sh/cluster": env.provider.cluster_name})
+    early = env.gc.reconcile()
+    env.clock.step(GC_STEP_S)
+    gres = env.gc.reconcile()
+    running, price = _running(env)
+    sigs.append(dict(
+        phase="gc", early=len(early.leaked_instances),
+        leaked=len(gres.leaked_instances),
+        orphaned=len(gres.orphaned_nodes), running=running, price=price))
+    return sigs
+
+
+def disruption_digests(sigs: List[Dict]) -> List[Dict]:
+    """The cell's ticks as `GOLDEN_DISRUPTION` holds them: per tick the
+    phase, the action, the launch and delete counts, the running instances
+    and their $/h (compared with ==), and the sha256 of the whole
+    signature."""
+    out = []
+    for sig in sigs:
+        out.append(dict(
+            phase=sig["phase"], action=sig.get("action"),
+            launched=len(sig.get("launched", ())),
+            deleted=sig.get("deleted", 0), running=sig["running"],
+            price=sig["price"],
+            digest=hashlib.sha256(json.dumps(
+                sig, sort_keys=True).encode()).hexdigest()))
+    return out
+
+# `disruption_digests` of `disruption_replay(disruption_env(...))` on the
+# JAX package, on the CPU: thirteen ticks (phase (a) stops at its sixth,
+# the first without an action; phase (b)'s middle tick rolls back)
+GOLDEN_DISRUPTION: List[Dict] = [
+    dict(phase='consolidation', action=['delete', 'emptiness'], launched=0,
+         deleted=100, running=404, price=65.36120000000017,
+         digest='92334b885f7705128aea84dfcaec052b'
+                'd4dfe8d3eaf79759025eeace91dae939'),
+    dict(phase='consolidation', action=['delete', 'emptiness'], launched=0,
+         deleted=100, running=304, price=63.88120000000005,
+         digest='9e1f2264685a2645a4df5ecb4db933d8'
+                'c5f09278917cb2e7b76e70939d3f842e'),
+    dict(phase='consolidation', action=['delete', 'emptiness'], launched=0,
+         deleted=90, running=214, price=62.1238000000001,
+         digest='da1dbd3c5650d16a084d2f2c6f1fb780'
+                'e1f03274111b2723dc9c13c424f57b82'),
+    dict(phase='consolidation', action=['delete', 'consolidation'], launched=0,
+         deleted=100, running=114, price=60.58560000000009,
+         digest='06204de1997905570e755149b8c75b18'
+                '58da9ff7ce052afc2929486a749a96c9'),
+    dict(phase='consolidation', action=['delete', 'consolidation'], launched=0,
+         deleted=81, running=33, price=20.232299999999988,
+         digest='44dbce9388ea5f3eb27ea9f1b0e8c52a'
+                '046890c3673f66ddc789d4bdcdcb5419'),
+    dict(phase='consolidation', action=None, launched=0,
+         deleted=0, running=33, price=20.232299999999988,
+         digest='c198b8eb4d1b0270bd4a50fb3c6b71df'
+                '53274f3c1f77030c30e01fa6a1099cb9'),
+    dict(phase='drift', action=['replace', 'drift'], launched=14,
+         deleted=1, running=46, price=20.356500000000004,
+         digest='848736295767c6a68d449e1b27ccb21d'
+                '56985666109e9e3e5037e4fca7b837c3'),
+    dict(phase='drift', action=['replace', 'drift'], launched=0,
+         deleted=0, running=46, price=20.356500000000004,
+         digest='e7da033925f4e1e8f6ad4e2729f32e79'
+                '5bf49abd7e8c2ec316099c1e2e9f5d44'),
+    dict(phase='drift', action=['replace', 'drift'], launched=15,
+         deleted=1, running=60, price=21.49639999999999,
+         digest='c554b2591ddabba6f03659054174cfff'
+                'c89b44bf5c59eaf76aa035f022480888'),
+    dict(phase='expiration', action=['replace', 'expiration'], launched=22,
+         deleted=1, running=81, price=21.585700000000006,
+         digest='d239958894a004eb6ed530ecf5e2f538'
+                '328d1debb227c18632cb0b0b2f1d4597'),
+    dict(phase='expiration', action=['replace', 'expiration'], launched=20,
+         deleted=1, running=100, price=21.961000000000013,
+         digest='121aa85c36e809777b51f886eefa4dbe'
+                '8be7f33b1b506d7ae6b1f2ab12d6399d'),
+    dict(phase='interruption', action=None, launched=0,
+         deleted=0, running=224, price=28.14839999999995,
+         digest='acac283da2c5843e9065dabfde1834eb'
+                '5f75112d9c22e6d9ce900dcbc99d97e9'),
+    dict(phase='gc', action=None, launched=0,
+         deleted=0, running=224, price=28.14839999999995,
+         digest='5672d1d3abde39b23ed5a6129b320495'
+                '3d565aab22b529d96754f601a109dd6a'),
+]

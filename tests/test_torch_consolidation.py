@@ -390,7 +390,10 @@ def test_controller_defaults_to_cuda_and_raises_without_it(monkeypatch):
                                 dict(health=object()),
                                 dict(watchdog_timeout_s=5.0),
                                 dict(gang_source=lambda: None),
-                                dict(terminator=object())])
+                                # the terminator is ported (slice 10,
+                                # tests/test_torch_disruption.py); beside
+                                # an unported option it still raises
+                                dict(terminator=object(), health=object())])
 def test_unported_controller_options_raise(kw):
     f = workloads.consolidation_fleet(n_nodes=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

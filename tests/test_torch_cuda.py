@@ -272,6 +272,42 @@ def test_cuda_launch_sweep_matches_the_golden(cuda_device):
     assert _close(total, workloads.GOLDEN_LAUNCH_SWEEP[1])
 
 
+def _small_replay(device):
+    """Three ticks of a 300-pod disruption fleet (`workloads.disruption_env`
+    cut to 300 pods): two consolidation ticks, then a drift tick after the
+    default NodeClass's spec changes.  Returns their signatures."""
+    from karpenter_tpu_torch.ops import lpguide, lpsolve
+    with lpguide._MIX_LOCK:
+        lpguide._MIX_CACHE.clear()
+        lpguide._STALE_CACHE.clear()
+        lpguide._SUPPORT_CACHE.clear()
+    lpsolve.reset_caches()
+    env = workloads.disruption_env(
+        workloads.port_kit(), generate_catalog(workloads.DISRUPTION_TYPES),
+        n_pods=300, device=device)
+    sigs = [workloads.disruption_tick(env, "consolidation")[0]
+            for _ in range(2)]
+    env.provider.node_classes["default"].user_data = workloads.DRIFT_USER_DATA
+    env.provider.node_classes["default"].hash_annotation = ""
+    sigs.append(workloads.disruption_tick(env, "drift")[0])
+    return sigs
+
+
+@pytest.mark.cuda
+def test_cuda_disruption_ticks_equal_the_cpu_ticks(cuda_device):
+    """Three ticks of a small fleet carried out on the card equal the same
+    ticks on the CPU, through the sweep (K1 + K5) and the decoded solves
+    (K1 + K2 + K3)."""
+    want = _small_replay("cpu")
+    ck.reset_launches()
+    got = _small_replay("cuda")
+    assert got == want
+    assert want[2]["action"][1] == "drift"
+    for name in ("classpack_precompute", "classpack_scan",
+                 "classpack_assign_decode", "classpack_sweep"):
+        assert ck.LAUNCHES[name] > 0, name
+
+
 # ---- the PDHG LP kernel (csrc/lpsolve.cu) ----
 
 def _pdhg_both(insts, dev, iters_cap=20000):

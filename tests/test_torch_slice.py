@@ -234,7 +234,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "          'karpenter_tpu_torch.controllers',\n"
         "          'karpenter_tpu_torch.controllers.disruption',\n"
         "          'karpenter_tpu_torch.controllers.provisioning',\n"
+        "          'karpenter_tpu_torch.controllers.termination',\n"
+        "          'karpenter_tpu_torch.controllers.lifecycle',\n"
+        "          'karpenter_tpu_torch.controllers.interruption',\n"
+        "          'karpenter_tpu_torch.controllers.garbagecollection',\n"
         "          'karpenter_tpu_torch.cloud',\n"
+        "          'karpenter_tpu_torch.cloud.errors',\n"
+        "          'karpenter_tpu_torch.cloud.queue',\n"
         "          'karpenter_tpu_torch.utils.provenance',\n"
         "          'karpenter_tpu_torch.utils.watchdog',\n"
         "          'karpenter_tpu_torch.forecast.headroom',\n"
