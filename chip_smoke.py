@@ -189,13 +189,21 @@ pass):
                counts set to 0 just before the replay and read just
                after, each tick's read around it; every tick must
                reproduce GOLDEN_DISRUPTION, the JAX package's, and K1, K5,
-               K2 and K3 must have launched), timed (`[time]` p50 of a
-               consolidation tick with a decision and of a drift tick,
-               split into candidates, decision and execute = launch +
-               rebind + drain) and traced (each reconcile under the
-               profiler: the ticks' device busy time against the untraced
-               run's wall, the idle share); both must reproduce the golden
-               too.
+               K2 and K3 must have launched; each kernel wrapper's inputs
+               of its last call in each tick are kept and, after the
+               counts are read, the wrapper is held against its plain
+               version on them: K1 and K5 of the consolidation ticks'
+               sweeps and accepts, K1, K2 and K3 of the drift and
+               expiration replacement solves and of the re-provision),
+               timed (`[time]` p50 of a consolidation tick with a decision
+               and of an executed drift tick, split into candidates,
+               decision and execute = launch + rebind + drain, the
+               rolled-back drift tick on its own line; every kernel
+               wrapper's call spanned by CUDA events, whose sum over the
+               ticks' wall gives the idle share) and traced (each
+               reconcile under the profiler, a second witness that sees
+               the torch operations and not the ctypes launches); both
+               must reproduce the golden too.
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -3539,12 +3547,122 @@ def check_disruption_golden(sigs, what):
           f"{what}: the ICE'd drift tick did not roll back: {drift[1]}")
 
 
-def disruption_path(torch, card):
+# the kernel wrappers the disruption path calls: (the module that looks the
+# wrapper up at its call, the module of the wrapper and its plain version,
+# the wrapper's name)
+DISRUPTION_WRAPPERS = tuple(
+    ("karpenter_tpu_torch.ops.classpack",
+     "karpenter_tpu_torch.ops.classpack_kernels", name)
+    for name in ("classpack_precompute", "classpack_sweep", "classpack_scan",
+                 "classpack_assign_decode", "classpack_aggregate",
+                 "classpack_slab")) + (
+    ("karpenter_tpu_torch.ops.ffd_kernels",
+     "karpenter_tpu_torch.ops.ffd_kernels", "ffd_scan"),)
+
+
+class wrapped_kernels:
+    """While the context is open, every call of a DISRUPTION_WRAPPERS
+    wrapper goes through `hook(name, args, kwargs, call)`, where `call()`
+    runs the wrapper unchanged and returns its result."""
+
+    def __init__(self, hook):
+        self.hook, self.saved = hook, []
+
+    def __enter__(self):
+        import importlib
+        for site, _, name in DISRUPTION_WRAPPERS:
+            mod = importlib.import_module(site)
+            orig = getattr(mod, name)
+            self.saved.append((mod, name, orig))
+
+            def wrapped(*a, _name=name, _orig=orig, **k):
+                return self.hook(_name, a, k, lambda: _orig(*a, **k))
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+
+
+def same_as_plain(torch, name, got, want, what, err):
+    """A kernel's outputs against its plain version's: every integer
+    output equal; K5's cost column (float32) and K4's total_cost within
+    relative REL_TOL, as phases 3 and 5 hold them."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check(len(got) == len(want), f"{what}: {len(got)} outputs, plain "
+                                 f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None or w is None:
+            check(g is None and w is None, f"{what}: output {i} is None on "
+                                           f"one side only")
+            continue
+        cost = None
+        if name == "classpack_sweep":
+            cost, g, w = (g[:, 0].double(), w[:, 0].double()), g[:, 1:], \
+                w[:, 1:]
+        elif name == "classpack_aggregate":
+            cost, g, w = (g[:1].double(), w[:1].double()), g[1:], w[1:]
+        # K2's scalars come back in another integer type (phase 3 alike)
+        check((g.dtype == w.dtype or name == "classpack_scan")
+              and g.shape == w.shape and torch.equal(g.to(w.dtype), w),
+              f"{what}: output {i} differs from plain")
+        if cost is not None:
+            gc, wc = cost
+            d = float((gc - wc).abs().max()) if gc.numel() else 0.0
+            check(bool(torch.isfinite(gc).all()) and bool(
+                ((gc - wc).abs() <= REL_TOL * wc.abs()).all()),
+                f"{what}: cost differs from plain by {d}")
+            err[name] = max(err[name], d)
+
+
+def compare_recorded_disruption(torch, recorded, err):
+    """Each kernel wrapper against its plain version on the card, on the
+    inputs of its last call in each tick of the counted replay, for each
+    set of keyword arguments (K1 and K5 of the consolidation ticks' sweeps
+    and decoded accepts, K1, K2 and K3 of the drift and expiration
+    replacement solves, what the re-provision after the interruptions
+    ran).  Fails unless K1 and K5 were recorded in a consolidation tick
+    and K1, K2 and K3 in a drift tick."""
+    import importlib
+    plain = {name: getattr(importlib.import_module(mod), name + "_plain")
+             for _, mod, name in DISRUPTION_WRAPPERS}
+    kernels = {name: getattr(importlib.import_module(mod), name)
+               for _, mod, name in DISRUPTION_WRAPPERS}
+    seen = {}
+    for (tick, name, variant), (args, kw) in recorded.items():
+        got = kernels[name](*args, **kw)
+        want = plain[name](*args, **kw)
+        torch.cuda.synchronize()
+        same_as_plain(torch, name, got, want, f"{name} on the input of "
+                      f"{DISRUPTION_PATH}'s {tick}", err)
+        shape = "x".join(map(str, args[0].shape))
+        seen.setdefault(name, []).append(
+            f"{tick} ({shape}{', ' + variant if variant else ''})")
+    for phase, names in (("consolidation", ("classpack_precompute",
+                                            "classpack_sweep")),
+                         ("drift", ("classpack_precompute", "classpack_scan",
+                                    "classpack_assign_decode"))):
+        for name in names:
+            check(any(t.startswith(phase) and n == name
+                      for t, n, _ in recorded),
+                  f"no input of {name} was recorded in a {phase} tick")
+    for name, where in seen.items():
+        log(f"[disruption] {name} on the {len(where)} inputs recorded on "
+            f"{DISRUPTION_PATH} (its last call in each tick; first "
+            f"argument's shape): equal to plain — {', '.join(where)}")
+
+
+def disruption_path(torch, card, err):
     """Phase 13's counted run: the cell with the launch counts set to 0
     just before `disruption_replay` and read just after, each tick's
     launches read around it; every tick must reproduce GOLDEN_DISRUPTION
-    and K1, K5, K2 and K3 must have launched.  Returns the launches by
-    path: the whole replay, phase (a)'s decision ticks, the drift ticks."""
+    and K1, K5, K2 and K3 must have launched.  The inputs of each kernel
+    wrapper's last call in each tick (for each set of keyword arguments)
+    are kept (cloned) and, after the counts are read, the wrapper is held
+    against its plain version on them.  Returns the launches by path: the
+    whole replay, phase (a)'s decision ticks, the drift ticks."""
     from karpenter_tpu_torch import workloads
     t0 = time.perf_counter()
     env = fresh_disruption_env()
@@ -3553,11 +3671,24 @@ def disruption_path(torch, card):
         f"{len(env.cluster.pods)} pods after the scale-down, built in "
         f"{build_s:.3f} s (Provisioner.provision on the card)")
     ticks = []
+    # (tick, kernel, keyword arguments) -> (args, kwargs) of the wrapper's
+    # last call there (K1's sweep calls, with_ok=False, apart from its
+    # accept's); calls between ticks are phase (d)'s re-provision
+    recorded, label = {}, ["interruption re-provision"]
+
+    def record(name, a, k, call):
+        clone = lambda x: x.clone() if torch.is_tensor(x) else x  # noqa: E731
+        variant = ", ".join(f"{kk}={v!r}" for kk, v in sorted(k.items()))
+        recorded[(label[0], name, variant)] = (
+            tuple(map(clone, a)), {kk: clone(v) for kk, v in k.items()})
+        return call()
 
     def counted(env, phase):
         before = all_launches()
         n_dec = len(decisions)
+        label[0] = f"{phase} tick {len(ticks)}"
         sig, res = workloads.disruption_tick(env, phase)
+        label[0] = "interruption re-provision"
         after = all_launches()
         ticks.append((phase, sig, {k: after[k] - before[k] for k in after},
                       len(decisions) > n_dec))
@@ -3571,12 +3702,13 @@ def disruption_path(torch, card):
         decisions.append(1)
         return orig(cands)
     ctrl.consolidation_action = consolidation_action
-    reset_all_launches()
-    t0 = time.perf_counter()
-    sigs = workloads.disruption_replay(env, tick=counted)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = all_launches()
+    with wrapped_kernels(record):
+        reset_all_launches()
+        t0 = time.perf_counter()
+        sigs = workloads.disruption_replay(env, tick=counted)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
     check_disruption_golden(sigs, "disruption (counted run)")
     for name in DISRUPTION_KERNELS:
         check(launches[name] > 0,
@@ -3592,7 +3724,9 @@ def disruption_path(torch, card):
         f"{inter['provision']['bound_new']} evicted pods; gc: "
         f"{sigs[-1]['leaked']} leaked instance terminated")
     log(f"[disruption] {len(sigs)} ticks reproduce GOLDEN_DISRUPTION in "
-        f"{wall:.3f} s; launches of the replay {launches}")
+        f"{wall:.3f} s (the wrappers' inputs cloned as they ran); launches "
+        f"of the replay {launches}")
+    compare_recorded_disruption(torch, recorded, err)
 
     def total(sel):
         out = {k: 0 for k in launches}
@@ -3612,13 +3746,18 @@ def disruption_timings(torch, card):
     """Phase 13's timed runs, each on a fleet built anew: one with the
     tick split by wall clock (candidates = the reconcile less the
     decision and the execution; the execution split into launch, rebind
-    and drain), one with each reconcile under the profiler (the device's
-    idle share).  Both must reproduce GOLDEN_DISRUPTION as well."""
+    and drain) and every kernel wrapper's call spanned by CUDA events
+    (their sum is the ticks' kernel busy time, against the same run's
+    wall: the idle share), one with each reconcile under the profiler (a
+    second witness: it sees the torch operations on the card, and drops
+    the kernels launched through ctypes).  Both must reproduce
+    GOLDEN_DISRUPTION as well.  The drift p50 is over the executed ticks;
+    the rolled-back tick is printed on its own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from karpenter_tpu_torch import workloads
     env = fresh_disruption_env()
-    ctrl, acc, split = env.disruption, {}, []
+    ctrl, acc, split, spans = env.disruption, {}, [], []
 
     def timed(name, fn):
         def wrap(*a, **kw):
@@ -3629,6 +3768,16 @@ def disruption_timings(torch, card):
                 acc[name] = acc.get(name, 0.0) + \
                     (time.perf_counter() - t) * 1e3
         return wrap
+
+    def span(name, a, k, call):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            return call()
+        finally:
+            end.record()
+            spans.append((start, end))
     ctrl.consolidation_action = timed("decision", ctrl.consolidation_action)
     ctrl._replace_or_delete = timed("decision", ctrl._replace_or_delete)
     ctrl.execute = timed("execute", ctrl.execute)
@@ -3639,18 +3788,22 @@ def disruption_timings(torch, card):
 
     def tick_reconcile():
         acc.clear()
+        spans.clear()
         t = time.perf_counter()
         out = reconcile()
         torch.cuda.synchronize()
         acc["tick"] = (time.perf_counter() - t) * 1e3
+        acc["kernels"] = sum(s.elapsed_time(e) for s, e in spans)
+        acc["calls"] = len(spans)
         return out
     ctrl.reconcile = tick_reconcile
 
     def split_tick(env, phase):
         sig, res = workloads.disruption_tick(env, phase)
-        split.append((phase, dict(acc)))
+        split.append((phase, dict(acc), sig["error"]))
         return sig, res
-    sigs = workloads.disruption_replay(env, tick=split_tick)
+    with wrapped_kernels(span):
+        sigs = workloads.disruption_replay(env, tick=split_tick)
     check_disruption_golden(sigs, "disruption (timed run)")
 
     env = fresh_disruption_env()
@@ -3682,17 +3835,20 @@ def disruption_timings(torch, card):
 
     def traced_tick(env, phase):
         phases.append(phase)
-        return workloads.disruption_tick(env, phase)
+        sig, res = workloads.disruption_tick(env, phase)
+        phases[-1] = (phase, sig["error"])
+        return sig, res
     sigs = workloads.disruption_replay(env, tick=traced_tick)
     check_disruption_golden(sigs, "disruption (traced run)")
 
     parts = ("tick", "candidates", "decision", "execute", "launch", "rebind",
-             "drain")
+             "drain", "kernels")
+    consolidation = lambda ph, a, err: ph == "consolidation" and \
+        "decision" in a  # noqa: E731
+    drift = lambda ph, a, err: ph == "drift" and not err  # noqa: E731
     out = {}
-    for group, sel in (("consolidation", lambda ph, a: ph == "consolidation"
-                        and "decision" in a),
-                       ("drift", lambda ph, a: ph == "drift")):
-        rows = [a for ph, a in split if sel(ph, a)]
+    for group, sel in (("consolidation", consolidation), ("drift", drift)):
+        rows = [a for ph, a, e in split if sel(ph, a, e)]
         for a in rows:
             a["candidates"] = a["tick"] - a.get("decision", 0.0) - \
                 a.get("execute", 0.0)
@@ -3700,29 +3856,46 @@ def disruption_timings(torch, card):
                for k in parts}
         out[group] = p50
         each = [round(a["tick"], 3) for a in rows]
-        log(f"[time] disruption {group} tick: p50 {p50['tick']:.3f} ms over "
-            f"{len(rows)} ticks {each}; candidates {p50['candidates']:.3f}, "
+        kind = " (executed)" if group == "drift" else ""
+        log(f"[time] disruption {group} tick{kind}: p50 {p50['tick']:.3f} "
+            f"ms over {len(rows)} ticks {each}; candidates "
+            f"{p50['candidates']:.3f}, "
             f"decision {p50['decision']:.3f}, execute {p50['execute']:.3f} "
             f"(launch {p50['launch']:.3f}, rebind {p50['rebind']:.3f}, "
             f"drain {p50['drain']:.3f}) ms on {card}")
-        tr = [(w, b) for (w, b, dec), ph in zip(traced, phases)
+        # the kernel wrappers' CUDA-event spans over the same ticks' wall:
+        # a span runs from the wrapper's entry to its kernel's end, so it
+        # holds the wrapper's host work ahead of the launch as well
+        busy = sum(a["kernels"] for a in rows)
+        wall = sum(a["tick"] for a in rows)
+        calls = sum(a["calls"] for a in rows)
+        out[group]["idle_share"] = 1 - busy / wall
+        tr = [(w, b) for (w, b, dec), (ph, e) in zip(traced, phases)
               if (ph == "consolidation" and dec if group == "consolidation"
-                  else ph == "drift")]
+                  else ph == "drift" and not e)]
         check(len(tr) == len(rows), f"{len(tr)} traced {group} ticks, "
               f"{len(rows)} timed")
-        busy = sum(b for _, b in tr)
-        wall_traced = sum(w for w, _ in tr)
-        # the profiler's own host cost inflates the traced wall: the share
-        # is taken against the untraced run's wall of the same ticks
-        wall = sum(a["tick"] for a in rows)
-        out[group]["idle_share"] = 1 - busy / wall
-        log(f"[trace] disruption {group} ticks: device busy {busy:.3f} ms "
-            f"over {len(tr)} traced ticks against {wall:.3f} ms of the same "
-            f"ticks untraced: idle share {out[group]['idle_share']:.4f} "
-            f"({1 - busy / wall_traced:.4f} against the traced wall "
-            f"{wall_traced:.3f} ms) on {card}")
-        check(busy > 0, f"the disruption {group} ticks' trace shows no "
-              f"device time")
+        seen = sum(b for _, b in tr)
+        log(f"[trace] disruption {group} ticks: the {calls} kernel calls' "
+            f"CUDA-event spans {busy:.3f} ms of {wall:.3f} ms wall over "
+            f"{len(rows)} ticks: idle share {out[group]['idle_share']:.4f}; "
+            f"the profiler (a second witness, blind to the ctypes "
+            f"launches) saw {seen:.3f} ms of device time over the same "
+            f"ticks on {card}")
+        check(busy > 0 and calls > 0, f"the disruption {group} ticks "
+              f"spanned no kernel call")
+    rolled = [a for ph, a, e in split if ph == "drift" and e]
+    check(len(rolled) == 1, f"{len(rolled)} rolled-back drift ticks")
+    a = rolled[0]
+    a["candidates"] = a["tick"] - a.get("decision", 0.0) - \
+        a.get("execute", 0.0)
+    log(f"[time] disruption drift tick (rolled back: every replacement "
+        f"launch ICE'd): {a['tick']:.3f} ms; candidates "
+        f"{a['candidates']:.3f}, decision {a.get('decision', 0.0):.3f}, "
+        f"execute {a.get('execute', 0.0):.3f} (launch "
+        f"{a.get('launch', 0.0):.3f}, rebind {a.get('rebind', 0.0):.3f}, "
+        f"drain {a.get('drain', 0.0):.3f}) ms; kernel spans "
+        f"{a['kernels']:.3f} ms over {a['calls']} calls on {card}")
     return out
 
 
@@ -3761,7 +3934,7 @@ def main() -> int:
     log(f"[provision] phase 10 cells done "
         f"({time.perf_counter() - t_start:.1f} s so far)")
     # phase 13 (run here, so the kernel rows carry its launches)
-    by_path.update(disruption_path(torch, card))
+    by_path.update(disruption_path(torch, card, err))
     disruption_timings(torch, card)
     log(f"[disruption] phase 13 done "
         f"({time.perf_counter() - t_start:.1f} s so far)")

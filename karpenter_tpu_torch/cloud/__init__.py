@@ -5,7 +5,7 @@ CloudProvider that launches, terminates, lists and drift-checks NodeClaims
 
 from .cache import TTLCache, UnavailableOfferings, UNAVAILABLE_OFFERINGS_TTL
 from .fake import (CloudError, CloudInstance, FakeCloud, FleetError,
-                   FleetOverride, FleetResult, ICE_CODE, ImageInfo,
+                   FleetOverride, FleetResult, ICE_CODE,
                    LaunchTemplateInfo)
 from .provider import (CloudProvider, InstanceTypesProvider,
                        InsufficientCapacityError, MAX_INSTANCE_TYPES,

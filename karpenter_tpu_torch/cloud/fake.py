@@ -5,11 +5,12 @@ test backend, pkg/fake/ec2api.go:40-120: a thread-safe instance store, a
 stateful CreateFleet that launches in-memory instances, and an
 `insufficient_capacity_pools` knob injecting ICE per (type, zone,
 capacityType)), with the interruption queue's publishing side (a spot
-interruption's warning and its clock-scheduled reclaim), the image and
-launch-template registries drift reads, and per-API fault injection.  Left
-out: the subnet, security-group and spot-price inventories (their
-providers are not ported), the chaos injector (`api_errors` stands in for
-its per-API seam) and the warm-restart export (ROADMAP.md queue B)."""
+interruption's warning and its clock-scheduled reclaim), the
+launch-template registry drift's security-group check reads, and per-API
+fault injection.  Left out: the image, subnet, security-group and
+spot-price inventories and the launch-template API (their providers are
+not ported), the chaos injector (`api_errors` stands in for its per-API
+seam) and the warm-restart export (ROADMAP.md queue B)."""
 
 from __future__ import annotations
 
@@ -71,33 +72,13 @@ class FleetResult:
 
 
 @dataclass
-class ImageInfo:
-    """A bootable node image — the AMI analog
-    (karpenter:pkg/providers/amifamily/ami.go:116-136)."""
-    id: str
-    name: str
-    architecture: str = "amd64"
-    creation_ts: float = 0.0
-    deprecated: bool = False
-    tags: Dict[str, str] = field(default_factory=dict)
-
-
-@dataclass
 class LaunchTemplateInfo:
     """A stored launch template
-    (karpenter:pkg/providers/launchtemplate/launchtemplate.go:233)."""
+    (karpenter:pkg/providers/launchtemplate/launchtemplate.go:233), trimmed
+    to what drift's security-group check reads."""
     name: str
     image_id: str
-    user_data: str = ""
     security_group_ids: Tuple[str, ...] = ()
-    block_device_gib: int = 20
-    block_device_mappings: Tuple[str, ...] = ()   # canonical JSON strings
-    metadata_options: Tuple = ()                  # sorted (key, value) pairs
-    detailed_monitoring: bool = False
-    instance_store_policy: str = ""
-    associate_public_ip: object = None            # None == subnet default
-    instance_profile: str = ""
-    tags: Dict[str, str] = field(default_factory=dict)
 
 
 class FakeCloud:
@@ -119,7 +100,6 @@ class FakeCloud:
         self.api_errors: Dict[str, Exception] = {}
         self.calls: Dict[str, int] = {}
         self.queue = queue  # interruption events go here when attached
-        self.images: List[ImageInfo] = []
         self.launch_templates: Dict[str, LaunchTemplateInfo] = {}
         # clock-scheduled deliveries: an (at, seq, action, instance_id)
         # heap drained by deliver_due() — the virtual-time interruption
@@ -225,46 +205,6 @@ class FakeCloud:
                     inst.state = "terminated"
                     done.append(iid)
             return done
-
-    def describe_images(self, ids: Optional[Sequence[str]] = None
-                        ) -> List[ImageInfo]:
-        with self._lock:
-            self._count("describe_images")
-            self._maybe_raise("describe_images")
-            if ids is None:
-                return list(self.images)
-            want = set(ids)
-            return [i for i in self.images if i.id in want]
-
-    def create_launch_template(self, lt: LaunchTemplateInfo
-                               ) -> LaunchTemplateInfo:
-        with self._lock:
-            self._count("create_launch_template")
-            self._maybe_raise("create_launch_template")
-            if lt.name in self.launch_templates:
-                raise CloudError(
-                    "InvalidLaunchTemplateName.AlreadyExistsException",
-                    lt.name)
-            self.launch_templates[lt.name] = lt
-            return lt
-
-    def describe_launch_templates(self,
-                                  tag_filter: Optional[Dict[str, str]] = None
-                                  ) -> List[LaunchTemplateInfo]:
-        with self._lock:
-            self._count("describe_launch_templates")
-            self._maybe_raise("describe_launch_templates")
-            return [lt for lt in self.launch_templates.values()
-                    if not tag_filter or all(lt.tags.get(k) == v
-                                             for k, v in tag_filter.items())]
-
-    def delete_launch_template(self, name: str) -> None:
-        with self._lock:
-            self._count("delete_launch_template")
-            self._maybe_raise("delete_launch_template")
-            if name not in self.launch_templates:
-                raise CloudError("InvalidLaunchTemplateId.NotFound", name)
-            del self.launch_templates[name]
 
     def create_tags(self, iid: str, tags: Dict[str, str]) -> None:
         with self._lock:

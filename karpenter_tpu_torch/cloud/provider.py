@@ -393,9 +393,6 @@ class CloudProvider:
         """Terminate the claim's instance
         (karpenter:pkg/cloudprovider/cloudprovider.go:170-185); an instance
         already gone raises CloudError("InstanceNotFound")."""
-        self._delete(claim)
-
-    def _delete(self, claim: NodeClaim) -> None:
         if not claim.provider_id:
             return
         done = self.cloud.terminate_instances([claim.provider_id])
@@ -411,9 +408,6 @@ class CloudProvider:
         return self._instance_to_claim(inst)
 
     def list(self) -> List[NodeClaim]:
-        return self._list()
-
-    def _list(self) -> List[NodeClaim]:
         """Every cluster-owned instance as a NodeClaim (garbage collection's
         ground truth, karpenter:pkg/controllers/nodeclaim/
         garbagecollection/controller.go:57-91)."""

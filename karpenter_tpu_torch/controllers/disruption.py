@@ -466,9 +466,6 @@ class DisruptionController:
     # the single-action reconcile
     # ------------------------------------------------------------------
     def reconcile(self) -> DisruptionResult:
-        return self._reconcile()
-
-    def _reconcile(self) -> DisruptionResult:
         cands = self.candidates()
         # every method's eligibility up front, as the reference computes its
         # gauges (calling find_empty every tick keeps its timers fresh)
@@ -776,9 +773,6 @@ class DisruptionController:
     # execution: taint → launch the replacements → rebind → terminate
     # ------------------------------------------------------------------
     def execute(self, action: Action) -> DisruptionResult:
-        return self._execute(action)
-
-    def _execute(self, action: Action) -> DisruptionResult:
         out = DisruptionResult(action=action)
         # taint first so nothing new schedules onto doomed nodes
         # (website/.../concepts/disruption.md:9-14)

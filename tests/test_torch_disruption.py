@@ -18,7 +18,8 @@ the kernels' plain versions).
   * the port's boundaries: the options still unported raise and name
     their ROADMAP.md items, a device fault in the decision or a
     replacement solve leaves `reconcile()` as it came, the rebinds bind
-    the cluster's own pods, the arena is rebuilt after an executed tick;
+    the cluster's own pods, the arena is rebuilt after an executed tick,
+    a terminate failure aimed at that one API untaints for a retry;
   * the full-width cell `disruption-replay-500` (BASELINE config 4): the
     JAX package produces `workloads.GOLDEN_DISRUPTION` and the port
     reproduces it tick by tick (about 25 s each on the CPU).
@@ -613,6 +614,39 @@ def test_transient_delete_failure_untaints_for_retry():
     doomed = res.action.candidates[0].node
     assert not doomed.marked_for_deletion
     assert DISRUPTION_TAINT not in doomed.taints
+    assert len(t.p.cloud.running()) == 2
+    res2 = t.tick()                   # the retry: the node is empty now
+    assert res2.deleted == [doomed.name]
+    assert len(t.p.cloud.running()) == 1
+
+
+def test_terminate_failure_after_a_replacement_untaints_for_retry():
+    """A drift replacement whose candidate's terminate call fails, the
+    fault aimed at that one API (the reference's chaos rule on
+    `cloud.api[terminate_instances]`, the port's `api_errors`): the
+    replacement's CreateFleet goes through, the pods move to it, and the
+    candidate is untainted so the next tick retries the delete."""
+    from karpenter_tpu.utils.chaos import CHAOS, ChaosRule
+    t = Twin()
+    pod = cpu_pod(cpu_m=400)
+    t.provision([pod])
+    _remove_launched_type(t)
+    CHAOS.configure([ChaosRule(point="cloud.api", key="terminate_instances",
+                               count=1, error_code="InternalError")])
+    t.p.cloud.api_errors["terminate_instances"] = TCloudError(
+        "InternalError", "injected")
+    try:
+        res = t.tick()
+    finally:
+        CHAOS.reset()
+    assert res.action.name == "replace/drift"
+    assert res.error and res.deleted == [] and len(res.launched) == 1
+    assert not t.p.cloud.api_errors
+    doomed = res.action.candidates[0].node
+    assert not doomed.marked_for_deletion
+    assert DISRUPTION_TAINT not in doomed.taints
+    moved = t.p.cluster.nodes[t.pod(pod).node_name]
+    assert moved.provider_id == res.launched[0].provider_id
     assert len(t.p.cloud.running()) == 2
     res2 = t.tick()                   # the retry: the node is empty now
     assert res2.deleted == [doomed.name]
