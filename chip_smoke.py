@@ -127,9 +127,9 @@ pass):
                the launch counts zeroed just before it; the SolverHealth
                ladder and the DecodeHealth breaker must book no failure;
                K6 must launch in the first two cells, K7 in the last two.
-               Then warm p50s on the live cell's frozen round-2 state
-               (Provisioner.solve, and whole provision() rounds on fresh
-               copies with their tensorize / pack / launch split), K7
+               Then the warm p50 of Provisioner.solve on the live cell's
+               frozen round-2 state (whole provision() rounds on fresh
+               copies, with their split, are phase 14's), K7
                against its plain version on every provision-small batch
                (twice, bit-equal) with its card time there, and the times
                of K6, the slab programs (rows 7-8) and K7 (row 11) at the
@@ -204,6 +204,25 @@ pass):
                reconcile under the profiler, a second witness that sees
                the torch operations and not the ctypes launches); both
                must reproduce the golden too.
+ 14. the arena and the operator — run last, after every profiler trace,
+               with every kernel wrapper's call spanned by CUDA events and
+               the inputs of its last call on each path kept: (a) the four
+               provisioning cells with the cluster's ClusterArena attached
+               before round 1, and the live cell once more behind an
+               IngestBatcher flushed before each provision(), every round
+               against GOLDEN_PROVISION, each round on a live cluster
+               gathered warm from the arena; (b) disruption-replay-500 with
+               the arena against GOLDEN_DISRUPTION, its consolidation faces
+               gathered warm, then without it; (c) the operator cell —
+               Operator(Options()) on the card at full width with
+               build_controllers, the live cell's two bursts and one
+               disruption tick — against GOLDEN_OPERATOR; (d) every
+               wrapper held against its plain version on the kept inputs.
+               Each step's launches (zeroed just before it) and idle share
+               are printed, "tensorize" split into lower_pods, tensorize
+               and the live-node gather, and live round 2's provision()
+               timed on fresh copies without the arena, with it and behind
+               an IngestBatcher; the paths' launches join the kernel rows.
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -2338,30 +2357,85 @@ def fresh_env(env, cell, catalog, device, **extra):
     return workloads.ProvisionEnv(cloud, provider, cluster, prov)
 
 
-def provision_layers(torch, env):
-    """One provision() with its split: tensorize (constraint lowering,
-    tensorize, the live-node gather), pack (the solve on the card with its
-    decode) and launch (claims, fake cloud, registration, binds), ms."""
-    prov = env.provisioner
-    acc = {"solve": 0.0, "pack": 0.0}
+class layer_timer:
+    """While open, time one Provisioner's layers, summed over calls, ms:
+    `solve`, `pack` (`_pack_supervised`, the solve on the card with its
+    decode, synchronized), and inside the solve the three parts of
+    "tensorize": constraint lowering (`lower_pods`), `tensorize`, and the
+    live-node gather (`Cluster.tensorize_nodes` or the arena's `gather`,
+    whichever served it)."""
 
-    def timed(key, fn):
+    PARTS = ("solve", "pack", "lower", "tensorize", "gather")
+
+    def __init__(self, torch, prov):
+        self.torch, self.prov = torch, prov
+        self.acc = {k: 0.0 for k in self.PARTS}
+
+    def _timed(self, key, fn, sync=False):
         def run(*a, **k):
             t0 = time.perf_counter()
             try:
                 return fn(*a, **k)
             finally:
-                torch.cuda.synchronize()
-                acc[key] += (time.perf_counter() - t0) * 1e3
+                if sync:
+                    self.torch.cuda.synchronize()
+                self.acc[key] += (time.perf_counter() - t0) * 1e3
         return run
-    prov.solve = timed("solve", prov.solve)
-    prov._pack_supervised = timed("pack", prov._pack_supervised)
-    t0 = time.perf_counter()
-    prov.provision()
-    torch.cuda.synchronize()
-    total = (time.perf_counter() - t0) * 1e3
-    return dict(total=total, tensorize=acc["solve"] - acc["pack"],
-                pack=acc["pack"], launch=total - acc["solve"])
+
+    def __enter__(self):
+        from karpenter_tpu_torch.controllers import provisioning as pm
+        prov, cluster = self.prov, self.prov.cluster
+        self.module = (pm, pm.lower_pods, pm.tensorize)
+        pm.lower_pods = self._timed("lower", pm.lower_pods)
+        pm.tensorize = self._timed("tensorize", pm.tensorize)
+        self.objects = [(prov, "solve"), (prov, "_pack_supervised"),
+                        (cluster, "tensorize_nodes")]
+        prov.solve = self._timed("solve", prov.solve)
+        prov._pack_supervised = self._timed("pack", prov._pack_supervised,
+                                            sync=True)
+        cluster.tensorize_nodes = self._timed("gather",
+                                              cluster.tensorize_nodes)
+        if cluster.arena is not None:
+            self.objects.append((cluster.arena, "gather"))
+            cluster.arena.gather = self._timed("gather", cluster.arena.gather)
+        return self.acc
+
+    def __exit__(self, *exc):
+        pm, lower, tens = self.module
+        pm.lower_pods, pm.tensorize = lower, tens
+        for obj, name in self.objects:
+            del obj.__dict__[name]
+
+
+def layer_line(acc, total):
+    """The split of one provision(): tensorize (solve less pack) as
+    lowering + tensorize + gather + the rest of the solve's host work, pack,
+    and launch (the round less the solve: claims, the fake cloud,
+    registration, binds)."""
+    rest = acc.get("other", acc["solve"] - acc["pack"] - acc["lower"] -
+                   acc["tensorize"] - acc["gather"])
+    return (f"tensorize {acc['solve'] - acc['pack']:.3f} (lower_pods "
+            f"{acc['lower']:.3f}, tensorize {acc['tensorize']:.3f}, gather "
+            f"{acc['gather']:.3f}, other {rest:.3f}), pack {acc['pack']:.3f}, "
+            f"launch {total - acc['solve']:.3f}")
+
+
+def median_split(splits):
+    """Of several provision() splits, the one whose total is the median
+    (its parts add up, which medians taken part by part need not)."""
+    return sorted(splits, key=lambda x: x["total"])[len(splits) // 2]
+
+
+def provision_layers(torch, env):
+    """One provision() with its split (`layer_timer`), ms."""
+    with layer_timer(torch, env.provisioner) as acc:
+        t0 = time.perf_counter()
+        env.provisioner.provision()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    return dict(acc, total=total, launch=total - acc["solve"],
+                other=acc["solve"] - acc["pack"] - acc["lower"] -
+                acc["tensorize"] - acc["gather"])
 
 
 def provision_cells(torch, card, device="cuda"):
@@ -2399,7 +2473,7 @@ def provision_cells(torch, card, device="cuda"):
             env.cluster.add_pods(workloads.build_pods(
                 rng=np.random.default_rng(seed), **kw))
             if cell == LIVE_PATH and r == 1:
-                provision_timings(torch, card, env, cell, catalog, device)
+                provision_timings(torch, card, env, cell)
             reset_all_launches()
             with captured(cp, "classpack_slab") as k6, \
                     captured(cp, "class_pack_assign_slab_kernel") as prog, \
@@ -2444,10 +2518,10 @@ def provision_cells(torch, card, device="cuda"):
     return by_path, slabs, programs, scans
 
 
-def provision_timings(torch, card, env, cell, catalog, device, iters=5):
-    """Warm p50s on the frozen round-2 state of the live cell:
-    Provisioner.solve (which changes nothing), then whole provision()
-    rounds, each on a fresh copy, with their layer split."""
+def provision_timings(torch, card, env, cell, iters=5):
+    """Warm p50 of Provisioner.solve (which changes nothing) on the frozen
+    round-2 state of the live cell.  Whole provision() rounds on fresh
+    copies, with their layer split, are phase 14's (`arena_timings`)."""
     batch = env.cluster.pending_pods()
     prov = env.provisioner
     prov.solve(batch)
@@ -2455,14 +2529,6 @@ def provision_timings(torch, card, env, cell, catalog, device, iters=5):
     p50, xs = p50_ms(lambda: prov.solve(batch), iters, torch.cuda.synchronize)
     log(f"[time] {cell} round 2: Provisioner.solve warm p50 {p50:.3f} ms "
         f"over {iters} ({', '.join(f'{x:.1f}' for x in xs)}) on {card}")
-    splits = []
-    for _ in range(3):
-        splits.append(provision_layers(torch, fresh_env(env, cell, catalog,
-                                                        device)))
-    med = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
-    log(f"[time] {cell} round 2: provision() p50 {med['total']:.3f} ms "
-        f"over 3 fresh copies (tensorize {med['tensorize']:.3f}, pack "
-        f"{med['pack']:.3f}, launch {med['launch']:.3f}) on {card}")
 
 
 def slab_program_plain(args):
@@ -3190,10 +3256,10 @@ def cell_timings(torch, card, env, catalog, mesh, iters=3):
     splits = [provision_layers(torch, fresh_env(env, CELL_PATH, catalog,
                                                 "cuda", mesh=mesh))
               for _ in range(3)]
-    med = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    med = median_split(splits)
     log(f"[time] {CELL_PATH} round 2: provision() p50 {med['total']:.3f} ms "
-        f"over 3 fresh copies (tensorize {med['tensorize']:.3f}, pack "
-        f"{med['pack']:.3f}, launch {med['launch']:.3f}) on {card}")
+        f"over 3 fresh copies (the median copy's split: "
+        f"{layer_line(med, med['total'])}) on {card}")
 
 
 def sharded_solve_timings(torch, card, mega, head, ex):
@@ -3617,6 +3683,69 @@ def same_as_plain(torch, name, got, want, what, err):
             err[name] = max(err[name], d)
 
 
+class kernel_log:
+    """A `wrapped_kernels` hook.  Under the current `label` (None: nothing
+    kept) it keeps in `recorded` the inputs of each wrapper's last call,
+    cloned, per set of keyword arguments; with `spans` it also puts a pair
+    of CUDA events around every call (`take_busy`).  A span runs from the
+    wrapper's entry to its kernel's end, so it holds the wrapper's host
+    work ahead of the launch as well; the clones fall outside it."""
+
+    def __init__(self, torch, label=None, spans=False):
+        self.torch, self.label, self.with_spans = torch, label, spans
+        self.recorded, self.spans = {}, []
+
+    def __call__(self, name, a, k, call):
+        torch = self.torch
+        if self.label is not None:
+            clone = lambda x: x.clone() if torch.is_tensor(x) else x  # noqa: E731
+            variant = ", ".join(f"{kk}={v!r}" for kk, v in sorted(k.items()))
+            self.recorded[(self.label, name, variant)] = (
+                tuple(map(clone, a)), {kk: clone(v) for kk, v in k.items()})
+        if not self.with_spans:
+            return call()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            return call()
+        finally:
+            end.record()
+            self.spans.append((start, end))
+
+    def take_busy(self):
+        """(the spans' summed time since the last take, ms, their count);
+        synchronizes."""
+        self.torch.cuda.synchronize()
+        out = (sum(s.elapsed_time(e) for s, e in self.spans), len(self.spans))
+        self.spans.clear()
+        return out
+
+
+def hold_recorded(torch, recorded, err, where):
+    """Each kernel wrapper against its plain version on the card, on every
+    recorded input: `recorded` maps (label, wrapper, keyword arguments) to
+    the (args, kwargs) of the wrapper's last call under that label.
+    Returns {wrapper: [labels with the input's first shape]}; fails on the
+    first difference."""
+    import importlib
+    plain = {name: getattr(importlib.import_module(mod), name + "_plain")
+             for _, mod, name in DISRUPTION_WRAPPERS}
+    kernels = {name: getattr(importlib.import_module(mod), name)
+               for _, mod, name in DISRUPTION_WRAPPERS}
+    seen = {}
+    for (label, name, variant), (args, kw) in recorded.items():
+        got = kernels[name](*args, **kw)
+        want = plain[name](*args, **kw)
+        torch.cuda.synchronize()
+        same_as_plain(torch, name, got, want, f"{name} on the input of "
+                      f"{where(label)}", err)
+        shape = "x".join(map(str, args[0].shape))
+        seen.setdefault(name, []).append(
+            f"{label} ({shape}{', ' + variant if variant else ''})")
+    return seen
+
+
 def compare_recorded_disruption(torch, recorded, err):
     """Each kernel wrapper against its plain version on the card, on the
     inputs of its last call in each tick of the counted replay, for each
@@ -3625,21 +3754,8 @@ def compare_recorded_disruption(torch, recorded, err):
     replacement solves, what the re-provision after the interruptions
     ran).  Fails unless K1 and K5 were recorded in a consolidation tick
     and K1, K2 and K3 in a drift tick."""
-    import importlib
-    plain = {name: getattr(importlib.import_module(mod), name + "_plain")
-             for _, mod, name in DISRUPTION_WRAPPERS}
-    kernels = {name: getattr(importlib.import_module(mod), name)
-               for _, mod, name in DISRUPTION_WRAPPERS}
-    seen = {}
-    for (tick, name, variant), (args, kw) in recorded.items():
-        got = kernels[name](*args, **kw)
-        want = plain[name](*args, **kw)
-        torch.cuda.synchronize()
-        same_as_plain(torch, name, got, want, f"{name} on the input of "
-                      f"{DISRUPTION_PATH}'s {tick}", err)
-        shape = "x".join(map(str, args[0].shape))
-        seen.setdefault(name, []).append(
-            f"{tick} ({shape}{', ' + variant if variant else ''})")
+    seen = hold_recorded(torch, recorded, err,
+                         lambda tick: f"{DISRUPTION_PATH}'s {tick}")
     for phase, names in (("consolidation", ("classpack_precompute",
                                             "classpack_sweep")),
                          ("drift", ("classpack_precompute", "classpack_scan",
@@ -3674,21 +3790,14 @@ def disruption_path(torch, card, err):
     # (tick, kernel, keyword arguments) -> (args, kwargs) of the wrapper's
     # last call there (K1's sweep calls, with_ok=False, apart from its
     # accept's); calls between ticks are phase (d)'s re-provision
-    recorded, label = {}, ["interruption re-provision"]
-
-    def record(name, a, k, call):
-        clone = lambda x: x.clone() if torch.is_tensor(x) else x  # noqa: E731
-        variant = ", ".join(f"{kk}={v!r}" for kk, v in sorted(k.items()))
-        recorded[(label[0], name, variant)] = (
-            tuple(map(clone, a)), {kk: clone(v) for kk, v in k.items()})
-        return call()
+    record = kernel_log(torch, label="interruption re-provision")
 
     def counted(env, phase):
         before = all_launches()
         n_dec = len(decisions)
-        label[0] = f"{phase} tick {len(ticks)}"
+        record.label = f"{phase} tick {len(ticks)}"
         sig, res = workloads.disruption_tick(env, phase)
-        label[0] = "interruption re-provision"
+        record.label = "interruption re-provision"
         after = all_launches()
         ticks.append((phase, sig, {k: after[k] - before[k] for k in after},
                       len(decisions) > n_dec))
@@ -3726,7 +3835,7 @@ def disruption_path(torch, card, err):
     log(f"[disruption] {len(sigs)} ticks reproduce GOLDEN_DISRUPTION in "
         f"{wall:.3f} s (the wrappers' inputs cloned as they ran); launches "
         f"of the replay {launches}")
-    compare_recorded_disruption(torch, recorded, err)
+    compare_recorded_disruption(torch, record.recorded, err)
 
     def total(sel):
         out = {k: 0 for k in launches}
@@ -3757,7 +3866,8 @@ def disruption_timings(torch, card):
     from torch.profiler import ProfilerActivity, profile
     from karpenter_tpu_torch import workloads
     env = fresh_disruption_env()
-    ctrl, acc, split, spans = env.disruption, {}, [], []
+    ctrl, acc, split = env.disruption, {}, []
+    span = kernel_log(torch, spans=True)
 
     def timed(name, fn):
         def wrap(*a, **kw):
@@ -3769,15 +3879,6 @@ def disruption_timings(torch, card):
                     (time.perf_counter() - t) * 1e3
         return wrap
 
-    def span(name, a, k, call):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        try:
-            return call()
-        finally:
-            end.record()
-            spans.append((start, end))
     ctrl.consolidation_action = timed("decision", ctrl.consolidation_action)
     ctrl._replace_or_delete = timed("decision", ctrl._replace_or_delete)
     ctrl.execute = timed("execute", ctrl.execute)
@@ -3788,13 +3889,12 @@ def disruption_timings(torch, card):
 
     def tick_reconcile():
         acc.clear()
-        spans.clear()
+        span.take_busy()
         t = time.perf_counter()
         out = reconcile()
         torch.cuda.synchronize()
         acc["tick"] = (time.perf_counter() - t) * 1e3
-        acc["kernels"] = sum(s.elapsed_time(e) for s, e in spans)
-        acc["calls"] = len(spans)
+        acc["kernels"], acc["calls"] = span.take_busy()
         return out
     ctrl.reconcile = tick_reconcile
 
@@ -3899,6 +3999,340 @@ def disruption_timings(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the arena and the operator
+# ---------------------------------------------------------------------------
+
+ARENA = " +arena"
+INGEST_PATH = LIVE_PATH + " +arena +ingest"
+OPERATOR_PATH = "operator-live-50k-20k"
+
+
+def operator_kit():
+    from types import SimpleNamespace
+    from karpenter_tpu_torch.cloud.fake import (ImageInfo, SecurityGroupInfo,
+                                                SubnetInfo)
+    from karpenter_tpu_torch.operator import (Operator, Options,
+                                              build_controllers)
+    return SimpleNamespace(Operator=Operator, Options=Options,
+                           build_controllers=build_controllers,
+                           SubnetInfo=SubnetInfo,
+                           SecurityGroupInfo=SecurityGroupInfo,
+                           ImageInfo=ImageInfo)
+
+
+def idle_line(busy, calls, wall):
+    return (f"kernel spans {busy:.3f} ms over {calls} calls of {wall:.3f} ms "
+            f"wall: idle share {1 - busy / wall:.4f}")
+
+
+def arena_round(torch, card, env, hook, path, r, want, ingest=False):
+    """One counted provision() of an arena run: launch counts zeroed just
+    before it and read just after, its kernel wrappers' inputs recorded
+    under `path round r` and spanned, its layers split; it must give
+    `want`, and on a live cluster its gather must have been served warm
+    from the arena's slab.  Returns the round's launches."""
+    from karpenter_tpu_torch import workloads
+    arena = env.cluster.arena
+    if ingest:
+        arena.flush()              # the manager's top-of-tick flush
+    live = len(env.cluster.nodes) > 0
+    g0 = dict(arena.gathers)
+    hook.label = f"{path} round {r}"
+    hook.take_busy()
+    reset_all_launches()
+    with layer_timer(torch, env.provisioner) as acc:
+        t0 = time.perf_counter()
+        sig, _ = workloads.provision_pending(env)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = all_launches()
+    busy, calls = hook.take_busy()
+    check(sig == want, f"{path} round {r}: {sig} != golden {want}")
+    warm = arena.gathers["warm"] - g0["warm"]
+    check(arena.gathers["fallback"] == g0["fallback"],
+          f"{path} round {r}: the arena refused a gather")
+    check(warm >= 1 or not live, f"{path} round {r}: the live nodes were not "
+          f"gathered from the arena")
+    log(f"[arena] {path} round {r}: golden matches ({sig['launched']} "
+        f"launched, {sig['bound_existing']} bound to existing nodes); "
+        f"{warm} warm gathers; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"[time] {path} round {r}: provision() {wall:.3f} ms "
+        f"({layer_line(acc, wall)}); {idle_line(busy, calls, wall)} on {card}")
+    return launches
+
+
+def arena_cells(torch, card, hook, device="cuda"):
+    """14(a): every cell of GOLDEN_PROVISION with the arena attached before
+    round 1, every round against its golden (`arena_round`), the ladder and
+    the decode breaker clean; live round 2 timed with and without the
+    arena (`arena_timings`); then the live cell once more behind an
+    IngestBatcher flushed before each provision().  Returns the launches by
+    path."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.api.objects import NodePool
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.ops.decode import DecodeHealth
+    from karpenter_tpu_torch.ops.health import SolverHealth
+    from karpenter_tpu_torch.state import Cluster
+    from karpenter_tpu_torch.state.ingest import IngestBatcher
+    catalog = generate_catalog(workloads.PROVISION_TYPES)
+    by_path = {}
+    runs = [(cell, cell + ARENA, False) for cell in workloads.GOLDEN_PROVISION]
+    runs.append((LIVE_PATH, INGEST_PATH, True))
+    for cell, path, ingest in runs:
+        clear_lp_caches()
+        health, dh = SolverHealth(), DecodeHealth()
+        env = workloads.provision_env(cell, FakeCloud, CloudProvider, Cluster,
+                                      Provisioner, NodePool, catalog,
+                                      arena=True, health=health,
+                                      decode_health=dh, device=device)
+        if ingest:
+            env.cluster.arena = IngestBatcher(env.cluster.arena)
+        total = {}
+        for r, (kw, seed) in enumerate(workloads.PROVISION_CELLS[cell][1]):
+            env.cluster.add_pods(workloads.build_pods(
+                rng=np.random.default_rng(seed), **kw))
+            if path == LIVE_PATH + ARENA and r == 1:
+                arena_timings(torch, card, env, catalog, device)
+            got = arena_round(torch, card, env, hook, path, r + 1,
+                              workloads.GOLDEN_PROVISION[cell][r], ingest)
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+        check(not health.transitions and all(
+            v["total_failures"] == 0
+            for v in health.snapshot()["rungs"].values()),
+            f"{path}: the solver ladder booked a failure")
+        check(dh.total_failures == 0 and not dh.transitions,
+              f"{path}: the decode breaker booked a failure")
+        if ingest:
+            log(f"[arena] {path}: {env.cluster.arena.events_total} events "
+                f"coalesced into {env.cluster.arena.flushes_total} flushes")
+        by_path[path] = total
+    hook.label = None
+    return by_path
+
+
+def arena_timings(torch, card, env, catalog, device, iters=3):
+    """14(f): live round 2's provision() on fresh copies of the round-2
+    state, in turn without the arena (tensorize_nodes), with one attached
+    to the copy (its rebuild before the clock starts; the round's binds
+    then refresh its rows one by one) and with that arena behind an
+    IngestBatcher (the binds coalesce; the next tick's flush, timed apart,
+    applies them): p50 of each, with the three-part split."""
+    from karpenter_tpu_torch.state.ingest import IngestBatcher
+    out = {"without the arena": [], "with the arena": [],
+           "with the arena behind an IngestBatcher": []}
+    flushes = []
+    for _ in range(iters):
+        for kind, splits in out.items():
+            fresh = fresh_env(env, LIVE_PATH, catalog, device)
+            if kind != "without the arena":
+                fresh.cluster.attach_arena()
+                if "Ingest" in kind:
+                    fresh.cluster.arena = IngestBatcher(fresh.cluster.arena)
+            splits.append(provision_layers(torch, fresh))
+            if kind != "without the arena":
+                check(fresh.cluster.arena.gathers["warm"] == 1,
+                      "the timed copy did not gather from the arena")
+            if "Ingest" in kind:
+                t0 = time.perf_counter()
+                fresh.cluster.arena.flush()
+                flushes.append((time.perf_counter() - t0) * 1e3)
+    for kind, splits in out.items():
+        med = median_split(splits)
+        each = ", ".join(f"{x['total']:.1f}" for x in splits)
+        extra = ""
+        if "Ingest" in kind:
+            extra = (f"; the next tick's flush p50 "
+                     f"{statistics.median(flushes):.3f} ms")
+        log(f"[time] {LIVE_PATH} round 2 ({kind}): provision() p50 "
+            f"{med['total']:.3f} ms over {iters} fresh copies ({each}; "
+            f"the median copy's split: {layer_line(med, med['total'])})"
+            f"{extra} on {card}")
+
+
+def arena_disruption(torch, card, hook, device="cuda"):
+    """14(b): disruption-replay-500 with the arena attached before the fleet
+    is built, every tick against GOLDEN_DISRUPTION, the consolidation ticks'
+    SimulationArena faces gathered warm; then the same replay without the
+    arena, through the same kernel spans (nothing recorded), for the
+    consolidation tick with and without it.  Returns the arena run's
+    launches."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    out, launches = {}, None
+    for arena in (True, False):
+        clear_lp_caches()
+        env = workloads.disruption_env(
+            workloads.port_kit(),
+            generate_catalog(workloads.DISRUPTION_TYPES), arena=arena,
+            device=device)
+        ctrl, decided, ticks = env.disruption, [], []
+        orig = ctrl.consolidation_action
+
+        def consolidation_action(cands, _orig=orig):
+            decided.append(1)
+            return _orig(cands)
+        ctrl.consolidation_action = consolidation_action
+
+        between = f"{DISRUPTION_PATH}{ARENA} interruption re-provision"
+
+        def tick(env, phase):
+            n_dec = len(decided)
+            g0 = dict(env.cluster.arena.gathers) if arena else {}
+            hook.label = (f"{DISRUPTION_PATH}{ARENA} {phase} tick "
+                          f"{len(ticks)}" if arena else None)
+            hook.take_busy()
+            t0 = time.perf_counter()
+            sig, res = workloads.disruption_tick(env, phase)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            busy, calls = hook.take_busy()
+            # calls between ticks are phase (d)'s re-provision
+            hook.label = between if arena else None
+            warm = (env.cluster.arena.gathers["warm"] - g0["warm"]
+                    if arena else 0)
+            ticks.append((phase, len(decided) > n_dec, wall, busy, calls,
+                          warm))
+            return sig, res
+        reset_all_launches()
+        sigs = workloads.disruption_replay(env, tick=tick)
+        hook.label = None
+        what = "with" if arena else "without"
+        check_disruption_golden(sigs, f"disruption ({what} the arena)")
+        dec = [t for t in ticks if t[0] == "consolidation" and t[1]]
+        p50 = statistics.median(t[2] for t in dec)
+        busy, calls = sum(t[3] for t in dec), sum(t[4] for t in dec)
+        wall = sum(t[2] for t in dec)
+        out[what] = p50
+        if arena:
+            launches = all_launches()
+            check(env.cluster.arena.gathers["fallback"] == 0,
+                  "the disruption cell's arena refused a gather")
+            check(all(t[5] >= 1 for t in dec),
+                  "a consolidation tick's faces were not gathered from the "
+                  "arena")
+            log(f"[arena] {DISRUPTION_PATH}{ARENA}: {len(sigs)} ticks "
+                f"reproduce GOLDEN_DISRUPTION; warm gathers in the "
+                f"consolidation ticks with a decision "
+                f"{[t[5] for t in dec]}; launches "
+                f"{ {k: v for k, v in launches.items() if v} }")
+        log(f"[time] {DISRUPTION_PATH} consolidation tick with a decision "
+            f"({what} the arena): p50 {p50:.3f} ms over {len(dec)} ticks "
+            f"{[round(t[2], 3) for t in dec]}; {idle_line(busy, calls, wall)} "
+            f"on {card}")
+    return {DISRUPTION_PATH + ARENA: launches}
+
+
+def operator_cell(torch, card, hook, device="cuda"):
+    """14(c): the operator cell — `Operator(Options())` on the card with
+    its default full-width catalog and a stepped clock, `build_controllers`,
+    the live cell's two bursts through its Provisioner, one
+    DisruptionController reconcile 10 000 s later — against
+    GOLDEN_OPERATOR, each step counted (launches zeroed just before it),
+    timed with its split, spanned and its kernel inputs recorded.  Returns
+    the launches by step."""
+    from karpenter_tpu_torch import workloads
+    clear_lp_caches()
+    t0 = time.perf_counter()
+    env = workloads.operator_env(operator_kit(), device=device)
+    check(env.op.device.type == device, "the operator is not on the card")
+    log(f"[operator] Operator(Options()) and build_controllers in "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms: "
+        f"{len(env.op.catalog)} types, arena "
+        f"{type(env.op.cluster.arena).__name__}, cloud "
+        f"{type(env.op.cloud_provider.cloud).__name__}, controllers "
+        f"{sorted(env.controllers)}")
+    arena, by_path = env.op.cluster.arena, {}
+
+    def counted(label, fn):
+        g0 = dict(arena.gathers)
+        hook.label = label
+        hook.take_busy()
+        reset_all_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        by_path[label] = all_launches()
+        busy, calls = hook.take_busy()
+        warm = arena.gathers["warm"] - g0["warm"]
+        check(arena.gathers["fallback"] == g0["fallback"],
+              f"{label}: the arena refused a gather")
+        return out, wall, busy, calls, warm
+
+    def provision(penv):
+        label = f"{OPERATOR_PATH} round {len(by_path) + 1}"
+        timer = layer_timer(torch, penv.provisioner)
+        with timer as acc:
+            out, wall, busy, calls, warm = counted(
+                label, lambda: workloads.provision_pending(penv))
+        check(warm >= 1 or label.endswith("round 1"),
+              f"{label}: the live nodes were not gathered from the arena")
+        log(f"[operator] {label}: {out[0]['launched']} launched, "
+            f"{out[0]['bound_existing']} bound to existing nodes; {warm} "
+            f"warm gathers; launches "
+            f"{ {k: v for k, v in by_path[label].items() if v} }")
+        log(f"[time] {label}: provision() {wall:.3f} ms "
+            f"({layer_line(acc, wall)}); {idle_line(busy, calls, wall)} "
+            f"on {card}")
+        return out
+
+    def tick():
+        label = f"{OPERATOR_PATH} tick"
+        res, wall, busy, calls, warm = counted(
+            label, env.controllers["disruption"].reconcile)
+        check(warm >= 1, f"{label}: the consolidation faces were not "
+                         f"gathered from the arena")
+        log(f"[operator] {label}: action {res.action and res.action.kind}, "
+            f"{warm} warm gathers; launches "
+            f"{ {k: v for k, v in by_path[label].items() if v} }")
+        log(f"[time] {label}: reconcile() {wall:.3f} ms; "
+            f"{idle_line(busy, calls, wall) if calls else 'no kernel call'} "
+            f"on {card}")
+        return res
+    got = workloads.operator_replay(env, workloads.build_pods,
+                                    provision=provision, tick=tick)
+    hook.label = None
+    check(got == workloads.GOLDEN_OPERATOR,
+          f"{OPERATOR_PATH}: {got} != GOLDEN_OPERATOR "
+          f"{workloads.GOLDEN_OPERATOR}")
+    for name in ("classpack_precompute", "classpack_scan",
+                 "classpack_assign_decode"):
+        check(all(by_path[f"{OPERATOR_PATH} round {r}"][name] > 0
+                  for r in (1, 2)),
+              f"{name} did not launch in both of the operator's rounds")
+    log(f"[operator] {OPERATOR_PATH} reproduces GOLDEN_OPERATOR on {card}")
+    return by_path
+
+
+def phase14(torch, card, err, device="cuda"):
+    """Phase 14, the arena and the operator: (a) the provisioning cells with
+    the arena, (b) the disruption cell with it, (c) the operator cell, then
+    (d) every kernel wrapper those paths launched held against its plain
+    version on the inputs of its last call on each path; (e) launch counts
+    and idle shares, and (f) the timings, are printed along the way.
+    Returns the launches by path."""
+    hook = kernel_log(torch, spans=True)
+    with wrapped_kernels(hook):
+        by_path = arena_cells(torch, card, hook, device)
+        by_path.update(arena_disruption(torch, card, hook, device))
+        by_path.update(operator_cell(torch, card, hook, device))
+    seen = hold_recorded(torch, hook.recorded, err, lambda label: label)
+    for name, where in seen.items():
+        log(f"[arena] {name} on the {len(where)} inputs recorded on phase "
+            f"14's paths (its last call on each; first argument's shape): "
+            f"equal to plain — {', '.join(where)}")
+    for path, launches in by_path.items():
+        log(f"[arena] launches on {path}: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3963,6 +4397,17 @@ def main() -> int:
                                     err))
     log(f"[sharded] phase 12 done ({time.perf_counter() - t_start:.1f} s "
         f"so far); launches {shard_paths}")
+    # phase 14 last, after every profiler trace (its paths' launches and
+    # plain-version differences then join the rows)
+    arena_paths = phase14(torch, card, err)
+    for row in rows:
+        if row["name"] in err:
+            row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
+        for path, launches in arena_paths.items():
+            if row["name"] in launches:
+                row["launches_by_path"][path] = launches[row["name"]]
+    log(f"[arena] phase 14 done ({time.perf_counter() - t_start:.1f} s "
+        f"so far)")
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]
     check(not bad, f"the port loaded {bad}")

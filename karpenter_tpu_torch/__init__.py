@@ -9,9 +9,15 @@ counterpart there:
   catalog/    instance types, offerings, the synthetic catalog generator
   ops/        tensorize → class-granular and pod-granular pack, the LP guide
               (CUDA kernels) → host or slab decode; the solver ladders
-  state/      the cluster snapshot (nodes, pods, bindings, PDBs)
-  cloud/      the fake cloud, the ICE cache, the CloudProvider seam
-  controllers/  provisioning, the consolidation decision
+  state/      the cluster snapshot (nodes, pods, bindings, PDBs), its
+              persistent delta arena's ingestion batcher
+  cloud/      the fake cloud and its services, the request batcher, the ICE
+              cache, the CloudProvider seam
+  providers/  subnets, security groups, instance profiles, versions, images,
+              launch templates, pricing
+  controllers/  provisioning, disruption, termination, the node lifecycle,
+              interruption, garbage collection, NodeClass
+  operator/   options, the Operator's provider graph, build_controllers
   csrc/       the CUDA sources, built with nvcc at first use (_build.py)
   convert.py  builds port objects from the reference's numpy arrays
   workloads.py  seeded pod batches, plan fingerprints and goldens

@@ -5,12 +5,11 @@ test backend, pkg/fake/ec2api.go:40-120: a thread-safe instance store, a
 stateful CreateFleet that launches in-memory instances, and an
 `insufficient_capacity_pools` knob injecting ICE per (type, zone,
 capacityType)), with the interruption queue's publishing side (a spot
-interruption's warning and its clock-scheduled reclaim), the
-launch-template registry drift's security-group check reads, and per-API
-fault injection.  Left out: the image, subnet, security-group and
-spot-price inventories and the launch-template API (their providers are
-not ported), the chaos injector (`api_errors` stands in for its per-API
-seam) and the warm-restart export (ROADMAP.md queue B)."""
+interruption's warning and its clock-scheduled reclaim), the network and
+image inventories the providers discover (subnets, security groups,
+images, spot price history), the launch-template API, and per-API fault
+injection.  Left out: the chaos injector (`api_errors` stands in for its
+per-API seam) and the warm-restart export (ROADMAP.md queue B)."""
 
 from __future__ import annotations
 
@@ -72,13 +71,52 @@ class FleetResult:
 
 
 @dataclass
+class SubnetInfo:
+    """A network placement target — subnet analog with free-IP accounting
+    (karpenter:pkg/providers/subnet/subnet.go:59,110-147)."""
+    id: str
+    zone: str
+    available_ip_count: int
+    tags: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class SecurityGroupInfo:
+    """A firewall group discoverable by id/name/tags
+    (karpenter:pkg/providers/securitygroup/securitygroup.go:54-76)."""
+    id: str
+    name: str
+    tags: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class ImageInfo:
+    """A bootable node image — AMI analog
+    (karpenter:pkg/providers/amifamily/ami.go:116-136)."""
+    id: str
+    name: str
+    architecture: str = "amd64"
+    creation_ts: float = 0.0
+    deprecated: bool = False
+    tags: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
 class LaunchTemplateInfo:
     """A stored launch template
-    (karpenter:pkg/providers/launchtemplate/launchtemplate.go:233), trimmed
-    to what drift's security-group check reads."""
+    (karpenter:pkg/providers/launchtemplate/launchtemplate.go:233)."""
     name: str
     image_id: str
+    user_data: str = ""
     security_group_ids: Tuple[str, ...] = ()
+    block_device_gib: int = 20
+    block_device_mappings: Tuple[str, ...] = ()   # canonical JSON strings
+    metadata_options: Tuple = ()                  # sorted (key, value) pairs
+    detailed_monitoring: bool = False
+    instance_store_policy: str = ""
+    associate_public_ip: object = None            # None == subnet default
+    instance_profile: str = ""
+    tags: Dict[str, str] = field(default_factory=dict)
 
 
 class FakeCloud:
@@ -100,7 +138,13 @@ class FakeCloud:
         self.api_errors: Dict[str, Exception] = {}
         self.calls: Dict[str, int] = {}
         self.queue = queue  # interruption events go here when attached
+        # network inventory (seeded by tests / the operator's callers)
+        self.subnets: List[SubnetInfo] = []
+        self.security_groups: List[SecurityGroupInfo] = []
+        self.images: List[ImageInfo] = []
         self.launch_templates: Dict[str, LaunchTemplateInfo] = {}
+        # (instance_type, zone) → spot price history, newest wins
+        self.spot_prices: Dict[Tuple[str, str], float] = {}
         # clock-scheduled deliveries: an (at, seq, action, instance_id)
         # heap drained by deliver_due() — the virtual-time interruption
         # pipeline (the warning at T-120, the reclaim at T)
@@ -214,6 +258,69 @@ class FakeCloud:
             if inst is None:
                 raise CloudError("InstanceNotFound", iid)
             inst.tags.update(tags)
+
+    def describe_subnets(self) -> List[SubnetInfo]:
+        with self._lock:
+            self._count("describe_subnets")
+            self._maybe_raise("describe_subnets")
+            return list(self.subnets)
+
+    def describe_security_groups(self) -> List[SecurityGroupInfo]:
+        with self._lock:
+            self._count("describe_security_groups")
+            self._maybe_raise("describe_security_groups")
+            return list(self.security_groups)
+
+    def describe_images(self, ids: Optional[Sequence[str]] = None
+                        ) -> List[ImageInfo]:
+        with self._lock:
+            self._count("describe_images")
+            self._maybe_raise("describe_images")
+            if ids is None:
+                return list(self.images)
+            want = set(ids)
+            return [i for i in self.images if i.id in want]
+
+    def create_launch_template(self, lt: LaunchTemplateInfo
+                               ) -> LaunchTemplateInfo:
+        with self._lock:
+            self._count("create_launch_template")
+            self._maybe_raise("create_launch_template")
+            if lt.name in self.launch_templates:
+                raise CloudError(
+                    "InvalidLaunchTemplateName.AlreadyExistsException",
+                    lt.name)
+            self.launch_templates[lt.name] = lt
+            return lt
+
+    def describe_launch_templates(self, tag_filter: Optional[Dict[str, str]]
+                                  = None) -> List[LaunchTemplateInfo]:
+        with self._lock:
+            self._count("describe_launch_templates")
+            self._maybe_raise("describe_launch_templates")
+            out = []
+            for lt in self.launch_templates.values():
+                if tag_filter and any(lt.tags.get(k) != v
+                                      for k, v in tag_filter.items()):
+                    continue
+                out.append(lt)
+            return out
+
+    def delete_launch_template(self, name: str) -> None:
+        with self._lock:
+            self._count("delete_launch_template")
+            self._maybe_raise("delete_launch_template")
+            if name not in self.launch_templates:
+                raise CloudError("InvalidLaunchTemplateId.NotFound", name)
+            del self.launch_templates[name]
+
+    def describe_spot_price_history(self) -> Dict[Tuple[str, str], float]:
+        """(type, zone) → latest spot price
+        (karpenter:pkg/providers/pricing/pricing.go:308+)."""
+        with self._lock:
+            self._count("describe_spot_price_history")
+            self._maybe_raise("describe_spot_price_history")
+            return dict(self.spot_prices)
 
     # ---- interruptions ----
     def _publish(self, kind: str, ids, state: str = ""):

@@ -11,9 +11,12 @@ A copy of the JAX package's `cloud/provider.py`:
     (karpenter:pkg/providers/instance/instance.go:88-105,197-253,380-424),
     with the bounded retry policy and the provider circuit breaker;
     terminate, hydration of claims from instance tags, and drift.
-Left out until a slice needs them: the subnet, launch-template and pricing
-providers, HA fencing (ROADMAP.md queue B), the cost ledger and the metric
-families.
+The optional L2 hooks (`subnets=`, `launch_templates=`, `pricing=`; the
+operator wires all three, ../providers/) put the zonal subnet choice with
+in-flight IP accounting, the per-image launch templates and the live price
+tables on the launch path; with all three at None the bare fleet path runs.
+Left out until a slice needs them: HA fencing (ROADMAP.md queue B), the
+cost ledger and the metric families.
 """
 
 from __future__ import annotations
@@ -147,19 +150,46 @@ class ProviderCircuitBreaker:
 @dataclass
 class InstanceTypesProvider:
     """Catalog provider with ICE masking + memoization keyed on the
-    unavailable-offerings sequence number (instancetype.go:114-124)."""
+    unavailable-offerings sequence number (instancetype.go:114-124).
+    With a pricing provider wired, offering prices come from the live
+    on-demand/spot tables instead of the catalog's static values
+    (createOfferings price lookup, instancetype.go:144-175)."""
     base_catalog: List[InstanceType]
     unavailable: UnavailableOfferings
-    _memo: Tuple[int, List[InstanceType]] = field(default=None, repr=False)
+    pricing: object = None  # providers.pricing.PricingProvider, optional
+    _memo: Tuple[tuple, List[InstanceType]] = field(default=None, repr=False)
+
+    def _offering_price(self, it: InstanceType, o: Offering,
+                        live_od: bool, live_spot: bool) -> float:
+        # until a table's first live refresh the catalog's own (zone- and
+        # capacity-type-differentiated) prices are authoritative — the
+        # pricing provider's fallbacks are lossy (per-type min OD, synthetic
+        # spot discount); liveness is decided per table
+        if o.capacity_type == wk.CAPACITY_TYPE_SPOT:
+            if not live_spot:
+                return o.price
+            p = self.pricing.spot_price(it.name, o.zone)
+        else:
+            if not live_od:
+                return o.price
+            p = self.pricing.on_demand_price(it.name)
+        return o.price if p is None else p
 
     def list(self) -> List[InstanceType]:
-        key = self.unavailable.seq_num
+        # the pricing seqs are read once per rebuild: they key the memo and
+        # decide which tables apply live, so a refresh landing mid-rebuild
+        # just invalidates the next lookup instead of mixing tables
+        od_seq, spot_seq = (0, 0) if self.pricing is None \
+            else self.pricing.seq_num
+        key = (self.unavailable.seq_num, od_seq, spot_seq)
         if self._memo is not None and self._memo[0] == key:
             return self._memo[1]
+        live_od, live_spot = od_seq > 0, spot_seq > 0
         out = []
         for it in self.base_catalog:
             offerings = [
-                Offering(o.zone, o.capacity_type, o.price,
+                Offering(o.zone, o.capacity_type,
+                         self._offering_price(it, o, live_od, live_spot),
                          available=o.available and not self.unavailable.is_unavailable(
                              o.capacity_type, it.name, o.zone))
                 for o in it.offerings
@@ -243,6 +273,7 @@ class CloudProvider:
                  node_classes: Optional[Dict[str, NodeClass]] = None,
                  cluster_name: str = "default",
                  clock: Callable[[], float] = time.time,
+                 subnets=None, launch_templates=None, pricing=None,
                  retry: Optional[RetryPolicy] = None,
                  breaker: Optional[ProviderCircuitBreaker] = None,
                  sleep: Callable[[float], None] = time.sleep):
@@ -253,10 +284,15 @@ class CloudProvider:
         self.breaker = breaker
         self.sleep = sleep
         self.unavailable = unavailable or UnavailableOfferings()
-        self.instance_types = InstanceTypesProvider(catalog, self.unavailable)
+        self.instance_types = InstanceTypesProvider(catalog, self.unavailable,
+                                                    pricing=pricing)
         self.node_classes = node_classes or {"default": NodeClass()}
         self.cluster_name = cluster_name
         self.clock = clock
+        # optional L2 wiring (providers/subnet.py, providers/launchtemplate.py);
+        # None keeps the bare fleet path for unit tests and benchmarks
+        self.subnets = subnets
+        self.launch_templates = launch_templates
         self._claims_by_provider_id: Dict[str, NodeClaim] = {}
 
     # ---- catalog ----
@@ -315,7 +351,60 @@ class CloudProvider:
         if not candidates:
             raise InsufficientCapacityError(
                 f"no compatible instance types for claim {claim.name}")
+        if nodeclass is None and (self.subnets is not None
+                                  or self.launch_templates is not None):
+            # with the L2 path wired, a dangling nodeclass ref is a config
+            # error — launching without subnets/images would produce a
+            # misconfigured node (cloudprovider.go:231-241)
+            raise NodeClassNotFoundError(
+                f"nodeclass {claim.node_class_ref!r} not found for claim "
+                f"{claim.name}")
+        # zonal subnet choice with in-flight IP accounting
+        # (instance.go:197-253 → subnet.go ZonalSubnetsForLaunch:110-147)
+        zonal_subnets = None
+        if self.subnets is not None and nodeclass is not None:
+            zonal_subnets = self.subnets.zonal_subnets_for_launch(nodeclass)
+            if not zonal_subnets:
+                raise InsufficientCapacityError(
+                    f"no subnets resolve for nodeclass {nodeclass.name}")
+        settled = []
+        try:
+            return self._launch(claim, candidates, nodeclass, zonal_subnets,
+                                settled)
+        finally:
+            # refund predictions the fleet response never settled (launch
+            # failed before/at create_fleet) so inflight counts can't leak
+            if zonal_subnets is not None and not settled:
+                self.subnets.update_inflight_ips([], zonal_subnets)
+
+    def _launch(self, claim: NodeClaim, candidates: List[InstanceType],
+                nodeclass: Optional[NodeClass], zonal_subnets,
+                settled: List[bool]) -> NodeClaim:
+        # launch-template ensure per (image × userdata) group; restricts
+        # candidates to types an image covers (launchtemplate.go EnsureAll)
+        lt_by_type: Dict[str, Tuple[str, str]] = {}
+        if self.launch_templates is not None and nodeclass is not None:
+            resolved = self.launch_templates.ensure_all(
+                nodeclass, candidates, labels=dict(claim.labels),
+                security_group_ids=tuple(nodeclass.status_security_groups),
+                instance_profile=nodeclass.status_instance_profile)
+            for rt in resolved:
+                for it in rt.instance_types:
+                    lt_by_type[it.name] = (rt.template.name,
+                                           rt.template.image_id)
+            candidates = [it for it in candidates if it.name in lt_by_type]
+            if not candidates:
+                raise InsufficientCapacityError(
+                    f"no image covers any candidate type for claim "
+                    f"{claim.name}")
         overrides = _build_overrides(claim, candidates)
+        if zonal_subnets is not None:
+            overrides = [ov for ov in overrides if ov.zone in zonal_subnets]
+            for ov in overrides:
+                ov.subnet_id = zonal_subnets[ov.zone].id
+        for ov in overrides:
+            if ov.instance_type in lt_by_type:
+                ov.launch_template, ov.image_id = lt_by_type[ov.instance_type]
         if not overrides:
             raise InsufficientCapacityError(
                 f"no available offerings for claim {claim.name}")
@@ -342,6 +431,12 @@ class CloudProvider:
         result = self._call_cloud(
             "create_fleet",
             lambda: self.cloud.create_fleet(overrides, count=1, tags=tags))
+        # settle the in-flight IP predictions against where the launch landed
+        # (subnet.go UpdateInflightIPs:149)
+        if zonal_subnets is not None:
+            self.subnets.update_inflight_ips(
+                [i.subnet_id for i in result.instances], zonal_subnets)
+            settled.append(True)
         # feed partial failures back into the ICE cache
         # (instance.go:369-375 updateUnavailableOfferingsCache)
         for err in result.errors:

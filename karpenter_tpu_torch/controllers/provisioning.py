@@ -32,8 +32,11 @@ shard per visible card, where the reference reads `jax.devices()`).  Not
 ported yet (ROADMAP.md): `gang_scheduling` raises NotImplementedError; the
 "native" rung raises as the reference's does on a host without its C++
 library, so a failing "jax" solve lands on "greedy".
-The cluster's persistent arena is absent, so the live nodes are always
-gathered by `Cluster.tensorize_nodes` (the reference's bit-identical path).
+The live node set is gathered warm from the cluster's persistent arena
+(`Cluster.attach_arena`, the IncrementalArena gate) when one is attached;
+a snapshot solve (`nodes=` given), an arena that refuses (extra axes,
+custom scales, an untracked node) or no arena at all takes
+`Cluster.tensorize_nodes`, the reference's bit-identical path.
 The reference's metrics, spans and chaos seam are left out.
 """
 
@@ -355,9 +358,19 @@ class Provisioner:
                                                      "node_classes", None))
             existing = None
             if schedule_on_existing and node_view:
-                existing = self.cluster.tensorize_nodes(
-                    problem.class_reps, problem.axes, scales=problem.scales,
-                    nodes=node_view)   # (node_list, alloc, used, compat)
+                # warm arena gather only for the LIVE node set (nodes is
+                # None: node_view IS cluster.nodes.values()); a snapshot
+                # solve keeps the full path — the slab mirrors live state,
+                # not the caller's snapshot
+                if (nodes is None
+                        and getattr(self.cluster, "arena", None) is not None):
+                    existing = self.cluster.arena.gather(
+                        problem.class_reps, problem.axes,
+                        scales=problem.scales)
+                if existing is None:   # (node_list, alloc, used, compat)
+                    existing = self.cluster.tensorize_nodes(
+                        problem.class_reps, problem.axes,
+                        scales=problem.scales, nodes=node_view)
             result = self._pack_supervised(problem, existing)
             result._existing_nodes = existing[0] if existing else []
             if best is None or result.scheduled_count > best[1].scheduled_count:

@@ -1,0 +1,322 @@
+"""Operator: dependency wiring for the whole framework.
+
+The port of the JAX package's `operator/operator.py`, the analog of
+`operator.NewOperator` (karpenter:pkg/operator/operator.go:84-195): one
+constructor that builds the cloud session, probes connectivity, resolves
+the cluster endpoint and constructs all providers, exposing them as
+attributes for the controller set and tests; `build_controllers` then
+assembles the controller set (controllers.go:45-65).  The signature is the
+reference's plus `device` ("cuda" by default; "cpu" runs the kernels' plain
+versions and only when asked for), which reaches every controller that
+solves.
+
+With the default options the cluster carries the persistent delta arena
+(IncrementalArena, attached before hydration), wrapped in an
+`IngestBatcher` under the IngestBatch gate, and every cloud call of the
+CloudProvider goes through `BatchedCloud`.
+
+Not ported yet, and raising NotImplementedError that names the item of
+ROADMAP.md's queue B: the Forecast gate (B6), WarmRestart and HAFailover
+(B7), FlightRecorder and SLOEngine (B9), GangScheduling (B8) and a chaos
+spec (B5).  The `/v1` manifest surface (`apply`, `apply_batch`, `_admit`,
+`_register`) waits for B3 with the manager's HTTP endpoint, its only
+caller; so does the reference's state lock, which only the manager and that
+surface take: the port's operator is driven from one thread.  The
+reference's metric registration and scrape collectors are left out (B9).  `build_controllers` gives the shared SolverHealth ladder to
+the Provisioner only: the DisruptionController's ladder is B5's, and
+until then its simulations take the direct path that the ladder takes
+while no rung has failed.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Dict, Optional
+
+from ..api.objects import NodeClass, NodePool
+from ..catalog.generate import generate_catalog
+from ..catalog.instancetype import effective_instance_type
+from ..cloud.batcher import BatchedCloud
+from ..cloud.cache import UnavailableOfferings
+from ..cloud.fake import CloudError, FakeCloud
+from ..cloud.provider import (CloudProvider, ProviderCircuitBreaker,
+                              RetryPolicy)
+from ..cloud.queue import FakeQueue
+from ..cloud.services import (FakeControlPlane, FakeIAM, FakeParameterStore,
+                              FakePricingAPI)
+from ..controllers.disruption import DisruptionController
+from ..controllers.garbagecollection import (GarbageCollectionController,
+                                             TaggingController)
+from ..controllers.interruption import InterruptionController
+from ..controllers.lifecycle import LifecycleController
+from ..controllers.nodeclass import NodeClassController
+from ..controllers.provisioning import Provisioner
+from ..controllers.termination import TerminationController
+from ..ops.classpack import resolve_device
+from ..providers.imagefamily import ImageProvider, Resolver
+from ..providers.instanceprofile import InstanceProfileProvider
+from ..providers.launchtemplate import LaunchTemplateProvider
+from ..providers.pricing import (PricingController, PricingProvider,
+                                 static_price_table)
+from ..providers.securitygroup import SecurityGroupProvider
+from ..providers.subnet import SubnetProvider
+from ..providers.version import VersionProvider
+from ..state.cluster import Cluster
+from ..utils.events import Recorder
+from ..utils.provenance import ProvenanceStore
+from .options import Options
+
+log = logging.getLogger("karpenter_tpu_torch.operator")
+
+# feature gate → the ROADMAP.md queue B item that ports it
+UNPORTED_GATES = {"Forecast": "B6", "WarmRestart": "B7", "HAFailover": "B7",
+                  "FlightRecorder": "B9", "SLOEngine": "B9",
+                  "GangScheduling": "B8"}
+
+
+def check_ported(options: Options) -> None:
+    """Raise NotImplementedError naming every gate `options` turns on, and
+    the chaos spec if set, whose feature is not ported yet, with its
+    ROADMAP.md item."""
+    off = [f"the {gate} gate (ROADMAP.md queue B, item {item})"
+           for gate, item in UNPORTED_GATES.items() if options.gate(gate)]
+    if options.chaos_spec:
+        off.append("a chaos spec (ROADMAP.md queue B, item B5)")
+    if off:
+        raise NotImplementedError(
+            f"Operator: {', '.join(off)} is not ported yet")
+
+
+class Operator:
+    """Builds the full provider graph over a cloud substrate
+    (operator.go:127-169 constructs 11 providers; same inventory here)."""
+
+    def __init__(self, options: Optional[Options] = None,
+                 cloud: Optional[FakeCloud] = None,
+                 catalog=None,
+                 control_plane: Optional[FakeControlPlane] = None,
+                 params: Optional[FakeParameterStore] = None,
+                 iam: Optional[FakeIAM] = None,
+                 pricing_api: Optional[FakePricingAPI] = None,
+                 queue: Optional[FakeQueue] = None,
+                 clock: Callable[[], float] = time.time,
+                 device="cuda"):
+        self.options = options or Options()
+        check_ported(self.options)
+        self.device = resolve_device(device)
+        self.clock = clock
+        # identity check, not truthiness: FakeQueue defines __len__, so an
+        # empty injected queue is falsy and `queue or ...` would swap in a
+        # fresh one — splitting the publisher (cloud) from the consumer
+        # (interruption controller)
+        self.queue = queue if queue is not None else (
+            FakeQueue(clock=clock)
+            if self.options.interruption_queue else None)
+        self.cloud = cloud or FakeCloud(clock=clock, queue=self.queue)
+        self.batched_cloud = BatchedCloud(self.cloud)
+        self.catalog = catalog if catalog is not None else generate_catalog(600)
+        self.control_plane = control_plane or FakeControlPlane(
+            endpoint=self.options.cluster_endpoint)
+        self.params = params or FakeParameterStore()
+        self.iam = iam or FakeIAM()
+        self.pricing_api = pricing_api or FakePricingAPI()
+
+        # connectivity probe (checkEC2Connectivity operator.go:206-213)
+        try:
+            self.cloud.describe_instances()
+        except CloudError as e:
+            raise RuntimeError(f"cloud connectivity probe failed: {e}") from e
+        # cluster endpoint discovery (ResolveClusterEndpoint :215-227)
+        if not self.options.cluster_endpoint:
+            self.options.cluster_endpoint = \
+                self.control_plane.describe_cluster()["endpoint"]
+        # kube-dns discovery (kubeDNSIP operator.go:248-261): IPv6 clusters
+        # publish a v6 service IP and nodes bootstrap with it unchanged
+        if not self.options.cluster_dns:
+            try:
+                self.options.cluster_dns = self.control_plane.kube_dns()
+            except CloudError:
+                pass  # optional: bootstrap falls back to platform default
+
+        self.recorder = Recorder(clock=clock)
+        # queryable "why is this pod pending" records (utils/provenance.py)
+        self.provenance = ProvenanceStore()
+        self.unavailable = UnavailableOfferings(clock=clock)
+        self.subnets = SubnetProvider(self.cloud, clock=clock)
+        self.security_groups = SecurityGroupProvider(self.cloud, clock=clock)
+        self.instance_profiles = InstanceProfileProvider(
+            self.iam, self.options.cluster_name, clock=clock)
+        self.version = VersionProvider(self.control_plane, clock=clock)
+        self.images = ImageProvider(self.cloud, self.params, self.version)
+        self.resolver = Resolver(self.images, self.options.cluster_name,
+                                 self.options.cluster_endpoint,
+                                 cluster_dns=self.options.cluster_dns)
+        self.launch_templates = LaunchTemplateProvider(
+            self.cloud, self.resolver, self.options.cluster_name, clock=clock)
+        self.launch_templates.hydrate_cache()  # launchtemplate.go:336
+        self.pricing = PricingProvider(
+            pricing_api=None if self.options.isolated_network else self.pricing_api,
+            cloud=self.cloud, static_fallback=static_price_table(self.catalog),
+            clock=clock)
+
+        self.cluster = Cluster(clock=clock)
+        if self.options.gate("IncrementalArena"):
+            # attach BEFORE hydration so restart recovery streams through
+            # the delta API and the first tick gathers warm
+            self.cluster.attach_arena()
+            if self.options.gate("IngestBatch"):
+                # wrap the arena behind the same delta surface: events
+                # coalesce per node between ticks and flush as one delta
+                from ..state.ingest import IngestBatcher
+                self.cluster.arena = IngestBatcher(
+                    self.cluster.arena,
+                    max_events=int(self.options.ingest_max_events))
+        self.node_classes: Dict[str, NodeClass] = {"default": NodeClass()}
+        self.nodepools: Dict[str, NodePool] = {"default": NodePool()}
+        # cloud-call hardening: both default off, so a stepped clock never
+        # wall-sleeps in a retry loop
+        retry = breaker = None
+        if int(self.options.cloud_retry_attempts) > 0:
+            retry = RetryPolicy(
+                attempts=int(self.options.cloud_retry_attempts),
+                base_s=float(self.options.cloud_retry_base_s))
+        if int(self.options.cloud_breaker_threshold) > 0:
+            breaker = ProviderCircuitBreaker(
+                threshold=int(self.options.cloud_breaker_threshold),
+                cooldown_s=float(self.options.cloud_breaker_cooldown_s),
+                clock=clock)
+        self.cloud_provider = CloudProvider(
+            self.batched_cloud, self.catalog, unavailable=self.unavailable,
+            node_classes=self.node_classes,
+            cluster_name=self.options.cluster_name, clock=clock,
+            subnets=self.subnets, launch_templates=self.launch_templates,
+            pricing=self.pricing, retry=retry, breaker=breaker)
+        self.hydrate_cluster()
+
+    def hydrate_cluster(self) -> int:
+        """Restart recovery: rebuild NodeClaims + Nodes from the cloud's
+        cluster-tagged instances BEFORE any controller runs — without this a
+        fresh process would see its whole live fleet as leaked capacity and
+        the GC sweep would terminate it.  Durable state lives in cloud tags;
+        pod bindings live in the cluster API, not the cloud, so hydrated
+        nodes start empty and fill as pods re-observe."""
+        catalog_by_name = {it.name: it for it in self.catalog}
+        n = 0
+        for claim in self.cloud_provider.list():
+            if self.cluster.claim_for_provider_id(claim.provider_id):
+                continue
+            it = catalog_by_name.get(claim.instance_type)
+            if it is not None:
+                it = effective_instance_type(
+                    it, self.nodepools.get(claim.nodepool),
+                    self.node_classes.get(claim.node_class_ref))
+            allocatable = it.allocatable if it else claim.requests
+            claim.created_at = claim.created_at or claim.launched_at
+            node = self.cluster.register_nodeclaim(
+                claim, allocatable, it.capacity if it else None,
+                rehydrate=True)
+            # recovered nodes keep their original age so expiry still works
+            node.created_at = claim.launched_at or node.created_at
+            n += 1
+        if n:
+            log.info("hydrated %d nodes from cloud state", n)
+        return n
+
+    def delete(self, kind: str, name: str) -> bool:
+        """Deregister a NodePool, or finalize + deregister a NodeClass
+        (deletion blocked while NodeClaims reference it — the finalizer
+        semantics, nodeclass/controller.go:100-126)."""
+        if kind == "NodePool":
+            return self.nodepools.pop(name, None) is not None
+        if kind == "NodeClass":
+            nc = self.node_classes.get(name)
+            if nc is None:
+                return False
+            ctrl = NodeClassController(
+                subnets=self.subnets, security_groups=self.security_groups,
+                images=self.images, instance_profiles=self.instance_profiles,
+                cluster=self.cluster)
+            if not ctrl.finalize(nc, launch_templates=self.launch_templates):
+                return False  # still referenced; caller retries
+            del self.node_classes[name]
+            return True
+        raise ValueError(f"cannot delete kind {kind!r}")
+
+
+def build_controllers(op: Operator) -> Dict[str, object]:
+    """Assemble the controller set (controllers.NewControllers,
+    karpenter:pkg/controllers/controllers.go:45-65 + the core registration
+    in cmd/controller/main.go:47-70).  Interruption registers only when a
+    queue is configured; pricing refresh only outside isolated networks.
+    With both LPGuide and LPRefinery on, the provisioner gets a
+    GuideRefinery so cold guide solves never block the tick.  Every
+    controller that solves runs on `op.device`."""
+    # DeviceLP gate: its own two-rung ladder (device_lp ──▶ highs) on the
+    # operator's injected clock
+    device_lp = op.options.gate("LPGuide") and op.options.gate("DeviceLP")
+    lp_health = None
+    if device_lp:
+        from ..ops.health import lp_ladder
+        lp_health = lp_ladder(clock=op.clock)
+    refinery = None
+    if op.options.gate("LPGuide") and op.options.gate("LPRefinery"):
+        from ..ops.refinery import GuideRefinery
+        # both clocks ride the operator's injected clock
+        refinery = GuideRefinery(clock=op.clock, monotonic=op.clock,
+                                 device_lp=device_lp, lp_health=lp_health)
+    from ..ops.health import SolverHealth
+    health = SolverHealth(clock=op.clock)
+    solve_timeout = float(op.options.solve_timeout_s or 0.0)
+    decode_health = None
+    if op.options.gate("DeviceDecode"):
+        from ..ops.decode import DecodeHealth
+        decode_health = DecodeHealth(clock=op.clock)
+    provisioner = Provisioner(
+        op.cloud_provider, op.cluster, op.nodepools,
+        lp_guide=op.options.gate("LPGuide"),
+        refinery=refinery,
+        recorder=op.recorder,
+        provenance=op.provenance,
+        sharded_solve=op.options.gate("ShardedSolve"),
+        health=health,
+        watchdog_timeout_s=solve_timeout,
+        device_decode=op.options.gate("DeviceDecode"),
+        decode_health=decode_health,
+        device_lp=device_lp,
+        lp_health=lp_health,
+        gang_scheduling=op.options.gate("GangScheduling"),
+        device=op.device)
+    terminator = TerminationController(op.cloud_provider, op.cluster,
+                                       clock=op.clock)
+    out: Dict[str, object] = {
+        "provisioning": provisioner,
+        "termination": terminator,
+        # the shared SolverHealth ladder and its watchdog stay off the
+        # DisruptionController until ROADMAP.md queue B item B5 ports them
+        "disruption": DisruptionController(
+            op.cloud_provider, op.cluster, op.nodepools,
+            terminator=terminator, clock=op.clock,
+            drift_enabled=op.options.gate("Drift"),
+            lp_guide=op.options.gate("LPGuide"),
+            recorder=op.recorder,
+            sharded_solve=op.options.gate("ShardedSolve"),
+            device=op.device),
+        "lifecycle": LifecycleController(
+            op.cloud_provider, op.cluster, nodepools=op.nodepools,
+            recorder=op.recorder, clock=op.clock),
+        "garbagecollection": GarbageCollectionController(
+            op.cloud_provider, op.cluster, clock=op.clock),
+        "tagging": TaggingController(op.cloud_provider, op.cluster),
+        "nodeclass": NodeClassController(
+            subnets=op.subnets, security_groups=op.security_groups,
+            images=op.images, instance_profiles=op.instance_profiles,
+            cluster=op.cluster),
+    }
+    if op.queue is not None:
+        out["interruption"] = InterruptionController(
+            op.queue, op.cloud_provider, op.cluster, terminator,
+            clock=op.clock)
+    if not op.options.isolated_network:
+        out["pricing"] = PricingController(op.pricing, clock=op.clock)
+    return out

@@ -1,0 +1,406 @@
+"""Persistent incrementally-updated cluster tensorization (the delta arena).
+
+A copy of the JAX package's `ops/arena.py`.  `Cluster.tensorize_nodes`
+lowers the live node set to dense packing arrays from scratch on every call
+— O(nodes × classes) label/taint evaluations and O(pods) request summing —
+even though a steady-state reconcile changes one row (a bind, a reclaim, a
+taint edit).  `ClusterArena` keeps those arrays alive between ticks as a
+slotted slab and applies typed deltas in place:
+
+* **Row slots + free-list.**  Every tracked node owns a slab row
+  (`slab_alloc`/`slab_used` E×R float32, `slab_compat` E×C bool slot-major).
+  Removal tombstones the row (``slab_live`` mask) and recycles the slot
+  through a LIFO free-list, so identical event sequences assign identical
+  slots.
+* **Class registry.**  Pod equivalence classes (`_class_key`) are interned
+  to stable column ids; a `gather()` for reps the arena has never seen
+  computes just those columns over live rows.  The table resets wholesale
+  past ``class_table_max`` (per-pod-unique labels make distinct keys
+  unbounded in a long-lived controller).
+* **Exact row math.**  A touched row is always recomputed through the same
+  arithmetic `tensorize_nodes` uses (`requested()` → `to_vector(round_up)`,
+  tolerate-then-compatible), never adjusted incrementally: float add/sub
+  does not invert across round_up ordering, and bit-identity with the
+  from-scratch path is what lets the warm arena feed the kernels unaudited.
+* **Compaction + full rebuild.**  When tombstones outnumber
+  ``max(compact_floor, live)`` the slab compacts (row moves, no
+  recompute).  `rebuild()` — re-derivation from cluster state — stays the
+  always-correct fallback: `invalidate()` flags it, and `gather()` returns
+  None (the caller falls back to `tensorize_nodes`) for anything the slab
+  cannot express (extra axes, non-default scales, untracked nodes).
+
+The slab is host numpy, as in the reference, so `gather()` is bit-identical
+to `tensorize_nodes`; its arrays reach the card where the solve already
+uploads `tensorize_nodes`' output.  The arena is fed by `state.Cluster`'s
+mutators plus explicit `touch_node` calls at the label/taint edit sites in
+the lifecycle, termination and disruption controllers.  Like every other
+Cluster write it takes no lock: the port's operator is driven from one
+thread, and the state lock that the reference's manager takes comes with
+the manager (ROADMAP.md queue B3).
+
+Left out: the reference's metric families and spans (ROADMAP.md queue B);
+`gathers` counts the gather outcomes ("warm" / "fallback") that its
+`arena_gather` counter records.  The gang-resident index (`gangs_on`)
+comes with gang scheduling (B8), its only reader.  The warm-restart export
+(`snapshot_state` / `restore_state`) comes with `state/snapshot.py`, its
+only caller: nothing in the port snapshots state yet, so the arena needs no
+snapshot section until then — a restarted process rebuilds it from the
+cluster on attach.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..api import labels as wk
+from ..api.objects import Node, Pod
+from ..api.requirements import Requirements
+from ..api.resources import DEFAULT_AXES, DEFAULT_SCALES, PODS
+from ..api.taints import tolerates_all
+from .tensorize import _class_key
+
+_INITIAL_SLOTS = 64
+_INITIAL_CLASSES = 64
+
+
+class ClusterArena:
+    """Slotted, incrementally-maintained mirror of `tensorize_nodes`' output
+    for the default resource axes.  See module docstring."""
+
+    def __init__(self, cluster, compact_floor: int = 32,
+                 class_table_max: int = 4096):
+        self._cluster = cluster
+        self._axes: Tuple[str, ...] = DEFAULT_AXES
+        self._scales: Dict[str, float] = dict(DEFAULT_SCALES)
+        self.compact_floor = compact_floor
+        self.class_table_max = class_table_max
+        R = len(self._axes)
+        # the tensor slab — mutate only through the apply_*/touch_node/
+        # rebuild delta API below
+        self.slab_alloc = np.zeros((_INITIAL_SLOTS, R), np.float32)
+        self.slab_used = np.zeros((_INITIAL_SLOTS, R), np.float32)
+        self.slab_compat = np.zeros((_INITIAL_SLOTS, _INITIAL_CLASSES), bool)
+        self.slab_live = np.zeros(_INITIAL_SLOTS, bool)
+        self._slot_of: Dict[str, int] = {}
+        self._node_at: List[Optional[Node]] = [None] * _INITIAL_SLOTS
+        self._free: List[int] = []
+        self._top = 0
+        self._rid_of: Dict[tuple, int] = {}
+        self._reps: List[Pod] = []
+        # monotone per-delta counter: consumers compare it to decide
+        # staleness without walking the object graph
+        self.epoch = 0
+        self.compactions = 0
+        # gather outcomes: "warm" served from the slab, "fallback" refused
+        # (the caller runs tensorize_nodes)
+        self.gathers: Dict[str, int] = {"warm": 0, "fallback": 0}
+        self._needs_rebuild = True
+
+    # ---- bookkeeping ------------------------------------------------------
+    @property
+    def live_count(self) -> int:
+        return len(self._slot_of)
+
+    @property
+    def tombstone_count(self) -> int:
+        return len(self._free)
+
+    def _grow_slots(self, need: int):
+        cap = self.slab_alloc.shape[0]
+        new = cap
+        while new < need:
+            new *= 2
+        if new == cap:
+            return
+        R, C = self.slab_alloc.shape[1], self.slab_compat.shape[1]
+        for name, width, dtype in (("slab_alloc", R, np.float32),
+                                   ("slab_used", R, np.float32)):
+            old = getattr(self, name)
+            arr = np.zeros((new, width), dtype)
+            arr[:cap] = old
+            setattr(self, name, arr)
+        compat = np.zeros((new, C), bool)
+        compat[:cap] = self.slab_compat
+        self.slab_compat = compat
+        live = np.zeros(new, bool)
+        live[:cap] = self.slab_live
+        self.slab_live = live
+        self._node_at.extend([None] * (new - cap))
+
+    def _grow_classes(self, need: int):
+        cap = self.slab_compat.shape[1]
+        new = cap
+        while new < need:
+            new *= 2
+        if new == cap:
+            return
+        compat = np.zeros((self.slab_compat.shape[0], new), bool)
+        compat[:, :cap] = self.slab_compat
+        self.slab_compat = compat
+
+    # ---- row math (bit-identical to Cluster.tensorize_nodes) --------------
+    @staticmethod
+    def _provided(node: Node) -> Requirements:
+        node_labels = dict(node.labels)
+        # hostname defaults to the node name — same rule as tensorize_nodes
+        node_labels.setdefault(wk.HOSTNAME, node.name)
+        return Requirements.from_labels(node_labels)
+
+    @staticmethod
+    def _compat_entry(rep: Pod, node: Node, provided: Requirements) -> bool:
+        if not tolerates_all(rep.tolerations, node.taints):
+            return False
+        return any(b.compatible(provided)
+                   for b in rep.scheduling_requirements())
+
+    def _fill_row(self, slot: int, node: Node):
+        self.slab_alloc[slot] = node.allocatable.to_vector(self._axes,
+                                                           self._scales)
+        self._fill_used(slot, node)
+        provided = self._provided(node)
+        row = self.slab_compat[slot]
+        row[:] = False
+        for rid, rep in enumerate(self._reps):
+            row[rid] = self._compat_entry(rep, node, provided)
+
+    def _fill_used(self, slot: int, node: Node):
+        req = node.requested()
+        req[PODS] = len(node.pods)
+        self.slab_used[slot] = req.to_vector(self._axes, self._scales,
+                                             round_up=True)
+
+    # ---- class registry ---------------------------------------------------
+    def _ensure_classes(self, reps: Sequence[Pod],
+                        _post_reset: bool = False) -> List[int]:
+        fresh: List[Tuple[int, Pod]] = []
+        rids: List[int] = []
+        for rep in reps:
+            k = _class_key(rep)
+            rid = self._rid_of.get(k)
+            if rid is None:
+                if len(self._reps) >= self.class_table_max and not _post_reset:
+                    # wholesale reset; restart registration so every
+                    # requested rep gets a fresh column.  A single gather
+                    # with more distinct classes than the cap still
+                    # registers them all (the cap bounds the table across
+                    # calls, not per call) — _post_reset stops a second
+                    # reset from recursing forever.
+                    self._rid_of.clear()
+                    self._reps = []
+                    self.slab_compat[:] = False
+                    return self._ensure_classes(reps, _post_reset=True)
+                rid = len(self._reps)
+                self._grow_classes(rid + 1)
+                self._rid_of[k] = rid
+                self._reps.append(rep)
+                fresh.append((rid, rep))
+            rids.append(rid)
+        if fresh:
+            # one provided-Requirements per live node, shared by all new
+            # columns (the expensive part of a cold gather)
+            for name, slot in self._slot_of.items():
+                node = self._node_at[slot]
+                provided = self._provided(node)
+                for rid, rep in fresh:
+                    self.slab_compat[slot, rid] = self._compat_entry(
+                        rep, node, provided)
+        return rids
+
+    # ---- delta API --------------------------------------------------------
+    def _take_slot(self, name: str) -> int:
+        slot = self._slot_of.get(name)
+        if slot is None:
+            if self._free:
+                slot = self._free.pop()     # LIFO: deterministic reuse order
+            else:
+                slot = self._top
+                self._top += 1
+                self._grow_slots(self._top)
+            self._slot_of[name] = slot
+        return slot
+
+    def _drop_slot(self, name: str) -> bool:
+        slot = self._slot_of.pop(name, None)
+        if slot is None:
+            return False
+        self.slab_live[slot] = False
+        self._node_at[slot] = None
+        self._free.append(slot)
+        return True
+
+    def _maybe_compact(self):
+        if len(self._free) > max(self.compact_floor, self.live_count):
+            self.compact()
+
+    def apply_node_add(self, node: Node):
+        slot = self._take_slot(node.name)
+        self._node_at[slot] = node
+        self.slab_live[slot] = True
+        self._fill_row(slot, node)
+        self.epoch += 1
+
+    def apply_node_remove(self, name: str):
+        if not self._drop_slot(name):
+            return
+        self.epoch += 1
+        self._maybe_compact()
+
+    def touch_node(self, node: Node):
+        """Re-derive a tracked node's whole row after an in-place label /
+        taint / allocatable edit (lifecycle initialization, termination
+        taint, disruption taint + rollback)."""
+        slot = self._slot_of.get(node.name)
+        if slot is None:
+            return
+        self._node_at[slot] = node
+        self._fill_row(slot, node)
+        self.epoch += 1
+
+    def apply_pod_bind(self, pod: Pod, node_name: str,
+                       old_node_name: str = ""):
+        if old_node_name and old_node_name != node_name:
+            self._refresh_used(old_node_name)
+        self._refresh_used(node_name)
+        self.epoch += 1
+
+    def apply_pod_unbind(self, node_name: str):
+        self._refresh_used(node_name)
+        self.epoch += 1
+
+    def apply_pod_add(self, pod: Pod):
+        # a pending pod touches no node row; the epoch bump is what
+        # invalidates cached faces built over the old pod set
+        self.epoch += 1
+
+    def apply_pod_remove(self, pod: Pod, node_name: str = ""):
+        if node_name:
+            self._refresh_used(node_name)
+        self.epoch += 1
+
+    def _refresh_used(self, node_name: str):
+        slot = self._slot_of.get(node_name)
+        if slot is not None:
+            self._fill_used(slot, self._node_at[slot])
+
+    def invalidate(self, reason: str = ""):
+        """Flag the slab for full re-derivation on next gather — the
+        always-correct escape hatch for events the delta API can't
+        express."""
+        self._needs_rebuild = True
+        self.epoch += 1
+
+    def apply_ingest_flush(self, touched: Sequence[Node] = (),
+                           removed: Sequence[str] = (),
+                           used_names: Sequence[str] = ()):
+        """Apply one tick's worth of coalesced ingestion events in a single
+        delta (the IngestBatch gate's flush path).  Rows re-derive through
+        the same exact math as the eager API — a batched flush and the
+        equivalent eager event stream differ only in slot layout, never in
+        gather() output (which orders by cluster dict, not slot).  Removals
+        run first so their slots recycle for same-tick adds."""
+        for name in removed:
+            self._drop_slot(name)
+        for node in touched:
+            slot = self._take_slot(node.name)
+            self._node_at[slot] = node
+            self.slab_live[slot] = True
+            self._fill_row(slot, node)
+        for name in used_names:
+            self._refresh_used(name)
+        self.epoch += 1
+        self._maybe_compact()
+
+    # ---- compaction / rebuild ---------------------------------------------
+    def compact(self):
+        """Densify the slab: move live rows to the front in cluster dict
+        order (deterministic), drop tombstones, reset the free-list.  Pure
+        row moves — values are already exact, so nothing recomputes."""
+        nodes = [n for n in self._cluster.nodes.values()
+                 if n.name in self._slot_of]
+        idx = np.asarray([self._slot_of[n.name] for n in nodes], np.int64)
+        E = len(nodes)
+        cap = max(_INITIAL_SLOTS, self.slab_alloc.shape[0])
+        while cap // 2 >= max(E, _INITIAL_SLOTS):
+            cap //= 2
+        R, C = self.slab_alloc.shape[1], self.slab_compat.shape[1]
+        alloc = np.zeros((cap, R), np.float32)
+        used = np.zeros((cap, R), np.float32)
+        compat = np.zeros((cap, C), bool)
+        live = np.zeros(cap, bool)
+        if E:
+            alloc[:E] = self.slab_alloc[idx]
+            used[:E] = self.slab_used[idx]
+            compat[:E] = self.slab_compat[idx]
+            live[:E] = True
+        self.slab_alloc, self.slab_used = alloc, used
+        self.slab_compat, self.slab_live = compat, live
+        self._node_at = list(nodes) + [None] * (cap - E)
+        self._slot_of = {n.name: i for i, n in enumerate(nodes)}
+        self._free = []
+        self._top = E
+        self.compactions += 1
+        self.epoch += 1
+
+    def rebuild(self):
+        """Full re-derivation from cluster state — the fallback that makes
+        every other path merely an optimization.  Keeps the class registry
+        (columns recompute with the rows)."""
+        nodes = list(self._cluster.nodes.values())
+        E = len(nodes)
+        self._grow_slots(max(E, 1))
+        self.slab_live[:] = False
+        self.slab_alloc[:] = 0.0
+        self.slab_used[:] = 0.0
+        self.slab_compat[:] = False
+        self._node_at = [None] * self.slab_alloc.shape[0]
+        self._slot_of = {}
+        self._free = []
+        self._top = E
+        for slot, node in enumerate(nodes):
+            self._slot_of[node.name] = slot
+            self._node_at[slot] = node
+            self.slab_live[slot] = True
+            self._fill_row(slot, node)
+        self._needs_rebuild = False
+        self.epoch += 1
+
+    # ---- the consumer surface ---------------------------------------------
+    def gather(self, pod_classes: Sequence[Pod],
+               axes: Tuple[str, ...] = DEFAULT_AXES,
+               exclude: Sequence[str] = (),
+               scales=None):
+        """Warm replacement for `Cluster.tensorize_nodes` with the same
+        signature and bit-identical output, or None when the slab can't
+        serve the request (extra axes, non-default scales, a node the
+        deltas never covered) — the caller falls back to the from-scratch
+        path.  Read-only on the slab: fancy indexing copies, so consumers
+        can never corrupt it."""
+        if tuple(axes) != self._axes or (
+                scales is not None and dict(scales) != self._scales):
+            self.gathers["fallback"] += 1
+            return None
+        if self._needs_rebuild:
+            self.rebuild()
+        excl = set(exclude)
+        node_list = [n for n in self._cluster.nodes.values()
+                     if n.name not in excl and not n.marked_for_deletion]
+        slots = []
+        for n in node_list:
+            slot = self._slot_of.get(n.name)
+            if slot is None or self._node_at[slot] is not n:
+                # untracked or swapped-out node object: the delta stream
+                # missed something — refuse rather than risk a stale row
+                self.gathers["fallback"] += 1
+                return None
+            slots.append(slot)
+        rids = self._ensure_classes(pod_classes)
+        idx = np.asarray(slots, np.int64)
+        cols = np.asarray(rids, np.int64)
+        alloc = self.slab_alloc[idx]
+        used = self.slab_used[idx]
+        compat = np.ascontiguousarray(self.slab_compat[idx][:, cols].T) \
+            if len(node_list) else np.zeros((len(rids), 0), bool)
+        self.gathers["warm"] += 1
+        return node_list, alloc, used, compat

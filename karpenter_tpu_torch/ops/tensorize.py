@@ -1,7 +1,8 @@
 """Tensorization: pods + catalog + nodepools → dense arrays.
 
 A copy of the JAX package's `ops/tensorize.py`, with its consolidation
-`SimulationArena` (the delta-streamed ClusterArena is not ported yet).  The
+`SimulationArena` (whose faces gather the live nodes warm from the
+cluster's ClusterArena, ops/arena.py, when one is attached).  The
 lowering is host-side numpy and must stay bit-identical to the reference's,
 because every kernel parity check starts from these arrays:
 
@@ -759,10 +760,20 @@ class SimulationArena:
                             node_classes=self._node_classes)
         # ALL live nodes as columns — each probe masks its own subset, the
         # rest act as survivors exactly as in the sequential per-probe
-        # tensorize_nodes(exclude=subset)
-        node_list, alloc, used, compat = self._cluster.tensorize_nodes(
-            problem.class_reps, problem.axes, exclude=(),
-            scales=problem.scales)
+        # tensorize_nodes(exclude=subset).  A warm ClusterArena serves the
+        # same arrays bit-identically from its slab; gather() returning
+        # None (extra axes, untracked node) falls back to the full path.
+        cluster_arena = getattr(self._cluster, "arena", None)
+        gathered = None
+        if cluster_arena is not None:
+            gathered = cluster_arena.gather(
+                problem.class_reps, problem.axes, exclude=(),
+                scales=problem.scales)
+        if gathered is None:
+            gathered = self._cluster.tensorize_nodes(
+                problem.class_reps, problem.axes, exclude=(),
+                scales=problem.scales)
+        node_list, alloc, used, compat = gathered
         col_of = {n.name: i for i, n in enumerate(node_list)}
         C = problem.num_classes
         cid = np.zeros(len(lowered), np.int64)

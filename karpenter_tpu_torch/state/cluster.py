@@ -7,12 +7,18 @@ set to the dense arrays (allocatable/used E×R, per-class compat C×E) that the
 packing kernels take as pre-opened slots, so "simulate without node X" is an
 array mask, not an object-graph walk.
 
-Left out until their slices land (ROADMAP.md): the persistent delta arena
-(`attach_arena`, ClusterArena), the warm-restart snapshot
-(`snapshot_state` / `restore_state`), the demand observer hook and the
-metric families the mutators feed.  `mutation_epoch` is bumped by exactly
-the mutators that bump it in the reference: the simulation arena's
-staleness guard and the disruption controller's fingerprint cache read it.
+`attach_arena` attaches the persistent delta arena (ops/arena.py
+ClusterArena; the operator's IncrementalArena gate): every mutator below
+forwards its delta to `self.arena`, which the Provisioner and the
+consolidation SimulationArena gather warm instead of re-running
+`tensorize_nodes`.  `self.arena` may also be an `IngestBatcher`
+(state/ingest.py) wrapping it.  `mutation_epoch` is bumped by exactly the
+mutators that bump it in the reference: the simulation arena's staleness
+guard and the disruption controller's fingerprint cache read it.
+
+Left out until their slices land (ROADMAP.md queue B): the warm-restart
+snapshot (`snapshot_state` / `restore_state`), the demand observer hook
+and the metric families the mutators feed.
 """
 
 from __future__ import annotations
@@ -45,10 +51,23 @@ class Cluster:
         self.nodeclaims: Dict[str, NodeClaim] = {}
         self.pods: Dict[str, Pod] = {}
         self.pdbs: Dict[str, PodDisruptionBudget] = {}
-        # monotone mutation counter, bumped by EVERY mutator: cached
-        # tensorizations (SimulationArena faces, the disruption
-        # fingerprint) compare it to detect staleness lazily
+        # optional persistent delta arena (ops/arena.py ClusterArena): every
+        # mutator below forwards its delta so consumers can gather warm
+        # tensors instead of re-running tensorize_nodes; None unless
+        # attach_arena (the IncrementalArena gate) attaches one
+        self.arena = None
+        # monotone mutation counter, bumped by EVERY mutator (arena attached
+        # or not): cached tensorizations (SimulationArena faces, the
+        # disruption fingerprint) compare it to detect staleness lazily
         self.mutation_epoch = 0
+
+    def attach_arena(self, **kwargs):
+        """Create and attach a ClusterArena seeded from current state; every
+        subsequent mutation streams into it as a typed delta."""
+        from ..ops.arena import ClusterArena
+        self.arena = ClusterArena(self, **kwargs)
+        self.arena.rebuild()
+        return self.arena
 
     # ---- pods ----
     def add_pod(self, pod: Pod) -> Pod:
@@ -60,6 +79,8 @@ class Cluster:
         _class_key(pod)
         pod_is_soft(pod)
         self.mutation_epoch += 1
+        if self.arena is not None:
+            self.arena.apply_pod_add(pod)
         return pod
 
     def add_pods(self, pods: Sequence[Pod]) -> List[Pod]:
@@ -67,12 +88,17 @@ class Cluster:
 
     def delete_pod(self, pod: Pod):
         self.pods.pop(pod.uid, None)
+        bound_to = ""
         if pod.node_name and pod.node_name in self.nodes:
             node = self.nodes[pod.node_name]
             node.pods = [p for p in node.pods if p.uid != pod.uid]
+            bound_to = node.name
         self.mutation_epoch += 1
+        if self.arena is not None:
+            self.arena.apply_pod_remove(pod, bound_to)
 
     def bind_pod(self, pod: Pod, node_name: str):
+        old_node = pod.node_name
         if pod.node_name and pod.node_name in self.nodes:
             old = self.nodes[pod.node_name]
             old.pods = [p for p in old.pods if p.uid != pod.uid]
@@ -81,13 +107,19 @@ class Cluster:
         node.pods.append(pod)
         node.nominated_until = 0.0  # nomination fulfilled
         self.mutation_epoch += 1
+        if self.arena is not None:
+            self.arena.apply_pod_bind(pod, node_name, old_node)
 
     def unbind_pod(self, pod: Pod):
+        was_on = ""
         if pod.node_name and pod.node_name in self.nodes:
             node = self.nodes[pod.node_name]
             node.pods = [p for p in node.pods if p.uid != pod.uid]
+            was_on = node.name
         pod.node_name = ""
         self.mutation_epoch += 1
+        if self.arena is not None and was_on:
+            self.arena.apply_pod_unbind(was_on)
 
     def pending_pods(self) -> List[Pod]:
         return [p for p in self.pods.values() if not p.node_name]
@@ -102,6 +134,8 @@ class Cluster:
     def add_node(self, node: Node) -> Node:
         self.nodes[node.name] = node
         self.mutation_epoch += 1
+        if self.arena is not None:
+            self.arena.apply_node_add(node)
         return node
 
     def remove_node(self, name: str) -> Optional[Node]:
@@ -115,12 +149,17 @@ class Cluster:
                     self.pods.pop(p.uid, None)
             node.pods = []
             self.mutation_epoch += 1
+            if self.arena is not None:
+                self.arena.apply_node_remove(name)
         return node
 
     def touch_node(self, node: Node):
         """Callers that edit a node's labels/taints/allocatable IN PLACE
-        must report it here so cached tensorizations notice the change."""
+        must report it here so the arena re-derives the node's row and
+        cached tensorizations notice the change."""
         self.mutation_epoch += 1
+        if self.arena is not None:
+            self.arena.touch_node(node)
 
     def register_nodeclaim(self, claim: NodeClaim, allocatable: ResourceList,
                            capacity: Optional[ResourceList] = None,

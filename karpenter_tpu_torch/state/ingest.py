@@ -1,0 +1,162 @@
+"""Ingestion batcher: coalesce cluster events between ticks (IngestBatch).
+
+A copy of the JAX package's `state/ingest.py`.  At production event rates
+the eager delta stream is the steady-state cost: a firehose of binds,
+reclaims and price updates pays one `ClusterArena` row recompute per event,
+although the solver reads the slab once per reconcile tick.
+`IngestBatcher` wraps the arena behind the same delta-API surface
+(`Cluster`'s mutators call ``cluster.arena.apply_*`` blindly) and absorbs
+events into per-node pending state instead:
+
+* a node needing a **full row** (add / label-taint touch) shadows any
+  number of used-only refreshes for the same node;
+* a **removal** cancels pending work for the node outright (and an add
+  after a removal revives it — the eager remove + add pair collapses to
+  one row write);
+* pod binds/unbinds collapse to one **used-vector** refresh per node per
+  window, however many pods churned;
+* pod add/remove events carry no row work at all — they fold into the
+  single epoch bump the flush applies.
+
+`flush()` — called at the top of every tick, and as a safety net by
+`gather()` — applies the whole window through
+`ClusterArena.apply_ingest_flush` as one delta.  Every row re-derives from
+current cluster state through the same exact math as the eager path, so a
+batched window and its eager equivalent differ only in slot layout, never
+in gather output.
+
+Backpressure: when the pending set grows past ``max_events`` the batcher
+degrades to `arena.invalidate()` — the next gather is a full rebuild that
+re-derives every event's effect from cluster state.  Degraded, not
+dropped: the rebuild is the always-correct path.
+
+Left out: the reference's metric families (ROADMAP.md queue B; the
+counters `events_total`, `flushes_total` and `overflows_total` stay on the
+object) and `snapshot_state` / `restore_state`, which come with the arena's
+in `state/snapshot.py`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+
+class IngestBatcher:
+    """Arena-shaped event coalescer (see module docstring).  Like the arena
+    it wraps, it takes no lock: its caller is one thread."""
+
+    def __init__(self, arena, max_events: int = 100_000):
+        self._arena = arena
+        self.max_events = int(max_events)
+        self._touched: Dict[str, object] = {}  # name → Node (full-row work)
+        self._removed: Dict[str, None] = {}    # name → (removal pending)
+        self._used: Dict[str, None] = {}       # name → (used-only refresh)
+        self._bump_only = False   # pod add/remove events in the window
+        self.events_total = 0
+        self.flushes_total = 0
+        self.overflows_total = 0
+
+    # ---- bookkeeping ------------------------------------------------------
+    @property
+    def pending(self) -> int:
+        return len(self._touched) + len(self._removed) + len(self._used)
+
+    def _event(self) -> None:
+        self.events_total += 1
+        if self.pending > self.max_events:
+            self._overflow()
+
+    def _overflow(self) -> None:
+        self.overflows_total += 1
+        self._clear()
+        self._arena.invalidate("ingest_overflow")
+
+    def _clear(self) -> None:
+        self._touched.clear()
+        self._removed.clear()
+        self._used.clear()
+        self._bump_only = False
+
+    # ---- the delta-API surface Cluster's mutators call --------------------
+    def apply_node_add(self, node) -> None:
+        self._removed.pop(node.name, None)
+        self._used.pop(node.name, None)
+        self._touched[node.name] = node
+        self._event()
+
+    def apply_node_remove(self, name: str) -> None:
+        was_pending_add = self._touched.pop(name, None) is not None \
+            and name not in self._arena._slot_of
+        self._used.pop(name, None)
+        if not was_pending_add:
+            # tracked (or unknown) node: the arena must tombstone it; a
+            # node that only ever existed inside this window cancels out
+            self._removed[name] = None
+        self._event()
+
+    def touch_node(self, node) -> None:
+        if node.name in self._touched:
+            self._touched[node.name] = node
+        elif node.name not in self._removed and \
+                node.name in self._arena._slot_of:
+            self._used.pop(node.name, None)
+            self._touched[node.name] = node
+        # untracked or removal-pending: the eager path would no-op too
+        self._event()
+
+    def apply_pod_bind(self, pod, node_name: str,
+                       old_node_name: str = "") -> None:
+        if old_node_name and old_node_name != node_name:
+            self._mark_used(old_node_name)
+        self._mark_used(node_name)
+        self._event()
+
+    def apply_pod_unbind(self, node_name: str) -> None:
+        self._mark_used(node_name)
+        self._event()
+
+    def apply_pod_add(self, pod) -> None:
+        self._bump_only = True
+        self._event()
+
+    def apply_pod_remove(self, pod, node_name: str = "") -> None:
+        if node_name:
+            self._mark_used(node_name)
+        self._bump_only = True
+        self._event()
+
+    def _mark_used(self, name: str) -> None:
+        if name in self._touched or name in self._removed:
+            return  # full-row work (or removal) already shadows it
+        self._used[name] = None
+
+    # ---- flush + pass-throughs --------------------------------------------
+    def flush(self) -> bool:
+        """Apply the whole pending window as one arena delta.  Returns
+        True when anything was applied."""
+        if not (self._touched or self._removed or self._used
+                or self._bump_only):
+            return False
+        touched: List[object] = list(self._touched.values())
+        removed = list(self._removed)
+        used = list(self._used)
+        self._clear()
+        self._arena.apply_ingest_flush(touched, removed, used)
+        self.flushes_total += 1
+        return True
+
+    def gather(self, *args, **kwargs):
+        # safety net: a consumer that gathers before the top-of-tick flush
+        # must still see every absorbed event
+        self.flush()
+        return self._arena.gather(*args, **kwargs)
+
+    def invalidate(self, reason: str = "") -> None:
+        # pending work is subsumed by the rebuild the flag forces
+        self._clear()
+        self._arena.invalidate(reason)
+
+    def __getattr__(self, name):
+        # everything else (epoch, live_count, gathers, slab reads in tests,
+        # compact, rebuild, ...) forwards to the wrapped arena untouched
+        return getattr(self._arena, name)

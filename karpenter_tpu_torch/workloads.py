@@ -53,7 +53,7 @@ from __future__ import annotations
 import hashlib
 import json
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -676,14 +676,19 @@ class ProvisionEnv:
 
 
 def provision_env(cell: str, FakeCloud, CloudProvider, Cluster, Provisioner,
-                  NodePool, catalog, **extra) -> ProvisionEnv:
+                  NodePool, catalog, arena: bool = False,
+                  **extra) -> ProvisionEnv:
     """FakeCloud → CloudProvider(catalog) → Cluster → Provisioner with the
     cell's options (plus `extra`, e.g. the port's `device` or a
-    SolverHealth), one default NodePool."""
+    SolverHealth), one default NodePool.  With `arena` the cluster gets its
+    persistent delta arena (`Cluster.attach_arena`, the operator's
+    IncrementalArena gate) before any pod arrives."""
     opts, _ = PROVISION_CELLS[cell]
     cloud = FakeCloud()
     provider = CloudProvider(cloud, catalog)
     cluster = Cluster()
+    if arena:
+        cluster.attach_arena()
     prov = Provisioner(provider, cluster, [NodePool()], **opts, **extra)
     return ProvisionEnv(cloud, provider, cluster, prov)
 
@@ -1001,7 +1006,8 @@ def index_nodes(env: DisruptionEnv) -> None:
 
 
 def disruption_env(kit, catalog, n_pods: int = DISRUPTION_PODS,
-                   seed: int = DISRUPTION_SEED, **extra) -> DisruptionEnv:
+                   seed: int = DISRUPTION_SEED, arena: bool = False,
+                   **extra) -> DisruptionEnv:
     """The disruption cell's fleet from `kit`, a namespace of one
     package's classes (FakeQueue, FakeCloud, FleetOverride, CloudProvider,
     UnavailableOfferings, Cluster, Provisioner, TerminationController,
@@ -1017,8 +1023,11 @@ def disruption_env(kit, catalog, n_pods: int = DISRUPTION_PODS,
     later after it; the ICE cache runs on it too.  A TerminationController
     is wired into the DisruptionController and the InterruptionController
     (whose queue the cloud publishes to), beside a
-    GarbageCollectionController.  `extra` goes to the Provisioner and the
-    DisruptionController (the port's `device`)."""
+    GarbageCollectionController.  With `arena` the cluster gets its
+    persistent delta arena before the fleet is built, so every gather of
+    the build and of the ticks may be served from its slab.  `extra` goes
+    to the Provisioner and the DisruptionController (the port's
+    `device`)."""
     clock = SteppedClock(DISRUPTION_LAUNCH_T)
     queue = kit.FakeQueue(clock)
     cloud = kit.FakeCloud(clock, queue=queue)
@@ -1026,6 +1035,8 @@ def disruption_env(kit, catalog, n_pods: int = DISRUPTION_PODS,
         cloud, catalog, unavailable=kit.UnavailableOfferings(clock=clock),
         clock=clock)
     cluster = kit.Cluster(clock)
+    if arena:
+        cluster.attach_arena()
     pool = kit.NodePool()
     prov = kit.Provisioner(provider, cluster, [pool], clock=clock, **extra)
     rng = np.random.default_rng(seed)
@@ -1280,3 +1291,130 @@ GOLDEN_DISRUPTION: List[Dict] = [
          digest='5672d1d3abde39b23ed5a6129b320495'
                 '3d565aab22b529d96754f601a109dd6a'),
 ]
+
+
+# ---------------------------------------------------------------------------
+# the operator cell: the default Operator, its controllers, the live bursts
+# ---------------------------------------------------------------------------
+
+OPERATOR_CELL = "operator-live-50k-20k"
+OPERATOR_LAUNCH_T = 1000.0          # the stepped clock through both rounds
+OPERATOR_TICK_AFTER_S = 10_000.0    # the disruption tick: this long after
+# the live cell's two bursts, in order
+OPERATOR_ROUNDS = [(HEADLINE, HEADLINE_SEED),
+                   (PROVISION_ROUND2, PROVISION_ROUND2_SEED)]
+OPERATOR_IP_COUNT = 8187            # free IPs of a /19 subnet
+OPERATOR_K8S_VERSION = "1.28"       # FakeControlPlane's default version
+
+
+@dataclass
+class OperatorEnv:
+    """The operator cell's objects: the stepped clock, the Operator and
+    its controllers (`build_controllers`)."""
+    clock: SteppedClock
+    op: object
+    controllers: Dict[str, object]
+
+    def provision_env(self) -> ProvisionEnv:
+        return ProvisionEnv(self.op.cloud, self.op.cloud_provider,
+                            self.op.cluster,
+                            self.controllers["provisioning"])
+
+
+def seed_operator_cloud(op, SubnetInfo, SecurityGroupInfo, ImageInfo,
+                        zones=("zone-a", "zone-b", "zone-c")) -> None:
+    """The inventory a fresh fake cloud lacks for an operator to launch
+    into: one /19 subnet a zone of the catalog, a node security group, and
+    an image a CPU architecture published under the standard family's
+    parameter path for the control plane's version (the launch path
+    resolves images through it and keeps only the types an image
+    covers)."""
+    cluster = op.options.cluster_name
+    op.cloud.subnets = [SubnetInfo(f"subnet-{z}", z, OPERATOR_IP_COUNT,
+                                   {"karpenter.sh/discovery": cluster})
+                        for z in zones]
+    op.cloud.security_groups = [SecurityGroupInfo(
+        "sg-nodes", "nodes", {"karpenter.sh/discovery": cluster})]
+    op.cloud.images = [ImageInfo(f"img-standard-{arch}", f"standard-{arch}",
+                                 arch, 1.0) for arch in ("amd64", "arm64")]
+    op.params.parameters = {
+        f"/karpenter-tpu/images/standard/{OPERATOR_K8S_VERSION}/{arch}/"
+        f"latest": f"img-standard-{arch}" for arch in ("amd64", "arm64")}
+
+
+def operator_env(kit, catalog=None, **extra) -> OperatorEnv:
+    """The operator cell from `kit`, a namespace of one package's Operator,
+    Options, build_controllers, SubnetInfo, SecurityGroupInfo and
+    ImageInfo: `Operator(Options(), clock=<stepped clock>, **extra)` with
+    its default `generate_catalog(600)` (full width), its fake cloud
+    seeded by `seed_operator_cloud`, `build_controllers(op)`, and one
+    NodeClassController reconcile of the default NodeClass (its resolved
+    status and static hash, as the operator's first tick writes them).
+    `catalog` replaces the default catalog (a test's smaller one); `extra`
+    is the port's `device`."""
+    clock = SteppedClock(OPERATOR_LAUNCH_T)
+    if catalog is not None:
+        extra["catalog"] = catalog
+    op = kit.Operator(kit.Options(), clock=clock, **extra)
+    seed_operator_cloud(op, kit.SubnetInfo, kit.SecurityGroupInfo,
+                        kit.ImageInfo)
+    ctrls = kit.build_controllers(op)
+    ctrls["nodeclass"].reconcile(op.node_classes["default"])
+    return OperatorEnv(clock, op, ctrls)
+
+
+def operator_tick_signature(nodes_before, res) -> Dict:
+    """A disruption reconcile of the operator cell by launch position: the
+    action's kind and reason, its candidates, the launched claims' types
+    (sorted), the deleted count and whether the tick returned an error."""
+    launch_index = {name: i for i, name in enumerate(nodes_before)}
+    action = res.action
+    return dict(
+        action=None if action is None else [action.kind, action.reason],
+        candidates=[] if action is None else
+        [launch_index[c.name] for c in action.candidates],
+        launched=sorted(c.instance_type for c in res.launched),
+        deleted=len(res.deleted), error=bool(res.error))
+
+
+def operator_replay(env: OperatorEnv, build_pods: Callable,
+                    provision: Callable = provision_pending,
+                    tick: Optional[Callable] = None,
+                    rounds=OPERATOR_ROUNDS) -> Dict:
+    """The operator cell: each of `rounds`' bursts (OPERATOR_ROUNDS; built by
+    `build_pods`, the bench's or this module's) added to the operator's
+    cluster and provisioned by its Provisioner (`provision`, by default
+    `provision_pending`, so a caller can time it), then one reconcile of
+    its DisruptionController `OPERATOR_TICK_AFTER_S` after the launches
+    (`tick()` runs it, by default `reconcile()`).  Returns the provisioning
+    signatures by round and the tick's signature."""
+    penv = env.provision_env()
+    sigs = []
+    for kw, seed in rounds:
+        env.op.cluster.add_pods(build_pods(rng=np.random.default_rng(seed),
+                                           **kw))
+        sig, _ = provision(penv)
+        sigs.append(sig)
+    env.clock.t = OPERATOR_LAUNCH_T + OPERATOR_TICK_AFTER_S
+    before = list(env.op.cluster.nodes)
+    res = (tick or env.controllers["disruption"].reconcile)()
+    return dict(rounds=sigs, tick=operator_tick_signature(before, res))
+
+# `operator_replay(operator_env(...))` on the JAX package, on the CPU
+# (tests/test_torch_operator_golden.py): the live cell's two rounds (the
+# same signatures as GOLDEN_PROVISION's, the operator's DeviceDecode gate
+# being off) and a disruption tick that takes no action
+GOLDEN_OPERATOR: Dict[str, object] = dict(
+    rounds=[
+        dict(digest='4b393cd16d0177a0627c09879252a9fc'
+             '1416388a9ad1f47938991f0ab2819369',
+             launched=1463, bound_new=50000, bound_existing=0,
+             unschedulable=0, total_price=4651.988099999959),
+        dict(digest='6c4f1c8ac5426614754afd04b6c50e71'
+             'd3fa6c4cc0a73d42dcadf8096ec70046',
+             launched=585, bound_new=11519, bound_existing=718,
+             unschedulable=7763, total_price=2029.3209999999995),
+    ],
+    tick=dict(action=None, candidates=[], launched=[], deleted=0,
+              error=False),
+)

@@ -23,8 +23,8 @@ from karpenter_tpu_torch.ops import classpack as cp
 from karpenter_tpu_torch.ops import classpack_kernels as ck
 from karpenter_tpu_torch.ops.tensorize import tensorize
 from torch_cases import (CASES, PRECOMPUTE_EDGE_SHAPES,
-                         PRECOMPUTE_PATH_SHAPES, SWEEP_CASES, make_case,
-                         make_precompute_case, make_slot_case,
+                         PRECOMPUTE_PATH_SHAPES, SWEEP_CASES, clear_lp_caches,
+                         make_case, make_precompute_case, make_slot_case,
                          make_sweep_case, precompute_args, random_lp,
                          stack_shards, sweep_args)
 
@@ -1434,3 +1434,72 @@ def test_cuda_aggregate_each_cluster_size(cuda_device, cs, monkeypatch):
                               got[i, 3:].cpu().numpy())
         assert got[i, 1].item() == s["n_open"][i]
         assert got[i, 2].item() == s["n_unsched"][i]
+
+
+# ---- the arena and the operator (slice 11) ----
+
+SMALL_LIVE = [(dict(workloads.HEADLINE, spec_count=40, total=2000), 0),
+              (dict(workloads.PROVISION_ROUND2, spec_count=40, total=800), 5)]
+
+
+def _small_live(device, arena):
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.state import Cluster
+    clear_lp_caches()
+    env = workloads.provision_env(
+        "provision-live-50k-20k", FakeCloud, CloudProvider, Cluster,
+        Provisioner, NodePool, generate_catalog(workloads.PROVISION_TYPES),
+        arena=arena, device=device)
+    sigs = [workloads.provision_round(env, workloads.build_pods(
+        rng=np.random.default_rng(seed), **kw))[0] for kw, seed in SMALL_LIVE]
+    return sigs, getattr(env.cluster.arena, "gathers", None)
+
+
+@pytest.mark.cuda
+def test_cuda_arena_fed_solve_equals_scratch_fed_solve(cuda_device):
+    """The live cell's bursts at 2000 and 800 pods (DeviceDecode on): round
+    2's existing-node columns gathered from the arena's slab give the same
+    provisioning on the card as `tensorize_nodes`' (and as the CPU)."""
+    want, _ = _small_live("cuda", arena=False)
+    ck.reset_launches()
+    got, gathers = _small_live("cuda", arena=True)
+    assert got == want == _small_live("cpu", arena=True)[0]
+    assert want[1]["bound_existing"] > 0
+    assert gathers["warm"] >= 1 and gathers["fallback"] == 0
+    assert ck.LAUNCHES["classpack_slab"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_operator_builds_and_provisions_a_small_burst(cuda_device):
+    """`Operator()` with its default device (the card) and
+    `build_controllers` provision two small bursts and tick the
+    DisruptionController as the same operator does on the CPU."""
+    from types import SimpleNamespace
+    from karpenter_tpu_torch.cloud.fake import (ImageInfo, SecurityGroupInfo,
+                                                SubnetInfo)
+    from karpenter_tpu_torch.operator import (Operator, Options,
+                                              build_controllers)
+    kit = SimpleNamespace(Operator=Operator, Options=Options,
+                          build_controllers=build_controllers,
+                          SubnetInfo=SubnetInfo,
+                          SecurityGroupInfo=SecurityGroupInfo,
+                          ImageInfo=ImageInfo)
+    rounds = [(dict(workloads.HEADLINE, spec_count=30, total=600), 0),
+              (dict(workloads.PROVISION_ROUND2, spec_count=30, total=300), 5)]
+    out = {}
+    for device in ("cpu", None):
+        clear_lp_caches()
+        extra = {} if device is None else {"device": device}
+        env = workloads.operator_env(kit, catalog=generate_catalog(40),
+                                     **extra)
+        ck.reset_launches()
+        out[device] = workloads.operator_replay(env, workloads.build_pods,
+                                                rounds=rounds)
+        if device is None:
+            assert env.op.device.type == "cuda"
+            assert env.controllers["provisioning"].device.type == "cuda"
+            assert env.op.cluster.arena.gathers["warm"] >= 2
+            assert ck.LAUNCHES["classpack_scan"] > 0
+    assert out[None] == out["cpu"]
+    assert out[None]["rounds"][0]["launched"] > 0

@@ -3,6 +3,8 @@ parity tests (tests/test_torch_classpack.py) and the card tests
 (tests/test_torch_cuda.py).  numpy and torch only: the card's machine runs
 the latter without JAX."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,20 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def clear_lp_caches(*packages):
+    """The guide caches (mix, stale, colgen support) and PDHG warm starts of
+    each named package, the port's when none is named: the goldens were
+    made in a fresh process, and a cache another test warmed may lead a
+    guided solve to another plan.  The parity tests name both packages."""
+    for name in packages or ("karpenter_tpu_torch",):
+        lg = importlib.import_module(f"{name}.ops.lpguide")
+        with lg._MIX_LOCK:
+            lg._MIX_CACHE.clear()
+            lg._STALE_CACHE.clear()
+            lg._SUPPORT_CACHE.clear()
+        importlib.import_module(f"{name}.ops.lpsolve").reset_caches()
 
 
 def random_lp(rng, n, me, mi):
