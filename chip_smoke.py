@@ -223,6 +223,29 @@ pass):
                and the live-node gather, and live round 2's provision()
                timed on fresh copies without the arena, with it and behind
                an IngestBatcher; the paths' launches join the kernel rows.
+ 15. the operator loop — after phase 14, with its kernel spans and
+               recorded inputs: (a) SimHarness on the card replays the
+               canned scenarios whose goldens carry no gated section
+               (diurnal, spot-reclaim-storm, ice-starvation,
+               steady-state-drip, long-soak, at tests/test_sim.py's
+               horizons), each report byte for byte against
+               tests/golden/ (read, never written), then drip and soak
+               with the arena off, drip with IngestBatch and diurnal with
+               DeviceDecode against the same goldens; (b) the cell
+               sim-long-soak-480 with the arena on, off, off, on, each
+               against GOLDEN_SIM_SOAK, and steady-state-drip at 900 s
+               likewise, its four reports equal, with wall time, speedup,
+               ticks, gathers, launches and idle share; (c) the /v1 cell: the
+               operator from the command line at full width, restarted
+               over a launched fleet, its endpoints served and its loop
+               in a thread — /readyz 200 with the parity probe "ok",
+               /v1/apply, /v1/nodepools, /v1/solve of the headline's
+               50 000 Pod manifests against GOLDEN_V1_SOLVE, timed three
+               times with the split decode / solve / response — and
+               `python3 -m karpenter_tpu_torch` as a child process
+               (/readyz, a small /v1/solve, exit 0 on SIGTERM); (d) every
+               kernel wrapper those paths launched against its plain
+               version on the inputs of its last call on each path.
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -254,6 +277,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -4333,6 +4357,349 @@ def phase14(torch, card, err, device="cuda"):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the operator loop
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the canned goldens without a gated section, at tests/test_sim.py's
+# horizons: (name, scenario file, virtual seconds)
+SIM_GOLDENS = (("diurnal", "diurnal.yaml", 7200.0),
+               ("spot-reclaim-storm", "spot-reclaim-storm.yaml", 7200.0),
+               ("ice-starvation", "ice-starvation.yaml", 5400.0),
+               ("steady-state-drip", "steady-state-drip.yaml", 300.0),
+               ("long-soak", "long-soak.yaml", 120.0))
+# the gate replays that must give the same goldens (tests/test_sim.py:294,
+# 379, 465): (name, the harness's override)
+SIM_GATED = (("steady-state-drip", dict(incremental_arena=False)),
+             ("long-soak", dict(incremental_arena=False)),
+             ("steady-state-drip", dict(ingest_batch=True)),
+             ("diurnal", dict(device_decode=True)))
+SOAK_PATH = "sim-long-soak-480"
+DRIP_PATH = "sim-steady-state-drip-480"  # sweeps after its 300 s golden
+V1_PATH = "v1-solve-headline"
+V1_REPEATS = 3
+
+
+def sim_label(name, kw):
+    return "sim-" + name + "".join(f" {k}={v}" for k, v in kw.items())
+
+
+def sim_replay(torch, card, hook, fname, duration, label, **kw):
+    """One SimHarness replay on the card (its default device): the launch
+    counts zeroed just before `run()` and read just after, the manager's
+    ticks counted, every kernel wrapper's call spanned and its inputs kept
+    under `label`.  Returns (the run, the harness, launches, wall s)."""
+    from karpenter_tpu_torch.sim import SimHarness, load_scenario
+    clear_lp_caches()
+    h = SimHarness(load_scenario(os.path.join(REPO, "scenarios", fname)),
+                   seed=0, duration_s=duration, **kw)
+    check(h.op.device.type == "cuda", f"{label}: the harness is not on the "
+                                      f"card")
+    ticks, tick = [0], h.mgr.tick
+
+    def counted_tick():
+        ticks[0] += 1
+        return tick()
+    h.mgr.tick = counted_tick
+    hook.label = label
+    hook.take_busy()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    run = h.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    busy, calls = hook.take_busy()
+    hook.label = None
+    check(run.report["errors"]["tick_exceptions"] == 0,
+          f"{label}: {run.report['errors']['tick_exceptions']} tick "
+          f"exceptions")
+    arena = h.cluster.arena
+    gathers = dict(arena.gathers) if arena is not None else None
+    log(f"[sim] {label}: {run.virtual_seconds:.0f} virtual s in "
+        f"{wall:.3f} s wall ({run.virtual_seconds / wall:.1f}x real time), "
+        f"{ticks[0]} ticks, {run.events_delivered} events; arena gathers "
+        f"{gathers}; launches { {k: v for k, v in launches.items() if v} }; "
+        f"{idle_line(busy, calls, wall * 1e3)} on {card}")
+    return run, h, launches, wall
+
+
+def sim_goldens(torch, card, hook):
+    """15(a): the five canned goldens replayed on the card, byte for byte
+    against tests/golden/ (read, never written), then the gate replays
+    against the same goldens.  Returns the launches by path and the walls
+    of the drip's runs."""
+    from karpenter_tpu_torch.sim import report_to_json
+    by_path, walls = {}, {}
+    runs = [(name, {}) for name, _, _ in SIM_GOLDENS] + list(SIM_GATED)
+    cases = {name: (fname, dur) for name, fname, dur in SIM_GOLDENS}
+    for name, kw in runs:
+        fname, duration = cases[name]
+        label = sim_label(name, kw)
+        run, _, launches, wall = sim_replay(torch, card, hook, fname,
+                                            duration, label, **kw)
+        with open(os.path.join(REPO, "tests", "golden",
+                               f"sim-{name}.json")) as fh:
+            want = fh.read()
+        got = report_to_json(run.report)
+        check(got == want, f"{label}: the report differs from "
+                           f"tests/golden/sim-{name}.json: {got[:3000]}")
+        by_path[label] = launches
+        walls[label] = wall
+    for name in ("classpack_precompute", "classpack_scan",
+                 "classpack_assign_decode", "classpack_sweep"):
+        check(any(v[name] for v in by_path.values()),
+              f"{name} did not launch on the sim replays")
+    log(f"[sim] the five canned goldens and the four gate replays are "
+        f"reproduced byte for byte on {card}")
+    return by_path, walls
+
+
+def arena_pairs(torch, card, hook, cell, label, want):
+    """One replay of `cell` (a `workloads.SIM_*` dict) with the arena on
+    (the default) and off, in the order on, off, off, on, each with its
+    wall time, speedup, ticks, gathers, launches and idle share; every
+    report's `workloads.sim_digest` must be `want`, the JAX package's, and
+    the arena must serve warm gathers and refuse none.  Returns the walls
+    by arena and the first arena run's launches."""
+    from karpenter_tpu_torch import workloads
+    walls, first = {True: [], False: []}, None
+    for arena in (True, False, False, True):
+        path = label + ("" if arena else " incremental_arena=False")
+        run, h, launches, wall = sim_replay(torch, card, hook,
+                                            cell["scenario"],
+                                            cell["duration_s"], path,
+                                            incremental_arena=arena)
+        got = workloads.sim_digest(run.report)
+        check(got == want, f"{path}: {got} != {want}")
+        if arena:
+            g = h.cluster.arena.gathers
+            check(g["warm"] > 0 and g["fallback"] == 0,
+                  f"{path}: the arena's gathers {g}")
+            first = first or launches
+        walls[arena].append(wall)
+    return walls, first
+
+
+def ab_line(walls):
+    on, off = (statistics.mean(walls[k]) for k in (True, False))
+    return (f"with the arena {', '.join(f'{x:.3f}' for x in walls[True])} "
+            f"s (mean {on:.3f}), without "
+            f"{', '.join(f'{x:.3f}' for x in walls[False])} s (mean "
+            f"{off:.3f}): with / without {on / off:.3f}")
+
+
+def sim_soak(torch, card, hook, walls):
+    """15(b): the cells sim-long-soak-480 (workloads.SIM_SOAK) and
+    sim-steady-state-drip-480 (SIM_DRIP) with the arena on and off
+    (`arena_pairs`), each run against the JAX package's GOLDEN_SIM_SOAK /
+    GOLDEN_SIM_DRIP (the drip's 300 s golden sweeps nothing: its walls
+    from 15(a) are printed beside).  Returns the arena runs' launches."""
+    from karpenter_tpu_torch import workloads
+    soak, soak_launches = arena_pairs(torch, card, hook, workloads.SIM_SOAK,
+                                      SOAK_PATH, workloads.GOLDEN_SIM_SOAK)
+    drip, drip_launches = arena_pairs(torch, card, hook, workloads.SIM_DRIP,
+                                      DRIP_PATH, workloads.GOLDEN_SIM_DRIP)
+    log(f"[time] {SOAK_PATH}: {ab_line(soak)}; on {card}")
+    log(f"[time] {DRIP_PATH}: {ab_line(drip)}; steady-state-drip 300 s: "
+        f"{walls['sim-steady-state-drip']:.3f} s with, "
+        f"{walls['sim-steady-state-drip incremental_arena=False']:.3f} s "
+        f"without; on {card}")
+    return {SOAK_PATH: soak_launches, DRIP_PATH: drip_launches}
+
+
+def v1_kit():
+    from types import SimpleNamespace
+    from karpenter_tpu_torch.operator import ControllerManager
+    kit = operator_kit()
+    return SimpleNamespace(**vars(kit), ControllerManager=ControllerManager)
+
+
+def v1_in_process(torch, card, hook):
+    """15(c), in process: the operator from the command line at full width,
+    restarted over a launched fleet (`workloads.v1_manager`), its endpoints
+    on a free port and `run()` in a thread (`workloads.start_loop`: the
+    exception the loop ends with is kept, and none may be); /readyz,
+    /v1/apply, /v1/nodepools, then /v1/solve of the headline's 50 000 Pod
+    manifests against GOLDEN_V1_SOLVE, timed V1_REPEATS times with the
+    split manifest decode / solve / response.  Each request runs with the
+    loop held between ticks, so its launch counts, kernel spans, recorded
+    inputs and timings are the /v1 path's alone."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.api import serialize
+    clear_lp_caches()
+    t0 = time.perf_counter()
+    mgr = workloads.v1_manager(v1_kit(), workloads.build_pods)
+    check(mgr.operator.device.type == "cuda", "the /v1 operator is not on "
+                                              "the card")
+    port = mgr.serve_endpoints(metrics_port=0)
+    loop, loop_errors, pause = workloads.start_loop(mgr)
+    log(f"[v1] restarted operator up in "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms: "
+        f"{len(mgr.operator.cluster.nodes)} hydrated nodes, port {port}")
+    try:
+        code, ready = workloads.http_json(port, "/readyz")
+        check(code == 200 and ready["ready"] and ready["probe"] == "ok",
+              f"/readyz: {code} {ready}")
+        code, out = workloads.http_json(
+            port, "/v1/apply", {"manifests": workloads.V1_MANIFESTS})
+        check(code == 200, f"/v1/apply: {code} {out}")
+        code, listed = workloads.http_json(port, "/v1/nodepools")
+        check(code == 200 and listed["items"][0]["spec"]["template"][
+            "metadata"]["labels"] == {"team": "v1"},
+            f"/v1/nodepools: {code} {listed}")
+        check(workloads.http_json(port, "/metrics")[0] == 501,
+              "/metrics does not answer 501")
+        pods = workloads.build_pods(rng=np.random.default_rng(
+            workloads.HEADLINE_SEED), **workloads.HEADLINE)
+        payload = workloads.v1_solve_payload(pods)
+        body = json.dumps(payload).encode()
+        # the split: the handler's three parts, timed in process on the
+        # same payload (decode, solve, response), beside the HTTP round trip
+        decode, solve, respond, total = [], [], [], []
+        by_path = {}
+        prov = mgr.controllers["provisioning"]
+        orig_solve = prov.solve
+        for i in range(V1_REPEATS):
+            times = {}
+
+            def timed_solve(*a, **k):
+                t = time.perf_counter()
+                out = orig_solve(*a, **k)
+                torch.cuda.synchronize()
+                times["solve"] = time.perf_counter() - t
+                return out
+            with pause:     # no tick of the loop inside the window
+                clear_lp_caches()
+                prov.solve = timed_solve
+                hook.label = V1_PATH if i == 0 else None
+                hook.take_busy()
+                reset_all_launches()
+                t = time.perf_counter()
+                code, resp = workloads.http_json(port, "/v1/solve", payload)
+                total.append((time.perf_counter() - t) * 1e3)
+                launches = all_launches()
+                busy, calls = hook.take_busy()
+                hook.label = None
+                prov.solve = orig_solve
+            check(code == 200, f"/v1/solve: {code} {str(resp)[:2000]}")
+            got = workloads.v1_solve_digest(resp)
+            check(got == workloads.GOLDEN_V1_SOLVE,
+                  f"/v1/solve: {got} != GOLDEN_V1_SOLVE "
+                  f"{workloads.GOLDEN_V1_SOLVE}")
+            if i == 0:
+                by_path[V1_PATH] = launches
+                log(f"[v1] {V1_PATH}: GOLDEN_V1_SOLVE reproduced over HTTP "
+                    f"({got['nodes']} nodes, {got['total_price']} $/h); "
+                    f"launches "
+                    f"{ {k: v for k, v in launches.items() if v} }; "
+                    f"{idle_line(busy, calls, total[-1])} on {card}")
+            t = time.perf_counter()
+            [serialize.pod_from_manifest(p)
+             for p in json.loads(body)["pods"]]
+            decode.append((time.perf_counter() - t) * 1e3)
+            solve.append(times["solve"] * 1e3)
+            t = time.perf_counter()
+            json.dumps(resp).encode()
+            respond.append((time.perf_counter() - t) * 1e3)
+        for name in ("classpack_precompute", "classpack_scan",
+                     "classpack_assign_decode"):
+            check(by_path[V1_PATH][name] > 0,
+                  f"{name} did not launch in /v1/solve")
+        med = statistics.median
+        log(f"[time] {V1_PATH}: /v1/solve p50 {med(total):.3f} ms over "
+            f"{V1_REPEATS} requests ({', '.join(f'{x:.1f}' for x in total)};"
+            f" cold guide caches each): manifest decode {med(decode):.3f}, "
+            f"solve {med(solve):.3f}, response encode {med(respond):.3f}, "
+            f"the rest (HTTP, JSON parse, admission) "
+            f"{med(total) - med(decode) - med(solve) - med(respond):.3f} on "
+            f"{card}")
+        report, live = mgr.liveness_report()
+        check(live, f"/healthz: {report}")
+        check(loop.is_alive() and not loop_errors,
+              f"the manager's loop ended early: {loop_errors!r}")
+    finally:
+        mgr.stop()
+        loop.join(timeout=60)
+    check(not loop.is_alive(), "the manager's loop did not stop")
+    check(not loop_errors, f"the manager's loop raised: {loop_errors!r}")
+    check(mgr.phase == "DRAINING", f"the manager ends in {mgr.phase}")
+    return by_path
+
+
+def v1_process(card):
+    """15(c), as a process: `python3 -m karpenter_tpu_torch` on the card,
+    its "up" line awaited, /readyz and /v1/solve of a small batch, then
+    SIGTERM: it must exit 0."""
+    import signal
+    import threading
+    from karpenter_tpu_torch import workloads
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "karpenter_tpu_torch",
+                             "--metrics-port", "0"], cwd=REPO,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        port, deadline, seen = None, time.time() + 300, []
+        while port is None and time.time() < deadline:
+            line = proc.stderr.readline()
+            if not line:
+                break
+            seen.append(line)
+            if "karpenter-tpu up:" in line:
+                port = int(line.split("endpoints=127.0.0.1:")[1].split()[0])
+        check(port is not None, f"python3 -m karpenter_tpu_torch printed no "
+                                f"up line: {''.join(seen)[-3000:]}")
+        up = time.perf_counter() - t0
+        threading.Thread(target=proc.stderr.read, daemon=True).start()
+        code, ready = workloads.http_json(port, "/readyz")
+        check(code == 200 and ready["ready"], f"/readyz: {code} {ready}")
+        pods = workloads.build_pods(rng=np.random.default_rng(0), **dict(
+            workloads.HEADLINE, spec_count=30, total=600))
+        t = time.perf_counter()
+        code, resp = workloads.http_json(port, "/v1/solve",
+                                         workloads.v1_solve_payload(pods))
+        solve_ms = (time.perf_counter() - t) * 1e3
+        check(code == 200 and resp["nodes"] and not resp["unschedulable"],
+              f"/v1/solve: {code} {str(resp)[:2000]}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"python3 -m karpenter_tpu_torch exited {rc} on "
+                       f"SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"[v1] python3 -m karpenter_tpu_torch: up in {up:.3f} s, /readyz "
+        f"200, /v1/solve of 600 pods {solve_ms:.3f} ms "
+        f"({len(resp['nodes'])} nodes), exit 0 on SIGTERM, on {card}")
+
+
+def phase15(torch, card, err):
+    """Phase 15, the operator loop: (a) the canned goldens replayed by the
+    simulator on the card, (b) the soak cell with the arena on and off,
+    (c) the /v1 surface in process and `python3 -m karpenter_tpu_torch` as
+    a process, then (d) every kernel wrapper those paths launched held
+    against its plain version on the inputs of its last call on each path;
+    (e) the timings, launches and idle shares along the way.  Returns the
+    launches by path."""
+    hook = kernel_log(torch, spans=True)
+    with wrapped_kernels(hook):
+        by_path, walls = sim_goldens(torch, card, hook)
+        by_path.update(sim_soak(torch, card, hook, walls))
+        by_path.update(v1_in_process(torch, card, hook))
+    v1_process(card)
+    seen = hold_recorded(torch, hook.recorded, err, lambda label: label)
+    for name, where in seen.items():
+        log(f"[loop] {name} on the {len(where)} inputs recorded on phase "
+            f"15's paths (its last call on each; first argument's shape): "
+            f"equal to plain — {', '.join(where)}")
+    for path, launches in by_path.items():
+        log(f"[loop] launches on {path}: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4407,6 +4774,15 @@ def main() -> int:
             if row["name"] in launches:
                 row["launches_by_path"][path] = launches[row["name"]]
     log(f"[arena] phase 14 done ({time.perf_counter() - t_start:.1f} s "
+        f"so far)")
+    loop_paths = phase15(torch, card, err)
+    for row in rows:
+        if row["name"] in err:
+            row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
+        for path, launches in loop_paths.items():
+            if row["name"] in launches:
+                row["launches_by_path"][path] = launches[row["name"]]
+    log(f"[loop] phase 15 done ({time.perf_counter() - t_start:.1f} s "
         f"so far)")
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]

@@ -1,0 +1,48 @@
+"""Process entry point: `python -m karpenter_tpu_torch`.
+
+The port of the JAX package's `__main__.py`, the analog of
+karpenter:cmd/controller/main.go:32-73 — parse options, build the operator,
+assemble core + provider controllers, serve endpoints, run the manager until
+interrupted.  Runs against the in-memory substrate, its solves on the card.
+Logging is plain text through `logging` (the reference's structured
+`configure_logging` is ROADMAP.md queue B item B9; `--log-format json` is
+refused), and `--leader-elect` is refused until item B7 ports the elector.
+
+`main(argv, device="cuda")`: the `device` keyword is how a test runs the
+entry point on the CPU; the command line has no such flag.
+"""
+
+from __future__ import annotations
+
+import logging
+import signal
+import sys
+
+from .operator import ControllerManager, Operator, Options, build_controllers
+
+
+def main(argv=None, device="cuda") -> int:
+    options = Options.from_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s "
+                               "%(message)s")
+    op = Operator(options, device=device)
+    manager = ControllerManager(op, build_controllers(op))
+    # readiness ladder BEFORE serving: the arena parity probe, then the
+    # role phase — /readyz stays 503 until the ladder completes
+    manager.startup()
+    port = manager.serve_endpoints()
+    logging.info("karpenter-tpu up: cluster=%s endpoints=127.0.0.1:%s "
+                 "controllers=%s", options.cluster_name, port,
+                 sorted(manager.controllers))
+    signal.signal(signal.SIGTERM, lambda *_: manager.stop())
+    signal.signal(signal.SIGINT, lambda *_: manager.stop())
+    try:
+        manager.run()
+    finally:
+        manager.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,11 +6,11 @@ hand-written spec validation (karpenter:pkg/apis/v1beta1/
 ec2nodeclass_validation.go:1-299, karpenter:pkg/apis/v1alpha1/
 provider_validation.go:1-266, plus the CEL rules baked into
 karpenter:pkg/apis/crds/karpenter.sh_nodepools.yaml): NodePool and
-NodeClass defaulting, object validation and update-time immutability.
-
-Left out until the `/v1` manifest surface lands (ROADMAP.md queue B3,
-beside `api/serialize.py` and `Operator.apply`, its only callers):
-`validate_manifest`, the schema check of a manifest document.
+NodeClass defaulting, object validation and update-time immutability,
+and `validate_manifest`, the schema check of a manifest document that
+`Operator.apply` runs before construction.  The reference skips that
+check where the `jsonschema` package is missing; the port needs the
+package, so a manifest is never admitted unchecked.
 """
 
 from __future__ import annotations
@@ -270,3 +270,30 @@ def validate_nodeclass_update(original, updated) -> None:
     ec2nodeclass_validation.go:287-296)."""
     if original.role != updated.role:
         raise ValidationError("immutable field changed: role")
+
+
+# ---------------------------------------------------------------------------
+# manifest-level admission (schema + object rules)
+# ---------------------------------------------------------------------------
+
+def validate_manifest(manifest: Dict) -> None:
+    """Schema-check a manifest document against the CRD schema for its kind
+    (the openAPIV3Schema admission surface), raising ValidationError with
+    every violation listed."""
+    from .serialize import crd_schemas
+    kind = manifest.get("kind", "")
+    # the reference publishes AWSNodeTemplate under both spellings; one
+    # schema covers both (legacy.py converts either)
+    schema = crd_schemas().get(
+        "NodeTemplate" if kind == "AWSNodeTemplate" else kind)
+    if schema is None:
+        raise ValidationError(f"unknown kind {kind!r}")
+    import jsonschema
+    validator = jsonschema.Draft202012Validator(schema)
+    errors = sorted(validator.iter_errors(manifest), key=lambda e: list(e.path))
+    if errors:
+        msgs = []
+        for e in errors:
+            path = ".".join(str(p) for p in e.path) or "(root)"
+            msgs.append(f"{path}: {e.message}")
+        raise ValidationError("; ".join(msgs))

@@ -1,7 +1,7 @@
 """Resource quantities and resource-list arithmetic.
 
 A copy of the JAX package's `api/resources.py`, trimmed to what the
-solve path needs.  Every ResourceList lowers to a fixed-order dense vector
+solve path and the manifest codecs (`api/serialize.py`) need.  Every ResourceList lowers to a fixed-order dense vector
 (`to_vector`) so pod batches and instance-type catalogs become `P×R` / `T×R`
 matrices for the CUDA kernels in `karpenter_tpu_torch.ops`.  Canonical
 integer units (millicores / bytes / counts) keep the host-side math exact.
@@ -66,6 +66,16 @@ def parse_quantity(value, resource: str = MEMORY) -> int:
     if suffix not in _SUFFIX:
         raise ValueError(f"unsupported suffix {suffix!r} in {value!r}")
     return int(num * _SUFFIX[suffix])
+
+
+def format_quantity(units: int, resource: str) -> str:
+    if resource == CPU:
+        return f"{units}m" if units % 1000 else str(units // 1000)
+    if resource in (MEMORY, EPHEMERAL_STORAGE):
+        for suf, mult in (("Ti", 2**40), ("Gi", 2**30), ("Mi", 2**20), ("Ki", 2**10)):
+            if units and units % mult == 0:
+                return f"{units // mult}{suf}"
+    return str(units)
 
 
 class ResourceList(dict):
@@ -136,3 +146,40 @@ class ResourceList(dict):
             if v:
                 out[a] = int(math.ceil(v))
         return cls(out)
+
+
+def merge(*lists: Mapping[str, int]) -> ResourceList:
+    out = ResourceList()
+    for rl in lists:
+        out = out + rl
+    return out
+
+
+def pod_requests(containers: Iterable[Mapping[str, int]],
+                 init_containers: Iterable = ()) -> ResourceList:
+    """Effective pod request under K8s + KEP-753 (sidecar) semantics — the
+    single source of truth `serialize.pod_from_manifest` delegates to:
+
+        max( sum(containers) + sum(sidecars),
+             max_i( init_i + sidecars started before init_i ) )
+
+    `init_containers` items are either a plain requests mapping (one-shot
+    init container) or a `(requests, restart_always)` pair; items with
+    `restart_always=True` are sidecars, which run for the pod's whole
+    lifetime and therefore ADD to both the init-phase peak and the steady
+    state, in list order."""
+    def _emax(a: ResourceList, b: Mapping[str, int]) -> ResourceList:
+        out = ResourceList(a)
+        for k, v in b.items():
+            out[k] = max(out.get(k, 0), v)
+        return out
+
+    app = merge(*containers)
+    sidecars = ResourceList()   # sidecars started so far, in list order
+    init_peak = ResourceList()  # element-wise max over init steps
+    for ic in init_containers:
+        req, always = ic if isinstance(ic, tuple) else (ic, False)
+        init_peak = _emax(init_peak, sidecars + ResourceList(req))
+        if always:
+            sidecars = sidecars + ResourceList(req)
+    return _emax(app + sidecars, init_peak)

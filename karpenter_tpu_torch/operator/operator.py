@@ -15,24 +15,28 @@ With the default options the cluster carries the persistent delta arena
 `IngestBatcher` under the IngestBatch gate, and every cloud call of the
 CloudProvider goes through `BatchedCloud`.
 
+The `/v1` manifest surface (`apply`, `apply_batch`, `_admit`, `_register`)
+admits manifests as the reference's does, and `state_lock` (a
+`threading.RLock`) is the one lock the controller manager's ticks and that
+surface share.
+
 Not ported yet, and raising NotImplementedError that names the item of
-ROADMAP.md's queue B: the Forecast gate (B6), WarmRestart and HAFailover
-(B7), FlightRecorder and SLOEngine (B9), GangScheduling (B8) and a chaos
-spec (B5).  The `/v1` manifest surface (`apply`, `apply_batch`, `_admit`,
-`_register`) waits for B3 with the manager's HTTP endpoint, its only
-caller; so does the reference's state lock, which only the manager and that
-surface take: the port's operator is driven from one thread.  The
-reference's metric registration and scrape collectors are left out (B9).  `build_controllers` gives the shared SolverHealth ladder to
-the Provisioner only: the DisruptionController's ladder is B5's, and
-until then its simulations take the direct path that the ladder takes
-while no rung has failed.
+ROADMAP.md's queue B (`options.check_ported`): the Forecast gate (B6),
+WarmRestart and HAFailover (B7), FlightRecorder and SLOEngine (B9),
+GangScheduling (B8) and a chaos spec (B5).  The reference's metric
+registration, scrape collectors and slow-span threshold are left out (B9).
+`build_controllers` gives the shared SolverHealth ladder to the Provisioner
+only: the DisruptionController's ladder is B5's, and until then its
+simulations take the direct path that the ladder takes while no rung has
+failed.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 from ..api.objects import NodeClass, NodePool
 from ..catalog.generate import generate_catalog
@@ -65,28 +69,9 @@ from ..providers.version import VersionProvider
 from ..state.cluster import Cluster
 from ..utils.events import Recorder
 from ..utils.provenance import ProvenanceStore
-from .options import Options
+from .options import Options, check_ported
 
 log = logging.getLogger("karpenter_tpu_torch.operator")
-
-# feature gate → the ROADMAP.md queue B item that ports it
-UNPORTED_GATES = {"Forecast": "B6", "WarmRestart": "B7", "HAFailover": "B7",
-                  "FlightRecorder": "B9", "SLOEngine": "B9",
-                  "GangScheduling": "B8"}
-
-
-def check_ported(options: Options) -> None:
-    """Raise NotImplementedError naming every gate `options` turns on, and
-    the chaos spec if set, whose feature is not ported yet, with its
-    ROADMAP.md item."""
-    off = [f"the {gate} gate (ROADMAP.md queue B, item {item})"
-           for gate, item in UNPORTED_GATES.items() if options.gate(gate)]
-    if options.chaos_spec:
-        off.append("a chaos spec (ROADMAP.md queue B, item B5)")
-    if off:
-        raise NotImplementedError(
-            f"Operator: {', '.join(off)} is not ported yet")
-
 
 class Operator:
     """Builds the full provider graph over a cloud substrate
@@ -172,8 +157,11 @@ class Operator:
                 self.cluster.arena = IngestBatcher(
                     self.cluster.arena,
                     max_events=int(self.options.ingest_max_events))
-        self.node_classes: Dict[str, NodeClass] = {"default": NodeClass()}
-        self.nodepools: Dict[str, NodePool] = {"default": NodePool()}
+        # one state lock shared by the tick loop (ControllerManager) and the
+        # /v1 surface: a solve must never read cluster state mid-mutation
+        self.state_lock = threading.RLock()
+        self.node_classes: Dict[str, NodeClass] = {"default": NodeClass()}  # guarded-by: caller(state_lock)
+        self.nodepools: Dict[str, NodePool] = {"default": NodePool()}  # guarded-by: caller(state_lock)
         # cloud-call hardening: both default off, so a stepped clock never
         # wall-sleeps in a retry loop
         retry = breaker = None
@@ -222,6 +210,111 @@ class Operator:
         if n:
             log.info("hydrated %d nodes from cloud state", n)
         return n
+
+    def _admit(self, manifest: Dict, pending_nc: Optional[Dict] = None):
+        """Admission phase 1 — the ONE shared gate behind both `apply` and
+        `apply_batch` (webhook semantics, karpenter:pkg/webhooks/webhooks.go:44-63):
+        legacy manifests are schema-checked against THEIR OWN kind's schema
+        before conversion (a malformed Provisioner/Machine gets an error
+        naming the kind the user submitted), then converted, re-validated,
+        and parsed with defaulting.  NodeClass update immutability checks
+        against live state or — in a batch — an earlier staged manifest of
+        the same name, via `pending_nc` (a create followed by an
+        immutable-field update in one batch must fail up front).  Returns
+        `(kind, obj)` ready for `_register`; any admission change lands in
+        both entry points automatically."""
+        from ..api.admission import validate_manifest, validate_nodeclass_update
+        from ..api.legacy import convert_manifest
+        from ..api.serialize import (nodeclaim_from_manifest,
+                                     nodeclass_from_manifest,
+                                     nodepool_from_manifest)
+        validate_manifest(manifest)
+        manifest = convert_manifest(manifest)
+        validate_manifest(manifest)
+        kind = manifest.get("kind")
+        if kind == "NodePool":
+            return kind, nodepool_from_manifest(manifest)
+        if kind == "NodeClass":
+            obj = nodeclass_from_manifest(manifest)  # defaults + validates
+            original = (pending_nc or {}).get(obj.name) or \
+                self.node_classes.get(obj.name)
+            if original is not None:
+                validate_nodeclass_update(original, obj)
+            if pending_nc is not None:
+                pending_nc[obj.name] = obj
+            return kind, obj
+        if kind == "NodeClaim":
+            return kind, nodeclaim_from_manifest(manifest)
+        raise ValueError(f"cannot apply kind {kind!r}")
+
+    def apply_batch(self, manifests) -> list:
+        """Atomic-intent batch apply: phase 1 runs EVERY manifest through
+        `_admit` — the exact admission gate `apply` uses — threading the
+        batch-local `pending_nc` map so immutability is checked against
+        earlier manifests in the batch as well as live state; phase 2
+        registers the objects phase 1 already admitted, so admission runs
+        exactly once per manifest.  A phase-1 failure means nothing was
+        applied."""
+        pending_nc: Dict[str, object] = {}
+        staged: List = []
+        for manifest in manifests:
+            try:
+                staged.append(self._admit(manifest, pending_nc))
+            except (ValueError, KeyError, TypeError) as e:
+                raise ValueError(
+                    f"{manifest.get('kind')}/"
+                    f"{manifest.get('metadata', {}).get('name')}: {e}") \
+                    from e
+        return [self._register(kind, obj) for kind, obj in staged]
+
+    def apply(self, manifest: Dict):
+        """Admission-checked manifest ingestion — the kubectl-apply analog:
+        `_admit` defaults + validates (legacy alpha kinds convert first,
+        karpenter-convert semantics) and `_register` records the object in
+        live controller state (dicts shared with the provisioner/disruption
+        controllers).  Returns the registered object."""
+        kind, obj = self._admit(manifest)
+        return self._register(kind, obj)
+
+    def _register(self, kind: str, obj):
+        """Admission phase 2: record an already-validated object in live
+        controller state.  `apply` and `apply_batch` both end here —
+        batch registration must not re-run admission (a NodeClass update
+        re-validated at registration time would check against its own
+        phase-1 sibling instead of pre-batch state, and would pay the
+        schema walk twice)."""
+        if kind == "NodePool":
+            self.nodepools[obj.name] = obj
+            log.info("applied NodePool %s", obj.name)
+            return obj
+        if kind == "NodeClass":
+            self.node_classes[obj.name] = obj
+            log.info("applied NodeClass %s", obj.name)
+            return obj
+        # NodeClaim: normally machine-created; applying one (e.g. a migrated
+        # legacy Machine record) registers it into cluster state. A claim
+        # with a live instance goes through the same promotion as restart
+        # hydration so its capacity is schedulable and disruptable — not
+        # just GC-protected.
+        claim = obj
+        if claim.provider_id and not self.cluster.claim_for_provider_id(
+                claim.provider_id):
+            it = next((t for t in self.catalog
+                       if t.name == claim.instance_type), None)
+            if it is not None:
+                it = effective_instance_type(
+                    it, self.nodepools.get(claim.nodepool),
+                    self.node_classes.get(claim.node_class_ref))
+            allocatable = it.allocatable if it else claim.requests
+            claim.created_at = claim.created_at or claim.launched_at
+            node = self.cluster.register_nodeclaim(
+                claim, allocatable, it.capacity if it else None,
+                rehydrate=True)
+            node.created_at = claim.launched_at or node.created_at
+        else:
+            self.cluster.nodeclaims[claim.name] = claim
+        log.info("applied NodeClaim %s", claim.name)
+        return claim
 
     def delete(self, kind: str, name: str) -> bool:
         """Deregister a NodePool, or finalize + deregister a NodeClass

@@ -1,22 +1,39 @@
-"""Operator options: the fields the port's `Operator` and `build_controllers`
-read, with the JAX package's defaults, and the feature-gate table.
+"""Operator options: the fields the port reads, with the JAX package's
+defaults, the feature-gate table, and the command line with its env-var
+defaults.
 
 A trimmed copy of the JAX package's `operator/options.py` (which
-re-implements karpenter:pkg/operator/options/options.go).  The reference's
-command line (`from_args`), its env-var defaults and the legacy settings
-merge (`merge_settings`) come with ROADMAP.md queue B3, beside `__main__.py`
-and the controller manager that read them; so do the options only those
-read (ports, leader election, snapshots, logging, supervision, the flight
-recorder and the SLO engine, the forecast knobs).  A field this dataclass
-does not have is refused at construction, never silently ignored.
-`operator.Operator` raises NotImplementedError for the gates and the chaos
-spec whose features are not ported yet, naming their ROADMAP.md item.
+re-implements karpenter:pkg/operator/options/options.go:53-63).
+Precedence is the reference's: explicit flag > env var > default.
+`from_args` parses the reference's whole command line and refuses every
+flag set away from its default whose reader the port does not have,
+naming the ROADMAP.md queue B item that ports it: `--chaos-spec` /
+`--chaos-seed` (B5), the forecast knobs (B6), `--leader-elect`, the lease
+and snapshot flags (B7), `--gang-scheduling` (B8), `--log-format json`,
+`--trace-slow-ms`, `--enable-profiling` and the incident, obs, SLO and
+ledger flags (B9).  The four options the JAX package parses and never
+reads (`--vm-memory-overhead-percent`, `--reserved-enis`, `--health-port`,
+the env's tags) are not parsed: argparse refuses those flags.  A gate
+whose feature is not ported is refused by `check_ported`, at the end of
+`from_args` and in `Operator`.  The legacy settings merge
+(`merge_settings`) has no caller in the JAX package and is left out.  A
+field this dataclass does not have is refused at construction, never
+silently ignored.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Dict
+import argparse
+import os
+from dataclasses import dataclass, field, fields
+from typing import Dict, Optional, Sequence
+
+ENV_PREFIX = "KARPENTER_TPU_"
+
+# Defaults cited from the reference where they exist.
+DEFAULT_BATCH_IDLE = 1.0                # settings.md:17 batch-idle-duration
+DEFAULT_BATCH_MAX = 10.0                # settings.md:18 batch-max-duration
+DEFAULT_METRICS_PORT = 8000
 
 # every feature gate with its default (the reference's options.py:134-146;
 # its comments there say what each gate turns on)
@@ -27,6 +44,88 @@ FEATURE_GATES: Dict[str, bool] = {
     "HAFailover": False, "FlightRecorder": False, "SLOEngine": False,
     "GangScheduling": False}
 
+# feature gate → the ROADMAP.md queue B item that ports it
+UNPORTED_GATES = {"Forecast": "B6", "WarmRestart": "B7", "HAFailover": "B7",
+                  "FlightRecorder": "B9", "SLOEngine": "B9",
+                  "GangScheduling": "B8"}
+
+# the reference's command-line options the port does not read → (the value
+# that leaves them off, the ROADMAP.md queue B item that ports their reader)
+UNPORTED_FLAGS = {
+    "chaos_spec": ("", "B5"), "chaos_seed": (0, "B5"),
+    "forecast": (False, "B6"), "forecast_cadence_s": (30.0, "B6"),
+    "forecast_horizon_s": (900.0, "B6"), "forecast_lead_s": (180.0, "B6"),
+    "forecast_ttl_s": (600.0, "B6"),
+    "forecast_model": ("holtwinters", "B6"),
+    "leader_elect": (False, "B7"), "lease_path": ("", "B7"),
+    "lease_ttl_s": (15.0, "B7"), "warm_restart": (False, "B7"),
+    "snapshot_path": ("", "B7"), "snapshot_interval_s": (30.0, "B7"),
+    "ha_failover": (False, "B7"),
+    "gang_scheduling": (False, "B8"),
+    "log_format": ("text", "B9"), "trace_slow_ms": (0.0, "B9"),
+    "enable_profiling": (False, "B9"), "flight_recorder": (False, "B9"),
+    "incident_dir": ("", "B9"), "incident_window_s": (600.0, "B9"),
+    "incident_dedup_s": (300.0, "B9"), "incident_retention": (32, "B9"),
+    "obs_sample_s": (30.0, "B9"), "obs_ring_slots": (512, "B9"),
+    "slo_engine": (False, "B9"), "slo_eval_cadence_s": (60.0, "B9"),
+    "ledger_retention": (256, "B9"), "ledger_drift_threshold": (0.15, "B9"),
+}
+
+
+def _true(v: str) -> bool:
+    return v.lower() == "true"
+
+
+# the reference's options that take an env default (every field of its
+# Options that `from_args` reads), with the cast of the env string
+_ENV_CASTS = {
+    **{k: str for k in ("cluster_name", "cluster_endpoint", "cluster_dns",
+                        "interruption_queue", "log_format", "forecast_model",
+                        "chaos_spec", "snapshot_path", "lease_path",
+                        "incident_dir", "feature_gates")},
+    **{k: _true for k in ("isolated_network", "leader_elect",
+                          "enable_profiling")},
+    **{k: int for k in ("metrics_port", "supervisor_circuit_threshold",
+                        "cloud_retry_attempts", "cloud_breaker_threshold",
+                        "chaos_seed", "ingest_max_events", "obs_ring_slots",
+                        "incident_retention", "ledger_retention")},
+    **{k: float for k in ("batch_idle_duration",
+                          "batch_max_duration", "trace_slow_ms",
+                          "forecast_cadence_s", "forecast_horizon_s",
+                          "forecast_lead_s", "forecast_ttl_s",
+                          "supervisor_backoff_base_s",
+                          "supervisor_backoff_max_s",
+                          "reconcile_soft_deadline_s", "solve_timeout_s",
+                          "cloud_retry_base_s", "cloud_breaker_cooldown_s",
+                          "snapshot_interval_s", "lease_ttl_s",
+                          "obs_sample_s", "incident_window_s",
+                          "incident_dedup_s", "slo_eval_cadence_s",
+                          "ledger_drift_threshold")},
+}
+
+
+def _parse_kv_list(raw: str, into: Dict, cast=lambda v: v) -> None:
+    """Parse `k=v,k2=v2` option strings into a dict (feature gates)."""
+    for item in filter(None, raw.split(",")):
+        k, _, v = item.partition("=")
+        into[k.strip()] = cast(v.strip())
+
+
+def _refusal(what: str, item: str) -> str:
+    return f"{what} (ROADMAP.md queue B, item {item})"
+
+
+def check_ported(options: "Options") -> None:
+    """Raise NotImplementedError naming every gate `options` turns on, and
+    the chaos spec if set, whose feature is not ported yet, with its
+    ROADMAP.md item."""
+    off = [_refusal(f"the {gate} gate", item)
+           for gate, item in UNPORTED_GATES.items() if options.gate(gate)]
+    if options.chaos_spec:
+        off.append(_refusal("a chaos spec", "B5"))
+    if off:
+        raise NotImplementedError(f"{', '.join(off)} is not ported yet")
+
 
 @dataclass
 class Options:
@@ -35,8 +134,16 @@ class Options:
     cluster_dns: str = ""                # empty == discover from control plane
     isolated_network: bool = False       # isolated-vpc analog: no pricing API
     interruption_queue: str = ""         # empty == interruption disabled
+    batch_idle_duration: float = DEFAULT_BATCH_IDLE
+    batch_max_duration: float = DEFAULT_BATCH_MAX
+    metrics_port: int = DEFAULT_METRICS_PORT  # the endpoints' one server
     feature_gates: Dict[str, bool] = field(
         default_factory=lambda: dict(FEATURE_GATES))
+    # controller supervision (operator/supervisor.py) and the soft deadline
+    supervisor_circuit_threshold: int = 5   # consecutive errors → quarantine
+    supervisor_backoff_base_s: float = 1.0  # first retry delay
+    supervisor_backoff_max_s: float = 300.0  # backoff ceiling
+    reconcile_soft_deadline_s: float = 5.0  # warn past this (0 = off)
     # cloud-call hardening and the solver deadline: all default OFF so a
     # stepped clock never wall-sleeps and every golden stays as it is
     solve_timeout_s: float = 0.0            # hard solver deadline (0 = off)
@@ -46,6 +153,175 @@ class Options:
     cloud_breaker_cooldown_s: float = 30.0  # open-circuit fast-fail window
     chaos_spec: str = ""                    # fault-injection rules (B5; off)
     ingest_max_events: int = 100_000        # IngestBatch pending cap → rebuild
+
+    @classmethod
+    def from_args(cls, argv: Optional[Sequence[str]] = None) -> "Options":
+        """Parse the reference's flags with env-var defaults (options.go
+        AddFlags), refusing those whose reader the port lacks."""
+        env = cls._env_defaults()
+        p = argparse.ArgumentParser(prog="karpenter-tpu")
+        p.add_argument("--cluster-name",
+                       default=env.get("cluster_name", "default"))
+        p.add_argument("--cluster-endpoint",
+                       default=env.get("cluster_endpoint",
+                                       "https://cluster.local"))
+        p.add_argument("--cluster-dns", default=env.get("cluster_dns", ""))
+        p.add_argument("--isolated-network", action="store_true",
+                       default=env.get("isolated_network", False))
+        p.add_argument("--interruption-queue",
+                       default=env.get("interruption_queue", ""))
+        p.add_argument("--batch-idle-duration", type=float,
+                       default=env.get("batch_idle_duration",
+                                       DEFAULT_BATCH_IDLE))
+        p.add_argument("--batch-max-duration", type=float,
+                       default=env.get("batch_max_duration",
+                                       DEFAULT_BATCH_MAX))
+        p.add_argument("--metrics-port", type=int,
+                       default=env.get("metrics_port", DEFAULT_METRICS_PORT))
+        p.add_argument("--leader-elect", action="store_true",
+                       default=env.get("leader_elect", False))
+        p.add_argument("--enable-profiling", action="store_true",
+                       default=env.get("enable_profiling", False))
+        p.add_argument("--log-format", choices=("text", "json"),
+                       default=env.get("log_format", "text"))
+        p.add_argument("--trace-slow-ms", type=float,
+                       default=env.get("trace_slow_ms", 0.0))
+        p.add_argument("--lp-refinery", action="store_true", default=False,
+                       help="shorthand for --feature-gates LPRefinery=true")
+        p.add_argument("--forecast", action="store_true", default=False)
+        p.add_argument("--forecast-cadence", type=float,
+                       dest="forecast_cadence_s",
+                       default=env.get("forecast_cadence_s", 30.0))
+        p.add_argument("--forecast-horizon", type=float,
+                       dest="forecast_horizon_s",
+                       default=env.get("forecast_horizon_s", 900.0))
+        p.add_argument("--forecast-lead", type=float, dest="forecast_lead_s",
+                       default=env.get("forecast_lead_s", 180.0))
+        p.add_argument("--forecast-ttl", type=float, dest="forecast_ttl_s",
+                       default=env.get("forecast_ttl_s", 600.0))
+        p.add_argument("--forecast-model", choices=("ewma", "holtwinters"),
+                       default=env.get("forecast_model", "holtwinters"))
+        p.add_argument("--incremental-arena", action="store_true",
+                       default=False,
+                       help="shorthand for --feature-gates "
+                            "IncrementalArena=true (on by default)")
+        p.add_argument("--sharded-solve", action="store_true", default=False,
+                       help="shorthand for --feature-gates ShardedSolve=true")
+        p.add_argument("--device-decode", action="store_true", default=False,
+                       help="shorthand for --feature-gates DeviceDecode=true")
+        p.add_argument("--device-lp", action="store_true", default=False,
+                       help="shorthand for --feature-gates DeviceLP=true")
+        p.add_argument("--supervisor-circuit-threshold", type=int,
+                       default=env.get("supervisor_circuit_threshold", 5),
+                       help="consecutive reconcile errors before a "
+                            "controller's circuit opens (quarantine)")
+        p.add_argument("--supervisor-backoff-base", type=float,
+                       dest="supervisor_backoff_base_s",
+                       default=env.get("supervisor_backoff_base_s", 1.0),
+                       help="first crash-loop retry delay in seconds")
+        p.add_argument("--supervisor-backoff-max", type=float,
+                       dest="supervisor_backoff_max_s",
+                       default=env.get("supervisor_backoff_max_s", 300.0),
+                       help="crash-loop backoff ceiling in seconds")
+        p.add_argument("--reconcile-soft-deadline", type=float,
+                       dest="reconcile_soft_deadline_s",
+                       default=env.get("reconcile_soft_deadline_s", 5.0),
+                       help="warn on reconciles slower than this many "
+                            "seconds (0 disables)")
+        p.add_argument("--solve-timeout", type=float, dest="solve_timeout_s",
+                       default=env.get("solve_timeout_s", 0.0),
+                       help="hard cancellable deadline for solver calls "
+                            "(0 disables)")
+        p.add_argument("--cloud-retry-attempts", type=int,
+                       default=env.get("cloud_retry_attempts", 0))
+        p.add_argument("--cloud-retry-base", type=float,
+                       dest="cloud_retry_base_s",
+                       default=env.get("cloud_retry_base_s", 0.2))
+        p.add_argument("--cloud-breaker-threshold", type=int,
+                       default=env.get("cloud_breaker_threshold", 0))
+        p.add_argument("--cloud-breaker-cooldown", type=float,
+                       dest="cloud_breaker_cooldown_s",
+                       default=env.get("cloud_breaker_cooldown_s", 30.0))
+        p.add_argument("--chaos-spec", default=env.get("chaos_spec", ""))
+        p.add_argument("--chaos-seed", type=int,
+                       default=env.get("chaos_seed", 0))
+        p.add_argument("--warm-restart", action="store_true", default=False)
+        p.add_argument("--ingest-batch", action="store_true", default=False,
+                       help="shorthand for --feature-gates IngestBatch=true")
+        p.add_argument("--snapshot-path",
+                       default=env.get("snapshot_path", ""))
+        p.add_argument("--snapshot-interval", type=float,
+                       dest="snapshot_interval_s",
+                       default=env.get("snapshot_interval_s", 30.0))
+        p.add_argument("--ingest-max-events", type=int,
+                       default=env.get("ingest_max_events", 100_000),
+                       help="pending coalesced events before the batcher "
+                            "degrades to a full arena rebuild")
+        p.add_argument("--ha-failover", action="store_true", default=False)
+        p.add_argument("--lease-path", default=env.get("lease_path", ""))
+        p.add_argument("--lease-ttl", type=float, dest="lease_ttl_s",
+                       default=env.get("lease_ttl_s", 15.0))
+        p.add_argument("--flight-recorder", action="store_true",
+                       default=False)
+        p.add_argument("--incident-dir", default=env.get("incident_dir", ""))
+        p.add_argument("--incident-window", type=float,
+                       dest="incident_window_s",
+                       default=env.get("incident_window_s", 600.0))
+        p.add_argument("--incident-dedup", type=float,
+                       dest="incident_dedup_s",
+                       default=env.get("incident_dedup_s", 300.0))
+        p.add_argument("--incident-retention", type=int,
+                       default=env.get("incident_retention", 32))
+        p.add_argument("--obs-sample", type=float, dest="obs_sample_s",
+                       default=env.get("obs_sample_s", 30.0))
+        p.add_argument("--obs-ring-slots", type=int,
+                       default=env.get("obs_ring_slots", 512))
+        p.add_argument("--slo-engine", action="store_true", default=False)
+        p.add_argument("--slo-eval-cadence", type=float,
+                       dest="slo_eval_cadence_s",
+                       default=env.get("slo_eval_cadence_s", 60.0))
+        p.add_argument("--ledger-retention", type=int,
+                       default=env.get("ledger_retention", 256))
+        p.add_argument("--ledger-drift-threshold", type=float,
+                       default=env.get("ledger_drift_threshold", 0.15))
+        p.add_argument("--gang-scheduling", action="store_true",
+                       default=False)
+        p.add_argument("--feature-gates", default="",
+                       help="comma list Gate=true|false")
+        ns = p.parse_args(argv)
+        off = [_refusal(f"--{dest.replace('_', '-')}={getattr(ns, dest)!r}",
+                        item)
+               for dest, (default, item) in UNPORTED_FLAGS.items()
+               if getattr(ns, dest) != default]
+        if off:
+            raise NotImplementedError(f"{', '.join(off)} is not ported yet")
+        opts = cls(**{f.name: getattr(ns, f.name) for f in fields(cls)
+                      if f.name not in ("feature_gates", "chaos_spec")})
+        # env-provided gates apply first; explicit --feature-gates wins
+        _parse_kv_list(str(env.get("feature_gates", "")), opts.feature_gates,
+                       cast=lambda v: v.lower() != "false")
+        for flag, gate in (("lp_refinery", "LPRefinery"),
+                           ("incremental_arena", "IncrementalArena"),
+                           ("sharded_solve", "ShardedSolve"),
+                           ("device_decode", "DeviceDecode"),
+                           ("device_lp", "DeviceLP"),
+                           ("ingest_batch", "IngestBatch")):
+            if getattr(ns, flag):
+                opts.feature_gates[gate] = True
+        _parse_kv_list(ns.feature_gates, opts.feature_gates,
+                       cast=lambda v: v.lower() != "false")
+        check_ported(opts)
+        return opts
+
+    @staticmethod
+    def _env_defaults() -> Dict[str, object]:
+        """`KARPENTER_TPU_<FIELD>` env vars of the reference's options."""
+        out: Dict[str, object] = {}
+        for name, cast in _ENV_CASTS.items():
+            raw = os.environ.get(ENV_PREFIX + name.upper())
+            if raw is not None:
+                out[name] = cast(raw)
+        return out
 
     def gate(self, name: str) -> bool:
         return self.feature_gates.get(name, False)

@@ -34,9 +34,8 @@ to `tensorize_nodes`; its arrays reach the card where the solve already
 uploads `tensorize_nodes`' output.  The arena is fed by `state.Cluster`'s
 mutators plus explicit `touch_node` calls at the label/taint edit sites in
 the lifecycle, termination and disruption controllers.  Like every other
-Cluster write it takes no lock: the port's operator is driven from one
-thread, and the state lock that the reference's manager takes comes with
-the manager (ROADMAP.md queue B3).
+Cluster write it takes no lock of its own: the controller manager's ticks
+and the `/v1` surface hold the operator's `state_lock` around it.
 
 Left out: the reference's metric families and spans (ROADMAP.md queue B);
 `gathers` counts the gather outcomes ("warm" / "fallback") that its

@@ -1,0 +1,142 @@
+"""Simulation report: one deterministic JSON document per run.
+
+Everything in the report derives from virtual time and harness-tracked
+state — cost integral in $·h, pod time-to-bind percentiles, node churn and
+disruption counts by reason, SLO-violation and unschedulable-provenance
+rollups.  Wall-clock measurements (speedup) are deliberately excluded so
+two same-seed runs serialize byte-identically; they live on `SimRun`
+instead.
+
+A copy of the JAX package's `sim/report.py` with every ungated section.
+Its gated sections come with their features: `forecast` (ROADMAP.md
+queue B item B6), `chaos` (B5), `ha` (B7), `gang` (B8), `incidents`,
+`slo.budgets`, `ledger` and the cost breakdowns (B9); the harness refuses
+the scenarios and overrides that would turn them on.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Sequence
+
+
+def percentile(sorted_values: Sequence[float], q: float) -> float:
+    """Linear-interpolation percentile over an already-sorted sequence
+    (numpy's default method, inlined so the report never depends on float
+    printing quirks of array scalars)."""
+    if not sorted_values:
+        return 0.0
+    if len(sorted_values) == 1:
+        return float(sorted_values[0])
+    pos = (len(sorted_values) - 1) * q
+    lo = int(pos)
+    hi = min(lo + 1, len(sorted_values) - 1)
+    frac = pos - lo
+    return float(sorted_values[lo] * (1 - frac) + sorted_values[hi] * frac)
+
+
+def _r(x: float, digits: int = 4) -> float:
+    return round(float(x), digits)
+
+
+def build_report(harness) -> Dict:
+    """Assemble the report from a finished `SimHarness`."""
+    from ..forecast.headroom import is_headroom
+    sc = harness.scenario
+    binds: List[float] = sorted(harness._bind_t.values())
+    arrived = len(harness._arrive_t)
+    bound = len(binds)
+    # pods placed on a node still booting at sim end never started running:
+    # they are pending, not bound (their bind clock stops at NodeReady)
+    # — headroom placeholders are capacity reservations, not workload, so
+    # they never count as pending (with forecast off this filter is a no-op)
+    still_booting = sum(
+        1 for uids in harness._booting.values() for uid in uids
+        if uid not in harness._bind_t and uid in harness.cluster.pods
+        and not is_headroom(harness.cluster.pods[uid]))
+    pending_at_end = sum(
+        1 for p in harness.cluster.pending_pods()
+        if not is_headroom(p)) + still_booting
+    slo = sc.slo_bind_s
+    late = sum(1 for b in binds if b > slo)
+    # pods that never bound and are still waiting (or left unbound) breach
+    # the SLO just as surely as a late bind
+    violations = late + pending_at_end + harness._departed_unbound
+
+    with harness.cloud._lock:
+        instances = list(harness.cloud._instances.values())
+    launched = len(instances)
+    terminated = sum(1 for i in instances if i.state != "running")
+    running_at_end = launched - terminated
+
+    provenance: Dict[str, int] = {}
+    for rec in harness.op.provenance.all():
+        provenance[rec.constraint] = provenance.get(rec.constraint, 0) + 1
+
+    total_reclaims = harness._reclaims_honored + harness._reclaims_forced
+    virtual = harness.clock.now() - sc.start_s
+    virtual_h = virtual / 3600.0 if virtual > 0 else 1.0
+
+    report = {
+        "scenario": sc.name,
+        "seed": harness.seed,
+        "virtual_seconds": _r(virtual, 3),
+        "workload": {
+            "pods_arrived": arrived,
+            "pods_bound": bound,
+            "pods_pending_at_end": pending_at_end,
+            "pods_departed_unbound": harness._departed_unbound,
+        },
+        "time_to_bind_s": {
+            "p50": _r(percentile(binds, 0.50), 3),
+            "p95": _r(percentile(binds, 0.95), 3),
+            "p99": _r(percentile(binds, 0.99), 3),
+            "max": _r(binds[-1], 3) if binds else 0.0,
+            "mean": _r(sum(binds) / len(binds), 3) if binds else 0.0,
+        },
+        "slo": {
+            "bind_slo_s": _r(slo, 3),
+            "violations": violations,
+            "violation_rate": _r(violations / arrived, 6) if arrived else 0.0,
+        },
+        "cost": {
+            "dollar_hours": _r(harness._cost_dollar_hours, 4),
+            "dollars_per_hour_avg": _r(
+                harness._cost_dollar_hours / virtual_h, 4),
+            "node_hours": _r(harness._node_hours, 4),
+            "peak_nodes": harness._peak_nodes,
+        },
+        "churn": {
+            "nodes_launched": launched,
+            "nodes_terminated": terminated,
+            "nodes_running_at_end": running_at_end,
+            "disruption_actions": dict(sorted(harness._disruptions.items())),
+            "interruption_recycled": harness._interruption_recycled,
+            "liveness_terminated": harness._liveness_terminated,
+        },
+        "spot": {
+            "warnings": harness._warnings,
+            "reclaims": total_reclaims,
+            "reclaims_honored": harness._reclaims_honored,
+            "reclaims_forced": harness._reclaims_forced,
+            "warning_honor_rate": _r(
+                harness._reclaims_honored / total_reclaims, 6)
+                if total_reclaims else 1.0,
+        },
+        "events": {
+            "total": sum(harness._events_by_kind.values()),
+            "by_kind": dict(sorted(harness._events_by_kind.items())),
+        },
+        "unschedulable_provenance": dict(sorted(provenance.items())),
+        "errors": {
+            "tick_exceptions": harness._tick_exceptions,
+        },
+    }
+    return report
+
+
+def report_to_json(report: Dict) -> str:
+    """Canonical serialization: sorted keys, two-space indent, trailing
+    newline — the byte-identical artifact the determinism tests and golden
+    files compare."""
+    return json.dumps(report, sort_keys=True, indent=2) + "\n"

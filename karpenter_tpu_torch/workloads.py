@@ -46,6 +46,19 @@ refinery-shaped LP instances of the reference bench's LP A/B
 (`bench._lp_instance`) with their HiGHS objectives and device-master plan
 totals, all as the JAX package computes them on the CPU
 (tests/test_torch_lpguide.py).
+
+The operator loop: `SIM_SOAK` is the cell `sim-long-soak-480`, the
+long-soak scenario's firehose replayed by the simulator for 480 virtual
+seconds, and `GOLDEN_SIM_SOAK` the JAX package's report of it
+(`sim_digest`; tests/test_torch_sim_soak_golden.py); `SIM_DRIP` and
+`GOLDEN_SIM_DRIP` are the same for `sim-steady-state-drip-480`
+(tests/test_torch_sim_drip_golden.py).  `start_loop` runs a manager's
+loop on a thread that keeps the exception it ends with.  `v1_solve_payload`
+turns a pod batch into the Pod manifests of a `/v1/solve` request,
+`V1_MANIFESTS` are the NodePool and NodeClass applied over `/v1/apply`
+before it, and `GOLDEN_V1_SOLVE` is the JAX package's `/v1/solve` answer on
+the headline (`v1_solve_digest`; tests/test_torch_v1_solve_golden.py).
+`chip_smoke.py` checks both on the card.
 """
 
 from __future__ import annotations
@@ -1418,3 +1431,191 @@ GOLDEN_OPERATOR: Dict[str, object] = dict(
     tick=dict(action=None, candidates=[], launched=[], deleted=0,
               error=False),
 )
+
+
+# ---------------------------------------------------------------------------
+# The operator loop: the simulator's soak cell and the /v1 surface
+# ---------------------------------------------------------------------------
+
+# the cell sim-long-soak-480: scenarios/long-soak.yaml at seed 0 for 480
+# virtual seconds (the golden of tests/golden/ pins its first 120)
+SIM_SOAK = dict(scenario="long-soak.yaml", seed=0, duration_s=480.0)
+# the cell sim-steady-state-drip-480: scenarios/steady-state-drip.yaml at
+# seed 0 for 480 virtual seconds (the golden of tests/golden/ pins its
+# first 300, in which no consolidation sweep runs)
+SIM_DRIP = dict(scenario="steady-state-drip.yaml", seed=0, duration_s=480.0)
+
+
+def sim_digest(report: Dict) -> Dict[str, object]:
+    """A simulator report (either package's) as the goldens hold it: the
+    sha256 of its canonical JSON (`sim.report_to_json`) and the counts a
+    reader checks first."""
+    from .sim.report import report_to_json
+    doc = report_to_json(report)
+    return dict(sha256=hashlib.sha256(doc.encode()).hexdigest(),
+                pods_arrived=report["workload"]["pods_arrived"],
+                pods_bound=report["workload"]["pods_bound"],
+                nodes_launched=report["churn"]["nodes_launched"],
+                nodes_running_at_end=report["churn"]["nodes_running_at_end"],
+                events=report["events"]["total"],
+                tick_exceptions=report["errors"]["tick_exceptions"])
+
+
+# the NodePool and the NodeClass a /v1 client applies before it solves:
+# the defaults, relabelled and retagged, so the read-back shows them
+V1_MANIFESTS = [
+    {"apiVersion": "karpenter.tpu/v1beta1", "kind": "NodePool",
+     "metadata": {"name": "default"},
+     "spec": {"template": {"metadata": {"labels": {"team": "v1"}},
+                           "spec": {"nodeClassRef": {"name": "default"}}},
+              "disruption": {"consolidationPolicy": "WhenUnderutilized",
+                             "expireAfter": "Never"},
+              "weight": 0}},
+    {"apiVersion": "karpenter.tpu/v1beta1", "kind": "NodeClass",
+     "metadata": {"name": "default"},
+     "spec": {"imageFamily": "standard", "tags": {"team": "v1"}}},
+]
+
+
+# the command line of the /v1 cell's operators: the endpoints on a free port
+V1_ARGV = ["--metrics-port", "0"]
+# the burst the first operator launches before the restart (build_pods'
+# arguments, seed): its nodes are what the restarted operator hydrates
+V1_FLEET = (dict(HEADLINE, spec_count=30, total=600), 7)
+
+
+def v1_manager(kit, build_pods: Callable, **extra):
+    """The /v1 cell's manager from `kit`, a namespace of one package's
+    Operator, Options, build_controllers, ControllerManager, SubnetInfo,
+    SecurityGroupInfo and ImageInfo.  A first default operator,
+    `Operator(Options.from_args(V1_ARGV), **extra)` (its full-width
+    `generate_catalog(600)` unless `extra` names a catalog; the port's
+    `device`) over a seeded cloud (`seed_operator_cloud`), provisions the
+    V1_FLEET burst (built by `build_pods`, the bench's or this module's);
+    then a second one over the same cloud — a restart — hydrates that
+    fleet, and its `ControllerManager` walks `startup()`, whose parity
+    probe gathers the hydrated nodes from the arena."""
+    first = kit.Operator(kit.Options.from_args(V1_ARGV), **extra)
+    seed_operator_cloud(first, kit.SubnetInfo, kit.SecurityGroupInfo,
+                        kit.ImageInfo)
+    ctrls = kit.build_controllers(first)
+    ctrls["nodeclass"].reconcile(first.node_classes["default"])
+    kw, seed = V1_FLEET
+    first.cluster.add_pods(build_pods(rng=np.random.default_rng(seed), **kw))
+    ctrls["provisioning"].provision()
+    extra["catalog"] = first.catalog
+    op = kit.Operator(kit.Options.from_args(V1_ARGV), cloud=first.cloud,
+                      params=first.params, **extra)
+    mgr = kit.ControllerManager(op, kit.build_controllers(op))
+    mgr.startup()
+    return mgr
+
+
+def start_loop(mgr, tick_seconds: float = 0.05):
+    """`mgr.run(tick_seconds)` on a thread of its own.  Returns (the
+    thread, a list that receives the exception the loop ends with, a lock
+    that holds the loop between ticks while it is held).  A tick that
+    raises ends `run` (a `DEVICE_FAULTS` fault is never booked on a
+    supervisor), so a caller checks the list after `join`; holding the lock
+    keeps the loop's ticks out of what the caller runs meanwhile."""
+    import threading
+    errors: List[BaseException] = []
+    pause, tick = threading.Lock(), mgr.tick
+
+    def paused_tick():
+        with pause:
+            return tick()
+    mgr.tick = paused_tick
+
+    def loop():
+        try:
+            mgr.run(tick_seconds=tick_seconds)
+        except BaseException as e:  # kept for the caller, never swallowed
+            errors.append(e)
+    thread = threading.Thread(target=loop, name="manager-loop", daemon=True)
+    thread.start()
+    return thread, errors, pause
+
+
+def http_json(port: int, path: str, payload=None, timeout: float = 600.0):
+    """GET (no payload) or POST (JSON payload) `path` on 127.0.0.1:`port`:
+    (status, decoded JSON body)."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def pod_manifest(pod, name: str) -> Dict:
+    """A Pod manifest of `pod` (either package's Pod, as `build_pods` makes
+    them: requests, a node selector, tolerations) named `name`."""
+    requests = {k: (f"{v}m" if k == CPU else str(v))
+                for k, v in sorted(pod.requests.items())}
+    spec: Dict = {"containers": [{"name": "app",
+                                  "resources": {"requests": requests}}]}
+    if pod.node_selector:
+        spec["nodeSelector"] = dict(pod.node_selector)
+    if pod.tolerations:
+        spec["tolerations"] = [
+            {k: v for k, v in (("key", t.key), ("operator", t.operator),
+                               ("value", t.value), ("effect", t.effect))
+             if v} for t in pod.tolerations]
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": name, "namespace": "default"},
+            "spec": spec}
+
+
+def v1_solve_payload(pods) -> Dict:
+    """A /v1/solve request for `pods`: their manifests, named by position,
+    for new capacity only (`scheduleOnExisting` false): the restarted
+    operator's hydrated nodes are empty (pods live in the cluster API, not
+    in the cloud), and its running loop may consolidate them at any tick,
+    so packing onto them would make the answer depend on when it came."""
+    return {"pods": [pod_manifest(p, f"pod-{i:05d}")
+                     for i, p in enumerate(pods)],
+            "scheduleOnExisting": False}
+
+
+def v1_solve_digest(resp: Dict) -> Dict[str, object]:
+    """A /v1/solve answer as the goldens hold it: the node count, the
+    price, the counts of its other lists, and the sha256 of the whole
+    answer in canonical JSON (its pod names are positions already)."""
+    doc = json.dumps(resp, sort_keys=True, separators=(",", ":"))
+    return dict(nodes=len(resp["nodes"]),
+                total_price=resp["totalPricePerHour"],
+                bound_existing=len(resp["boundToExisting"]),
+                unschedulable=len(resp["unschedulable"]),
+                deferred=len(resp["deferred"]),
+                sha256=hashlib.sha256(doc.encode()).hexdigest())
+
+# `sim_digest` of the JAX package's SimHarness on SIM_SOAK, on the CPU
+# (tests/test_torch_sim_soak_golden.py)
+GOLDEN_SIM_SOAK: Dict[str, object] = dict(
+    sha256='b20bb194a3a87f50153eaa9d2339c8c4'
+           'cc1facff58f1be40ce833a18d635f6ae',
+    pods_arrived=3408, pods_bound=3408, nodes_launched=287,
+    nodes_running_at_end=143, events=797, tick_exceptions=0)
+
+# `sim_digest` of the JAX package's SimHarness on SIM_DRIP, on the CPU
+# (tests/test_torch_sim_drip_golden.py)
+GOLDEN_SIM_DRIP: Dict[str, object] = dict(
+    sha256='ccd5a5ba3f09c9f45b87ebc973e115de'
+           '0c48393070c141218eb5d1e47a1c451c',
+    pods_arrived=43, pods_bound=43, nodes_launched=32,
+    nodes_running_at_end=32, events=7, tick_exceptions=0)
+
+# `v1_solve_digest` of the JAX package's /v1/solve on the headline (HEADLINE
+# pods at seed 0 as `v1_solve_payload`), after V1_MANIFESTS were applied to
+# its restarted operator (`v1_manager`), on the CPU
+# (tests/test_torch_v1_solve_golden.py)
+GOLDEN_V1_SOLVE: Dict[str, object] = dict(
+    nodes=1463, total_price=4653.4901, bound_existing=0, unschedulable=0,
+    deferred=0,
+    sha256='6f6af742d2386c63e50542812acd01d0'
+           '93e384bde892ecfced2340d3e2dc3fe1')

@@ -8,8 +8,8 @@ from-scratch `Cluster.tensorize_nodes` bit for bit (the same node objects
 in the same order, the same values and dtypes) and against the JAX
 package's `gather` at the same checkpoint (nodes by registration position,
 arrays bit for bit).  The reference's assertions are checked on the port's
-side.  Left out: test_harness_gate_off_detaches_arena, which needs the
-simulator (ROADMAP.md queue B3).
+side.  test_harness_gate_off_detaches_arena, which needs the simulator,
+is in tests/test_torch_sim.py.
 
 Then the goldens with the arena attached: `provision-small-3x64` against
 `workloads.GOLDEN_PROVISION`, two live rounds at a small size against the
@@ -440,7 +440,7 @@ def test_options_flag_and_gate_default():
     """The IncrementalArena gate is on by default in both packages, and an
     operator built with it off carries no arena (the reference's
     `--feature-gates IncrementalArena=false` escape hatch; the port's
-    command line comes with ROADMAP.md queue B3)."""
+    command line: tests/test_torch_main.py)."""
     from karpenter_tpu.operator.options import Options as RefOptions
     from karpenter_tpu_torch.catalog.generate import generate_catalog
     from karpenter_tpu_torch.operator import Operator, Options

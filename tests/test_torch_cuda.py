@@ -1503,3 +1503,68 @@ def test_cuda_operator_builds_and_provisions_a_small_burst(cuda_device):
             assert ck.LAUNCHES["classpack_scan"] > 0
     assert out[None] == out["cpu"]
     assert out[None]["rounds"][0]["launched"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_sim_replay_equals_its_golden(cuda_device):
+    """A short SimHarness replay on the card (the default device): the
+    ice-starvation scenario's canned golden at its 5400 s horizon, byte for
+    byte, with the provisioning, sweep and first-fit kernels launched."""
+    import os
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    from karpenter_tpu_torch.sim import (SimHarness, load_scenario,
+                                         report_to_json)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    clear_lp_caches()
+    ck.reset_launches()
+    fk.reset_launches()
+    sc = load_scenario(os.path.join(repo, "scenarios", "ice-starvation.yaml"))
+    h = SimHarness(sc, seed=0, duration_s=5400.0)
+    run = h.run()
+    assert h.op.device.type == "cuda"
+    with open(os.path.join(repo, "tests", "golden",
+                           "sim-ice-starvation.json")) as fh:
+        assert report_to_json(run.report) == fh.read()
+    for name in ("classpack_precompute", "classpack_scan",
+                 "classpack_assign_decode", "classpack_sweep"):
+        assert ck.LAUNCHES[name] > 0, name
+    assert fk.LAUNCHES["ffd_scan"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_v1_solve_of_a_small_batch_equals_the_cpu(cuda_device):
+    """/v1/solve over HTTP on the card's manager and on the CPU's (each
+    restarted over the same launched fleet) give the same answer for a
+    small batch."""
+    from types import SimpleNamespace
+    from karpenter_tpu_torch.cloud.fake import (ImageInfo, SecurityGroupInfo,
+                                                SubnetInfo)
+    from karpenter_tpu_torch.operator import (ControllerManager, Operator,
+                                              Options, build_controllers)
+    kit = SimpleNamespace(Operator=Operator, Options=Options,
+                          build_controllers=build_controllers,
+                          ControllerManager=ControllerManager,
+                          SubnetInfo=SubnetInfo,
+                          SecurityGroupInfo=SecurityGroupInfo,
+                          ImageInfo=ImageInfo)
+    pods = workloads.build_pods(rng=np.random.default_rng(0), **dict(
+        workloads.HEADLINE, spec_count=30, total=600))
+    out = {}
+    for device in ("cpu", None):
+        clear_lp_caches()
+        extra = {} if device is None else {"device": device}
+        mgr = workloads.v1_manager(kit, workloads.build_pods,
+                                   catalog=generate_catalog(40), **extra)
+        port = mgr.serve_endpoints(metrics_port=0)
+        try:
+            ck.reset_launches()
+            code, resp = workloads.http_json(
+                port, "/v1/solve", workloads.v1_solve_payload(pods))
+            assert code == 200, resp
+            if device is None:
+                assert ck.LAUNCHES["classpack_scan"] > 0
+        finally:
+            mgr.stop()
+        out[device] = workloads.v1_solve_digest(resp)
+    assert out[None] == out["cpu"]
+    assert out[None]["nodes"] > 0

@@ -1,0 +1,188 @@
+"""The port's command line and process entry point against the JAX
+package's: `Options.from_args` gives the reference's options on every flag
+the port keeps, from flags and from the env defaults; every flag whose
+reader the port lacks is refused naming its ROADMAP.md item, and argparse
+refuses the flags the JAX package parses and never reads; and `python -m
+karpenter_tpu_torch` (`__main__.main`, on the CPU through its `device`
+keyword) reaches readiness, serves its endpoints and exits 0 on SIGTERM.
+"""
+
+import dataclasses
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import pytest
+
+from karpenter_tpu.operator.options import Options as RefOptions
+from karpenter_tpu_torch.operator.options import UNPORTED_GATES, Options
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def kept(opts):
+    """The reference's options restricted to the port's fields."""
+    ref = dataclasses.asdict(opts)
+    return {f.name: ref[f.name] for f in dataclasses.fields(Options)}
+
+
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    for k in list(os.environ):
+        if k.startswith("KARPENTER_TPU_"):
+            monkeypatch.delenv(k)
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--cluster-name", "prod", "--interruption-queue", "q",
+     "--feature-gates", "Drift=false,SpotToSpot=true"],
+    ["--cluster-endpoint", "https://x", "--cluster-dns", "10.0.0.10",
+     "--isolated-network"],
+    ["--batch-idle-duration", "2.5", "--batch-max-duration", "20",
+     "--metrics-port", "0"],
+    ["--supervisor-circuit-threshold", "3", "--supervisor-backoff-base",
+     "0.5", "--supervisor-backoff-max", "60", "--reconcile-soft-deadline",
+     "0"],
+    ["--solve-timeout", "2", "--cloud-retry-attempts", "2",
+     "--cloud-retry-base", "0.1", "--cloud-breaker-threshold", "4",
+     "--cloud-breaker-cooldown", "5"],
+    ["--lp-refinery", "--incremental-arena", "--sharded-solve",
+     "--device-decode", "--device-lp", "--ingest-batch",
+     "--ingest-max-events", "77"],
+    ["--feature-gates", "IncrementalArena=false,LPGuide=false"],
+    ["--log-format", "text", "--trace-slow-ms", "0", "--chaos-seed", "0"],
+], ids=["defaults", "flags", "cluster", "window-ports", "supervision",
+        "hardening", "gates", "gates-off", "refused-at-default"])
+def test_from_args_equals_the_reference(argv):
+    assert dataclasses.asdict(Options.from_args(argv)) == \
+        kept(RefOptions.from_args(argv))
+
+
+def test_env_defaults_equal_the_reference(monkeypatch):
+    env = {"CLUSTER_NAME": "from-env", "BATCH_IDLE_DURATION": "2.5",
+           "ISOLATED_NETWORK": "true", "METRICS_PORT": "9100",
+           "SUPERVISOR_BACKOFF_MAX_S": "12", "SOLVE_TIMEOUT_S": "3",
+           "INGEST_MAX_EVENTS": "5", "FEATURE_GATES": "Drift=false",
+           "TAGS": "team=a"}
+    for k, v in env.items():
+        monkeypatch.setenv(f"KARPENTER_TPU_{k}", v)
+    for argv in ([], ["--cluster-name", "flag-wins",
+                      "--feature-gates", "Drift=true"]):
+        got = dataclasses.asdict(Options.from_args(argv))
+        assert got == kept(RefOptions.from_args(argv))
+    assert Options.from_args([]).cluster_name == "from-env"
+    assert Options.from_args(["--cluster-name", "x"]).cluster_name == "x"
+
+
+REFUSED = [
+    (["--chaos-spec", "point=cloud.api,action=error"], "B5"),
+    (["--chaos-seed", "3"], "B5"),
+    (["--forecast"], "B6"), (["--forecast-horizon", "60"], "B6"),
+    (["--forecast-cadence", "5"], "B6"), (["--forecast-lead", "5"], "B6"),
+    (["--forecast-ttl", "5"], "B6"), (["--forecast-model", "ewma"], "B6"),
+    (["--leader-elect"], "B7"), (["--lease-path", "/x"], "B7"),
+    (["--lease-ttl", "3"], "B7"), (["--warm-restart"], "B7"),
+    (["--snapshot-path", "/x"], "B7"), (["--snapshot-interval", "3"], "B7"),
+    (["--ha-failover"], "B7"),
+    (["--gang-scheduling"], "B8"),
+    (["--log-format", "json"], "B9"), (["--trace-slow-ms", "5"], "B9"),
+    (["--enable-profiling"], "B9"), (["--flight-recorder"], "B9"),
+    (["--incident-dir", "/x"], "B9"), (["--incident-window", "5"], "B9"),
+    (["--incident-dedup", "5"], "B9"), (["--incident-retention", "5"], "B9"),
+    (["--obs-sample", "5"], "B9"), (["--obs-ring-slots", "5"], "B9"),
+    (["--slo-engine"], "B9"), (["--slo-eval-cadence", "5"], "B9"),
+    (["--ledger-retention", "5"], "B9"),
+    (["--ledger-drift-threshold", "0.5"], "B9"),
+]
+
+
+@pytest.mark.parametrize("argv,item", REFUSED,
+                         ids=[a[0] for a, _ in REFUSED])
+def test_flags_of_unported_features_are_refused(argv, item):
+    RefOptions.from_args(argv)              # the reference takes them
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        Options.from_args(argv)
+
+
+@pytest.mark.parametrize("argv", [["--vm-memory-overhead-percent", "0.1"],
+                                  ["--reserved-enis", "2"],
+                                  ["--health-port", "9"]])
+def test_flags_nothing_reads_are_refused(argv, capsys):
+    RefOptions.from_args(argv)              # the reference parses them
+    with pytest.raises(SystemExit) as exc:
+        Options.from_args(argv)
+    assert exc.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("env,item", [("CHAOS_SPEC", "B5"),
+                                      ("LEADER_ELECT", "B7"),
+                                      ("LOG_FORMAT", "B9"),
+                                      ("FORECAST_MODEL", "B6")])
+def test_env_defaults_of_unported_features_are_refused(monkeypatch, env,
+                                                       item):
+    monkeypatch.setenv(f"KARPENTER_TPU_{env}",
+                       {"LEADER_ELECT": "true", "LOG_FORMAT": "json",
+                        "FORECAST_MODEL": "ewma"}.get(env, "a=b"))
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        Options.from_args([])
+
+
+@pytest.mark.parametrize("gate,item", sorted(UNPORTED_GATES.items()))
+def test_unported_gates_on_the_command_line_are_refused(gate, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        Options.from_args(["--feature-gates", f"{gate}=true"])
+    assert not Options.from_args(
+        ["--feature-gates", f"{gate}=false"]).gate(gate)
+
+
+def test_main_reaches_readiness_and_exits_0_on_sigterm():
+    """`python -m karpenter_tpu_torch`'s `main` on the CPU in a child
+    process: its "up" line names the port, /readyz answers 200 after the
+    parity probe, /healthz 200, an unported endpoint 501, and SIGTERM
+    drains it to exit code 0."""
+    code = ("import sys; from karpenter_tpu_torch.__main__ import main; "
+            "sys.exit(main(sys.argv[1:], device='cpu'))")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, "--metrics-port", "0",
+         "--cluster-name", "main-test"],
+        cwd=REPO, env=env, stderr=subprocess.PIPE, text=True)
+    try:
+        port, deadline = None, time.time() + 240
+        while port is None and time.time() < deadline:
+            line = proc.stderr.readline()
+            if not line:
+                break
+            if "karpenter-tpu up:" in line:
+                assert "cluster=main-test" in line
+                port = int(line.split("endpoints=127.0.0.1:")[1].split()[0])
+        assert port, "no up line"
+        # keep the child's log pipe drained while it serves
+        threading.Thread(target=proc.stderr.read, daemon=True).start()
+
+        def get(path):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+        code_r, ready = get("/readyz")
+        assert code_r == 200 and ready["phase"] == "LEADING"
+        assert ready["probe"] == "skipped"       # no nodes yet
+        assert get("/healthz")[0] == 200
+        assert get("/metrics")[0] == 501
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

@@ -90,8 +90,7 @@ def claims_of(nodes):
 
 def test_defaults():
     """Every field of the port's Options has the reference's default (its
-    command line, env defaults and settings merge come with ROADMAP.md
-    queue B3)."""
+    command line and env defaults: tests/test_torch_main.py)."""
     import dataclasses
     from karpenter_tpu_torch.operator.options import FEATURE_GATES
     ref = dataclasses.asdict(REF.options.Options.from_args([]))
@@ -104,8 +103,8 @@ def test_defaults():
 
 @pytest.mark.parametrize("field", [
     "leader_elect", "lease_path", "snapshot_path", "log_format",
-    "trace_slow_ms", "metrics_port", "incident_dir", "slo_eval_cadence_s",
-    "supervisor_circuit_threshold", "forecast_horizon_s"])
+    "trace_slow_ms", "enable_profiling", "incident_dir", "slo_eval_cadence_s",
+    "chaos_seed", "forecast_horizon_s"])
 def test_options_the_port_does_not_read_are_refused(field):
     """An option of the reference that nothing in the port reads is not a
     field of the port's Options: setting one fails at construction instead
