@@ -9,7 +9,9 @@ pass):
   1. probe   — the card's name and power limit (nvidia-smi), torch, CUDA
                and nvcc versions;
   2. build   — compile csrc/*.cu with nvcc for sm_90a at first use and
-               print the ptxas register / shared-memory lines;
+               print the ptxas register / shared-memory lines; compile the
+               native C++ packer (native/csrc/ffd.cc) with g++ — no
+               compiler there fails the run;
   3. kernels — each kernel (K1 precompute, K2 scan, K3 assign decode,
                K4 aggregate) against its plain PyTorch version on the card,
                at the headline shapes, on the real tensorized batch and on
@@ -246,6 +248,28 @@ pass):
                (/readyz, a small /v1/solve, exit 0 on SIGTERM); (d) every
                kernel wrapper those paths launched against its plain
                version on the inputs of its last call on each path.
+ 16. robustness — after phase 15: (a) the native C++ packer
+               (`native.ffd_pack_native`, host code) against K7 on the
+               card and K7's plain version, on every K7 input of at most
+               256 rows that phase 15 recorded, provision-small-3x64's
+               three batches and tests/test_native.py's edge cases:
+               assignment, slot options and slot usage bit-equal across
+               the three, the native call's host ms beside K7's card ms
+               and host-rate ms; (b) SimHarness replays
+               scenarios/chaos-storm.yaml (seed 0, 5400 s) with the arena
+               on, then off, each report byte for byte against
+               tests/golden/sim-chaos-storm.json, every wrapper held
+               against plain on its last call's inputs, then once with
+               the chaos block off for K7's unarmed count; (c) a
+               `solver.pack` hang of 2 s on the "jax" rung under a 0.5 s
+               solve deadline on provision-small-3x64: the watchdog books
+               `jax>native:timeout`, every round equals GOLDEN_PROVISION,
+               and the abandoned worker is waited out; (d) with chaos
+               armed and one SolverHealth shared by both controllers of
+               the disruption cell under a ControllerManager, K5 raising
+               KernelError once in a consolidation sweep and K1 once in a
+               provisioning solve: each `tick()` raises it, and neither
+               the ladder nor a supervisor books anything.
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -357,7 +381,12 @@ def probe(torch):
 # ---------------------------------------------------------------------------
 
 def build():
-    from karpenter_tpu_torch import _build
+    from karpenter_tpu_torch import _build, native
+    t0 = time.perf_counter()
+    lib = native.build()          # raises NativeBuildError: no quiet fall
+    check(native.available(), f"the native packer {lib} does not load")
+    log(f"[build] native packer {lib.name} ({native.CXX} "
+        f"{' '.join(native.CXX_FLAGS)}) in {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.3f} s")
@@ -4385,15 +4414,19 @@ def sim_label(name, kw):
     return "sim-" + name + "".join(f" {k}={v}" for k, v in kw.items())
 
 
-def sim_replay(torch, card, hook, fname, duration, label, **kw):
+def sim_replay(torch, card, hook, fname, duration, label, exceptions=0,
+               scenario=None, **kw):
     """One SimHarness replay on the card (its default device): the launch
     counts zeroed just before `run()` and read just after, the manager's
     ticks counted, every kernel wrapper's call spanned and its inputs kept
-    under `label`.  Returns (the run, the harness, launches, wall s)."""
+    under `label`; the report must count `exceptions` tick exceptions.
+    `scenario` replaces the loaded file.  Returns (the run, the harness,
+    launches, wall s)."""
     from karpenter_tpu_torch.sim import SimHarness, load_scenario
     clear_lp_caches()
-    h = SimHarness(load_scenario(os.path.join(REPO, "scenarios", fname)),
-                   seed=0, duration_s=duration, **kw)
+    if scenario is None:
+        scenario = load_scenario(os.path.join(REPO, "scenarios", fname))
+    h = SimHarness(scenario, seed=0, duration_s=duration, **kw)
     check(h.op.device.type == "cuda", f"{label}: the harness is not on the "
                                       f"card")
     ticks, tick = [0], h.mgr.tick
@@ -4412,9 +4445,9 @@ def sim_replay(torch, card, hook, fname, duration, label, **kw):
     launches = all_launches()
     busy, calls = hook.take_busy()
     hook.label = None
-    check(run.report["errors"]["tick_exceptions"] == 0,
+    check(run.report["errors"]["tick_exceptions"] == exceptions,
           f"{label}: {run.report['errors']['tick_exceptions']} tick "
-          f"exceptions")
+          f"exceptions, not {exceptions}")
     arena = h.cluster.arena
     gathers = dict(arena.gathers) if arena is not None else None
     log(f"[sim] {label}: {run.virtual_seconds:.0f} virtual s in "
@@ -4682,7 +4715,7 @@ def phase15(torch, card, err):
     a process, then (d) every kernel wrapper those paths launched held
     against its plain version on the inputs of its last call on each path;
     (e) the timings, launches and idle shares along the way.  Returns the
-    launches by path."""
+    launches by path and the recorded inputs."""
     hook = kernel_log(torch, spans=True)
     with wrapped_kernels(hook):
         by_path, walls = sim_goldens(torch, card, hook)
@@ -4697,6 +4730,330 @@ def phase15(torch, card, err):
     for path, launches in by_path.items():
         log(f"[loop] launches on {path}: "
             f"{ {k: v for k, v in launches.items() if v} }")
+    return by_path, hook.recorded
+
+
+# ---------------------------------------------------------------------------
+# phase 16: robustness — the native packer, the chaos storm, the watchdog,
+# and device faults under both ladders
+# ---------------------------------------------------------------------------
+
+CHAOS_PATH = "sim-chaos-storm"
+CHAOS_EXCEPTIONS = 9      # the golden's tick exceptions (injected faults)
+NATIVE_ROWS = 256         # ops/ffd.NATIVE_CUTOVER_ROWS
+
+
+def native_inputs(torch, scans, recorded):
+    """The K7 inputs phase 16(a) runs the native packer on, as (name, the
+    wrapper's arguments on the card, K): every K7 input of at most
+    NATIVE_ROWS rows that phase 15 recorded (its last call on each path),
+    provision-small-3x64's batches (phase 10), and tests/test_native.py's
+    edge cases (`ffd_edge_cases`, plus existing nodes whose usage defaults
+    to empty)."""
+    from karpenter_tpu_torch.ops.ffd import ffd_device_args, lower_ffd
+    out = []
+    for (label, name, _), (args, _kw) in sorted(recorded.items()):
+        if name == "ffd_scan" and int(args[4].sum()) <= NATIVE_ROWS:
+            out.append((label, args[:-1], args[-1]))
+    check(out, "phase 15 recorded no K7 input of at most 256 rows")
+    for label, args in scans.items():
+        if label.startswith(SMALL_PATH):
+            out.append((label, args[:-1], args[-1]))
+    dev = torch.device("cuda")
+    cases = ffd_edge_cases()
+    name, prob, kw = cases[-1]
+    cases.append((name + ", usage default-empty", prob,
+                  dict(existing_alloc=kw["existing_alloc"])))
+    for name, prob, kw in cases:
+        low = lower_ffd(prob, **kw)
+        out.append((name, ffd_device_args(low, dev), low.K))
+    return out
+
+
+def native_against_k7(torch, card, scans, recorded):
+    """16(a): on each input of `native_inputs`, the native packer on the
+    host, K7 on the card and K7's plain version on the card and on the
+    host: assignment, slot options, slot usage (float32 bits) and the open
+    count equal across the four; then the native call's host p50 beside
+    K7's card time (`card_ms`), its host-rate time (`event_ms`) and the
+    host p50 of K7's plain version (the other candidate for the ladder's
+    "native" rung)."""
+    from karpenter_tpu_torch import native, workloads
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    rows = []
+    for name, args, K in native_inputs(torch, scans, recorded):
+        host = [a.cpu().numpy() for a in args]
+        nargs = workloads.ffd_native_args(host, K)
+        P = len(nargs["requests"])
+        assignment, slot_option, slot_used, n_open = \
+            native.ffd_pack_native(**nargs)
+        cpu_args = [a.cpu() for a in args]
+        got = fk.ffd_scan(*args, K)
+        want = fk.ffd_scan_plain(*args, K)
+        on_host = fk.ffd_scan_plain(*cpu_args, K)
+        torch.cuda.synchronize()
+        for out, who in ((got, "K7"), (want, "K7's plain version"),
+                         (on_host, "K7's plain version on the host")):
+            a, so, su, n = (t.cpu().numpy() for t in out)
+            check(np.array_equal(a[:P], assignment) and (a[P:] == -1).all()
+                  and np.array_equal(so, slot_option)
+                  and np.array_equal(su.view(np.int32),
+                                     slot_used.view(np.int32))
+                  and int(n) == n_open,
+                  f"[native] {name}: the native packer differs from {who}")
+        nat, _ = p50_ms(lambda: native.ffd_pack_native(**nargs), iters=21)
+        dev = card_ms(torch, lambda: fk.ffd_scan(*args, K), 50)
+        rate = event_ms(torch, lambda: fk.ffd_scan(*args, K), 50)
+        plain, _ = p50_ms(lambda: fk.ffd_scan_plain(*cpu_args, K), iters=21)
+        rows.append((name, P, K, nat, dev, rate, plain))
+        log(f"[native] {name}: P={P} K={K} n_open={n_open}: native, K7 and "
+            f"plain (card, host) bit-equal; native {nat:.4f} ms (host "
+            f"p50), K7 {dev:.4f} ms card, {rate:.4f} ms host-rate, K7's "
+            f"plain version {plain:.4f} ms (host p50, "
+            f"{torch.get_num_threads()} threads), on {card}")
+    faster = sum(1 for r in rows if r[3] < r[5])
+    log(f"[native] {len(rows)} inputs of at most {NATIVE_ROWS} rows: the "
+        f"native packer's host time under K7's host-rate time on {faster}; "
+        f"native {min(r[3] for r in rows):.4f}-{max(r[3] for r in rows):.4f}"
+        f" ms, K7 card {min(r[4] for r in rows):.4f}-"
+        f"{max(r[4] for r in rows):.4f} ms, host-rate "
+        f"{min(r[5] for r in rows):.4f}-{max(r[5] for r in rows):.4f} ms")
+    log(f"[native] K7's plain version on the host "
+        f"{min(r[6] for r in rows):.4f}-{max(r[6] for r in rows):.4f} ms, "
+        f"{min(r[6] / r[3] for r in rows):.2f}-"
+        f"{max(r[6] / r[3] for r in rows):.2f}x the native packer's; under "
+        f"it on {sum(1 for r in rows if r[6] < r[3])} of {len(rows)}")
+
+
+def chaos_storm(torch, card, hook):
+    """16(b): scenarios/chaos-storm.yaml (seed 0, 5400 s) on the card with
+    the arena on, then off, each report byte for byte against
+    tests/golden/sim-chaos-storm.json; then its chaos block off (no golden:
+    K7's unarmed count).  Returns the launches by path."""
+    from karpenter_tpu_torch.sim import load_scenario, report_to_json
+    with open(os.path.join(REPO, "tests", "golden",
+                           "sim-chaos-storm.json")) as fh:
+        want = fh.read()
+    by_path = {}
+    for kw in ({}, {"incremental_arena": False}):
+        label = sim_label("chaos-storm", kw)
+        run, h, launches, _ = sim_replay(
+            torch, card, hook, "chaos-storm.yaml", 5400.0, label,
+            exceptions=CHAOS_EXCEPTIONS, **kw)
+        got = report_to_json(run.report)
+        check(got == want, f"{label}: the report differs from "
+                           f"tests/golden/sim-chaos-storm.json: {got[:3000]}")
+        check(h.cluster.arena is None or h.cluster.arena.gathers[
+            "fallback"] == 0, f"{label}: the arena refused a gather")
+        log(f"[chaos] {label}: the golden matches; chaos section "
+            f"{json.dumps(run.report['chaos'], sort_keys=True)}")
+        by_path[label] = launches
+    sc = load_scenario(os.path.join(REPO, "scenarios", "chaos-storm.yaml"))
+    sc.chaos = None
+    label = "sim-chaos-storm unarmed"
+    _, _, unarmed, _ = sim_replay(torch, card, hook,
+                                  "chaos-storm.yaml", 5400.0, label,
+                                  scenario=sc)
+    armed = by_path[CHAOS_PATH]
+    log(f"[chaos] K7 ffd_scan launches: {armed['ffd_scan']} armed (the "
+        f"demoted solves run the native packer), {unarmed['ffd_scan']} "
+        f"unarmed; K1 {armed['classpack_precompute']} / "
+        f"{unarmed['classpack_precompute']}, K5 {armed['classpack_sweep']} / "
+        f"{unarmed['classpack_sweep']}")
+    check(armed["ffd_scan"] > 0, "K7 did not launch on the chaos replay")
+    return by_path
+
+
+def join_watchdog_workers(timeout=300.0):
+    """Wait out every watchdog worker the deadline abandoned, so none
+    launches a kernel into the next step."""
+    import threading
+    for t in threading.enumerate():
+        if t.name.startswith("watchdog:"):
+            t.join(timeout)
+            check(not t.is_alive(), f"{t.name} did not end")
+
+
+def watchdog_trip(torch, card, device="cuda"):
+    """16(c): provision-small-3x64 on the card with a 0.5 s solve deadline
+    and a `solver.pack` hang of 2 s (a real sleep) on the "jax" rung of its
+    first batch: the watchdog abandons the solve and books
+    `jax>native:timeout`, the native packer answers, and every round equals
+    GOLDEN_PROVISION (the K7 plans).  The abandoned worker is waited out
+    before the next round."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.api.objects import NodePool
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.ops.health import SolverHealth
+    from karpenter_tpu_torch.state import Cluster
+    from karpenter_tpu_torch.utils.chaos import CHAOS, ChaosRule
+    health = SolverHealth()
+    env = workloads.provision_env(
+        SMALL_PATH, FakeCloud, CloudProvider, Cluster, Provisioner, NodePool,
+        generate_catalog(workloads.PROVISION_TYPES), health=health,
+        watchdog_timeout_s=0.5, device=device)
+    CHAOS.configure([ChaosRule("solver.pack", key="jax", action="hang",
+                               latency_s=2.0, count=1)], seed=0)
+    try:
+        gold = workloads.GOLDEN_PROVISION[SMALL_PATH]
+        for r, (kw, seed) in enumerate(workloads.PROVISION_CELLS[SMALL_PATH][
+                1]):
+            env.cluster.add_pods(workloads.build_pods(
+                rng=np.random.default_rng(seed), **kw))
+            reset_all_launches()
+            t0 = time.perf_counter()
+            sig, _ = workloads.provision_pending(env)
+            wall = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            join_watchdog_workers()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            waited = time.perf_counter() - t1
+            check(sig == gold[r], f"[watchdog] round {r + 1}: {sig} != "
+                                  f"golden {gold[r]}")
+            log(f"[watchdog] {SMALL_PATH} round {r + 1}: golden matches in "
+                f"{wall:.3f} s wall (the abandoned worker then waited out "
+                f"for {waited:.3f} s); transitions {health.transitions}; "
+                f"K7 launches {all_launches()['ffd_scan']}")
+            if r == 0:
+                check(0.5 <= wall < 2.0, f"[watchdog] round 1 took "
+                                         f"{wall:.3f} s: no trip at 0.5 s")
+    finally:
+        CHAOS.reset()
+    check(health.transitions == {"jax>native:timeout": 1},
+          f"[watchdog] transitions {health.transitions}")
+    check(CHAOS.fired_total() == 0, "the injector was not disarmed")
+
+
+class raise_once:
+    """While open, the next call of `module.name` raises KernelError (the
+    ones after it run the wrapper unchanged); `calls` counts them."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        from karpenter_tpu_torch._build import KernelError
+        self.orig = getattr(self.module, self.name)
+
+        def faulty(*a, **k):
+            self.calls += 1
+            if self.calls == 1:
+                raise KernelError(f"{self.name}: injected launch fault")
+            return self.orig(*a, **k)
+        setattr(self.module, self.name, faulty)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def kernel_faults(torch, card, device="cuda"):
+    """16(d): the disruption cell built on the card with one SolverHealth
+    (and a 30 s deadline) for its Provisioner and DisruptionController,
+    both under a ControllerManager, and a chaos schedule armed that does
+    not fire on these paths.  K5 raises KernelError once in a
+    consolidation sweep (ticks 30 s apart until one sweeps: the first three
+    delete empty nodes, 100 a tick), then K1 once in a provisioning solve of 300 pods
+    against the fleet: the tick must raise it, and neither the ladder nor
+    a supervisor may book anything."""
+    import threading
+    from types import SimpleNamespace
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch._build import KernelError
+    from karpenter_tpu_torch.api.objects import Pod
+    from karpenter_tpu_torch.api.resources import CPU, MEMORY, ResourceList
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    from karpenter_tpu_torch.operator import ControllerManager, Options
+    from karpenter_tpu_torch.ops import classpack as cp
+    from karpenter_tpu_torch.ops.health import SolverHealth
+    from karpenter_tpu_torch.utils.chaos import CHAOS, ChaosRule
+    from karpenter_tpu_torch.utils.events import Recorder
+    clear_lp_caches()
+    health = SolverHealth()
+    env = workloads.disruption_env(
+        workloads.port_kit(), generate_catalog(workloads.DISRUPTION_TYPES),
+        health=health, watchdog_timeout_s=30.0, device=device)
+    check(env.provisioner.health is env.disruption.health is health,
+          "the ladder is not shared")
+    op = SimpleNamespace(options=Options(), recorder=Recorder(log=False),
+                         cluster=env.cluster, state_lock=threading.RLock(),
+                         node_classes={})
+    mgr = ControllerManager(op, {"provisioning": env.provisioner,
+                                 "disruption": env.disruption},
+                            clock=env.clock)
+    CHAOS.configure([ChaosRule("solver.pack", key="native"),
+                     ChaosRule("cloud.api", key="describe_instances",
+                               rate=0.5, at_s=1e12)],
+                    seed=0, clock=env.clock, sleep=lambda s: None)
+    try:
+        for what, name in (("K5 in a consolidation sweep", "classpack_sweep"),
+                           ("K1 in a provisioning solve",
+                            "classpack_precompute")):
+            if name == "classpack_precompute":
+                rng = np.random.default_rng(SEED)
+                env.cluster.add_pods([Pod(requests=ResourceList({
+                    CPU: int(rng.integers(200, 3000)),
+                    MEMORY: int(rng.integers(256, 4096)) * 2**20}))
+                    for _ in range(300)])
+                env.clock.step(30.0)
+                mgr.tick()                 # the batch window opens
+                env.clock.step(2.0)        # ripe; disruption not yet due
+            raised, ticks = None, 0
+            with raise_once(cp, name) as fault:
+                while raised is None and ticks < 6:
+                    nodes = [(n.name, n.marked_for_deletion, len(n.pods))
+                             for n in env.cluster.nodes.values()]
+                    ticks += 1
+                    try:
+                        mgr.tick()
+                    except KernelError as e:
+                        raised = e
+                    env.clock.step(30.0)
+            join_watchdog_workers()
+            check(raised is not None and name in str(raised),
+                  f"[fault] {what}: tick() did not raise the KernelError "
+                  f"({fault.calls} calls in {ticks} ticks)")
+            check(not health.transitions and all(
+                v["total_failures"] == 0
+                for v in health.snapshot()["rungs"].values()),
+                f"[fault] {what}: the ladder booked {health.snapshot()}")
+            check(all(s.total_failures == 0 for s in mgr.supervisors.values()),
+                  f"[fault] {what}: a supervisor booked it")
+            check([(n.name, n.marked_for_deletion, len(n.pods))
+                   for n in env.cluster.nodes.values()] == nodes,
+                  f"[fault] {what}: the faulting tick changed the fleet")
+            log(f"[fault] {what}: tick {ticks} raised "
+                f"{type(raised).__name__} ({raised}) through the watchdog "
+                f"worker, as expected; ladder and supervisors clean; chaos "
+                f"armed, fired {CHAOS.fired_total()}; on {card}")
+    finally:
+        CHAOS.reset()
+
+
+def phase16(torch, card, err, scans, recorded):
+    """Phase 16, robustness: (a) the native packer against K7, (b) the
+    chaos storm on the card, arena on and off, its wrappers held against
+    plain, (c) a watchdog trip in wall time, (d) kernel faults under both
+    ladders.  Returns the launches by path."""
+    t0 = time.perf_counter()
+    native_against_k7(torch, card, scans, recorded)
+    log(f"[robust] 16(a) {time.perf_counter() - t0:.1f} s")
+    hook = kernel_log(torch, spans=True)
+    with wrapped_kernels(hook):
+        by_path = chaos_storm(torch, card, hook)
+    seen = hold_recorded(torch, hook.recorded, err, lambda label: label)
+    for name, where in seen.items():
+        log(f"[chaos] {name} on the {len(where)} inputs recorded on the "
+            f"chaos replays (its last call on each): equal to plain — "
+            f"{', '.join(where)}")
+    log(f"[robust] 16(b) {time.perf_counter() - t0:.1f} s")
+    watchdog_trip(torch, card)
+    log(f"[robust] 16(c) {time.perf_counter() - t0:.1f} s")
+    kernel_faults(torch, card)
+    log(f"[robust] 16(d) {time.perf_counter() - t0:.1f} s")
     return by_path
 
 
@@ -4775,7 +5132,7 @@ def main() -> int:
                 row["launches_by_path"][path] = launches[row["name"]]
     log(f"[arena] phase 14 done ({time.perf_counter() - t_start:.1f} s "
         f"so far)")
-    loop_paths = phase15(torch, card, err)
+    loop_paths, loop_recorded = phase15(torch, card, err)
     for row in rows:
         if row["name"] in err:
             row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
@@ -4783,6 +5140,15 @@ def main() -> int:
             if row["name"] in launches:
                 row["launches_by_path"][path] = launches[row["name"]]
     log(f"[loop] phase 15 done ({time.perf_counter() - t_start:.1f} s "
+        f"so far)")
+    robust_paths = phase16(torch, card, err, scans, loop_recorded)
+    for row in rows:
+        if row["name"] in err:
+            row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
+        for path, launches in robust_paths.items():
+            if row["name"] in launches:
+                row["launches_by_path"][path] = launches[row["name"]]
+    log(f"[robust] phase 16 done ({time.perf_counter() - t_start:.1f} s "
         f"so far)")
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]

@@ -47,6 +47,14 @@ class KernelLimitError(KernelError, ValueError):
     to move the work to the host."""
 
 
+class KernelContractError(KernelLimitError, TypeError):
+    """A kernel wrapper was given operands that break its contract (mixed
+    devices, dtype, shape, layout, an empty envelope).  Only the port's own
+    programs call the wrappers, so this is a fault of the port's lowering,
+    and a KernelError: no ladder answers it on the host.  It is also the
+    TypeError or ValueError a caller of a plain function would expect."""
+
+
 def find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None:

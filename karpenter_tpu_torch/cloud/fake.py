@@ -7,9 +7,9 @@ stateful CreateFleet that launches in-memory instances, and an
 capacityType)), with the interruption queue's publishing side (a spot
 interruption's warning and its clock-scheduled reclaim), the network and
 image inventories the providers discover (subnets, security groups,
-images, spot price history), the launch-template API, and per-API fault
-injection.  Left out: the chaos injector (`api_errors` stands in for its
-per-API seam) and the warm-restart export (ROADMAP.md queue B)."""
+images, spot price history), the launch-template API, and the chaos
+injector's `cloud.api` seam (utils/chaos.py, keyed on the API name).  Left
+out: the warm-restart export (ROADMAP.md queue B item B7)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
+
+from ..utils.chaos import CHAOS
 
 ICE_CODE = "InsufficientInstanceCapacity"
 
@@ -122,8 +124,7 @@ class LaunchTemplateInfo:
 class FakeCloud:
     """The cloud API the provider talks to.  Thread-safe; failure injection
     via `insufficient_capacity_pools`, `next_error` (the next call of any
-    API), `api_errors` (the next call of one named API) and
-    `throttle_until`."""
+    API), `throttle_until` and the chaos injector's `cloud.api` rules."""
 
     def __init__(self, clock: Callable[[], float] = time.time,
                  queue=None):
@@ -134,8 +135,6 @@ class FakeCloud:
         # (capacity_type, instance_type, zone) pools that ICE
         self.insufficient_capacity_pools: Set[Tuple[str, str, str]] = set()
         self.next_error: Optional[Exception] = None
-        # API name -> the error its next call raises (one shot)
-        self.api_errors: Dict[str, Exception] = {}
         self.calls: Dict[str, int] = {}
         self.queue = queue  # interruption events go here when attached
         # network inventory (seeded by tests / the operator's callers)
@@ -160,7 +159,6 @@ class FakeCloud:
             self._instances.clear()
             self.insufficient_capacity_pools.clear()
             self.next_error = None
-            self.api_errors.clear()
             self.calls.clear()
             self._scheduled.clear()
             self.throttle_until = 0.0
@@ -174,9 +172,9 @@ class FakeCloud:
             raise err
         if self.clock() < self.throttle_until:
             raise CloudError("RequestLimitExceeded", "throttle window open")
-        err = self.api_errors.pop(api, None)
-        if err is not None:
-            raise err
+        # chaos seam: rules targeting point "cloud.api" key on the API name
+        # (utils/chaos.py); a no-op unless the injector is armed
+        CHAOS.inject("cloud.api", key=api)
 
     # ---- APIs ----
     def create_fleet(self, overrides: Sequence[FleetOverride], count: int = 1,

@@ -29,14 +29,23 @@ the survivors as pre-opened columns — through the partitioned mesh driver
 (parallel/driver.py, shard-batched kernels) first when the ShardedSolve
 gate (`sharded_solve`) is on and the batch is shardable.  Every solve runs
 on `device` ("cuda" by default; "cpu" runs the kernels' plain versions and
-only when asked); a device fault raised by a solve leaves `reconcile()` as
-it came, and only the cloud calls of execution are caught.
+only when asked).
 
-Not ported yet (ROADMAP.md queue B): the solver-health ladder and its
-watchdog (`health`, `watchdog_timeout_s > 0`; item 5), the native and
-greedy simulation rungs (item 5) and gang preemption (`gang_source`; item
-8); the options that select them raise NotImplementedError.  The
-reference's metric, span and cost-ledger calls are left out.
+With a SolverHealth (`health`, the ladder the operator shares with the
+Provisioner) each simulation walks the degradation ladder as the
+Provisioner's pack does: "sharded" → "jax" (the classpack solve) →
+"native" (the C++ packer on the host) → "greedy" (the host NumPy FFD), each
+attempt behind the chaos seam `solver.pack` and, above greedy, the
+watchdog's `watchdog_timeout_s` deadline.  The batched sweep runs under the
+same deadline: a trip books a timeout against "jax" and finishes the tick
+on the sequential path, whose probes consult the demoted ladder; the sweep
+passes the chaos seam `solver.sweep` first.  A device fault
+(`DEVICE_FAULTS`) is raised past every rung with nothing booked and leaves
+`reconcile()` as it came; only the cloud calls of execution are caught.
+
+Not ported yet (ROADMAP.md queue B): gang preemption (`gang_source`; item
+8), which raises NotImplementedError.  The reference's metric, span and
+cost-ledger calls are left out.
 """
 
 from __future__ import annotations
@@ -54,15 +63,17 @@ from ..cloud.errors import is_not_found
 from ..cloud.fake import CloudError
 from ..cloud.provider import InsufficientCapacityError
 from ..forecast.headroom import headroom_expiry, is_headroom
-from ..ops.classpack import resolve_device, solve_classpack
+from ..ops.classpack import DEVICE_FAULTS, resolve_device, solve_classpack
 from ..ops.constraints import (LEVEL_REQUIRED_ONLY,
                                find_batch_topology_violations, lower_pods,
                                make_zone_feasibility)
-from ..ops.ffd import PackingResult
+from ..ops.ffd import PackingResult, solve_ffd
 from ..ops.tensorize import Problem, tensorize
 from ..parallel.driver import maybe_solve_partitioned
 from ..state.cluster import Cluster
+from ..utils.chaos import CHAOS
 from ..utils.events import Event
+from ..utils.watchdog import WatchdogTimeout, run_with_deadline
 
 log = logging.getLogger("karpenter_tpu_torch.disruption")
 
@@ -173,8 +184,8 @@ class DisruptionController:
 
     The signature is the reference's plus `device` and `mesh` (the
     ShardedSolve gate's mesh; default `parallel.make_pod_mesh` on `device`).
-    `health`, `watchdog_timeout_s > 0` and `gang_source` select parts that
-    are not ported yet and raise NotImplementedError."""
+    `gang_source` selects a part that is not ported yet and raises
+    NotImplementedError."""
 
     def __init__(self, provider, cluster: Cluster,
                  nodepools,
@@ -199,15 +210,10 @@ class DisruptionController:
                  gang_source: Optional[Callable] = None,
                  device="cuda",
                  mesh=None):
-        unported = [f"{name} (ROADMAP.md queue B item {item})"
-                    for name, item, on in (
-                        ("health", 5, health is not None),
-                        ("watchdog_timeout_s", 5, watchdog_timeout_s > 0),
-                        ("gang_source", 8, gang_source is not None)) if on]
-        if unported:
+        if gang_source is not None:
             raise NotImplementedError(
-                f"DisruptionController: {', '.join(unported)} is not ported "
-                f"yet")
+                "DisruptionController: gang_source (ROADMAP.md queue B item "
+                "8) is not ported yet")
         from ..utils.events import Recorder
         self.device = resolve_device(device)
         self.provider = provider
@@ -224,6 +230,10 @@ class DisruptionController:
         self.batched_sweep = batched_sweep
         self.sharded_solve = sharded_solve
         self.mesh = mesh
+        # shared degradation ladder (ops/health.py) + per-simulate hard
+        # deadline (utils/watchdog.py); None/0 keep the direct path
+        self.health = health
+        self.watchdog_timeout_s = watchdog_timeout_s
         self._empty_since: Dict[str, float] = {}  # node → first seen empty
         self._arena_cache = None  # (fingerprint, SimulationArena)
         # (mutation_epoch, catalog_key, candidates, fingerprint) — skips the
@@ -391,23 +401,47 @@ class DisruptionController:
 
     def _simulate_pack(self, problem: Problem, node_list, alloc, used,
                        compat, decode: bool) -> PackingResult:
-        """Simulation solve: the sharded gate → classpack, the reference's
-        healthy path.  The reference runs it under a degradation ladder
-        when `health` is set; the port has no ladder here (`health`
-        raises)."""
+        """Simulation solve under the degradation ladder, mirroring
+        Provisioner._pack_supervised: healthy = the direct path (sharded
+        gate → classpack); failures fall one rung per attempt and are
+        booked in the shared SolverHealth; greedy is deadline-free and
+        re-raises — it is the floor.  A device fault is raised from any
+        rung and not booked: no host rung answers for the card."""
         requested = "sharded" if (decode and self.sharded_solve) else "jax"
-        return self._simulate_rung(requested, problem, node_list, alloc,
-                                   used, compat, decode)
+        if self.health is None:
+            return self._simulate_rung(requested, problem, node_list,
+                                       alloc, used, compat, decode)
+        rung = self.health.active_rung(requested)
+        while True:
+            timeout = 0.0 if rung == "greedy" else self.watchdog_timeout_s
+            try:
+                result = run_with_deadline(
+                    lambda: self._simulate_rung(rung, problem, node_list,
+                                                alloc, used, compat, decode),
+                    timeout, "disruption.simulate")
+                self.health.report_success(rung)
+                return result
+            except WatchdogTimeout:
+                self.health.report_failure(rung, reason="timeout")
+            except DEVICE_FAULTS:
+                raise
+            except Exception:
+                log.exception("simulation rung %s failed", rung)
+                self.health.report_failure(rung, reason="error")
+                if rung == "greedy":
+                    raise
+            rung = self.health.active_rung(
+                self.health.next_rung(rung) or "greedy")
 
     def _simulate_rung(self, rung: str, problem: Problem, node_list,
                        alloc, used, compat, decode: bool) -> PackingResult:
         """One simulation attempt on one rung.  "jax" is the reference's
         name for the class-granular classpack rung; a sharded refusal falls
         through to it inline (routing, not failure).  The native and greedy
-        rungs are not ported."""
-        if rung not in ("sharded", "jax"):
-            raise NotImplementedError(
-                f"simulation rung {rung!r} is not ported yet — ROADMAP.md")
+        rungs run the pod-granular FFD on the host — it always decodes,
+        which a decode=False probe tolerates (the caller only reads the
+        aggregate fields of the PackingResult)."""
+        CHAOS.inject("solver.pack", key=rung)
         ekw = dict(existing_alloc=alloc if len(node_list) else None,
                    existing_used=used if len(node_list) else None,
                    existing_compat=compat if len(node_list) else None)
@@ -418,12 +452,18 @@ class DisruptionController:
                 **ekw)
             if result is not None:
                 return result
-        return solve_classpack(
-            problem, decode=decode,
-            # the LPGuide gate covers THIS path too: a fresh replacement
-            # solve (all candidates excluded, no survivors) would otherwise
-            # run the guide despite the escape hatch
-            guide="lp" if self.lp_guide else None, device=self.device, **ekw)
+            rung = "jax"
+        if rung == "jax":
+            return solve_classpack(
+                problem, decode=decode,
+                # the LPGuide gate covers THIS path too: a fresh replacement
+                # solve (all candidates excluded, no survivors) would
+                # otherwise run the guide despite the escape hatch
+                guide="lp" if self.lp_guide else None, device=self.device,
+                **ekw)
+        if rung == "native":   # raises where the library is unavailable
+            return solve_ffd(problem, max_nodes=2048, backend="native", **ekw)
+        return solve_ffd(problem, max_nodes=2048, backend="numpy", **ekw)
 
     # ------------------------------------------------------------------
     # methods, in the reference's order
@@ -536,11 +576,22 @@ class DisruptionController:
             return None
         if not self.batched_sweep:
             return self._consolidation_action_sequential(cands)
-        return self._consolidation_action_batched(cands)
+        timeout = self.watchdog_timeout_s if self.health is not None else 0.0
+        try:
+            return run_with_deadline(
+                lambda: self._consolidation_action_batched(cands),
+                timeout, "disruption.sweep")
+        except WatchdogTimeout:
+            # hung sweep: book it against the jax rung (the arena's kernels
+            # live there) and finish THIS tick on the sequential path, whose
+            # simulate() probes consult the now-demoted ladder
+            self.health.report_failure("jax", reason="timeout")
+            return self._consolidation_action_sequential(cands)
 
     def _consolidation_action_batched(self,
                                       cands: List[Candidate]
                                       ) -> Optional[Action]:
+        CHAOS.inject("solver.sweep")
         arena = self._arena_for(cands)
         # PDB composition over prefix unions, computed incrementally on the
         # host in ONE pass

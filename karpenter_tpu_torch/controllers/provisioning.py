@@ -15,10 +15,13 @@ provisioning loop the operator runs every batch window:
              class-granular `solve_classpack` with the LP guide and the
              DeviceDecode slab when gated on, or the pod-granular
              `solve_ffd` for batches of at most NATIVE_CUTOVER_ROWS rows
-             and under solver="ffd"), "greedy" the host NumPy FFD.  A
-             fault of the card or a kernel (`KernelError`, a CUDA error,
-             device memory) is raised, never demoted: the ladder answers
-             watchdog trips and faults of the solve's own logic;
+             and under solver="ffd"), "native" the C++ packer on the host
+             (karpenter_tpu_torch/native), "greedy" the host NumPy FFD.
+             Each rung attempt first passes the chaos seam `solver.pack`
+             (utils/chaos.py, keyed on the rung).  A fault of the card or
+             a kernel (`KernelError`, a CUDA error, device memory) is
+             raised, never demoted: the ladder answers watchdog trips and
+             faults of the solve's own logic;
   launch     each NodeDecision becomes a NodeClaim with flexible
              instance-type / zone candidates, launched through the
              CloudProvider, registered as a Node and bound; ICE'd launches
@@ -29,15 +32,15 @@ The signature is the reference's plus `device` ("cuda" by default; "cpu"
 runs the kernels' plain versions and only when asked for) and `mesh` (the
 ShardedSolve gate's mesh; default `parallel.make_pod_mesh` on `device`, one
 shard per visible card, where the reference reads `jax.devices()`).  Not
-ported yet (ROADMAP.md): `gang_scheduling` raises NotImplementedError; the
+ported yet (ROADMAP.md): `gang_scheduling` raises NotImplementedError.  The
 "native" rung raises as the reference's does on a host without its C++
-library, so a failing "jax" solve lands on "greedy".
+compiler, and a failing "jax" solve then lands on "greedy".
 The live node set is gathered warm from the cluster's persistent arena
 (`Cluster.attach_arena`, the IncrementalArena gate) when one is attached;
 a snapshot solve (`nodes=` given), an arena that refuses (extra axes,
 custom scales, an untracked node) or no arena at all takes
 `Cluster.tensorize_nodes`, the reference's bit-identical path.
-The reference's metrics, spans and chaos seam are left out.
+The reference's metrics and spans are left out.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from ..ops.ffd import NATIVE_CUTOVER_ROWS, NodeDecision, solve_ffd
 from ..ops.tensorize import Problem, tensorize
 from ..parallel.driver import maybe_solve_partitioned
 from ..state.cluster import Cluster
+from ..utils.chaos import CHAOS
 from ..utils.events import Event
 from ..utils.provenance import (CAPACITY, ProvenanceRecord,
                                 explain_unschedulable)
@@ -284,7 +288,10 @@ class Provisioner:
     def _run_rung(self, rung: str, problem: Problem, existing):
         """One pack attempt on one ladder rung.  A sharded refusal
         (maybe_solve_partitioned → None: batch too small/unshardable) is
-        routing, not failure — it falls through to the jax rung inline."""
+        routing, not failure — it falls through to the jax rung inline.
+        The chaos seam fires before any work, so an injected fault never
+        follows a launch."""
+        CHAOS.inject("solver.pack", key=rung)
         kw: Dict[str, object] = {}
         n_existing = 0
         if existing is not None:
@@ -307,8 +314,9 @@ class Provisioner:
         if rung == "jax":
             solve = self._pick_solver(problem, n_existing=n_existing)
             return solve(problem, max_nodes=self.max_nodes_per_round, **kw)
-        if rung == "native":
-            raise RuntimeError("the native rung is not ported (ROADMAP.md)")
+        if rung == "native":   # raises where the library is unavailable
+            return solve_ffd(problem, max_nodes=self.max_nodes_per_round,
+                             backend="native", **kw)
         return solve_ffd(problem, max_nodes=self.max_nodes_per_round,
                          backend="numpy", **kw)
 

@@ -13,16 +13,19 @@ reference runtime:
 No fallback hides a fault of the card or of a kernel: `_supervised`
 re-raises `DEVICE_FAULTS` (ops/classpack.py) before its supervisor books
 anything, so such a fault propagates out of `tick()`, and a `/v1` handler
-answers it with a 500, never with a plan from somewhere else.
+answers it with a 500, never with a plan from somewhere else.  Each
+supervised reconcile first passes the chaos seam `controller.reconcile`
+(utils/chaos.py, keyed on the controller's name); an injected `ChaosError`
+is booked like any fault of the controller's own.
 
 Left out, each with the ROADMAP.md queue B item that ports it:
 `LeaderElector`, the lease guards, the snapshotter and the fence, and
-`startup()`'s restore branch (B7); the flight recorder, the SLO engine, the
-cost ledger, the metric and span calls, and the endpoints `/metrics`,
-`/debug/traces`, `/debug/incidents`, `/debug/slo`, `/debug/ledger` and
-`/debug/pprof`, which answer 501 naming B9 (B9); the gang snapshot (B8);
-the forecast preemption (B6, whose gate `Operator` refuses); the chaos
-calls (B5).
+`startup()`'s restore branch (B7); the flight recorder (with the chaos
+state it records), the SLO engine, the cost ledger, the metric and span
+calls, and the endpoints `/metrics`, `/debug/traces`, `/debug/incidents`,
+`/debug/slo`, `/debug/ledger` and `/debug/pprof`, which answer 501 naming
+B9 (B9); the gang snapshot (B8); the forecast preemption (B6, whose gate
+`Operator` refuses).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 from ..ops.classpack import DEVICE_FAULTS
+from ..utils.chaos import CHAOS
 from .supervisor import BackoffPolicy, ControllerSupervisor
 
 log = logging.getLogger("karpenter_tpu_torch.manager")
@@ -233,6 +237,7 @@ class ControllerManager:
         sup = self.supervisors[name]
         t0 = time.perf_counter()
         try:
+            CHAOS.inject("controller.reconcile", key=name)
             results[name] = reconcile()
             sup.record_success(now)
             return True

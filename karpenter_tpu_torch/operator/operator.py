@@ -23,12 +23,13 @@ surface share.
 Not ported yet, and raising NotImplementedError that names the item of
 ROADMAP.md's queue B (`options.check_ported`): the Forecast gate (B6),
 WarmRestart and HAFailover (B7), FlightRecorder and SLOEngine (B9),
-GangScheduling (B8) and a chaos spec (B5).  The reference's metric
-registration, scrape collectors and slow-span threshold are left out (B9).
-`build_controllers` gives the shared SolverHealth ladder to the Provisioner
-only: the DisruptionController's ladder is B5's, and until then its
-simulations take the direct path that the ladder takes while no rung has
-failed.
+and GangScheduling (B8).  The reference's metric registration, scrape
+collectors and slow-span threshold are left out (B9).  A chaos spec
+(`Options.chaos_spec`, `--chaos-spec`) arms the process-global injector
+(utils/chaos.py) in the constructor, as in the reference.
+`build_controllers` gives one SolverHealth ladder, with the
+`solve_timeout_s` watchdog, to the Provisioner and the DisruptionController
+alike.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ from ..providers.version import VersionProvider
 from ..state.cluster import Cluster
 from ..utils.events import Recorder
 from ..utils.provenance import ProvenanceStore
+from ..utils.chaos import maybe_configure_from_options
 from .options import Options, check_ported
 
 log = logging.getLogger("karpenter_tpu_torch.operator")
@@ -180,6 +182,9 @@ class Operator:
             cluster_name=self.options.cluster_name, clock=clock,
             subnets=self.subnets, launch_templates=self.launch_templates,
             pricing=self.pricing, retry=retry, breaker=breaker)
+        # live-operator chaos arming (--chaos-spec); the sim configures the
+        # injector itself so schedules ride the virtual clock
+        maybe_configure_from_options(self.options)
         self.hydrate_cluster()
 
     def hydrate_cluster(self) -> int:
@@ -385,8 +390,6 @@ def build_controllers(op: Operator) -> Dict[str, object]:
     out: Dict[str, object] = {
         "provisioning": provisioner,
         "termination": terminator,
-        # the shared SolverHealth ladder and its watchdog stay off the
-        # DisruptionController until ROADMAP.md queue B item B5 ports them
         "disruption": DisruptionController(
             op.cloud_provider, op.cluster, op.nodepools,
             terminator=terminator, clock=op.clock,
@@ -394,6 +397,8 @@ def build_controllers(op: Operator) -> Dict[str, object]:
             lp_guide=op.options.gate("LPGuide"),
             recorder=op.recorder,
             sharded_solve=op.options.gate("ShardedSolve"),
+            health=health,
+            watchdog_timeout_s=solve_timeout,
             device=op.device),
         "lifecycle": LifecycleController(
             op.cloud_provider, op.cluster, nodepools=op.nodepools,

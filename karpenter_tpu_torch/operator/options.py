@@ -7,8 +7,8 @@ re-implements karpenter:pkg/operator/options/options.go:53-63).
 Precedence is the reference's: explicit flag > env var > default.
 `from_args` parses the reference's whole command line and refuses every
 flag set away from its default whose reader the port does not have,
-naming the ROADMAP.md queue B item that ports it: `--chaos-spec` /
-`--chaos-seed` (B5), the forecast knobs (B6), `--leader-elect`, the lease
+naming the ROADMAP.md queue B item that ports it: the forecast knobs
+(B6), `--leader-elect`, the lease
 and snapshot flags (B7), `--gang-scheduling` (B8), `--log-format json`,
 `--trace-slow-ms`, `--enable-profiling` and the incident, obs, SLO and
 ledger flags (B9).  The four options the JAX package parses and never
@@ -52,7 +52,6 @@ UNPORTED_GATES = {"Forecast": "B6", "WarmRestart": "B7", "HAFailover": "B7",
 # the reference's command-line options the port does not read → (the value
 # that leaves them off, the ROADMAP.md queue B item that ports their reader)
 UNPORTED_FLAGS = {
-    "chaos_spec": ("", "B5"), "chaos_seed": (0, "B5"),
     "forecast": (False, "B6"), "forecast_cadence_s": (30.0, "B6"),
     "forecast_horizon_s": (900.0, "B6"), "forecast_lead_s": (180.0, "B6"),
     "forecast_ttl_s": (600.0, "B6"),
@@ -116,13 +115,10 @@ def _refusal(what: str, item: str) -> str:
 
 
 def check_ported(options: "Options") -> None:
-    """Raise NotImplementedError naming every gate `options` turns on, and
-    the chaos spec if set, whose feature is not ported yet, with its
-    ROADMAP.md item."""
+    """Raise NotImplementedError naming every gate `options` turns on
+    whose feature is not ported yet, with its ROADMAP.md item."""
     off = [_refusal(f"the {gate} gate", item)
            for gate, item in UNPORTED_GATES.items() if options.gate(gate)]
-    if options.chaos_spec:
-        off.append(_refusal("a chaos spec", "B5"))
     if off:
         raise NotImplementedError(f"{', '.join(off)} is not ported yet")
 
@@ -151,7 +147,8 @@ class Options:
     cloud_retry_base_s: float = 0.2         # retry backoff base
     cloud_breaker_threshold: int = 0        # failures → open circuit (0 = off)
     cloud_breaker_cooldown_s: float = 30.0  # open-circuit fast-fail window
-    chaos_spec: str = ""                    # fault-injection rules (B5; off)
+    chaos_spec: str = ""                    # utils/chaos.py rule DSL (off)
+    chaos_seed: int = 0                     # chaos schedule seed
     ingest_max_events: int = 100_000        # IngestBatch pending cap → rebuild
 
     @classmethod
@@ -242,9 +239,13 @@ class Options:
         p.add_argument("--cloud-breaker-cooldown", type=float,
                        dest="cloud_breaker_cooldown_s",
                        default=env.get("cloud_breaker_cooldown_s", 30.0))
-        p.add_argument("--chaos-spec", default=env.get("chaos_spec", ""))
+        p.add_argument("--chaos-spec",
+                       default=env.get("chaos_spec", ""),
+                       help="chaos rule DSL 'point=...,action=...;...' "
+                            "(utils/chaos.py; empty disables injection)")
         p.add_argument("--chaos-seed", type=int,
-                       default=env.get("chaos_seed", 0))
+                       default=env.get("chaos_seed", 0),
+                       help="seed for the deterministic chaos schedule")
         p.add_argument("--warm-restart", action="store_true", default=False)
         p.add_argument("--ingest-batch", action="store_true", default=False,
                        help="shorthand for --feature-gates IngestBatch=true")
@@ -296,7 +297,7 @@ class Options:
         if off:
             raise NotImplementedError(f"{', '.join(off)} is not ported yet")
         opts = cls(**{f.name: getattr(ns, f.name) for f in fields(cls)
-                      if f.name not in ("feature_gates", "chaos_spec")})
+                      if f.name != "feature_gates"})
         # env-provided gates apply first; explicit --feature-gates wins
         _parse_kv_list(str(env.get("feature_gates", "")), opts.feature_gates,
                        cast=lambda v: v.lower() != "false")

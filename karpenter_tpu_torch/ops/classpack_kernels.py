@@ -35,9 +35,11 @@ rows 13-14); the catalog (alloc, price, rank) is always shared.  Its plain
 version is a loop over the shards of the single-device plain version.  The
 single-device wrappers launch the same kernels with n = 1, and each kind
 of launch has its own counter.  Only the port's own programs call the
-shard-batched wrappers, so operands that break their contract raise
-`ShardLayoutError`, a KernelError: the partitioned driver raises it
-instead of answering the batch on the single-device path.
+wrappers, so operands that break a wrapper's contract raise
+`KernelContractError`, a KernelError that no ladder answers on the host;
+the shard-batched wrappers raise it as `ShardLayoutError`, which the
+partitioned driver raises instead of answering the batch on the
+single-device path.
 
 All integer math is int32 with the reference's semantics (floor division,
 two's complement wrap); the new-node score is float32.
@@ -54,7 +56,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .._build import KernelError, KernelLimitError
+from .._build import KernelContractError, KernelError, KernelLimitError
 from .ffd import SCORE_CAP
 
 BIG = 2**30
@@ -142,16 +144,18 @@ def _on_cuda(*tensors) -> bool:
         return False
     if kinds == {"cuda"} and len(devs) == 1:
         return True
-    raise ValueError(f"inputs on mixed or unsupported devices: {sorted(map(str, devs))}")
+    raise KernelContractError(f"inputs on mixed or unsupported devices: "
+                              f"{sorted(map(str, devs))}")
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
     if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        raise KernelContractError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise KernelContractError(f"{name}: shape {tuple(t.shape)}, "
+                                  f"expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+        raise KernelContractError(f"{name}: not contiguous")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -746,7 +750,7 @@ def classpack_scan(requests: torch.Tensor, counts: torch.Tensor,
     `init_option`/`init_used` None == all slots closed (the `_fresh`
     variants: the state is built in-kernel)."""
     if (init_option is None) != (init_used is None):
-        raise ValueError("init_option and init_used come together")
+        raise KernelContractError("init_option and init_used come together")
     if not _on_cuda(requests, counts, compat_packed, node_cap, alloc, price,
                     m_all, ok_all, init_option, init_used):
         return classpack_scan_plain(requests, counts, compat_packed, node_cap,
@@ -1297,7 +1301,7 @@ def classpack_sweep(requests: torch.Tensor, counts_b: torch.Tensor,
             f"R={R} / K={K} outside the sweep kernel's limits "
             f"({MAX_R} axes, {SWEEP_MAX_SLOTS} slots)")
     if B == 0 or C == 0 or O == 0:
-        raise ValueError(f"empty sweep: B={B}, C={C}, O={O}")
+        raise KernelContractError(f"empty sweep: B={B}, C={C}, O={O}")
     _check(requests, "requests", torch.int32, (C, R))
     _check(counts_b, "counts_b", torch.int32, (B, C))
     _check(compat_packed, "compat_packed", torch.uint8, (C, (O + 7) // 8))
@@ -1459,12 +1463,12 @@ def classpack_slab(assignment: torch.Tensor, max_nodes: int
     K = int(max_nodes)
     n = assignment.shape[0]
     if assignment.dtype not in (torch.int16, torch.int32):
-        raise TypeError(f"assignment: dtype {assignment.dtype}, expected "
-                        f"int16 or int32")
+        raise KernelContractError(f"assignment: dtype {assignment.dtype}, "
+                                  f"expected int16 or int32")
     if assignment.dim() != 1 or not assignment.is_contiguous():
-        raise ValueError("assignment: not a contiguous vector")
+        raise KernelContractError("assignment: not a contiguous vector")
     if n == 0 or K <= 0:
-        raise ValueError(f"empty slab: n={n}, K={K}")
+        raise KernelContractError(f"empty slab: n={n}, K={K}")
     order, slot_counts = _launch_slab(assignment, 1, n, K, "classpack_slab")
     return order[0], slot_counts[0]
 
@@ -1493,22 +1497,23 @@ def _shard_stride(t: torch.Tensor, name: str, dtype: torch.dtype,
     return t.stride(0) if shape[0] > 1 else 0
 
 
-class ShardLayoutError(KernelLimitError, TypeError):
+class ShardLayoutError(KernelContractError):
     """A shard-batched wrapper was given operands that break its contract
-    (dtype, shape, shard layout, device).  Only the port's own programs
-    call these wrappers, so this is a fault of the port's lowering: a
-    KernelError, which the partitioned driver raises instead of answering
-    the batch on the single-device path.  It is also a TypeError and a
-    ValueError, the kinds the single-device wrappers raise."""
+    (dtype, shape, shard layout, device): the KernelContractError of the
+    shard-batched wrappers, which the partitioned driver raises instead of
+    answering the batch on the single-device path."""
 
 
 def _shard_contract(fn):
-    """Raise every TypeError or ValueError of a shard-batched wrapper as a
-    ShardLayoutError (see there); kernel faults pass unchanged."""
+    """Raise every contract fault, TypeError or ValueError of a
+    shard-batched wrapper as a ShardLayoutError (see there); kernel faults
+    pass unchanged."""
     @functools.wraps(fn)
     def run(*args, **kwargs):
         try:
             return fn(*args, **kwargs)
+        except KernelContractError as e:
+            raise ShardLayoutError(f"{fn.__name__}: {e}") from e
         except KernelError:
             raise
         except (TypeError, ValueError) as e:

@@ -12,9 +12,12 @@ backends:
     csrc/ffd.cu); on the CPU, only when asked for, its plain version;
   * "numpy": `ffd_pack_numpy`, the degradation ladder's host greedy rung —
     no device, always terminates;
-  * "native" (the reference's C++ packer) is not ported and raises; "auto"
-    therefore takes "jax", as the reference does on a host where its native
-    library is not built.
+  * "native": the C++ packer of `karpenter_tpu_torch/native` on the host
+    (the ladder's "native" rung), bit-identical to the scan; it raises
+    RuntimeError where the library is unavailable, as the reference does;
+  * "auto": "jax".  The reference's "auto" sends batches of at most
+    NATIVE_CUTOVER_ROWS rows to its native packer; the two give the same
+    slots bit for bit, and the port keeps those batches on K7.
 
 `decode_assignment` turns the slot arrays into NodeDecisions.  The
 constants and dataclasses below are shared with the class-granular solve
@@ -339,14 +342,16 @@ def solve_ffd(problem: Problem,
     paid: their allocatable/used vectors are appended as virtual options
     that can never be launched again.  The signature is the reference's
     plus `device` ("cuda" by default; "cpu" runs the kernel's plain
-    version).  `backend` "jax" (the scan), "numpy" (the host greedy rung)
-    or "auto"; "native" is not ported."""
-    if backend == "native":
-        raise NotImplementedError(
-            "the native C++ packer is not ported (ROADMAP.md queue B, "
-            "'native packer'); use backend='jax' or 'numpy'")
-    if backend not in ("auto", "jax", "numpy"):
+    version).  `backend` "jax" (the scan), "native" (the C++ packer on
+    the host), "numpy" (the host greedy rung) or "auto" (the scan)."""
+    if backend not in ("auto", "jax", "native", "numpy"):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "native":
+        from .. import native
+        return native.solve_ffd_native(
+            problem, max_nodes=max_nodes, existing_alloc=existing_alloc,
+            existing_used=existing_used, existing_compat=existing_compat,
+            max_alternatives=max_alternatives)
     low = lower_ffd(problem, max_nodes, existing_alloc, existing_used,
                     existing_compat)
     if low is None:  # no options and no existing nodes

@@ -32,7 +32,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .._build import KernelError, KernelLimitError
+from .._build import KernelContractError, KernelError, KernelLimitError
 from .classpack_kernels import _check, _on_cuda, _ptr, _stream, unpack_bits
 from .ffd import NO_ASSIGNMENT, SCORE_CAP
 
@@ -150,7 +150,7 @@ def ffd_scan(requests: torch.Tensor, compat_packed: torch.Tensor,
     (K×R f32) None == all slots closed.  Returns (assignment P int32 slot
     or −1, slot_option K int32, slot_used K×R f32, n_open int32)."""
     if (init_option is None) != (init_used is None):
-        raise ValueError("init_option and init_used come together")
+        raise KernelContractError("init_option and init_used come together")
     if not _on_cuda(requests, compat_packed, compat_row, class_id, valid,
                     node_cap, rem, alloc, price, rank, init_option,
                     init_used):

@@ -44,7 +44,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
-from .._build import KernelError
+from .._build import KernelContractError, KernelError
 
 KERNELS = ("pdhg", "pdhg_resident")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -106,16 +106,19 @@ def _on_cuda(*tensors) -> bool:
         return False
     if kinds == {"cuda"} and len(devs) == 1:
         return True
-    raise ValueError(f"inputs on mixed or unsupported devices: {sorted(map(str, devs))}")
+    raise KernelContractError(f"inputs on mixed or unsupported devices: "
+                              f"{sorted(map(str, devs))}")
 
 
 def _check(t: torch.Tensor, name: str, shape) -> None:
     if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+        raise KernelContractError(f"{name}: dtype {t.dtype}, "
+                                  f"expected torch.float32")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise KernelContractError(f"{name}: shape {tuple(t.shape)}, "
+                                  f"expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+        raise KernelContractError(f"{name}: not contiguous")
 
 
 # ---------------------------------------------------------------------------
@@ -446,9 +449,11 @@ def pdhg(A: torch.Tensor, b: torch.Tensor, G: torch.Tensor, h: torch.Tensor,
     B, me, n = A.shape
     mi = G.shape[1]
     if B == 0 or n == 0 or me + mi == 0:
-        raise ValueError(f"empty LP envelope: B={B}, n={n}, me={me}, mi={mi}")
+        raise KernelContractError(f"empty LP envelope: B={B}, n={n}, "
+                                  f"me={me}, mi={mi}")
     if int(check_every) <= 0:
-        raise ValueError(f"check_every={check_every} must be positive")
+        raise KernelContractError(f"check_every={check_every} must be "
+                                  f"positive")
     _check(A, "A", (B, me, n))
     _check(G, "G", (B, mi, n))
     _check(b, "b", (B, me))

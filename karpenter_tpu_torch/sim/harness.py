@@ -26,12 +26,15 @@ Determinism notes (each bit matters):
   * the report excludes every wall-clock-derived value — speedup goes to
     stderr only.
 
-Left out, with the ROADMAP.md queue B item that ports each: the overrides
-and scenario blocks of the chaos injector (B5), the Forecast gate (B6),
-WarmRestart and HAFailover with the leader elector (B7), GangScheduling
-and its time-to-full-gang bookkeeping (B8), FlightRecorder, SLOEngine with
-the cost ledger, and the sim's metric calls (B9).  Setting one of those
-overrides to True raises NotImplementedError naming its item.
+A scenario's `chaos:` block arms the process-global injector
+(utils/chaos.py) for the run, its rules rebased onto the virtual clock and
+its sleeps no-ops, and disarms it when the run ends.
+
+Left out, with the ROADMAP.md queue B item that ports each: the Forecast
+gate (B6), WarmRestart and HAFailover with the leader elector (B7),
+GangScheduling and its time-to-full-gang bookkeeping (B8), FlightRecorder,
+SLOEngine with the cost ledger, and the sim's metric calls (B9).  Setting
+one of those overrides to True raises NotImplementedError naming its item.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from ..operator.manager import ControllerManager
 from ..operator.operator import Operator, build_controllers
 from ..operator.options import Options
 from ..ops.classpack import DEVICE_FAULTS
+from ..utils.chaos import CHAOS, ChaosRule
 from . import events as ev
 from .clock import EventHeap, VirtualClock
 from .scenario import Scenario, expand
@@ -241,6 +245,8 @@ class SimHarness:
         # re-raised through tick(); the report's tick_exceptions counter
         # tracks the supervisor's failure total instead (same semantics)
         self._prov_failures_seen = 0
+        ch = scenario.chaos
+        self._chaos_enabled = bool(ch is not None and ch.enabled and ch.rules)
 
     # ------------------------------------------------------------------
     def _wrap_register(self) -> None:
@@ -476,7 +482,29 @@ class SimHarness:
 
     # ------------------------------------------------------------------
     def run(self) -> SimRun:
-        return self._run_loop()
+        if not self._chaos_enabled:
+            return self._run_loop()
+        ch = self.scenario.chaos
+        sc = self.scenario
+        # rebase scenario-relative rule times onto the virtual clock; the
+        # no-op sleep keeps latency/hang rules from burning wall time (a
+        # hang is only meaningful under a watchdog deadline, which uses
+        # its own wall-clock wait)
+        rules = [ChaosRule(point=r.point, key=r.key, action=r.action,
+                           rate=r.rate, at_s=sc.start_s + r.at_s,
+                           until_s=(sc.start_s + r.until_s) if r.until_s
+                           else float("inf"),
+                           latency_s=r.latency_s, count=r.count,
+                           error_code=r.error_code)
+                 for r in ch.rules]
+        CHAOS.configure(rules,
+                        seed=self.seed if ch.seed is None else int(ch.seed),
+                        clock=self.clock, sleep=lambda s: None)
+        try:
+            # the report reads the injector's counters before this returns
+            return self._run_loop()
+        finally:
+            CHAOS.reset()
 
     def _run_loop(self) -> SimRun:
         sc = self.scenario

@@ -7,11 +7,11 @@ rollups.  Wall-clock measurements (speedup) are deliberately excluded so
 two same-seed runs serialize byte-identically; they live on `SimRun`
 instead.
 
-A copy of the JAX package's `sim/report.py` with every ungated section.
-Its gated sections come with their features: `forecast` (ROADMAP.md
-queue B item B6), `chaos` (B5), `ha` (B7), `gang` (B8), `incidents`,
-`slo.budgets`, `ledger` and the cost breakdowns (B9); the harness refuses
-the scenarios and overrides that would turn them on.
+A copy of the JAX package's `sim/report.py` with every ungated section and
+the gated `chaos` section.  The other gated sections come with their
+features: `forecast` (ROADMAP.md queue B item B6), `ha` (B7), `gang` (B8),
+`incidents`, `slo.budgets`, `ledger` and the cost breakdowns (B9); the
+harness refuses the scenarios and overrides that would turn them on.
 """
 
 from __future__ import annotations
@@ -132,6 +132,32 @@ def build_report(harness) -> Dict:
             "tick_exceptions": harness._tick_exceptions,
         },
     }
+    if getattr(harness, "_chaos_enabled", False):
+        # present ONLY when the scenario armed the injector, so every
+        # chaos-off report stays byte-identical.  Everything here is
+        # deterministic: injection counts come from the seeded schedule,
+        # supervisor and ladder totals from virtual-clock state machines.
+        from ..utils.chaos import CHAOS
+        sups = getattr(harness.mgr, "supervisors", {})
+        chaos_sec = {
+            "injections": CHAOS.counts(),
+            "injections_total": CHAOS.fired_total(),
+            "controller_failures": {
+                n: s.total_failures for n, s in sorted(sups.items())
+                if s.total_failures},
+            "controller_skips": {
+                n: s.total_skips for n, s in sorted(sups.items())
+                if s.total_skips},
+            "quarantines": {
+                n: s.total_quarantines for n, s in sorted(sups.items())
+                if s.total_quarantines},
+        }
+        prov = harness.mgr.controllers.get("provisioning")
+        health = getattr(prov, "health", None)
+        if health is not None:
+            chaos_sec["solver_transitions"] = dict(
+                sorted(health.transitions.items()))
+        report["chaos"] = chaos_sec
     return report
 
 

@@ -1,10 +1,11 @@
 """Scenario DSL: declarative workload waves + fault schedule.
 
-A copy of the JAX package's `sim/scenario.py` without the blocks whose
-features the port does not have yet: a document with a `chaos:` (ROADMAP.md
-queue B item B5), `forecast:` (B6), `ha:` (B7), `gang:` (B8) or `slo:` (B9)
-block is refused with NotImplementedError naming the item.  Waves keep
-their gang fields, which the reference's gate-off replays read.
+A copy of the JAX package's `sim/scenario.py` with its `chaos:` block (a
+seeded fault schedule for utils/chaos.py) and without the blocks whose
+features the port does not have yet: a document with a `forecast:`
+(ROADMAP.md queue B item B6), `ha:` (B7), `gang:` (B8) or `slo:` (B9) block
+is refused with NotImplementedError naming the item.  Waves keep their gang
+fields, which the reference's gate-off replays read.
 
 A scenario is a YAML document (or the `Scenario` dataclass directly)
 describing what hits the cluster over a virtual-time window:
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -202,6 +203,61 @@ class Fault:
 
 
 @dataclass
+class ChaosRuleSpec:
+    """One chaos fault stream (docs/simulation.md, utils/chaos.py).  Times
+    are scenario-relative seconds; the harness rebases them onto the
+    virtual clock before arming the injector.  `until_s: 0` means "until
+    the end of the run"."""
+    point: str
+    key: str = ""
+    action: str = "error"
+    rate: float = 1.0
+    at_s: float = 0.0
+    until_s: float = 0.0
+    latency_s: float = 0.0
+    count: int = 0
+    error_code: str = ""
+
+    def validate(self, ctx: str) -> None:
+        from ..utils.chaos import ACTIONS, POINTS
+        if self.point not in POINTS:
+            raise ScenarioError(f"{ctx}: unknown point {self.point!r} "
+                                f"(expected one of {sorted(POINTS)})")
+        if self.action not in ACTIONS:
+            raise ScenarioError(f"{ctx}: unknown action {self.action!r} "
+                                f"(expected one of {ACTIONS})")
+        if not 0.0 < self.rate <= 1.0:
+            raise ScenarioError(f"{ctx}: rate must be in (0, 1]")
+        if self.at_s < 0:
+            raise ScenarioError(f"{ctx}: at_s must be >= 0")
+        if self.until_s and self.until_s <= self.at_s:
+            raise ScenarioError(f"{ctx}: until_s must be > at_s (or 0 for "
+                                "open-ended)")
+        if self.action in ("latency", "hang") and self.latency_s <= 0:
+            raise ScenarioError(
+                f"{ctx}: {self.action} needs latency_s > 0")
+        if self.count < 0:
+            raise ScenarioError(f"{ctx}: count must be >= 0")
+
+
+@dataclass
+class ChaosSpec:
+    """Deterministic fault-injection schedule for a scenario.  `seed: null`
+    derives the chaos streams from the run seed, so `--seed` replays move
+    the whole schedule together; an explicit seed pins the schedule while
+    workload randomness still follows the run seed."""
+    enabled: bool = True
+    seed: Optional[int] = None
+    rules: List[ChaosRuleSpec] = field(default_factory=list)
+
+    def validate(self) -> None:
+        if not self.rules:
+            raise ScenarioError("chaos: needs at least one rule")
+        for i, r in enumerate(self.rules):
+            r.validate(f"chaos.rules[{i}]")
+
+
+@dataclass
 class Scenario:
     name: str
     duration_s: float = 86_400.0
@@ -219,6 +275,8 @@ class Scenario:
         default_factory=lambda: dict(DEFAULT_SIM_INTERVALS))
     workload: List[Wave] = field(default_factory=list)
     faults: List[Fault] = field(default_factory=list)
+    # deterministic fault injection (None = injector stays disarmed)
+    chaos: Optional[ChaosSpec] = None
 
     def validate(self) -> None:
         if not self.name:
@@ -238,6 +296,8 @@ class Scenario:
             w.validate()
         for f in self.faults:
             f.validate()
+        if self.chaos is not None:
+            self.chaos.validate()
         names = [w.name for w in self.workload]
         if len(set(names)) != len(names):
             raise ScenarioError(f"duplicate wave names: {names}")
@@ -270,11 +330,14 @@ _FAULT_FIELDS = {
     "duration_s": float, "factor": float, "jitter": float,
     "latency_s": float,
 }
+_CHAOS_RULE_FIELDS = {
+    "point": str, "key": str, "action": str, "rate": float, "at_s": float,
+    "until_s": float, "latency_s": float, "count": int, "error_code": str,
+}
 # scenario blocks whose features are not ported yet → the ROADMAP.md queue
 # B item that ports each; a document carrying one is refused, never run
 # with the block dropped
-UNPORTED_BLOCKS = {"chaos": "B5", "forecast": "B6", "ha": "B7", "slo": "B9",
-                   "gang": "B8"}
+UNPORTED_BLOCKS = {"forecast": "B6", "ha": "B7", "slo": "B9", "gang": "B8"}
 
 
 def _coerce(ctx: str, doc: Dict, schema: Dict) -> Dict:
@@ -302,7 +365,7 @@ def scenario_from_dict(doc: Dict) -> Scenario:
     if not isinstance(doc, dict):
         raise ScenarioError(f"scenario document must be a mapping, "
                             f"got {type(doc).__name__}")
-    known = {"name", "zones", "intervals", "workload", "faults",
+    known = {"name", "zones", "intervals", "workload", "faults", "chaos",
              *UNPORTED_BLOCKS, *_SCENARIO_SCALARS}
     for key in doc:
         if key not in known:
@@ -350,6 +413,27 @@ def scenario_from_dict(doc: Dict) -> Scenario:
             fkw["pools"] = [tuple(str(x) for x in p) for p in f["pools"]]
         faults.append(Fault(**fkw))
     kw["faults"] = faults
+    if doc.get("chaos") is not None:
+        cdoc = doc["chaos"]
+        if not isinstance(cdoc, dict):
+            raise ScenarioError("chaos must be a mapping")
+        for key in cdoc:
+            if key not in ("enabled", "seed", "rules"):
+                raise ScenarioError(f"chaos: unknown field {key!r}")
+        rules = []
+        for i, r in enumerate(cdoc.get("rules", []) or []):
+            if not isinstance(r, dict):
+                raise ScenarioError(f"chaos.rules[{i}] must be a mapping")
+            for key in r:
+                if key not in _CHAOS_RULE_FIELDS:
+                    raise ScenarioError(
+                        f"chaos.rules[{i}]: unknown field {key!r}")
+            rules.append(ChaosRuleSpec(
+                **_coerce(f"chaos.rules[{i}]", r, _CHAOS_RULE_FIELDS)))
+        kw["chaos"] = ChaosSpec(
+            enabled=bool(cdoc.get("enabled", True)),
+            seed=None if cdoc.get("seed") is None else int(cdoc["seed"]),
+            rules=rules)
     sc = Scenario(**kw)
     sc.validate()
     return sc

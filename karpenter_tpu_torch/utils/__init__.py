@@ -1,2 +1,2 @@
-"""Host utilities of the port: the event recorder, scheduling provenance
-and the solve watchdog."""
+"""Host utilities of the port: the event recorder, scheduling provenance,
+the solve watchdog and the chaos injector."""

@@ -521,6 +521,28 @@ def ffd_scan_inputs(rng: np.random.Generator, P: int = 4096, C: int = 48,
             alloc, price, rank, init_option, init_used), K
 
 
+def ffd_native_args(arrays, K: int) -> dict:
+    """`native.ffd_pack_native`'s arguments for one input of the scan K7
+    (`ffd_kernels.ffd_scan`'s arguments as numpy arrays, as
+    `ops/ffd.lower_ffd` or `ffd_scan_inputs` make them): the valid rows
+    unpadded, the per-row compat of the O options and E pre-opened slots,
+    and the scan's K, so both packers fill the same slots.  The valid rows
+    must be a prefix (the native packer has no invalid rows)."""
+    (req, packed, crow, cid, valid, cap, rem, alloc, price, rank, iopt,
+     iused) = arrays
+    P = int(valid.sum())
+    if not valid[:P].all():
+        raise ValueError("the scan input's valid rows are not a prefix")
+    E = int((iopt >= 0).sum())
+    O = int(iopt[0]) if E else alloc.shape[0]
+    compat = np.unpackbits(packed, axis=1, count=alloc.shape[0]).astype(
+        bool)[crow[:P], :O + E]
+    return dict(requests=req[:P], compat=compat, class_ids=cid[:P],
+                caps=cap[:P], alloc=alloc[:O + E], price=price[:O + E],
+                rank=rank[:O + E], existing_used=iused[:E] if E else None,
+                O=O, E=E, K=K)
+
+
 # seeded K7 inputs whose rows of one class are not all identical, so that
 # the scan kernel's first-fit cursor must reset inside a class
 FFD_CURSOR_CASES = ("request", "compat row", "node cap", "invalid rows",

@@ -385,20 +385,12 @@ def test_controller_defaults_to_cuda_and_raises_without_it(monkeypatch):
                         f.provider.get_instance_types(), f.pools)
 
 
-@pytest.mark.parametrize("kw", [dict(sharded_solve=True,
-                                     watchdog_timeout_s=1.0),
-                                dict(health=object()),
-                                dict(watchdog_timeout_s=5.0),
-                                dict(gang_source=lambda: None),
-                                # the terminator is ported (slice 10,
-                                # tests/test_torch_disruption.py); beside
-                                # an unported option it still raises
-                                dict(terminator=object(), health=object())])
-def test_unported_controller_options_raise(kw):
+def test_unported_controller_options_raise():
+    """Gang preemption (`gang_source`, ROADMAP.md item 8) raises."""
     f = workloads.consolidation_fleet(n_nodes=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DisruptionController(f.provider, f.cluster, f.pools, clock=f.clock,
-                             device="cpu", **kw)
+                             device="cpu", gang_source=lambda: None)
 
 
 def test_cpu_decision_launches_no_kernel():

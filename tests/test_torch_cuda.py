@@ -1568,3 +1568,87 @@ def test_cuda_v1_solve_of_a_small_batch_equals_the_cpu(cuda_device):
         out[device] = workloads.v1_solve_digest(resp)
     assert out[None] == out["cpu"]
     assert out[None]["nodes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,kw", [
+    (0, dict(P=256, C=12, O=96, R=4)),
+    (1, dict(P=256, C=12, O=96, R=4, E=16, K=256)),
+    (2, dict(P=512, C=8, O=64, R=3, K=32)),
+])
+def test_cuda_native_packer_equals_k7(cuda_device, seed, kw):
+    """The native C++ packer on the host and K7 on the card, on seeded scan
+    inputs (+inf / NaN / near-max prices, caps, existing slots, slot
+    exhaustion): the same slots, slot usage bit for bit."""
+    from karpenter_tpu_torch import native
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    arrays, K = workloads.ffd_scan_inputs(np.random.default_rng(seed), **kw)
+    got = [t.cpu().numpy() for t in fk.ffd_scan(
+        *(torch.tensor(a, device=cuda_device) for a in arrays), K)]
+    a, so, su, n = native.ffd_pack_native(**workloads.ffd_native_args(
+        arrays, K))
+    P = len(a)
+    assert np.array_equal(got[0][:P], a) and (got[0][P:] == -1).all()
+    assert np.array_equal(got[1], so) and int(got[3]) == n
+    assert np.array_equal(got[2].view(np.int32), su.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_chaos_storm_equals_its_golden(cuda_device):
+    """scenarios/chaos-storm.yaml on the card: its ladder demotions (the
+    native packer answering), quarantines and paced cloud retries give the
+    canned golden byte for byte, and the injector is disarmed after."""
+    import os
+    from karpenter_tpu_torch.sim import (SimHarness, load_scenario,
+                                         report_to_json)
+    from karpenter_tpu_torch.utils.chaos import CHAOS
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    clear_lp_caches()
+    try:
+        sc = load_scenario(os.path.join(repo, "scenarios", "chaos-storm.yaml"))
+        run = SimHarness(sc, seed=0, duration_s=5400.0).run()
+    finally:
+        CHAOS.reset()
+    with open(os.path.join(repo, "tests", "golden",
+                           "sim-chaos-storm.json")) as fh:
+        assert report_to_json(run.report) == fh.read()
+    assert run.report["chaos"]["solver_transitions"] == {
+        "jax>jax:recovered": 1, "jax>native:error": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_fault_under_chaos_is_raised_not_demoted(cuda_device,
+                                                            monkeypatch):
+    """With chaos armed and a SolverHealth wired, a KernelError from K7 on
+    the card leaves provision() as itself: no rung answers for the card
+    and the ladder books nothing."""
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.ops import ffd_kernels as fk
+    from karpenter_tpu_torch.ops.health import SolverHealth
+    from karpenter_tpu_torch.state import Cluster
+    from karpenter_tpu_torch.utils.chaos import CHAOS, ChaosRule
+    from karpenter_tpu_torch.api.objects import Pod
+    from karpenter_tpu_torch.api.resources import CPU, MEMORY, ResourceList
+
+    def broken(*a, **k):
+        raise KernelError("ffd_scan: injected launch fault")
+    monkeypatch.setattr(fk, "ffd_scan", broken)
+    health = SolverHealth()
+    cluster = Cluster()
+    prov = Provisioner(CloudProvider(FakeCloud(), generate_catalog(10)),
+                       cluster, [NodePool()], health=health,
+                       watchdog_timeout_s=30.0)
+    cluster.add_pods([Pod(requests=ResourceList({CPU: 500,
+                                                 MEMORY: 512 * 2**20}))
+                      for _ in range(5)])
+    CHAOS.configure([ChaosRule("solver.pack", key="native")], seed=0)
+    try:
+        with pytest.raises(KernelError, match="ffd_scan"):
+            prov.provision()
+    finally:
+        CHAOS.reset()
+    assert health.transitions == {}
+    assert all(r["total_failures"] == 0
+               for r in health.snapshot()["rungs"].values())
+    assert len(cluster.pending_pods()) == 5 and not cluster.nodes

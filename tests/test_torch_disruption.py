@@ -622,26 +622,29 @@ def test_transient_delete_failure_untaints_for_retry():
 
 def test_terminate_failure_after_a_replacement_untaints_for_retry():
     """A drift replacement whose candidate's terminate call fails, the
-    fault aimed at that one API (the reference's chaos rule on
-    `cloud.api[terminate_instances]`, the port's `api_errors`): the
+    fault aimed at that one API (the same chaos rule on
+    `cloud.api[terminate_instances]` armed in both packages): the
     replacement's CreateFleet goes through, the pods move to it, and the
     candidate is untainted so the next tick retries the delete."""
     from karpenter_tpu.utils.chaos import CHAOS, ChaosRule
+    from karpenter_tpu_torch.utils import chaos as port_chaos
     t = Twin()
     pod = cpu_pod(cpu_m=400)
     t.provision([pod])
     _remove_launched_type(t)
-    CHAOS.configure([ChaosRule(point="cloud.api", key="terminate_instances",
-                               count=1, error_code="InternalError")])
-    t.p.cloud.api_errors["terminate_instances"] = TCloudError(
-        "InternalError", "injected")
+    for inj, rule in ((CHAOS, ChaosRule),
+                      (port_chaos.CHAOS, port_chaos.ChaosRule)):
+        inj.configure([rule(point="cloud.api", key="terminate_instances",
+                            count=1, error_code="InternalError")])
     try:
         res = t.tick()
+        fired = (port_chaos.CHAOS.counts(), CHAOS.counts())
     finally:
         CHAOS.reset()
+        port_chaos.CHAOS.reset()
     assert res.action.name == "replace/drift"
     assert res.error and res.deleted == [] and len(res.launched) == 1
-    assert not t.p.cloud.api_errors
+    assert fired[0] == fired[1] == {"cloud.api/error": 1}
     doomed = res.action.candidates[0].node
     assert not doomed.marked_for_deletion
     assert DISRUPTION_TAINT not in doomed.taints
@@ -821,13 +824,37 @@ def test_terminator_is_wired_and_the_rest_still_raises():
                                           clock=f.clock, device="cpu",
                                           terminator=term)
     assert ctrl.terminator is term
-    for kw, item in ((dict(health=object()), "item 5"),
-                     (dict(watchdog_timeout_s=1.0), "item 5"),
-                     (dict(gang_source=lambda: None), "item 8")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-            port_dmod.DisruptionController(f.provider, f.cluster, f.pools,
-                                           clock=f.clock, device="cpu",
-                                           terminator=term, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 8"):
+        port_dmod.DisruptionController(f.provider, f.cluster, f.pools,
+                                       clock=f.clock, device="cpu",
+                                       terminator=term,
+                                       gang_source=lambda: None)
+
+
+def test_health_and_watchdog_are_wired():
+    """`health` and `watchdog_timeout_s` (the reference's ladder and
+    deadline) are taken as the reference takes them; with no rung failing
+    the tick is the direct path's and books only successes."""
+    from karpenter_tpu.ops.health import SolverHealth as RefHealth
+    from karpenter_tpu_torch.ops.health import SolverHealth
+    t = Twin()
+    t.r.disruption.health = RefHealth(clock=t.clock)
+    t.p.disruption.health = SolverHealth(clock=t.clock)
+    for side in t.sides:
+        side.disruption.watchdog_timeout_s = 30.0
+    t.provision([cpu_pod(cpu_m=400)])
+    t.provision([cpu_pod(cpu_m=1800, mem_mib=3000)])
+    res = t.tick()
+    assert res.action is not None
+    assert t.p.disruption.health.snapshot() == \
+        t.r.disruption.health.snapshot()
+    assert t.p.disruption.health.transitions == {}
+    f = workloads.consolidation_fleet(n_nodes=4)
+    h = SolverHealth()
+    ctrl = port_dmod.DisruptionController(f.provider, f.cluster, f.pools,
+                                          clock=f.clock, device="cpu",
+                                          health=h, watchdog_timeout_s=2.0)
+    assert ctrl.health is h and ctrl.watchdog_timeout_s == 2.0
 
 
 @pytest.mark.parametrize("where", ["decision", "replacement"])

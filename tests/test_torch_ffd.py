@@ -6,8 +6,9 @@
     price, a hostname cap, existing nodes) and seeded random scans with
     existing slots, caps and slot exhaustion: every output equal, the
     float32 slot usage bit for bit;
-  * `solve_ffd` of both packages with backend "jax" and "numpy" on the
-    cases of tests/test_ffd.py and tests/test_native.py: identical plans
+  * `solve_ffd` of both packages with backend "jax", "native" and "numpy"
+    on the cases of tests/test_ffd.py and tests/test_native.py: identical
+    plans
     (node order, pod order, `used`, alternatives, existing fills,
     unschedulable list, total by ==);
   * the port's "auto" (the K7 scan) against the reference's "auto" (its
@@ -215,7 +216,7 @@ def test_plain_scan_matches_the_jax_program_on_random_inputs(seed, kw):
     _assert_outputs_equal(got, want)
 
 
-@pytest.mark.parametrize("backend", ["jax", "numpy"])
+@pytest.mark.parametrize("backend", ["jax", "native", "numpy"])
 @pytest.mark.parametrize("name", CASES)
 def test_solve_ffd_matches_reference(name, backend):
     prob, kw = _problem(name)
@@ -269,11 +270,17 @@ def test_rem_in_class_and_the_greedy_rung_match_the_reference():
     assert port_ffd.NATIVE_CUTOVER_ROWS == 256
 
 
-def test_native_backend_is_not_ported():
+def test_native_backend_equals_the_scan_and_the_reference():
+    """backend="native" runs the C++ packer on the host: the plan of the
+    scan (K7's plain version) and of the reference's native backend."""
     prob, _ = _problem("random_0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_ffd.solve_ffd(convert.problem_from_arrays(prob),
-                           backend="native", device="cpu")
+    tprob = convert.problem_from_arrays(prob)
+    got = _plan(tprob, port_ffd.solve_ffd(tprob, backend="native"))
+    assert got == _plan(tprob, port_ffd.solve_ffd(tprob, backend="jax",
+                                                  device="cpu"))
+    assert got == _plan(prob, ref_solve(prob, backend="native"))
+    with pytest.raises(ValueError, match="unknown backend"):
+        port_ffd.solve_ffd(tprob, backend="cuda")
 
 
 def test_scan_wrapper_refuses_mixed_devices():

@@ -742,14 +742,20 @@ def test_drift_lookup_is_memoized_and_a_failure_is_not(pkg):
 
 
 def test_fake_cloud_api_errors_are_per_api_and_one_shot():
+    """The fake cloud's `cloud.api` chaos seam, keyed on the API name: a
+    one-shot rule on terminate_instances leaves the other APIs alone."""
+    from karpenter_tpu_torch.utils.chaos import CHAOS, ChaosRule
     cloud = port_fake.FakeCloud()
-    cloud.api_errors["terminate_instances"] = port_fake.CloudError(
-        "InternalError", "injected")
-    ov = port_fake.FleetOverride("a.small", "zone-a", "on-demand", 0.1)
-    inst = cloud.create_fleet([ov]).instances[0]     # another API: untouched
-    with pytest.raises(port_fake.CloudError, match="InternalError"):
-        cloud.terminate_instances([inst.id])
-    assert cloud.terminate_instances([inst.id]) == [inst.id]
+    CHAOS.configure([ChaosRule("cloud.api", key="terminate_instances",
+                               count=1, error_code="InternalError")])
+    try:
+        ov = port_fake.FleetOverride("a.small", "zone-a", "on-demand", 0.1)
+        inst = cloud.create_fleet([ov]).instances[0]  # another API: untouched
+        with pytest.raises(port_fake.CloudError, match="InternalError"):
+            cloud.terminate_instances([inst.id])
+        assert cloud.terminate_instances([inst.id]) == [inst.id]
+    finally:
+        CHAOS.reset()
     assert cloud.calls["terminate_instances"] == 2
 
 

@@ -82,8 +82,6 @@ def test_env_defaults_equal_the_reference(monkeypatch):
 
 
 REFUSED = [
-    (["--chaos-spec", "point=cloud.api,action=error"], "B5"),
-    (["--chaos-seed", "3"], "B5"),
     (["--forecast"], "B6"), (["--forecast-horizon", "60"], "B6"),
     (["--forecast-cadence", "5"], "B6"), (["--forecast-lead", "5"], "B6"),
     (["--forecast-ttl", "5"], "B6"), (["--forecast-model", "ewma"], "B6"),
@@ -122,8 +120,31 @@ def test_flags_nothing_reads_are_refused(argv, capsys):
     assert "unrecognized arguments" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("env,item", [("CHAOS_SPEC", "B5"),
-                                      ("LEADER_ELECT", "B7"),
+@pytest.mark.parametrize("argv", [
+    ["--chaos-spec", "point=cloud.api,action=error"],
+    ["--chaos-seed", "3"],
+    ["--chaos-spec", "point=controller.reconcile,key=disruption;"
+     "point=cloud.api,action=error,error_code=RequestLimitExceeded",
+     "--chaos-seed", "7"],
+], ids=["spec", "seed", "spec-and-seed"])
+def test_chaos_flags_equal_the_reference(argv):
+    """`--chaos-spec` / `--chaos-seed`, refused before the chaos injector
+    was ported, give the reference's options."""
+    got = dataclasses.asdict(Options.from_args(argv))
+    assert got == kept(RefOptions.from_args(argv))
+    assert got["chaos_spec"] or got["chaos_seed"]
+
+
+def test_chaos_env_defaults_equal_the_reference(monkeypatch):
+    monkeypatch.setenv("KARPENTER_TPU_CHAOS_SPEC", "point=cloud.api,rate=0.5")
+    monkeypatch.setenv("KARPENTER_TPU_CHAOS_SEED", "9")
+    for argv in ([], ["--chaos-seed", "2"]):
+        assert dataclasses.asdict(Options.from_args(argv)) == \
+            kept(RefOptions.from_args(argv))
+    assert Options.from_args([]).chaos_seed == 9
+
+
+@pytest.mark.parametrize("env,item", [("LEADER_ELECT", "B7"),
                                       ("LOG_FORMAT", "B9"),
                                       ("FORECAST_MODEL", "B6")])
 def test_env_defaults_of_unported_features_are_refused(monkeypatch, env,

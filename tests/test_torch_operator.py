@@ -104,7 +104,7 @@ def test_defaults():
 @pytest.mark.parametrize("field", [
     "leader_elect", "lease_path", "snapshot_path", "log_format",
     "trace_slow_ms", "enable_profiling", "incident_dir", "slo_eval_cadence_s",
-    "chaos_seed", "forecast_horizon_s"])
+    "lease_ttl_s", "forecast_horizon_s"])
 def test_options_the_port_does_not_read_are_refused(field):
     """An option of the reference that nothing in the port reads is not a
     field of the port's Options: setting one fails at construction instead
@@ -330,18 +330,50 @@ def test_operator_without_device_raises_without_a_card():
 
 @pytest.mark.parametrize("gate,item", [
     ("Forecast", "B6"), ("WarmRestart", "B7"), ("HAFailover", "B7"),
-    ("FlightRecorder", "B9"), ("SLOEngine", "B9"), ("GangScheduling", "B8"),
-    ("chaos_spec", "B5")])
+    ("FlightRecorder", "B9"), ("SLOEngine", "B9"), ("GangScheduling", "B8")])
 def test_unported_gates_raise_naming_their_roadmap_item(gate, item):
     from karpenter_tpu_torch.catalog.generate import generate_catalog
     from karpenter_tpu_torch.operator import Operator, Options
-    if gate == "chaos_spec":
-        opts = Options(chaos_spec="point=cloud.api,action=error")
-    else:
-        opts = Options()
-        opts.feature_gates[gate] = True
+    opts = Options()
+    opts.feature_gates[gate] = True
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Operator(opts, catalog=generate_catalog(5), device="cpu")
+
+
+def test_chaos_spec_arms_the_injector_as_the_reference():
+    """`Options.chaos_spec` (refused before the injector was ported) arms
+    the process-global injector in `Operator`, as the reference's does:
+    the same rules and seed give the same schedule."""
+    from karpenter_tpu.catalog.generate import generate_catalog as ref_gen
+    from karpenter_tpu.operator import Operator as RefOperator
+    from karpenter_tpu.operator import Options as RefOptions
+    from karpenter_tpu.utils import chaos as ref_chaos
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    from karpenter_tpu_torch.operator import Operator, Options
+    from karpenter_tpu_torch.utils import chaos as port_chaos
+    spec = "point=cloud.api,key=describe_instances,rate=0.5,count=4"
+    schedules = []
+    try:
+        for op_cls, opt_cls, gen, chaos, kw in (
+                (RefOperator, RefOptions, ref_gen, ref_chaos, {}),
+                (Operator, Options, generate_catalog, port_chaos,
+                 {"device": "cpu"})):
+            op_cls(opt_cls(chaos_spec=spec, chaos_seed=5), catalog=gen(5),
+                   **kw)
+            assert chaos.CHAOS.enabled
+            bits = []
+            for _ in range(20):
+                try:
+                    chaos.CHAOS.inject("cloud.api", key="describe_instances")
+                    bits.append(0)
+                except chaos.ChaosError:
+                    bits.append(1)
+            schedules.append(bits)
+            chaos.CHAOS.reset()
+    finally:
+        ref_chaos.CHAOS.reset()
+        port_chaos.CHAOS.reset()
+    assert schedules[0] == schedules[1] and sum(schedules[1]) == 4
 
 
 def test_default_operator_provisions_and_ticks_as_the_reference():

@@ -16,10 +16,12 @@ process-wide counter that differs between the packages.
   * two rounds where the JAX package runs round 1 and its live cluster is
     carried across with `convert.cluster_from_arrays`: round 2 runs in
     both on the same state;
-  * the packing ladder (tests/test_health.py's provisioning cases): a
-    poisoned "jax" rung lands on the greedy rung inside the same solve,
-    demotes after two strikes and recovers after the window, booking the
-    same transitions as the reference; the watchdog;
+  * the packing ladder (tests/test_health.py's provisioning cases), the
+    same `solver.pack` chaos rules armed in both packages: a poisoned
+    "jax" rung lands on the native C++ packer inside the same solve (on
+    the greedy rung when "native" is poisoned too), demotes after two
+    strikes and recovers after the window, booking the same transitions
+    as the reference; the watchdog;
   * the JAX package produces `workloads.GOLDEN_PROVISION` for the
     provision-live and provision-small cells, and the port reproduces the
     provision-small cell and provision-live's round 2 on the carried
@@ -65,6 +67,8 @@ from karpenter_tpu_torch.ops import lpguide as port_lg
 from karpenter_tpu_torch.ops import lpsolve as port_lp
 from karpenter_tpu_torch.ops.health import RUNGS, SolverHealth
 from karpenter_tpu_torch.state import Cluster as TCluster
+from karpenter_tpu_torch.utils.chaos import CHAOS as PORT_CHAOS
+from karpenter_tpu_torch.utils.chaos import ChaosRule as PortChaosRule
 from karpenter_tpu_torch.utils.watchdog import (PHASES, WatchdogTimeout,
                                                 run_with_deadline)
 from test_partitioned import random_pinned_pods, zoned_catalog
@@ -89,6 +93,7 @@ def _clean_state():
     _clear_lp_caches()
     yield
     CHAOS.reset()
+    PORT_CHAOS.reset()
     _clear_lp_caches()
 
 
@@ -433,39 +438,34 @@ def _ladder_pair(clock):
                 ref_kw=dict(health=RefHealth(clock=lambda: clock[0])))
 
 
-def _poison(p, clock):
-    """Every "jax" solve raises in both packages; the reference's "native"
-    rung too (the port has none), so both walk jax → native → greedy."""
-    CHAOS.configure([ChaosRule("solver.pack", key="jax"),
-                     ChaosRule("solver.pack", key="native")],
-                    seed=0, clock=lambda: clock[0], sleep=lambda s: None)
-
-    def broken(*a, **k):
-        raise RuntimeError("injected solver fault")
-    real = p.prov._pick_solver
-    p.prov._pick_solver = lambda *a, **k: broken
-    return real
+def _poison(clock, *rungs):
+    """Every solve on the named rungs raises in both packages: the same
+    `solver.pack` rules armed in both injectors."""
+    for chaos, rule in ((CHAOS, ChaosRule), (PORT_CHAOS, PortChaosRule)):
+        chaos.configure([rule("solver.pack", key=r) for r in rungs],
+                        seed=0, clock=lambda: clock[0], sleep=lambda s: None)
 
 
-def test_poisoned_jax_rung_binds_via_greedy_and_recovers():
-    clock = [10_000.0]
+def _poisoned_rounds(clock, rungs, want):
+    """Three rounds under `_poison(rungs)` (the reference's second crosses
+    demote_after=2), the fault cleared, and a round past the window: the
+    probe promotes jax back.  The two ladders book the same transitions."""
     p = _ladder_pair(clock)
-    real = _poison(p, clock)
+    _poison(clock, *rungs)
     rng = np.random.default_rng(3)
     for step in range(3):
         p.add([cpu_pod(cpu_m=int(rng.integers(200, 3000)),
                        mem_mib=int(rng.integers(256, 4096)))
                for _ in range(5)])
         p.provision()
-        assert not p.cluster.pending_pods(), "greedy floor failed to plan"
+        assert not p.cluster.pending_pods(), "the ladder failed to plan"
         clock[0] += 30.0 if step == 0 else 5.0
     health = p.prov.health
-    assert health.transitions == p.ref_prov.health.transitions == {
-        "jax>native:error": 1, "native>greedy:error": 1}
+    assert health.transitions == p.ref_prov.health.transitions == want
     assert health.snapshot()["rungs"]["jax"]["total_failures"] == 2
-    # the fault clears; past the window the probe promotes jax back
+    assert PORT_CHAOS.counts() == CHAOS.counts()
     CHAOS.reset()
-    p.prov._pick_solver = real
+    PORT_CHAOS.reset()
     clock[0] += 120.0
     p.add([cpu_pod(cpu_m=700, mem_mib=700) for _ in range(5)])
     p.provision()
@@ -473,6 +473,24 @@ def test_poisoned_jax_rung_binds_via_greedy_and_recovers():
     assert health.transitions.get("jax>jax:recovered") == 1
     assert health.transitions == p.ref_prov.health.transitions
     assert health.snapshot() == p.ref_prov.health.snapshot()
+    return health
+
+
+def test_poisoned_jax_rung_binds_via_greedy_and_recovers():
+    """"jax" and "native" poisoned in both packages: each solve walks
+    jax → native → greedy, and the host greedy rung binds every pod."""
+    health = _poisoned_rounds([10_000.0], ("jax", "native"),
+                              {"jax>native:error": 1,
+                               "native>greedy:error": 1})
+    assert health.snapshot()["rungs"]["native"]["total_failures"] == 2
+
+
+def test_poisoned_jax_rung_binds_via_native_and_recovers():
+    """"jax" alone poisoned in both packages: the native C++ packer
+    answers inside the same solve, and after two strikes it is the rung
+    the ladder starts on."""
+    health = _poisoned_rounds([10_000.0], ("jax",), {"jax>native:error": 1})
+    assert health.snapshot()["rungs"]["native"]["total_failures"] == 0
 
 
 def test_happy_path_ladder_is_invisible():

@@ -1,18 +1,20 @@
 """The port's simulator (karpenter_tpu_torch/sim/) against the JAX
-package's, case by case with tests/test_sim.py's cases that need no chaos,
+package's, case by case with tests/test_sim.py's cases that need no
 forecast, HA, SLO or gang block: the clock and heap primitives, the
-scenario DSL, the clock-scheduled interruption pipeline, determinism (the
-same seed gives a byte-identical log and report), the harness's cases, and
-the CLI.  Each case runs on both packages and returns plain observations
-that must be equal; the port's controllers solve on the CPU.
+scenario DSL (with its `chaos:` block), the clock-scheduled interruption
+pipeline, determinism (the same seed gives a byte-identical log and
+report), the harness's cases, and the CLI.  Each case runs on both packages
+and returns plain observations that must be equal; the port's controllers
+solve on the CPU.
 
-Then the canned goldens of tests/golden/ that carry no gated section —
-diurnal, spot-reclaim-storm, ice-starvation, steady-state-drip and
-long-soak at tests/test_sim.py's horizons — replayed by the port on the CPU
-byte for byte, with the arena gate off for drip and soak and the
-IngestBatch gate on for drip; and the port's own boundaries: no
-`time.sleep` in its sim/, and every scenario block and harness override of
-an unported feature refused, naming its ROADMAP.md item.
+Then the canned goldens of tests/golden/ that carry no gated section but
+`chaos` — diurnal, spot-reclaim-storm, ice-starvation, steady-state-drip,
+long-soak and chaos-storm at tests/test_sim.py's horizons — replayed by the
+port on the CPU byte for byte, with the arena gate off for drip, soak and
+chaos-storm and the IngestBatch gate on for drip; and the port's own
+boundaries: no `time.sleep` in its sim/, and every scenario block and
+harness override of an unported feature refused, naming its ROADMAP.md
+item.
 """
 
 import dataclasses
@@ -39,7 +41,8 @@ def _package(name, extra):
         scenario=importlib.import_module(f"{name}.sim.scenario"),
         cli=importlib.import_module(f"{name}.sim.__main__"),
         fake=importlib.import_module(f"{name}.cloud.fake"),
-        queue=importlib.import_module(f"{name}.cloud.queue"))
+        queue=importlib.import_module(f"{name}.cloud.queue"),
+        chaos=importlib.import_module(f"{name}.utils.chaos"))
 
 
 REF = _package("karpenter_tpu", {})
@@ -50,6 +53,8 @@ PORT = _package("karpenter_tpu_torch", {"device": "cpu"})
 def _clean_lp_caches():
     clear_package_caches("karpenter_tpu", "karpenter_tpu_torch")
     yield
+    REF.chaos.CHAOS.reset()
+    PORT.chaos.CHAOS.reset()
     clear_package_caches("karpenter_tpu", "karpenter_tpu_torch")
 
 
@@ -371,8 +376,7 @@ def test_no_wall_sleeps_in_the_sim_path():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("block,item", [
-    ("chaos", "B5"), ("forecast", "B6"), ("ha", "B7"), ("gang", "B8"),
-    ("slo", "B9")])
+    ("forecast", "B6"), ("ha", "B7"), ("gang", "B8"), ("slo", "B9")])
 def test_scenario_blocks_of_unported_features_are_refused(block, item):
     from karpenter_tpu_torch.sim.scenario import scenario_from_dict
     doc = {"name": "x", "workload": [{"kind": "step", "name": "w"}],
@@ -380,17 +384,71 @@ def test_scenario_blocks_of_unported_features_are_refused(block, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         scenario_from_dict(doc)
     # the reference runs the same document (a refusal, never a drop)
-    REF.scenario.scenario_from_dict(dict(doc, **(
-        {"chaos": {"rules": [{"point": "cloud.api"}]}}
-        if block == "chaos" else {})))
+    REF.scenario.scenario_from_dict(doc)
+
+
+def test_scenario_chaos_block_parses_as_the_reference():
+    """The `chaos:` block the port used to refuse: the same document gives
+    the reference's scenario, rules and seed included."""
+    doc = {"name": "x", "workload": [{"kind": "step", "name": "w"}],
+           "chaos": {"enabled": True, "seed": 4, "rules": [
+               {"point": "cloud.api", "key": "create_fleet", "rate": 0.8,
+                "error_code": "RequestLimitExceeded", "at_s": 10,
+                "until_s": 40},
+               {"point": "solver.pack", "key": "jax", "count": 3}]}}
+    got = both(lambda m: _port_fields(m.scenario.scenario_from_dict(doc)))
+    assert got["chaos"]["seed"] == 4 and len(got["chaos"]["rules"]) == 2
+
+
+@pytest.mark.parametrize("chaos,match", [
+    ({"rules": []}, "at least one rule"),
+    ({"rules": [{"point": "nope"}]}, "unknown point"),
+    ({"rules": [{"point": "cloud.api", "action": "explode"}]},
+     "unknown action"),
+    ({"rules": [{"point": "cloud.api", "rate": 1.5}]}, "rate"),
+    ({"rules": [{"point": "cloud.api", "at_s": -1}]}, "at_s"),
+    ({"rules": [{"point": "cloud.api", "at_s": 5, "until_s": 5}]},
+     "until_s"),
+    ({"rules": [{"point": "cloud.api", "action": "hang"}]}, "latency_s"),
+    ({"rules": [{"point": "cloud.api", "count": -1}]}, "count"),
+    ({"rules": [{"point": "cloud.api", "colour": 1}]}, "unknown field"),
+    ({"rules": [], "bogus": 1}, "unknown field"),
+    ({"rules": ["x"]}, "must be a mapping"),
+    ("x", "must be a mapping"),
+], ids=["no-rules", "point", "action", "rate", "at", "until", "latency",
+        "count", "rule-field", "field", "rule-type", "type"])
+def test_scenario_chaos_block_errors_match_the_reference(chaos, match):
+    doc = {"name": "x", "workload": [{"kind": "step", "name": "w"}],
+           "chaos": chaos}
+
+    def case(m):
+        with pytest.raises(m.scenario.ScenarioError, match=match) as ei:
+            m.scenario.scenario_from_dict(doc)
+        return str(ei.value)
+    both(case)
+
+
+def _port_fields(sc):
+    """A Scenario as a dict of the fields the port's dataclass has (the
+    reference's unported blocks are None here)."""
+    d = dataclasses.asdict(sc)
+    return {f.name: d[f.name] for f in dataclasses.fields(PORT.sim.Scenario)}
+
+
+def test_canned_chaos_storm_loads_as_the_reference():
+    got = both(lambda m: _port_fields(m.sim.load_scenario(
+        os.path.join(SCENARIOS, "chaos-storm.yaml"))))
+    assert len(got["chaos"]["rules"]) == 3
 
 
 @pytest.mark.parametrize("fname,item", [
-    ("chaos-storm.yaml", "B5"), ("diurnal-forecast.yaml", "B6"),
-    ("failover-drill.yaml", "B7"), ("gang-churn-storm.yaml", "B8")])
+    ("diurnal-forecast.yaml", "B6"), ("failover-drill.yaml", "B7"),
+    ("gang-churn-storm.yaml", "B8")])
 def test_canned_scenarios_of_unported_features_are_refused(fname, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(NotImplementedError, match=f"item {item}") as ei:
         PORT.sim.load_scenario(os.path.join(SCENARIOS, fname))
+    # failover-drill carries a chaos: block too, no longer refused
+    assert str(ei.value).count("item B") == 1
 
 
 @pytest.mark.parametrize("override,item", [
@@ -423,13 +481,14 @@ def test_default_device_needs_a_card():
 # the canned goldens, replayed by the port on the CPU
 # ---------------------------------------------------------------------------
 
-# tests/test_sim.py's GOLDEN_CASES without a gated section
+# tests/test_sim.py's GOLDEN_CASES without a gated section but chaos
 GOLDEN_CASES = [
     ("diurnal", "diurnal.yaml", 7200.0),
     ("spot-reclaim-storm", "spot-reclaim-storm.yaml", 7200.0),
     ("ice-starvation", "ice-starvation.yaml", 5400.0),
     ("steady-state-drip", "steady-state-drip.yaml", 300.0),
     ("long-soak", "long-soak.yaml", 120.0),
+    ("chaos-storm", "chaos-storm.yaml", 5400.0),
 ]
 
 
@@ -441,7 +500,11 @@ def _golden(name):
 def _replay(name, fname, duration, **kw):
     sc = PORT.sim.load_scenario(os.path.join(SCENARIOS, fname))
     run = harness(PORT, sc, seed=0, duration_s=duration, **kw).run()
-    assert run.report["errors"]["tick_exceptions"] == 0
+    # none but chaos-storm's injected faults (9 provisioning failures, its
+    # golden's count) reach a supervisor
+    assert run.report["errors"]["tick_exceptions"] == \
+        (9 if name == "chaos-storm" else 0)
+    assert not PORT.chaos.CHAOS.enabled        # disarmed after the run
     return PORT.sim.report_to_json(run.report)
 
 
@@ -455,7 +518,7 @@ def test_golden_report(name, fname, duration):
                          ids=[c[0] for c in GOLDEN_CASES[3:]])
 def test_golden_report_arena_gate_off(name, fname, duration):
     """The IncrementalArena gate is a pure optimization on the port too:
-    with it off, drip and soak reproduce their goldens."""
+    with it off, drip, soak and chaos-storm reproduce their goldens."""
     assert _replay(name, fname, duration, incremental_arena=False) == \
         _golden(name)
 

@@ -273,31 +273,26 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         port_cp.solve_classpack(prob, guide=None)
 
 
-@pytest.mark.parametrize("entry,kw", [
-    ("solve_ffd", dict(backend="native")),
-    ("provisioner", dict(gang_scheduling=True, sharded_solve=True)),
-    ("provisioner", dict(gang_scheduling=True)),
-    ("provisioner", dict(gang_scheduling=True, device_decode=True))])
-def test_unported_options_raise(entry, kw):
-    """What is not ported yet raises and names ROADMAP.md: the native C++
-    packer and gang scheduling, also beside ported options.  The slab
-    decode (`device_decode`) is ported (tests/test_torch_decode.py), as are
-    the sharded driver (`sharded_solve`, tests/test_torch_partitioned.py),
-    the guided path, its refinery and the device LP
-    (tests/test_torch_lpguide.py)."""
+@pytest.mark.parametrize("kw", [
+    dict(gang_scheduling=True, sharded_solve=True),
+    dict(gang_scheduling=True),
+    dict(gang_scheduling=True, device_decode=True)],
+    ids=["provisioner-kw1", "provisioner-kw2", "provisioner-kw3"])
+def test_unported_options_raise(kw):
+    """What is not ported yet raises and names ROADMAP.md: gang
+    scheduling, also beside ported options.  The slab decode
+    (`device_decode`) is ported (tests/test_torch_decode.py), as are the
+    sharded driver (`sharded_solve`, tests/test_torch_partitioned.py), the
+    guided path, its refinery and the device LP
+    (tests/test_torch_lpguide.py), and the native C++ packer
+    (`solve_ffd(backend="native")`, tests/test_torch_native.py)."""
     from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
     from karpenter_tpu_torch.controllers.provisioning import Provisioner
-    from karpenter_tpu_torch.ops.ffd import solve_ffd
     from karpenter_tpu_torch.state import Cluster
-    prob = convert.problem_from_arrays(
-        tensorize([cpu_pod()], small_catalog(), [NodePool()]))
+    provider = CloudProvider(FakeCloud(), convert.catalog_from_objects(
+        small_catalog()))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if entry == "solve_ffd":
-            solve_ffd(prob, device="cpu", **kw)
-        else:
-            provider = CloudProvider(FakeCloud(), convert.catalog_from_objects(
-                small_catalog()))
-            Provisioner(provider, Cluster(), [], device="cpu", **kw)
+        Provisioner(provider, Cluster(), [], device="cpu", **kw)
 
 
 def test_guide_lp_is_skipped_where_the_reference_skips_it():
