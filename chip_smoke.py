@@ -206,25 +206,29 @@ pass):
                reconcile under the profiler, a second witness that sees
                the torch operations and not the ctypes launches); both
                must reproduce the golden too.
- 14. the arena and the operator — run last, after every profiler trace,
+ 14. the arena and the operator — run after every profiler trace,
                with every kernel wrapper's call spanned by CUDA events and
-               the inputs of its last call on each path kept: (a) the four
-               provisioning cells with the cluster's ClusterArena attached
-               before round 1, and the live cell once more behind an
-               IngestBatcher flushed before each provision(), every round
-               against GOLDEN_PROVISION, each round on a live cluster
-               gathered warm from the arena; (b) disruption-replay-500 with
-               the arena against GOLDEN_DISRUPTION, its consolidation faces
-               gathered warm, then without it; (c) the operator cell —
-               Operator(Options()) on the card at full width with
-               build_controllers, the live cell's two bursts and one
-               disruption tick — against GOLDEN_OPERATOR; (d) every
-               wrapper held against its plain version on the kept inputs.
-               Each step's launches (zeroed just before it) and idle share
-               are printed, "tensorize" split into lower_pods, tensorize
-               and the live-node gather, and live round 2's provision()
-               timed on fresh copies without the arena, with it and behind
-               an IngestBatcher; the paths' launches join the kernel rows.
+               the inputs of its last call on each path kept: (a) the two
+               provisioning cells with a round on a live cluster (live,
+               small) with the cluster's ClusterArena attached before
+               round 1, every round against GOLDEN_PROVISION, each round on a live cluster gathered warm
+               from the arena; (b) disruption-replay-500 with the arena
+               against GOLDEN_DISRUPTION, its consolidation faces gathered
+               warm; (c) the operator cell — Operator(Options()) on the
+               card at full width with build_controllers (BatchedCloud's
+               windows zero-width, as the simulator runs them), the live
+               cell's two bursts and one disruption tick — against
+               GOLDEN_OPERATOR; (d) every wrapper held against its plain
+               version on the kept inputs.  Each step's launches (zeroed
+               just before it) and idle share are printed, "tensorize"
+               split into lower_pods, tensorize and the live-node gather,
+               and live round 2's provision() timed on a fresh copy without
+               the arena, with it and behind an IngestBatcher; the paths'
+               launches join the kernel rows.  (Cut in depth when phase 17
+               came: the one-round cells, the live cell's rerun behind an
+               IngestBatcher, the replay without the arena and two of
+               three timed copies are gone; every kernel still launches
+               on its paths and is held against plain.)
  15. the operator loop — after phase 14, with its kernel spans and
                recorded inputs: (a) SimHarness on the card replays the
                canned scenarios whose goldens carry no gated section
@@ -234,16 +238,16 @@ pass):
                tests/golden/ (read, never written), then drip and soak
                with the arena off, drip with IngestBatch and diurnal with
                DeviceDecode against the same goldens; (b) the cell
-               sim-long-soak-480 with the arena on, off, off, on, each
-               against GOLDEN_SIM_SOAK, and steady-state-drip at 900 s
-               likewise, its four reports equal, with wall time, speedup,
+               sim-long-soak-480 with the arena on, then off, each
+               against GOLDEN_SIM_SOAK, and steady-state-drip at 480 s
+               likewise, its reports equal, with wall time, speedup,
                ticks, gathers, launches and idle share; (c) the /v1 cell: the
                operator from the command line at full width, restarted
                over a launched fleet, its endpoints served and its loop
                in a thread — /readyz 200 with the parity probe "ok",
                /v1/apply, /v1/nodepools, /v1/solve of the headline's
-               50 000 Pod manifests against GOLDEN_V1_SOLVE, timed three
-               times with the split decode / solve / response — and
+               50 000 Pod manifests against GOLDEN_V1_SOLVE, timed once
+               with the split decode / solve / response — and
                `python3 -m karpenter_tpu_torch` as a child process
                (/readyz, a small /v1/solve, exit 0 on SIGTERM); (d) every
                kernel wrapper those paths launched against its plain
@@ -270,6 +274,26 @@ pass):
                KernelError once in a consolidation sweep and K1 once in a
                provisioning solve: each `tick()` raises it, and neither
                the ladder nor a supervisor books anything.
+ 17. forecast-driven headroom and gang scheduling — after phase 16, with
+               its kernel spans and recorded inputs: (a) SimHarness on the
+               card replays diurnal-forecast, spot-reclaim-storm-forecast,
+               gang-churn-storm and mixed-priority-diurnal (arena on, at
+               tests/test_sim.py's horizons), each report byte for byte
+               against tests/golden/; (b) the cell provision-gang-50k —
+               Provisioner(gang_scheduling=True, 8192 slots) on the
+               headline's 50 000 pods with 1024 gangs of 4 (tier 1, zone),
+               64 short ones, 4 split over two zones and 4 at tier 0 with a
+               member no type holds, then 20 000 more with 256 gangs of 8
+               (tier 2, hostname), then one DisruptionController reconcile
+               executing the first preemption plan — against GOLDEN_GANG,
+               each round counted, spanned and timed with the gang audit's
+               host ms beside the rest of the solve; (c) every wrapper held
+               against its plain version on the kept inputs; (d) a
+               KernelError armed in the HeadroomController's dry-run solve
+               of a Forecast operator and in the re-solve after a gang
+               preemption: each tick() raises it, and the cluster, the
+               controller's books, the ladder and the supervisors stay as
+               they were.
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -3294,9 +3318,10 @@ def sharded_paths(torch, card, mega, head, ex, catalog):
     return by_path, caps
 
 
-def cell_timings(torch, card, env, catalog, mesh, iters=3):
-    """The cell's round 2, warm: Provisioner.solve p50 on the frozen state,
-    then whole provision() rounds on fresh copies with their split."""
+def cell_timings(torch, card, env, catalog, mesh, iters=1):
+    """The cell's round 2, warm: Provisioner.solve on the frozen state, then
+    a whole provision() round on a fresh copy with its split (three of
+    each before phase 17 came; PERF.md keeps their p50s)."""
     batch = env.cluster.pending_pods()
     prov = env.provisioner
     prov.solve(batch)
@@ -3308,10 +3333,10 @@ def cell_timings(torch, card, env, catalog, mesh, iters=3):
         f"on {card}")
     splits = [provision_layers(torch, fresh_env(env, CELL_PATH, catalog,
                                                 "cuda", mesh=mesh))
-              for _ in range(3)]
+              for _ in range(iters)]
     med = median_split(splits)
     log(f"[time] {CELL_PATH} round 2: provision() p50 {med['total']:.3f} ms "
-        f"over 3 fresh copies (the median copy's split: "
+        f"over {iters} fresh copies (the median copy's split: "
         f"{layer_line(med, med['total'])}) on {card}")
 
 
@@ -4057,7 +4082,6 @@ def disruption_timings(torch, card):
 # ---------------------------------------------------------------------------
 
 ARENA = " +arena"
-INGEST_PATH = LIVE_PATH + " +arena +ingest"
 OPERATOR_PATH = "operator-live-50k-20k"
 
 
@@ -4079,7 +4103,7 @@ def idle_line(busy, calls, wall):
             f"wall: idle share {1 - busy / wall:.4f}")
 
 
-def arena_round(torch, card, env, hook, path, r, want, ingest=False):
+def arena_round(torch, card, env, hook, path, r, want):
     """One counted provision() of an arena run: launch counts zeroed just
     before it and read just after, its kernel wrappers' inputs recorded
     under `path round r` and spanned, its layers split; it must give
@@ -4087,8 +4111,6 @@ def arena_round(torch, card, env, hook, path, r, want, ingest=False):
     from the arena's slab.  Returns the round's launches."""
     from karpenter_tpu_torch import workloads
     arena = env.cluster.arena
-    if ingest:
-        arena.flush()              # the manager's top-of-tick flush
     live = len(env.cluster.nodes) > 0
     g0 = dict(arena.gathers)
     hook.label = f"{path} round {r}"
@@ -4117,12 +4139,16 @@ def arena_round(torch, card, env, hook, path, r, want, ingest=False):
 
 
 def arena_cells(torch, card, hook, device="cuda"):
-    """14(a): every cell of GOLDEN_PROVISION with the arena attached before
-    round 1, every round against its golden (`arena_round`), the ladder and
-    the decode breaker clean; live round 2 timed with and without the
-    arena (`arena_timings`); then the live cell once more behind an
-    IngestBatcher flushed before each provision().  Returns the launches by
-    path."""
+    """14(a): the cells of GOLDEN_PROVISION with a round on a live cluster
+    (live, small) with the arena attached before round 1, every round
+    against its golden (`arena_round`), the ladder and the decode breaker
+    clean; live round 2 timed with and without the arena
+    (`arena_timings`, where a copy behind an IngestBatcher also runs).
+    The one-round cells (noguide, ffd) solve on an empty cluster, where the
+    arena serves no gather, and their kernels (K6, K7) launch on live and
+    small: phase 10 holds them; the rerun of the live cell behind an
+    IngestBatcher went with them (phase 15's drip replays the batcher).
+    Returns the launches by path."""
     from karpenter_tpu_torch import workloads
     from karpenter_tpu_torch.api.objects import NodePool
     from karpenter_tpu_torch.catalog.generate import generate_catalog
@@ -4131,20 +4157,18 @@ def arena_cells(torch, card, hook, device="cuda"):
     from karpenter_tpu_torch.ops.decode import DecodeHealth
     from karpenter_tpu_torch.ops.health import SolverHealth
     from karpenter_tpu_torch.state import Cluster
-    from karpenter_tpu_torch.state.ingest import IngestBatcher
     catalog = generate_catalog(workloads.PROVISION_TYPES)
     by_path = {}
-    runs = [(cell, cell + ARENA, False) for cell in workloads.GOLDEN_PROVISION]
-    runs.append((LIVE_PATH, INGEST_PATH, True))
-    for cell, path, ingest in runs:
+    for cell in workloads.GOLDEN_PROVISION:
+        if len(workloads.PROVISION_CELLS[cell][1]) == 1:
+            continue
+        path = cell + ARENA
         clear_lp_caches()
         health, dh = SolverHealth(), DecodeHealth()
         env = workloads.provision_env(cell, FakeCloud, CloudProvider, Cluster,
                                       Provisioner, NodePool, catalog,
                                       arena=True, health=health,
                                       decode_health=dh, device=device)
-        if ingest:
-            env.cluster.arena = IngestBatcher(env.cluster.arena)
         total = {}
         for r, (kw, seed) in enumerate(workloads.PROVISION_CELLS[cell][1]):
             env.cluster.add_pods(workloads.build_pods(
@@ -4152,7 +4176,7 @@ def arena_cells(torch, card, hook, device="cuda"):
             if path == LIVE_PATH + ARENA and r == 1:
                 arena_timings(torch, card, env, catalog, device)
             got = arena_round(torch, card, env, hook, path, r + 1,
-                              workloads.GOLDEN_PROVISION[cell][r], ingest)
+                              workloads.GOLDEN_PROVISION[cell][r])
             for k, v in got.items():
                 total[k] = total.get(k, 0) + v
         check(not health.transitions and all(
@@ -4161,21 +4185,19 @@ def arena_cells(torch, card, hook, device="cuda"):
             f"{path}: the solver ladder booked a failure")
         check(dh.total_failures == 0 and not dh.transitions,
               f"{path}: the decode breaker booked a failure")
-        if ingest:
-            log(f"[arena] {path}: {env.cluster.arena.events_total} events "
-                f"coalesced into {env.cluster.arena.flushes_total} flushes")
         by_path[path] = total
     hook.label = None
     return by_path
 
 
-def arena_timings(torch, card, env, catalog, device, iters=3):
-    """14(f): live round 2's provision() on fresh copies of the round-2
+def arena_timings(torch, card, env, catalog, device, iters=1):
+    """14(f): live round 2's provision() on a fresh copy of the round-2
     state, in turn without the arena (tensorize_nodes), with one attached
     to the copy (its rebuild before the clock starts; the round's binds
     then refresh its rows one by one) and with that arena behind an
     IngestBatcher (the binds coalesce; the next tick's flush, timed apart,
-    applies them): p50 of each, with the three-part split."""
+    applies them), with the three-part split.  One copy each (three before
+    phase 17 was added; PERF.md keeps their p50s)."""
     from karpenter_tpu_torch.state.ingest import IngestBatcher
     out = {"without the arena": [], "with the arena": [],
            "with the arena behind an IngestBatcher": []}
@@ -4211,74 +4233,59 @@ def arena_timings(torch, card, env, catalog, device, iters=3):
 def arena_disruption(torch, card, hook, device="cuda"):
     """14(b): disruption-replay-500 with the arena attached before the fleet
     is built, every tick against GOLDEN_DISRUPTION, the consolidation ticks'
-    SimulationArena faces gathered warm; then the same replay without the
-    arena, through the same kernel spans (nothing recorded), for the
-    consolidation tick with and without it.  Returns the arena run's
-    launches."""
+    SimulationArena faces gathered warm.  (Phase 13 replays it without the
+    arena.)  Returns the run's launches."""
     from karpenter_tpu_torch import workloads
     from karpenter_tpu_torch.catalog.generate import generate_catalog
-    out, launches = {}, None
-    for arena in (True, False):
-        clear_lp_caches()
-        env = workloads.disruption_env(
-            workloads.port_kit(),
-            generate_catalog(workloads.DISRUPTION_TYPES), arena=arena,
-            device=device)
-        ctrl, decided, ticks = env.disruption, [], []
-        orig = ctrl.consolidation_action
+    clear_lp_caches()
+    env = workloads.disruption_env(
+        workloads.port_kit(), generate_catalog(workloads.DISRUPTION_TYPES),
+        arena=True, device=device)
+    ctrl, decided, ticks = env.disruption, [], []
+    orig = ctrl.consolidation_action
 
-        def consolidation_action(cands, _orig=orig):
-            decided.append(1)
-            return _orig(cands)
-        ctrl.consolidation_action = consolidation_action
+    def consolidation_action(cands):
+        decided.append(1)
+        return orig(cands)
+    ctrl.consolidation_action = consolidation_action
+    path = DISRUPTION_PATH + ARENA
 
-        between = f"{DISRUPTION_PATH}{ARENA} interruption re-provision"
-
-        def tick(env, phase):
-            n_dec = len(decided)
-            g0 = dict(env.cluster.arena.gathers) if arena else {}
-            hook.label = (f"{DISRUPTION_PATH}{ARENA} {phase} tick "
-                          f"{len(ticks)}" if arena else None)
-            hook.take_busy()
-            t0 = time.perf_counter()
-            sig, res = workloads.disruption_tick(env, phase)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-            busy, calls = hook.take_busy()
-            # calls between ticks are phase (d)'s re-provision
-            hook.label = between if arena else None
-            warm = (env.cluster.arena.gathers["warm"] - g0["warm"]
-                    if arena else 0)
-            ticks.append((phase, len(decided) > n_dec, wall, busy, calls,
-                          warm))
-            return sig, res
-        reset_all_launches()
-        sigs = workloads.disruption_replay(env, tick=tick)
-        hook.label = None
-        what = "with" if arena else "without"
-        check_disruption_golden(sigs, f"disruption ({what} the arena)")
-        dec = [t for t in ticks if t[0] == "consolidation" and t[1]]
-        p50 = statistics.median(t[2] for t in dec)
-        busy, calls = sum(t[3] for t in dec), sum(t[4] for t in dec)
-        wall = sum(t[2] for t in dec)
-        out[what] = p50
-        if arena:
-            launches = all_launches()
-            check(env.cluster.arena.gathers["fallback"] == 0,
-                  "the disruption cell's arena refused a gather")
-            check(all(t[5] >= 1 for t in dec),
-                  "a consolidation tick's faces were not gathered from the "
-                  "arena")
-            log(f"[arena] {DISRUPTION_PATH}{ARENA}: {len(sigs)} ticks "
-                f"reproduce GOLDEN_DISRUPTION; warm gathers in the "
-                f"consolidation ticks with a decision "
-                f"{[t[5] for t in dec]}; launches "
-                f"{ {k: v for k, v in launches.items() if v} }")
-        log(f"[time] {DISRUPTION_PATH} consolidation tick with a decision "
-            f"({what} the arena): p50 {p50:.3f} ms over {len(dec)} ticks "
-            f"{[round(t[2], 3) for t in dec]}; {idle_line(busy, calls, wall)} "
-            f"on {card}")
-    return {DISRUPTION_PATH + ARENA: launches}
+    def tick(env, phase):
+        n_dec = len(decided)
+        g0 = dict(env.cluster.arena.gathers)
+        hook.label = f"{path} {phase} tick {len(ticks)}"
+        hook.take_busy()
+        t0 = time.perf_counter()
+        sig, res = workloads.disruption_tick(env, phase)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        busy, calls = hook.take_busy()
+        # calls between ticks are phase (d)'s re-provision
+        hook.label = f"{path} interruption re-provision"
+        ticks.append((phase, len(decided) > n_dec, wall, busy, calls,
+                      env.cluster.arena.gathers["warm"] - g0["warm"]))
+        return sig, res
+    reset_all_launches()
+    sigs = workloads.disruption_replay(env, tick=tick)
+    hook.label = None
+    check_disruption_golden(sigs, "disruption (with the arena)")
+    launches = all_launches()
+    dec = [t for t in ticks if t[0] == "consolidation" and t[1]]
+    busy, calls = sum(t[3] for t in dec), sum(t[4] for t in dec)
+    wall = sum(t[2] for t in dec)
+    check(env.cluster.arena.gathers["fallback"] == 0,
+          "the disruption cell's arena refused a gather")
+    check(all(t[5] >= 1 for t in dec),
+          "a consolidation tick's faces were not gathered from the arena")
+    log(f"[arena] {path}: {len(sigs)} ticks reproduce GOLDEN_DISRUPTION; "
+        f"warm gathers in the consolidation ticks with a decision "
+        f"{[t[5] for t in dec]}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"[time] {DISRUPTION_PATH} consolidation tick with a decision (with "
+        f"the arena): p50 {statistics.median(t[2] for t in dec):.3f} ms over "
+        f"{len(dec)} ticks {[round(t[2], 3) for t in dec]}; "
+        f"{idle_line(busy, calls, wall)} on {card}")
+    return {path: launches}
 
 
 def operator_cell(torch, card, hook, device="cuda"):
@@ -4287,12 +4294,19 @@ def operator_cell(torch, card, hook, device="cuda"):
     the live cell's two bursts through its Provisioner, one
     DisruptionController reconcile 10 000 s later — against
     GOLDEN_OPERATOR, each step counted (launches zeroed just before it),
-    timed with its split, spanned and its kernel inputs recorded.  Returns
-    the launches by step."""
+    timed with its split, spanned and its kernel inputs recorded.  The
+    BatchedCloud windows are zero-width, as the simulator runs them (the
+    claims launch one at a time, so nothing coalesces either way; PERF.md
+    keeps the 35 ms window's share of a round).  Returns the launches by
+    step."""
     from karpenter_tpu_torch import workloads
     clear_lp_caches()
     t0 = time.perf_counter()
     env = workloads.operator_env(operator_kit(), device=device)
+    for b in (env.op.batched_cloud.fleet, env.op.batched_cloud.describe,
+              env.op.batched_cloud.terminate):
+        b.batcher.options.idle_timeout = 0.0
+        b.batcher.options.max_timeout = 0.0
     check(env.op.device.type == device, "the operator is not on the card")
     log(f"[operator] Operator(Options()) and build_controllers in "
         f"{(time.perf_counter() - t0) * 1e3:.3f} ms: "
@@ -4407,7 +4421,7 @@ SIM_GATED = (("steady-state-drip", dict(incremental_arena=False)),
 SOAK_PATH = "sim-long-soak-480"
 DRIP_PATH = "sim-steady-state-drip-480"  # sweeps after its 300 s golden
 V1_PATH = "v1-solve-headline"
-V1_REPEATS = 3
+V1_REPEATS = 1
 
 
 def sim_label(name, kw):
@@ -4491,14 +4505,15 @@ def sim_goldens(torch, card, hook):
 
 def arena_pairs(torch, card, hook, cell, label, want):
     """One replay of `cell` (a `workloads.SIM_*` dict) with the arena on
-    (the default) and off, in the order on, off, off, on, each with its
+    (the default) and off, in that order (on, off, off, on before phase 17
+    came: one pair keeps the script in its time), each with its
     wall time, speedup, ticks, gathers, launches and idle share; every
     report's `workloads.sim_digest` must be `want`, the JAX package's, and
     the arena must serve warm gathers and refuse none.  Returns the walls
     by arena and the first arena run's launches."""
     from karpenter_tpu_torch import workloads
     walls, first = {True: [], False: []}, None
-    for arena in (True, False, False, True):
+    for arena in (True, False):
         path = label + ("" if arena else " incremental_arena=False")
         run, h, launches, wall = sim_replay(torch, card, hook,
                                             cell["scenario"],
@@ -5057,6 +5072,342 @@ def phase16(torch, card, err, scans, recorded):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 17: forecast-driven headroom and gang scheduling
+# ---------------------------------------------------------------------------
+
+# the canned goldens with a gated forecast or gang section, at
+# tests/test_sim.py's horizons: (name, scenario file, virtual seconds)
+GATED_GOLDENS = (
+    ("diurnal-forecast", "diurnal-forecast.yaml", 7200.0),
+    ("spot-reclaim-storm-forecast", "spot-reclaim-storm-forecast.yaml",
+     7200.0),
+    ("gang-churn-storm", "gang-churn-storm.yaml", 7200.0),
+    ("mixed-priority-diurnal", "mixed-priority-diurnal.yaml", 12600.0))
+GANG_PATH = "provision-gang-50k"
+
+
+def gated_goldens(torch, card, hook):
+    """17(a): the four forecast and gang goldens replayed on the card (the
+    arena on, the harness's default), each report byte for byte against
+    tests/golden/.  Returns the launches by path."""
+    from karpenter_tpu_torch.sim import report_to_json
+    by_path = {}
+    for name, fname, duration in GATED_GOLDENS:
+        label = sim_label(name, {})
+        run, _, launches, _ = sim_replay(torch, card, hook, fname, duration,
+                                         label)
+        with open(os.path.join(REPO, "tests", "golden",
+                               f"sim-{name}.json")) as fh:
+            want = fh.read()
+        check(report_to_json(run.report) == want,
+              f"{label}: the report differs from tests/golden/sim-{name}.json")
+        section = "forecast" if "forecast" in run.report else "gang"
+        log(f"[gated] {label}: golden matches; its {section} section "
+            f"{json.dumps(run.report[section], sort_keys=True)}")
+        by_path[label] = launches
+    for name in ("classpack_precompute", "classpack_scan",
+                 "classpack_assign_decode", "classpack_sweep", "ffd_scan"):
+        check(sum(launches[name] for launches in by_path.values()) > 0,
+              f"{name} did not launch in the forecast and gang replays")
+    return by_path
+
+
+def gang_cell(torch, card, hook, device="cuda"):
+    """17(b): the cell provision-gang-50k on the card — the port's
+    Provisioner(gang_scheduling=True) with 8192 slots, the headline's
+    burst with its gangs, then PROVISION_ROUND2's with its tier-2 hostname
+    gangs, then one DisruptionController reconcile that executes the first
+    queued preemption plan — against GOLDEN_GANG.  Each round is counted
+    (launches zeroed just before it), spanned, its kernel inputs kept, and
+    timed with the gang audit (`_enforce_gangs`, host) beside the rest of
+    the solve.  Returns the launches by step."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    clear_lp_caches()
+    env = workloads.gang_env(workloads.port_kit(),
+                             generate_catalog(workloads.PROVISION_TYPES),
+                             device=device)
+    prov, by_path, audit = env.penv.provisioner, {}, []
+    check(prov.device.type == device, "the gang cell is not on the card")
+    orig = prov._enforce_gangs
+
+    def timed_audit(*a, **k):
+        t = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            audit.append((time.perf_counter() - t) * 1e3)
+    prov._enforce_gangs = timed_audit
+
+    def counted(label, fn):
+        hook.label = label
+        hook.take_busy()
+        reset_all_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        by_path[label] = all_launches()
+        busy, calls = hook.take_busy()
+        return out, wall, busy, calls
+
+    def provision(penv):
+        label = f"{GANG_PATH} round {len(by_path) + 1}"
+        audit.clear()
+        with layer_timer(torch, penv.provisioner) as acc:
+            out, wall, busy, calls = counted(
+                label, lambda: workloads.provision_pending(penv))
+        sig, spent = out[0], sum(audit)
+        log(f"[gang] {label}: {sig['launched']} launched, "
+            f"{sig['bound_existing']} bound to existing nodes, "
+            f"{sig['unschedulable']} unschedulable; launches "
+            f"{ {k: v for k, v in by_path[label].items() if v} }")
+        log(f"[time] {label}: provision() {wall:.3f} ms; solve "
+            f"{acc['solve']:.3f} ms = gang audit {spent:.3f} ms (host, "
+            f"{len(audit)} calls) + the rest {acc['solve'] - spent:.3f} "
+            f"(pack {acc['pack']:.3f}); launch {wall - acc['solve']:.3f}; "
+            f"{idle_line(busy, calls, wall)} on {card}")
+        return out
+
+    def tick():
+        label = f"{GANG_PATH} tick"
+        res, wall, busy, calls = counted(label, env.disruption.reconcile)
+        log(f"[time] {label}: reconcile() {wall:.3f} ms, action "
+            f"{res.action and [res.action.kind, res.action.reason]}; "
+            f"{idle_line(busy, calls, wall) if calls else 'no kernel call'} "
+            f"on {card}")
+        return res
+    got = workloads.gang_replay(env, workloads.build_pods,
+                                provision=provision, tick=tick)
+    hook.label = None
+    check(got == workloads.GOLDEN_GANG,
+          f"{GANG_PATH}: {json.dumps(got)[:3000]} != GOLDEN_GANG")
+    for r in (1, 2):
+        for name in ("classpack_precompute", "classpack_scan",
+                     "classpack_assign_decode"):
+            check(by_path[f"{GANG_PATH} round {r}"][name] > 0,
+                  f"{name} did not launch in {GANG_PATH} round {r}")
+    log(f"[gang] {GANG_PATH} reproduces GOLDEN_GANG on {card}: audits "
+        f"{[r['audits'] for r in got['rounds']]}, plans "
+        f"{[r['plans'] for r in got['rounds']]}, the tick evicted "
+        f"{len(got['tick']['evicted'])} pods; registry {got['registry']}")
+    return by_path
+
+
+def _seed_small_cloud(op):
+    from karpenter_tpu_torch.cloud.fake import (ImageInfo, SecurityGroupInfo,
+                                                SubnetInfo)
+    op.cloud.subnets = [SubnetInfo("s-a", "zone-a", 10_000, {}),
+                        SubnetInfo("s-b", "zone-b", 10_000, {})]
+    op.cloud.security_groups = [SecurityGroupInfo("sg", "nodes", {})]
+    op.cloud.images = [ImageInfo("img-1", "std", "amd64", 1.0)]
+    op.params.parameters = {
+        "/karpenter-tpu/images/standard/1.28/amd64/latest": "img-1"}
+    return op
+
+
+def small_operator(gates, clock, device, pools=None):
+    """An Operator with `gates` on over a 10-type catalog, its fake cloud
+    seeded, on `device`, with its ControllerManager on `clock`."""
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    from karpenter_tpu_torch.operator import (ControllerManager, Operator,
+                                              Options, build_controllers)
+    opts = Options(interruption_queue="q")
+    for g in gates:
+        opts.feature_gates[g] = True
+    op = _seed_small_cloud(Operator(opts, catalog=generate_catalog(10),
+                                    clock=clock, device=device))
+    if pools is not None:
+        op.nodepools.clear()
+        op.nodepools.update({p.name: p for p in pools})
+    mgr = ControllerManager(op, build_controllers(op), clock=clock)
+    return op, mgr
+
+
+def cluster_state(cluster):
+    return sorted((p.uid, p.node_name) for p in cluster.pods.values())
+
+
+def armed_fault(torch, what, mgr, arm, booked):
+    """One tick() with KernelError armed (`arm()`: a context that makes
+    the next launch of K1 or K7 raise) around one controller's work: the
+    tick must raise it and leave `booked()` (the cluster, the controller's
+    own books) as it was, and no supervisor may book it."""
+    from karpenter_tpu_torch._build import KernelError
+    health = mgr.controllers["provisioning"].health
+    before = (booked(), health.snapshot())
+    raised = None
+    with arm() as faults:
+        try:
+            mgr.tick()
+        except KernelError as e:
+            raised = e
+    check(raised is not None, f"[fault] {what}: tick() did not raise the "
+                              f"KernelError ({faults} launches armed)")
+    check(booked() == before[0], f"[fault] {what}: the faulting tick "
+                                 f"booked something")
+    check(health.snapshot() == before[1] and not health.transitions,
+          f"[fault] {what}: the ladder booked it: {health.snapshot()}")
+    check(all(s.total_failures == 0 for s in mgr.supervisors.values()),
+          f"[fault] {what}: a supervisor booked it")
+    log(f"[fault] {what}: tick() raised {type(raised).__name__} ({raised}); "
+        f"cluster, books, ladder and supervisors as they were")
+
+
+class fault_on_launch:
+    """While open, the next launch of K1 (`classpack_precompute`) or K7
+    (`ffd_scan`), whichever comes first, raises KernelError."""
+
+    def __init__(self):
+        import karpenter_tpu_torch.ops.classpack as cp
+        import karpenter_tpu_torch.ops.ffd_kernels as fk
+        self.sites = [(cp, "classpack_precompute"), (fk, "ffd_scan")]
+        self.calls = 0
+
+    def __enter__(self):
+        from karpenter_tpu_torch._build import KernelError
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.sites]
+        for m, n, orig in self.saved:
+            def faulty(*a, _n=n, _orig=orig, **k):
+                self.calls += 1
+                if self.calls == 1:
+                    raise KernelError(f"{_n}: injected launch fault")
+                return _orig(*a, **k)
+            setattr(m, n, faulty)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, orig in self.saved:
+            setattr(m, n, orig)
+
+
+def headroom_fault(torch, card, device="cuda"):
+    """17(d), forecast: an operator with the Forecast gate (EWMA, 30 s
+    cadence) whose demand class "web" ramps up bucket by bucket, bound as
+    it comes; then a tick with no pod pending, so the only solve is the
+    HeadroomController's dry run, with KernelError armed around that
+    controller's reconcile.  The tick must raise it with no placeholder
+    admitted and the controller's books unchanged."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.api.objects import Pod
+    from karpenter_tpu_torch.api.resources import CPU, MEMORY, ResourceList
+    from karpenter_tpu_torch.forecast import is_headroom
+    clear_lp_caches()
+    clock = workloads.SteppedClock(1000.0)
+    op, mgr = small_operator(("Forecast",), clock, device)
+    fc = mgr.controllers["forecast"]
+    n = 0
+    for step in range(8):
+        op.cluster.add_pods([Pod(labels={"sim.karpenter.sh/wave": "web"},
+                                 requests=ResourceList({CPU: 500,
+                                                        MEMORY: 2**29}))
+                             for _ in range(2 + 2 * step)])
+        n += 2 + 2 * step
+        for _ in range(30):
+            mgr.tick()
+            clock.step(2.0)
+    while op.cluster.pending_pods():
+        mgr.tick()
+        clock.step(2.0)
+    entry = next(e for e in mgr._entries if e.name == "forecast")
+    clock.t = entry.last_run + entry.interval
+    entry.reconcile = fc.reconcile
+
+    def books():
+        return (cluster_state(op.cluster), dict(fc.stats),
+                sorted(p.name for p in op.cluster.pods.values()
+                       if is_headroom(p)))
+    armed_fault(torch, "KernelError in the HeadroomController's dry-run "
+                "solve", mgr, fault_on_launch, books)
+    log(f"[fault] forecast: {n} real pods, stats {fc.stats}; on {card}")
+
+
+def preemption_fault(torch, card, device="cuda"):
+    """17(d), gangs: an operator with the GangScheduling gate whose one
+    NodePool is capped at 16 vCPU; tier-0 pods fill it, a tier-1 gang of
+    two 1.5-vCPU members arrives and is rejected (no room, no new node),
+    its preemption plan queued; the disruption tick evicts the plan's
+    victims; then the preemption re-solve, with KernelError armed around
+    the provisioner: the tick must raise it and leave the cluster, the
+    gang registry and the plan queue as they were."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.api.objects import NodePool, Pod
+    from karpenter_tpu_torch.api.resources import CPU, MEMORY, ResourceList
+    clear_lp_caches()
+    clock = workloads.SteppedClock(1000.0)
+    pool = NodePool(limits=ResourceList({CPU: 16_000}))
+    op, mgr = small_operator(("GangScheduling",), clock, device,
+                             pools=[pool])
+    prov = mgr.controllers["provisioning"]
+    disruption = next(e for e in mgr._entries if e.name == "disruption")
+
+    def settle(ticks=4):
+        for _ in range(ticks):
+            disruption.last_run = clock()      # held back until asked
+            mgr.tick()
+            clock.step(2.0)
+    op.cluster.add_pods([Pod(requests=ResourceList({CPU: 1000,
+                                                    MEMORY: 2**30}))
+                         for _ in range(15)])
+    settle()
+    op.cluster.add_pods([Pod(requests=ResourceList({CPU: 1500,
+                                                    MEMORY: 2**30}),
+                             gang_name="trainer", gang_size=2, gang_tier=1)
+                         for _ in range(2)])
+    settle()
+    rec = prov.gang_registry.get("trainer")
+    check(rec is not None and not rec.admitted and
+          "trainer" in prov.gang_preemption_plans,
+          f"[fault] the gang was not rejected with a plan: "
+          f"{rec and rec.to_dict()}, plans {list(prov.gang_preemption_plans)}")
+    disruption.last_run = clock() - disruption.interval
+    mgr.tick()                           # the disruption tick preempts
+    check(prov.gang_registry.get("trainer").preempted > 0 and
+          "trainer" not in prov.gang_preemption_plans,
+          "[fault] the disruption tick preempted no victim")
+    clock.step(2.0)
+    disruption.last_run = clock()
+    mgr.tick()                           # the batch window opens
+    clock.step(2.0)                      # ripe: the re-solve is next
+
+    def books():
+        return (cluster_state(op.cluster), prov.gang_registry.summary(),
+                list(prov.gang_preemption_plans))
+    armed_fault(torch, "KernelError in the preemption re-solve", mgr,
+                fault_on_launch, books)
+    log(f"[fault] gangs: registry {prov.gang_registry.summary()}; on {card}")
+
+
+def phase17(torch, card, err, device="cuda"):
+    """Phase 17, forecast-driven headroom and gang scheduling: (a) the four
+    gated goldens on the card, (b) provision-gang-50k against GOLDEN_GANG,
+    (c) every kernel wrapper those paths launched held against its plain
+    version on the inputs of its last call on each path, (d) a KernelError
+    in the HeadroomController's solve and in a preemption re-solve.
+    Returns the launches by path."""
+    t0 = time.perf_counter()
+    hook = kernel_log(torch, spans=True)
+    with wrapped_kernels(hook):
+        by_path = gated_goldens(torch, card, hook)
+        log(f"[gated] 17(a) {time.perf_counter() - t0:.1f} s")
+        by_path.update(gang_cell(torch, card, hook, device))
+        log(f"[gang] 17(b) {time.perf_counter() - t0:.1f} s")
+    seen = hold_recorded(torch, hook.recorded, err, lambda label: label)
+    for name, where in seen.items():
+        log(f"[gated] {name} on the {len(where)} inputs recorded on phase "
+            f"17's paths (its last call on each; first argument's shape): "
+            f"equal to plain — {', '.join(where)}")
+    for path, launches in by_path.items():
+        log(f"[gated] launches on {path}: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"[gated] 17(c) {time.perf_counter() - t0:.1f} s")
+    headroom_fault(torch, card, device)
+    preemption_fault(torch, card, device)
+    log(f"[gated] 17(d) {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5149,6 +5500,15 @@ def main() -> int:
             if row["name"] in launches:
                 row["launches_by_path"][path] = launches[row["name"]]
     log(f"[robust] phase 16 done ({time.perf_counter() - t_start:.1f} s "
+        f"so far)")
+    gated_paths = phase17(torch, card, err)
+    for row in rows:
+        if row["name"] in err:
+            row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
+        for path, launches in gated_paths.items():
+            if row["name"] in launches:
+                row["launches_by_path"][path] = launches[row["name"]]
+    log(f"[gated] phase 17 done ({time.perf_counter() - t_start:.1f} s "
         f"so far)")
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]

@@ -43,9 +43,10 @@ passes the chaos seam `solver.sweep` first.  A device fault
 (`DEVICE_FAULTS`) is raised past every rung with nothing booked and leaves
 `reconcile()` as it came; only the cloud calls of execution are caught.
 
-Not ported yet (ROADMAP.md queue B): gang preemption (`gang_source`; item
-8), which raises NotImplementedError.  The reference's metric, span and
-cost-ledger calls are left out.
+With `gang_source` (the GangScheduling gate: the Provisioner's
+`take_preemption_plan`), each tick first executes one queued gang
+preemption plan, ahead of every other method.  The reference's metric,
+span and cost-ledger calls are left out.
 """
 
 from __future__ import annotations
@@ -183,9 +184,7 @@ class DisruptionController:
     """Single-action disruption loop over cluster state.
 
     The signature is the reference's plus `device` and `mesh` (the
-    ShardedSolve gate's mesh; default `parallel.make_pod_mesh` on `device`).
-    `gang_source` selects a part that is not ported yet and raises
-    NotImplementedError."""
+    ShardedSolve gate's mesh; default `parallel.make_pod_mesh` on `device`)."""
 
     def __init__(self, provider, cluster: Cluster,
                  nodepools,
@@ -210,10 +209,6 @@ class DisruptionController:
                  gang_source: Optional[Callable] = None,
                  device="cuda",
                  mesh=None):
-        if gang_source is not None:
-            raise NotImplementedError(
-                "DisruptionController: gang_source (ROADMAP.md queue B item "
-                "8) is not ported yet")
         from ..utils.events import Recorder
         self.device = resolve_device(device)
         self.provider = provider
@@ -234,6 +229,9 @@ class DisruptionController:
         # deadline (utils/watchdog.py); None/0 keep the direct path
         self.health = health
         self.watchdog_timeout_s = watchdog_timeout_s
+        # GangScheduling: the provisioner's queue of gang preemption plans
+        # (Provisioner.take_preemption_plan); one plan executes per tick
+        self.gang_source = gang_source
         self._empty_since: Dict[str, float] = {}  # node → first seen empty
         self._arena_cache = None  # (fingerprint, SimulationArena)
         # (mutation_epoch, catalog_key, candidates, fingerprint) — skips the
@@ -316,7 +314,11 @@ class DisruptionController:
 
         Memoized per (catalog object, price cap): returning the SAME
         filtered list object lets the tensorize catalog-side cache hit
-        instead of rebuilding its option tables every simulation."""
+        instead of rebuilding its option tables every simulation.  The
+        memo is filled with one atomic `setdefault`, so a watchdog worker
+        the tick abandoned (utils/watchdog.py), racing the tick's own
+        sequential path, gets the very list the tick keeps using and never
+        replaces it under the tick."""
         catalog = self.provider.get_instance_types()
         if max_total_price is None:
             return catalog
@@ -340,8 +342,7 @@ class DisruptionController:
                     eviction_threshold=it.eviction_threshold, info=it.info))
         if len(memo) >= 64:  # bound growth across many distinct price caps
             memo.clear()
-        memo[max_total_price] = out
-        return out
+        return memo.setdefault(max_total_price, out)
 
     def _orig(self, p: Pod) -> Pod:
         return self.cluster.original(p)
@@ -515,6 +516,15 @@ class DisruptionController:
         underutil = [c for c in cands
                      if c.pool.disruption.consolidation_policy ==
                      "WhenUnderutilized"]
+
+        # 0. gang preemption (GangScheduling): a waiting higher-tier gang
+        #    outranks bound lower-tier pods; one queued plan executes per
+        #    tick, ahead of every other method
+        if self.gang_source is not None:
+            plan = self.gang_source()
+            if plan is not None:
+                return self._execute_preemption(plan)
+
         if not cands:
             return DisruptionResult()
 
@@ -542,6 +552,34 @@ class DisruptionController:
         if action:
             return self.execute(action)
         return DisruptionResult()
+
+    def _execute_preemption(self, plan) -> DisruptionResult:
+        """Evict one gang preemption plan's victims: each unbinds to
+        pending (the consolidation-reschedule motion — the pod re-solves
+        next provisioning round, the node keeps running for its other
+        pods).  Victims that moved or exited since planning are skipped;
+        if the freed room proves insufficient the next solve queues a
+        deeper plan down the cascade."""
+        evicted = 0
+        for v in plan.victims:
+            node = self.cluster.nodes.get(v.node)
+            if node is None:
+                continue
+            pod = next((p for p in node.pods if p.uid == v.uid), None)
+            if pod is None:
+                continue
+            self.cluster.unbind_pod(pod)
+            self.recorder.publish(Event(
+                kind="Pod", name=pod.name, reason="GangPreempted",
+                message=(f"evicted for gang {plan.gang}: tier {v.tier} "
+                         f"yields to tier {plan.tier}"),
+                type="Warning"))
+            evicted += 1
+        log.info("gang preemption for %s: evicted %d/%d victims in %s %r",
+                 plan.gang, evicted, len(plan.victims), plan.topology,
+                 plan.domain)
+        return DisruptionResult(action=Action(kind="preempt", reason="gang",
+                                              candidates=[]))
 
     def _replace_or_delete(self, targets: List[Candidate],
                            reason: str) -> Optional[Action]:

@@ -14,9 +14,10 @@ kind registry (parser.go:54-80), map instance id → node / claim, then
 
 A message is deleted only once it is handled, so a drain that PDBs stall
 is retried on the next receive (SQS visibility, cloud/queue.py).  Host-only:
-it takes no `device`; the provisioner re-places the evicted pods.
-`on_spot_reclaim` stays None (the forecast prior, ROADMAP.md queue B).  The
-reference's metrics and cost-ledger context are left out.
+it takes no `device`; the provisioner re-places the evicted pods.  With
+the Forecast gate, `build_controllers` points `on_spot_reclaim` at the
+HeadroomController's spot-risk prior (`SpotRiskPrior.observe_reclaim`).
+The reference's metrics and cost-ledger context are left out.
 """
 
 from __future__ import annotations

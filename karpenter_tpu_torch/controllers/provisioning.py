@@ -31,16 +31,20 @@ provisioning loop the operator runs every batch window:
 The signature is the reference's plus `device` ("cuda" by default; "cpu"
 runs the kernels' plain versions and only when asked for) and `mesh` (the
 ShardedSolve gate's mesh; default `parallel.make_pod_mesh` on `device`, one
-shard per visible card, where the reference reads `jax.devices()`).  Not
-ported yet (ROADMAP.md): `gang_scheduling` raises NotImplementedError.  The
-"native" rung raises as the reference's does on a host without its C++
+shard per visible card, where the reference reads `jax.devices()`).  With
+`gang_scheduling` (the GangScheduling gate) every packing passes the
+all-or-nothing gang audit (ops/gang.py) before any bind or launch: rejected
+gangs are stripped back to pending, and a rejected gang of a higher tier
+queues a preemption plan that the DisruptionController takes
+(`take_preemption_plan`).  The "native" rung raises as the reference's does on a host without its C++
 compiler, and a failing "jax" solve then lands on "greedy".
 The live node set is gathered warm from the cluster's persistent arena
 (`Cluster.attach_arena`, the IncrementalArena gate) when one is attached;
 a snapshot solve (`nodes=` given), an arena that refuses (extra axes,
 custom scales, an untracked node) or no arena at all takes
 `Cluster.tensorize_nodes`, the reference's bit-identical path.
-The reference's metrics and spans are left out.
+The reference's metrics, spans and `gang_rejected` incident are left out
+(ROADMAP.md queue B item B9).
 """
 
 from __future__ import annotations
@@ -67,6 +71,8 @@ from ..ops.constraints import (MAX_LEVEL, find_batch_topology_violations,
                                has_soft_constraints, lower_pods,
                                make_zone_feasibility)
 from ..ops.ffd import NATIVE_CUTOVER_ROWS, NodeDecision, solve_ffd
+from ..ops.gang import (INCOMPLETE, GangRegistry, PreemptionPlan,
+                        enforce_gangs, plan_preemption)
 from ..ops.tensorize import Problem, tensorize
 from ..parallel.driver import maybe_solve_partitioned
 from ..state.cluster import Cluster
@@ -186,10 +192,6 @@ class Provisioner:
                  gang_scheduling: bool = False,
                  device="cuda",
                  mesh=None):
-        if gang_scheduling:
-            raise NotImplementedError(
-                "gang_scheduling is not ported yet — ROADMAP.md queue B, "
-                "'gang scheduling'")
         self.device = resolve_device(device)
         self.provider = provider
         self.cluster = cluster
@@ -240,6 +242,14 @@ class Provisioner:
                 self._classpack, device_decode=True,
                 decode_health=decode_health)
         self._ffd = functools.partial(solve_ffd, device=self.device)
+        # GangScheduling feature gate (ops/gang.py): post-solve
+        # all-or-nothing enforcement over every packing, plus the
+        # preemption-plan queue the DisruptionController drains one plan
+        # per tick.  The registry is the gangs' admission ledger; None ==
+        # gate off.
+        self.gang_scheduling = bool(gang_scheduling)
+        self.gang_registry = GangRegistry() if self.gang_scheduling else None
+        self.gang_preemption_plans: Dict[str, PreemptionPlan] = {}
 
     def _pick_solver(self, problem: Problem, n_existing: int = 0):
         """The class-granular solve is the provisioning hot path; tiny
@@ -381,6 +391,11 @@ class Provisioner:
                         scales=problem.scales, nodes=node_view)
             result = self._pack_supervised(problem, existing)
             result._existing_nodes = existing[0] if existing else []
+            if self.gang_scheduling and problem.class_gang is not None:
+                # all-or-nothing admission happens HERE, before the plan
+                # is visible to any bind or launch — no partial gang ever
+                # reaches claim_requests
+                self._enforce_gangs(problem, result, node_view)
             if best is None or result.scheduled_count > best[1].scheduled_count:
                 best = (problem, result)
             if not result.unschedulable or not soft:
@@ -389,6 +404,46 @@ class Provisioner:
                 log.info("relaxing soft constraints to level %d (%d unschedulable)",
                          level + 1, len(result.unschedulable))
         return best
+
+    def _enforce_gangs(self, problem, result, node_view) -> None:
+        """Gang admission funnel (GangScheduling): audit and strip rejected
+        gangs from the packing, and queue preemption plans for outranked
+        capacity."""
+        audits = enforce_gangs(problem, result, result._existing_nodes,
+                               registry=self.gang_registry,
+                               cluster_nodes=node_view)
+        for a in audits:
+            if a.admitted:
+                # a gang that now fits no longer needs its queued evictions
+                self.gang_preemption_plans.pop(a.gang.name, None)
+                continue
+            # priority cascade: a rejected gang with standing (every
+            # member present — pending or still bound — and tier > 0)
+            # simulates evicting strictly-lower-tier pods; the
+            # DisruptionController executes one plan per tick and the
+            # REAL solver re-admits the gang on a later round.  Bound
+            # residents pin the domain: stragglers must rejoin where the
+            # rest of the gang lives, or they'd come back a straddle.
+            if (a.gang.tier > 0 and a.reason != INCOMPLETE
+                    and a.gang.name not in self.gang_preemption_plans):
+                plan = plan_preemption(
+                    a.gang, [problem.pods[i].requests for i in a.members],
+                    node_view, pin_domains=a.bound_domains)
+                if plan is not None and plan.victims:
+                    self.gang_preemption_plans[a.gang.name] = plan
+
+    def take_preemption_plan(self) -> Optional[PreemptionPlan]:
+        """Pop the oldest queued gang preemption plan (FIFO — insertion
+        order is rejection order).  The DisruptionController's per-tick
+        drain; None when the queue is empty or the gate is off."""
+        if not self.gang_preemption_plans:
+            return None
+        name = next(iter(self.gang_preemption_plans))
+        plan = self.gang_preemption_plans.pop(name)
+        if self.gang_registry is not None:
+            self.gang_registry.record_preemption(plan.gang,
+                                                 len(plan.victims))
+        return plan
 
     def provision(self, pods: Optional[Sequence[Pod]] = None,
                   max_retries: int = 1) -> ProvisioningResult:

@@ -24,8 +24,11 @@ Left out, each with the ROADMAP.md queue B item that ports it:
 state it records), the SLO engine, the cost ledger, the metric and span
 calls, and the endpoints `/metrics`, `/debug/traces`, `/debug/incidents`,
 `/debug/slo`, `/debug/ledger` and `/debug/pprof`, which answer 501 naming
-B9 (B9); the gang snapshot (B8); the forecast preemption (B6, whose gate
-`Operator` refuses).
+B9 (B9); the gang snapshot hooks (`gang_snapshot_state` /
+`gang_restore_state`, B7: the snapshot is their only caller).  With the
+Forecast gate the `forecast` entry runs at `forecast_cadence_s`, and real
+pending pods evict headroom placeholders (`preempt_for_pending`) right
+before each provisioning solve.
 """
 
 from __future__ import annotations
@@ -123,6 +126,7 @@ class ControllerManager:
         "nodeclass": 300.0,
         "interruption": 0.5,
         "pricing": 60.0,
+        "forecast": 30.0,
     }
 
     def __init__(self, operator, controllers: Dict[str, object],
@@ -143,6 +147,8 @@ class ControllerManager:
             else:
                 reconcile = ctrl.reconcile
             interval = self.DEFAULT_INTERVALS.get(name, 10.0)
+            if name == "forecast":
+                interval = operator.options.forecast_cadence_s
             self._entries.append(_Entry(name, reconcile, interval))
         # one supervisor per controller (provisioning included): isolates
         # crash loops with backoff + circuit breaking while every other
@@ -209,6 +215,11 @@ class ControllerManager:
                     and refinery.take_upgrade():
                 ripe = True
             if ripe and self.supervisors["provisioning"].allow(now):
+                # real pending pods evict headroom placeholders BEFORE the
+                # solve so the freed warm capacity is schedulable this tick
+                forecast = self.controllers.get("forecast")
+                if forecast is not None:
+                    forecast.preempt_for_pending()
                 if self._supervised(now, "provisioning", prov.provision,
                                     results):
                     # the window survives a failed solve: the pods are

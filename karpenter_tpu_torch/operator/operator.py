@@ -21,9 +21,12 @@ admits manifests as the reference's does, and `state_lock` (a
 surface share.
 
 Not ported yet, and raising NotImplementedError that names the item of
-ROADMAP.md's queue B (`options.check_ported`): the Forecast gate (B6),
-WarmRestart and HAFailover (B7), FlightRecorder and SLOEngine (B9),
-and GangScheduling (B8).  The reference's metric registration, scrape
+ROADMAP.md's queue B (`options.check_ported`): WarmRestart and HAFailover
+(B7), FlightRecorder and SLOEngine (B9).  The Forecast gate wires the
+HeadroomController, its DemandSeries as the cluster's observer and the
+spot-risk prior to the interruption controller; GangScheduling turns on
+the Provisioner's gang admission and hands its preemption plans to the
+DisruptionController (`gang_source`).  The reference's metric registration, scrape
 collectors and slow-span threshold are left out (B9).  A chaos spec
 (`Options.chaos_spec`, `--chaos-spec`) arms the process-global injector
 (utils/chaos.py) in the constructor, as in the reference.
@@ -399,6 +402,11 @@ def build_controllers(op: Operator) -> Dict[str, object]:
             sharded_solve=op.options.gate("ShardedSolve"),
             health=health,
             watchdog_timeout_s=solve_timeout,
+            # gang preemption plans flow provisioner → disruption: the
+            # admission funnel queues them, the disruption tick executes
+            # one per round (GangScheduling gate)
+            gang_source=(provisioner.take_preemption_plan
+                         if op.options.gate("GangScheduling") else None),
             device=op.device),
         "lifecycle": LifecycleController(
             op.cloud_provider, op.cluster, nodepools=op.nodepools,
@@ -417,4 +425,35 @@ def build_controllers(op: Operator) -> Dict[str, object]:
             clock=op.clock)
     if not op.options.isolated_network:
         out["pricing"] = PricingController(op.pricing, clock=op.clock)
+    if op.options.gate("Forecast"):
+        from ..forecast import (DemandSeries, HeadroomConfig,
+                                HeadroomController, make_forecaster)
+        opts = op.options
+        series = DemandSeries(bucket_s=opts.forecast_bucket_s, clock=op.clock)
+        # the series observes every pod mutation through the cluster hook;
+        # headroom placeholders are filtered inside the series so the
+        # forecaster never learns from its own output
+        op.cluster.observer = series
+        season_steps = max(2, int(opts.forecast_season_s /
+                                  max(opts.forecast_bucket_s, 1.0)))
+        forecaster = make_forecaster(opts.forecast_model,
+                                     season_length=season_steps)
+        cfg = HeadroomConfig(
+            horizon_s=opts.forecast_horizon_s,
+            lead_s=opts.forecast_lead_s,
+            ttl_s=opts.forecast_ttl_s,
+            bucket_s=opts.forecast_bucket_s,
+            confidence=opts.forecast_confidence,
+            max_cost_frac=opts.forecast_max_cost_frac,
+            model=opts.forecast_model,
+            season_s=opts.forecast_season_s)
+        forecast = HeadroomController(
+            provisioner, op.cluster, op.nodepools, series, forecaster,
+            clock=op.clock, config=cfg, recorder=op.recorder)
+        out["forecast"] = forecast
+        # spot reclaims observed by the interruption controller feed the
+        # per-pool risk prior that steers risky headroom onto on-demand
+        if "interruption" in out:
+            out["interruption"].on_spot_reclaim = \
+                forecast.spot_prior.observe_reclaim
     return out

@@ -7,9 +7,8 @@ re-implements karpenter:pkg/operator/options/options.go:53-63).
 Precedence is the reference's: explicit flag > env var > default.
 `from_args` parses the reference's whole command line and refuses every
 flag set away from its default whose reader the port does not have,
-naming the ROADMAP.md queue B item that ports it: the forecast knobs
-(B6), `--leader-elect`, the lease
-and snapshot flags (B7), `--gang-scheduling` (B8), `--log-format json`,
+naming the ROADMAP.md queue B item that ports it: `--leader-elect`, the
+lease and snapshot flags (B7), `--log-format json`,
 `--trace-slow-ms`, `--enable-profiling` and the incident, obs, SLO and
 ledger flags (B9).  The four options the JAX package parses and never
 reads (`--vm-memory-overhead-percent`, `--reserved-enis`, `--health-port`,
@@ -45,22 +44,16 @@ FEATURE_GATES: Dict[str, bool] = {
     "GangScheduling": False}
 
 # feature gate → the ROADMAP.md queue B item that ports it
-UNPORTED_GATES = {"Forecast": "B6", "WarmRestart": "B7", "HAFailover": "B7",
-                  "FlightRecorder": "B9", "SLOEngine": "B9",
-                  "GangScheduling": "B8"}
+UNPORTED_GATES = {"WarmRestart": "B7", "HAFailover": "B7",
+                  "FlightRecorder": "B9", "SLOEngine": "B9"}
 
 # the reference's command-line options the port does not read → (the value
 # that leaves them off, the ROADMAP.md queue B item that ports their reader)
 UNPORTED_FLAGS = {
-    "forecast": (False, "B6"), "forecast_cadence_s": (30.0, "B6"),
-    "forecast_horizon_s": (900.0, "B6"), "forecast_lead_s": (180.0, "B6"),
-    "forecast_ttl_s": (600.0, "B6"),
-    "forecast_model": ("holtwinters", "B6"),
     "leader_elect": (False, "B7"), "lease_path": ("", "B7"),
     "lease_ttl_s": (15.0, "B7"), "warm_restart": (False, "B7"),
     "snapshot_path": ("", "B7"), "snapshot_interval_s": (30.0, "B7"),
     "ha_failover": (False, "B7"),
-    "gang_scheduling": (False, "B8"),
     "log_format": ("text", "B9"), "trace_slow_ms": (0.0, "B9"),
     "enable_profiling": (False, "B9"), "flight_recorder": (False, "B9"),
     "incident_dir": ("", "B9"), "incident_window_s": (600.0, "B9"),
@@ -150,6 +143,17 @@ class Options:
     chaos_spec: str = ""                    # utils/chaos.py rule DSL (off)
     chaos_seed: int = 0                     # chaos schedule seed
     ingest_max_events: int = 100_000        # IngestBatch pending cap → rebuild
+    # forecast/headroom knobs (read only with the Forecast gate on); the
+    # first five have flags, the rest come from a scenario's forecast block
+    forecast_cadence_s: float = 30.0       # HeadroomController reconcile cadence
+    forecast_horizon_s: float = 900.0      # forecast window length
+    forecast_lead_s: float = 180.0         # window starts this far ahead
+    forecast_ttl_s: float = 600.0          # placeholder lifetime
+    forecast_model: str = "holtwinters"    # "ewma" | "holtwinters"
+    forecast_bucket_s: float = 60.0        # demand-series bucket width
+    forecast_confidence: float = 1.64      # z for the upper band (~p95)
+    forecast_max_cost_frac: float = 0.10   # headroom $/h cap vs cluster rate
+    forecast_season_s: float = 86_400.0    # Holt-Winters season (diurnal)
 
     @classmethod
     def from_args(cls, argv: Optional[Sequence[str]] = None) -> "Options":
@@ -297,16 +301,18 @@ class Options:
         if off:
             raise NotImplementedError(f"{', '.join(off)} is not ported yet")
         opts = cls(**{f.name: getattr(ns, f.name) for f in fields(cls)
-                      if f.name != "feature_gates"})
+                      if f.name != "feature_gates" and hasattr(ns, f.name)})
         # env-provided gates apply first; explicit --feature-gates wins
         _parse_kv_list(str(env.get("feature_gates", "")), opts.feature_gates,
                        cast=lambda v: v.lower() != "false")
         for flag, gate in (("lp_refinery", "LPRefinery"),
+                           ("forecast", "Forecast"),
                            ("incremental_arena", "IncrementalArena"),
                            ("sharded_solve", "ShardedSolve"),
                            ("device_decode", "DeviceDecode"),
                            ("device_lp", "DeviceLP"),
-                           ("ingest_batch", "IngestBatch")):
+                           ("ingest_batch", "IngestBatch"),
+                           ("gang_scheduling", "GangScheduling")):
             if getattr(ns, flag):
                 opts.feature_gates[gate] = True
         _parse_kv_list(ns.feature_gates, opts.feature_gates,

@@ -39,8 +39,10 @@ and the `/v1` surface hold the operator's `state_lock` around it.
 
 Left out: the reference's metric families and spans (ROADMAP.md queue B);
 `gathers` counts the gather outcomes ("warm" / "fallback") that its
-`arena_gather` counter records.  The gang-resident index (`gangs_on`)
-comes with gang scheduling (B8), its only reader.  The warm-restart export
+`arena_gather` counter records.  The reference's gang-resident index
+(`gang_residents`, `gangs_on`) stays out: nothing reads it, in the JAX
+package or its tests (gang scheduling, ops/gang.py, walks the nodes' pods
+itself).  The warm-restart export
 (`snapshot_state` / `restore_state`) comes with `state/snapshot.py`, its
 only caller: nothing in the port snapshots state yet, so the arena needs no
 snapshot section until then — a restarted process rebuilds it from the

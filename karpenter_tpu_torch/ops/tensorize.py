@@ -21,6 +21,7 @@ buffers and the kernels' launch shapes repeat across solves.
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -229,9 +230,19 @@ def _class_key(pod: Pod) -> tuple:
 # the per-pod cache invalidates stale ids.  Resets happen ONLY between
 # tensorize calls (see tensorize) — a mid-call reset would let two distinct
 # keys share an id and silently merge classes.
+#
+# Ids come from one process-wide counter that never restarts, and a key is
+# interned with one atomic `setdefault`: a watchdog worker the caller
+# abandoned (utils/watchdog.py) may still be tensorizing beside the next
+# solve, and the reference's read-then-write (`len` of the table as the
+# new id) could hand two new keys the same id.  With the counter no two
+# keys ever share an id, across resets too, and no lock sits on the
+# per-pod path.  Until the first reset the ids equal the reference's (the
+# n-th new key gets n); class order is first appearance either way.
 _CLASS_IDS: Dict[tuple, int] = {}
 _CLASS_GEN = [0]
 _CLASS_IDS_MAX = 1 << 17
+_CLASS_COUNTER = itertools.count()
 
 
 def _class_id(pod: Pod) -> int:
@@ -242,7 +253,7 @@ def _class_id(pod: Pod) -> int:
     k = _class_key(pod)
     cid = _CLASS_IDS.get(k)
     if cid is None:
-        cid = _CLASS_IDS[k] = len(_CLASS_IDS)
+        cid = _CLASS_IDS.setdefault(k, next(_CLASS_COUNTER))
     d["_cid"] = (_CLASS_GEN[0], cid)
     return cid
 

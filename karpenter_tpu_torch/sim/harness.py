@@ -30,11 +30,16 @@ A scenario's `chaos:` block arms the process-global injector
 (utils/chaos.py) for the run, its rules rebased onto the virtual clock and
 its sleeps no-ops, and disarms it when the run ends.
 
-Left out, with the ROADMAP.md queue B item that ports each: the Forecast
-gate (B6), WarmRestart and HAFailover with the leader elector (B7),
-GangScheduling and its time-to-full-gang bookkeeping (B8), FlightRecorder,
-SLOEngine with the cost ledger, and the sim's metric calls (B9).  Setting
-one of those overrides to True raises NotImplementedError naming its item.
+A scenario's `forecast:` block (or the `forecast` override) turns the
+Forecast gate on with the block's knobs, and its `gang:` block (or the
+`gang` override) the GangScheduling gate; time-to-full-gang is tracked
+either way, as in the reference, so an A/B run can read `_gang_full_t` on
+the gate-off side.
+
+Left out, with the ROADMAP.md queue B item that ports each: WarmRestart and
+HAFailover with the leader elector (B7), FlightRecorder, SLOEngine with the
+cost ledger, and the sim's metric calls (B9).  Setting one of those
+overrides to True raises NotImplementedError naming its item.
 """
 
 from __future__ import annotations
@@ -63,8 +68,7 @@ from .clock import EventHeap, VirtualClock
 from .scenario import Scenario, expand
 
 # harness overrides whose features are not ported → ROADMAP.md queue B item
-UNPORTED_OVERRIDES = {"forecast": "B6", "warm_restart": "B7",
-                      "ha_failover": "B7", "gang": "B8",
+UNPORTED_OVERRIDES = {"warm_restart": "B7", "ha_failover": "B7",
                       "flight_recorder": "B9", "slo": "B9"}
 
 log = logging.getLogger("karpenter_tpu_torch.sim")
@@ -127,7 +131,11 @@ class SimHarness:
                  slo: Optional[bool] = None,
                  gang: Optional[bool] = None,
                  device="cuda"):
-        """`incremental_arena` overrides the IncrementalArena gate (default
+        """`forecast` overrides the scenario's forecast.enabled so A/B
+        comparisons can replay one scenario twice — knobs still come from
+        the scenario's forecast block.  `gang` overrides the GangScheduling
+        gate, else the scenario's `gang.enabled` decides (default off).
+        `incremental_arena` overrides the IncrementalArena gate (default
         on): False replays the exact pre-arena full-rebuild code paths, the
         golden byte-identity escape hatch.  `sharded_solve` overrides the
         ShardedSolve gate (default off): goldens are recorded with the gate
@@ -138,14 +146,13 @@ class SimHarness:
         for scenarios whose batches clear the decode floor.  `device_lp`
         overrides the DeviceLP gate (default off): guide misses refine
         in-tick on the PDHG solver — mixes may legitimately differ from the
-        HiGHS path's, so gate-ON runs have their own golden.  `forecast`,
-        `warm_restart`, `ha_failover`, `gang`, `flight_recorder` and `slo`
-        are the reference's overrides of gates the port has not ported:
-        True raises NotImplementedError naming the item.  `device` is where
+        HiGHS path's, so gate-ON runs have their own golden.
+        `warm_restart`, `ha_failover`, `flight_recorder` and `slo` are the
+        reference's overrides of gates the port has not ported: True raises
+        NotImplementedError naming the item.  `device` is where
         the controllers solve ("cuda" by default; "cpu" runs the kernels'
         plain versions)."""
-        asked = dict(forecast=forecast, warm_restart=warm_restart,
-                     ha_failover=ha_failover, gang=gang,
+        asked = dict(warm_restart=warm_restart, ha_failover=ha_failover,
                      flight_recorder=flight_recorder, slo=slo)
         off = [f"the {name} override (ROADMAP.md queue B, item {item})"
                for name, item in UNPORTED_OVERRIDES.items() if asked[name]]
@@ -178,6 +185,25 @@ class SimHarness:
                             ("DeviceLP", device_lp)):
             if value is not None:
                 opts.feature_gates[gate] = bool(value)
+        gs = scenario.gang
+        self._gang_enabled = bool(gang) if gang is not None \
+            else (gs is not None and gs.enabled)
+        if self._gang_enabled:
+            opts.feature_gates["GangScheduling"] = True
+        fc = scenario.forecast
+        fc_on = forecast if forecast is not None \
+            else (fc is not None and fc.enabled)
+        if fc_on:
+            opts.feature_gates["Forecast"] = True
+            if fc is not None:
+                opts.forecast_horizon_s = fc.horizon_s
+                opts.forecast_lead_s = fc.lead_s
+                opts.forecast_ttl_s = fc.ttl_s
+                opts.forecast_bucket_s = fc.bucket_s
+                opts.forecast_confidence = fc.confidence
+                opts.forecast_max_cost_frac = fc.max_cost_frac
+                opts.forecast_model = fc.model
+                opts.forecast_season_s = fc.season_s
         queue = FakeQueue(clock=self.clock)
         cloud = FakeCloud(clock=self.clock, queue=queue)
         cloud.subnets = [SubnetInfo(f"s-{z}", z, 1_000_000, {})
@@ -229,6 +255,13 @@ class SimHarness:
         self.log_entries: List[Dict] = []
         self._arrive_t: Dict[str, float] = {}      # pod uid → arrival time
         self._bind_t: Dict[str, float] = {}        # pod uid → time-to-bind
+        # gang bookkeeping is tracked regardless of the gate so an A/B
+        # run can read time-to-full-gang on the naive (gate-off) side;
+        # only the report section is gated on _gang_enabled
+        self._gang_of: Dict[str, str] = {}         # pod uid → gang name
+        self._gang_members: Dict[str, set] = {}    # gang → member uids
+        self._gang_arrive_t: Dict[str, float] = {}  # gang → first arrival
+        self._gang_full_t: Dict[str, float] = {}   # gang → time to all-bound
         self._departed_unbound = 0
         self._cost_dollar_hours = 0.0
         self._node_hours = 0.0
@@ -309,6 +342,11 @@ class SimHarness:
             now = self.clock.now()
             for p in event.pods:
                 self._arrive_t[p.uid] = now
+                if p.gang_name:
+                    self._gang_of[p.uid] = p.gang_name
+                    self._gang_members.setdefault(
+                        p.gang_name, set()).add(p.uid)
+                    self._gang_arrive_t.setdefault(p.gang_name, now)
             self.cluster.add_pods(event.pods)
         elif isinstance(event, ev.PodDeparture):
             for uid in event.uids:
@@ -317,6 +355,15 @@ class SimHarness:
                     continue
                 if uid not in self._bind_t:
                     self._departed_unbound += 1
+                g = self._gang_of.pop(uid, None)
+                if g is not None:
+                    # departed members shrink the tracked set: a gang
+                    # whose remainder is all bound still counts as full
+                    members = self._gang_members.get(g)
+                    if members is not None:
+                        members.discard(uid)
+                        if not members:
+                            self._gang_members.pop(g, None)
                 self.cluster.delete_pod(pod)
                 self.op.provenance.clear(pod.name)
         elif isinstance(event, ev.SpotReclaim):
@@ -400,6 +447,30 @@ class SimHarness:
             self._log(rec["at"], {"kind": "spot_reclaim_fired",
                                   "instance": rec["instance"],
                                   "honored": honored})
+
+    def _check_gangs(self) -> None:
+        """Sample gang completeness after each tick: the moment every
+        member of a gang is simultaneously bound on ready (non-booting)
+        nodes, record its time-to-full.  Sampling the cluster beats
+        wrapping every (un)bind path — preemption, reclaim recycling,
+        and consolidation all move pods, and a sample can't miss a
+        transition that persists to the next tick."""
+        if not self._gang_members:
+            return
+        now = self.clock.now()
+        for g in sorted(self._gang_members):
+            if g in self._gang_full_t:
+                continue
+            members = self._gang_members[g]
+            full = True
+            for uid in members:
+                pod = self.cluster.pods.get(uid)
+                if pod is None or not pod.node_name or \
+                        pod.node_name in self._booting:
+                    full = False
+                    break
+            if full and members:
+                self._gang_full_t[g] = now - self._gang_arrive_t[g]
 
     # ------------------------------------------------------------------
     # controller ticking + due-time computation
@@ -518,6 +589,7 @@ class SimHarness:
             for rec in self.cloud.deliver_due():
                 self._on_cloud_delivery(rec)
             self._tick()
+            self._check_gangs()
             self._peak_nodes = max(self._peak_nodes,
                                    len(self.cluster.nodes))
             if now >= t_end:

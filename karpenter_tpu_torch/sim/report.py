@@ -8,8 +8,8 @@ two same-seed runs serialize byte-identically; they live on `SimRun`
 instead.
 
 A copy of the JAX package's `sim/report.py` with every ungated section and
-the gated `chaos` section.  The other gated sections come with their
-features: `forecast` (ROADMAP.md queue B item B6), `ha` (B7), `gang` (B8),
+the gated `forecast`, `chaos` and `gang` sections.  The other gated
+sections come with their features: `ha` (ROADMAP.md queue B item B7),
 `incidents`, `slo.budgets`, `ledger` and the cost breakdowns (B9); the
 harness refuses the scenarios and overrides that would turn them on.
 """
@@ -132,6 +132,12 @@ def build_report(harness) -> Dict:
             "tick_exceptions": harness._tick_exceptions,
         },
     }
+    forecast = harness.mgr.controllers.get("forecast")
+    if forecast is not None:
+        # present ONLY when the Forecast gate ran — reports without the
+        # gate carry no forecast section at all
+        report["forecast"] = {k: forecast.stats[k]
+                              for k in sorted(forecast.stats)}
     if getattr(harness, "_chaos_enabled", False):
         # present ONLY when the scenario armed the injector, so every
         # chaos-off report stays byte-identical.  Everything here is
@@ -158,6 +164,37 @@ def build_report(harness) -> Dict:
             chaos_sec["solver_transitions"] = dict(
                 sorted(health.transitions.items()))
         report["chaos"] = chaos_sec
+    if getattr(harness, "_gang_enabled", False):
+        # present ONLY when the GangScheduling gate ran — same conditional
+        # contract as forecast and chaos, so every gate-off
+        # report (all pre-existing goldens) stays byte-identical.  The
+        # time-to-full percentiles come from the harness sampler (virtual
+        # clock); admission/preemption counters from the provisioner's
+        # gang registry, which the sim drives deterministically.
+        fulls: List[float] = sorted(harness._gang_full_t.values())
+        gang_sec: Dict = {
+            "gangs_seen": len(harness._gang_arrive_t),
+            "gangs_full": len(fulls),
+            "time_to_full_gang_s": {
+                "p50": _r(percentile(fulls, 0.50), 3),
+                "p95": _r(percentile(fulls, 0.95), 3),
+                "max": _r(fulls[-1], 3) if fulls else 0.0,
+            },
+        }
+        prov = harness.mgr.controllers.get("provisioning")
+        registry = getattr(prov, "gang_registry", None)
+        if registry is not None:
+            summary = registry.summary()
+            gang_sec["admissions"] = sum(
+                g["admissions"] for g in summary.values())
+            gang_sec["rejections"] = sum(
+                g["rejections"] for g in summary.values())
+            gang_sec["preempted_pods"] = sum(
+                g["preempted"] for g in summary.values())
+            gang_sec["rejected_gangs_at_end"] = sorted(
+                n for n, g in summary.items()
+                if not g["admitted"] and g["rejections"])
+        report["gang"] = gang_sec
     return report
 
 

@@ -1,11 +1,10 @@
 """Scenario DSL: declarative workload waves + fault schedule.
 
-A copy of the JAX package's `sim/scenario.py` with its `chaos:` block (a
-seeded fault schedule for utils/chaos.py) and without the blocks whose
-features the port does not have yet: a document with a `forecast:`
-(ROADMAP.md queue B item B6), `ha:` (B7), `gang:` (B8) or `slo:` (B9) block
-is refused with NotImplementedError naming the item.  Waves keep their gang
-fields, which the reference's gate-off replays read.
+A copy of the JAX package's `sim/scenario.py` with its `forecast:`,
+`chaos:` (a seeded fault schedule for utils/chaos.py) and `gang:` blocks,
+and without the blocks whose features the port does not have yet: a
+document with an `ha:` (ROADMAP.md queue B item B7) or `slo:` (B9) block is
+refused with NotImplementedError naming the item.
 
 A scenario is a YAML document (or the `Scenario` dataclass directly)
 describing what hits the cluster over a virtual-time window:
@@ -241,6 +240,34 @@ class ChaosRuleSpec:
 
 
 @dataclass
+class ForecastSpec:
+    """Forecast/headroom configuration for a scenario (docs/forecast.md).
+    `enabled: true` turns the Forecast gate on for the simulated operator;
+    the knobs map 1:1 onto the forecast_* Options fields."""
+    enabled: bool = True
+    horizon_s: float = 900.0
+    lead_s: float = 180.0
+    ttl_s: float = 600.0
+    bucket_s: float = 60.0
+    confidence: float = 1.64
+    max_cost_frac: float = 0.10
+    model: str = "holtwinters"
+    season_s: float = 86_400.0
+
+    def validate(self) -> None:
+        for fld in ("horizon_s", "lead_s", "ttl_s", "bucket_s",
+                    "confidence", "season_s"):
+            if getattr(self, fld) <= 0:
+                raise ScenarioError(f"forecast: {fld} must be positive")
+        if not 0.0 < self.max_cost_frac <= 1.0:
+            raise ScenarioError("forecast: max_cost_frac must be in (0, 1]")
+        if self.model not in ("ewma", "holtwinters"):
+            raise ScenarioError(
+                f"forecast: unknown model {self.model!r} "
+                "(expected ewma or holtwinters)")
+
+
+@dataclass
 class ChaosSpec:
     """Deterministic fault-injection schedule for a scenario.  `seed: null`
     derives the chaos streams from the run seed, so `--seed` replays move
@@ -255,6 +282,20 @@ class ChaosSpec:
             raise ScenarioError("chaos: needs at least one rule")
         for i, r in enumerate(self.rules):
             r.validate(f"chaos.rules[{i}]")
+
+
+@dataclass
+class GangSpec:
+    """Gang scheduling configuration for a scenario (docs/gang.md).
+    `enabled: true` turns the GangScheduling gate on for the simulated
+    operator — all-or-nothing admission, topology-domain enforcement and
+    tier preemption run over the virtual clock, and the report grows a
+    "gang" section.  The spec lives in the scenario (not a harness flag)
+    so the golden-regeneration one-liner needs no per-case arguments."""
+    enabled: bool = True
+
+    def validate(self) -> None:
+        pass
 
 
 @dataclass
@@ -275,8 +316,12 @@ class Scenario:
         default_factory=lambda: dict(DEFAULT_SIM_INTERVALS))
     workload: List[Wave] = field(default_factory=list)
     faults: List[Fault] = field(default_factory=list)
+    # proactive headroom provisioning (None = Forecast gate stays off)
+    forecast: Optional[ForecastSpec] = None
     # deterministic fault injection (None = injector stays disarmed)
     chaos: Optional[ChaosSpec] = None
+    # gang scheduling (None = GangScheduling gate stays off)
+    gang: Optional[GangSpec] = None
 
     def validate(self) -> None:
         if not self.name:
@@ -296,8 +341,12 @@ class Scenario:
             w.validate()
         for f in self.faults:
             f.validate()
+        if self.forecast is not None:
+            self.forecast.validate()
         if self.chaos is not None:
             self.chaos.validate()
+        if self.gang is not None:
+            self.gang.validate()
         names = [w.name for w in self.workload]
         if len(set(names)) != len(names):
             raise ScenarioError(f"duplicate wave names: {names}")
@@ -330,6 +379,11 @@ _FAULT_FIELDS = {
     "duration_s": float, "factor": float, "jitter": float,
     "latency_s": float,
 }
+_FORECAST_FIELDS = {
+    "enabled": bool, "horizon_s": float, "lead_s": float, "ttl_s": float,
+    "bucket_s": float, "confidence": float, "max_cost_frac": float,
+    "model": str, "season_s": float,
+}
 _CHAOS_RULE_FIELDS = {
     "point": str, "key": str, "action": str, "rate": float, "at_s": float,
     "until_s": float, "latency_s": float, "count": int, "error_code": str,
@@ -337,7 +391,10 @@ _CHAOS_RULE_FIELDS = {
 # scenario blocks whose features are not ported yet → the ROADMAP.md queue
 # B item that ports each; a document carrying one is refused, never run
 # with the block dropped
-UNPORTED_BLOCKS = {"forecast": "B6", "ha": "B7", "slo": "B9", "gang": "B8"}
+UNPORTED_BLOCKS = {"ha": "B7", "slo": "B9"}
+_GANG_FIELDS = {
+    "enabled": bool,
+}
 
 
 def _coerce(ctx: str, doc: Dict, schema: Dict) -> Dict:
@@ -365,8 +422,9 @@ def scenario_from_dict(doc: Dict) -> Scenario:
     if not isinstance(doc, dict):
         raise ScenarioError(f"scenario document must be a mapping, "
                             f"got {type(doc).__name__}")
-    known = {"name", "zones", "intervals", "workload", "faults", "chaos",
-             *UNPORTED_BLOCKS, *_SCENARIO_SCALARS}
+    known = {"name", "zones", "intervals", "workload", "faults",
+             "forecast", "chaos", "gang", *UNPORTED_BLOCKS,
+             *_SCENARIO_SCALARS}
     for key in doc:
         if key not in known:
             raise ScenarioError(f"unknown scenario field {key!r} "
@@ -413,6 +471,15 @@ def scenario_from_dict(doc: Dict) -> Scenario:
             fkw["pools"] = [tuple(str(x) for x in p) for p in f["pools"]]
         faults.append(Fault(**fkw))
     kw["faults"] = faults
+    if doc.get("forecast") is not None:
+        fdoc = doc["forecast"]
+        if not isinstance(fdoc, dict):
+            raise ScenarioError("forecast must be a mapping")
+        for key in fdoc:
+            if key not in _FORECAST_FIELDS:
+                raise ScenarioError(f"forecast: unknown field {key!r}")
+        kw["forecast"] = ForecastSpec(
+            **_coerce("forecast", fdoc, _FORECAST_FIELDS))
     if doc.get("chaos") is not None:
         cdoc = doc["chaos"]
         if not isinstance(cdoc, dict):
@@ -434,6 +501,14 @@ def scenario_from_dict(doc: Dict) -> Scenario:
             enabled=bool(cdoc.get("enabled", True)),
             seed=None if cdoc.get("seed") is None else int(cdoc["seed"]),
             rules=rules)
+    if doc.get("gang") is not None:
+        gdoc = doc["gang"]
+        if not isinstance(gdoc, dict):
+            raise ScenarioError("gang must be a mapping")
+        for key in gdoc:
+            if key not in _GANG_FIELDS:
+                raise ScenarioError(f"gang: unknown field {key!r}")
+        kw["gang"] = GangSpec(**_coerce("gang", gdoc, _GANG_FIELDS))
     sc = Scenario(**kw)
     sc.validate()
     return sc

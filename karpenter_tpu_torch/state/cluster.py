@@ -16,9 +16,13 @@ consolidation SimulationArena gather warm instead of re-running
 mutators that bump it in the reference: the simulation arena's staleness
 guard and the disruption controller's fingerprint cache read it.
 
+`observer` is the demand observer hook (forecast/series.py DemandSeries,
+wired by the Forecast gate): the mutators call its `pod_added`,
+`pod_removed` and `pod_bound` where the reference's do.
+
 Left out until their slices land (ROADMAP.md queue B): the warm-restart
-snapshot (`snapshot_state` / `restore_state`), the demand observer hook
-and the metric families the mutators feed.
+snapshot (`snapshot_state` / `restore_state`, B7) and the metric families
+the mutators feed (B9).
 """
 
 from __future__ import annotations
@@ -51,6 +55,10 @@ class Cluster:
         self.nodeclaims: Dict[str, NodeClaim] = {}
         self.pods: Dict[str, Pod] = {}
         self.pdbs: Dict[str, PodDisruptionBudget] = {}
+        # optional demand observer (forecast/series.py DemandSeries): gets
+        # pod_added/pod_removed/pod_bound callbacks; None unless the
+        # Forecast gate wires one
+        self.observer = None
         # optional persistent delta arena (ops/arena.py ClusterArena): every
         # mutator below forwards its delta so consumers can gather warm
         # tensors instead of re-running tensorize_nodes; None unless
@@ -78,6 +86,8 @@ class Cluster:
         # hits the caches
         _class_key(pod)
         pod_is_soft(pod)
+        if self.observer is not None:
+            self.observer.pod_added(pod)
         self.mutation_epoch += 1
         if self.arena is not None:
             self.arena.apply_pod_add(pod)
@@ -87,18 +97,21 @@ class Cluster:
         return [self.add_pod(p) for p in pods]
 
     def delete_pod(self, pod: Pod):
-        self.pods.pop(pod.uid, None)
+        existed = self.pods.pop(pod.uid, None) is not None
         bound_to = ""
         if pod.node_name and pod.node_name in self.nodes:
             node = self.nodes[pod.node_name]
             node.pods = [p for p in node.pods if p.uid != pod.uid]
             bound_to = node.name
+        if existed and self.observer is not None:
+            self.observer.pod_removed(pod)
         self.mutation_epoch += 1
         if self.arena is not None:
             self.arena.apply_pod_remove(pod, bound_to)
 
     def bind_pod(self, pod: Pod, node_name: str):
         old_node = pod.node_name
+        rebind = bool(old_node)
         if pod.node_name and pod.node_name in self.nodes:
             old = self.nodes[pod.node_name]
             old.pods = [p for p in old.pods if p.uid != pod.uid]
@@ -106,6 +119,8 @@ class Cluster:
         node = self.nodes[node_name]
         node.pods.append(pod)
         node.nominated_until = 0.0  # nomination fulfilled
+        if not rebind and self.observer is not None:
+            self.observer.pod_bound(pod)   # first bind only
         self.mutation_epoch += 1
         if self.arena is not None:
             self.arena.apply_pod_bind(pod, node_name, old_node)
@@ -147,6 +162,8 @@ class Cluster:
                 # pods are gone for good (termination semantics)
                 if not p.owner_kind:
                     self.pods.pop(p.uid, None)
+                    if self.observer is not None:
+                        self.observer.pod_removed(p)
             node.pods = []
             self.mutation_epoch += 1
             if self.arena is not None:

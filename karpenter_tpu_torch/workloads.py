@@ -1641,3 +1641,307 @@ GOLDEN_V1_SOLVE: Dict[str, object] = dict(
     deferred=0,
     sha256='6f6af742d2386c63e50542812acd01d0'
            '93e384bde892ecfced2340d3e2dc3fe1')
+
+
+# ---------------------------------------------------------------------------
+# The gang cell: Provisioner(gang_scheduling=True) at full width
+# ---------------------------------------------------------------------------
+
+GANG_CELL = "provision-gang-50k"
+GANG_SEED = 14                     # the draw of the gang members
+GANG_LAUNCH_T = 1000.0             # the stepped clock through the rounds
+GANG_TICK_AFTER_S = 600.0          # the disruption tick: this long after
+# slots a round: a gang's members are classes of their own, so the guided
+# round 1 opens more nodes than the live cell's 1463 (with the default
+# 2048 it runs out of slots and leaves half the burst pending)
+GANG_MAX_NODES = 8192
+# round 1: of the headline's 50 000 pods, 1024 gangs of 4 (tier 1, zone
+# topology), and 64 gangs that declare 4 members and bring 3
+GANG_R1 = dict(gangs=1024, size=4, tier=1, topology="zone", short=64)
+# beside them, GANG_R1_SPLIT more gangs of 4 (tier 1, zone topology) pin
+# members 0-1 and 2-3 to two zones (a zone straddle, which eviction cannot
+# mend), and GANG_R1_HUGE gangs of 4 at tier 0 carry one member no
+# instance type holds (a partial placement; tier 0 outranks nobody)
+GANG_R1_SPLIT = dict(gangs=4, size=4, tier=1, topology="zone", short=0)
+GANG_R1_HUGE = dict(gangs=4, size=4, tier=0, topology="zone", short=0)
+GANG_HUGE_CPU_M = 10_000_000
+# round 2: of PROVISION_ROUND2's 20 000 pods, 256 gangs of 8 (tier 2,
+# hostname topology) whose members each request GANG_R2_MEMBER: a gang of
+# 48 vCPU fits one node, yet a third of them land on two (a straddle, with
+# a preemption plan)
+GANG_R2 = dict(gangs=256, size=8, tier=2, topology="hostname", short=0)
+GANG_R2_MEMBER = dict(cpu_m=6000, mem_gib=12)
+# the CPU tests' copy: bursts and gang counts divided by this (5000 + 2000
+# pods, 102 + 25 gangs, 6 short ones)
+GANG_SMALL_SCALE = 10
+
+
+def _form_gangs(pods, pick: List[int], prefix: str, gangs: int, size: int,
+                tier: int, topology: str, short: int) -> List[list]:
+    """Turn `gangs` runs of `size` of the pod positions `pick` and then
+    `short` runs of `size - 1` into gangs named `<prefix>-g<i>`, in place;
+    returns the gangs' members."""
+    runs = [pick[i * size:(i + 1) * size] for i in range(gangs)]
+    at = gangs * size
+    runs += [pick[at + i * (size - 1):at + (i + 1) * (size - 1)]
+             for i in range(short)]
+    out = []
+    for gi, members in enumerate(runs):
+        for i in members:
+            p = pods[i]
+            p.gang_name = f"{prefix}-g{gi:04d}"
+            p.gang_size = size
+            p.gang_tier = tier
+            p.gang_topology = topology
+        out.append([pods[i] for i in members])
+    return out
+
+
+def _members(spec: Dict) -> int:
+    return spec["gangs"] * spec["size"] + spec["short"] * (spec["size"] - 1)
+
+
+def gang_rounds(build_pods: Callable, scale: int = 1) -> List[list]:
+    """The cell's two bursts, built by `build_pods` (the bench's or this
+    module's, so either package's pods), the gang members drawn by one
+    seeded numpy stream (positions sorted, so most of a gang shares one
+    spec): the headline with GANG_R1's, GANG_R1_SPLIT's and GANG_R1_HUGE's
+    gangs, then PROVISION_ROUND2 with GANG_R2's.  `scale` divides the
+    bursts and GANG_R1's and GANG_R2's gang counts (GANG_SMALL_SCALE is the
+    CPU tests' copy); the split and huge gangs stay four each."""
+    def cut(spec: Dict) -> Dict:
+        return dict(spec, gangs=spec["gangs"] // scale,
+                    short=spec["short"] // scale)
+    rng = np.random.default_rng(GANG_SEED)
+    r1 = build_pods(rng=np.random.default_rng(HEADLINE_SEED),
+                    **dict(HEADLINE, total=HEADLINE["total"] // scale))
+    specs = [("r1", cut(GANG_R1)), ("r1s", GANG_R1_SPLIT),
+             ("r1h", GANG_R1_HUGE)]
+    pick = rng.choice(len(r1), size=sum(_members(s) for _, s in specs),
+                      replace=False)
+    at, formed = 0, {}
+    for prefix, spec in specs:
+        n = _members(spec)
+        formed[prefix] = _form_gangs(r1, np.sort(pick[at:at + n]).tolist(),
+                                     prefix, **spec)
+        at += n
+    for members in formed["r1s"]:
+        for j, p in enumerate(members):
+            p.node_selector = {wk.ZONE: ("zone-a", "zone-b")[j // 2]}
+    for members in formed["r1h"]:
+        p = members[0]
+        p.requests = type(p.requests)({CPU: GANG_HUGE_CPU_M, MEMORY: 2**30})
+    r2 = build_pods(rng=np.random.default_rng(PROVISION_ROUND2_SEED),
+                    **dict(PROVISION_ROUND2,
+                           total=PROVISION_ROUND2["total"] // scale))
+    spec = cut(GANG_R2)
+    pick = np.sort(rng.choice(len(r2), size=_members(spec),
+                              replace=False)).tolist()
+    for members in _form_gangs(r2, pick, "r2", **spec):
+        for p in members:
+            p.requests = type(p.requests)(
+                {CPU: GANG_R2_MEMBER["cpu_m"],
+                 MEMORY: GANG_R2_MEMBER["mem_gib"] * 2**30})
+    return [r1, r2]
+
+
+@dataclass
+class GangEnv:
+    """The gang cell's objects: the stepped clock, the provisioning env
+    (`Provisioner(gang_scheduling=True)`) and the DisruptionController fed
+    by its `take_preemption_plan`."""
+    clock: SteppedClock
+    penv: ProvisionEnv
+    disruption: object
+
+
+def gang_env(kit, catalog, **extra) -> GangEnv:
+    """The gang cell from `kit` (a namespace of one package's FakeCloud,
+    CloudProvider, Cluster, Provisioner, DisruptionController and
+    NodePool) over `catalog`: one default NodePool on a stepped clock, the
+    default guided Provisioner with the GangScheduling gate, and a
+    DisruptionController whose `gang_source` is the Provisioner's plan
+    queue.  `extra` is the port's `device`."""
+    clock = SteppedClock(GANG_LAUNCH_T)
+    cloud = kit.FakeCloud(clock)
+    provider = kit.CloudProvider(cloud, catalog, clock=clock)
+    cluster = kit.Cluster(clock)
+    pools = [kit.NodePool()]
+    prov = kit.Provisioner(provider, cluster, pools, clock=clock,
+                           gang_scheduling=True,
+                           max_nodes_per_round=GANG_MAX_NODES, **extra)
+    disruption = kit.DisruptionController(
+        provider, cluster, pools, clock=clock,
+        gang_source=prov.take_preemption_plan, **extra)
+    return GangEnv(clock, ProvisionEnv(cloud, provider, cluster, prov),
+                   disruption)
+
+
+def _gang_audits(before: Dict, after: Dict) -> Dict:
+    """One round's audits from the registry's summaries around it: the
+    gangs admitted by tier, and rejected by reason and tier."""
+    admitted: Dict[str, int] = {}
+    rejected: Dict[str, Dict[str, int]] = {}
+    for name, rec in after.items():
+        old = before.get(name, {"admissions": 0, "rejections": 0})
+        tier = str(rec["tier"])
+        if rec["admissions"] > old["admissions"]:
+            admitted[tier] = admitted.get(tier, 0) + 1
+        if rec["rejections"] > old["rejections"]:
+            by_tier = rejected.setdefault(rec["last_reason"], {})
+            by_tier[tier] = by_tier.get(tier, 0) + 1
+    return dict(admitted=dict(sorted(admitted.items())),
+                rejected={r: dict(sorted(t.items()))
+                          for r, t in sorted(rejected.items())})
+
+
+def _plan_signature(plan, pod_pos: Dict[str, int],
+                    node_pos: Dict[str, int]) -> List:
+    """A preemption plan by positions: the gang, its tier and topology,
+    the domain (a zone, or a node's launch position), and the victims in
+    order as (pod admission position, node launch position, tier, cost)."""
+    domain = (plan.domain if plan.topology == "zone"
+              else node_pos.get(plan.domain, -1))
+    return [plan.gang, plan.tier, plan.topology, domain,
+            [[pod_pos[v.uid], node_pos[v.node], v.tier, v.cost]
+             for v in plan.victims], plan.total_cost]
+
+
+def _digest(obj) -> str:
+    return hashlib.sha256(json.dumps(obj).encode()).hexdigest()
+
+
+def gang_replay(env: GangEnv, build_pods: Callable,
+                provision: Callable = provision_pending,
+                tick: Optional[Callable] = None, scale: int = 1) -> Dict:
+    """The gang cell: each of `gang_rounds(build_pods, scale)`' bursts
+    added to the cluster and provisioned (`provision`, by default
+    `provision_pending`, so a caller can time it), then one
+    DisruptionController reconcile GANG_TICK_AFTER_S later (`tick()` runs
+    it), which executes the first queued preemption plan.  Returns per
+    round its provisioning signature, its audits and its queued plans
+    (their count, digest and first plan), the tick's action and evicted
+    pods, and the registry's final state (digest and totals)."""
+    penv, cluster, prov = env.penv, env.penv.cluster, env.penv.provisioner
+    rounds = []
+    for pods in gang_rounds(build_pods, scale):
+        cluster.add_pods(pods)
+        before = prov.gang_registry.summary()
+        sig, _ = provision(penv)
+        after = prov.gang_registry.summary()
+        pod_pos = {uid: i for i, uid in enumerate(cluster.pods)}
+        node_pos = {name: i for i, name in enumerate(cluster.nodes)}
+        plans = [_plan_signature(p, pod_pos, node_pos)
+                 for p in prov.gang_preemption_plans.values()]
+        rounds.append(dict(
+            signature=sig, audits=_gang_audits(before, after),
+            plans=len(plans), plans_digest=_digest(plans),
+            first_plan=plans[0] if plans else None))
+    env.clock.t = GANG_LAUNCH_T + GANG_TICK_AFTER_S
+    pod_pos = {uid: i for i, uid in enumerate(cluster.pods)}
+    bound = {uid for uid, p in cluster.pods.items() if p.node_name}
+    res = (tick or env.disruption.reconcile)()
+    action = res.action
+    evicted = sorted(pod_pos[uid] for uid in bound
+                     if not cluster.pods[uid].node_name)
+    summary = prov.gang_registry.summary()
+    return dict(
+        rounds=rounds,
+        tick=dict(action=None if action is None
+                  else [action.kind, action.reason],
+                  evicted=evicted, plans_left=len(prov.gang_preemption_plans)),
+        registry=dict(
+            gangs=len(summary),
+            admitted=sum(1 for g in summary.values() if g["admitted"]),
+            admissions=sum(g["admissions"] for g in summary.values()),
+            rejections=sum(g["rejections"] for g in summary.values()),
+            preempted=sum(g["preempted"] for g in summary.values()),
+            digest=_digest(summary)))
+
+# `gang_replay(gang_env(...))` on the JAX package, on the CPU
+# (tests/test_torch_gang_golden.py): provision-gang-50k in full, and its
+# 5000-pod copy (scale GANG_SMALL_SCALE), which the port reproduces on the
+# CPU (tests/test_torch_gang_cell.py)
+GOLDEN_GANG: Dict[str, object] = {'rounds': [{'signature': {'digest': 'e1b724f0e4516feee74e97b5853187f4d98d2fbbaae1cafbb858facf51d6933d',
+                           'launched': 5852,
+                           'bound_new': 49596,
+                           'bound_existing': 0,
+                           'unschedulable': 404,
+                           'total_price': 4986.60800000016},
+             'audits': {'admitted': {'1': 979},
+                        'rejected': {'incomplete': {'1': 64},
+                                     'partial': {'0': 4},
+                                     'straddle': {'1': 49}}},
+             'plans': 0,
+             'plans_digest': '4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945',
+             'first_plan': None},
+            {'signature': {'digest': '241abd3b9ddd5ba8dbd251dd613bba68b8930ec5be1c866a3d3313d8bfc3de97',
+                           'launched': 1719,
+                           'bound_new': 18045,
+                           'bound_existing': 1287,
+                           'unschedulable': 1072,
+                           'total_price': 2672.663399999987},
+             'audits': {'admitted': {'1': 3, '2': 171},
+                        'rejected': {'incomplete': {'1': 64},
+                                     'partial': {'0': 4},
+                                     'straddle': {'1': 46, '2': 85}}},
+             'plans': 85,
+             'plans_digest': 'cc5e8cc01cedc5a32854b0e7795bb29288586be48fa59451ccd1e05640dae1b9',
+             'first_plan': ['r2-g0000',
+                            2,
+                            'hostname',
+                            310,
+                            [[6552, 310, 0, 1.0],
+                             [7750, 310, 0, 1.0],
+                             [23750, 310, 0, 1.0]],
+                            3.0]}],
+ 'tick': {'action': ['preempt', 'gang'],
+          'evicted': [6552, 7750, 23750],
+          'plans_left': 84},
+ 'registry': {'gangs': 1352,
+              'admitted': 1153,
+              'admissions': 1153,
+              'rejections': 316,
+              'preempted': 3,
+              'digest': 'b903499595ee7217d05a8100a5b7924959100cbba6d9d3c02f6f1fb47565546b'}}
+
+GOLDEN_GANG_SMALL: Dict[str, object] = {'rounds': [{'signature': {'digest': '134123ab78ac51030f639c1b99738bf40eb375bcdb7abb0d508b2656f206d6bd',
+                           'launched': 949,
+                           'bound_new': 4798,
+                           'bound_existing': 0,
+                           'unschedulable': 202,
+                           'total_price': 497.1440999999967},
+             'audits': {'admitted': {'1': 64},
+                        'rejected': {'incomplete': {'1': 6},
+                                     'partial': {'0': 4},
+                                     'straddle': {'1': 42}}},
+             'plans': 0,
+             'plans_digest': '4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945',
+             'first_plan': None},
+            {'signature': {'digest': 'cab3a116e7bc86765ceb83e25e0363c0c188290d6904343fe1859335103f5d18',
+                           'launched': 308,
+                           'bound_new': 1641,
+                           'bound_existing': 263,
+                           'unschedulable': 298,
+                           'total_price': 257.3681000000008},
+             'audits': {'admitted': {'1': 6, '2': 10},
+                        'rejected': {'incomplete': {'1': 6},
+                                     'partial': {'0': 4},
+                                     'straddle': {'1': 36, '2': 15}}},
+             'plans': 19,
+             'plans_digest': '1337a8562e066b13d9e74bf5e9ca842dbf0f39f94260d3e9f398a0a20c6e8a06',
+             'first_plan': ['r1-g0002',
+                            1,
+                            'zone',
+                            'zone-b',
+                            [[175, 279, 0, 1.0], [176, 280, 0, 1.0]],
+                            2.0]}],
+ 'tick': {'action': ['preempt', 'gang'],
+          'evicted': [175, 176],
+          'plans_left': 18},
+ 'registry': {'gangs': 141,
+              'admitted': 80,
+              'admissions': 80,
+              'rejections': 113,
+              'preempted': 2,
+              'digest': '3cf63e720f738abc823a6006b30d8b5bbfa0aae96562cd4b833e7d1751cb0a54'}}

@@ -385,14 +385,6 @@ def test_controller_defaults_to_cuda_and_raises_without_it(monkeypatch):
                         f.provider.get_instance_types(), f.pools)
 
 
-def test_unported_controller_options_raise():
-    """Gang preemption (`gang_source`, ROADMAP.md item 8) raises."""
-    f = workloads.consolidation_fleet(n_nodes=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DisruptionController(f.provider, f.cluster, f.pools, clock=f.clock,
-                             device="cpu", gang_source=lambda: None)
-
-
 def test_cpu_decision_launches_no_kernel():
     f = workloads.consolidation_fleet(n_nodes=40)
     ck.reset_launches()

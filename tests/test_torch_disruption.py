@@ -817,18 +817,27 @@ def test_disruption_events_published():
 
 # ---- the port's boundaries ----
 
-def test_terminator_is_wired_and_the_rest_still_raises():
+def test_terminator_and_gang_source_are_wired():
+    """`terminator`, and `gang_source` (the GangScheduling gate's plan
+    queue, refused before gang scheduling was ported): a tick whose source
+    yields a plan executes it ahead of every other method."""
     f = workloads.consolidation_fleet(n_nodes=4)
     term = object()
     ctrl = port_dmod.DisruptionController(f.provider, f.cluster, f.pools,
                                           clock=f.clock, device="cpu",
                                           terminator=term)
-    assert ctrl.terminator is term
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 8"):
-        port_dmod.DisruptionController(f.provider, f.cluster, f.pools,
-                                       clock=f.clock, device="cpu",
-                                       terminator=term,
-                                       gang_source=lambda: None)
+    assert ctrl.terminator is term and ctrl.gang_source is None
+    from karpenter_tpu_torch.ops.gang import PreemptionPlan
+    plans = [PreemptionPlan(gang="g", tier=1, topology="zone",
+                            domain="zone-a", victims=[], total_cost=0.0)]
+    ctrl = port_dmod.DisruptionController(
+        f.provider, f.cluster, f.pools, clock=f.clock, device="cpu",
+        terminator=term, drift_enabled=False,
+        gang_source=lambda: plans.pop() if plans else None)
+    action = ctrl.reconcile().action
+    assert (action.kind, action.reason, action.candidates) == \
+        ("preempt", "gang", [])
+    assert not plans
 
 
 def test_health_and_watchdog_are_wired():

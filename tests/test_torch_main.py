@@ -82,14 +82,10 @@ def test_env_defaults_equal_the_reference(monkeypatch):
 
 
 REFUSED = [
-    (["--forecast"], "B6"), (["--forecast-horizon", "60"], "B6"),
-    (["--forecast-cadence", "5"], "B6"), (["--forecast-lead", "5"], "B6"),
-    (["--forecast-ttl", "5"], "B6"), (["--forecast-model", "ewma"], "B6"),
     (["--leader-elect"], "B7"), (["--lease-path", "/x"], "B7"),
     (["--lease-ttl", "3"], "B7"), (["--warm-restart"], "B7"),
     (["--snapshot-path", "/x"], "B7"), (["--snapshot-interval", "3"], "B7"),
     (["--ha-failover"], "B7"),
-    (["--gang-scheduling"], "B8"),
     (["--log-format", "json"], "B9"), (["--trace-slow-ms", "5"], "B9"),
     (["--enable-profiling"], "B9"), (["--flight-recorder"], "B9"),
     (["--incident-dir", "/x"], "B9"), (["--incident-window", "5"], "B9"),
@@ -107,6 +103,40 @@ def test_flags_of_unported_features_are_refused(argv, item):
     RefOptions.from_args(argv)              # the reference takes them
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Options.from_args(argv)
+
+
+# the forecast and gang flags, refused until their features were ported
+FORECAST_GANG_FLAGS = [
+    ["--forecast"], ["--forecast-horizon", "60"], ["--forecast-cadence", "5"],
+    ["--forecast-lead", "5"], ["--forecast-ttl", "5"],
+    ["--forecast-model", "ewma"], ["--gang-scheduling"],
+    ["--forecast", "--gang-scheduling", "--forecast-model", "ewma",
+     "--forecast-cadence", "15", "--forecast-horizon", "600",
+     "--feature-gates", "Forecast=false"],
+]
+
+
+@pytest.mark.parametrize("argv", FORECAST_GANG_FLAGS,
+                         ids=[a[0] for a in FORECAST_GANG_FLAGS[:-1]]
+                         + ["all-and-a-gate-off"])
+def test_forecast_and_gang_flags_equal_the_reference(argv):
+    got = dataclasses.asdict(Options.from_args(argv))
+    assert got == kept(RefOptions.from_args(argv))
+    if argv == ["--forecast"]:
+        assert got["feature_gates"]["Forecast"]
+    if argv == ["--gang-scheduling"]:
+        assert got["feature_gates"]["GangScheduling"]
+
+
+def test_forecast_env_defaults_equal_the_reference(monkeypatch):
+    for k, v in (("FORECAST_MODEL", "ewma"), ("FORECAST_CADENCE_S", "12"),
+                 ("FORECAST_HORIZON_S", "300"), ("FORECAST_LEAD_S", "60"),
+                 ("FORECAST_TTL_S", "90")):
+        monkeypatch.setenv(f"KARPENTER_TPU_{k}", v)
+    for argv in ([], ["--forecast-model", "holtwinters"]):
+        assert dataclasses.asdict(Options.from_args(argv)) == \
+            kept(RefOptions.from_args(argv))
+    assert Options.from_args([]).forecast_model == "ewma"
 
 
 @pytest.mark.parametrize("argv", [["--vm-memory-overhead-percent", "0.1"],
@@ -145,13 +175,12 @@ def test_chaos_env_defaults_equal_the_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("env,item", [("LEADER_ELECT", "B7"),
-                                      ("LOG_FORMAT", "B9"),
-                                      ("FORECAST_MODEL", "B6")])
+                                      ("LOG_FORMAT", "B9")])
 def test_env_defaults_of_unported_features_are_refused(monkeypatch, env,
                                                        item):
     monkeypatch.setenv(f"KARPENTER_TPU_{env}",
-                       {"LEADER_ELECT": "true", "LOG_FORMAT": "json",
-                        "FORECAST_MODEL": "ewma"}.get(env, "a=b"))
+                       {"LEADER_ELECT": "true",
+                        "LOG_FORMAT": "json"}.get(env, "a=b"))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Options.from_args([])
 

@@ -104,7 +104,7 @@ def test_defaults():
 @pytest.mark.parametrize("field", [
     "leader_elect", "lease_path", "snapshot_path", "log_format",
     "trace_slow_ms", "enable_profiling", "incident_dir", "slo_eval_cadence_s",
-    "lease_ttl_s", "forecast_horizon_s"])
+    "lease_ttl_s", "obs_sample_s"])
 def test_options_the_port_does_not_read_are_refused(field):
     """An option of the reference that nothing in the port reads is not a
     field of the port's Options: setting one fails at construction instead
@@ -329,8 +329,8 @@ def test_operator_without_device_raises_without_a_card():
 
 
 @pytest.mark.parametrize("gate,item", [
-    ("Forecast", "B6"), ("WarmRestart", "B7"), ("HAFailover", "B7"),
-    ("FlightRecorder", "B9"), ("SLOEngine", "B9"), ("GangScheduling", "B8")])
+    ("WarmRestart", "B7"), ("HAFailover", "B7"),
+    ("FlightRecorder", "B9"), ("SLOEngine", "B9")])
 def test_unported_gates_raise_naming_their_roadmap_item(gate, item):
     from karpenter_tpu_torch.catalog.generate import generate_catalog
     from karpenter_tpu_torch.operator import Operator, Options

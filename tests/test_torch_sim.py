@@ -1,20 +1,24 @@
 """The port's simulator (karpenter_tpu_torch/sim/) against the JAX
-package's, case by case with tests/test_sim.py's cases that need no
-forecast, HA, SLO or gang block: the clock and heap primitives, the
-scenario DSL (with its `chaos:` block), the clock-scheduled interruption
+package's, case by case with tests/test_sim.py's cases that need no HA or
+SLO block: the clock and heap primitives, the scenario DSL (with its
+`forecast:`, `chaos:` and `gang:` blocks), the clock-scheduled interruption
 pipeline, determinism (the same seed gives a byte-identical log and
 report), the harness's cases, and the CLI.  Each case runs on both packages
 and returns plain observations that must be equal; the port's controllers
 solve on the CPU.
 
 Then the canned goldens of tests/golden/ that carry no gated section but
-`chaos` — diurnal, spot-reclaim-storm, ice-starvation, steady-state-drip,
-long-soak and chaos-storm at tests/test_sim.py's horizons — replayed by the
-port on the CPU byte for byte, with the arena gate off for drip, soak and
-chaos-storm and the IngestBatch gate on for drip; and the port's own
-boundaries: no `time.sleep` in its sim/, and every scenario block and
-harness override of an unported feature refused, naming its ROADMAP.md
-item.
+`forecast`, `chaos` and `gang` — diurnal, spot-reclaim-storm,
+ice-starvation, steady-state-drip, long-soak, chaos-storm, diurnal-forecast,
+spot-reclaim-storm-forecast, gang-churn-storm and mixed-priority-diurnal
+at tests/test_sim.py's horizons — replayed by the port on the CPU byte for
+byte, with the arena gate off for drip, soak, chaos-storm and the four
+forecast and gang scenarios, the IngestBatch gate on for drip, and the
+goldens recorded before gang scheduling replayed with the GangScheduling
+(and, where the scenario has no forecast block, the Forecast) gate
+explicitly off; and the port's own boundaries: no `time.sleep` in its
+sim/, and every scenario block and harness override of an unported feature
+refused, naming its ROADMAP.md item.
 """
 
 import dataclasses
@@ -143,7 +147,11 @@ def test_scenario_validation_errors(doc, match):
 
 @pytest.mark.parametrize("fname", ["diurnal.yaml", "spot-reclaim-storm.yaml",
                                    "ice-starvation.yaml",
-                                   "steady-state-drip.yaml", "long-soak.yaml"])
+                                   "steady-state-drip.yaml", "long-soak.yaml",
+                                   "diurnal-forecast.yaml",
+                                   "spot-reclaim-storm-forecast.yaml",
+                                   "gang-churn-storm.yaml",
+                                   "mixed-priority-diurnal.yaml"])
 def test_canned_scenarios_load_and_expand(fname):
     def case(m):
         # the first two virtual hours (long-soak's day is 690k pods)
@@ -192,9 +200,8 @@ def test_adding_a_wave_never_perturbs_siblings():
 
 
 def test_gang_wave_fields_fold_cohorts_into_gangs():
-    """A wave's gang fields (read by the reference's gate-off replays)
-    expand alike; only the `gang:` block, which turns the gate on, is
-    refused."""
+    """A wave's gang fields expand alike: cohorts fold into gangs of
+    `gang_size`, the remainder stays loose."""
     def case(m):
         sc = small_scenario(m, workload=[m.scenario.Wave(
             kind="step", name="g", at_s=10.0, count=7, gang_size=3,
@@ -375,8 +382,7 @@ def test_no_wall_sleeps_in_the_sim_path():
 # refusals of unported features
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("block,item", [
-    ("forecast", "B6"), ("ha", "B7"), ("gang", "B8"), ("slo", "B9")])
+@pytest.mark.parametrize("block,item", [("ha", "B7"), ("slo", "B9")])
 def test_scenario_blocks_of_unported_features_are_refused(block, item):
     from karpenter_tpu_torch.sim.scenario import scenario_from_dict
     doc = {"name": "x", "workload": [{"kind": "step", "name": "w"}],
@@ -385,6 +391,47 @@ def test_scenario_blocks_of_unported_features_are_refused(block, item):
         scenario_from_dict(doc)
     # the reference runs the same document (a refusal, never a drop)
     REF.scenario.scenario_from_dict(doc)
+
+
+@pytest.mark.parametrize("block", [
+    {"forecast": {"enabled": True}},
+    {"forecast": {"model": "ewma", "horizon_s": 300, "lead_s": 60,
+                  "ttl_s": 120, "bucket_s": 30, "confidence": 1.0,
+                  "max_cost_frac": 0.5, "season_s": 3600}},
+    {"forecast": {"enabled": False}},
+    {"gang": {"enabled": True}},
+    {"gang": {}},
+    {"forecast": {"model": "holtwinters"}, "gang": {"enabled": False}},
+], ids=["forecast-on", "forecast-knobs", "forecast-off", "gang-on",
+        "gang-empty", "both"])
+def test_scenario_forecast_and_gang_blocks_parse_as_the_reference(block):
+    """The `forecast:` and `gang:` blocks the port used to refuse: the same
+    document gives the reference's scenario."""
+    doc = {"name": "x", "workload": [{"kind": "step", "name": "w"}], **block}
+    got = both(lambda m: _port_fields(m.scenario.scenario_from_dict(doc)))
+    assert all(got[k] is not None for k in block)
+
+
+@pytest.mark.parametrize("block,match", [
+    ({"forecast": {"colour": 1}}, "unknown field"),
+    ({"forecast": "x"}, "must be a mapping"),
+    ({"forecast": {"ttl_s": 0}}, "ttl_s must be positive"),
+    ({"forecast": {"bucket_s": -1}}, "bucket_s must be positive"),
+    ({"forecast": {"max_cost_frac": 1.5}}, "max_cost_frac"),
+    ({"forecast": {"model": "arima"}}, "unknown model"),
+    ({"gang": {"size": 4}}, "unknown field"),
+    ({"gang": "x"}, "must be a mapping"),
+], ids=["forecast-field", "forecast-type", "ttl", "bucket", "cost", "model",
+        "gang-field", "gang-type"])
+def test_scenario_forecast_and_gang_block_errors_match_the_reference(
+        block, match):
+    doc = {"name": "x", "workload": [{"kind": "step", "name": "w"}], **block}
+
+    def case(m):
+        with pytest.raises(m.scenario.ScenarioError, match=match) as ei:
+            m.scenario.scenario_from_dict(doc)
+        return str(ei.value)
+    both(case)
 
 
 def test_scenario_chaos_block_parses_as_the_reference():
@@ -441,9 +488,16 @@ def test_canned_chaos_storm_loads_as_the_reference():
     assert len(got["chaos"]["rules"]) == 3
 
 
-@pytest.mark.parametrize("fname,item", [
-    ("diurnal-forecast.yaml", "B6"), ("failover-drill.yaml", "B7"),
-    ("gang-churn-storm.yaml", "B8")])
+@pytest.mark.parametrize("fname", [
+    "diurnal-forecast.yaml", "spot-reclaim-storm-forecast.yaml",
+    "gang-churn-storm.yaml", "mixed-priority-diurnal.yaml"])
+def test_canned_forecast_and_gang_scenarios_load_as_the_reference(fname):
+    got = both(lambda m: _port_fields(m.sim.load_scenario(
+        os.path.join(SCENARIOS, fname))))
+    assert got["forecast"] is not None or got["gang"] is not None
+
+
+@pytest.mark.parametrize("fname,item", [("failover-drill.yaml", "B7")])
 def test_canned_scenarios_of_unported_features_are_refused(fname, item):
     with pytest.raises(NotImplementedError, match=f"item {item}") as ei:
         PORT.sim.load_scenario(os.path.join(SCENARIOS, fname))
@@ -452,8 +506,8 @@ def test_canned_scenarios_of_unported_features_are_refused(fname, item):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("forecast", "B6"), ("warm_restart", "B7"), ("ha_failover", "B7"),
-    ("gang", "B8"), ("flight_recorder", "B9"), ("slo", "B9")])
+    ("warm_restart", "B7"), ("ha_failover", "B7"),
+    ("flight_recorder", "B9"), ("slo", "B9")])
 def test_harness_overrides_of_unported_gates_are_refused(override, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         harness(PORT, small_scenario(PORT), **{override: True})
@@ -481,7 +535,8 @@ def test_default_device_needs_a_card():
 # the canned goldens, replayed by the port on the CPU
 # ---------------------------------------------------------------------------
 
-# tests/test_sim.py's GOLDEN_CASES without a gated section but chaos
+# tests/test_sim.py's GOLDEN_CASES without a gated section but forecast,
+# chaos and gang (all but failover-drill)
 GOLDEN_CASES = [
     ("diurnal", "diurnal.yaml", 7200.0),
     ("spot-reclaim-storm", "spot-reclaim-storm.yaml", 7200.0),
@@ -489,7 +544,16 @@ GOLDEN_CASES = [
     ("steady-state-drip", "steady-state-drip.yaml", 300.0),
     ("long-soak", "long-soak.yaml", 120.0),
     ("chaos-storm", "chaos-storm.yaml", 5400.0),
+    ("diurnal-forecast", "diurnal-forecast.yaml", 7200.0),
+    ("spot-reclaim-storm-forecast", "spot-reclaim-storm-forecast.yaml",
+     7200.0),
+    ("gang-churn-storm", "gang-churn-storm.yaml", 7200.0),
+    ("mixed-priority-diurnal", "mixed-priority-diurnal.yaml", 12600.0),
 ]
+# the scenarios recorded before the GangScheduling gate existed, and those
+# of them without a forecast block
+PRE_GANG_CASES = GOLDEN_CASES[:8]
+NO_FORECAST_CASES = GOLDEN_CASES[:6]
 
 
 def _golden(name):
@@ -518,9 +582,37 @@ def test_golden_report(name, fname, duration):
                          ids=[c[0] for c in GOLDEN_CASES[3:]])
 def test_golden_report_arena_gate_off(name, fname, duration):
     """The IncrementalArena gate is a pure optimization on the port too:
-    with it off, drip, soak and chaos-storm reproduce their goldens."""
+    with it off, drip, soak, chaos-storm and the forecast and gang
+    scenarios reproduce their goldens."""
     assert _replay(name, fname, duration, incremental_arena=False) == \
         _golden(name)
+
+
+@pytest.mark.parametrize("name,fname,duration", PRE_GANG_CASES,
+                         ids=[c[0] for c in PRE_GANG_CASES])
+def test_golden_report_gang_gate_off(name, fname, duration):
+    """tests/test_sim.py's gate-off identity: the GangScheduling gate
+    explicitly off leaves every pre-gang golden as it is, and so does the
+    Forecast gate explicitly off where the scenario has no forecast
+    block."""
+    kw = dict(gang=False)
+    if (name, fname, duration) in NO_FORECAST_CASES:
+        kw["forecast"] = False
+    assert _replay(name, fname, duration, **kw) == _golden(name)
+
+
+def test_forecast_override_off_drops_the_section():
+    """`forecast=False` on a forecast scenario replays it without the
+    gate: no forecast section, and the reference's report."""
+    name, fname, duration = GOLDEN_CASES[6]
+
+    def case(m):
+        sc = m.sim.load_scenario(os.path.join(SCENARIOS, fname))
+        run = harness(m, sc, seed=0, duration_s=duration,
+                      forecast=False).run()
+        assert "forecast" not in run.report
+        return m.sim.report_to_json(run.report)
+    assert both(case) != _golden(name)
 
 
 def test_golden_report_ingest_batch_gate_on():

@@ -244,6 +244,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "          'karpenter_tpu_torch.utils.provenance',\n"
         "          'karpenter_tpu_torch.utils.watchdog',\n"
         "          'karpenter_tpu_torch.forecast.headroom',\n"
+        "          'karpenter_tpu_torch.forecast',\n"
+        "          'karpenter_tpu_torch.forecast.series',\n"
+        "          'karpenter_tpu_torch.forecast.model',\n"
+        "          'karpenter_tpu_torch.ops.gang',\n"
         "          'karpenter_tpu_torch.utils.events',\n"
         "          'karpenter_tpu_torch.convert',\n"
         "          'karpenter_tpu_torch.workloads',\n"
@@ -271,28 +275,6 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         tensorize([cpu_pod()], small_catalog(), [NodePool()]))
     with pytest.raises(RuntimeError, match="CUDA"):
         port_cp.solve_classpack(prob, guide=None)
-
-
-@pytest.mark.parametrize("kw", [
-    dict(gang_scheduling=True, sharded_solve=True),
-    dict(gang_scheduling=True),
-    dict(gang_scheduling=True, device_decode=True)],
-    ids=["provisioner-kw1", "provisioner-kw2", "provisioner-kw3"])
-def test_unported_options_raise(kw):
-    """What is not ported yet raises and names ROADMAP.md: gang
-    scheduling, also beside ported options.  The slab decode
-    (`device_decode`) is ported (tests/test_torch_decode.py), as are the
-    sharded driver (`sharded_solve`, tests/test_torch_partitioned.py), the
-    guided path, its refinery and the device LP
-    (tests/test_torch_lpguide.py), and the native C++ packer
-    (`solve_ffd(backend="native")`, tests/test_torch_native.py)."""
-    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
-    from karpenter_tpu_torch.controllers.provisioning import Provisioner
-    from karpenter_tpu_torch.state import Cluster
-    provider = CloudProvider(FakeCloud(), convert.catalog_from_objects(
-        small_catalog()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Provisioner(provider, Cluster(), [], device="cpu", **kw)
 
 
 def test_guide_lp_is_skipped_where_the_reference_skips_it():
