@@ -208,15 +208,15 @@ pass):
                must reproduce the golden too.
  14. the arena and the operator — run after every profiler trace,
                with every kernel wrapper's call spanned by CUDA events and
-               the inputs of its last call on each path kept: (a) the two
-               provisioning cells with a round on a live cluster (live,
-               small) with the cluster's ClusterArena attached before
-               round 1, every round against GOLDEN_PROVISION, each round on a live cluster gathered warm
-               from the arena; (b) disruption-replay-500 with the arena
-               against GOLDEN_DISRUPTION, its consolidation faces gathered
-               warm; (c) the operator cell — Operator(Options()) on the
-               card at full width with build_controllers (BatchedCloud's
-               windows zero-width, as the simulator runs them), the live
+               the inputs of its last call on each path kept: (a) the four
+               provisioning cells with the cluster's ClusterArena attached
+               before round 1, and the live cell once more behind an
+               IngestBatcher flushed before each provision(), every round
+               against GOLDEN_PROVISION, each round on a live cluster
+               gathered warm from the arena; (b) disruption-replay-500 with
+               the arena against GOLDEN_DISRUPTION, its consolidation faces
+               gathered warm; (c) the operator cell — Operator(Options())
+               on the card at full width with build_controllers, the live
                cell's two bursts and one disruption tick — against
                GOLDEN_OPERATOR; (d) every wrapper held against its plain
                version on the kept inputs.  Each step's launches (zeroed
@@ -225,10 +225,9 @@ pass):
                and live round 2's provision() timed on a fresh copy without
                the arena, with it and behind an IngestBatcher; the paths'
                launches join the kernel rows.  (Cut in depth when phase 17
-               came: the one-round cells, the live cell's rerun behind an
-               IngestBatcher, the replay without the arena and two of
-               three timed copies are gone; every kernel still launches
-               on its paths and is held against plain.)
+               came: one timed copy of each kind, where there were three,
+               and no replay of the disruption cell without the arena,
+               which phase 13 runs.)
  15. the operator loop — after phase 14, with its kernel spans and
                recorded inputs: (a) SimHarness on the card replays the
                canned scenarios whose goldens carry no gated section
@@ -291,9 +290,11 @@ pass):
                against its plain version on the kept inputs; (d) a
                KernelError armed in the HeadroomController's dry-run solve
                of a Forecast operator and in the re-solve after a gang
-               preemption: each tick() raises it, and the cluster, the
+               preemption: each tick() raises it out of that solve (the
+               other controllers held back), and the cluster, the
                controller's books, the ladder and the supervisors stay as
-               they were.
+               they were (tests/test_torch_fault_ticks.py runs both on
+               the CPU).
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -4082,6 +4083,7 @@ def disruption_timings(torch, card):
 # ---------------------------------------------------------------------------
 
 ARENA = " +arena"
+INGEST_PATH = LIVE_PATH + " +arena +ingest"
 OPERATOR_PATH = "operator-live-50k-20k"
 
 
@@ -4103,7 +4105,7 @@ def idle_line(busy, calls, wall):
             f"wall: idle share {1 - busy / wall:.4f}")
 
 
-def arena_round(torch, card, env, hook, path, r, want):
+def arena_round(torch, card, env, hook, path, r, want, ingest=False):
     """One counted provision() of an arena run: launch counts zeroed just
     before it and read just after, its kernel wrappers' inputs recorded
     under `path round r` and spanned, its layers split; it must give
@@ -4111,6 +4113,8 @@ def arena_round(torch, card, env, hook, path, r, want):
     from the arena's slab.  Returns the round's launches."""
     from karpenter_tpu_torch import workloads
     arena = env.cluster.arena
+    if ingest:
+        arena.flush()              # the manager's top-of-tick flush
     live = len(env.cluster.nodes) > 0
     g0 = dict(arena.gathers)
     hook.label = f"{path} round {r}"
@@ -4139,16 +4143,12 @@ def arena_round(torch, card, env, hook, path, r, want):
 
 
 def arena_cells(torch, card, hook, device="cuda"):
-    """14(a): the cells of GOLDEN_PROVISION with a round on a live cluster
-    (live, small) with the arena attached before round 1, every round
-    against its golden (`arena_round`), the ladder and the decode breaker
-    clean; live round 2 timed with and without the arena
-    (`arena_timings`, where a copy behind an IngestBatcher also runs).
-    The one-round cells (noguide, ffd) solve on an empty cluster, where the
-    arena serves no gather, and their kernels (K6, K7) launch on live and
-    small: phase 10 holds them; the rerun of the live cell behind an
-    IngestBatcher went with them (phase 15's drip replays the batcher).
-    Returns the launches by path."""
+    """14(a): every cell of GOLDEN_PROVISION with the arena attached before
+    round 1, every round against its golden (`arena_round`), the ladder and
+    the decode breaker clean; live round 2 timed with and without the
+    arena (`arena_timings`); then the live cell once more behind an
+    IngestBatcher flushed before each provision().  Returns the launches by
+    path."""
     from karpenter_tpu_torch import workloads
     from karpenter_tpu_torch.api.objects import NodePool
     from karpenter_tpu_torch.catalog.generate import generate_catalog
@@ -4157,18 +4157,20 @@ def arena_cells(torch, card, hook, device="cuda"):
     from karpenter_tpu_torch.ops.decode import DecodeHealth
     from karpenter_tpu_torch.ops.health import SolverHealth
     from karpenter_tpu_torch.state import Cluster
+    from karpenter_tpu_torch.state.ingest import IngestBatcher
     catalog = generate_catalog(workloads.PROVISION_TYPES)
     by_path = {}
-    for cell in workloads.GOLDEN_PROVISION:
-        if len(workloads.PROVISION_CELLS[cell][1]) == 1:
-            continue
-        path = cell + ARENA
+    runs = [(cell, cell + ARENA, False) for cell in workloads.GOLDEN_PROVISION]
+    runs.append((LIVE_PATH, INGEST_PATH, True))
+    for cell, path, ingest in runs:
         clear_lp_caches()
         health, dh = SolverHealth(), DecodeHealth()
         env = workloads.provision_env(cell, FakeCloud, CloudProvider, Cluster,
                                       Provisioner, NodePool, catalog,
                                       arena=True, health=health,
                                       decode_health=dh, device=device)
+        if ingest:
+            env.cluster.arena = IngestBatcher(env.cluster.arena)
         total = {}
         for r, (kw, seed) in enumerate(workloads.PROVISION_CELLS[cell][1]):
             env.cluster.add_pods(workloads.build_pods(
@@ -4176,7 +4178,7 @@ def arena_cells(torch, card, hook, device="cuda"):
             if path == LIVE_PATH + ARENA and r == 1:
                 arena_timings(torch, card, env, catalog, device)
             got = arena_round(torch, card, env, hook, path, r + 1,
-                              workloads.GOLDEN_PROVISION[cell][r])
+                              workloads.GOLDEN_PROVISION[cell][r], ingest)
             for k, v in got.items():
                 total[k] = total.get(k, 0) + v
         check(not health.transitions and all(
@@ -4185,6 +4187,9 @@ def arena_cells(torch, card, hook, device="cuda"):
             f"{path}: the solver ladder booked a failure")
         check(dh.total_failures == 0 and not dh.transitions,
               f"{path}: the decode breaker booked a failure")
+        if ingest:
+            log(f"[arena] {path}: {env.cluster.arena.events_total} events "
+                f"coalesced into {env.cluster.arena.flushes_total} flushes")
         by_path[path] = total
     hook.label = None
     return by_path
@@ -4294,19 +4299,12 @@ def operator_cell(torch, card, hook, device="cuda"):
     the live cell's two bursts through its Provisioner, one
     DisruptionController reconcile 10 000 s later — against
     GOLDEN_OPERATOR, each step counted (launches zeroed just before it),
-    timed with its split, spanned and its kernel inputs recorded.  The
-    BatchedCloud windows are zero-width, as the simulator runs them (the
-    claims launch one at a time, so nothing coalesces either way; PERF.md
-    keeps the 35 ms window's share of a round).  Returns the launches by
-    step."""
+    timed with its split, spanned and its kernel inputs recorded.  Returns
+    the launches by step."""
     from karpenter_tpu_torch import workloads
     clear_lp_caches()
     t0 = time.perf_counter()
     env = workloads.operator_env(operator_kit(), device=device)
-    for b in (env.op.batched_cloud.fleet, env.op.batched_cloud.describe,
-              env.op.batched_cloud.terminate):
-        b.batcher.options.idle_timeout = 0.0
-        b.batcher.options.max_timeout = 0.0
     check(env.op.device.type == device, "the operator is not on the card")
     log(f"[operator] Operator(Options()) and build_controllers in "
         f"{(time.perf_counter() - t0) * 1e3:.3f} ms: "
@@ -5229,30 +5227,60 @@ def cluster_state(cluster):
     return sorted((p.uid, p.node_name) for p in cluster.pods.values())
 
 
-def armed_fault(torch, what, mgr, arm, booked):
+class raised_through:
+    """While open, `obj.name` is wrapped: every exception that leaves it is
+    kept in `self.raised` (and raised on), so a check can tell that a fault
+    passed through that call and not through another."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name, self.raised = obj, name, []
+
+    def __enter__(self):
+        orig = getattr(self.obj, self.name)
+
+        def through(*a, **k):
+            try:
+                return orig(*a, **k)
+            except BaseException as e:
+                self.raised.append(e)
+                raise
+        setattr(self.obj, self.name, through)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.obj, self.name)       # the instance's own wrapper
+
+
+def armed_fault(torch, what, mgr, arm, booked, site):
     """One tick() with KernelError armed (`arm()`: a context that makes
     the next launch of K1 or K7 raise) around one controller's work: the
-    tick must raise it and leave `booked()` (the cluster, the controller's
-    own books) as it was, and no supervisor may book it."""
+    tick must raise it, the fault must have left through `site` (a
+    `raised_through`, open around the tick), `booked()` (the cluster, the
+    controller's own books) must be as it was, and no supervisor or ladder
+    may book it."""
     from karpenter_tpu_torch._build import KernelError
     health = mgr.controllers["provisioning"].health
     before = (booked(), health.snapshot())
     raised = None
-    with arm() as faults:
+    with site, arm() as faults:
         try:
             mgr.tick()
         except KernelError as e:
             raised = e
     check(raised is not None, f"[fault] {what}: tick() did not raise the "
-                              f"KernelError ({faults} launches armed)")
+                              f"KernelError ({faults.calls} launches armed)")
+    check(any(e is raised for e in site.raised),
+          f"[fault] {what}: the KernelError did not leave through "
+          f"{type(site.obj).__name__}.{site.name} ({site.raised})")
     check(booked() == before[0], f"[fault] {what}: the faulting tick "
                                  f"booked something")
     check(health.snapshot() == before[1] and not health.transitions,
           f"[fault] {what}: the ladder booked it: {health.snapshot()}")
     check(all(s.total_failures == 0 for s in mgr.supervisors.values()),
           f"[fault] {what}: a supervisor booked it")
-    log(f"[fault] {what}: tick() raised {type(raised).__name__} ({raised}); "
-        f"cluster, books, ladder and supervisors as they were")
+    log(f"[fault] {what}: tick() raised {type(raised).__name__} ({raised}) "
+        f"through {type(site.obj).__name__}.{site.name}; cluster, books, "
+        f"ladder and supervisors as they were")
 
 
 class fault_on_launch:
@@ -5285,10 +5313,11 @@ class fault_on_launch:
 def headroom_fault(torch, card, device="cuda"):
     """17(d), forecast: an operator with the Forecast gate (EWMA, 30 s
     cadence) whose demand class "web" ramps up bucket by bucket, bound as
-    it comes; then a tick with no pod pending, so the only solve is the
-    HeadroomController's dry run, with KernelError armed around that
-    controller's reconcile.  The tick must raise it with no placeholder
-    admitted and the controller's books unchanged."""
+    it comes; then a tick with no pod pending and every other controller
+    held back, so the only solve is the HeadroomController's dry run, with
+    KernelError armed.  The tick must raise it out of that solve
+    (`_within_budget`), with one more reconcile counted, no placeholder
+    admitted and the controller's other books unchanged."""
     from karpenter_tpu_torch import workloads
     from karpenter_tpu_torch.api.objects import Pod
     from karpenter_tpu_torch.api.resources import CPU, MEMORY, ResourceList
@@ -5312,14 +5341,23 @@ def headroom_fault(torch, card, device="cuda"):
         clock.step(2.0)
     entry = next(e for e in mgr._entries if e.name == "forecast")
     clock.t = entry.last_run + entry.interval
-    entry.reconcile = fc.reconcile
+    for e in mgr._entries:                 # the forecast reconcile alone
+        if e is not entry:
+            e.last_run = clock()
+    check(not op.cluster.pending_pods(), "[fault] forecast: pods pending")
+    reconciles = fc.stats["reconciles"]
 
     def books():
-        return (cluster_state(op.cluster), dict(fc.stats),
+        return (cluster_state(op.cluster),
+                {k: v for k, v in fc.stats.items() if k != "reconciles"},
                 sorted(p.name for p in op.cluster.pods.values()
                        if is_headroom(p)))
     armed_fault(torch, "KernelError in the HeadroomController's dry-run "
-                "solve", mgr, fault_on_launch, books)
+                "solve", mgr, fault_on_launch, books,
+                raised_through(fc, "_within_budget"))
+    check(fc.stats["reconciles"] == reconciles + 1,
+          f"[fault] forecast: {fc.stats['reconciles'] - reconciles} "
+          f"reconciles in the faulting tick, not 1")
     log(f"[fault] forecast: {n} real pods, stats {fc.stats}; on {card}")
 
 
@@ -5371,11 +5409,15 @@ def preemption_fault(torch, card, device="cuda"):
     mgr.tick()                           # the batch window opens
     clock.step(2.0)                      # ripe: the re-solve is next
 
+    pending = {p.gang_name for p in op.cluster.pending_pods()}
+    check("trainer" in pending, f"[fault] the gang is not pending for the "
+                                f"re-solve: {pending}")
+
     def books():
         return (cluster_state(op.cluster), prov.gang_registry.summary(),
                 list(prov.gang_preemption_plans))
     armed_fault(torch, "KernelError in the preemption re-solve", mgr,
-                fault_on_launch, books)
+                fault_on_launch, books, raised_through(prov, "solve"))
     log(f"[fault] gangs: registry {prov.gang_registry.summary()}; on {card}")
 
 

@@ -63,6 +63,13 @@ UNPORTED_FLAGS = {
     "ledger_retention": (256, "B9"), "ledger_drift_threshold": (0.15, "B9"),
 }
 
+# fields with no command-line flag: a scenario's `forecast:` block sets
+# them (sim/harness.py), as in the reference, whose from_args never reads
+# them either
+SCENARIO_ONLY_FIELDS = frozenset({
+    "forecast_bucket_s", "forecast_confidence", "forecast_max_cost_frac",
+    "forecast_season_s"})
+
 
 def _true(v: str) -> bool:
     return v.lower() == "true"
@@ -301,7 +308,8 @@ class Options:
         if off:
             raise NotImplementedError(f"{', '.join(off)} is not ported yet")
         opts = cls(**{f.name: getattr(ns, f.name) for f in fields(cls)
-                      if f.name != "feature_gates" and hasattr(ns, f.name)})
+                      if f.name != "feature_gates"
+                      and f.name not in SCENARIO_ONLY_FIELDS})
         # env-provided gates apply first; explicit --feature-gates wins
         _parse_kv_list(str(env.get("feature_gates", "")), opts.feature_gates,
                        cast=lambda v: v.lower() != "false")

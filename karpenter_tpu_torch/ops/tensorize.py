@@ -226,10 +226,8 @@ def _class_key(pod: Pod) -> tuple:
 # numpy (np.unique over an int vector) instead of 50k Python dict round
 # trips.  Pod labels are part of the key, so distinct keys are unbounded in
 # a long-lived controller (per-pod-unique label values churn daily): the
-# table resets when it exceeds _CLASS_IDS_MAX, and a generation token on
-# the per-pod cache invalidates stale ids.  Resets happen ONLY between
-# tensorize calls (see tensorize) — a mid-call reset would let two distinct
-# keys share an id and silently merge classes.
+# table is replaced by an empty one when it exceeds _CLASS_IDS_MAX, and a
+# generation token on the per-pod cache invalidates stale ids.
 #
 # Ids come from one process-wide counter that never restarts, and a key is
 # interned with one atomic `setdefault`: a watchdog worker the caller
@@ -237,24 +235,28 @@ def _class_key(pod: Pod) -> tuple:
 # solve, and the reference's read-then-write (`len` of the table as the
 # new id) could hand two new keys the same id.  With the counter no two
 # keys ever share an id, across resets too, and no lock sits on the
-# per-pod path.  Until the first reset the ids equal the reference's (the
-# n-th new key gets n); class order is first appearance either way.
-_CLASS_IDS: Dict[tuple, int] = {}
-_CLASS_GEN = [0]
+# per-pod path.  A reset rebinds (table, generation) as one tuple, with a
+# generation no other table had, and each tensorize call interns into the
+# pair it read at its start: a reset by another thread mid-call cannot
+# give one key two ids in that call (which would split a class).  Until
+# the first reset the ids equal the reference's (the n-th new key gets
+# n); class order is first appearance either way.
 _CLASS_IDS_MAX = 1 << 17
 _CLASS_COUNTER = itertools.count()
+_CLASS_GENS = itertools.count()
+_CLASS_TABLE: Tuple[Dict[tuple, int], int] = ({}, next(_CLASS_GENS))
 
 
-def _class_id(pod: Pod) -> int:
+def _class_id(pod: Pod, table: Dict[tuple, int], gen: int) -> int:
     d = pod.__dict__
     tok = d.get("_cid")
-    if tok is not None and tok[0] == _CLASS_GEN[0]:
+    if tok is not None and tok[0] == gen:
         return tok[1]
     k = _class_key(pod)
-    cid = _CLASS_IDS.get(k)
+    cid = table.get(k)
     if cid is None:
-        cid = _CLASS_IDS.setdefault(k, next(_CLASS_COUNTER))
-    d["_cid"] = (_CLASS_GEN[0], cid)
+        cid = table.setdefault(k, next(_CLASS_COUNTER))
+    d["_cid"] = (gen, cid)
     return cid
 
 
@@ -532,12 +534,14 @@ def tensorize(pods: Sequence[Pod], catalog: Sequence[InstanceType],
     # one attribute read per pod instead of a dict-build round trip; class
     # order stays first-appearance (the old dict semantics) so tie-breaks
     # and decode order are unchanged
+    global _CLASS_TABLE
     n = len(pods)
-    if len(_CLASS_IDS) >= _CLASS_IDS_MAX:   # bound the intern table; never
-        _CLASS_IDS.clear()                  # resets mid-call (id collisions
-        _CLASS_GEN[0] += 1                  # would merge distinct classes)
+    table, gen = _CLASS_TABLE
+    if len(table) >= _CLASS_IDS_MAX:        # bound the intern table
+        table, gen = _CLASS_TABLE = ({}, next(_CLASS_GENS))
     if n:
-        ids = np.fromiter((_class_id(p) for p in pods), np.int64, count=n)
+        ids = np.fromiter((_class_id(p, table, gen) for p in pods), np.int64,
+                          count=n)
         uniq, first, inverse = np.unique(ids, return_index=True,
                                          return_inverse=True)
         appear = np.argsort(first, kind="stable")

@@ -1,0 +1,32 @@
+"""`chip_smoke.py` phase 17(d)'s two fault checks, run on the CPU.
+
+Each drives a small operator (`chip_smoke.small_operator`) on the port to
+the tick under test and arms a KernelError on the next launch of K1 or K7
+(on the CPU the patched wrapper raises before its plain version runs):
+
+  * `headroom_fault`: a Forecast operator whose demand ramps, then a tick
+    in which only the HeadroomController reconciles; the error must leave
+    `tick()` through its dry-run solve (`_within_budget`), with one more
+    reconcile counted and nothing else booked;
+  * `preemption_fault`: a GangScheduling operator whose gang was rejected
+    and whose victims the disruption tick evicted; the error must leave
+    `tick()` through the provisioner's re-solve, with the cluster, the gang
+    registry and the plan queue as they were.
+
+A failed check calls `sys.exit(1)`, which fails the test.  No JAX.
+"""
+
+import os
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
+
+
+@pytest.mark.parametrize("check", ["headroom_fault", "preemption_fault"])
+def test_a_kernel_error_leaves_the_tick_with_nothing_booked(check):
+    getattr(chip_smoke, check)(torch, "cpu", device="cpu")

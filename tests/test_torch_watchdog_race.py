@@ -7,6 +7,10 @@ deterministically on the port's two shared tables:
     barrier, and whose `len` waits too, so both read the same size before
     either writes).  The ids must still differ: equal ids would merge two
     classes without a word;
+  * the same table's reset: a worker's tensorize that finds the table
+    full and resets it while the caller's call is halfway through its
+    pods.  The caller's classes must come out as without the worker: one
+    id per key for the whole call, so no class is split or merged;
   * the DisruptionController's filtered-catalog memo: two threads that
     both miss must both be handed the same list, the one the memo keeps,
     so a late worker never replaces the list the tick is using.
@@ -64,14 +68,42 @@ def _in_two_threads(fn, args):
 
 
 def test_two_new_class_keys_never_share_an_id(monkeypatch):
-    monkeypatch.setattr(tz, "_CLASS_IDS", _Lockstep())
+    table, gen = _Lockstep(), next(tz._CLASS_GENS)
     pods = [Pod(requests=ResourceList({CPU: cpu, MEMORY: 2**30}))
             for cpu in (1234, 4321)]
-    ids = _in_two_threads(tz._class_id, pods)
+    ids = _in_two_threads(lambda p: tz._class_id(p, table, gen), pods)
     assert ids[0] != ids[1], f"two class keys interned to one id {ids[0]}"
-    assert sorted(tz._CLASS_IDS.values()) == sorted(ids)
+    assert sorted(dict.values(table)) == sorted(ids)
     # each pod keeps its own id on the next call
-    assert [tz._class_id(p) for p in pods] == ids
+    assert [tz._class_id(p, table, gen) for p in pods] == ids
+
+
+def test_a_reset_by_another_thread_mid_call_splits_no_class(monkeypatch):
+    catalog = convert.catalog_from_objects(small_catalog())
+    pools = [NodePool()]
+    # classes A, B, A, B: the worker resets the full table just before the
+    # caller interns its third pod
+    pods = [Pod(requests=ResourceList({CPU: cpu, MEMORY: 2**30}))
+            for cpu in (1234, 4321, 1234, 4321)]
+    monkeypatch.setattr(tz, "_CLASS_IDS_MAX", 2)
+    caller, key, seen = threading.get_ident(), tz._class_key, [0]
+
+    def class_key(pod):
+        if threading.get_ident() == caller:
+            seen[0] += 1
+            if seen[0] == 3:
+                worker = threading.Thread(target=tz.tensorize, args=(
+                    [Pod(requests=ResourceList({CPU: 777, MEMORY: 2**30}))],
+                    catalog, pools))
+                worker.start()
+                worker.join(30)
+        return key(pod)
+    monkeypatch.setattr(tz, "_class_key", class_key)
+    prob = tz.tensorize(pods, catalog, pools)
+    assert seen[0] >= 3, "the worker never ran"
+    assert [sorted(m.tolist()) for m in prob.class_members] == [[0, 2],
+                                                               [1, 3]]
+    assert prob.class_counts.tolist() == [2, 2]
 
 
 def test_racing_filtered_catalog_misses_share_one_list():
