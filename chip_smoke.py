@@ -4087,12 +4087,21 @@ INGEST_PATH = LIVE_PATH + " +arena +ingest"
 OPERATOR_PATH = "operator-live-50k-20k"
 
 
-def operator_kit():
+def operator_kit(snapshot_path=None):
+    """The port's kit for `workloads.operator_env`; with `snapshot_path`
+    its Options turn the WarmRestart gate on and name that file."""
     from types import SimpleNamespace
     from karpenter_tpu_torch.cloud.fake import (ImageInfo, SecurityGroupInfo,
                                                 SubnetInfo)
     from karpenter_tpu_torch.operator import (Operator, Options,
                                               build_controllers)
+    if snapshot_path is not None:
+        plain = Options
+
+        def Options():
+            opts = plain(snapshot_path=snapshot_path)
+            opts.feature_gates["WarmRestart"] = True
+            return opts
     return SimpleNamespace(Operator=Operator, Options=Options,
                            build_controllers=build_controllers,
                            SubnetInfo=SubnetInfo,
@@ -4293,18 +4302,25 @@ def arena_disruption(torch, card, hook, device="cuda"):
     return {path: launches}
 
 
-def operator_cell(torch, card, hook, device="cuda"):
+def operator_cell(torch, card, hook, device="cuda", snap=None):
     """14(c): the operator cell — `Operator(Options())` on the card with
     its default full-width catalog and a stepped clock, `build_controllers`,
     the live cell's two bursts through its Provisioner, one
     DisruptionController reconcile 10 000 s later — against
     GOLDEN_OPERATOR, each step counted (launches zeroed just before it),
-    timed with its split, spanned and its kernel inputs recorded.  Returns
-    the launches by step."""
+    timed with its split, spanned and its kernel inputs recorded.  With
+    `snap` (a dict naming a "path"), the operator's Options carry the
+    WarmRestart gate and that path, and right after round 1 a
+    `SnapshotWriter` writes the file under the state lock: `snap` gets its
+    bytes, its write's host ms and round 2's provision() ms (phase 18
+    restores it in a fresh process).  Returns the launches by step."""
     from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.state.snapshot import SnapshotWriter
     clear_lp_caches()
     t0 = time.perf_counter()
-    env = workloads.operator_env(operator_kit(), device=device)
+    env = workloads.operator_env(
+        operator_kit(snap["path"] if snap is not None else None),
+        device=device)
     check(env.op.device.type == device, "the operator is not on the card")
     log(f"[operator] Operator(Options()) and build_controllers in "
         f"{(time.perf_counter() - t0) * 1e3:.3f} ms: "
@@ -4345,6 +4361,22 @@ def operator_cell(torch, card, hook, device="cuda"):
         log(f"[time] {label}: provision() {wall:.3f} ms "
             f"({layer_line(acc, wall)}); {idle_line(busy, calls, wall)} "
             f"on {card}")
+        if snap is not None and label.endswith("round 1"):
+            check(env.op.options.gate("WarmRestart"),
+                  "the operator cell's WarmRestart gate is off")
+            writer = SnapshotWriter(snap["path"], env.op)
+            with env.op.state_lock:
+                check(writer.write_final(), f"the snapshot after {label} "
+                                            f"was not written")
+            snap.update(bytes=writer.last_bytes,
+                        write_ms=writer.last_write_ms)
+            log(f"[restart] {label}: snapshot of {len(env.op.cluster.pods)} "
+                f"pods and {len(env.op.cluster.nodes)} nodes, "
+                f"{writer.last_bytes} bytes, written in "
+                f"{writer.last_write_ms:.3f} ms on the host under the state "
+                f"lock")
+        elif snap is not None and label.endswith("round 2"):
+            snap["round2_ms"] = wall
         return out
 
     def tick():
@@ -4375,9 +4407,10 @@ def operator_cell(torch, card, hook, device="cuda"):
     return by_path
 
 
-def phase14(torch, card, err, device="cuda"):
+def phase14(torch, card, err, device="cuda", snap=None):
     """Phase 14, the arena and the operator: (a) the provisioning cells with
-    the arena, (b) the disruption cell with it, (c) the operator cell, then
+    the arena, (b) the disruption cell with it, (c) the operator cell (its
+    round 1 snapshotted into `snap` for phase 18), then
     (d) every kernel wrapper those paths launched held against its plain
     version on the inputs of its last call on each path; (e) launch counts
     and idle shares, and (f) the timings, are printed along the way.
@@ -4386,7 +4419,7 @@ def phase14(torch, card, err, device="cuda"):
     with wrapped_kernels(hook):
         by_path = arena_cells(torch, card, hook, device)
         by_path.update(arena_disruption(torch, card, hook, device))
-        by_path.update(operator_cell(torch, card, hook, device))
+        by_path.update(operator_cell(torch, card, hook, device, snap))
     seen = hold_recorded(torch, hook.recorded, err, lambda label: label)
     for name, where in seen.items():
         log(f"[arena] {name} on the {len(where)} inputs recorded on phase "
@@ -5205,13 +5238,15 @@ def _seed_small_cloud(op):
     return op
 
 
-def small_operator(gates, clock, device, pools=None):
+def small_operator(gates, clock, device, pools=None, snapshot_path="",
+                   leader=None):
     """An Operator with `gates` on over a 10-type catalog, its fake cloud
-    seeded, on `device`, with its ControllerManager on `clock`."""
+    seeded, on `device`, with its ControllerManager on `clock` (and
+    `leader`, a LeaderElector, if given)."""
     from karpenter_tpu_torch.catalog.generate import generate_catalog
     from karpenter_tpu_torch.operator import (ControllerManager, Operator,
                                               Options, build_controllers)
-    opts = Options(interruption_queue="q")
+    opts = Options(interruption_queue="q", snapshot_path=snapshot_path)
     for g in gates:
         opts.feature_gates[g] = True
     op = _seed_small_cloud(Operator(opts, catalog=generate_catalog(10),
@@ -5219,7 +5254,8 @@ def small_operator(gates, clock, device, pools=None):
     if pools is not None:
         op.nodepools.clear()
         op.nodepools.update({p.name: p for p in pools})
-    mgr = ControllerManager(op, build_controllers(op), clock=clock)
+    mgr = ControllerManager(op, build_controllers(op), clock=clock,
+                            leader=leader)
     return op, mgr
 
 
@@ -5450,6 +5486,406 @@ def phase17(torch, card, err, device="cuda"):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 18: durability and HA
+# ---------------------------------------------------------------------------
+
+FAILOVER = ("failover-drill", "failover-drill.yaml", 5400.0)
+RESTART_PATH = "operator-restart-50k-20k"
+# the kernels the failover drill's lines name (its launches of each)
+DRILL_KERNELS = ("classpack_precompute", "classpack_scan",
+                 "classpack_assign_decode", "classpack_sweep", "ffd_scan")
+
+
+def failover_drill(torch, card, hook):
+    """18(a): scenarios/failover-drill.yaml (seed 0, 5400 s) on the card —
+    the HAFailover gate with a virtual-clock LeaderElector, a lease
+    blackout and a flaky window — with the arena on, then off, each report
+    byte for byte against tests/golden/sim-failover-drill.json, with its
+    wall, ticks, launches and idle share (`sim_replay`).  Returns the
+    launches by path."""
+    from karpenter_tpu_torch.sim import report_to_json
+    name, fname, duration = FAILOVER
+    with open(os.path.join(REPO, "tests", "golden",
+                           f"sim-{name}.json")) as fh:
+        want = fh.read()
+    by_path = {}
+    for arena in (True, False):
+        kw = {} if arena else {"incremental_arena": False}
+        label = sim_label(name, kw)
+        run, h, launches, wall = sim_replay(torch, card, hook, fname,
+                                            duration, label, **kw)
+        check(report_to_json(run.report) == want,
+              f"{label}: the report differs from tests/golden/sim-{name}"
+              f".json")
+        check(h.leader is not None and h.mgr.fence is not None,
+              f"{label}: no elector or fence in the manager")
+        log(f"[ha] {label}: golden matches; its ha section "
+            f"{json.dumps(run.report['ha'], sort_keys=True)}; launches of "
+            f"K1, K2, K3, K5, K7 {[launches[k] for k in DRILL_KERNELS]}; "
+            f"{wall:.3f} s wall on {card}")
+        by_path[label] = launches
+    check(sum(sum(launches[k] for k in DRILL_KERNELS)
+              for launches in by_path.values()) > 0,
+          "the failover drill launched no kernel")
+    return by_path
+
+
+def successor(path, card) -> int:
+    """18(b)'s successor, run as a fresh Python process (`python3 -c
+    "import chip_smoke; chip_smoke.successor(path, card)"`): the kernels
+    the parent built are loaded from build/ (none rebuilt), the operator
+    cell is built anew on the card with the WarmRestart gate and restores
+    the parent's round-1 snapshot, then runs round 2 and the disruption
+    tick — each counted (launches zeroed just before it), spanned and its
+    kernel inputs recorded, round 2 with its split and its count of
+    `Cluster.tensorize_nodes` calls (cold gathers) — against
+    GOLDEN_OPERATOR's round 2 and tick; every recorded K1, K2, K3 input is
+    then held against the plain versions.  Prints its lines, then one
+    `SUCCESSOR {json}` line; a failed check exits 1."""
+    import torch
+    from karpenter_tpu_torch import _build, workloads
+    from karpenter_tpu_torch.state import cluster as cluster_mod
+    from karpenter_tpu_torch.state.snapshot import restore_snapshot
+    check(torch.cuda.is_available(), "the successor sees no card")
+    srcs = sorted(_build.CSRC.glob("*.cu"))
+    unbuilt = [src.name for src in srcs if not _build._target(src).exists()]
+    check(not unbuilt, f"the successor found {unbuilt} unbuilt in build/")
+    t0 = time.perf_counter()
+    env = workloads.operator_env(operator_kit(path), device="cuda")
+    build_ms = (time.perf_counter() - t0) * 1e3
+    arena = env.op.cluster.arena
+    t0 = time.perf_counter()
+    with env.op.state_lock:
+        outcome = restore_snapshot(path, env.op)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(outcome == "restored", f"the successor's restore: {outcome}")
+    log(f"[restart] successor: Operator(Options()) with the WarmRestart "
+        f"gate built in {build_ms:.3f} ms; restore {outcome} in "
+        f"{restore_ms:.3f} ms on the host ({len(env.op.cluster.pods)} pods, "
+        f"{len(env.op.cluster.nodes)} nodes, arena epoch {arena.epoch}); "
+        f"the kernels loaded from build/ ({len(srcs)} libraries, none "
+        f"rebuilt)")
+    hook = kernel_log(torch, spans=True)
+    by_path, stats = {}, {}
+    cold, orig = [0], cluster_mod.Cluster.tensorize_nodes
+
+    def counting(self, *a, **k):
+        cold[0] += 1
+        return orig(self, *a, **k)
+
+    def counted(label, fn):
+        g0 = dict(arena.gathers)
+        hook.label = label
+        hook.take_busy()
+        reset_all_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        by_path[label] = all_launches()
+        busy, calls = hook.take_busy()
+        check(arena.gathers["fallback"] == g0["fallback"],
+              f"{label}: the arena refused a gather")
+        return out, wall, busy, calls, arena.gathers["warm"] - g0["warm"]
+
+    def provision(penv):
+        label = f"{RESTART_PATH} round 2"
+        cluster_mod.Cluster.tensorize_nodes = counting
+        try:
+            with layer_timer(torch, penv.provisioner) as acc:
+                out, wall, busy, calls, warm = counted(
+                    label, lambda: workloads.provision_pending(penv))
+        finally:
+            cluster_mod.Cluster.tensorize_nodes = orig
+        stats.update(round2_ms=wall, cold=cold[0], warm=warm,
+                     round2_idle=1 - busy / wall)
+        log(f"[restart] {label}: {out[0]['launched']} launched, "
+            f"{out[0]['bound_existing']} bound to existing nodes; {warm} "
+            f"warm gathers, {cold[0]} cold (tensorize_nodes calls); "
+            f"launches { {k: v for k, v in by_path[label].items() if v} }")
+        log(f"[time] {label}: provision() {wall:.3f} ms "
+            f"({layer_line(acc, wall)}); {idle_line(busy, calls, wall)} "
+            f"on {card}")
+        return out
+
+    def tick():
+        label = f"{RESTART_PATH} tick"
+        res, wall, busy, calls, warm = counted(
+            label, env.controllers["disruption"].reconcile)
+        stats.update(tick_ms=wall)
+        log(f"[restart] {label}: action {res.action and res.action.kind}, "
+            f"{warm} warm gathers; launches "
+            f"{ {k: v for k, v in by_path[label].items() if v} }")
+        log(f"[time] {label}: reconcile() {wall:.3f} ms; "
+            f"{idle_line(busy, calls, wall) if calls else 'no kernel call'} "
+            f"on {card}")
+        return res
+    with wrapped_kernels(hook):
+        got = workloads.operator_replay(env, workloads.build_pods,
+                                        provision=provision, tick=tick,
+                                        rounds=workloads.OPERATOR_ROUNDS[1:])
+    hook.label = None
+    want = workloads.GOLDEN_OPERATOR
+    check(got["rounds"][0] == want["rounds"][1],
+          f"{RESTART_PATH} round 2: {got['rounds'][0]} != GOLDEN_OPERATOR's "
+          f"{want['rounds'][1]}")
+    check(got["tick"] == want["tick"], f"{RESTART_PATH} tick: "
+                                       f"{got['tick']} != {want['tick']}")
+    check(stats["cold"] == 0 and stats["warm"] >= 1,
+          f"{RESTART_PATH}: the first gather was not warm ({stats})")
+    for name in ("classpack_precompute", "classpack_scan",
+                 "classpack_assign_decode"):
+        check(by_path[f"{RESTART_PATH} round 2"][name] > 0,
+              f"{name} did not launch in the successor's round 2")
+    err = {name: 0.0 for _, _, name in DISRUPTION_WRAPPERS}
+    seen = hold_recorded(torch, hook.recorded, err, lambda label: label)
+    check({"classpack_precompute", "classpack_scan",
+           "classpack_assign_decode"} <= set(seen),
+          f"the successor recorded no K1, K2 or K3 input: {sorted(seen)}")
+    for name, where in seen.items():
+        log(f"[restart] {name} on the {len(where)} inputs the successor "
+            f"recorded: equal to plain — {', '.join(where)}")
+    print("SUCCESSOR " + json.dumps(dict(
+        outcome=outcome, restore_ms=restore_ms, build_ms=build_ms,
+        launches=by_path, err=err, held={k: len(v) for k, v in seen.items()},
+        **stats)), flush=True)
+    return 0
+
+
+def object_types(obj):
+    """The qualified type names reachable from `obj` through containers and
+    object attributes (the check that a snapshot holds host data only)."""
+    seen, out, todo = set(), set(), [obj]
+    while todo:
+        x = todo.pop()
+        if id(x) in seen:
+            continue
+        seen.add(id(x))
+        t = type(x)
+        out.add(f"{t.__module__}.{t.__qualname__}")
+        if isinstance(x, dict):
+            todo.extend(x.keys())
+            todo.extend(x.values())
+        elif isinstance(x, (list, tuple, set, frozenset)):
+            todo.extend(x)
+        elif isinstance(x, np.ndarray):
+            if x.dtype == object:
+                todo.extend(x.ravel().tolist())
+        elif hasattr(x, "__dict__") and not isinstance(x, type):
+            todo.extend(vars(x).values())
+    return out
+
+
+def warm_restart(torch, card, snap, err):
+    """18(b): the successor (`successor`) in a fresh Python process on the
+    card, restoring phase 14(c)'s round-1 snapshot of the operator cell;
+    its restore must be "restored", its first gather warm, its round 2 and
+    tick GOLDEN_OPERATOR's, its recorded kernel inputs equal to plain.
+    Its provision() ms is printed beside phase 14's uninterrupted round 2.
+    Returns the successor's launches by path."""
+    from karpenter_tpu_torch.state.snapshot import load_sections
+    check("bytes" in snap and "round2_ms" in snap,
+          f"phase 14(c) wrote no snapshot: {snap}")
+    sections, reason = load_sections(snap["path"])
+    check(reason == "ok", f"phase 14(c)'s snapshot does not load: {reason}")
+    tensors = sorted(t for t in object_types(sections)
+                     if t.startswith("torch."))
+    check(not tensors, f"the snapshot holds {tensors}")
+    log(f"[restart] the snapshot's sections {sorted(sections)} hold host "
+        f"data only (no torch type among {len(object_types(sections))})")
+    del sections
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.successor(sys.argv[1], sys.argv[2]))",
+         snap["path"], card], cwd=REPO, capture_output=True, text=True,
+        timeout=900)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("SUCCESSOR "):
+            log(line)
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        fail(f"the successor process exited {proc.returncode}")
+    got = json.loads(next(ln for ln in lines
+                          if ln.startswith("SUCCESSOR "))[len("SUCCESSOR "):])
+    check(got["outcome"] == "restored" and got["cold"] == 0,
+          f"the successor: {got['outcome']}, {got['cold']} cold gathers")
+    for name, d in got["err"].items():
+        err[name] = max(err[name], d)
+    log(f"[restart] {RESTART_PATH}: snapshot {snap['bytes']} bytes, written "
+        f"in {snap['write_ms']:.3f} ms (host, under the state lock); the "
+        f"successor process {wall:.1f} s: restore {got['outcome']} in "
+        f"{got['restore_ms']:.3f} ms, {got['cold']} cold gathers, round 2 "
+        f"provision() {got['round2_ms']:.3f} ms beside phase 14's "
+        f"uninterrupted {snap['round2_ms']:.3f} ms, tick "
+        f"{got['tick_ms']:.3f} ms; GOLDEN_OPERATOR's round 2 and tick; on "
+        f"{card}")
+    return got["launches"]
+
+
+def small_pods(n, cpu_m=500):
+    from karpenter_tpu_torch.api.objects import Pod
+    from karpenter_tpu_torch.api.resources import CPU, MEMORY, ResourceList
+    return [Pod(requests=ResourceList({CPU: cpu_m, MEMORY: 2**29}))
+            for _ in range(n)]
+
+
+def file_digest(path):
+    import hashlib
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
+def fence_refusals(torch, card, device="cuda"):
+    """18(c): an HAFailover + WarmRestart operator leading through a lease
+    (TTL 5 s) provisions six pods and snapshots; a rival acquires the
+    expired lease.  The deposed replica's tick is skipped whole, and its
+    snapshot write, launch and terminate are refused — the write returns
+    False, `CloudProvider.create` / `delete` raise StaleFenceError — with
+    the snapshot's bytes, the running instances and the claims as they
+    were, and `LeaseFence.refusals` counting each operation once."""
+    import tempfile
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.operator.manager import LeaderElector
+    from karpenter_tpu_torch.utils.fencing import StaleFenceError
+    clear_lp_caches()
+    with tempfile.TemporaryDirectory() as d:
+        snap, lease = os.path.join(d, "s.bin"), os.path.join(d, "ha.lease")
+        clock = workloads.SteppedClock(1000.0)
+        op, mgr = small_operator(
+            ("WarmRestart", "HAFailover"), clock, device, snapshot_path=snap,
+            leader=LeaderElector(lease, "alpha", ttl=5.0, clock=clock))
+        op.cluster.add_pods(small_pods(6))
+        mgr.tick()
+        clock.step(1.1)
+        mgr.tick()
+        check(op.cluster.nodes and not op.cluster.pending_pods()
+              and os.path.exists(snap) and mgr.phase == "LEADING",
+              "[fence] the leader did not provision and snapshot")
+        epoch = mgr.leader.fence_epoch()
+        rival = LeaderElector(lease, "rival", ttl=5.0, clock=clock)
+        clock.step(6.0)
+        check(rival.try_acquire(), "[fence] the rival did not acquire")
+        before = (file_digest(snap), sorted(i.id for i in op.cloud.running()),
+                  sorted(op.cluster.nodeclaims))
+        check(mgr.tick() == {} and mgr.phase == "STANDBY",
+              "[fence] the deposed replica's tick was not skipped")
+        claims = [c for c in op.cloud_provider.list() if c.provider_id]
+        wrote = mgr._snapshotter.write_final()
+        raised = []
+        for what, call in (("launch", op.cloud_provider.create),
+                           ("terminate", op.cloud_provider.delete)):
+            try:
+                call(claims[0])
+            except StaleFenceError as e:
+                raised.append((what, str(e)))
+        after = (file_digest(snap), sorted(i.id for i in op.cloud.running()),
+                 sorted(op.cluster.nodeclaims))
+        check(not wrote and [w for w, _ in raised] == ["launch", "terminate"],
+              f"[fence] deposed writes not refused: wrote {wrote}, raised "
+              f"{raised}")
+        check(after == before, "[fence] a refused write changed the "
+                               "snapshot, the instances or the claims")
+        check(mgr.fence.refusals == {"snapshot": 1, "launch": 1,
+                                     "terminate": 1},
+              f"[fence] refusals {mgr.fence.refusals}")
+        log(f"[fence] epoch {epoch} deposed by the rival's epoch "
+            f"{rival.fence_epoch()}: tick skipped ({mgr._skipped_ticks} "
+            f"skipped, phase {mgr.phase}); snapshot write refused, "
+            f"{'; '.join(f'{w}: StaleFenceError' for w, _ in raised)}; "
+            f"nothing written, launched or deleted "
+            f"({len(before[1])} instances); refusals "
+            f"{json.dumps(mgr.fence.refusals, sort_keys=True)}; elector "
+            f"acquisitions / losses / releases {mgr.leader.acquisitions} / "
+            f"{mgr.leader.losses} / {mgr.leader.releases}; on {card}")
+
+
+def restart_fault(torch, card, device="cuda"):
+    """18(d): a WarmRestart operator provisions six pods, then four more
+    arrive and its batch window opens; its final snapshot holds them
+    pending.  A successor restores it (`startup()`: "restored", parity
+    probe "ok") and its first tick solves them with KernelError armed on
+    the next K1 or K7 launch: tick() must raise it out of
+    `Provisioner.solve`, with no snapshot written for that tick (the file
+    keeps its bytes, the writer counts no write), no lease error, and
+    nothing booked by the ladder or a supervisor.  The next tick solves
+    and writes."""
+    import tempfile
+    from karpenter_tpu_torch import workloads
+    clear_lp_caches()
+    with tempfile.TemporaryDirectory() as d:
+        snap = os.path.join(d, "s.bin")
+        clock = workloads.SteppedClock(1000.0)
+        op, mgr = small_operator(("WarmRestart",), clock, device,
+                                 snapshot_path=snap)
+        op.cluster.add_pods(small_pods(6))
+        mgr.tick()
+        clock.step(1.1)
+        mgr.tick()
+        op.cluster.add_pods(small_pods(4, cpu_m=3900))
+        clock.step(1.0)
+        mgr.tick()                       # the window opens, not yet ripe
+        check(len(op.cluster.pending_pods()) == 4,
+              "[fault] restart: the new pods did not wait in the window")
+        check(mgr._snapshotter.write_final(), "[fault] restart: no final "
+                                              "snapshot")
+        op2, mgr2 = small_operator(("WarmRestart",), clock, device,
+                                   snapshot_path=snap)
+        outcome = mgr2.startup()
+        check(outcome == "restored" and mgr2.probe_outcome == "ok",
+              f"[fault] restart: startup {outcome}, probe "
+              f"{mgr2.probe_outcome}")
+        clock.step(1.1)
+        prov = mgr2.controllers["provisioning"]
+        digest = file_digest(snap)
+
+        def books():
+            return (cluster_state(op2.cluster), file_digest(snap),
+                    dict(mgr2._snapshotter.writes), mgr2._lease_errors)
+        armed_fault(torch, "KernelError in the restored successor's first "
+                    "solve", mgr2, fault_on_launch, books,
+                    raised_through(prov, "solve"))
+        check(file_digest(snap) == digest and not mgr2._snapshotter.writes,
+              "[fault] restart: the faulting tick wrote a snapshot")
+        mgr2.tick()
+        check(not op2.cluster.pending_pods()
+              and mgr2._snapshotter.writes == {"ok": 1}
+              and file_digest(snap) != digest,
+              f"[fault] restart: the next tick did not solve and write "
+              f"({len(op2.cluster.pending_pods())} pending, writes "
+              f"{mgr2._snapshotter.writes})")
+        log(f"[fault] restart: the successor restored {len(op2.cluster.pods)} "
+            f"pods; its faulting tick wrote nothing, the next bound the "
+            f"4 pods and wrote the snapshot; on {card}")
+
+
+def phase18(torch, card, err, snap):
+    """Phase 18, durability and HA: (a) the failover drill on the card,
+    arena on and off, against its golden, with every kernel wrapper held
+    against plain on its recorded inputs; (b) the warm restart at full
+    width in a fresh process; (c) the fence; (d) a device fault in the
+    restored successor's first solve.  Returns the launches by path."""
+    t0 = time.perf_counter()
+    hook = kernel_log(torch, spans=True)
+    with wrapped_kernels(hook):
+        by_path = failover_drill(torch, card, hook)
+    seen = hold_recorded(torch, hook.recorded, err, lambda label: label)
+    for name, where in seen.items():
+        log(f"[ha] {name} on the {len(where)} inputs recorded in the "
+            f"failover drill (its last call in each run): equal to plain — "
+            f"{', '.join(where)}")
+    log(f"[ha] 18(a) {time.perf_counter() - t0:.1f} s")
+    by_path.update(warm_restart(torch, card, snap, err))
+    log(f"[restart] 18(b) {time.perf_counter() - t0:.1f} s")
+    fence_refusals(torch, card)
+    restart_fault(torch, card)
+    log(f"[fence] 18(c, d) {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5515,43 +5951,51 @@ def main() -> int:
     log(f"[sharded] phase 12 done ({time.perf_counter() - t_start:.1f} s "
         f"so far); launches {shard_paths}")
     # phase 14 last, after every profiler trace (its paths' launches and
-    # plain-version differences then join the rows)
-    arena_paths = phase14(torch, card, err)
+    # plain-version differences then join the rows); its operator cell
+    # snapshots round 1 into a scratch directory for phase 18
+    import shutil
+    import tempfile
+    snap_dir = tempfile.mkdtemp(prefix="chip-smoke-snapshot-")
+    snap = {"path": os.path.join(snap_dir, "operator.snap")}
+    try:
+        return _phases_14_on(torch, card, err, rows, scans, snap, t_start)
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+
+
+def join_paths(rows, err, paths):
+    """A later phase's plain-version differences (`err`) and its paths'
+    launches join the kernel rows."""
     for row in rows:
         if row["name"] in err:
             row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
-        for path, launches in arena_paths.items():
+        for path, launches in paths.items():
             if row["name"] in launches:
                 row["launches_by_path"][path] = launches[row["name"]]
+
+
+def _phases_14_on(torch, card, err, rows, scans, snap, t_start) -> int:
+    """Phases 14-18 and the closing lines (`main`'s tail, with phase 14's
+    snapshot in `snap`)."""
+    arena_paths = phase14(torch, card, err, snap=snap)
+    join_paths(rows, err, arena_paths)
     log(f"[arena] phase 14 done ({time.perf_counter() - t_start:.1f} s "
         f"so far)")
     loop_paths, loop_recorded = phase15(torch, card, err)
-    for row in rows:
-        if row["name"] in err:
-            row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
-        for path, launches in loop_paths.items():
-            if row["name"] in launches:
-                row["launches_by_path"][path] = launches[row["name"]]
+    join_paths(rows, err, loop_paths)
     log(f"[loop] phase 15 done ({time.perf_counter() - t_start:.1f} s "
         f"so far)")
     robust_paths = phase16(torch, card, err, scans, loop_recorded)
-    for row in rows:
-        if row["name"] in err:
-            row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
-        for path, launches in robust_paths.items():
-            if row["name"] in launches:
-                row["launches_by_path"][path] = launches[row["name"]]
+    join_paths(rows, err, robust_paths)
     log(f"[robust] phase 16 done ({time.perf_counter() - t_start:.1f} s "
         f"so far)")
     gated_paths = phase17(torch, card, err)
-    for row in rows:
-        if row["name"] in err:
-            row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
-        for path, launches in gated_paths.items():
-            if row["name"] in launches:
-                row["launches_by_path"][path] = launches[row["name"]]
+    join_paths(rows, err, gated_paths)
     log(f"[gated] phase 17 done ({time.perf_counter() - t_start:.1f} s "
         f"so far)")
+    ha_paths = phase18(torch, card, err, snap)
+    join_paths(rows, err, ha_paths)
+    log(f"[ha] phase 18 done ({time.perf_counter() - t_start:.1f} s so far)")
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]
     check(not bad, f"the port loaded {bad}")

@@ -6,7 +6,10 @@ assemble core + provider controllers, serve endpoints, run the manager until
 interrupted.  Runs against the in-memory substrate, its solves on the card.
 Logging is plain text through `logging` (the reference's structured
 `configure_logging` is ROADMAP.md queue B item B9; `--log-format json` is
-refused), and `--leader-elect` is refused until item B7 ports the elector.
+refused).  `--leader-elect` (or `--ha-failover`) elects through a lease
+file shared by the replicas on this host; `--warm-restart` with
+`--snapshot-path` restores on startup and snapshots on a cadence and on
+SIGTERM.
 
 `main(argv, device="cuda")`: the `device` keyword is how a test runs the
 entry point on the CPU; the command line has no such flag.
@@ -15,10 +18,27 @@ entry point on the CPU; the command line has no such flag.
 from __future__ import annotations
 
 import logging
+import os
 import signal
 import sys
 
 from .operator import ControllerManager, Operator, Options, build_controllers
+
+
+def _build_leader(options):
+    """Leadership elector for --leader-elect: a TTL'd lease file shared by
+    the replicas on this host (the charts' 2-replica HA analog).  The lease
+    carries the fencing epoch the HAFailover gate validates on every
+    snapshot and cloud write."""
+    if not options.leader_elect:
+        return None
+    import socket
+    import tempfile
+    from .operator.manager import LeaderElector
+    lease = options.lease_path or os.path.join(
+        tempfile.gettempdir(), f"karpenter-{options.cluster_name}.lease")
+    identity = f"{socket.gethostname()}-{os.getpid()}"
+    return LeaderElector(lease, identity, ttl=options.lease_ttl_s)
 
 
 def main(argv=None, device="cuda") -> int:
@@ -27,10 +47,15 @@ def main(argv=None, device="cuda") -> int:
                         format="%(asctime)s %(levelname)s %(name)s "
                                "%(message)s")
     op = Operator(options, device=device)
-    manager = ControllerManager(op, build_controllers(op))
-    # readiness ladder BEFORE serving: the arena parity probe, then the
-    # role phase — /readyz stays 503 until the ladder completes
-    manager.startup()
+    manager = ControllerManager(op, build_controllers(op),
+                                leader=_build_leader(options))
+    # readiness ladder BEFORE serving: warm restore (hydration already
+    # rebuilt what it could from cloud tags; a valid snapshot supersedes
+    # it, any mismatch falls back cold), then the arena parity probe, then
+    # the role phase — /readyz stays 503 until the ladder completes
+    outcome = manager.startup()
+    if options.gate("WarmRestart") and options.snapshot_path:
+        logging.info("warm restart: %s", outcome)
     port = manager.serve_endpoints()
     logging.info("karpenter-tpu up: cluster=%s endpoints=127.0.0.1:%s "
                  "controllers=%s", options.cluster_name, port,

@@ -8,8 +8,10 @@ capacityType)), with the interruption queue's publishing side (a spot
 interruption's warning and its clock-scheduled reclaim), the network and
 image inventories the providers discover (subnets, security groups,
 images, spot price history), the launch-template API, and the chaos
-injector's `cloud.api` seam (utils/chaos.py, keyed on the API name).  Left
-out: the warm-restart export (ROADMAP.md queue B item B7)."""
+injector's `cloud.api` seam (utils/chaos.py, keyed on the API name), and
+the warm-restart export (`snapshot_state` / `restore_state`, read by
+state/snapshot.py) that lets a resumed run replay the same launch and
+reclaim stream."""
 
 from __future__ import annotations
 
@@ -408,3 +410,45 @@ class FakeCloud:
 
     def running(self) -> List[CloudInstance]:
         return self.describe_instances()
+
+    # ---- warm restart (state/snapshot.py) ----
+    def snapshot_state(self) -> Dict:
+        """Round-trippable export of the whole fake-cloud world: a resumed
+        run replays the same launches after restore, so the instance and
+        sequence counters transfer by probe-and-reset (read the next
+        value, recreate the counter at it: net zero draws)."""
+        with self._lock:
+            next_id = next(self._ids)
+            self._ids = itertools.count(next_id)
+            next_seq = next(self._sched_seq)
+            self._sched_seq = itertools.count(next_seq)
+            return {
+                "instances": dict(self._instances),
+                "ice_pools": set(self.insufficient_capacity_pools),
+                "calls": dict(self.calls),
+                "subnets": list(self.subnets),
+                "security_groups": list(self.security_groups),
+                "images": list(self.images),
+                "launch_templates": dict(self.launch_templates),
+                "spot_prices": dict(self.spot_prices),
+                "scheduled": list(self._scheduled),
+                "throttle_until": self.throttle_until,
+                "next_id": next_id,
+                "next_sched_seq": next_seq,
+            }
+
+    def restore_state(self, data: Dict) -> None:
+        with self._lock:
+            self._instances = dict(data["instances"])
+            self.insufficient_capacity_pools = set(data["ice_pools"])
+            self.calls = dict(data["calls"])
+            self.subnets = list(data["subnets"])
+            self.security_groups = list(data["security_groups"])
+            self.images = list(data["images"])
+            self.launch_templates = dict(data["launch_templates"])
+            self.spot_prices = dict(data["spot_prices"])
+            self._scheduled = list(data["scheduled"])
+            heapq.heapify(self._scheduled)
+            self.throttle_until = float(data["throttle_until"])
+            self._ids = itertools.count(int(data["next_id"]))
+            self._sched_seq = itertools.count(int(data["next_sched_seq"]))

@@ -15,8 +15,11 @@ The optional L2 hooks (`subnets=`, `launch_templates=`, `pricing=`; the
 operator wires all three, ../providers/) put the zonal subnet choice with
 in-flight IP accounting, the per-image launch templates and the live price
 tables on the launch path; with all three at None the bare fleet path runs.
-Left out until a slice needs them: HA fencing (ROADMAP.md queue B), the
-cost ledger and the metric families.
+With a `fence` (utils/fencing.LeaseFence, attached by the controller
+manager under the HAFailover gate) the launch and terminate funnels raise
+`StaleFenceError` on a stale fencing epoch and touch nothing; `fence=None`
+runs unfenced.  Left out until their slice (ROADMAP.md queue B, item B9):
+the cost ledger and the metric families.
 """
 
 from __future__ import annotations
@@ -294,6 +297,9 @@ class CloudProvider:
         self.subnets = subnets
         self.launch_templates = launch_templates
         self._claims_by_provider_id: Dict[str, NodeClaim] = {}
+        # HAFailover fencing (utils/fencing.LeaseFence, attached by the
+        # controller manager): None = unfenced
+        self.fence = None
 
     # ---- catalog ----
     def get_instance_types(self, nodepool: Optional[NodePool] = None) -> List[InstanceType]:
@@ -336,6 +342,12 @@ class CloudProvider:
         karpenter:pkg/providers/instance/instance.go:88-105)."""
         if not claim.created_at:
             claim.created_at = self.clock()
+        if self.fence is not None and not self.fence.check("launch"):
+            # deposed leader mid-tick: the new leader owns the substrate
+            # now — refuse (counted), never launch a ghost node
+            from ..utils.fencing import StaleFenceError
+            raise StaleFenceError(
+                f"stale fencing epoch: launch of {claim.name} refused")
         if self.breaker is not None and not self.breaker.allow():
             # fast-fail into the same path an all-ICE'd launch takes
             raise InsufficientCapacityError(
@@ -490,6 +502,11 @@ class CloudProvider:
         already gone raises CloudError("InstanceNotFound")."""
         if not claim.provider_id:
             return
+        if self.fence is not None and not self.fence.check("terminate"):
+            from ..utils.fencing import StaleFenceError
+            raise StaleFenceError(
+                f"stale fencing epoch: terminate of {claim.provider_id} "
+                "refused")
         done = self.cloud.terminate_instances([claim.provider_id])
         claim.terminating = True
         if not done:

@@ -8,7 +8,8 @@ rebalancerecommendation,scheduledchange,statechange}/model.go).  The fake
 cloud publishes here when instances are interrupted or change state, so
 the interruption controller reads what the EventBridge → SQS pipeline
 would deliver.  A plain `threading.Lock` replaces the reference's named
-lock; the warm-restart export is left out (ROADMAP.md queue B).
+lock.  `snapshot_state` / `restore_state` are the queue's section of the
+warm-restart snapshot (state/snapshot.py).
 """
 
 from __future__ import annotations
@@ -147,3 +148,16 @@ class FakeQueue:
     def __len__(self):
         with self._lock:
             return len(self._messages)
+
+    # ---- warm restart (state/snapshot.py) ----
+    def snapshot_state(self) -> Dict:
+        with self._lock:
+            return {"messages": list(self._messages),
+                    "inflight": dict(self._inflight),
+                    "sent_count": self.sent_count}
+
+    def restore_state(self, data: Dict) -> None:
+        with self._lock:
+            self._messages = list(data["messages"])
+            self._inflight = dict(data["inflight"])
+            self.sent_count = int(data["sent_count"])

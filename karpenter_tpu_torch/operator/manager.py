@@ -1,5 +1,5 @@
-"""Controller manager: singleton reconcile loops, pod batch windows and
-the health and `/v1` endpoints.
+"""Controller manager: singleton reconcile loops, pod batch windows, leader
+election and the health and `/v1` endpoints.
 
 A copy of the JAX package's `operator/manager.py`.  Analogs of the
 reference runtime:
@@ -8,34 +8,53 @@ reference runtime:
   * controller-runtime's singleton loops with per-controller requeue
     intervals (reconcile cadences cited per entry below);
   * /healthz + /readyz + /debug/health HTTP endpoints and the `/v1`
-    control surface (operator.go manager options).
+    control surface (operator.go manager options);
+  * leader election for 2-replica HA (charts/karpenter/values.yaml:32-33) —
+    here a TTL'd lease file with fencing epochs (`LeaderElector`), since
+    replicas share a host.
+
+Durability and HA: under the WarmRestart gate (with a `snapshot_path`) a
+`SnapshotWriter` (state/snapshot.py) writes on a cadence at the end of each
+tick and once more in `stop()`, and `startup()` walks STARTING → RESTORING
+(the warm restore) → PROBING (the arena parity probe) → LEADING or STANDBY.
+With a leader, `tick()` first renews the lease: a replica that cannot prove
+leadership (a rival's lease, or lease I/O that fails: `leader.lease` is a
+chaos seam) skips the whole tick and counts it, and a tick that outlives
+its lease aborts before its next mutating phase.  Under the HAFailover gate
+the manager's `LeaseFence` (utils/fencing.py) guards the snapshot writes
+and the CloudProvider's launch and terminate funnels.  `stop()` drains the
+in-flight tick, writes the final snapshot, then releases the lease in
+place, so a standby promotes at its next tick.
 
 No fallback hides a fault of the card or of a kernel: `_supervised`
 re-raises `DEVICE_FAULTS` (ops/classpack.py) before its supervisor books
-anything, so such a fault propagates out of `tick()`, and a `/v1` handler
-answers it with a 500, never with a plan from somewhere else.  Each
-supervised reconcile first passes the chaos seam `controller.reconcile`
-(utils/chaos.py, keyed on the controller's name); an injected `ChaosError`
-is booked like any fault of the controller's own.
+anything, so such a fault propagates out of `tick()` — never counted as a
+lease error and never followed by that tick's cadence write — and a `/v1`
+handler answers it with a 500, never with a plan from somewhere else.
+Each supervised reconcile first passes the chaos seam
+`controller.reconcile` (utils/chaos.py, keyed on the controller's name);
+an injected `ChaosError` is booked like any fault of the controller's own.
 
-Left out, each with the ROADMAP.md queue B item that ports it:
-`LeaderElector`, the lease guards, the snapshotter and the fence, and
-`startup()`'s restore branch (B7); the flight recorder (with the chaos
-state it records), the SLO engine, the cost ledger, the metric and span
-calls, and the endpoints `/metrics`, `/debug/traces`, `/debug/incidents`,
-`/debug/slo`, `/debug/ledger` and `/debug/pprof`, which answer 501 naming
-B9 (B9); the gang snapshot hooks (`gang_snapshot_state` /
-`gang_restore_state`, B7: the snapshot is their only caller).  With the
-Forecast gate the `forecast` entry runs at `forecast_cadence_s`, and real
-pending pods evict headroom placeholders (`preempt_for_pending`) right
-before each provisioning solve.
+Left out, with the ROADMAP.md queue B item that ports them (B9): the flight
+recorder (with the chaos state it records), the SLO engine, the cost
+ledger, the metric and span calls and the incidents the reference
+publishes (the elector's `acquisitions` / `losses` / `releases`, the
+fence's `refusals` and the manager's `_lease_errors`, `_skipped_ticks`
+and `_midtick_aborts` hold the counts), and the endpoints `/metrics`,
+`/debug/traces`, `/debug/incidents`, `/debug/slo`, `/debug/ledger` and
+`/debug/pprof`, which answer 501 naming B9.  With the Forecast gate the
+`forecast` entry runs at `forecast_cadence_s`, and real pending pods evict
+headroom placeholders (`preempt_for_pending`) right before each
+provisioning solve.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.server
 import json
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -99,6 +118,172 @@ class PodBatchWindow:
         self._last_count = 0
 
 
+class LeaderElector:
+    """File-lease leader election with fencing epochs: acquire/renew a
+    TTL'd lease file (HA analog of the chart's leader-elected 2 replicas).
+
+    The lease carries a monotone `epoch` that bumps on every acquisition
+    by a new leadership term (a different holder, an expired or corrupt
+    lease, or a restarted process re-winning its own old lease) and
+    stays fixed across renewals.  `holds_fence()` is the write-side
+    check: the lease must still name this process at the epoch it
+    acquired — the token every guarded snapshot/cloud mutation validates
+    (utils/fencing.py).  `release()` is the graceful-handover half:
+    expire our own lease in place so a standby promotes immediately
+    instead of waiting out the TTL.  `acquisitions`, `losses` and
+    `releases` count the transitions of this elector's terms."""
+
+    def __init__(self, lease_path: str, identity: str, ttl: float = 15.0,
+                 clock: Callable[[], float] = time.time):
+        self.lease_path = lease_path
+        self.identity = identity
+        self.ttl = ttl
+        self.clock = clock
+        # fencing state: epoch of OUR current leadership term (0 = never
+        # led); `_leading` is the last known verdict so acquire/lose
+        # transitions count exactly once per term
+        self._epoch = 0
+        self._leading = False
+        self.acquisitions = 0
+        self.losses = 0
+        self.releases = 0
+
+    def _read_lease(self) -> Optional[tuple]:
+        """(holder, renewed, epoch), or None when missing/corrupt — a
+        lease we cannot parse can never prove anyone's leadership."""
+        try:
+            with open(self.lease_path) as f:
+                lease = json.load(f)
+            return (str(lease["holder"]), float(lease["renewed"]),
+                    int(lease.get("epoch", 0)))
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
+
+    def _note_acquired(self, new_term: bool) -> None:
+        if new_term or not self._leading:
+            self.acquisitions += 1
+        self._leading = True
+
+    def _note_lost(self) -> None:
+        if self._leading:
+            self._leading = False
+            self.losses += 1
+            log.warning("leadership lost: %s at epoch %d (%d losses)",
+                        self.identity, self._epoch, self.losses)
+
+    def _write_lease(self, renewed: float, epoch: int) -> None:
+        tmp = f"{self.lease_path}.{self.identity}.tmp"
+        with open(tmp, "w") as f:
+            json.dump({"holder": self.identity, "renewed": renewed,
+                       "epoch": epoch}, f)
+        os.replace(tmp, self.lease_path)
+
+    @contextlib.contextmanager
+    def _flocked(self):
+        """The lease's kernel flock, taken without blocking: yields False
+        when another process holds it.  Closing the fd releases it, so a
+        holder that crashes leaves nothing behind."""
+        import fcntl
+        fd = os.open(f"{self.lease_path}.lock", os.O_CREAT | os.O_WRONLY,
+                     0o644)
+        try:
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            except OSError:
+                yield False
+                return
+            yield True
+        finally:
+            os.close(fd)
+
+    def try_acquire(self) -> bool:
+        """Read-decide-write under a kernel flock so two replicas racing at
+        lease expiry cannot both win.  flock (not create/unlink) because the
+        kernel releases it when the holder's fd closes — a crash mid-update
+        can neither deadlock election nor leave a stale artifact another
+        replica might delete out from under a live holder."""
+        CHAOS.inject("leader.lease", key="acquire")
+        with self._flocked() as locked:
+            if not locked:
+                return self.is_leader()  # someone else is mid-update
+            now = self.clock()
+            lease = self._read_lease()
+            # missing/corrupt lease: a new term past our own last epoch —
+            # corruption must never let the epoch regress (a stale token
+            # stamped under our old epoch would validate again)
+            renewal, epoch = False, self._epoch + 1
+            if lease is not None:
+                holder, renewed, cur_epoch = lease
+                valid = now - renewed < self.ttl
+                if holder == self.identity and valid and \
+                        cur_epoch == self._epoch and self._epoch > 0:
+                    renewal, epoch = True, cur_epoch  # uninterrupted term
+                elif holder != self.identity and valid:
+                    self._note_lost()
+                    return False
+                else:
+                    # expired, corrupt-then-rewritten, or a previous
+                    # incarnation of ourselves: a new term begins — bump
+                    # the fencing epoch past everything either side has
+                    # seen, so anything stamped under an old one is
+                    # refusable forever
+                    epoch = max(cur_epoch, self._epoch) + 1
+            self._write_lease(now, epoch)
+            self._epoch = epoch
+            self._note_acquired(new_term=not renewal)
+            return True
+
+    def is_leader(self) -> bool:
+        lease = self._read_lease()
+        return lease is not None and lease[0] == self.identity and \
+            self.clock() - lease[1] < self.ttl
+
+    # ---- fencing surface (utils/fencing.LeaseFence delegates here) ----
+    def fence_epoch(self) -> int:
+        """Epoch of our current/last leadership term (0 = never led)."""
+        return self._epoch
+
+    def holds_fence(self) -> bool:
+        """True only while the lease still names us at our epoch — the
+        strict form every guarded write validates.  A rival's interim
+        term (even one that already ended) shows up as an epoch ahead of
+        ours and reads as stale."""
+        lease = self._read_lease()
+        return (lease is not None and self._epoch > 0
+                and lease[0] == self.identity
+                and lease[2] == self._epoch
+                and self.clock() - lease[1] < self.ttl)
+
+    def lease_remaining(self) -> float:
+        """Seconds of validity left on our lease (0 when deposed) — the
+        mid-tick guard's budget check."""
+        lease = self._read_lease()
+        if lease is None or lease[0] != self.identity or \
+                lease[2] != self._epoch:
+            return 0.0
+        return max(0.0, self.ttl - (self.clock() - lease[1]))
+
+    def release(self) -> bool:
+        """Graceful handover (the SIGTERM drain): rewrite our own lease
+        already expired, epoch intact, so the standby's next acquire
+        succeeds immediately (and bumps the epoch past ours).  Failover
+        costs one election round, not TTL + clock drift."""
+        CHAOS.inject("leader.lease", key="release")
+        with self._flocked() as locked:
+            if not locked:
+                return False
+            lease = self._read_lease()
+            if lease is None or lease[0] != self.identity or \
+                    lease[2] != self._epoch or self._epoch == 0:
+                self._note_lost()   # nothing of ours left to release
+                return False
+            self._write_lease(self.clock() - self.ttl, self._epoch)
+            if self._leading:
+                self._leading = False
+                self.releases += 1
+            return True
+
+
 @dataclass
 class _Entry:
     name: str
@@ -130,10 +315,12 @@ class ControllerManager:
     }
 
     def __init__(self, operator, controllers: Dict[str, object],
-                 clock: Callable[[], float] = time.time):
+                 clock: Callable[[], float] = time.time,
+                 leader: Optional[LeaderElector] = None):
         self.operator = operator
         self.controllers = controllers
         self.clock = clock
+        self.leader = leader
         self.batch_window = PodBatchWindow(  # guarded-by: caller(_state_lock)
             idle=operator.options.batch_idle_duration,
             max_timeout=operator.options.batch_max_duration,
@@ -169,13 +356,39 @@ class ControllerManager:
         # worker threads — shared with the operator so every reader of
         # cluster state takes the SAME lock
         self._state_lock = operator.state_lock
-        # readiness lifecycle (STARTING→PROBING→LEADING→DRAINING without a
-        # leader): `startup()` walks the probe phase once, `tick()` keeps
-        # the role phase honest afterwards.  /readyz flips only in
-        # LEADING; /healthz reports liveness independently.
+        # warm-restart snapshot cadence (state/snapshot.py): written from
+        # inside the tick (under the state lock) and once more on stop()
+        self._snapshotter = None
+        if opts.gate("WarmRestart") and opts.snapshot_path:
+            from ..state.snapshot import SnapshotWriter
+            self._snapshotter = SnapshotWriter(
+                opts.snapshot_path, operator, manager=self,
+                interval_s=opts.snapshot_interval_s)
+        # readiness lifecycle (STARTING→RESTORING→PROBING→{LEADING,STANDBY}
+        # →DRAINING): `startup()` walks the restore/probe phases once,
+        # `tick()` keeps the role phases honest afterwards.  /readyz flips
+        # only in LEADING/STANDBY; /healthz reports liveness independently.
         self.phase = "STARTING"
         self.phase_transitions: Dict[str, int] = {}
+        self.promotions = 0
+        self.restore_outcome = "none"
         self.probe_outcome = "none"
+        self._lease_errors = 0
+        self._lease_err_streak = 0
+        self._midtick_aborts = 0
+        self._skipped_ticks = 0
+        # fenced leadership (utils/fencing.py, HAFailover gate): every
+        # snapshot write and cloud mutation validates the fencing epoch;
+        # without the gate (or without a leader) everything runs unfenced
+        self.fence = None
+        if leader is not None and opts.gate("HAFailover"):
+            from ..utils.fencing import LeaseFence
+            self.fence = LeaseFence(leader)
+            cloud = getattr(operator, "cloud_provider", None)
+            if cloud is not None:
+                cloud.fence = self.fence
+            if self._snapshotter is not None:
+                self._snapshotter.fence = self.fence
 
     def _nodeclass_tick(self, ctrl):
         def run():
@@ -187,8 +400,34 @@ class ControllerManager:
     def tick(self) -> Dict[str, object]:
         """One cooperative pass: run every controller whose interval lapsed,
         plus provisioning when the pod batch window is ripe.  Returns
-        results per controller that ran."""
-        if self.phase == "STARTING":
+        results per controller that ran.  With a leader, a tick that
+        cannot prove leadership is skipped whole (counted) and returns
+        {}."""
+        if self.leader is not None:
+            try:
+                self.leader.try_acquire()
+                leading = self.leader.is_leader()
+            except Exception as err:
+                # lease I/O failed (chaos or a sick disk): leadership is
+                # unprovable, so this tick must not mutate anything.  One
+                # WARN per outage, not per tick
+                self._lease_errors += 1
+                if self._lease_err_streak == 0:
+                    log.warning("lease I/O failed; skipping ticks until it "
+                                "recovers: %s", err)
+                self._lease_err_streak += 1
+                leading = False
+            else:
+                if self._lease_err_streak:
+                    log.info("lease I/O recovered after %d failed tick(s)",
+                             self._lease_err_streak)
+                self._lease_err_streak = 0
+            if not leading:
+                self._skipped_ticks += 1
+                if self.phase in ("STARTING", "LEADING"):
+                    self._set_phase("STANDBY")
+                return {}
+        if self.phase in ("STARTING", "STANDBY"):
             self._enter_role_phase()
         with self._state_lock:
             return self._tick_locked()
@@ -196,6 +435,10 @@ class ControllerManager:
     def _tick_locked(self) -> Dict[str, object]:
         now = self.clock()
         results: Dict[str, object] = {}
+        # mid-tick lease guard: waiting on the state lock may have eaten
+        # the whole lease; a deposed tick must abort before any mutation
+        if not self._lease_live():
+            return results
         # IngestBatch: the window of events absorbed since the last tick
         # lands as ONE arena delta before any controller reads the slab
         arena = getattr(self.operator.cluster, "arena", None)
@@ -235,7 +478,28 @@ class ControllerManager:
                           # resumes the moment the supervisor re-allows
             e.last_run = now
             self._supervised(now, e.name, e.reconcile, results)
+        # re-check before the final mutating phase: the controller sweep
+        # above is the long part of a tick and can outlive the lease
+        if self._snapshotter is not None and self._lease_live():
+            self._snapshotter.maybe_write(now)
         return results
+
+    def _lease_live(self) -> bool:
+        """Mid-tick guard: True when no leader is wired or our lease still
+        has time left.  Re-checked before each mutating phase so a tick
+        that outlived its lease aborts (counted in `_midtick_aborts`)
+        instead of acting while deposed; the per-write fence is the
+        backstop underneath."""
+        if self.leader is None:
+            return True
+        try:
+            if self.leader.lease_remaining() > 0.0:
+                return True
+        except Exception:
+            log.warning("mid-tick lease check failed; aborting",
+                        exc_info=True)
+        self._midtick_aborts += 1
+        return False
 
     def _supervised(self, now: float, name: str,
                     reconcile: Callable[[], object],
@@ -284,24 +548,39 @@ class ControllerManager:
         prev, self.phase = self.phase, phase
         self.phase_transitions[phase] = \
             self.phase_transitions.get(phase, 0) + 1
+        if phase == "LEADING" and prev == "STANDBY":
+            self.promotions += 1
         log.info("readiness: %s -> %s", prev, phase)
 
     def _enter_role_phase(self) -> None:
-        if self.phase != "DRAINING":
+        if self.phase == "DRAINING":
+            return
+        if self.leader is None or self.leader.is_leader():
             self._set_phase("LEADING")
+        else:
+            self._set_phase("STANDBY")
 
     def startup(self) -> str:
-        """Walk the readiness ladder before taking traffic: PROBING (arena
-        parity probe), then the role phase.  Returns the restore outcome,
-        "none" while WarmRestart is not ported (ROADMAP.md item B7)."""
+        """Walk the readiness ladder before taking traffic: RESTORING
+        (warm restore when gated), PROBING (arena parity probe), then the
+        role phase.  Returns the restore outcome ("none" when WarmRestart
+        is off) so __main__ can log it."""
+        opts = self.operator.options
+        if opts.gate("WarmRestart") and opts.snapshot_path:
+            self._set_phase("RESTORING")
+            from ..state.snapshot import restore_snapshot
+            with self._state_lock:
+                self.restore_outcome = restore_snapshot(
+                    opts.snapshot_path, self.operator, manager=self)
         self._set_phase("PROBING")
         with self._state_lock:
             self.probe_outcome = self.parity_probe()
         self._enter_role_phase()
-        return "none"
+        return self.restore_outcome
 
     def parity_probe(self, sample: int = 16) -> str:
-        """Prove the arena sane before /readyz flips: `gather()` over a
+        """Prove the (possibly restored) arena sane before /readyz flips:
+        `gather()` over a
         deterministic pod sample must be bit-identical to a cold
         `tensorize_nodes` on the same nodes.  A mismatch invalidates the
         arena (so the first real solve rebuilds cold — degraded but
@@ -332,10 +611,12 @@ class ControllerManager:
         return outcome
 
     def liveness_report(self) -> tuple:
-        """/healthz payload: process-level liveness — supervisor circuits
-        and the solver ladder.  `live` goes False (503) only on a wedge the
-        process cannot dig itself out of: every controller circuit open at
-        once."""
+        """/healthz payload: process-level liveness — supervisor circuits,
+        the solver ladder and snapshot freshness.  `live` goes False (503)
+        only on a wedge the process cannot dig itself out of: every
+        controller circuit open at once, or the snapshot cadence stuck
+        past 3x its interval while we still hold the fence."""
+        now = self.clock()
         sups = {name: sup.snapshot()
                 for name, sup in sorted(self.supervisors.items())}
         open_circuits = sorted(n for n, s in sups.items()
@@ -344,11 +625,20 @@ class ControllerManager:
         if self.supervisors and \
                 len(open_circuits) == len(self.supervisors):
             wedges.append("all_circuits_open")
+        snap_age = None
+        sw = self._snapshotter
+        if sw is not None and sw._last_written != float("-inf"):
+            snap_age = max(0.0, now - sw._last_written)
+            if snap_age > 3.0 * sw.interval_s and \
+                    (self.fence is None or self.fence.held()):
+                wedges.append("snapshot_stale")
         report: Dict[str, object] = {
             "live": not wedges,
             "wedges": wedges,
             "phase": self.phase,
             "circuits_open": open_circuits,
+            "snapshot_age_s": round(snap_age, 3)
+            if snap_age is not None else None,
         }
         prov = self.controllers.get("provisioning")
         health = getattr(prov, "health", None) if prov is not None else None
@@ -357,15 +647,65 @@ class ControllerManager:
         return report, not wedges
 
     def readiness_report(self) -> tuple:
-        """/readyz payload: probed + role.  Ready only in LEADING (parity
-        probe behind us) AND with the cloud breaker closed (cloud/provider.py
+        """/readyz payload: restored + probed + role.  Ready only in
+        LEADING/STANDBY (restore and parity probe behind us, role settled)
+        AND with the cloud breaker closed (cloud/provider.py
         liveness_probe)."""
         cloud = getattr(self.operator, "cloud_provider", None)
         cloud_ok = cloud is None or bool(cloud.liveness_probe())
-        ready = self.phase == "LEADING" and cloud_ok
-        return ({"ready": ready, "phase": self.phase, "role": "single",
-                 "restore": "none", "probe": self.probe_outcome,
-                 "cloud": cloud_ok, "fence_epoch": None}, ready)
+        ready = self.phase in ("LEADING", "STANDBY") and cloud_ok
+        role = "single" if self.leader is None else \
+            ("leader" if self.phase == "LEADING" else "standby")
+        return ({"ready": ready, "phase": self.phase, "role": role,
+                 "restore": self.restore_outcome,
+                 "probe": self.probe_outcome,
+                 "cloud": cloud_ok,
+                 "fence_epoch": self.leader.fence_epoch()
+                 if self.leader is not None else None}, ready)
+
+    def ha_snapshot_state(self) -> Dict:
+        """Leader/readiness state for the WarmRestart snapshot: the
+        counters a promoted successor carries forward, plus the epoch
+        the snapshot was stamped under (forensic — the successor's own
+        acquisition decides the live epoch, never the snapshot)."""
+        return {
+            "phase": self.phase,
+            "epoch": self.leader.fence_epoch()
+            if self.leader is not None else 0,
+            "transitions": dict(self.phase_transitions),
+            "promotions": self.promotions,
+            "skipped_ticks": self._skipped_ticks,
+            "midtick_aborts": self._midtick_aborts,
+            "lease_errors": self._lease_errors,
+        }
+
+    def ha_restore_state(self, data: Dict) -> None:
+        """Restore the HA counters (the phase itself is not restored: the
+        restoring process walks its own readiness ladder and must not
+        teleport into the predecessor's phase)."""
+        self.phase_transitions = {str(k): int(v) for k, v in
+                                  dict(data.get("transitions") or {}).items()}
+        self.promotions = int(data.get("promotions", 0))
+        self._skipped_ticks = int(data.get("skipped_ticks", 0))
+        self._midtick_aborts = int(data.get("midtick_aborts", 0))
+        self._lease_errors = int(data.get("lease_errors", 0))
+
+    def gang_snapshot_state(self) -> Optional[Dict]:
+        """Gang admission registry for the WarmRestart snapshot (None when
+        the GangScheduling gate is off).  Every gang is either fully
+        admitted or fully pending at the checkpoint, and the restored
+        operator starts from exactly that ledger."""
+        reg = getattr(self.controllers.get("provisioning"), "gang_registry",
+                      None)
+        if reg is None:
+            return None
+        return reg.snapshot_state()
+
+    def gang_restore_state(self, data: Dict) -> None:
+        reg = getattr(self.controllers.get("provisioning"), "gang_registry",
+                      None)
+        if reg is not None and data:
+            reg.restore_state(data)
 
     def run(self, tick_seconds: float = 0.25,
             stop_after: Optional[float] = None) -> None:
@@ -379,10 +719,21 @@ class ControllerManager:
 
     def stop(self) -> None:
         self._stop.set()
+        first = self.phase != "DRAINING"
         self._set_phase("DRAINING")
-        # any in-flight tick drains first
+        # graceful handover, in order and under the state lock: any
+        # in-flight tick drains first, then one final fenced snapshot,
+        # then the lease is released in place — the standby's next
+        # acquire succeeds immediately (<TTL failover, not TTL+drift)
         with self._state_lock:
-            pass
+            if self._snapshotter is not None and first:
+                self._snapshotter.write_final()
+            if self.leader is not None and first:
+                try:
+                    self.leader.release()
+                except Exception:
+                    log.warning("lease release failed during drain",
+                                exc_info=True)
         if self._http is not None:
             self._http.shutdown()
             self._http.server_close()

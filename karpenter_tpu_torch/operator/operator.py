@@ -21,8 +21,11 @@ admits manifests as the reference's does, and `state_lock` (a
 surface share.
 
 Not ported yet, and raising NotImplementedError that names the item of
-ROADMAP.md's queue B (`options.check_ported`): WarmRestart and HAFailover
-(B7), FlightRecorder and SLOEngine (B9).  The Forecast gate wires the
+ROADMAP.md's queue B (`options.check_ported`): FlightRecorder and SLOEngine
+(B9).  WarmRestart and HAFailover are read by the controller manager
+(operator/manager.py): its snapshot writer and restore use `raw_cloud`
+(the FakeCloud under the BatchedCloud), and under HAFailover it hands its
+fence to `cloud_provider`.  The Forecast gate wires the
 HeadroomController, its DemandSeries as the cluster's observer and the
 spot-risk prior to the interruption controller; GangScheduling turns on
 the Provisioner's gang admission and hands its preemption plans to the
@@ -104,6 +107,7 @@ class Operator:
             FakeQueue(clock=clock)
             if self.options.interruption_queue else None)
         self.cloud = cloud or FakeCloud(clock=clock, queue=self.queue)
+        self.raw_cloud = self.cloud
         self.batched_cloud = BatchedCloud(self.cloud)
         self.catalog = catalog if catalog is not None else generate_catalog(600)
         self.control_plane = control_plane or FakeControlPlane(

@@ -7,10 +7,13 @@ re-implements karpenter:pkg/operator/options/options.go:53-63).
 Precedence is the reference's: explicit flag > env var > default.
 `from_args` parses the reference's whole command line and refuses every
 flag set away from its default whose reader the port does not have,
-naming the ROADMAP.md queue B item that ports it: `--leader-elect`, the
-lease and snapshot flags (B7), `--log-format json`,
+naming the ROADMAP.md queue B item that ports it: `--log-format json`,
 `--trace-slow-ms`, `--enable-profiling` and the incident, obs, SLO and
-ledger flags (B9).  The four options the JAX package parses and never
+ledger flags (B9).  The durability and HA flags are read as the
+reference's: `--warm-restart` and `--ha-failover` turn their gates on
+(`--ha-failover` also `leader_elect`), `--leader-elect`, `--lease-path`,
+`--lease-ttl`, `--snapshot-path` and `--snapshot-interval` set their
+fields.  The four options the JAX package parses and never
 reads (`--vm-memory-overhead-percent`, `--reserved-enis`, `--health-port`,
 the env's tags) are not parsed: argparse refuses those flags.  A gate
 whose feature is not ported is refused by `check_ported`, at the end of
@@ -44,16 +47,11 @@ FEATURE_GATES: Dict[str, bool] = {
     "GangScheduling": False}
 
 # feature gate → the ROADMAP.md queue B item that ports it
-UNPORTED_GATES = {"WarmRestart": "B7", "HAFailover": "B7",
-                  "FlightRecorder": "B9", "SLOEngine": "B9"}
+UNPORTED_GATES = {"FlightRecorder": "B9", "SLOEngine": "B9"}
 
 # the reference's command-line options the port does not read → (the value
 # that leaves them off, the ROADMAP.md queue B item that ports their reader)
 UNPORTED_FLAGS = {
-    "leader_elect": (False, "B7"), "lease_path": ("", "B7"),
-    "lease_ttl_s": (15.0, "B7"), "warm_restart": (False, "B7"),
-    "snapshot_path": ("", "B7"), "snapshot_interval_s": (30.0, "B7"),
-    "ha_failover": (False, "B7"),
     "log_format": ("text", "B9"), "trace_slow_ms": (0.0, "B9"),
     "enable_profiling": (False, "B9"), "flight_recorder": (False, "B9"),
     "incident_dir": ("", "B9"), "incident_window_s": (600.0, "B9"),
@@ -133,6 +131,7 @@ class Options:
     batch_idle_duration: float = DEFAULT_BATCH_IDLE
     batch_max_duration: float = DEFAULT_BATCH_MAX
     metrics_port: int = DEFAULT_METRICS_PORT  # the endpoints' one server
+    leader_elect: bool = False           # lease-file leader election
     feature_gates: Dict[str, bool] = field(
         default_factory=lambda: dict(FEATURE_GATES))
     # controller supervision (operator/supervisor.py) and the soft deadline
@@ -150,6 +149,14 @@ class Options:
     chaos_spec: str = ""                    # utils/chaos.py rule DSL (off)
     chaos_seed: int = 0                     # chaos schedule seed
     ingest_max_events: int = 100_000        # IngestBatch pending cap → rebuild
+    # durability knobs (WarmRestart gate, state/snapshot.py)
+    snapshot_path: str = ""                 # snapshot file ("" = disabled)
+    snapshot_interval_s: float = 30.0       # cadence between snapshots
+    # HA leadership knobs (used with --leader-elect; HAFailover adds the
+    # fencing on top)
+    lease_path: str = ""                    # lease file ("" = derive from
+                                            # the cluster name in tmpdir)
+    lease_ttl_s: float = 15.0               # leadership lease TTL
     # forecast/headroom knobs (read only with the Forecast gate on); the
     # first five have flags, the rest come from a scenario's forecast block
     forecast_cadence_s: float = 30.0       # HeadroomController reconcile cadence
@@ -319,10 +326,14 @@ class Options:
                            ("sharded_solve", "ShardedSolve"),
                            ("device_decode", "DeviceDecode"),
                            ("device_lp", "DeviceLP"),
+                           ("warm_restart", "WarmRestart"),
                            ("ingest_batch", "IngestBatch"),
+                           ("ha_failover", "HAFailover"),
                            ("gang_scheduling", "GangScheduling")):
             if getattr(ns, flag):
                 opts.feature_gates[gate] = True
+        if ns.ha_failover:
+            opts.leader_elect = True  # fencing is meaningless without a lease
         _parse_kv_list(ns.feature_gates, opts.feature_gates,
                        cast=lambda v: v.lower() != "false")
         check_ported(opts)

@@ -21,9 +21,9 @@ State is exported via `/debug/health` snapshots and a "controller
 quarantined: <last error>" Recorder event when the circuit opens.
 
 A copy of the JAX package's `operator/supervisor.py` without its gauges,
-counters and the `circuit_open` incident (ROADMAP.md queue B, item B9),
-and without the warm-restart state export, whose only caller is the
-snapshot of item B7.  The manager never books a fault of the card or of a
+counters and the `circuit_open` incident (ROADMAP.md queue B, item B9);
+`snapshot_state` / `restore_state` are each supervisor's part of the
+warm-restart snapshot (state/snapshot.py).  The manager never books a fault of the card or of a
 kernel here: it re-raises them first (`manager.ControllerManager`).
 """
 
@@ -151,3 +151,26 @@ class ControllerSupervisor:
             "total_skips": self.total_skips,
             "total_quarantines": self.total_quarantines,
         }
+
+    # ---- warm restart (state/snapshot.py) ----------------------------
+    def snapshot_state(self) -> Dict:
+        """Plain-data export for the WarmRestart snapshot — unlike
+        `snapshot()` (a display form) this round-trips exactly."""
+        return {
+            "state": self.state,
+            "failures": self.failures,
+            "retry_at": self.retry_at,
+            "last_error": self.last_error,
+            "total_failures": self.total_failures,
+            "total_skips": self.total_skips,
+            "total_quarantines": self.total_quarantines,
+        }
+
+    def restore_state(self, data: Dict) -> None:
+        self.state = str(data["state"])
+        self.failures = int(data["failures"])
+        self.retry_at = float(data["retry_at"])
+        self.last_error = str(data["last_error"])
+        self.total_failures = int(data["total_failures"])
+        self.total_skips = int(data["total_skips"])
+        self.total_quarantines = int(data["total_quarantines"])

@@ -42,11 +42,10 @@ Left out: the reference's metric families and spans (ROADMAP.md queue B);
 `arena_gather` counter records.  The reference's gang-resident index
 (`gang_residents`, `gangs_on`) stays out: nothing reads it, in the JAX
 package or its tests (gang scheduling, ops/gang.py, walks the nodes' pods
-itself).  The warm-restart export
-(`snapshot_state` / `restore_state`) comes with `state/snapshot.py`, its
-only caller: nothing in the port snapshots state yet, so the arena needs no
-snapshot section until then — a restarted process rebuilds it from the
-cluster on attach.
+itself).  `snapshot_state` / `restore_state` are the arena's section of
+the warm-restart snapshot (state/snapshot.py): host numpy and plain Python,
+so a snapshot written beside the card loads where there is none, and a
+restored arena serves its first `gather()` warm, with no `tensorize_nodes`.
 """
 
 from __future__ import annotations
@@ -312,6 +311,74 @@ class ClusterArena:
             self._refresh_used(name)
         self.epoch += 1
         self._maybe_compact()
+
+    # ---- snapshot / warm restart ------------------------------------------
+    def snapshot_state(self) -> Dict:
+        """Plain-data export of the whole slab + registries for the
+        WarmRestart snapshot (state/snapshot.py).  Arrays are copied; the
+        caller holds the state lock for the duration either way.  Node
+        objects are not exported (slots rewire by name on restore); rep
+        Pods are, because their class keys are content tuples that survive
+        pickling."""
+        return {
+            "axes": tuple(self._axes),
+            "scales": dict(self._scales),
+            "slab_alloc": self.slab_alloc.copy(),
+            "slab_used": self.slab_used.copy(),
+            "slab_compat": self.slab_compat.copy(),
+            "slab_live": self.slab_live.copy(),
+            "slot_of": dict(self._slot_of),
+            "free": list(self._free),
+            "top": self._top,
+            "rid_of": dict(self._rid_of),
+            "reps": list(self._reps),
+            "epoch": self.epoch,
+            "compactions": self.compactions,
+            "needs_rebuild": self._needs_rebuild,
+        }
+
+    def restore_state(self, data: Dict) -> bool:
+        """Adopt a `snapshot_state` export, rewiring every slot to the
+        restored Cluster's node objects by name.  Returns False (leaving the
+        arena as it was) when the snapshot can't be trusted: axis/scale
+        mismatch, a tracked name the cluster no longer has, or slab shapes
+        that disagree — the caller then falls back to `rebuild()`, the
+        always-correct path."""
+        if tuple(data["axes"]) != self._axes or \
+                dict(data["scales"]) != self._scales:
+            return False
+        nodes = self._cluster.nodes
+        slot_of: Dict[str, int] = dict(data["slot_of"])
+        if any(name not in nodes for name in slot_of):
+            return False
+        alloc = np.asarray(data["slab_alloc"], np.float32)
+        used = np.asarray(data["slab_used"], np.float32)
+        compat = np.asarray(data["slab_compat"], bool)
+        live = np.asarray(data["slab_live"], bool)
+        cap = alloc.shape[0]
+        if used.shape != alloc.shape or compat.shape[0] != cap or \
+                live.shape[0] != cap or alloc.shape[1] != len(self._axes):
+            return False
+        node_at: List[Optional[Node]] = [None] * cap
+        for name, slot in slot_of.items():
+            if not (0 <= slot < cap):
+                return False
+            node_at[slot] = nodes[name]
+        self.slab_alloc = alloc
+        self.slab_used = used
+        self.slab_compat = compat
+        self.slab_live = live
+        self._slot_of = slot_of
+        self._node_at = node_at
+        self._free = list(data["free"])
+        self._top = int(data["top"])
+        self._rid_of = dict(data["rid_of"])
+        self._reps = list(data["reps"])
+        self.epoch = int(data["epoch"])
+        self.compactions = int(data["compactions"])
+        self._needs_rebuild = bool(data["needs_rebuild"])
+        self.epoch += 1
+        return True
 
     # ---- compaction / rebuild ---------------------------------------------
     def compact(self):

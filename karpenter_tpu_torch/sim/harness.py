@@ -36,10 +36,15 @@ Forecast gate on with the block's knobs, and its `gang:` block (or the
 either way, as in the reference, so an A/B run can read `_gang_full_t` on
 the gate-off side.
 
-Left out, with the ROADMAP.md queue B item that ports each: WarmRestart and
-HAFailover with the leader elector (B7), FlightRecorder, SLOEngine with the
-cost ledger, and the sim's metric calls (B9).  Setting one of those
-overrides to True raises NotImplementedError naming its item.
+A scenario's `ha:` block (or the `ha_failover` override) turns the
+HAFailover gate on with a virtual-clock LeaderElector in the manager, whose
+lease lives in a temporary directory the harness owns; `warm_restart`
+overrides the WarmRestart gate (no snapshot path: the gate alone changes
+nothing in a run, as in the reference).
+
+Left out, with the ROADMAP.md queue B item that ports them: FlightRecorder,
+SLOEngine with the cost ledger, and the sim's metric calls (B9).  Setting
+one of those overrides to True raises NotImplementedError naming its item.
 """
 
 from __future__ import annotations
@@ -68,8 +73,7 @@ from .clock import EventHeap, VirtualClock
 from .scenario import Scenario, expand
 
 # harness overrides whose features are not ported → ROADMAP.md queue B item
-UNPORTED_OVERRIDES = {"warm_restart": "B7", "ha_failover": "B7",
-                      "flight_recorder": "B9", "slo": "B9"}
+UNPORTED_OVERRIDES = {"flight_recorder": "B9", "slo": "B9"}
 
 log = logging.getLogger("karpenter_tpu_torch.sim")
 
@@ -147,13 +151,17 @@ class SimHarness:
         overrides the DeviceLP gate (default off): guide misses refine
         in-tick on the PDHG solver — mixes may legitimately differ from the
         HiGHS path's, so gate-ON runs have their own golden.
-        `warm_restart`, `ha_failover`, `flight_recorder` and `slo` are the
-        reference's overrides of gates the port has not ported: True raises
-        NotImplementedError naming the item.  `device` is where
+        `warm_restart` overrides the WarmRestart gate (default off).
+        `ha_failover` overrides the HAFailover gate, else the scenario's
+        `ha.enabled` decides (default off): a virtual-clock LeaderElector
+        is wired into the manager so lease expiry, fencing refusals, and
+        `leader.lease` chaos replay deterministically, and the report
+        grows an `ha` section.  `flight_recorder` and `slo` are the
+        reference's overrides of gates the port has not ported: True
+        raises NotImplementedError naming the item.  `device` is where
         the controllers solve ("cuda" by default; "cpu" runs the kernels'
         plain versions)."""
-        asked = dict(warm_restart=warm_restart, ha_failover=ha_failover,
-                     flight_recorder=flight_recorder, slo=slo)
+        asked = dict(flight_recorder=flight_recorder, slo=slo)
         off = [f"the {name} override (ROADMAP.md queue B, item {item})"
                for name, item in UNPORTED_OVERRIDES.items() if asked[name]]
         if off:
@@ -180,6 +188,7 @@ class SimHarness:
                        batch_max_duration=scenario.batch_max_s)
         for gate, value in (("IncrementalArena", incremental_arena),
                             ("ShardedSolve", sharded_solve),
+                            ("WarmRestart", warm_restart),
                             ("IngestBatch", ingest_batch),
                             ("DeviceDecode", device_decode),
                             ("DeviceLP", device_lp)):
@@ -190,6 +199,12 @@ class SimHarness:
             else (gs is not None and gs.enabled)
         if self._gang_enabled:
             opts.feature_gates["GangScheduling"] = True
+        ha = scenario.ha
+        self._ha_enabled = bool(ha_failover) if ha_failover is not None \
+            else (ha is not None and ha.enabled)
+        if self._ha_enabled:
+            opts.feature_gates["HAFailover"] = True
+            opts.leader_elect = True
         fc = scenario.forecast
         fc_on = forecast if forecast is not None \
             else (fc is not None and fc.enabled)
@@ -235,7 +250,24 @@ class SimHarness:
             b.batcher.options.max_timeout = 0.0
 
         controllers = build_controllers(self.op)
-        self.mgr = ControllerManager(self.op, controllers, clock=self.clock)
+        # HAFailover: a real (virtual-clock) elector so the whole fencing
+        # machinery — epoch bumps at lease expiry, mid-tick guards, chaos
+        # at leader.lease — replays deterministically.  The lease lives in
+        # a temporary directory owned by the harness; its path never
+        # reaches the report.
+        self.leader = None
+        if self._ha_enabled:
+            import os
+            import tempfile
+            from ..operator.manager import LeaderElector
+            self._ha_dir = tempfile.TemporaryDirectory(
+                prefix="karpenter-sim-ha-")
+            self.leader = LeaderElector(
+                os.path.join(self._ha_dir.name, "sim.lease"), "sim-leader",
+                ttl=float(ha.ttl_s) if ha is not None else 15.0,
+                clock=self.clock)
+        self.mgr = ControllerManager(self.op, controllers, clock=self.clock,
+                                     leader=self.leader)
         for entry in self.mgr._entries:
             entry.interval = scenario.intervals.get(entry.name,
                                                     entry.interval)

@@ -8,10 +8,10 @@ two same-seed runs serialize byte-identically; they live on `SimRun`
 instead.
 
 A copy of the JAX package's `sim/report.py` with every ungated section and
-the gated `forecast`, `chaos` and `gang` sections.  The other gated
-sections come with their features: `ha` (ROADMAP.md queue B item B7),
-`incidents`, `slo.budgets`, `ledger` and the cost breakdowns (B9); the
-harness refuses the scenarios and overrides that would turn them on.
+the gated `forecast`, `chaos`, `ha` and `gang` sections.  The other gated
+sections come with their feature: `incidents`, `slo.budgets`, `ledger` and
+the cost breakdowns (ROADMAP.md queue B item B9); the harness refuses the
+scenarios and overrides that would turn them on.
 """
 
 from __future__ import annotations
@@ -164,6 +164,28 @@ def build_report(harness) -> Dict:
             chaos_sec["solver_transitions"] = dict(
                 sorted(health.transitions.items()))
         report["chaos"] = chaos_sec
+    if getattr(harness, "_ha_enabled", False):
+        # present ONLY when the HAFailover gate ran — same conditional
+        # contract as forecast/chaos, so every HA-off report stays
+        # byte-identical.  Everything is deterministic: lease transitions
+        # follow the virtual clock and the chaos schedule, fencing
+        # refusals the seeded injections.
+        leader = harness.leader
+        mgr = harness.mgr
+        fence = getattr(mgr, "fence", None)
+        report["ha"] = {
+            "acquisitions": leader.acquisitions,
+            "losses": leader.losses,
+            "releases": leader.releases,
+            "fence_epoch": leader.fence_epoch(),
+            "lease_errors": mgr._lease_errors,
+            "skipped_ticks": mgr._skipped_ticks,
+            "midtick_aborts": mgr._midtick_aborts,
+            "promotions": mgr.promotions,
+            "phase_at_end": mgr.phase,
+            "fence_refusals": dict(sorted(fence.refusals.items()))
+            if fence is not None else {},
+        }
     if getattr(harness, "_gang_enabled", False):
         # present ONLY when the GangScheduling gate ran — same conditional
         # contract as forecast and chaos, so every gate-off

@@ -1,10 +1,10 @@
 """Scenario DSL: declarative workload waves + fault schedule.
 
 A copy of the JAX package's `sim/scenario.py` with its `forecast:`,
-`chaos:` (a seeded fault schedule for utils/chaos.py) and `gang:` blocks,
-and without the blocks whose features the port does not have yet: a
-document with an `ha:` (ROADMAP.md queue B item B7) or `slo:` (B9) block is
-refused with NotImplementedError naming the item.
+`chaos:` (a seeded fault schedule for utils/chaos.py), `ha:` (the fenced
+leadership drill) and `gang:` blocks, and without the block whose feature
+the port does not have yet: a document with an `slo:` block (ROADMAP.md
+queue B item B9) is refused with NotImplementedError naming the item.
 
 A scenario is a YAML document (or the `Scenario` dataclass directly)
 describing what hits the cluster over a virtual-time window:
@@ -285,6 +285,21 @@ class ChaosSpec:
 
 
 @dataclass
+class HASpec:
+    """HA failover configuration for a scenario.  `enabled: true` turns
+    the HAFailover gate on for the simulated operator: a virtual-clock
+    `LeaderElector` is wired in (so lease expiry, chaos at `leader.lease`,
+    and fencing refusals all play out deterministically) and the report
+    grows an "ha" section."""
+    enabled: bool = True
+    ttl_s: float = 15.0
+
+    def validate(self) -> None:
+        if self.ttl_s <= 0:
+            raise ScenarioError("ha: ttl_s must be positive")
+
+
+@dataclass
 class GangSpec:
     """Gang scheduling configuration for a scenario (docs/gang.md).
     `enabled: true` turns the GangScheduling gate on for the simulated
@@ -320,6 +335,8 @@ class Scenario:
     forecast: Optional[ForecastSpec] = None
     # deterministic fault injection (None = injector stays disarmed)
     chaos: Optional[ChaosSpec] = None
+    # fenced leadership drill (None = HAFailover gate stays off)
+    ha: Optional[HASpec] = None
     # gang scheduling (None = GangScheduling gate stays off)
     gang: Optional[GangSpec] = None
 
@@ -345,6 +362,8 @@ class Scenario:
             self.forecast.validate()
         if self.chaos is not None:
             self.chaos.validate()
+        if self.ha is not None:
+            self.ha.validate()
         if self.gang is not None:
             self.gang.validate()
         names = [w.name for w in self.workload]
@@ -391,7 +410,10 @@ _CHAOS_RULE_FIELDS = {
 # scenario blocks whose features are not ported yet → the ROADMAP.md queue
 # B item that ports each; a document carrying one is refused, never run
 # with the block dropped
-UNPORTED_BLOCKS = {"ha": "B7", "slo": "B9"}
+UNPORTED_BLOCKS = {"slo": "B9"}
+_HA_FIELDS = {
+    "enabled": bool, "ttl_s": float,
+}
 _GANG_FIELDS = {
     "enabled": bool,
 }
@@ -423,7 +445,7 @@ def scenario_from_dict(doc: Dict) -> Scenario:
         raise ScenarioError(f"scenario document must be a mapping, "
                             f"got {type(doc).__name__}")
     known = {"name", "zones", "intervals", "workload", "faults",
-             "forecast", "chaos", "gang", *UNPORTED_BLOCKS,
+             "forecast", "chaos", "ha", "gang", *UNPORTED_BLOCKS,
              *_SCENARIO_SCALARS}
     for key in doc:
         if key not in known:
@@ -501,6 +523,14 @@ def scenario_from_dict(doc: Dict) -> Scenario:
             enabled=bool(cdoc.get("enabled", True)),
             seed=None if cdoc.get("seed") is None else int(cdoc["seed"]),
             rules=rules)
+    if doc.get("ha") is not None:
+        hdoc = doc["ha"]
+        if not isinstance(hdoc, dict):
+            raise ScenarioError("ha must be a mapping")
+        for key in hdoc:
+            if key not in _HA_FIELDS:
+                raise ScenarioError(f"ha: unknown field {key!r}")
+        kw["ha"] = HASpec(**_coerce("ha", hdoc, _HA_FIELDS))
     if doc.get("gang") is not None:
         gdoc = doc["gang"]
         if not isinstance(gdoc, dict):

@@ -20,9 +20,9 @@ guard and the disruption controller's fingerprint cache read it.
 wired by the Forecast gate): the mutators call its `pod_added`,
 `pod_removed` and `pod_bound` where the reference's do.
 
-Left out until their slices land (ROADMAP.md queue B): the warm-restart
-snapshot (`snapshot_state` / `restore_state`, B7) and the metric families
-the mutators feed (B9).
+`snapshot_state` / `restore_state` are the object-graph half of the
+warm-restart snapshot (state/snapshot.py).  Left out until its slice lands
+(ROADMAP.md queue B): the metric families the mutators feed (B9).
 """
 
 from __future__ import annotations
@@ -76,6 +76,32 @@ class Cluster:
         self.arena = ClusterArena(self, **kwargs)
         self.arena.rebuild()
         return self.arena
+
+    # ---- warm restart (state/snapshot.py) ----
+    def snapshot_state(self) -> Dict:
+        """The object-graph half of the WarmRestart snapshot: the four
+        state dicts plus the epoch.  Not copied — the whole snapshot
+        payload pickles in one pass under the state lock, and sharing the
+        live dicts keeps node.pods entries identical to pods.values()
+        entries in the pickled graph (identity the arena's `_node_at`
+        rewiring and `gather()`'s `is` check depend on after restore)."""
+        return {
+            "nodes": self.nodes,
+            "nodeclaims": self.nodeclaims,
+            "pods": self.pods,
+            "pdbs": self.pdbs,
+            "mutation_epoch": self.mutation_epoch,
+        }
+
+    def restore_state(self, data: Dict) -> None:
+        """Adopt unpickled state dicts wholesale.  The caller re-attaches
+        (or restores) the arena and observer afterwards — this method
+        leaves both wiring hooks untouched."""
+        self.nodes = data["nodes"]
+        self.nodeclaims = data["nodeclaims"]
+        self.pods = data["pods"]
+        self.pdbs = data["pdbs"]
+        self.mutation_epoch = int(data["mutation_epoch"])
 
     # ---- pods ----
     def add_pod(self, pod: Pod) -> Pod:

@@ -30,10 +30,11 @@ degrades to `arena.invalidate()` — the next gather is a full rebuild that
 re-derives every event's effect from cluster state.  Degraded, not
 dropped: the rebuild is the always-correct path.
 
-Left out: the reference's metric families (ROADMAP.md queue B; the
-counters `events_total`, `flushes_total` and `overflows_total` stay on the
-object) and `snapshot_state` / `restore_state`, which come with the arena's
-in `state/snapshot.py`.
+`snapshot_state` flushes the window and hands on the arena's export;
+`restore_state` drops the window and restores the arena (the warm-restart
+snapshot, state/snapshot.py).  Left out: the reference's metric families
+(ROADMAP.md queue B; the counters `events_total`, `flushes_total` and
+`overflows_total` stay on the object).
 """
 
 from __future__ import annotations
@@ -155,6 +156,14 @@ class IngestBatcher:
         # pending work is subsumed by the rebuild the flag forces
         self._clear()
         self._arena.invalidate(reason)
+
+    def snapshot_state(self):
+        self.flush()
+        return self._arena.snapshot_state()
+
+    def restore_state(self, data) -> bool:
+        self._clear()
+        return self._arena.restore_state(data)
 
     def __getattr__(self, name):
         # everything else (epoch, live_count, gathers, slab reads in tests,

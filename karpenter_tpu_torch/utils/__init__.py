@@ -1,2 +1,2 @@
 """Host utilities of the port: the event recorder, scheduling provenance,
-the solve watchdog and the chaos injector."""
+the solve watchdog, the chaos injector and the HA fencing token."""

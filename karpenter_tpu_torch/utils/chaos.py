@@ -12,8 +12,9 @@ property the chaos golden report depends on.
 Injection points are a closed registry (`POINTS`).  The `key` argument is
 the dynamic discriminator within a point (controller name, solver rung,
 cloud API name), so one rule can target `controller.reconcile` for just
-`disruption`.  The seams of `leader.lease` and `refinery.refine` come with
-the features that call them (ROADMAP.md queue B items B7 and B9); the
+`disruption`.  `leader.lease` is the LeaderElector's seam (key "acquire"
+or "release", operator/manager.py); the `refinery.refine` seam comes with
+the feature that calls it (ROADMAP.md queue B item B9), and the
 reference's injection counter metric is left out (B9).
 
 Actions:

@@ -6,11 +6,11 @@ observations that must be equal: which gang members bound where (by node
 launch position), the audits, the preemption plans (victims in order), the
 provenance records, the class order and the registry.
 
-The reference's restart case writes and restores a WarmRestart snapshot
-(state/snapshot.py, ROADMAP.md queue B item B7); here its invariant is held
-over the manager's ticks instead (every gang fully bound or fully pending
-after every tick) and the registry's own snapshot round-trips.  The
-gate's A/B replay stays `slow`, as in the reference.
+The restart case holds the invariant over the manager's ticks (every
+gang fully bound or fully pending after every tick), then writes and
+restores a WarmRestart snapshot (state/snapshot.py) as the reference's
+does: the restored cluster and registry show the same gangs.  The gate's
+A/B replay stays `slow`, as in the reference.
 """
 
 import importlib
@@ -464,21 +464,28 @@ def _seed_cloud(m, op):
     return op
 
 
-def test_restart_never_surfaces_half_admitted_gang():
-    """tests/test_gang.py's kill -9 case without the WarmRestart snapshot
-    (B7): the operator's manager with the GangScheduling gate, three ticks
-    over a placeable gang, a forever-partial one and loose pods.  After
-    every tick each gang is fully bound or fully pending, the registry says
-    which, and its snapshot round-trips into a fresh registry."""
+def test_restart_never_surfaces_half_admitted_gang(tmp_path):
+    """tests/test_gang.py's kill -9 case: the operator's manager with the
+    GangScheduling and WarmRestart gates, three ticks over a placeable
+    gang, a forever-partial one and loose pods.  After every tick each gang
+    is fully bound or fully pending, the registry says which, and its
+    snapshot round-trips into a fresh registry; a snapshot written then and
+    restored into a fresh operator shows the same gangs and registry."""
     def case(m):
         O = m.operator
         clk = [1000.0]
-        opts = O.Options(interruption_queue="q")
-        opts.feature_gates["GangScheduling"] = True
-        op = _seed_cloud(m, O.Operator(opts, catalog=m.gen.generate_catalog(10),
-                                       clock=lambda: clk[0], **m.extra))
-        mgr = O.ControllerManager(op, O.build_controllers(op),
-                                  clock=lambda: clk[0])
+        path = str(tmp_path / f"{m.name}.bin")
+
+        def stack():
+            opts = O.Options(interruption_queue="q", snapshot_path=path)
+            opts.feature_gates["GangScheduling"] = True
+            opts.feature_gates["WarmRestart"] = True
+            op = _seed_cloud(m, O.Operator(
+                opts, catalog=m.gen.generate_catalog(10),
+                clock=lambda: clk[0], **m.extra))
+            return op, O.ControllerManager(op, O.build_controllers(op),
+                                           clock=lambda: clk[0])
+        op, mgr = stack()
         op.cluster.add_pods(
             [gang_pod(m, "ok", 3, cpu_m=600) for _ in range(3)]
             + [gang_pod(m, "doomed", 2, cpu_m=10_000_000)]
@@ -497,7 +504,16 @@ def test_restart_never_surfaces_half_admitted_gang():
         reg2 = m.gang.GangRegistry()
         reg2.restore_state(reg.snapshot_state())
         assert reg2.summary() == reg.summary()
-        return states, reg.summary()
+        snapshot = importlib.import_module(f"{m.name}.state.snapshot")
+        assert snapshot.write_snapshot(path, op, mgr)
+        op2, mgr2 = stack()
+        assert snapshot.restore_snapshot(path, op2, mgr2) == "restored"
+        by_gang = bound_by_gang(op2.cluster)
+        assert len(by_gang.get("ok", [])) == 3
+        assert "doomed" not in by_gang, "restart surfaced a half-admitted gang"
+        reg3 = mgr2.controllers["provisioning"].gang_registry
+        assert reg3.summary() == reg.summary()
+        return states, reg.summary(), cluster_state(op2.cluster)
     both(case)
 
 

@@ -277,8 +277,8 @@ def test_invalidate_clears_pending_window():
 def test_gate_defaults_off_and_flags():
     """IngestBatch and WarmRestart are off by default in both packages, and
     the port's Options carry the reference's pending cap; the flags that
-    set them are held by tests/test_torch_main.py (the snapshot knobs,
-    whose feature is ROADMAP.md queue B7, are refused there)."""
+    set them are held by tests/test_torch_main.py (the snapshot knobs
+    with them)."""
     from karpenter_tpu.operator.options import Options as RefOptions
     from karpenter_tpu_torch.operator.options import Options
     for O in (RefOptions, Options):

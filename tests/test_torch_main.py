@@ -4,7 +4,10 @@ the port keeps, from flags and from the env defaults; every flag whose
 reader the port lacks is refused naming its ROADMAP.md item, and argparse
 refuses the flags the JAX package parses and never reads; and `python -m
 karpenter_tpu_torch` (`__main__.main`, on the CPU through its `device`
-keyword) reaches readiness, serves its endpoints and exits 0 on SIGTERM.
+keyword) reaches readiness, serves its endpoints and exits 0 on SIGTERM —
+also as an elected, fenced replica with a warm restart (`--ha-failover
+--warm-restart`), whose SIGTERM writes its final snapshot and releases its
+lease, and whose successor restores that snapshot.
 """
 
 import dataclasses
@@ -100,7 +103,18 @@ REFUSED = [
 @pytest.mark.parametrize("argv,item", REFUSED,
                          ids=[a[0] for a, _ in REFUSED])
 def test_flags_of_unported_features_are_refused(argv, item):
-    RefOptions.from_args(argv)              # the reference takes them
+    """B9's flags are refused; B7's, refused until durability and HA were
+    ported, give the reference's options (the gate flags turn their gates
+    on, `--ha-failover` also `leader_elect`)."""
+    ref = RefOptions.from_args(argv)        # the reference takes them
+    if item == "B7":
+        got = dataclasses.asdict(Options.from_args(argv))
+        assert got == kept(ref)
+        if argv[0] in ("--warm-restart", "--ha-failover"):
+            gate = "WarmRestart" if argv[0] == "--warm-restart" \
+                else "HAFailover"
+            assert got["feature_gates"][gate]
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Options.from_args(argv)
 
@@ -178,19 +192,111 @@ def test_chaos_env_defaults_equal_the_reference(monkeypatch):
                                       ("LOG_FORMAT", "B9")])
 def test_env_defaults_of_unported_features_are_refused(monkeypatch, env,
                                                        item):
+    """B9's env default is refused; B7's (`KARPENTER_TPU_LEADER_ELECT`)
+    gives the reference's options."""
     monkeypatch.setenv(f"KARPENTER_TPU_{env}",
                        {"LEADER_ELECT": "true",
                         "LOG_FORMAT": "json"}.get(env, "a=b"))
+    if item == "B7":
+        opts = Options.from_args([])
+        assert dataclasses.asdict(opts) == kept(RefOptions.from_args([]))
+        assert opts.leader_elect
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Options.from_args([])
 
 
-@pytest.mark.parametrize("gate,item", sorted(UNPORTED_GATES.items()))
+# the gates once refused, with their ROADMAP.md items: B7's are ported
+GATES_ONCE_REFUSED = [("FlightRecorder", "B9"), ("HAFailover", "B7"),
+                      ("SLOEngine", "B9"), ("WarmRestart", "B7")]
+
+
+@pytest.mark.parametrize("gate,item", GATES_ONCE_REFUSED)
 def test_unported_gates_on_the_command_line_are_refused(gate, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Options.from_args(["--feature-gates", f"{gate}=true"])
+    """B9's gates are refused (`UNPORTED_GATES`); B7's turn on from the
+    command line as in the reference."""
+    assert (gate in UNPORTED_GATES) == (item == "B9")
+    argv = ["--feature-gates", f"{gate}=true"]
+    if item == "B7":
+        opts = Options.from_args(argv)
+        assert opts.gate(gate)
+        assert dataclasses.asdict(opts) == kept(RefOptions.from_args(argv))
+    else:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            Options.from_args(argv)
     assert not Options.from_args(
         ["--feature-gates", f"{gate}=false"]).gate(gate)
+
+
+def _serve_main(argv):
+    """Start `main(argv, device="cpu")` in a child; returns (the process,
+    its endpoints' port)."""
+    code = ("import sys; from karpenter_tpu_torch.__main__ import main; "
+            "sys.exit(main(sys.argv[1:], device='cpu'))")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen([sys.executable, "-c", code, *argv], cwd=REPO,
+                            env=env, stderr=subprocess.PIPE, text=True)
+    port, deadline, lines = None, time.time() + 240, []
+    while port is None and time.time() < deadline:
+        line = proc.stderr.readline()
+        if not line:
+            break
+        lines.append(line)
+        if "karpenter-tpu up:" in line:
+            port = int(line.split("endpoints=127.0.0.1:")[1].split()[0])
+    assert port, f"no up line: {lines}"
+    threading.Thread(target=proc.stderr.read, daemon=True).start()
+    return proc, port, lines
+
+
+def _get_json(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_main_leader_elects_and_restores_from_the_command_line(tmp_path):
+    """`--ha-failover --warm-restart --snapshot-path --lease-path` (refused
+    until B7 was ported): the process leads at fencing epoch 1 with
+    /readyz naming its role, SIGTERM exits 0 after writing the final
+    snapshot and releasing the lease, and a second process restores that
+    snapshot and leads at epoch 2 at once (the released lease needs no TTL
+    wait)."""
+    from karpenter_tpu_torch.state.snapshot import load_sections
+    snap, lease = tmp_path / "s.bin", tmp_path / "ha.lease"
+    argv = ["--metrics-port", "0", "--ha-failover", "--warm-restart",
+            "--snapshot-path", str(snap), "--lease-path", str(lease),
+            "--lease-ttl", "30"]
+    epochs = []
+    for restore in ("missing", "restored"):
+        proc, port, lines = _serve_main(argv)
+        try:
+            assert any(f"warm restart: {restore}" in ln for ln in lines)
+            deadline = time.time() + 60
+            code, ready = _get_json(port, "/readyz")
+            while ready["phase"] != "LEADING" and time.time() < deadline:
+                time.sleep(0.2)
+                code, ready = _get_json(port, "/readyz")
+            assert code == 200 and ready["role"] == "leader"
+            assert ready["restore"] == restore
+            epochs.append(ready["fence_epoch"])
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=60) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        sections, reason = load_sections(str(snap))
+        assert reason == "ok"
+        assert sections["meta"]["fence_epoch"] == epochs[-1]
+        with open(lease) as fh:
+            held = json.load(fh)
+        assert held["epoch"] == epochs[-1]
+        assert time.time() - held["renewed"] >= 30     # released in place
+    assert epochs == [1, 2]
 
 
 def test_main_reaches_readiness_and_exits_0_on_sigterm():

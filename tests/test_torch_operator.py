@@ -108,8 +108,15 @@ def test_defaults():
 def test_options_the_port_does_not_read_are_refused(field):
     """An option of the reference that nothing in the port reads is not a
     field of the port's Options: setting one fails at construction instead
-    of being silently ignored."""
+    of being silently ignored.  The lease and snapshot options, refused
+    until B7 was ported, are fields with the reference's defaults."""
     assert hasattr(REF.options.Options(), field)
+    if field in ("leader_elect", "lease_path", "snapshot_path",
+                 "lease_ttl_s"):
+        want = getattr(REF.options.Options(), field)
+        assert getattr(PORT.options.Options(**{field: want}), field) == want
+        assert getattr(PORT.options.Options(), field) == want
+        return
     with pytest.raises(TypeError, match=field):
         PORT.options.Options(**{field: getattr(REF.options.Options(), field)})
 
@@ -332,12 +339,31 @@ def test_operator_without_device_raises_without_a_card():
     ("WarmRestart", "B7"), ("HAFailover", "B7"),
     ("FlightRecorder", "B9"), ("SLOEngine", "B9")])
 def test_unported_gates_raise_naming_their_roadmap_item(gate, item):
+    """B9's gates raise; B7's, refused until durability and HA were
+    ported, build an operator whose manager reads them: WarmRestart with a
+    snapshot path gives it a snapshot writer, HAFailover with a leader a
+    fence on the cloud provider."""
     from karpenter_tpu_torch.catalog.generate import generate_catalog
-    from karpenter_tpu_torch.operator import Operator, Options
+    from karpenter_tpu_torch.operator import (ControllerManager, Operator,
+                                              Options, build_controllers)
+    from karpenter_tpu_torch.operator.manager import LeaderElector
     opts = Options()
     opts.feature_gates[gate] = True
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Operator(opts, catalog=generate_catalog(5), device="cpu")
+    if item == "B9":
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            Operator(opts, catalog=generate_catalog(5), device="cpu")
+        return
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        opts.snapshot_path = f"{d}/s.bin"
+        op = Operator(opts, catalog=generate_catalog(5), device="cpu")
+        mgr = ControllerManager(op, build_controllers(op),
+                                leader=LeaderElector(f"{d}/ha.lease", "a"))
+        if gate == "WarmRestart":
+            assert mgr._snapshotter is not None and mgr.fence is None
+        else:
+            assert mgr.fence is not None
+            assert op.cloud_provider.fence is mgr.fence
 
 
 def test_chaos_spec_arms_the_injector_as_the_reference():

@@ -1,8 +1,8 @@
 """The port's simulator (karpenter_tpu_torch/sim/) against the JAX
-package's, case by case with tests/test_sim.py's cases that need no HA or
-SLO block: the clock and heap primitives, the scenario DSL (with its
-`forecast:`, `chaos:` and `gang:` blocks), the clock-scheduled interruption
-pipeline, determinism (the same seed gives a byte-identical log and
+package's, case by case with tests/test_sim.py's cases that need no SLO
+block: the clock and heap primitives, the scenario DSL (with its
+`forecast:`, `chaos:`, `ha:` and `gang:` blocks), the clock-scheduled
+interruption pipeline, determinism (the same seed gives a byte-identical log and
 report), the harness's cases, and the CLI.  Each case runs on both packages
 and returns plain observations that must be equal; the port's controllers
 solve on the CPU.
@@ -18,7 +18,10 @@ goldens recorded before gang scheduling replayed with the GangScheduling
 (and, where the scenario has no forecast block, the Forecast) gate
 explicitly off; and the port's own boundaries: no `time.sleep` in its
 sim/, and every scenario block and harness override of an unported feature
-refused, naming its ROADMAP.md item.
+refused, naming its ROADMAP.md item (the `ha:` block and the
+`warm_restart` / `ha_failover` overrides, refused until B7 was ported, now
+run as the reference's; tests/test_torch_failover.py replays the
+failover-drill golden).
 """
 
 import dataclasses
@@ -384,9 +387,21 @@ def test_no_wall_sleeps_in_the_sim_path():
 
 @pytest.mark.parametrize("block,item", [("ha", "B7"), ("slo", "B9")])
 def test_scenario_blocks_of_unported_features_are_refused(block, item):
+    """The `slo:` block is refused (B9); the `ha:` block, refused until
+    B7 was ported, gives the reference's scenario."""
     from karpenter_tpu_torch.sim.scenario import scenario_from_dict
     doc = {"name": "x", "workload": [{"kind": "step", "name": "w"}],
            block: {"enabled": True}}
+    if item == "B7":
+        got = both(lambda m: _port_fields(m.scenario.scenario_from_dict(
+            dict(doc, ha={"enabled": True, "ttl_s": 7}))))
+        assert got["ha"] == {"enabled": True, "ttl_s": 7.0}
+        for bad, match in (({"ttl_s": 0}, "ttl_s must be positive"),
+                           ({"lease": 1}, "unknown field"),
+                           ("x", "must be a mapping")):
+            with pytest.raises(PORT.scenario.ScenarioError, match=match):
+                scenario_from_dict(dict(doc, ha=bad))
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         scenario_from_dict(doc)
     # the reference runs the same document (a refusal, never a drop)
@@ -499,16 +514,29 @@ def test_canned_forecast_and_gang_scenarios_load_as_the_reference(fname):
 
 @pytest.mark.parametrize("fname,item", [("failover-drill.yaml", "B7")])
 def test_canned_scenarios_of_unported_features_are_refused(fname, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}") as ei:
-        PORT.sim.load_scenario(os.path.join(SCENARIOS, fname))
-    # failover-drill carries a chaos: block too, no longer refused
-    assert str(ei.value).count("item B") == 1
+    """failover-drill (its `ha:` and `chaos:` blocks), refused until B7 was
+    ported, loads as the reference's scenario."""
+    got = both(lambda m: _port_fields(m.sim.load_scenario(
+        os.path.join(SCENARIOS, fname))))
+    assert got["ha"] == {"enabled": True, "ttl_s": 30.0}
+    assert len(got["chaos"]["rules"]) == 2
 
 
 @pytest.mark.parametrize("override,item", [
     ("warm_restart", "B7"), ("ha_failover", "B7"),
     ("flight_recorder", "B9"), ("slo", "B9")])
 def test_harness_overrides_of_unported_gates_are_refused(override, item):
+    """B9's overrides are refused; B7's, refused until durability and HA
+    were ported, run the replay as the reference's do (the report of the
+    small scenario equal to the reference's, with an `ha` section under
+    `ha_failover`)."""
+    if item == "B7":
+        def case(m):
+            run = harness(m, small_scenario(m), **{override: True}).run()
+            return m.sim.report_to_json(run.report)
+        report = json.loads(both(case))
+        assert ("ha" in report) == (override == "ha_failover")
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         harness(PORT, small_scenario(PORT), **{override: True})
     harness(PORT, small_scenario(PORT), **{override: False})
