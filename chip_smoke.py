@@ -218,8 +218,10 @@ pass):
                gathered warm; (c) the operator cell — Operator(Options())
                on the card at full width with build_controllers, the live
                cell's two bursts and one disruption tick — against
-               GOLDEN_OPERATOR; (d) every wrapper held against its plain
-               version on the kept inputs.  Each step's launches (zeroed
+               GOLDEN_OPERATOR, its Options carrying the WarmRestart gate
+               and a snapshot written after round 1 (phase 18 restores
+               it); (d) every wrapper held against its plain version on
+               the kept inputs.  Each step's launches (zeroed
                just before it) and idle share are printed, "tensorize"
                split into lower_pods, tensorize and the live-node gather,
                and live round 2's provision() timed on a fresh copy without
@@ -295,6 +297,28 @@ pass):
                controller's books, the ladder and the supervisors stay as
                they were (tests/test_torch_fault_ticks.py runs both on
                the CPU).
+ 18. durability and HA — after phase 17: (a) SimHarness replays
+               scenarios/failover-drill.yaml (HAFailover with a
+               virtual-clock LeaderElector, a lease blackout and a flaky
+               window; seed 0, 5400 s) with the arena on, then off, each
+               report byte for byte against
+               tests/golden/sim-failover-drill.json, with its wall, ticks,
+               launches of K1, K2, K3, K5, K7 and idle share, every
+               wrapper held against plain on its recorded inputs; (b) the
+               warm restart at full width: phase 14(c)'s snapshot (its
+               bytes and host write ms, its sections host data only) is
+               restored by a fresh `python3 -c` process (`successor`)
+               that loads the kernels built in build/, runs round 2 and
+               the tick against GOLDEN_OPERATOR with 0 cold gathers, its
+               provision() ms printed beside phase 14's, and holds its
+               recorded K1, K2, K3 inputs against plain; (c) a deposed
+               elector's snapshot write, launch and terminate refused
+               (StaleFenceError for the last two), nothing written,
+               launched or deleted, `refusals` counting each; (d) a
+               KernelError in a restored successor's first solve leaves
+               tick() through `Provisioner.solve` with no snapshot written
+               (tests/test_torch_fault_ticks.py runs (c) and (d) on the
+               CPU).
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
