@@ -319,6 +319,34 @@ pass):
                tick() through `Provisioner.solve` with no snapshot written
                (tests/test_torch_fault_ticks.py runs (c) and (d) on the
                CPU).
+ 19. metrics and tracing — after phase 18: (a) the tracer's cost: the
+               warm guided headline (against GOLDEN_GUIDED, after a cold
+               golden run) and, inside phase 10 where its state is, the
+               live cell's round-2 `Provisioner.solve` (every run the
+               first run's plan; the round's golden provision() follows)
+               run with `TRACER.enabled` on and off in turns (21 and 5
+               pairs), their p50s and the overhead printed
+               (`[trace-cost]`);
+               (b) one provisioning round (5000 headline pods, 600 types,
+               the default Provisioner) and one consolidation tick over
+               the fleet it launched, thinned to one pod a node, each with
+               the launch
+               counts zeroed just before it and its kernels' launches and
+               CUDA-event times keyed by the span open at each call: each
+               `solve.kernel` and sweep span lasts at least its kernels'
+               card time, a `solve.kernel` is one K1, one K2 and one K3 (and
+               K6 with the slab decode), a sweep span's `device_calls` its
+               K1 and K5 launches, a ffd `solve.pack`'s its K7 launches;
+               the host ms of each span printed; (c) a small operator
+               served by `serve_endpoints`, on the CPU and on the card:
+               `/metrics` lists the same families on both,
+               `/debug/traces?span=provision` returns the round's tree,
+               `/debug/pprof` answers 403, then 200 with
+               `enable_profiling`; (d) host ms by span summed over whole
+               runs (the tracer's duration histogram, registries reset
+               first): the sim-long-soak-480 replay against
+               GOLDEN_SIM_SOAK (the loop) and the megafleet's three
+               `solve_partitioned` modes (the sharded path).
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -2576,6 +2604,7 @@ def provision_cells(torch, card, device="cuda"):
                 rng=np.random.default_rng(seed), **kw))
             if cell == LIVE_PATH and r == 1:
                 provision_timings(torch, card, env, cell)
+                live_r2_tracing_cost(torch, card, env)
             reset_all_launches()
             with captured(cp, "classpack_slab") as k6, \
                     captured(cp, "class_pack_assign_slab_kernel") as prog, \
@@ -2618,6 +2647,24 @@ def provision_cells(torch, card, device="cuda"):
         check(by_path[cell]["ffd_scan"] >= 1,
               f"K7 ffd_scan never launched in {cell}")
     return by_path, slabs, programs, scans
+
+
+def live_r2_tracing_cost(torch, card, env):
+    """Phase 19(a) on the live cell's frozen round-2 state (run here, in
+    phase 10, where that state is): `Provisioner.solve` with the tracer on
+    and off in turns, every run's plan the first run's (and the round's
+    provision() right after must give GOLDEN_PROVISION)."""
+    from karpenter_tpu_torch import workloads
+    batch = env.cluster.pending_pods()
+    prov = env.provisioner
+    problem, packing = prov.solve(batch)
+    want = workloads.plan_digest(problem, packing)[0]
+
+    def same_plan(out):
+        check(workloads.plan_digest(*out)[0] == want,
+              f"{LIVE_PATH} round 2: a timed solve changed the plan")
+    tracing_cost(torch, card, f"{LIVE_PATH} round 2 Provisioner.solve",
+                 lambda: prov.solve(batch), same_plan)
 
 
 def provision_timings(torch, card, env, cell, iters=5):
@@ -4652,8 +4699,9 @@ def v1_in_process(torch, card, hook):
         check(code == 200 and listed["items"][0]["spec"]["template"][
             "metadata"]["labels"] == {"team": "v1"},
             f"/v1/nodepools: {code} {listed}")
-        check(workloads.http_json(port, "/metrics")[0] == 501,
-              "/metrics does not answer 501")
+        code, body = http_get(port, "/metrics")
+        check(code == 200 and b"# TYPE karpenter_nodes_created " in body,
+              f"/metrics: {code}, not the registry's exposition")
         pods = workloads.build_pods(rng=np.random.default_rng(
             workloads.HEADLINE_SEED), **workloads.HEADLINE)
         payload = workloads.v1_solve_payload(pods)
@@ -5910,6 +5958,384 @@ def phase18(torch, card, err, snap):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 19: metrics and tracing
+# ---------------------------------------------------------------------------
+
+# tracing's cost on the two timed paths, filled as they run (the live
+# cell's round 2 inside phase 10, where its state is)
+TRACE_COST = {}
+TRACE_PAIRS = 5
+PROVISION_19 = "trace-provision-5k"
+TICK_19 = "trace-consolidation-tick"
+
+
+def tracing_cost(torch, card, what, fn, ok, pairs=TRACE_PAIRS):
+    """`fn()` with the tracer on and off in turns (on/off, then off/on),
+    `pairs` runs of each after one warm call; `ok(result)` must hold for
+    every run.  Logs and keeps the two p50s and the overhead."""
+    from karpenter_tpu_torch.utils import tracing
+    tr = tracing.TRACER
+    ok(fn())
+    torch.cuda.synchronize()
+    xs = {True: [], False: []}
+    try:
+        for i in range(pairs):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                tr.enabled = on
+                t0 = time.perf_counter()
+                res = fn()
+                torch.cuda.synchronize()
+                xs[on].append((time.perf_counter() - t0) * 1e3)
+                ok(res)
+    finally:
+        tr.enabled = True
+    on, off = statistics.median(xs[True]), statistics.median(xs[False])
+    pct = (on - off) / off * 100.0
+    # the tracer's own work: the spans one run opens, times one span's
+    # measured host cost (open, annotate, close, histogram observe)
+    tr.reset()
+    fn()
+    n_spans = sum(_count_spans(t) for t in tr.traces())
+    tr.reset()
+    reps = 20_000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with tracing.span("trace.cost.probe") as sp:
+            sp.annotate(device_calls=1)
+    per_span_us = (time.perf_counter() - t0) / reps * 1e6
+    tr.reset()
+    accounted = n_spans * per_span_us / 1e3 / off * 100.0
+    TRACE_COST[what] = {"on_p50_ms": on, "off_p50_ms": off,
+                        "overhead_pct": pct, "spans": n_spans,
+                        "us_per_span": per_span_us,
+                        "accounted_pct": accounted}
+    log(f"[trace-cost] {what}: tracer on p50 {on:.3f} ms, off p50 "
+        f"{off:.3f} ms over {pairs} pairs (on {', '.join(f'{x:.1f}' for x in xs[True])}; "
+        f"off {', '.join(f'{x:.1f}' for x in xs[False])}), overhead "
+        f"{pct:.2f}%; the tracer's own work: {n_spans} spans a run x "
+        f"{per_span_us:.3f} us = {accounted:.4f}% of the off p50, on {card}")
+
+
+def _count_spans(t):
+    return 1 + sum(_count_spans(c) for c in t["children"])
+
+
+class span_launches:
+    """A `wrapped_kernels` hook: each wrapper call's launch-count delta and
+    CUDA-event time (wrapper entry to kernel end), keyed by the tracing
+    span open at the call."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __call__(self, name, a, k, call):
+        from karpenter_tpu_torch.utils import tracing
+        sp = tracing.TRACER.current()
+        before = all_launches()
+        start = self.torch.cuda.Event(enable_timing=True)
+        end = self.torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            return call()
+        finally:
+            end.record()
+            after = all_launches()
+            self.calls.append((sp.span_id if sp is not None else None,
+                               {n: v - before.get(n, 0)
+                                for n, v in after.items()
+                                if v != before.get(n, 0)}, start, end))
+
+    def by_span(self):
+        """span id → {"launches": {...}, "ms": card ms}; synchronizes."""
+        self.torch.cuda.synchronize()
+        out = {}
+        for sid, delta, start, end in self.calls:
+            d = out.setdefault(sid, {"launches": {}, "ms": 0.0})
+            for n, v in delta.items():
+                d["launches"][n] = d["launches"].get(n, 0) + v
+            d["ms"] += start.elapsed_time(end)
+        self.calls.clear()
+        return out
+
+
+def _subtree(t, per_span):
+    """(launches, card ms) of the kernels launched in `t`'s subtree."""
+    mine = per_span.get(t["span_id"], {"launches": {}, "ms": 0.0})
+    launches, ms = dict(mine["launches"]), mine["ms"]
+    for c in t["children"]:
+        cl, cm = _subtree(c, per_span)
+        for n, v in cl.items():
+            launches[n] = launches.get(n, 0) + v
+        ms += cm
+    return launches, ms
+
+
+def check_span_tree(trace, per_span, what):
+    """Each `solve.kernel` and sweep span lasts at least the card time of
+    the kernels launched in it, and every `device_calls` annotation maps to
+    its span's launch delta: a classpack program is one K1, one K2 and one
+    K3 (K6 after it with the slab decode), a pod-granular scan one K7, a
+    sweep call one K1 and one K5.  Returns the lines it checked."""
+    lines = []
+
+    def walk(t):
+        ann = t["annotations"]
+        launches, ms = _subtree(t, per_span)
+        if t["name"] == "solve.kernel" or t["name"].startswith("sweep."):
+            check(t["duration_ms"] >= ms,
+                  f"{what}: span {t['name']} lasts {t['duration_ms']} ms, "
+                  f"less than the {ms:.4f} ms of its kernels {launches}")
+        if t["name"] == "solve.kernel":
+            k = {n: v for n, v in launches.items() if n != "classpack_slab"}
+            check(k == {"classpack_precompute": 1, "classpack_scan": 1,
+                        "classpack_assign_decode": 1}
+                  and launches.get("classpack_slab", 0) <= 1,
+                  f"{what}: solve.kernel launched {launches}")
+        if "device_calls" in ann:
+            d = ann["device_calls"]
+            if t["name"] == "solve.pack" and ann.get("solver") == "ffd":
+                check(launches.get("ffd_scan", 0) == d,
+                      f"{what}: ffd solve.pack device_calls {d}, launches "
+                      f"{launches}")
+            elif t["name"] in ("sweep.prefix", "sweep.single"):
+                check(launches.get("classpack_sweep", 0) == d ==
+                      launches.get("classpack_precompute", 0),
+                      f"{what}: {t['name']} device_calls {d}, launches "
+                      f"{launches}")
+            else:
+                # the classpack solve's annotation, on the span it ran in
+                check(1 <= d <= launches.get("classpack_scan", 0),
+                      f"{what}: {t['name']} device_calls {d}, launches "
+                      f"{launches}")
+            lines.append(f"{t['name']} device_calls={d} launches={launches} "
+                         f"kernels {ms:.3f} ms of {t['duration_ms']:.3f} ms")
+        elif t["name"] == "solve.kernel":
+            lines.append(f"{t['name']} launches={launches} kernels "
+                         f"{ms:.3f} ms of {t['duration_ms']:.3f} ms")
+        for c in t["children"]:
+            walk(c)
+    walk(trace)
+    return lines
+
+
+def span_split(trace, depth=2):
+    """`name ms` of a trace's spans to `depth` levels: the host-ms split
+    by layer."""
+    out = []
+
+    def walk(t, d, pre):
+        out.append(f"{pre}{t['name']} {t['duration_ms']:.3f}")
+        if d < depth:
+            for c in t["children"]:
+                walk(c, d + 1, pre + "  ")
+    walk(trace, 0, "")
+    return "; ".join(x.strip() for x in out)
+
+
+def traced_paths(torch, card):
+    """Phase 19(b): one provisioning round (5000 headline pods on the
+    600-type catalog, the default guided Provisioner) and one consolidation
+    tick over the fleet it launched, thinned to one pod a node, on the
+    card, each with the launch counts zeroed just before it; their span
+    trees against the kernels' card time and launch counts.  Returns the
+    launches by path."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.api.objects import Disruption, NodePool
+    from karpenter_tpu_torch.controllers.disruption import \
+        DisruptionController
+    from karpenter_tpu_torch.catalog.generate import generate_catalog
+    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
+    from karpenter_tpu_torch.controllers.provisioning import Provisioner
+    from karpenter_tpu_torch.state import Cluster
+    from karpenter_tpu_torch.utils import tracing
+    by_path = {}
+    clear_lp_caches()
+    cluster = Cluster()
+    cluster.add_pods(workloads.build_pods(
+        rng=np.random.default_rng(SEED), **dict(workloads.HEADLINE,
+                                                total=5000)))
+    pools = [NodePool(disruption=Disruption(
+        consolidation_policy="WhenUnderutilized"))]
+    provider = CloudProvider(FakeCloud(), generate_catalog(
+        workloads.PROVISION_TYPES))
+    prov = Provisioner(provider, cluster, pools)
+    ctrl = DisruptionController(provider, cluster, pools,
+                                clock=lambda: time.time() + 10_000,
+                                stabilization_s=0.0)
+
+    def thin_and_tick():
+        # under-utilize without emptying: one pod left on each node, so
+        # the tick reaches the consolidation sweep
+        keep = set()
+        for p in sorted(cluster.pods.values(), key=lambda p: p.name):
+            if p.node_name in keep:
+                cluster.delete_pod(p)
+            else:
+                keep.add(p.node_name)
+        return ctrl.reconcile()
+    for path, run, root in ((PROVISION_19, prov.provision, "provision"),
+                            (TICK_19, thin_and_tick,
+                             "disruption.reconcile")):
+        hook = span_launches(torch)
+        tracing.TRACER.reset()
+        reset_all_launches()
+        with wrapped_kernels(hook):
+            out = run()
+            torch.cuda.synchronize()
+        by_path[path] = {k: v for k, v in all_launches().items() if v}
+        trace = tracing.TRACER.traces(span=root)[0]
+        lines = check_span_tree(trace, hook.by_span(), path)
+        check(lines, f"{path}: no span carries device_calls")
+        log(f"[trace] {path}: {len(lines)} spans checked — "
+            + " | ".join(lines))
+        log(f"[trace] {path} host ms by span: {span_split(trace)} on {card}")
+        if path == PROVISION_19:
+            check(not out.unschedulable and out.launched,
+                  f"{path}: {len(out.launched)} launched, "
+                  f"{len(out.unschedulable)} unschedulable")
+    return by_path
+
+
+def http_get(port, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def served_scrape(device):
+    """A small operator on `device` from fresh registries: two ticks that
+    provision 40 pods, then its endpoints.  Returns (the /metrics family
+    names, the provision trace, /debug/pprof's codes off and on)."""
+    from karpenter_tpu_torch.api.objects import Pod
+    from karpenter_tpu_torch.api.resources import CPU, MEMORY, ResourceList
+    from karpenter_tpu_torch.utils import metrics, tracing
+    metrics.REGISTRY.reset()
+    tracing.TRACER.reset()
+    clock = [100.0]
+    op, mgr = small_operator((), lambda: clock[0], device)
+    op.cluster.add_pods([Pod(requests=ResourceList(
+        {CPU: 500, MEMORY: 512 * 2 ** 20})) for _ in range(40)])
+    mgr.tick()
+    clock[0] += 1.1
+    mgr.tick()
+    port = mgr.serve_endpoints(metrics_port=0)
+    try:
+        code, body = http_get(port, "/metrics")
+        check(code == 200, f"/metrics on {device} answered {code}")
+        families = sorted(ln.split()[2] for ln in body.decode().splitlines()
+                          if ln.startswith("# TYPE "))
+        code, body = http_get(port, "/debug/traces?span=provision")
+        check(code == 200, f"/debug/traces on {device} answered {code}")
+        traces = json.loads(body)["traces"]
+        check(traces and traces[0]["name"] == "provision" and
+              traces[0]["children"][0]["name"] == "provision.round",
+              f"/debug/traces?span=provision on {device}: {traces[:1]}")
+        off, _ = http_get(port, "/debug/pprof")
+        op.options.enable_profiling = True
+        on, body = http_get(port, "/debug/pprof")
+        check(off == 403 and on == 200 and json.loads(body)["threads"],
+              f"/debug/pprof on {device}: {off} off, {on} on")
+        return families, traces[0], (off, on)
+    finally:
+        mgr.stop()
+
+
+
+def span_sums():
+    """The tracer's duration histogram read back: span name → [host ms
+    summed, spans]."""
+    from karpenter_tpu_torch.utils import metrics
+    out = {}
+    for name, kv, v in metrics.trace_span_duration().samples():
+        acc = out.setdefault(dict(kv)["span"], [0.0, 0])
+        if name.endswith("_sum"):
+            acc[0] = v * 1e3
+        elif name.endswith("_count"):
+            acc[1] = int(v)
+    return out
+
+
+def span_line(sums):
+    return ", ".join(f"{k} {ms:.3f} ({n})" for k, (ms, n) in
+                     sorted(sums.items(), key=lambda x: -x[1][0]))
+
+
+def whole_run_splits(torch, card, mega):
+    """Phase 19(d): host ms by span summed over whole runs, from fresh
+    registries: the sim-long-soak-480 replay (the loop; its report against
+    GOLDEN_SIM_SOAK) and the megafleet's three `solve_partitioned` modes
+    (the sharded path)."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.parallel import solve_partitioned
+    from karpenter_tpu_torch.utils import metrics
+    metrics.REGISTRY.reset()
+    hook = kernel_log(torch, spans=True)
+    with wrapped_kernels(hook):
+        run, _, _, wall = sim_replay(
+            torch, card, hook, workloads.SIM_SOAK["scenario"],
+            workloads.SIM_SOAK["duration_s"], f"trace {SOAK_PATH}")
+    got = workloads.sim_digest(run.report)
+    check(got == workloads.GOLDEN_SIM_SOAK,
+          f"trace {SOAK_PATH}: {got} != {workloads.GOLDEN_SIM_SOAK}")
+    log(f"[trace] {SOAK_PATH} host ms by span over the replay "
+        f"({wall * 1e3:.3f} ms wall; span (count)): "
+        f"{span_line(span_sums())} on {card}")
+    metrics.REGISTRY.reset()
+    mesh = shard_mesh()
+    t0 = time.perf_counter()
+    for kw in workloads.MEGAFLEET_MODES.values():
+        solve_partitioned(mega, mesh=mesh,
+                          max_nodes_per_shard=workloads.MEGAFLEET_K, **kw)
+    torch.cuda.synchronize()
+    log(f"[trace] {MEGA_PATH} host ms by span over its three modes "
+        f"({(time.perf_counter() - t0) * 1e3:.3f} ms wall): "
+        f"{span_line(span_sums())} on {card}")
+
+def phase19(torch, card, problem, mega):
+    """Phase 19, metrics and tracing: (a) the tracer's cost on the warm
+    guided headline (the live cell's round 2 ran inside phase 10);
+    (b) the span trees of a provision and a consolidation tick against the
+    kernels; (c) the endpoints of a served operator, on the card against
+    the same run on the CPU; (d) host ms by span over a sim replay and the
+    megafleet's solves.  Returns the launches by path."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops.classpack import solve_classpack
+    t0 = time.perf_counter()
+    clear_lp_caches()
+    check_guided(problem, solve_classpack(problem), "phase 19, cold")
+    gold = workloads.GOLDEN_GUIDED["digest"]
+
+    def guided_ok(res):
+        check(workloads.plan_digest(problem, res)[0] == gold,
+              "phase 19: a timed guided headline left GOLDEN_GUIDED")
+    # 21 pairs: a warm guided solve is ~55 ms and its runs spread ±20%
+    tracing_cost(torch, card, "guided headline, warm",
+                 lambda: solve_classpack(problem), guided_ok, pairs=21)
+    log(f"[trace-cost] 19(a) {time.perf_counter() - t0:.1f} s; "
+        f"{json.dumps(TRACE_COST)}")
+    by_path = traced_paths(torch, card)
+    log(f"[trace] 19(b) {time.perf_counter() - t0:.1f} s; launches {by_path}")
+    cpu, _, cpu_codes = served_scrape("cpu")
+    card_f, trace, codes = served_scrape("cuda")
+    check(card_f == cpu, f"/metrics families on the card differ from the "
+                         f"CPU run: {sorted(set(card_f) ^ set(cpu))}")
+    check(codes == cpu_codes == (403, 200), f"/debug/pprof {codes}")
+    log(f"[endpoints] /metrics: {len(card_f)} families, the CPU run's; "
+        f"/debug/traces?span=provision: {span_split(trace, 1)}; "
+        f"/debug/pprof 403 off, 200 with enable_profiling on {card}")
+    log(f"[trace] 19(c) {time.perf_counter() - t0:.1f} s")
+    whole_run_splits(torch, card, mega)
+    log(f"[trace] 19(d) {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5982,7 +6408,8 @@ def main() -> int:
     snap_dir = tempfile.mkdtemp(prefix="chip-smoke-snapshot-")
     snap = {"path": os.path.join(snap_dir, "operator.snap")}
     try:
-        return _phases_14_on(torch, card, err, rows, scans, snap, t_start)
+        return _phases_14_on(torch, card, err, rows, scans, snap, t_start,
+                             problem, mega)
     finally:
         shutil.rmtree(snap_dir, ignore_errors=True)
 
@@ -5998,9 +6425,11 @@ def join_paths(rows, err, paths):
                 row["launches_by_path"][path] = launches[row["name"]]
 
 
-def _phases_14_on(torch, card, err, rows, scans, snap, t_start) -> int:
-    """Phases 14-18 and the closing lines (`main`'s tail, with phase 14's
-    snapshot in `snap`)."""
+def _phases_14_on(torch, card, err, rows, scans, snap, t_start,
+                  problem, mega) -> int:
+    """Phases 14-19 and the closing lines (`main`'s tail, with phase 14's
+    snapshot in `snap`, the headline problem and the megafleet for phase
+    19)."""
     arena_paths = phase14(torch, card, err, snap=snap)
     join_paths(rows, err, arena_paths)
     log(f"[arena] phase 14 done ({time.perf_counter() - t_start:.1f} s "
@@ -6020,6 +6449,10 @@ def _phases_14_on(torch, card, err, rows, scans, snap, t_start) -> int:
     ha_paths = phase18(torch, card, err, snap)
     join_paths(rows, err, ha_paths)
     log(f"[ha] phase 18 done ({time.perf_counter() - t_start:.1f} s so far)")
+    trace_paths = phase19(torch, card, problem, mega)
+    join_paths(rows, err, trace_paths)
+    log(f"[trace] phase 19 done ({time.perf_counter() - t_start:.1f} s "
+        f"so far)")
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]
     check(not bad, f"the port loaded {bad}")

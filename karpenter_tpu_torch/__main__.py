@@ -4,9 +4,8 @@ The port of the JAX package's `__main__.py`, the analog of
 karpenter:cmd/controller/main.go:32-73 — parse options, build the operator,
 assemble core + provider controllers, serve endpoints, run the manager until
 interrupted.  Runs against the in-memory substrate, its solves on the card.
-Logging is plain text through `logging` (the reference's structured
-`configure_logging` is ROADMAP.md queue B item B9; `--log-format json` is
-refused).  `--leader-elect` (or `--ha-failover`) elects through a lease
+Logging is configured from the options by `utils.tracing.configure_logging`
+(`--log-format text|json`, `--trace-slow-ms`).  `--leader-elect` (or `--ha-failover`) elects through a lease
 file shared by the replicas on this host; `--warm-restart` with
 `--snapshot-path` restores on startup and snapshots on a cadence and on
 SIGTERM.
@@ -23,6 +22,7 @@ import signal
 import sys
 
 from .operator import ControllerManager, Operator, Options, build_controllers
+from .utils.tracing import configure_logging
 
 
 def _build_leader(options):
@@ -42,10 +42,10 @@ def _build_leader(options):
 
 
 def main(argv=None, device="cuda") -> int:
+    # options first: the log handler (text vs json, slow-span threshold)
+    # is itself configured by flags/env
     options = Options.from_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s "
-                               "%(message)s")
+    configure_logging(options)
     op = Operator(options, device=device)
     manager = ControllerManager(op, build_controllers(op),
                                 leader=_build_leader(options))

@@ -155,16 +155,20 @@ class Batcher(Generic[Req, Res]):
         self._run(bucket)
 
     def _run(self, bucket: _Bucket) -> None:
-        try:
-            results = list(self.options.batch_executor(list(bucket.requests)))
-            if len(results) != len(bucket.requests):
-                raise RuntimeError(
-                    f"batcher {self.options.name}: executor returned "
-                    f"{len(results)} results for {len(bucket.requests)} requests")
-            error = None
-        except BaseException as e:  # fan the failure back to every caller
-            results, error = None, e
-        window = self.clock() - bucket.opened
+        from ..utils import tracing
+        with tracing.span("batcher.flush", batcher=self.options.name,
+                          size=len(bucket.requests)) as sp:
+            try:
+                results = list(self.options.batch_executor(list(bucket.requests)))
+                if len(results) != len(bucket.requests):
+                    raise RuntimeError(
+                        f"batcher {self.options.name}: executor returned "
+                        f"{len(results)} results for {len(bucket.requests)} requests")
+                error = None
+            except BaseException as e:  # fan the failure back to every caller
+                results, error = None, e
+            window = self.clock() - bucket.opened
+            sp.annotate(window_s=round(window, 4), error=bool(error))
         # shared stats guarded by the batcher lock, not the per-bucket one —
         # concurrent buckets flush in parallel
         with self._lock:
@@ -176,6 +180,10 @@ class Batcher(Generic[Req, Res]):
             bucket.results = results
             bucket.error = error
             bucket.done.notify_all()
+        from ..utils import metrics
+        labels = {"batcher": self.options.name}
+        metrics.batch_size().observe(len(bucket.requests), labels)
+        metrics.batch_window_duration().observe(window, labels)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,9 @@ tables on the launch path; with all three at None the bare fleet path runs.
 With a `fence` (utils/fencing.LeaseFence, attached by the controller
 manager under the HAFailover gate) the launch and terminate funnels raise
 `StaleFenceError` on a stale fencing epoch and touch nothing; `fence=None`
-runs unfenced.  Left out until their slice (ROADMAP.md queue B, item B9):
-the cost ledger and the metric families.
+runs unfenced.  The calls feed the reference's cloud-provider, breaker,
+retry and instance-type families; the cost ledger is left out until its
+slice (ROADMAP.md queue B, item B9b).
 """
 
 from __future__ import annotations
@@ -34,11 +35,13 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..api import labels as wk
 from ..api.objects import NodeClaim, NodeClass, NodePool
+from ..api.resources import CPU, MEMORY
 from ..api.taints import Taint
 from ..catalog.instancetype import (InstanceType, Offering, apply_storage,
                                     root_volume_gib)
+from ..utils import metrics
 from .cache import UnavailableOfferings
-from .errors import is_retryable, is_unfulfillable_capacity
+from .errors import classify, is_retryable, is_unfulfillable_capacity
 from .fake import CloudError, FakeCloud, FleetOverride
 
 log = logging.getLogger("karpenter_tpu_torch.cloud.provider")
@@ -121,7 +124,7 @@ class ProviderCircuitBreaker:
             return True
         if self.clock() < self.open_until:
             return False
-        self.state = "half_open"  # one probe call through
+        self._set_state("half_open")  # one probe call through
         return True
 
     def record_success(self) -> None:
@@ -130,7 +133,7 @@ class ProviderCircuitBreaker:
         self.failures = 0
         if self.state != "closed":
             log.info("cloud circuit recovered (%s -> closed)", self.state)
-            self.state = "closed"
+            self._set_state("closed")
 
     def record_failure(self) -> None:
         if self.threshold <= 0:
@@ -140,10 +143,17 @@ class ProviderCircuitBreaker:
             self.open_until = self.clock() + self.cooldown_s
             if self.state != "open":
                 self.total_opens += 1
+                metrics.cloud_breaker_opens().inc()
                 log.warning("cloud circuit OPEN after %d consecutive "
                             "failures; fast-failing launches for %.0fs",
                             self.failures, self.cooldown_s)
-            self.state = "open"
+            self._set_state("open")
+
+    def _set_state(self, state: str) -> None:
+        if state != self.state:
+            self.state = state
+            metrics.cloud_breaker_state().set(
+                {"closed": 0, "half_open": 1, "open": 2}[state])
 
     def snapshot(self) -> Dict:
         return {"state": self.state, "consecutive_failures": self.failures,
@@ -189,6 +199,8 @@ class InstanceTypesProvider:
             return self._memo[1]
         live_od, live_spot = od_seq > 0, spot_seq > 0
         out = []
+        cpu_gauge = metrics.instance_type_cpu()
+        mem_gauge = metrics.instance_type_memory()
         for it in self.base_catalog:
             offerings = [
                 Offering(o.zone, o.capacity_type,
@@ -204,6 +216,11 @@ class InstanceTypesProvider:
                     kube_reserved=it.kube_reserved,
                     system_reserved=it.system_reserved,
                     eviction_threshold=it.eviction_threshold, info=it.info))
+                # cpu/mem gauges (pkg/providers/instancetype/metrics.go:35-46)
+                cpu_gauge.set(it.capacity.get(CPU, 0) / 1000.0,
+                              {"instance_type": it.name})
+                mem_gauge.set(it.capacity.get(MEMORY, 0),
+                              {"instance_type": it.name})
         self._memo = (key, out)
         return out
 
@@ -321,6 +338,9 @@ class CloudProvider:
                 out = fn()
                 if self.breaker is not None:
                     self.breaker.record_success()
+                if attempt:
+                    metrics.cloud_retries().inc(
+                        {"method": method, "outcome": "recovered"})
                 return out
             except CloudError as err:
                 if not is_retryable(err):
@@ -328,8 +348,13 @@ class CloudProvider:
                 if self.breaker is not None:
                     self.breaker.record_failure()
                 if attempt >= budget:
+                    if budget:
+                        metrics.cloud_retries().inc(
+                            {"method": method, "outcome": "exhausted"})
                     raise
                 attempt += 1
+                metrics.cloud_retries().inc(
+                    {"method": method, "outcome": "retried"})
                 delay = self.retry.delay(method, attempt)
                 log.info("retrying %s after %s (attempt %d/%d, %.2fs)",
                          method, err.code, attempt, budget, delay)
@@ -337,6 +362,17 @@ class CloudProvider:
 
     # ---- actuation ----
     def create(self, claim: NodeClaim) -> NodeClaim:
+        t0 = time.perf_counter()
+        try:
+            out = self._create(claim)
+            metrics.nodeclaims_created().inc({"nodepool": claim.nodepool or ""})
+            metrics.nodeclaims_launched().inc({"nodepool": claim.nodepool or ""})
+            return out
+        finally:
+            metrics.cloudprovider_duration().observe(
+                time.perf_counter() - t0, {"method": "create"})
+
+    def _create(self, claim: NodeClaim) -> NodeClaim:
         """Launch capacity for a NodeClaim
         (karpenter:pkg/cloudprovider/cloudprovider.go:92-118 →
         karpenter:pkg/providers/instance/instance.go:88-105)."""
@@ -451,7 +487,9 @@ class CloudProvider:
             settled.append(True)
         # feed partial failures back into the ICE cache
         # (instance.go:369-375 updateUnavailableOfferingsCache)
+        err_counter = metrics.cloud_errors_total()
         for err in result.errors:
+            err_counter.inc({"classification": classify(err)})
             if is_unfulfillable_capacity(err):
                 self.unavailable.mark_unavailable_for_fleet_err(
                     err.code, err.override.instance_type, err.override.zone,
@@ -497,6 +535,14 @@ class CloudProvider:
         return labels
 
     def delete(self, claim: NodeClaim) -> None:
+        t0 = time.perf_counter()
+        try:
+            return self._delete(claim)
+        finally:
+            metrics.cloudprovider_duration().observe(
+                time.perf_counter() - t0, {"method": "delete"})
+
+    def _delete(self, claim: NodeClaim) -> None:
         """Terminate the claim's instance
         (karpenter:pkg/cloudprovider/cloudprovider.go:170-185); an instance
         already gone raises CloudError("InstanceNotFound")."""
@@ -520,6 +566,14 @@ class CloudProvider:
         return self._instance_to_claim(inst)
 
     def list(self) -> List[NodeClaim]:
+        t0 = time.perf_counter()
+        try:
+            return self._list()
+        finally:
+            metrics.cloudprovider_duration().observe(
+                time.perf_counter() - t0, {"method": "list"})
+
+    def _list(self) -> List[NodeClaim]:
         """Every cluster-owned instance as a NodeClaim (garbage collection's
         ground truth, karpenter:pkg/controllers/nodeclaim/
         garbagecollection/controller.go:57-91)."""

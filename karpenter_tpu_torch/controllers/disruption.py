@@ -45,8 +45,10 @@ passes the chaos seam `solver.sweep` first.  A device fault
 
 With `gang_source` (the GangScheduling gate: the Provisioner's
 `take_preemption_plan`), each tick first executes one queued gang
-preemption plan, ahead of every other method.  The reference's metric,
-span and cost-ledger calls are left out.
+preemption plan, ahead of every other method.  The tick runs under the
+reference's `disruption.*` and `sweep.*` spans and feeds its disruption
+families; its cost-ledger calls are left out (ROADMAP.md queue B item
+B9b).
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from ..ops.ffd import PackingResult, solve_ffd
 from ..ops.tensorize import Problem, tensorize
 from ..parallel.driver import maybe_solve_partitioned
 from ..state.cluster import Cluster
+from ..utils import metrics, tracing
 from ..utils.chaos import CHAOS
 from ..utils.events import Event
 from ..utils.watchdog import WatchdogTimeout, run_with_deadline
@@ -88,6 +91,9 @@ DEFAULT_STABILIZATION_S = 5 * 60.0   # min node lifetime before disruption
 # cheaper offerings required for spot-to-spot consolidation)
 SPOT_TO_SPOT_MIN_ALTERNATIVES = 15
 
+# the reference's multi-node consolidation abandons an evaluation pass at
+# this budget (karpenter-core MultiNodeConsolidation timeout)
+CONSOLIDATION_TIMEOUT_S = 60.0
 
 @dataclass
 class Candidate:
@@ -295,12 +301,13 @@ class DisruptionController:
         out.sort(key=lambda c: (c.disruption_cost, c.name))
         if len(out) > self.max_candidates:
             # no silent caps: a truncated discovery pass means this tick did
-            # NOT sweep everything — say so
+            # NOT sweep everything — say so and count it
             dropped = len(out) - self.max_candidates
             log.info("candidate discovery truncated: %d of %d kept "
                      "(max_candidates=%d), %d dropped",
                      self.max_candidates, len(out), self.max_candidates,
                      dropped)
+            metrics.disruption_candidates_truncated().inc(by=dropped)
             out = out[:self.max_candidates]
         return out
 
@@ -478,8 +485,22 @@ class DisruptionController:
     def find_drifted(self, cands: List[Candidate]) -> List[Candidate]:
         if not self.drift_enabled:
             return []
-        return [c for c in cands if c.claim is not None
-                and self.provider.is_drifted(c.claim, c.pool)]
+        out = []
+        counted = self.__dict__.setdefault("_drift_counted", set())
+        for c in cands:
+            if c.claim is not None and self.provider.is_drifted(c.claim, c.pool):
+                out.append(c)
+                # transition counter: first detection only, not every tick
+                # (reference karpenter_nodeclaims_drifted)
+                if c.name not in counted:
+                    counted.add(c.name)
+                    metrics.nodeclaims_drifted().inc(
+                        {"nodepool": c.node.nodepool or ""})
+        # prune only nodes GONE from the cluster: a drifted node that
+        # transiently leaves candidacy (nomination, PDB, truncation) stays
+        # counted so its return doesn't inflate the transition counter
+        counted.intersection_update(set(self.cluster.nodes))
+        return out
 
     def find_empty(self, cands: List[Candidate]) -> List[Candidate]:
         """Emptiness: nodes with no reschedulable pods that have STAYED empty
@@ -507,19 +528,39 @@ class DisruptionController:
     # the single-action reconcile
     # ------------------------------------------------------------------
     def reconcile(self) -> DisruptionResult:
-        cands = self.candidates()
-        # every method's eligibility up front, as the reference computes its
-        # gauges (calling find_empty every tick keeps its timers fresh)
-        expired = self.find_expired(cands)
-        drifted = self.find_drifted(cands)
-        empty = self.find_empty(cands)
-        underutil = [c for c in cands
-                     if c.pool.disruption.consolidation_policy ==
-                     "WhenUnderutilized"]
+        with tracing.span("disruption.reconcile") as sp:
+            out = self._reconcile()
+            sp.annotate(
+                action=getattr(out.action, "name", "") if out.action else "",
+                deleted=len(out.deleted), launched=len(out.launched))
+            return out
+
+    def _reconcile(self) -> DisruptionResult:
+        eval_hist = metrics.disruption_evaluation_duration()
+        eligible = metrics.disruption_eligible_nodes()
+        with tracing.span("disruption.candidates") as csp:
+            cands = self.candidates()
+            # per-method eligibility gauges, all computed up-front so no
+            # series goes stale when an earlier method short-circuits the
+            # tick (calling find_empty every tick also keeps its empty-since
+            # timers fresh)
+            expired = self.find_expired(cands)
+            drifted = self.find_drifted(cands)
+            empty = self.find_empty(cands)
+            underutil = [c for c in cands
+                         if c.pool.disruption.consolidation_policy ==
+                         "WhenUnderutilized"]
+            eligible.set(len(expired), {"method": "expiration"})
+            eligible.set(len(drifted), {"method": "drift"})
+            eligible.set(len(empty), {"method": "emptiness"})
+            eligible.set(len(underutil), {"method": "consolidation"})
+            csp.annotate(candidates=len(cands), expired=len(expired),
+                         drifted=len(drifted), empty=len(empty))
 
         # 0. gang preemption (GangScheduling): a waiting higher-tier gang
         #    outranks bound lower-tier pods; one queued plan executes per
-        #    tick, ahead of every other method
+        #    tick, ahead of every other method — admission latency for
+        #    tiered gangs is the whole point of the cascade
         if self.gang_source is not None:
             plan = self.gang_source()
             if plan is not None:
@@ -528,27 +569,49 @@ class DisruptionController:
         if not cands:
             return DisruptionResult()
 
-        # 1. expiration (graceful replace: pods rescheduled, new capacity
-        #    allowed)
+        def timed(method, fn):
+            # span names come from one registry (graftlint OB005):
+            # registered() asserts disruption.<method> is in SPAN_NAMES
+            with tracing.span(tracing.registered(f"disruption.{method}")):
+                t0 = time.perf_counter()
+                try:
+                    return fn()
+                finally:
+                    dt = time.perf_counter() - t0
+                    eval_hist.observe(dt, {"method": method})
+                    # the reference aborts a consolidation pass at its
+                    # 1-minute budget and counts it; the batched simulator
+                    # stays ~3 orders of magnitude under that, so the
+                    # counter exists to prove the budget is honored, not
+                    # because it ever fires
+                    if dt > CONSOLIDATION_TIMEOUT_S:
+                        metrics.consolidation_timeouts().inc({"method": method})
+
+        # 1. expiration (graceful replace: pods rescheduled, new capacity allowed)
         if expired:
-            action = self._replace_or_delete(expired[:1], "expiration")
+            action = timed("expiration",
+                           lambda: self._replace_or_delete(expired[:1],
+                                                           "expiration"))
             if action:
                 return self.execute(action)
 
         # 2. drift
         if drifted:
-            action = self._replace_or_delete(drifted[:1], "drift")
+            action = timed("drift",
+                           lambda: self._replace_or_delete(drifted[:1],
+                                                           "drift"))
             if action:
                 return self.execute(action)
 
-        # 3. emptiness — every empty candidate in one action (the
-        #    reference's emptiness batch delete)
+        # 3. emptiness — all empty candidates in one shot (reference's
+        #    emptiness batch delete)
         if empty:
             return self.execute(Action(kind="delete", reason="emptiness",
                                        candidates=empty))
 
         # 4. consolidation (WhenUnderutilized pools only)
-        action = self.consolidation_action(underutil)
+        action = timed("consolidation",
+                       lambda: self.consolidation_action(underutil))
         if action:
             return self.execute(action)
         return DisruptionResult()
@@ -569,6 +632,7 @@ class DisruptionController:
             if pod is None:
                 continue
             self.cluster.unbind_pod(pod)
+            metrics.gang_preemptions().inc({"tier": str(v.tier)})
             self.recorder.publish(Event(
                 kind="Pod", name=pod.name, reason="GangPreempted",
                 message=(f"evicted for gang {plan.gang}: tier {v.tier} "
@@ -630,69 +694,89 @@ class DisruptionController:
                                       cands: List[Candidate]
                                       ) -> Optional[Action]:
         CHAOS.inject("solver.sweep")
-        arena = self._arena_for(cands)
+        sweep_hist = metrics.disruption_sweep_duration()
+        t0 = time.perf_counter()
+        with tracing.span("sweep.arena", candidates=len(cands)):
+            arena = self._arena_for(cands)
         # PDB composition over prefix unions, computed incrementally on the
-        # host in ONE pass
+        # host in ONE pass (the sequential path rebuilt the union and
+        # rescanned every PDB per binary-search step)
         evict_ok = self._prefix_evictable(cands)
         # replay the sequential binary search exactly, but evaluate its
         # probes in batched rounds: each round solves EVERY prefix the
-        # search could still reach in its next few levels (≤31 rows ⇒ ≤2
-        # rounds at any N), then walks the real outcomes.  The search only
-        # ever reads mids evaluated with the same oracle, so best_mid is
-        # identical to the sequential result even when feasibility is
-        # non-monotone in the prefix length
+        # search could still reach in its next few levels (whole levels of
+        # the mid decision tree, ≤31 rows ⇒ ≤2 rounds at any N), then
+        # walks the real outcomes.  The search only ever reads mids we
+        # evaluated with the same oracle, so best_mid is identical to the
+        # sequential result even when feasibility is non-monotone in the
+        # prefix length
+        device_calls = 0
         feas: Dict[int, bool] = {}
         lo, hi, best_mid = 1, len(cands), 0
-        while lo <= hi:
-            mids = _search_frontier(lo, hi)
-            need = [k for k in mids if k not in feas]
-            if need:
-                sweep = arena.sweep_prefix_subset(need)
-                for i, k in enumerate(need):
-                    feas[k] = evict_ok[k] and sweep.feasible_delete(i)
+        with tracing.span("sweep.prefix") as psp:
             while lo <= hi:
-                mid = (lo + hi) // 2
-                if mid not in feas:
-                    break
-                if feas[mid]:
-                    best_mid = mid
-                    lo = mid + 1
-                else:
-                    hi = mid - 1
+                mids = _search_frontier(lo, hi)
+                need = [k for k in mids if k not in feas]
+                if need:
+                    sweep = arena.sweep_prefix_subset(need)
+                    device_calls += sweep.device_calls
+                    for i, k in enumerate(need):
+                        feas[k] = evict_ok[k] and sweep.feasible_delete(i)
+                while lo <= hi:
+                    mid = (lo + hi) // 2
+                    if mid not in feas:
+                        break
+                    if feas[mid]:
+                        best_mid = mid
+                        lo = mid + 1
+                    else:
+                        hi = mid - 1
+            psp.annotate(device_calls=device_calls, best_mid=best_mid)
+        sweep_hist.observe(time.perf_counter() - t0, {"phase": "prefix"})
         # the aggregate probe is optimistic about intra-batch topology
         # (spread/anti-affinity audits need assignments): decode the winner
         # — common case, ONE decoded solve total.  If the audit rejects it,
         # rerun the binary search with decoded probes over the remaining
         # range: the pre-probe algorithm, paid only when audits bite.
-        best = self._decoded_delete_action(cands[:best_mid]) if best_mid else None
-        if best is None and best_mid > 1:
-            lo, hi = 1, best_mid - 1
-            while lo <= hi:
-                mid = (lo + hi) // 2
-                a = self._decoded_delete_action(cands[:mid])
-                if a is not None:
-                    best = a
-                    lo = mid + 1
-                else:
-                    hi = mid - 1
+        with tracing.span("sweep.decode", best_mid=best_mid) as dsp:
+            best = self._decoded_delete_action(cands[:best_mid]) if best_mid else None
+            if best is None and best_mid > 1:
+                dsp.annotate(audit_rejected=True)
+                lo, hi = 1, best_mid - 1
+                while lo <= hi:
+                    mid = (lo + hi) // 2
+                    a = self._decoded_delete_action(cands[:mid])
+                    if a is not None:
+                        best = a
+                        lo = mid + 1
+                    else:
+                        hi = mid - 1
         if best is not None:
+            metrics.disruption_sweep_probes().set(device_calls)
             return best
 
-        # single-node pass: one batched screen over ALL candidates, then the
+        # single-node pass: one batched screen over ALL candidates (the
+        # sequential loop paid one aggregate solve per candidate), then the
         # decoded accept path candidate-by-candidate in discovery order —
         # first acceptance wins, exactly like the sequential loop.
-        screen = arena.sweep_singles()
-        for i, c in enumerate(cands):
-            if not c.reschedulable:
-                continue
-            if screen.unschedulable[i] or screen.new_nodes[i] > 1:
-                continue
-            if screen.new_nodes[i] and screen.total_price[i] >= c.price:
-                continue
-            action = self._decoded_single_action(c)
-            if action is not None:
-                return action
-        return None
+        t1 = time.perf_counter()
+        with tracing.span("sweep.single") as ssp:
+            screen = arena.sweep_singles()
+            sweep_hist.observe(time.perf_counter() - t1, {"phase": "single"})
+            device_calls += screen.device_calls
+            ssp.annotate(device_calls=screen.device_calls)
+            metrics.disruption_sweep_probes().set(device_calls)
+            for i, c in enumerate(cands):
+                if not c.reschedulable:
+                    continue
+                if screen.unschedulable[i] or screen.new_nodes[i] > 1:
+                    continue
+                if screen.new_nodes[i] and screen.total_price[i] >= c.price:
+                    continue
+                action = self._decoded_single_action(c)
+                if action is not None:
+                    return action
+            return None
 
     def _arena_for(self, cands: List[Candidate]):
         """Size-1 simulation-arena cache keyed on the cluster-state
@@ -721,10 +805,14 @@ class DisruptionController:
             self._fingerprint_cache = (epoch, cat_key, list(cands), key)
         cached = self._arena_cache
         if cached is not None and cached[0] == key:
+            metrics.disruption_arena_requests().inc({"outcome": "hit"})
+            tracing.annotate(arena="hit")
             return cached[1]
         arena = SimulationArena(cands, self.cluster, catalog, pools,
                                 node_classes=ncs, device=self.device)
         self._arena_cache = (key, arena)
+        metrics.disruption_arena_requests().inc({"outcome": "build"})
+        tracing.annotate(arena="build")
         return arena
 
     def _prefix_evictable(self, cands: List[Candidate]) -> List[bool]:
@@ -862,6 +950,13 @@ class DisruptionController:
     # execution: taint → launch the replacements → rebind → terminate
     # ------------------------------------------------------------------
     def execute(self, action: Action) -> DisruptionResult:
+        with tracing.span("disruption.execute", kind=action.kind,
+                          reason=action.reason) as sp:
+            out = self._execute(action)
+            sp.annotate(deleted=len(out.deleted), launched=len(out.launched))
+            return out
+
+    def _execute(self, action: Action) -> DisruptionResult:
         out = DisruptionResult(action=action)
         # taint first so nothing new schedules onto doomed nodes
         # (website/.../concepts/disruption.md:9-14)
@@ -877,6 +972,7 @@ class DisruptionController:
         if action.simulation is not None and action.simulation.nodes:
             from .provisioning import claim_from_decision
             for decision in action.simulation.nodes:
+                t_launch = time.perf_counter()
                 dpods = [self._orig(action.problem.pods[i])
                          for i in decision.pod_indices]
                 claim = claim_from_decision(decision, dpods, self.nodepools)
@@ -885,6 +981,8 @@ class DisruptionController:
                 except InsufficientCapacityError as e:
                     # rollback: untaint, unmark, abandon the action
                     # (website/.../concepts/disruption.md:12-14)
+                    metrics.disruption_replacement_failures().inc(
+                        {"method": action.reason})
                     self.recorder.publish(Event(
                         "Node", action.candidates[0].name, "DisruptionFailed",
                         f"replacement launch failed: {e}", type="Warning"))
@@ -904,6 +1002,10 @@ class DisruptionController:
                 node._decision = decision
                 new_nodes.append(node)
                 out.launched.append(claim)
+                # the replacement goes live at registration in this
+                # substrate: create call → registered is its initialization
+                metrics.disruption_replacement_initialized().observe(
+                    time.perf_counter() - t_launch)
 
         # rebind the evicted pods — the cluster's originals, never the
         # lowered copies — per the simulation's placement
@@ -925,6 +1027,12 @@ class DisruptionController:
                 out.deleted.extend(tres.terminated)
                 if tres.errors:
                     out.error = "; ".join(tres.errors)
+                else:
+                    # count only actual disruptions — a failed drain retries
+                    # next tick and must not double-count
+                    metrics.nodeclaims_disrupted().inc(
+                        {"type": action.reason,
+                         "nodepool": c.node.nodepool or ""})
                 continue
             # daemonset pods die with their node — they must NOT be requeued
             # as pending (a fresh node would be provisioned just for them)
@@ -950,6 +1058,8 @@ class DisruptionController:
                 self.cluster.nodeclaims.pop(c.claim.name, None)
             self.cluster.remove_node(c.name)
             out.deleted.append(c.name)
+            metrics.nodeclaims_disrupted().inc(
+                {"type": action.reason, "nodepool": c.node.nodepool or ""})
             self.recorder.publish(Event(
                 "Node", c.name, "DisruptionTerminating",
                 f"{action.kind} via {action.reason}"))

@@ -7,7 +7,8 @@ running past the registration grace period with no matching NodeClaim (a
 leak, e.g. a crash between CreateFleet and persisting the claim), and
 remove Node objects whose instance is gone.  Also the tagging controller
 (karpenter:pkg/controllers/nodeclaim/tagging/controller.go).  Host-only:
-they take no `device`.  The reference's metrics are left out.
+they take no `device`.  Each repair counts in
+karpenter_consistency_errors_total{check}.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Callable, List
 
 from ..cloud.provider import CloudProvider
 from ..state.cluster import Cluster
+from ..utils import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.gc")
 
@@ -67,6 +69,7 @@ class GarbageCollectionController:
             if node is not None:
                 self.cluster.remove_node(node.name)
             out.leaked_instances.append(claim.provider_id)
+            metrics.consistency_errors().inc({"check": "leaked_instance"})
             log.info("GC: terminated leaked instance %s", claim.provider_id)
 
         # orphaned nodes: the node object outlived its instance (reclaimed
@@ -78,6 +81,7 @@ class GarbageCollectionController:
                     self.cluster.nodeclaims.pop(claim.name, None)
                 self.cluster.remove_node(node.name)
                 out.orphaned_nodes.append(node.name)
+                metrics.consistency_errors().inc({"check": "orphaned_node"})
                 log.info("GC: removed orphaned node %s", node.name)
         return out
 

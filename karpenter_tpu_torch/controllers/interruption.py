@@ -17,7 +17,8 @@ is retried on the next receive (SQS visibility, cloud/queue.py).  Host-only:
 it takes no `device`; the provisioner re-places the evicted pods.  With
 the Forecast gate, `build_controllers` points `on_spot_reclaim` at the
 HeadroomController's spot-risk prior (`SpotRiskPrior.observe_reclaim`).
-The reference's metrics and cost-ledger context are left out.
+It feeds the reference's interruption families; its cost-ledger context
+is left out (ROADMAP.md queue B item B9b).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..cloud.queue import (FakeQueue, NOOP, ParsedEvent,
                            REBALANCE_RECOMMENDATION, SPOT_INTERRUPTION,
                            STATE_CHANGE, parse_event)
 from ..state.cluster import Cluster
+from ..utils import metrics
 from .termination import TerminationController
 
 log = logging.getLogger("karpenter_tpu_torch.interruption")
@@ -77,13 +79,21 @@ class InterruptionController:
             if not messages:
                 break
             out.received += len(messages)
+            now = self.clock()
+            for msg in messages:
+                # message-age latency histogram (interruption/metrics.go:53)
+                metrics.interruption_message_latency().observe(
+                    max(0.0, now - msg.sent_at))
             # instance id → (node, claim), built once per batch
             # (makeNodeClaimInstanceIDMap, controller.go:94-101)
             by_id = self._instance_map()
             for msg in messages:
-                if self._handle(parse_event(msg.body), by_id, out):
+                event = parse_event(msg.body)
+                metrics.interruption_received().inc({"message_type": event.kind})
+                if self._handle(event, by_id, out):
                     self.queue.delete(msg.receipt)
                     out.deleted_messages += 1
+                    metrics.interruption_deleted().inc()
         return out
 
     def _instance_map(self) -> Dict[str, Tuple[Optional[Node],
@@ -119,7 +129,14 @@ class InterruptionController:
             if event.kind == STATE_CHANGE and \
                     event.detail.get("state", "") not in _DEAD_STATES:
                 continue
-            ok = self._recycle(node, claim, event.kind, out) and ok
+            done = self._recycle(node, claim, event.kind, out)
+            ok = done and ok
+            if done:
+                # count completed actions only: a PDB-blocked drain leaves
+                # the message for redelivery, and counting each retry would
+                # inflate one interruption into thousands of "actions"
+                metrics.interruption_actions().inc(
+                    {"action": f"CordonAndDrain/{event.kind}"})
         return ok
 
     def _mark_spot_unavailable(self, node: Optional[Node],

@@ -17,8 +17,8 @@ cloudprovider.go:307-339 and the `karpenter.sh/initialized` label):
     the initialized label.
 
 The provisioner's default path registers synchronously; this controller
-is the asynchronous path.  Host-only: it takes no `device`.  The
-reference's metrics are left out.
+is the asynchronous path.  Host-only: it takes no `device`.  It feeds the
+reference's initialization, startup and liveness families.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from ..api.objects import Node, NodeClaim
 from ..catalog.instancetype import effective_instance_type
 from ..cloud.provider import CloudProvider
 from ..state.cluster import Cluster
+from ..utils import metrics
 from ..utils.events import Event, Recorder
 
 log = logging.getLogger("karpenter_tpu_torch.lifecycle")
@@ -148,8 +149,19 @@ class LifecycleController:
             return  # capacity not reported yet
         claim.initialized = True
         claim.initialized_at = self.clock()
+        if claim.registered_at:
+            metrics.nodeclaim_initialization_duration().observe(
+                max(0.0, claim.initialized_at - claim.registered_at))
+        metrics.nodeclaims_initialized().inc({"nodepool": claim.nodepool})
         node.labels[wk.NODE_INITIALIZED] = "true"
         self.cluster.touch_node(node)
+        # pods that bound while the node was still coming up reach
+        # "running on a ready node" now (karpenter_pods_startup_time_seconds)
+        for p_ in node.pods:
+            if not p_.__dict__.get("_startup_observed"):
+                p_.__dict__["_startup_observed"] = True
+                metrics.pods_startup_time().observe(
+                    max(0.0, self.clock() - p_.created_at))
         out.initialized.append(node.name)
         self.recorder.publish(Event("Node", node.name, "Initialized", ""))
 
@@ -163,5 +175,7 @@ class LifecycleController:
         self.cluster.nodeclaims.pop(claim.name, None)
         self._pending.pop(claim.name, None)
         out.liveness_terminated.append(claim.name)
+        metrics.nodeclaims_terminated().inc(
+            {"nodepool": claim.nodepool, "reason": reason})
         self.recorder.publish(Event("NodeClaim", claim.name, reason,
                                     "liveness failure", type="Warning"))

@@ -43,8 +43,10 @@ The live node set is gathered warm from the cluster's persistent arena
 a snapshot solve (`nodes=` given), an arena that refuses (extra axes,
 custom scales, an untracked node) or no arena at all takes
 `Cluster.tensorize_nodes`, the reference's bit-identical path.
-The reference's metrics, spans and `gang_rejected` incident are left out
-(ROADMAP.md queue B item B9).
+A round runs under the reference's `provision` / `provision.round` /
+`solve.*` / `provision.launch` spans and feeds its provisioning, nodepool
+and gang families; its `gang_rejected` incident is left out (ROADMAP.md
+queue B item B9b).
 """
 
 from __future__ import annotations
@@ -71,11 +73,12 @@ from ..ops.constraints import (MAX_LEVEL, find_batch_topology_violations,
                                has_soft_constraints, lower_pods,
                                make_zone_feasibility)
 from ..ops.ffd import NATIVE_CUTOVER_ROWS, NodeDecision, solve_ffd
-from ..ops.gang import (INCOMPLETE, GangRegistry, PreemptionPlan,
+from ..ops.gang import (INCOMPLETE, PARTIAL, GangRegistry, PreemptionPlan,
                         enforce_gangs, plan_preemption)
 from ..ops.tensorize import Problem, tensorize
 from ..parallel.driver import maybe_solve_partitioned
 from ..state.cluster import Cluster
+from ..utils import metrics, tracing
 from ..utils.chaos import CHAOS
 from ..utils.events import Event
 from ..utils.provenance import (CAPACITY, ProvenanceRecord,
@@ -263,7 +266,7 @@ class Provisioner:
         rows = int(problem.class_counts.sum()) + n_existing
         return self._ffd if rows <= NATIVE_CUTOVER_ROWS else self._classpack
 
-    def _pack_supervised(self, problem: Problem, existing):
+    def _pack_supervised(self, problem: Problem, psp, existing):
         """Run the pack step down the degradation ladder.  With a
         SolverHealth wired, a watchdog trip or exception falls to the next
         rung inside the SAME solve while the ladder books the failure for
@@ -273,13 +276,13 @@ class Provisioner:
         ladder must not move the card's work to the host."""
         requested = "sharded" if self.sharded_solve else "jax"
         if self.health is None:
-            return self._run_rung(requested, problem, existing)
+            return self._run_rung(requested, problem, psp, existing)
         rung = self.health.active_rung(requested)
         while True:
             timeout = 0.0 if rung == "greedy" else self.watchdog_timeout_s
             try:
                 result = run_with_deadline(
-                    lambda: self._run_rung(rung, problem, existing),
+                    lambda: self._run_rung(rung, problem, psp, existing),
                     timeout, "provision.solve")
                 self.health.report_success(rung)
                 return result
@@ -295,7 +298,7 @@ class Provisioner:
             rung = self.health.active_rung(
                 self.health.next_rung(rung) or "greedy")
 
-    def _run_rung(self, rung: str, problem: Problem, existing):
+    def _run_rung(self, rung: str, problem: Problem, psp, existing):
         """One pack attempt on one ladder rung.  A sharded refusal
         (maybe_solve_partitioned → None: batch too small/unshardable) is
         routing, not failure — it falls through to the jax rung inline.
@@ -309,6 +312,7 @@ class Provisioner:
             n_existing = len(node_list)
             kw = dict(existing_alloc=alloc, existing_used=used,
                       existing_compat=compat)
+        rows = int(problem.class_counts.sum()) + n_existing
         if rung == "sharded":
             result = maybe_solve_partitioned(
                 problem, path="provisioning",
@@ -319,25 +323,52 @@ class Provisioner:
                 **(dict(kw, node_list=existing[0])
                    if existing is not None else {}))
             if result is not None:
+                psp.annotate(solver="sharded", rows=rows)
                 return result
             rung = "jax"
         if rung == "jax":
             solve = self._pick_solver(problem, n_existing=n_existing)
+            psp.annotate(solver="ffd" if solve is self._ffd else "classpack",
+                         rows=rows)
             return solve(problem, max_nodes=self.max_nodes_per_round, **kw)
         if rung == "native":   # raises where the library is unavailable
+            psp.annotate(solver="native", rows=rows)
             return solve_ffd(problem, max_nodes=self.max_nodes_per_round,
                              backend="native", **kw)
+        psp.annotate(solver="greedy", rows=rows)
         return solve_ffd(problem, max_nodes=self.max_nodes_per_round,
                          backend="numpy", **kw)
 
     def _pools_within_limits(self) -> List[NodePool]:
         usage = self.cluster.nodepool_usage()
+        usage_g, limit_g = metrics.nodepool_usage(), metrics.nodepool_limit()
+        prev_u = getattr(self, "_usage_gauge_keys", set())
+        prev_l = getattr(self, "_limit_gauge_keys", set())
+        cur_u, cur_l = set(), set()
+        for pool_name in sorted(set(usage) | set(self.nodepools)):
+            for res, qty in usage.get(pool_name, ResourceList()).items():
+                usage_g.set(qty, {"nodepool": pool_name, "resource_type": res})
+                cur_u.add((pool_name, res))
+        pct_g = metrics.nodepool_usage_pct()
         out = []
         for pool in self.nodepools.values():
-            if pool.within_limits(usage.get(pool.name, ResourceList())):
+            pool_usage = usage.get(pool.name, ResourceList())
+            for res, qty in (pool.limits or {}).items():
+                limit_g.set(qty, {"nodepool": pool.name, "resource_type": res})
+                pct_g.set(100.0 * pool_usage.get(res, 0) / qty if qty else 0.0,
+                          {"nodepool": pool.name, "resource_type": res})
+                cur_l.add((pool.name, res))
+            if pool.within_limits(pool_usage):
                 out.append(pool)
             else:
                 log.info("nodepool %s at limit, excluded from provisioning", pool.name)
+        for pool_name, res in sorted(prev_u - cur_u):
+            usage_g.delete({"nodepool": pool_name, "resource_type": res})
+        for pool_name, res in sorted(prev_l - cur_l):
+            limit_g.delete({"nodepool": pool_name, "resource_type": res})
+            pct_g.delete({"nodepool": pool_name, "resource_type": res})
+        self._usage_gauge_keys = cur_u
+        self._limit_gauge_keys = cur_l
         return out
 
     def solve(self, pods: Sequence[Pod],
@@ -368,34 +399,40 @@ class Provisioner:
         zone_feasible = make_zone_feasibility(catalog, node_view)
         best = None
         for level in range(MAX_LEVEL + 1):
-            lowered = lower_pods(pods, nodes=node_view, option_zones=zones,
-                                 zone_rank=zone_rank, level=level,
-                                 zone_feasible=zone_feasible)
-            problem = tensorize(lowered, catalog, pools,
-                                node_classes=getattr(self.provider,
-                                                     "node_classes", None))
-            existing = None
-            if schedule_on_existing and node_view:
-                # warm arena gather only for the LIVE node set (nodes is
-                # None: node_view IS cluster.nodes.values()); a snapshot
-                # solve keeps the full path — the slab mirrors live state,
-                # not the caller's snapshot
-                if (nodes is None
-                        and getattr(self.cluster, "arena", None) is not None):
-                    existing = self.cluster.arena.gather(
-                        problem.class_reps, problem.axes,
-                        scales=problem.scales)
-                if existing is None:   # (node_list, alloc, used, compat)
-                    existing = self.cluster.tensorize_nodes(
-                        problem.class_reps, problem.axes,
-                        scales=problem.scales, nodes=node_view)
-            result = self._pack_supervised(problem, existing)
-            result._existing_nodes = existing[0] if existing else []
-            if self.gang_scheduling and problem.class_gang is not None:
-                # all-or-nothing admission happens HERE, before the plan
-                # is visible to any bind or launch — no partial gang ever
-                # reaches claim_requests
-                self._enforce_gangs(problem, result, node_view)
+            with tracing.span("solve.tensorize", level=level) as tsp:
+                lowered = lower_pods(pods, nodes=node_view, option_zones=zones,
+                                     zone_rank=zone_rank, level=level,
+                                     zone_feasible=zone_feasible)
+                problem = tensorize(lowered, catalog, pools,
+                                    node_classes=getattr(self.provider,
+                                                         "node_classes", None))
+                tsp.annotate(pods=len(pods), classes=problem.num_classes,
+                             options=problem.num_options)
+            with tracing.span("solve.pack", level=level) as psp:
+                existing = None
+                if schedule_on_existing and node_view:
+                    # warm arena gather only for the LIVE node set (nodes is
+                    # None: node_view IS cluster.nodes.values()); a snapshot
+                    # solve keeps the full path — the slab mirrors live state,
+                    # not the caller's snapshot
+                    if (nodes is None
+                            and getattr(self.cluster, "arena", None) is not None):
+                        existing = self.cluster.arena.gather(
+                            problem.class_reps, problem.axes,
+                            scales=problem.scales)
+                    if existing is None:   # (node_list, alloc, used, compat)
+                        existing = self.cluster.tensorize_nodes(
+                            problem.class_reps, problem.axes,
+                            scales=problem.scales, nodes=node_view)
+                result = self._pack_supervised(problem, psp, existing)
+                result._existing_nodes = existing[0] if existing else []
+                if self.gang_scheduling and problem.class_gang is not None:
+                    # all-or-nothing admission happens HERE, before the plan
+                    # is visible to any bind or launch — no partial gang ever
+                    # reaches claim_requests
+                    self._enforce_gangs(problem, result, node_view)
+                psp.annotate(scheduled=result.scheduled_count,
+                             unschedulable=len(result.unschedulable))
             if best is None or result.scheduled_count > best[1].scheduled_count:
                 best = (problem, result)
             if not result.unschedulable or not soft:
@@ -407,16 +444,22 @@ class Provisioner:
 
     def _enforce_gangs(self, problem, result, node_view) -> None:
         """Gang admission funnel (GangScheduling): audit and strip rejected
-        gangs from the packing, and queue preemption plans for outranked
-        capacity."""
+        gangs from the packing, count the verdicts, and queue preemption
+        plans for outranked capacity."""
+        t0 = self.clock()
         audits = enforce_gangs(problem, result, result._existing_nodes,
                                registry=self.gang_registry,
                                cluster_nodes=node_view)
+        partial = 0
         for a in audits:
             if a.admitted:
+                metrics.gang_admissions().inc({"tier": str(a.gang.tier)})
                 # a gang that now fits no longer needs its queued evictions
                 self.gang_preemption_plans.pop(a.gang.name, None)
                 continue
+            metrics.gang_rejections().inc({"reason": a.reason})
+            if a.reason == PARTIAL:
+                partial += 1
             # priority cascade: a rejected gang with standing (every
             # member present — pending or still bound — and tier > 0)
             # simulates evicting strictly-lower-tier pods; the
@@ -431,6 +474,8 @@ class Provisioner:
                     node_view, pin_domains=a.bound_domains)
                 if plan is not None and plan.victims:
                     self.gang_preemption_plans[a.gang.name] = plan
+        metrics.gang_partial_placeable().set(partial)
+        metrics.gang_solve_duration().observe(max(0.0, self.clock() - t0))
 
     def take_preemption_plan(self) -> Optional[PreemptionPlan]:
         """Pop the oldest queued gang preemption plan (FIFO — insertion
@@ -453,12 +498,20 @@ class Provisioner:
         against the now-ICE-masked catalog (the reference reaches the same
         fixpoint via its retry-on-next-reconcile plus the launch-path retry
         at karpenter:pkg/providers/instance/instance.go:96-100)."""
-        out = self._provision_round(pods)
+        with tracing.span("provision") as root:
+            out = self._provision(pods, max_retries)
+            root.annotate(launched=len(out.launched), bound=out.scheduled,
+                          unschedulable=len(out.unschedulable),
+                          failed_launches=len(out.failed_launches))
+            return out
+
+    def _provision(self, pods, max_retries) -> ProvisioningResult:
+        out = self._provision_once(pods)
         retries = 0
         while out.failed_launches and out.unschedulable and retries < max_retries:
             retries += 1
-            retry = self._provision_round([p for p in out.unschedulable
-                                           if not p.node_name])
+            retry = self._provision_once([p for p in out.unschedulable
+                                          if not p.node_name])
             out.launched.extend(retry.launched)
             out.bound_existing += retry.bound_existing
             out.bound_new += retry.bound_new
@@ -471,15 +524,33 @@ class Provisioner:
         strand_rounds = 0
         while out.stranded and strand_rounds < 2:
             strand_rounds += 1
-            retry = self._provision_round([p for p in out.stranded
-                                           if not p.node_name])
+            retry = self._provision_once([p for p in out.stranded
+                                          if not p.node_name])
             out.launched.extend(retry.launched)
             out.bound_existing += retry.bound_existing
             out.bound_new += retry.bound_new
             out.unschedulable.extend(retry.unschedulable)
             out.failed_launches.extend(retry.failed_launches)
             out.stranded = retry.stranded
+        metrics.pods_unschedulable().set(len(out.unschedulable))
+        counts: Dict[str, int] = {}
+        for node in self.cluster.nodes.values():
+            counts[node.nodepool] = counts.get(node.nodepool, 0) + 1
+        nodes_g = metrics.nodes_total()
+        cur = set(self.nodepools) | set(counts)
+        for pool_name in sorted(cur):   # deterministic sample order
+            nodes_g.set(counts.get(pool_name, 0), {"nodepool": pool_name})
+        for pool_name in sorted(getattr(self, "_nodes_gauge_keys", set()) - cur):
+            nodes_g.delete({"nodepool": pool_name})
+        self._nodes_gauge_keys = cur
         return out
+
+    def _provision_once(self, pods: Optional[Sequence[Pod]] = None) -> ProvisioningResult:
+        with tracing.span("provision.round") as sp:
+            out = self._provision_round(pods)
+            sp.annotate(bound=out.scheduled,
+                        unschedulable=len(out.unschedulable))
+            return out
 
     def _provision_round(self, pods: Optional[Sequence[Pod]] = None) -> ProvisioningResult:
         t0 = self.clock()
@@ -494,80 +565,86 @@ class Provisioner:
         problem, packing = self.solve(pods)
         out.solve_seconds = self.clock() - t0
 
-        catalog_by_name = {it.name: it
-                           for it in self.provider.get_instance_types()}
-        orig = self.cluster.original
+        with tracing.span("provision.launch") as lsp:
+            catalog_by_name = {it.name: it
+                               for it in self.provider.get_instance_types()}
+            orig = self.cluster.original
 
-        # batch-internal anti-affinity/spread the masks couldn't see: strand
-        # the violating carriers; they re-solve against bound targets
-        stranded = find_batch_topology_violations(
-            problem, packing, packing._existing_nodes)
-        out.stranded = [orig(problem.pods[i]) for i in stranded]
+            # batch-internal anti-affinity/spread the masks couldn't see: strand
+            # the violating carriers; they re-solve against bound targets
+            stranded = find_batch_topology_violations(
+                problem, packing, packing._existing_nodes)
+            out.stranded = [orig(problem.pods[i]) for i in stranded]
 
-        # pods placed on existing nodes
-        for pod_i, slot in packing.existing_assignments.items():
-            if pod_i in stranded:
-                continue
-            node = packing._existing_nodes[slot]
-            pod = orig(problem.pods[pod_i])
-            self.cluster.bind_pod(pod, node.name)
-            if self.provenance is not None:
-                self.provenance.clear(pod.name)
-            out.bound_existing += 1
-
-        # new nodes
-        for decision in packing.nodes:
-            if stranded:
-                decision.pod_indices = [i for i in decision.pod_indices
-                                        if i not in stranded]
-                if not decision.pod_indices:
+            # pods placed on existing nodes
+            for pod_i, slot in packing.existing_assignments.items():
+                if pod_i in stranded:
                     continue
-            dpods = [orig(problem.pods[i]) for i in decision.pod_indices]
-            creq = (claim_requests_columnar(problem, decision.pod_indices)
-                    if self.device_decode else None)
-            claim = claim_from_decision(decision, dpods, self.nodepools,
-                                        requests=creq)
-            try:
-                claim = self.provider.create(claim)
-            except InsufficientCapacityError as e:
-                # leave pods pending; the ICE cache was updated inside
-                # create() so the next round solves against a corrected
-                # catalog.  A missing nodeclass is a persistent config
-                # error, not capacity.
-                if isinstance(e, NodeClassNotFoundError):
-                    log.error("launch blocked by configuration: %s", e)
-                else:
-                    log.warning("launch failed: %s", e)
-                out.failed_launches.append(str(e))
-                out.unschedulable.extend(dpods)
-                self._record_provenance(
-                    [ProvenanceRecord(pod=p.name, constraint=CAPACITY,
-                                      message=f"launch failed: {e}")
-                     for p in dpods])
-                continue
-            it = catalog_by_name.get(claim.instance_type)
-            if it is not None:
-                ncs = getattr(self.provider, "node_classes", None) or {}
-                it = effective_instance_type(
-                    it, self.nodepools.get(claim.nodepool),
-                    ncs.get(claim.node_class_ref))
-            allocatable = it.allocatable if it else claim.requests
-            node = self.cluster.register_nodeclaim(claim, allocatable,
-                                                   it.capacity if it else None)
-            for p in dpods:
-                self.cluster.bind_pod(p, node.name)
+                node = packing._existing_nodes[slot]
+                pod = orig(problem.pods[pod_i])
+                self.cluster.bind_pod(pod, node.name)
                 if self.provenance is not None:
-                    self.provenance.clear(p.name)
-            out.bound_new += len(dpods)
-            out.launched.append(claim)
+                    self.provenance.clear(pod.name)
+                out.bound_existing += 1
+
+            # new nodes
+            for decision in packing.nodes:
+                if stranded:
+                    decision.pod_indices = [i for i in decision.pod_indices
+                                            if i not in stranded]
+                    if not decision.pod_indices:
+                        continue
+                dpods = [orig(problem.pods[i]) for i in decision.pod_indices]
+                creq = (claim_requests_columnar(problem, decision.pod_indices)
+                        if self.device_decode else None)
+                claim = claim_from_decision(decision, dpods, self.nodepools,
+                                            requests=creq)
+                try:
+                    claim = self.provider.create(claim)
+                except InsufficientCapacityError as e:
+                    # leave pods pending; the ICE cache was updated inside
+                    # create() so the next round solves against a corrected
+                    # catalog.  A missing nodeclass is a persistent config
+                    # error, not capacity.
+                    if isinstance(e, NodeClassNotFoundError):
+                        log.error("launch blocked by configuration: %s", e)
+                    else:
+                        log.warning("launch failed: %s", e)
+                    out.failed_launches.append(str(e))
+                    out.unschedulable.extend(dpods)
+                    self._record_provenance(
+                        [ProvenanceRecord(pod=p.name, constraint=CAPACITY,
+                                          message=f"launch failed: {e}")
+                         for p in dpods])
+                    continue
+                it = catalog_by_name.get(claim.instance_type)
+                if it is not None:
+                    ncs = getattr(self.provider, "node_classes", None) or {}
+                    it = effective_instance_type(
+                        it, self.nodepools.get(claim.nodepool),
+                        ncs.get(claim.node_class_ref))
+                allocatable = it.allocatable if it else claim.requests
+                node = self.cluster.register_nodeclaim(claim, allocatable,
+                                                       it.capacity if it else None)
+                for p in dpods:
+                    self.cluster.bind_pod(p, node.name)
+                    if self.provenance is not None:
+                        self.provenance.clear(p.name)
+                out.bound_new += len(dpods)
+                out.launched.append(claim)
+            lsp.annotate(launched=len(out.launched),
+                         failed=len(out.failed_launches))
 
         out.unschedulable.extend(orig(problem.pods[i])
                                  for i in packing.unschedulable)
         if packing.unschedulable and (self.provenance is not None
                                       or self.recorder is not None):
-            self._record_provenance(
-                [explain_unschedulable(problem, i)
-                 for i in packing.unschedulable])
+            with tracing.span("provision.provenance",
+                              pods=len(packing.unschedulable)):
+                self._record_provenance(
+                    [explain_unschedulable(problem, i)
+                     for i in packing.unschedulable])
+        metrics.scheduling_duration().observe(out.solve_seconds)
         return out
 
     def _record_provenance(self, records: Sequence[ProvenanceRecord]) -> None:

@@ -15,7 +15,8 @@ karpenter:designs/termination.md):
   * only once every reschedulable pod is gone is the cloud instance
     terminated and the node released.
 
-Host-only: it takes no `device`.  The reference's metrics are left out.
+Host-only: it takes no `device`.  A finished drain observes
+karpenter_nodes_termination_duration_seconds from its request.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ..cloud.errors import is_not_found
 from ..cloud.fake import CloudError
 from ..cloud.provider import CloudProvider
 from ..state.cluster import Cluster
+from ..utils import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.termination")
 
@@ -55,6 +57,7 @@ class TerminationController:
         self.cluster = cluster
         self.clock = clock
         self._queue: Dict[str, str] = {}   # node name → reason
+        self._requested_at: Dict[str, float] = {}  # drain-start stamps
 
     def request(self, node: Node, reason: str = "") -> None:
         """Begin terminating `node`: finalizer + taint; the drain happens on
@@ -66,6 +69,7 @@ class TerminationController:
                        if t.key != TERMINATION_TAINT.key] + [TERMINATION_TAINT]
         self.cluster.touch_node(node)
         self._queue.setdefault(node.name, reason)
+        self._requested_at.setdefault(node.name, self.clock())
 
     @property
     def pending(self) -> List[str]:
@@ -78,6 +82,7 @@ class TerminationController:
             node = self.cluster.nodes.get(name)
             if node is None:           # already gone — drop the finalizer
                 del self._queue[name]
+                self._requested_at.pop(name, None)
                 continue
             self._drain_one(node, out)
         return out
@@ -136,6 +141,10 @@ class TerminationController:
             self.cluster.delete_pod(p)
         self.cluster.remove_node(node.name)
         self._queue.pop(node.name, None)
+        started = self._requested_at.pop(node.name, None)
+        if started is not None:
+            metrics.termination_duration().observe(
+                max(0.0, self.clock() - started))
         out.terminated.append(node.name)
         log.info("terminated node %s", node.name)
 
@@ -144,7 +153,9 @@ class TerminationController:
         ownerless pod is gone for good."""
         self.cluster.unbind_pod(pod)
         if not pod.owner_kind:
-            self.cluster.pods.pop(pod.uid, None)
+            if self.cluster.pods.pop(pod.uid, None) is not None and \
+                    self.cluster.observer is not None:
+                self.cluster.observer.pod_removed(pod)
         else:
             # the replacement pod is a fresh arrival
             pod.created_at = self.clock()

@@ -1,7 +1,8 @@
 """HeadroomController: forecast envelope → low-priority placeholder claims.
 
-A copy of the JAX package's `forecast/headroom.py`.  Its metric, span and
-cost-ledger calls are left out (ROADMAP.md queue B item B9).  The dry-run
+A copy of the JAX package's `forecast/headroom.py`, with its metric and
+span calls; its cost-ledger calls are left out (ROADMAP.md queue B item
+B9b).  The dry-run
 solve runs on the Provisioner's device, so placeholders reach the same
 kernels real pods do; a fault of the card or a kernel (`DEVICE_FAULTS`) is
 raised out of `reconcile()` before anything is admitted, never skipped
@@ -47,6 +48,7 @@ from ..api import labels as wk
 from ..api.objects import Pod
 from ..api.resources import CPU, MEMORY, ResourceList
 from ..ops.classpack import DEVICE_FAULTS
+from ..utils import metrics, tracing
 from ..utils.events import Event
 
 log = logging.getLogger("karpenter_tpu_torch.forecast")
@@ -185,12 +187,23 @@ class HeadroomController:
 
     # ------------------------------------------------------------------
     def reconcile(self) -> ForecastResult:
+        with tracing.span("forecast.reconcile") as sp:
+            out = self._reconcile()
+            sp.annotate(issued=out.issued, expired=out.expired,
+                        trimmed=out.trimmed)
+            return out
+
+    def _reconcile(self) -> ForecastResult:
         now = self.clock()
         cfg = self.config
         out = ForecastResult()
         self.stats["reconciles"] += 1
         self.series.advance(now)
         self.spot_prior.accrue(self.cluster.nodes.values(), now)
+        for pool in sorted(set(self.spot_prior._reclaims)
+                           | set(self.spot_prior._node_hours)):
+            metrics.forecast_spot_risk().set(
+                self.spot_prior.rate(pool), {"nodepool": pool})
 
         out.expired = self._expire(now)
 
@@ -207,23 +220,35 @@ class HeadroomController:
             self.spot_prior.max_rate() > cfg.spot_risk_threshold
 
         candidates: List[Pod] = []
-        for cls in self.series.classes():
-            values = self.series.values(cls)
-            env = self.forecaster.forecast(values, steps, z=cfg.confidence)
-            target = float(np.max(env.upper[lead_steps - 1:])) \
-                if env.steps else 0.0
-            out.targets[cls] = target
-            need = int(math.ceil(target)) - self.series.live(cls) \
-                - live_headroom.get(cls, 0)
-            need = min(need, cfg.max_placeholders_per_class)
-            if need <= 0:
-                continue
-            cpu, mem = self.series.mean_request(cls)
-            if cpu <= 0 and mem <= 0:
-                continue
-            candidates.extend(
-                self._placeholder(cls, cpu, mem, now, prefer_on_demand)
-                for _ in range(need))
+        with tracing.span("forecast.model", classes=len(
+                self.series.classes())) as msp:
+            for cls in self.series.classes():
+                values = self.series.values(cls)
+                env = self.forecaster.forecast(values, steps,
+                                               z=cfg.confidence)
+                target = float(np.max(env.upper[lead_steps - 1:])) \
+                    if env.steps else 0.0
+                out.targets[cls] = target
+                metrics.forecast_demand_upper().set(
+                    target, {"pod_class": cls})
+                # residual of the freshest one-step prediction vs reality:
+                # |mean[0] - current live| is a cheap online fit signal
+                if env.steps:
+                    metrics.forecast_model_residual().observe(
+                        abs(float(env.mean[0]) - self.series.live(cls)),
+                        {"model": getattr(self.forecaster, "name", "?")})
+                need = int(math.ceil(target)) - self.series.live(cls) \
+                    - live_headroom.get(cls, 0)
+                need = min(need, cfg.max_placeholders_per_class)
+                if need <= 0:
+                    continue
+                cpu, mem = self.series.mean_request(cls)
+                if cpu <= 0 and mem <= 0:
+                    continue
+                candidates.extend(
+                    self._placeholder(cls, cpu, mem, now, prefer_on_demand)
+                    for _ in range(need))
+            msp.annotate(candidates=len(candidates))
 
         if len(candidates) > cfg.max_issue_per_reconcile:
             # deterministic round-robin across classes (candidates are
@@ -251,6 +276,8 @@ class HeadroomController:
                 self.cluster.add_pods(kept)
                 out.issued = len(kept)
                 self.stats["issued"] += len(kept)
+                metrics.forecast_placeholders().inc(
+                    {"outcome": "issued"}, by=len(kept))
                 self.recorder.publish(Event(
                     "Forecast", "headroom", "HeadroomIssued",
                     f"issued {len(kept)} placeholder(s) toward "
@@ -259,6 +286,7 @@ class HeadroomController:
         live_now = sum(1 for p in self.cluster.pods.values()
                        if is_headroom(p))
         self.stats["peak_live"] = max(self.stats["peak_live"], live_now)
+        metrics.forecast_headroom_pods().set(live_now)
         return out
 
     # ------------------------------------------------------------------
@@ -269,6 +297,8 @@ class HeadroomController:
             self.cluster.delete_pod(p)
         if expired:
             self.stats["expired"] += len(expired)
+            metrics.forecast_placeholders().inc(
+                {"outcome": "expired"}, by=len(expired))
         return len(expired)
 
     def _placeholder(self, cls: str, cpu: float, mem: float, now: float,
@@ -298,32 +328,38 @@ class HeadroomController:
         cfg = self.config
         nodes = self.cluster.snapshot_nodes()
         pools = self.provisioner._pools_within_limits()
-        try:
-            problem, packing = self.provisioner.solve(
-                placeholders, nodes=nodes, pools=pools)
-        except DEVICE_FAULTS:
-            raise
-        except Exception as e:  # noqa: BLE001 — skip the round, retry next
-            log.warning("headroom dry-run solve failed: %s", e)
-            return []
-        rate = sum(n.price for n in self.cluster.nodes.values())
-        budget = max(cfg.max_cost_frac * rate, cfg.min_budget_per_h)
-        keep = set()
-        for i in packing.existing_assignments:
-            keep.add(problem.pods[i].uid)
-        spend = 0.0
-        for nd in packing.nodes:
-            price = float(getattr(nd.option, "price", 0.0))
-            if spend + price > budget:
-                continue
-            spend += price
-            for i in nd.pod_indices:
+        with tracing.span("forecast.plan",
+                          placeholders=len(placeholders)) as psp:
+            try:
+                problem, packing = self.provisioner.solve(
+                    placeholders, nodes=nodes, pools=pools)
+            except DEVICE_FAULTS:
+                raise
+            except Exception as e:  # noqa: BLE001 — skip the round, retry next
+                log.warning("headroom dry-run solve failed: %s", e)
+                return []
+            rate = sum(n.price for n in self.cluster.nodes.values())
+            budget = max(cfg.max_cost_frac * rate, cfg.min_budget_per_h)
+            keep = set()
+            for i in packing.existing_assignments:
                 keep.add(problem.pods[i].uid)
+            spend = 0.0
+            for nd in packing.nodes:
+                price = float(getattr(nd.option, "price", 0.0))
+                if spend + price > budget:
+                    continue
+                spend += price
+                for i in nd.pod_indices:
+                    keep.add(problem.pods[i].uid)
+            psp.annotate(budget=round(budget, 4), spend=round(spend, 4),
+                         kept=len(keep))
         kept = [p for p in placeholders if p.uid in keep]
         dropped = len(placeholders) - len(kept)
         if dropped:
             out.trimmed += dropped
             self.stats["trimmed"] += dropped
+            metrics.forecast_placeholders().inc(
+                {"outcome": "trimmed"}, by=dropped)
         return kept
 
     # ------------------------------------------------------------------
@@ -336,26 +372,32 @@ class HeadroomController:
                         if not is_headroom(p)]
         if not pending_real:
             return 0
-        n = 0
-        for p in sorted((q for q in self.cluster.pending_pods()
-                         if is_headroom(q)), key=lambda q: q.name):
-            self.cluster.delete_pod(p)
-            n += 1
-        need_cpu = sum(float(p.requests.get("cpu", 0)) for p in pending_real)
-        need_mem = sum(float(p.requests.get("memory", 0))
-                       for p in pending_real)
-        freed_cpu = freed_mem = 0.0
-        bound = sorted(
-            (q for q in self.cluster.pods.values()
-             if is_headroom(q) and q.node_name),
-            key=lambda q: (headroom_expiry(q) or 0.0, q.name))
-        for p in bound:
-            if freed_cpu >= need_cpu and freed_mem >= need_mem:
-                break
-            freed_cpu += float(p.requests.get("cpu", 0))
-            freed_mem += float(p.requests.get("memory", 0))
-            self.cluster.delete_pod(p)
-            n += 1
-        if n:
-            self.stats["preempted"] += n
+        with tracing.span("forecast.preempt",
+                          pending=len(pending_real)) as sp:
+            n = 0
+            for p in sorted((q for q in self.cluster.pending_pods()
+                             if is_headroom(q)), key=lambda q: q.name):
+                self.cluster.delete_pod(p)
+                n += 1
+            need_cpu = sum(float(p.requests.get("cpu", 0))
+                           for p in pending_real)
+            need_mem = sum(float(p.requests.get("memory", 0))
+                           for p in pending_real)
+            freed_cpu = freed_mem = 0.0
+            bound = sorted(
+                (q for q in self.cluster.pods.values()
+                 if is_headroom(q) and q.node_name),
+                key=lambda q: (headroom_expiry(q) or 0.0, q.name))
+            for p in bound:
+                if freed_cpu >= need_cpu and freed_mem >= need_mem:
+                    break
+                freed_cpu += float(p.requests.get("cpu", 0))
+                freed_mem += float(p.requests.get("memory", 0))
+                self.cluster.delete_pod(p)
+                n += 1
+            if n:
+                self.stats["preempted"] += n
+                metrics.forecast_placeholders().inc(
+                    {"outcome": "preempted"}, by=n)
+            sp.annotate(preempted=n)
         return n

@@ -1,7 +1,6 @@
 """Per-pod-class demand series: the forecaster's observation stream.
 
-A copy of the JAX package's `forecast/series.py` without its metric calls
-(ROADMAP.md queue B item B9).
+A copy of the JAX package's `forecast/series.py`.
 
 A `DemandSeries` is the `Cluster.observer` hook target: every pod
 admission, deletion, and first bind lands here (headroom placeholders are
@@ -26,6 +25,7 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import metrics
 from .headroom import is_headroom
 
 # the simulator's wave identity label doubles as the class key; any live
@@ -119,6 +119,7 @@ class DemandSeries:
         req[0] += float(pod.requests.get("cpu", 0))
         req[1] += float(pod.requests.get("memory", 0))
         req[2] += 1.0
+        metrics.forecast_series_observations().inc({"kind": "arrival"})
 
     def pod_removed(self, pod) -> None:
         if is_headroom(pod):
@@ -127,12 +128,14 @@ class DemandSeries:
         cls = self._class_for(pod)
         if cls in self._live:
             self._live[cls] = max(0, self._live[cls] - 1)
+        metrics.forecast_series_observations().inc({"kind": "departure"})
 
     def pod_bound(self, pod) -> None:
         if is_headroom(pod):
             return
         self._bind_latency.append(
             max(0.0, self.clock() - pod.created_at))
+        metrics.forecast_series_observations().inc({"kind": "bind"})
 
     # ------------------------------------------------------------------
     # read side (HeadroomController / models)

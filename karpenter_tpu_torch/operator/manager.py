@@ -35,14 +35,17 @@ Each supervised reconcile first passes the chaos seam
 `controller.reconcile` (utils/chaos.py, keyed on the controller's name);
 an injected `ChaosError` is booked like any fault of the controller's own.
 
-Left out, with the ROADMAP.md queue B item that ports them (B9): the flight
+The elector, the readiness lifecycle and the supervised reconciles feed
+the reference's leader, readiness and controller families, `/v1/solve`
+runs under its `http.solve` span, and the server answers `/metrics` (the
+registry's exposition), `/debug/traces` (the tracer's ring, filtered by
+`?min_ms=` and `?span=`) and `/debug/pprof` (thread stacks and traces;
+403 without `--enable-profiling`) as the reference's does.  Left out, with
+the ROADMAP.md queue B item that ports them (B9, its part B9b): the flight
 recorder (with the chaos state it records), the SLO engine, the cost
-ledger, the metric and span calls and the incidents the reference
-publishes (the elector's `acquisitions` / `losses` / `releases`, the
-fence's `refusals` and the manager's `_lease_errors`, `_skipped_ticks`
-and `_midtick_aborts` hold the counts), and the endpoints `/metrics`,
-`/debug/traces`, `/debug/incidents`, `/debug/slo`, `/debug/ledger` and
-`/debug/pprof`, which answer 501 naming B9.  With the Forecast gate the
+ledger and the incidents the reference publishes, and the endpoints
+`/debug/incidents`, `/debug/slo` and `/debug/ledger`, which answer 501
+naming B9.  With the Forecast gate the
 `forecast` entry runs at `forecast_cadence_s`, and real pending pods evict
 headroom placeholders (`preempt_for_pending`) right before each
 provisioning solve.
@@ -61,14 +64,14 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 from ..ops.classpack import DEVICE_FAULTS
+from ..utils import metrics, tracing
 from ..utils.chaos import CHAOS
 from .supervisor import BackoffPolicy, ControllerSupervisor
 
 log = logging.getLogger("karpenter_tpu_torch.manager")
 
 # endpoints of the reference whose features are not ported → ROADMAP.md item
-UNPORTED_ENDPOINTS = ("/metrics", "/debug/traces", "/debug/incidents",
-                      "/debug/slo", "/debug/ledger", "/debug/pprof")
+UNPORTED_ENDPOINTS = ("/debug/incidents", "/debug/slo", "/debug/ledger")
 
 
 class BadRequest(ValueError):
@@ -162,12 +165,15 @@ class LeaderElector:
     def _note_acquired(self, new_term: bool) -> None:
         if new_term or not self._leading:
             self.acquisitions += 1
+            metrics.leader_transitions().inc({"event": "acquired"})
         self._leading = True
+        metrics.leader_fence_epoch().set(self._epoch)
 
     def _note_lost(self) -> None:
         if self._leading:
             self._leading = False
             self.losses += 1
+            metrics.leader_transitions().inc({"event": "lost"})
             log.warning("leadership lost: %s at epoch %d (%d losses)",
                         self.identity, self._epoch, self.losses)
 
@@ -281,6 +287,7 @@ class LeaderElector:
             if self._leading:
                 self._leading = False
                 self.releases += 1
+                metrics.leader_transitions().inc({"event": "released"})
             return True
 
 
@@ -337,6 +344,12 @@ class ControllerManager:
             if name == "forecast":
                 interval = operator.options.forecast_cadence_s
             self._entries.append(_Entry(name, reconcile, interval))
+            # static controller-runtime gauges, set once: singleton loops
+            # have concurrency 1, and active_workers reads 0 from any
+            # scrape because reconciles run under the same state lock the
+            # collector takes
+            metrics.controller_max_concurrent().set(1, {"controller": name})
+            metrics.controller_active_workers().set(0, {"controller": name})
         # one supervisor per controller (provisioning included): isolates
         # crash loops with backoff + circuit breaking while every other
         # entry keeps cadence (operator/supervisor.py)
@@ -377,6 +390,7 @@ class ControllerManager:
         self._lease_err_streak = 0
         self._midtick_aborts = 0
         self._skipped_ticks = 0
+        metrics.ready_state().set(1, {"phase": self.phase})
         # fenced leadership (utils/fencing.py, HAFailover gate): every
         # snapshot write and cloud mutation validates the fencing epoch;
         # without the gate (or without a leader) everything runs unfenced
@@ -412,6 +426,7 @@ class ControllerManager:
                 # unprovable, so this tick must not mutate anything.  One
                 # WARN per outage, not per tick
                 self._lease_errors += 1
+                metrics.leader_lease_errors().inc()
                 if self._lease_err_streak == 0:
                     log.warning("lease I/O failed; skipping ticks until it "
                                 "recovers: %s", err)
@@ -499,6 +514,7 @@ class ControllerManager:
             log.warning("mid-tick lease check failed; aborting",
                         exc_info=True)
         self._midtick_aborts += 1
+        metrics.leader_midtick_aborts().inc()
         return False
 
     def _supervised(self, now: float, name: str,
@@ -520,11 +536,16 @@ class ControllerManager:
             raise
         except Exception as err:
             sup.record_failure(now, err)
+            metrics.controller_reconcile_errors().inc({"controller": name})
             log.exception("controller %s reconcile failed", name)
             return False
         finally:
             elapsed = time.perf_counter() - t0
+            metrics.controller_reconciles().inc({"controller": name})
+            metrics.controller_reconcile_time().observe(
+                elapsed, {"controller": name})
             if 0 < self._soft_deadline_s < elapsed:
+                tracing.annotate(soft_deadline_exceeded=name)
                 log.warning("controller %s reconcile took %.3fs "
                             "(soft deadline %.1fs)",
                             name, elapsed, self._soft_deadline_s)
@@ -550,6 +571,9 @@ class ControllerManager:
             self.phase_transitions.get(phase, 0) + 1
         if phase == "LEADING" and prev == "STANDBY":
             self.promotions += 1
+        metrics.ready_state().set(0, {"phase": prev})
+        metrics.ready_state().set(1, {"phase": phase})
+        metrics.ready_transitions().inc({"phase": phase})
         log.info("readiness: %s -> %s", prev, phase)
 
     def _enter_role_phase(self) -> None:
@@ -608,11 +632,13 @@ class ControllerManager:
                     log.error("arena parity probe FAILED: warm gather "
                               "diverges from cold tensorize; arena "
                               "invalidated")
+        metrics.ready_probes().inc({"outcome": outcome})
         return outcome
 
     def liveness_report(self) -> tuple:
         """/healthz payload: process-level liveness — supervisor circuits,
-        the solver ladder and snapshot freshness.  `live` goes False (503)
+        the solver ladder, watchdog trips and snapshot freshness.  `live`
+        goes False (503)
         only on a wedge the process cannot dig itself out of: every
         controller circuit open at once, or the snapshot cadence stuck
         past 3x its interval while we still hold the fence."""
@@ -632,11 +658,13 @@ class ControllerManager:
             if snap_age > 3.0 * sw.interval_s and \
                     (self.fence is None or self.fence.held()):
                 wedges.append("snapshot_stale")
+        trips = sum(v for _, _, v in metrics.watchdog_trips().samples())
         report: Dict[str, object] = {
             "live": not wedges,
             "wedges": wedges,
             "phase": self.phase,
             "circuits_open": open_circuits,
+            "watchdog_trips": int(trips),
             "snapshot_age_s": round(snap_age, 3)
             if snap_age is not None else None,
         }
@@ -757,6 +785,13 @@ class ControllerManager:
         strand and re-solve."""
         from ..api.serialize import pod_from_manifest
         from ..ops.constraints import find_batch_topology_violations
+        with tracing.span("http.solve") as _http_span:
+            return self._solve_request(payload, pod_from_manifest,
+                                       find_batch_topology_violations,
+                                       _http_span)
+
+    def _solve_request(self, payload, pod_from_manifest,
+                       find_batch_topology_violations, span) -> Dict:
         prov = self.controllers.get("provisioning")
         if prov is None:
             raise ValueError("no provisioning controller wired")
@@ -770,6 +805,7 @@ class ControllerManager:
             raise BadRequest(f"bad pod manifest: {e}") from e
         if not pods:
             raise BadRequest("no pods in request")
+        span.annotate(pods=len(pods))
         with self._state_lock:
             nodes = self.operator.cluster.snapshot_nodes()
             # pool limit filtering iterates live nodes and updates gauge
@@ -900,8 +936,9 @@ class ControllerManager:
                 "unavailableSeq": unavailable.seq_num}
 
     def serve_endpoints(self, metrics_port: Optional[int] = None):
-        """Start /healthz, /readyz, /debug/health, /debug/pods/<uid> and
-        the /v1 surface on a background thread.  A single server hosts them
+        """Start /metrics, /healthz, /readyz, /debug/traces, /debug/health,
+        /debug/pods/<uid>, /debug/pprof and the /v1 surface on a background
+        thread.  A single server hosts them
         all (ports collapsed for the local substrate: the reference's
         `health_port` is read by nothing); returns the bound port."""
         manager = self
@@ -918,7 +955,7 @@ class ControllerManager:
                 self.wfile.write(body)
 
             def do_GET(self):
-                from urllib.parse import urlparse
+                from urllib.parse import parse_qs, urlparse
                 url = urlparse(self.path)
                 if any(url.path == p or url.path.startswith(p + "/")
                        for p in UNPORTED_ENDPOINTS):
@@ -926,7 +963,24 @@ class ControllerManager:
                                          "(ROADMAP.md queue B, item B9)"},
                                501)
                     return
-                if url.path == "/debug/health":
+                if self.path == "/metrics":
+                    body = metrics.REGISTRY.expose().encode()
+                    ctype = "text/plain; version=0.0.4"
+                elif url.path == "/debug/traces":
+                    # recent completed traces from the tracer ring buffer,
+                    # ?min_ms= filters out fast ones, ?span= keeps only
+                    # traces whose root span name starts with the prefix
+                    query = parse_qs(url.query)
+                    try:
+                        min_ms = float(query.get("min_ms", ["0"])[0])
+                    except ValueError:
+                        self._json({"error": "min_ms must be a number"}, 400)
+                        return
+                    span = query.get("span", [None])[0]
+                    self._json({"traces":
+                                tracing.TRACER.traces(min_ms, span=span)})
+                    return
+                elif url.path == "/debug/health":
                     # supervisor circuits + solver degradation ladder
                     self._json(manager.health_snapshot())
                     return
@@ -940,6 +994,26 @@ class ControllerManager:
                                    404)
                         return
                     self._json(rec.to_dict())
+                    return
+                elif url.path.startswith("/debug/pprof"):
+                    # profiling surface behind --enable-profiling
+                    # (reference settings.md:23): all-thread stack dump plus
+                    # a tracer ring-buffer snapshot, as JSON
+                    if not manager.operator.options.enable_profiling:
+                        self._json({"error": "profiling disabled; start with "
+                                             "--enable-profiling"}, 403)
+                        return
+                    import sys
+                    import traceback
+                    names = {t.ident: t.name for t in threading.enumerate()}
+                    threads = [
+                        {"thread_id": tid,
+                         "name": names.get(tid, ""),
+                         "frames": [ln.rstrip("\n") for ln in
+                                    traceback.format_stack(frame)]}
+                        for tid, frame in sys._current_frames().items()]
+                    self._json({"threads": threads,
+                                "traces": tracing.TRACER.traces()})
                     return
                 elif self.path in ("/v1/nodepools", "/v1/nodeclasses"):
                     try:

@@ -22,15 +22,17 @@ surface share.
 
 Not ported yet, and raising NotImplementedError that names the item of
 ROADMAP.md's queue B (`options.check_ported`): FlightRecorder and SLOEngine
-(B9).  WarmRestart and HAFailover are read by the controller manager
+(B9, its part B9b).  WarmRestart and HAFailover are read by the controller manager
 (operator/manager.py): its snapshot writer and restore use `raw_cloud`
 (the FakeCloud under the BatchedCloud), and under HAFailover it hands its
 fence to `cloud_provider`.  The Forecast gate wires the
 HeadroomController, its DemandSeries as the cluster's observer and the
 spot-risk prior to the interruption controller; GangScheduling turns on
 the Provisioner's gang admission and hands its preemption plans to the
-DisruptionController (`gang_source`).  The reference's metric registration, scrape
-collectors and slow-span threshold are left out (B9).  A chaos spec
+DisruptionController (`gang_source`).  As in the reference, the
+constructor sets the tracer's slow-span threshold (`trace_slow_ms`),
+registers the parity metric families and adds the cluster's scrape-time
+collector under `state_lock`.  A chaos spec
 (`Options.chaos_spec`, `--chaos-spec`) arms the process-global injector
 (utils/chaos.py) in the constructor, as in the reference.
 `build_controllers` gives one SolverHealth ladder, with the
@@ -75,6 +77,7 @@ from ..providers.subnet import SubnetProvider
 from ..providers.version import VersionProvider
 from ..state.cluster import Cluster
 from ..utils.events import Recorder
+from ..utils import metrics, tracing
 from ..utils.provenance import ProvenanceStore
 from ..utils.chaos import maybe_configure_from_options
 from .options import Options, check_ported
@@ -136,6 +139,8 @@ class Operator:
         self.recorder = Recorder(clock=clock)
         # queryable "why is this pod pending" records (utils/provenance.py)
         self.provenance = ProvenanceStore()
+        # slow-span WARN threshold comes from --trace-slow-ms
+        tracing.TRACER.slow_ms = float(self.options.trace_slow_ms or 0.0)
         self.unavailable = UnavailableOfferings(clock=clock)
         self.subnets = SubnetProvider(self.cloud, clock=clock)
         self.security_groups = SecurityGroupProvider(self.cloud, clock=clock)
@@ -169,6 +174,15 @@ class Operator:
         # one state lock shared by the tick loop (ControllerManager) and the
         # /v1 surface: a solve must never read cluster state mid-mutation
         self.state_lock = threading.RLock()
+        # pre-register every parity family so the first scrape serves the
+        # complete reference schema (zero samples beat absent families)
+        metrics.register_parity_families()
+        # scrape-time state gauges: per-node allocatable/overhead/requests/
+        # limits (pod + daemon splits), pod phases — refreshed on /metrics,
+        # stale series dropped
+        metrics.REGISTRY.add_collector(
+            metrics.make_cluster_collector(self.cluster,
+                                           lock=self.state_lock))
         self.node_classes: Dict[str, NodeClass] = {"default": NodeClass()}  # guarded-by: caller(state_lock)
         self.nodepools: Dict[str, NodePool] = {"default": NodePool()}  # guarded-by: caller(state_lock)
         # cloud-call hardening: both default off, so a stepped clock never

@@ -7,9 +7,12 @@ re-implements karpenter:pkg/operator/options/options.go:53-63).
 Precedence is the reference's: explicit flag > env var > default.
 `from_args` parses the reference's whole command line and refuses every
 flag set away from its default whose reader the port does not have,
-naming the ROADMAP.md queue B item that ports it: `--log-format json`,
-`--trace-slow-ms`, `--enable-profiling` and the incident, obs, SLO and
-ledger flags (B9).  The durability and HA flags are read as the
+naming the ROADMAP.md queue B item that ports it: the incident, obs, SLO
+and ledger flags (B9b).  `--log-format`, `--trace-slow-ms` and
+`--enable-profiling` (and their env defaults) are read as the reference's:
+`__main__` configures logging from the first, `Operator` sets the tracer's
+slow-span threshold from the second, and the manager serves
+`/debug/pprof` only with the third.  The durability and HA flags are read as the
 reference's: `--warm-restart` and `--ha-failover` turn their gates on
 (`--ha-failover` also `leader_elect`), `--leader-elect`, `--lease-path`,
 `--lease-ttl`, `--snapshot-path` and `--snapshot-interval` set their
@@ -52,8 +55,7 @@ UNPORTED_GATES = {"FlightRecorder": "B9", "SLOEngine": "B9"}
 # the reference's command-line options the port does not read → (the value
 # that leaves them off, the ROADMAP.md queue B item that ports their reader)
 UNPORTED_FLAGS = {
-    "log_format": ("text", "B9"), "trace_slow_ms": (0.0, "B9"),
-    "enable_profiling": (False, "B9"), "flight_recorder": (False, "B9"),
+    "flight_recorder": (False, "B9"),
     "incident_dir": ("", "B9"), "incident_window_s": (600.0, "B9"),
     "incident_dedup_s": (300.0, "B9"), "incident_retention": (32, "B9"),
     "obs_sample_s": (30.0, "B9"), "obs_ring_slots": (512, "B9"),
@@ -132,6 +134,12 @@ class Options:
     batch_max_duration: float = DEFAULT_BATCH_MAX
     metrics_port: int = DEFAULT_METRICS_PORT  # the endpoints' one server
     leader_elect: bool = False           # lease-file leader election
+    enable_profiling: bool = False       # settings.md:23 --enable-profiling
+    # structured logging + tracing (utils/tracing.py): "text" keeps the
+    # classic line format, "json" emits one JSON object per line with
+    # trace/span ids; spans slower than trace_slow_ms log a WARN (0 = off)
+    log_format: str = "text"
+    trace_slow_ms: float = 0.0
     feature_gates: Dict[str, bool] = field(
         default_factory=lambda: dict(FEATURE_GATES))
     # controller supervision (operator/supervisor.py) and the soft deadline

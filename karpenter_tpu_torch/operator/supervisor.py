@@ -20,8 +20,9 @@ supervisor gives each `_entries` controller an isolated failure budget:
 State is exported via `/debug/health` snapshots and a "controller
 quarantined: <last error>" Recorder event when the circuit opens.
 
-A copy of the JAX package's `operator/supervisor.py` without its gauges,
-counters and the `circuit_open` incident (ROADMAP.md queue B, item B9);
+A copy of the JAX package's `operator/supervisor.py`, its gauges and
+counters included, without the `circuit_open` incident (ROADMAP.md queue B,
+item B9b);
 `snapshot_state` / `restore_state` are each supervisor's part of the
 warm-restart snapshot (state/snapshot.py).  The manager never books a fault of the card or of a
 kernel here: it re-raises them first (`manager.ControllerManager`).
@@ -34,10 +35,13 @@ import zlib
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+from ..utils import metrics
+
 log = logging.getLogger("karpenter_tpu_torch.supervisor")
 
-# Circuit states.
+# Circuit states, also the gauge encoding.
 CLOSED, HALF_OPEN, OPEN = "closed", "half_open", "open"
+_STATE_CODE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
 
 def _jitter(name: str, failures: int) -> float:
@@ -87,6 +91,7 @@ class ControllerSupervisor:
             return True  # fast path: healthy controller, no clock math
         if now < self.retry_at:
             self.total_skips += 1
+            metrics.supervisor_backoff_skips().inc({"controller": self.name})
             return False
         if self.state == OPEN:
             self._set_state(HALF_OPEN)
@@ -111,12 +116,16 @@ class ControllerSupervisor:
         self.retry_at = float("-inf")
         self.last_error = ""
         self._set_state(CLOSED)
+        metrics.supervisor_consecutive_failures().set(
+            0, {"controller": self.name})
 
     def record_failure(self, now: float, err: BaseException) -> None:
         self.failures += 1
         self.total_failures += 1
         self.last_error = f"{type(err).__name__}: {err}"
         self.retry_at = now + self.policy.delay(self.name, self.failures)
+        metrics.supervisor_consecutive_failures().set(
+            self.failures, {"controller": self.name})
         if self.state == HALF_OPEN:
             self._set_state(OPEN)  # failed probe: straight back to open
         elif self.state == CLOSED and self.failures >= self.circuit_threshold:
@@ -125,6 +134,7 @@ class ControllerSupervisor:
     def _quarantine(self) -> None:
         self._set_state(OPEN)
         self.total_quarantines += 1
+        metrics.supervisor_quarantines().inc({"controller": self.name})
         msg = f"controller quarantined: {self.last_error}"
         log.warning("%s: %s (%d consecutive failures, retry at %.1f)",
                     self.name, msg, self.failures, self.retry_at)
@@ -138,7 +148,11 @@ class ControllerSupervisor:
                 log.exception("recorder publish failed for %s", self.name)
 
     def _set_state(self, state: str) -> None:
+        if state == self.state:
+            return
         self.state = state
+        metrics.supervisor_state().set(_STATE_CODE[state],
+                                       {"controller": self.name})
 
     # ------------------------------------------------------------------
     def snapshot(self) -> Dict:

@@ -37,9 +37,10 @@ the lifecycle, termination and disruption controllers.  Like every other
 Cluster write it takes no lock of its own: the controller manager's ticks
 and the `/v1` surface hold the operator's `state_lock` around it.
 
-Left out: the reference's metric families and spans (ROADMAP.md queue B);
-`gathers` counts the gather outcomes ("warm" / "fallback") that its
-`arena_gather` counter records.  The reference's gang-resident index
+Every delta feeds the reference's arena families (`_note_delta`), the
+flush, compaction and rebuild run under its `arena.*` spans, and `gathers`
+counts the gather outcomes ("warm" / "fallback") beside the `arena_gather`
+counter.  The reference's gang-resident index
 (`gang_residents`, `gangs_on`) stays out: nothing reads it, in the JAX
 package or its tests (gang scheduling, ops/gang.py, walks the nodes' pods
 itself).  `snapshot_state` / `restore_state` are the arena's section of
@@ -59,6 +60,7 @@ from ..api.objects import Node, Pod
 from ..api.requirements import Requirements
 from ..api.resources import DEFAULT_AXES, DEFAULT_SCALES, PODS
 from ..api.taints import tolerates_all
+from ..utils import metrics, tracing
 from .tensorize import _class_key
 
 _INITIAL_SLOTS = 64
@@ -106,6 +108,14 @@ class ClusterArena:
     @property
     def tombstone_count(self) -> int:
         return len(self._free)
+
+    def _note_delta(self, kind: str):
+        self.epoch += 1
+        metrics.arena_deltas().inc({"kind": kind})
+        metrics.arena_epoch().set(self.epoch)
+        metrics.arena_slots().set(self.live_count, {"state": "live"})
+        metrics.arena_slots().set(self.tombstone_count,
+                                  {"state": "tombstone"})
 
     def _grow_slots(self, need: int):
         cap = self.slab_alloc.shape[0]
@@ -239,12 +249,12 @@ class ClusterArena:
         self._node_at[slot] = node
         self.slab_live[slot] = True
         self._fill_row(slot, node)
-        self.epoch += 1
+        self._note_delta("node_add")
 
     def apply_node_remove(self, name: str):
         if not self._drop_slot(name):
             return
-        self.epoch += 1
+        self._note_delta("node_remove")
         self._maybe_compact()
 
     def touch_node(self, node: Node):
@@ -256,28 +266,28 @@ class ClusterArena:
             return
         self._node_at[slot] = node
         self._fill_row(slot, node)
-        self.epoch += 1
+        self._note_delta("touch")
 
     def apply_pod_bind(self, pod: Pod, node_name: str,
                        old_node_name: str = ""):
         if old_node_name and old_node_name != node_name:
             self._refresh_used(old_node_name)
         self._refresh_used(node_name)
-        self.epoch += 1
+        self._note_delta("pod_bind")
 
     def apply_pod_unbind(self, node_name: str):
         self._refresh_used(node_name)
-        self.epoch += 1
+        self._note_delta("pod_unbind")
 
     def apply_pod_add(self, pod: Pod):
         # a pending pod touches no node row; the epoch bump is what
         # invalidates cached faces built over the old pod set
-        self.epoch += 1
+        self._note_delta("pod_add")
 
     def apply_pod_remove(self, pod: Pod, node_name: str = ""):
         if node_name:
             self._refresh_used(node_name)
-        self.epoch += 1
+        self._note_delta("pod_remove")
 
     def _refresh_used(self, node_name: str):
         slot = self._slot_of.get(node_name)
@@ -289,7 +299,7 @@ class ClusterArena:
         always-correct escape hatch for events the delta API can't
         express."""
         self._needs_rebuild = True
-        self.epoch += 1
+        self._note_delta("invalidate")
 
     def apply_ingest_flush(self, touched: Sequence[Node] = (),
                            removed: Sequence[str] = (),
@@ -300,17 +310,18 @@ class ClusterArena:
         equivalent eager event stream differ only in slot layout, never in
         gather() output (which orders by cluster dict, not slot).  Removals
         run first so their slots recycle for same-tick adds."""
-        for name in removed:
-            self._drop_slot(name)
-        for node in touched:
-            slot = self._take_slot(node.name)
-            self._node_at[slot] = node
-            self.slab_live[slot] = True
-            self._fill_row(slot, node)
-        for name in used_names:
-            self._refresh_used(name)
-        self.epoch += 1
-        self._maybe_compact()
+        with tracing.span("arena.ingest_flush"):
+            for name in removed:
+                self._drop_slot(name)
+            for node in touched:
+                slot = self._take_slot(node.name)
+                self._node_at[slot] = node
+                self.slab_live[slot] = True
+                self._fill_row(slot, node)
+            for name in used_names:
+                self._refresh_used(name)
+            self._note_delta("ingest_flush")
+            self._maybe_compact()
 
     # ---- snapshot / warm restart ------------------------------------------
     def snapshot_state(self) -> Dict:
@@ -377,7 +388,7 @@ class ClusterArena:
         self.epoch = int(data["epoch"])
         self.compactions = int(data["compactions"])
         self._needs_rebuild = bool(data["needs_rebuild"])
-        self.epoch += 1
+        self._note_delta("restore")
         return True
 
     # ---- compaction / rebuild ---------------------------------------------
@@ -385,54 +396,58 @@ class ClusterArena:
         """Densify the slab: move live rows to the front in cluster dict
         order (deterministic), drop tombstones, reset the free-list.  Pure
         row moves — values are already exact, so nothing recomputes."""
-        nodes = [n for n in self._cluster.nodes.values()
-                 if n.name in self._slot_of]
-        idx = np.asarray([self._slot_of[n.name] for n in nodes], np.int64)
-        E = len(nodes)
-        cap = max(_INITIAL_SLOTS, self.slab_alloc.shape[0])
-        while cap // 2 >= max(E, _INITIAL_SLOTS):
-            cap //= 2
-        R, C = self.slab_alloc.shape[1], self.slab_compat.shape[1]
-        alloc = np.zeros((cap, R), np.float32)
-        used = np.zeros((cap, R), np.float32)
-        compat = np.zeros((cap, C), bool)
-        live = np.zeros(cap, bool)
-        if E:
-            alloc[:E] = self.slab_alloc[idx]
-            used[:E] = self.slab_used[idx]
-            compat[:E] = self.slab_compat[idx]
-            live[:E] = True
-        self.slab_alloc, self.slab_used = alloc, used
-        self.slab_compat, self.slab_live = compat, live
-        self._node_at = list(nodes) + [None] * (cap - E)
-        self._slot_of = {n.name: i for i, n in enumerate(nodes)}
-        self._free = []
-        self._top = E
-        self.compactions += 1
-        self.epoch += 1
+        with tracing.span("arena.compact"):
+            nodes = [n for n in self._cluster.nodes.values()
+                     if n.name in self._slot_of]
+            idx = np.asarray([self._slot_of[n.name] for n in nodes], np.int64)
+            E = len(nodes)
+            cap = max(_INITIAL_SLOTS, self.slab_alloc.shape[0])
+            while cap // 2 >= max(E, _INITIAL_SLOTS):
+                cap //= 2
+            R, C = self.slab_alloc.shape[1], self.slab_compat.shape[1]
+            alloc = np.zeros((cap, R), np.float32)
+            used = np.zeros((cap, R), np.float32)
+            compat = np.zeros((cap, C), bool)
+            live = np.zeros(cap, bool)
+            if E:
+                alloc[:E] = self.slab_alloc[idx]
+                used[:E] = self.slab_used[idx]
+                compat[:E] = self.slab_compat[idx]
+                live[:E] = True
+            self.slab_alloc, self.slab_used = alloc, used
+            self.slab_compat, self.slab_live = compat, live
+            self._node_at = list(nodes) + [None] * (cap - E)
+            self._slot_of = {n.name: i for i, n in enumerate(nodes)}
+            self._free = []
+            self._top = E
+            self.compactions += 1
+            metrics.arena_compactions().inc()
+            self._note_delta("compact")
 
     def rebuild(self):
         """Full re-derivation from cluster state — the fallback that makes
         every other path merely an optimization.  Keeps the class registry
         (columns recompute with the rows)."""
-        nodes = list(self._cluster.nodes.values())
-        E = len(nodes)
-        self._grow_slots(max(E, 1))
-        self.slab_live[:] = False
-        self.slab_alloc[:] = 0.0
-        self.slab_used[:] = 0.0
-        self.slab_compat[:] = False
-        self._node_at = [None] * self.slab_alloc.shape[0]
-        self._slot_of = {}
-        self._free = []
-        self._top = E
-        for slot, node in enumerate(nodes):
-            self._slot_of[node.name] = slot
-            self._node_at[slot] = node
-            self.slab_live[slot] = True
-            self._fill_row(slot, node)
-        self._needs_rebuild = False
-        self.epoch += 1
+        with tracing.span("arena.rebuild") as sp:
+            nodes = list(self._cluster.nodes.values())
+            E = len(nodes)
+            self._grow_slots(max(E, 1))
+            self.slab_live[:] = False
+            self.slab_alloc[:] = 0.0
+            self.slab_used[:] = 0.0
+            self.slab_compat[:] = False
+            self._node_at = [None] * self.slab_alloc.shape[0]
+            self._slot_of = {}
+            self._free = []
+            self._top = E
+            for slot, node in enumerate(nodes):
+                self._slot_of[node.name] = slot
+                self._node_at[slot] = node
+                self.slab_live[slot] = True
+                self._fill_row(slot, node)
+            self._needs_rebuild = False
+            sp.annotate(nodes=E, classes=len(self._reps))
+            self._note_delta("rebuild")
 
     # ---- the consumer surface ---------------------------------------------
     def gather(self, pod_classes: Sequence[Pod],
@@ -448,6 +463,7 @@ class ClusterArena:
         if tuple(axes) != self._axes or (
                 scales is not None and dict(scales) != self._scales):
             self.gathers["fallback"] += 1
+            metrics.arena_gather().inc({"outcome": "fallback"})
             return None
         if self._needs_rebuild:
             self.rebuild()
@@ -461,6 +477,7 @@ class ClusterArena:
                 # untracked or swapped-out node object: the delta stream
                 # missed something — refuse rather than risk a stale row
                 self.gathers["fallback"] += 1
+                metrics.arena_gather().inc({"outcome": "fallback"})
                 return None
             slots.append(slot)
         rids = self._ensure_classes(pod_classes)
@@ -471,4 +488,5 @@ class ClusterArena:
         compat = np.ascontiguousarray(self.slab_compat[idx][:, cols].T) \
             if len(node_list) else np.zeros((len(rids), 0), bool)
         self.gathers["warm"] += 1
+        metrics.arena_gather().inc({"outcome": "warm"})
         return node_list, alloc, used, compat

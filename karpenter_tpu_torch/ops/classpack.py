@@ -48,6 +48,7 @@ from .classpack_kernels import (classpack_aggregate, classpack_assign_decode,
                                 classpack_slab, classpack_sweep, pack_bits)
 from .ffd import NodeDecision, PackingResult, SweepResult
 from .tensorize import Problem, pad_to
+from ..utils import metrics, tracing
 
 log = logging.getLogger("karpenter_tpu_torch.classpack")
 
@@ -236,10 +237,15 @@ _PODSIDE_CACHE: dict = {}
 _PODSIDE_CACHE_MAX = 8
 
 
-def _cached(cache: dict, cap: int, key, arrays, dev: torch.device):
+def _cached(cache: dict, cap: int, key, arrays, dev: torch.device,
+            name: str):
+    """The cached upload of `arrays`; the hit or miss is annotated on the
+    active span as `<name>_cache`, as the reference does."""
     hit = cache.get(key)
     if hit is not None:
+        tracing.annotate(**{f"{name}_cache": "hit"})
         return hit
+    tracing.annotate(**{f"{name}_cache": "miss"})
     val = tuple(_upload(a, dev) for a in arrays)
     with _CACHE_LOCK:
         while len(cache) >= cap:
@@ -256,7 +262,7 @@ def _device_podside(req_p: np.ndarray, cnt_p: np.ndarray,
                            + packed.tobytes() + cap_p.tobytes(),
                            digest_size=16).digest())
     return _cached(_PODSIDE_CACHE, _PODSIDE_CACHE_MAX, key,
-                   (req_p, cnt_p, packed, cap_p), dev)
+                   (req_p, cnt_p, packed, cap_p), dev, "podside")
 
 
 def _device_catalog(alloc: np.ndarray, price: np.ndarray, rank: np.ndarray,
@@ -266,7 +272,7 @@ def _device_catalog(alloc: np.ndarray, price: np.ndarray, rank: np.ndarray,
                alloc.tobytes() + price.tobytes() + rank.tobytes(),
                digest_size=16).digest())
     return _cached(_CATALOG_CACHE, _CATALOG_CACHE_MAX, key,
-                   (alloc, price, rank), dev)
+                   (alloc, price, rank), dev, "catalog")
 
 
 # cross-solve alternatives memo.  A node's flexible-alternative list depends
@@ -403,10 +409,10 @@ def device_args(low: Lowered, dev: torch.device):
     themselves.  Existing-node columns embed per-solve cluster state, so
     those solves upload directly and leave the caches alone."""
     if low.E == 0:
+        # the catalog side first, as the reference looks its caches up
+        cat = _device_catalog(low.alloc_i, low.price_p, low.rank_p, dev)
         return (_device_podside(low.req_p, low.cnt_p, low.packed, low.cap_p,
-                                dev),
-                _device_catalog(low.alloc_i, low.price_p, low.rank_p, dev),
-                (None, None))
+                                dev), cat, (None, None))
     return (tuple(_upload(a, dev) for a in (low.req_p, low.cnt_p, low.packed,
                                             low.cap_p)),
             tuple(_upload(a, dev) for a in (low.alloc_i, low.price_p,
@@ -468,6 +474,10 @@ def solve_classpack(problem: Problem,
                                      for p in m],
             existing_assignments={}, total_price=0.0)
     O, K = low.O, low.K
+    # the pad buckets, and the device programs this solve dispatches (the
+    # reference's one scan program; K1 + K2 + K3 or K4 here)
+    tracing.annotate(device_calls=1, pad_classes=low.req_p.shape[0],
+                     pad_options=low.price_p.shape[0], slots=K)
     pod_args, cat_args, init = device_args(low, dev)
 
     if not decode:
@@ -485,34 +495,51 @@ def solve_classpack(problem: Problem,
     use_slab = bool(device_decode) and low.P >= decode_mod.DEVICE_DECODE_FLOOR
     if use_slab and decode_health is not None and not decode_health.allow():
         use_slab = False
-    if not use_slab:
-        assignment, slot_option, _ = class_pack_assign_kernel(
-            *pod_args, *cat_args, *init, K, low.Ppad)
-        return decode_plan(problem, low, assignment.cpu().numpy(),
-                           slot_option.cpu().numpy(), max_alternatives)
-    order_idx, slot_counts, slot_option, _ = class_pack_assign_slab_kernel(
-        *pod_args, *cat_args, *init, K, low.Ppad)
-    order_idx = order_idx.cpu().numpy()
-    slot_counts = slot_counts.cpu().numpy()
-    slot_option = slot_option.cpu().numpy()
-    pod_idx, class_of_row = _rows(problem, low)
-    try:
-        res = decode_mod.assemble_slab_single(
-            problem, order_idx, slot_counts, slot_option, pod_idx,
-            class_of_row, E, K, max_alternatives, low.P)
-    except Exception:
-        log.exception("slab decode failed; host assembly fallback")
+        metrics.decode_solves().inc({"path": "classpack",
+                                     "outcome": "suppressed"})
+    elif device_decode and not use_slab:
+        metrics.decode_solves().inc({"path": "classpack", "outcome": "floor"})
+
+    # the launches and the blocking device→host copies: the span closes only
+    # once the card's work has landed on the host
+    with tracing.span("solve.kernel"):
+        if use_slab:
+            order_idx, slot_counts, slot_option, _ = \
+                class_pack_assign_slab_kernel(*pod_args, *cat_args, *init, K,
+                                              low.Ppad)
+            order_idx = order_idx.cpu().numpy()
+            slot_counts = slot_counts.cpu().numpy()
+        else:
+            assignment, slot_option, _ = class_pack_assign_kernel(
+                *pod_args, *cat_args, *init, K, low.Ppad)
+            assignment = assignment.cpu().numpy()
+        slot_option = slot_option.cpu().numpy()
+    # everything below is host-side decode: rows -> NodeDecisions
+    with tracing.span("solve.decode"):
+        if not use_slab:
+            return decode_plan(problem, low, assignment, slot_option,
+                               max_alternatives)
+        pod_idx, class_of_row = _rows(problem, low)
+        try:
+            res = decode_mod.assemble_slab_single(
+                problem, order_idx, slot_counts, slot_option, pod_idx,
+                class_of_row, E, K, max_alternatives, low.P)
+        except Exception:
+            log.exception("slab decode failed; host assembly fallback")
+            metrics.decode_solves().inc({"path": "classpack",
+                                         "outcome": "fallback"})
+            if decode_health is not None:
+                decode_health.report_failure("error")
+            # the kernel output is still good: rebuild the legacy assignment
+            # vector from the slab, no second launch
+            assignment = decode_mod.slab_to_assignment(order_idx, slot_counts,
+                                                       low.Ppad, K)
+            return decode_plan(problem, low, assignment, slot_option,
+                               max_alternatives)
+        metrics.decode_solves().inc({"path": "classpack", "outcome": "device"})
         if decode_health is not None:
-            decode_health.report_failure("error")
-        # the kernel output is still good: rebuild the legacy assignment
-        # vector from the slab, no second launch
-        assignment = decode_mod.slab_to_assignment(order_idx, slot_counts,
-                                                   low.Ppad, K)
-        return decode_plan(problem, low, assignment, slot_option,
-                           max_alternatives)
-    if decode_health is not None:
-        decode_health.report_success()
-    return res
+            decode_health.report_success()
+        return res
 
 
 @dataclass
@@ -684,6 +711,7 @@ def solve_classpack_sweep(problem: Problem,
         cost[s:e] = out[:e - s, 0]
         n_new[s:e] = np.rint(out[:e - s, 1]).astype(np.int32)
         unsched[s:e] = np.rint(out[:e - s, 2]).astype(np.int32)
+    tracing.annotate(device_calls=calls, sweep_rows=B, sweep_chunk=low.chunk)
     return SweepResult(total_price=cost, new_nodes=n_new,
                        unschedulable=unsched, device_calls=calls)
 

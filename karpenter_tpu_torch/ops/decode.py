@@ -19,8 +19,9 @@ same float total.
 `DecodeHealth` is the single-rung analog of `ops/health.SolverHealth`: a
 slab-assembly failure falls back to host assembly over
 `slab_to_assignment` (no second kernel launch) and demotes the device path
-for a doubling backoff window.  The reference's metric and incident calls
-are left out; every transition is still logged and tallied.
+for a doubling backoff window.  Every transition is logged, tallied and
+counted in the reference's decode families; its `decode_demotion` incident
+is left out (ROADMAP.md queue B item B9b).
 `assemble_slab_sharded` is the mesh drivers' assembler over the shard-major
 stitched slabs, and `merge_residual_used` charges the mesh pass's
 existing-node fills before the residual reconcile.
@@ -33,6 +34,8 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+
+from ..utils import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.decode")
 
@@ -91,6 +94,7 @@ class DecodeHealth:
         self.demotions = 0
         self.probing = False
         self.demoted_until = float("-inf")
+        metrics.decode_demoted().set(0)
 
     def report_failure(self, reason: str = "error") -> None:
         self.failures += 1
@@ -106,10 +110,13 @@ class DecodeHealth:
             self._transition("demoted", reason)
             log.warning("device decode demoted to host assembly (%s), "
                         "window %.0fs", reason, window)
+        metrics.decode_demoted().set(
+            1 if self.demoted_until > self.clock() else 0)
 
     def _transition(self, event: str, reason: str) -> None:
         key = f"{event}:{reason}"
         self.transitions[key] = self.transitions.get(key, 0) + 1
+        metrics.decode_transitions().inc({"event": event, "reason": reason})
         if event == "recovered":
             log.info("device decode recovered")
 

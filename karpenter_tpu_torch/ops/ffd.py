@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..api.resources import ResourceList
+from ..utils import tracing
 from .tensorize import LaunchOption, Problem, pad_to
 
 NO_ASSIGNMENT = -1
@@ -348,10 +349,14 @@ def solve_ffd(problem: Problem,
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "native":
         from .. import native
+        tracing.annotate(backend="native", device_calls=0)
         return native.solve_ffd_native(
             problem, max_nodes=max_nodes, existing_alloc=existing_alloc,
             existing_used=existing_used, existing_compat=existing_compat,
             max_alternatives=max_alternatives)
+    # the reference's label and count for its scan (K7 here); the host
+    # greedy rung re-annotates below
+    tracing.annotate(backend="jax", device_calls=1)
     low = lower_ffd(problem, max_nodes, existing_alloc, existing_used,
                     existing_compat)
     if low is None:  # no options and no existing nodes
@@ -359,6 +364,7 @@ def solve_ffd(problem: Problem,
         return PackingResult(nodes=[], unschedulable=[int(i) for i in pod_idx],
                              existing_assignments={}, total_price=0.0)
     if backend == "numpy":
+        tracing.annotate(backend="numpy", device_calls=0)
         assignment, slot_option, slot_used, _ = ffd_pack_numpy(
             low.req_p[:low.P], low.compat, low.class_ids.astype(np.int32),
             low.row_caps, low.rem_p[:low.P], low.alloc.astype(np.float32),

@@ -15,9 +15,10 @@ is the C++ packer on the host, karpenter_tpu_torch/native; "greedy" the
 host NumPy FFD; a device fault is raised past the ladder), and the LP
 ladder (`lp_ladder`: device_lp ──▶ highs).  The ladder state round-trips
 through `snapshot_state` / `restore_state`; `snapshot()` is the reference's
-deterministic /debug/health view.  The reference's metric, span and
-`solver_demotion` incident calls are left out; every transition is still
-logged and tallied in `transitions`.
+deterministic /debug/health view.  Every transition is logged, annotated
+onto the active span, tallied in `transitions` and counted in
+karpenter_degradation_transitions_total{from,to,reason}; the reference's
+`solver_demotion` incident is left out (ROADMAP.md queue B item B9b).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import logging
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
+
+from ..utils import metrics, tracing
 
 log = logging.getLogger("karpenter_tpu_torch.health")
 
@@ -101,6 +104,7 @@ class SolverHealth:
         st.demotions = 0
         st.probing = False
         st.demoted_until = float("-inf")
+        self._export_rung()
 
     def report_failure(self, rung: str, reason: str = "error") -> None:
         """`reason` "timeout" demotes immediately; any other reason demotes
@@ -121,16 +125,27 @@ class SolverHealth:
                          self.window_max_s)
             st.demoted_until = self.clock() + window
             self._transition(rung, self.next_rung(rung) or rung, reason)
+        self._export_rung()
 
     def _transition(self, frm: str, to: str, reason: str) -> None:
         key = f"{frm}>{to}:{reason}"
         self.transitions[key] = self.transitions.get(key, 0) + 1
+        metrics.degradation_transitions().inc(
+            {"from": frm, "to": to, "reason": reason})
+        tracing.annotate(degradation=key)
         if reason == "recovered":
             log.info("solver ladder: rung %s recovered", frm)
         else:
             log.warning("solver ladder: %s demoted to %s (%s), window %.0fs",
                         frm, to, reason,
                         self._state[frm].demoted_until - self.clock())
+
+    def _export_rung(self) -> None:
+        now = self.clock()
+        for i, rung in enumerate(self.rungs):
+            if self._state[rung].demoted_until <= now:
+                metrics.degradation_rung().set(i)
+                return
 
     # ---- warm restart ----------------------------------------------------
     def snapshot_state(self) -> Dict:

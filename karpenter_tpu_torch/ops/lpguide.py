@@ -20,7 +20,9 @@ Device placement: `solve_guided(device=...)` runs the remainder and greedy-
 compare solves on that device and hands it to the PDHG master as
 `lp_device`; `exact_lp_mix(device=True)` keeps the reference's meaning
 ("use the device master") and takes the torch device as `lp_device`.  The
-reference's metric and span calls are left out.
+guide path (warm / device / stale / cold) is counted and annotated on the
+active span, and the refinery's job runs its `refinery.lp` and
+`refinery.price` spans, as in the reference.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils import metrics, tracing
 from .tensorize import Problem
 
 _BIG = np.int32(2**30)
@@ -134,7 +137,9 @@ _DEVICE_CERT_TOL = 1e-3
 
 
 def _report_device_failure(lp_health, reason: str) -> None:
-    """One device-master failure: feed the DeviceLP ladder."""
+    """One device-master failure: count the fallback and feed the
+    DeviceLP ladder."""
+    metrics.lp_solves().inc({"outcome": "demoted"})
     if lp_health is not None:
         lp_health.report_failure("device_lp", reason)
 
@@ -567,15 +572,18 @@ def _refine_job(problem: Problem, caps: np.ndarray, max_nodes: int, key,
     hint when the refined mix is a real saving.  Background refines use
     the device solver too when the DeviceLP rung is healthy — the same
     ladder the in-tick path consults."""
-    hit = _compute_mix(problem, caps, stale_key, shape_key, clock=clock,
-                       device=device, lp_health=lp_health,
-                       lp_device=lp_device)
+    with tracing.span("refinery.lp"):
+        hit = _compute_mix(problem, caps, stale_key, shape_key, clock=clock,
+                           device=device, lp_health=lp_health,
+                           lp_device=lp_device)
     if hit is None:
         return None
-    _cache_put(_MIX_CACHE, _MIX_CACHE_MAX, key, hit)
-    from .classpack import solve_classpack
-    greedy = solve_classpack(problem, max_nodes=max_nodes, decode=False,
-                             guide=None, device=lp_device)
+    with tracing.span("refinery.price") as sp:
+        _cache_put(_MIX_CACHE, _MIX_CACHE_MAX, key, hit)
+        from .classpack import solve_classpack
+        greedy = solve_classpack(problem, max_nodes=max_nodes, decode=False,
+                                 guide=None, device=lp_device)
+        sp.annotate(z_lp=hit[3], greedy_total=float(greedy.total_price))
     return {"z_lp": hit[3], "greedy_total": float(greedy.total_price)}
 
 
@@ -645,6 +653,7 @@ def solve_guided(problem: Problem, max_alternatives: int = 60,
         key, stale_key, shape_key = (b"d" + key, b"d" + stale_key,
                                      b"d" + shape_key)
     hit = _MIX_CACHE.get(key)
+    path = "warm"
     if hit is None:
         device_ok = device_lp and (lp_health is None or
                                    lp_health.active_rung("device_lp") ==
@@ -660,6 +669,7 @@ def solve_guided(problem: Problem, max_alternatives: int = 60,
                                lp_health=lp_health, lp_device=device)
             if hit is not None:
                 _cache_put(_MIX_CACHE, _MIX_CACHE_MAX, key, hit)
+                path = "device"
     if hit is None:
         if refinery is not None:
             # never block the tick on column generation: serve the
@@ -671,12 +681,18 @@ def solve_guided(problem: Problem, max_alternatives: int = 60,
                 refinery.clock, device=device_lp, lp_health=lp_health,
                 lp_device=device))
             if hit is None:
+                metrics.lpguide_requests().inc({"path": "cold"})
+                tracing.annotate(guide_path="cold")
                 return None
+            path = "stale"
         else:
+            path = "cold"
             hit = _compute_mix(problem, caps, stale_key, shape_key)
             if hit is None:
                 return None
             _cache_put(_MIX_CACHE, _MIX_CACHE_MAX, key, hit)
+    metrics.lpguide_requests().inc({"path": path})
+    tracing.annotate(guide_path=path)
     x, n_g, group_of, z_lp, ok, rejected = hit
     if rejected:
         return None

@@ -47,6 +47,7 @@ import torch
 from .classpack import resolve_device
 from .lpsolve_kernels import pdhg
 from .tensorize import pad_to
+from ..utils import metrics, tracing
 
 # Dim buckets for LP operands (the reference's); past the last bucket
 # pad_to falls back to the next power of two.
@@ -262,11 +263,20 @@ def solve_lp_batch(instances: Sequence[LPInstance],
         return []
     dev = resolve_device(device)
     bt = pad_batch(instances, buckets)
-    ops = [torch.from_numpy(a).to(dev) for a in bt.operands()]
-    out = _pdhg_kernel(*ops, eps, iters_cap=int(iters_cap),
-                       check_every=int(check_every))
-    xs, ys, ls, done, iters, restarts, pres, dres, gap = \
-        [o.cpu().numpy() for o in out]
+    B, meb, nb = bt.A.shape
+    kw = dict(batch=B, shape=f"{nb}x{meb}x{bt.G.shape[1]}")
+    sp = tracing.span("lp.batch", **kw) if B > 1 else \
+        tracing.span("lp.solve", **kw)
+    # the upload, the launch and the blocking copies back: the span closes
+    # once the card's work has landed on the host
+    with sp:
+        ops = [torch.from_numpy(a).to(dev) for a in bt.operands()]
+        out = _pdhg_kernel(*ops, eps, iters_cap=int(iters_cap),
+                           check_every=int(check_every))
+        xs, ys, ls, done, iters, restarts, pres, dres, gap = \
+            [o.cpu().numpy() for o in out]
+
+    metrics.lp_batch_size().observe(B)
 
     sols: List[LPSolution] = []
     for i, inst in enumerate(instances):
@@ -275,16 +285,22 @@ def solve_lp_batch(instances: Sequence[LPInstance],
         y = ys[i, :me].astype(np.float64) / bt.se[i, :me]
         lam = ls[i, :mi].astype(np.float64) / bt.si[i, :mi]
         ok = bool(done[i])
+        status = STATUS_CONVERGED if ok else STATUS_CAP
         sol = LPSolution(
             x=x, y=y, lam=lam,
             obj=float(np.asarray(inst.c, np.float64) @ x),
-            status=STATUS_CONVERGED if ok else STATUS_CAP,
-            iterations=int(iters[i]), restarts=int(restarts[i]),
-            primal_res=float(pres[i]), dual_res=float(dres[i]),
-            gap=float(gap[i]))
+            status=status, iterations=int(iters[i]),
+            restarts=int(restarts[i]), primal_res=float(pres[i]),
+            dual_res=float(dres[i]), gap=float(gap[i]))
+        metrics.lp_solves().inc({"outcome": status})
+        metrics.lp_iterations().observe(sol.iterations)
+        metrics.lp_restarts().observe(sol.restarts)
         if ok:
             _warm_put(inst.warm_key, bt.dims[i], x, y, lam)
         sols.append(sol)
+    metrics.lp_residuals().set(float(pres.max()), {"kind": "primal"})
+    metrics.lp_residuals().set(float(dres.max()), {"kind": "dual"})
+    metrics.lp_residuals().set(float(gap.max()), {"kind": "gap"})
     return sols
 
 

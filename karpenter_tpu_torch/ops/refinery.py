@@ -12,9 +12,10 @@ alternative; when the refined mix beats it by more than
 
 Every failure mode — worker crash, queue overflow, job exception — leaves
 the provisioning path where it would be with no refinery at all: greedy
-solves that still bind every pod.  Exceptions are logged and swallowed.
-The reference's metric and span calls and its lock-order recorder are left
-out.
+solves that still bind every pod.  Exceptions are logged and swallowed,
+and counted in karpenter_refinery_errors_total.  A job runs under a
+`refinery.refine` span parented to the submitting solve's span.  The
+reference's lock-order recorder is left out.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import queue
 import threading
 import time
 from typing import Callable, Optional
+
+from ..utils import metrics, tracing
 
 log = logging.getLogger("karpenter_tpu_torch.refinery")
 
@@ -82,24 +85,34 @@ class GuideRefinery:
             if key in self._inflight:
                 return False
             self._inflight.add(key)
+        ctx = tracing.TRACER.capture()
         try:
-            self._q.put_nowait((key, job))
+            self._q.put_nowait((key, job, ctx))
         except queue.Full:
             with self._lock:
                 self._inflight.discard(key)
+            metrics.refinery_errors().inc({"reason": "queue_full"})
             return False
+        metrics.refinery_queue_depth().set(len(self._inflight))
         return True
 
     def _work(self) -> None:
         while not self._stop.is_set():
             try:
-                key, job = self._q.get(timeout=0.2)
+                key, job, ctx = self._q.get(timeout=0.2)
             except queue.Empty:
                 continue
+            t0 = time.perf_counter()
             res = None
             try:
-                res = job()
+                with tracing.TRACER.attach(ctx), \
+                        tracing.span("refinery.refine") as sp:
+                    res = job()
+                    if res:
+                        sp.annotate(z_lp=res.get("z_lp"),
+                                    greedy_total=res.get("greedy_total"))
             except Exception:
+                metrics.refinery_errors().inc({"reason": "exception"})
                 log.exception("refine job failed; tick stays on greedy")
             finally:
                 # the upgrade is raised before the job leaves the in-flight
@@ -107,9 +120,14 @@ class GuideRefinery:
                 if res and res.get("greedy_total", 0.0) > 0:
                     saving = 1.0 - res["z_lp"] / res["greedy_total"]
                     if saving > self.upgrade_threshold:
+                        metrics.refinery_cost_delta().inc(
+                            by=res["greedy_total"] - res["z_lp"])
                         self._upgrade.set()
                 with self._lock:
                     self._inflight.discard(key)
+                metrics.refinery_queue_depth().set(len(self._inflight))
+                metrics.refinery_refine_duration().observe(
+                    time.perf_counter() - t0)
                 self._q.task_done()
 
     def take_upgrade(self) -> bool:

@@ -26,14 +26,17 @@ Flow per solve:
 
 Parity: on shardable inputs (no residual, slot budgets not binding) the
 decoded plan is identical to the single-device `solve_classpack`
-(guide=None) plan, as in the reference.  The reference's metrics and spans
-are left out.  A fault of the card or a kernel (`DEVICE_FAULTS`) is never
+(guide=None) plan, as in the reference.  The solve runs under the
+reference's `shard.*` spans (`shard.kernel` and the aggregate `shard.solve`
+close after the blocking copies back) and feeds its shard and decode
+families.  A fault of the card or a kernel (`DEVICE_FAULTS`) is never
 turned into "fall back to the single device": it is raised.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -43,6 +46,7 @@ from ..ops import decode as decode_mod
 from ..ops.classpack import DEVICE_FAULTS, _upload, solve_classpack
 from ..ops.lpguide import _subproblem
 from ..ops.tensorize import Problem, pad_to
+from ..utils import metrics, tracing
 from .partition import (MAX_RESIDUAL_FRAC_DEFAULT, MIN_PODS_DEFAULT,
                         PartitionPlan, plan_partition)
 from .sharded import (Mesh, _assemble_plan, _assign_program, _pack_program,
@@ -147,15 +151,26 @@ def solve_partitioned(problem: Problem, mesh: Optional[Mesh] = None,
         ec = (existing_compat if existing_compat is not None
               else np.ones((C, E), bool))
 
+    t0 = time.perf_counter()
     if plan is None:
-        plan = plan_partition(problem, n, existing_compat=ec,
-                              existing_zone=existing_zone,
-                              max_residual_frac=max_residual_frac,
-                              min_pods=min_pods)
+        with tracing.span("shard.partition") as sp:
+            plan = plan_partition(problem, n, existing_compat=ec,
+                                  existing_zone=existing_zone,
+                                  max_residual_frac=max_residual_frac,
+                                  min_pods=min_pods)
+            sp.annotate(planned=plan is not None)
     if plan is None:
         return None
+    metrics.shard_count().set(n)
+    metrics.shard_imbalance().set(plan.imbalance)
+    metrics.shard_residual_pods().set(plan.residual_pods)
+    metrics.shard_residual_ratio().set(
+        plan.residual_pods / plan.total_pods if plan.total_pods else 0.0)
+    metrics.shard_solve_duration().observe(time.perf_counter() - t0,
+                                           {"phase": "partition"})
 
     # ---- compacted lowering: per-shard class axis in global FFD order ----
+    t1 = time.perf_counter()
     order = problem.class_order()
     R = len(problem.axes)
     O = problem.num_options
@@ -210,46 +225,73 @@ def solve_partitioned(problem: Problem, mesh: Optional[Mesh] = None,
     if not decode:
         assert E == 0, "existing columns require decode=True (the "\
             "aggregate reduction cannot attribute fills to owners)"
-        cost, nodes_per_col, unsched = _partitioned_pack(
-            *(_upload(a, dev) for a in (requests_sh, counts_sh, compat_sh,
-                                        node_cap_sh, alloc, price, rank)),
-            K, mesh)
-        cost = float(cost.cpu())
-        nodes_per_option = nodes_per_col.cpu().numpy()[:O].astype(np.int64)
-        unsched = int(unsched.cpu())
-        if len(plan.residual_classes):
-            sub = _subproblem(
-                problem, plan.residual_classes,
-                problem.class_counts[plan.residual_classes].astype(np.int64),
-                np.zeros(C, np.int64))
-            r = solve_classpack(sub, max_nodes=max_nodes_per_shard,
-                                decode=False, guide=None, device=dev)
-            cost += r.total_price
-            oi = {id(o): j for j, o in enumerate(problem.options)}
-            for nd in r.nodes:
-                nodes_per_option[oi[id(nd.option)]] += 1
-            unsched += len(r.unschedulable)
+        # the launches and the blocking copies back, as the reference's
+        # span covers its dispatch and device_get
+        with tracing.span("shard.solve") as sp:
+            sp.annotate(shards=n, classes_per_shard=Cs, slots=K)
+            cost, nodes_per_col, unsched = _partitioned_pack(
+                *(_upload(a, dev) for a in (requests_sh, counts_sh,
+                                            compat_sh, node_cap_sh, alloc,
+                                            price, rank)),
+                K, mesh)
+            cost = float(cost.cpu())
+            nodes_per_option = \
+                nodes_per_col.cpu().numpy()[:O].astype(np.int64)
+            unsched = int(unsched.cpu())
+        metrics.shard_solve_duration().observe(time.perf_counter() - t1,
+                                               {"phase": "solve"})
+        t2 = time.perf_counter()
+        with tracing.span("shard.reconcile") as sp:
+            sp.annotate(residual_pods=plan.residual_pods)
+            if len(plan.residual_classes):
+                sub = _subproblem(
+                    problem, plan.residual_classes,
+                    problem.class_counts[plan.residual_classes].astype(
+                        np.int64),
+                    np.zeros(C, np.int64))
+                r = solve_classpack(sub, max_nodes=max_nodes_per_shard,
+                                    decode=False, guide=None, device=dev)
+                cost += r.total_price
+                oi = {id(o): j for j, o in enumerate(problem.options)}
+                for nd in r.nodes:
+                    nodes_per_option[oi[id(nd.option)]] += 1
+                unsched += len(r.unschedulable)
+        metrics.shard_solve_duration().observe(time.perf_counter() - t2,
+                                               {"phase": "reconcile"})
         return cost, nodes_per_option, unsched
 
     # ---- decode path ----
     use_slab = bool(device_decode)
     if use_slab and decode_health is not None and not decode_health.allow():
         use_slab = False
+        metrics.decode_solves().inc({"path": "driver",
+                                     "outcome": "suppressed"})
     compat_packed = np.packbits(compat_sh, axis=2)
     P_shard = int(counts_sh.sum(axis=(1,)).max()) if n else 0
     Ppad = pad_to(max(P_shard, 1))
     assign_fn = (_partitioned_assign_slab_donate if use_slab
                  else _partitioned_assign_donate)
-    staged = tuple(_upload(a, dev) for a in (
-        requests_sh, counts_sh, compat_packed, node_cap_sh, alloc, price,
-        rank, init_opt, init_used))
-    out = assign_fn(*staged, K, Ppad, mesh)
-    if use_slab:
-        order_sh, slot_counts_sh, slot_option, _uns = (t.cpu().numpy()
-                                                       for t in out)
-        assignment = None
-    else:
-        assignment, slot_option, _unsched = (t.cpu().numpy() for t in out)
+    with tracing.span("shard.solve") as sp:
+        sp.annotate(shards=n, classes_per_shard=Cs, slots=K, pods=Ppad,
+                    device_decode=use_slab)
+        with tracing.span("shard.tensorize"):
+            staged = tuple(_upload(a, dev) for a in (
+                requests_sh, counts_sh, compat_packed, node_cap_sh, alloc,
+                price, rank, init_opt, init_used))
+        # the launches and the blocking copies back: the span closes once
+        # the card's work has landed on the host
+        with tracing.span("shard.kernel"):
+            tk = time.perf_counter()
+            out = assign_fn(*staged, K, Ppad, mesh)
+            if use_slab:
+                order_sh, slot_counts_sh, slot_option, _uns = \
+                    (t.cpu().numpy() for t in out)
+                assignment = None
+                metrics.decode_duration().observe(
+                    time.perf_counter() - tk, {"phase": "kernel"})
+            else:
+                assignment, slot_option, _unsched = \
+                    (t.cpu().numpy() for t in out)
 
     # host decode: per-shard pod ids from whole-class membership (a class
     # lives entirely on its shard), then the shared assembly
@@ -260,12 +302,74 @@ def solve_partitioned(problem: Problem, mesh: Optional[Mesh] = None,
         # shard's rows are already slot-sorted and shard s's global slots
         # [s*K, (s+1)*K) precede shard s+1's, so the concatenation IS the
         # global stable sort _assemble_plan would have computed
-        order_sh = order_sh.reshape(n, Ppad).astype(np.int64)
-        slot_counts_sh = slot_counts_sh.reshape(n, K).astype(np.int64)
-        slot_option = slot_option.reshape(n, K)
-        members_arr = problem.members_arrays()
-        try:
-            pods_p, cls_p, slots_p, run_p, uns_p = [], [], [], [], []
+        with tracing.span("shard.assemble"):
+            ta = time.perf_counter()
+            order_sh = order_sh.reshape(n, Ppad).astype(np.int64)
+            slot_counts_sh = slot_counts_sh.reshape(n, K).astype(np.int64)
+            slot_option = slot_option.reshape(n, K)
+            members_arr = problem.members_arrays()
+            try:
+                pods_p, cls_p, slots_p, run_p, uns_p = [], [], [], [], []
+                for s in range(n):
+                    P_s = int(counts_sh[s].sum())
+                    if P_s == 0:
+                        continue
+                    chunks, cls_ids = [], []
+                    for pos, ci in enumerate(shard_cls[s]):
+                        k = int(counts_sh[s, pos])
+                        if k == 0:
+                            continue
+                        chunks.append(members_arr[ci][:k])
+                        cls_ids.append(np.full(k, ci, np.int64))
+                    pod_s = np.concatenate(chunks)
+                    cls_s = np.concatenate(cls_ids)
+                    ord_s, cnt_s = order_sh[s], slot_counts_sh[s]
+                    S_s = int(cnt_s.sum())
+                    take = ord_s[:S_s]
+                    pods_p.append(pod_s[take])
+                    cls_p.append(cls_s[take])
+                    # stable key-K sort keeps real unscheduled rows (< P_s)
+                    # ahead of padding, in row order
+                    uns_p.append(pod_s[ord_s[S_s:P_s]])
+                    occ = np.nonzero(cnt_s)[0]
+                    slots_p.append(occ + s * K)
+                    run_p.append(cnt_s[occ])
+
+                def cat(parts):
+                    return (np.concatenate(parts) if parts
+                            else np.zeros(0, np.int64))
+                result, used_add = decode_mod.assemble_slab_sharded(
+                    problem, cat(pods_p), cat(cls_p), cat(slots_p),
+                    cat(run_p), cat(uns_p), slot_option, O, K)
+                metrics.decode_duration().observe(
+                    time.perf_counter() - ta, {"phase": "assemble"})
+                metrics.decode_solves().inc({"path": "driver",
+                                             "outcome": "device"})
+                if decode_health is not None:
+                    decode_health.report_success()
+            except DEVICE_FAULTS:
+                raise
+            except Exception:
+                log.exception("sharded slab assembly failed; falling back "
+                              "to host assembly")
+                metrics.decode_solves().inc({"path": "driver",
+                                             "outcome": "fallback"})
+                if decode_health is not None:
+                    decode_health.report_failure("error")
+                # the mesh output is still good: rebuild the per-row
+                # assignment from the slab, no second launch
+                assignment = np.stack([
+                    decode_mod.slab_to_assignment(
+                        order_sh[s], slot_counts_sh[s], Ppad, K)
+                    for s in range(n)])
+                result = None
+    if result is None:
+        with tracing.span("shard.assemble"):
+            assignment = np.asarray(assignment).reshape(
+                n, Ppad).astype(np.int32)
+            slot_option = np.asarray(slot_option).reshape(n, K)
+            members_arr = problem.members_arrays()
+            pod_parts, cls_parts, slot_parts = [], [], []
             for s in range(n):
                 P_s = int(counts_sh[s].sum())
                 if P_s == 0:
@@ -278,98 +382,52 @@ def solve_partitioned(problem: Problem, mesh: Optional[Mesh] = None,
                     chunks.append(members_arr[ci][:k])
                     cls_ids.append(np.full(k, ci, np.int64))
                 pod_s = np.concatenate(chunks)
-                cls_s = np.concatenate(cls_ids)
-                ord_s, cnt_s = order_sh[s], slot_counts_sh[s]
-                S_s = int(cnt_s.sum())
-                take = ord_s[:S_s]
-                pods_p.append(pod_s[take])
-                cls_p.append(cls_s[take])
-                # stable key-K sort keeps real unscheduled rows (< P_s)
-                # ahead of padding, in row order
-                uns_p.append(pod_s[ord_s[S_s:P_s]])
-                occ = np.nonzero(cnt_s)[0]
-                slots_p.append(occ + s * K)
-                run_p.append(cnt_s[occ])
-
-            def cat(parts):
-                return (np.concatenate(parts) if parts
-                        else np.zeros(0, np.int64))
-            result, used_add = decode_mod.assemble_slab_sharded(
-                problem, cat(pods_p), cat(cls_p), cat(slots_p),
-                cat(run_p), cat(uns_p), slot_option, O, K)
-            if decode_health is not None:
-                decode_health.report_success()
-        except DEVICE_FAULTS:
-            raise
-        except Exception:
-            log.exception("sharded slab assembly failed; falling back "
-                          "to host assembly")
-            if decode_health is not None:
-                decode_health.report_failure("error")
-            # the mesh output is still good: rebuild the per-row
-            # assignment from the slab, no second launch
-            assignment = np.stack([
-                decode_mod.slab_to_assignment(
-                    order_sh[s], slot_counts_sh[s], Ppad, K)
-                for s in range(n)])
-            result = None
-    if result is None:
-        assignment = np.asarray(assignment).reshape(
-            n, Ppad).astype(np.int32)
-        slot_option = np.asarray(slot_option).reshape(n, K)
-        members_arr = problem.members_arrays()
-        pod_parts, cls_parts, slot_parts = [], [], []
-        for s in range(n):
-            P_s = int(counts_sh[s].sum())
-            if P_s == 0:
-                continue
-            chunks, cls_ids = [], []
-            for pos, ci in enumerate(shard_cls[s]):
-                k = int(counts_sh[s, pos])
-                if k == 0:
-                    continue
-                chunks.append(members_arr[ci][:k])
-                cls_ids.append(np.full(k, ci, np.int64))
-            pod_s = np.concatenate(chunks)
-            a_s = assignment[s, :P_s]
-            slot_parts.append(
-                np.where(a_s >= 0, a_s.astype(np.int64) + s * K, -1))
-            pod_parts.append(pod_s)
-            cls_parts.append(np.concatenate(cls_ids))
-        if pod_parts:
-            result, used_add = _assemble_plan(
-                problem, np.concatenate(pod_parts),
-                np.concatenate(cls_parts),
-                np.concatenate(slot_parts), slot_option, O, K)
-        else:
-            result, used_add = PackingResult(
-                nodes=[], unschedulable=[], existing_assignments={},
-                total_price=0.0), {}
+                a_s = assignment[s, :P_s]
+                slot_parts.append(
+                    np.where(a_s >= 0, a_s.astype(np.int64) + s * K, -1))
+                pod_parts.append(pod_s)
+                cls_parts.append(np.concatenate(cls_ids))
+            if pod_parts:
+                result, used_add = _assemble_plan(
+                    problem, np.concatenate(pod_parts),
+                    np.concatenate(cls_parts),
+                    np.concatenate(slot_parts), slot_option, O, K)
+            else:
+                result, used_add = PackingResult(
+                    nodes=[], unschedulable=[], existing_assignments={},
+                    total_price=0.0), {}
+    metrics.shard_solve_duration().observe(time.perf_counter() - t1,
+                                           {"phase": "solve"})
 
     # ---- reconciliation of the straddling residual, on the same device ----
-    if len(plan.residual_classes):
-        sub = _subproblem(
-            problem, plan.residual_classes,
-            problem.class_counts[plan.residual_classes].astype(np.int64),
-            np.zeros(C, np.int64))
-        if E:
-            # true leftovers: the mesh pass's fills are charged against
-            # each node's free space before the residual sees it
-            used2 = decode_mod.merge_residual_used(
-                existing_used, used_add, E, R)
-            r = solve_classpack(sub, max_nodes=max_nodes_per_shard,
-                                existing_alloc=existing_alloc,
-                                existing_used=used2,
-                                existing_compat=ec[plan.residual_classes],
-                                guide=None, device=dev)
-        else:
-            r = solve_classpack(sub, max_nodes=max_nodes_per_shard,
-                                guide=None, device=dev)
-        result.nodes.extend(r.nodes)
-        result.existing_assignments.update(r.existing_assignments)
-        result.unschedulable = sorted(
-            set(result.unschedulable) | set(r.unschedulable))
-        result.total_price += r.total_price
+    t2 = time.perf_counter()
+    with tracing.span("shard.reconcile") as sp:
+        sp.annotate(residual_pods=plan.residual_pods)
+        if len(plan.residual_classes):
+            sub = _subproblem(
+                problem, plan.residual_classes,
+                problem.class_counts[plan.residual_classes].astype(np.int64),
+                np.zeros(C, np.int64))
+            if E:
+                # true leftovers: the mesh pass's fills are charged against
+                # each node's free space before the residual sees it
+                used2 = decode_mod.merge_residual_used(
+                    existing_used, used_add, E, R)
+                r = solve_classpack(sub, max_nodes=max_nodes_per_shard,
+                                    existing_alloc=existing_alloc,
+                                    existing_used=used2,
+                                    existing_compat=ec[plan.residual_classes],
+                                    guide=None, device=dev)
+            else:
+                r = solve_classpack(sub, max_nodes=max_nodes_per_shard,
+                                    guide=None, device=dev)
+            result.nodes.extend(r.nodes)
+            result.existing_assignments.update(r.existing_assignments)
+            result.unschedulable = sorted(
+                set(result.unschedulable) | set(r.unschedulable))
+            result.total_price += r.total_price
+    metrics.shard_solve_duration().observe(time.perf_counter() - t2,
+                                           {"phase": "reconcile"})
     return result
 
 
@@ -392,13 +450,12 @@ def maybe_solve_partitioned(problem: Problem, *, path: str,
     `jax.devices()`).  A fault of the card or a kernel (`DEVICE_FAULTS`)
     is raised; any other failure of the partitioned solve is logged and
     answered by the single-device path, as in the reference.  `path`
-    names the caller, whose outcome metric the reference books (left out
-    here)."""
-    del path
+    names the caller in the outcome metric."""
     total = int(problem.class_counts.sum())
     if mesh is None:
         mesh = make_pod_mesh(device=device)
     if total < MIN_PODS_DEFAULT or mesh.size < 2:
+        metrics.shard_solves().inc({"path": path, "outcome": "skipped"})
         return None
     existing_zone = None
     if node_list:
@@ -407,17 +464,22 @@ def maybe_solve_partitioned(problem: Problem, *, path: str,
             [zid.get(getattr(nd, "zone", None), -1) for nd in node_list],
             np.int64)
     try:
-        return solve_partitioned(problem, mesh=mesh,
-                                 max_nodes_per_shard=max_nodes, decode=True,
-                                 existing_alloc=existing_alloc,
-                                 existing_used=existing_used,
-                                 existing_compat=existing_compat,
-                                 existing_zone=existing_zone,
-                                 device_decode=device_decode,
-                                 decode_health=decode_health)
+        res = solve_partitioned(problem, mesh=mesh,
+                                max_nodes_per_shard=max_nodes, decode=True,
+                                existing_alloc=existing_alloc,
+                                existing_used=existing_used,
+                                existing_compat=existing_compat,
+                                existing_zone=existing_zone,
+                                device_decode=device_decode,
+                                decode_health=decode_health)
     except DEVICE_FAULTS:
         raise
     except Exception:
         log.exception("partitioned solve failed; falling back to the "
                       "single-device path")
+        metrics.shard_solves().inc({"path": path, "outcome": "error"})
         return None
+    metrics.shard_solves().inc(
+        {"path": path,
+         "outcome": "sharded" if res is not None else "fallback"})
+    return res

@@ -187,6 +187,9 @@ class ImageProvider:
             self._cache.set(key, out)
         return list(out)
 
+    def reset_cache(self):
+        self._cache.flush()
+
     def _resolve(self, nodeclass: NodeClass, archs: Sequence[str]
                  ) -> List[ImageInfo]:
         if nodeclass.image_selector:

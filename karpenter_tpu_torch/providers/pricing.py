@@ -1,9 +1,9 @@
 """Pricing provider: on-demand + spot price store with static fallback and a
 12h refresh controller.
 
-A copy of the JAX package's `providers/pricing.py`, less its price-estimate
-gauge (the metric families are ROADMAP.md queue B) and its liveness check
-(which nothing calls).  It re-implements
+A copy of the JAX package's `providers/pricing.py`, less its liveness
+check (which nothing calls).  Each refresh sets the price-estimate gauge.
+It re-implements
 karpenter:pkg/providers/pricing/pricing.go:
   * `on_demand_price` / `spot_price` lookups (:118-143);
   * `update_on_demand_pricing` from the price-list API (:145) and
@@ -25,6 +25,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 from ..catalog.instancetype import InstanceType
 from ..cloud.fake import CloudError
+from ..utils import metrics
 from ..utils.events import ChangeMonitor
 
 log = logging.getLogger("karpenter_tpu_torch.pricing")
@@ -99,6 +100,10 @@ class PricingProvider:
             self._od_seq += 1
         if self._monitor.has_changed("od-prices", tuple(sorted(prices.items()))):
             log.info("refreshed %d on-demand prices", len(prices))
+        gauge = metrics.instance_price_estimate()
+        for itype, price in prices.items():
+            gauge.set(price, {"instance_type": itype, "capacity_type": "on-demand",
+                              "zone": ""})
         return True
 
     def update_spot_pricing(self) -> bool:
@@ -114,6 +119,10 @@ class PricingProvider:
         with self._lock:
             self._spot.update(history)
             self._spot_seq += 1
+        gauge = metrics.instance_price_estimate()
+        for (itype, zone), price in history.items():
+            gauge.set(price, {"instance_type": itype, "capacity_type": "spot",
+                              "zone": zone})
         return True
 
 

@@ -32,3 +32,6 @@ class SecurityGroupProvider:
                                       obj_name=g.name)]
         self._cache.set(key, groups)
         return list(groups)
+
+    def reset_cache(self):
+        self._cache.flush()

@@ -83,3 +83,8 @@ class SubnetProvider:
     def inflight(self, subnet_id: str) -> int:
         with self._lock:
             return self._inflight.get(subnet_id, 0)
+
+    def reset_cache(self):
+        self._cache.flush()
+        with self._lock:
+            self._inflight.clear()

@@ -42,8 +42,8 @@ lease lives in a temporary directory the harness owns; `warm_restart`
 overrides the WarmRestart gate (no snapshot path: the gate alone changes
 nothing in a run, as in the reference).
 
-Left out, with the ROADMAP.md queue B item that ports them: FlightRecorder,
-SLOEngine with the cost ledger, and the sim's metric calls (B9).  Setting
+Left out, with the ROADMAP.md queue B item that ports them: FlightRecorder
+and SLOEngine with the cost ledger (B9b).  Setting
 one of those overrides to True raises NotImplementedError naming its item.
 """
 
@@ -67,6 +67,7 @@ from ..operator.manager import ControllerManager
 from ..operator.operator import Operator, build_controllers
 from ..operator.options import Options
 from ..ops.classpack import DEVICE_FAULTS
+from ..utils import metrics
 from ..utils.chaos import CHAOS, ChaosRule
 from . import events as ev
 from .clock import EventHeap, VirtualClock
@@ -369,6 +370,7 @@ class SimHarness:
     def _deliver(self, at: float, event) -> None:
         self._events_by_kind[event.kind] = \
             self._events_by_kind.get(event.kind, 0) + 1
+        metrics.sim_events_delivered().inc({"kind": event.kind})
         self._log(at, event.to_log())
         if isinstance(event, ev.PodArrival):
             now = self.clock.now()
@@ -468,6 +470,7 @@ class SimHarness:
     def _on_cloud_delivery(self, rec: Dict) -> None:
         if rec["action"] == "spot_warning":
             self._warnings += 1
+            metrics.sim_reclaim_warnings().inc()
             self._log(rec["at"], {"kind": "spot_warning",
                                   "instance": rec["instance"]})
         else:
@@ -476,6 +479,8 @@ class SimHarness:
                 self._reclaims_honored += 1
             else:
                 self._reclaims_forced += 1
+            metrics.sim_reclaims().inc(
+                {"honored": "true" if honored else "false"})
             self._log(rec["at"], {"kind": "spot_reclaim_fired",
                                   "instance": rec["instance"],
                                   "honored": honored})
@@ -637,6 +642,12 @@ class SimHarness:
             self.clock.advance_to(target)
         wall = time.perf_counter() - wall0
         virtual = self.clock.now() - sc.start_s
+        speedup = virtual / wall if wall > 0 else float("inf")
+        metrics.sim_virtual_time_speedup().set(speedup)
+        total_reclaims = self._reclaims_honored + self._reclaims_forced
+        if total_reclaims:
+            metrics.sim_reclaim_honor_rate().set(
+                self._reclaims_honored / total_reclaims)
         from .report import build_report
         return SimRun(report=build_report(self), log=self.log_entries,
                       virtual_seconds=virtual, wall_seconds=wall,

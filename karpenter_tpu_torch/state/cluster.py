@@ -21,8 +21,8 @@ wired by the Forecast gate): the mutators call its `pod_added`,
 `pod_removed` and `pod_bound` where the reference's do.
 
 `snapshot_state` / `restore_state` are the object-graph half of the
-warm-restart snapshot (state/snapshot.py).  Left out until its slice lands
-(ROADMAP.md queue B): the metric families the mutators feed (B9).
+warm-restart snapshot (state/snapshot.py).  The mutators feed the
+reference's metric families (utils/metrics.py) where its mutators do.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from ..api.resources import DEFAULT_AXES, DEFAULT_SCALES, PODS, ResourceList
 from ..api.taints import tolerates_all
 from ..ops.constraints import pod_is_soft
 from ..ops.tensorize import _class_key
+from ..utils import metrics
 
 _names = itertools.count(1)
 
@@ -145,6 +146,20 @@ class Cluster:
         node = self.nodes[node_name]
         node.pods.append(pod)
         node.nominated_until = 0.0  # nomination fulfilled
+        if not rebind:
+            # first bind only: arrival → placement latency
+            # (karpenter_pods_bound_duration_seconds)
+            metrics.pods_bound_duration().observe(
+                max(0.0, self.clock() - pod.created_at))
+            # pod "startup": running on a READY node.  Bound to an
+            # already-initialized node -> now; else the lifecycle
+            # controller observes it when initialization completes.  Once
+            # per pod lifetime (the flag survives requeue).
+            if (node.labels.get(wk.NODE_INITIALIZED) == "true"
+                    and not pod.__dict__.get("_startup_observed")):
+                pod.__dict__["_startup_observed"] = True
+                metrics.pods_startup_time().observe(
+                    max(0.0, self.clock() - pod.created_at))
         if not rebind and self.observer is not None:
             self.observer.pod_bound(pod)   # first bind only
         self.mutation_epoch += 1
@@ -182,6 +197,7 @@ class Cluster:
     def remove_node(self, name: str) -> Optional[Node]:
         node = self.nodes.pop(name, None)
         if node:
+            metrics.nodes_terminated().inc({"nodepool": node.nodepool or ""})
             for p in node.pods:
                 p.node_name = ""
                 # evicted pods with owners get recreated as pending; ownerless
@@ -211,13 +227,27 @@ class Cluster:
         """NodeClaim → Node on (simulated) kubelet join.  The sync
         provisioning path registers+initializes in one step; an async
         lifecycle passes initialized=False.  ``rehydrate`` marks restart
-        recovery, which in the reference keeps the latency histograms clean
-        (the port records no metrics yet, so it changes nothing here)."""
+        recovery: rebuilding state for an already-registered node is not a
+        registration event, so the latency histograms stay clean."""
         claim.registered = True
         claim.registered_at = claim.registered_at or self.clock()
         claim.initialized = initialized
         if initialized and not claim.initialized_at:
             claim.initialized_at = self.clock()
+        if not rehydrate:
+            # registration/initialization latency families — the sync path
+            # records its true (instant) joins, the async lifecycle path its
+            # real delays (reference karpenter_nodeclaims_* durations)
+            if claim.launched_at:
+                metrics.nodeclaim_registration_duration().observe(
+                    max(0.0, claim.registered_at - claim.launched_at))
+            if initialized:
+                metrics.nodeclaim_initialization_duration().observe(
+                    max(0.0, claim.initialized_at - claim.registered_at))
+                metrics.nodeclaims_initialized().inc(
+                    {"nodepool": claim.nodepool})
+            metrics.nodeclaims_registered().inc({"nodepool": claim.nodepool})
+            metrics.nodes_created().inc({"nodepool": claim.nodepool})
         self.nodeclaims[claim.name] = claim
         node = Node(
             name=f"node-{next(_names):06d}",

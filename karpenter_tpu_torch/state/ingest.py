@@ -32,14 +32,16 @@ dropped: the rebuild is the always-correct path.
 
 `snapshot_state` flushes the window and hands on the arena's export;
 `restore_state` drops the window and restores the arena (the warm-restart
-snapshot, state/snapshot.py).  Left out: the reference's metric families
-(ROADMAP.md queue B; the counters `events_total`, `flushes_total` and
-`overflows_total` stay on the object).
+snapshot, state/snapshot.py).  The reference's ingest families count the
+events, flushes and overflows, beside `events_total`, `flushes_total` and
+`overflows_total` on the object.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List
+
+from ..utils import metrics
 
 
 class IngestBatcher:
@@ -62,13 +64,17 @@ class IngestBatcher:
     def pending(self) -> int:
         return len(self._touched) + len(self._removed) + len(self._used)
 
-    def _event(self) -> None:
+    def _event(self, kind: str) -> None:
         self.events_total += 1
-        if self.pending > self.max_events:
+        metrics.ingest_events().inc({"kind": kind})
+        pending = self.pending
+        metrics.ingest_pending().set(pending)
+        if pending > self.max_events:
             self._overflow()
 
     def _overflow(self) -> None:
         self.overflows_total += 1
+        metrics.ingest_overflows().inc()
         self._clear()
         self._arena.invalidate("ingest_overflow")
 
@@ -77,13 +83,14 @@ class IngestBatcher:
         self._removed.clear()
         self._used.clear()
         self._bump_only = False
+        metrics.ingest_pending().set(0)
 
     # ---- the delta-API surface Cluster's mutators call --------------------
     def apply_node_add(self, node) -> None:
         self._removed.pop(node.name, None)
         self._used.pop(node.name, None)
         self._touched[node.name] = node
-        self._event()
+        self._event("node_add")
 
     def apply_node_remove(self, name: str) -> None:
         was_pending_add = self._touched.pop(name, None) is not None \
@@ -93,7 +100,7 @@ class IngestBatcher:
             # tracked (or unknown) node: the arena must tombstone it; a
             # node that only ever existed inside this window cancels out
             self._removed[name] = None
-        self._event()
+        self._event("node_remove")
 
     def touch_node(self, node) -> None:
         if node.name in self._touched:
@@ -103,28 +110,28 @@ class IngestBatcher:
             self._used.pop(node.name, None)
             self._touched[node.name] = node
         # untracked or removal-pending: the eager path would no-op too
-        self._event()
+        self._event("touch")
 
     def apply_pod_bind(self, pod, node_name: str,
                        old_node_name: str = "") -> None:
         if old_node_name and old_node_name != node_name:
             self._mark_used(old_node_name)
         self._mark_used(node_name)
-        self._event()
+        self._event("pod_bind")
 
     def apply_pod_unbind(self, node_name: str) -> None:
         self._mark_used(node_name)
-        self._event()
+        self._event("pod_unbind")
 
     def apply_pod_add(self, pod) -> None:
         self._bump_only = True
-        self._event()
+        self._event("pod_add")
 
     def apply_pod_remove(self, pod, node_name: str = "") -> None:
         if node_name:
             self._mark_used(node_name)
         self._bump_only = True
-        self._event()
+        self._event("pod_remove")
 
     def _mark_used(self, name: str) -> None:
         if name in self._touched or name in self._removed:
@@ -144,6 +151,7 @@ class IngestBatcher:
         self._clear()
         self._arena.apply_ingest_flush(touched, removed, used)
         self.flushes_total += 1
+        metrics.ingest_flushes().inc()
         return True
 
     def gather(self, *args, **kwargs):

@@ -43,10 +43,11 @@ class.  Restore therefore drops `_cid` from every restored pod: each
 re-interns lazily by its content key, and class order stays first
 appearance.
 
-The reference's metric families and incidents are left out (ROADMAP.md
-queue B, item B9): `restore_snapshot` returns its outcome, and
-`SnapshotWriter` keeps its write outcomes (`writes`), the last file's
-size and the last write's host time.
+Writes and restores feed the reference's snapshot families;
+`restore_snapshot` also returns its outcome, and `SnapshotWriter` keeps its
+write outcomes (`writes`), the last file's size and the last write's host
+time.  The reference's `snapshot_fallback` incident is left out (ROADMAP.md
+queue B, item B9b).
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ import os
 import pickle
 import time
 from typing import Dict, Iterable, Optional, Tuple
+
+from ..utils import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.snapshot")
 
@@ -180,8 +183,11 @@ def _write(path: str, op, manager=None, fence=None) -> Tuple[str, int]:
     """Serialize + atomically replace `path`.  Returns (outcome, bytes
     written): "ok", "stale_fence" (a fence whose epoch is stale refused
     the write; nothing was written) or "error" (the previous file is
-    intact: tmp + rename)."""
+    intact: tmp + rename).  Each outcome is counted in
+    karpenter_snapshot_writes_total."""
+    t0 = time.perf_counter()
     if fence is not None and not fence.check("snapshot"):
+        metrics.snapshot_writes().inc({"outcome": "stale_fence"})
         return "stale_fence", 0
     try:
         sections = collect_sections(op, manager)
@@ -195,7 +201,11 @@ def _write(path: str, op, manager=None, fence=None) -> Tuple[str, int]:
         os.replace(tmp, path)
     except Exception:
         log.exception("snapshot write to %s failed", path)
+        metrics.snapshot_writes().inc({"outcome": "error"})
         return "error", 0
+    metrics.snapshot_writes().inc({"outcome": "ok"})
+    metrics.snapshot_write_duration().observe(time.perf_counter() - t0)
+    metrics.snapshot_size().set(len(blob))
     return "ok", len(blob)
 
 
@@ -254,6 +264,7 @@ def restore_snapshot(path: str, op, manager=None) -> str:
     if sections is None:
         log.warning("snapshot restore from %s: cold fallback (%s)",
                     path, reason)
+        metrics.snapshot_restores().inc({"outcome": reason})
         return reason
     # pre-state for rollback: a half-applied restore must never leave a
     # structurally invalid cluster, so on any apply exception the hydrated
@@ -273,8 +284,11 @@ def restore_snapshot(path: str, op, manager=None) -> str:
             log.exception("rollback after failed restore also failed")
         if op.cluster.arena is not None:
             op.cluster.arena.invalidate("restore_failed")
+        metrics.snapshot_restores().inc({"outcome": "apply_error"})
         return "apply_error"
     age = max(0.0, op.clock() - float(sections["meta"]["written_at"]))
+    metrics.snapshot_restores().inc({"outcome": "restored"})
+    metrics.snapshot_age().set(age)
     log.info("warm restore from %s: %d nodes, %d pods, snapshot age %.3fs",
              path, len(op.cluster.nodes), len(op.cluster.pods), age)
     return "restored"

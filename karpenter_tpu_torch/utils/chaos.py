@@ -14,8 +14,8 @@ the dynamic discriminator within a point (controller name, solver rung,
 cloud API name), so one rule can target `controller.reconcile` for just
 `disruption`.  `leader.lease` is the LeaderElector's seam (key "acquire"
 or "release", operator/manager.py); the `refinery.refine` seam comes with
-the feature that calls it (ROADMAP.md queue B item B9), and the
-reference's injection counter metric is left out (B9).
+the feature that calls it (ROADMAP.md queue B item B9b).  Every injection
+is counted in karpenter_chaos_injections_total{point, action}.
 
 Actions:
   * ``error``   — raise `ChaosError` (or the fake cloud's
@@ -40,6 +40,8 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.chaos")
 
@@ -148,6 +150,8 @@ class ChaosInjector:
             self._fired[i] += 1
             self._injected[(point, r.action)] = \
                 self._injected.get((point, r.action), 0) + 1
+            metrics.chaos_injections().inc({"point": point,
+                                            "action": r.action})
             log.debug("chaos: %s at %s[%s]", r.action, point, key)
             if r.action == "error":
                 if r.error_code:

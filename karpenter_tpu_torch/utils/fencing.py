@@ -21,14 +21,17 @@ The guarded funnels:
 
 `fence=None` everywhere means "no HA": single-replica deployments, the
 sim, and every run without the gate go unfenced and byte-identically.
-The reference's refusal counter metric and `fence_refusal` incident are
-left out (ROADMAP.md queue B, item B9); `refusals` holds the same counts.
+A refusal is counted in karpenter_leader_fence_refusals_total{op} and in
+`refusals`.  The reference's `fence_refusal` incident is left out
+(ROADMAP.md queue B, item B9b).
 """
 
 from __future__ import annotations
 
 import logging
 from typing import Dict
+
+from . import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.fencing")
 
@@ -46,7 +49,8 @@ class LeaseFence:
     `check(op)` is the one seam every guarded write calls: True means
     the lease still names our elector at the epoch it acquired; False
     means the write must not happen, and the refusal has already been
-    counted in `refusals`."""
+    counted (metrics + the `refusals` dict the failover drill asserts
+    on)."""
 
     def __init__(self, elector):
         self.elector = elector
@@ -70,6 +74,7 @@ class LeaseFence:
             log.exception("fence check for %s could not read the lease; "
                           "refusing", op)
         self.refusals[op] = self.refusals.get(op, 0) + 1
+        metrics.leader_fence_refusals().inc({"op": op})
         log.warning("stale fence: refused %s (epoch %d no longer holds "
                     "the lease)", op, self.elector.fence_epoch())
         return False

@@ -1,7 +1,6 @@
 """Per-pod scheduling decision provenance.
 
-A copy of the JAX package's `utils/provenance.py` (without its metric
-counter).  Upstream Karpenter answers "why is this pod still pending" with per-pod
+A copy of the JAX package's `utils/provenance.py`.  Upstream Karpenter answers "why is this pod still pending" with per-pod
 `FailedScheduling` events naming the violated predicate; the dense solver
 erases that information when it lowers pods to
 equivalence classes and boolean compat masks.  This module reconstructs
@@ -26,6 +25,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..api import labels as wk
+from . import metrics
 
 # Named constraints, in the order the catalog filter applies them.
 INSTANCE_TYPE = "instance-type"
@@ -76,6 +76,10 @@ class ProvenanceStore:
             self._records[rec.pod] = rec
             while len(self._records) > self.max_records:
                 self._records.popitem(last=False)
+        try:
+            metrics.provenance_records().inc({"constraint": rec.constraint})
+        except Exception:
+            pass
 
     def clear(self, pod: str) -> None:
         """Drop a pod's record once it schedules."""

@@ -6,14 +6,18 @@ worker and abandons it when the deadline trips: the caller gets
 `WatchdogTimeout` immediately (feeding the degradation ladder,
 ops/health.py) while the hung call is left to finish or hang in the
 background.  `timeout_s <= 0` is a direct call with zero overhead, which is
-the default everywhere.  The reference's trip counter, incident and span
-hand-over are left out.
+the default everywhere.  Tracing context crosses the thread boundary via
+`TRACER.capture()` / `attach()`, so spans opened inside the guarded call
+still parent correctly.  The reference's `watchdog_trip` incident is left
+out (ROADMAP.md queue B item B9b).
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Callable, TypeVar
+
+from . import metrics
 
 T = TypeVar("T")
 
@@ -39,7 +43,8 @@ class WatchdogTimeout(RuntimeError):
 def run_with_deadline(fn: Callable[[], T], timeout_s: float,
                       phase: str) -> T:
     """Run `fn` under a hard deadline.  `timeout_s <= 0` calls `fn`
-    directly (no thread).  On a trip, raises `WatchdogTimeout`; the worker
+    directly (no thread).  On a trip, increments
+    karpenter_watchdog_trips_total{phase} and raises `WatchdogTimeout`; the worker
     thread is abandoned (daemon) — its eventual result is discarded and
     its eventual exception swallowed."""
     if phase not in PHASES:
@@ -47,12 +52,15 @@ def run_with_deadline(fn: Callable[[], T], timeout_s: float,
                          f"(expected one of {sorted(PHASES)})")
     if timeout_s is None or timeout_s <= 0:
         return fn()
+    from . import tracing
+    parent = tracing.TRACER.capture()
     box: dict = {}
     done = threading.Event()
 
     def worker() -> None:
         try:
-            box["value"] = fn()
+            with tracing.TRACER.attach(parent):
+                box["value"] = fn()
         except BaseException as e:  # delivered to the caller below
             box["error"] = e
         finally:
@@ -63,6 +71,7 @@ def run_with_deadline(fn: Callable[[], T], timeout_s: float,
     t.start()
     done.wait(timeout_s)
     if not done.is_set():
+        metrics.watchdog_trips().inc({"phase": phase})
         raise WatchdogTimeout(phase, timeout_s)
     t.join()  # worker is past its try block; join returns immediately
     if "error" in box:

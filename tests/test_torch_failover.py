@@ -6,9 +6,8 @@ tests/test_failover.py's 31 cases, on the CPU.  Each case runs on both
 packages (tests/torch_ha.py `both`) and returns plain observations that
 must be equal: epochs, the elector's `acquisitions` / `losses` /
 `releases`, the fence's `refusals`, phases, readiness payloads.  Where a
-reference case reads a metric family (ROADMAP.md queue B item B9), the
-port's side reads the object's own count (`LeaseFence.refusals`, the
-manager's `_midtick_aborts`, the writer's outcome).
+reference case reads a metric family, each side reads its own package's
+family (`_metric`).
 
 Then the two-process kill -9 drill in each package (a SIGKILL'd leader, a
 standby that promotes through warm restore + parity probe, plan streams
@@ -21,6 +20,7 @@ off.
 
 import fcntl
 import hashlib
+import importlib
 import json
 import os
 import signal
@@ -49,8 +49,10 @@ def _disarm_chaos():
     clear_lp_caches("karpenter_tpu", "karpenter_tpu_torch")
 
 
-def _ref_metric(family, **labels):
-    from karpenter_tpu.utils import metrics
+def _metric(m, family, **labels):
+    """The sum of `m`'s package's metric family over the samples whose
+    labels are `labels` (every sample when none are given)."""
+    metrics = importlib.import_module(f"{m.name}.utils.metrics")
     fam = getattr(metrics, family)()
     want = tuple(sorted(labels.items()))
     return sum(v for _, kv, v in fam.samples()
@@ -238,13 +240,11 @@ def test_stale_check_refuses_and_counts_per_op(tmp_path):
         fence = m.fencing.LeaseFence(a)
         clk[0] += 6.0
         assert b.try_acquire()
-        before = _ref_metric("leader_fence_refusals", op="launch") \
-            if m is REF else 0
+        before = _metric(m, "leader_fence_refusals", op="launch")
         assert not fence.check("launch")
         assert not fence.check("launch")
         assert not fence.check("terminate")
-        counted = (_ref_metric("leader_fence_refusals", op="launch") - before
-                   if m is REF else fence.refusals["launch"])
+        counted = _metric(m, "leader_fence_refusals", op="launch") - before
         return fence.refusals, counted
     assert both(case, tmp_path) == ({"launch": 2, "terminate": 1}, 2)
 
@@ -298,14 +298,13 @@ def test_snapshot_write_stamped_while_held_refused_when_stale(tmp_path):
         rival = elector(m, d, "rival", clk, ttl=5.0)
         clk[0] += 6.0
         assert rival.try_acquire()
-        before = _ref_metric("snapshot_writes", outcome="stale_fence") \
-            if m is REF else 0
+        before = _metric(m, "snapshot_writes", outcome="stale_fence")
         path2 = str(d / "stale.bin")
         assert m.snapshot.write_snapshot(path2, op, mgr,
                                          fence=mgr.fence) is False
         assert not os.path.exists(path2)
-        counted = (_ref_metric("snapshot_writes", outcome="stale_fence")
-                   - before if m is REF else mgr.fence.refusals["snapshot"])
+        counted = _metric(m, "snapshot_writes",
+                          outcome="stale_fence") - before
         return (sections["meta"]["fence_epoch"], mgr.fence.refusals,
                 counted)
     assert both(case, tmp_path)[1:] == ({"snapshot": 1}, 1)
@@ -366,11 +365,10 @@ def test_slow_tick_aborts_before_snapshot(tmp_path):
         for e in mgr._entries:
             if e.name == "pricing":
                 e.reconcile = slow_reconcile
-        before = _ref_metric("leader_midtick_aborts") if m is REF else 0
+        before = _metric(m, "leader_midtick_aborts")
         mgr.tick()
         assert mgr._midtick_aborts == 1
-        counted = (_ref_metric("leader_midtick_aborts") - before
-                   if m is REF else mgr._midtick_aborts)
+        counted = _metric(m, "leader_midtick_aborts") - before
         return counted, os.path.exists(snap)
     assert both(case, tmp_path) == (1, False)
 

@@ -89,8 +89,8 @@ REFUSED = [
     (["--lease-ttl", "3"], "B7"), (["--warm-restart"], "B7"),
     (["--snapshot-path", "/x"], "B7"), (["--snapshot-interval", "3"], "B7"),
     (["--ha-failover"], "B7"),
-    (["--log-format", "json"], "B9"), (["--trace-slow-ms", "5"], "B9"),
-    (["--enable-profiling"], "B9"), (["--flight-recorder"], "B9"),
+    (["--log-format", "json"], "B9a"), (["--trace-slow-ms", "5"], "B9a"),
+    (["--enable-profiling"], "B9a"), (["--flight-recorder"], "B9"),
     (["--incident-dir", "/x"], "B9"), (["--incident-window", "5"], "B9"),
     (["--incident-dedup", "5"], "B9"), (["--incident-retention", "5"], "B9"),
     (["--obs-sample", "5"], "B9"), (["--obs-ring-slots", "5"], "B9"),
@@ -103,17 +103,22 @@ REFUSED = [
 @pytest.mark.parametrize("argv,item", REFUSED,
                          ids=[a[0] for a, _ in REFUSED])
 def test_flags_of_unported_features_are_refused(argv, item):
-    """B9's flags are refused; B7's, refused until durability and HA were
-    ported, give the reference's options (the gate flags turn their gates
-    on, `--ha-failover` also `leader_elect`)."""
+    """B9b's flags are refused; B7's and B9a's, refused until durability
+    and HA, and metrics and tracing, were ported, give the reference's
+    options (the gate flags turn their gates on, `--ha-failover` also
+    `leader_elect`; B9a's set the logging, tracing and profiling fields)."""
     ref = RefOptions.from_args(argv)        # the reference takes them
-    if item == "B7":
+    if item in ("B7", "B9a"):
         got = dataclasses.asdict(Options.from_args(argv))
         assert got == kept(ref)
         if argv[0] in ("--warm-restart", "--ha-failover"):
             gate = "WarmRestart" if argv[0] == "--warm-restart" \
                 else "HAFailover"
             assert got["feature_gates"][gate]
+        if item == "B9a":
+            field = argv[0][2:].replace("-", "_")
+            assert got[field] == getattr(ref, field) != \
+                dataclasses.asdict(RefOptions())[field]
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Options.from_args(argv)
@@ -189,21 +194,22 @@ def test_chaos_env_defaults_equal_the_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("env,item", [("LEADER_ELECT", "B7"),
-                                      ("LOG_FORMAT", "B9")])
+                                      ("LOG_FORMAT", "B9a")],
+                         ids=["LEADER_ELECT-B7", "LOG_FORMAT-B9"])
 def test_env_defaults_of_unported_features_are_refused(monkeypatch, env,
                                                        item):
-    """B9's env default is refused; B7's (`KARPENTER_TPU_LEADER_ELECT`)
-    gives the reference's options."""
+    """The env defaults once refused give the reference's options:
+    B7's `KARPENTER_TPU_LEADER_ELECT` and B9a's `KARPENTER_TPU_LOG_FORMAT`
+    (the id keeps the item it was refused under)."""
     monkeypatch.setenv(f"KARPENTER_TPU_{env}",
                        {"LEADER_ELECT": "true",
                         "LOG_FORMAT": "json"}.get(env, "a=b"))
+    opts = Options.from_args([])
+    assert dataclasses.asdict(opts) == kept(RefOptions.from_args([]))
     if item == "B7":
-        opts = Options.from_args([])
-        assert dataclasses.asdict(opts) == kept(RefOptions.from_args([]))
         assert opts.leader_elect
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Options.from_args([])
+    else:
+        assert opts.log_format == "json"
 
 
 # the gates once refused, with their ROADMAP.md items: B7's are ported
@@ -302,8 +308,9 @@ def test_main_leader_elects_and_restores_from_the_command_line(tmp_path):
 def test_main_reaches_readiness_and_exits_0_on_sigterm():
     """`python -m karpenter_tpu_torch`'s `main` on the CPU in a child
     process: its "up" line names the port, /readyz answers 200 after the
-    parity probe, /healthz 200, an unported endpoint 501, and SIGTERM
-    drains it to exit code 0."""
+    parity probe, /healthz 200, /metrics the registry's exposition with
+    the reference's families, /debug/traces the tracer's ring, an unported
+    endpoint 501, and SIGTERM drains it to exit code 0."""
     code = ("import sys; from karpenter_tpu_torch.__main__ import main; "
             "sys.exit(main(sys.argv[1:], device='cpu'))")
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
@@ -335,7 +342,18 @@ def test_main_reaches_readiness_and_exits_0_on_sigterm():
         assert code_r == 200 and ready["phase"] == "LEADING"
         assert ready["probe"] == "skipped"       # no nodes yet
         assert get("/healthz")[0] == 200
-        assert get("/metrics")[0] == 501
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as r:
+            text = r.read().decode()
+        assert r.status == 200
+        from karpenter_tpu.utils import metrics as ref_metrics
+        ref_metrics.register_parity_families()
+        assert {ln.split()[2] for ln in text.splitlines()
+                if ln.startswith("# TYPE ")} >= \
+            {m.name for m in ref_metrics.REGISTRY._metrics.values()}
+        code_t, traces = get("/debug/traces?span=provision")
+        assert code_t == 200 and isinstance(traces["traces"], list)
+        assert get("/debug/incidents")[0] == 501
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0
     finally:

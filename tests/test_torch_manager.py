@@ -10,8 +10,9 @@ observations that must be equal; the port solves on the CPU.
 Then the port's own boundaries: a fault of the card or of a kernel
 (`DEVICE_FAULTS`) raised inside a tick propagates out of `tick()` with
 nothing booked on the supervisor, and answers `/v1/solve` with a 500; the
-endpoints of unported features answer 501 naming ROADMAP.md item B9; the
-readiness ladder without a leader.
+endpoints of unported features (B9b's) answer 501 naming ROADMAP.md item
+B9, and B9a's `/metrics`, `/debug/traces` and `/debug/pprof` answer as the
+reference's do; the readiness ladder without a leader.
 """
 
 import importlib
@@ -550,11 +551,57 @@ def test_debug_pods_provenance_endpoint():
 # the port's own boundaries
 # ---------------------------------------------------------------------------
 
+def _span_tree(t):
+    """A trace's names, nesting and annotation keys (ids and times
+    differ between runs)."""
+    return (t["name"], sorted(t["annotations"]),
+            [_span_tree(c) for c in t["children"]])
+
+
+def _scrape(m, op, mgr, port, clock):
+    """B9a's endpoints after one provisioning tick from fresh registries:
+    the /metrics family names, the provision traces' span trees, and
+    /debug/pprof's answer (403: profiling is off)."""
+    m.manager.metrics.REGISTRY.reset()
+    m.manager.tracing.TRACER.reset()
+    m.manager.metrics.register_parity_families()
+    op.cluster.add_pods([pod(m) for _ in range(3)])
+    mgr.tick()
+    clock[0] += 1.1
+    mgr.tick()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        assert r.status == 200
+        assert r.headers["Content-Type"].startswith("text/plain")
+        text = r.read().decode()
+    families = sorted(ln.split()[2] for ln in text.splitlines()
+                      if ln.startswith("# TYPE "))
+    code_t, traces = _get(port, "/debug/traces?span=provision")
+    return {"/metrics": (200, families),
+            "/debug/traces": (code_t, [_span_tree(t)
+                                       for t in traces["traces"]]),
+            "/debug/pprof": _get(port, "/debug/pprof")}
+
+
 @pytest.mark.parametrize("path", ["/metrics", "/debug/traces",
                                   "/debug/incidents", "/debug/incidents/x",
                                   "/debug/slo", "/debug/ledger",
                                   "/debug/pprof"])
 def test_unported_endpoints_answer_501_naming_b9(path):
+    """B9b's endpoints answer 501 naming B9; B9a's, 501 until metrics and
+    tracing were ported, answer as the reference's (the name keeps the
+    case's history)."""
+    if path in ("/metrics", "/debug/traces", "/debug/pprof"):
+        code, body = both(lambda m: _served(m, _scrape)[path])
+        if path == "/metrics":
+            assert code == 200 and "karpenter_pods_state" in body \
+                and "karpenter_trace_span_duration_seconds" in body
+        elif path == "/debug/traces":
+            assert code == 200 and body and body[0][0] == "provision"
+        else:
+            assert code == 403 and "--enable-profiling" in body["error"]
+        return
+
     def case(m, op, mgr, port, clock):
         return _get(port, path)
     code, body = _served(PORT, case)

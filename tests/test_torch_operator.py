@@ -109,10 +109,12 @@ def test_options_the_port_does_not_read_are_refused(field):
     """An option of the reference that nothing in the port reads is not a
     field of the port's Options: setting one fails at construction instead
     of being silently ignored.  The lease and snapshot options, refused
-    until B7 was ported, are fields with the reference's defaults."""
+    until B7 was ported, and the logging, tracing and profiling options,
+    refused until B9a was, are fields with the reference's defaults."""
     assert hasattr(REF.options.Options(), field)
     if field in ("leader_elect", "lease_path", "snapshot_path",
-                 "lease_ttl_s"):
+                 "lease_ttl_s", "log_format", "trace_slow_ms",
+                 "enable_profiling"):
         want = getattr(REF.options.Options(), field)
         assert getattr(PORT.options.Options(**{field: want}), field) == want
         assert getattr(PORT.options.Options(), field) == want

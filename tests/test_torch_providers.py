@@ -6,8 +6,8 @@ and admission cases; its lifecycle cases are in test_torch_lifecycle.py).
 Every case runs on a namespace of either package's modules (`REF`, `PORT`),
 checks the reference's assertions on both, and returns plain observations
 (ids, names, prices, user data, call counts) that must be equal between
-the two.  Left out: test_instance_type_gauges_set (the metric families are
-ROADMAP.md queue B item B9).
+the two; test_instance_type_gauges_set reads each package's own metric
+family.
 """
 
 import email
@@ -314,6 +314,20 @@ def test_spot_history_flows_per_zone():
                 for o in it.offerings]
     rows = both(case)
     assert [r for r in rows if r[2] == "spot" and r[3] == 0.011]
+
+
+def test_instance_type_gauges_set():
+    def case(m):
+        catalog = m.gen.generate_catalog(3)
+        provider = m.provider.CloudProvider(m.fake.FakeCloud(), catalog)
+        provider.get_instance_types()
+        metrics = importlib.import_module(f"{m.name}.utils.metrics")
+        g = metrics.instance_type_cpu()
+        assert g.value({"instance_type": catalog[0].name}) > 0
+        return [(it.name, g.value({"instance_type": it.name}),
+                 metrics.instance_type_memory().value(
+                     {"instance_type": it.name})) for it in catalog]
+    assert both(case)
 
 
 # ---------------------------------------------------------------------------

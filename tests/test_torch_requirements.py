@@ -1,0 +1,14 @@
+"""tests/test_requirements.py on both packages, case by case
+(tests/torch_suites.py): the reference's assertions hold on the port, and
+the values they compare are equal."""
+
+import pytest
+
+from torch_suites import Suite
+
+SUITE = Suite("test_requirements")
+
+
+@pytest.mark.parametrize("case", SUITE.cases())
+def test_requirements(case, request):
+    SUITE.both(case, request)

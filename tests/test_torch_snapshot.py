@@ -4,9 +4,8 @@ and manager) against the JAX package's, case by case with
 tests/test_snapshot.py's 21 cases, on the CPU.  Each case runs on both
 packages (tests/torch_ha.py `both`) and returns plain observations that
 must be equal: node and pod names, restore outcomes, epochs, gathers,
-circuit and ladder states.  Where a reference case reads a metric family
-(ROADMAP.md queue B item B9), the port's side counts the outcomes
-`restore_snapshot` returns.
+circuit and ladder states.  Where a reference case reads a metric family,
+each side reads its own package's family.
 
 Then the port's own: the digest of `collect_sections`' plain content
 after the same ticks in both packages (names, bindings, counters, epochs,
@@ -18,6 +17,7 @@ after a restore equal the uninterrupted copy's, in both packages.
 """
 
 import hashlib
+import importlib
 import json
 import os
 import pickle
@@ -230,18 +230,17 @@ def test_corruption_is_a_cold_fallback(tmp_path, kind):
 
 
 def test_outcomes_are_counted(tmp_path):
-    """The reference counts restore outcomes in a metric family (B9); the
-    port returns them: both count one "restored" and one "bad_magic"."""
+    """Both packages count restore outcomes in their metric family and
+    return them: one "restored" and one "bad_magic"."""
     def case(m, d):
         clk = [1000.0]
         path = _snap(d)
         op, mgr = provisioned_stack(m, clk, path)
         assert m.snapshot.write_snapshot(path, op, mgr)
-        if m is REF:
-            from karpenter_tpu.utils import metrics
-            fam = metrics.snapshot_restores()
-            before = {o: fam.value({"outcome": o})
-                      for o in ("restored", "bad_magic")}
+        fam = importlib.import_module(
+            f"{m.name}.utils.metrics").snapshot_restores()
+        before = {o: fam.value({"outcome": o})
+                  for o in ("restored", "bad_magic")}
         got = []
         op2, mgr2 = stack(m, lambda: clk[0], path, ("WarmRestart",))
         got.append(m.snapshot.restore_snapshot(path, op2, mgr2))
@@ -249,11 +248,10 @@ def test_outcomes_are_counted(tmp_path):
             fh.write(b"NOTASNAP")
         op3, mgr3 = stack(m, lambda: clk[0], path, ("WarmRestart",))
         got.append(m.snapshot.restore_snapshot(path, op3, mgr3))
-        counts = {o: got.count(o) for o in ("restored", "bad_magic")}
-        if m is REF:
-            counts = {o: fam.value({"outcome": o}) - before[o]
-                      for o in before}
-        return got, counts
+        assert {o: got.count(o) for o in before} == \
+            {o: fam.value({"outcome": o}) - before[o] for o in before}
+        return got, {o: fam.value({"outcome": o}) - before[o]
+                     for o in before}
     assert both(case, tmp_path)[1] == {"restored": 1, "bad_magic": 1}
 
 
