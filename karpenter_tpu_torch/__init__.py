@@ -17,7 +17,11 @@ counterpart there:
               launch templates, pricing
   controllers/  provisioning, disruption, termination, the node lifecycle,
               interruption, garbage collection, NodeClass
-  operator/   options, the Operator's provider graph, build_controllers
+  operator/   options, the Operator's provider graph, build_controllers,
+              the controller manager and its endpoints
+  obs/        the incident bus, the flight recorder, the SLO engine and
+              the cost ledger (host work over the metric registry)
+  tools/      trace_demo, the tracing and incident walkthrough
   csrc/       the CUDA sources, built with nvcc at first use (_build.py)
   convert.py  builds port objects from the reference's numpy arrays
   workloads.py  seeded pod batches, plan fingerprints and goldens

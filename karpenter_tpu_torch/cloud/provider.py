@@ -19,8 +19,9 @@ With a `fence` (utils/fencing.LeaseFence, attached by the controller
 manager under the HAFailover gate) the launch and terminate funnels raise
 `StaleFenceError` on a stale fencing epoch and touch nothing; `fence=None`
 runs unfenced.  The calls feed the reference's cloud-provider, breaker,
-retry and instance-type families; the cost ledger is left out until its
-slice (ROADMAP.md queue B, item B9b).
+retry and instance-type families.  The launch funnel opens a cost-ledger
+entry and the terminate funnel closes it (obs/ledger.py; free while the
+ledger is disarmed, as it is with the SLOEngine gate off).
 """
 
 from __future__ import annotations
@@ -516,6 +517,22 @@ class CloudProvider:
         claim.image_id = inst.image_id
         claim.labels.update(self._instance_labels(inst, claim))
         self._claims_by_provider_id[inst.id] = claim
+        # cost-ledger seam (SLOEngine gate, free when disarmed): expected
+        # $/h is the cheapest offering this launch INTENDED (overrides[0],
+        # price-sorted upstream); realized is what the fleet landed on —
+        # they diverge exactly when ICE pushed the claim onto a pricier
+        # offering, which is the drift the ledger watches
+        from ..obs.ledger import LEDGER, current_trace_id
+        if LEDGER.enabled:
+            LEDGER.record_launch(
+                inst.id, nodepool=claim.nodepool,
+                pod_class=inst.instance_type,
+                expected_rate=overrides[0].price,
+                realized_rate=inst.price,
+                at=self.clock(),
+                fence_epoch=self.fence.epoch() if self.fence is not None
+                else 0,
+                trace_id=current_trace_id())
         return claim
 
     def _instance_labels(self, inst, claim: NodeClaim) -> Dict[str, str]:
@@ -555,6 +572,14 @@ class CloudProvider:
                 "refused")
         done = self.cloud.terminate_instances([claim.provider_id])
         claim.terminating = True
+        # ledger close: realized lifetime ends here.  The reason is the
+        # active decision context (disruption/interruption controllers
+        # tag their actuation funnels); untagged deletes are terminations.
+        from ..obs.ledger import LEDGER
+        if LEDGER.enabled:
+            LEDGER.record_close(
+                claim.provider_id, at=self.clock(),
+                reason=LEDGER.current_source(default="termination"))
         if not done:
             raise CloudError("InstanceNotFound", claim.provider_id)
 

@@ -47,8 +47,8 @@ With `gang_source` (the GangScheduling gate: the Provisioner's
 `take_preemption_plan`), each tick first executes one queued gang
 preemption plan, ahead of every other method.  The tick runs under the
 reference's `disruption.*` and `sweep.*` spans and feeds its disruption
-families; its cost-ledger calls are left out (ROADMAP.md queue B item
-B9b).
+families; every launch and terminate of an executed action is tagged
+with its reason for the cost ledger (obs/ledger.py).
 """
 
 from __future__ import annotations
@@ -950,8 +950,15 @@ class DisruptionController:
     # execution: taint → launch the replacements → rebind → terminate
     # ------------------------------------------------------------------
     def execute(self, action: Action) -> DisruptionResult:
+        # cost-ledger attribution: every launch/terminate inside this
+        # actuation funnel is tagged with the disruption reason (free
+        # when the SLOEngine gate is off — the context is a thread-local
+        # set/clear and the hooks behind it check LEDGER.enabled first)
+        from ..obs.ledger import DECISION_SOURCES, LEDGER
+        src = action.reason if action.reason in DECISION_SOURCES \
+            else "consolidation"
         with tracing.span("disruption.execute", kind=action.kind,
-                          reason=action.reason) as sp:
+                          reason=action.reason) as sp, LEDGER.decision(src):
             out = self._execute(action)
             sp.annotate(deleted=len(out.deleted), launched=len(out.launched))
             return out

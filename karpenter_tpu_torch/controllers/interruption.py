@@ -17,8 +17,9 @@ is retried on the next receive (SQS visibility, cloud/queue.py).  Host-only:
 it takes no `device`; the provisioner re-places the evicted pods.  With
 the Forecast gate, `build_controllers` points `on_spot_reclaim` at the
 HeadroomController's spot-risk prior (`SpotRiskPrior.observe_reclaim`).
-It feeds the reference's interruption families; its cost-ledger context
-is left out (ROADMAP.md queue B item B9b).
+It feeds the reference's interruption families, and the terminations of
+its recycle are attributed to "interruption" in the cost ledger
+(obs/ledger.py).
 """
 
 from __future__ import annotations
@@ -155,17 +156,21 @@ class InterruptionController:
                  reason: str, out: InterruptionResult) -> bool:
         """Cordon and drain through the termination flow; the evicted pods
         go pending and the provisioner replaces the capacity."""
-        if node is not None:
-            res = self.terminator.drain_sync(node, reason=reason)
-            if node.name in res.terminated:
-                out.recycled.append(node.name)
-                return True
-            return False  # drain stalled (PDBs): retried via redelivery
-        # a claim without a node (never registered): delete it directly
-        if claim is not None:
-            try:
-                self.provider.delete(claim)
-            except Exception:  # noqa: BLE001 — a vanished instance is success
-                pass
-            self.cluster.nodeclaims.pop(claim.name, None)
-        return True
+        # ledger attribution: terminations inside this funnel are spot
+        # interruptions, not voluntary consolidation
+        from ..obs.ledger import LEDGER
+        with LEDGER.decision("interruption"):
+            if node is not None:
+                res = self.terminator.drain_sync(node, reason=reason)
+                if node.name in res.terminated:
+                    out.recycled.append(node.name)
+                    return True
+                return False  # drain stalled (PDBs): retried via redelivery
+            # a claim without a node (never registered): delete it directly
+            if claim is not None:
+                try:
+                    self.provider.delete(claim)
+                except Exception:  # noqa: BLE001 — a vanished instance is success
+                    pass
+                self.cluster.nodeclaims.pop(claim.name, None)
+            return True

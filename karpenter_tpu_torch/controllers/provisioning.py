@@ -45,8 +45,8 @@ custom scales, an untracked node) or no arena at all takes
 `Cluster.tensorize_nodes`, the reference's bit-identical path.
 A round runs under the reference's `provision` / `provision.round` /
 `solve.*` / `provision.launch` spans and feeds its provisioning, nodepool
-and gang families; its `gang_rejected` incident is left out (ROADMAP.md
-queue B item B9b).
+and gang families, and each gang rejection publishes a `gang_rejected`
+incident (obs/incidents.py).
 """
 
 from __future__ import annotations
@@ -68,6 +68,7 @@ from ..cloud.provider import (CloudProvider, InsufficientCapacityError,
                               NodeClassNotFoundError)
 # DEVICE_FAULTS: faults of the card or of a kernel, raised past the ladder,
 # since its greedy rung would answer them with work on the host
+from ..obs.incidents import publish_incident
 from ..ops.classpack import DEVICE_FAULTS, resolve_device, solve_classpack
 from ..ops.constraints import (MAX_LEVEL, find_batch_topology_violations,
                                has_soft_constraints, lower_pods,
@@ -445,7 +446,8 @@ class Provisioner:
     def _enforce_gangs(self, problem, result, node_view) -> None:
         """Gang admission funnel (GangScheduling): audit and strip rejected
         gangs from the packing, count the verdicts, and queue preemption
-        plans for outranked capacity."""
+        plans for outranked capacity.  Rejections publish a `gang_rejected`
+        incident in the same function as the counter inc (OB006)."""
         t0 = self.clock()
         audits = enforce_gangs(problem, result, result._existing_nodes,
                                registry=self.gang_registry,
@@ -458,6 +460,11 @@ class Provisioner:
                 self.gang_preemption_plans.pop(a.gang.name, None)
                 continue
             metrics.gang_rejections().inc({"reason": a.reason})
+            publish_incident("gang_rejected",
+                             {"gang": a.gang.name, "reason": a.reason,
+                              "placed": len(a.placed),
+                              "arrived": len(a.members),
+                              "size": a.gang.size, "tier": a.gang.tier})
             if a.reason == PARTIAL:
                 partial += 1
             # priority cascade: a rejected gang with standing (every

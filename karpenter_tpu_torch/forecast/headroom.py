@@ -1,8 +1,7 @@
 """HeadroomController: forecast envelope → low-priority placeholder claims.
 
 A copy of the JAX package's `forecast/headroom.py`, with its metric and
-span calls; its cost-ledger calls are left out (ROADMAP.md queue B item
-B9b).  The dry-run
+span calls and its cost-ledger reservations (obs/ledger.py).  The dry-run
 solve runs on the Provisioner's device, so placeholders reach the same
 kernels real pods do; a fault of the card or a kernel (`DEVICE_FAULTS`) is
 raised out of `reconcile()` before anything is admitted, never skipped
@@ -40,7 +39,7 @@ import math
 import re
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -344,15 +343,29 @@ class HeadroomController:
             for i in packing.existing_assignments:
                 keep.add(problem.pods[i].uid)
             spend = 0.0
+            planned: List[Tuple[str, float]] = []
             for nd in packing.nodes:
                 price = float(getattr(nd.option, "price", 0.0))
                 if spend + price > budget:
                     continue
                 spend += price
+                planned.append((getattr(nd.option, "pool", "") or "", price))
                 for i in nd.pod_indices:
                     keep.add(problem.pods[i].uid)
             psp.annotate(budget=round(budget, 4), spend=round(spend, 4),
                          kept=len(keep))
+        # cost-ledger annotation (SLOEngine gate): the spend this headroom
+        # round PLANS, as reservations — the nodes themselves, if demand
+        # materializes, are ledgered by their own launches, so reservations
+        # stay out of the per-source capacity sums (no double-count)
+        from ..obs.ledger import LEDGER
+        if LEDGER.enabled and planned:
+            now = self.clock()
+            for pool, price in planned:
+                LEDGER.record_reservation(
+                    nodepool=pool,
+                    expected_dh=price * cfg.ttl_s / 3600.0,
+                    at=now, ttl_s=cfg.ttl_s)
         kept = [p for p in placeholders if p.uid in keep]
         dropped = len(placeholders) - len(kept)
         if dropped:

@@ -40,12 +40,19 @@ the reference's leader, readiness and controller families, `/v1/solve`
 runs under its `http.solve` span, and the server answers `/metrics` (the
 registry's exposition), `/debug/traces` (the tracer's ring, filtered by
 `?min_ms=` and `?span=`) and `/debug/pprof` (thread stacks and traces;
-403 without `--enable-profiling`) as the reference's does.  Left out, with
-the ROADMAP.md queue B item that ports them (B9, its part B9b): the flight
-recorder (with the chaos state it records), the SLO engine, the cost
-ledger and the incidents the reference publishes, and the endpoints
-`/debug/incidents`, `/debug/slo` and `/debug/ledger`, which answer 501
-naming B9.  With the Forecast gate the
+403 without `--enable-profiling`) as the reference's does.  Under the
+FlightRecorder gate the manager arms the incident bus with a
+`FlightRecorder` (obs/recorder.py) that samples the metric registry each
+tick and captures a bundle per trip, with the health, chaos, fence,
+provenance and trace context; under the SLOEngine gate it arms the SLO
+engine (sharing the recorder's ring when both gates are on) and the cost
+ledger.  Their state rides the snapshot's `incidents`, `slo` and `ledger`
+sections, `stop()` disarms them, and the server answers
+`/debug/incidents`, `/debug/incidents/<id>`, `/debug/slo` and
+`/debug/ledger` (404 with the gate off).  The elector publishes
+`leader_loss` and the parity probe `parity_mismatch`.  Sampling and
+evaluation read the host registry only: neither touches the card.  With
+the Forecast gate the
 `forecast` entry runs at `forecast_cadence_s`, and real pending pods evict
 headroom placeholders (`preempt_for_pending`) right before each
 provisioning solve.
@@ -63,15 +70,13 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+from ..obs.incidents import publish_incident
 from ..ops.classpack import DEVICE_FAULTS
 from ..utils import metrics, tracing
 from ..utils.chaos import CHAOS
 from .supervisor import BackoffPolicy, ControllerSupervisor
 
 log = logging.getLogger("karpenter_tpu_torch.manager")
-
-# endpoints of the reference whose features are not ported → ROADMAP.md item
-UNPORTED_ENDPOINTS = ("/debug/incidents", "/debug/slo", "/debug/ledger")
 
 
 class BadRequest(ValueError):
@@ -174,8 +179,9 @@ class LeaderElector:
             self._leading = False
             self.losses += 1
             metrics.leader_transitions().inc({"event": "lost"})
-            log.warning("leadership lost: %s at epoch %d (%d losses)",
-                        self.identity, self._epoch, self.losses)
+            publish_incident("leader_loss", {
+                "identity": self.identity, "epoch": self._epoch,
+                "losses": self.losses})
 
     def _write_lease(self, renewed: float, epoch: int) -> None:
         tmp = f"{self.lease_path}.{self.identity}.tmp"
@@ -403,6 +409,77 @@ class ControllerManager:
                 cloud.fence = self.fence
             if self._snapshotter is not None:
                 self._snapshotter.fence = self.fence
+        # incident flight recorder (obs/, FlightRecorder gate): metric
+        # history ring sampled each tick on this manager's injectable
+        # clock + the process-global trip-site trigger bus.  Gate off →
+        # `self.flight is None` and the bus stays disarmed, so every trip
+        # site pays one boolean check and nothing else.
+        self.flight = None
+        if opts.gate("FlightRecorder"):
+            from ..obs.recorder import FlightRecorder
+            self.flight = FlightRecorder(
+                clock,
+                cadence_s=opts.obs_sample_s,
+                window_s=opts.incident_window_s,
+                dedup_s=opts.incident_dedup_s,
+                retention=opts.incident_retention,
+                ring_slots=opts.obs_ring_slots,
+                dirpath=opts.incident_dir or None)
+            self.flight.health_cb = self.health_snapshot
+            self.flight.chaos_cb = self._chaos_state
+            self.flight.fence_cb = self._fence_state
+            self.flight.provenance_cb = self._provenance_records
+            self.flight.traces_cb = tracing.TRACER.traces
+            self.flight.arm()
+        # SLO engine + cost ledger (SLOEngine gate): recording rules over
+        # the metric ring and per-decision $·h attribution.  When both
+        # gates are on the engine reads the recorder's ring (one sampling
+        # pass, two consumers); alone it owns a private ring.  The ledger
+        # is the process-global seam the provider's launch/terminate
+        # funnels append to — armed here, disarmed in stop().
+        self.slo = None
+        if opts.gate("SLOEngine"):
+            from ..obs.ledger import LEDGER
+            from ..obs.slo import SLOEngine
+            self.slo = SLOEngine(
+                clock,
+                eval_cadence_s=opts.slo_eval_cadence_s,
+                sample_cadence_s=opts.obs_sample_s,
+                ring_slots=opts.obs_ring_slots,
+                ring=self.flight.ring if self.flight is not None else None)
+            LEDGER.arm(
+                clock,
+                retention=opts.ledger_retention,
+                drift_threshold=opts.ledger_drift_threshold)
+
+    def _chaos_state(self) -> Dict:
+        return {"enabled": CHAOS.enabled, "counts": CHAOS.counts(),
+                "fired_total": CHAOS.fired_total()}
+
+    def _fence_state(self) -> Dict:
+        out: Dict[str, object] = {
+            "epoch": self.leader.fence_epoch()
+            if self.leader is not None else None,
+            "phase": self.phase,
+            "skipped_ticks": self._skipped_ticks,
+            "midtick_aborts": self._midtick_aborts,
+            "lease_errors": self._lease_errors,
+        }
+        if self.fence is not None:
+            out["refusals"] = dict(self.fence.refusals)
+        return out
+
+    def _provenance_records(self, pods: List[str]) -> List[Dict]:
+        """Provenance context for a bundle: the named pods' records, or
+        (when the trip names none) the most recent records, bounded."""
+        store = getattr(self.operator, "provenance", None)
+        if store is None:
+            return []
+        if pods:
+            recs = [r for r in (store.get(p) for p in pods) if r is not None]
+        else:
+            recs = store.all()[-20:]
+        return [r.to_dict() for r in recs]
 
     def _nodeclass_tick(self, ctrl):
         def run():
@@ -427,6 +504,13 @@ class ControllerManager:
                 # WARN per outage, not per tick
                 self._lease_errors += 1
                 metrics.leader_lease_errors().inc()
+                # published per error, deduped per kind by the bus — a
+                # blackout window yields a tiling of bundles (window_s >
+                # dedup_s), not one per tick and not just the first
+                publish_incident("leader_loss", {
+                    "reason": "lease_io_error",
+                    "error": f"{type(err).__name__}: {err}",
+                    "lease_errors": self._lease_errors})
                 if self._lease_err_streak == 0:
                     log.warning("lease I/O failed; skipping ticks until it "
                                 "recovers: %s", err)
@@ -450,6 +534,16 @@ class ControllerManager:
     def _tick_locked(self) -> Dict[str, object]:
         now = self.clock()
         results: Dict[str, object] = {}
+        # flight-recorder history sample: cadence-bounded, read-only over
+        # the metric registry, and safe before the lease guard (a deposed
+        # replica's history is exactly what the post-mortem wants)
+        if self.flight is not None:
+            self.flight.sample()
+        # SLO recording rules ride the same cadence discipline: sample
+        # (no-op when the recorder already owns the ring), then evaluate
+        # budgets/burn-rates on the engine's own eval cadence
+        if self.slo is not None:
+            self.slo.tick()
         # mid-tick lease guard: waiting on the state lock may have eaten
         # the whole lease; a deposed tick must abort before any mutation
         if not self._lease_live():
@@ -629,6 +723,9 @@ class ControllerManager:
                 outcome = "ok" if same else "mismatch"
                 if not same:
                     arena.invalidate("parity_probe")
+                    publish_incident("parity_mismatch", {
+                        "sampled_pods": len(reps),
+                        "phase": self.phase})
                     log.error("arena parity probe FAILED: warm gather "
                               "diverges from cold tensorize; arena "
                               "invalidated")
@@ -718,6 +815,46 @@ class ControllerManager:
         self._midtick_aborts = int(data.get("midtick_aborts", 0))
         self._lease_errors = int(data.get("lease_errors", 0))
 
+    def incidents_snapshot_state(self) -> Optional[Dict]:
+        """Flight-recorder cursor + dedup state for the WarmRestart
+        snapshot (None when the FlightRecorder gate is off).  Carrying
+        the dedup clocks forward is what keeps a warm restart from
+        re-publishing incidents the predecessor already bundled."""
+        if self.flight is None:
+            return None
+        return self.flight.snapshot_state()
+
+    def incidents_restore_state(self, data: Dict) -> None:
+        if self.flight is not None and data:
+            self.flight.restore_state(data)
+
+    def slo_snapshot_state(self) -> Optional[Dict]:
+        """Error-budget state for the WarmRestart snapshot (None when the
+        SLOEngine gate is off).  Carrying the last-seen counter tips
+        forward is what lets the reset guard distinguish a restarted
+        registry from genuine new errors — no double-counting."""
+        if self.slo is None:
+            return None
+        return self.slo.snapshot_state()
+
+    def slo_restore_state(self, data: Dict) -> None:
+        if self.slo is not None and data:
+            self.slo.restore_state(data)
+
+    def ledger_snapshot_state(self) -> Optional[Dict]:
+        """Cost-ledger entries (open + closed aggregates) for the
+        WarmRestart snapshot (None when the SLOEngine gate is off)."""
+        if self.slo is None:
+            return None
+        from ..obs.ledger import LEDGER
+        return LEDGER.snapshot_state()
+
+    def ledger_restore_state(self, data: Dict) -> None:
+        if self.slo is None or not data:
+            return
+        from ..obs.ledger import LEDGER
+        LEDGER.restore_state(data)
+
     def gang_snapshot_state(self) -> Optional[Dict]:
         """Gang admission registry for the WarmRestart snapshot (None when
         the GangScheduling gate is off).  Every gang is either fully
@@ -762,6 +899,11 @@ class ControllerManager:
                 except Exception:
                     log.warning("lease release failed during drain",
                                 exc_info=True)
+        if self.flight is not None:
+            self.flight.disarm()
+        if self.slo is not None:
+            from ..obs.ledger import LEDGER
+            LEDGER.disarm()
         if self._http is not None:
             self._http.shutdown()
             self._http.server_close()
@@ -957,12 +1099,6 @@ class ControllerManager:
             def do_GET(self):
                 from urllib.parse import parse_qs, urlparse
                 url = urlparse(self.path)
-                if any(url.path == p or url.path.startswith(p + "/")
-                       for p in UNPORTED_ENDPOINTS):
-                    self._json({"error": f"{url.path} is not ported yet "
-                                         "(ROADMAP.md queue B, item B9)"},
-                               501)
-                    return
                 if self.path == "/metrics":
                     body = metrics.REGISTRY.expose().encode()
                     ctype = "text/plain; version=0.0.4"
@@ -979,6 +1115,50 @@ class ControllerManager:
                     span = query.get("span", [None])[0]
                     self._json({"traces":
                                 tracing.TRACER.traces(min_ms, span=span)})
+                    return
+                elif url.path == "/debug/incidents":
+                    # flight-recorder bundle index + bus/ring counters
+                    if manager.flight is None:
+                        self._json({"error": "flight recorder disabled; "
+                                             "start with --flight-recorder"},
+                                   404)
+                        return
+                    self._json(manager.flight.summary())
+                    return
+                elif url.path.startswith("/debug/incidents/"):
+                    # one full forensic bundle by id
+                    if manager.flight is None:
+                        self._json({"error": "flight recorder disabled; "
+                                             "start with --flight-recorder"},
+                                   404)
+                        return
+                    bid = url.path[len("/debug/incidents/"):]
+                    bundle = manager.flight.get_bundle(bid)
+                    if bundle is None:
+                        self._json({"error": f"no bundle {bid!r}"}, 404)
+                        return
+                    self._json(bundle)
+                    return
+                elif url.path == "/debug/slo":
+                    # per-SLO error budgets + multi-window burn rates
+                    if manager.slo is None:
+                        self._json({"error": "SLO engine disabled; "
+                                             "start with --slo-engine"},
+                                   404)
+                        return
+                    self._json(manager.slo.summary())
+                    return
+                elif url.path == "/debug/ledger":
+                    # per-decision cost attribution + drift rollup
+                    if manager.slo is None:
+                        self._json({"error": "cost ledger disabled; "
+                                             "start with --slo-engine"},
+                                   404)
+                        return
+                    from ..obs.ledger import LEDGER
+                    out = LEDGER.summary(manager.clock())
+                    out["recent"] = LEDGER.recent(20)
+                    self._json(out)
                     return
                 elif url.path == "/debug/health":
                     # supervisor circuits + solver degradation ladder

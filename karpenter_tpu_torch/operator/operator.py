@@ -20,12 +20,11 @@ admits manifests as the reference's does, and `state_lock` (a
 `threading.RLock`) is the one lock the controller manager's ticks and that
 surface share.
 
-Not ported yet, and raising NotImplementedError that names the item of
-ROADMAP.md's queue B (`options.check_ported`): FlightRecorder and SLOEngine
-(B9, its part B9b).  WarmRestart and HAFailover are read by the controller manager
-(operator/manager.py): its snapshot writer and restore use `raw_cloud`
-(the FakeCloud under the BatchedCloud), and under HAFailover it hands its
-fence to `cloud_provider`.  The Forecast gate wires the
+WarmRestart, HAFailover, FlightRecorder and SLOEngine are read by the
+controller manager (operator/manager.py): its snapshot writer and restore
+use `raw_cloud` (the FakeCloud under the BatchedCloud), under HAFailover it
+hands its fence to `cloud_provider`, and the last two arm its flight
+recorder, SLO engine and cost ledger.  The Forecast gate wires the
 HeadroomController, its DemandSeries as the cluster's observer and the
 spot-risk prior to the interruption controller; GangScheduling turns on
 the Provisioner's gang admission and hands its preemption plans to the
@@ -80,7 +79,7 @@ from ..utils.events import Recorder
 from ..utils import metrics, tracing
 from ..utils.provenance import ProvenanceStore
 from ..utils.chaos import maybe_configure_from_options
-from .options import Options, check_ported
+from .options import Options
 
 log = logging.getLogger("karpenter_tpu_torch.operator")
 
@@ -99,7 +98,6 @@ class Operator:
                  clock: Callable[[], float] = time.time,
                  device="cuda"):
         self.options = options or Options()
-        check_ported(self.options)
         self.device = resolve_device(device)
         self.clock = clock
         # identity check, not truthiness: FakeQueue defines __len__, so an

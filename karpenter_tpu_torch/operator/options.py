@@ -5,25 +5,23 @@ defaults.
 A trimmed copy of the JAX package's `operator/options.py` (which
 re-implements karpenter:pkg/operator/options/options.go:53-63).
 Precedence is the reference's: explicit flag > env var > default.
-`from_args` parses the reference's whole command line and refuses every
-flag set away from its default whose reader the port does not have,
-naming the ROADMAP.md queue B item that ports it: the incident, obs, SLO
-and ledger flags (B9b).  `--log-format`, `--trace-slow-ms` and
-`--enable-profiling` (and their env defaults) are read as the reference's:
-`__main__` configures logging from the first, `Operator` sets the tracer's
-slow-span threshold from the second, and the manager serves
-`/debug/pprof` only with the third.  The durability and HA flags are read as the
-reference's: `--warm-restart` and `--ha-failover` turn their gates on
+`from_args` parses the reference's whole command line.  `--log-format`,
+`--trace-slow-ms` and `--enable-profiling` (and their env defaults) are
+read as the reference's: `__main__` configures logging from the first,
+`Operator` sets the tracer's slow-span threshold from the second, and the
+manager serves `/debug/pprof` only with the third.  The durability and HA
+flags are read as the reference's: `--warm-restart` and `--ha-failover` turn their gates on
 (`--ha-failover` also `leader_elect`), `--leader-elect`, `--lease-path`,
 `--lease-ttl`, `--snapshot-path` and `--snapshot-interval` set their
-fields.  The four options the JAX package parses and never
+fields.  The flight-recorder, SLO-engine and ledger flags are read as the
+reference's: `--flight-recorder` and `--slo-engine` turn their gates on,
+the `--incident-*`, `--obs-*`, `--slo-eval-cadence` and `--ledger-*` flags
+set their fields.  The four options the JAX package parses and never
 reads (`--vm-memory-overhead-percent`, `--reserved-enis`, `--health-port`,
-the env's tags) are not parsed: argparse refuses those flags.  A gate
-whose feature is not ported is refused by `check_ported`, at the end of
-`from_args` and in `Operator`.  The legacy settings merge
-(`merge_settings`) has no caller in the JAX package and is left out.  A
-field this dataclass does not have is refused at construction, never
-silently ignored.
+the env's tags) are not parsed: argparse refuses those flags.  The legacy
+settings merge (`merge_settings`) has no caller in the JAX package and is
+left out.  A field this dataclass does not have is refused at
+construction, never silently ignored.
 """
 
 from __future__ import annotations
@@ -48,20 +46,6 @@ FEATURE_GATES: Dict[str, bool] = {
     "IngestBatch": False, "DeviceDecode": False, "DeviceLP": False,
     "HAFailover": False, "FlightRecorder": False, "SLOEngine": False,
     "GangScheduling": False}
-
-# feature gate → the ROADMAP.md queue B item that ports it
-UNPORTED_GATES = {"FlightRecorder": "B9", "SLOEngine": "B9"}
-
-# the reference's command-line options the port does not read → (the value
-# that leaves them off, the ROADMAP.md queue B item that ports their reader)
-UNPORTED_FLAGS = {
-    "flight_recorder": (False, "B9"),
-    "incident_dir": ("", "B9"), "incident_window_s": (600.0, "B9"),
-    "incident_dedup_s": (300.0, "B9"), "incident_retention": (32, "B9"),
-    "obs_sample_s": (30.0, "B9"), "obs_ring_slots": (512, "B9"),
-    "slo_engine": (False, "B9"), "slo_eval_cadence_s": (60.0, "B9"),
-    "ledger_retention": (256, "B9"), "ledger_drift_threshold": (0.15, "B9"),
-}
 
 # fields with no command-line flag: a scenario's `forecast:` block sets
 # them (sim/harness.py), as in the reference, whose from_args never reads
@@ -110,19 +94,6 @@ def _parse_kv_list(raw: str, into: Dict, cast=lambda v: v) -> None:
         into[k.strip()] = cast(v.strip())
 
 
-def _refusal(what: str, item: str) -> str:
-    return f"{what} (ROADMAP.md queue B, item {item})"
-
-
-def check_ported(options: "Options") -> None:
-    """Raise NotImplementedError naming every gate `options` turns on
-    whose feature is not ported yet, with its ROADMAP.md item."""
-    off = [_refusal(f"the {gate} gate", item)
-           for gate, item in UNPORTED_GATES.items() if options.gate(gate)]
-    if off:
-        raise NotImplementedError(f"{', '.join(off)} is not ported yet")
-
-
 @dataclass
 class Options:
     cluster_name: str = "default"
@@ -165,6 +136,17 @@ class Options:
     lease_path: str = ""                    # lease file ("" = derive from
                                             # the cluster name in tmpdir)
     lease_ttl_s: float = 15.0               # leadership lease TTL
+    # flight-recorder knobs (FlightRecorder gate, obs/recorder.py)
+    obs_sample_s: float = 30.0              # metric-ring sampling cadence
+    obs_ring_slots: int = 512               # bounded ring capacity
+    incident_window_s: float = 600.0        # forensic lookback per bundle
+    incident_dedup_s: float = 300.0         # per-kind publish rate limit
+    incident_retention: int = 32            # bundles kept (memory + disk)
+    incident_dir: str = ""                  # bundle directory ("" = memory-only)
+    # SLO-engine + cost-ledger knobs (SLOEngine gate, obs/slo.py, obs/ledger.py)
+    slo_eval_cadence_s: float = 60.0        # recording-rule evaluation cadence
+    ledger_retention: int = 256             # closed ledger entries kept
+    ledger_drift_threshold: float = 0.15    # |realized-expected|/expected trip
     # forecast/headroom knobs (read only with the Forecast gate on); the
     # first five have flags, the rest come from a scenario's forecast block
     forecast_cadence_s: float = 30.0       # HeadroomController reconcile cadence
@@ -180,7 +162,7 @@ class Options:
     @classmethod
     def from_args(cls, argv: Optional[Sequence[str]] = None) -> "Options":
         """Parse the reference's flags with env-var defaults (options.go
-        AddFlags), refusing those whose reader the port lacks."""
+        AddFlags)."""
         env = cls._env_defaults()
         p = argparse.ArgumentParser(prog="karpenter-tpu")
         p.add_argument("--cluster-name",
@@ -288,40 +270,55 @@ class Options:
         p.add_argument("--lease-path", default=env.get("lease_path", ""))
         p.add_argument("--lease-ttl", type=float, dest="lease_ttl_s",
                        default=env.get("lease_ttl_s", 15.0))
-        p.add_argument("--flight-recorder", action="store_true",
-                       default=False)
-        p.add_argument("--incident-dir", default=env.get("incident_dir", ""))
+        p.add_argument("--flight-recorder", action="store_true", default=False,
+                       help="arm the incident flight recorder: metric "
+                            "history ring + trip-site trigger bus + "
+                            "forensic bundles (shorthand for "
+                            "--feature-gates FlightRecorder=true)")
+        p.add_argument("--incident-dir",
+                       default=env.get("incident_dir", ""),
+                       help="directory for forensic incident bundles "
+                            "(empty keeps them in-memory only)")
         p.add_argument("--incident-window", type=float,
                        dest="incident_window_s",
-                       default=env.get("incident_window_s", 600.0))
+                       default=env.get("incident_window_s", 600.0),
+                       help="seconds of metric/trace history folded into "
+                            "each forensic bundle")
         p.add_argument("--incident-dedup", type=float,
                        dest="incident_dedup_s",
-                       default=env.get("incident_dedup_s", 300.0))
+                       default=env.get("incident_dedup_s", 300.0),
+                       help="per-kind incident rate-limit window in seconds")
         p.add_argument("--incident-retention", type=int,
-                       default=env.get("incident_retention", 32))
+                       default=env.get("incident_retention", 32),
+                       help="forensic bundles retained (memory and disk)")
         p.add_argument("--obs-sample", type=float, dest="obs_sample_s",
-                       default=env.get("obs_sample_s", 30.0))
+                       default=env.get("obs_sample_s", 30.0),
+                       help="metric history ring sampling cadence in seconds")
         p.add_argument("--obs-ring-slots", type=int,
-                       default=env.get("obs_ring_slots", 512))
-        p.add_argument("--slo-engine", action="store_true", default=False)
+                       default=env.get("obs_ring_slots", 512),
+                       help="metric history ring capacity in samples")
+        p.add_argument("--slo-engine", action="store_true", default=False,
+                       help="arm the SLO engine + per-decision cost "
+                            "ledger: error budgets, burn-rate alerts, "
+                            "and $·h attribution (shorthand for "
+                            "--feature-gates SLOEngine=true)")
         p.add_argument("--slo-eval-cadence", type=float,
                        dest="slo_eval_cadence_s",
-                       default=env.get("slo_eval_cadence_s", 60.0))
+                       default=env.get("slo_eval_cadence_s", 60.0),
+                       help="seconds between SLO recording-rule "
+                            "evaluations")
         p.add_argument("--ledger-retention", type=int,
-                       default=env.get("ledger_retention", 256))
+                       default=env.get("ledger_retention", 256),
+                       help="closed cost-ledger entries retained")
         p.add_argument("--ledger-drift-threshold", type=float,
-                       default=env.get("ledger_drift_threshold", 0.15))
+                       default=env.get("ledger_drift_threshold", 0.15),
+                       help="relative expected-vs-realized $·h drift per "
+                            "nodepool that trips a cost_drift incident")
         p.add_argument("--gang-scheduling", action="store_true",
                        default=False)
         p.add_argument("--feature-gates", default="",
                        help="comma list Gate=true|false")
         ns = p.parse_args(argv)
-        off = [_refusal(f"--{dest.replace('_', '-')}={getattr(ns, dest)!r}",
-                        item)
-               for dest, (default, item) in UNPORTED_FLAGS.items()
-               if getattr(ns, dest) != default]
-        if off:
-            raise NotImplementedError(f"{', '.join(off)} is not ported yet")
         opts = cls(**{f.name: getattr(ns, f.name) for f in fields(cls)
                       if f.name != "feature_gates"
                       and f.name not in SCENARIO_ONLY_FIELDS})
@@ -337,6 +334,8 @@ class Options:
                            ("warm_restart", "WarmRestart"),
                            ("ingest_batch", "IngestBatch"),
                            ("ha_failover", "HAFailover"),
+                           ("flight_recorder", "FlightRecorder"),
+                           ("slo_engine", "SLOEngine"),
                            ("gang_scheduling", "GangScheduling")):
             if getattr(ns, flag):
                 opts.feature_gates[gate] = True
@@ -344,7 +343,6 @@ class Options:
             opts.leader_elect = True  # fencing is meaningless without a lease
         _parse_kv_list(ns.feature_gates, opts.feature_gates,
                        cast=lambda v: v.lower() != "false")
-        check_ported(opts)
         return opts
 
     @staticmethod

@@ -17,15 +17,15 @@ supervisor gives each `_entries` controller an isolated failure budget:
   * every OTHER controller keeps its normal interval throughout — the
     skip happens per entry inside the tick, never by stalling the tick.
 
-State is exported via `/debug/health` snapshots and a "controller
-quarantined: <last error>" Recorder event when the circuit opens.
+State is exported via gauges (only written on the failure/recovery path),
+`/debug/health` snapshots, a "controller quarantined: <last error>"
+Recorder event and a `circuit_open` incident when the circuit opens.
 
-A copy of the JAX package's `operator/supervisor.py`, its gauges and
-counters included, without the `circuit_open` incident (ROADMAP.md queue B,
-item B9b);
+A copy of the JAX package's `operator/supervisor.py`;
 `snapshot_state` / `restore_state` are each supervisor's part of the
-warm-restart snapshot (state/snapshot.py).  The manager never books a fault of the card or of a
-kernel here: it re-raises them first (`manager.ControllerManager`).
+warm-restart snapshot (state/snapshot.py).  The manager never books a fault
+of the card or of a kernel here: it re-raises them first
+(`manager.ControllerManager`).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import zlib
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+from ..obs.incidents import publish_incident
 from ..utils import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.supervisor")
@@ -135,6 +136,9 @@ class ControllerSupervisor:
         self._set_state(OPEN)
         self.total_quarantines += 1
         metrics.supervisor_quarantines().inc({"controller": self.name})
+        publish_incident("circuit_open", {
+            "controller": self.name, "failures": self.failures,
+            "last_error": self.last_error, "retry_at": self.retry_at})
         msg = f"controller quarantined: {self.last_error}"
         log.warning("%s: %s (%d consecutive failures, retry at %.1f)",
                     self.name, msg, self.failures, self.retry_at)

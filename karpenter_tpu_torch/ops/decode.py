@@ -20,8 +20,8 @@ same float total.
 slab-assembly failure falls back to host assembly over
 `slab_to_assignment` (no second kernel launch) and demotes the device path
 for a doubling backoff window.  Every transition is logged, tallied and
-counted in the reference's decode families; its `decode_demotion` incident
-is left out (ROADMAP.md queue B item B9b).
+counted in the reference's decode families, and each demotion publishes a
+`decode_demotion` incident (obs/incidents.py).
 `assemble_slab_sharded` is the mesh drivers' assembler over the shard-major
 stitched slabs, and `merge_residual_used` charges the mesh pass's
 existing-node fills before the residual reconcile.
@@ -35,6 +35,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..obs.incidents import publish_incident
 from ..utils import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.decode")
@@ -117,6 +118,10 @@ class DecodeHealth:
         key = f"{event}:{reason}"
         self.transitions[key] = self.transitions.get(key, 0) + 1
         metrics.decode_transitions().inc({"event": event, "reason": reason})
+        if event != "recovered":
+            publish_incident("decode_demotion", {
+                "reason": reason, "demotions": self.demotions,
+                "transitions": dict(self.transitions)})
         if event == "recovered":
             log.info("device decode recovered")
 

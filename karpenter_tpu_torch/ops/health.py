@@ -17,8 +17,9 @@ ladder (`lp_ladder`: device_lp ──▶ highs).  The ladder state round-trips
 through `snapshot_state` / `restore_state`; `snapshot()` is the reference's
 deterministic /debug/health view.  Every transition is logged, annotated
 onto the active span, tallied in `transitions` and counted in
-karpenter_degradation_transitions_total{from,to,reason}; the reference's
-`solver_demotion` incident is left out (ROADMAP.md queue B item B9b).
+karpenter_degradation_transitions_total{from,to,reason}; each demotion
+publishes a `solver_demotion` incident (obs/incidents.py).  A device fault
+never reaches the ladder, so it never publishes one.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
+from ..obs.incidents import publish_incident
 from ..utils import metrics, tracing
 
 log = logging.getLogger("karpenter_tpu_torch.health")
@@ -132,6 +134,10 @@ class SolverHealth:
         self.transitions[key] = self.transitions.get(key, 0) + 1
         metrics.degradation_transitions().inc(
             {"from": frm, "to": to, "reason": reason})
+        if reason != "recovered":
+            publish_incident("solver_demotion", {
+                "from": frm, "to": to, "reason": reason,
+                "transitions": dict(self.transitions)})
         tracing.annotate(degradation=key)
         if reason == "recovered":
             log.info("solver ladder: rung %s recovered", frm)

@@ -23,9 +23,7 @@ Layout:
                   time-to-bind percentiles, churn, SLO/provenance rollups).
 
 CLI: ``python -m karpenter_tpu_torch.sim scenarios/diurnal.yaml --seed 0``.
-See docs/simulation.md for the schema and report glossary; the port
-refuses the blocks and overrides of features it has not ported yet
-(scenario.UNPORTED_BLOCKS, harness.UNPORTED_OVERRIDES).
+See docs/simulation.md for the schema and report glossary.
 """
 
 from .clock import EventHeap, VirtualClock

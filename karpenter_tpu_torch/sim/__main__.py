@@ -6,9 +6,7 @@ Prints the deterministic report JSON to stdout (or --out); the wall-clock
 speedup line goes to stderr so piping stdout stays byte-stable across
 runs.  --log writes the append-only event log as JSON lines.  The
 controllers solve on the card; `main(argv, device="cpu")` is how a test
-runs the CLI on the CPU (the command line has no such flag).  The
-reference's --flight-recorder and --slo flags are refused, naming
-ROADMAP.md queue B item B9.
+runs the CLI on the CPU (the command line has no such flag).
 """
 
 from __future__ import annotations
@@ -39,9 +37,12 @@ def main(argv=None, device="cuda") -> int:
     p.add_argument("-v", "--verbose", action="store_true",
                    help="INFO-level controller logging")
     p.add_argument("--flight-recorder", action="store_true",
-                   help="not ported yet (ROADMAP.md queue B, item B9)")
+                   help="arm the incident flight recorder (FlightRecorder "
+                        "gate): the report grows an `incidents` section")
     p.add_argument("--slo", action="store_true",
-                   help="not ported yet (ROADMAP.md queue B, item B9)")
+                   help="arm the SLO engine + cost ledger (SLOEngine "
+                        "gate): the report grows `slo.budgets` and "
+                        "`ledger` sections")
     args = p.parse_args(argv)
 
     logging.basicConfig(

@@ -42,9 +42,10 @@ lease lives in a temporary directory the harness owns; `warm_restart`
 overrides the WarmRestart gate (no snapshot path: the gate alone changes
 nothing in a run, as in the reference).
 
-Left out, with the ROADMAP.md queue B item that ports them: FlightRecorder
-and SLOEngine with the cost ledger (B9b).  Setting
-one of those overrides to True raises NotImplementedError naming its item.
+The `flight_recorder` override turns the FlightRecorder gate on, and a
+scenario's `slo:` block (or the `slo` override) the SLOEngine gate with its
+cost ledger; both run on the virtual clock, and `run()` disarms the
+process-global incident bus and ledger when it ends.
 """
 
 from __future__ import annotations
@@ -72,9 +73,6 @@ from ..utils.chaos import CHAOS, ChaosRule
 from . import events as ev
 from .clock import EventHeap, VirtualClock
 from .scenario import Scenario, expand
-
-# harness overrides whose features are not ported → ROADMAP.md queue B item
-UNPORTED_OVERRIDES = {"flight_recorder": "B9", "slo": "B9"}
 
 log = logging.getLogger("karpenter_tpu_torch.sim")
 
@@ -157,17 +155,16 @@ class SimHarness:
         `ha.enabled` decides (default off): a virtual-clock LeaderElector
         is wired into the manager so lease expiry, fencing refusals, and
         `leader.lease` chaos replay deterministically, and the report
-        grows an `ha` section.  `flight_recorder` and `slo` are the
-        reference's overrides of gates the port has not ported: True
-        raises NotImplementedError naming the item.  `device` is where
-        the controllers solve ("cuda" by default; "cpu" runs the kernels'
-        plain versions)."""
-        asked = dict(flight_recorder=flight_recorder, slo=slo)
-        off = [f"the {name} override (ROADMAP.md queue B, item {item})"
-               for name, item in UNPORTED_OVERRIDES.items() if asked[name]]
-        if off:
-            raise NotImplementedError(
-                f"SimHarness: {', '.join(off)} is not ported yet")
+        grows an `ha` section.  `flight_recorder` overrides the
+        FlightRecorder gate (default off): the incident bus arms, the
+        metric ring samples on the virtual clock, and the report grows a
+        gated `incidents` section.  `slo` overrides the SLOEngine gate,
+        else the scenario's `slo.enabled` decides (default off): error
+        budgets and the cost ledger run on the virtual clock and the report
+        grows gated `slo.budgets`, `ledger` and cost-breakdown sections.
+        Every golden is recorded with both off.  `device` is where the
+        controllers solve ("cuda" by default; "cpu" runs the kernels' plain
+        versions)."""
         if duration_s is not None:
             scenario = replace(scenario, duration_s=float(duration_s))
         scenario.validate()
@@ -195,6 +192,18 @@ class SimHarness:
                             ("DeviceLP", device_lp)):
             if value is not None:
                 opts.feature_gates[gate] = bool(value)
+        self._fr_enabled = bool(flight_recorder) \
+            if flight_recorder is not None else False
+        if self._fr_enabled:
+            opts.feature_gates["FlightRecorder"] = True
+        ss = scenario.slo
+        self._slo_enabled = bool(slo) if slo is not None \
+            else (ss is not None and ss.enabled)
+        if self._slo_enabled:
+            opts.feature_gates["SLOEngine"] = True
+            if ss is not None:
+                opts.slo_eval_cadence_s = ss.eval_cadence_s
+                opts.ledger_drift_threshold = ss.drift_threshold
         gs = scenario.gang
         self._gang_enabled = bool(gang) if gang is not None \
             else (gs is not None and gs.enabled)
@@ -479,6 +488,13 @@ class SimHarness:
                 self._reclaims_honored += 1
             else:
                 self._reclaims_forced += 1
+                # a forced reclaim killed the instance without passing
+                # through the provider's delete funnel — close its ledger
+                # entry here or its realized $·h would accrue forever
+                from ..obs.ledger import LEDGER
+                if LEDGER.enabled:
+                    LEDGER.record_close(rec["instance"], at=rec["at"],
+                                        reason="spot_reclaim")
             metrics.sim_reclaims().inc(
                 {"honored": "true" if honored else "false"})
             self._log(rec["at"], {"kind": "spot_reclaim_fired",
@@ -590,6 +606,21 @@ class SimHarness:
 
     # ------------------------------------------------------------------
     def run(self) -> SimRun:
+        try:
+            return self._run_gated()
+        finally:
+            # the incident bus is process-global: it must not stay armed
+            # past this run, or the next harness/test would publish into
+            # a recorder whose clock and ring are gone
+            if self._fr_enabled and self.mgr.flight is not None:
+                self.mgr.flight.disarm()
+            # likewise the cost ledger — but only after build_report read
+            # its summary (report building happens inside the try)
+            if self._slo_enabled:
+                from ..obs.ledger import LEDGER
+                LEDGER.disarm()
+
+    def _run_gated(self) -> SimRun:
         if not self._chaos_enabled:
             return self._run_loop()
         ch = self.scenario.chaos

@@ -8,10 +8,8 @@ two same-seed runs serialize byte-identically; they live on `SimRun`
 instead.
 
 A copy of the JAX package's `sim/report.py` with every ungated section and
-the gated `forecast`, `chaos`, `ha` and `gang` sections.  The other gated
-sections come with their feature: `incidents`, `slo.budgets`, `ledger` and
-the cost breakdowns (ROADMAP.md queue B item B9); the harness refuses the
-scenarios and overrides that would turn them on.
+the gated `forecast`, `chaos`, `ha`, `incidents`, `slo.budgets`, `ledger`,
+cost-breakdown and `gang` sections.
 """
 
 from __future__ import annotations
@@ -186,9 +184,40 @@ def build_report(harness) -> Dict:
             "fence_refusals": dict(sorted(fence.refusals.items()))
             if fence is not None else {},
         }
+    if getattr(harness, "_fr_enabled", False) and \
+            getattr(harness.mgr, "flight", None) is not None:
+        # present ONLY when the FlightRecorder gate ran — same conditional
+        # contract as forecast/chaos/ha, so every recorder-off report
+        # (all pre-existing goldens) stays byte-identical.  The summary is
+        # deterministic: bundle ids are virtual-clock millisecond stamps,
+        # dedup windows follow the same clock, and no wall-clock payloads
+        # (trace timings, health latencies) are included.
+        report["incidents"] = harness.mgr.flight.summary()
+    if getattr(harness, "_slo_enabled", False) and \
+            getattr(harness.mgr, "slo", None) is not None:
+        # present ONLY when the SLOEngine gate ran — same conditional
+        # contract as forecast/chaos/ha/incidents, so every gate-off
+        # report (all pre-existing goldens) stays byte-identical.  The
+        # budgets ride as a sub-key of the existing "slo" section (which
+        # every golden already carries); "ledger" and the cost breakdowns
+        # are new keys and therefore safely absent gate-off.  The ledger
+        # summary is taken at the sim-end clock so open entries accrue to
+        # exactly the instant the cost integral stopped — per-source
+        # expected $·h sums match `cost.dollar_hours` to within the
+        # launch-intent-vs-landing (ICE) divergence.
+        from ..obs.ledger import LEDGER
+        report["slo"]["budgets"] = harness.mgr.slo.summary()
+        ledger_sum = LEDGER.summary(harness.clock.now())
+        report["ledger"] = ledger_sum
+        report["cost"]["by_nodepool"] = {
+            k: v["realized_dh"]
+            for k, v in ledger_sum["by_nodepool"].items()}
+        report["cost"]["by_decision_source"] = {
+            k: v["realized_dh"]
+            for k, v in ledger_sum["by_decision_source"].items()}
     if getattr(harness, "_gang_enabled", False):
         # present ONLY when the GangScheduling gate ran — same conditional
-        # contract as forecast and chaos, so every gate-off
+        # contract as forecast/chaos/ha/incidents/slo, so every gate-off
         # report (all pre-existing goldens) stays byte-identical.  The
         # time-to-full percentiles come from the harness sampler (virtual
         # clock); admission/preemption counters from the provisioner's

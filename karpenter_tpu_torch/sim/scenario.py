@@ -2,9 +2,8 @@
 
 A copy of the JAX package's `sim/scenario.py` with its `forecast:`,
 `chaos:` (a seeded fault schedule for utils/chaos.py), `ha:` (the fenced
-leadership drill) and `gang:` blocks, and without the block whose feature
-the port does not have yet: a document with an `slo:` block (ROADMAP.md
-queue B item B9) is refused with NotImplementedError naming the item.
+leadership drill), `slo:` (the SLO engine and cost ledger) and `gang:`
+blocks.
 
 A scenario is a YAML document (or the `Scenario` dataclass directly)
 describing what hits the cluster over a virtual-time window:
@@ -300,6 +299,23 @@ class HASpec:
 
 
 @dataclass
+class SLOSpec:
+    """SLO engine + cost ledger configuration for a scenario.
+    `enabled: true` turns the SLOEngine gate on for the simulated
+    operator: recording rules evaluate over the virtual clock and the
+    report grows gated `slo.budgets` / `ledger` sections."""
+    enabled: bool = True
+    eval_cadence_s: float = 60.0
+    drift_threshold: float = 0.15
+
+    def validate(self) -> None:
+        if self.eval_cadence_s <= 0:
+            raise ScenarioError("slo: eval_cadence_s must be positive")
+        if self.drift_threshold <= 0:
+            raise ScenarioError("slo: drift_threshold must be positive")
+
+
+@dataclass
 class GangSpec:
     """Gang scheduling configuration for a scenario (docs/gang.md).
     `enabled: true` turns the GangScheduling gate on for the simulated
@@ -337,6 +353,8 @@ class Scenario:
     chaos: Optional[ChaosSpec] = None
     # fenced leadership drill (None = HAFailover gate stays off)
     ha: Optional[HASpec] = None
+    # SLO recording rules + cost ledger (None = SLOEngine gate stays off)
+    slo: Optional[SLOSpec] = None
     # gang scheduling (None = GangScheduling gate stays off)
     gang: Optional[GangSpec] = None
 
@@ -364,6 +382,8 @@ class Scenario:
             self.chaos.validate()
         if self.ha is not None:
             self.ha.validate()
+        if self.slo is not None:
+            self.slo.validate()
         if self.gang is not None:
             self.gang.validate()
         names = [w.name for w in self.workload]
@@ -407,12 +427,11 @@ _CHAOS_RULE_FIELDS = {
     "point": str, "key": str, "action": str, "rate": float, "at_s": float,
     "until_s": float, "latency_s": float, "count": int, "error_code": str,
 }
-# scenario blocks whose features are not ported yet → the ROADMAP.md queue
-# B item that ports each; a document carrying one is refused, never run
-# with the block dropped
-UNPORTED_BLOCKS = {"slo": "B9"}
 _HA_FIELDS = {
     "enabled": bool, "ttl_s": float,
+}
+_SLO_FIELDS = {
+    "enabled": bool, "eval_cadence_s": float, "drift_threshold": float,
 }
 _GANG_FIELDS = {
     "enabled": bool,
@@ -445,18 +464,11 @@ def scenario_from_dict(doc: Dict) -> Scenario:
         raise ScenarioError(f"scenario document must be a mapping, "
                             f"got {type(doc).__name__}")
     known = {"name", "zones", "intervals", "workload", "faults",
-             "forecast", "chaos", "ha", "gang", *UNPORTED_BLOCKS,
-             *_SCENARIO_SCALARS}
+             "forecast", "chaos", "ha", "slo", "gang", *_SCENARIO_SCALARS}
     for key in doc:
         if key not in known:
             raise ScenarioError(f"unknown scenario field {key!r} "
                                 f"(expected one of {sorted(known)})")
-    off = [f"the {key}: block (ROADMAP.md queue B, item {item})"
-           for key, item in UNPORTED_BLOCKS.items() if doc.get(key) is not None]
-    if off:
-        raise NotImplementedError(
-            f"scenario {doc.get('name', '')!r}: {', '.join(off)} is not "
-            "ported yet")
     kw = _coerce("scenario", doc, _SCENARIO_SCALARS)
     kw["name"] = str(doc.get("name", ""))
     if "zones" in doc:
@@ -531,6 +543,14 @@ def scenario_from_dict(doc: Dict) -> Scenario:
             if key not in _HA_FIELDS:
                 raise ScenarioError(f"ha: unknown field {key!r}")
         kw["ha"] = HASpec(**_coerce("ha", hdoc, _HA_FIELDS))
+    if doc.get("slo") is not None:
+        sdoc = doc["slo"]
+        if not isinstance(sdoc, dict):
+            raise ScenarioError("slo must be a mapping")
+        for key in sdoc:
+            if key not in _SLO_FIELDS:
+                raise ScenarioError(f"slo: unknown field {key!r}")
+        kw["slo"] = SLOSpec(**_coerce("slo", sdoc, _SLO_FIELDS))
     if doc.get("gang") is not None:
         gdoc = doc["gang"]
         if not isinstance(gdoc, dict):

@@ -46,8 +46,11 @@ appearance.
 Writes and restores feed the reference's snapshot families;
 `restore_snapshot` also returns its outcome, and `SnapshotWriter` keeps its
 write outcomes (`writes`), the last file's size and the last write's host
-time.  The reference's `snapshot_fallback` incident is left out (ROADMAP.md
-queue B, item B9b).
+time.  A cold fallback publishes a `snapshot_fallback` incident
+(obs/incidents.py).  The flight recorder's, the SLO engine's and the cost
+ledger's sections (`incidents`, `slo`, `ledger`) are written only with
+their gates on, so a gate-off snapshot is byte-identical to one written
+before they existed.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ import pickle
 import time
 from typing import Dict, Iterable, Optional, Tuple
 
+from ..obs.incidents import publish_incident
 from ..utils import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.snapshot")
@@ -157,6 +161,15 @@ def collect_sections(op, manager=None) -> Dict:
         ha = getattr(manager, "ha_snapshot_state", None)
         if ha is not None:
             sections["leader"] = ha()
+        # flight-recorder cursor + bus dedup state (FlightRecorder gate),
+        # SLO error budgets and cost-ledger entries (SLOEngine gate): each
+        # hook returns None when its gate is off, keeping gate-off
+        # snapshots byte-identical
+        for key in ("incidents", "slo", "ledger"):
+            hook = getattr(manager, f"{key}_snapshot_state", None)
+            state = hook() if hook is not None else None
+            if state is not None:
+                sections[key] = state
         # gang admission registry (GangScheduling gate): None when the gate
         # is off, keeping gate-off snapshots as they were — a restart can
         # never observe a half-admitted gang because admission is atomic
@@ -265,6 +278,8 @@ def restore_snapshot(path: str, op, manager=None) -> str:
         log.warning("snapshot restore from %s: cold fallback (%s)",
                     path, reason)
         metrics.snapshot_restores().inc({"outcome": reason})
+        publish_incident("snapshot_fallback", {"outcome": reason,
+                                               "path": path})
         return reason
     # pre-state for rollback: a half-applied restore must never leave a
     # structurally invalid cluster, so on any apply exception the hydrated
@@ -285,6 +300,8 @@ def restore_snapshot(path: str, op, manager=None) -> str:
         if op.cluster.arena is not None:
             op.cluster.arena.invalidate("restore_failed")
         metrics.snapshot_restores().inc({"outcome": "apply_error"})
+        publish_incident("snapshot_fallback", {"outcome": "apply_error",
+                                               "path": path})
         return "apply_error"
     age = max(0.0, op.clock() - float(sections["meta"]["written_at"]))
     metrics.snapshot_restores().inc({"outcome": "restored"})
@@ -341,6 +358,10 @@ def _apply_sections(sections: Dict, op, manager=None) -> None:
     ha = getattr(manager, "ha_restore_state", None)
     if ha is not None and sections.get("leader") is not None:
         ha(sections["leader"])
+    for key in ("incidents", "slo", "ledger"):
+        hook = getattr(manager, f"{key}_restore_state", None)
+        if hook is not None and sections.get(key) is not None:
+            hook(sections[key])
     gang = getattr(manager, "gang_restore_state", None)
     if gang is not None and sections.get("gang") is not None:
         gang(sections["gang"])

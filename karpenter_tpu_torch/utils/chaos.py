@@ -13,9 +13,10 @@ Injection points are a closed registry (`POINTS`).  The `key` argument is
 the dynamic discriminator within a point (controller name, solver rung,
 cloud API name), so one rule can target `controller.reconcile` for just
 `disruption`.  `leader.lease` is the LeaderElector's seam (key "acquire"
-or "release", operator/manager.py); the `refinery.refine` seam comes with
-the feature that calls it (ROADMAP.md queue B item B9b).  Every injection
-is counted in karpenter_chaos_injections_total{point, action}.
+or "release", operator/manager.py); `refinery.refine` is registered as in
+the reference, which has no call site for it either.  Every injection is
+counted in karpenter_chaos_injections_total{point, action}, and the flight
+recorder's bundles carry `counts()` and `fired_total()` (operator/manager.py).
 
 Actions:
   * ``error``   — raise `ChaosError` (or the fake cloud's

@@ -22,8 +22,7 @@ The guarded funnels:
 `fence=None` everywhere means "no HA": single-replica deployments, the
 sim, and every run without the gate go unfenced and byte-identically.
 A refusal is counted in karpenter_leader_fence_refusals_total{op} and in
-`refusals`.  The reference's `fence_refusal` incident is left out
-(ROADMAP.md queue B, item B9b).
+`refusals`, and publishes a `fence_refusal` incident (obs/incidents.py).
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from __future__ import annotations
 import logging
 from typing import Dict
 
+from ..obs.incidents import publish_incident
 from . import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.fencing")
@@ -75,6 +75,9 @@ class LeaseFence:
                           "refusing", op)
         self.refusals[op] = self.refusals.get(op, 0) + 1
         metrics.leader_fence_refusals().inc({"op": op})
+        publish_incident("fence_refusal", {
+            "op": op, "epoch": self.elector.fence_epoch(),
+            "refusals": dict(self.refusals)})
         log.warning("stale fence: refused %s (epoch %d no longer holds "
                     "the lease)", op, self.elector.fence_epoch())
         return False

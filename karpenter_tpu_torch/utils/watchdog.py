@@ -8,8 +8,8 @@ ops/health.py) while the hung call is left to finish or hang in the
 background.  `timeout_s <= 0` is a direct call with zero overhead, which is
 the default everywhere.  Tracing context crosses the thread boundary via
 `TRACER.capture()` / `attach()`, so spans opened inside the guarded call
-still parent correctly.  The reference's `watchdog_trip` incident is left
-out (ROADMAP.md queue B item B9b).
+still parent correctly.  A trip publishes a `watchdog_trip` incident
+(obs/incidents.py).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, TypeVar
 
+from ..obs.incidents import publish_incident
 from . import metrics
 
 T = TypeVar("T")
@@ -72,6 +73,8 @@ def run_with_deadline(fn: Callable[[], T], timeout_s: float,
     done.wait(timeout_s)
     if not done.is_set():
         metrics.watchdog_trips().inc({"phase": phase})
+        publish_incident("watchdog_trip",
+                         {"phase": phase, "timeout_s": timeout_s})
         raise WatchdogTimeout(phase, timeout_s)
     t.join()  # worker is past its try block; join returns immediately
     if "error" in box:

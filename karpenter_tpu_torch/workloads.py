@@ -59,6 +59,18 @@ turns a pod batch into the Pod manifests of a `/v1/solve` request,
 before it, and `GOLDEN_V1_SOLVE` is the JAX package's `/v1/solve` answer on
 the headline (`v1_solve_digest`; tests/test_torch_v1_solve_golden.py).
 `chip_smoke.py` checks both on the card.
+
+The flight recorder and the SLO engine: `OBS_REPLAYS` are the gated sim
+replays (chaos-storm and failover-drill with the FlightRecorder gate,
+spot-reclaim-storm with the SLOEngine gate, then with both), `obs_replay`
+runs one from a reset metric registry, and `obs_digest` fingerprints its
+report.  The `tick_duration` SLI reads wall-clock reconcile time, so
+`slo_wall_free` records its `bad`, `budget_remaining`, `burn.*`, `alerts`
+and `alerting` by their comparisons' outcomes before the SLO reports are
+hashed;
+`without_obs` strips a gated report back to the ungated one.
+`GOLDEN_INCIDENTS` and `GOLDEN_SLO` hold the JAX package's digests
+(tests/test_torch_obs.py), which `chip_smoke.py` checks on the card.
 """
 
 from __future__ import annotations
@@ -1945,3 +1957,111 @@ GOLDEN_GANG_SMALL: Dict[str, object] = {'rounds': [{'signature': {'digest': '134
               'rejections': 113,
               'preempted': 2,
               'digest': '3cf63e720f738abc823a6006b30d8b5bbfa0aae96562cd4b833e7d1751cb0a54'}}
+
+
+# ---------------------------------------------------------------------------
+# slice 17: the flight recorder, the SLO engine and the cost ledger
+# ---------------------------------------------------------------------------
+
+# name → (scenario file, virtual seconds, the harness's gate overrides)
+OBS_REPLAYS: Dict[str, Tuple[str, float, Dict[str, bool]]] = {
+    "chaos-storm": ("chaos-storm.yaml", 5400.0, {"flight_recorder": True}),
+    "failover-drill": ("failover-drill.yaml", 5400.0,
+                       {"flight_recorder": True}),
+    "spot-reclaim-storm": ("spot-reclaim-storm.yaml", 7200.0,
+                           {"slo": True}),
+    "spot-reclaim-storm+fr": ("spot-reclaim-storm.yaml", 7200.0,
+                              {"slo": True, "flight_recorder": True}),
+}
+
+# the SLI over controller_runtime_reconcile_time_seconds: wall time, so its
+# budget depends on how long each reconcile took on the machine
+WALL_SLI = "tick_duration"
+
+
+def obs_replay(sim, metrics, scenarios_dir: str, name: str, **extra):
+    """One gated replay of either package (`sim`, `metrics`: its modules)
+    from an empty metric registry: the SLO engine counts the registry's
+    whole history, as the reference's does.  Returns the SimRun."""
+    fname, duration_s, gates = OBS_REPLAYS[name]
+    metrics.REGISTRY.reset()
+    sc = sim.load_scenario(f"{scenarios_dir}/{fname}")
+    return sim.SimHarness(sc, seed=0, duration_s=duration_s, **gates,
+                          **extra).run()
+
+
+def slo_wall_free(report: Dict) -> Dict:
+    """A report with `slo.budgets.slos.tick_duration`'s wall-clock fields
+    recorded by their comparisons' outcomes: `0 <= bad <= total`,
+    `budget_remaining <= 1`, each `burn.<window> >= 0`, `alerts >= 0` and
+    `alerting` a bool (a host slow enough to take more than 1 s over many
+    reconciles fires the SLI's burn alert).  A report without SLO budgets
+    comes back as it is."""
+    slos = report.get("slo", {}).get("budgets", {}).get("slos")
+    if not slos or WALL_SLI not in slos:
+        return report
+    out = json.loads(json.dumps(report))
+    sli = out["slo"]["budgets"]["slos"][WALL_SLI]
+    sli["bad"] = 0.0 <= sli["bad"] <= sli["total"]
+    sli["budget_remaining"] = sli["budget_remaining"] <= 1.0
+    sli["burn"] = {w: b >= 0.0 for w, b in sli["burn"].items()}
+    sli["alerts"] = sli["alerts"] >= 0
+    sli["alerting"] = isinstance(sli["alerting"], bool)
+    return out
+
+
+def without_obs(report: Dict) -> Dict:
+    """A gated report without what the FlightRecorder and SLOEngine gates
+    add (`incidents`, `slo.budgets`, `ledger`, `cost.by_nodepool`,
+    `cost.by_decision_source`): the ungated report of the same run, which
+    the gates must leave as it was."""
+    out = json.loads(json.dumps(report))
+    out.pop("incidents", None)
+    out.pop("ledger", None)
+    out.get("slo", {}).pop("budgets", None)
+    for key in ("by_nodepool", "by_decision_source"):
+        out.get("cost", {}).pop(key, None)
+    return out
+
+
+def obs_digest(report: Dict) -> Dict[str, object]:
+    """A gated report (either package's) as the goldens hold it: the sha256
+    of the canonical JSON of `slo_wall_free(report)`, its length, and the
+    incident and ledger counts a reader checks first."""
+    from .sim.report import report_to_json
+    doc = report_to_json(slo_wall_free(report))
+    out: Dict[str, object] = dict(
+        sha256=hashlib.sha256(doc.encode()).hexdigest(), bytes=len(doc))
+    if "incidents" in report:
+        out["by_kind"] = dict(sorted(report["incidents"]["by_kind"].items()))
+    if "ledger" in report:
+        out["ledger_entries"] = report["ledger"]["entries_opened"]
+    return out
+
+
+# the JAX package's digests of the FlightRecorder replays, byte for byte
+# (`obs_digest`; tests/test_torch_obs.py)
+GOLDEN_INCIDENTS: Dict[str, Dict[str, object]] = {
+    "chaos-storm": {
+        "by_kind": {"circuit_open": 2, "solver_demotion": 2},
+        "bytes": 2846,
+        "sha256": "a618d26ebddc3e517a5a05e8f87397e546be4530ef0a2c01733031f089711283"},
+    "failover-drill": {
+        "by_kind": {"leader_loss": 2},
+        "bytes": 2358,
+        "sha256": "465d872d5018262ffdd884d6647c15f4af8477082ca7ed6cd1ad79875012a9e4"},
+}
+
+# the JAX package's digests of the SLOEngine replays, `tick_duration`'s
+# wall-clock fields by outcome (`obs_digest`; tests/test_torch_obs.py)
+GOLDEN_SLO: Dict[str, Dict[str, object]] = {
+    "spot-reclaim-storm": {
+        "bytes": 4250,
+        "ledger_entries": 53,
+        "sha256": "cd94a1d7d650a84864adf05ecad4dfa8522cf582262362c4cc3e1cbe926bbe33"},
+    "spot-reclaim-storm+fr": {
+        "by_kind": {},
+        "bytes": 4465,
+        "ledger_entries": 53,
+        "sha256": "758754b812dbf71900f8d6b9f1fbf2eb763d2f6c561a71177fe19094951ce2d0"},
+}

@@ -1,8 +1,8 @@
 """The port's command line and process entry point against the JAX
 package's: `Options.from_args` gives the reference's options on every flag
-the port keeps, from flags and from the env defaults; every flag whose
-reader the port lacks is refused naming its ROADMAP.md item, and argparse
-refuses the flags the JAX package parses and never reads; and `python -m
+the port keeps, from flags and from the env defaults (the flags once
+refused, naming their ROADMAP.md items, included), and argparse refuses
+the flags the JAX package parses and never reads; and `python -m
 karpenter_tpu_torch` (`__main__.main`, on the CPU through its `device`
 keyword) reaches readiness, serves its endpoints and exits 0 on SIGTERM —
 also as an elected, fenced replica with a warm restart (`--ha-failover
@@ -24,7 +24,7 @@ import urllib.request
 import pytest
 
 from karpenter_tpu.operator.options import Options as RefOptions
-from karpenter_tpu_torch.operator.options import UNPORTED_GATES, Options
+from karpenter_tpu_torch.operator.options import Options
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -103,25 +103,28 @@ REFUSED = [
 @pytest.mark.parametrize("argv,item", REFUSED,
                          ids=[a[0] for a, _ in REFUSED])
 def test_flags_of_unported_features_are_refused(argv, item):
-    """B9b's flags are refused; B7's and B9a's, refused until durability
-    and HA, and metrics and tracing, were ported, give the reference's
-    options (the gate flags turn their gates on, `--ha-failover` also
-    `leader_elect`; B9a's set the logging, tracing and profiling fields)."""
+    """The flags refused until their features were ported (B7: durability
+    and HA; B9a: metrics and tracing; B9: the flight recorder, the SLO
+    engine and the cost ledger) give the reference's options: the gate
+    flags turn their gates on (`--ha-failover` also `leader_elect`), the
+    others set their fields."""
     ref = RefOptions.from_args(argv)        # the reference takes them
-    if item in ("B7", "B9a"):
-        got = dataclasses.asdict(Options.from_args(argv))
-        assert got == kept(ref)
-        if argv[0] in ("--warm-restart", "--ha-failover"):
-            gate = "WarmRestart" if argv[0] == "--warm-restart" \
-                else "HAFailover"
-            assert got["feature_gates"][gate]
-        if item == "B9a":
-            field = argv[0][2:].replace("-", "_")
-            assert got[field] == getattr(ref, field) != \
-                dataclasses.asdict(RefOptions())[field]
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Options.from_args(argv)
+    got = dataclasses.asdict(Options.from_args(argv))
+    assert got == kept(ref)
+    gate = {"--warm-restart": "WarmRestart", "--ha-failover": "HAFailover",
+            "--flight-recorder": "FlightRecorder",
+            "--slo-engine": "SLOEngine"}.get(argv[0])
+    if gate is not None:
+        assert got["feature_gates"][gate]
+        assert not dataclasses.asdict(Options())["feature_gates"][gate]
+    elif item in ("B9a", "B9"):
+        field = {"--incident-window": "incident_window_s",
+                 "--incident-dedup": "incident_dedup_s",
+                 "--obs-sample": "obs_sample_s",
+                 "--slo-eval-cadence": "slo_eval_cadence_s"}.get(
+            argv[0], argv[0][2:].replace("-", "_"))
+        assert got[field] == getattr(ref, field) != \
+            dataclasses.asdict(RefOptions())[field]
 
 
 # the forecast and gang flags, refused until their features were ported
@@ -193,43 +196,53 @@ def test_chaos_env_defaults_equal_the_reference(monkeypatch):
     assert Options.from_args([]).chaos_seed == 9
 
 
+# env default → (its value, the field it sets, what that field then holds)
+ENV_ONCE_REFUSED = {
+    "LEADER_ELECT": ("true", "leader_elect", True),
+    "LOG_FORMAT": ("json", "log_format", "json"),
+    "INCIDENT_DIR": ("/x", "incident_dir", "/x"),
+    "INCIDENT_RETENTION": ("5", "incident_retention", 5),
+    "SLO_EVAL_CADENCE_S": ("5", "slo_eval_cadence_s", 5.0),
+    "LEDGER_DRIFT_THRESHOLD": ("0.5", "ledger_drift_threshold", 0.5),
+}
+
+
 @pytest.mark.parametrize("env,item", [("LEADER_ELECT", "B7"),
-                                      ("LOG_FORMAT", "B9a")],
-                         ids=["LEADER_ELECT-B7", "LOG_FORMAT-B9"])
+                                      ("LOG_FORMAT", "B9a"),
+                                      ("INCIDENT_DIR", "B9b"),
+                                      ("INCIDENT_RETENTION", "B9b"),
+                                      ("SLO_EVAL_CADENCE_S", "B9b"),
+                                      ("LEDGER_DRIFT_THRESHOLD", "B9b")],
+                         ids=["LEADER_ELECT-B7", "LOG_FORMAT-B9",
+                              "INCIDENT_DIR-B9b", "INCIDENT_RETENTION-B9b",
+                              "SLO_EVAL_CADENCE_S-B9b",
+                              "LEDGER_DRIFT_THRESHOLD-B9b"])
 def test_env_defaults_of_unported_features_are_refused(monkeypatch, env,
                                                        item):
     """The env defaults once refused give the reference's options:
-    B7's `KARPENTER_TPU_LEADER_ELECT` and B9a's `KARPENTER_TPU_LOG_FORMAT`
-    (the id keeps the item it was refused under)."""
-    monkeypatch.setenv(f"KARPENTER_TPU_{env}",
-                       {"LEADER_ELECT": "true",
-                        "LOG_FORMAT": "json"}.get(env, "a=b"))
+    B7's `KARPENTER_TPU_LEADER_ELECT`, B9a's `KARPENTER_TPU_LOG_FORMAT` and
+    B9b's incident, SLO and ledger knobs (the id keeps the item it was
+    refused under)."""
+    value, field, want = ENV_ONCE_REFUSED[env]
+    monkeypatch.setenv(f"KARPENTER_TPU_{env}", value)
     opts = Options.from_args([])
     assert dataclasses.asdict(opts) == kept(RefOptions.from_args([]))
-    if item == "B7":
-        assert opts.leader_elect
-    else:
-        assert opts.log_format == "json"
+    assert getattr(opts, field) == want
 
 
-# the gates once refused, with their ROADMAP.md items: B7's are ported
+# the gates once refused, with their ROADMAP.md items: all are ported
 GATES_ONCE_REFUSED = [("FlightRecorder", "B9"), ("HAFailover", "B7"),
                       ("SLOEngine", "B9"), ("WarmRestart", "B7")]
 
 
 @pytest.mark.parametrize("gate,item", GATES_ONCE_REFUSED)
 def test_unported_gates_on_the_command_line_are_refused(gate, item):
-    """B9's gates are refused (`UNPORTED_GATES`); B7's turn on from the
-    command line as in the reference."""
-    assert (gate in UNPORTED_GATES) == (item == "B9")
+    """The gates once refused (B7's, then B9's) turn on from the command
+    line as in the reference."""
     argv = ["--feature-gates", f"{gate}=true"]
-    if item == "B7":
-        opts = Options.from_args(argv)
-        assert opts.gate(gate)
-        assert dataclasses.asdict(opts) == kept(RefOptions.from_args(argv))
-    else:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            Options.from_args(argv)
+    opts = Options.from_args(argv)
+    assert opts.gate(gate)
+    assert dataclasses.asdict(opts) == kept(RefOptions.from_args(argv))
     assert not Options.from_args(
         ["--feature-gates", f"{gate}=false"]).gate(gate)
 
@@ -309,8 +322,9 @@ def test_main_reaches_readiness_and_exits_0_on_sigterm():
     """`python -m karpenter_tpu_torch`'s `main` on the CPU in a child
     process: its "up" line names the port, /readyz answers 200 after the
     parity probe, /healthz 200, /metrics the registry's exposition with
-    the reference's families, /debug/traces the tracer's ring, an unported
-    endpoint 501, and SIGTERM drains it to exit code 0."""
+    the reference's families, /debug/traces the tracer's ring,
+    /debug/incidents the reference's 404 with the FlightRecorder gate off,
+    and SIGTERM drains it to exit code 0."""
     code = ("import sys; from karpenter_tpu_torch.__main__ import main; "
             "sys.exit(main(sys.argv[1:], device='cpu'))")
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
@@ -353,7 +367,9 @@ def test_main_reaches_readiness_and_exits_0_on_sigterm():
             {m.name for m in ref_metrics.REGISTRY._metrics.values()}
         code_t, traces = get("/debug/traces?span=provision")
         assert code_t == 200 and isinstance(traces["traces"], list)
-        assert get("/debug/incidents")[0] == 501
+        # the flight recorder's endpoint, gate off: the reference's 404
+        code_i, inc = get("/debug/incidents")
+        assert code_i == 404 and "--flight-recorder" in inc["error"]
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0
     finally:

@@ -10,9 +10,10 @@ observations that must be equal; the port solves on the CPU.
 Then the port's own boundaries: a fault of the card or of a kernel
 (`DEVICE_FAULTS`) raised inside a tick propagates out of `tick()` with
 nothing booked on the supervisor, and answers `/v1/solve` with a 500; the
-endpoints of unported features (B9b's) answer 501 naming ROADMAP.md item
-B9, and B9a's `/metrics`, `/debug/traces` and `/debug/pprof` answer as the
-reference's do; the readiness ladder without a leader.
+endpoints once unported answer as the reference's do: B9a's `/metrics`,
+`/debug/traces` and `/debug/pprof`, and B9b's `/debug/incidents`,
+`/debug/slo` and `/debug/ledger` with their gates off (404; with the gates
+on, tests/test_torch_obs.py); the readiness ladder without a leader.
 """
 
 import importlib
@@ -588,9 +589,10 @@ def _scrape(m, op, mgr, port, clock):
                                   "/debug/slo", "/debug/ledger",
                                   "/debug/pprof"])
 def test_unported_endpoints_answer_501_naming_b9(path):
-    """B9b's endpoints answer 501 naming B9; B9a's, 501 until metrics and
-    tracing were ported, answer as the reference's (the name keeps the
-    case's history)."""
+    """The endpoints that answered 501 until their features were ported
+    answer as the reference's (the name keeps the case's history): B9a's
+    after a provisioning tick, B9b's with their gates off (404, naming the
+    flag that turns them on)."""
     if path in ("/metrics", "/debug/traces", "/debug/pprof"):
         code, body = both(lambda m: _served(m, _scrape)[path])
         if path == "/metrics":
@@ -603,9 +605,10 @@ def test_unported_endpoints_answer_501_naming_b9(path):
         return
 
     def case(m, op, mgr, port, clock):
+        mgr.tick()
         return _get(port, path)
-    code, body = _served(PORT, case)
-    assert code == 501 and "item B9" in body["error"]
+    code, body = both(lambda m: _served(m, case))
+    assert code == 404 and "disabled" in body["error"]
 
 
 def test_readiness_ladder_and_parity_probe():

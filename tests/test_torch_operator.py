@@ -8,8 +8,9 @@ manager's tick calls).  Each case runs on both packages' classes and
 returns plain observations that must be equal; the port runs on the CPU.
 
 Then the port's own boundaries: `Operator()` with no device raises without
-a card, every unported gate and the chaos spec raise NotImplementedError
-naming their ROADMAP.md item, an option the port does not read is refused,
+a card, the gates once refused (B7's and B9's) are read by the manager,
+the chaos spec arms the injector, an option the port does not read is
+refused,
 and the default operator at a small size provisions two bursts and ticks
 its DisruptionController as the JAX package's does, with the arena serving
 the gathers warm.
@@ -104,17 +105,21 @@ def test_defaults():
 @pytest.mark.parametrize("field", [
     "leader_elect", "lease_path", "snapshot_path", "log_format",
     "trace_slow_ms", "enable_profiling", "incident_dir", "slo_eval_cadence_s",
-    "lease_ttl_s", "obs_sample_s"])
+    "lease_ttl_s", "obs_sample_s", "vm_memory_overhead_percent",
+    "reserved_enis", "health_port", "tags"])
 def test_options_the_port_does_not_read_are_refused(field):
     """An option of the reference that nothing in the port reads is not a
     field of the port's Options: setting one fails at construction instead
     of being silently ignored.  The lease and snapshot options, refused
-    until B7 was ported, and the logging, tracing and profiling options,
-    refused until B9a was, are fields with the reference's defaults."""
+    until B7 was ported, the logging, tracing and profiling options,
+    refused until B9a was, and the incident, ring and SLO options, refused
+    until B9b was, are fields with the reference's defaults.  The four the
+    reference parses and never reads stay refused."""
     assert hasattr(REF.options.Options(), field)
     if field in ("leader_elect", "lease_path", "snapshot_path",
                  "lease_ttl_s", "log_format", "trace_slow_ms",
-                 "enable_profiling"):
+                 "enable_profiling", "incident_dir", "slo_eval_cadence_s",
+                 "obs_sample_s"):
         want = getattr(REF.options.Options(), field)
         assert getattr(PORT.options.Options(**{field: want}), field) == want
         assert getattr(PORT.options.Options(), field) == want
@@ -341,19 +346,32 @@ def test_operator_without_device_raises_without_a_card():
     ("WarmRestart", "B7"), ("HAFailover", "B7"),
     ("FlightRecorder", "B9"), ("SLOEngine", "B9")])
 def test_unported_gates_raise_naming_their_roadmap_item(gate, item):
-    """B9's gates raise; B7's, refused until durability and HA were
-    ported, build an operator whose manager reads them: WarmRestart with a
-    snapshot path gives it a snapshot writer, HAFailover with a leader a
-    fence on the cloud provider."""
+    """The gates refused until their features were ported (B7: durability
+    and HA; B9: the flight recorder, the SLO engine and the cost ledger)
+    build an operator whose manager reads them: WarmRestart with a snapshot
+    path gives it a snapshot writer, HAFailover with a leader a fence on
+    the cloud provider, FlightRecorder an armed incident bus, SLOEngine an
+    engine and an armed ledger; `stop()` disarms both."""
     from karpenter_tpu_torch.catalog.generate import generate_catalog
+    from karpenter_tpu_torch.obs import BUS, LEDGER
     from karpenter_tpu_torch.operator import (ControllerManager, Operator,
                                               Options, build_controllers)
     from karpenter_tpu_torch.operator.manager import LeaderElector
     opts = Options()
     opts.feature_gates[gate] = True
     if item == "B9":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            Operator(opts, catalog=generate_catalog(5), device="cpu")
+        op = Operator(opts, catalog=generate_catalog(5), device="cpu")
+        mgr = ControllerManager(op, build_controllers(op))
+        try:
+            if gate == "FlightRecorder":
+                assert mgr.flight is not None and mgr.slo is None
+                assert BUS.armed and not LEDGER.enabled
+            else:
+                assert mgr.slo is not None and mgr.flight is None
+                assert LEDGER.enabled and not BUS.armed
+        finally:
+            mgr.stop()
+        assert not BUS.armed and not LEDGER.enabled
         return
     import tempfile
     with tempfile.TemporaryDirectory() as d:

@@ -17,11 +17,13 @@ forecast and gang scenarios, the IngestBatch gate on for drip, and the
 goldens recorded before gang scheduling replayed with the GangScheduling
 (and, where the scenario has no forecast block, the Forecast) gate
 explicitly off; and the port's own boundaries: no `time.sleep` in its
-sim/, and every scenario block and harness override of an unported feature
-refused, naming its ROADMAP.md item (the `ha:` block and the
-`warm_restart` / `ha_failover` overrides, refused until B7 was ported, now
-run as the reference's; tests/test_torch_failover.py replays the
-failover-drill golden).
+sim/, and the scenario blocks, harness overrides and CLI flags once refused
+(the `ha:` block and the `warm_restart` / `ha_failover` overrides until B7
+was ported, the `slo:` block, the `flight_recorder` / `slo` overrides and
+`--flight-recorder` / `--slo` until B9) run as the reference's, their
+reports compared with `workloads.slo_wall_free`
+(tests/test_torch_failover.py replays the failover-drill golden,
+tests/test_torch_obs.py the gated replays).
 """
 
 import dataclasses
@@ -49,7 +51,9 @@ def _package(name, extra):
         cli=importlib.import_module(f"{name}.sim.__main__"),
         fake=importlib.import_module(f"{name}.cloud.fake"),
         queue=importlib.import_module(f"{name}.cloud.queue"),
-        chaos=importlib.import_module(f"{name}.utils.chaos"))
+        chaos=importlib.import_module(f"{name}.utils.chaos"),
+        metrics=importlib.import_module(f"{name}.utils.metrics"),
+        obs=importlib.import_module(f"{name}.obs"))
 
 
 REF = _package("karpenter_tpu", {})
@@ -387,25 +391,33 @@ def test_no_wall_sleeps_in_the_sim_path():
 
 @pytest.mark.parametrize("block,item", [("ha", "B7"), ("slo", "B9")])
 def test_scenario_blocks_of_unported_features_are_refused(block, item):
-    """The `slo:` block is refused (B9); the `ha:` block, refused until
-    B7 was ported, gives the reference's scenario."""
+    """The `ha:` block (refused until B7 was ported) and the `slo:` block
+    (refused until B9) give the reference's scenario, and the port refuses
+    the reference's bad blocks with its messages."""
     from karpenter_tpu_torch.sim.scenario import scenario_from_dict
-    doc = {"name": "x", "workload": [{"kind": "step", "name": "w"}],
-           block: {"enabled": True}}
-    if item == "B7":
-        got = both(lambda m: _port_fields(m.scenario.scenario_from_dict(
-            dict(doc, ha={"enabled": True, "ttl_s": 7}))))
-        assert got["ha"] == {"enabled": True, "ttl_s": 7.0}
-        for bad, match in (({"ttl_s": 0}, "ttl_s must be positive"),
-                           ({"lease": 1}, "unknown field"),
-                           ("x", "must be a mapping")):
-            with pytest.raises(PORT.scenario.ScenarioError, match=match):
-                scenario_from_dict(dict(doc, ha=bad))
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        scenario_from_dict(doc)
-    # the reference runs the same document (a refusal, never a drop)
-    REF.scenario.scenario_from_dict(doc)
+    doc = {"name": "x", "workload": [{"kind": "step", "name": "w"}]}
+    good, bads = {
+        "ha": ({"enabled": True, "ttl_s": 7},
+               (({"ttl_s": 0}, "ttl_s must be positive"),
+                ({"lease": 1}, "unknown field"),
+                ("x", "must be a mapping"))),
+        "slo": ({"enabled": True, "eval_cadence_s": 30,
+                 "drift_threshold": 0.2},
+                (({"eval_cadence_s": 0}, "eval_cadence_s must be positive"),
+                 ({"drift_threshold": -1}, "drift_threshold must be positive"),
+                 ({"cadence": 5}, "unknown field"),
+                 ("x", "must be a mapping")))}[block]
+    got = both(lambda m: _port_fields(m.scenario.scenario_from_dict(
+        dict(doc, **{block: good}))))
+    assert got[block] == {k: float(v) if k != "enabled" else v
+                          for k, v in good.items()}
+    assert both(lambda m: _port_fields(m.scenario.scenario_from_dict(
+        dict(doc, **{block: {}}))))[block] is not None
+    for bad, match in bads:
+        with pytest.raises(PORT.scenario.ScenarioError, match=match):
+            scenario_from_dict(dict(doc, **{block: bad}))
+        with pytest.raises(REF.scenario.ScenarioError, match=match):
+            REF.scenario.scenario_from_dict(dict(doc, **{block: bad}))
 
 
 @pytest.mark.parametrize("block", [
@@ -491,8 +503,7 @@ def test_scenario_chaos_block_errors_match_the_reference(chaos, match):
 
 
 def _port_fields(sc):
-    """A Scenario as a dict of the fields the port's dataclass has (the
-    reference's unported blocks are None here)."""
+    """A Scenario as a dict of the fields the port's dataclass has."""
     d = dataclasses.asdict(sc)
     return {f.name: d[f.name] for f in dataclasses.fields(PORT.sim.Scenario)}
 
@@ -526,29 +537,42 @@ def test_canned_scenarios_of_unported_features_are_refused(fname, item):
     ("warm_restart", "B7"), ("ha_failover", "B7"),
     ("flight_recorder", "B9"), ("slo", "B9")])
 def test_harness_overrides_of_unported_gates_are_refused(override, item):
-    """B9's overrides are refused; B7's, refused until durability and HA
-    were ported, run the replay as the reference's do (the report of the
-    small scenario equal to the reference's, with an `ha` section under
-    `ha_failover`)."""
-    if item == "B7":
-        def case(m):
-            run = harness(m, small_scenario(m), **{override: True}).run()
-            return m.sim.report_to_json(run.report)
-        report = json.loads(both(case))
-        assert ("ha" in report) == (override == "ha_failover")
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        harness(PORT, small_scenario(PORT), **{override: True})
-    harness(PORT, small_scenario(PORT), **{override: False})
+    """The overrides refused until their features were ported (B7's, then
+    B9's) run the replay as the reference's do: the report of the small
+    scenario equal to the reference's (`tick_duration`'s wall-clock fields
+    by outcome), with an `ha` section under `ha_failover`, `incidents`
+    under `flight_recorder`, `slo.budgets` and `ledger` under `slo`."""
+    from karpenter_tpu_torch.workloads import slo_wall_free
+
+    def case(m):
+        m.metrics.REGISTRY.reset()
+        run = harness(m, small_scenario(m), **{override: True}).run()
+        return slo_wall_free(json.loads(m.sim.report_to_json(run.report)))
+    report = both(case)
+    assert ("ha" in report) == (override == "ha_failover")
+    assert ("incidents" in report) == (override == "flight_recorder")
+    assert ("ledger" in report) == ("budgets" in report["slo"]) \
+        == (override == "slo")
+    assert not PORT.obs.BUS.armed and not PORT.obs.LEDGER.enabled
 
 
 def test_cli_flags_of_unported_features_are_refused(tmp_path):
+    """`--flight-recorder` and `--slo`, refused until B9 was ported, write
+    the reference's gated report (`tick_duration`'s wall-clock fields by
+    outcome)."""
+    from karpenter_tpu_torch.workloads import slo_wall_free
     spec = tmp_path / "tiny.yaml"
     spec.write_text("name: tiny\nduration_s: 60\nworkload:\n"
                     "  - kind: step\n    name: w\n")
-    for flag in ("--flight-recorder", "--slo"):
-        with pytest.raises(NotImplementedError, match="item B9"):
-            PORT.cli.main([str(spec), flag], device="cpu")
+    for flag, section in (("--flight-recorder", "incidents"),
+                          ("--slo", "ledger")):
+        def case(m):
+            m.metrics.REGISTRY.reset()
+            out = tmp_path / f"{m.name}{flag}.json"
+            assert m.cli.main([str(spec), flag, "--out", str(out)],
+                              **m.extra) == 0
+            return slo_wall_free(json.loads(out.read_text()))
+        assert section in both(case)
 
 
 def test_default_device_needs_a_card():

@@ -457,6 +457,24 @@ def package(name, **modules):
         k: importlib.import_module(f"{name}.{v}") for k, v in modules.items()})
 
 
+@pytest.fixture(autouse=True)
+def obs_disarmed():
+    """Both packages' incident bus and cost ledger (process globals)
+    disarmed around each case, as tests/test_incidents.py's and
+    test_slo.py's own autouse fixtures do; active in a test module that
+    imports it."""
+    mods = [importlib.import_module(f"{name}.obs")
+            for name in ("karpenter_tpu", "karpenter_tpu_torch")]
+
+    def disarm():
+        for m in mods:
+            m.BUS.disarm()
+            m.LEDGER.disarm()
+    disarm()
+    yield
+    disarm()
+
+
 def four_types(m):
     """tests/helpers.py's small_catalog, built from package `m`'s catalog
     module (on-demand in zones a and b)."""
