@@ -129,10 +129,7 @@ pass):
                the launch counts zeroed just before it; the SolverHealth
                ladder and the DecodeHealth breaker must book no failure;
                K6 must launch in the first two cells, K7 in the last two.
-               Then the warm p50 of Provisioner.solve on the live cell's
-               frozen round-2 state (whole provision() rounds on fresh
-               copies, with their split, are phase 14's), K7
-               against its plain version on every provision-small batch
+               Then K7 against its plain version on every provision-small batch
                (twice, bit-equal) with its card time there, and the times
                of K6, the slab programs (rows 7-8) and K7 (row 11) at the
                cells' own inputs, beside their bounds, plain versions and
@@ -171,7 +168,7 @@ pass):
                a psum'd cost within relative 1e-6), the shard-batched kernels
                must have launched, the single-device scan only in the
                megafleet's residual reconcile (once).  Then (after phase
-               11) warm p50s of each mode, the cell's round-2 split, the
+               11) warm p50s of each mode, the
                device time of each shard-batched kernel beside n serial
                single-device launches of the same shards, the five
                programs (rows 13-17) held against their plain compositions
@@ -208,28 +205,36 @@ pass):
                must reproduce the golden too.
  14. the arena and the operator — run after every profiler trace,
                with every kernel wrapper's call spanned by CUDA events and
-               the inputs of its last call on each path kept: (a) the four
-               provisioning cells with the cluster's ClusterArena attached
-               before round 1, and the live cell once more behind an
-               IngestBatcher flushed before each provision(), every round
+               the inputs of its last call on each path kept: (a) the
+               provisioning cells of more than one round (live, small) with
+               the cluster's ClusterArena attached before round 1, and the
+               live cell once more behind an IngestBatcher flushed before
+               each provision(), every round
                against GOLDEN_PROVISION, each round on a live cluster
                gathered warm from the arena; (b) disruption-replay-500 with
                the arena against GOLDEN_DISRUPTION, its consolidation faces
-               gathered warm; (c) the operator cell — Operator(Options())
-               on the card at full width with build_controllers, the live
-               cell's two bursts and one disruption tick — against
-               GOLDEN_OPERATOR, its Options carrying the WarmRestart gate
-               and a snapshot written after round 1 (phase 18 restores
-               it); (d) every wrapper held against its plain version on
-               the kept inputs.  Each step's launches (zeroed
+               gathered warm; (c) the operator cell at a tenth of its
+               depth (`workloads.OPERATOR_SMALL_ROUNDS`) —
+               Operator(Options()) on the card at full width with
+               build_controllers, the live cell's two bursts cut to 5000
+               and 2000 pods and one disruption tick — against
+               GOLDEN_OPERATOR_SMALL, its Options carrying the WarmRestart
+               gate and a snapshot written after round 1 (phase 18
+               restores it); (d) every wrapper held against its plain
+               version on the kept inputs.  Each step's launches (zeroed
                just before it) and idle share are printed, "tensorize"
-               split into lower_pods, tensorize and the live-node gather,
-               and live round 2's provision() timed on a fresh copy without
-               the arena, with it and behind an IngestBatcher; the paths'
-               launches join the kernel rows.  (Cut in depth when phase 17
-               came: one timed copy of each kind, where there were three,
-               and no replay of the disruption cell without the arena,
-               which phase 13 runs.)
+               split into lower_pods, tensorize and the live-node gather;
+               the paths' launches join the kernel rows.  (Cut in depth
+               when phase 17 came: no replay of the disruption cell without
+               the arena, which phase 13 runs; and when phase 20 came, the
+               operator cell to a tenth of its pods: at full depth its 2048
+               launches each waited out the CreateFleet batcher's 35 ms idle
+               window, 74 s of round 1 and 33 s of round 2.  Live round 2's
+               provision() timed on fresh copies without the arena, with it
+               and behind an IngestBatcher went then too, and the arena
+               replays of provision-noguide-50k and provision-ffd-50k, whose
+               one round starts from an empty cluster: their gathers found
+               no node to serve, and phase 10 runs both.)
  15. the operator loop — after phase 14, with its kernel spans and
                recorded inputs: (a) SimHarness on the card replays the
                canned scenarios whose goldens carry no gated section
@@ -280,15 +285,19 @@ pass):
                card replays diurnal-forecast, spot-reclaim-storm-forecast,
                gang-churn-storm and mixed-priority-diurnal (arena on, at
                tests/test_sim.py's horizons), each report byte for byte
-               against tests/golden/; (b) the cell provision-gang-50k —
-               Provisioner(gang_scheduling=True, 8192 slots) on the
-               headline's 50 000 pods with 1024 gangs of 4 (tier 1, zone),
-               64 short ones, 4 split over two zones and 4 at tier 0 with a
-               member no type holds, then 20 000 more with 256 gangs of 8
+               against tests/golden/; (b) the gang cell at a tenth of its
+               depth (`workloads.GANG_SMALL_SCALE`, full width) —
+               Provisioner(gang_scheduling=True, 8192 slots) on 5000 of
+               the headline's pods with 102 gangs of 4 (tier 1, zone), 6
+               short ones, 4 split over two zones and 4 at tier 0 with a
+               member no type holds, then 2000 more with 25 gangs of 8
                (tier 2, hostname), then one DisruptionController reconcile
-               executing the first preemption plan — against GOLDEN_GANG,
-               each round counted, spanned and timed with the gang audit's
-               host ms beside the rest of the solve; (c) every wrapper held
+               executing the first preemption plan — against
+               GOLDEN_GANG_SMALL, each round counted, spanned and timed
+               with the gang audit's host ms beside the rest of the solve
+               (the full 50 000-pod cell spent 60 s of host time in one
+               round-2 audit; tests/test_torch_gang_golden.py holds the
+               JAX package to both goldens); (c) every wrapper held
                against its plain version on the kept inputs; (d) a
                KernelError armed in the HeadroomController's dry-run solve
                of a Forecast operator and in the re-solve after a gang
@@ -305,11 +314,12 @@ pass):
                tests/golden/sim-failover-drill.json, with its wall, ticks,
                launches of K1, K2, K3, K5, K7 and idle share, every
                wrapper held against plain on its recorded inputs; (b) the
-               warm restart at full width: phase 14(c)'s snapshot (its
+               warm restart at full width (the operator cell's tenth):
+               phase 14(c)'s snapshot (its
                bytes and host write ms, its sections host data only) is
                restored by a fresh `python3 -c` process (`successor`)
                that loads the kernels built in build/, runs round 2 and
-               the tick against GOLDEN_OPERATOR with 0 cold gathers, its
+               the tick against GOLDEN_OPERATOR_SMALL with 0 cold gathers, its
                provision() ms printed beside phase 14's, and holds its
                recorded K1, K2, K3 inputs against plain; (c) a deposed
                elector's snapshot write, launch and terminate refused
@@ -1834,7 +1844,8 @@ def compare_pdhg_case(torch, name, case, err, pod_scale=False, expect=None,
     """The kernel against `pdhg_plain` on one captured or built batch, on
     the kernel `path` names (checked by its launch counter), and a second
     launch against the first, bit for bit; returns a list of failure
-    strings (empty when it agrees)."""
+    strings (empty when it agrees).  The plain call's CUDA-event time is
+    kept in `case["plain_ms"]` (the kernel row's plain time)."""
     from karpenter_tpu_torch.ops import lpsolve_kernels as lk
     args = (*case["ops"], case["eps"], case["iters_cap"],
             case["check_every"])
@@ -1856,8 +1867,8 @@ def compare_pdhg_case(torch, name, case, err, pod_scale=False, expect=None,
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
         bad.append(f"{name}: two launches differ")
     got = [g.cpu().numpy() for g in first]
-    want = [w.cpu().numpy() for w in lk.pdhg_plain(*args)]
-    torch.cuda.synchronize()
+    case["plain_ms"], want = once_ms(torch, lambda: lk.pdhg_plain(*args))
+    want = [w.cpu().numpy() for w in want]
     c = case["ops"][4].cpu().numpy().astype(np.float64)
     B, n = c.shape
     for i in range(B):
@@ -2290,13 +2301,15 @@ def guided_timings(torch, card, problem, masters):
 
 def pdhg_row(torch, card, masters, ms, launches_by_path, err):
     """The kernel-table row of the PDHG kernel (row 12) at the device-LP
-    headline's master (20 000 iterations, the cap)."""
+    headline's master (20 000 iterations, the cap); its plain time is the
+    one phase 7 took holding the kernel against it (one call, some ten
+    seconds)."""
     from karpenter_tpu_torch.ops import lpsolve_kernels as lk
     case = masters["headline"]
     it = int(case["iters"][0])
     args = (*case["ops"], case["eps"], case["iters_cap"],
             case["check_every"])
-    plain_ms = event_ms(torch, lambda: lk.pdhg_plain(*args), 1)
+    plain_ms = case["plain_ms"]
     dev_ms = card_ms(torch, lambda: lk.pdhg(*args), 1)
     K = torch.cat([case["ops"][0], case["ops"][2]], dim=1)
     z = torch.ones(K.shape[0], K.shape[1], 1, device=K.device)
@@ -2513,22 +2526,6 @@ class captured:
         setattr(self.module, self.name, self.orig)
 
 
-def fresh_env(env, cell, catalog, device, **extra):
-    """An independent copy of a cell's live state: the cluster copied
-    object by object, a new fake cloud, provider and Provisioner (with
-    `extra` options, e.g. the sharded cell's mesh)."""
-    from karpenter_tpu_torch import convert, workloads
-    from karpenter_tpu_torch.api.objects import NodePool
-    from karpenter_tpu_torch.cloud import CloudProvider, FakeCloud
-    from karpenter_tpu_torch.controllers.provisioning import Provisioner
-    cloud = FakeCloud()
-    provider = CloudProvider(cloud, catalog)
-    cluster = convert.cluster_from_objects(env.cluster)
-    prov = Provisioner(provider, cluster, [NodePool()], device=device,
-                       **workloads.PROVISION_CELLS[cell][0], **extra)
-    return workloads.ProvisionEnv(cloud, provider, cluster, prov)
-
-
 class layer_timer:
     """While open, time one Provisioner's layers, summed over calls, ms:
     `solve`, `pack` (`_pack_supervised`, the solve on the card with its
@@ -2592,22 +2589,8 @@ def layer_line(acc, total):
             f"launch {total - acc['solve']:.3f}")
 
 
-def median_split(splits):
-    """Of several provision() splits, the one whose total is the median
-    (its parts add up, which medians taken part by part need not)."""
-    return sorted(splits, key=lambda x: x["total"])[len(splits) // 2]
 
 
-def provision_layers(torch, env):
-    """One provision() with its split (`layer_timer`), ms."""
-    with layer_timer(torch, env.provisioner) as acc:
-        t0 = time.perf_counter()
-        env.provisioner.provision()
-        torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
-    return dict(acc, total=total, launch=total - acc["solve"],
-                other=acc["solve"] - acc["pack"] - acc["lower"] -
-                acc["tensorize"] - acc["gather"])
 
 
 def provision_cells(torch, card, device="cuda"):
@@ -2645,7 +2628,6 @@ def provision_cells(torch, card, device="cuda"):
             env.cluster.add_pods(workloads.build_pods(
                 rng=np.random.default_rng(seed), **kw))
             if cell == LIVE_PATH and r == 1:
-                provision_timings(torch, card, env, cell)
                 live_r2_tracing_cost(torch, card, env)
             reset_all_launches()
             with captured(cp, "classpack_slab") as k6, \
@@ -2709,17 +2691,6 @@ def live_r2_tracing_cost(torch, card, env):
                  lambda: prov.solve(batch), same_plan)
 
 
-def provision_timings(torch, card, env, cell, iters=5):
-    """Warm p50 of Provisioner.solve (which changes nothing) on the frozen
-    round-2 state of the live cell.  Whole provision() rounds on fresh
-    copies, with their layer split, are phase 14's (`arena_timings`)."""
-    batch = env.cluster.pending_pods()
-    prov = env.provisioner
-    prov.solve(batch)
-    torch.cuda.synchronize()
-    p50, xs = p50_ms(lambda: prov.solve(batch), iters, torch.cuda.synchronize)
-    log(f"[time] {cell} round 2: Provisioner.solve warm p50 {p50:.3f} ms "
-        f"over {iters} ({', '.join(f'{x:.1f}' for x in xs)}) on {card}")
 
 
 def slab_program_plain(args):
@@ -3416,8 +3387,6 @@ def sharded_paths(torch, card, mega, head, ex, catalog):
     for r, (kw, seed) in enumerate(workloads.PROVISION_CELLS[CELL_PATH][1]):
         env.cluster.add_pods(workloads.build_pods(
             rng=np.random.default_rng(seed), **kw))
-        if r == 1:
-            cell_timings(torch, card, env, catalog, mesh)
         path = f"{CELL_PATH} round {r + 1}"
         with captured(driver, "_partitioned_assign_slab_donate") as p17:
             (sig, _), wall, got = counted(
@@ -3437,26 +3406,6 @@ def sharded_paths(torch, card, mega, head, ex, catalog):
     return by_path, caps
 
 
-def cell_timings(torch, card, env, catalog, mesh, iters=1):
-    """The cell's round 2, warm: Provisioner.solve on the frozen state, then
-    a whole provision() round on a fresh copy with its split (three of
-    each before phase 17 came; PERF.md keeps their p50s)."""
-    batch = env.cluster.pending_pods()
-    prov = env.provisioner
-    prov.solve(batch)
-    torch.cuda.synchronize()
-    p50, xs = p50_ms(lambda: prov.solve(batch), iters,
-                     torch.cuda.synchronize)
-    log(f"[time] {CELL_PATH} round 2: Provisioner.solve warm p50 "
-        f"{p50:.3f} ms over {iters} ({', '.join(f'{x:.1f}' for x in xs)}) "
-        f"on {card}")
-    splits = [provision_layers(torch, fresh_env(env, CELL_PATH, catalog,
-                                                "cuda", mesh=mesh))
-              for _ in range(iters)]
-    med = median_split(splits)
-    log(f"[time] {CELL_PATH} round 2: provision() p50 {med['total']:.3f} ms "
-        f"over {iters} fresh copies (the median copy's split: "
-        f"{layer_line(med, med['total'])}) on {card}")
 
 
 def sharded_solve_timings(torch, card, mega, head, ex):
@@ -4207,7 +4156,7 @@ def disruption_timings(torch, card):
 
 ARENA = " +arena"
 INGEST_PATH = LIVE_PATH + " +arena +ingest"
-OPERATOR_PATH = "operator-live-50k-20k"
+OPERATOR_PATH = "operator-live-5k-2k"
 
 
 def operator_kit(snapshot_path=None):
@@ -4275,10 +4224,11 @@ def arena_round(torch, card, env, hook, path, r, want, ingest=False):
 
 
 def arena_cells(torch, card, hook, device="cuda"):
-    """14(a): every cell of GOLDEN_PROVISION with the arena attached before
-    round 1, every round against its golden (`arena_round`), the ladder and
-    the decode breaker clean; live round 2 timed with and without the
-    arena (`arena_timings`); then the live cell once more behind an
+    """14(a): every cell of GOLDEN_PROVISION with more than one round (a
+    live cluster for the arena to serve: the one-round cells' gathers find
+    no node, and phase 10 runs them) with the arena attached before round
+    1, every round against its golden (`arena_round`), the ladder and the
+    decode breaker clean; then the live cell once more behind an
     IngestBatcher flushed before each provision().  Returns the launches by
     path."""
     from karpenter_tpu_torch import workloads
@@ -4292,7 +4242,8 @@ def arena_cells(torch, card, hook, device="cuda"):
     from karpenter_tpu_torch.state.ingest import IngestBatcher
     catalog = generate_catalog(workloads.PROVISION_TYPES)
     by_path = {}
-    runs = [(cell, cell + ARENA, False) for cell in workloads.GOLDEN_PROVISION]
+    runs = [(cell, cell + ARENA, False) for cell in workloads.GOLDEN_PROVISION
+            if len(workloads.PROVISION_CELLS[cell][1]) > 1]
     runs.append((LIVE_PATH, INGEST_PATH, True))
     for cell, path, ingest in runs:
         clear_lp_caches()
@@ -4307,8 +4258,6 @@ def arena_cells(torch, card, hook, device="cuda"):
         for r, (kw, seed) in enumerate(workloads.PROVISION_CELLS[cell][1]):
             env.cluster.add_pods(workloads.build_pods(
                 rng=np.random.default_rng(seed), **kw))
-            if path == LIVE_PATH + ARENA and r == 1:
-                arena_timings(torch, card, env, catalog, device)
             got = arena_round(torch, card, env, hook, path, r + 1,
                               workloads.GOLDEN_PROVISION[cell][r], ingest)
             for k, v in got.items():
@@ -4327,44 +4276,6 @@ def arena_cells(torch, card, hook, device="cuda"):
     return by_path
 
 
-def arena_timings(torch, card, env, catalog, device, iters=1):
-    """14(f): live round 2's provision() on a fresh copy of the round-2
-    state, in turn without the arena (tensorize_nodes), with one attached
-    to the copy (its rebuild before the clock starts; the round's binds
-    then refresh its rows one by one) and with that arena behind an
-    IngestBatcher (the binds coalesce; the next tick's flush, timed apart,
-    applies them), with the three-part split.  One copy each (three before
-    phase 17 was added; PERF.md keeps their p50s)."""
-    from karpenter_tpu_torch.state.ingest import IngestBatcher
-    out = {"without the arena": [], "with the arena": [],
-           "with the arena behind an IngestBatcher": []}
-    flushes = []
-    for _ in range(iters):
-        for kind, splits in out.items():
-            fresh = fresh_env(env, LIVE_PATH, catalog, device)
-            if kind != "without the arena":
-                fresh.cluster.attach_arena()
-                if "Ingest" in kind:
-                    fresh.cluster.arena = IngestBatcher(fresh.cluster.arena)
-            splits.append(provision_layers(torch, fresh))
-            if kind != "without the arena":
-                check(fresh.cluster.arena.gathers["warm"] == 1,
-                      "the timed copy did not gather from the arena")
-            if "Ingest" in kind:
-                t0 = time.perf_counter()
-                fresh.cluster.arena.flush()
-                flushes.append((time.perf_counter() - t0) * 1e3)
-    for kind, splits in out.items():
-        med = median_split(splits)
-        each = ", ".join(f"{x['total']:.1f}" for x in splits)
-        extra = ""
-        if "Ingest" in kind:
-            extra = (f"; the next tick's flush p50 "
-                     f"{statistics.median(flushes):.3f} ms")
-        log(f"[time] {LIVE_PATH} round 2 ({kind}): provision() p50 "
-            f"{med['total']:.3f} ms over {iters} fresh copies ({each}; "
-            f"the median copy's split: {layer_line(med, med['total'])})"
-            f"{extra} on {card}")
 
 
 def arena_disruption(torch, card, hook, device="cuda"):
@@ -4426,14 +4337,15 @@ def arena_disruption(torch, card, hook, device="cuda"):
 
 
 def operator_cell(torch, card, hook, device="cuda", snap=None):
-    """14(c): the operator cell — `Operator(Options())` on the card with
-    its default full-width catalog and a stepped clock, `build_controllers`,
-    the live cell's two bursts through its Provisioner, one
-    DisruptionController reconcile 10 000 s later — against
-    GOLDEN_OPERATOR, each step counted (launches zeroed just before it),
-    timed with its split, spanned and its kernel inputs recorded.  With
-    `snap` (a dict naming a "path"), the operator's Options carry the
-    WarmRestart gate and that path, and right after round 1 a
+    """14(c): the operator cell at a tenth of its depth —
+    `Operator(Options())` on the card with its default full-width catalog
+    and a stepped clock, `build_controllers`, the live cell's two bursts
+    cut to 5000 and 2000 pods (`workloads.OPERATOR_SMALL_ROUNDS`) through
+    its Provisioner, one DisruptionController reconcile 10 000 s later —
+    against GOLDEN_OPERATOR_SMALL, each step counted (launches zeroed just
+    before it), timed with its split, spanned and its kernel inputs
+    recorded.  With `snap` (a dict naming a "path"), the operator's Options
+    carry the WarmRestart gate and that path, and right after round 1 a
     `SnapshotWriter` writes the file under the state lock: `snap` gets its
     bytes, its write's host ms and round 2's provision() ms (phase 18
     restores it in a fresh process).  Returns the launches by step."""
@@ -4516,17 +4428,19 @@ def operator_cell(torch, card, hook, device="cuda", snap=None):
             f"on {card}")
         return res
     got = workloads.operator_replay(env, workloads.build_pods,
-                                    provision=provision, tick=tick)
+                                    provision=provision, tick=tick,
+                                    rounds=workloads.OPERATOR_SMALL_ROUNDS)
     hook.label = None
-    check(got == workloads.GOLDEN_OPERATOR,
-          f"{OPERATOR_PATH}: {got} != GOLDEN_OPERATOR "
-          f"{workloads.GOLDEN_OPERATOR}")
+    check(got == workloads.GOLDEN_OPERATOR_SMALL,
+          f"{OPERATOR_PATH}: {got} != GOLDEN_OPERATOR_SMALL "
+          f"{workloads.GOLDEN_OPERATOR_SMALL}")
     for name in ("classpack_precompute", "classpack_scan",
                  "classpack_assign_decode"):
         check(all(by_path[f"{OPERATOR_PATH} round {r}"][name] > 0
                   for r in (1, 2)),
               f"{name} did not launch in both of the operator's rounds")
-    log(f"[operator] {OPERATOR_PATH} reproduces GOLDEN_OPERATOR on {card}")
+    log(f"[operator] {OPERATOR_PATH} reproduces GOLDEN_OPERATOR_SMALL on "
+        f"{card}")
     return by_path
 
 
@@ -5239,7 +5153,7 @@ GATED_GOLDENS = (
      7200.0),
     ("gang-churn-storm", "gang-churn-storm.yaml", 7200.0),
     ("mixed-priority-diurnal", "mixed-priority-diurnal.yaml", 12600.0))
-GANG_PATH = "provision-gang-50k"
+GANG_PATH = "provision-gang-5k"
 
 
 def gated_goldens(torch, card, hook):
@@ -5269,11 +5183,13 @@ def gated_goldens(torch, card, hook):
 
 
 def gang_cell(torch, card, hook, device="cuda"):
-    """17(b): the cell provision-gang-50k on the card — the port's
-    Provisioner(gang_scheduling=True) with 8192 slots, the headline's
-    burst with its gangs, then PROVISION_ROUND2's with its tier-2 hostname
-    gangs, then one DisruptionController reconcile that executes the first
-    queued preemption plan — against GOLDEN_GANG.  Each round is counted
+    """17(b): the gang cell on the card at `workloads.GANG_SMALL_SCALE`
+    (a tenth of provision-gang-50k's pods and gangs, full width) — the
+    port's Provisioner(gang_scheduling=True) with 8192 slots, the
+    headline's burst with its gangs, then PROVISION_ROUND2's with its
+    tier-2 hostname gangs, then one DisruptionController reconcile that
+    executes the first queued preemption plan — against
+    GOLDEN_GANG_SMALL.  Each round is counted
     (launches zeroed just before it), spanned, its kernel inputs kept, and
     timed with the gang audit (`_enforce_gangs`, host) beside the rest of
     the solve.  Returns the launches by step."""
@@ -5334,16 +5250,17 @@ def gang_cell(torch, card, hook, device="cuda"):
             f"on {card}")
         return res
     got = workloads.gang_replay(env, workloads.build_pods,
-                                provision=provision, tick=tick)
+                                provision=provision, tick=tick,
+                                scale=workloads.GANG_SMALL_SCALE)
     hook.label = None
-    check(got == workloads.GOLDEN_GANG,
-          f"{GANG_PATH}: {json.dumps(got)[:3000]} != GOLDEN_GANG")
+    check(got == workloads.GOLDEN_GANG_SMALL,
+          f"{GANG_PATH}: {json.dumps(got)[:3000]} != GOLDEN_GANG_SMALL")
     for r in (1, 2):
         for name in ("classpack_precompute", "classpack_scan",
                      "classpack_assign_decode"):
             check(by_path[f"{GANG_PATH} round {r}"][name] > 0,
                   f"{name} did not launch in {GANG_PATH} round {r}")
-    log(f"[gang] {GANG_PATH} reproduces GOLDEN_GANG on {card}: audits "
+    log(f"[gang] {GANG_PATH} reproduces GOLDEN_GANG_SMALL on {card}: audits "
         f"{[r['audits'] for r in got['rounds']]}, plans "
         f"{[r['plans'] for r in got['rounds']]}, the tick evicted "
         f"{len(got['tick']['evicted'])} pods; registry {got['registry']}")
@@ -5583,7 +5500,8 @@ def preemption_fault(torch, card, device="cuda"):
 
 def phase17(torch, card, err, device="cuda"):
     """Phase 17, forecast-driven headroom and gang scheduling: (a) the four
-    gated goldens on the card, (b) provision-gang-50k against GOLDEN_GANG,
+    gated goldens on the card, (b) the gang cell at a tenth of its depth
+    against GOLDEN_GANG_SMALL,
     (c) every kernel wrapper those paths launched held against its plain
     version on the inputs of its last call on each path, (d) a KernelError
     in the HeadroomController's solve and in a preemption re-solve.
@@ -5615,7 +5533,7 @@ def phase17(torch, card, err, device="cuda"):
 # ---------------------------------------------------------------------------
 
 FAILOVER = ("failover-drill", "failover-drill.yaml", 5400.0)
-RESTART_PATH = "operator-restart-50k-20k"
+RESTART_PATH = "operator-restart-5k-2k"
 # the kernels the failover drill's lines name (its launches of each)
 DRILL_KERNELS = ("classpack_precompute", "classpack_scan",
                  "classpack_assign_decode", "classpack_sweep", "ffd_scan")
@@ -5664,7 +5582,8 @@ def successor(path, card) -> int:
     tick — each counted (launches zeroed just before it), spanned and its
     kernel inputs recorded, round 2 with its split and its count of
     `Cluster.tensorize_nodes` calls (cold gathers) — against
-    GOLDEN_OPERATOR's round 2 and tick; every recorded K1, K2, K3 input is
+    GOLDEN_OPERATOR_SMALL's round 2 and tick; every recorded K1, K2, K3
+    input is
     then held against the plain versions.  Prints its lines, then one
     `SUCCESSOR {json}` line; a failed check exits 1."""
     import torch
@@ -5748,12 +5667,13 @@ def successor(path, card) -> int:
     with wrapped_kernels(hook):
         got = workloads.operator_replay(env, workloads.build_pods,
                                         provision=provision, tick=tick,
-                                        rounds=workloads.OPERATOR_ROUNDS[1:])
+                                        rounds=workloads
+                                        .OPERATOR_SMALL_ROUNDS[1:])
     hook.label = None
-    want = workloads.GOLDEN_OPERATOR
+    want = workloads.GOLDEN_OPERATOR_SMALL
     check(got["rounds"][0] == want["rounds"][1],
-          f"{RESTART_PATH} round 2: {got['rounds'][0]} != GOLDEN_OPERATOR's "
-          f"{want['rounds'][1]}")
+          f"{RESTART_PATH} round 2: {got['rounds'][0]} != "
+          f"GOLDEN_OPERATOR_SMALL's {want['rounds'][1]}")
     check(got["tick"] == want["tick"], f"{RESTART_PATH} tick: "
                                        f"{got['tick']} != {want['tick']}")
     check(stats["cold"] == 0 and stats["warm"] >= 1,
@@ -5805,7 +5725,8 @@ def warm_restart(torch, card, snap, err):
     """18(b): the successor (`successor`) in a fresh Python process on the
     card, restoring phase 14(c)'s round-1 snapshot of the operator cell;
     its restore must be "restored", its first gather warm, its round 2 and
-    tick GOLDEN_OPERATOR's, its recorded kernel inputs equal to plain.
+    tick GOLDEN_OPERATOR_SMALL's, its recorded kernel inputs equal to
+    plain.
     Its provision() ms is printed beside phase 14's uninterrupted round 2.
     Returns the successor's launches by path."""
     from karpenter_tpu_torch.state.snapshot import load_sections
@@ -5845,8 +5766,8 @@ def warm_restart(torch, card, snap, err):
         f"{got['restore_ms']:.3f} ms, {got['cold']} cold gathers, round 2 "
         f"provision() {got['round2_ms']:.3f} ms beside phase 14's "
         f"uninterrupted {snap['round2_ms']:.3f} ms, tick "
-        f"{got['tick_ms']:.3f} ms; GOLDEN_OPERATOR's round 2 and tick; on "
-        f"{card}")
+        f"{got['tick_ms']:.3f} ms; GOLDEN_OPERATOR_SMALL's round 2 and tick; "
+        f"on {card}")
     return got["launches"]
 
 

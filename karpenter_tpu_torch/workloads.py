@@ -1466,6 +1466,32 @@ GOLDEN_OPERATOR: Dict[str, object] = dict(
               error=False),
 )
 
+# the operator cell at a tenth of its depth (full width): both bursts'
+# totals divided by OPERATOR_SMALL_SCALE (5000 + 2000 pods).  The full
+# cell's 2048 launches each wait out the CreateFleet batcher's 35 ms idle
+# window in turn; `chip_smoke.py` phases 14(c) and 18(b) replay this copy
+OPERATOR_SMALL_SCALE = 10
+OPERATOR_SMALL_ROUNDS = [(dict(kw, total=kw["total"] // OPERATOR_SMALL_SCALE),
+                          seed) for kw, seed in OPERATOR_ROUNDS]
+
+# `operator_replay(operator_env(...), rounds=OPERATOR_SMALL_ROUNDS)` on the
+# JAX package, on the CPU (tests/test_torch_operator_small.py): its tick
+# deletes one node for consolidation
+GOLDEN_OPERATOR_SMALL: Dict[str, object] = dict(
+    rounds=[
+        dict(digest='d5c6d44114e0085b539d6c83168c1ca0'
+             '3b572b443415dd26c78be36b8813556a',
+             launched=200, bound_new=5000, bound_existing=0,
+             unschedulable=0, total_price=480.88880000000097),
+        dict(digest='ab66be728306440bd0812ec145ed2a04'
+             'bc95683882c65b3a4b8c4c91199d25f8',
+             launched=180, bound_new=1866, bound_existing=134,
+             unschedulable=0, total_price=276.43789999999996),
+    ],
+    tick=dict(action=['delete', 'consolidation'], candidates=[355],
+              launched=[], deleted=1, error=False),
+)
+
 
 # ---------------------------------------------------------------------------
 # The operator loop: the simulator's soak cell and the /v1 surface

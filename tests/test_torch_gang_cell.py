@@ -5,8 +5,9 @@ same gang mix at a tenth of the gangs), driven through the port's
 as tests/test_torch_gang_golden.py drives the JAX package's, must
 reproduce `workloads.GOLDEN_GANG_SMALL`: both rounds' plans and audits,
 the queued preemption plans, the executed preemption and the registry.
-The full cell (minutes on one CPU worker) is held on the card by
-`chip_smoke.py` phase 17 against `workloads.GOLDEN_GANG`.
+`chip_smoke.py` phase 17 holds the same copy on the card to the same
+golden; the full cell (minutes on one CPU worker) is the JAX package's
+`workloads.GOLDEN_GANG` (tests/test_torch_gang_golden.py).
 """
 
 from types import SimpleNamespace

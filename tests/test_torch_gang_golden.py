@@ -6,10 +6,10 @@ guided path (8192 slots a round); then PROVISION_ROUND2's 20 000 pods with
 256 gangs of 8 (tier 2, hostname) against the launched fleet; then one
 DisruptionController reconcile with the Provisioner's plan queue as its
 `gang_source`, which executes the first preemption plan.  It must produce
-`workloads.GOLDEN_GANG`, which `chip_smoke.py` phase 17 reproduces on the
-card, and its seeded 5000-pod copy (`workloads.GANG_SMALL_SCALE`)
-`workloads.GOLDEN_GANG_SMALL`, which the port reproduces on the CPU
-(tests/test_torch_gang_cell.py).  The full cell takes minutes on one CPU
+`workloads.GOLDEN_GANG`, and its seeded 5000-pod copy
+(`workloads.GANG_SMALL_SCALE`) `workloads.GOLDEN_GANG_SMALL`, which the
+port reproduces on the CPU (tests/test_torch_gang_cell.py) and
+`chip_smoke.py` phase 17 on the card.  The full cell takes minutes on one CPU
 worker, most of it the audits' preemption planning, which walks every
 bound pod of a domain for each rejected gang of tier 1 or more.
 

@@ -5,10 +5,10 @@ live cell's two bursts (HEADLINE with seed 0, then PROVISION_ROUND2 with
 seed 5) provisioned by the operator's Provisioner, and one reconcile of its
 DisruptionController 10 000 s after the launches, must produce
 `workloads.GOLDEN_OPERATOR`, which the port reproduces on the CPU
-(tests/test_torch_operator_cell.py) and `chip_smoke.py` phase 14(c) on the
-card.  About two minutes on one CPU worker (most of it the CreateFleet
-batcher's 35 ms window a launch), so the cell's two halves are files of
-their own.
+(tests/test_torch_operator_cell.py); `chip_smoke.py` phase 14(c) replays
+its tenth on the card (tests/test_torch_operator_small.py).  About two
+minutes on one CPU worker (most of it the CreateFleet batcher's 35 ms
+window a launch), so the cell's two halves are files of their own.
 
     python tests/test_torch_operator_golden.py    # print GOLDEN_OPERATOR
 """
