@@ -28,6 +28,7 @@ import pytest
 from torch_cases import clear_lp_caches as clear_package_caches
 from torch_cases import one_torch_thread  # noqa: F401
 from torch_kits import FakeClock, launch_positions, package_kit, port_kit
+from torch_refnative import reference_native_loaded  # noqa: F401
 from helpers import cpu_pod, small_catalog
 from karpenter_tpu.api.resources import CPU, MEMORY, PODS
 from karpenter_tpu.sim.harness import _reset_global_counters

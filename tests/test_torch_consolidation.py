@@ -30,6 +30,7 @@ from karpenter_tpu_torch.controllers.disruption import DisruptionController
 from karpenter_tpu_torch.ops import classpack_kernels as ck
 from test_consolidation_sweep import build_underutilized, env, provision
 from torch_cases import fleet_to_reference, one_torch_thread  # noqa: F401
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 REL_TOL = 1e-5
 

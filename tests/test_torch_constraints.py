@@ -5,6 +5,7 @@ the values they compare are equal."""
 import pytest
 
 from torch_suites import Suite
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 SUITE = Suite("test_constraints")
 

@@ -73,6 +73,7 @@ from karpenter_tpu_torch.ops import lpguide as port_lg
 from karpenter_tpu_torch.ops import lpsolve as port_lp
 from karpenter_tpu_torch.utils.events import Recorder as TRecorder
 from torch_cases import one_torch_thread  # noqa: F401
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 REF_KIT = SimpleNamespace(
     FakeQueue=FakeQueue, FakeCloud=FakeCloud, FleetOverride=FleetOverride,

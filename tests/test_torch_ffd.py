@@ -32,6 +32,7 @@ from karpenter_tpu_torch import convert, workloads
 from karpenter_tpu_torch.ops import ffd as port_ffd
 from karpenter_tpu_torch.ops import ffd_kernels as fk
 from torch_cases import one_torch_thread  # noqa: F401
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 
 def _random_problem(seed, n_pods=60, n_types=12):

@@ -22,6 +22,7 @@ import pytest
 from helpers import small_catalog
 from torch_cases import clear_lp_caches as clear_package_caches
 from torch_cases import one_torch_thread  # noqa: F401
+from torch_refnative import reference_native_loaded  # noqa: F401
 from karpenter_tpu_torch import convert
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -55,6 +55,7 @@ from karpenter_tpu_torch.controllers.termination import TERMINATION_TAINT
 from karpenter_tpu_torch.state.cluster import Cluster as TCluster
 from test_torch_disruption import FakeClock, Twin
 from torch_cases import one_torch_thread  # noqa: F401
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 
 def plain_pool(api):

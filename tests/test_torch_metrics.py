@@ -23,6 +23,7 @@ import pytest
 
 from torch_cases import clear_lp_caches
 from torch_suites import Suite, four_types, package, port_on_cpu
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 # a case whose assertions search the whole exposition text, durations
 # included: its comparisons are recorded by outcome

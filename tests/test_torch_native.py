@@ -15,7 +15,10 @@ K7's plain version and the JAX package's native packer, on the CPU.
   * tests/test_native.py's plan assertions, on the port's native packer;
   * the loader: a hashed library under build/native reused by a second
     build, two processes building at once leaving one complete library,
-    and `available()` False without a compiler.
+    and `available()` False without a compiler;
+  * the JAX package's library after a torn load (tests/torch_refnative.py):
+    loaded again before each case, and a load error raised, never a skip,
+    when it stays missing.
 """
 
 import os
@@ -35,6 +38,8 @@ from karpenter_tpu_torch.ops import ffd as port_ffd
 from karpenter_tpu_torch.ops import ffd_kernels as fk
 from test_torch_ffd import _plan, _port_kw, _problem, _random_problem
 from torch_cases import one_torch_thread  # noqa: F401
+from torch_refnative import reference_native
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -196,3 +201,32 @@ def test_unavailable_without_a_compiler(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="unavailable"):
         port_ffd.solve_ffd(convert.problem_from_arrays(prob),
                            backend="native")
+
+
+# ---- the reference's library after a torn load ----
+
+def test_reference_native_reloads_after_a_torn_load(monkeypatch):
+    """A worker that loaded the JAX package's library while another worker
+    was still writing it is left with `_lib = None`, `_build_failed =
+    True`: `reference_native()` loads it again, and the slot comparison
+    that failed in such a worker passes."""
+    monkeypatch.setattr(ref_native, "_lib", None)
+    monkeypatch.setattr(ref_native, "_build_failed", True)
+    assert not ref_native.available()
+    assert reference_native() is ref_native
+    assert ref_native._lib is not None and not ref_native._build_failed
+    assert ref_native.available()
+    test_native_slots_equal_the_scan_bit_for_bit("existing_default_usage")
+
+
+def test_reference_native_raises_the_load_error_at_its_deadline(
+        monkeypatch, tmp_path):
+    """A library that never loads is an error, not a skip."""
+    bad = tmp_path / "_libffd.so"
+    bad.write_bytes(b"not an ELF file")
+    monkeypatch.setattr(ref_native, "_lib", None)
+    monkeypatch.setattr(ref_native, "_build_failed", True)
+    monkeypatch.setattr(ref_native, "_LIB", str(bad))
+    monkeypatch.setattr(ref_native, "_SRC", str(bad))
+    with pytest.raises(OSError, match="_libffd.so"):
+        reference_native(deadline_s=0.5)

@@ -43,6 +43,7 @@ from torch_ha import PORT as HA_PORT
 from torch_ha import REF as HA_REF
 from torch_ha import both as ha_both
 from torch_ha import pod, stack
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 from karpenter_tpu_torch import workloads
 

@@ -23,6 +23,7 @@ import pytest
 
 from torch_cases import clear_lp_caches as clear_package_caches
 from torch_cases import one_torch_thread  # noqa: F401
+from torch_refnative import reference_native_loaded  # noqa: F401
 from karpenter_tpu_torch import workloads
 from karpenter_tpu_torch._build import KernelError
 

@@ -73,6 +73,7 @@ from karpenter_tpu_torch.utils.watchdog import (PHASES, WatchdogTimeout,
                                                 run_with_deadline)
 from test_partitioned import random_pinned_pods, zoned_catalog
 from torch_cases import one_torch_thread  # noqa: F401
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 
 def _clear_lp_caches():

@@ -5,6 +5,7 @@ the values they compare are equal."""
 import pytest
 
 from torch_suites import Suite
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 # two cases hold their wall time to the reference's budget
 SUITE = Suite("test_scale",

@@ -14,6 +14,7 @@ import os
 import sys
 
 from torch_cases import clear_lp_caches
+from torch_refnative import reference_native_loaded  # noqa: F401
 from karpenter_tpu.sim import SimHarness, load_scenario
 from karpenter_tpu_torch import workloads
 

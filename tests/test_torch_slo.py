@@ -6,6 +6,7 @@ import pytest
 
 from torch_cases import one_torch_thread  # noqa: F401
 from torch_suites import Suite, obs_disarmed  # noqa: F401
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 # Their compared values hold the `tick_duration` SLI's `bad`,
 # `budget_remaining`, `burn`, `alerts` and `alerting`, which count the

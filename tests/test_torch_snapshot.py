@@ -32,6 +32,7 @@ from torch_cases import clear_lp_caches
 from torch_cases import one_torch_thread  # noqa: F401
 from torch_ha import (PORT, REF, REPO, both, gather_obs, gather_of, pod,
                       provisioned_stack, reset_counters, stack)
+from torch_refnative import reference_native_loaded  # noqa: F401
 
 sys.path.insert(0, REPO)
 from chip_smoke import object_types  # noqa: E402
