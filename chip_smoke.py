@@ -184,7 +184,7 @@ pass):
                interruptions drained by the InterruptionController and
                re-provisioned, a leaked instance collected by GC.  Run
                after phase 10 (so the kernel rows carry its launches),
-               three times on fleets built anew: counted (the launch
+               twice on fleets built anew: counted (the launch
                counts set to 0 just before the replay and read just
                after, each tick's read around it; every tick must
                reproduce GOLDEN_DISRUPTION, the JAX package's, and K1, K5,
@@ -199,10 +199,9 @@ pass):
                decision and execute = launch + rebind + drain, the
                rolled-back drift tick on its own line; every kernel
                wrapper's call spanned by CUDA events, whose sum over the
-               ticks' wall gives the idle share) and traced (each
-               reconcile under the profiler, a second witness that sees
-               the torch operations and not the ctypes launches); both
-               must reproduce the golden too.
+               ticks' wall gives the idle share), which must reproduce
+               the golden too (a third run under the profiler, a witness
+               blind to the ctypes launches, went when phase 21 came).
  14. the arena and the operator — run after every profiler trace,
                with every kernel wrapper's call spanned by CUDA events and
                the inputs of its last call on each path kept: (a) the
@@ -244,10 +243,11 @@ pass):
                tests/golden/ (read, never written), then drip and soak
                with the arena off, drip with IngestBatch and diurnal with
                DeviceDecode against the same goldens; (b) the cell
-               sim-long-soak-480 with the arena on, then off, each
-               against GOLDEN_SIM_SOAK, and steady-state-drip at 480 s
-               likewise, its reports equal, with wall time, speedup,
-               ticks, gathers, launches and idle share; (c) the /v1 cell: the
+               sim-long-soak-480 with the arena on against
+               GOLDEN_SIM_SOAK, and steady-state-drip at 480 s likewise
+               (their arena-off replays went when phase 21 came), with
+               wall time, speedup, ticks, gathers, launches and idle
+               share; (c) the /v1 cell: the
                operator from the command line at full width, restarted
                over a launched fleet, its endpoints served and its loop
                in a thread — /readyz 200 with the parity probe "ok",
@@ -334,8 +334,9 @@ pass):
                golden run) and, inside phase 10 where its state is, the
                live cell's round-2 `Provisioner.solve` (every run the
                first run's plan; the round's golden provision() follows)
-               run with `TRACER.enabled` on and off in turns (21 and 5
-               pairs), their p50s and the overhead printed
+               run with `TRACER.enabled` on and off in turns (21 and 2
+               pairs; 5 on the live cell before phase 21 came), their
+               p50s and the overhead printed
                (`[trace-cost]`);
                (b) one provisioning round (5000 headline pods, 600 types,
                the default Provisioner) and one consolidation tick over
@@ -354,8 +355,9 @@ pass):
                `/debug/pprof` answers 403, then 200 with
                `enable_profiling`; (d) host ms by span summed over whole
                runs (the tracer's duration histogram, registries reset
-               first): the sim-long-soak-480 replay against
-               GOLDEN_SIM_SOAK (the loop) and the megafleet's three
+               first): the long-soak replay at tests/test_sim.py's
+               horizon against tests/golden/ (the loop; the 480 s cell
+               before phase 21 came) and the megafleet's three
                `solve_partitioned` modes (the sharded path).
  20. incidents, the flight recorder, the SLO engine and the cost ledger
                — after phase 19, with its kernel spans and recorded inputs:
@@ -379,6 +381,26 @@ pass):
                tick() with nothing booked and no incident; (e)
                `tools.trace_demo` on the card prints its incident index
                ((c)-(e) run on the CPU in tests/test_torch_obs.py).
+ 21. the certified cost bounds (ops/lpbound.py, ops/ggbound.py) — after
+               phase 20: (a) the pricing sweep of bench.run_lp_ab (40
+               types, C = 100, 250 and 500 from one default_rng(42)) under
+               the class LP's duals: one `ggbound._device_screen` batch on
+               the card (one pdhg launch, counted) beside the serial HiGHS
+               screen over the same jobs, every certified bound at least
+               its HiGHS optimum; (b) tools/certify.py's default instance
+               (10 000 pods x 200 types, `workloads.certify_problem`):
+               solve_classpack on the card and class_lp_bound (HiGHS, on a
+               thread beside the plan, (a) and the GG round) against
+               GOLDEN_CERTIFY, and gg_bound(device=True) for
+               `workloads.CERTIFY_GG_ITERS` round(s) (its screen one pdhg
+               launch over every candidate option, the streaming kernel;
+               its own value maxed with the class LP), class LP <= gg <=
+               plan cost and gg against the golden.  Each screen's
+               batch is held against pdhg_plain, its kernel timed beside
+               its bound (the padded operator's bytes a step, summed over
+               the members' own iterations, over the memory rate) with the
+               kernel its launch took; the records join the pdhg row
+               (`screen`, `sweeps`).
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -1330,13 +1352,13 @@ def consolidation_path(torch, card):
                                     ctrl.provider.get_instance_types(),
                                     list(ctrl.nodepools.values()),
                                     device=ctrl.device).delete_side,
-            iters=3)
+            iters=1)
         out["arena build, replace face"] = p50_ms(
             lambda: SimulationArena(cands, ctrl.cluster,
                                     ctrl.provider.get_instance_types(),
                                     list(ctrl.nodepools.values()),
                                     device=ctrl.device).replace_side,
-            iters=3)
+            iters=1)
         from karpenter_tpu_torch.controllers.disruption import \
             _search_frontier
         out["prefix sweep, first frontier (K1+K5, D2H)"] = p50_ms(
@@ -1840,12 +1862,14 @@ def pdhg_path(torch, case):
 
 
 def compare_pdhg_case(torch, name, case, err, pod_scale=False, expect=None,
-                      path="resident"):
+                      path="resident", summary=False):
     """The kernel against `pdhg_plain` on one captured or built batch, on
     the kernel `path` names (checked by its launch counter), and a second
     launch against the first, bit for bit; returns a list of failure
     strings (empty when it agrees).  The plain call's CUDA-event time is
-    kept in `case["plain_ms"]` (the kernel row's plain time)."""
+    kept in `case["plain_ms"]` (the kernel row's plain time).  A line per
+    member, or with `summary` one line for the batch (kept in
+    `case["summary"]`)."""
     from karpenter_tpu_torch.ops import lpsolve_kernels as lk
     args = (*case["ops"], case["eps"], case["iters_cap"],
             case["check_every"])
@@ -1885,7 +1909,8 @@ def compare_pdhg_case(torch, name, case, err, pod_scale=False, expect=None,
                 f" dres {got[7][i]:.3g} gap {got[8][i]:.3g}); plain "
                 f"{'converged' if want[3][i] else 'cap'} {it_w} it obj {ow!r};"
                 f" |dx| {dx:.3g}")
-        log(line)
+        if not summary:
+            log(line)
         if bool(got[3][i]) != bool(want[3][i]):
             bad.append(f"{name}[{i}] status differs")
         if expect is not None and bool(got[3][i]) != expect:
@@ -1896,6 +1921,13 @@ def compare_pdhg_case(torch, name, case, err, pod_scale=False, expect=None,
             bad.append(f"{name}[{i}] x differs by {dx}")
         if it_g > LP_ITER_FACTOR * it_w or it_w > LP_ITER_FACTOR * it_g:
             bad.append(f"{name}[{i}] iterations {it_g} vs {it_w}")
+    if summary:
+        dxs = np.abs(got[0] - want[0]).max(axis=1)
+        case["summary"] = (
+            f"against plain: {B} members, {int(got[3].sum())} converged "
+            f"(plain {int(want[3].sum())}); iterations {got[4].min()}-"
+            f"{got[4].max()} (plain {want[4].min()}-{want[4].max()}); max "
+            f"|dx| {dxs.max():.3g}; two launches bit-equal")
     return bad
 
 
@@ -2156,10 +2188,11 @@ def guided_path(torch, problem):
 
 def guided_breakdown(torch, card, problem, iters=5):
     """Host-clock split of the guided headline's layers: the column
-    generation (exact_lp_mix, HiGHS masters, in a cold solve), and in warm
-    solves the remainder solve (K1-K3 + decode), the flexible alternatives,
-    and the rest (mix lookup, stripe, tuck, merge).  Each layer is timed by
-    wrapping the function the guide calls; p50 over `iters` solves."""
+    generation (exact_lp_mix, HiGHS masters, in one cold solve; three
+    before phase 21 came), and in warm solves the remainder solve (K1-K3 +
+    decode), the flexible alternatives, and the rest (mix lookup, stripe,
+    tuck, merge).  Each layer is timed by wrapping the function the guide
+    calls; p50 over `iters` warm solves."""
     from karpenter_tpu_torch.ops import classpack as cp
     from karpenter_tpu_torch.ops import lpguide
     sync = torch.cuda.synchronize
@@ -2187,7 +2220,7 @@ def guided_breakdown(torch, card, problem, iters=5):
              (cp, "resolve_alternatives", timed(cp, "resolve_alternatives",
                                                 "alt"))]
     try:
-        for cold in (True,) * 3 + (False,) * iters:
+        for cold in (True,) + (False,) * iters:
             if cold:
                 clear_lp_caches()
             spent.clear()
@@ -2257,7 +2290,7 @@ def guided_timings(torch, card, problem, masters):
     def cold():
         clear_lp_caches()
         solve_classpack(problem)
-    out["guided headline, cold (mix caches cleared)"] = p50_ms(cold, 3, sync)
+    out["guided headline, cold (mix caches cleared)"] = p50_ms(cold, 1, sync)
     out["guided headline, warm"] = p50_ms(lambda: solve_classpack(problem),
                                           7, sync)
 
@@ -4003,18 +4036,15 @@ def disruption_path(torch, card, err):
 
 
 def disruption_timings(torch, card):
-    """Phase 13's timed runs, each on a fleet built anew: one with the
-    tick split by wall clock (candidates = the reconcile less the
-    decision and the execution; the execution split into launch, rebind
-    and drain) and every kernel wrapper's call spanned by CUDA events
-    (their sum is the ticks' kernel busy time, against the same run's
-    wall: the idle share), one with each reconcile under the profiler (a
-    second witness: it sees the torch operations on the card, and drops
-    the kernels launched through ctypes).  Both must reproduce
-    GOLDEN_DISRUPTION as well.  The drift p50 is over the executed ticks;
-    the rolled-back tick is printed on its own."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Phase 13's timed run, on a fleet built anew: the tick split by wall
+    clock (candidates = the reconcile less the decision and the execution;
+    the execution split into launch, rebind and drain) and every kernel
+    wrapper's call spanned by CUDA events (their sum is the ticks' kernel
+    busy time, against the same run's wall: the idle share).  It must
+    reproduce GOLDEN_DISRUPTION as well.  (A third run, each reconcile
+    under the profiler, a witness blind to the ctypes launches, went when
+    phase 21 came.)  The drift p50 is over the executed ticks; the
+    rolled-back tick is printed on its own."""
     from karpenter_tpu_torch import workloads
     env = fresh_disruption_env()
     ctrl, acc, split = env.disruption, {}, []
@@ -4057,41 +4087,6 @@ def disruption_timings(torch, card):
         sigs = workloads.disruption_replay(env, tick=split_tick)
     check_disruption_golden(sigs, "disruption (timed run)")
 
-    env = fresh_disruption_env()
-    ctrl, traced = env.disruption, []
-    reconcile2 = ctrl.reconcile
-    decided = []
-    orig = ctrl.consolidation_action
-
-    def consolidation_action(cands):
-        decided.append(1)
-        return orig(cands)
-    ctrl.consolidation_action = consolidation_action
-
-    def traced_reconcile():
-        torch.cuda.synchronize()
-        n_dec = len(decided)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            out = reconcile2()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        busy = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA) / 1e3
-        traced.append((wall, busy, len(decided) > n_dec))
-        return out
-    ctrl.reconcile = traced_reconcile
-    phases = []
-
-    def traced_tick(env, phase):
-        phases.append(phase)
-        sig, res = workloads.disruption_tick(env, phase)
-        phases[-1] = (phase, sig["error"])
-        return sig, res
-    sigs = workloads.disruption_replay(env, tick=traced_tick)
-    check_disruption_golden(sigs, "disruption (traced run)")
-
     parts = ("tick", "candidates", "decision", "execute", "launch", "rebind",
              "drain", "kernels")
     consolidation = lambda ph, a, err: ph == "consolidation" and \
@@ -4121,18 +4116,10 @@ def disruption_timings(torch, card):
         wall = sum(a["tick"] for a in rows)
         calls = sum(a["calls"] for a in rows)
         out[group]["idle_share"] = 1 - busy / wall
-        tr = [(w, b) for (w, b, dec), (ph, e) in zip(traced, phases)
-              if (ph == "consolidation" and dec if group == "consolidation"
-                  else ph == "drift" and not e)]
-        check(len(tr) == len(rows), f"{len(tr)} traced {group} ticks, "
-              f"{len(rows)} timed")
-        seen = sum(b for _, b in tr)
         log(f"[trace] disruption {group} ticks: the {calls} kernel calls' "
             f"CUDA-event spans {busy:.3f} ms of {wall:.3f} ms wall over "
-            f"{len(rows)} ticks: idle share {out[group]['idle_share']:.4f}; "
-            f"the profiler (a second witness, blind to the ctypes "
-            f"launches) saw {seen:.3f} ms of device time over the same "
-            f"ticks on {card}")
+            f"{len(rows)} ticks: idle share {out[group]['idle_share']:.4f} "
+            f"on {card}")
         check(busy > 0 and calls > 0, f"the disruption {group} ticks "
               f"spanned no kernel call")
     rolled = [a for ph, a, e in split if ph == "drift" and e]
@@ -4571,54 +4558,39 @@ def sim_goldens(torch, card, hook):
     return by_path, walls
 
 
-def arena_pairs(torch, card, hook, cell, label, want):
+def arena_replay(torch, card, hook, cell, label, want):
     """One replay of `cell` (a `workloads.SIM_*` dict) with the arena on
-    (the default) and off, in that order (on, off, off, on before phase 17
-    came: one pair keeps the script in its time), each with its
-    wall time, speedup, ticks, gathers, launches and idle share; every
-    report's `workloads.sim_digest` must be `want`, the JAX package's, and
-    the arena must serve warm gathers and refuse none.  Returns the walls
-    by arena and the first arena run's launches."""
+    (the default), with its wall time, speedup, ticks, gathers, launches
+    and idle share; its report's `workloads.sim_digest` must be `want`,
+    the JAX package's, and the arena must serve warm gathers and refuse
+    none.  (The arena-off replay beside it went when phase 21 came: one
+    pair never decided B13, which runs its ten pairs in a call of its own;
+    15(a), 16(b) and 18(a) hold the arena-off path to its goldens.)
+    Returns the wall and the launches."""
     from karpenter_tpu_torch import workloads
-    walls, first = {True: [], False: []}, None
-    for arena in (True, False):
-        path = label + ("" if arena else " incremental_arena=False")
-        run, h, launches, wall = sim_replay(torch, card, hook,
-                                            cell["scenario"],
-                                            cell["duration_s"], path,
-                                            incremental_arena=arena)
-        got = workloads.sim_digest(run.report)
-        check(got == want, f"{path}: {got} != {want}")
-        if arena:
-            g = h.cluster.arena.gathers
-            check(g["warm"] > 0 and g["fallback"] == 0,
-                  f"{path}: the arena's gathers {g}")
-            first = first or launches
-        walls[arena].append(wall)
-    return walls, first
-
-
-def ab_line(walls):
-    on, off = (statistics.mean(walls[k]) for k in (True, False))
-    return (f"with the arena {', '.join(f'{x:.3f}' for x in walls[True])} "
-            f"s (mean {on:.3f}), without "
-            f"{', '.join(f'{x:.3f}' for x in walls[False])} s (mean "
-            f"{off:.3f}): with / without {on / off:.3f}")
+    run, h, launches, wall = sim_replay(torch, card, hook, cell["scenario"],
+                                        cell["duration_s"], label)
+    got = workloads.sim_digest(run.report)
+    check(got == want, f"{label}: {got} != {want}")
+    g = h.cluster.arena.gathers
+    check(g["warm"] > 0 and g["fallback"] == 0,
+          f"{label}: the arena's gathers {g}")
+    return wall, launches
 
 
 def sim_soak(torch, card, hook, walls):
     """15(b): the cells sim-long-soak-480 (workloads.SIM_SOAK) and
-    sim-steady-state-drip-480 (SIM_DRIP) with the arena on and off
-    (`arena_pairs`), each run against the JAX package's GOLDEN_SIM_SOAK /
+    sim-steady-state-drip-480 (SIM_DRIP) with the arena on
+    (`arena_replay`), each against the JAX package's GOLDEN_SIM_SOAK /
     GOLDEN_SIM_DRIP (the drip's 300 s golden sweeps nothing: its walls
-    from 15(a) are printed beside).  Returns the arena runs' launches."""
+    from 15(a) are printed beside).  Returns their launches."""
     from karpenter_tpu_torch import workloads
-    soak, soak_launches = arena_pairs(torch, card, hook, workloads.SIM_SOAK,
-                                      SOAK_PATH, workloads.GOLDEN_SIM_SOAK)
-    drip, drip_launches = arena_pairs(torch, card, hook, workloads.SIM_DRIP,
-                                      DRIP_PATH, workloads.GOLDEN_SIM_DRIP)
-    log(f"[time] {SOAK_PATH}: {ab_line(soak)}; on {card}")
-    log(f"[time] {DRIP_PATH}: {ab_line(drip)}; steady-state-drip 300 s: "
+    soak, soak_launches = arena_replay(torch, card, hook, workloads.SIM_SOAK,
+                                       SOAK_PATH, workloads.GOLDEN_SIM_SOAK)
+    drip, drip_launches = arena_replay(torch, card, hook, workloads.SIM_DRIP,
+                                       DRIP_PATH, workloads.GOLDEN_SIM_DRIP)
+    log(f"[time] {SOAK_PATH}: {soak:.3f} s with the arena; {DRIP_PATH}: "
+        f"{drip:.3f} s; steady-state-drip 300 s: "
         f"{walls['sim-steady-state-drip']:.3f} s with, "
         f"{walls['sim-steady-state-drip incremental_arena=False']:.3f} s "
         f"without; on {card}")
@@ -4794,7 +4766,7 @@ def v1_process(card):
 
 def phase15(torch, card, err):
     """Phase 15, the operator loop: (a) the canned goldens replayed by the
-    simulator on the card, (b) the soak cell with the arena on and off,
+    simulator on the card, (b) the soak and drip cells with the arena on,
     (c) the /v1 surface in process and `python3 -m karpenter_tpu_torch` as
     a process, then (d) every kernel wrapper those paths launched held
     against its plain version on the inputs of its last call on each path;
@@ -5938,7 +5910,7 @@ def phase18(torch, card, err, snap):
 # tracing's cost on the two timed paths, filled as they run (the live
 # cell's round 2 inside phase 10, where its state is)
 TRACE_COST = {}
-TRACE_PAIRS = 5
+TRACE_PAIRS = 2     # the live round-2 solve's pairs (5 before phase 21)
 PROVISION_19 = "trace-provision-5k"
 TICK_19 = "trace-consolidation-tick"
 
@@ -6241,22 +6213,24 @@ def span_line(sums):
 
 def whole_run_splits(torch, card, mega):
     """Phase 19(d): host ms by span summed over whole runs, from fresh
-    registries: the sim-long-soak-480 replay (the loop; its report against
-    GOLDEN_SIM_SOAK) and the megafleet's three `solve_partitioned` modes
-    (the sharded path)."""
+    registries: the long-soak replay at tests/test_sim.py's horizon (the
+    loop; its report against tests/golden/sim-long-soak.json; the 480 s
+    cell before phase 21 came) and the megafleet's three
+    `solve_partitioned` modes (the sharded path)."""
     from karpenter_tpu_torch import workloads
     from karpenter_tpu_torch.parallel import solve_partitioned
+    from karpenter_tpu_torch.sim import report_to_json
     from karpenter_tpu_torch.utils import metrics
     metrics.REGISTRY.reset()
+    name, fname, duration = SIM_GOLDENS[-1]
     hook = kernel_log(torch, spans=True)
     with wrapped_kernels(hook):
-        run, _, _, wall = sim_replay(
-            torch, card, hook, workloads.SIM_SOAK["scenario"],
-            workloads.SIM_SOAK["duration_s"], f"trace {SOAK_PATH}")
-    got = workloads.sim_digest(run.report)
-    check(got == workloads.GOLDEN_SIM_SOAK,
-          f"trace {SOAK_PATH}: {got} != {workloads.GOLDEN_SIM_SOAK}")
-    log(f"[trace] {SOAK_PATH} host ms by span over the replay "
+        run, _, _, wall = sim_replay(torch, card, hook, fname, duration,
+                                     f"trace sim-{name}")
+    with open(os.path.join(REPO, "tests", "golden", f"sim-{name}.json")) as fh:
+        check(report_to_json(run.report) == fh.read(),
+              f"trace sim-{name}: the report differs from its golden")
+    log(f"[trace] sim-{name} host ms by span over the replay "
         f"({wall * 1e3:.3f} ms wall; span (count)): "
         f"{span_line(span_sums())} on {card}")
     metrics.REGISTRY.reset()
@@ -6593,6 +6567,244 @@ def phase20(torch, card, err):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the certified cost bounds on the card
+# ---------------------------------------------------------------------------
+
+SCREEN_TOL = 1e-6       # a certified pricing bound under its HiGHS optimum
+# GOLDEN_CERTIFY's plan cost and LP values across scipy versions (the
+# tolerance tests/test_torch_bounds.py states)
+CERTIFY_RTOL = 1e-6
+SWEEP_PATH_PREFIX = "bounds-sweep-"
+CERTIFY_PATH = "certify-10k-200"
+
+
+def screen_bound(case):
+    """(bound ms, "bytes" or "operations", {term: ms}) of one batched PDHG
+    solve, counted member by member from this run's iterations: the
+    padded operator's bytes ((me + mi) x n float32, the envelope the batch
+    runs in) read once a step over the memory rate, or 4 (me + mi) n
+    float32 operations a step over the card's float32 peak."""
+    A, G = case["ops"][0], case["ops"][2]
+    mat = (A.shape[1] + G.shape[1]) * A.shape[2] * 4
+    steps = float(np.sum(case["iters"]))
+    terms = {"bytes": mat * steps / MEM_BW * 1e3,
+             "operations": mat * steps / F32_PEAK * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by, terms
+
+
+def screen_line(torch, card, name, screen, launches, err):
+    """One screen's batch on the card (`screen`: a `screens` record): its
+    kernel path (from the launch counts read around the run), envelope,
+    iterations, the kernel's own CUDA-event time, its bound, and the
+    kernel held against plain.  Returns the record."""
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    case = screen["case"]
+    path = "resident" if launches["pdhg_resident"] else "streaming"
+    args = (*case["ops"], case["eps"], case["iters_cap"],
+            case["check_every"])
+    ms = event_ms(torch, lambda: lk.pdhg(*args), 1)
+    bad = compare_pdhg_case(torch, name, case, err, path=path, summary=True)
+    check(not bad, f"pdhg on {name}'s screen: {bad[:8]}")
+    plain_ms = case["plain_ms"]
+    bound_ms, by, terms = screen_bound(case)
+    B, n = case["ops"][4].shape
+    me, mi = case["ops"][1].shape[1], case["ops"][3].shape[1]
+    it = case["iters"]
+    log(f"[bounds] {name} screen: B={B} pricing LPs, one pdhg launch "
+        f"({path}), envelope n={n} me={me} mi={mi}; iterations "
+        f"{int(it.min())}-{int(it.max())} (sum {int(it.sum())}), "
+        f"{int(case['done'].sum())} converged; {screen['ms']:.3f} ms CUDA "
+        f"events over _device_screen (padding, upload, launch, copies "
+        f"back), the kernel {ms:.3f} ms; bound {bound_ms:.4f} ms by {by} "
+        f"(terms { {k: round(v, 4) for k, v in terms.items()} }: "
+        f"{ms / bound_ms:.0f}x); plain {plain_ms:.3f} ms; {case['summary']};"
+        f" on {card}")
+    return dict(B=B, n=n, me=me, mi=mi, path=path, ms=ms,
+                call_ms=screen["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, iterations=int(it.max()),
+                iterations_sum=int(it.sum()), launches=launches["pdhg"])
+
+
+def screens(torch, fn):
+    """Run `fn()` with every `ggbound._device_screen` call spanned by CUDA
+    events and its pdhg call captured: (fn's result, [{ms, case}])."""
+    from karpenter_tpu_torch.ops import ggbound
+    real = ggbound._device_screen
+    seen = []
+
+    def timed(*a, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out, cases = capture_masters(lambda: real(*a, **kw))
+        e1.record()
+        torch.cuda.synchronize()
+        check(len(cases) == 1, f"a screen made {len(cases)} pdhg calls")
+        seen.append(dict(ms=e0.elapsed_time(e1), case=cases[0]))
+        return out
+    ggbound._device_screen = timed
+    try:
+        res = fn()
+    finally:
+        ggbound._device_screen = real
+    return res, seen
+
+
+def pricing_sweeps(torch, card, err):
+    """21(a): the pricing sweep of bench.run_lp_ab (40 types, C = 100,
+    250, 500 from one default_rng(42)) under the class LP's duals: one
+    `_device_screen` batch on the card from cold warm-start caches, with
+    the launch counts set to 0 just before it and read just after, beside
+    the serial HiGHS screen over the same jobs; every certified bound at
+    least its HiGHS optimum.  Returns ({path: launches}, {C: record})."""
+    from scipy.optimize import linprog
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import ggbound, lpsolve
+    rng = np.random.default_rng(workloads.LP_SEED)
+    paths, recs = {}, {}
+    for C in workloads.SWEEP_SIZES:
+        req, cnt, compat, alloc, price = workloads.lp_instance(
+            C, workloads.LP_TYPES, rng)
+        z, duals = workloads.lp_duals(req, cnt, compat, alloc, price)
+        jobs = workloads.lp_pricing_jobs(req, compat, alloc, duals)
+        t0 = time.perf_counter()
+        highs = {}
+        for j, idx, ubj in jobs:
+            r = linprog(-duals[idx], A_ub=req[idx].T, b_ub=alloc[j],
+                        bounds=[(0, u) for u in ubj], method="highs")
+            check(r.status == 0, f"HiGHS pricing LP {j} at C={C} failed")
+            highs[j] = -r.fun
+        highs_ms = (time.perf_counter() - t0) * 1e3
+        name = f"{SWEEP_PATH_PREFIX}{C}"
+        lpsolve.reset_caches()
+        reset_all_launches()
+        ub, seen = screens(torch, lambda: ggbound._device_screen(
+            jobs, duals, req, alloc))
+        paths[name] = launches = all_launches()
+        check(launches["pdhg"] == 1,
+              f"{name}: {launches['pdhg']} pdhg launches, not 1")
+        slack = np.array([ub[j] - highs[j] for j, _, _ in jobs])
+        check(sorted(ub) == sorted(highs) and slack.min() >= -SCREEN_TOL,
+              f"{name}: a certified pricing bound fell under its HiGHS "
+              f"optimum by {-slack.min()}")
+        rec = screen_line(torch, card, name, seen[0], launches, err)
+        rec.update(highs_ms=highs_ms, class_lp=z)
+        recs[C] = rec
+        log(f"[bounds] {name}: class LP {z!r} over {len(alloc)} options; "
+            f"the serial HiGHS screen over the same {len(jobs)} jobs "
+            f"{highs_ms:.1f} ms of host against {seen[0]['ms']:.3f} ms for "
+            f"the batch; every certified bound >= its HiGHS optimum (slack "
+            f"{slack.min():.3g} to {slack.max():.3g}); on {card}")
+    return paths, recs
+
+
+def certify_path(torch, card, err, sweeps):
+    """21(b): tools/certify.py's path at its default size (10 000 pods x
+    200 types): solve_classpack on the card, class_lp_bound (on a thread,
+    beside the plan, `sweeps()` and the GG round) against GOLDEN_CERTIFY,
+    and gg_bound(device=True) for CERTIFY_GG_ITERS rounds with
+    `base_lp=-inf` (the column generation's own value, whose max with the
+    class LP is what gg_bound gives from it), each of the two card runs
+    with the launch counts set to 0 just before it and read just after;
+    class LP <= gg <= plan cost, and the bound against the golden.
+    Returns ({path: launches}, sweeps' result, the screen's record)."""
+    import threading
+    import scipy
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import ggbound, lpbound, lpsolve
+    from karpenter_tpu_torch.ops.classpack import solve_classpack
+    gold = workloads.GOLDEN_CERTIFY
+    t0 = time.perf_counter()
+    prob = workloads.certify_problem()
+    lp = {}
+
+    def class_lp():
+        t = time.perf_counter()
+        lp["z"] = lpbound.class_lp_bound(prob)
+        lp["s"] = time.perf_counter() - t
+    th = threading.Thread(target=class_lp, name="class-lp")
+    th.start()
+    clear_lp_caches()
+    reset_all_launches()
+    t1 = time.perf_counter()
+    plan = solve_classpack(prob)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t1
+    paths = {f"{CERTIFY_PATH} plan": all_launches()}
+    log(f"[bounds] {CERTIFY_PATH}: C={prob.num_classes} O={prob.num_options};"
+        f" solve_classpack on the card {plan_s:.3f} s: {len(plan.nodes)} "
+        f"nodes, cost {plan.total_price!r} (golden {gold['nodes']}, "
+        f"{gold['plan_cost']!r}); launches {paths[f'{CERTIFY_PATH} plan']}")
+    check(len(plan.nodes) == gold["nodes"] and not plan.unschedulable
+          and abs(plan.total_price - gold["plan_cost"])
+          <= CERTIFY_RTOL * gold["plan_cost"],
+          f"{CERTIFY_PATH}: plan {plan.total_price} / {len(plan.nodes)} "
+          f"nodes against GOLDEN_CERTIFY")
+    name = f"{CERTIFY_PATH} gg_bound"
+    try:
+        out = sweeps()
+        lpsolve.reset_caches()
+        reset_all_launches()
+        t1 = time.perf_counter()
+        (own, info), seen = screens(torch, lambda: ggbound.gg_bound(
+            prob, iters=workloads.CERTIFY_GG_ITERS, warm_plan=plan,
+            device=True, base_lp=-math.inf))
+        gg_s = time.perf_counter() - t1
+        paths[name] = launches = all_launches()
+    finally:
+        t1 = time.perf_counter()
+        th.join()
+    wait_s = time.perf_counter() - t1
+    z = lp.get("z")
+    log(f"[bounds] {CERTIFY_PATH}: class_lp_bound {z!r} (HiGHS, scipy "
+        f"{scipy.__version__} here, {gold['scipy']} for the golden "
+        f"{gold['class_lp']!r}) in {lp.get('s', float('nan')):.1f} s of host "
+        f"on a thread beside the plan, 21(a) and the GG round, {wait_s:.1f} "
+        f"s waited for after them")
+    check(z is not None and abs(z - gold["class_lp"])
+          <= CERTIFY_RTOL * gold["class_lp"],
+          f"{CERTIFY_PATH}: class LP {z} against GOLDEN_CERTIFY")
+    gg = max(z, own)
+    log(f"[bounds] {name}(iters={workloads.CERTIFY_GG_ITERS}, device=True) "
+        f"{gg!r} = max(class LP, the column generation's own {own!r}) in "
+        f"{gg_s:.1f} s of host ({info['columns']} columns, converged "
+        f"{info['converged']}); golden {gold['gg']!r}; class LP <= gg <= "
+        f"plan: {z!r} <= {gg!r} <= {plan.total_price!r}; launches "
+        f"{launches}")
+    check(info["pricing_screen"] == "device"
+          and info["iters"] == workloads.CERTIFY_GG_ITERS
+          and len(seen) == info["iters"] == launches["pdhg"],
+          f"{name}: {info['iters']} rounds, {len(seen)} screens, "
+          f"{launches['pdhg']} pdhg launches")
+    check(z - SCREEN_TOL <= gg <= plan.total_price + SCREEN_TOL,
+          f"{name}: the certified ordering broke: {z} / {gg} / "
+          f"{plan.total_price}")
+    check(abs(gg - gold["gg"]) <= CERTIFY_RTOL * gold["gg"],
+          f"{name}: {gg} against GOLDEN_CERTIFY {gold['gg']}")
+    rec = screen_line(torch, card, name, seen[-1], launches, err)
+    log(f"[bounds] 21(b) {time.perf_counter() - t0:.1f} s (plan "
+        f"{plan_s:.1f}, gg_bound {gg_s:.1f}, class LP waited for "
+        f"{wait_s:.1f})")
+    return paths, out, rec
+
+
+def phase21(torch, card, err, rows):
+    """Phase 21, the certified cost bounds: (a) the pricing sweeps at the
+    bench's LP A/B sizes and (b) the certify tool's path at its default
+    size (its class LP on a thread beside (a)).  The screens' records join
+    the pdhg row.  Returns the launches by path."""
+    t0 = time.perf_counter()
+    paths, (sweep_paths, recs), rec = certify_path(
+        torch, card, err, lambda: pricing_sweeps(torch, card, err))
+    paths.update(sweep_paths)
+    row = next(r for r in rows if r["name"] == "pdhg")
+    row["screen"] = dict(rec, main_path=f"{CERTIFY_PATH} gg_bound")
+    row["sweeps"] = {f"{SWEEP_PATH_PREFIX}{C}": r for C, r in recs.items()}
+    log(f"[bounds] phase 21 {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6713,6 +6925,10 @@ def _phases_14_on(torch, card, err, rows, scans, snap, t_start,
     obs_paths = phase20(torch, card, err)
     join_paths(rows, err, obs_paths)
     log(f"[obs] phase 20 done ({time.perf_counter() - t_start:.1f} s "
+        f"so far)")
+    bound_paths = phase21(torch, card, err, rows)
+    join_paths(rows, err, bound_paths)
+    log(f"[bounds] phase 21 done ({time.perf_counter() - t_start:.1f} s "
         f"so far)")
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]

@@ -1124,6 +1124,14 @@ __global__ void __launch_bounds__(kThreads) pdhg_kernel(Params p) {
   }
 }
 
+// A refused call leaves its error as the thread's last error, which the
+// next launch's cudaGetLastError would report: clear it where it is
+// returned.
+cudaError_t refused(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1141,15 +1149,15 @@ int lp_scalar_slots() { return kSlots; }
 cudaError_t lp_resident_budget(int* sms, int* optin, int* smem_per_block) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return refused(e);
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return refused(e);
   e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return refused(e);
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, pdhg_kernel<true>);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return refused(e);
   *smem_per_block = *optin - (int)attr.sharedSizeBytes;
   return cudaSuccess;
 }
@@ -1183,11 +1191,11 @@ cudaError_t lp_pdhg(const float* A, const float* b, const float* G,
                     cudaStream_t stream) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return refused(e);
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return refused(e);
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return refused(e);
   if (!coop) return cudaErrorNotSupported;
   const int mt = me + mi;
   const bool res = R > 0;
@@ -1203,7 +1211,7 @@ cudaError_t lp_pdhg(const float* A, const float* b, const float* G,
     e = cudaFuncSetAttribute(pdhg_kernel<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) return refused(e);
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, pdhg_kernel<true>, kThreads, smem);
     blocks = (long long)B * R * Q;
@@ -1215,7 +1223,7 @@ cudaError_t lp_pdhg(const float* A, const float* b, const float* G,
     if (e == cudaSuccess && per_sm < 1) return cudaErrorInvalidConfiguration;
     blocks = (long long)sms * (per_sm < 2 ? per_sm : 2);
   }
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return refused(e);
   Params p;
   p.A = A; p.b = b; p.G = G; p.h = h; p.c = c; p.u = u;
   p.ix = ix; p.iy = iy; p.il = il;
@@ -1234,7 +1242,7 @@ cudaError_t lp_pdhg(const float* A, const float* b, const float* G,
   e = cudaLaunchCooperativeKernel(
       res ? (const void*)pdhg_kernel<true> : (const void*)pdhg_kernel<false>,
       dim3((unsigned)blocks), dim3(kThreads), args, smem, stream);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return refused(e);
   return cudaGetLastError();
 }
 

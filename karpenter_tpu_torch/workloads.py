@@ -473,6 +473,90 @@ def lp_problems() -> Dict[int, object]:
             for C in LP_SIZES}
 
 
+SWEEP_SIZES = (100, 250, 500)   # bench.run_lp_ab's class counts
+
+
+def lp_duals(req, cnt, compat, alloc, price) -> Tuple[float, np.ndarray]:
+    """(z, duals) of the class LP over `lp_operands`, by HiGHS: x over the
+    compatible (class, option) pairs and n over the options,
+    Σ_c req[c]·x[c,j] ≤ alloc[j]·n_j, Σ_j x[c,j] = cnt_c, min price·n.
+    `duals` are the demand rows' marginals (scipy's eqlin), the duals
+    ggbound's column generation prices its options under."""
+    from scipy import sparse
+    from scipy.optimize import linprog
+    C, R = req.shape
+    O = alloc.shape[0]
+    pc, pj = np.nonzero(compat)
+    P = len(pc)
+    rows = np.concatenate([pj.repeat(R) * R + np.tile(np.arange(R), P),
+                           np.arange(O * R)])
+    cols = np.concatenate([np.arange(P).repeat(R), P + np.arange(O).repeat(R)])
+    vals = np.concatenate([req[pc].ravel(), -alloc.ravel()])
+    A_ub = sparse.csr_matrix((vals, (rows, cols)), shape=(O * R, P + O))
+    A_eq = sparse.csr_matrix((np.ones(P), (pc, np.arange(P))),
+                             shape=(C, P + O))
+    res = linprog(np.concatenate([np.zeros(P), price]), A_ub=A_ub,
+                  b_ub=np.zeros(O * R), A_eq=A_eq, b_eq=cnt,
+                  bounds=(0, None), method="highs")
+    if res.status != 0:
+        raise RuntimeError(f"class LP: {res.message}")
+    return float(res.fun), np.asarray(res.eqlin.marginals, np.float64)
+
+
+def lp_pricing_jobs(req, compat, alloc, duals):
+    """A copy of `bench._lp_pricing_jobs`: ggbound's pricing sweep for one
+    dual vector, [(option j, classes idx, per-class caps ub)] — per
+    candidate option, max Σ duals·z s.t. req·z ≤ alloc_j, 0 ≤ z ≤ ub."""
+    jobs = []
+    for j in range(alloc.shape[0]):
+        idx = np.nonzero(compat[:, j] & (duals > 1e-9))[0]
+        if len(idx) == 0:
+            continue
+        reqpos = req[idx] > 0
+        safe = np.where(reqpos, req[idx], 1.0)
+        ubj = np.where(reqpos, alloc[j][None, :] // safe, np.inf).min(axis=1)
+        jobs.append((j, idx, ubj))
+    return jobs
+
+
+# tools/certify.py's default instance: 10 000 pods in 100 shapes (30% zone
+# selectors) against generate_catalog(200), from default_rng(42)
+CERTIFY_PODS = 10_000
+CERTIFY_TYPES = 200
+CERTIFY_SPECS = 100
+CERTIFY_SEED = 42
+CERTIFY_ZONE_FRAC = 0.3
+CERTIFY_GG_ITERS = 1    # the column-generation rounds the card runs
+
+
+def certify_problem():
+    """The tensorized problem of tools/certify.py's defaults."""
+    from .catalog.generate import generate_catalog
+    from .ops.tensorize import tensorize
+    pods = build_pods(CERTIFY_SPECS, CERTIFY_PODS,
+                      np.random.default_rng(CERTIFY_SEED),
+                      zone_frac=CERTIFY_ZONE_FRAC)
+    return tensorize(pods, generate_catalog(CERTIFY_TYPES), [NodePool()])
+
+
+# The JAX package's numbers on the CPU for `certify_problem()`: the
+# default solve_classpack plan, class_lp_bound, and gg_bound after
+# CERTIFY_GG_ITERS rounds warm-started from the plan (its HiGHS screen;
+# one round's Farley value, master / worst pricing ratio, is below the
+# class LP, so the bound is the class LP's).  The plan rests on HiGHS's
+# vertex, so the scipy version that made it is part of it.
+GOLDEN_CERTIFY: Dict[str, object] = dict(
+    plan_cost=679.8250003457069,
+    nodes=1046,
+    unschedulable=0,
+    class_lp=639.4551721142284,
+    gg=639.4551721142284,
+    gg_iters=1,
+    columns=714,
+    scipy="1.17.0",
+)
+
+
 # class count -> the JAX package's numbers on the CPU for `lp_problems()`:
 # z of the HiGHS column generation (exact_lp_mix on lp_operands, 2 pricing
 # rounds at both sizes), and the total and node count of the guided plan

@@ -844,6 +844,30 @@ def test_cuda_pdhg_resident_launch_error_raises(cuda_device, monkeypatch):
     assert lk.LAUNCHES == {"pdhg": 0, "pdhg_resident": 0}
 
 
+@pytest.mark.cuda
+def test_cuda_pdhg_launches_after_a_refused_launch(cuda_device, monkeypatch):
+    """A refused resident launch leaves no error behind it: the next
+    streaming launch in the same thread runs and equals plain."""
+    from karpenter_tpu_torch.ops import lpsolve as lp
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    ops, _ = _lp_ops(_lp_insts(9, [(80, 20, 30)]), cuda_device)
+    B, mt, n = ops[0].shape[0], ops[0].shape[1] + ops[2].shape[1], \
+        ops[0].shape[2]
+    with monkeypatch.context() as m:
+        m.setattr(lk, "resident_plan", lambda *a: lk.ResidentPlan(
+            B=B, mt=mt, n=n, row_bands=1, col_bands=1, band_rows=mt,
+            band_cols=1 << 16))
+        with pytest.raises(KernelError):
+            lk.pdhg(*ops, lp.DEFAULT_EPS, 64, lp.DEFAULT_CHECK_EVERY)
+    monkeypatch.setattr(lk, "resident_plan", lambda *a: None)
+    lk.reset_launches()
+    got = lk.pdhg(*ops, lp.DEFAULT_EPS, 64, lp.DEFAULT_CHECK_EVERY)
+    want = lk.pdhg_plain(*ops, lp.DEFAULT_EPS, 64, lp.DEFAULT_CHECK_EVERY)
+    assert lk.LAUNCHES == {"pdhg": 1, "pdhg_resident": 0}
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    assert float((got[0] - want[0]).abs().max()) <= 2e-2
+
+
 # ---- K6 / K6s and K7 redesigned for Hopper (slice 7) ----
 
 def _k3_slots(rng, n, K, classes=64, unplaced=0.05):
@@ -1652,3 +1676,34 @@ def test_cuda_kernel_fault_under_chaos_is_raised_not_demoted(cuda_device,
     assert all(r["total_failures"] == 0
                for r in health.snapshot()["rungs"].values())
     assert len(cluster.pending_pods()) == 5 and not cluster.nodes
+
+
+# ---- the certified bounds: ggbound's pricing screen ----
+
+@pytest.mark.cuda
+def test_cuda_gg_screen_matches_plain(cuda_device):
+    """`ggbound._device_screen` on the card against the same screen on
+    `pdhg`'s plain version, on bench.run_lp_ab's lp-100 pricing sweep under
+    the class LP's duals: one pdhg launch, each certified bound within
+    relative 1e-3 (the LP tolerance) of the plain one's, and at least the
+    HiGHS optimum of its pricing LP."""
+    from scipy.optimize import linprog
+    from karpenter_tpu_torch.ops import ggbound, lpsolve
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    req, cnt, compat, alloc, price = workloads.lp_instance(
+        100, workloads.LP_TYPES, np.random.default_rng(workloads.LP_SEED))
+    _, duals = workloads.lp_duals(req, cnt, compat, alloc, price)
+    jobs = workloads.lp_pricing_jobs(req, compat, alloc, duals)
+    lpsolve.reset_caches()
+    lk.reset_launches()
+    got = ggbound._device_screen(jobs, duals, req, alloc, "cuda")
+    assert lk.LAUNCHES["pdhg"] == 1
+    lpsolve.reset_caches()
+    want = ggbound._device_screen(jobs, duals, req, alloc, "cpu")
+    lpsolve.reset_caches()
+    assert sorted(got) == sorted(want) == [j for j, _, _ in jobs]
+    for j, idx, ub in jobs:
+        res = linprog(-duals[idx], A_ub=req[idx].T, b_ub=alloc[j],
+                      bounds=[(0, u) for u in ub], method="highs")
+        assert got[j] >= -res.fun - 1e-6
+        assert abs(got[j] - want[j]) <= 1e-3 * max(1.0, abs(want[j]))

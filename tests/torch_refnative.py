@@ -45,7 +45,6 @@ def reference_native(deadline_s: float = DEADLINE_S):
         try:
             while native._lib is None:
                 with native._lock:
-                    native._lib = None
                     native._build_failed = False
                 if native._load() is not None:   # `available()`, unpatched
                     break
