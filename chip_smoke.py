@@ -184,7 +184,7 @@ pass):
                interruptions drained by the InterruptionController and
                re-provisioned, a leaked instance collected by GC.  Run
                after phase 10 (so the kernel rows carry its launches),
-               twice on fleets built anew: counted (the launch
+               three times on fleets built anew: counted (the launch
                counts set to 0 just before the replay and read just
                after, each tick's read around it; every tick must
                reproduce GOLDEN_DISRUPTION, the JAX package's, and K1, K5,
@@ -199,9 +199,10 @@ pass):
                decision and execute = launch + rebind + drain, the
                rolled-back drift tick on its own line; every kernel
                wrapper's call spanned by CUDA events, whose sum over the
-               ticks' wall gives the idle share), which must reproduce
-               the golden too (a third run under the profiler, a witness
-               blind to the ctypes launches, went when phase 21 came).
+               ticks' wall gives the idle share) and traced (each
+               reconcile under the profiler, a second witness that sees
+               the torch operations and not the ctypes launches); both
+               must reproduce the golden too.
  14. the arena and the operator — run after every profiler trace,
                with every kernel wrapper's call spanned by CUDA events and
                the inputs of its last call on each path kept: (a) the
@@ -243,11 +244,10 @@ pass):
                tests/golden/ (read, never written), then drip and soak
                with the arena off, drip with IngestBatch and diurnal with
                DeviceDecode against the same goldens; (b) the cell
-               sim-long-soak-480 with the arena on against
-               GOLDEN_SIM_SOAK, and steady-state-drip at 480 s likewise
-               (their arena-off replays went when phase 21 came), with
-               wall time, speedup, ticks, gathers, launches and idle
-               share; (c) the /v1 cell: the
+               sim-long-soak-480 with the arena on, then off, each
+               against GOLDEN_SIM_SOAK, and steady-state-drip at 480 s
+               likewise, its reports equal, with wall time, speedup,
+               ticks, gathers, launches and idle share; (c) the /v1 cell: the
                operator from the command line at full width, restarted
                over a launched fleet, its endpoints served and its loop
                in a thread — /readyz 200 with the parity probe "ok",
@@ -382,25 +382,31 @@ pass):
                `tools.trace_demo` on the card prints its incident index
                ((c)-(e) run on the CPU in tests/test_torch_obs.py).
  21. the certified cost bounds (ops/lpbound.py, ops/ggbound.py) — after
-               phase 20: (a) the pricing sweep of bench.run_lp_ab (40
-               types, C = 100, 250 and 500 from one default_rng(42)) under
-               the class LP's duals: one `ggbound._device_screen` batch on
-               the card (one pdhg launch, counted) beside the serial HiGHS
-               screen over the same jobs, every certified bound at least
-               its HiGHS optimum; (b) tools/certify.py's default instance
+               phase 20: (b) first, tools/certify.py's default instance
                (10 000 pods x 200 types, `workloads.certify_problem`):
-               solve_classpack on the card and class_lp_bound (HiGHS, on a
-               thread beside the plan, (a) and the GG round) against
-               GOLDEN_CERTIFY, and gg_bound(device=True) for
-               `workloads.CERTIFY_GG_ITERS` round(s) (its screen one pdhg
-               launch over every candidate option, the streaming kernel;
-               its own value maxed with the class LP), class LP <= gg <=
-               plan cost and gg against the golden.  Each screen's
-               batch is held against pdhg_plain, its kernel timed beside
-               its bound (the padded operator's bytes a step, summed over
-               the members' own iterations, over the memory rate) with the
-               kernel its launch took; the records join the pdhg row
-               (`screen`, `sweeps`).
+               its class_lp_bound (HiGHS) solved on a thread started
+               before the build, against GOLDEN_CERTIFY; solve_classpack
+               on the card; gg_bound(device=True) for
+               `workloads.CERTIFY_GG_ITERS` round(s) with the class LP
+               patched out (its screen one pdhg launch over every
+               candidate option, the streaming kernel), its own value
+               and column count against GOLDEN_CERTIFY's (the JAX
+               package's, on its HiGHS screen), class LP <= gg <= plan
+               cost, gg = max(class LP, own) against the golden; (a) the
+               pricing sweep of bench.run_lp_ab (40 types, C = 100, 250
+               and 500 from one default_rng(42)) under the class LP's
+               duals: the serial HiGHS screen over the jobs (no other
+               thread running), then one `ggbound._device_screen` batch
+               on the card (one pdhg launch, counted), every certified
+               bound at least its HiGHS optimum; (c)
+               lpbound.device_dual_bound at lp-100 (one pdhg launch,
+               counted) against the same function on pdhg_plain.  Each
+               screen's batch and (c)'s solve are held against
+               pdhg_plain; each screen's kernel is timed beside its
+               bound (`pdhg_bound`'s terms summed over the members'
+               natural dims and iterations; the padded envelope's bytes
+               are printed beside it, bounding nothing); the records join
+               the pdhg row (`screen`, `sweeps`).
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -4036,15 +4042,18 @@ def disruption_path(torch, card, err):
 
 
 def disruption_timings(torch, card):
-    """Phase 13's timed run, on a fleet built anew: the tick split by wall
-    clock (candidates = the reconcile less the decision and the execution;
-    the execution split into launch, rebind and drain) and every kernel
-    wrapper's call spanned by CUDA events (their sum is the ticks' kernel
-    busy time, against the same run's wall: the idle share).  It must
-    reproduce GOLDEN_DISRUPTION as well.  (A third run, each reconcile
-    under the profiler, a witness blind to the ctypes launches, went when
-    phase 21 came.)  The drift p50 is over the executed ticks; the
-    rolled-back tick is printed on its own."""
+    """Phase 13's timed runs, each on a fleet built anew: one with the
+    tick split by wall clock (candidates = the reconcile less the
+    decision and the execution; the execution split into launch, rebind
+    and drain) and every kernel wrapper's call spanned by CUDA events
+    (their sum is the ticks' kernel busy time, against the same run's
+    wall: the idle share), one with each reconcile under the profiler (a
+    second witness: it sees the torch operations on the card, and drops
+    the kernels launched through ctypes).  Both must reproduce
+    GOLDEN_DISRUPTION as well.  The drift p50 is over the executed ticks;
+    the rolled-back tick is printed on its own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     from karpenter_tpu_torch import workloads
     env = fresh_disruption_env()
     ctrl, acc, split = env.disruption, {}, []
@@ -4087,6 +4096,41 @@ def disruption_timings(torch, card):
         sigs = workloads.disruption_replay(env, tick=split_tick)
     check_disruption_golden(sigs, "disruption (timed run)")
 
+    env = fresh_disruption_env()
+    ctrl, traced = env.disruption, []
+    reconcile2 = ctrl.reconcile
+    decided = []
+    orig = ctrl.consolidation_action
+
+    def consolidation_action(cands):
+        decided.append(1)
+        return orig(cands)
+    ctrl.consolidation_action = consolidation_action
+
+    def traced_reconcile():
+        torch.cuda.synchronize()
+        n_dec = len(decided)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            out = reconcile2()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA) / 1e3
+        traced.append((wall, busy, len(decided) > n_dec))
+        return out
+    ctrl.reconcile = traced_reconcile
+    phases = []
+
+    def traced_tick(env, phase):
+        phases.append(phase)
+        sig, res = workloads.disruption_tick(env, phase)
+        phases[-1] = (phase, sig["error"])
+        return sig, res
+    sigs = workloads.disruption_replay(env, tick=traced_tick)
+    check_disruption_golden(sigs, "disruption (traced run)")
+
     parts = ("tick", "candidates", "decision", "execute", "launch", "rebind",
              "drain", "kernels")
     consolidation = lambda ph, a, err: ph == "consolidation" and \
@@ -4116,10 +4160,18 @@ def disruption_timings(torch, card):
         wall = sum(a["tick"] for a in rows)
         calls = sum(a["calls"] for a in rows)
         out[group]["idle_share"] = 1 - busy / wall
+        tr = [(w, b) for (w, b, dec), (ph, e) in zip(traced, phases)
+              if (ph == "consolidation" and dec if group == "consolidation"
+                  else ph == "drift" and not e)]
+        check(len(tr) == len(rows), f"{len(tr)} traced {group} ticks, "
+              f"{len(rows)} timed")
+        seen = sum(b for _, b in tr)
         log(f"[trace] disruption {group} ticks: the {calls} kernel calls' "
             f"CUDA-event spans {busy:.3f} ms of {wall:.3f} ms wall over "
-            f"{len(rows)} ticks: idle share {out[group]['idle_share']:.4f} "
-            f"on {card}")
+            f"{len(rows)} ticks: idle share {out[group]['idle_share']:.4f}; "
+            f"the profiler (a second witness, blind to the ctypes "
+            f"launches) saw {seen:.3f} ms of device time over the same "
+            f"ticks on {card}")
         check(busy > 0 and calls > 0, f"the disruption {group} ticks "
               f"spanned no kernel call")
     rolled = [a for ph, a, e in split if ph == "drift" and e]
@@ -4558,39 +4610,54 @@ def sim_goldens(torch, card, hook):
     return by_path, walls
 
 
-def arena_replay(torch, card, hook, cell, label, want):
+def arena_pairs(torch, card, hook, cell, label, want):
     """One replay of `cell` (a `workloads.SIM_*` dict) with the arena on
-    (the default), with its wall time, speedup, ticks, gathers, launches
-    and idle share; its report's `workloads.sim_digest` must be `want`,
-    the JAX package's, and the arena must serve warm gathers and refuse
-    none.  (The arena-off replay beside it went when phase 21 came: one
-    pair never decided B13, which runs its ten pairs in a call of its own;
-    15(a), 16(b) and 18(a) hold the arena-off path to its goldens.)
-    Returns the wall and the launches."""
+    (the default) and off, in that order (on, off, off, on before phase 17
+    came: one pair keeps the script in its time), each with its
+    wall time, speedup, ticks, gathers, launches and idle share; every
+    report's `workloads.sim_digest` must be `want`, the JAX package's, and
+    the arena must serve warm gathers and refuse none.  Returns the walls
+    by arena and the first arena run's launches."""
     from karpenter_tpu_torch import workloads
-    run, h, launches, wall = sim_replay(torch, card, hook, cell["scenario"],
-                                        cell["duration_s"], label)
-    got = workloads.sim_digest(run.report)
-    check(got == want, f"{label}: {got} != {want}")
-    g = h.cluster.arena.gathers
-    check(g["warm"] > 0 and g["fallback"] == 0,
-          f"{label}: the arena's gathers {g}")
-    return wall, launches
+    walls, first = {True: [], False: []}, None
+    for arena in (True, False):
+        path = label + ("" if arena else " incremental_arena=False")
+        run, h, launches, wall = sim_replay(torch, card, hook,
+                                            cell["scenario"],
+                                            cell["duration_s"], path,
+                                            incremental_arena=arena)
+        got = workloads.sim_digest(run.report)
+        check(got == want, f"{path}: {got} != {want}")
+        if arena:
+            g = h.cluster.arena.gathers
+            check(g["warm"] > 0 and g["fallback"] == 0,
+                  f"{path}: the arena's gathers {g}")
+            first = first or launches
+        walls[arena].append(wall)
+    return walls, first
+
+
+def ab_line(walls):
+    on, off = (statistics.mean(walls[k]) for k in (True, False))
+    return (f"with the arena {', '.join(f'{x:.3f}' for x in walls[True])} "
+            f"s (mean {on:.3f}), without "
+            f"{', '.join(f'{x:.3f}' for x in walls[False])} s (mean "
+            f"{off:.3f}): with / without {on / off:.3f}")
 
 
 def sim_soak(torch, card, hook, walls):
     """15(b): the cells sim-long-soak-480 (workloads.SIM_SOAK) and
-    sim-steady-state-drip-480 (SIM_DRIP) with the arena on
-    (`arena_replay`), each against the JAX package's GOLDEN_SIM_SOAK /
+    sim-steady-state-drip-480 (SIM_DRIP) with the arena on and off
+    (`arena_pairs`), each run against the JAX package's GOLDEN_SIM_SOAK /
     GOLDEN_SIM_DRIP (the drip's 300 s golden sweeps nothing: its walls
-    from 15(a) are printed beside).  Returns their launches."""
+    from 15(a) are printed beside).  Returns the arena runs' launches."""
     from karpenter_tpu_torch import workloads
-    soak, soak_launches = arena_replay(torch, card, hook, workloads.SIM_SOAK,
-                                       SOAK_PATH, workloads.GOLDEN_SIM_SOAK)
-    drip, drip_launches = arena_replay(torch, card, hook, workloads.SIM_DRIP,
-                                       DRIP_PATH, workloads.GOLDEN_SIM_DRIP)
-    log(f"[time] {SOAK_PATH}: {soak:.3f} s with the arena; {DRIP_PATH}: "
-        f"{drip:.3f} s; steady-state-drip 300 s: "
+    soak, soak_launches = arena_pairs(torch, card, hook, workloads.SIM_SOAK,
+                                      SOAK_PATH, workloads.GOLDEN_SIM_SOAK)
+    drip, drip_launches = arena_pairs(torch, card, hook, workloads.SIM_DRIP,
+                                      DRIP_PATH, workloads.GOLDEN_SIM_DRIP)
+    log(f"[time] {SOAK_PATH}: {ab_line(soak)}; on {card}")
+    log(f"[time] {DRIP_PATH}: {ab_line(drip)}; steady-state-drip 300 s: "
         f"{walls['sim-steady-state-drip']:.3f} s with, "
         f"{walls['sim-steady-state-drip incremental_arena=False']:.3f} s "
         f"without; on {card}")
@@ -4766,7 +4833,7 @@ def v1_process(card):
 
 def phase15(torch, card, err):
     """Phase 15, the operator loop: (a) the canned goldens replayed by the
-    simulator on the card, (b) the soak and drip cells with the arena on,
+    simulator on the card, (b) the soak cell with the arena on and off,
     (c) the /v1 surface in process and `python3 -m karpenter_tpu_torch` as
     a process, then (d) every kernel wrapper those paths launched held
     against its plain version on the inputs of its last call on each path;
@@ -6577,30 +6644,92 @@ SCREEN_TOL = 1e-6       # a certified pricing bound under its HiGHS optimum
 CERTIFY_RTOL = 1e-6
 SWEEP_PATH_PREFIX = "bounds-sweep-"
 CERTIFY_PATH = "certify-10k-200"
+DUAL_C = 100            # device_dual_bound's LP instance (workloads.LP_SIZES)
+DUAL_ITERS_CAP = 2000   # its iteration cap here: the certificate holds at any
+DUAL_PATH = f"lp-{DUAL_C} device_dual_bound"
+# 21(b)'s class LP (HiGHS on the host, about 20 s), solved on a thread that
+# `start_certify_lp` starts before the build and phase 21 joins
+CERTIFY_LP = {}
 
 
-def screen_bound(case):
-    """(bound ms, "bytes" or "operations", {term: ms}) of one batched PDHG
-    solve, counted member by member from this run's iterations: the
-    padded operator's bytes ((me + mi) x n float32, the envelope the batch
-    runs in) read once a step over the memory rate, or 4 (me + mi) n
-    float32 operations a step over the card's float32 peak."""
+def start_certify_lp():
+    """Build certify's default instance and solve its class LP on a thread
+    while nvcc builds the kernels: the main thread only waits on nvcc
+    then, and nothing on the card waits for the LP.  The modules it needs
+    are imported here, in the main thread, before it starts."""
+    import threading
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import lpbound
+    import scipy.optimize  # noqa: F401
+
+    def run():
+        try:
+            t = time.perf_counter()
+            CERTIFY_LP["prob"] = prob = workloads.certify_problem()
+            t1 = time.perf_counter()
+            CERTIFY_LP["z"] = lpbound.class_lp_bound(prob)
+            CERTIFY_LP["build_s"] = t1 - t
+            CERTIFY_LP["lp_s"] = time.perf_counter() - t1
+        except BaseException as e:    # joined and reported by phase 21
+            CERTIFY_LP["error"] = repr(e)
+    th = threading.Thread(target=run, name="certify-class-lp", daemon=True)
+    CERTIFY_LP["thread"] = th
+    th.start()
+
+
+def join_certify_lp():
+    """(problem, class LP) from `start_certify_lp`'s thread; the seconds
+    phase 21 waited for it are logged."""
+    t = time.perf_counter()
+    CERTIFY_LP["thread"].join()
+    waited = time.perf_counter() - t
+    check("error" not in CERTIFY_LP,
+          f"{CERTIFY_PATH}: the class LP's thread raised "
+          f"{CERTIFY_LP.get('error')}")
+    log(f"[bounds] {CERTIFY_PATH}: instance built in "
+        f"{CERTIFY_LP['build_s']:.1f} s and class_lp_bound solved in "
+        f"{CERTIFY_LP['lp_s']:.1f} s of host on a thread started before the "
+        f"build; phase 21 waited {waited:.1f} s for it")
+    return CERTIFY_LP["prob"], CERTIFY_LP["z"]
+
+
+def screen_bound(torch, case, dims):
+    """(bound ms, "bytes" or "operations", binding term, {term: ms}) of one
+    batched PDHG solve on the members' natural dims (`dims`: (n, mi) of
+    each member, in batch order; the pricing LPs have no equality rows),
+    counted member by member from this run's iterations: `pdhg_bound`'s
+    three terms, summed over the members, plus two figures that bound
+    nothing: the natural operator streamed from HBM once a step, and the
+    padded envelope ((me + mi) x n of the batch) read once a step."""
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    its = np.asarray(case["iters"], np.float64)
+    checks = np.ceil(its / case["check_every"])
+    mat = np.array([4.0 * n * mi for n, mi in dims])   # float32 bytes
+    sms, optin, _ = lk.device_smem(case["ops"][0].device)
+    fits = mat.sum() <= sms * optin
+    rate = SMEM_BYTES_PER_CLOCK * sms * SM_CLOCK_HZ if fits else MEM_BW
+    terms = {"hbm bytes": float(((1 + 2 * checks) * mat).sum()) / MEM_BW * 1e3,
+             "on-chip bytes" + (" (shared memory)" if fits else " (HBM)"):
+             float((2 * its * mat).sum()) / rate * 1e3,
+             "operations": float((its * mat).sum()) / F32_PEAK * 1e3}
+    term = max(terms, key=terms.get)
     A, G = case["ops"][0], case["ops"][2]
-    mat = (A.shape[1] + G.shape[1]) * A.shape[2] * 4
-    steps = float(np.sum(case["iters"]))
-    terms = {"bytes": mat * steps / MEM_BW * 1e3,
-             "operations": mat * steps / F32_PEAK * 1e3}
-    by = max(terms, key=terms.get)
-    return terms[by], by, terms
+    padded = (A.shape[1] + G.shape[1]) * A.shape[2] * 4
+    extra = {"natural operator from HBM a step":
+             float((its * mat).sum()) / MEM_BW * 1e3,
+             "padded envelope from HBM a step":
+             padded * float(its.sum()) / MEM_BW * 1e3}
+    return (terms[term], "operations" if term == "operations" else "bytes",
+            term, terms, extra)
 
 
 def screen_line(torch, card, name, screen, launches, err):
     """One screen's batch on the card (`screen`: a `screens` record): its
-    kernel path (from the launch counts read around the run), envelope,
-    iterations, the kernel's own CUDA-event time, its bound, and the
-    kernel held against plain.  Returns the record."""
+    kernel path (from the launch counts read around the run), envelope and
+    natural dims, iterations, the kernel's own CUDA-event time, its bound,
+    and the kernel held against plain.  Returns the record."""
     from karpenter_tpu_torch.ops import lpsolve_kernels as lk
-    case = screen["case"]
+    case, dims = screen["case"], screen["dims"]
     path = "resident" if launches["pdhg_resident"] else "streaming"
     args = (*case["ops"], case["eps"], case["iters_cap"],
             case["check_every"])
@@ -6608,40 +6737,50 @@ def screen_line(torch, card, name, screen, launches, err):
     bad = compare_pdhg_case(torch, name, case, err, path=path, summary=True)
     check(not bad, f"pdhg on {name}'s screen: {bad[:8]}")
     plain_ms = case["plain_ms"]
-    bound_ms, by, terms = screen_bound(case)
+    bound_ms, by, term, terms, extra = screen_bound(torch, case, dims)
     B, n = case["ops"][4].shape
     me, mi = case["ops"][1].shape[1], case["ops"][3].shape[1]
+    ns = [d[0] for d in dims]
     it = case["iters"]
+    r = lambda d: {k: round(v, 4) for k, v in d.items()}
     log(f"[bounds] {name} screen: B={B} pricing LPs, one pdhg launch "
-        f"({path}), envelope n={n} me={me} mi={mi}; iterations "
-        f"{int(it.min())}-{int(it.max())} (sum {int(it.sum())}), "
+        f"({path}), envelope n={n} me={me} mi={mi}, natural n {min(ns)}-"
+        f"{max(ns)} (sum {sum(ns)}) me=0 mi={sorted({d[1] for d in dims})}; "
+        f"iterations {int(it.min())}-{int(it.max())} (sum {int(it.sum())}), "
         f"{int(case['done'].sum())} converged; {screen['ms']:.3f} ms CUDA "
         f"events over _device_screen (padding, upload, launch, copies "
-        f"back), the kernel {ms:.3f} ms; bound {bound_ms:.4f} ms by {by} "
-        f"(terms { {k: round(v, 4) for k, v in terms.items()} }: "
-        f"{ms / bound_ms:.0f}x); plain {plain_ms:.3f} ms; {case['summary']};"
-        f" on {card}")
-    return dict(B=B, n=n, me=me, mi=mi, path=path, ms=ms,
-                call_ms=screen["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, iterations=int(it.max()),
-                iterations_sum=int(it.sum()), launches=launches["pdhg"])
+        f"back), the kernel {ms:.3f} ms; bound {bound_ms:.4f} ms by {term} "
+        f"on the natural dims (terms {r(terms)}: {ms / bound_ms:.0f}x; "
+        f"beside it, bounding nothing, {r(extra)}); plain {plain_ms:.3f} "
+        f"ms; {case['summary']}; on {card}")
+    return dict(B=B, n=n, me=me, mi=mi, natural_n_sum=sum(ns), path=path,
+                ms=ms, call_ms=screen["ms"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, bound_term=term,
+                bound_terms=terms, **{k.replace(" ", "_") + "_ms": v
+                                      for k, v in extra.items()},
+                iterations=int(it.max()), iterations_sum=int(it.sum()),
+                launches=launches["pdhg"])
 
 
 def screens(torch, fn):
     """Run `fn()` with every `ggbound._device_screen` call spanned by CUDA
-    events and its pdhg call captured: (fn's result, [{ms, case}])."""
+    events and its pdhg call captured: (fn's result, [{ms, case, dims}]),
+    `dims` each member's natural (n, mi) in batch order."""
     from karpenter_tpu_torch.ops import ggbound
     real = ggbound._device_screen
     seen = []
 
-    def timed(*a, **kw):
+    def timed(jobs, duals, req, alloc, *a, **kw):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
-        out, cases = capture_masters(lambda: real(*a, **kw))
+        out, cases = capture_masters(
+            lambda: real(jobs, duals, req, alloc, *a, **kw))
         e1.record()
         torch.cuda.synchronize()
         check(len(cases) == 1, f"a screen made {len(cases)} pdhg calls")
-        seen.append(dict(ms=e0.elapsed_time(e1), case=cases[0]))
+        seen.append(dict(ms=e0.elapsed_time(e1), case=cases[0],
+                         dims=[(len(idx), req.shape[1]) for _, idx, _ in
+                               jobs]))
         return out
     ggbound._device_screen = timed
     try:
@@ -6653,11 +6792,12 @@ def screens(torch, fn):
 
 def pricing_sweeps(torch, card, err):
     """21(a): the pricing sweep of bench.run_lp_ab (40 types, C = 100,
-    250, 500 from one default_rng(42)) under the class LP's duals: one
-    `_device_screen` batch on the card from cold warm-start caches, with
-    the launch counts set to 0 just before it and read just after, beside
-    the serial HiGHS screen over the same jobs; every certified bound at
-    least its HiGHS optimum.  Returns ({path: launches}, {C: record})."""
+    250, 500 from one default_rng(42)) under the class LP's duals: the
+    serial HiGHS screen over the jobs (timed with no other thread of this
+    process running), then one `_device_screen` batch on the card from
+    cold warm-start caches, with the launch counts set to 0 just before it
+    and read just after; every certified bound at least its HiGHS
+    optimum.  Returns ({path: launches}, {C: record})."""
     from scipy.optimize import linprog
     from karpenter_tpu_torch import workloads
     from karpenter_tpu_torch.ops import ggbound, lpsolve
@@ -6693,38 +6833,33 @@ def pricing_sweeps(torch, card, err):
         recs[C] = rec
         log(f"[bounds] {name}: class LP {z!r} over {len(alloc)} options; "
             f"the serial HiGHS screen over the same {len(jobs)} jobs "
-            f"{highs_ms:.1f} ms of host against {seen[0]['ms']:.3f} ms for "
-            f"the batch; every certified bound >= its HiGHS optimum (slack "
-            f"{slack.min():.3g} to {slack.max():.3g}); on {card}")
+            f"{highs_ms:.1f} ms of host (no other thread running) against "
+            f"{seen[0]['ms']:.3f} ms for the batch; every certified bound >= "
+            f"its HiGHS optimum (slack {slack.min():.3g} to "
+            f"{slack.max():.3g}); on {card}")
     return paths, recs
 
 
-def certify_path(torch, card, err, sweeps):
+def certify_path(torch, card, err):
     """21(b): tools/certify.py's path at its default size (10 000 pods x
-    200 types): solve_classpack on the card, class_lp_bound (on a thread,
-    beside the plan, `sweeps()` and the GG round) against GOLDEN_CERTIFY,
-    and gg_bound(device=True) for CERTIFY_GG_ITERS rounds with
-    `base_lp=-inf` (the column generation's own value, whose max with the
-    class LP is what gg_bound gives from it), each of the two card runs
-    with the launch counts set to 0 just before it and read just after;
-    class LP <= gg <= plan cost, and the bound against the golden.
-    Returns ({path: launches}, sweeps' result, the screen's record)."""
-    import threading
-    import scipy
+    200 types): solve_classpack on the card; class_lp_bound (from
+    `start_certify_lp`'s thread) against GOLDEN_CERTIFY; gg_bound(
+    device=True) for CERTIFY_GG_ITERS rounds with `lpbound.class_lp_bound`
+    patched to -inf, so that it returns the column generation's own value
+    (the bound is its max with the class LP, as gg_bound takes it), each
+    of the two card runs with the launch counts set to 0 just before it
+    and read just after.  The own value and the column count against
+    GOLDEN_CERTIFY's (the JAX package's, on its HiGHS screen), class LP <=
+    gg <= plan cost, and gg against the golden.  Returns ({path:
+    launches}, the screen's record)."""
     from karpenter_tpu_torch import workloads
     from karpenter_tpu_torch.ops import ggbound, lpbound, lpsolve
     from karpenter_tpu_torch.ops.classpack import solve_classpack
     gold = workloads.GOLDEN_CERTIFY
     t0 = time.perf_counter()
-    prob = workloads.certify_problem()
-    lp = {}
-
-    def class_lp():
-        t = time.perf_counter()
-        lp["z"] = lpbound.class_lp_bound(prob)
-        lp["s"] = time.perf_counter() - t
-    th = threading.Thread(target=class_lp, name="class-lp")
-    th.start()
+    prob, z = join_certify_lp()
+    check(abs(z - gold["class_lp"]) <= CERTIFY_RTOL * gold["class_lp"],
+          f"{CERTIFY_PATH}: class LP {z} against GOLDEN_CERTIFY")
     clear_lp_caches()
     reset_all_launches()
     t1 = time.perf_counter()
@@ -6735,48 +6870,45 @@ def certify_path(torch, card, err, sweeps):
     log(f"[bounds] {CERTIFY_PATH}: C={prob.num_classes} O={prob.num_options};"
         f" solve_classpack on the card {plan_s:.3f} s: {len(plan.nodes)} "
         f"nodes, cost {plan.total_price!r} (golden {gold['nodes']}, "
-        f"{gold['plan_cost']!r}); launches {paths[f'{CERTIFY_PATH} plan']}")
+        f"{gold['plan_cost']!r}); class LP {z!r} (golden "
+        f"{gold['class_lp']!r}); launches {paths[f'{CERTIFY_PATH} plan']}")
     check(len(plan.nodes) == gold["nodes"] and not plan.unschedulable
           and abs(plan.total_price - gold["plan_cost"])
           <= CERTIFY_RTOL * gold["plan_cost"],
           f"{CERTIFY_PATH}: plan {plan.total_price} / {len(plan.nodes)} "
           f"nodes against GOLDEN_CERTIFY")
     name = f"{CERTIFY_PATH} gg_bound"
+    real_lp = lpbound.class_lp_bound
+    lpbound.class_lp_bound = lambda p: -math.inf
     try:
-        out = sweeps()
         lpsolve.reset_caches()
         reset_all_launches()
         t1 = time.perf_counter()
         (own, info), seen = screens(torch, lambda: ggbound.gg_bound(
             prob, iters=workloads.CERTIFY_GG_ITERS, warm_plan=plan,
-            device=True, base_lp=-math.inf))
+            device=True))
         gg_s = time.perf_counter() - t1
         paths[name] = launches = all_launches()
     finally:
-        t1 = time.perf_counter()
-        th.join()
-    wait_s = time.perf_counter() - t1
-    z = lp.get("z")
-    log(f"[bounds] {CERTIFY_PATH}: class_lp_bound {z!r} (HiGHS, scipy "
-        f"{scipy.__version__} here, {gold['scipy']} for the golden "
-        f"{gold['class_lp']!r}) in {lp.get('s', float('nan')):.1f} s of host "
-        f"on a thread beside the plan, 21(a) and the GG round, {wait_s:.1f} "
-        f"s waited for after them")
-    check(z is not None and abs(z - gold["class_lp"])
-          <= CERTIFY_RTOL * gold["class_lp"],
-          f"{CERTIFY_PATH}: class LP {z} against GOLDEN_CERTIFY")
+        lpbound.class_lp_bound = real_lp
     gg = max(z, own)
-    log(f"[bounds] {name}(iters={workloads.CERTIFY_GG_ITERS}, device=True) "
-        f"{gg!r} = max(class LP, the column generation's own {own!r}) in "
-        f"{gg_s:.1f} s of host ({info['columns']} columns, converged "
-        f"{info['converged']}); golden {gold['gg']!r}; class LP <= gg <= "
-        f"plan: {z!r} <= {gg!r} <= {plan.total_price!r}; launches "
-        f"{launches}")
+    log(f"[bounds] {name}(iters={workloads.CERTIFY_GG_ITERS}, device=True): "
+        f"the column generation's own value {own!r} (golden {gold['own']!r},"
+        f" the JAX package's on its HiGHS screen) with {info['columns']} "
+        f"columns (golden {gold['columns']}), converged {info['converged']},"
+        f" in {gg_s:.1f} s of host; the bound max(class LP, own) {gg!r} "
+        f"(golden {gold['gg']!r}); class LP <= gg <= plan: {z!r} <= {gg!r} "
+        f"<= {plan.total_price!r}; launches {launches}")
     check(info["pricing_screen"] == "device"
-          and info["iters"] == workloads.CERTIFY_GG_ITERS
+          and info["iters"] == workloads.CERTIFY_GG_ITERS == gold["gg_iters"]
           and len(seen) == info["iters"] == launches["pdhg"],
           f"{name}: {info['iters']} rounds, {len(seen)} screens, "
           f"{launches['pdhg']} pdhg launches")
+    check(info["columns"] == gold["columns"],
+          f"{name}: {info['columns']} columns, GOLDEN_CERTIFY "
+          f"{gold['columns']}")
+    check(abs(own - gold["own"]) <= CERTIFY_RTOL * abs(gold["own"]),
+          f"{name}: own value {own} against GOLDEN_CERTIFY {gold['own']}")
     check(z - SCREEN_TOL <= gg <= plan.total_price + SCREEN_TOL,
           f"{name}: the certified ordering broke: {z} / {gg} / "
           f"{plan.total_price}")
@@ -6784,20 +6916,76 @@ def certify_path(torch, card, err, sweeps):
           f"{name}: {gg} against GOLDEN_CERTIFY {gold['gg']}")
     rec = screen_line(torch, card, name, seen[-1], launches, err)
     log(f"[bounds] 21(b) {time.perf_counter() - t0:.1f} s (plan "
-        f"{plan_s:.1f}, gg_bound {gg_s:.1f}, class LP waited for "
-        f"{wait_s:.1f})")
-    return paths, out, rec
+        f"{plan_s:.1f}, gg_bound {gg_s:.1f})")
+    return paths, rec
+
+
+def dual_bound_path(torch, card, err):
+    """21(c): `lpbound.device_dual_bound` on the card at the LP instance
+    lp-100 (`workloads.lp_problems`; its dense class LP is one PDHG solve,
+    capped at DUAL_ITERS_CAP here), with the launch counts set to 0 just
+    before it and read just after, against the same function with the
+    kernel's plain version (`pdhg_plain` on the card) in its place, within
+    LP_RTOL of the class LP; both a certified bound (positive, at most the
+    class LP); the kernel held against plain on the captured solve.
+    Returns {path: launches}."""
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.ops import lpbound, lpsolve
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    prob = workloads.lp_problems()[DUAL_C]
+    t = time.perf_counter()
+    lp = lpbound.class_lp_bound(prob)
+    lp_s = time.perf_counter() - t
+    lpsolve.reset_caches()
+    reset_all_launches()
+    t = time.perf_counter()
+    got, cases = capture_masters(lambda: lpbound.device_dual_bound(
+        prob, iters_cap=DUAL_ITERS_CAP))
+    torch.cuda.synchronize()
+    got_s = time.perf_counter() - t
+    launches = all_launches()
+    check(launches["pdhg"] == 1 and len(cases) == 1,
+          f"{DUAL_PATH}: {launches['pdhg']} pdhg launches")
+    case = cases[0]
+    bad = compare_pdhg_case(torch, DUAL_PATH, case, err, pod_scale=True,
+                            path=("resident" if launches["pdhg_resident"]
+                                  else "streaming"))
+    check(not bad, f"pdhg on {DUAL_PATH}: {bad[:8]}")
+    real = lpsolve._pdhg_kernel
+    lpsolve._pdhg_kernel = lambda *a, **kw: lk.pdhg_plain(
+        *a[:10], kw["iters_cap"], kw["check_every"])
+    try:
+        lpsolve.reset_caches()
+        want = lpbound.device_dual_bound(prob, iters_cap=DUAL_ITERS_CAP)
+    finally:
+        lpsolve._pdhg_kernel = real
+    log(f"[bounds] {DUAL_PATH}: {got!r} with the kernel ({got_s:.2f} s "
+        f"host, {'converged' if case['done'][0] else 'cap'} at "
+        f"{int(case['iters'][0])} iterations, envelope "
+        f"{tuple(case['ops'][0].shape)} + {tuple(case['ops'][2].shape)}), "
+        f"{want!r} with pdhg_plain on the card; class LP {lp!r} (HiGHS "
+        f"{lp_s:.1f} s); |kernel - plain| {abs(got - want):.3g} (limit "
+        f"{LP_RTOL} x the class LP); launches {launches}; on {card}")
+    check(abs(got - want) <= LP_RTOL * lp,
+          f"{DUAL_PATH}: {got} with the kernel, {want} with plain")
+    check(0.0 < got <= lp * (1 + CERTIFY_RTOL)
+          and 0.0 < want <= lp * (1 + CERTIFY_RTOL),
+          f"{DUAL_PATH}: {got} / {want} is not a certified bound under the "
+          f"class LP {lp}")
+    return {DUAL_PATH: launches}
 
 
 def phase21(torch, card, err, rows):
     """Phase 21, the certified cost bounds: (a) the pricing sweeps at the
-    bench's LP A/B sizes and (b) the certify tool's path at its default
-    size (its class LP on a thread beside (a)).  The screens' records join
-    the pdhg row.  Returns the launches by path."""
+    bench's LP A/B sizes, (b) the certify tool's path at its default size
+    (its class LP solved on a thread during the build) and (c)
+    device_dual_bound at lp-100.  The screens' records join the pdhg row.
+    Returns the launches by path."""
     t0 = time.perf_counter()
-    paths, (sweep_paths, recs), rec = certify_path(
-        torch, card, err, lambda: pricing_sweeps(torch, card, err))
+    paths, rec = certify_path(torch, card, err)
+    sweep_paths, recs = pricing_sweeps(torch, card, err)
     paths.update(sweep_paths)
+    paths.update(dual_bound_path(torch, card, err))
     row = next(r for r in rows if r["name"] == "pdhg")
     row["screen"] = dict(rec, main_path=f"{CERTIFY_PATH} gg_bound")
     row["sweeps"] = {f"{SWEEP_PATH_PREFIX}{C}": r for C, r in recs.items()}
@@ -6814,6 +7002,7 @@ def main() -> int:
     import karpenter_tpu_torch  # noqa: F401  (fails outside the repo)
     t_start = time.perf_counter()
     card = probe(torch)
+    start_certify_lp()
     build()
     pods, catalog, pools, problem = headline_problem()
     ex = existing(problem)

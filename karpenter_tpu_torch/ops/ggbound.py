@@ -27,7 +27,7 @@ specific to the class-granular relaxation.
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
@@ -37,8 +37,7 @@ from . import lpbound
 def gg_bound(problem, iters: int = 20, time_limit_s: float = 600.0,
              pricing_time_limit_s: float = 2.0,
              warm_plan=None, log=None,
-             device: bool = False, lp_device="cuda",
-             base_lp: Optional[float] = None) -> Tuple[float, dict]:
+             device: bool = False, lp_device="cuda") -> Tuple[float, dict]:
     """Certified lower bound via column generation with Farley's rule.
 
     Returns (bound, info).  The bound is always valid: it starts at the
@@ -52,17 +51,10 @@ def gg_bound(problem, iters: int = 20, time_limit_s: float = 600.0,
     upper bound, which is valid for Farley regardless of PDHG
     convergence (see `lpsolve.certified_upper_bound`).  The batch runs on
     `lp_device`: "cuda" by default, "cpu" for the kernel's plain version.
-
-    `base_lp` is `lpbound.class_lp_bound(problem)` when the caller has
-    solved it already; else it is solved here.  With `-math.inf` the bound
-    is the column generation's own (Farley's, or the converged master's):
-    a caller solving the class LP beside it takes the max of the two,
-    which is the bound from the class LP.
     """
     best, _state, info = _colgen(problem, iters, time_limit_s,
                                  pricing_time_limit_s, warm_plan, log,
-                                 device=device, lp_device=lp_device,
-                                 base_lp=base_lp)
+                                 device=device, lp_device=lp_device)
     return best, info
 
 
@@ -70,8 +62,7 @@ def integral_bracket(problem, iters: int = 20, time_limit_s: float = 600.0,
                      pricing_time_limit_s: float = 2.0,
                      master_time_limit_s: float = 120.0,
                      warm_plan=None, log=None,
-                     device: bool = False, lp_device="cuda",
-                     base_lp: Optional[float] = None
+                     device: bool = False, lp_device="cuda"
                      ) -> Tuple[float, float, dict]:
     """Bracket the EXACT integral packing optimum: (lb, ub, info).
 
@@ -88,12 +79,11 @@ def integral_bracket(problem, iters: int = 20, time_limit_s: float = 600.0,
     Runs OFFLINE (minutes): column generation plus one MILP over the
     generated column pool.  Singleton columns keep the MILP feasible
     regardless of convergence, so (lb, ub) is always a valid bracket.
-    `device`, `lp_device` and `base_lp` are `gg_bound`'s.
+    `device` and `lp_device` are `gg_bound`'s.
     """
     best, state, info = _colgen(problem, iters, time_limit_s,
                                 pricing_time_limit_s, warm_plan, log,
-                                device=device, lp_device=lp_device,
-                                base_lp=base_lp)
+                                device=device, lp_device=lp_device)
     if state is None:
         return best, float("inf"), info
     ub, lam = _integral_master(state, master_time_limit_s)
@@ -145,7 +135,7 @@ def _device_screen(jobs, duals, req, alloc, lp_device="cuda"):
 
 
 def _colgen(problem, iters, time_limit_s, pricing_time_limit_s,
-            warm_plan, log, device=False, lp_device="cuda", base_lp=None):
+            warm_plan, log, device=False, lp_device="cuda"):
     """Shared column-generation core.  Returns (best_lb, state, info)
     where state carries the generated column pool for the integral
     master (None when scipy is absent or the instance is empty)."""
@@ -155,7 +145,7 @@ def _colgen(problem, iters, time_limit_s, pricing_time_limit_s,
     except ImportError:  # pragma: no cover
         return lpbound.dual_feasible_bound(problem), None, {"method": "dual"}
 
-    base = lpbound.class_lp_bound(problem) if base_lp is None else base_lp
+    base = lpbound.class_lp_bound(problem)
     if base is None:
         base = lpbound.dual_feasible_bound(problem)
     info = {"method": "gg", "base_lp": base, "iters": 0, "converged": False,

@@ -82,10 +82,9 @@ def main(argv=None) -> int:
         "ratio_vs_class_lp": round(plan.total_price / lp, 4) if lp else None,
         "class_lp_seconds": round(lp_s, 1),
     }
-    # the bounds' own class LP is the one just solved
     bound_kw = dict(iters=args.gg_iters, time_limit_s=args.gg_time_limit,
                     warm_plan=plan, log=lambda s: print(s, file=sys.stderr),
-                    device=True, lp_device=args.device, base_lp=lp)
+                    device=True, lp_device=args.device)
     if args.integral:
         t0 = time.perf_counter()
         lb, ub, info = integral_bracket(prob, **bound_kw)

@@ -541,15 +541,18 @@ def certify_problem():
 
 # The JAX package's numbers on the CPU for `certify_problem()`: the
 # default solve_classpack plan, class_lp_bound, and gg_bound after
-# CERTIFY_GG_ITERS rounds warm-started from the plan (its HiGHS screen;
-# one round's Farley value, master / worst pricing ratio, is below the
-# class LP, so the bound is the class LP's).  The plan rests on HiGHS's
-# vertex, so the scipy version that made it is part of it.
+# CERTIFY_GG_ITERS rounds warm-started from the plan (its HiGHS screen):
+# `own` is the column generation's own value (gg_bound with no class LP
+# under it: one round's Farley value, master / worst pricing ratio, below
+# the class LP), `columns` its column pool, and `gg` the bound, the max of
+# the class LP and `own`.  The plan rests on HiGHS's vertex, so the scipy
+# version that made it is part of it.
 GOLDEN_CERTIFY: Dict[str, object] = dict(
     plan_cost=679.8250003457069,
     nodes=1046,
     unschedulable=0,
     class_lp=639.4551721142284,
+    own=252.7144361398449,
     gg=639.4551721142284,
     gg_iters=1,
     columns=714,

@@ -179,19 +179,23 @@ def test_gg_bound_on_the_device_screen(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", GG_INSTANCES)
-def test_gg_bound_and_integral_bracket_on_highs_equal_the_reference(name):
+def test_gg_bound_and_integral_bracket_on_highs_equal_the_reference(
+        name, monkeypatch):
     prob = _gg_instances()[name]
     tprob = convert.problem_from_arrays(prob)
     plan, tplan = ref_solve(prob), port_solve(tprob, device="cpu")
     want = ref_gg.gg_bound(prob, iters=GG_ITERS, warm_plan=plan)
     assert port_gg.gg_bound(tprob, iters=GG_ITERS, warm_plan=tplan) == want
-    # the caller's class LP stands in for the one gg_bound would solve,
-    # and the column generation's own value maxed with it is the bound
+    # the column generation's own value (Farley's, or the converged
+    # master's), with no class LP under it, is equal too, and its max with
+    # the class LP is the bound
     lp = ref_lb.class_lp_bound(prob)
-    assert port_gg.gg_bound(tprob, iters=GG_ITERS, warm_plan=tplan,
-                            base_lp=lp) == want
-    own, info = port_gg.gg_bound(tprob, iters=GG_ITERS, warm_plan=tplan,
-                                 base_lp=-math.inf)
+    with monkeypatch.context() as m:
+        m.setattr(ref_lb, "class_lp_bound", lambda p: -math.inf)
+        m.setattr(port_lb, "class_lp_bound", lambda p: -math.inf)
+        own_want = ref_gg.gg_bound(prob, iters=GG_ITERS, warm_plan=plan)
+        own, info = port_gg.gg_bound(tprob, iters=GG_ITERS, warm_plan=tplan)
+    assert (own, info) == own_want
     assert (max(lp, own), dict(info, base_lp=lp)) == want
     want = ref_gg.integral_bracket(prob, iters=GG_ITERS, warm_plan=plan)
     got = port_gg.integral_bracket(tprob, iters=GG_ITERS, warm_plan=tplan)
@@ -229,12 +233,16 @@ def test_certify_tool_on_the_cpu_prints_the_reference_keys(
     assert got["integral_lb"] <= got["integral_ub"] + 0.01
 
 
-def test_golden_certify_from_the_jax_package():
+def test_golden_certify_from_the_jax_package(monkeypatch):
     """tools/certify.py's default instance on the JAX package: the plan,
-    the class LP (gg_bound's base) and the bound after CERTIFY_GG_ITERS
-    rounds are GOLDEN_CERTIFY's, exactly.  chip_smoke.py holds the port on
-    the card to them within CERTIFY_RTOL: HiGHS there is another scipy
-    release, whose LP optimum may differ in its last digits."""
+    the class LP (gg_bound's base), the column generation's own value
+    after CERTIFY_GG_ITERS rounds on its HiGHS screen (gg_bound with no
+    class LP under it), its column count and the bound, the max of the
+    two, are GOLDEN_CERTIFY's, exactly.  chip_smoke.py holds the port on
+    the card to them: the counts exactly, the values within CERTIFY_RTOL
+    (HiGHS there is another scipy release, whose LP optimum may differ in
+    its last digits; the device screen prices the same options exactly as
+    HiGHS's, since it only lets more of them through to the MILP)."""
     gold = workloads.GOLDEN_CERTIFY
     rng = np.random.default_rng(workloads.CERTIFY_SEED)
     pods = bench.build_pods(workloads.CERTIFY_SPECS, workloads.CERTIFY_PODS,
@@ -245,12 +253,15 @@ def test_golden_certify_from_the_jax_package():
     assert plan.total_price == gold["plan_cost"]
     assert len(plan.nodes) == gold["nodes"]
     assert len(plan.unschedulable) == gold["unschedulable"]
-    gg, info = ref_gg.gg_bound(prob, iters=gold["gg_iters"], warm_plan=plan)
-    assert info["base_lp"] == gold["class_lp"]
-    assert gg == gold["gg"]
+    lp = ref_lb.class_lp_bound(prob)
+    assert lp == gold["class_lp"]
+    monkeypatch.setattr(ref_lb, "class_lp_bound", lambda p: -math.inf)
+    own, info = ref_gg.gg_bound(prob, iters=gold["gg_iters"], warm_plan=plan)
+    assert own == gold["own"]
+    assert max(lp, own) == gold["gg"]
     assert info["iters"] == gold["gg_iters"]
     assert info["columns"] == gold["columns"]
-    assert gold["class_lp"] <= gg <= gold["plan_cost"]
+    assert gold["class_lp"] <= gold["gg"] <= gold["plan_cost"]
 
 
 def test_certify_problem_is_the_reference_tools():

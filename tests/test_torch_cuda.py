@@ -1707,3 +1707,29 @@ def test_cuda_gg_screen_matches_plain(cuda_device):
                       bounds=[(0, u) for u in ub], method="highs")
         assert got[j] >= -res.fun - 1e-6
         assert abs(got[j] - want[j]) <= 1e-3 * max(1.0, abs(want[j]))
+
+
+@pytest.mark.cuda
+def test_cuda_device_dual_bound_matches_plain(cuda_device, monkeypatch):
+    """`lpbound.device_dual_bound` on the card at the LP instance lp-100
+    (one pdhg launch over its dense class LP) against the same function
+    with `pdhg_plain` on the card in the kernel's place, from the same
+    iteration cap: within relative 1e-3 (the LP tolerance) of the class LP
+    of each other, and both a certified bound, at most the class LP."""
+    from karpenter_tpu_torch.ops import lpbound, lpsolve
+    from karpenter_tpu_torch.ops import lpsolve_kernels as lk
+    prob = workloads.lp_problems()[100]
+    lp = lpbound.class_lp_bound(prob)
+    lpsolve.reset_caches()
+    lk.reset_launches()
+    got = lpbound.device_dual_bound(prob, iters_cap=2000)
+    assert lk.LAUNCHES["pdhg"] == 1
+    monkeypatch.setattr(lpsolve, "_pdhg_kernel", lambda *a, **kw:
+                        lk.pdhg_plain(*a[:10], kw["iters_cap"],
+                                      kw["check_every"]))
+    lpsolve.reset_caches()
+    want = lpbound.device_dual_bound(prob, iters_cap=2000)
+    lpsolve.reset_caches()
+    assert abs(got - want) <= 1e-3 * lp
+    assert 0.0 < got <= lp * (1 + 1e-6)
+    assert 0.0 < want <= lp * (1 + 1e-6)
