@@ -7,7 +7,10 @@ Phases (any failure exits non-zero; the last line is printed only when all
 pass):
 
   1. probe   — the card's name and power limit (nvidia-smi), torch, CUDA
-               and nvcc versions;
+               and nvcc versions; then the port's own lint (graftlint,
+               karpenter_tpu_torch/analysis/) in process on the card's
+               host: 0 new findings, 0 stale baseline entries, neither
+               `jax` nor the JAX package loaded (`[lint]`);
   2. build   — compile csrc/*.cu with nvcc for sm_90a at first use and
                print the ptxas register / shared-memory lines; compile the
                native C++ packer (native/csrc/ffd.cc) with g++ — no
@@ -92,7 +95,9 @@ pass):
                masters, with device_lp=True (the master caps and demotes
                the ladder one strike) and with an off-tick refinery (the
                cold tick answers the greedy GOLDEN plan, the next tick the
-               refined one); every guided plan must reproduce
+               refined one; its locks, on the refine thread too, under the
+               port's lock-order recorder, `[lockorder]`, no inversion);
+               every guided plan must reproduce
                GOLDEN_GUIDED (the JAX package's, on the CPU).  Then the LP
                instances as guided solves with device_lp=True (masters
                converge, the ladder stays healthy) against GOLDEN_LP.  Each
@@ -334,8 +339,9 @@ pass):
                golden run) and, inside phase 10 where its state is, the
                live cell's round-2 `Provisioner.solve` (every run the
                first run's plan; the round's golden provision() follows)
-               run with `TRACER.enabled` on and off in turns (21 and 2
-               pairs; 5 on the live cell before phase 21 came), their
+               run with `TRACER.enabled` on and off in turns (3 and 1
+               pairs; 21 and 2 before the lint came, 5 on the live cell
+               before phase 21), their
                p50s and the overhead printed
                (`[trace-cost]`);
                (b) one provisioning round (5000 headline pods, 600 types,
@@ -353,7 +359,10 @@ pass):
                `/metrics` lists the same families on both,
                `/debug/traces?span=provision` returns the round's tree,
                `/debug/pprof` answers 403, then 200 with
-               `enable_profiling`; (d) host ms by span summed over whole
+               `enable_profiling`; the card's run (its ticks' solves under
+               the state lock, the HTTP threads' scrapes, BatchedCloud's
+               flushers) under the port's lock-order recorder
+               (`[lockorder]`, no inversion); (d) host ms by span summed over whole
                runs (the tracer's duration histogram, registries reset
                first): the long-soak replay at tests/test_sim.py's
                horizon against tests/golden/ (the loop; the 480 s cell
@@ -511,6 +520,96 @@ def probe(torch):
     import scipy
     log(f"[probe] scipy {scipy.__version__}, numpy {np.__version__}")
     return card
+
+
+def lint(card):
+    """Phase 1(b): the port's own static analysis (graftlint), in process
+    on the card's host: 0 new findings and 0 stale baseline entries, with
+    neither `jax` nor the JAX package loaded.  Returns its seconds."""
+    from karpenter_tpu_torch.analysis import (RULES, load_baseline,
+                                              partition, run_analysis)
+    from karpenter_tpu_torch.tools.graftlint import DEFAULT_BASELINE
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    findings = run_analysis(root)
+    new, old, stale = partition(
+        findings, load_baseline(os.path.join(root, DEFAULT_BASELINE)))
+    secs = time.perf_counter() - t0
+    by_family = {}
+    for f in findings:
+        fam = RULES[f.rule].family
+        by_family[fam] = by_family.get(fam, 0) + 1
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "karpenter_tpu"))
+    log(f"[lint] {len(findings)} finding(s) by family "
+        f"{json.dumps(by_family, sort_keys=True)}: {len(new)} new, "
+        f"{len(old)} grandfathered, {len(stale)} stale; {secs:.3f} s on "
+        f"the card's host; loaded {bad or 'no jax, no karpenter_tpu'}")
+    for f in new:
+        log(f"[lint] new: {f.render()}")
+    check(not new and not stale and not bad,
+          f"[lint] {len(new)} new finding(s), {len(stale)} stale "
+          f"baseline entries, loaded {bad}")
+    return secs
+
+
+class lock_order:
+    """Phase 8's refinery and phase 19(c)'s served operator under the
+    port's lock-order recorder: enabled before their components are built,
+    so every lock they build through `named_lock` records its
+    acquisitions, on every thread.  On leaving, prints the roles seen, the
+    edges and the inversions, and the recorder's own cost (its acquires
+    times the extra host time of one recorded acquire and release);
+    an inversion fails the run."""
+
+    def __init__(self, what, card):
+        self.what, self.card = what, card
+
+    def __enter__(self):
+        import threading
+        from karpenter_tpu_torch.analysis.lockorder import (
+            RECORDER, LockOrderRecorder, _RecordingLock)
+        reps, bench = 20_000, LockOrderRecorder()
+        costs = []
+        for lock in (threading.Lock(),
+                     _RecordingLock(threading.Lock(), "probe", bench)):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                with lock:
+                    pass
+            costs.append((time.perf_counter() - t0) / reps)
+        self.extra_s = max(costs[1] - costs[0], 0.0)
+        self.acquires = [0]
+        note = RECORDER.note_acquire
+
+        def counted(name, _note=note, _n=self.acquires):
+            _n[0] += 1
+            _note(name)
+        RECORDER.reset()
+        RECORDER.note_acquire = counted
+        RECORDER.enabled = True
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        from karpenter_tpu_torch.analysis.lockorder import RECORDER
+        secs = time.perf_counter() - self.t0
+        RECORDER.enabled = False
+        del RECORDER.note_acquire
+        roles, edges = sorted(RECORDER.roles()), RECORDER.edges()
+        bad = RECORDER.inversions()
+        RECORDER.reset()
+        n = self.acquires[0]
+        log(f"[lockorder] {self.what}: roles {roles}; edges "
+            f"{sorted(f'{a}->{b}' for a, b in edges)}; inversions "
+            f"{len(bad)}{': ' + '; '.join(bad) if bad else ''}; {n} "
+            f"recorded acquires x {self.extra_s * 1e6:.3f} us = "
+            f"{n * self.extra_s * 1e3:.3f} ms of the section's "
+            f"{secs:.3f} s, on {self.card}")
+        if exc_type is None:
+            check(not bad, f"[lockorder] {self.what}: {len(bad)} "
+                           f"lock-order inversion(s)")
+            check(roles, f"[lockorder] {self.what}: no named lock taken")
 
 
 # ---------------------------------------------------------------------------
@@ -2101,8 +2200,9 @@ def check_lp_plan(prob, res, C):
         f"alloc")
 
 
-def guided_path(torch, problem):
-    """Phase 8's main-path runs; returns {path: launch counts}."""
+def guided_path(torch, card, problem):
+    """Phase 8's main-path runs; returns {path: launch counts}.  The
+    refinery's run is recorded by the port's lock-order recorder."""
     from karpenter_tpu_torch import workloads
     from karpenter_tpu_torch.ops import lpguide
     from karpenter_tpu_torch.ops.classpack import solve_classpack
@@ -2147,20 +2247,24 @@ def guided_path(torch, problem):
     # the off-tick refinery: a cold tick answers greedy (GOLDEN's plan) and
     # queues the column generation; the refined mix upgrades the next tick
     clear_lp_caches()
-    ref = GuideRefinery(start=False)
-    reset_all_launches()
-    res = solve_classpack(problem, refinery=ref)
-    digest, _ = workloads.plan_digest(problem, res)
-    check(digest == workloads.GOLDEN[(0, True)][0] and ref.pending() == 1,
-          "refinery: the cold tick must answer the greedy golden plan and "
-          "queue one refine job")
-    ref.start()
-    check(ref.drain(timeout=300.0), "refinery: the refine job did not finish")
-    res = solve_classpack(problem, refinery=ref)
-    sync()
-    by_path[REFINERY_PATH] = launches = all_launches()
-    check(ref.take_upgrade(), "refinery: no upgrade hint after the refine")
-    ref.stop()
+    with lock_order(REFINERY_PATH, card):
+        ref = GuideRefinery(start=False)
+        reset_all_launches()
+        res = solve_classpack(problem, refinery=ref)
+        digest, _ = workloads.plan_digest(problem, res)
+        check(digest == workloads.GOLDEN[(0, True)][0]
+              and ref.pending() == 1,
+              "refinery: the cold tick must answer the greedy golden plan "
+              "and queue one refine job")
+        ref.start()
+        check(ref.drain(timeout=300.0),
+              "refinery: the refine job did not finish")
+        res = solve_classpack(problem, refinery=ref)
+        sync()
+        by_path[REFINERY_PATH] = launches = all_launches()
+        check(ref.take_upgrade(), "refinery: no upgrade hint after the "
+                                  "refine")
+        ref.stop()
     log(f"[guided] refinery: cold tick = the greedy golden plan, refine "
         f"job drained, upgrade hint raised; launches {launches}")
     check_guided(problem, res, "refinery, the next tick")
@@ -4864,6 +4968,7 @@ def phase15(torch, card, err):
 CHAOS_PATH = "sim-chaos-storm"
 CHAOS_EXCEPTIONS = 9      # the golden's tick exceptions (injected faults)
 NATIVE_ROWS = 256         # ops/ffd.NATIVE_CUTOVER_ROWS
+NATIVE_ITERS = 5          # host p50s of 16(a) (21 before the lint came)
 
 
 def native_inputs(torch, scans, recorded):
@@ -4924,10 +5029,12 @@ def native_against_k7(torch, card, scans, recorded):
                                      slot_used.view(np.int32))
                   and int(n) == n_open,
                   f"[native] {name}: the native packer differs from {who}")
-        nat, _ = p50_ms(lambda: native.ffd_pack_native(**nargs), iters=21)
+        nat, _ = p50_ms(lambda: native.ffd_pack_native(**nargs),
+                        iters=NATIVE_ITERS)
         dev = card_ms(torch, lambda: fk.ffd_scan(*args, K), 50)
         rate = event_ms(torch, lambda: fk.ffd_scan(*args, K), 50)
-        plain, _ = p50_ms(lambda: fk.ffd_scan_plain(*cpu_args, K), iters=21)
+        plain, _ = p50_ms(lambda: fk.ffd_scan_plain(*cpu_args, K),
+                          iters=NATIVE_ITERS)
         rows.append((name, P, K, nat, dev, rate, plain))
         log(f"[native] {name}: P={P} K={K} n_open={n_open}: native, K7 and "
             f"plain (card, host) bit-equal; native {nat:.4f} ms (host "
@@ -5977,7 +6084,8 @@ def phase18(torch, card, err, snap):
 # tracing's cost on the two timed paths, filled as they run (the live
 # cell's round 2 inside phase 10, where its state is)
 TRACE_COST = {}
-TRACE_PAIRS = 2     # the live round-2 solve's pairs (5 before phase 21)
+TRACE_PAIRS = 1     # the live round-2 solve's pairs (2 before the lint
+#                     came, 5 before phase 21)
 PROVISION_19 = "trace-provision-5k"
 TICK_19 = "trace-consolidation-tick"
 
@@ -6328,15 +6436,18 @@ def phase19(torch, card, problem, mega):
     def guided_ok(res):
         check(workloads.plan_digest(problem, res)[0] == gold,
               "phase 19: a timed guided headline left GOLDEN_GUIDED")
-    # 21 pairs: a warm guided solve is ~55 ms and its runs spread ±20%
+    # 3 pairs (21 before the lint came): the spans' own cost, not the
+    # pairs' p50s, is the tracer's measure (a warm guided solve's runs
+    # spread ±20%)
     tracing_cost(torch, card, "guided headline, warm",
-                 lambda: solve_classpack(problem), guided_ok, pairs=21)
+                 lambda: solve_classpack(problem), guided_ok, pairs=3)
     log(f"[trace-cost] 19(a) {time.perf_counter() - t0:.1f} s; "
         f"{json.dumps(TRACE_COST)}")
     by_path = traced_paths(torch, card)
     log(f"[trace] 19(b) {time.perf_counter() - t0:.1f} s; launches {by_path}")
     cpu, _, cpu_codes = served_scrape("cpu")
-    card_f, trace, codes = served_scrape("cuda")
+    with lock_order("19(c) served operator", card):
+        card_f, trace, codes = served_scrape("cuda")
     check(card_f == cpu, f"/metrics families on the card differ from the "
                          f"CPU run: {sorted(set(card_f) ^ set(cpu))}")
     check(codes == cpu_codes == (403, 200), f"/debug/pprof {codes}")
@@ -7002,6 +7113,7 @@ def main() -> int:
     import karpenter_tpu_torch  # noqa: F401  (fails outside the repo)
     t_start = time.perf_counter()
     card = probe(torch)
+    lint(card)
     start_certify_lp()
     build()
     pods, catalog, pools, problem = headline_problem()
@@ -7018,7 +7130,7 @@ def main() -> int:
     by_path = {HEADLINE_PATH: launches, **consolidation_path(torch, card)}
     masters = compare_pdhg(torch, problem, err)
     log(f"[pdhg] phase 7 done ({time.perf_counter() - t_start:.1f} s so far)")
-    by_path.update(guided_path(torch, problem))
+    by_path.update(guided_path(torch, card, problem))
     pdhg_ms = guided_timings(torch, card, problem, masters)
     compare_slab(torch, err)
     compare_ffd(torch, err)

@@ -32,6 +32,8 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Generic, Hashable, List, Optional, Sequence, Tuple, TypeVar
 
+from ..analysis.lockorder import named_lock
+
 Req = TypeVar("Req")
 Res = TypeVar("Res")
 
@@ -90,9 +92,9 @@ class Batcher(Generic[Req, Res]):
     def __init__(self, options: Options, clock: Callable[[], float] = time.monotonic):
         self.options = options
         self.clock = clock
-        self._lock = threading.Lock()
-        self.stats = BatchStats()               # guarded by _lock
-        self._open: Dict[Hashable, _Bucket] = {}  # guarded by _lock
+        self._lock = named_lock("batcher")
+        self.stats = BatchStats()               # guarded-by: _lock
+        self._open: Dict[Hashable, _Bucket] = {}  # guarded-by: _lock
 
     def add(self, request: Req) -> Res:
         """Join the open window for this request's hash (opening one and its
@@ -119,7 +121,7 @@ class Batcher(Generic[Req, Res]):
             raise bucket.error
         return bucket.results[idx]
 
-    def _close(self, key: Hashable, bucket: _Bucket) -> None:  # holds _lock
+    def _close(self, key: Hashable, bucket: _Bucket) -> None:  # graftlint: holds(_lock)
         if not bucket.closed:
             bucket.closed = True
             bucket.closed_event.set()

@@ -5,13 +5,15 @@ pkg/cache/unavailableofferings.go:31-81 and pkg/cache/cache.go): a TTL
 cache keyed `capacityType:instanceType:zone` of recently
 capacity-exhausted offerings, with an atomic sequence number so downstream
 memoization (the instance-type catalog) invalidates when availability
-changes.  Plain `threading.Lock`s replace the reference's named locks."""
+changes.  Its locks are built through `analysis.lockorder.named_lock`
+(roles "ttlcache" and "unavailable.seq"), as the reference's are."""
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
+
+from ..analysis.lockorder import named_lock
 
 
 UNAVAILABLE_OFFERINGS_TTL = 3 * 60.0  # seconds (Karpenter: 3m, pkg/cache/cache.go)
@@ -23,7 +25,7 @@ class TTLCache:
     def __init__(self, default_ttl: float, clock: Callable[[], float] = time.time):
         self.default_ttl = default_ttl
         self.clock = clock
-        self._lock = threading.Lock()
+        self._lock = named_lock("ttlcache")
         self._data: Dict[Any, Tuple[float, Any]] = {}  # guarded-by: _lock
 
     def set(self, key, value, ttl: Optional[float] = None):
@@ -84,7 +86,7 @@ class UnavailableOfferings:
     def __init__(self, ttl: float = UNAVAILABLE_OFFERINGS_TTL,
                  clock: Callable[[], float] = time.time):
         self._cache = TTLCache(ttl, clock)
-        self._lock = threading.Lock()
+        self._lock = named_lock("unavailable.seq")
         self._seq = 0                           # guarded-by: _lock
 
     @staticmethod

@@ -22,6 +22,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
+from ..analysis.lockorder import named_lock
 from ..utils.chaos import CHAOS
 
 ICE_CODE = "InsufficientInstanceCapacity"
@@ -131,8 +132,8 @@ class FakeCloud:
     def __init__(self, clock: Callable[[], float] = time.time,
                  queue=None):
         self.clock = clock
-        self._lock = threading.RLock()
-        self._instances: Dict[str, CloudInstance] = {}
+        self._lock = named_lock("cloud", threading.RLock)
+        self._instances: Dict[str, CloudInstance] = {}  # guarded-by: _lock
         self._ids = itertools.count(1)
         # (capacity_type, instance_type, zone) pools that ICE
         self.insufficient_capacity_pools: Set[Tuple[str, str, str]] = set()
@@ -149,7 +150,7 @@ class FakeCloud:
         # clock-scheduled deliveries: an (at, seq, action, instance_id)
         # heap drained by deliver_due() — the virtual-time interruption
         # pipeline (the warning at T-120, the reclaim at T)
-        self._scheduled: List[Tuple[float, int, str, str]] = []
+        self._scheduled: List[Tuple[float, int, str, str]] = []  # guarded-by: _lock
         self._sched_seq = itertools.count(1)
         # every API call fails with RequestLimitExceeded while
         # clock() < throttle_until (API throttle burst injection)

@@ -255,6 +255,8 @@ def _build_overrides(claim: NodeClaim, candidates: Sequence[InstanceType]) -> Li
     # capacity-type choice: spot if allowed and available, else on-demand
     allowed_caps = {wk.CAPACITY_TYPE_SPOT, wk.CAPACITY_TYPE_ON_DEMAND}
     if cap_req is not None:
+        # set→set filter feeding only membership tests: order-insensitive
+        # graftlint: disable=DT003
         allowed_caps = {c for c in allowed_caps if cap_req.has(c)}
     spot_available = any(
         o.capacity_type == wk.CAPACITY_TYPE_SPOT and o.available

@@ -7,19 +7,21 @@ pkg/controllers/interruption/messages/{spotinterruption,
 rebalancerecommendation,scheduledchange,statechange}/model.go).  The fake
 cloud publishes here when instances are interrupted or change state, so
 the interruption controller reads what the EventBridge → SQS pipeline
-would deliver.  A plain `threading.Lock` replaces the reference's named
-lock.  `snapshot_state` / `restore_state` are the queue's section of the
-warm-restart snapshot (state/snapshot.py).
+would deliver.  Its lock is built through `analysis.lockorder.named_lock`
+(role "queue"), as the reference's is.  `snapshot_state` /
+`restore_state` are the queue's section of the warm-restart snapshot
+(state/snapshot.py).
 """
 
 from __future__ import annotations
 
 import itertools
 import json
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Sequence
+
+from ..analysis.lockorder import named_lock
 
 # message kinds (the parser registry's output domain)
 SPOT_INTERRUPTION = "spot_interruption"
@@ -114,10 +116,10 @@ class FakeQueue:
 
     def __init__(self, clock: Callable[[], float] = time.time):
         self.clock = clock
-        self._lock = threading.Lock()
-        self._messages: List[Message] = []
-        self._inflight: Dict[str, Message] = {}
-        self.sent_count = 0
+        self._lock = named_lock("queue")
+        self._messages: List[Message] = []  # guarded-by: _lock
+        self._inflight: Dict[str, Message] = {}  # guarded-by: _lock
+        self.sent_count = 0  # guarded-by: _lock
 
     def send(self, body: str) -> Message:
         msg = Message(body=body, sent_at=self.clock())

@@ -346,6 +346,8 @@ class Provisioner:
         prev_u = getattr(self, "_usage_gauge_keys", set())
         prev_l = getattr(self, "_limit_gauge_keys", set())
         cur_u, cur_l = set(), set()
+        # sorted: sample emission order must not depend on set hashing
+        # (graftlint DT003 — /metrics exposition is byte-compared in tests)
         for pool_name in sorted(set(usage) | set(self.nodepools)):
             for res, qty in usage.get(pool_name, ResourceList()).items():
                 usage_g.set(qty, {"nodepool": pool_name, "resource_type": res})
@@ -447,7 +449,8 @@ class Provisioner:
         """Gang admission funnel (GangScheduling): audit and strip rejected
         gangs from the packing, count the verdicts, and queue preemption
         plans for outranked capacity.  Rejections publish a `gang_rejected`
-        incident in the same function as the counter inc (OB006)."""
+        incident in the same function as the counter inc (graftlint
+        OB006)."""
         t0 = self.clock()
         audits = enforce_gangs(problem, result, result._existing_nodes,
                                registry=self.gang_registry,

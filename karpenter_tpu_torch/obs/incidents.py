@@ -6,9 +6,9 @@ byte for byte.
 Every trip site in the fault-handling stack publishes here — circuit
 open/quarantine, watchdog trip, solver/decode ladder demotion, fencing
 refusal, cold-restore fallback, parity-probe mismatch, leader loss — and
-the observability lint's OB006 (tests/test_torch_obs_lint.py) keeps the
-set closed: a trip counter incremented without a `publish_incident` in
-the same function is a lint finding.
+graftlint OB006 keeps the set closed the same way RS004 keeps the
+snapshot/cloud mutation funnels closed: a trip counter incremented
+without a `publish_incident` in the same function is a lint finding.
 
 The bus is process-global and DISARMED by default: `publish_incident`
 is a single boolean check until a `FlightRecorder` arms it, so the hot
@@ -150,6 +150,6 @@ BUS = IncidentBus()
 
 
 def publish_incident(kind: str, detail: Optional[Dict] = None) -> bool:
-    """The one seam trip sites call (the observability lint's OB006
-    pattern-matches this name).  Free when the bus is disarmed."""
+    """The one seam trip sites call (graftlint OB006 pattern-matches this
+    name).  Free when the bus is disarmed."""
     return BUS.publish(kind, detail)

@@ -34,9 +34,8 @@ when BOTH windows of a pair burn, and the activation edge publishes one
 ``slo_burn`` incident through the `IncidentBus` — whose per-kind dedup
 turns a flapping burn into exactly one bundle per window.
 
-The observability lint's OB007 (tests/test_torch_obs_lint.py) reads
-``DEFAULT_SLIS`` statically: every family literal in an ``SLI(...)`` spec
-must resolve to a registered metric family.
+graftlint OB007 reads ``DEFAULT_SLIS`` statically: every family literal
+in an ``SLI(...)`` spec must resolve to a registered metric family.
 """
 
 from __future__ import annotations

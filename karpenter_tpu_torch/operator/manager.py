@@ -70,6 +70,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+from ..analysis.lockorder import named_lock
 from ..obs.incidents import publish_incident
 from ..ops.classpack import DEVICE_FAULTS
 from ..utils import metrics, tracing
@@ -371,10 +372,11 @@ class ControllerManager:
         self._soft_deadline_s = opts.reconcile_soft_deadline_s
         self._stop = threading.Event()
         self._http: Optional[http.server.ThreadingHTTPServer] = None
-        # serializes cluster-state access between the tick loop and the /v1
-        # worker threads — shared with the operator so every reader of
-        # cluster state takes the SAME lock
-        self._state_lock = operator.state_lock
+        # serializes cluster-state access between the tick loop, the /v1
+        # worker threads, and the metrics collector — shared with the
+        # operator so every reader of cluster state takes the SAME lock
+        self._state_lock = getattr(operator, "state_lock", None) or \
+            named_lock("state")
         # warm-restart snapshot cadence (state/snapshot.py): written from
         # inside the tick (under the state lock) and once more on stop()
         self._snapshotter = None

@@ -16,9 +16,9 @@ With the default options the cluster carries the persistent delta arena
 CloudProvider goes through `BatchedCloud`.
 
 The `/v1` manifest surface (`apply`, `apply_batch`, `_admit`, `_register`)
-admits manifests as the reference's does, and `state_lock` (a
-`threading.RLock`) is the one lock the controller manager's ticks and that
-surface share.
+admits manifests as the reference's does, and `state_lock` (a plain,
+non-reentrant `named_lock("state")`, as the reference's) is the one lock
+the controller manager's ticks and that surface share.
 
 WarmRestart, HAFailover, FlightRecorder and SLOEngine are read by the
 controller manager (operator/manager.py): its snapshot writer and restore
@@ -42,10 +42,10 @@ alike.
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from ..analysis.lockorder import named_lock
 from ..api.objects import NodeClass, NodePool
 from ..catalog.generate import generate_catalog
 from ..catalog.instancetype import effective_instance_type
@@ -171,7 +171,7 @@ class Operator:
                     max_events=int(self.options.ingest_max_events))
         # one state lock shared by the tick loop (ControllerManager) and the
         # /v1 surface: a solve must never read cluster state mid-mutation
-        self.state_lock = threading.RLock()
+        self.state_lock = named_lock("state")
         # pre-register every parity family so the first scrape serves the
         # complete reference schema (zero samples beat absent families)
         metrics.register_parity_families()

@@ -80,25 +80,25 @@ class ClusterArena:
         self.class_table_max = class_table_max
         R = len(self._axes)
         # the tensor slab — mutate only through the apply_*/touch_node/
-        # rebuild delta API below
-        self.slab_alloc = np.zeros((_INITIAL_SLOTS, R), np.float32)
-        self.slab_used = np.zeros((_INITIAL_SLOTS, R), np.float32)
-        self.slab_compat = np.zeros((_INITIAL_SLOTS, _INITIAL_CLASSES), bool)
-        self.slab_live = np.zeros(_INITIAL_SLOTS, bool)
-        self._slot_of: Dict[str, int] = {}
-        self._node_at: List[Optional[Node]] = [None] * _INITIAL_SLOTS
-        self._free: List[int] = []
-        self._top = 0
-        self._rid_of: Dict[tuple, int] = {}
-        self._reps: List[Pod] = []
+        # rebuild delta API below (graftlint AR001)
+        self.slab_alloc = np.zeros((_INITIAL_SLOTS, R), np.float32)  # guarded-by: caller(state_lock)
+        self.slab_used = np.zeros((_INITIAL_SLOTS, R), np.float32)  # guarded-by: caller(state_lock)
+        self.slab_compat = np.zeros((_INITIAL_SLOTS, _INITIAL_CLASSES), bool)  # guarded-by: caller(state_lock)
+        self.slab_live = np.zeros(_INITIAL_SLOTS, bool)  # guarded-by: caller(state_lock)
+        self._slot_of: Dict[str, int] = {}  # guarded-by: caller(state_lock)
+        self._node_at: List[Optional[Node]] = [None] * _INITIAL_SLOTS  # guarded-by: caller(state_lock)
+        self._free: List[int] = []  # guarded-by: caller(state_lock)
+        self._top = 0  # guarded-by: caller(state_lock)
+        self._rid_of: Dict[tuple, int] = {}  # guarded-by: caller(state_lock)
+        self._reps: List[Pod] = []  # guarded-by: caller(state_lock)
         # monotone per-delta counter: consumers compare it to decide
         # staleness without walking the object graph
-        self.epoch = 0
-        self.compactions = 0
+        self.epoch = 0  # guarded-by: caller(state_lock)
+        self.compactions = 0  # guarded-by: caller(state_lock)
         # gather outcomes: "warm" served from the slab, "fallback" refused
         # (the caller runs tensorize_nodes)
         self.gathers: Dict[str, int] = {"warm": 0, "fallback": 0}
-        self._needs_rebuild = True
+        self._needs_rebuild = True  # guarded-by: caller(state_lock)
 
     # ---- bookkeeping ------------------------------------------------------
     @property
@@ -109,7 +109,7 @@ class ClusterArena:
     def tombstone_count(self) -> int:
         return len(self._free)
 
-    def _note_delta(self, kind: str):
+    def _note_delta(self, kind: str):  # guarded-by: caller(state_lock)
         self.epoch += 1
         metrics.arena_deltas().inc({"kind": kind})
         metrics.arena_epoch().set(self.epoch)
@@ -117,7 +117,7 @@ class ClusterArena:
         metrics.arena_slots().set(self.tombstone_count,
                                   {"state": "tombstone"})
 
-    def _grow_slots(self, need: int):
+    def _grow_slots(self, need: int):  # guarded-by: caller(state_lock)
         cap = self.slab_alloc.shape[0]
         new = cap
         while new < need:
@@ -139,7 +139,7 @@ class ClusterArena:
         self.slab_live = live
         self._node_at.extend([None] * (new - cap))
 
-    def _grow_classes(self, need: int):
+    def _grow_classes(self, need: int):  # guarded-by: caller(state_lock)
         cap = self.slab_compat.shape[1]
         new = cap
         while new < need:
@@ -165,7 +165,7 @@ class ClusterArena:
         return any(b.compatible(provided)
                    for b in rep.scheduling_requirements())
 
-    def _fill_row(self, slot: int, node: Node):
+    def _fill_row(self, slot: int, node: Node):  # guarded-by: caller(state_lock)
         self.slab_alloc[slot] = node.allocatable.to_vector(self._axes,
                                                            self._scales)
         self._fill_used(slot, node)
@@ -175,14 +175,14 @@ class ClusterArena:
         for rid, rep in enumerate(self._reps):
             row[rid] = self._compat_entry(rep, node, provided)
 
-    def _fill_used(self, slot: int, node: Node):
+    def _fill_used(self, slot: int, node: Node):  # guarded-by: caller(state_lock)
         req = node.requested()
         req[PODS] = len(node.pods)
         self.slab_used[slot] = req.to_vector(self._axes, self._scales,
                                              round_up=True)
 
     # ---- class registry ---------------------------------------------------
-    def _ensure_classes(self, reps: Sequence[Pod],
+    def _ensure_classes(self, reps: Sequence[Pod],  # guarded-by: caller(state_lock)
                         _post_reset: bool = False) -> List[int]:
         fresh: List[Tuple[int, Pod]] = []
         rids: List[int] = []
@@ -219,7 +219,7 @@ class ClusterArena:
         return rids
 
     # ---- delta API --------------------------------------------------------
-    def _take_slot(self, name: str) -> int:
+    def _take_slot(self, name: str) -> int:  # guarded-by: caller(state_lock)
         slot = self._slot_of.get(name)
         if slot is None:
             if self._free:
@@ -231,7 +231,7 @@ class ClusterArena:
             self._slot_of[name] = slot
         return slot
 
-    def _drop_slot(self, name: str) -> bool:
+    def _drop_slot(self, name: str) -> bool:  # guarded-by: caller(state_lock)
         slot = self._slot_of.pop(name, None)
         if slot is None:
             return False
@@ -240,24 +240,24 @@ class ClusterArena:
         self._free.append(slot)
         return True
 
-    def _maybe_compact(self):
+    def _maybe_compact(self):  # guarded-by: caller(state_lock)
         if len(self._free) > max(self.compact_floor, self.live_count):
             self.compact()
 
-    def apply_node_add(self, node: Node):
+    def apply_node_add(self, node: Node):  # guarded-by: caller(state_lock)
         slot = self._take_slot(node.name)
         self._node_at[slot] = node
         self.slab_live[slot] = True
         self._fill_row(slot, node)
         self._note_delta("node_add")
 
-    def apply_node_remove(self, name: str):
+    def apply_node_remove(self, name: str):  # guarded-by: caller(state_lock)
         if not self._drop_slot(name):
             return
         self._note_delta("node_remove")
         self._maybe_compact()
 
-    def touch_node(self, node: Node):
+    def touch_node(self, node: Node):  # guarded-by: caller(state_lock)
         """Re-derive a tracked node's whole row after an in-place label /
         taint / allocatable edit (lifecycle initialization, termination
         taint, disruption taint + rollback)."""
@@ -269,39 +269,39 @@ class ClusterArena:
         self._note_delta("touch")
 
     def apply_pod_bind(self, pod: Pod, node_name: str,
-                       old_node_name: str = ""):
+                       old_node_name: str = ""):  # guarded-by: caller(state_lock)
         if old_node_name and old_node_name != node_name:
             self._refresh_used(old_node_name)
         self._refresh_used(node_name)
         self._note_delta("pod_bind")
 
-    def apply_pod_unbind(self, node_name: str):
+    def apply_pod_unbind(self, node_name: str):  # guarded-by: caller(state_lock)
         self._refresh_used(node_name)
         self._note_delta("pod_unbind")
 
-    def apply_pod_add(self, pod: Pod):
+    def apply_pod_add(self, pod: Pod):  # guarded-by: caller(state_lock)
         # a pending pod touches no node row; the epoch bump is what
         # invalidates cached faces built over the old pod set
         self._note_delta("pod_add")
 
-    def apply_pod_remove(self, pod: Pod, node_name: str = ""):
+    def apply_pod_remove(self, pod: Pod, node_name: str = ""):  # guarded-by: caller(state_lock)
         if node_name:
             self._refresh_used(node_name)
         self._note_delta("pod_remove")
 
-    def _refresh_used(self, node_name: str):
+    def _refresh_used(self, node_name: str):  # guarded-by: caller(state_lock)
         slot = self._slot_of.get(node_name)
         if slot is not None:
             self._fill_used(slot, self._node_at[slot])
 
-    def invalidate(self, reason: str = ""):
+    def invalidate(self, reason: str = ""):  # guarded-by: caller(state_lock)
         """Flag the slab for full re-derivation on next gather — the
         always-correct escape hatch for events the delta API can't
         express."""
         self._needs_rebuild = True
         self._note_delta("invalidate")
 
-    def apply_ingest_flush(self, touched: Sequence[Node] = (),
+    def apply_ingest_flush(self, touched: Sequence[Node] = (),  # guarded-by: caller(state_lock)
                            removed: Sequence[str] = (),
                            used_names: Sequence[str] = ()):
         """Apply one tick's worth of coalesced ingestion events in a single
@@ -324,7 +324,7 @@ class ClusterArena:
             self._maybe_compact()
 
     # ---- snapshot / warm restart ------------------------------------------
-    def snapshot_state(self) -> Dict:
+    def snapshot_state(self) -> Dict:  # guarded-by: caller(state_lock)
         """Plain-data export of the whole slab + registries for the
         WarmRestart snapshot (state/snapshot.py).  Arrays are copied; the
         caller holds the state lock for the duration either way.  Node
@@ -348,7 +348,7 @@ class ClusterArena:
             "needs_rebuild": self._needs_rebuild,
         }
 
-    def restore_state(self, data: Dict) -> bool:
+    def restore_state(self, data: Dict) -> bool:  # guarded-by: caller(state_lock)
         """Adopt a `snapshot_state` export, rewiring every slot to the
         restored Cluster's node objects by name.  Returns False (leaving the
         arena as it was) when the snapshot can't be trusted: axis/scale
@@ -392,7 +392,7 @@ class ClusterArena:
         return True
 
     # ---- compaction / rebuild ---------------------------------------------
-    def compact(self):
+    def compact(self):  # guarded-by: caller(state_lock)
         """Densify the slab: move live rows to the front in cluster dict
         order (deterministic), drop tombstones, reset the free-list.  Pure
         row moves — values are already exact, so nothing recomputes."""
@@ -424,7 +424,7 @@ class ClusterArena:
             metrics.arena_compactions().inc()
             self._note_delta("compact")
 
-    def rebuild(self):
+    def rebuild(self):  # guarded-by: caller(state_lock)
         """Full re-derivation from cluster state — the fallback that makes
         every other path merely an optimization.  Keeps the class registry
         (columns recompute with the rows)."""

@@ -139,7 +139,7 @@ def _raise_on(err: int, name: str) -> None:
 def _on_cuda(*tensors) -> bool:
     """True for all-CUDA inputs, False for all-CPU; mixed devices raise."""
     devs = {t.device for t in tensors if t is not None}
-    kinds = {d.type for d in devs}
+    kinds = {t.device.type for t in tensors if t is not None}
     if kinds == {"cpu"}:
         return False
     if kinds == {"cuda"} and len(devs) == 1:
@@ -861,6 +861,8 @@ def step_cycles(cluster: int, threads: int, with_min: bool) -> float:
     _raise_on(_lib().kp_step_cycles(cluster, threads, STEP_CHAIN,
                                     int(with_min), _ptr(cycles),
                                     _stream(dev)), "step_cycles")
+    # a measurement's one read-back, never on a solve's path
+    # graftlint: disable=JH001
     return cycles[0].item() / STEP_CHAIN
 
 

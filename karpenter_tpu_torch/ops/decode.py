@@ -25,6 +25,11 @@ counted in the reference's decode families, and each demotion publishes a
 `assemble_slab_sharded` is the mesh drivers' assembler over the shard-major
 stitched slabs, and `merge_residual_used` charges the mesh pass's
 existing-node fills before the residual reconcile.
+
+Every function here is decode-hot (`graftlint` JH007/JH008 hold the
+whole module to the no-per-pod-Python discipline); the deliberate
+per-existing-node exceptions are `range()` loops over node counts, and
+the residual-reconcile merge is grandfathered in the baseline.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from ..obs.incidents import publish_incident
 from ..utils import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.decode")
+
+# graftlint: decode-path
 
 # Below this many pods the slab path is not worth the extra on-device sort:
 # the legacy decode's host argsort on a few hundred rows is already
@@ -356,7 +363,9 @@ def merge_residual_used(existing_used: Optional[np.ndarray],
                         E: int, R: int) -> np.ndarray:
     """True leftovers for the residual reconcile: charge the mesh pass's
     existing-node fills against each node's free space.  The per-eid loop
-    is bounded by the cluster's node count, never by pods."""
+    is the deliberate residual-reconcile exception (bounded by cluster
+    node count, grandfathered in
+    karpenter_tpu_torch/tools/graftlint-baseline.json)."""
     used2 = (existing_used.astype(np.float64).copy()
              if existing_used is not None
              else np.zeros((E, R), np.float64))

@@ -101,7 +101,7 @@ def _raise_on(err: int, name: str) -> None:
 def _on_cuda(*tensors) -> bool:
     """True for all-CUDA inputs, False for all-CPU; mixed devices raise."""
     devs = {t.device for t in tensors if t is not None}
-    kinds = {d.type for d in devs}
+    kinds = {t.device.type for t in tensors if t is not None}
     if kinds == {"cpu"}:
         return False
     if kinds == {"cuda"} and len(devs) == 1:

@@ -26,6 +26,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from ..analysis.lockorder import named_lock
 from ..utils import metrics, tracing
 
 log = logging.getLogger("karpenter_tpu_torch.refinery")
@@ -56,7 +57,7 @@ class GuideRefinery:
         self.device_lp = bool(device_lp)
         self.lp_health = lp_health
         self._q: "queue.Queue" = queue.Queue(maxsize=max_queue)
-        self._lock = threading.Lock()
+        self._lock = named_lock("refinery.inflight")
         self._inflight: set = set()     # guarded-by: _lock
         self._stop = threading.Event()
         self._upgrade = threading.Event()

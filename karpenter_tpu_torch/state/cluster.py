@@ -52,10 +52,13 @@ NOMINATION_WINDOW_S = 20.0
 class Cluster:
     def __init__(self, clock: Callable[[], float] = time.time):
         self.clock = clock
-        self.nodes: Dict[str, Node] = {}
-        self.nodeclaims: Dict[str, NodeClaim] = {}
-        self.pods: Dict[str, Pod] = {}
-        self.pdbs: Dict[str, PodDisruptionBudget] = {}
+        # the cluster has no lock of its own: every mutation happens under
+        # the Operator's state_lock, held by the manager's tick loop, the
+        # /v1 apply surface, and the metrics collector (graftlint LK)
+        self.nodes: Dict[str, Node] = {}  # guarded-by: caller(state_lock)
+        self.nodeclaims: Dict[str, NodeClaim] = {}  # guarded-by: caller(state_lock)
+        self.pods: Dict[str, Pod] = {}  # guarded-by: caller(state_lock)
+        self.pdbs: Dict[str, PodDisruptionBudget] = {}  # guarded-by: caller(state_lock)
         # optional demand observer (forecast/series.py DemandSeries): gets
         # pod_added/pod_removed/pod_bound callbacks; None unless the
         # Forecast gate wires one
@@ -64,11 +67,11 @@ class Cluster:
         # mutator below forwards its delta so consumers can gather warm
         # tensors instead of re-running tensorize_nodes; None unless
         # attach_arena (the IncrementalArena gate) attaches one
-        self.arena = None
+        self.arena = None  # guarded-by: caller(state_lock)
         # monotone mutation counter, bumped by EVERY mutator (arena attached
         # or not): cached tensorizations (SimulationArena faces, the
         # disruption fingerprint) compare it to detect staleness lazily
-        self.mutation_epoch = 0
+        self.mutation_epoch = 0  # guarded-by: caller(state_lock)
 
     def attach_arena(self, **kwargs):
         """Create and attach a ClusterArena seeded from current state; every
@@ -79,7 +82,7 @@ class Cluster:
         return self.arena
 
     # ---- warm restart (state/snapshot.py) ----
-    def snapshot_state(self) -> Dict:
+    def snapshot_state(self) -> Dict:  # guarded-by: caller(state_lock)
         """The object-graph half of the WarmRestart snapshot: the four
         state dicts plus the epoch.  Not copied — the whole snapshot
         payload pickles in one pass under the state lock, and sharing the
@@ -94,7 +97,7 @@ class Cluster:
             "mutation_epoch": self.mutation_epoch,
         }
 
-    def restore_state(self, data: Dict) -> None:
+    def restore_state(self, data: Dict) -> None:  # guarded-by: caller(state_lock)
         """Adopt unpickled state dicts wholesale.  The caller re-attaches
         (or restores) the arena and observer afterwards — this method
         leaves both wiring hooks untouched."""

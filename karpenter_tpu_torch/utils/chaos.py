@@ -9,12 +9,14 @@ of `ChaosRule`s; each rule owns an independent numpy Generator keyed on
 same (rules, seed, call sequence) always injects the same schedule — the
 property the chaos golden report depends on.
 
-Injection points are a closed registry (`POINTS`).  The `key` argument is
-the dynamic discriminator within a point (controller name, solver rung,
-cloud API name), so one rule can target `controller.reconcile` for just
-`disruption`.  `leader.lease` is the LeaderElector's seam (key "acquire"
-or "release", operator/manager.py); `refinery.refine` is registered as in
-the reference, which has no call site for it either.  Every injection is
+Injection points are a closed registry (`POINTS`): graftlint RS002
+rejects literal `CHAOS.inject("...")` names outside it.  The `key`
+argument is the dynamic discriminator within a point (controller name,
+solver rung, cloud API name), so one rule can target
+`controller.reconcile` for just `disruption`.  `leader.lease` is the
+LeaderElector's seam (key "acquire" or "release", operator/manager.py);
+`refinery.refine` is registered as in the reference, which has no call
+site for it either.  Every injection is
 counted in karpenter_chaos_injections_total{point, action}, and the flight
 recorder's bundles carry `counts()` and `fired_total()` (operator/manager.py).
 
@@ -46,9 +48,9 @@ from . import metrics
 
 log = logging.getLogger("karpenter_tpu_torch.chaos")
 
-# The closed injection-point registry.  Every `CHAOS.inject("<point>")`
-# call site names a member; new seams register here first so the chaos
-# scenario schema stays in sync.
+# The closed injection-point registry (graftlint RS002).  Every literal
+# `CHAOS.inject("<point>")` call site must name a member; new seams
+# register here first so the chaos scenario schema stays in sync.
 POINTS = frozenset({
     "controller.reconcile",   # manager tick, key = controller name
     "solver.pack",            # provisioning/disruption pack step, key = rung

@@ -12,7 +12,7 @@ epoch it acquired, and a stale check refuses the write and counts it in
 `refusals`, by operation — refusal proven, not inferred from an absence of
 attempts.
 
-The guarded funnels:
+The guarded funnels (graftlint RS004 keeps them closed):
 
   * `state/snapshot.py` — `SnapshotWriter`'s cadence and final writes and
     the `write_snapshot` seam itself ("two operators, one snapshot file");

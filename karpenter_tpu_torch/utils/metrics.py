@@ -14,8 +14,9 @@ from __future__ import annotations
 
 import bisect
 import math
-import threading
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+from ..analysis.lockorder import named_lock
 
 LabelKV = Tuple[Tuple[str, str], ...]
 
@@ -35,7 +36,7 @@ class _Metric:
         self.name = name
         self.help = help_text
         self.label_names = tuple(label_names)
-        self._lock = threading.Lock()
+        self._lock = named_lock("metrics.family")
 
     def _key(self, labels: Optional[Dict[str, str]]) -> LabelKV:
         return _labels_key(self.label_names, labels or {})
@@ -154,7 +155,7 @@ class Registry:
     """A named collection of metric families with text exposition."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = named_lock("metrics.registry")
         self._metrics: Dict[str, _Metric] = {}  # guarded-by: _lock
         self._collectors: list = []             # guarded-by: _lock
 
@@ -946,7 +947,7 @@ def make_cluster_collector(cluster, lock=None):
     prev_keys against concurrent scrapes."""
     import contextlib
     prev_keys: set = set()
-    my_lock = threading.Lock()
+    my_lock = named_lock("metrics.collector")
 
     FAMS = {"a": nodes_allocatable, "o": nodes_system_overhead,
             "r": nodes_pod_requests, "l": nodes_pod_limits,

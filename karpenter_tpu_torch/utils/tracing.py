@@ -34,6 +34,7 @@ from collections import deque
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional
 
+from ..analysis.lockorder import named_lock
 from . import metrics
 
 logger = logging.getLogger("karpenter.tracing")
@@ -155,7 +156,7 @@ class Tracer:
         self.enabled = True
         self.slow_ms = 0.0          # 0 disables slow-span WARNs
         self.max_traces = max_traces
-        self._lock = threading.Lock()
+        self._lock = named_lock("tracer")
         self._ring: deque = deque(maxlen=max_traces)  # guarded-by: _lock
         self._local = threading.local()
 

@@ -22,7 +22,9 @@ from . import metrics
 
 T = TypeVar("T")
 
-# the closed phase registry: every deadline names one of these
+# The closed phase registry (graftlint RS003): every literal
+# `run_with_deadline(..., phase="<name>")` must name a member so the
+# `phase` label of karpenter_watchdog_trips_total stays enumerable.
 PHASES = frozenset({
     "provision.solve",
     "disruption.simulate",

@@ -1338,6 +1338,8 @@ def disruption_replay(env: DisruptionEnv,
 
     it = env.provider.instance_types.base_catalog[0]
     o = it.offerings[0]
+    # the replay plants an instance no claim owns, for the GC to find
+    # graftlint: disable=RS004
     env.cloud.create_fleet(
         [env.kit.FleetOverride(it.name, o.zone, o.capacity_type, o.price)],
         tags={"karpenter.sh/cluster": env.provider.cluster_name})

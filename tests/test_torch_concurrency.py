@@ -4,6 +4,7 @@ the values they compare are equal."""
 
 import pytest
 
+from torch_lockorder import port_lock_order  # noqa: F401
 from torch_suites import Suite
 
 # the seq numbers each thread reads depend on the threads' timing; the

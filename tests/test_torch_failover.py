@@ -35,6 +35,7 @@ from torch_cases import clear_lp_caches
 from torch_cases import one_torch_thread  # noqa: F401
 from torch_ha import (PORT, REF, REPO, both, elector, ha_stack, operator,
                       provision)
+from torch_lockorder import port_lock_order  # noqa: F401
 from torch_refnative import reference_native_loaded  # noqa: F401
 
 GOLDEN = os.path.join(REPO, "tests", "golden")

@@ -44,6 +44,7 @@ from karpenter_tpu_torch.ops.health import LP_RUNGS, lp_ladder
 from karpenter_tpu_torch.ops.refinery import GuideRefinery
 from test_lpguide import _blend_pods, _catalog_2ratio
 from torch_cases import one_torch_thread  # noqa: F401
+from torch_lockorder import port_lock_order  # noqa: F401
 from torch_refnative import reference_native_loaded  # noqa: F401
 
 RTOL = 1e-3

@@ -27,6 +27,7 @@ import pytest
 
 from torch_cases import clear_lp_caches as clear_package_caches
 from torch_cases import one_torch_thread  # noqa: F401
+from torch_lockorder import port_lock_order  # noqa: F401
 from torch_refnative import reference_native_loaded  # noqa: F401
 from karpenter_tpu_torch._build import KernelError
 
@@ -208,7 +209,7 @@ def _fake_mgr(m, controllers, clock):
     op = SimpleNamespace(
         options=m.options.Options(supervisor_circuit_threshold=5),
         clock=clock, recorder=m.events.Recorder(clock=clock),
-        state_lock=threading.RLock(), cluster=cluster, node_classes={})
+        state_lock=threading.Lock(), cluster=cluster, node_classes={})
     return m.manager.ControllerManager(op, controllers, clock=clock)
 
 
@@ -695,11 +696,21 @@ def test_kernel_fault_in_a_v1_solve_answers_500():
 
 
 def test_state_lock_is_shared_and_reentrant():
+    """The manager shares the operator's state lock, which reenters as the
+    reference's does: not at all (a plain `named_lock("state")`), so a
+    second acquire on the holding thread would wait."""
     clock = [100.0]
+
+    def reentry(m):
+        lock = _operator(m, clock).state_lock
+        with lock:                  # a /v1 handler's hold
+            again = lock.acquire(blocking=False)
+            if again:
+                lock.release()
+        return again
+    assert [reentry(m) for m in (REF, PORT)] == [False, False]
     op, _, mgr = _manager(PORT, clock)
     assert mgr._state_lock is op.state_lock
-    with op.state_lock:             # a /v1 handler's hold
-        mgr.tick()                  # the tick re-enters on the same thread
     blocked = threading.Event()
 
     def tick_elsewhere():

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 from torch_cases import clear_lp_caches
+from torch_lockorder import port_lock_order  # noqa: F401
 from torch_suites import Suite, four_types, package, port_on_cpu
 from torch_refnative import reference_native_loaded  # noqa: F401
 

@@ -1,9 +1,9 @@
 """The observability lint's trip-site and SLI rules run over the port.
 
-`karpenter_tpu/analysis/observability.py`'s `ObservabilityChecker` is read
-as it is; `PortObservabilityChecker` maps its paths to the port's
-(`utils/metrics.py`, `obs/slo.py`, the `obs/` exemption) and runs two of
-its rules over `karpenter_tpu_torch/`:
+`PortObservabilityChecker` is the port's own `ObservabilityChecker`
+(`karpenter_tpu_torch/analysis/observability.py`) with two of its rules,
+its paths taken from a package's name (`utils/metrics.py`, `obs/slo.py`,
+the `obs/` exemption), so that it runs over either package:
 
 - OB006: every trip-counter increment (supervisor quarantines, watchdog
   trips, fence refusals, ladder and decode transitions, gang rejections)
@@ -18,9 +18,9 @@ publish removed, an SLI family misspelt), so neither passes vacuously.
 import ast
 import collections
 
-from karpenter_tpu.analysis.core import SourceFile, iter_sources
-from karpenter_tpu.analysis.observability import (ObservabilityChecker,
-                                                  _trip_inc_family)
+from karpenter_tpu_torch.analysis.core import SourceFile, iter_sources
+from karpenter_tpu_torch.analysis.observability import (
+    ObservabilityChecker, _trip_inc_family)
 
 from torch_ha import REPO
 

@@ -179,12 +179,15 @@ def _port_helpers():
     return mod
 
 
-def _load(suite: str, package: str, transform) -> types.ModuleType:
+def _load(suite: str, package: str, transform,
+          port_source=None) -> types.ModuleType:
     path = TESTS / f"{suite}.py"
     src = path.read_text()
     if package != "karpenter_tpu":
         _port_helpers()
         src = _port_source(src)
+        if port_source is not None:
+            src = port_source(src)
     tree = transform.visit(ast.parse(src, str(path)))
     ast.fix_missing_locations(tree)
     mod = types.ModuleType(f"_{package}__{suite}")
@@ -310,19 +313,24 @@ class Suite:
     are checked but not recorded: their order is the threads'
     interleaving.  `ref_setup(monkeypatch)`, when given, configures the
     reference before each of its runs: the port's configuration, where the
-    two differ on purpose."""
+    two differ on purpose.  `port_source(src)`, when given, rewrites the
+    port's copy of the suite's source after its package names are mapped:
+    where a port module has another name, or a case another body."""
 
-    def __init__(self, suite: str, bounds=(), outcomes=(), ref_setup=None):
+    def __init__(self, suite: str, bounds=(), outcomes=(), ref_setup=None,
+                 port_source=None):
         self.suite = suite
         self.bounds = tuple(bounds)
         self.outcomes = tuple(outcomes)
         self.ref_setup = ref_setup
+        self.port_source = port_source
         self._mods = {}
 
     def module(self, package, mode=_Observe):
         key = (package, mode)
         if key not in self._mods:
-            self._mods[key] = _load(self.suite, package, mode())
+            self._mods[key] = _load(self.suite, package, mode(),
+                                    self.port_source)
         return self._mods[key]
 
     def _items(self, mod):
