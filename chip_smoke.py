@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; the last line is printed only when all
 pass):
 
-  1. probe   — the card's name and power limit (nvidia-smi), torch, CUDA
-               and nvcc versions; then the port's own lint (graftlint,
+  1. probe   — the card's name and power limit (nvidia-smi), torch, CUDA,
+               nvcc, scipy, numpy, PyYAML and Triton versions ("triton
+               absent" where it does not import); then the port's own lint (graftlint,
                karpenter_tpu_torch/analysis/) in process on the card's
                host: 0 new findings, 0 stale baseline entries, neither
                `jax` nor the JAX package loaded (`[lint]`);
@@ -260,7 +261,11 @@ pass):
                50 000 Pod manifests against GOLDEN_V1_SOLVE, timed once
                with the split decode / solve / response — and
                `python3 -m karpenter_tpu_torch` as a child process
-               (/readyz, a small /v1/solve, exit 0 on SIGTERM); (d) every
+               (/readyz, a small /v1/solve, exit 0 on SIGTERM; its peak
+               RSS, `VmHWM` before the signal or, where /proc lacks it,
+               the largest of its `VmRSS` read every 20 ms, must be at
+               most the memory limit of deploy/karpenter-tpu-torch.yaml
+               over 1.5: the `[deploy]` line); (d) every
                kernel wrapper those paths launched against its plain
                version on the inputs of its last call on each path.
  16. robustness — after phase 15: (a) the native C++ packer
@@ -416,6 +421,21 @@ pass):
                natural dims and iterations; the padded envelope's bytes
                are printed beside it, bounding nothing); the records join
                the pdhg row (`screen`, `sweeps`).
+ 22. the root tools on the card's host (no JAX there) — after phase 21:
+               `karpenter_tpu_torch.tools.{simcheck,gendocs,
+               allocatable_diff,convert}` in process through `main(argv)`,
+               stdout captured, on `workloads.tool_cases` (simcheck on every
+               scenarios/*.yaml but long-soak.yaml, gendocs and
+               allocatable_diff over the whole catalog, the latter also
+               against an observed file, convert on the legacy
+               manifests): each run's exit code, stdout digest and last
+               line of stderr against `workloads.GOLDEN_TOOLS` (the JAX
+               package's tools give the same; tests/test_torch_tools.py),
+               no kernel launched; meanwhile `python3 -m
+               karpenter_tpu_torch.tools.simcheck scenarios/diurnal.yaml`
+               as a process of its own must exit 0 with the golden's
+               stdout.  `[tools]` lines give each run's host ms.  Paid for
+               by fewer timing-only repeats (`P50_ITERS` 7 -> 5).
 
 The timings also give K2's time per class step at the headline, the live
 round 2 and the megafleet's row 17, and K5's per row step at each sweep
@@ -518,7 +538,14 @@ def probe(torch):
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(f"[probe] nvcc: {nvcc_line}")
     import scipy
+    import yaml
     log(f"[probe] scipy {scipy.__version__}, numpy {np.__version__}")
+    try:
+        import triton
+        tri = f"triton {triton.__version__}"
+    except Exception:
+        tri = "triton absent"
+    log(f"[probe] PyYAML {yaml.__version__}, {tri}")
     return card
 
 
@@ -1019,7 +1046,12 @@ def main_path(torch, pods, catalog, pools, problem, ex):
     return launches, prob
 
 
-def p50_ms(fn, iters=7, sync=None):
+# warm timing repeats of phases 4, 6 and 8 (7 before phase 22 came): timing
+# only, no check reads them
+P50_ITERS = 5
+
+
+def p50_ms(fn, iters=P50_ITERS, sync=None):
     xs = []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -2402,7 +2434,7 @@ def guided_timings(torch, card, problem, masters):
         solve_classpack(problem)
     out["guided headline, cold (mix caches cleared)"] = p50_ms(cold, 1, sync)
     out["guided headline, warm"] = p50_ms(lambda: solve_classpack(problem),
-                                          7, sync)
+                                          P50_ITERS, sync)
 
     def cold_dev():
         clear_lp_caches()
@@ -2413,10 +2445,10 @@ def guided_timings(torch, card, problem, masters):
     for C, prob in workloads.lp_problems().items():
         ops = workloads.lp_operands(prob)
         out[f"exact_lp_mix lp-{C}, HiGHS"] = p50_ms(
-            lambda: lpguide.exact_lp_mix(*ops), 7)
+            lambda: lpguide.exact_lp_mix(*ops))
         out[f"exact_lp_mix lp-{C}, device (PDHG, cold)"] = p50_ms(
             lambda: lpguide.exact_lp_mix(*ops, device=True,
-                                         lp_health=lp_ladder()), 7, sync)
+                                         lp_health=lp_ladder()), sync=sync)
     for k, (p50, xs) in out.items():
         log(f"[time] {k}: p50 {p50:.3f} ms over {len(xs)} runs (min "
             f"{min(xs):.3f}, max {max(xs):.3f}) on {card}")
@@ -4899,6 +4931,7 @@ def v1_process(card):
     proc = subprocess.Popen([sys.executable, "-m", "karpenter_tpu_torch",
                              "--metrics-port", "0"], cwd=REPO,
                             stderr=subprocess.PIPE, text=True)
+    rss = RssSampler(proc.pid)
     try:
         port, deadline, seen = None, time.time() + 300, []
         while port is None and time.time() < deadline:
@@ -4922,17 +4955,93 @@ def v1_process(card):
         solve_ms = (time.perf_counter() - t) * 1e3
         check(code == 200 and resp["nodes"] and not resp["unschedulable"],
               f"/v1/solve: {code} {str(resp)[:2000]}")
+        hwm_kib = proc_status_kib(proc.pid, "VmHWM")
+        rss.stop()
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
         check(rc == 0, f"python3 -m karpenter_tpu_torch exited {rc} on "
                        f"SIGTERM")
     finally:
+        rss.stop()
         if proc.poll() is None:
             proc.kill()
             proc.wait()
     log(f"[v1] python3 -m karpenter_tpu_torch: up in {up:.3f} s, /readyz "
         f"200, /v1/solve of 600 pods {solve_ms:.3f} ms "
         f"({len(resp['nodes'])} nodes), exit 0 on SIGTERM, on {card}")
+    deploy_memory(card, hwm_kib, rss)
+
+
+DEPLOY_MANIFEST = "deploy/karpenter-tpu-torch.yaml"
+DEPLOY_HEADROOM = 1.5   # the manifest's memory limit over the measured peak
+
+
+def proc_status_kib(pid: int, key: str):
+    """A field of /proc/<pid>/status in KiB (`VmHWM`, `VmRSS`), or None
+    where the kernel does not report it or the process is gone."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith(f"{key}:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return None
+
+
+class RssSampler:
+    """A process's `VmRSS`, read every 20 ms on a thread until `stop()`:
+    the largest reading (KiB) and the number of readings."""
+
+    def __init__(self, pid):
+        import threading
+        self.pid, self.peak_kib, self.reads = pid, 0, 0
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._done.wait(0.02):
+            kib = proc_status_kib(self.pid, "VmRSS")
+            if kib is not None:
+                self.peak_kib = max(self.peak_kib, kib)
+                self.reads += 1
+
+    def stop(self):
+        self._done.set()
+        self._thread.join()
+
+
+def deploy_memory(card, hwm_kib, rss):
+    """15(c): the operator process's peak RSS — the larger of `VmHWM` read
+    before SIGTERM (None where /proc lacks it, as on the card's host) and
+    the largest `VmRSS` reading of its life (`rss`, an RssSampler) —
+    against the memory limit of the port's deployment manifest, which must
+    be at least DEPLOY_HEADROOM times it.  (wait4's `ru_maxrss` is no
+    measure: it keeps the forking parent's resident set from before the
+    exec.)"""
+    import yaml
+    from karpenter_tpu_torch.api.resources import MEMORY, parse_quantity
+    with open(os.path.join(REPO, DEPLOY_MANIFEST)) as f:
+        deploy = next(d for d in yaml.safe_load_all(f)
+                      if d and d["kind"] == "Deployment")
+    ctr = deploy["spec"]["template"]["spec"]["containers"][0]
+    limit = ctr["resources"]["limits"]["memory"]
+    peak_kib = max(hwm_kib or 0, rss.peak_kib)
+    check(peak_kib > 0, f"[deploy] no peak RSS: VmHWM {hwm_kib}, "
+                        f"{rss.reads} VmRSS readings")
+    peak = peak_kib * 1024
+    log(f"[deploy] python3 -m karpenter_tpu_torch: peak RSS {peak_kib} KiB "
+        f"= {peak / 2**20:.1f} MiB (VmHWM before SIGTERM "
+        f"{'not in /proc' if hwm_kib is None else f'{hwm_kib} KiB'}, "
+        f"largest of {rss.reads} VmRSS readings, 20 ms apart, "
+        f"{rss.peak_kib} KiB) after /readyz and a 600-pod "
+        f"/v1/solve; {DEPLOY_MANIFEST}'s memory limit {limit} is "
+        f"{parse_quantity(limit, MEMORY) / peak:.2f}x it (at least "
+        f"{DEPLOY_HEADROOM}x), on {card}")
+    check(parse_quantity(limit, MEMORY) >= DEPLOY_HEADROOM * peak,
+          f"{DEPLOY_MANIFEST}: memory limit {limit} under {DEPLOY_HEADROOM}x "
+          f"the operator process's peak RSS of {peak / 2**20:.1f} MiB")
 
 
 def phase15(torch, card, err):
@@ -7104,6 +7213,99 @@ def phase21(torch, card, err, rows):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the root tools on the card's host
+# ---------------------------------------------------------------------------
+
+TOOLS_M_SCENARIO = "diurnal.yaml"   # simcheck's `-m` run, a process of its own
+
+
+def run_tool(name, argv):
+    """A port tool's `main(argv)` in process, stdout and stderr captured:
+    (exit code, stdout, last line of stderr, host ms)."""
+    import contextlib
+    import importlib
+    import io
+    tool = importlib.import_module(f"karpenter_tpu_torch.tools.{name}")
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tool.main(argv)
+    ms = (time.perf_counter() - t0) * 1e3
+    lines = err.getvalue().strip().splitlines()
+    return rc, out.getvalue(), lines[-1] if lines else "", ms
+
+
+def phase22(card):
+    """Phase 22, the root tools on the card's host (no JAX there): simcheck,
+    gendocs, allocatable_diff and convert in process through `main(argv)`
+    on `workloads.tool_cases`, each run's exit code, stdout digest and last
+    line of stderr against GOLDEN_TOOLS, no kernel launched; meanwhile
+    `python3 -m karpenter_tpu_torch.tools.simcheck` on diurnal.yaml as a
+    process of its own: exit 0, its stdout the golden's."""
+    import tempfile
+    import threading
+    import yaml
+    from karpenter_tpu_torch import workloads
+    t0 = time.perf_counter()
+    argv = [sys.executable, "-m", "karpenter_tpu_torch.tools.simcheck",
+            os.path.join("scenarios", TOOLS_M_SCENARIO)]
+    proc = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    sub = {}
+
+    def wait():
+        sub["out"], sub["err"] = proc.communicate(timeout=300)
+        sub["s"] = time.perf_counter() - t0
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    try:
+        before = all_launches()
+        by_tool, bad = {}, []
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-tools-") as tmp:
+            observed = os.path.join(tmp, "observed.yaml")
+            legacy = os.path.join(tmp, "legacy.yaml")
+            with open(observed, "w") as f:
+                yaml.safe_dump(workloads.TOOLS_OBSERVED, f)
+            with open(legacy, "w") as f:
+                yaml.safe_dump_all(workloads.LEGACY_DOCS, f)
+            for key, tool, args in workloads.tool_cases(
+                    os.path.join(REPO, "scenarios"), observed, legacy):
+                rc, out, last, ms = run_tool(tool, args)
+                got = (rc, workloads.tool_digest(tool, out), last)
+                same = got == workloads.GOLDEN_TOOLS[key]
+                by_tool[tool] = by_tool.get(tool, 0.0) + ms
+                log(f"[tools] {key}: exit {rc}, {len(out)} chars, sha256 "
+                    f"{got[1][:16]}{f', stderr {last!r}' if last else ''}: "
+                    f"{'equal to' if same else 'NOT'} GOLDEN_TOOLS; "
+                    f"{ms:.3f} ms of host on {card}")
+                if not same:
+                    bad.append(f"{key}: {got} against "
+                               f"{workloads.GOLDEN_TOOLS[key]}")
+        after = all_launches()
+        launched = {k: n - before[k] for k, n in after.items()
+                    if n != before[k]}
+        waiter.join(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(not bad, f"[tools] {len(bad)} run(s) off GOLDEN_TOOLS: {bad}")
+    check(not launched, f"[tools] the tools launched kernels: {launched}")
+    want = workloads.GOLDEN_TOOLS[f"simcheck {TOOLS_M_SCENARIO}"]
+    check("out" in sub and proc.returncode == 0
+          and workloads.tool_digest("simcheck", sub["out"]) == want[1],
+          f"[tools] {' '.join(argv[1:])}: exit {proc.returncode}, stdout "
+          f"{sub.get('out', '')[-1000:]!r}, stderr "
+          f"{sub.get('err', '')[-2000:]!r}")
+    log(f"[tools] python3 {' '.join(argv[1:])}: exit 0, stdout equal to "
+        f"GOLDEN_TOOLS, {sub['s']:.3f} s from its start, beside the "
+        f"in-process runs, on {card}")
+    log(f"[tools] host ms by tool: "
+        f"{json.dumps({k: round(v, 3) for k, v in by_tool.items()})}; no "
+        f"kernel launched; phase 22 {time.perf_counter() - t0:.3f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7197,7 +7399,7 @@ def join_paths(rows, err, paths):
 
 def _phases_14_on(torch, card, err, rows, scans, snap, t_start,
                   problem, mega) -> int:
-    """Phases 14-20 and the closing lines (`main`'s tail, with phase 14's
+    """Phases 14-22 and the closing lines (`main`'s tail, with phase 14's
     snapshot in `snap`, the headline problem and the megafleet for phase
     19)."""
     arena_paths = phase14(torch, card, err, snap=snap)
@@ -7230,6 +7432,9 @@ def _phases_14_on(torch, card, err, rows, scans, snap, t_start,
     bound_paths = phase21(torch, card, err, rows)
     join_paths(rows, err, bound_paths)
     log(f"[bounds] phase 21 done ({time.perf_counter() - t_start:.1f} s "
+        f"so far)")
+    phase22(card)
+    log(f"[tools] phase 22 done ({time.perf_counter() - t_start:.1f} s "
         f"so far)")
     bad = [m for m in sys.modules if m == "jax" or m == "karpenter_tpu"
            or m.startswith("karpenter_tpu.")]

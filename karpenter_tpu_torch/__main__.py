@@ -20,6 +20,7 @@ import logging
 import os
 import signal
 import sys
+import threading
 
 from .operator import ControllerManager, Operator, Options, build_controllers
 from .utils.tracing import configure_logging
@@ -41,6 +42,17 @@ def _build_leader(options):
     return LeaderElector(lease, identity, ttl=options.lease_ttl_s)
 
 
+def _stop_on_signal(manager):
+    """The SIGTERM / SIGINT handler.  It runs on the main thread, where a
+    tick may hold the state lock (a plain lock) that `stop()` takes, so it
+    only ends `run()` after that tick, from a thread of its own; `main`
+    then drains with `stop()`."""
+    def handler(*_):
+        threading.Thread(target=manager.request_stop, name="stop-signal",
+                         daemon=True).start()
+    return handler
+
+
 def main(argv=None, device="cuda") -> int:
     # options first: the log handler (text vs json, slow-span threshold)
     # is itself configured by flags/env
@@ -60,8 +72,8 @@ def main(argv=None, device="cuda") -> int:
     logging.info("karpenter-tpu up: cluster=%s endpoints=127.0.0.1:%s "
                  "controllers=%s", options.cluster_name, port,
                  sorted(manager.controllers))
-    signal.signal(signal.SIGTERM, lambda *_: manager.stop())
-    signal.signal(signal.SIGINT, lambda *_: manager.stop())
+    signal.signal(signal.SIGTERM, _stop_on_signal(manager))
+    signal.signal(signal.SIGINT, _stop_on_signal(manager))
     try:
         manager.run()
     finally:

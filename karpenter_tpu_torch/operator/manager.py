@@ -884,6 +884,11 @@ class ControllerManager:
                 break
             self._stop.wait(tick_seconds)
 
+    def request_stop(self) -> None:
+        """End `run()` after its current tick, taking no lock (the process
+        entry point's signal handler calls it); `stop()` then drains."""
+        self._stop.set()
+
     def stop(self) -> None:
         self._stop.set()
         first = self.phase != "DRAINING"

@@ -24,15 +24,36 @@ Layout:
 
 CLI: ``python -m karpenter_tpu_torch.sim scenarios/diurnal.yaml --seed 0``.
 See docs/simulation.md for the schema and report glossary.
+
+The names below load their module at first use: the scenario modules are
+host code, and `tools/simcheck.py`, which needs only them, imports neither
+the controller stack nor torch.
 """
 
-from .clock import EventHeap, VirtualClock
-from .harness import SimHarness, SimRun
-from .report import build_report, report_to_json
-from .scenario import Scenario, ScenarioError, expand, load_scenario
+import importlib
+
+_SOURCES = {
+    "EventHeap": "clock", "VirtualClock": "clock",
+    "SimHarness": "harness", "SimRun": "harness",
+    "Scenario": "scenario", "ScenarioError": "scenario",
+    "expand": "scenario", "load_scenario": "scenario",
+    "build_report": "report", "report_to_json": "report",
+}
+_SUBMODULES = frozenset({"clock", "events", "harness", "report", "scenario"})
 
 __all__ = [
     "EventHeap", "VirtualClock", "SimHarness", "SimRun",
     "Scenario", "ScenarioError", "expand", "load_scenario",
     "build_report", "report_to_json",
 ]
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
+    if name not in _SOURCES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_SOURCES[name]}"),
+                    name)
+    globals()[name] = value
+    return value

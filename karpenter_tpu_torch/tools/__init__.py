@@ -1,2 +1,6 @@
-"""Operational helper tools (`python -m karpenter_tpu_torch.tools.trace_demo`,
-`python -m karpenter_tpu_torch.tools.certify`)."""
+"""Operational helper tools, each run as `python -m
+karpenter_tpu_torch.tools.<name>`: trace_demo (the tracing and incident
+walkthrough), certify (cost bounds), graftlint (static analysis), simcheck
+(scenario validation), gendocs (the instance-types page),
+allocatable_diff (the overhead model against observed allocatable) and
+convert (legacy manifests)."""

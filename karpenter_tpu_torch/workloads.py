@@ -71,6 +71,14 @@ hashed;
 `without_obs` strips a gated report back to the ungated one.
 `GOLDEN_INCIDENTS` and `GOLDEN_SLO` hold the JAX package's digests
 (tests/test_torch_obs.py), which `chip_smoke.py` checks on the card.
+
+The root tools (`karpenter_tpu_torch.tools.{simcheck,gendocs,
+allocatable_diff,convert}`): `tool_cases` lists their runs on
+`TOOLS_SCENARIOS`, the whole catalog, `TOOLS_OBSERVED` and `LEGACY_DOCS`,
+`tool_digest` hashes an output, and `GOLDEN_TOOLS` holds each run's exit
+code, digest and last line of stderr, which the JAX package's tools
+reproduce (tests/test_torch_tools.py) and `chip_smoke.py` checks on the
+card's host.
 """
 
 from __future__ import annotations
@@ -2179,4 +2187,117 @@ GOLDEN_SLO: Dict[str, Dict[str, object]] = {
         "bytes": 4465,
         "ledger_entries": 53,
         "sha256": "758754b812dbf71900f8d6b9f1fbf2eb763d2f6c561a71177fe19094951ce2d0"},
+}
+
+
+# ---------------------------------------------------------------------------
+# the root tools
+# ---------------------------------------------------------------------------
+
+# simcheck's scenarios on the card's host: every scenarios/*.yaml but
+# long-soak.yaml, whose expansion alone takes 14-17 s of host (the CPU tests
+# run it)
+TOOLS_SCENARIOS = (
+    "chaos-storm.yaml", "diurnal-forecast.yaml", "diurnal.yaml",
+    "failover-drill.yaml", "gang-churn-storm.yaml", "ice-starvation.yaml",
+    "mixed-priority-diurnal.yaml", "spot-reclaim-storm-forecast.yaml",
+    "spot-reclaim-storm.yaml", "steady-state-drip.yaml")
+TOOLS_CATALOG = 1000          # past the catalog's 703 types: all of them
+# observed allocatable for allocatable_diff: m5.large as the overhead model
+# predicts it, c5.xlarge 80m of cpu over it
+TOOLS_OBSERVED = {"m5.large": {"cpu": "1930m", "memory": "6304668057"},
+                  "c5.xlarge": {"cpu": "4", "memory": "6304668057"}}
+# tests/test_serialize.py's legacy Provisioner and NodeTemplate
+LEGACY_DOCS = [
+    {"apiVersion": "karpenter.tpu/v1alpha5",
+     "kind": "Provisioner",
+     "metadata": {"name": "default"},
+     "spec": {
+         "labels": {"team": "ml"},
+         "requirements": [
+             {"key": wk.CAPACITY_TYPE, "operator": "In", "values": ["spot"]}],
+         "taints": [{"key": "gpu", "effect": "NoSchedule", "value": "true"}],
+         "providerRef": {"name": "my-template"},
+         "ttlSecondsAfterEmpty": 30,
+         "ttlSecondsUntilExpired": 2592000,
+         "limits": {"resources": {"cpu": "100", "memory": "400Gi"}},
+         "weight": 20}},
+    {"apiVersion": "karpenter.tpu/v1alpha1",
+     "kind": "NodeTemplate",
+     "metadata": {"name": "my-template"},
+     "spec": {
+         "amiFamily": "Bottlerocket",
+         "subnetSelector": {"karpenter.sh/discovery": "cluster"},
+         "securityGroupSelector": {"karpenter.sh/discovery": "cluster"},
+         "amiSelector": {"team": "ml"},
+         "role": "KarpenterNodeRole",
+         "userData": 'k = "v"',
+         "blockDeviceMappings": [
+             {"deviceName": "/dev/xvda", "ebs": {"volumeSize": "100Gi"}}]}},
+]
+
+
+def tool_cases(scenarios_dir: str, observed: str,
+               legacy: str) -> List[Tuple[str, str, List[str]]]:
+    """The root tools' runs that `GOLDEN_TOOLS` holds, as (key, tool,
+    argv): `observed` and `legacy` are files holding `TOOLS_OBSERVED` and
+    `LEGACY_DOCS` as YAML."""
+    import os
+    cases = [(f"simcheck {name}", "simcheck",
+              [os.path.join(scenarios_dir, name)])
+             for name in TOOLS_SCENARIOS]
+    size = ["--catalog-size", str(TOOLS_CATALOG)]
+    cases += [
+        ("gendocs", "gendocs", ["--types", str(TOOLS_CATALOG)]),
+        ("allocatable_diff", "allocatable_diff", size),
+        ("allocatable_diff observed", "allocatable_diff",
+         [*size, "--observed", observed]),
+        ("convert", "convert", ["-f", legacy]),
+    ]
+    return cases
+
+
+def tool_digest(tool: str, stdout: str) -> str:
+    """sha256 of a tool's stdout; of convert's, over the parsed documents
+    (`json.dumps(docs, sort_keys=True)`), so that PyYAML's layout does not
+    count."""
+    if tool == "convert":
+        import yaml
+        stdout = json.dumps(list(yaml.safe_load_all(stdout)), sort_keys=True)
+    return hashlib.sha256(stdout.encode()).hexdigest()
+
+
+# (exit code, `tool_digest` of stdout, last line of stderr) of each of
+# `tool_cases`' runs, as the JAX package's tools give them
+# (tests/test_torch_tools.py; gendocs' header names the port's command)
+GOLDEN_TOOLS: Dict[str, Tuple[int, str, str]] = {
+    "simcheck chaos-storm.yaml": (
+        0, "20c983ad89dd699a88b82960247753471fc4195d0d857b569c5017b8187ea316", ""),
+    "simcheck diurnal-forecast.yaml": (
+        0, "1901f1977eb3a9799327498ff225ec0c06e994a975d7d2370944700b6f98c6c6", ""),
+    "simcheck diurnal.yaml": (
+        0, "30fa872c6bb61c11079ded7e66f9b43a03474788ac29c53742706e14d5741949", ""),
+    "simcheck failover-drill.yaml": (
+        0, "9363181832bf9236adf19ae0e15d175023d9eddcd38b90829f37f1e9931ca791", ""),
+    "simcheck gang-churn-storm.yaml": (
+        0, "1adf3d79d6e4a5f5993ec09d57d94334c1e3cf67e069f7941d3bc3e0c0455cb5", ""),
+    "simcheck ice-starvation.yaml": (
+        0, "04584e5c8ba9353b4525f7b09333d92fa5ece305adf82ce7f8a564af3091a4a4", ""),
+    "simcheck mixed-priority-diurnal.yaml": (
+        0, "469feba322df48361cd436f93ced6abb7c48398b50186943a9afb421f6e1037b", ""),
+    "simcheck spot-reclaim-storm-forecast.yaml": (
+        0, "7fc7e948958e59e6b0d049c268177d516c7c4db97ce1464a9bc93ef8a2943a08", ""),
+    "simcheck spot-reclaim-storm.yaml": (
+        0, "dd10e5fd799e7991d7be29c65f60be0939a41f766e2e182944c783ed3dcaebd2", ""),
+    "simcheck steady-state-drip.yaml": (
+        0, "79c5de6ff2e0db929bc972f72a1687a7306f825994a561d917e3463f2a41cd9a", ""),
+    "gendocs": (
+        0, "236fbfe0f243fd899d5b940b4da3d1ea394acfea0b3af9abb51c0c0470b7acaa", ""),
+    "allocatable_diff": (
+        0, "b3ddc2ed2c0f09f6902b07f3d683b5071f4bbb91fdc72fd729cbf5f37cba297e", ""),
+    "allocatable_diff observed": (
+        1, "b6d4b0da34677e497ed57ddb80a1fa62baeed85960dcbb720bf2d6d7ea4180aa",
+        "MISMATCH: ['c5.xlarge']"),
+    "convert": (
+        0, "784f9afa821de609a886c2b218dda69439561920e261ef98049202fe49c826f6", ""),
 }

@@ -376,3 +376,46 @@ def test_main_reaches_readiness_and_exits_0_on_sigterm():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+class _OneHolder:
+    """The state lock, but a second acquire on any thread fails after 5 s
+    where a plain lock would hang."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        assert self._lock.acquire(timeout=5), "the state lock, taken twice"
+
+    def __exit__(self, *exc):
+        self._lock.release()
+
+
+def test_a_signal_during_a_tick_ends_the_loop_without_the_state_lock():
+    """SIGTERM lands on the main thread, where a tick may hold the state
+    lock (the snapshot cadence writes under it): the entry point's handler
+    takes no state lock, `run()` ends after the tick, and `stop()` then
+    drains.  The handler once called `stop()` itself, which took the lock
+    again on the same thread and hung the process."""
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch import __main__ as entry
+    from karpenter_tpu_torch.operator.manager import ControllerManager
+    from karpenter_tpu_torch.utils.events import Recorder
+    clock = lambda: 0.0  # noqa: E731
+    op = SimpleNamespace(
+        options=Options(), clock=clock, recorder=Recorder(clock=clock),
+        state_lock=threading.Lock(),
+        cluster=SimpleNamespace(pending_pods=lambda: []), node_classes={})
+    mgr = ControllerManager(op, {}, clock=clock)
+    mgr._state_lock = _OneHolder()
+    handler = entry._stop_on_signal(mgr)
+    with mgr._state_lock:                    # a tick, mid-snapshot
+        handler(signal.SIGTERM, None)
+        assert mgr._stop.wait(5)
+    t0 = time.monotonic()
+    mgr.run(tick_seconds=0.01)               # the stop is already asked
+    mgr.stop()
+    assert time.monotonic() - t0 < 5
+    assert mgr.phase == "DRAINING"

@@ -54,6 +54,11 @@ _WALL_KEYS = frozenset({"duration_ms", "start_unix"})
 # ---------------------------------------------------------------------------
 
 def _text(s: str) -> str:
+    # a root tool's port names itself by module where the reference's names
+    # its script (gendocs' page header)
+    s = re.sub(r"python -m karpenter_tpu_torch\.tools\."
+               r"(simcheck|gendocs|allocatable_diff|convert)\b",
+               r"tools/\1.py", s)
     s = s.replace("karpenter_tpu_torch", "karpenter_tpu")
     return re.sub(r" at 0x[0-9a-fA-F]+", "", s)
 
@@ -161,6 +166,10 @@ class _Outcomes(_Observe):
 
 def _port_source(src: str) -> str:
     src = re.sub(r"\bkarpenter_tpu\b", "karpenter_tpu_torch", src)
+    # a root tool started as a script runs as the port's module
+    src = re.sub(r'os\.path\.join\((\w+), "tools", '
+                 r'"(simcheck|gendocs|allocatable_diff|convert)\.py"\)',
+                 r'"-m", "karpenter_tpu_torch.tools.\2"', src)
     src = re.sub(r"^(\s*)from helpers import", r"\1from _port_helpers import",
                  src, flags=re.M)
     return re.sub(r"^(\s*)import helpers\b", r"\1import _port_helpers as helpers",
